@@ -1,0 +1,226 @@
+"""Static model configs: the port's copy of color_neus_tpu/models/configs.py.
+
+Same dataclasses and the same reference-schema YAML mapping
+(renderer_config_from_cfg), so every config/*.yml loads 1:1. The kernel
+switches differ in meaning, because the port has its own kernels:
+
+  fused_sdf    auto | on | off. auto/on run the placement sweeps through
+               the hand-written CUDA kernel (ops/kernels/sdf_rays.py) for
+               CUDA tensors and its plain PyTorch version for CPU tensors;
+               off evaluates the sweeps through fields.sdf_value.
+  fused_core,  auto | off: the plain PyTorch render core (what the JAX
+  fused_march  package runs off-TPU). 'on' raises NotImplementedError:
+               the fused march kernels are ROADMAP Queue B item 1.
+
+RendererConfig holds only what the port reads. The JAX package's other
+renderer keys tune code the port does not have yet: renderer_config_from_cfg
+raises NotImplementedError when one of the training path's is set to
+anything but its default, and skips the mesh extraction's (N,
+EXTRACT_SPARSE, EXTRACT_PRECISION), since the port extracts no mesh yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class SDFConfig:
+    """SDF MLP (reference fields.py:12-116)."""
+    d_in: int = 3
+    d_out: int = 257
+    d_hidden: int = 256
+    n_layers: int = 8
+    skip_in: tuple = (4,)
+    multires: int = 6
+    bias: float = 0.5
+    scale: float = 3.0
+    geometric_init: bool = True
+    weight_norm: bool = True
+    inside_outside: bool = False
+
+
+@dataclass(frozen=True)
+class ColorConfig:
+    """IDR rendering MLP (reference fields.py:119-188)."""
+    d_feature: int = 256
+    mode: str = "idr"  # idr | no_view_dir | no_normal
+    d_in: int = 9
+    d_out: int = 3
+    d_hidden: int = 256
+    n_layers: int = 4
+    weight_norm: bool = True
+    multires_view: int = 4
+    squeeze_out: bool = True
+
+
+@dataclass(frozen=True)
+class RelightConfig:
+    """View-dependent residual MLP (reference fields.py:289-368)."""
+    d_in: int = 6
+    d_out: int = 3
+    d_hidden: int = 256
+    n_layers: int = 4
+    y_in_layer: int = 3
+    multires_view: int = 4
+    include_grad: bool = True
+    inv_sigmoid: bool = True
+
+
+@dataclass(frozen=True)
+class VarianceConfig:
+    """Single learnable s (reference fields.py:277-286)."""
+    init_val: float = 0.3
+
+
+@dataclass(frozen=True)
+class NeRFConfig:
+    """NeRF++ background MLP (reference fields.py:192-274)."""
+    depth: int = 8
+    width: int = 256
+    d_in: int = 4
+    d_in_view: int = 3
+    multires: int = 10
+    multires_view: int = 4
+    skips: tuple = (4,)
+
+
+FUSED_ROADMAP_ITEM = "ROADMAP.md Queue B item 1 (fused march training core)"
+
+
+@dataclass(frozen=True)
+class RendererConfig:
+    """Renderer hyperparameters (reference NeuS.py:71-93)."""
+    kind: str = "color_neus"  # "neus" | "color_neus"
+    n_samples: int = 64
+    n_importance: int = 64
+    n_outside: int = 0
+    up_sample_steps: int = 4
+    perturb: float = 1.0
+    fused_sdf: str = "auto"
+    fused_core: str = "auto"
+    fused_march: str = "auto"
+    # dtype of the no-grad placement sweeps: bfloat16 (default) or float32
+    sweep_dtype: str = "bfloat16"
+    # activation of the placement sweeps: softplus (reference) or relu
+    sweep_activation: str = "softplus"
+    sdf: SDFConfig = field(default_factory=SDFConfig)
+    color: ColorConfig = field(default_factory=ColorConfig)
+    relight: RelightConfig = field(default_factory=RelightConfig)
+    variance: VarianceConfig = field(default_factory=VarianceConfig)
+    nerf: NeRFConfig = field(default_factory=NeRFConfig)
+
+    def __post_init__(self):
+        _enums = {
+            "sweep_dtype": ("bfloat16", "float32"),
+            "sweep_activation": ("softplus", "relu"),
+            "kind": ("neus", "color_neus"),
+            "fused_sdf": ("auto", "on", "off"),
+            "fused_core": ("auto", "on", "off"),
+            "fused_march": ("auto", "on", "off"),
+        }
+        for name, allowed in _enums.items():
+            v = getattr(self, name)
+            if v not in allowed:
+                raise ValueError(
+                    f"RendererConfig.{name}={v!r} not in {allowed}")
+        for name in ("fused_core", "fused_march"):
+            if getattr(self, name) == "on":
+                raise NotImplementedError(
+                    f"RendererConfig.{name}='on': the port has no fused "
+                    f"render core yet; see {FUSED_ROADMAP_ITEM}")
+        if self.n_outside > 0:
+            raise NotImplementedError(
+                "n_outside > 0 (NeRF++ background) is not ported yet")
+
+
+# renderer keys of the JAX package whose code the port has not yet, with
+# their defaults there: the fused march (Queue B item 1), ray chunking and
+# the compute dtype of the render core
+_UNPORTED_KEYS = {
+    "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512, "MARCH_ACTS": "auto",
+    "MARCH_TILE": 0, "MARCH_STASH_BUDGET_GB": 13.5, "MARCH_BWD_PRECISION": "f32stash",
+    "THIN_DOTS": "hilo",
+}
+
+
+def _lower_get(d: dict, key: str, default):
+    """Fetch an UPPERCASE yaml key with a default."""
+    v = d.get(key, default)
+    if isinstance(v, list):
+        v = tuple(v)
+    return v
+
+
+def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
+    """Build a RendererConfig from a reference-schema dict (cfg.MODEL.RENDERER)."""
+    sdf = rcfg.get("SDF", {})
+    color = rcfg.get("COLOR", {})
+    relight = rcfg.get("RELIGHT", {})
+    dev = rcfg.get("DEVIATION", {})
+    nerf = rcfg.get("NERF", {})
+    for key, default in _UNPORTED_KEYS.items():
+        if rcfg.get(key, default) != default:
+            raise NotImplementedError(
+                f"MODEL.RENDERER.{key}={rcfg[key]!r}: the port has no code that reads "
+                f"it yet (default {default!r}); see ROADMAP.md")
+    kind = {"NeuS": "neus", "Color_NeuS": "color_neus"}.get(rcfg.get("TYPE", "NeuS"), rcfg.get("TYPE", "neus"))
+    if kind == "color_neus" and color.get("MODE", "idr") != "no_view_dir":
+        raise ValueError("Color_NeuS requires COLOR.MODE == 'no_view_dir' (reference Color_NeuS.py:14)")
+    return RendererConfig(
+        kind=kind,
+        n_samples=_lower_get(rcfg, "N_SAMPLES", 64),
+        n_importance=_lower_get(rcfg, "N_IMPORTANCE", 64),
+        n_outside=_lower_get(rcfg, "N_OUTSIDE", 0),
+        up_sample_steps=_lower_get(rcfg, "UP_SAMPLE_STEPS", 4),
+        perturb=_lower_get(rcfg, "PERTURB", 1.0),
+        fused_sdf=_lower_get(rcfg, "FUSED_SDF", "auto"),
+        fused_core=_lower_get(rcfg, "FUSED_CORE", "auto"),
+        fused_march=_lower_get(rcfg, "FUSED_MARCH", "auto"),
+        sweep_dtype=_lower_get(rcfg, "SWEEP_DTYPE", "bfloat16"),
+        sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
+        sdf=SDFConfig(
+            d_in=_lower_get(sdf, "D_IN", 3),
+            d_out=_lower_get(sdf, "D_OUT", 257),
+            d_hidden=_lower_get(sdf, "D_HIDDEN", 256),
+            n_layers=_lower_get(sdf, "N_LAYERS", 8),
+            skip_in=_lower_get(sdf, "SKIP_IN", (4,)),
+            multires=_lower_get(sdf, "MULTIRES", 6),
+            bias=_lower_get(sdf, "BIAS", 0.5),
+            scale=_lower_get(sdf, "SCALE", 3.0),
+            geometric_init=_lower_get(sdf, "GEOMETRIC_INIT", True),
+            weight_norm=_lower_get(sdf, "WEIGHT_NORM", True),
+            inside_outside=_lower_get(sdf, "INSIDE_OUTSIDE", False),
+        ),
+        color=ColorConfig(
+            d_feature=_lower_get(color, "D_FEATURE", 256),
+            mode=_lower_get(color, "MODE", "idr"),
+            d_in=_lower_get(color, "D_IN", 9),
+            d_out=_lower_get(color, "D_OUT", 3),
+            d_hidden=_lower_get(color, "D_HIDDEN", 256),
+            n_layers=_lower_get(color, "N_LAYERS", 4),
+            weight_norm=_lower_get(color, "WEIGHT_NORM", True),
+            multires_view=_lower_get(color, "MULTIRES_VIEW", 4),
+            squeeze_out=_lower_get(color, "SQUEEZE_OUT", True),
+        ),
+        relight=RelightConfig(
+            d_in=_lower_get(relight, "D_IN", 6),
+            d_out=_lower_get(relight, "D_OUT", 3),
+            d_hidden=_lower_get(relight, "D_HIDDEN", 256),
+            n_layers=_lower_get(relight, "N_LAYERS", 4),
+            y_in_layer=_lower_get(relight, "Y_IN_LAYER", 3),
+            multires_view=_lower_get(relight, "MULTIRES_VIEW", 4),
+            include_grad=_lower_get(relight, "INCLUDE_GRAD", True),
+            inv_sigmoid=_lower_get(relight, "INV_SIGMOID", True),
+        ),
+        variance=VarianceConfig(init_val=_lower_get(dev, "INIT_VAL", 0.3)),
+        nerf=NeRFConfig(
+            depth=_lower_get(nerf, "D", 8),
+            width=_lower_get(nerf, "W", 256),
+            d_in=_lower_get(nerf, "D_IN", 4),
+            d_in_view=_lower_get(nerf, "D_IN_VIEW", 3),
+            multires=_lower_get(nerf, "MULTIRES", 10),
+            multires_view=_lower_get(nerf, "MULTIRES_VIEW", 4),
+            skips=_lower_get(nerf, "SKIPS", (4,)),
+        ),
+    )

@@ -1,0 +1,297 @@
+"""NeuS volume renderer: port of color_neus_tpu/models/neus.py.
+
+The hierarchy (coarse samples + 4 SDF-guided up-sample rounds) runs
+under torch.no_grad(), its SDF sweeps through the placement-sweep kernel
+(ops/kernels/sdf_rays.py) unless fused_sdf='off'. The render core is the
+plain PyTorch path, the one the JAX package runs off-TPU
+(fused_core/fused_march auto -> plain, neus.py:257-265, 368-376).
+
+Behavioural quirks kept from the reference (SURVEY §3.6):
+  * up-sampling uses fixed inv_s = 64 * 2^i, not the learned one
+  * cos_anneal_ratio defaults to 0 (the trainer never schedules it)
+  * alpha = clip((sig(prev*s)-sig(next*s)+1e-5)/(sig(prev*s)+1e-5), 0, 1)
+  * eikonal averaged over the |p| < 1.2 relaxed sphere
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from color_neus_torch.models import fields
+from color_neus_torch.models.configs import RendererConfig
+from color_neus_torch.ops.kernels.sdf_rays import resolve_sdf_sweep_fn
+from color_neus_torch.ops.rays import sample_pdf
+
+
+def init_renderer(rcfg: RendererConfig, generator, device="cpu") -> nn.ModuleDict:
+    params = {
+        "sdf": fields.init_sdf(rcfg.sdf, generator, device),
+        "color": fields.init_color(rcfg.color, generator, device),
+        "variance": fields.init_variance(rcfg.variance, device),
+    }
+    if rcfg.kind == "color_neus":
+        params["relight"] = fields.init_relight(rcfg.relight, generator, device)
+    return nn.ModuleDict(params)
+
+
+# ---------------------------------------------------------------------------
+# Shared compositing math
+# ---------------------------------------------------------------------------
+
+def exclusive_cumprod_weights(alpha: torch.Tensor) -> torch.Tensor:
+    """weights = alpha * prod_{j<i} (1 - alpha_j + 1e-7)  (NeuS.py:269-270)."""
+    trans = torch.cumprod(1.0 - alpha + 1e-7, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+    return alpha * trans
+
+
+def section_dists(z_vals: torch.Tensor, sample_dist: float):
+    """Per-section lengths with the trailing sample_dist pad, and mids."""
+    d = z_vals[:, 1:] - z_vals[:, :-1]
+    dists = torch.cat([d, torch.full_like(d[:, :1], sample_dist)], dim=-1)
+    mid_z_vals = z_vals + dists * 0.5
+    return dists, mid_z_vals
+
+
+def neus_alpha(sdf, iter_cos, dists, inv_s):
+    """Section alpha from estimated prev/next SDF (NeuS.py:244-254); clipped."""
+    est_next = sdf + iter_cos * dists * 0.5
+    est_prev = sdf - iter_cos * dists * 0.5
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+    return alpha, prev_cdf
+
+
+# the reference never schedules the cos annealing (NeuS_Trainer.py:124)
+COS_ANNEAL_RATIO = 0.0
+
+
+def anneal_cos(true_cos, cos_anneal_ratio):
+    """The 'not dead at init' annealed cos (NeuS.py:241-242); always <= 0."""
+    return -(F.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+             + F.relu(-true_cos) * cos_anneal_ratio)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical sampling (no-grad)
+# ---------------------------------------------------------------------------
+
+def up_sample_z(rays_o, rays_d, z_vals, sdf, n_importance, inv_s):
+    """One SDF-sign-change-guided importance round (NeuS.py:136-181).
+    The alpha here is not clipped (unlike neus_alpha)."""
+    # |ro + rd z|^2 as a per-ray quadratic in z: no [R, S, 3] points
+    a = torch.sum(rays_o * rays_o, dim=-1, keepdim=True)
+    b = 2.0 * torch.sum(rays_o * rays_d, dim=-1, keepdim=True)
+    c = torch.sum(rays_d * rays_d, dim=-1, keepdim=True)
+    radius = torch.sqrt(torch.clamp_min(a + b * z_vals + c * z_vals * z_vals, 0.0))
+    inside_sphere = (radius[:, :-1] < 1.0) | (radius[:, 1:] < 1.0)
+
+    prev_sdf, next_sdf = sdf[:, :-1], sdf[:, 1:]
+    prev_z, next_z = z_vals[:, :-1], z_vals[:, 1:]
+    mid_sdf = (prev_sdf + next_sdf) * 0.5
+    cos_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+
+    prev_cos = torch.cat([torch.zeros_like(cos_val[:, :1]), cos_val[:, :-1]], dim=-1)
+    cos_val = torch.minimum(prev_cos, cos_val)
+    cos_val = torch.clamp(cos_val, -1e3, 0.0) * inside_sphere
+
+    dist = next_z - prev_z
+    prev_esti = mid_sdf - cos_val * dist * 0.5
+    next_esti = mid_sdf + cos_val * dist * 0.5
+    prev_cdf = torch.sigmoid(prev_esti * inv_s)
+    next_cdf = torch.sigmoid(next_esti * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    weights = exclusive_cumprod_weights(alpha)
+    return sample_pdf(z_vals, weights, n_importance, det=True)
+
+
+def merge_z_vals_sort(z_vals, new_z, sdf, new_sdf):
+    """Sorted merge by one stable sort of the concatenation: ties keep
+    old before new; the sdf rides along in the sort order."""
+    z_cat = torch.cat([z_vals, new_z], dim=-1)
+    z, order = torch.sort(z_cat, dim=-1, stable=True)
+    if sdf is None:
+        return z, None
+    s = torch.gather(torch.cat([sdf, new_sdf], dim=-1), 1, order)
+    return z, s
+
+
+@torch.no_grad()
+def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
+                        generator=None, perturb_overwrite: float = -1.0,
+                        sdf_rays_fn=None):
+    """Coarse + SDF-guided importance z values, [R, n_samples+n_importance],
+    outside the autograd graph (the reference's torch.no_grad(),
+    NeuS.py:343-355). 1 + (up_sample_steps - 1) SDF sweeps: the last
+    round merges z only."""
+    rays_o, rays_d = rays_o.detach(), rays_d.detach()
+    near, far = near.detach(), far.detach()
+    R = rays_o.shape[0]
+    n = rcfg.n_samples
+
+    t = torch.linspace(0.0, 1.0, n, dtype=rays_o.dtype, device=rays_o.device)
+    z_vals = near[:, None] + (far - near)[:, None] * t[None, :]
+
+    perturb = rcfg.perturb if perturb_overwrite < 0 else perturb_overwrite
+    if perturb > 0:
+        if generator is None:
+            raise ValueError("perturbed sampling needs a generator")
+        t_rand = torch.rand((R, 1), generator=generator, dtype=z_vals.dtype,
+                            device=z_vals.device) - 0.5
+        z_vals = z_vals + t_rand * 2.0 / n
+
+    if rcfg.n_importance > 0:
+        if sdf_rays_fn is not None:
+            def sweep(z):
+                return sdf_rays_fn(rays_o, rays_d, z)
+        else:
+            def sweep(z):
+                pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+                return fields.sdf_value(params["sdf"], rcfg.sdf, pts).reshape(z.shape)
+        sdf = sweep(z_vals)
+        n_per_round = rcfg.n_importance // rcfg.up_sample_steps
+        for i in range(rcfg.up_sample_steps):
+            new_z = up_sample_z(rays_o, rays_d, z_vals, sdf, n_per_round, 64 * 2 ** i)
+            if i + 1 == rcfg.up_sample_steps:
+                z_vals, sdf = merge_z_vals_sort(z_vals, new_z, None, None)
+            else:
+                z_vals, sdf = merge_z_vals_sort(z_vals, new_z, sdf, sweep(new_z))
+    return z_vals
+
+
+# ---------------------------------------------------------------------------
+# Render cores
+# ---------------------------------------------------------------------------
+
+def eval_point_pipeline(params, rcfg: RendererConfig, pts, dirs):
+    """(sdf [N,1], grad [N,3], colour [N,3], relit [N,3], delta [N,3]) on
+    the plain PyTorch path."""
+    sdf, feature, gradients = fields.sdf_with_grad(params["sdf"], rcfg.sdf, pts)
+    color = fields.color_apply(params["color"], rcfg.color, pts, gradients, dirs, feature)
+    if rcfg.kind == "color_neus":
+        relit, delta = fields.relight_apply(params["relight"], rcfg.relight,
+                                            color, pts, dirs, gradients)
+        return sdf, gradients, color, relit, delta
+    return sdf, gradients, color, color, torch.zeros_like(color)
+
+
+def _sample_points(rays_o, rays_d, z_vals, sample_dist):
+    dists, mid_z_vals = section_dists(z_vals, sample_dist)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., None]
+    R, S = z_vals.shape
+    dirs = rays_d[:, None, :].expand(R, S, 3)
+    return dists, mid_z_vals, pts.reshape(-1, 3), dirs.reshape(-1, 3)
+
+
+def _sphere_masks(pts_flat, R, S):
+    pts_norm = torch.linalg.norm(pts_flat, dim=-1).reshape(R, S).detach()
+    inside = (pts_norm < 1.0).to(pts_flat.dtype)
+    relaxed = (pts_norm < 1.2).to(pts_flat.dtype)
+    return inside, relaxed
+
+
+def _eikonal_parts(gradients, relax_inside):
+    """(numerator, denominator) of the mean squared (|grad|-1) over the
+    relaxed sphere (NeuS.py:277-279)."""
+    err = (torch.linalg.norm(gradients, dim=-1) - 1.0) ** 2
+    return torch.sum(relax_inside * err), torch.sum(relax_inside)
+
+
+def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sample_dist):
+    """Plain NeuS core (NeuS.py:199-292)."""
+    R, S = z_vals.shape
+    dists, mid_z_vals, pts, dirs = _sample_points(rays_o, rays_d, z_vals, sample_dist)
+
+    sdf, gradients, color_pt, _, _ = eval_point_pipeline(params, rcfg, pts, dirs)
+    sampled_color = color_pt.reshape(R, S, 3)
+
+    inv_s = fields.variance_inv_s(params["variance"])
+    true_cos = torch.sum(dirs * gradients, dim=-1, keepdim=True)
+    iter_cos = anneal_cos(true_cos, COS_ANNEAL_RATIO)
+
+    alpha, prev_cdf = neus_alpha(sdf.reshape(R, S), iter_cos.reshape(R, S), dists, inv_s)
+    inside, relaxed = _sphere_masks(pts, R, S)
+
+    weights = exclusive_cumprod_weights(alpha)
+    color = torch.sum(sampled_color * weights[..., None], dim=1)
+
+    eik_num, eik_den = _eikonal_parts(gradients.reshape(R, S, 3), relaxed)
+    return {
+        "color": color,
+        "sdf": sdf,
+        "dists": dists,
+        "gradients": gradients.reshape(R, S, 3),
+        "s_val": torch.ones((R, 1), dtype=color.dtype, device=color.device) / inv_s,
+        "mid_z_vals": mid_z_vals,
+        "weights": weights,
+        "cdf": prev_cdf.reshape(R, S),
+        "gradient_error": eik_num / (eik_den + 1e-5),
+        "eik_num": eik_num,
+        "eik_den": eik_den,
+        "inside_sphere": inside,
+    }
+
+
+def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
+                generator=None, perturb_overwrite: float = -1.0):
+    """Full forward: hierarchical sampling + core (NeuS.py:294-408).
+
+    Returns the reference's output dict: color_fine, s_val, cdf_fine,
+    weight_sum, weight_max, gradients, weights, gradient_error,
+    inside_sphere, depth (+ global_color / delta_relight for color_neus)."""
+    sample_dist = 2.0 / rcfg.n_samples
+    sdf_rays_fn = None
+    if rcfg.n_importance > 0:
+        sdf_rays_fn = resolve_sdf_sweep_fn(params["sdf"], rcfg.sdf, rcfg.fused_sdf,
+                                           dtype=rcfg.sweep_dtype,
+                                           act=rcfg.sweep_activation)
+    z_vals = hierarchical_z_vals(params, rcfg, rays_o, rays_d, near, far,
+                                 generator=generator, perturb_overwrite=perturb_overwrite,
+                                 sdf_rays_fn=sdf_rays_fn)
+
+    if rcfg.kind == "color_neus":
+        from color_neus_torch.models.color_neus import render_core_color_neus
+        core = render_core_color_neus
+    else:
+        core = render_core_neus
+    ret = core(params, rcfg, rays_o, rays_d, z_vals, sample_dist)
+
+    weights = ret["weights"]
+    out = {
+        "color_fine": ret["color"],
+        "s_val": ret["s_val"],
+        "cdf_fine": ret["cdf"],
+        "weight_sum": torch.sum(weights, dim=-1, keepdim=True),
+        "weight_max": torch.amax(weights, dim=-1, keepdim=True),
+        "gradients": ret["gradients"],
+        "weights": weights,
+        "gradient_error": ret["gradient_error"],
+        "inside_sphere": ret["inside_sphere"],
+        "depth": torch.sum(weights * z_vals, dim=-1),
+    }
+    for k in ("global_color", "delta_relight"):
+        if k in ret:
+            out[k] = ret[k]
+    return out
+
+
+def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
+                      generator=None, perturb_overwrite: float = -1.0):
+    """Loss-path renderer: only what compute_loss and the train aux read
+    (color_fine, weight_sum, gradient_error, s_val, per-ray delta sums).
+    The non-fused branch of the JAX function (neus.py:436-448)."""
+    out = render_rays(params, rcfg, rays_o, rays_d, near, far, generator=generator,
+                      perturb_overwrite=perturb_overwrite)
+    ret = {
+        "color_fine": out["color_fine"],
+        "weight_sum": out["weight_sum"],
+        "gradient_error": out["gradient_error"],
+        "s_val": out["s_val"],
+        "n_samples_total": rcfg.n_samples + rcfg.n_importance,
+    }
+    if "delta_relight" in out:
+        ret["delta_sum"] = torch.sum(out["delta_relight"], dim=(1, 2))
+    return ret

@@ -1,0 +1,345 @@
+"""Training core: port of color_neus_tpu/models/trainer.py.
+
+One step samples pixels, renders them (camera nets, rays, hierarchy,
+render core), computes the reference loss (NeuS_Trainer.py:129-171),
+backpropagates, clips every parameter tensor's gradient on its own
+(net_utils.py:174-184) and takes an Adam step (beta 0.9/0.99, eps 1e-8)
+at the warm-up/cosine learning rate of the step before it is counted
+(net_utils.py:56-78): step 0 runs at lr 0 under warm-up.
+
+The step is split in two so a test can inject pixels: sample_pixels
+draws them, train_step_pixels renders them (render_pixels) and updates
+the state. The JAX package's render_random_rays is sample_pixels followed
+by render_pixels.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch import nn
+
+from color_neus_torch.models import neus
+from color_neus_torch.models.camera import (
+    CameraConfig, focal_apply, init_focal, init_pose, pose_apply,
+)
+from color_neus_torch.models.configs import RendererConfig, renderer_config_from_cfg
+from color_neus_torch.ops.rays import (
+    near_far_from_sphere, rays_for_pixels, sample_pixels_masked,
+    sample_pixels_masked_exact, sample_pixels_uniform,
+)
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    n_rays: int = 1024
+    eval_ray_size: int = 1024
+    normalize_dir: bool = True
+    opengl: bool = False
+    include_mask: bool = True
+    mask_rate: tuple = (0.5, 0.8)
+    # 'exact' (default, reference ray_utils.py:61-76: exactly
+    # int(rate * n_rays) in-mask rays, without replacement) or
+    # 'bernoulli' (with replacement, the same split in expectation)
+    mask_sample_mode: str = "exact"
+    # the reference's maskless-path quirk (rays only from image 0)
+    first_image_only_quirk: bool = False
+
+    lambda_fine: float = 1.0
+    lambda_eikonal: float = 0.1
+    lambda_mask: float = 0.1
+    lambda_relight: float = 1.0
+    rgb_loss_type: str = "mse"  # mse | l1
+
+    iterations: int = 100000
+    lr: float = 5e-4
+    optimizer: str = "adam"          # adam | rmsprop | sgd (net_utils.py:81-106)
+    scheduler: str = "NEUS"          # NEUS (warmup+cosine) | NERF (exp decay)
+    warm_up: int = 5000
+    lr_alpha: float = 0.05
+    gamma: float = 0.1               # NERF scheduler decay factor
+    decay_steps: int = 250000        # NERF scheduler decay interval
+    grad_clip_enabled: bool = True
+    grad_clip_norm: float = 1.0
+
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    renderer: RendererConfig = field(default_factory=RendererConfig)
+
+
+def trainer_config_from_cfg(cfg: dict, H: int, W: int, n_cams: int) -> TrainerConfig:
+    """Build from a reference-schema config dict (cfg.MODEL + cfg.TRAIN)."""
+    m = cfg["MODEL"]
+    t = cfg["TRAIN"]
+    dp = cfg.get("DATA_PRESET", {})
+    loss = m.get("LOSS", {})
+    opt = t.get("OPTIMIZE", {})
+    include_mask = dp.get("INCLUDE_MASK", True)
+    return TrainerConfig(
+        n_rays=m.get("N_RAYS", 1024),
+        eval_ray_size=m.get("EVAL_RAY_SIZE", 10000),
+        normalize_dir=m.get("NORMALIZE_DIR", True),
+        opengl=dp.get("OPENGL_SYS", False),
+        include_mask=include_mask,
+        mask_rate=tuple(m.get("MASK_RATE", (0.5, 0.8))) if include_mask else None,
+        mask_sample_mode=dp.get("MASK_SAMPLE_MODE", "exact"),
+        first_image_only_quirk=dp.get("FIRST_IMAGE_ONLY_QUIRK", False),
+        lambda_fine=loss.get("LAMBDA_FINE", 1.0),
+        lambda_eikonal=loss.get("LAMBDA_EIKONAL", 0.1),
+        lambda_mask=loss.get("LAMBDA_MASK", 0.0),
+        lambda_relight=loss.get("LAMBDA_RELIGHT", 1.0),
+        rgb_loss_type=loss.get("RGB_LOSS_TYPE", "mse"),
+        iterations=t.get("ITERATIONS", 100000),
+        lr=opt.get("LR", 5e-4),
+        optimizer=opt.get("TYPE", "adam"),
+        scheduler=opt.get("SCHEDULER_TYPE", "NEUS"),
+        warm_up=opt.get("WARM_UP", 5000),
+        lr_alpha=opt.get("LR_ALPHA", 0.05),
+        gamma=opt.get("GAMMA", 0.1),
+        decay_steps=opt.get("LRATE_DECAY", 250000),
+        grad_clip_enabled=t.get("GRAD_CLIP_ENABLED", True),
+        grad_clip_norm=float(t.get("GRAD_CLIP", {}).get("NORM", 1.0)),
+        camera=CameraConfig(
+            learn_focal=m.get("LEARN_FOCAL", False),
+            learn_r=m.get("LEARN_R", False),
+            learn_t=m.get("LEARN_T", False),
+            fx_only=dp.get("FX_ONLY", False),
+            focal_order=m.get("FOCAL_ORDER", 2),
+            pose_mode=m.get("POSE_MODE", "6d"),
+            H=H, W=W, n_cams=n_cams,
+        ),
+        renderer=renderer_config_from_cfg(m["RENDERER"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Learning rate, clipping, optimizer
+# ---------------------------------------------------------------------------
+
+def neus_lr_schedule(cfg: TrainerConfig):
+    """Linear warm-up then cosine decay to lr*alpha (net_utils.py:56-78)."""
+    def sched(step: int) -> float:
+        if step < cfg.warm_up:
+            return cfg.lr * step / max(cfg.warm_up, 1)
+        progress = (step - cfg.warm_up) / max(cfg.iterations - cfg.warm_up, 1)
+        progress = min(max(progress, 0.0), 1.0)
+        return cfg.lr * ((math.cos(math.pi * progress) + 1.0) * 0.5 * (1 - cfg.lr_alpha)
+                         + cfg.lr_alpha)
+    return sched
+
+
+def nerf_lr_schedule(cfg: TrainerConfig):
+    """Exponential decay lr * gamma^(step/decay_steps) (net_utils.py:40-53)."""
+    def sched(step: int) -> float:
+        return cfg.lr * cfg.gamma ** (step / cfg.decay_steps)
+    return sched
+
+
+def lr_schedule(cfg: TrainerConfig):
+    if cfg.scheduler.upper() == "NERF":
+        return nerf_lr_schedule(cfg)
+    return neus_lr_schedule(cfg)
+
+
+@torch.no_grad()
+def clip_per_leaf(params: nn.Module, max_norm: float) -> None:
+    """Scale each parameter's gradient to L2 norm <= max_norm on its own —
+    torch's clip_grad_norm_ applied leaf by leaf (net_utils.py:174-184),
+    not one norm over all gradients. Stays on the device (no sync)."""
+    for p in params.parameters():
+        if p.grad is not None:
+            n = torch.linalg.vector_norm(p.grad)
+            p.grad.mul_(torch.clamp(max_norm / torch.clamp_min(n, 1e-6), max=1.0))
+
+
+def make_optimizer(cfg: TrainerConfig, params: nn.Module) -> torch.optim.Optimizer:
+    """Optimizer families of build_optimizer_nerf (net_utils.py:81-106);
+    the lr is set from the schedule before every step."""
+    kind = cfg.optimizer.lower()
+    if kind == "adam":
+        return torch.optim.Adam(params.parameters(), lr=0.0, betas=(0.9, 0.99), eps=1e-8)
+    if kind == "rmsprop":
+        return torch.optim.RMSprop(params.parameters(), lr=0.0, alpha=0.99, eps=1e-8)
+    if kind == "sgd":
+        return torch.optim.SGD(params.parameters(), lr=0.0)
+    raise NotImplementedError(f"optimizer {cfg.optimizer}")
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainState:
+    """params: nn.ModuleDict {renderer, focal, pose} with the JAX pytree's
+    leaves; optimizer over all of them; step: optimisation steps taken."""
+    params: nn.ModuleDict
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def init_state(cfg: TrainerConfig, generator, device, init_focal_np=None) -> TrainState:
+    params = nn.ModuleDict({
+        "renderer": neus.init_renderer(cfg.renderer, generator, device),
+        "focal": init_focal(cfg.camera, init_focal_np, device),
+        "pose": init_pose(cfg.camera, device),
+    })
+    return TrainState(params, make_optimizer(cfg, params), 0)
+
+
+def make_scene(origin, radius, init_c2w, device) -> dict:
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return {"origin": t(origin).reshape(3), "radius": t(radius).reshape(()),
+            "init_c2w": t(init_c2w)}
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def compute_loss(cfg: TrainerConfig, render: dict):
+    """NeuS_Trainer.compute_loss (129-171) semantics."""
+    rgb_gt = render["rgb_map_gt"]
+    if cfg.rgb_loss_type == "mse":
+        rgb_fine_loss = torch.mean((render["color_fine"] - rgb_gt) ** 2)
+    elif cfg.rgb_loss_type == "l1":
+        rgb_fine_loss = torch.mean(torch.abs(render["color_fine"] - rgb_gt))
+    else:
+        raise ValueError(f"no such rgb loss type: {cfg.rgb_loss_type}")
+
+    loss = cfg.lambda_fine * rgb_fine_loss
+    eik = render["gradient_error"]
+    loss = loss + cfg.lambda_eikonal * eik
+    loss_dict = {"rgb_fine_loss": rgb_fine_loss, "eikonal_loss": eik}
+
+    if cfg.lambda_mask != 0 and render.get("mask") is not None:
+        ws = torch.clamp(render["weight_sum"].squeeze(-1), 1e-3, 1.0 - 1e-3)
+        m = render["mask"]
+        mask_loss = -torch.mean(m * torch.log(ws) + (1.0 - m) * torch.log(1.0 - ws))
+        loss = loss + cfg.lambda_mask * mask_loss
+        loss_dict["mask_loss"] = mask_loss
+
+    if cfg.lambda_relight != 0 and "delta_relight" in render:
+        delta = render["delta_relight"]
+        if render.get("mask") is not None:
+            delta = delta * render["mask"][:, None, None]
+        relight_loss = torch.mean(delta) ** 2
+        loss = loss + cfg.lambda_relight * relight_loss
+        loss_dict["relight_loss"] = relight_loss
+    elif cfg.lambda_relight != 0 and "delta_sum" in render:
+        # per-ray sums: mean over the [R, S, 3] delta == sum(mask*dsum)/(R*S*3)
+        dsum = render["delta_sum"]
+        if render.get("mask") is not None:
+            dsum = dsum * render["mask"]
+        n_el = dsum.shape[0] * render["n_samples_total"] * 3
+        relight_loss = (torch.sum(dsum) / n_el) ** 2
+        loss = loss + cfg.lambda_relight * relight_loss
+        loss_dict["relight_loss"] = relight_loss
+
+    loss_dict["loss"] = loss
+    return loss, loss_dict
+
+
+# ---------------------------------------------------------------------------
+# Pixels -> rays -> render
+# ---------------------------------------------------------------------------
+
+def _mask_rate_at(cfg: TrainerConfig, step: int) -> np.float32:
+    """The in-mask share at `step`, in f32 as the JAX package computes it."""
+    m0, m1 = cfg.mask_rate
+    return np.float32(m0) + np.float32(m1 - m0) * np.float32(step) / np.float32(cfg.iterations)
+
+
+def sample_pixels(cfg: TrainerConfig, images, masks, step: int, generator):
+    """(cam_sel, py, px, sel_mask) for one step; sel_mask is None without
+    masks. cam_sel indexes the image batch."""
+    B, H, W = images.shape[:3]
+    if cfg.include_mask and masks is not None:
+        sampler = (sample_pixels_masked_exact if cfg.mask_sample_mode == "exact"
+                   else sample_pixels_masked)
+        return sampler(generator, masks, cfg.n_rays, _mask_rate_at(cfg, step))
+    cam_sel, py, px = sample_pixels_uniform(
+        generator, B, H, W, cfg.n_rays, first_image_only=cfg.first_image_only_quirk,
+        device=images.device)
+    return cam_sel, py, px, None
+
+
+def pixel_rays(params, scene, cfg: TrainerConfig, images, img_ids, cam_sel, py, px):
+    """(rays_o, rays_d, near, far) of the given pixels of the image batch,
+    in the scene's unit-sphere frame (NeuS_Trainer.render 103-127 with
+    on-device ray generation)."""
+    H, W = images.shape[1:3]
+    focal = focal_apply(params["focal"], cfg.camera)
+    c2w = pose_apply(params["pose"], cfg.camera, scene["init_c2w"], img_ids)  # [B,4,4]
+    rays_o, rays_d = rays_for_pixels(c2w[cam_sel], focal, px, py, H, W,
+                                     normalize=cfg.normalize_dir, opengl=cfg.opengl)
+    rays_o = (rays_o - scene["origin"]) / scene["radius"]
+    near, far = near_far_from_sphere(rays_o, rays_d)
+    return rays_o, rays_d, near, far
+
+
+def render_pixels(params, scene, cfg: TrainerConfig, images, img_ids,
+                  cam_sel, py, px, sel_mask, generator):
+    """Render the given pixels of the image batch."""
+    rays_o, rays_d, near, far = pixel_rays(params, scene, cfg, images, img_ids,
+                                           cam_sel, py, px)
+    render = neus.render_rays_train(params["renderer"], cfg.renderer, rays_o, rays_d,
+                                    near, far, generator=generator)
+    render["rgb_map_gt"] = images[cam_sel, py, px]
+    render["mask"] = sel_mask
+    return render
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_ids,
+                      cam_sel, py, px, sel_mask, generator) -> dict:
+    """One optimisation step on the given pixels; updates `state` in place
+    and returns the step's metrics as 0-d tensors (no host sync)."""
+    step = state.step
+    state.optimizer.zero_grad(set_to_none=True)
+    render = render_pixels(state.params, scene, cfg, images, img_ids, cam_sel, py, px,
+                           sel_mask, generator)
+    loss, loss_dict = compute_loss(cfg, render)
+    loss.backward()
+    if cfg.grad_clip_enabled:
+        clip_per_leaf(state.params, cfg.grad_clip_norm)
+    lr = lr_schedule(cfg)(step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step = step + 1
+
+    aux = {k: v.detach() for k, v in loss_dict.items()}
+    aux["s_val"] = torch.mean(render["s_val"]).detach()
+    aux["psnr"] = -10.0 * torch.log10(torch.clamp_min(aux["rgb_fine_loss"], 1e-10))
+    aux["lr"] = lr
+    return aux
+
+
+def train_step(state: TrainState, scene, cfg: TrainerConfig, images, masks, img_ids,
+               generator) -> dict:
+    """One optimisation step on freshly sampled pixels of the image batch."""
+    cam_sel, py, px, sel_mask = sample_pixels(cfg, images, masks, state.step, generator)
+    return train_step_pixels(state, scene, cfg, images, img_ids, cam_sel, py, px,
+                             sel_mask, generator)
+
+
+def full_data_step(state: TrainState, scene, cfg: TrainerConfig, images, masks,
+                   batch_size: int, generator) -> dict:
+    """One step over the device-resident dataset: the image batch is a
+    randperm prefix (dtu.py:164-168 semantics), drawn on the device."""
+    n_imgs = images.shape[0]
+    b = min(batch_size, n_imgs)
+    img_ids = torch.randperm(n_imgs, generator=generator, device=images.device)[:b]
+    masks_b = masks[img_ids] if masks is not None else None
+    return train_step(state, scene, cfg, images[img_ids], masks_b, img_ids, generator)

@@ -1,0 +1,77 @@
+"""Rotation conversions and misc transforms the training path needs.
+
+Port of the training-path part of color_neus_tpu/ops/transforms.py
+(reference lib/utils/transform.py and camera_net.py:112-131). Torch for
+what sits in the autograd graph, numpy for host-side camera setup.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def aa_to_rotmat(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle [..., 3] -> rotation matrix [..., 3, 3] (Rodrigues),
+    with Taylor-guarded sin(t)/t and (1-cos t)/t^2 near t = 0."""
+    theta2 = torch.sum(aa * aa, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp_min(theta2, 1e-24))
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+
+    x, y, z = aa[..., 0], aa[..., 1], aa[..., 2]
+    zeros = torch.zeros_like(x)
+    K = torch.stack([
+        torch.stack([zeros, -z, y], dim=-1),
+        torch.stack([z, zeros, -x], dim=-1),
+        torch.stack([-y, x, zeros], dim=-1),
+    ], dim=-2)
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device).expand(K.shape)
+    return eye + a[..., None] * K + b[..., None] * (K @ K)
+
+
+def rot6d_to_rotmat(d6: torch.Tensor) -> torch.Tensor:
+    """6D rotation [..., 6] -> matrix [..., 3, 3] (Zhou et al. CVPR'19,
+    pytorch3d.rotation_6d_to_matrix): Gram-Schmidt rows b1, b2, b1 x b2."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True).clamp_min(1e-12)
+    a2p = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp_min(1e-12)
+    b3 = torch.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def convert3x4_4x4(mat: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 4] -> [..., 4, 4] homogeneous (appends [0,0,0,1])."""
+    bottom = torch.zeros((*mat.shape[:-2], 1, 4), dtype=mat.dtype, device=mat.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([mat, bottom], dim=-2)
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """logit with the reference's clamping (transform.py:304-320)."""
+    x = torch.clamp(x, 0.0, 1.0)
+    x1 = torch.clamp_min(x, eps)
+    x2 = torch.clamp_min(1.0 - x, eps)
+    return torch.log(x1 / x2)
+
+
+def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
+    """Blender-style spherical camera pose (transform.py:323-337)."""
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = radius
+    phi_r = phi / 180.0 * np.pi
+    th_r = theta / 180.0 * np.pi
+    rot_phi = np.array(
+        [[1, 0, 0, 0],
+         [0, np.cos(phi_r), -np.sin(phi_r), 0],
+         [0, np.sin(phi_r), np.cos(phi_r), 0],
+         [0, 0, 0, 1]], dtype=np.float32)
+    rot_theta = np.array(
+        [[np.cos(th_r), 0, -np.sin(th_r), 0],
+         [0, 1, 0, 0],
+         [np.sin(th_r), 0, np.cos(th_r), 0],
+         [0, 0, 0, 1]], dtype=np.float32)
+    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.float32)
+    return flip @ rot_theta @ rot_phi @ c2w

@@ -1,0 +1,62 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marker `cuda`; every test skips without a card (the kernels have no CPU
+mode). This file imports neither jax nor the JAX package, so it also runs
+on a GPU machine without them:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(--noconftest: tests/conftest.py sets up JAX for the CPU suites.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from color_neus_torch import pin_precision
+from color_neus_torch.models.configs import SDFConfig
+from color_neus_torch.models.fields import init_sdf
+from color_neus_torch.ops.kernels import sdf_rays as K
+
+pin_precision()
+
+
+def _inputs(R, S, seed=0):
+    rng = np.random.RandomState(seed)
+    d = rng.randn(R, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (-2.2 * d + 0.1 * rng.randn(R, 3)).astype(np.float32)
+    z = np.sort(rng.uniform(1.0, 3.4, (R, S)), axis=1).astype(np.float32)
+    return o, d, z
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["softplus", "relu"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_kernel_matches_plain(cuda_device, act, dtype):
+    cfg = SDFConfig()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = init_sdf(cfg, g, cuda_device)
+    # off the geometric init, which zeroes the PE columns of lin0 and of the
+    # skip layer: with noise on every leaf, every weight the kernel reads matters
+    with torch.no_grad():
+        for leaf in p.parameters():
+            leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
+    fn = K.make_fused_sdf_rays_fn(p, cfg, dtype, act)
+    for R, S in ((1024, 64), (1000, 37)):
+        o, d, z = (torch.from_numpy(x).to(cuda_device) for x in _inputs(R, S, seed=R))
+        before = K.launch_sdf_rays.launches
+        got = fn(o, d, z)
+        torch.cuda.synchronize()
+        assert K.launch_sdf_rays.launches == before + 1
+        want = K.sdf_rays_plain(fn.weights, o, d, z)
+        # chip_smoke.py ATOL, set from the card's readings: f32 summation
+        # order only; bf16 one-ulp flips of layer inputs, which propagate
+        atol = 2e-6 if dtype == "float32" else 3e-3
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
