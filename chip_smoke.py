@@ -5,7 +5,8 @@
 
 Phases; any failure exits non-zero and prints no result:
   1. device and build: the card's name and power limit; nvcc builds every
-     kernel of the main path from color_neus_torch/csrc (all at once).
+     kernel from color_neus_torch/csrc (all at once) while g++ builds the
+     repo's csrc/marching_tet.cpp.
   2. kernels against their plain PyTorch versions, on the card: the SDF
      placement sweep (csrc/sdf_rays.cu), through the sweep function the
      main path uses, at a full-width SDF (8x256, multires 6) taken off its
@@ -14,6 +15,13 @@ Phases; any failure exits non-zero and prints no result:
      misread of them), 1024 rays x 64 sorted z, in all four variants
      (softplus/relu x bf16/f32), plus the up-sample-round shape (S=16) and
      a ragged tail; times kernel and plain version with CUDA events.
+  2b. the evaluation path's kernels against their plain versions, off
+     geometric init, timed with CUDA events: the grid SDF (second entry of
+     csrc/sdf_rays.cu) in f32 and bf16 on one 2^18-point chunk of the
+     512^3 lattice of the synthetic bbox plus a ragged tail; the point
+     pipeline (csrc/point_pipeline.cu) for Color-NeuS (no_view_dir +
+     relight) and NeuS (idr) on 131,072 points of rays through the sphere
+     (one validation chunk, 1024 rays x 128 samples) plus a ragged tail.
   3. the main path: TrainLoop trains Color-NeuS at full width (the MODEL
      section of config/Color_NeuS_dtu.yml: 1024 rays, 64+64 samples, 4
      up-sample rounds) on the synthetic sphere (DATASET, DATA_PRESET and
@@ -28,6 +36,17 @@ Phases; any failure exits non-zero and prints no result:
   5. where the step's time goes: torch.profiler over a few steps; device
      busy time is the union of the trace's kernel intervals, and the idle
      share is read from the same trace (1 - busy / span).
+  6. the evaluation path on phase 3's trained weights: (a) a checkpoint
+     recorded to a temporary exp directory and reloaded through the
+     evaluate entry (TrainLoop with MODEL.PRETRAINED), every tensor
+     bitwise equal; (b) testing_step at res 512, sparse, from the reloaded
+     loop: the mesh and coloured PLYs written, both new kernels launched;
+     (c) at res 128 the sparse and the dense meshes from the kernel grid
+     have bitwise-equal sorted vertex sets, and the kernel grid matches
+     the plain grid; (d) the vertex colours of (b)'s mesh, kernel against
+     plain; (e) the validation render of one training view with fused_core
+     auto (kernel) and off (plain), same generator seed; (f) phase 3's
+     training launched the point-pipeline kernel 0 times.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -39,6 +58,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -55,6 +75,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # <= 3.03e-3 in phase 4 on the trained weights and the main path's rays).
 ATOL = {"float32": 2e-6, "bfloat16": 3e-3}
 ATOL_MAIN_PATH = 5e-3
+# grid SDF (sdf_points) kernel vs plain, set from the H100's readings
+# (PERF.md, PR 3) with headroom: f32 summation order only (read <= 4.8e-7);
+# bf16 one-ulp flips as in the sweep, at the grid's larger |sdf| (up to
+# ~1.6 at the bbox corners; read <= 3.64e-3)
+ATOL_GRID = {"f32": 2e-6, "bf16": 6e-3}
+# point pipeline kernel vs plain, per output, f32 summation order (read
+# <= 8.9e-7 sdf, 5.7e-6 grad, 4.2e-7 colours); grad is a sum of ~40 PE
+# terms after a 9-layer reverse sweep, |grad| up to ~8
+ATOL_PIPELINE = {"sdf": 5e-6, "grad": 5e-5, "gc": 5e-6, "relit": 5e-6, "delta": 5e-6}
+# the validation image, kernel path vs plain path (same z values): the
+# pipeline's f32 differences through alpha compositing (read 6.0e-7)
+ATOL_IMAGE = 5e-6
+PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
+EVAL_RES = 512
+GRID_CHUNK = 1 << 18
+PIPELINE_RAYS, PIPELINE_SAMPLES = 1024, 128     # one validation chunk
 
 # MODEL of config/Color_NeuS_dtu.yml; DATASET, DATA_PRESET and TRAIN of
 # config/Color_NeuS_synthetic.yml (the DTU scan is not in the repo, and
@@ -98,6 +134,13 @@ SMOKE_CFG = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def _call_into(errors, fn):
+    try:
+        fn()
+    except Exception as e:  # reported by the caller's check
+        errors.append(e)
 
 
 def check(cond, msg):
@@ -263,6 +306,303 @@ def profile_steps(loop, n_steps=3, top=12):
     print(f"[5] sweep kernel launches in the trace (ms each, sorted): "
           f"{' '.join(f'{x:.4f}' for x in sweep)}", flush=True)
 
+def reset_launch_counts():
+    from color_neus_torch.ops.kernels.point_pipeline import launch_point_pipeline
+    from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
+    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
+    for fn in (launch_sdf_rays, launch_sdf_points, launch_point_pipeline):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    from color_neus_torch.ops.kernels.point_pipeline import launch_point_pipeline
+    from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
+    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
+    return {"sdf_rays": launch_sdf_rays.launches, "sdf_points": launch_sdf_points.launches,
+            "point_pipeline": launch_point_pipeline.launches}
+
+
+def lattice_chunk(bmin, bmax, res, start, n, device):
+    """n points of the res^3 lattice from flat index `start`, gathered as
+    ops/mesh.py gathers them (np.linspace axes, x-major)."""
+    import numpy as np
+    import torch
+    axes = [torch.as_tensor(np.linspace(bmin[i], bmax[i], res, dtype=np.float32),
+                            device=device) for i in range(3)]
+    flat = torch.arange(start, start + n, device=device)
+    return torch.stack([axes[0][flat // (res * res)], axes[1][(flat // res) % res],
+                        axes[2][flat % res]], dim=-1).contiguous()
+
+
+def grid_bound_ms(sw, n):
+    """Least time of the grid SDF on n points: MACs at the real widths over
+    the dot type's peak, or pts in + sdf out + weights over the memory rate."""
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in sw.layers)
+    nbytes = n * (3 + 1) * 4 + sw.packed.numel() * sw.packed.element_size() + sw.bias.numel() * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * macs * n / PEAK_FLOPS[sw.dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def pipeline_macs(pw) -> dict:
+    """MACs per point of the point pipeline at the networks' real widths:
+    the SDF forward, its reverse sweep (every layer but the last, whose
+    pullback is a weight row), the colour and the relight nets."""
+    def macs(layers):
+        return sum(w.shape[0] * w.shape[1] for w, _ in layers)
+    return {"sdf": macs(pw.sdf), "reverse": macs(pw.sdf[:-1]), "color": macs(pw.color),
+            "relight": macs(pw.relight)}
+
+
+def pipeline_bound_ms(pw, n):
+    """pts and dirs in, [n, 16] out, weights once; f32 FMA peak."""
+    total = sum(pipeline_macs(pw).values())
+    nbytes = n * (6 + 16) * 4 + pw.packed.numel() * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * total * n / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def pipeline_errors(got, want) -> dict:
+    return {k: float((a - b).abs().max()) for k, a, b in zip(PIPELINE_OUTPUTS, got, want)}
+
+
+def check_pipeline(errs, what):
+    for k, e in errs.items():
+        check(e <= ATOL_PIPELINE[k], f"{what}: {k} max error {e:.3e} above {ATOL_PIPELINE[k]:g}")
+
+
+def eval_kernels_vs_plain(device):
+    """Phase 2b: the grid SDF and the point pipeline against their plain
+    versions at full width, off geometric init; returns the records the
+    kernel line reads (the main path's shapes: one 2^18-point grid chunk
+    in f32, one 131,072-point validation chunk of Color-NeuS)."""
+    import torch
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import sdf_mlp
+
+    out = {}
+    g = torch.Generator(device=device).manual_seed(SEED + 50)
+    bmin, bmax = [-1.01] * 3, [1.01] * 3          # the synthetic bbox
+    sdf_params = off_geometric_init(init_renderer(RendererConfig(), g, device)["sdf"], g)
+    for prec in ("f32", "bf16"):
+        fn = sdf_mlp.make_fused_sdf_fn(sdf_params, RendererConfig().sdf, prec)
+        for n, start in ((GRID_CHUNK, EVAL_RES ** 3 // 2), (1001, 12345)):
+            pts = lattice_chunk(bmin, bmax, EVAL_RES, start, n, device)
+            with torch.no_grad():
+                before = sdf_mlp.launch_sdf_points.launches
+                got = fn(pts)
+                torch.cuda.synchronize()
+                check(sdf_mlp.launch_sdf_points.launches == before + 1,
+                      f"grid sdf {prec}: the sdf function did not launch the kernel")
+                want = sdf_mlp.sdf_points_plain(fn.weights, pts)
+                check(got.shape == (n,) and bool(torch.isfinite(got).all()),
+                      f"grid sdf {prec} n={n}: bad output {tuple(got.shape)}")
+                err = float((got - want).abs().max())
+                ms = cuda_ms(lambda: fn(pts))
+                plain_ms = cuda_ms(lambda: sdf_mlp.sdf_points_plain(fn.weights, pts), reps=5)
+            bound, bound_by = grid_bound_ms(fn.weights, n)
+            print(f"[2b] sdf_points {prec:4s} n={n}: |sdf| max {float(want.abs().max()):.3f} | "
+                  f"max|kernel-plain| {err:.3e} (atol {ATOL_GRID[prec]:g}) | kernel {ms:.4f} ms | "
+                  f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by})", flush=True)
+            check(err <= ATOL_GRID[prec], f"grid sdf {prec} n={n}: max error {err:.3e} above "
+                                          f"{ATOL_GRID[prec]:g}")
+            if n == GRID_CHUNK:
+                out[f"sdf_points_{prec}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                             "bound_ms": bound, "bound_by": bound_by}
+
+    kinds = {"color_neus": ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
+             "neus": ColorConfig()}
+    for kind, color in kinds.items():
+        rcfg = RendererConfig(kind=kind, color=color)
+        params = off_geometric_init(init_renderer(rcfg, g, device), g)
+        pw = PP.resolve_pipeline_weights(params, rcfg)
+        if kind == "color_neus":
+            print(f"[2b] point_pipeline MACs per point: {pipeline_macs(pw)}", flush=True)
+        for R, S in ((PIPELINE_RAYS, PIPELINE_SAMPLES), (37, 27)):
+            o, d, z = sweep_inputs(R, S, device, SEED + 60 + R)
+            pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+            dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous()
+            n = R * S
+            with torch.no_grad():
+                before = PP.launch_point_pipeline.launches
+                got = PP.fused_point_pipeline_fwd(params, rcfg, pts, dirs, weights=pw)
+                torch.cuda.synchronize()
+                check(PP.launch_point_pipeline.launches == before + 1,
+                      f"point pipeline {kind}: did not launch the kernel")
+                want = PP.point_pipeline_plain(pw, pts, dirs)
+                check(all(bool(torch.isfinite(a).all()) for a in got)
+                      and tuple(got[1].shape) == (n, 3), f"point pipeline {kind}: bad output")
+                errs = pipeline_errors(got, want)
+                ms = cuda_ms(lambda: PP.launch_point_pipeline(pw, pts, dirs))
+                plain_ms = cuda_ms(lambda: PP.point_pipeline_plain(pw, pts, dirs), reps=5)
+            bound, bound_by = pipeline_bound_ms(pw, n)
+            print(f"[2b] point_pipeline {kind:10s} n={n}: max|kernel-plain| "
+                  + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                  + f" | |grad| max {float(want[1].abs().max()):.3f} | kernel {ms:.4f} ms | "
+                  f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by})", flush=True)
+            check_pipeline(errs, f"point pipeline {kind} n={n}")
+            if (R, S) == (PIPELINE_RAYS, PIPELINE_SAMPLES):
+                out[f"point_pipeline_{kind}"] = {"err": max(errs.values()), "ms": ms,
+                                                 "plain_ms": plain_ms, "bound_ms": bound,
+                                                 "bound_by": bound_by}
+    return out
+
+
+def sorted_rows(v):
+    import numpy as np
+    return v[np.lexsort(v.T)]
+
+
+def evaluation_path(loop, device, launches_training):
+    """Phase 6 on the trained weights of phase 3; returns what the kernel
+    line reads (launches of the evaluation run, errors)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from color_neus_torch.models import trainer as TR
+    from color_neus_torch.ops import mesh
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import sdf_mlp
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+    from color_neus_torch.utils.metrics import mse2psnr
+    from color_neus_torch.utils.recorder import Recorder
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) checkpoint -> the evaluate entry's loader, bitwise
+        rec = Recorder("default", loop.cfg, root=tmp)
+        path = rec.record_checkpoint(loop.state, loop.generator)
+        cfg = config_from_dict({**SMOKE_CFG, "MODEL": {**SMOKE_CFG["MODEL"],
+                                                       "PRETRAINED": path}})
+        ev = TrainLoop(cfg, device=device)
+        mine = dict(loop.state.params.named_parameters())
+        theirs = dict(ev.state.params.named_parameters())
+        n_tensors = 0
+        for name, p in mine.items():
+            check(torch.equal(p, theirs[name]), f"checkpoint: {name} differs after reload")
+            st, st2 = loop.state.optimizer.state[p], ev.state.optimizer.state[theirs[name]]
+            check(st.keys() == st2.keys(), f"checkpoint: optimizer keys of {name} differ")
+            for k in st:
+                check(torch.equal(st[k], st2[k]), f"checkpoint: optimizer {k} of {name} differs")
+                n_tensors += 1
+            n_tensors += 1
+        check(ev.state.step == loop.state.step, "checkpoint: step differs")
+        with np.load(path) as data:
+            check(torch.equal(torch.from_numpy(data["generator"]), loop.generator.get_state()),
+                  "checkpoint: generator state differs")
+        print(f"[6a] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB at step "
+              f"{ev.state.step}: {n_tensors} tensors, step and generator bitwise equal "
+              f"after reload through TrainLoop(MODEL.PRETRAINED)", flush=True)
+
+        # (b) testing_step at res 512, sparse
+        ev.recorder = Recorder("eval_smoke", cfg, root=tmp)
+        check(ev.tcfg.renderer.extract_sparse, "the smoke config extracts sparse")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = ev.testing_step(ev.state.step, recon_res=EVAL_RES)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        st = ev.last_mesh_stats
+        check(out is not None and st["n_verts"] > 0, f"res {EVAL_RES} mesh is empty")
+        verts, tris, colors = out
+        for suffix in ("mesh", "color"):
+            ply = os.path.join(ev.recorder.mesh_dir, f"{ev.state.step:08d}_{suffix}.ply")
+            check(os.path.getsize(ply) > 0, f"{ply} not written")
+        check(counts["sdf_points"] > 0 and counts["point_pipeline"] > 0,
+              f"testing_step launched {counts}")
+        check(bool(np.isfinite(verts).all()) and bool(np.isfinite(colors).all())
+              and colors.shape == verts.shape, "mesh or colours not finite")
+        radius = np.linalg.norm(verts, axis=-1)
+        print(f"[6b] testing_step res {EVAL_RES} sparse: coarse grid {st['coarse_s'] * 1e3:.1f} ms"
+              f" | fine grid {st['fine_s'] * 1e3:.1f} ms | active blocks "
+              f"{st['active_fraction']:.4f} ({st['heal_rounds']} healing rounds) | host marching "
+              f"{st['march_s'] * 1e3:.1f} ms | vertex colours {st['colors_s'] * 1e3:.1f} ms | "
+              f"total {st['total_s']:.3f} s | {st['n_verts']} verts {st['n_tris']} tris | "
+              f"|v| {radius.min():.3f}..{radius.max():.3f} | launches {counts}", flush=True)
+        res["launches_eval"] = counts
+
+        # (c) res 128: sparse == dense bitwise; kernel grid vs plain grid
+        params, rcfg = ev.state.params["renderer"], ev.tcfg.renderer
+        vs, ts = mesh.extract_geometry(params, rcfg, ev.bbox_min, ev.bbox_max, 128, sparse=True)
+        vd, td = mesh.extract_geometry(params, rcfg, ev.bbox_min, ev.bbox_max, 128, sparse=False)
+        check(len(vs) > 0 and len(vs) == len(vd) and len(ts) == len(td),
+              f"res 128: sparse {len(vs)} / dense {len(vd)} vertices")
+        check(np.array_equal(sorted_rows(vs), sorted_rows(vd)),
+              "res 128: sparse and dense vertex sets differ")
+        fn = sdf_mlp.make_fused_sdf_fn(params["sdf"], rcfg.sdf, rcfg.extract_precision)
+        u_k = mesh.evaluate_sdf_grid(params, rcfg, ev.bbox_min, ev.bbox_max, 128)
+        u_p = mesh.evaluate_sdf_grid(params, rcfg, ev.bbox_min, ev.bbox_max, 128,
+                                     sdf_chunk_fn=lambda p: -sdf_mlp.sdf_points_plain(
+                                         fn.weights, p))
+        grid_err = float(np.abs(u_k - u_p).max())
+        print(f"[6c] res 128: sparse and dense meshes {len(vs)} verts {len(ts)} tris, sorted "
+              f"vertex sets bitwise equal | kernel grid vs plain grid max|diff| {grid_err:.3e} "
+              f"(atol {ATOL_GRID[rcfg.extract_precision]:g})", flush=True)
+        check(grid_err <= ATOL_GRID[rcfg.extract_precision],
+              f"res 128 grid: max error {grid_err:.3e}")
+        res["grid_err"] = grid_err
+
+        # (d) vertex colours of (b)'s mesh: kernel vs plain twin vs fields path
+        pts = torch.as_tensor(verts[:1 << 15] - ev.scale_mats[0][:3, 3][None], device=device) \
+            / float(ev.scale_mats[0][0, 0])
+        dirs = torch.zeros_like(pts)
+        with torch.no_grad():
+            pw = PP.resolve_pipeline_weights(params, rcfg)
+            got = PP.fused_point_pipeline_fwd(params, rcfg, pts, dirs, weights=pw)
+            want = PP.point_pipeline_plain(pw, pts, dirs)
+            errs = pipeline_errors(got, want)
+            ms = cuda_ms(lambda: PP.launch_point_pipeline(pw, pts, dirs))
+            plain_ms = cuda_ms(lambda: PP.point_pipeline_plain(pw, pts, dirs), reps=5)
+        off = mesh.extract_vertex_colors(
+            params, dataclasses.replace(rcfg, fused_core="off"), pts.cpu().numpy())
+        fields_err = float(np.abs(got[2].cpu().numpy() - off).max())
+        print(f"[6d] vertex colours of {pts.shape[0]} vertices: max|kernel-plain| "
+              + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" | gc vs the fields path {fields_err:.3e} | kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        check_pipeline(errs, "vertex colours")
+        check(fields_err <= ATOL_PIPELINE["gc"], f"vertex colours vs fields: {fields_err:.3e}")
+        res["colour_err"] = max(errs.values())
+
+        # (e) the validation render: kernel path vs plain path, same seed
+        cam_id = 1
+        images = {}
+        for mode in ("auto", "off"):
+            tcfg = dataclasses.replace(ev.tcfg, renderer=dataclasses.replace(
+                rcfg, fused_core=mode))
+            g = torch.Generator(device=device).manual_seed(SEED + 7)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, depth = TR.render_image(ev.state.params, ev.scene, tcfg, cam_id, ev.H, ev.W, g)
+            images[mode] = (rgb, depth, (time.perf_counter() - t0) * 1e3, launch_counts())
+        gt = ev.images[cam_id].cpu().numpy()
+        img_err = float(np.abs(images["auto"][0] - images["off"][0]).max())
+        depth_err = float(np.abs(images["auto"][1] - images["off"][1]).max())
+        n_chunks = -(-ev.H * ev.W // ev.tcfg.eval_ray_size)
+        psnr = {m: mse2psnr(np.mean((images[m][0] - gt) ** 2)) for m in images}
+        print(f"[6e] validation view {cam_id} ({ev.H}x{ev.W}, {n_chunks} chunks): kernel "
+              f"{images['auto'][2]:.1f} ms/image, PSNR {psnr['auto']:.3f} | plain "
+              f"{images['off'][2]:.1f} ms/image, PSNR {psnr['off']:.3f} | max|kernel-plain| "
+              f"image {img_err:.3e} (atol {ATOL_IMAGE:g}) depth {depth_err:.3e} | launches "
+              f"kernel path {images['auto'][3]} plain path {images['off'][3]}", flush=True)
+        check(images["auto"][3]["point_pipeline"] == n_chunks
+              and images["off"][3]["point_pipeline"] == 0,
+              "the validation render's kernel launches")
+        check(img_err <= ATOL_IMAGE, f"validation image: max error {img_err:.3e}")
+        res["launches_eval"]["point_pipeline"] += images["auto"][3]["point_pipeline"]
+        ev.validate_image(ev.state.step)
+        check(os.path.exists(os.path.join(ev.recorder.viz_image_dir,
+                                          f"img_{ev.state.step}.png")), "no validation PNG")
+
+    # (f) the training path does not take the point-pipeline kernel
+    print(f"[6f] phase 3's training launched: {launches_training}", flush=True)
+    check(launches_training["point_pipeline"] == 0 and launches_training["sdf_points"] == 0,
+          "training launched an evaluation kernel")
+    return res
+
 
 def main() -> int:
     import torch
@@ -275,8 +615,9 @@ def main() -> int:
     from color_neus_torch.models.fields import init_sdf
     from color_neus_torch.ops.kernels import build
     from color_neus_torch.ops.kernels.sdf_rays import (
-        KERNEL, launch_sdf_rays, make_fused_sdf_rays_fn, sdf_rays_plain)
+        launch_sdf_rays, make_fused_sdf_rays_fn, sdf_rays_plain)
     from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils import native
     from color_neus_torch.utils.config import config_from_dict
 
     pin_precision()
@@ -285,13 +626,21 @@ def main() -> int:
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # ---- phase 1: build every kernel of the main path, all at once ----
+    # ---- phase 1: build every kernel, all at once, and the host marcher ----
+    kernels = ("sdf_rays", "point_pipeline")
     t0 = time.perf_counter()
-    build.build([KERNEL])
-    print(f"[1] built {KERNEL} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in build.build_log(KERNEL).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
+    gxx_err = []
+    gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
+    gxx.start()
+    build.build(kernels)
+    gxx.join()
+    check(not gxx_err, f"g++ build of csrc/marching_tet.cpp failed: {gxx_err}")
+    print(f"[1] built {', '.join(kernels)} (nvcc) and marching_tet (g++) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k in kernels:
+        for line in build.build_log(k).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1] ptxas {k}: {line.strip()}")
 
     # ---- phase 2: kernel vs plain on the card, off geometric init ----
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -323,17 +672,21 @@ def main() -> int:
         check(err <= ATOL[dt], f"sweep {act}/{dt} R={R} S={S}: max error {err:.3e} "
                                f"above {ATOL[dt]:g}")
 
+    # ---- phase 2b: the evaluation path's kernels vs plain, off geometric init ----
+    eval_kernels = eval_kernels_vs_plain(device)
+
     # ---- phase 3: the main path ----
     cfg = config_from_dict(SMOKE_CFG)
     loop = TrainLoop(cfg, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launch_sdf_rays.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     losses = loop.run(STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_sdf_rays.launches
+    launches_training = launch_counts()
+    launches = launches_training["sdf_rays"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -376,15 +729,39 @@ def main() -> int:
     # ---- phase 5: where the step's time goes ----
     profile_steps(loop)
 
-    # the kernel line: one step's sweeps (every launch of a step), phase 4
-    kernels = [{
+    # ---- phase 6: the evaluation path on the trained weights ----
+    ev = evaluation_path(loop, device, launches_training)
+
+    # the kernel line. sdf_rays: one step's sweeps (every launch of a
+    # step), phase 4, launches from the training run; sdf_points and
+    # point_pipeline: phase 2b at the evaluation path's shapes (one f32
+    # grid chunk, one Color-NeuS validation chunk), launches from phase 6's
+    # evaluation run, errors the largest of phases 2b and 6
+    grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
+    kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
         "replaces": "color_neus_tpu/ops/pallas/sdf_mlp.py:203", "launches": launches,
         "max_abs_err": max(sw["err"] for sw in sweeps), "ms": step_sweep["ms"],
         "plain_ms": step_sweep["plain_ms"], "bound_ms": step_sweep["bound_ms"],
         "bound_by": sweeps[0]["bound_by"], "library_ms": None,
+    }, {
+        "name": "sdf_points", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
+        "replaces": "color_neus_tpu/ops/pallas/sdf_mlp.py:183",
+        "launches": ev["launches_eval"]["sdf_points"],
+        "max_abs_err": max(grid["err"], ev["grid_err"]), "ms": grid["ms"],
+        "plain_ms": grid["plain_ms"], "bound_ms": grid["bound_ms"], "bound_by": grid["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "point_pipeline", "route": "cuda",
+        "source": "color_neus_torch/csrc/point_pipeline.cu",
+        "replaces": "color_neus_tpu/ops/pallas/point_pipeline.py:677",
+        "launches": ev["launches_eval"]["point_pipeline"],
+        "max_abs_err": max(pipe["err"], eval_kernels["point_pipeline_neus"]["err"],
+                           ev["colour_err"]),
+        "ms": pipe["ms"], "plain_ms": pipe["plain_ms"], "bound_ms": pipe["bound_ms"],
+        "bound_by": pipe["bound_by"], "library_ms": None,
     }]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

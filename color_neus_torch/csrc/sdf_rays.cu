@@ -40,19 +40,33 @@
 // 256 with zero weight rows/columns, so every hidden activation is 256
 // wide; the skip layer reads [h (256), emb (48)] = 304 columns. The tail
 // tile is masked: rows past R*S read z = 0 and store nothing.
+//
+// Second entry, the grid SDF (sdf_points_launch): the Hopper counterpart of
+// sdf_mlp.py::_sdf_mlp_kernel (make_fused_sdf_fn, sdf_mlp.py:237-304), the
+// mesh extraction's per-voxel SDF. The same kernels with the points read
+// from an [N, 3] array instead of built from rays (template POINTS),
+// softplus only, in exact f32 (extract_precision 'f32', where the SDF error
+// sets the vertex accuracy) or bf16. Its bound is the sweep's: 459,008 MACs
+// per point against 16 bytes of input/output, bound by operations.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include "mlp_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr int HID = 256;                 // hidden width (the only one supported)
-constexpr int EMB = 48;                  // PE width padded to a multiple of 16
-constexpr int TILE = 64;                 // points per block
-constexpr int THREADS = 256;             // 8 warps
+using mlp::EMB;
+using mlp::HID;
+using mlp::INV_SQRT2;
+using mlp::THREADS;
+using mlp::TILE;
+using mlp::emb_value;
+using mlp::softplus100;
+
 // Row strides padded so consecutive rows start 16 B apart modulo the 128 B
 // of the 32 shared-memory banks: the 8 rows a WMMA fragment load reads at
 // once then hit distinct banks (an unpadded 256/304-wide row would put them
@@ -60,61 +74,54 @@ constexpr int THREADS = 256;             // 8 warps
 constexpr int LDA_H = HID + EMB + 8;     // bf16 activation row stride (624 B)
 constexpr int LDS = HID + 4;             // f32 staging row stride (1040 B)
 constexpr int LDA_F = HID + EMB + 4;     // f32 activation row stride
-constexpr float INV_SQRT2 = 0.70710678118654752f;
-
 constexpr size_t SMEM_BF16 = size_t(TILE) * LDA_H * 2 + size_t(TILE) * LDS * 4 + TILE * 3 * 4;
 constexpr size_t SMEM_F32 = size_t(TILE) * LDA_F * 4 + TILE * 3 * 4;
 
 struct Params {
-  const float* rays_o;  // [R, 3]
-  const float* rays_d;  // [R, 3]
-  const float* z;       // [R * S]
+  const float* rays_o;  // [R, 3]  (sweep)
+  const float* rays_d;  // [R, 3]  (sweep)
+  const float* z;       // [R * S] (sweep)
+  const float* pts;     // [n_pts, 3] (grid SDF)
   const void* w;        // packed weights (bf16 or f32), see the wrapper
   const float* bias;    // [n_lin, HID]
   float* out;           // [R * S]
   long long n_pts;
-  int S;
+  int S;                // samples per ray (sweep; 1 for the grid SDF)
   int n_lin;
   int skip;             // index of the skip layer, -1 for none
   int d0;               // real PE width (3 + 6 * multires)
   float scale;
 };
 
-__device__ __forceinline__ float softplus100(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-100.f * fabsf(x))) / 100.f;
-}
-
 template <bool RELU>
 __device__ __forceinline__ float activate(float x) {
   return RELU ? fmaxf(x, 0.f) : softplus100(x);
 }
 
-// p * scale for the tile's points into xs[TILE][3].
+// p * scale for the tile's points into xs[TILE][3]: p = ro + rd * z for the
+// sweep, the given points for the grid SDF (POINTS).
+template <bool POINTS>
 __device__ void load_points(const Params& p, long long base, float* xs) {
   const int t = threadIdx.x;
   if (t < TILE) {
     const long long i = base + t;
     float x[3] = {0.f, 0.f, 0.f};
     if (i < p.n_pts) {
-      const long long r = i / p.S;
-      const float zz = p.z[i];
+      if (POINTS) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        x[j] = __fmul_rn(__fadd_rn(p.rays_o[3 * r + j], __fmul_rn(p.rays_d[3 * r + j], zz)),
-                         p.scale);
+        for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(p.pts[3 * i + j], p.scale);
+      } else {
+        const long long r = i / p.S;
+        const float zz = p.z[i];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          x[j] = __fmul_rn(__fadd_rn(p.rays_o[3 * r + j], __fmul_rn(p.rays_d[3 * r + j], zz)),
+                           p.scale);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 3; ++j) xs[t * 3 + j] = x[j];
   }
-}
-
-// Column c of PE(x): [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...]; 0 past d0.
-__device__ __forceinline__ float emb_value(const float* x, int c, int d0) {
-  if (c < 3) return x[c];
-  if (c >= d0) return 0.f;
-  const int q = c - 3, k = q / 6, m = q % 6;
-  const float ph = x[m % 3] * float(1 << k);  // power-of-two scale: exact
-  return m < 3 ? sinf(ph) : cosf(ph);
 }
 
 __device__ __forceinline__ float as_float(float v) { return v; }
@@ -157,7 +164,7 @@ __device__ __forceinline__ int layer_k(const Params& p, int l) {
   return l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
 }
 
-template <bool RELU>
+template <bool RELU, bool POINTS>
 __global__ void __launch_bounds__(THREADS, 2) sdf_rays_bf16_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);          // [TILE][LDA_H]
@@ -167,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, 2) sdf_rays_bf16_kernel(Params p) {
   const long long base = (long long)blockIdx.x * TILE;
   const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.w);
 
-  load_points(p, base, xs);
+  load_points<POINTS>(p, base, xs);
   __syncthreads();
   write_emb<__nv_bfloat16, LDA_H>(act, xs, 0, 1.f, p.d0);
   __syncthreads();
@@ -215,17 +222,16 @@ __global__ void __launch_bounds__(THREADS, 2) sdf_rays_bf16_kernel(Params p) {
   final_layer<__nv_bfloat16, LDA_H>(p, act, W + off, base);
 }
 
-template <bool RELU>
+template <bool RELU, bool POINTS>
 __global__ void __launch_bounds__(THREADS, 2) sdf_rays_f32_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* act = reinterpret_cast<float*>(smem);  // [TILE][LDA_F]
   float* xs = act + TILE * LDA_F;               // [TILE][3]
-  const int tid = threadIdx.x;
-  const int cg = tid & 31, rg = tid >> 5;       // columns cg + 32 j, rows 8 rg + i
+  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;  // columns cg + 32 j, rows 8 rg + i
   const long long base = (long long)blockIdx.x * TILE;
   const float* W = static_cast<const float*>(p.w);
 
-  load_points(p, base, xs);
+  load_points<POINTS>(p, base, xs);
   __syncthreads();
   write_emb<float, LDA_F>(act, xs, 0, 1.f, p.d0);
   __syncthreads();
@@ -235,22 +241,7 @@ __global__ void __launch_bounds__(THREADS, 2) sdf_rays_f32_kernel(Params p) {
     const int K = layer_k(p, l);
     const float* Wl = W + off;
     float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float a[8], w[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = act[(rg * 8 + i) * LDA_F + k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = __ldg(Wl + size_t(k) * HID + cg + 32 * j);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
+    mlp::tile_matmul_f32<8>(act, LDA_F, K, Wl, acc);
     __syncthreads();  // every thread has read act
     const float* bl = p.bias + l * HID;
     const float post = (l + 1 == p.skip) ? INV_SQRT2 : 1.f;
@@ -270,29 +261,48 @@ __global__ void __launch_bounds__(THREADS, 2) sdf_rays_f32_kernel(Params p) {
 
 }  // namespace
 
-// Plain C interface for ctypes. Returns 0 or the CUDA error code of the
-// attribute call or the launch; never synchronises.
-extern "C" int sdf_rays_launch(const float* rays_o, const float* rays_d, const float* z,
-                               const void* w, const float* bias, float* out,
-                               long long n_pts, int S, int n_lin, int skip, int d0,
-                               float scale, int bf16, int relu, void* stream) {
-  if (n_pts <= 0) return 0;
-  Params p{rays_o, rays_d, z, w, bias, out, n_pts, S, n_lin, skip, d0, scale};
-  const dim3 grid(unsigned((n_pts + TILE - 1) / TILE));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+int launch(const Params& p, bool bf16, bool relu, bool points, cudaStream_t st) {
+  if (p.n_pts <= 0) return 0;
+  const dim3 grid(unsigned((p.n_pts + TILE - 1) / TILE));
   void (*kern)(Params);
   size_t smem;
   if (bf16) {
-    kern = relu ? sdf_rays_bf16_kernel<true> : sdf_rays_bf16_kernel<false>;
+    kern = points ? sdf_rays_bf16_kernel<false, true>
+                  : relu ? sdf_rays_bf16_kernel<true, false>
+                         : sdf_rays_bf16_kernel<false, false>;
     smem = SMEM_BF16;
   } else {
-    kern = relu ? sdf_rays_f32_kernel<true> : sdf_rays_f32_kernel<false>;
+    kern = points ? sdf_rays_f32_kernel<false, true>
+                  : relu ? sdf_rays_f32_kernel<true, false>
+                         : sdf_rays_f32_kernel<false, false>;
     smem = SMEM_F32;
   }
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   kern<<<grid, THREADS, smem, st>>>(p);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns 0 or the CUDA error code of the
+// attribute call or the launch; neither synchronises.
+extern "C" int sdf_rays_launch(const float* rays_o, const float* rays_d, const float* z,
+                               const void* w, const float* bias, float* out,
+                               long long n_pts, int S, int n_lin, int skip, int d0,
+                               float scale, int bf16, int relu, void* stream) {
+  Params p{rays_o, rays_d, z, nullptr, w, bias, out, n_pts, S, n_lin, skip, d0, scale};
+  return launch(p, bf16, relu, false, static_cast<cudaStream_t>(stream));
+}
+
+// The grid SDF (softplus only): out[i] = sdf(pts[i]) for n_pts points.
+extern "C" int sdf_points_launch(const float* pts, const void* w, const float* bias, float* out,
+                                 long long n_pts, int n_lin, int skip, int d0, float scale,
+                                 int bf16, void* stream) {
+  Params p{nullptr, nullptr, nullptr, pts, w, bias, out, n_pts, 1, n_lin, skip, d0, scale};
+  return launch(p, bf16, false, true, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sdf_rays_error_string(int code) {

@@ -8,15 +8,25 @@ switches differ in meaning, because the port has its own kernels:
                the hand-written CUDA kernel (ops/kernels/sdf_rays.py) for
                CUDA tensors and its plain PyTorch version for CPU tensors;
                off evaluates the sweeps through fields.sdf_value.
-  fused_core,  auto | off: the plain PyTorch render core (what the JAX
-  fused_march  package runs off-TPU). 'on' raises NotImplementedError:
-               the fused march kernels are ROADMAP Queue B item 1.
+  fused_core   auto | on | off. With grad disabled (validation render,
+               vertex colours) auto/on run the point-pipeline forward
+               kernel (ops/kernels/point_pipeline.py; its plain twin for
+               CPU tensors). With grad enabled (training) auto runs the
+               plain autograd core and on raises NotImplementedError (the
+               backward kernel is PERF.md row 6). off: the plain core.
+  fused_march  auto | off: the plain PyTorch render core (what the JAX
+               package runs off-TPU). 'on' raises NotImplementedError:
+               the fused march kernels are ROADMAP Queue B.
+  extract_precision  f32 | bf16: the grid-SDF kernel's dot type in mesh
+               extraction (ops/kernels/sdf_mlp.py); 'f32x3' raises
+               NotImplementedError (ROADMAP).
+  extract_sparse  the coarse-to-fine mesh extraction (ops/mesh.py).
 
 RendererConfig holds only what the port reads. The JAX package's other
 renderer keys tune code the port does not have yet: renderer_config_from_cfg
 raises NotImplementedError when one of the training path's is set to
-anything but its default, and skips the mesh extraction's (N,
-EXTRACT_SPARSE, EXTRACT_PRECISION), since the port extracts no mesh yet.
+anything but its default, and skips N (the mesh block size, mc_block,
+which the port's chunked grid does not read).
 """
 
 from __future__ import annotations
@@ -85,7 +95,7 @@ class NeRFConfig:
     skips: tuple = (4,)
 
 
-FUSED_ROADMAP_ITEM = "ROADMAP.md Queue B item 1 (fused march training core)"
+FUSED_ROADMAP_ITEM = "ROADMAP.md Queue B (the fused march training core, rows 3 + 4)"
 
 
 @dataclass(frozen=True)
@@ -104,6 +114,10 @@ class RendererConfig:
     sweep_dtype: str = "bfloat16"
     # activation of the placement sweeps: softplus (reference) or relu
     sweep_activation: str = "softplus"
+    # mesh-extraction grid-SDF dot type (ops/mesh.py): f32 | bf16
+    extract_precision: str = "f32"
+    # sparse (coarse-to-fine) mesh extraction
+    extract_sparse: bool = False
     sdf: SDFConfig = field(default_factory=SDFConfig)
     color: ColorConfig = field(default_factory=ColorConfig)
     relight: RelightConfig = field(default_factory=RelightConfig)
@@ -118,17 +132,21 @@ class RendererConfig:
             "fused_sdf": ("auto", "on", "off"),
             "fused_core": ("auto", "on", "off"),
             "fused_march": ("auto", "on", "off"),
+            "extract_precision": ("f32", "f32x3", "bf16"),
         }
         for name, allowed in _enums.items():
             v = getattr(self, name)
             if v not in allowed:
                 raise ValueError(
                     f"RendererConfig.{name}={v!r} not in {allowed}")
-        for name in ("fused_core", "fused_march"):
-            if getattr(self, name) == "on":
-                raise NotImplementedError(
-                    f"RendererConfig.{name}='on': the port has no fused "
-                    f"render core yet; see {FUSED_ROADMAP_ITEM}")
+        if self.fused_march == "on":
+            raise NotImplementedError(
+                f"RendererConfig.fused_march='on': the port has no fused march yet; "
+                f"see {FUSED_ROADMAP_ITEM}")
+        if self.extract_precision == "f32x3":
+            raise NotImplementedError(
+                "RendererConfig.extract_precision='f32x3' (the 3-pass bf16 split) is not "
+                "ported; use 'f32' or 'bf16' (ROADMAP.md Queue B)")
         if self.n_outside > 0:
             raise NotImplementedError(
                 "n_outside > 0 (NeRF++ background) is not ported yet")
@@ -179,6 +197,8 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
         fused_march=_lower_get(rcfg, "FUSED_MARCH", "auto"),
         sweep_dtype=_lower_get(rcfg, "SWEEP_DTYPE", "bfloat16"),
         sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
+        extract_precision=_lower_get(rcfg, "EXTRACT_PRECISION", "f32"),
+        extract_sparse=bool(_lower_get(rcfg, "EXTRACT_SPARSE", False)),
         sdf=SDFConfig(
             d_in=_lower_get(sdf, "D_IN", 3),
             d_out=_lower_get(sdf, "D_OUT", 257),

@@ -2,9 +2,16 @@
 
 The hierarchy (coarse samples + 4 SDF-guided up-sample rounds) runs
 under torch.no_grad(), its SDF sweeps through the placement-sweep kernel
-(ops/kernels/sdf_rays.py) unless fused_sdf='off'. The render core is the
-plain PyTorch path, the one the JAX package runs off-TPU
-(fused_core/fused_march auto -> plain, neus.py:257-265, 368-376).
+(ops/kernels/sdf_rays.py) unless fused_sdf='off'. The render core's
+per-point MLPs (eval_point_pipeline) follow fused_core:
+  * auto / on, grad disabled (validation render, vertex colours): the
+    point-pipeline forward kernel (ops/kernels/point_pipeline.py; its
+    plain twin for CPU tensors);
+  * auto, grad enabled (training): the plain autograd core, the path the
+    JAX package runs off-TPU; 'on' with grad enabled raises
+    NotImplementedError: the backward kernel is PERF.md row 6;
+  * off: always the plain core.
+The fused march (fused_march) is not ported: the plain core always.
 
 Behavioural quirks kept from the reference (SURVEY §3.6):
   * up-sampling uses fixed inv_s = 64 * 2^i, not the learned one
@@ -21,6 +28,9 @@ from torch import nn
 
 from color_neus_torch.models import fields
 from color_neus_torch.models.configs import RendererConfig
+from color_neus_torch.ops.kernels.point_pipeline import (
+    fused_point_pipeline_fwd, resolve_pipeline_weights,
+)
 from color_neus_torch.ops.kernels.sdf_rays import resolve_sdf_sweep_fn
 from color_neus_torch.ops.rays import sample_pdf
 
@@ -166,9 +176,29 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
 # Render cores
 # ---------------------------------------------------------------------------
 
-def eval_point_pipeline(params, rcfg: RendererConfig, pts, dirs):
-    """(sdf [N,1], grad [N,3], colour [N,3], relit [N,3], delta [N,3]) on
-    the plain PyTorch path."""
+def resolve_point_pipeline(params, rcfg: RendererConfig):
+    """The point-pipeline kernel's resolved weights when fused_core sends
+    the calls made here to it (see the module note), else None."""
+    if rcfg.fused_core == "off":
+        return None
+    if torch.is_grad_enabled():
+        if rcfg.fused_core == "on":
+            raise NotImplementedError(
+                "fused_core='on' with grad enabled: the point pipeline's backward kernel "
+                "(_bwd_kernel, PERF.md kernel table row 6) is not ported yet")
+        return None
+    return resolve_pipeline_weights(params, rcfg)
+
+
+def eval_point_pipeline(params, rcfg: RendererConfig, pts, dirs, weights=None):
+    """(sdf [N,1], grad [N,3], colour [N,3], relit [N,3], delta [N,3]):
+    the point-pipeline kernel when fused_core sends this call to it (or
+    `weights` from resolve_point_pipeline are given), else the plain
+    PyTorch path."""
+    if weights is None:
+        weights = resolve_point_pipeline(params, rcfg)
+    if weights is not None:
+        return fused_point_pipeline_fwd(params, rcfg, pts, dirs, weights=weights)
     sdf, feature, gradients = fields.sdf_with_grad(params["sdf"], rcfg.sdf, pts)
     color = fields.color_apply(params["color"], rcfg.color, pts, gradients, dirs, feature)
     if rcfg.kind == "color_neus":

@@ -10,7 +10,8 @@ at the warm-up/cosine learning rate of the step before it is counted
 The step is split in two so a test can inject pixels: sample_pixels
 draws them, train_step_pixels renders them (render_pixels) and updates
 the state. The JAX package's render_random_rays is sample_pixels followed
-by render_pixels.
+by render_pixels. render_image renders a whole camera without gradients
+(the validation view).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from color_neus_torch.models.camera import (
 )
 from color_neus_torch.models.configs import RendererConfig, renderer_config_from_cfg
 from color_neus_torch.ops.rays import (
-    near_far_from_sphere, rays_for_pixels, sample_pixels_masked,
+    all_rays_for_camera, near_far_from_sphere, rays_for_pixels, sample_pixels_masked,
     sample_pixels_masked_exact, sample_pixels_uniform,
 )
 
@@ -343,3 +344,33 @@ def full_data_step(state: TrainState, scene, cfg: TrainerConfig, images, masks,
     img_ids = torch.randperm(n_imgs, generator=generator, device=images.device)[:b]
     masks_b = masks[img_ids] if masks is not None else None
     return train_step(state, scene, cfg, images[img_ids], masks_b, img_ids, generator)
+
+
+# ---------------------------------------------------------------------------
+# Full-image rendering (validation / testing)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def render_image(params, scene, cfg: TrainerConfig, cam_id: int, H: int, W: int, generator):
+    """Render camera `cam_id` whole, in chunks of EVAL_RAY_SIZE rays on the
+    device (trainer.py:420-447; NeuS_Trainer.validate_image capability).
+    The sample perturbation draws from `generator`. Returns (rgb [H,W,3],
+    depth [H,W]) as numpy arrays."""
+    dev = scene["init_c2w"].device
+    focal = focal_apply(params["focal"], cfg.camera)
+    c2w = pose_apply(params["pose"], cfg.camera, scene["init_c2w"],
+                     torch.tensor([cam_id], device=dev))[0]
+    rays_o, rays_d = all_rays_for_camera(c2w, focal, H, W, normalize=cfg.normalize_dir,
+                                         opengl=cfg.opengl)
+    rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    rgb, depth = [], []
+    for i in range(0, rays_o.shape[0], cfg.eval_ray_size):
+        ro = (rays_o[i:i + cfg.eval_ray_size] - scene["origin"]) / scene["radius"]
+        rd = rays_d[i:i + cfg.eval_ray_size]
+        near, far = near_far_from_sphere(ro, rd)
+        out = neus.render_rays(params["renderer"], cfg.renderer, ro, rd, near, far,
+                               generator=generator)
+        rgb.append(out["color_fine"])
+        depth.append(out["depth"])
+    return (torch.cat(rgb).reshape(H, W, 3).cpu().numpy(),
+            torch.cat(depth).reshape(H, W).cpu().numpy())

@@ -2,15 +2,16 @@
 
 Each kernel source color_neus_torch/csrc/<name>.cu has a plain C
 interface and is compiled at first use for Hopper (sm_90a) into
-color_neus_torch/_build/ (git-ignored), keyed by a hash of the source
-and the flags, so a changed source rebuilds and an unchanged one loads
-at once. Nothing is built when a module is imported, and a failed build
+color_neus_torch/_build/ (git-ignored), keyed by a hash of the source,
+the shared headers (csrc/*.cuh) and the flags, so a changed source
+rebuilds and an unchanged one loads at once. Nothing is built when a module is imported, and a failed build
 raises with nvcc's output: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -39,8 +40,12 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest}")
     return src, stem + ".so", stem + ".log"
 

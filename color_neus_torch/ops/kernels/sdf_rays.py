@@ -121,11 +121,10 @@ def _softplus100_stable(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-100.0 * torch.abs(x))) / 100.0
 
 
-def sdf_rays_plain(sw: SweepWeights, rays_o, rays_d, z) -> torch.Tensor:
-    """Plain PyTorch sweep, the kernel's arithmetic op for op."""
+def sdf_mlp_plain(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch SDF MLP on points [N, 3] -> [N], the kernel's
+    arithmetic op for op."""
     cfg = sw.cfg
-    R, S = z.shape
-    pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
     emb = positional_encoding(pts * cfg.scale, cfg.multires)
     bf16 = sw.dtype == "bfloat16"
     h = emb
@@ -139,7 +138,14 @@ def sdf_rays_plain(sw: SweepWeights, rays_o, rays_d, z) -> torch.Tensor:
         h = h @ w + b
         if l < n_lin - 1:
             h = torch.relu(h) if sw.act == "relu" else _softplus100_stable(h)
-    return h[:, 0].reshape(R, S) / cfg.scale
+    return h[:, 0] / cfg.scale
+
+
+def sdf_rays_plain(sw: SweepWeights, rays_o, rays_d, z) -> torch.Tensor:
+    """Plain PyTorch sweep, the kernel's arithmetic op for op."""
+    R, S = z.shape
+    pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+    return sdf_mlp_plain(sw, pts).reshape(R, S)
 
 
 def _check(name, t, shape, device):
@@ -184,10 +190,11 @@ def _library():
     from color_neus_torch.ops.kernels import build
     lib = build.load(KERNEL)
     if lib.sdf_rays_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sdf_rays_launch.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
-                                        ctypes.c_float, i, i, p]
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.sdf_rays_launch.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, f, i, i, p]
         lib.sdf_rays_launch.restype = ctypes.c_int
+        lib.sdf_points_launch.argtypes = [p, p, p, p, ll, i, i, i, f, i, p]
+        lib.sdf_points_launch.restype = ctypes.c_int
         lib.sdf_rays_error_string.argtypes = [i]
         lib.sdf_rays_error_string.restype = ctypes.c_char_p
     return lib

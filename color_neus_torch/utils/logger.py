@@ -1,7 +1,7 @@
 """Coloured console logger (reference lib/utils/logger.py).
 
 One process for now: the port has no multi-GPU path yet, so there is no
-rank check; the per-experiment log file comes with the recorder.
+rank check. The recorder adds the per-experiment log file (set_log_file).
 """
 
 from __future__ import annotations
@@ -33,3 +33,13 @@ def _make_logger() -> logging.Logger:
 
 
 logger = _make_logger()
+
+
+def set_log_file(path: str) -> None:
+    """Also write the log to `path` (one file at a time)."""
+    for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+        logger.removeHandler(h)
+        h.close()
+    fh = logging.FileHandler(path)
+    fh.setFormatter(logging.Formatter("%(asctime)s [%(levelname)s] %(message)s", "%H:%M:%S"))
+    logger.addHandler(fh)

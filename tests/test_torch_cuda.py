@@ -60,3 +60,56 @@ def test_cuda_kernel_matches_plain(cuda_device, act, dtype):
         # order only; bf16 one-ulp flips of layer inputs, which propagate
         atol = 2e-6 if dtype == "float32" else 3e-3
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_cuda_grid_sdf_matches_plain(cuda_device, prec):
+    from color_neus_torch.ops.kernels import sdf_mlp
+    cfg = SDFConfig()
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    p = init_sdf(cfg, g, cuda_device)
+    with torch.no_grad():
+        for leaf in p.parameters():
+            leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
+    fn = sdf_mlp.make_fused_sdf_fn(p, cfg, prec)
+    for n in (1 << 16, 1001):
+        pts = 2.0 * torch.rand((n, 3), generator=g, device=cuda_device) - 1.0
+        before = sdf_mlp.launch_sdf_points.launches
+        got = fn(pts)
+        torch.cuda.synchronize()
+        assert sdf_mlp.launch_sdf_points.launches == before + 1
+        want = sdf_mlp.sdf_points_plain(fn.weights, pts)
+        # chip_smoke.py ATOL_GRID, set from the card's readings
+        atol = 2e-6 if prec == "f32" else 6e-3
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+def test_cuda_point_pipeline_matches_plain(cuda_device, kind):
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    color = ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) \
+        if kind == "color_neus" else ColorConfig()
+    rcfg = RendererConfig(kind=kind, color=color)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    params = init_renderer(rcfg, g, cuda_device)
+    with torch.no_grad():
+        for leaf in params.parameters():
+            leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    for n in (1 << 14, 999):
+        pts = 0.6 * torch.randn((n, 3), generator=g, device=cuda_device)
+        d = torch.randn((n, 3), generator=g, device=cuda_device)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        before = PP.launch_point_pipeline.launches
+        got = PP.fused_point_pipeline_fwd(params, rcfg, pts, d, weights=pw)
+        torch.cuda.synchronize()
+        assert PP.launch_point_pipeline.launches == before + 1
+        want = PP.point_pipeline_plain(pw, pts, d)
+        # chip_smoke.py ATOL_PIPELINE, set from the card's readings
+        for name, a, b in zip(("sdf", "grad", "gc", "relit", "delta"), got, want):
+            atol = 5e-5 if name == "grad" else 5e-6
+            torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=name)

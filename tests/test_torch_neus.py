@@ -133,10 +133,21 @@ def test_render_rays_matches_jax(kind):
 
 def test_kernel_switches():
     kw = _cfg_kwargs("color_neus")
-    for name in ("fused_core", "fused_march"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _build(configs, kw, **{name: "on"})
-        _build(configs, kw, **{name: "off"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _build(configs, kw, fused_march="on")
+    _build(configs, kw, fused_march="off")
+    _build(configs, kw, fused_core="off")
+    # fused_core='on' builds; it raises where a gradient is asked of the
+    # forward-only point-pipeline kernel (the backward is PERF.md row 6)
+    on = _build(configs, kw, fused_core="on")
+    params = neus.init_renderer(on, torch.Generator().manual_seed(0))
+    pts = torch.zeros((4, 3))
+    with pytest.raises(NotImplementedError, match="row 6"):
+        neus.eval_point_pipeline(params, on, pts, pts)
+    with torch.no_grad():
+        assert neus.eval_point_pipeline(params, on, pts, pts)[0].shape == (4, 1)
+    with pytest.raises(NotImplementedError, match="f32x3"):
+        dataclasses.replace(on, extract_precision="f32x3")
     with pytest.raises(ValueError):
         _build(configs, kw, fused_sdf="interpret")
     cfg = dataclasses.replace(_build(configs, kw), fused_sdf="on")
