@@ -36,6 +36,15 @@ Phases; any failure exits non-zero and prints no result:
   5. where the step's time goes: torch.profiler over a few steps; device
      busy time is the union of the trace's kernel intervals, and the idle
      share is read from the same trace (1 - busy / span).
+  2c. the point-pipeline backward (second entry of csrc/point_pipeline.cu)
+     against its plain version, off geometric init: Color-NeuS and NeuS
+     on the 131,072 points of 1024 rays x 128 samples plus a ragged tail,
+     seeded cotangents on all five outputs; pts / dirs grads and every
+     weight and bias leaf, against the plain version in float64 with the
+     cotangents of points near a relu kink zeroed (and, printed without a
+     check, with every point's); timed with CUDA events beside the
+     reduction on its own and the fwd+bwd of the plain autograd core and
+     of the autograd Function on the same points.
   6. the evaluation path on phase 3's trained weights: (a) a checkpoint
      recorded to a temporary exp directory and reloaded through the
      evaluate entry (TrainLoop with MODEL.PRETRAINED), every tensor
@@ -46,7 +55,15 @@ Phases; any failure exits non-zero and prints no result:
      the plain grid; (d) the vertex colours of (b)'s mesh, kernel against
      plain; (e) the validation render of one training view with fused_core
      auto (kernel) and off (plain), same generator seed; (f) phase 3's
-     training launched the point-pipeline kernel 0 times.
+     training launched neither point-pipeline kernel nor the grid SDF.
+  7. the training path through the point-pipeline kernels: TrainLoop as in
+     phase 3 with RENDERER.FUSED_CORE on, 60 steps: every loss finite, the
+     loss halves, the sweep launches 4 times, the forward and the backward
+     of the pipeline once each per step; steady-state ms/step beside phase
+     3's and a 2-step profile; then one step's gradient of every
+     parameter leaf on phase 3's
+     trained weights and one batch of the main path's pixels, fused_core
+     on against off, perturb 0.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -55,6 +72,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,6 +105,24 @@ ATOL_PIPELINE = {"sdf": 5e-6, "grad": 5e-5, "gc": 5e-6, "relit": 5e-6, "delta": 
 # the validation image, kernel path vs plain path (same z values): the
 # pipeline's f32 differences through alpha compositing (read 6.0e-7)
 ATOL_IMAGE = 5e-6
+# point-pipeline backward, held against the plain version in float64:
+# max |x - f64| over an output relative to its largest magnitude (weights:
+# the worst leaf). A relu unit whose pre-activation lies within rounding of
+# 0 flips its mask between two f32 paths; at 131,072 points ~16 points do,
+# which puts both the kernel and the f32 plain version ~3e-2 (dirs) and
+# ~5e-3 (a colour leaf) from float64 (PERF.md, PR 4). So the cotangents of
+# the points within KINK_MARGIN of a colour or relight relu kink (float64
+# pre-activations) are set to 0 in all three runs, and a flip can then move
+# no gradient. Tolerances set from the H100's readings with headroom: the
+# kernel read <= 6.0e-6 (pts), 6.1e-7 (dirs), 1.1e-5 (weights), as the f32
+# plain version does (PERF.md, PR 4).
+KINK_MARGIN = 1e-5
+RTOL_BWD = {"pts": 2e-5, "dirs": 5e-6, "weights": 1e-4}
+# one training step's leaf gradients, fused_core on against off: the L2
+# norm of the difference relative to the leaf's gradient norm (read <=
+# 2.6e-5 on the H100, PERF.md, PR 4)
+RTOL_STEP_GRAD = 2e-4
+STEADY_STEPS = 20
 PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
 EVAL_RES = 512
 GRID_CHUNK = 1 << 18
@@ -154,6 +190,17 @@ def card_line() -> str:
                          timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """The `..._kernel` identifier inside a mangled name: the one whose
+    length prefix (a suffix of some digit run) matches it."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        start = m.start() + len(m.group(1))
+        ident = mangled[start:start + int(m.group(1))]
+        if ident.endswith("_kernel"):
+            return ident
+    return mangled[:64]
 
 
 def cuda_ms(fn, reps=20, warmup=3) -> float:
@@ -267,9 +314,10 @@ def _union_us(intervals):
     return total + (cur[1] - cur[0] if cur else 0.0)
 
 
-def profile_steps(loop, n_steps=3, top=12):
-    """Phase 5: device time by kernel, busy time and idle share over a few
-    steady-state steps, all read from one torch.profiler trace."""
+def profile_steps(loop, n_steps=3, top=12, tag="5"):
+    """Device time by kernel, busy time and idle share over a few
+    steady-state steps, all read from one torch.profiler trace (phase 5,
+    and phase 7 for the fused_core on loop)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -287,11 +335,11 @@ def profile_steps(loop, n_steps=3, top=12):
            for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
-        print("[5] the profiler trace holds no device events: time by kernel not measured")
+        print(f"[{tag}] the profiler trace holds no device events: time by kernel not measured")
         return
     busy = _union_us([(s, e) for s, e, _ in dev]) / 1e3
     span = (max(e for _, e, _ in dev) - min(s for s, _, _ in dev)) / 1e3
-    print(f"[5] profiled window: {wall_ms / n_steps:.2f} ms/step host clock (profiler on) | "
+    print(f"[{tag}] profiled window: {wall_ms / n_steps:.2f} ms/step host clock (profiler on) | "
           f"device span {span / n_steps:.2f} ms/step | busy {busy / n_steps:.2f} ms/step | "
           f"idle share {1 - busy / span:.4f} of the span", flush=True)
     by_name = {}
@@ -300,26 +348,28 @@ def profile_steps(loop, n_steps=3, top=12):
         by_name[name] = (t + (e - s) / 1e3, c + 1)
     total = sum(t for t, _ in by_name.values())
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[5]   {t / total * 100:5.1f}%  {t / n_steps:8.3f} ms/step  "
+        print(f"[{tag}]   {t / total * 100:5.1f}%  {t / n_steps:8.3f} ms/step  "
               f"{c // n_steps:4d}x  {name[:90]}")
     sweep = sorted((e - s) / 1e3 for s, e, name in dev if "sdf_rays_" in name)
-    print(f"[5] sweep kernel launches in the trace (ms each, sorted): "
+    print(f"[{tag}] sweep kernel launches in the trace (ms each, sorted): "
           f"{' '.join(f'{x:.4f}' for x in sweep)}", flush=True)
 
-def reset_launch_counts():
-    from color_neus_torch.ops.kernels.point_pipeline import launch_point_pipeline
+def _launchers() -> dict:
+    from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
     from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
-    for fn in (launch_sdf_rays, launch_sdf_points, launch_point_pipeline):
+    return {"sdf_rays": launch_sdf_rays, "sdf_points": launch_sdf_points,
+            "point_pipeline": PP.launch_point_pipeline,
+            "point_pipeline_bwd": PP.launch_point_pipeline_bwd}
+
+
+def reset_launch_counts():
+    for fn in _launchers().values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    from color_neus_torch.ops.kernels.point_pipeline import launch_point_pipeline
-    from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
-    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
-    return {"sdf_rays": launch_sdf_rays.launches, "sdf_points": launch_sdf_points.launches,
-            "point_pipeline": launch_point_pipeline.launches}
+    return {name: fn.launches for name, fn in _launchers().items()}
 
 
 def lattice_chunk(bmin, bmax, res, start, n, device):
@@ -447,6 +497,262 @@ def eval_kernels_vs_plain(device):
                                                  "plain_ms": plain_ms, "bound_ms": bound,
                                                  "bound_by": bound_by}
     return out
+
+
+def pipeline_bwd_macs(pw) -> dict:
+    """MACs per point of the point pipeline's backward at the networks'
+    real widths: the recompute (the forward), dW and xbar of every colour
+    and relight layer, the SDF tangent stream, dW and xbar of the last SDF
+    layer, and two dW and two xbar products per hidden SDF layer."""
+    def macs(layers):
+        return sum(w.shape[0] * w.shape[1] for w, _ in layers)
+    hidden = macs(pw.sdf[:-1])
+    return {"recompute": sum(pipeline_macs(pw).values()), "relight": 2 * macs(pw.relight),
+            "color": 2 * macs(pw.color), "tangent": hidden, "last": 2 * macs(pw.sdf[-1:]),
+            "sdf_reverse": 4 * hidden}
+
+
+def pipeline_bwd_bound_ms(pw, n):
+    """pts, dirs and the [n, 16] cotangents in, pts / dirs grads out, the
+    weights read and their grads written once; f32 FMA peak."""
+    total = sum(pipeline_bwd_macs(pw).values())
+    nbytes = n * (6 + 16 + 6) * 4 + (pw.packed.numel() + pw.n_grad) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * total * n / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def bwd_errors(got, ref):
+    """({pts, dirs, weights}: max |got - ref| relative to ref's largest
+    magnitude, weights the worst leaf; the largest absolute difference of
+    all). got / ref: (pts_hat, dirs_hat, {net: [(dW, db)]})."""
+    rel = {"pts": _rel(got[0].double(), ref[0]), "dirs": _rel(got[1].double(), ref[1]),
+           "weights": 0.0}
+    err = max(float((got[0].double() - ref[0]).abs().max()),
+              float((got[1].double() - ref[1]).abs().max()))
+    for net, layers in ref[2].items():
+        for (a, b), (c, d) in zip(got[2][net], layers):
+            for x, y in ((a, c), (b, d)):
+                check(x.shape == y.shape, f"{net} grad shape {tuple(x.shape)} vs {tuple(y.shape)}")
+                rel["weights"] = max(rel["weights"], _rel(x.double(), y))
+                err = max(err, float((x.double() - y).abs().max()))
+    return rel, err
+
+
+def relu_margin(pw64, pts64, dirs64):
+    """Per point, the smallest |pre-activation| over the colour and relight
+    relu units (float64 forward)."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    with torch.no_grad():
+        _, st = PP._forward(pw64, pts64, dirs64)
+        m = torch.full((pts64.shape[0],), float("inf"), dtype=torch.float64,
+                       device=pts64.device)
+        for layers, xs in ((pw64.color, st.cs), (pw64.relight, st.rs)):
+            for (w, b), x in zip(layers[:-1], xs[:-1]):
+                m = torch.minimum(m, (x @ w.T + b).abs().amin(dim=1))
+    return m
+
+
+def core_fwd_bwd(params, rcfg, pts, dirs, cots):
+    """The render core's per-point pipeline forward and backward as the
+    training step runs it: every leaf's and pts / dirs gradients of
+    sum(output * cotangent)."""
+    import torch
+    from color_neus_torch.models.neus import eval_point_pipeline
+    leaves = [p for p in params.parameters() if p.requires_grad]
+    p, d = pts.detach().requires_grad_(True), dirs.detach().requires_grad_(True)
+    outs = eval_point_pipeline(params, rcfg, p, d)
+    loss = sum(torch.sum(o * c) for o, c in zip(outs, cots))
+    return torch.autograd.grad(loss, leaves + [p, d], allow_unused=True)
+
+
+def pipeline_bwd_vs_plain(device):
+    """Phase 2c: the point-pipeline backward against its plain version at
+    full width, off geometric init; returns the records the kernel line
+    reads (the main path's shape: 131,072 points, Color-NeuS)."""
+    import dataclasses
+    import torch
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+
+    out = {}
+    g = torch.Generator(device=device).manual_seed(SEED + 70)
+    kinds = {"color_neus": ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
+             "neus": ColorConfig()}
+    for kind, color in kinds.items():
+        rcfg = RendererConfig(kind=kind, color=color)
+        params = off_geometric_init(init_renderer(rcfg, g, device), g)
+        pw = PP.resolve_pipeline_weights(params, rcfg)
+        if kind == "color_neus":
+            print(f"[2c] point_pipeline_bwd MACs per point: {pipeline_bwd_macs(pw)}", flush=True)
+        for R, S in ((PIPELINE_RAYS, PIPELINE_SAMPLES), (37, 27)):
+            o, d, z = sweep_inputs(R, S, device, SEED + 80 + R)
+            pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+            dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous()
+            n = R * S
+            pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                              for layers in (pw.sdf, pw.color, pw.relight)])
+            keep = (relu_margin(pw64, pts.double(), dirs.double()) > KINK_MARGIN).float()
+            cots = [torch.randn((n, k), generator=g, device=device) * keep[:, None]
+                    for k in (1, 3, 3, 3, 3)]
+            gbar = torch.cat(cots + [torch.zeros((n, 3), device=device)], dim=1).contiguous()
+            before = PP.launch_point_pipeline_bwd.launches
+            got = PP.launch_point_pipeline_bwd(pw, pts, dirs, gbar)
+            torch.cuda.synchronize()
+            check(PP.launch_point_pipeline_bwd.launches == before + 1,
+                  f"point pipeline bwd {kind}: did not launch the kernel")
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"point pipeline bwd {kind}: non-finite output")
+            ph, dh, packed = got
+            mine = (ph, dh, PP._unpack_grads(pw, packed))
+            want = PP.point_pipeline_bwd_plain(pw, pts, dirs, cots)
+            ref = PP.point_pipeline_bwd_plain(pw64, pts.double(), dirs.double(),
+                                              [c.double() for c in cots])
+            rel, err = bwd_errors(mine, ref)
+            rel_plain, _ = bwd_errors(want, ref)
+            err32 = bwd_errors(mine, [t if isinstance(t, dict) else t.double()
+                                      for t in want])[1]
+            del ref
+            ms = cuda_ms(lambda: PP.launch_point_pipeline_bwd(pw, pts, dirs, gbar), reps=5)
+            plain_ms = cuda_ms(lambda: PP.point_pipeline_bwd_plain(pw, pts, dirs, cots),
+                               reps=3, warmup=1)
+            bound, bound_by = pipeline_bwd_bound_ms(pw, n)
+            print(f"[2c] point_pipeline_bwd {kind:10s} n={n} ({int(keep.sum())} points off the "
+                  f"relu kinks): max|x-f64| / max|f64|, kernel "
+                  + " ".join(f"{k} {e:.3e}" for k, e in rel.items()) + ", f32 plain "
+                  + " ".join(f"{k} {e:.3e}" for k, e in rel_plain.items())
+                  + f" | max abs kernel-f64 {err:.3e}, kernel-f32 plain {err32:.3e} | "
+                  f"|pts grad| max {float(want[0].abs().max()):.3f} | kernel {ms:.4f} ms | "
+                  f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by})", flush=True)
+            for k, e in rel.items():
+                check(e <= RTOL_BWD[k], f"point pipeline bwd {kind} n={n}: {k} relative error "
+                                        f"{e:.3e} from float64 above {RTOL_BWD[k]:g}")
+            if (R, S) != (PIPELINE_RAYS, PIPELINE_SAMPLES):
+                continue
+            rec = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by}
+            if kind == "color_neus":
+                # the same comparison with every point's cotangents: the relu
+                # kinks put both f32 paths far from float64 (no check)
+                full = [torch.randn((n, k), generator=g, device=device) for k in (1, 3, 3, 3, 3)]
+                gfull = torch.cat(full + [torch.zeros((n, 3), device=device)], 1).contiguous()
+                ph, dh, packed = PP.launch_point_pipeline_bwd(pw, pts, dirs, gfull)
+                ref = PP.point_pipeline_bwd_plain(pw64, pts.double(), dirs.double(),
+                                                  [c.double() for c in full])
+                k_all = bwd_errors((ph, dh, PP._unpack_grads(pw, packed)), ref)[0]
+                p_all = bwd_errors(PP.point_pipeline_bwd_plain(pw, pts, dirs, full), ref)[0]
+                del ref
+                print(f"[2c] with all {n} points' cotangents (no check): max|x-f64| / max|f64|, "
+                      "kernel " + " ".join(f"{k} {e:.3e}" for k, e in k_all.items())
+                      + ", f32 plain " + " ".join(f"{k} {e:.3e}" for k, e in p_all.items()),
+                      flush=True)
+                # the reduction on its own, at this launch's grid
+                grid = min(-(-n // 64), PP._max_blocks(PP._library(), pts.device, "bwd"))
+                partial = torch.zeros((grid, pw.n_grad), device=device)
+                rec["reduce_ms"] = cuda_ms(lambda: PP.reduce_partials(partial))
+                # the render core's fwd+bwd on these points: the plain autograd
+                # core (what fused_core auto trains with) and the Function
+                core = {m: cuda_ms(lambda: core_fwd_bwd(
+                    params, dataclasses.replace(rcfg, fused_core=m), pts, dirs, cots),
+                    reps=3, warmup=1) for m in ("off", "on")}
+                rec["core_ms"] = core
+                print(f"[2c] reduction of {grid} block partials x {pw.n_grad} floats: "
+                      f"{rec['reduce_ms']:.4f} ms | fwd+bwd on {n} points: plain autograd core "
+                      f"{core['off']:.4f} ms, autograd Function (row 5 + row 6) "
+                      f"{core['on']:.4f} ms", flush=True)
+            out[kind] = rec
+    return out
+
+
+def step_grads(loop, mode, pixels):
+    """Every trainable leaf's gradient of one step's loss on the given
+    pixels, with fused_core=mode and perturb 0 (no parameter update)."""
+    import dataclasses
+    import torch
+    from color_neus_torch.models import trainer as TR
+    img_ids, images, cam_sel, py, px, sel_mask = pixels
+    tcfg = loop.tcfg
+    tc = dataclasses.replace(tcfg, renderer=dataclasses.replace(
+        tcfg.renderer, fused_core=mode, perturb=0.0))
+    names, leaves = zip(*[(k, p) for k, p in loop.state.params.named_parameters()
+                          if p.requires_grad])
+    render = TR.render_pixels(loop.state.params, loop.scene, tc, images, img_ids, cam_sel, py,
+                              px, sel_mask, None)
+    loss, _ = TR.compute_loss(tc, render)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {k: (torch.zeros_like(p) if gr is None else gr)
+            for k, p, gr in zip(names, leaves, grads)}
+
+
+def training_fused_core_on(device, trained, seed):
+    """Phase 7: TrainLoop with FUSED_CORE on (rows 5 + 6 under grad), then
+    one step's leaf gradients on vs off on the trained weights of phase 3
+    (`trained`); returns what the kernel line and the summary read."""
+    import torch
+    from color_neus_torch.models import trainer as TR
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+
+    model = SMOKE_CFG["MODEL"]
+    cfg = config_from_dict({**SMOKE_CFG, "MODEL": {
+        **model, "RENDERER": {**model["RENDERER"], "FUSED_CORE": "on"}}})
+    loop = TrainLoop(cfg, device=device)
+    check(loop.tcfg.renderer.fused_core == "on", "FUSED_CORE on did not reach the renderer")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = loop.run(STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[7] fused_core on, {STEPS} steps: {wall * 1e3 / STEPS:.2f} ms/step incl. first step | "
+          f"loss {first:.5f} -> {last:.5f} | launches {counts} | peak memory {peak_gb:.2f} GiB",
+          flush=True)
+    want = {"sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": STEPS,
+            "point_pipeline_bwd": STEPS}
+    check(counts == want, f"fused_core on training launched {counts}, want {want}")
+    check(all(x == x and abs(x) != float("inf") for x in losses), f"non-finite loss {losses}")
+    check(last < 0.5 * first, f"loss did not halve: first-5 mean {first}, last-5 mean {last}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run(STEPS + STEADY_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
+    n_rays = loop.tcfg.n_rays
+    print(f"[7] steady state, fused_core on: {step_ms:.2f} ms/step | "
+          f"{n_rays / step_ms * 1e3:.0f} rays/s", flush=True)
+    profile_steps(loop, n_steps=2, top=6, tag="7")
+
+    # one step's gradients on phase 3's trained weights: on against off
+    g = torch.Generator(device=device).manual_seed(seed)
+    img_ids = torch.arange(min(trained.batch_size, trained.n_imgs), device=trained.device)
+    images = trained.images[img_ids]
+    masks = trained.masks[img_ids] if trained.masks is not None else None
+    with torch.no_grad():
+        cam_sel, py, px, sel_mask = TR.sample_pixels(trained.tcfg, images, masks,
+                                                     trained.state.step, g)
+    pixels = (img_ids, images, cam_sel, py, px, sel_mask)
+    on, off = (step_grads(trained, m, pixels) for m in ("on", "off"))
+    used = [k for k in off if float(off[k].abs().max()) > 0]
+    errs = {k: float(torch.linalg.norm(on[k] - off[k]) / torch.linalg.norm(off[k]))
+            for k in used}
+    errs_max = {k: _rel(on[k], off[k]) for k in used}
+    worst, worst_max = max(errs, key=errs.get), max(errs_max, key=errs_max.get)
+    print(f"[7] one step's leaf gradients on the trained weights, fused_core on vs off: "
+          f"{len(errs)} leaves, worst |on-off| / |off| {errs[worst]:.3e} ({worst}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} (rtol {RTOL_STEP_GRAD:g}); worst "
+          f"max|on-off| / max|off| {errs_max[worst_max]:.3e} ({worst_max})", flush=True)
+    check(errs[worst] <= RTOL_STEP_GRAD, f"step gradient {worst}: on vs off {errs[worst]:.3e}")
+    return {"launches": counts["point_pipeline_bwd"], "step_ms": step_ms, "grad_err": errs[worst]}
 
 
 def sorted_rows(v):
@@ -599,8 +905,9 @@ def evaluation_path(loop, device, launches_training):
 
     # (f) the training path does not take the point-pipeline kernel
     print(f"[6f] phase 3's training launched: {launches_training}", flush=True)
-    check(launches_training["point_pipeline"] == 0 and launches_training["sdf_points"] == 0,
-          "training launched an evaluation kernel")
+    check(launches_training["point_pipeline"] == 0 and launches_training["sdf_points"] == 0
+          and launches_training["point_pipeline_bwd"] == 0,
+          "the auto training run launched a point-pipeline or grid-SDF kernel")
     return res
 
 
@@ -627,7 +934,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 1: build every kernel, all at once, and the host marcher ----
-    kernels = ("sdf_rays", "point_pipeline")
+    kernels = ("sdf_rays", "point_pipeline")   # point_pipeline.cu holds rows 5 and 6
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
@@ -638,9 +945,12 @@ def main() -> int:
     print(f"[1] built {', '.join(kernels)} (nvcc) and marching_tet (g++) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
+        fn = ""
         for line in build.build_log(k).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1] ptxas {k}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = kernel_name(line.rsplit(" ", 1)[-1])
+            elif "registers" in line or "spill" in line:
+                print(f"[1] ptxas {k} {fn}: {line.strip()}")
 
     # ---- phase 2: kernel vs plain on the card, off geometric init ----
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -674,6 +984,9 @@ def main() -> int:
 
     # ---- phase 2b: the evaluation path's kernels vs plain, off geometric init ----
     eval_kernels = eval_kernels_vs_plain(device)
+
+    # ---- phase 2c: the point-pipeline backward vs plain, off geometric init ----
+    bwd = pipeline_bwd_vs_plain(device)
 
     # ---- phase 3: the main path ----
     cfg = config_from_dict(SMOKE_CFG)
@@ -732,11 +1045,18 @@ def main() -> int:
     # ---- phase 6: the evaluation path on the trained weights ----
     ev = evaluation_path(loop, device, launches_training)
 
+    # ---- phase 7: training through the point-pipeline kernels ----
+    on = training_fused_core_on(device, loop, SEED + 110)
+    print(f"[7] steady state: fused_core auto {step_ms:.2f} ms/step, on {on['step_ms']:.2f} "
+          f"ms/step", flush=True)
+
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and
     # point_pipeline: phase 2b at the evaluation path's shapes (one f32
     # grid chunk, one Color-NeuS validation chunk), launches from phase 6's
-    # evaluation run, errors the largest of phases 2b and 6
+    # evaluation run, errors the largest of phases 2b and 6;
+    # point_pipeline_bwd: phase 2c at the training core's shape (131,072
+    # points, Color-NeuS), launches from phase 7's training run
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
     kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
@@ -760,6 +1080,15 @@ def main() -> int:
                            ev["colour_err"]),
         "ms": pipe["ms"], "plain_ms": pipe["plain_ms"], "bound_ms": pipe["bound_ms"],
         "bound_by": pipe["bound_by"], "library_ms": None,
+    }, {
+        "name": "point_pipeline_bwd", "route": "cuda",
+        "source": "color_neus_torch/csrc/point_pipeline.cu",
+        "replaces": "color_neus_tpu/ops/pallas/point_pipeline.py:767",
+        "launches": on["launches"],
+        "max_abs_err": max(bwd["color_neus"]["err"], bwd["neus"]["err"]),
+        "ms": bwd["color_neus"]["ms"], "plain_ms": bwd["color_neus"]["plain_ms"],
+        "bound_ms": bwd["color_neus"]["bound_ms"], "bound_by": bwd["color_neus"]["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernel_line}))
     print(card_line())

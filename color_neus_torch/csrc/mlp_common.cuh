@@ -1,7 +1,8 @@
 // Device code shared by the port's MLP kernels (sdf_rays.cu: the placement
 // sweep and the grid SDF; point_pipeline.cu: the per-point pipeline
-// forward): the positional encoding, the softplus(beta=100), and the exact
-// f32 register-tiled layer product over a 64-point tile.
+// forward and backward): the positional encoding and its derivatives, the
+// softplus(beta=100), and the exact f32 register-tiled layer product over a
+// 64-point tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +41,17 @@ __device__ __forceinline__ float emb_slope(const float* x, int c, int d0, int* j
   const float f = float(1 << k);
   const float ph = x[m % 3] * f;
   return m < 3 ? f * cosf(ph) : -f * sinf(ph);
+}
+
+// d^2 emb_c / d x_j^2 of the column's coordinate j (the PE's second
+// derivative, for the backward's tangent seed): 0 for a raw column,
+// -4^k sin(ph) (sin column) or -4^k cos(ph) (cos column); 0 past d0.
+__device__ __forceinline__ float emb_curvature(const float* x, int c, int d0) {
+  if (c < 3 || c >= d0) return 0.f;
+  const int q = c - 3, k = q / 6, m = q % 6;
+  const float f = float(1 << k);
+  const float ph = x[m % 3] * f;
+  return m < 3 ? -f * f * sinf(ph) : -f * f * cosf(ph);
 }
 
 // acc[i][j] = sum_{k < K} act[(8 rg + i) * lda + k] * W[k * 32 JN + cg + 32 j]

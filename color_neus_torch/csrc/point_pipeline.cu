@@ -1,9 +1,10 @@
-// Per-point pipeline forward: the Hopper counterpart of the TPU kernel
-// color_neus_tpu/ops/pallas/point_pipeline.py::_fwd_kernel (its body is
-// _mlp_forward, point_pipeline.py:568-674; launched by
-// fused_point_pipeline_fwd, :699-713).
+// Per-point pipeline, forward and backward: the Hopper counterparts of the
+// TPU kernels color_neus_tpu/ops/pallas/point_pipeline.py::_fwd_kernel
+// (its body is _mlp_forward, point_pipeline.py:568-674; launched by
+// fused_point_pipeline_fwd, :699-713) and ::_bwd_kernel (:767; its body is
+// _mlp_recompute + _mlp_pullback, :816-1338; custom_vjp _pipeline_core).
 //
-// What it computes, per point (pts p, view dir d), in exact f32:
+// What the forward computes, per point (pts p, view dir d), in exact f32:
 //   SDF forward   emb = PE(p * scale); softplus(beta=100) MLP with the skip
 //                 input concat[h, emb]/sqrt(2); the last layer gives the raw
 //                 sdf (column 0) and the 256 features (columns 1..256);
@@ -24,26 +25,71 @@
 //                 delta = 0.
 // Output per point: [sdf, grad(3), gc(3), relit(3), delta(3), 0, 0, 0].
 //
-// Bound on the H100. At the Color-NeuS widths ~1.45 M MACs per point
-// (SDF forward ~0.52 M, reverse ~0.46 M, colour ~0.26 M, relight ~0.21 M;
-// chip_smoke.py counts them from the real widths) against 88 bytes of
-// input/output per point: bound by operations, f32 FMA at 67 TFLOP/s.
+// What the backward computes, per point, given the cotangents of those five
+// outputs (gbar [n, 16] in the same lanes), in exact f32:
+//   recompute     the forward above, keeping every layer's input, the SDF
+//                 gates and the features in the block's scratch;
+//   relight       the relit VJP (logit with its clamps and the 0 < gc < 1
+//                 mask, or the clip gate), then each layer: dW += x^T hbar,
+//                 db += sum hbar, xbar = hbar W^T with the relu masks read
+//                 from the stored inputs; the y_in layer hands its gc lanes
+//                 to gc's cotangent; layer 0 gives pts, grad and the
+//                 view-dir PE cotangents. NeuS: gc_tot = gc_hat + relit_hat.
+//   colour        the squeeze sigmoid, the relu chain; layer 0 splits into
+//                 the 256 features, pts, grad and the view-dir PE (idr).
+//   SDF, second   <grad, grad_hat> is 1/scale times the derivative of the raw
+//   order         sdf along grad_hat: one forward tangent stream v from
+//                 v0 = scale * d emb/d x . grad_hat, z_l = v W_l,
+//                 v = g_l z_l (skip: [v, v0]/sqrt(2)); the last layer's
+//                 tangent cotangent is e0/scale (a rank-1 column-0 update of
+//                 its weight grad; its ubar is a broadcast weight row); then
+//                 value and tangent reversed together: abar = g hbar +
+//                 (ubar z) 100 g (1 - g), zbar = g ubar, dW += X^T abar +
+//                 U^T zbar, db += sum abar, hbar = abar W^T, ubar = zbar W^T,
+//                 the skip split into hidden and PE parts times 1/sqrt(2).
+//   PE pullback   pts_hat += scale * emb_hat . d emb/d x, plus the PE second
+//                 derivative scale^2 * v0_hat . d2 emb/d x2 * grad_hat; the
+//                 view-dir PE VJPs to dirs_hat.
+// Outputs: pts_hat [n, 3], dirs_hat [n, 3], and per block a weight-grad
+// partial in the packed layout (the gradient prefix of the weight buffer,
+// the same offset table), which a second kernel sums over the blocks in
+// index order: deterministic, no float atomics.
+//
+// Bound on the H100. Forward: at the Color-NeuS widths ~1.45 M MACs per
+// point (SDF forward ~0.52 M, reverse ~0.46 M, colour ~0.26 M, relight
+// ~0.21 M; chip_smoke.py counts them from the real widths) against 88 bytes
+// of input/output per point: bound by operations, f32 FMA at 67 TFLOP/s.
+// Backward: the recompute, then twice the colour and relight MACs (dW and
+// xbar), the tangent stream (~0.46 M), the last layer (~0.13 M) and four
+// products per hidden SDF layer (~1.83 M): ~4.8 M MACs per point, against
+// 112 bytes of input/output per point: bound by operations.
 //
 // Design (simple first, exact f32; the bf16 / wgmma redesign is a later
 // change). One block of 8 warps owns a tile of 64 points; each thread keeps
 // an 8x8 (or 8x2, 8x10) register tile of a layer's output and runs exact
-// f32 FMAs over one shared-memory activation buffer [64, 308], in place.
-// Weights (~5.9 MB f32, packed by the wrapper) stay in device memory,
-// L2-resident across the launch. Where the gates live: the 8 hidden
-// layers' gates are 8 KB per point in f32, 512 KB for a 64-point tile,
-// beyond the 227 KB of shared memory a block can have (a 16-point tile
-// would fit but read every weight 4x as often from L2). So each block owns
-// a slice of a device-memory scratch (the wrapper allocates it) for its
-// tile's gates and features, written once and read once per point (16 KB
-// of traffic per point, ~0.7 ms at 131,072 points, below the FMA time);
-// blocks loop over tiles, so the scratch is sized by the grid, not by N.
-// The activation buffer (79 KB) plus the PE-cotangent tile keep two blocks
-// per SM.
+// f32 FMAs over a shared-memory activation buffer [64, 308], in place.
+// Weights (~7.9 MB f32 with the transposed copies the reverse products
+// read, packed by the wrapper) stay in device memory, L2-resident across
+// the launch. Blocks loop over tiles, so every scratch is sized by the
+// grid, not by N.
+//   Forward: the 8 hidden layers' gates are 8 KB per point in f32, 512 KB
+//   for a 64-point tile, beyond the 227 KB of shared memory a block can
+//   have (a 16-point tile would fit but read every weight 4x as often from
+//   L2). So each block owns a slice of a device-memory scratch for its
+//   tile's gates and features, written once and read once per point (16 KB
+//   of traffic per point, ~0.7 ms at 131,072 points, below the FMA time).
+//   The activation buffer (79 KB) plus the PE-cotangent tile keep two
+//   blocks per SM.
+//   Backward: a second activation buffer carries the tangent stream and the
+//   tangent cotangents beside the value stream (207 KB of shared memory,
+//   one block per SM, up to 255 registers a thread: no spills). The
+//   recompute stores every layer input (and the tangent inputs and
+//   pre-gates) in the block's scratch, ~3.2 MB per block. A layer's weight
+//   grad over a tile is the outer product X^T[K, 64] abar[64, 256]: abar
+//   from shared memory, X from the scratch as warp-broadcast float4 loads,
+//   8x8 register tiles, added into the block's partial (read-modify-write
+//   of the 4.2 MB gradient prefix per tile at full width; measured in
+//   PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -60,18 +106,21 @@ using mlp::emb_value;
 using mlp::softplus100;
 
 constexpr int LDX = HID + EMB + 4;       // activation row stride: [h 256 | small 48] + pad
+constexpr int LDS = HID + EMB;           // row stride of a layer input stored in the scratch
 constexpr int MAXL = 16;                 // max layers per network
-// slots of the offset table (element offsets into the packed f32 weights)
+// slots of the offset table (element offsets into the packed f32 weights;
+// the gradient buffers use the same table)
 constexpr int W_SDF = 0, WT_SDF = MAXL, B_SDF = 2 * MAXL, W_COL = 3 * MAXL, B_COL = 4 * MAXL,
-              W_REL = 5 * MAXL, B_REL = 6 * MAXL, W_LAST = 7 * MAXL, B_LAST = W_LAST + 1,
-              W_FEAT = W_LAST + 2, B_FEAT = W_LAST + 3, N_OFF = W_LAST + 4;
+              W_REL = 5 * MAXL, B_REL = 6 * MAXL, WT_COL = 7 * MAXL, WT_REL = 8 * MAXL,
+              W_LAST = 9 * MAXL, B_LAST = W_LAST + 1, W_FEAT = W_LAST + 2, B_FEAT = W_LAST + 3,
+              WT_FEAT = W_LAST + 4, N_OFF = W_LAST + 5;
 
 struct Params {
   const float* pts;    // [n, 3]
   const float* dirs;   // [n, 3]
   const float* w;      // packed weights, see off
-  float* out;          // [n, 16]
-  float* scratch;      // [gridDim.x][n_sdf - 1 gates + 1 features][TILE][HID]
+  float* out;          // forward: [n, 16]
+  float* scratch;      // per block: see the kernels
   long long n_pts;
   int n_sdf;           // SDF linear layers (the last one included)
   int skip;            // index of the SDF skip layer, -1 for none
@@ -85,13 +134,21 @@ struct Params {
   int y_in;            // relight layer that takes [h, gc]
   int inv_sigmoid;
   long long off[N_OFF];
+  // backward only
+  const float* gbar;   // [n, 16] cotangents in the forward's output lanes
+  float* pts_hat;      // [n, 3]
+  float* dirs_hat;     // [n, 3]
+  float* partial;      // [gridDim.x][n_grad] weight-grad partials, zeroed
+  long long n_grad;
 };
 
-constexpr size_t SMEM = (size_t(TILE) * LDX + size_t(TILE) * EMB + 6 * TILE * 3 + TILE) * 4;
+constexpr size_t SMEM_FWD = (size_t(TILE) * LDX + size_t(TILE) * EMB + 6 * TILE * 3 + TILE) * 4;
+constexpr size_t SMEM_BWD =
+    SMEM_FWD + (size_t(TILE) * LDX + 2 * size_t(TILE) * EMB + TILE * 16 + 5 * TILE * 3) * 4;
 
 struct Tile {
-  float* X;    // [TILE][LDX] activations
-  float* EG;   // [TILE][EMB] PE cotangent
+  float* X;    // [TILE][LDX] activations (value stream)
+  float* EG;   // [TILE][EMB] PE cotangent (forward: of the grad sweep; backward: emb_hat)
   float* P3;   // [TILE][3] points
   float* D3;   // [TILE][3] view dirs
   float* G3;   // [TILE][3] grad
@@ -99,7 +156,28 @@ struct Tile {
   float* DL;   // [TILE][3] delta
   float* RL;   // [TILE][3] relit
   float* S1;   // [TILE] sdf
+  // backward only
+  float* Y;    // [TILE][LDX] the tangent stream and its cotangents
+  float* VH;   // [TILE][EMB] v0_hat (also stages view-dir PE cotangents)
+  float* V0;   // [TILE][EMB] the tangent seed v0
+  float* CT;   // [TILE][16] the cotangents gbar
+  float* PH;   // [TILE][3] pts_hat
+  float* DH;   // [TILE][3] dirs_hat
+  float* GH;   // [TILE][3] the total grad cotangent
+  float* CG;   // [TILE][3] the total gc cotangent
+  float* HB;   // [TILE][3] the cotangent of a 3-wide layer output
 };
+
+// Where the backward's recompute keeps each layer's input ([TILE][LDS]
+// slabs of the block's scratch).
+struct Save {
+  float* sx;   // [n_sdf] SDF layer inputs
+  float* cx;   // [n_color] colour layer inputs
+  float* rx;   // [n_relight] relight layer inputs
+};
+
+constexpr size_t SLAB = size_t(TILE) * LDS;
+constexpr size_t GSLAB = size_t(TILE) * HID;
 
 enum Epi { EPI_NONE = 0, EPI_RELU = 1, EPI_SOFTPLUS = 2 };
 
@@ -193,11 +271,161 @@ __device__ void write_small(const Tile& t, int col0, int dv) {
   }
 }
 
+// dst[:, :K] = src[:, :K] (a layer input, kept for the backward). Only
+// reads src, so it needs no barrier before the layer that reads src too.
+__device__ void save_cols(const float* src, int K, float* dst) {
+  for (int e = threadIdx.x; e < TILE * K; e += THREADS) {
+    const int r = e / K, c = e % K;
+    dst[r * LDS + c] = src[r * LDX + c];
+  }
+}
+
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tile t;
+__device__ __forceinline__ void pe_row(const Params& p, const Tile& t, int r, float* x) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[r * 3 + j], p.scale);
+}
+
+// The forward of one tile (points base .. base + TILE), leaving sdf, grad,
+// gc, relit and delta in t.S1/G3/GC/RL/DL and the gates and features in
+// the block's scratch. SAVE also keeps every layer's input (sv).
+template <bool SAVE>
+__device__ void forward_tile(const Params& p, const Tile& t, long long base, float* gates,
+                             float* feat, const Save& sv) {
+  const int tid = threadIdx.x;
+  const float* W = p.w;
+  if (tid < TILE) {
+    const long long i = base + tid;
+    const bool ok = i < p.n_pts;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      t.P3[tid * 3 + j] = ok ? p.pts[3 * i + j] : 0.f;
+      t.D3[tid * 3 + j] = ok ? p.dirs[3 * i + j] : 0.f;
+    }
+  }
+  __syncthreads();
+  // SDF PE: X[:, :48] = PE(p * scale)
+  for (int e = tid; e < TILE * EMB; e += THREADS) {
+    const int r = e / EMB, c = e % EMB;
+    float x[3];
+    pe_row(p, t, r, x);
+    t.X[r * LDX + c] = emb_value(x, c, p.d0);
+  }
+  __syncthreads();
+
+  // ---- SDF forward, gates to the scratch ----
+  for (int l = 0; l < p.n_sdf - 1; ++l) {
+    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const bool pre_skip = l + 1 == p.skip;
+    if (SAVE) save_cols(t.X, K, sv.sx + l * SLAB);
+    wide_layer<EPI_SOFTPLUS>(t.X, K, W + p.off[W_SDF + l], W + p.off[B_SDF + l],
+                             pre_skip ? INV_SQRT2 : 1.f, gates + l * GSLAB, t.X, LDX);
+    if (pre_skip) {
+      for (int e = tid; e < TILE * EMB; e += THREADS) {
+        const int r = e / EMB, c = e % EMB;
+        float x[3];
+        pe_row(p, t, r, x);
+        t.X[r * LDX + HID + c] = emb_value(x, c, p.d0) * INV_SQRT2;
+      }
+      __syncthreads();
+    }
+  }
+  // last layer: raw sdf (row 0) and the features (rows 1..256)
+  if (SAVE) save_cols(t.X, HID, sv.sx + (p.n_sdf - 1) * SLAB);
+  narrow_layer(t.X, HID, 1, W + p.off[W_LAST], W + p.off[B_LAST], t.S1, 1);
+  wide_layer<EPI_NONE>(t.X, HID, W + p.off[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat, HID);
+
+  // ---- reverse sweep: q = W_last[0, :] * gate of the last hidden layer ----
+  const float* wl = W + p.off[W_LAST];
+  const float* g_last = gates + size_t(p.n_sdf - 2) * GSLAB;
+  for (int e = tid; e < TILE * HID; e += THREADS) {
+    const int r = e / HID, c = e % HID;
+    t.X[r * LDX + c] = wl[c] * g_last[r * HID + c];
+  }
+  for (int e = tid; e < TILE * EMB; e += THREADS) t.EG[e] = 0.f;
+  __syncthreads();
+  for (int l = p.n_sdf - 2; l >= 0; --l) {
+    const float* WT = W + p.off[WT_SDF + l];
+    const float* gp = l > 0 ? gates + size_t(l - 1) * GSLAB : nullptr;
+    if (l == 0) reverse_layer<2>(t, WT, false, true, gp);
+    else if (l == p.skip) reverse_layer<10>(t, WT, true, false, gp);
+    else reverse_layer<8>(t, WT, false, false, gp);
+  }
+  // PE pullback: grad_j = sum_c EG_c d emb_c / d (p_j scale) (the scale
+  // of the PE and the 1/scale of the sdf cancel)
+  if (tid < TILE) {
+    float x[3], g[3] = {0.f, 0.f, 0.f};
+    pe_row(p, t, tid, x);
+    for (int c = 0; c < p.d0; ++c) {
+      int j;
+      const float s = mlp::emb_slope(x, c, p.d0, &j);
+      g[j] = fmaf(t.EG[tid * EMB + c], s, g[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) t.G3[tid * 3 + j] = g[j];
+    t.S1[tid] *= 1.f / p.scale;
+  }
+  __syncthreads();
+
+  // ---- colour: X = [features | pts, grad, PE(dirs)] ----
+  for (int e = tid; e < TILE * HID; e += THREADS) {
+    const int r = e / HID, c = e % HID;
+    t.X[r * LDX + c] = feat[r * HID + c];
+  }
+  write_small(t, HID, p.color_dv);
+  __syncthreads();
+  for (int l = 0; l < p.n_color - 1; ++l) {
+    const int K = l == 0 ? HID + EMB : HID;
+    if (SAVE) save_cols(t.X, K, sv.cx + l * SLAB);
+    wide_layer<EPI_RELU>(t.X, K, W + p.off[W_COL + l], W + p.off[B_COL + l], 1.f, nullptr, t.X,
+                         LDX);
+  }
+  if (SAVE) save_cols(t.X, HID, sv.cx + (p.n_color - 1) * SLAB);
+  narrow_layer(t.X, HID, 3, W + p.off[W_COL + p.n_color - 1], W + p.off[B_COL + p.n_color - 1],
+               t.GC, 3);
+  if (p.squeeze)
+    for (int e = tid; e < TILE * 3; e += THREADS) t.GC[e] = sigmoidf_(t.GC[e]);
+  __syncthreads();
+
+  // ---- relight: X = [pts, grad, PE(dirs) | ... | gc] ----
+  if (p.n_relight > 0) {
+    write_small(t, 0, p.rl_dv);
+    for (int e = tid; e < TILE * EMB; e += THREADS) {
+      const int r = e / EMB, c = e % EMB;
+      t.X[r * LDX + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
+    }
+    __syncthreads();
+    for (int l = 0; l < p.n_relight - 1; ++l) {
+      const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
+      if (SAVE) save_cols(t.X, K, sv.rx + l * SLAB);
+      wide_layer<EPI_RELU>(t.X, K, W + p.off[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
+                           t.X, LDX);
+    }
+    const int last = p.n_relight - 1;
+    const int K = last == p.y_in ? HID + EMB : HID;
+    if (SAVE) save_cols(t.X, K, sv.rx + last * SLAB);
+    narrow_layer(t.X, K, 3, W + p.off[W_REL + last], W + p.off[B_REL + last], t.DL, 3);
+    for (int e = tid; e < TILE * 3; e += THREADS) {
+      const float gc = t.GC[e], d = t.DL[e];
+      if (p.inv_sigmoid) {
+        const float gcc = fminf(fmaxf(gc, 0.f), 1.f);
+        const float logit = logf(fmaxf(gcc, 1e-5f) / fmaxf(1.f - gcc, 1e-5f));
+        t.RL[e] = sigmoidf_(logit + d);
+      } else {
+        t.RL[e] = fminf(fmaxf(gc + sigmoidf_(d) - 0.5f, 0.f), 1.f);
+      }
+    }
+  } else {
+    for (int e = tid; e < TILE * 3; e += THREADS) {
+      t.RL[e] = t.GC[e];
+      t.DL[e] = 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ void carve_fwd(Tile& t, unsigned char* smem) {
   t.X = reinterpret_cast<float*>(smem);
   t.EG = t.X + TILE * LDX;
   t.P3 = t.EG + TILE * EMB;
@@ -207,139 +435,21 @@ __global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p
   t.DL = t.GC + TILE * 3;
   t.RL = t.DL + TILE * 3;
   t.S1 = t.RL + TILE * 3;
+}
+
+__global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Tile t;
+  carve_fwd(t, smem);
   const int tid = threadIdx.x;
-  const float* W = p.w;
-  const size_t slab = size_t(TILE) * HID;
-  float* gates = p.scratch + size_t(blockIdx.x) * p.n_sdf * slab;  // [n_sdf - 1][TILE][HID]
-  float* feat = gates + size_t(p.n_sdf - 1) * slab;                // [TILE][HID]
+  float* gates = p.scratch + size_t(blockIdx.x) * p.n_sdf * GSLAB;  // [n_sdf - 1][TILE][HID]
+  float* feat = gates + size_t(p.n_sdf - 1) * GSLAB;                // [TILE][HID]
   const long long n_tiles = (p.n_pts + TILE - 1) / TILE;
+  const Save none{nullptr, nullptr, nullptr};
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * TILE;
-    if (tid < TILE) {
-      const long long i = base + tid;
-      const bool ok = i < p.n_pts;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        t.P3[tid * 3 + j] = ok ? p.pts[3 * i + j] : 0.f;
-        t.D3[tid * 3 + j] = ok ? p.dirs[3 * i + j] : 0.f;
-      }
-    }
-    __syncthreads();
-    // SDF PE: X[:, :48] = PE(p * scale)
-    for (int e = tid; e < TILE * EMB; e += THREADS) {
-      const int r = e / EMB, c = e % EMB;
-      float x[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[r * 3 + j], p.scale);
-      t.X[r * LDX + c] = emb_value(x, c, p.d0);
-    }
-    __syncthreads();
-
-    // ---- SDF forward, gates to the scratch ----
-    for (int l = 0; l < p.n_sdf - 1; ++l) {
-      const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
-      const bool pre_skip = l + 1 == p.skip;
-      wide_layer<EPI_SOFTPLUS>(t.X, K, W + p.off[W_SDF + l], W + p.off[B_SDF + l],
-                               pre_skip ? INV_SQRT2 : 1.f, gates + l * slab, t.X, LDX);
-      if (pre_skip) {
-        for (int e = tid; e < TILE * EMB; e += THREADS) {
-          const int r = e / EMB, c = e % EMB;
-          float x[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[r * 3 + j], p.scale);
-          t.X[r * LDX + HID + c] = emb_value(x, c, p.d0) * INV_SQRT2;
-        }
-        __syncthreads();
-      }
-    }
-    // last layer: raw sdf (row 0) and the features (rows 1..256)
-    narrow_layer(t.X, HID, 1, W + p.off[W_LAST], W + p.off[B_LAST], t.S1, 1);
-    wide_layer<EPI_NONE>(t.X, HID, W + p.off[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat, HID);
-
-    // ---- reverse sweep: q = W_last[0, :] * gate of the last hidden layer ----
-    const float* wl = W + p.off[W_LAST];
-    const float* g_last = gates + size_t(p.n_sdf - 2) * slab;
-    for (int e = tid; e < TILE * HID; e += THREADS) {
-      const int r = e / HID, c = e % HID;
-      t.X[r * LDX + c] = wl[c] * g_last[r * HID + c];
-    }
-    for (int e = tid; e < TILE * EMB; e += THREADS) t.EG[e] = 0.f;
-    __syncthreads();
-    for (int l = p.n_sdf - 2; l >= 0; --l) {
-      const float* WT = W + p.off[WT_SDF + l];
-      const float* gp = l > 0 ? gates + size_t(l - 1) * slab : nullptr;
-      if (l == 0) reverse_layer<2>(t, WT, false, true, gp);
-      else if (l == p.skip) reverse_layer<10>(t, WT, true, false, gp);
-      else reverse_layer<8>(t, WT, false, false, gp);
-    }
-    // PE pullback: grad_j = sum_c EG_c d emb_c / d (p_j scale) (the scale
-    // of the PE and the 1/scale of the sdf cancel)
-    if (tid < TILE) {
-      float x[3], g[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[tid * 3 + j], p.scale);
-      for (int c = 0; c < p.d0; ++c) {
-        int j;
-        const float s = mlp::emb_slope(x, c, p.d0, &j);
-        g[j] = fmaf(t.EG[tid * EMB + c], s, g[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) t.G3[tid * 3 + j] = g[j];
-      t.S1[tid] *= 1.f / p.scale;
-    }
-    __syncthreads();
-
-    // ---- colour: X = [features | pts, grad, PE(dirs)] ----
-    for (int e = tid; e < TILE * HID; e += THREADS) {
-      const int r = e / HID, c = e % HID;
-      t.X[r * LDX + c] = feat[r * HID + c];
-    }
-    write_small(t, HID, p.color_dv);
-    __syncthreads();
-    for (int l = 0; l < p.n_color - 1; ++l)
-      wide_layer<EPI_RELU>(t.X, l == 0 ? HID + EMB : HID, W + p.off[W_COL + l],
-                           W + p.off[B_COL + l], 1.f, nullptr, t.X, LDX);
-    narrow_layer(t.X, HID, 3, W + p.off[W_COL + p.n_color - 1], W + p.off[B_COL + p.n_color - 1],
-                 t.GC, 3);
-    if (p.squeeze)
-      for (int e = tid; e < TILE * 3; e += THREADS) t.GC[e] = sigmoidf_(t.GC[e]);
-    __syncthreads();
-
-    // ---- relight: X = [pts, grad, PE(dirs) | ... | gc] ----
-    if (p.n_relight > 0) {
-      write_small(t, 0, p.rl_dv);
-      for (int e = tid; e < TILE * EMB; e += THREADS) {
-        const int r = e / EMB, c = e % EMB;
-        t.X[r * LDX + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
-      }
-      __syncthreads();
-      for (int l = 0; l < p.n_relight - 1; ++l) {
-        const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
-        wide_layer<EPI_RELU>(t.X, K, W + p.off[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
-                             t.X, LDX);
-      }
-      const int last = p.n_relight - 1;
-      narrow_layer(t.X, last == p.y_in ? HID + EMB : HID, 3, W + p.off[W_REL + last],
-                   W + p.off[B_REL + last], t.DL, 3);
-      for (int e = tid; e < TILE * 3; e += THREADS) {
-        const float gc = t.GC[e], d = t.DL[e];
-        if (p.inv_sigmoid) {
-          const float gcc = fminf(fmaxf(gc, 0.f), 1.f);
-          const float logit = logf(fmaxf(gcc, 1e-5f) / fmaxf(1.f - gcc, 1e-5f));
-          t.RL[e] = sigmoidf_(logit + d);
-        } else {
-          t.RL[e] = fminf(fmaxf(gc + sigmoidf_(d) - 0.5f, 0.f), 1.f);
-        }
-      }
-    } else {
-      for (int e = tid; e < TILE * 3; e += THREADS) {
-        t.RL[e] = t.GC[e];
-        t.DL[e] = 0.f;
-      }
-    }
-    __syncthreads();
-
+    forward_tile<false>(p, t, base, gates, feat, none);
     // ---- store [sdf, grad, gc, relit, delta, 0, 0, 0] ----
     for (int e = tid; e < TILE * 16; e += THREADS) {
       const int r = e / 16, c = e % 16;
@@ -357,42 +467,538 @@ __global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p
   }
 }
 
-}  // namespace
+// ------------------------------------------------------------------------
+// Backward
+// ------------------------------------------------------------------------
 
-// Plain C interface for ctypes. The blocks the launch may use at once
-// (SMs x resident blocks per SM): the wrapper sizes the scratch by it.
-extern "C" int point_pipeline_max_blocks(int* n_blocks) {
+// P[k][c] += sum_r S[r][k] A[r][c] (+ S2[r][k] A2[r][c]) for k < K, c < 256:
+// a layer's weight grad over the tile, added into the block's partial
+// (row-major [K, 256], the packed [in, out] layout). S, S2: stored layer
+// inputs in the scratch ([TILE][LDS]; each warp reads 8 consecutive k of
+// one row, a broadcast float4 pair); A, A2: output cotangents in shared
+// memory (row stride LDX). K is a multiple of 8, so a warp's rows are all
+// in range or all out.
+template <bool TWO>
+__device__ void dw_accum(const float* S, const float* A, const float* S2, const float* A2, int K,
+                         float* P) {
+  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    const int kr = k0 + rg * 8;
+    if (kr >= K) continue;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int r = 0; r < TILE; ++r) {
+      float a[8], b[8];
+      const float4* s4 = reinterpret_cast<const float4*>(S + r * LDS + kr);
+      const float4 lo = s4[0], hi = s4[1];
+      a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
+      a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = A[r * LDX + cg + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      if (TWO) {
+        const float4* u4 = reinterpret_cast<const float4*>(S2 + r * LDS + kr);
+        const float4 ulo = u4[0], uhi = u4[1];
+        a[0] = ulo.x; a[1] = ulo.y; a[2] = ulo.z; a[3] = ulo.w;
+        a[4] = uhi.x; a[5] = uhi.y; a[6] = uhi.z; a[7] = uhi.w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = A2[r * LDX + cg + 32 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) P[size_t(kr + i) * HID + cg + 32 * j] += acc[i][j];
+  }
+}
+
+// P[c] += sum_r A[r][c] for c < 256: a bias grad over the tile.
+__device__ void bias_accum(const float* A, float* P) {
+  const int c = threadIdx.x;   // THREADS == HID
+  float s = 0.f;
+  for (int r = 0; r < TILE; ++r) s += A[r * LDX + c];
+  P[c] += s;
+}
+
+// The reverse of a layer with 256 outputs: xbar = A[:, :256] @ W^T (WT
+// row-major [256, 32 JN]); put(r, c, xbar[r][c]) for c < K after a barrier,
+// so put may overwrite A.
+template <int JN, class F>
+__device__ void reverse_wide(const float* A, const float* __restrict__ WT, int K, F&& put) {
+  float acc[8][JN];
+  mlp::tile_matmul_f32<JN>(A, LDX, HID, WT, acc);
+  __syncthreads();
+  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int c = cg + 32 * j;
+      if (c < K) put(rg * 8 + i, c, acc[i][j]);
+    }
+  __syncthreads();
+}
+
+template <class F>
+__device__ void reverse_any(const float* A, const float* __restrict__ WT, int K, F&& put) {
+  if (K == EMB) reverse_wide<2>(A, WT, K, put);
+  else if (K == HID) reverse_wide<8>(A, WT, K, put);
+  else reverse_wide<10>(A, WT, K, put);
+}
+
+// The reverse of a 3-wide output layer (W row-major [3, K], input S in the
+// scratch): dW += HB^T S, db += sum HB, X[:, :K] = HB @ W.
+__device__ void narrow_back(const Tile& t, const float* S, const float* __restrict__ W, int K,
+                            float* Pw, float* Pb) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < 3 * K; e += THREADS) {
+    const int j = e / K, k = e % K;
+    float s = 0.f;
+    for (int r = 0; r < TILE; ++r) s = fmaf(t.HB[r * 3 + j], S[r * LDS + k], s);
+    Pw[e] += s;
+  }
+  if (tid < 3) {
+    float s = 0.f;
+    for (int r = 0; r < TILE; ++r) s += t.HB[r * 3 + tid];
+    Pb[tid] += s;
+  }
+  for (int e = tid; e < TILE * K; e += THREADS) {
+    const int r = e / K, k = e % K;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s = fmaf(t.HB[r * 3 + j], __ldg(W + j * K + k), s);
+    t.X[r * LDX + k] = s;
+  }
+  __syncthreads();
+}
+
+// DH[r] += the view-dir PE VJP of the cotangents staged in VH[r][:dv].
+__device__ void dirs_pe_vjp(const Tile& t, int dv) {
+  const int r = threadIdx.x;
+  if (r < TILE) {
+    for (int c = 0; c < dv; ++c) {
+      int j;
+      const float s = mlp::emb_slope(t.D3 + r * 3, c, dv, &j);
+      t.DH[r * 3 + j] = fmaf(t.VH[r * EMB + c], s, t.DH[r * 3 + j]);
+    }
+  }
+  __syncthreads();
+}
+
+// The block's backward scratch, floats: [n_sdf - 1] gates, features and
+// [n_sdf - 1] tangent pre-gates as [TILE][HID] slabs, then [n_sdf] SDF
+// layer inputs, [n_sdf - 1] tangent inputs, [n_color] colour and
+// [n_relight] relight layer inputs as [TILE][LDS] slabs.
+__host__ __device__ long long bwd_scratch_floats(int n_sdf, int n_color, int n_relight) {
+  return (2LL * (n_sdf - 1) + 1) * GSLAB + (2LL * n_sdf - 1 + n_color + n_relight) * SLAB;
+}
+
+__device__ void backward_tile(const Params& p, const Tile& t, long long base, float* gates,
+                              float* zt, const Save& sv, float* us, float* P) {
+  const int tid = threadIdx.x;
+  const float* W = p.w;
+  const long long* off = p.off;
+  const float inv_scale = 1.f / p.scale;
+
+  for (int e = tid; e < TILE * 16; e += THREADS) {
+    const long long i = base + e / 16;
+    t.CT[e] = i < p.n_pts ? p.gbar[base * 16 + e] : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < TILE * 3; e += THREADS) {
+    const int r = e / 3, c = e % 3;
+    t.PH[e] = 0.f;
+    t.DH[e] = 0.f;
+    t.GH[e] = t.CT[r * 16 + 1 + c];
+    t.CG[e] = t.CT[r * 16 + 4 + c];
+  }
+  __syncthreads();
+
+  // ---- relit and the relight net ----
+  if (p.n_relight > 0) {
+    for (int e = tid; e < TILE * 3; e += THREADS) {
+      const int r = e / 3, c = e % 3;
+      const float gc = t.GC[e], relit = t.RL[e], rh = t.CT[r * 16 + 7 + c];
+      const float dh = t.CT[r * 16 + 10 + c];
+      if (p.inv_sigmoid) {
+        const float sbar = relit * (1.f - relit) * rh;
+        const float dlogit = (gc > 1e-5f ? 1.f / fmaxf(gc, 1e-5f) : 0.f) +
+                             (1.f - gc > 1e-5f ? 1.f / fmaxf(1.f - gc, 1e-5f) : 0.f);
+        const float inside = (gc > 0.f && gc < 1.f) ? 1.f : 0.f;
+        t.CG[e] += sbar * dlogit * inside;
+        t.HB[e] = dh + sbar;
+      } else {
+        const float sd = sigmoidf_(t.DL[e]);
+        const float pre = gc + sd - 0.5f;
+        const float gate = (pre > 0.f && pre < 1.f) ? 1.f : 0.f;
+        t.CG[e] += gate * rh;
+        t.HB[e] = dh + gate * rh * sd * (1.f - sd);
+      }
+    }
+    __syncthreads();
+    const int last = p.n_relight - 1;
+    const int KL = last == p.y_in ? HID + EMB : HID;
+    const float* rxl = sv.rx + last * SLAB;
+    narrow_back(t, rxl, W + off[W_REL + last], KL, P + off[W_REL + last], P + off[B_REL + last]);
+    for (int e = tid; e < TILE * HID; e += THREADS) {
+      const int r = e / HID, c = e % HID;
+      if (rxl[r * LDS + c] <= 0.f) t.X[r * LDX + c] = 0.f;   // the relu before `last`
+      if (last == p.y_in && c < 3) t.CG[r * 3 + c] += t.X[r * LDX + HID + c];
+    }
+    __syncthreads();
+    for (int l = last - 1; l >= 0; --l) {
+      const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
+      const float* rx = sv.rx + l * SLAB;
+      dw_accum<false>(rx, t.X, nullptr, nullptr, K, P + off[W_REL + l]);
+      bias_accum(t.X, P + off[B_REL + l]);
+      reverse_any(t.X, W + off[WT_REL + l], K, [&](int r, int c, float v) {
+        if (l == 0) {   // [pts, grad, PE(dirs)]
+          if (c < 3) t.PH[r * 3 + c] += v;
+          else if (c < 6) t.GH[r * 3 + c - 3] += v;
+          else t.VH[r * EMB + c - 6] = v;
+        } else if (c < HID) {
+          t.X[r * LDX + c] = rx[r * LDS + c] > 0.f ? v : 0.f;
+        } else if (c < HID + 3) {   // the y_in layer's gc lanes
+          t.CG[r * 3 + c - HID] += v;
+        }
+      });
+    }
+    dirs_pe_vjp(t, p.rl_dv);
+  } else {
+    for (int e = tid; e < TILE * 3; e += THREADS)   // relit aliases gc for NeuS
+      t.CG[e] += t.CT[(e / 3) * 16 + 7 + e % 3];
+    __syncthreads();
+  }
+
+  // ---- the colour net ----
+  for (int e = tid; e < TILE * 3; e += THREADS) {
+    const float gc = t.GC[e];
+    t.HB[e] = p.squeeze ? gc * (1.f - gc) * t.CG[e] : t.CG[e];
+  }
+  __syncthreads();
+  {
+    const int last = p.n_color - 1;
+    const float* cxl = sv.cx + last * SLAB;
+    narrow_back(t, cxl, W + off[W_COL + last], HID, P + off[W_COL + last],
+                P + off[B_COL + last]);
+    for (int e = tid; e < TILE * HID; e += THREADS) {
+      const int r = e / HID, c = e % HID;
+      if (cxl[r * LDS + c] <= 0.f) t.X[r * LDX + c] = 0.f;
+    }
+    __syncthreads();
+    for (int l = last - 1; l >= 0; --l) {
+      const int K = l == 0 ? HID + EMB : HID;
+      const float* cx = sv.cx + l * SLAB;
+      dw_accum<false>(cx, t.X, nullptr, nullptr, K, P + off[W_COL + l]);
+      bias_accum(t.X, P + off[B_COL + l]);
+      reverse_any(t.X, W + off[WT_COL + l], K, [&](int r, int c, float v) {
+        if (l > 0) {
+          t.X[r * LDX + c] = cx[r * LDS + c] > 0.f ? v : 0.f;
+        } else if (c < HID) {   // [features | pts, grad, PE(dirs)]
+          t.X[r * LDX + c] = v;
+        } else if (c < HID + 3) {
+          t.PH[r * 3 + c - HID] += v;
+        } else if (c < HID + 6) {
+          t.GH[r * 3 + c - HID - 3] += v;
+        } else {
+          t.VH[r * EMB + c - HID - 6] = v;
+        }
+      });
+    }
+    if (p.color_dv > 0) dirs_pe_vjp(t, p.color_dv);
+  }
+  // X[:, :256] = feat_hat
+
+  // ---- SDF tangent stream along grad_hat: Y = v0 = scale d emb/d x . grad_hat ----
+  for (int e = tid; e < TILE * EMB; e += THREADS) {
+    const int r = e / EMB, c = e % EMB;
+    float x[3];
+    pe_row(p, t, r, x);
+    int j;
+    const float s = mlp::emb_slope(x, c, p.d0, &j);
+    const float v = p.scale * s * t.GH[r * 3 + j];
+    t.V0[e] = v;
+    t.Y[r * LDX + c] = v;
+  }
+  __syncthreads();
+  for (int l = 0; l < p.n_sdf - 1; ++l) {
+    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const bool pre_skip = l + 1 == p.skip;
+    save_cols(t.Y, K, us + l * SLAB);
+    float acc[8][8];
+    mlp::tile_matmul_f32<8>(t.Y, LDX, K, W + off[W_SDF + l], acc);
+    __syncthreads();
+    const float* g = gates + l * GSLAB;
+    float* z = zt + l * GSLAB;
+    const int cg = tid & 31, rg = tid >> 5;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = rg * 8 + i, c = cg + 32 * j;
+        z[r * HID + c] = acc[i][j];
+        const float v = g[r * HID + c] * acc[i][j];
+        t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
+      }
+    if (pre_skip)
+      for (int e = tid; e < TILE * EMB; e += THREADS)
+        t.Y[(e / EMB) * LDX + HID + e % EMB] = t.V0[e] * INV_SQRT2;
+    __syncthreads();
+  }
+
+  // ---- the last SDF layer: ybar = [sdf_hat / scale, feat_hat], tangent
+  // cotangent e0 / scale, uL = Y[:, :256] ----
+  {
+    const int L1 = p.n_sdf - 1;
+    const float* sx = sv.sx + L1 * SLAB;
+    {
+      const int k = tid;   // THREADS == HID
+      float s = 0.f;
+      for (int r = 0; r < TILE; ++r)
+        s += t.CT[r * 16] * inv_scale * sx[r * LDS + k] + inv_scale * t.Y[r * LDX + k];
+      P[off[W_LAST] + k] += s;
+      if (tid == 0) {
+        float sb = 0.f;
+        for (int r = 0; r < TILE; ++r) sb += t.CT[r * 16] * inv_scale;
+        P[off[B_LAST]] += sb;
+      }
+    }
+    dw_accum<false>(sx, t.X, nullptr, nullptr, HID, P + off[W_FEAT]);
+    bias_accum(t.X, P + off[B_FEAT]);
+    const float* wl = W + off[W_LAST];
+    reverse_wide<8>(t.X, W + off[WT_FEAT], HID, [&](int r, int c, float v) {
+      t.X[r * LDX + c] = fmaf(t.CT[r * 16] * inv_scale, wl[c], v);
+      t.Y[r * LDX + c] = inv_scale * wl[c];
+    });
+  }
+
+  // ---- value and tangent reversed together ----
+  for (int e = tid; e < TILE * EMB; e += THREADS) {
+    t.EG[e] = 0.f;
+    t.VH[e] = 0.f;
+  }
+  for (int l = p.n_sdf - 2; l >= 0; --l) {
+    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const bool is_skip = l == p.skip;
+    const float* g = gates + l * GSLAB;
+    const float* z = zt + l * GSLAB;
+    __syncthreads();
+    for (int e = tid; e < TILE * HID; e += THREADS) {
+      const int r = e / HID, c = e % HID;
+      const float gg = g[e], hb = t.X[r * LDX + c], ub = t.Y[r * LDX + c];
+      t.X[r * LDX + c] = gg * hb + (ub * z[e]) * (100.f * gg * (1.f - gg));
+      t.Y[r * LDX + c] = gg * ub;
+    }
+    __syncthreads();
+    dw_accum<true>(sv.sx + l * SLAB, t.X, us + l * SLAB, t.Y, K, P + off[W_SDF + l]);
+    bias_accum(t.X, P + off[B_SDF + l]);
+    const float* WT = W + off[WT_SDF + l];
+    // hbar and ubar of layer l's input: the hidden part stays in X / Y, the
+    // PE part (the skip layer's last 48 columns, or all of layer 0's) adds
+    // to emb_hat / v0_hat
+    reverse_any(t.X, WT, K, [&](int r, int c, float v) {
+      if (l == 0) t.EG[r * EMB + c] += v;
+      else if (c < HID) t.X[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
+      else t.EG[r * EMB + c - HID] += v * INV_SQRT2;
+    });
+    reverse_any(t.Y, WT, K, [&](int r, int c, float v) {
+      if (l == 0) t.VH[r * EMB + c] += v;
+      else if (c < HID) t.Y[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
+      else t.VH[r * EMB + c - HID] += v * INV_SQRT2;
+    });
+  }
+
+  // ---- PE pullback, first and second derivative; store ----
+  if (tid < TILE) {
+    float x[3];
+    pe_row(p, t, tid, x);
+    float* ph = t.PH + tid * 3;
+    const float* gh = t.GH + tid * 3;
+    for (int c = 0; c < p.d0; ++c) {
+      int j;
+      const float s = mlp::emb_slope(x, c, p.d0, &j);
+      const float k2 = mlp::emb_curvature(x, c, p.d0);
+      ph[j] = fmaf(t.EG[tid * EMB + c] * p.scale, s, ph[j]);
+      ph[j] = fmaf(t.VH[tid * EMB + c] * p.scale * p.scale * gh[j], k2, ph[j]);
+    }
+    const long long i = base + tid;
+    if (i < p.n_pts) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        p.pts_hat[3 * i + j] = ph[j];
+        p.dirs_hat[3 * i + j] = t.DH[tid * 3 + j];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Tile t;
+  carve_fwd(t, smem);
+  t.Y = t.S1 + TILE;
+  t.VH = t.Y + TILE * LDX;
+  t.V0 = t.VH + TILE * EMB;
+  t.CT = t.V0 + TILE * EMB;
+  t.PH = t.CT + TILE * 16;
+  t.DH = t.PH + TILE * 3;
+  t.GH = t.DH + TILE * 3;
+  t.CG = t.GH + TILE * 3;
+  t.HB = t.CG + TILE * 3;
+  float* gates = p.scratch + size_t(blockIdx.x) * bwd_scratch_floats(p.n_sdf, p.n_color,
+                                                                       p.n_relight);
+  float* feat = gates + size_t(p.n_sdf - 1) * GSLAB;
+  float* zt = feat + GSLAB;
+  Save sv;
+  sv.sx = zt + size_t(p.n_sdf - 1) * GSLAB;
+  float* us = sv.sx + size_t(p.n_sdf) * SLAB;
+  sv.cx = us + size_t(p.n_sdf - 1) * SLAB;
+  sv.rx = sv.cx + size_t(p.n_color) * SLAB;
+  float* P = p.partial + size_t(blockIdx.x) * p.n_grad;
+  const long long n_tiles = (p.n_pts + TILE - 1) / TILE;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    forward_tile<true>(p, t, tile * TILE, gates, feat, sv);
+    backward_tile(p, t, tile * TILE, gates, zt, sv, us, P);
+  }
+}
+
+// out[i] = sum over the blocks b = 0, 1, ... of partial[b][i], in that order.
+__global__ void point_pipeline_reduce_kernel(const float* __restrict__ partial,
+                                             float* __restrict__ out, int n_blocks,
+                                             long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += partial[size_t(b) * n + i];
+  out[i] = s;
+}
+
+template <class K>
+cudaError_t max_blocks(K kernel, size_t smem, int* n_blocks) {
   int dev, sms, per_sm;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(point_pipeline_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_pipeline_fwd_kernel,
-                                                      THREADS, SMEM);
-  if (e != cudaSuccess) return int(e);
-  *n_blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (e == cudaSuccess) *n_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return e;
 }
 
-// Returns 0 or the CUDA error code of the attribute call or the launch;
-// never synchronises. `off` is a host array of the offset table.
+Params make_params(const float* pts, const float* dirs, const float* w, long long n_pts,
+                   int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
+                   int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+                   const long long* off) {
+  Params p{};
+  p.pts = pts;
+  p.dirs = dirs;
+  p.w = w;
+  p.n_pts = n_pts;
+  p.n_sdf = n_sdf;
+  p.skip = skip;
+  p.d0 = d0;
+  p.scale = scale;
+  p.n_color = n_color;
+  p.color_dv = color_dv;
+  p.squeeze = squeeze;
+  p.n_relight = n_relight;
+  p.rl_dv = rl_dv;
+  p.y_in = y_in;
+  p.inv_sigmoid = inv_sigmoid;
+  for (int i = 0; i < N_OFF; ++i) p.off[i] = off[i];
+  return p;
+}
+
+bool bad_shape(int n_off, int n_sdf, int n_color, int n_relight) {
+  return n_off != N_OFF || n_sdf < 2 || n_sdf - 1 > MAXL || n_color < 2 || n_color > MAXL ||
+         n_relight > MAXL;
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. The blocks a launch may use at once (SMs x
+// resident blocks per SM): the wrapper sizes the scratch by it.
+extern "C" int point_pipeline_fwd_max_blocks(int* n_blocks) {
+  return int(max_blocks(point_pipeline_fwd_kernel, SMEM_FWD, n_blocks));
+}
+
+extern "C" int point_pipeline_bwd_max_blocks(int* n_blocks) {
+  return int(max_blocks(point_pipeline_bwd_kernel, SMEM_BWD, n_blocks));
+}
+
+extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int n_color, int n_relight) {
+  return bwd_scratch_floats(n_sdf, n_color, n_relight);
+}
+
+// Each launch returns 0 or the CUDA error code of the attribute call or the
+// launch; none synchronises. `off` is a host array of the offset table.
 extern "C" int point_pipeline_fwd_launch(
     const float* pts, const float* dirs, const float* w, float* out, float* scratch,
     long long n_pts, int n_blocks, int n_sdf, int skip, int d0, float scale, int n_color,
     int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
     const long long* off, int n_off, void* stream) {
   if (n_pts <= 0) return 0;
-  if (n_off != N_OFF || n_sdf - 1 > MAXL || n_color > MAXL || n_relight > MAXL)
-    return int(cudaErrorInvalidValue);
-  Params p{pts, dirs, w, out, scratch, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
-           squeeze, n_relight, rl_dv, y_in, inv_sigmoid, {}};
-  for (int i = 0; i < N_OFF; ++i) p.off[i] = off[i];
+  if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  Params p = make_params(pts, dirs, w, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off);
+  p.out = out;
+  p.scratch = scratch;
   cudaError_t e = cudaFuncSetAttribute(point_pipeline_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(SMEM_FWD));
   if (e != cudaSuccess) return int(e);
-  point_pipeline_fwd_kernel<<<n_blocks, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  point_pipeline_fwd_kernel<<<n_blocks, THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return int(cudaGetLastError());
+}
+
+// `partial` must hold n_blocks x n_grad zeros; `scratch` n_blocks x
+// point_pipeline_bwd_scratch_floats(...) floats.
+extern "C" int point_pipeline_bwd_launch(
+    const float* pts, const float* dirs, const float* gbar, const float* w, float* pts_hat,
+    float* dirs_hat, float* partial, float* scratch, long long n_pts, int n_blocks,
+    long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
+    int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
+    int n_off, void* stream) {
+  if (n_pts <= 0) return 0;
+  if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  Params p = make_params(pts, dirs, w, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off);
+  p.scratch = scratch;
+  p.gbar = gbar;
+  p.pts_hat = pts_hat;
+  p.dirs_hat = dirs_hat;
+  p.partial = partial;
+  p.n_grad = n_grad;
+  cudaError_t e = cudaFuncSetAttribute(point_pipeline_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(SMEM_BWD));
+  if (e != cudaSuccess) return int(e);
+  point_pipeline_bwd_kernel<<<n_blocks, THREADS, SMEM_BWD, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return int(cudaGetLastError());
+}
+
+extern "C" int point_pipeline_reduce_launch(const float* partial, float* out, int n_blocks,
+                                            long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  point_pipeline_reduce_kernel<<<unsigned(blocks), threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(partial, out, n_blocks, n);
   return int(cudaGetLastError());
 }
 

@@ -11,9 +11,12 @@ switches differ in meaning, because the port has its own kernels:
   fused_core   auto | on | off. With grad disabled (validation render,
                vertex colours) auto/on run the point-pipeline forward
                kernel (ops/kernels/point_pipeline.py; its plain twin for
-               CPU tensors). With grad enabled (training) auto runs the
-               plain autograd core and on raises NotImplementedError (the
-               backward kernel is PERF.md row 6). off: the plain core.
+               CPU tensors). With grad enabled (training) on runs the
+               autograd Function of the forward kernel and the backward
+               kernel (plain twins for CPU tensors), and auto runs the
+               plain autograd core (the backward kernel is slower than it
+               for now, PERF.md). off: the plain core. YAML reads a bare
+               on / off as a boolean: true / false mean on / off here.
   fused_march  auto | off: the plain PyTorch render core (what the JAX
                package runs off-TPU). 'on' raises NotImplementedError:
                the fused march kernels are ROADMAP Queue B.
@@ -170,6 +173,12 @@ def _lower_get(d: dict, key: str, default):
     return v
 
 
+def _switch(d: dict, key: str) -> str:
+    """A kernel switch; YAML 1.1 reads a bare on / off as true / false."""
+    v = _lower_get(d, key, "auto")
+    return {True: "on", False: "off"}.get(v, v) if isinstance(v, bool) else v
+
+
 def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
     """Build a RendererConfig from a reference-schema dict (cfg.MODEL.RENDERER)."""
     sdf = rcfg.get("SDF", {})
@@ -192,9 +201,9 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
         n_outside=_lower_get(rcfg, "N_OUTSIDE", 0),
         up_sample_steps=_lower_get(rcfg, "UP_SAMPLE_STEPS", 4),
         perturb=_lower_get(rcfg, "PERTURB", 1.0),
-        fused_sdf=_lower_get(rcfg, "FUSED_SDF", "auto"),
-        fused_core=_lower_get(rcfg, "FUSED_CORE", "auto"),
-        fused_march=_lower_get(rcfg, "FUSED_MARCH", "auto"),
+        fused_sdf=_switch(rcfg, "FUSED_SDF"),
+        fused_core=_switch(rcfg, "FUSED_CORE"),
+        fused_march=_switch(rcfg, "FUSED_MARCH"),
         sweep_dtype=_lower_get(rcfg, "SWEEP_DTYPE", "bfloat16"),
         sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
         extract_precision=_lower_get(rcfg, "EXTRACT_PRECISION", "f32"),

@@ -7,9 +7,12 @@ per-point MLPs (eval_point_pipeline) follow fused_core:
   * auto / on, grad disabled (validation render, vertex colours): the
     point-pipeline forward kernel (ops/kernels/point_pipeline.py; its
     plain twin for CPU tensors);
-  * auto, grad enabled (training): the plain autograd core, the path the
-    JAX package runs off-TPU; 'on' with grad enabled raises
-    NotImplementedError: the backward kernel is PERF.md row 6;
+  * on, grad enabled (training): fused_point_pipeline, the autograd
+    Function whose forward is that kernel and whose backward is the
+    point-pipeline backward kernel (plain twins for CPU tensors);
+  * auto, grad enabled: the plain autograd core, the path the JAX
+    package runs off-TPU (the backward kernel is slower than it for now,
+    PERF.md);
   * off: always the plain core.
 The fused march (fused_march) is not ported: the plain core always.
 
@@ -29,7 +32,7 @@ from torch import nn
 from color_neus_torch.models import fields
 from color_neus_torch.models.configs import RendererConfig
 from color_neus_torch.ops.kernels.point_pipeline import (
-    fused_point_pipeline_fwd, resolve_pipeline_weights,
+    fused_point_pipeline, fused_point_pipeline_fwd, resolve_pipeline_weights,
 )
 from color_neus_torch.ops.kernels.sdf_rays import resolve_sdf_sweep_fn
 from color_neus_torch.ops.rays import sample_pdf
@@ -177,25 +180,22 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
 # ---------------------------------------------------------------------------
 
 def resolve_point_pipeline(params, rcfg: RendererConfig):
-    """The point-pipeline kernel's resolved weights when fused_core sends
-    the calls made here to it (see the module note), else None."""
-    if rcfg.fused_core == "off":
-        return None
-    if torch.is_grad_enabled():
-        if rcfg.fused_core == "on":
-            raise NotImplementedError(
-                "fused_core='on' with grad enabled: the point pipeline's backward kernel "
-                "(_bwd_kernel, PERF.md kernel table row 6) is not ported yet")
+    """The point-pipeline forward kernel's resolved weights when fused_core
+    sends the no-grad calls made here to it (see the module note), else
+    None."""
+    if rcfg.fused_core == "off" or torch.is_grad_enabled():
         return None
     return resolve_pipeline_weights(params, rcfg)
 
 
 def eval_point_pipeline(params, rcfg: RendererConfig, pts, dirs, weights=None):
     """(sdf [N,1], grad [N,3], colour [N,3], relit [N,3], delta [N,3]):
-    the point-pipeline kernel when fused_core sends this call to it (or
+    the point-pipeline kernels when fused_core sends this call to them (or
     `weights` from resolve_point_pipeline are given), else the plain
     PyTorch path."""
     if weights is None:
+        if rcfg.fused_core == "on" and torch.is_grad_enabled():
+            return fused_point_pipeline(params, rcfg, pts, dirs)
         weights = resolve_point_pipeline(params, rcfg)
     if weights is not None:
         return fused_point_pipeline_fwd(params, rcfg, pts, dirs, weights=weights)

@@ -1,13 +1,13 @@
-"""The per-point pipeline forward: counterpart of
-color_neus_tpu/ops/pallas/point_pipeline.py (fused_point_pipeline_fwd).
+"""The per-point pipeline and its backward: counterpart of
+color_neus_tpu/ops/pallas/point_pipeline.py (fused_point_pipeline_fwd,
+fused_point_pipeline and its custom_vjp _pipeline_core).
 
-fused_point_pipeline_fwd(params, rcfg, pts [N,3], dirs [N,3]) returns
-(sdf [N,1], grad [N,3], gc [N,3], relit [N,3], delta [N,3]): the SDF, its
-spatial gradient (reverse mode), the global colour, the relit colour and
-the relight residual (NeuS: relit = gc, delta = 0). Forward only: no
-gradient flows through it (the backward kernel is a later slice).
+The pipeline maps (pts [N,3], dirs [N,3]) to (sdf [N,1], grad [N,3],
+gc [N,3], relit [N,3], delta [N,3]): the SDF, its spatial gradient
+(reverse mode), the global colour, the relit colour and the relight
+residual (NeuS: relit = gc, delta = 0).
 
-Two implementations of one function:
+Forward, two implementations of one function:
   * launch_point_pipeline: the hand-written CUDA kernel
     csrc/point_pipeline.cu (its source note gives the bound and the
     design). Runs for CUDA tensors, counts its launches in
@@ -18,7 +18,21 @@ Two implementations of one function:
     Runs for CPU tensors, and is what tests and chip_smoke.py compare the
     kernel against.
 fused_point_pipeline_fwd picks between them by the device of the
-tensors it is given, and by nothing else.
+tensors it is given, and by nothing else; no gradient flows through it.
+
+Backward (the VJP of the five outputs), two implementations likewise:
+  * launch_point_pipeline_bwd: the second entry of csrc/point_pipeline.cu
+    (recompute, relight / colour reverse, the SDF second-order
+    reverse-over-forward, PE first and second derivative; weight grads
+    summed per block, then over blocks in a fixed order). Counts its
+    launches in launch_point_pipeline_bwd.launches.
+  * point_pipeline_bwd_plain: the same pullback in plain PyTorch, in the
+    nets' own layouts and at any width (not autograd).
+fused_point_pipeline(params, rcfg, pts, dirs) is the differentiable
+entry: PointPipelineFunction, forward = the forward above, backward = the
+backward above, each chosen by device. Weight norm is resolved outside
+the Function, with grad, so autograd carries the dense weight grads on to
+the v / g / b leaves.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from color_neus_torch.models.configs import RendererConfig
 from color_neus_torch.models.fields import resolve_linear
@@ -41,23 +56,26 @@ EMB = 48      # the kernel's padded PE / small-input width
 MAXL = 16     # the kernel's most layers per network
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # slots of the kernel's offset table (csrc/point_pipeline.cu)
-W_SDF, WT_SDF, B_SDF, W_COL, B_COL, W_REL, B_REL = (i * MAXL for i in range(7))
-W_LAST, B_LAST, W_FEAT, B_FEAT = 7 * MAXL, 7 * MAXL + 1, 7 * MAXL + 2, 7 * MAXL + 3
-N_OFF = 7 * MAXL + 4
-_MAX_BLOCKS: dict = {}   # device -> blocks resident at once (sizes the scratch)
+W_SDF, WT_SDF, B_SDF, W_COL, B_COL, W_REL, B_REL, WT_COL, WT_REL = (i * MAXL for i in range(9))
+W_LAST, B_LAST, W_FEAT, B_FEAT, WT_FEAT = (9 * MAXL + i for i in range(5))
+N_OFF = 9 * MAXL + 5
+_MAX_BLOCKS: dict = {}   # (device, entry) -> blocks resident at once (sizes the scratch)
 
 
 @dataclass
 class PipelineWeights:
     """Weight-norm-resolved weights of the three nets, (w [out, in], b [out])
     per layer in the networks' own widths; packed / off: the kernel's f32
-    buffer and its offset table (None for CPU weights)."""
+    buffer and its offset table (None for CPU weights); n_grad: the length
+    of the buffer's prefix that holds every block a gradient flows to (the
+    transposed copies come after it)."""
     rcfg: RendererConfig
     sdf: list
     color: list
     relight: list
     packed: torch.Tensor | None = None
     off: np.ndarray | None = None
+    n_grad: int = 0
 
 
 def _color_dv(rcfg: RendererConfig) -> int:
@@ -97,25 +115,35 @@ def _check_kernel_shape(rcfg: RendererConfig):
 
 
 def _pack(pw: PipelineWeights):
-    """The kernel's f32 buffer and offset table (see csrc/point_pipeline.cu):
-    SDF hidden layers as [K, 256] ([in, out]; K = 48 for the PE layer,
-    256 + 48 for the skip layer's [h, emb], else 256) and transposed as
-    [256, K padded to 32]; the last SDF layer as its sdf row [256] and the
-    features [256, 256]; colour layer 0 as [features 256 | pts, grad,
-    PE(dirs)] x 256; relight layer 0 as [pts, grad, PE(dirs)] x 256 and the
-    y_in layer as [h 256 | gc] x out; hidden layers [256, 256]; the last
-    colour / relight layer row-major [3, K]. Zero padding keeps the math
-    exact: padded inputs meet zero weight rows."""
+    """The kernel's f32 buffer, its offset table and the length of its
+    gradient prefix (see csrc/point_pipeline.cu). First, every block a
+    gradient flows to: SDF hidden layers as [K, 256] ([in, out]; K = 48
+    for the PE layer, 256 + 48 for the skip layer's [h, emb], else 256);
+    the last SDF layer as its sdf row [256] and the features [256, 256]
+    ([in, out]); colour layer 0 as [features 256 | pts, grad, PE(dirs)] x
+    256; relight layer 0 as [pts, grad, PE(dirs)] x 256 and the y_in layer
+    as [h 256 | gc] x out; hidden layers [256, 256]; the last colour /
+    relight layer row-major [3, K]. Then the transposed copies the reverse
+    products read: every [K, 256] block above as [256, K padded to 32], and
+    the features as [256 out, 256 in]. Zero padding keeps the math exact:
+    padded inputs meet zero weight rows."""
     rcfg = pw.rcfg
     d0, skip, n_sdf = _check_kernel_shape(rcfg)
     dev = pw.sdf[0][0].device
-    blocks, off, pos = [], np.zeros(N_OFF, np.int64), [0]
+    blocks, late, off, pos = [], [], np.zeros(N_OFF, np.int64), [0]
 
     def put(slot, t):
         off[slot] = pos[0]
         t = t.reshape(-1).float()
         blocks.append(t)
         pos[0] += t.numel()
+
+    def put_t(slot, wp):
+        # [K, 256] -> [256, K padded to 32], placed after the gradient prefix
+        K = wp.shape[0]
+        wtp = z(HID, (K + 31) // 32 * 32)
+        wtp[:, :K] = wp.T
+        late.append((slot, wtp))
 
     def z(*shape):
         return torch.zeros(shape, device=dev)
@@ -139,18 +167,15 @@ def _pack(pw: PipelineWeights):
         else:
             wp = z(HID, HID)
             wp[:d_in, :d_out] = wt
-        K = wp.shape[0]
-        kp = (K + 31) // 32 * 32
-        wtp = z(HID, kp)
-        wtp[:, :K] = wp.T
         put(W_SDF + l, wp)
-        put(WT_SDF + l, wtp)
+        put_t(WT_SDF + l, wp)
         put(B_SDF + l, bias(b))
     w, b = pw.sdf[-1]
     put(W_LAST, w[0])
     put(B_LAST, b[:1])
     put(W_FEAT, w[1:].T)
     put(B_FEAT, b[1:])
+    late.append((WT_FEAT, w[1:]))
 
     dv = _color_dv(rcfg)
     n_color = len(pw.color)
@@ -170,6 +195,8 @@ def _pack(pw: PipelineWeights):
             wp = wt
         put(W_COL + l, wp)
         put(B_COL + l, b if last else bias(b))
+        if not last:
+            put_t(WT_COL + l, wp)
 
     if rcfg.kind == "color_neus":
         rl = rcfg.relight
@@ -196,25 +223,108 @@ def _pack(pw: PipelineWeights):
                 wp = w if last else wt
             put(W_REL + l, wp)
             put(B_REL + l, b if last else bias(b))
-    return torch.cat(blocks).contiguous(), off
+            if not last:
+                put_t(WT_REL + l, wp)
+    n_grad = pos[0]
+    for slot, t in late:
+        put(slot, t)
+    return torch.cat(blocks).contiguous(), off, n_grad
+
+
+def _unpack_grads(pw: PipelineWeights, packed_grad: torch.Tensor) -> dict:
+    """The transpose of _pack on a buffer in its layout (a gradient from the
+    backward kernel): {"sdf" / "color" / "relight": [(dW [out, in], db
+    [out]) per layer]} in each net's own layout. The last SDF layer comes
+    back as one [257, 256] matrix; the transposed slots carry nothing."""
+    rcfg = pw.rcfg
+    d0, skip, _ = _check_kernel_shape(rcfg)
+    off = pw.off
+    g = packed_grad
+
+    def blk(slot, rows, cols):
+        return g[off[slot]:off[slot] + rows * cols].reshape(rows, cols)
+
+    def vec(slot, n):
+        return g[off[slot]:off[slot] + n]
+
+    sdf = []
+    for l, (w, _) in enumerate(pw.sdf[:-1]):
+        d_out, d_in = w.shape
+        if l == 0:
+            wt = blk(W_SDF + l, EMB, HID)[:d0, :d_out]
+        elif l == skip:
+            wp = blk(W_SDF + l, HID + EMB, HID)
+            h = d_in - d0
+            wt = torch.cat([wp[:h, :d_out], wp[HID:HID + d0, :d_out]])
+        else:
+            wt = blk(W_SDF + l, HID, HID)[:d_in, :d_out]
+        sdf.append((wt.T.contiguous(), vec(B_SDF + l, d_out).clone()))
+    sdf.append((torch.cat([vec(W_LAST, HID)[None], blk(W_FEAT, HID, HID).T]),
+                torch.cat([vec(B_LAST, 1), vec(B_FEAT, HID)])))
+
+    dv = _color_dv(rcfg)
+    color = []
+    for l, (w, b) in enumerate(pw.color):
+        d_out, d_in = w.shape
+        if l == len(pw.color) - 1:
+            color.append((blk(W_COL + l, d_out, d_in).clone(), vec(B_COL + l, d_out).clone()))
+            continue
+        if l == 0:
+            wp = blk(W_COL + l, HID + EMB, HID)
+            wt = torch.cat([wp[HID:HID + 3], wp[HID + 6:HID + 6 + dv], wp[HID + 3:HID + 6],
+                            wp[:HID]])
+        else:
+            wt = blk(W_COL + l, HID, HID)
+        color.append((wt.T.contiguous(), vec(B_COL + l, d_out).clone()))
+
+    relight = []
+    if rcfg.kind == "color_neus":
+        rl = rcfg.relight
+        rdv = _relight_dv(rcfg)
+        for l, (w, b) in enumerate(pw.relight):
+            d_out, d_in = w.shape
+            last = l == len(pw.relight) - 1
+            if l == 0:
+                wp = blk(W_REL + l, EMB, HID)
+                parts = [wp[0:3], wp[6:6 + rdv]] + ([wp[3:6]] if rl.include_grad else [])
+                dw = torch.cat(parts).T
+            elif l == rl.y_in_layer:
+                wp = blk(W_REL + l, d_out, HID + EMB).T if last \
+                    else blk(W_REL + l, HID + EMB, HID)
+                dw = torch.cat([wp[HID:HID + 3], wp[:HID]]).T
+            elif last:
+                dw = blk(W_REL + l, d_out, d_in)
+            else:
+                dw = blk(W_REL + l, HID, HID).T
+            relight.append((dw.contiguous(), vec(B_REL + l, d_out).clone()))
+    return {"sdf": sdf, "color": color, "relight": relight}
+
+
+def _layer_names(rcfg: RendererConfig) -> dict:
+    names = {"sdf": [f"lin{l}" for l in range(rcfg.sdf.n_layers + 1)],
+             "color": [f"lin{l}" for l in range(rcfg.color.n_layers + 1)], "relight": []}
+    if rcfg.kind == "color_neus":
+        names["relight"] = ["in_layer"] + [f"mlp{i}" for i in range(rcfg.relight.n_layers)]
+    return names
+
+
+def _make_weights(rcfg: RendererConfig, layers: dict) -> PipelineWeights:
+    """PipelineWeights of detached f32 (w, b) per net; packed for CUDA."""
+    def net(name):
+        return [(w.detach().float(), b.detach().float()) for w, b in layers[name]]
+    pw = PipelineWeights(rcfg, net("sdf"), net("color"), net("relight"))
+    if pw.sdf[0][0].is_cuda:
+        pw.packed, pw.off, pw.n_grad = _pack(pw)
+    return pw
 
 
 def resolve_pipeline_weights(params, rcfg: RendererConfig) -> PipelineWeights:
     """Resolve weight norm once (no grad: forward only) and, for CUDA
     weights, pack the kernel's buffer."""
     with torch.no_grad():
-        def net(p, names):
-            return [tuple(t.detach().float() for t in resolve_linear(p[n])) for n in names]
-        sdf = net(params["sdf"], [f"lin{l}" for l in range(rcfg.sdf.n_layers + 1)])
-        color = net(params["color"], [f"lin{l}" for l in range(rcfg.color.n_layers + 1)])
-        relight = []
-        if rcfg.kind == "color_neus":
-            relight = net(params["relight"], ["in_layer"] + [
-                f"mlp{i}" for i in range(rcfg.relight.n_layers)])
-        pw = PipelineWeights(rcfg, sdf, color, relight)
-        if sdf[0][0].is_cuda:
-            pw.packed, pw.off = _pack(pw)
-    return pw
+        layers = {net: [resolve_linear(params[net][n]) for n in names]
+                  for net, names in _layer_names(rcfg).items()}
+        return _make_weights(rcfg, layers)
 
 
 def _softplus100_and_gate(a: torch.Tensor):
@@ -233,128 +343,303 @@ def _pe_slopes(x: torch.Tensor, multires: int) -> torch.Tensor:
     return torch.cat([torch.ones_like(x), slope.reshape(x.shape[0], -1)], dim=-1)
 
 
+def _pe_curvatures(x: torch.Tensor, multires: int) -> torch.Tensor:
+    """d^2 PE(x)_c / d x_j^2 for each column c of its coordinate j: [N, d0]."""
+    freqs = 2.0 ** torch.arange(multires, dtype=x.dtype, device=x.device)
+    xb = x[:, None, :] * freqs[:, None]
+    f2 = (freqs * freqs)[None, :, None]
+    curv = torch.stack([-f2 * torch.sin(xb), -f2 * torch.cos(xb)], dim=-2)
+    return torch.cat([torch.zeros_like(x), curv.reshape(x.shape[0], -1)], dim=-1)
+
+
+def _per_coord(t: torch.Tensor) -> torch.Tensor:
+    """[N, 3k] PE-column values -> [N, 3]: the sum over each column's coordinate."""
+    return t.reshape(t.shape[0], -1, 3).sum(dim=1)
+
+
+@dataclass
+class _Stash:
+    """What point_pipeline_bwd_plain reads of the forward: the scaled
+    points, the SDF layer inputs and gates, the colour and relight layer
+    inputs (each in its net's own layout)."""
+    x: torch.Tensor
+    xs: list
+    gates: list
+    cs: list
+    rs: list
+
+
+def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
+    """The plain forward, op for op the kernel's arithmetic (summed in
+    another order): returns the five outputs and the _Stash."""
+    rcfg = pw.rcfg
+    s = rcfg.sdf
+    n = pts.shape[0]
+    x = pts * s.scale
+    emb = positional_encoding(x, s.multires)
+    d0 = emb.shape[1]
+    h, xs, gates = emb, [], []
+    for l, (w, b) in enumerate(pw.sdf):
+        if l in s.skip_in:
+            h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
+        xs.append(h)
+        a = h @ w.T + b
+        if l < len(pw.sdf) - 1:
+            h, g = _softplus100_and_gate(a)
+            gates.append(g)
+    sdf = a[:, :1] * (1.0 / s.scale)
+    feat = a[:, 1:]
+
+    # reverse sweep: p = d raw / d (layer input); the last layer's is its row 0
+    emb_g = torch.zeros((n, d0), dtype=pts.dtype, device=pts.device)
+    p = pw.sdf[-1][0][0].expand(n, -1)
+    for l in range(len(pw.sdf) - 1, -1, -1):
+        if l < len(pw.sdf) - 1:
+            p = (p * gates[l]) @ pw.sdf[l][0]
+        if l in s.skip_in:
+            emb_g = emb_g + p[:, -d0:] * _INV_SQRT2
+            p = p[:, :-d0] * _INV_SQRT2
+    emb_g = emb_g + p
+    contrib = emb_g * _pe_slopes(x, s.multires)
+    grad = contrib[:, :3] + contrib[:, 3:].reshape(n, -1, 3).sum(dim=1)
+
+    c = rcfg.color
+    vd = positional_encoding(dirs, c.multires_view)
+    if c.mode == "idr":
+        h = torch.cat([pts, vd, grad, feat], dim=-1)
+    elif c.mode == "no_view_dir":
+        h = torch.cat([pts, grad, feat], dim=-1)
+    else:
+        raise ValueError(f"colour mode {c.mode!r}")
+    cs = []
+    for l, (w, b) in enumerate(pw.color):
+        cs.append(h)
+        h = h @ w.T + b
+        if l < len(pw.color) - 1:
+            h = torch.relu(h)
+    gc = torch.sigmoid(h) if c.squeeze_out else h
+
+    stash = _Stash(x, xs, gates, cs, [])
+    if rcfg.kind != "color_neus":
+        return (sdf, grad, gc, gc, torch.zeros_like(gc)), stash
+    r = rcfg.relight
+    feats = [pts, positional_encoding(dirs, r.multires_view)]
+    if r.include_grad:
+        feats.append(grad)
+    h = torch.cat(feats, dim=-1)
+    for l, (w, b) in enumerate(pw.relight):
+        if l > 0:
+            h = torch.relu(h)
+            if l == r.y_in_layer:
+                h = torch.cat([gc, h], dim=-1)
+        stash.rs.append(h)
+        h = h @ w.T + b
+    delta = h
+    if r.inv_sigmoid:
+        relit = torch.sigmoid(inverse_sigmoid(gc) + delta)
+    else:
+        relit = torch.clamp(gc + torch.sigmoid(delta) - 0.5, 0.0, 1.0)
+    return (sdf, grad, gc, relit, delta), stash
+
+
 def point_pipeline_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
     """Plain PyTorch pipeline forward, the kernel's arithmetic op for op
     (summed in another order)."""
+    with torch.no_grad():
+        return _forward(pw, pts, dirs)[0]
+
+
+def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor,
+                             cotangents):
+    """Plain PyTorch VJP of the pipeline, the JAX kernel's pullback
+    (_mlp_recompute + _mlp_pullback) op for op in the nets' own layouts.
+    cotangents: those of (sdf, grad, gc, relit, delta). Returns (pts_hat
+    [N,3], dirs_hat [N,3], {"sdf" / "color" / "relight": [(dW [out, in],
+    db [out]) per layer]})."""
     rcfg = pw.rcfg
     s = rcfg.sdf
     with torch.no_grad():
-        n = pts.shape[0]
-        x = pts * s.scale
-        emb = positional_encoding(x, s.multires)
-        d0 = emb.shape[1]
-        h, gates = emb, []
-        for l, (w, b) in enumerate(pw.sdf[:-1]):
-            if l in s.skip_in:
-                h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
-            h, g = _softplus100_and_gate(h @ w.T + b)
-            gates.append(g)
-        w_last, b_last = pw.sdf[-1]
-        if len(pw.sdf) - 1 in s.skip_in:
-            h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
-        y = h @ w_last.T + b_last
-        sdf = y[:, :1] * (1.0 / s.scale)
-        feat = y[:, 1:]
+        (_, _, gc, relit, delta), st = _forward(pw, pts, dirs)
+        sdf_hat, grad_hat, gc_hat, relit_hat, delta_hat = cotangents
+        pts_hat = torch.zeros_like(pts)
+        dirs_hat = torch.zeros_like(dirs)
+        grads = {"sdf": [None] * len(pw.sdf), "color": [None] * len(pw.color),
+                 "relight": [None] * len(pw.relight)}
 
-        # reverse sweep: p = d raw / d (layer input); the last layer's is its row 0
-        emb_g = torch.zeros((n, d0), dtype=pts.dtype, device=pts.device)
-        p = w_last[0].expand(n, -1)
-        for l in range(len(pw.sdf) - 1, -1, -1):
-            if l < len(pw.sdf) - 1:
-                p = (p * gates[l]) @ pw.sdf[l][0]
-            if l in s.skip_in:
-                emb_g = emb_g + p[:, -d0:] * _INV_SQRT2
-                p = p[:, :-d0] * _INV_SQRT2
-        emb_g = emb_g + p
-        contrib = emb_g * _pe_slopes(x, s.multires)
-        grad = contrib[:, :3] + contrib[:, 3:].reshape(n, -1, 3).sum(dim=1)
+        def layer_back(net, l, x, hbar):
+            """dW, db of layer l from its input x and output cotangent hbar;
+            returns the input cotangent."""
+            grads[net][l] = (hbar.T @ x, hbar.sum(dim=0))
+            return hbar @ getattr(pw, net)[l][0]
 
+        # relit / relight
+        if rcfg.kind == "color_neus":
+            r = rcfg.relight
+            if r.inv_sigmoid:
+                sbar = relit * (1.0 - relit) * relit_hat
+                delta_tot = delta_hat + sbar
+                zero = torch.zeros_like(gc)
+                dlogit = torch.where(gc > 1e-5, 1.0 / torch.clamp_min(gc, 1e-5), zero) \
+                    + torch.where(1.0 - gc > 1e-5, 1.0 / torch.clamp_min(1.0 - gc, 1e-5), zero)
+                inside = ((gc > 0.0) & (gc < 1.0)).to(gc.dtype)
+                gc_tot = gc_hat + sbar * dlogit * inside
+            else:
+                sd = torch.sigmoid(delta)
+                pre = gc + sd - 0.5
+                gate = ((pre > 0.0) & (pre < 1.0)).to(gc.dtype)
+                gc_tot = gc_hat + gate * relit_hat
+                delta_tot = delta_hat + gate * relit_hat * sd * (1.0 - sd)
+            hbar = delta_tot
+            for l in range(len(pw.relight) - 1, -1, -1):
+                xbar = layer_back("relight", l, st.rs[l], hbar)
+                x_h = st.rs[l]
+                if l == r.y_in_layer:
+                    gc_tot = gc_tot + xbar[:, :3]
+                    xbar, x_h = xbar[:, 3:], x_h[:, 3:]
+                if l > 0:
+                    hbar = xbar * (x_h > 0.0)
+            rdv = _relight_dv(rcfg)
+            pts_hat += xbar[:, :3]
+            dirs_hat += _per_coord(xbar[:, 3:3 + rdv] * _pe_slopes(dirs, r.multires_view))
+            if r.include_grad:
+                grad_hat = grad_hat + xbar[:, 3 + rdv:6 + rdv]
+        else:
+            gc_tot = gc_hat + relit_hat                    # relit aliases gc
+
+        # colour
         c = rcfg.color
-        vd = positional_encoding(dirs, c.multires_view)
-        if c.mode == "idr":
-            h = torch.cat([pts, vd, grad, feat], dim=-1)
-        elif c.mode == "no_view_dir":
-            h = torch.cat([pts, grad, feat], dim=-1)
-        else:
-            raise ValueError(f"colour mode {c.mode!r}")
-        for l, (w, b) in enumerate(pw.color):
-            h = h @ w.T + b
-            if l < len(pw.color) - 1:
-                h = torch.relu(h)
-        gc = torch.sigmoid(h) if c.squeeze_out else h
+        hbar = gc * (1.0 - gc) * gc_tot if c.squeeze_out else gc_tot
+        for l in range(len(pw.color) - 1, -1, -1):
+            xbar = layer_back("color", l, st.cs[l], hbar)
+            if l > 0:
+                hbar = xbar * (st.cs[l] > 0.0)
+        dv = _color_dv(rcfg)
+        pts_hat += xbar[:, :3]
+        if dv:
+            dirs_hat += _per_coord(xbar[:, 3:3 + dv] * _pe_slopes(dirs, c.multires_view))
+        grad_hat = grad_hat + xbar[:, 3 + dv:6 + dv]
+        feat_hat = xbar[:, 6 + dv:]
 
-        if rcfg.kind != "color_neus":
-            return sdf, grad, gc, gc, torch.zeros_like(gc)
-        r = rcfg.relight
-        feats = [pts, positional_encoding(dirs, r.multires_view)]
-        if r.include_grad:
-            feats.append(grad)
-        w, b = pw.relight[0]
-        h = torch.cat(feats, dim=-1) @ w.T + b
-        for i, (w, b) in enumerate(pw.relight[1:]):
-            h = torch.relu(h)
-            if i == r.y_in_layer - 1:
-                h = torch.cat([gc, h], dim=-1)
-            h = h @ w.T + b
-        delta = h
-        if r.inv_sigmoid:
-            relit = torch.sigmoid(inverse_sigmoid(gc) + delta)
-        else:
-            relit = torch.clamp(gc + torch.sigmoid(delta) - 0.5, 0.0, 1.0)
-        return sdf, grad, gc, relit, delta
+        # SDF, second order: <grad, grad_hat> is 1/scale times the derivative
+        # of the raw sdf along grad_hat, so one forward tangent stream v along
+        # grad_hat, then value and tangent reversed together
+        L = len(pw.sdf)
+        inv_scale = 1.0 / s.scale
+        slopes = _pe_slopes(st.x, s.multires)
+        d0 = slopes.shape[1]
+        gh = grad_hat.repeat(1, d0 // 3)                   # column c -> grad_hat[:, c % 3]
+        v0 = s.scale * slopes * gh                          # d emb . grad_hat
+        v, us, zs = v0, [], []
+        for l in range(L - 1):
+            if l in s.skip_in:
+                v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
+            us.append(v)
+            zs.append(v @ pw.sdf[l][0].T)
+            v = st.gates[l] * zs[-1]
+        if L - 1 in s.skip_in:
+            v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
+        # last layer: value cotangent ybar, tangent cotangent inv_scale e0
+        w_last = pw.sdf[-1][0]
+        ybar = torch.cat([sdf_hat * inv_scale, feat_hat], dim=-1)
+        dw = ybar.T @ st.xs[-1]
+        dw[0] += inv_scale * v.sum(dim=0)
+        grads["sdf"][L - 1] = (dw, ybar.sum(dim=0))
+        emb_hat = torch.zeros_like(slopes)
+        v0_hat = torch.zeros_like(slopes)
+
+        def split(l, hbar, ubar):
+            nonlocal emb_hat, v0_hat
+            if l in s.skip_in:
+                emb_hat = emb_hat + hbar[:, -d0:] * _INV_SQRT2
+                v0_hat = v0_hat + ubar[:, -d0:] * _INV_SQRT2
+                return hbar[:, :-d0] * _INV_SQRT2, ubar[:, :-d0] * _INV_SQRT2
+            return hbar, ubar
+
+        hbar, ubar = split(L - 1, ybar @ w_last, (inv_scale * w_last[0]).expand(pts.shape[0], -1))
+        for l in range(L - 2, -1, -1):
+            g, z = st.gates[l], zs[l]
+            abar = g * hbar + (ubar * z) * (100.0 * g * (1.0 - g))
+            zbar = g * ubar
+            grads["sdf"][l] = (abar.T @ st.xs[l] + zbar.T @ us[l], abar.sum(dim=0))
+            w = pw.sdf[l][0]
+            hbar, ubar = split(l, abar @ w, zbar @ w)
+        emb_hat = emb_hat + hbar
+        v0_hat = v0_hat + ubar
+
+        # the PE's first derivative, and its second through the tangent seed
+        # v0 = scale * slope(x) * grad_hat
+        pts_hat += s.scale * _per_coord(emb_hat * slopes)
+        pts_hat += s.scale * s.scale * _per_coord(v0_hat * _pe_curvatures(st.x, s.multires) * gh)
+        return pts_hat, dirs_hat, grads
 
 
-def _check(name, t, n, device):
+def _check(name, t, n, device, width=3):
     if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device \
-            or tuple(t.shape) != (n, 3):
+            or tuple(t.shape) != (n, width):
         raise ValueError(f"point_pipeline: {name} must be a contiguous float32 tensor of "
-                         f"shape ({n}, 3) on {device}; got {t.dtype} {tuple(t.shape)} "
+                         f"shape ({n}, {width}) on {device}; got {t.dtype} {tuple(t.shape)} "
                          f"on {t.device}")
 
 
-def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; returns [N, 16]:
-    sdf, grad, gc, relit, delta, 0, 0, 0."""
+def _max_blocks(lib, dev, entry: str) -> int:
+    key = (dev, entry)
+    if key not in _MAX_BLOCKS:
+        nb = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, f"point_pipeline_{entry}_max_blocks")(ctypes.byref(nb))
+        _raise_on(lib, rc, "occupancy query")
+        _MAX_BLOCKS[key] = nb.value
+    return _MAX_BLOCKS[key]
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"point_pipeline {what} failed: CUDA error {rc} "
+                           f"({lib.point_pipeline_error_string(rc).decode()})")
+
+
+def _net_args(pw: PipelineWeights):
+    """The kernel's network arguments, after the per-call ones."""
+    d0, skip, n_sdf = _check_kernel_shape(pw.rcfg)
+    rcfg = pw.rcfg
+    kind_cn = rcfg.kind == "color_neus"
+    off = np.ascontiguousarray(pw.off, np.int64)
+    return off, (n_sdf, skip, d0, float(rcfg.sdf.scale), len(pw.color), _color_dv(rcfg),
+                 int(rcfg.color.squeeze_out), len(pw.relight),
+                 _relight_dv(rcfg) if kind_cn else 0,
+                 rcfg.relight.y_in_layer if kind_cn else -1, int(rcfg.relight.inv_sigmoid),
+                 off.ctypes.data, N_OFF)
+
+
+def _check_inputs(pw: PipelineWeights, pts, dirs):
     if pw.packed is None:
         raise ValueError("point_pipeline: weights were resolved on the CPU")
-    n = pts.shape[0]
-    dev = pts.device
+    n, dev = pts.shape[0], pts.device
     _check("pts", pts, n, dev)
     _check("dirs", dirs, n, dev)
     if pw.packed.device != dev:
         raise ValueError("point_pipeline: weights and points are on different devices")
-    d0, skip, n_sdf = _check_kernel_shape(pw.rcfg)
+    return n, dev
+
+
+def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
+    """Launch the forward kernel on the current stream; returns [N, 16]:
+    sdf, grad, gc, relit, delta, 0, 0, 0."""
+    n, dev = _check_inputs(pw, pts, dirs)
     lib = _library()
+    off, net = _net_args(pw)
     out = torch.empty((n, 16), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    blocks = _MAX_BLOCKS.get(dev)
-    if blocks is None:
-        nb = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.point_pipeline_max_blocks(ctypes.byref(nb))
-        if rc != 0:
-            raise RuntimeError(f"point_pipeline: occupancy query failed: CUDA error {rc} "
-                               f"({lib.point_pipeline_error_string(rc).decode()})")
-        blocks = _MAX_BLOCKS[dev] = nb.value
-    grid = min(-(-n // 64), blocks)
+    grid = min(-(-n // 64), _max_blocks(lib, dev, "fwd"))
     # per block: the gates of the n_sdf - 1 hidden layers and the features
-    scratch = torch.empty(grid * n_sdf * 64 * HID, dtype=torch.float32, device=dev)
-    rcfg = pw.rcfg
-    kind_cn = rcfg.kind == "color_neus"
-    off = np.ascontiguousarray(pw.off, np.int64)
+    scratch = torch.empty(grid * net[0] * 64 * HID, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_fwd_launch(
             pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n, grid, n_sdf, skip, d0, float(rcfg.sdf.scale),
-            len(pw.color), _color_dv(rcfg), int(rcfg.color.squeeze_out),
-            len(pw.relight), _relight_dv(rcfg) if kind_cn else 0,
-            rcfg.relight.y_in_layer if kind_cn else -1,
-            int(rcfg.relight.inv_sigmoid), off.ctypes.data, N_OFF, stream)
-    if rc != 0:
-        raise RuntimeError(f"point_pipeline kernel launch failed: CUDA error {rc} "
-                           f"({lib.point_pipeline_error_string(rc).decode()})")
+            scratch.data_ptr(), n, grid, *net, stream)
+    _raise_on(lib, rc, "kernel launch")
     launch_point_pipeline.launches += 1
     return out
 
@@ -362,17 +647,71 @@ def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
 launch_point_pipeline.launches = 0
 
 
+def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
+    """[blocks, n_grad] per-block weight-grad partials -> [n_grad], summed
+    over the blocks in index order by the reduction kernel (deterministic:
+    no atomics)."""
+    lib = _library()
+    nb, n_grad = partial.shape
+    out = torch.empty(n_grad, dtype=torch.float32, device=partial.device)
+    with torch.cuda.device(partial.device):
+        stream = torch.cuda.current_stream(partial.device).cuda_stream
+        rc = lib.point_pipeline_reduce_launch(partial.data_ptr(), out.data_ptr(), nb, n_grad,
+                                              stream)
+    _raise_on(lib, rc, "reduction launch")
+    return out
+
+
+def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
+    """Launch the backward kernel and the reduction on the current stream.
+    gbar [N, 16]: the cotangents of sdf, grad, gc, relit, delta in the
+    forward kernel's output lanes. Returns (pts_hat [N,3], dirs_hat [N,3],
+    the weight grads [n_grad] in the packed layout: _unpack_grads)."""
+    n, dev = _check_inputs(pw, pts, dirs)
+    _check("gbar", gbar, n, dev, 16)
+    lib = _library()
+    off, net = _net_args(pw)
+    pts_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dirs_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return pts_hat, dirs_hat, torch.zeros(pw.n_grad, dtype=torch.float32, device=dev)
+    grid = min(-(-n // 64), _max_blocks(lib, dev, "bwd"))
+    # per block: the recompute's layer inputs, gates, tangent stream, and a
+    # weight-grad partial in the packed layout, summed afterwards
+    per_block = lib.point_pipeline_bwd_scratch_floats(net[0], net[4], net[7])
+    scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
+    partial = torch.zeros((grid, pw.n_grad), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.point_pipeline_bwd_launch(
+            pts.data_ptr(), dirs.data_ptr(), gbar.data_ptr(), pw.packed.data_ptr(),
+            pts_hat.data_ptr(), dirs_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
+            n, grid, pw.n_grad, *net, stream)
+    _raise_on(lib, rc, "backward kernel launch")
+    launch_point_pipeline_bwd.launches += 1
+    return pts_hat, dirs_hat, reduce_partials(partial)
+
+
+launch_point_pipeline_bwd.launches = 0
+
+
 def _library():
     from color_neus_torch.ops.kernels import build
     lib = build.load(KERNEL)
     if lib.point_pipeline_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.point_pipeline_fwd_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, f, i, i, i,
-                                                  i, i, i, i, p, i, p]
-        lib.point_pipeline_fwd_launch.restype = i
-        lib.point_pipeline_max_blocks.argtypes = [ctypes.POINTER(i)]
-        lib.point_pipeline_max_blocks.restype = i
-        lib.point_pipeline_n_off.restype = i
+        net = [i, i, i, f, i, i, i, i, i, i, i, p, i]
+        lib.point_pipeline_fwd_launch.argtypes = [p] * 5 + [ll, i] + net + [p]
+        lib.point_pipeline_bwd_launch.argtypes = [p] * 8 + [ll, i, ll] + net + [p]
+        lib.point_pipeline_reduce_launch.argtypes = [p, p, i, ll, p]
+        for fn in (lib.point_pipeline_fwd_launch, lib.point_pipeline_bwd_launch,
+                   lib.point_pipeline_reduce_launch, lib.point_pipeline_n_off):
+            fn.restype = i
+        for fn in (lib.point_pipeline_fwd_max_blocks, lib.point_pipeline_bwd_max_blocks):
+            fn.argtypes = [ctypes.POINTER(i)]
+            fn.restype = i
+        lib.point_pipeline_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.point_pipeline_bwd_scratch_floats.restype = ll
         lib.point_pipeline_error_string.argtypes = [i]
         lib.point_pipeline_error_string.restype = ctypes.c_char_p
         if lib.point_pipeline_n_off() != N_OFF:
@@ -391,3 +730,58 @@ def fused_point_pipeline_fwd(params, rcfg: RendererConfig, pts, dirs, weights=No
         out = launch_point_pipeline(pw, pts, dirs)
         return out[:, 0:1], out[:, 1:4], out[:, 4:7], out[:, 7:10], out[:, 10:13]
     return point_pipeline_plain(pw, pts, dirs)
+
+
+class PointPipelineFunction(torch.autograd.Function):
+    """The pipeline with its hand-written VJP (JAX _pipeline_core).
+    apply(rcfg, pts, dirs, *flat) with flat the resolved (w, b) of every
+    layer, sdf then colour then relight. Forward: row 5's kernel (CUDA) or
+    point_pipeline_plain (CPU); it saves only its inputs, the backward
+    recomputes. Backward: row 6's kernel (CUDA) or point_pipeline_bwd_plain
+    (CPU), the device alone deciding."""
+
+    @staticmethod
+    def forward(ctx, rcfg, pts, dirs, *flat):
+        sizes = _layer_counts(rcfg)
+        layers, i = {}, 0
+        for net, k in sizes.items():
+            layers[net] = [(flat[i + 2 * j], flat[i + 2 * j + 1]) for j in range(k)]
+            i += 2 * k
+        pw = _make_weights(rcfg, layers)
+        pts, dirs = pts.detach().contiguous(), dirs.detach().contiguous()
+        ctx.pw, ctx.pts, ctx.dirs = pw, pts, dirs
+        if pts.is_cuda:
+            out = launch_point_pipeline(pw, pts, dirs)
+            return tuple(out[:, a:b].contiguous()
+                         for a, b in ((0, 1), (1, 4), (4, 7), (7, 10), (10, 13)))
+        sdf, grad, gc, relit, delta = point_pipeline_plain(pw, pts, dirs)
+        return sdf, grad, gc, relit.clone() if relit is gc else relit, delta
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cots):
+        pw, pts, dirs = ctx.pw, ctx.pts, ctx.dirs
+        cots = list(cots)   # autograd passes zeros for outputs the loss does not reach
+        if pts.is_cuda:
+            zeros = torch.zeros((pts.shape[0], 3), device=pts.device)
+            gbar = torch.cat(cots + [zeros], dim=1).contiguous()
+            pts_hat, dirs_hat, packed = launch_point_pipeline_bwd(pw, pts, dirs, gbar)
+            grads = _unpack_grads(pw, packed)
+        else:
+            pts_hat, dirs_hat, grads = point_pipeline_bwd_plain(pw, pts, dirs, cots)
+        flat = [t for net in _layer_counts(pw.rcfg) for wb in grads[net] for t in wb]
+        return (None, pts_hat, dirs_hat, *flat)
+
+
+def _layer_counts(rcfg: RendererConfig) -> dict:
+    return {net: len(names) for net, names in _layer_names(rcfg).items()}
+
+
+def fused_point_pipeline(params, rcfg: RendererConfig, pts, dirs):
+    """Differentiable pipeline (JAX fused_point_pipeline): the outputs of
+    fused_point_pipeline_fwd, with gradients to the params' leaves (through
+    the weight norm resolved here) and to pts and dirs (including the PE
+    second derivative the eikonal and colour paths reach)."""
+    flat = [t for net, names in _layer_names(rcfg).items() for n in names
+            for t in resolve_linear(params[net][n])]
+    return PointPipelineFunction.apply(rcfg, pts, dirs, *flat)

@@ -113,3 +113,78 @@ def test_cuda_point_pipeline_matches_plain(cuda_device, kind):
         for name, a, b in zip(("sdf", "grad", "gc", "relit", "delta"), got, want):
             atol = 5e-5 if name == "grad" else 5e-6
             torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=name)
+
+
+def _f64(pw):
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    return PP.PipelineWeights(pw.rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                         for layers in (pw.sdf, pw.color, pw.relight)])
+
+
+def _rel(a, b):
+    return float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+def test_cuda_point_pipeline_bwd_matches_plain(cuda_device, kind):
+    """Row 6 against the plain backward in float64, with the cotangents of
+    the points near a relu kink zeroed (a mask flip between two f32 paths
+    would move their gradients; see chip_smoke.py phase 2c), at
+    chip_smoke.py's tolerances, set from the card's readings."""
+    from chip_smoke import KINK_MARGIN, RTOL_BWD, relu_margin
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    color = ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) \
+        if kind == "color_neus" else ColorConfig()
+    rcfg = RendererConfig(kind=kind, color=color)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    params = init_renderer(rcfg, g, cuda_device)
+    with torch.no_grad():
+        for leaf in params.parameters():
+            leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    pw64 = _f64(pw)
+    for n in (1 << 12, 999):
+        pts = (0.6 * torch.randn((n, 3), generator=g, device=cuda_device)).contiguous()
+        d = torch.randn((n, 3), generator=g, device=cuda_device)
+        d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        keep = (relu_margin(pw64, pts.double(), d.double()) > KINK_MARGIN).float()
+        cots = [torch.randn((n, k), generator=g, device=cuda_device) * keep[:, None]
+                for k in (1, 3, 3, 3, 3)]
+        gbar = torch.cat(cots + [torch.zeros((n, 3), device=cuda_device)], 1).contiguous()
+        before = PP.launch_point_pipeline_bwd.launches
+        ph, dh, packed = PP.launch_point_pipeline_bwd(pw, pts, d, gbar)
+        torch.cuda.synchronize()
+        assert PP.launch_point_pipeline_bwd.launches == before + 1
+        ref = PP.point_pipeline_bwd_plain(pw64, pts.double(), d.double(),
+                                          [c.double() for c in cots])
+        assert _rel(ph, ref[0]) <= RTOL_BWD["pts"]
+        assert _rel(dh, ref[1]) <= RTOL_BWD["dirs"]
+        mine = PP._unpack_grads(pw, packed)
+        for net, layers in ref[2].items():
+            for l, ((a, b), (c, e)) in enumerate(zip(mine[net], layers)):
+                assert _rel(a, c) <= RTOL_BWD["weights"], f"{net} layer {l} W"
+                assert _rel(b, e) <= RTOL_BWD["weights"], f"{net} layer {l} b"
+
+
+@pytest.mark.cuda
+def test_cuda_train_loop_fused_core_on(cuda_device):
+    """Three full-width steps through the point-pipeline kernels: each step
+    launches the forward and the backward once and the sweep 4 times."""
+    from chip_smoke import SMOKE_CFG
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+    model = SMOKE_CFG["MODEL"]
+    cfg = config_from_dict({**SMOKE_CFG, "MODEL": {
+        **model, "RENDERER": {**model["RENDERER"], "FUSED_CORE": "on"}}})
+    loop = TrainLoop(cfg, device=cuda_device)
+    fns = (PP.launch_point_pipeline, PP.launch_point_pipeline_bwd, launch_sdf_rays)
+    before = [fn.launches for fn in fns]
+    losses = loop.run(3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all()) and losses.shape == (3,)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 12]

@@ -137,13 +137,17 @@ def test_kernel_switches():
         _build(configs, kw, fused_march="on")
     _build(configs, kw, fused_march="off")
     _build(configs, kw, fused_core="off")
-    # fused_core='on' builds; it raises where a gradient is asked of the
-    # forward-only point-pipeline kernel (the backward is PERF.md row 6)
+    # fused_core='on' builds; under grad it runs the point pipeline's
+    # autograd Function (forward and backward kernels; their plain twins on
+    # the CPU), without grad the forward alone
     on = _build(configs, kw, fused_core="on")
     params = neus.init_renderer(on, torch.Generator().manual_seed(0))
-    pts = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="row 6"):
-        neus.eval_point_pipeline(params, on, pts, pts)
+    pts = torch.full((4, 3), 0.1, requires_grad=True)
+    out = neus.eval_point_pipeline(params, on, pts, pts)
+    assert out[0].shape == (4, 1) and out[1].requires_grad
+    torch.sum(out[1]).backward()
+    assert pts.grad is not None and bool(torch.isfinite(pts.grad).all())
+    assert params["sdf"]["lin0"]["v"].grad is not None
     with torch.no_grad():
         assert neus.eval_point_pipeline(params, on, pts, pts)[0].shape == (4, 1)
     with pytest.raises(NotImplementedError, match="f32x3"):

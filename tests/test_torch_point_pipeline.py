@@ -85,7 +85,8 @@ def test_plain_matches_jax_kernel_and_oracle(kind, mode, y_in):
 def test_fused_core_switch():
     """auto/on without grad: the pipeline (plain twin on the CPU), equal
     to the fields path; auto with grad: the fields path, differentiable;
-    on with grad: NotImplementedError naming row 6; off: the fields path."""
+    on with grad: the autograd Function (plain twins on the CPU), equal to
+    the fields path with equal gradients; off: the fields path."""
     pr = _rcfg(configs, "color_neus", "no_view_dir")
     params = state_from_numpy(_params(_rcfg(jconfigs, "color_neus", "no_view_dir")))
     pts, dirs = (torch.from_numpy(a) for a in _pts_dirs(33))
@@ -102,8 +103,22 @@ def test_fused_core_switch():
     assert neus.resolve_point_pipeline(params, pr) is None
     out = neus.eval_point_pipeline(params, pr, pts, dirs)
     assert out[1].requires_grad
-    with pytest.raises(NotImplementedError, match="row 6"):
-        neus.eval_point_pipeline(params, on, pts, dirs)
+    assert neus.resolve_point_pipeline(params, on) is None
+    grads = {}
+    for name, cfg in (("on", on), ("off", off)):
+        params.zero_grad(set_to_none=True)
+        outs = neus.eval_point_pipeline(params, cfg, pts, dirs)
+        assert all(o.requires_grad for o in outs[:4]), name
+        for k, a, b in zip(NAMES, outs, plain_path):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=ATOL[k],
+                                       rtol=0, err_msg=f"{name} {k}")
+        sum(torch.sum(o * o) for o in outs[:4]).backward()
+        grads[name] = {k: p.grad for k, p in params.named_parameters() if p.grad is not None}
+    assert grads["on"].keys() == grads["off"].keys()
+    for k, g in grads["off"].items():
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(grads["on"][k].numpy(), g.numpy(), atol=1e-5 * scale,
+                                   rtol=1e-4, err_msg=k)
 
 
 def test_kernel_shape_check():
@@ -122,6 +137,7 @@ def test_kernel_shape_check():
     # packing at full width on the CPU: every offset inside the buffer
     pw = PP.resolve_pipeline_weights(
         neus.init_renderer(full, torch.Generator().manual_seed(0)), full)
-    packed, off = PP._pack(pw)
+    packed, off, n_grad = PP._pack(pw)
     used = off[off > 0]
     assert used.max() < packed.numel() and len(set(used.tolist())) == len(used)
+    assert 0 < n_grad < packed.numel()

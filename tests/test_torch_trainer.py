@@ -1,7 +1,8 @@
 """color_neus_torch.models.trainer and runtime against the JAX package.
 
 One train step from injected pixels at a step > 0 (the warm-up lr is 0
-at step 0), small widths, perturb 0, identical weights: the loss, every
+at step 0), small widths, perturb 0, identical weights, with the port's
+fused_core auto and on: the loss, every
 leaf's clipped gradient (atol 3e-3 * the leaf's max |g|, rtol 2e-3, the
 gradient tolerance of test_parity_torch.py), the Adam moments (the same
 tolerance on mu / 0.1 and sqrt(nu / 0.01), which equal the gradient
@@ -47,24 +48,24 @@ N_CAMS = 4
 STEP = 5          # warm-up 10: lr_t = lr * 5 / 10
 
 
-def _renderer(mod, fused_sdf):
+def _renderer(mod, fused_sdf, **kw):
     return mod.RendererConfig(
         kind="color_neus", n_samples=16, n_importance=8, up_sample_steps=2, perturb=0.0,
-        fused_sdf=fused_sdf, sweep_dtype="float32",
+        fused_sdf=fused_sdf, sweep_dtype="float32", **kw,
         sdf=mod.SDFConfig(d_hidden=64, n_layers=4, skip_in=(2,), multires=4),
         color=mod.ColorConfig(mode="no_view_dir", d_in=6, d_feature=256, d_hidden=64,
                               n_layers=2, multires_view=0),
         relight=mod.RelightConfig(d_hidden=32, n_layers=4, y_in_layer=3))
 
 
-def _cfgs():
+def _cfgs(fused_core="auto"):
     kw = dict(n_rays=32, include_mask=True, mask_rate=(0.5, 0.8), iterations=100,
               warm_up=10, lr=5e-4)
     cam = dict(H=H, W=W, n_cams=N_CAMS, pose_mode="6d", focal_order=2)
     jcfg = JTR.TrainerConfig(**kw, camera=JCameraConfig(**cam),
                              renderer=_renderer(jconfigs, "off"))
     pcfg = TR.TrainerConfig(**kw, camera=CameraConfig(**cam),
-                            renderer=_renderer(configs, "auto"))
+                            renderer=_renderer(configs, "auto", fused_core=fused_core))
     return jcfg, pcfg
 
 
@@ -90,8 +91,13 @@ def _flat(tree, prefix=""):
     return out
 
 
-def test_train_step_matches_jax():
-    jcfg, pcfg = _cfgs()
+@pytest.mark.parametrize("fused_core", ["auto", "on"])
+def test_train_step_matches_jax(fused_core):
+    """The port's step with the plain autograd core (auto) and with the
+    point pipeline's autograd Function (on; its plain twins on the CPU)
+    against the same JAX step (whose fused_core resolves to the plain core
+    on the CPU)."""
+    jcfg, pcfg = _cfgs(fused_core)
     poses, images, masks, focal = _scene()
     jstate = JTR.init_state(jax.random.PRNGKey(0), jcfg, init_focal_np=focal)
     jparams = jstate["params"]
