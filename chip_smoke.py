@@ -64,6 +64,20 @@ Phases; any failure exits non-zero and prints no result:
      parameter leaf on phase 3's
      trained weights and one batch of the main path's pixels, fused_core
      on against off, perturb 0.
+  2d. the fused march (csrc/ray_march.cu, rows 3 and 4) against its plain
+     twins, off geometric init: Color-NeuS and NeuS on 1024 rays x 128
+     samples, at the init's inv_s and at one with exact q == 1 ties (their
+     count printed); the forward against the f32 plain twin per lane group;
+     the backward (rays, inv_s, every weight and bias leaf) against the
+     composed reference (row 5's outputs, the plain compositing VJP on the
+     card, row 6's pullback) and, beside the f32 plain twin, against the
+     plain twin in float64; timed with CUDA events beside the plain twins
+     and the composed rows 5 + 6 + torch compositing.
+  8. the training path through the fused march: as phase 7 with
+     RENDERER.FUSED_MARCH on: the march's forward and backward once each
+     per step, the sweep 4 times, neither point-pipeline kernel; ms/step
+     beside phases 3 and 7, peak memory and a 1-step profile; one step's
+     leaf gradients, fused_march on against off (the plain core).
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -122,6 +136,32 @@ RTOL_BWD = {"pts": 2e-5, "dirs": 5e-6, "weights": 1e-4}
 # norm of the difference relative to the leaf's gradient norm (read <=
 # 2.6e-5 on the H100, PERF.md, PR 4)
 RTOL_STEP_GRAD = 2e-4
+# the fused march (rows 3 + 4) against its plain twins, phase 2d, at inv_s =
+# exp(10 v) for each v here: the init's ~20, and ~1097, where exact q == 1
+# ties are common. Tolerances set from the H100's readings (PERF.md, the
+# fused march) with headroom. Forward: max |kernel - plain| over a lane
+# group relative to its largest |plain|: f32 summation order, which alpha
+# amplifies by inv_s (read <= 1.9e-6 at ~20, <= 2.65e-5 at ~1097). Backward, against the
+# composed reference (row 5's outputs, the plain compositing VJP, row 6's
+# pullback: the same relu masks), relative to its largest magnitude (read
+# <= 2.0e-7 rays, 1.05e-5 inv_s, 3.0e-6 weights); and against float64 on
+# the rays none of whose points is within MARCH_KINK_MARGIN of a colour or
+# relight relu kink (the others' cotangents 0; a mask flips between two f32
+# paths there), at most twice the f32 plain twin's own distance plus a
+# floor (read: the kernel at most 1.2x the plain's, at inv_s ~1097 2.3x on
+# inv_s, 2.6e-5 against 1.1e-5).
+MARCH_VARIANCES = (0.3, 0.7)
+RTOL_MARCH_FWD = 1e-4
+RTOL_MARCH_TIGHT = {"rays_o": 1e-6, "rays_d": 1e-6, "inv_s": 1e-4, "weights": 2e-5}
+RTOL_MARCH_F64_FLOOR = {"rays_o": 1e-5, "rays_d": 1e-5, "inv_s": 1e-4, "weights": 2e-5}
+MARCH_KINK_MARGIN = 1e-6
+# one step's leaf gradients, fused_march on against the plain core. Read
+# 3.04e-4 (colour lin0 bias), the same as fused_core on against the plain
+# core on those pixels (3.04e-4): that leaf sums the 1 / (1 - gc) terms of
+# the relight's logit at nearly saturated colours, which cancel, so its f32
+# sum moves with the relu masks and the summation order of the
+# point-pipeline kernels; march against fused_core on read 2.2e-5
+RTOL_STEP_GRAD_MARCH = 1e-3
 STEADY_STEPS = 20
 PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
 EVAL_RES = 512
@@ -356,11 +396,13 @@ def profile_steps(loop, n_steps=3, top=12, tag="5"):
 
 def _launchers() -> dict:
     from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
     from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
     from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
     return {"sdf_rays": launch_sdf_rays, "sdf_points": launch_sdf_points,
             "point_pipeline": PP.launch_point_pipeline,
-            "point_pipeline_bwd": PP.launch_point_pipeline_bwd}
+            "point_pipeline_bwd": PP.launch_point_pipeline_bwd,
+            "ray_march": RM.launch_ray_march, "ray_march_bwd": RM.launch_ray_march_bwd}
 
 
 def reset_launch_counts():
@@ -669,16 +711,206 @@ def pipeline_bwd_vs_plain(device):
     return out
 
 
-def step_grads(loop, mode, pixels):
+MARCH_LANES = {"colour": (0, 3), "weight sum": (3, 4), "delta sum": (4, 5), "eikonal": (5, 7)}
+
+
+def march_inputs(device, kind, variance, seed):
+    """Phase 2d's inputs: a full-width net off geometric init (noise 0.005
+    keeps the init's surface on the rays, where a large inv_s makes exact
+    ties), inv_s = exp(10 variance), the main path's shape of rays through
+    the sphere, seeded [R, 16] cotangents on the loss lanes."""
+    import torch
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.fields import variance_inv_s
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    color = ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) \
+        if kind == "color_neus" else ColorConfig()
+    rcfg = RendererConfig(kind=kind, color=color)
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = off_geometric_init(init_renderer(rcfg, g, device), g, scale=0.005)
+    with torch.no_grad():
+        params["variance"]["variance"].fill_(variance)
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    o, d, z = sweep_inputs(PIPELINE_RAYS, PIPELINE_SAMPLES, device, seed + 1)
+    inv_s = variance_inv_s(params["variance"]).detach().reshape(1).contiguous()
+    gbar = torch.randn((PIPELINE_RAYS, 16), generator=g, device=device)
+    gbar[:, 7:] = 0.0
+    return rcfg, pw, o, d, z, inv_s, gbar.contiguous()
+
+
+def march_bound_ms(pw, R, S, bwd):
+    """Least time of one march entry: its MACs (ray_march.march_macs_per_point)
+    at the f32 FMA peak, or its bytes (rays, z, inv_s, the weights and, for
+    the backward, the stash and the cotangents read once; the [R, 16] output
+    and the stash, or the ray and weight grads, written once)."""
+    from color_neus_torch.ops.kernels import ray_march as RM
+    macs = RM.march_macs_per_point(pw)[1 if bwd else 0]
+    n = R * S
+    inputs = R * 6 + n + 1 + pw.packed.numel() + (n * RM.STASH + R * 16 if bwd else 0)
+    outputs = R * 6 + pw.n_grad + 1 if bwd else R * 16 + n * RM.STASH
+    t_bytes = (inputs + outputs) * 4 / PEAK_BYTES_PER_S
+    t_ops = 2 * macs * n / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _composed(pw):
+    """The march's VJP composed from rows 5 and 6 and the plain compositing
+    VJP in torch (ray_march.march_vjp's forward and pullback)."""
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    return (lambda p, d: PP.fused_point_pipeline_fwd(None, pw.rcfg, p, d, weights=pw),
+            lambda p, d, cots: PP.fused_point_pipeline_bwd(pw, p, d, cots))
+
+
+def march_bwd_errors(got, ref) -> dict:
+    """{rays_o, rays_d, inv_s, weights}: max |got - ref| relative to ref's
+    largest magnitude (weights: the worst leaf); got / ref: (rays_o_hat,
+    rays_d_hat, inv_s_hat, {net: [(dW, db)]})."""
+    rel = {"rays_o": _rel(got[0].double(), ref[0].double()),
+           "rays_d": _rel(got[1].double(), ref[1].double()),
+           "inv_s": _rel(got[2].double().reshape(1), ref[2].double().reshape(1)), "weights": 0.0}
+    for net, layers in ref[3].items():
+        for (a, b), (c, d) in zip(got[3][net], layers):
+            for x, y in ((a, c), (b, d)):
+                check(x.shape == y.shape, f"{net} grad shape {tuple(x.shape)} vs {tuple(y.shape)}")
+                rel["weights"] = max(rel["weights"], _rel(x.double(), y.double()))
+    return rel
+
+
+def _abs_err(got, ref) -> float:
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got[:3], ref[:3]))
+    for net, layers in ref[3].items():
+        for (a, b), (c, d) in zip(got[3][net], layers):
+            err = max(err, float((a.double() - c.double()).abs().max()),
+                      float((b.double() - d.double()).abs().max()))
+    return err
+
+
+def march_vs_plain(device):
+    """Phase 2d: the fused march (rows 3 + 4) against its plain twins at full
+    width, off geometric init, 1024 rays x 128 samples, Color-NeuS and NeuS,
+    at the init's inv_s and at one with exact q == 1 ties. Forward against
+    the f32 plain twin; backward against the composed reference on the card
+    (the plain compositing VJP in torch feeding row 6's kernel, the
+    per-point outputs from row 5's: the same forward_tile arithmetic, so the
+    same relu masks) and, with the f32 plain twin, against the plain twin
+    in float64. Prints every reading, then checks; returns the records the
+    kernel line reads."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+
+    out, fails = {"fwd_err": 0.0, "bwd_err": 0.0}, []
+    R, S = PIPELINE_RAYS, PIPELINE_SAMPLES
+    for kind in ("color_neus", "neus"):
+        for variance in MARCH_VARIANCES:
+            rcfg, pw, o, d, z, inv_s, gbar = march_inputs(device, kind, variance, SEED + 120)
+            sd = 2.0 / rcfg.n_samples
+            tag = f"{kind} inv_s {float(inv_s):.1f}"
+            before = (RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches)
+            got, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
+            kb = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, gbar)
+            torch.cuda.synchronize()
+            check((RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches)
+                  == (before[0] + 1, before[1] + 1), f"march {tag}: the kernels did not launch")
+            kern = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
+            check(got.shape == (R, 16) and bool(torch.isfinite(got).all())
+                  and all(bool(torch.isfinite(t).all()) for t in kb), f"march {tag}: bad output")
+            with torch.no_grad():
+                want = RM.ray_march_plain(pw, o, d, z, inv_s, sd)
+                dists, _, pts, dirs = RM.march_points(o, d, z, sd)
+                c = RM.composite(PP.point_pipeline_plain(pw, pts, dirs), d, dists, pts, inv_s)
+                ties = int((c.q == 1.0).sum())
+                del c
+            fwd = {k: float((got[:, a:b] - want[:, a:b]).abs().max())
+                   / max(float(want[:, a:b].abs().max()), 1e-30) for k, (a, b) in MARCH_LANES.items()}
+            out["fwd_err"] = max(out["fwd_err"], float((got - want).abs().max()))
+            composed = RM.march_vjp(o, d, z, inv_s, sd, gbar, *_composed(pw))
+            tight = march_bwd_errors(kern, composed)
+            del composed
+            pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                              for layers in (pw.sdf, pw.color, pw.relight)])
+            args64 = (o.double(), d.double(), z.double(), inv_s.double(), sd)
+
+            def vs_f64(g):
+                """(kernel, f32 plain) errors from float64 and the kernel's
+                largest absolute error, on the cotangents g."""
+                kb = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, g)
+                mine = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
+                ref = RM.ray_march_bwd_plain(pw64, *args64, g.double())
+                plain = RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd, g)
+                return march_bwd_errors(mine, ref), march_bwd_errors(plain, ref), \
+                    _abs_err(mine, ref)
+
+            # a relu mask flips between two f32 paths wherever a colour /
+            # relight pre-activation lies within rounding of 0 (PERF.md, the
+            # point-pipeline backward): the check keeps the rays none of whose points comes within
+            # MARCH_KINK_MARGIN of a kink (float64), the others' cotangents 0
+            with torch.no_grad():
+                margin = relu_margin(pw64, pts.double(), dirs.double()).reshape(R, S).amin(1)
+            clean = margin > MARCH_KINK_MARGIN
+            k64, p64, err = vs_f64((gbar * clean[:, None].float()).contiguous())
+            k_all, p_all, _ = vs_f64(gbar)
+            out["bwd_err"] = max(out["bwd_err"], err)
+            print(f"[2d] ray_march {tag}: {ties} of {R * S} points at q == 1 exactly | forward "
+                  "max|kernel-plain| / max|plain| " + " ".join(f"{k} {e:.3e}" for k, e in fwd.items())
+                  + " | backward vs composed (rows 5 + 6) " + " ".join(
+                      f"{k} {e:.3e}" for k, e in tight.items())
+                  + f" | vs float64 on the {int(clean.sum())} rays off the relu kinks: kernel "
+                  + " ".join(f"{k} {e:.3e}" for k, e in k64.items())
+                  + ", f32 plain " + " ".join(f"{k} {e:.3e}" for k, e in p64.items())
+                  + " | on all rays (no check): kernel "
+                  + " ".join(f"{k} {e:.3e}" for k, e in k_all.items())
+                  + ", f32 plain " + " ".join(f"{k} {e:.3e}" for k, e in p_all.items()), flush=True)
+            for k, e in fwd.items():
+                if e > RTOL_MARCH_FWD:
+                    fails.append(f"march {tag}: forward {k} {e:.3e} above {RTOL_MARCH_FWD:g}")
+            for k, e in tight.items():
+                if e > RTOL_MARCH_TIGHT[k]:
+                    fails.append(f"march {tag}: backward {k} {e:.3e} from the composed "
+                                 f"reference, above {RTOL_MARCH_TIGHT[k]:g}")
+            for k, e in k64.items():
+                lim = 2.0 * p64[k] + RTOL_MARCH_F64_FLOOR[k]
+                if e > lim:
+                    fails.append(f"march {tag}: backward {k} {e:.3e} from float64, above "
+                                 f"2 x the f32 plain's {p64[k]:.3e} + {RTOL_MARCH_F64_FLOOR[k]:g}")
+            if (kind, variance) != ("color_neus", MARCH_VARIANCES[0]):
+                continue
+            # times of the main path's shape, Color-NeuS at the init's inv_s
+            rec = {"ms": cuda_ms(lambda: RM.launch_ray_march(pw, o, d, z, inv_s, sd), reps=10),
+                   "bwd_ms": cuda_ms(lambda: RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd,
+                                                                    stash, gbar), reps=5),
+                   "plain_ms": cuda_ms(lambda: RM.ray_march_plain(pw, o, d, z, inv_s, sd), reps=5),
+                   "plain_bwd_ms": cuda_ms(lambda: RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd,
+                                                                          gbar), reps=3, warmup=1),
+                   "composed_ms": cuda_ms(lambda: RM.march_vjp(o, d, z, inv_s, sd, gbar,
+                                                               *_composed(pw)), reps=3, warmup=1)}
+            rec["bound_ms"], rec["bound_by"] = march_bound_ms(pw, R, S, bwd=False)
+            rec["bwd_bound_ms"], rec["bwd_bound_by"] = march_bound_ms(pw, R, S, bwd=True)
+            fwd_macs, bwd_macs = RM.march_macs_per_point(pw)
+            print(f"[2d] ray_march {tag}, {R * S} points: MACs per point fwd {fwd_macs} bwd "
+                  f"{bwd_macs} | forward kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                  f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) | backward kernel "
+                  f"{rec['bwd_ms']:.4f} ms (with the reduction), plain {rec['plain_bwd_ms']:.4f} "
+                  f"ms, bound {rec['bwd_bound_ms']:.4f} ms ({rec['bwd_bound_by']}) | fwd+bwd: "
+                  f"kernels {rec['ms'] + rec['bwd_ms']:.4f} ms, composed rows 5 + 6 + torch "
+                  f"compositing {rec['composed_ms']:.4f} ms", flush=True)
+            out.update(rec)
+    check(not fails, "; ".join(fails))
+    return out
+
+
+def step_grads(loop, pixels, **renderer):
     """Every trainable leaf's gradient of one step's loss on the given
-    pixels, with fused_core=mode and perturb 0 (no parameter update)."""
+    pixels, with the renderer switches `renderer` and perturb 0 (no
+    parameter update)."""
     import dataclasses
     import torch
     from color_neus_torch.models import trainer as TR
     img_ids, images, cam_sel, py, px, sel_mask = pixels
     tcfg = loop.tcfg
     tc = dataclasses.replace(tcfg, renderer=dataclasses.replace(
-        tcfg.renderer, fused_core=mode, perturb=0.0))
+        tcfg.renderer, perturb=0.0, **renderer))
     names, leaves = zip(*[(k, p) for k, p in loop.state.params.named_parameters()
                           if p.requires_grad])
     render = TR.render_pixels(loop.state.params, loop.scene, tc, images, img_ids, cam_sel, py,
@@ -689,10 +921,22 @@ def step_grads(loop, mode, pixels):
             for k, p, gr in zip(names, leaves, grads)}
 
 
-def training_fused_core_on(device, trained, seed):
-    """Phase 7: TrainLoop with FUSED_CORE on (rows 5 + 6 under grad), then
-    one step's leaf gradients on vs off on the trained weights of phase 3
-    (`trained`); returns what the kernel line and the summary read."""
+def grad_errors(a, b):
+    """{leaf: |a - b| / |b|} (L2 norms) over the leaves b reaches, and
+    {leaf: max|a - b| / max|b|}."""
+    import torch
+    used = [k for k in b if float(b[k].abs().max()) > 0]
+    return ({k: float(torch.linalg.norm(a[k] - b[k]) / torch.linalg.norm(b[k])) for k in used},
+            {k: _rel(a[k], b[k]) for k in used})
+
+
+def training_through(device, trained, seed, key, want, rtol, tag, profile_n=2, beside=None):
+    """Phases 7 and 8: TrainLoop with RENDERER.<key> on, STEPS steps with
+    exactly the launch counts `want`, then one step's leaf gradients on vs
+    the plain core (the switch off) on the trained weights of phase 3
+    (`trained`), within `rtol` (norm-relative), and, printed, against the
+    renderer switches `beside` on the same pixels; returns what the kernel
+    line and the summary read."""
     import torch
     from color_neus_torch.models import trainer as TR
     from color_neus_torch.runtime import TrainLoop
@@ -700,9 +944,10 @@ def training_fused_core_on(device, trained, seed):
 
     model = SMOKE_CFG["MODEL"]
     cfg = config_from_dict({**SMOKE_CFG, "MODEL": {
-        **model, "RENDERER": {**model["RENDERER"], "FUSED_CORE": "on"}}})
+        **model, "RENDERER": {**model["RENDERER"], key: "on"}}})
     loop = TrainLoop(cfg, device=device)
-    check(loop.tcfg.renderer.fused_core == "on", "FUSED_CORE on did not reach the renderer")
+    switch = key.lower()
+    check(getattr(loop.tcfg.renderer, switch) == "on", f"{key} on did not reach the renderer")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -714,12 +959,10 @@ def training_fused_core_on(device, trained, seed):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    print(f"[7] fused_core on, {STEPS} steps: {wall * 1e3 / STEPS:.2f} ms/step incl. first step | "
-          f"loss {first:.5f} -> {last:.5f} | launches {counts} | peak memory {peak_gb:.2f} GiB",
-          flush=True)
-    want = {"sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": STEPS,
-            "point_pipeline_bwd": STEPS}
-    check(counts == want, f"fused_core on training launched {counts}, want {want}")
+    print(f"[{tag}] {switch} on, {STEPS} steps: {wall * 1e3 / STEPS:.2f} ms/step incl. first "
+          f"step | loss {first:.5f} -> {last:.5f} | launches {counts} | peak memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+    check(counts == want, f"{switch} on training launched {counts}, want {want}")
     check(all(x == x and abs(x) != float("inf") for x in losses), f"non-finite loss {losses}")
     check(last < 0.5 * first, f"loss did not halve: first-5 mean {first}, last-5 mean {last}")
     torch.cuda.synchronize()
@@ -728,9 +971,9 @@ def training_fused_core_on(device, trained, seed):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
     n_rays = loop.tcfg.n_rays
-    print(f"[7] steady state, fused_core on: {step_ms:.2f} ms/step | "
+    print(f"[{tag}] steady state, {switch} on: {step_ms:.2f} ms/step | "
           f"{n_rays / step_ms * 1e3:.0f} rays/s", flush=True)
-    profile_steps(loop, n_steps=2, top=6, tag="7")
+    profile_steps(loop, n_steps=profile_n, top=6, tag=tag)
 
     # one step's gradients on phase 3's trained weights: on against off
     g = torch.Generator(device=device).manual_seed(seed)
@@ -741,18 +984,23 @@ def training_fused_core_on(device, trained, seed):
         cam_sel, py, px, sel_mask = TR.sample_pixels(trained.tcfg, images, masks,
                                                      trained.state.step, g)
     pixels = (img_ids, images, cam_sel, py, px, sel_mask)
-    on, off = (step_grads(trained, m, pixels) for m in ("on", "off"))
-    used = [k for k in off if float(off[k].abs().max()) > 0]
-    errs = {k: float(torch.linalg.norm(on[k] - off[k]) / torch.linalg.norm(off[k]))
-            for k in used}
-    errs_max = {k: _rel(on[k], off[k]) for k in used}
+    on, off = (step_grads(trained, pixels, **{switch: m}) for m in ("on", "off"))
+    errs, errs_max = grad_errors(on, off)
     worst, worst_max = max(errs, key=errs.get), max(errs_max, key=errs_max.get)
-    print(f"[7] one step's leaf gradients on the trained weights, fused_core on vs off: "
+    if beside:
+        other = step_grads(trained, pixels, **beside)
+        for name, (a, b) in ((f"{switch} on vs {beside}", (on, other)),
+                             (f"{beside} vs {switch} off", (other, off))):
+            e = grad_errors(a, b)[0]
+            w = max(e, key=e.get)
+            print(f"[{tag}] the same pixels, {name}: worst |a-b| / |b| {e[w]:.3e} ({w}), "
+                  f"median {sorted(e.values())[len(e) // 2]:.3e}", flush=True)
+    print(f"[{tag}] one step's leaf gradients on the trained weights, {switch} on vs off: "
           f"{len(errs)} leaves, worst |on-off| / |off| {errs[worst]:.3e} ({worst}), median "
-          f"{sorted(errs.values())[len(errs) // 2]:.3e} (rtol {RTOL_STEP_GRAD:g}); worst "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e} (rtol {rtol:g}); worst "
           f"max|on-off| / max|off| {errs_max[worst_max]:.3e} ({worst_max})", flush=True)
-    check(errs[worst] <= RTOL_STEP_GRAD, f"step gradient {worst}: on vs off {errs[worst]:.3e}")
-    return {"launches": counts["point_pipeline_bwd"], "step_ms": step_ms, "grad_err": errs[worst]}
+    check(errs[worst] <= rtol, f"step gradient {worst}: on vs off {errs[worst]:.3e}")
+    return {"counts": counts, "step_ms": step_ms, "grad_err": errs[worst], "peak_gb": peak_gb}
 
 
 def sorted_rows(v):
@@ -905,9 +1153,10 @@ def evaluation_path(loop, device, launches_training):
 
     # (f) the training path does not take the point-pipeline kernel
     print(f"[6f] phase 3's training launched: {launches_training}", flush=True)
-    check(launches_training["point_pipeline"] == 0 and launches_training["sdf_points"] == 0
-          and launches_training["point_pipeline_bwd"] == 0,
-          "the auto training run launched a point-pipeline or grid-SDF kernel")
+    check(all(launches_training[k] == 0 for k in ("point_pipeline", "sdf_points",
+                                                  "point_pipeline_bwd", "ray_march",
+                                                  "ray_march_bwd")),
+          "the auto training run launched a point-pipeline, grid-SDF or march kernel")
     return res
 
 
@@ -934,7 +1183,8 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 1: build every kernel, all at once, and the host marcher ----
-    kernels = ("sdf_rays", "point_pipeline")   # point_pipeline.cu holds rows 5 and 6
+    # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4
+    kernels = ("sdf_rays", "point_pipeline", "ray_march")
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
@@ -987,6 +1237,9 @@ def main() -> int:
 
     # ---- phase 2c: the point-pipeline backward vs plain, off geometric init ----
     bwd = pipeline_bwd_vs_plain(device)
+
+    # ---- phase 2d: the fused march vs plain, off geometric init ----
+    mar = march_vs_plain(device)
 
     # ---- phase 3: the main path ----
     cfg = config_from_dict(SMOKE_CFG)
@@ -1046,9 +1299,19 @@ def main() -> int:
     ev = evaluation_path(loop, device, launches_training)
 
     # ---- phase 7: training through the point-pipeline kernels ----
-    on = training_fused_core_on(device, loop, SEED + 110)
+    on = training_through(device, loop, SEED + 110, "FUSED_CORE", {
+        "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": STEPS,
+        "point_pipeline_bwd": STEPS, "ray_march": 0, "ray_march_bwd": 0}, RTOL_STEP_GRAD, "7")
     print(f"[7] steady state: fused_core auto {step_ms:.2f} ms/step, on {on['step_ms']:.2f} "
           f"ms/step", flush=True)
+
+    # ---- phase 8: training through the fused march kernels ----
+    march = training_through(device, loop, SEED + 130, "FUSED_MARCH", {
+        "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": 0,
+        "point_pipeline_bwd": 0, "ray_march": STEPS, "ray_march_bwd": STEPS},
+        RTOL_STEP_GRAD_MARCH, "8", profile_n=1, beside={"fused_core": "on"})
+    print(f"[8] steady state: auto {step_ms:.2f} ms/step, fused_core on {on['step_ms']:.2f} "
+          f"ms/step, fused_march on {march['step_ms']:.2f} ms/step", flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and
@@ -1056,7 +1319,11 @@ def main() -> int:
     # grid chunk, one Color-NeuS validation chunk), launches from phase 6's
     # evaluation run, errors the largest of phases 2b and 6;
     # point_pipeline_bwd: phase 2c at the training core's shape (131,072
-    # points, Color-NeuS), launches from phase 7's training run
+    # points, Color-NeuS), launches from phase 7's training run; ray_march
+    # and ray_march_bwd: phase 2d at the main path's shape (1024 rays x 128
+    # samples, Color-NeuS, the init's inv_s), errors the largest of its
+    # cases (forward vs the f32 plain twin, backward vs float64), launches
+    # from phase 8's training run
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
     kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
@@ -1084,11 +1351,23 @@ def main() -> int:
         "name": "point_pipeline_bwd", "route": "cuda",
         "source": "color_neus_torch/csrc/point_pipeline.cu",
         "replaces": "color_neus_tpu/ops/pallas/point_pipeline.py:767",
-        "launches": on["launches"],
+        "launches": on["counts"]["point_pipeline_bwd"],
         "max_abs_err": max(bwd["color_neus"]["err"], bwd["neus"]["err"]),
         "ms": bwd["color_neus"]["ms"], "plain_ms": bwd["color_neus"]["plain_ms"],
         "bound_ms": bwd["color_neus"]["bound_ms"], "bound_by": bwd["color_neus"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "ray_march", "route": "cuda", "source": "color_neus_torch/csrc/ray_march.cu",
+        "replaces": "color_neus_tpu/ops/pallas/ray_march.py:185",
+        "launches": march["counts"]["ray_march"], "max_abs_err": mar["fwd_err"],
+        "ms": mar["ms"], "plain_ms": mar["plain_ms"], "bound_ms": mar["bound_ms"],
+        "bound_by": mar["bound_by"], "library_ms": None,
+    }, {
+        "name": "ray_march_bwd", "route": "cuda", "source": "color_neus_torch/csrc/ray_march.cu",
+        "replaces": "color_neus_tpu/ops/pallas/ray_march.py:249",
+        "launches": march["counts"]["ray_march_bwd"], "max_abs_err": mar["bwd_err"],
+        "ms": mar["bwd_ms"], "plain_ms": mar["plain_bwd_ms"], "bound_ms": mar["bwd_bound_ms"],
+        "bound_by": mar["bwd_bound_by"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernel_line}))
     print(card_line())

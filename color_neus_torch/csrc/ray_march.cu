@@ -1,0 +1,443 @@
+// The fused ray march, forward and backward: the Hopper counterparts of the
+// TPU kernels color_neus_tpu/ops/pallas/ray_march.py::_march_fwd_kernel
+// (:185; body _composite_fwd :141-178) and ::_march_bwd_kernel (:249; the
+// compositing VJP :322-355, _mlp_pullback :358-361, the ray cotangents
+// :363-367, inv_s :369-370; custom_vjp _march_core :502).
+//
+// What the forward computes, per ray (origin o, direction d, S sorted z):
+//   points        dist_s = z_{s+1} - z_s (the last: sample_dist), mid_s =
+//                 z_s + dist_s / 2, p_s = o + d mid_s, view dir d;
+//   MLP           the point pipeline of point_pipeline.cu on every p_s:
+//                 sdf, grad, gc, relit, delta;
+//   compositing   tc = <d, grad>, u = 0.5 - tc / 2, ic = -max(u, 0),
+//                 pc / nc = sigmoid((sdf -/+ ic dist / 2) inv_s), q = (pc -
+//                 nc + 1e-5) / (pc + 1e-5), alpha = clip(q, 0, 1), T_s =
+//                 prod_{j<s} (1 - alpha_j + 1e-7), w = alpha T;
+//   per ray       [sum w relit (3), sum w, sum of delta, sum over |p| < 1.2
+//                 of (|grad| - 1)^2, the count of |p| < 1.2, 0 x 9].
+// The backward takes the [R, 16] cotangents and gives the cotangents of the
+// rays ([sum pts_bar, 0, sum (dirs_bar + tc_bar grad + pts_bar mid), 0]),
+// of inv_s, and of every weight. Per ray, from the end: w_bar = <relit,
+// c_bar> + wsum_bar, G = the sum of w_bar w over the later samples, alpha_bar
+// = w_bar T - G / (1 - alpha + 1e-7), q_bar = alpha_bar times the clip's
+// gate (0.5 at q == 0 and at q == 1, as jax.lax.clamp's VJP), pc_bar = q_bar
+// (1 - q) / (pc + 1e-5), nc_bar = -q_bar / (pc + 1e-5), then sdf_hat, the
+// strict u > 0 gate, tc_bar = -u_bar / 2 and the eikonal term of grad_hat,
+// as ray_march.py:329-354; the point pipeline's pullback of those per-point
+// cotangents (backward_tile) gives pts_bar and dirs_bar.
+//
+// Bound on the H100: the point pipeline's MACs (forward ~1.45 M per point at
+// the Color-NeuS widths; backward ~4.8 M: one recompute and the pullback;
+// ray_march.march_macs_per_point counts them from the real widths) against
+// ~36 bytes of input and output per point each way (z and the stash):
+// bound by operations, f32 FMA at 67 TFLOP/s. The compositing is ~50 flops
+// per point.
+//
+// Design (simple and exact f32 first, built on the tile functions of rows 5
+// and 6, point_pipeline_tile.cuh). A block owns a group of whole rays: one
+// ray when S >= 64, else max(1, 64 / S) rays packed into one tile, so a
+// ray's samples never straddle two blocks. The group's points are cut into
+// 64-point tiles (S = 128: two tiles per ray); a padding point past the
+// group's last sample gets zero input and zero cotangent.
+//   Forward: per tile, the points are made from the rays and z in shared
+//   memory, forward_tile<false> runs, and sdf, grad, relit and the delta sum
+//   go to a stash in device memory ([R S, 8], 32 bytes a point); then one
+//   thread per ray composites the ray in sample order (a sequential scan, in
+//   registers) and writes its 16 lanes.
+//   Backward: one thread per ray rebuilds the compositing from the stash,
+//   scans forward for T and back for G, and writes each point's cotangents
+//   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<true>
+//   recomputes the layer inputs (the one MLP pass of JAX's recompute mode:
+//   the stash spares a third one) and backward_tile pulls the cotangents
+//   back; the ray cotangents are summed per ray in sample order. Weight
+//   grads and the inv_s grad go to the block's partial ([n_grad + 1]: the
+//   packed gradient layout, then inv_s), which the reduction kernel of
+//   point_pipeline.cu sums over the blocks in index order: no float atomics.
+
+#include "point_pipeline_tile.cuh"
+
+namespace {
+
+constexpr int STASH = 8;   // per point: sdf, grad (3), relit (3), delta sum
+constexpr int CTW = 16;    // per point in the backward's scratch: gbar lanes, tc_bar (13), mid (14)
+
+struct March {
+  Params net;              // the networks; net.scratch: per-block scratch
+  const float* rays_o;     // [R, 3]
+  const float* rays_d;     // [R, 3]
+  const float* z;          // [R, S]
+  const float* inv_s;      // [1] on the device
+  long long n_rays;
+  int S;
+  int G;                   // rays per group: max(1, TILE / S)
+  float sample_dist;
+  float* out;              // forward: [R, 16]
+  float* stash;            // [R S, STASH]: written by the forward, read by the backward
+  // backward only
+  const float* gbar;       // [R, 16]
+  float* rays_hat;         // [R, 8]
+  float* partial;          // [gridDim.x][n_grad + 1], zeroed
+  long long n_grad;
+  long long scratch_floats;   // per block
+};
+
+// Sample s of ray r: its section length, mid z and point, the point in the
+// plain version's rounding (o + d mid, no fused multiply-add).
+__device__ __forceinline__ void sample_point(const March& m, long long r, int s, float* pt,
+                                             float* dist, float* mid) {
+  const float* zr = m.z + r * m.S;
+  const float zs = zr[s];
+  *dist = s + 1 < m.S ? zr[s + 1] - zs : m.sample_dist;
+  *mid = zs + *dist * 0.5f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    pt[j] = __fadd_rn(m.rays_o[3 * r + j], __fmul_rn(m.rays_d[3 * r + j], *mid));
+}
+
+// t.P3 / t.D3 = the points and view dirs of the group's points t0 .. t0 +
+// TILE (n_pts of them in the group; zeros past it), then a barrier.
+__device__ void load_march_points(const March& m, const Tile& t, long long r0, int t0,
+                                  int n_pts) {
+  const int tid = threadIdx.x;
+  if (tid < TILE) {
+    const int q = t0 + tid;
+    float pt[3] = {0.f, 0.f, 0.f}, dir[3] = {0.f, 0.f, 0.f};
+    if (q < n_pts) {
+      const long long r = r0 + q / m.S;
+      float dist, mid;
+      sample_point(m, r, q % m.S, pt, &dist, &mid);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) dir[j] = m.rays_d[3 * r + j];
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      t.P3[tid * 3 + j] = pt[j];
+      t.D3[tid * 3 + j] = dir[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The compositing quantities of one point (ray_march.py:158-173).
+struct Comp {
+  float tc, u, ep, en, pc, nc, q, alpha, xv, normg, relaxed;
+};
+
+__device__ Comp composite_point(const float* rd, const float* grad, float sdf, float dist,
+                                float inv_s, const float* pt) {
+  Comp c;
+  c.tc = rd[0] * grad[0] + rd[1] * grad[1] + rd[2] * grad[2];
+  c.u = -c.tc * 0.5f + 0.5f;
+  const float ic = -fmaxf(c.u, 0.f);
+  c.ep = sdf - ic * dist * 0.5f;
+  c.en = sdf + ic * dist * 0.5f;
+  c.pc = sigmoidf_(c.ep * inv_s);
+  c.nc = sigmoidf_(c.en * inv_s);
+  c.q = (c.pc - c.nc + 1e-5f) / (c.pc + 1e-5f);
+  c.alpha = fminf(fmaxf(c.q, 0.f), 1.f);
+  c.xv = 1.f - c.alpha + 1e-7f;
+  c.normg = sqrtf(grad[0] * grad[0] + grad[1] * grad[1] + grad[2] * grad[2]);
+  c.relaxed = sqrtf(pt[0] * pt[0] + pt[1] * pt[1] + pt[2] * pt[2]) < 1.2f ? 1.f : 0.f;
+  return c;
+}
+
+__device__ __forceinline__ long long n_groups(const March& m) {
+  return (m.n_rays + m.G - 1) / m.G;
+}
+
+// ------------------------------------------------------------------------
+// Forward
+// ------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS, 2) ray_march_fwd_kernel(March m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Tile t;
+  carve_fwd(t, smem);
+  const Params& p = m.net;
+  const int tid = threadIdx.x;
+  float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][TILE][HID]
+  float* feat = gates + size_t(p.n_sdf - 1) * GSLAB;                 // [TILE][HID]
+  const Save none{nullptr, nullptr, nullptr};
+  const float inv_s = *m.inv_s;
+
+  for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
+    const long long r0 = grp * m.G;
+    const int nr = int(min((long long)m.G, m.n_rays - r0));
+    const int n_pts = nr * m.S;
+    for (int t0 = 0; t0 < n_pts; t0 += TILE) {
+      load_march_points(m, t, r0, t0, n_pts);
+      forward_tile<false>(p, t, gates, feat, none);
+      if (tid < TILE && t0 + tid < n_pts) {
+        float* st = m.stash + (r0 * m.S + t0 + tid) * STASH;
+        st[0] = t.S1[tid];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          st[1 + j] = t.G3[tid * 3 + j];
+          st[4 + j] = t.RL[tid * 3 + j];
+        }
+        st[7] = t.DL[tid * 3] + t.DL[tid * 3 + 1] + t.DL[tid * 3 + 2];
+      }
+      __syncthreads();
+    }
+    // ---- one thread per ray: the compositing scan and the per-ray sums ----
+    if (tid < nr) {
+      const long long r = r0 + tid;
+      const float* rd = m.rays_d + 3 * r;
+      float T = 1.f, acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < m.S; ++s) {
+        const float* st = m.stash + (r * m.S + s) * STASH;
+        float pt[3], dist, mid;
+        sample_point(m, r, s, pt, &dist, &mid);
+        const Comp c = composite_point(rd, st + 1, st[0], dist, inv_s, pt);
+        const float w = c.alpha * T;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc[j] += w * st[4 + j];
+        acc[3] += w;
+        acc[4] += st[7];
+        acc[5] += c.relaxed * ((c.normg - 1.f) * (c.normg - 1.f));
+        acc[6] += c.relaxed;
+        T *= c.xv;
+      }
+      float* o = m.out + r * 16;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) o[k] = k < 7 ? acc[k] : 0.f;
+    }
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------------------
+// Backward
+// ------------------------------------------------------------------------
+
+// The block's group scratch, after the point pipeline's backward scratch:
+// [G S][CTW] per-point cotangents, [G S] transmittance, [G] inv_s sums,
+// [G][6] ray cotangents; rounded up to 32 floats, so that every block's
+// scratch keeps the 16-byte alignment of dw_accum's float4 reads.
+__host__ __device__ long long group_scratch_floats(int G, int S) {
+  return ((long long)G * S * (CTW + 1) + 7LL * G + 31) / 32 * 32;
+}
+
+__host__ __device__ int rays_per_group(int S) { return S >= TILE ? 1 : TILE / S; }
+
+// One thread per ray: the compositing VJP of ray r (ray_march.py:322-355)
+// into ct[s * CTW + ...] for s < S; returns the ray's inv_s cotangent.
+__device__ float composite_vjp(const March& m, long long r, float inv_s, float* ct, float* Tr) {
+  const float* rd = m.rays_d + 3 * r;
+  const float* gb = m.gbar + r * 16;
+  float T = 1.f;
+  for (int s = 0; s < m.S; ++s) {
+    const float* st = m.stash + (r * m.S + s) * STASH;
+    float pt[3], dist, mid;
+    sample_point(m, r, s, pt, &dist, &mid);
+    Tr[s] = T;
+    T *= composite_point(rd, st + 1, st[0], dist, inv_s, pt).xv;
+  }
+  float later = 0.f, sinv = 0.f;   // later: sum of w_bar w over the samples after s
+  for (int s = m.S - 1; s >= 0; --s) {
+    const float* st = m.stash + (r * m.S + s) * STASH;
+    float pt[3], dist, mid;
+    sample_point(m, r, s, pt, &dist, &mid);
+    const float* grad = st + 1;
+    const float* relit = st + 4;
+    const Comp c = composite_point(rd, grad, st[0], dist, inv_s, pt);
+    const float w = c.alpha * Tr[s];
+    const float w_bar = (relit[0] * gb[0] + relit[1] * gb[1] + relit[2] * gb[2]) + gb[3];
+    const float alpha_bar = w_bar * Tr[s] - later / c.xv;
+    const float gate = (c.q < 1.f ? 1.f : (c.q == 1.f ? 0.5f : 0.f)) *
+                       (c.q > 0.f ? 1.f : (c.q == 0.f ? 0.5f : 0.f));
+    const float q_bar = alpha_bar * gate;
+    const float pc_bar = q_bar * (1.f - c.q) / (c.pc + 1e-5f);
+    const float nc_bar = -q_bar / (c.pc + 1e-5f);
+    const float dpc = c.pc * (1.f - c.pc), dnc = c.nc * (1.f - c.nc);
+    const float ep_bar = pc_bar * dpc * inv_s, en_bar = nc_bar * dnc * inv_s;
+    sinv += pc_bar * dpc * c.ep + nc_bar * dnc * c.en;
+    const float ic_bar = (en_bar - ep_bar) * dist * 0.5f;
+    const float u_bar = c.u > 0.f ? -ic_bar : 0.f;
+    const float tc_bar = -0.5f * u_bar;
+    const float ek = gb[5] * c.relaxed * 2.f * (c.normg - 1.f);
+    float* o = ct + s * CTW;
+    o[0] = ep_bar + en_bar;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      o[1 + j] = tc_bar * rd[j] + ek * grad[j] / c.normg;
+      o[4 + j] = 0.f;
+      o[7 + j] = w * gb[j];
+      o[10 + j] = gb[4];
+    }
+    o[13] = tc_bar;
+    o[14] = mid;
+    o[15] = 0.f;
+    later += w_bar * w;
+  }
+  return sinv;
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Tile t;
+  carve_bwd(t, smem);
+  const Params& p = m.net;
+  const int tid = threadIdx.x;
+  float* base = p.scratch + size_t(blockIdx.x) * m.scratch_floats;
+  const BwdScratch s = carve_bwd_scratch(p, base);
+  float* ct = base + bwd_scratch_floats(p.n_sdf, p.n_color, p.n_relight);  // [G S][CTW]
+  float* Tr = ct + size_t(m.G) * m.S * CTW;                                 // [G S]
+  float* sinv = Tr + size_t(m.G) * m.S;                                     // [G]
+  float* rh = sinv + m.G;                                                   // [G][6]
+  float* P = m.partial + size_t(blockIdx.x) * (m.n_grad + 1);
+  const float inv_s = *m.inv_s;
+
+  for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
+    const long long r0 = grp * m.G;
+    const int nr = int(min((long long)m.G, m.n_rays - r0));
+    const int n_pts = nr * m.S;
+    if (tid < nr)
+      sinv[tid] = composite_vjp(m, r0 + tid, inv_s, ct + size_t(tid) * m.S * CTW,
+                                Tr + size_t(tid) * m.S);
+    for (int e = tid; e < nr * 6; e += THREADS) rh[e] = 0.f;
+    __syncthreads();
+    if (tid == 0)
+      for (int g = 0; g < nr; ++g) P[m.n_grad] += sinv[g];
+
+    for (int t0 = 0; t0 < n_pts; t0 += TILE) {
+      load_march_points(m, t, r0, t0, n_pts);
+      forward_tile<true>(p, t, s.gates, s.feat, s.sv);
+      for (int e = tid; e < TILE * 16; e += THREADS) {
+        const int q = t0 + e / 16, c = e % 16;
+        t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
+      }
+      __syncthreads();
+      backward_tile(p, t, s.gates, s.zt, s.sv, s.us, P);
+      // the tile's share of each ray's cotangents, summed in sample order
+      const int g_lo = t0 / m.S, g_hi = min(nr - 1, (t0 + TILE - 1) / m.S);
+      for (int e = tid; e < (g_hi - g_lo + 1) * 6; e += THREADS) {
+        const int g = g_lo + e / 6, k = e % 6, j = k % 3;
+        const int lo = max(t0, g * m.S), hi = min(t0 + TILE, (g + 1) * m.S);
+        float acc = 0.f;
+        for (int q = lo; q < hi; ++q) {
+          const int i = q - t0;
+          const float* cq = ct + size_t(q) * CTW;
+          acc += k < 3 ? t.PH[i * 3 + j]
+                       : t.DH[i * 3 + j] + cq[13] * t.G3[i * 3 + j] + t.PH[i * 3 + j] * cq[14];
+        }
+        rh[g * 6 + k] += acc;
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < nr * 8; e += THREADS) {
+      const int g = e / 8, k = e % 8;
+      m.rays_hat[(r0 + g) * 8 + k] = k == 3 || k == 7 ? 0.f : rh[g * 6 + (k < 3 ? k : k - 1)];
+    }
+    __syncthreads();
+  }
+}
+
+March make_march(const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
+                 const float* w, long long n_rays, int S, float sample_dist, int n_sdf, int skip,
+                 int d0, float scale, int n_color, int color_dv, int squeeze, int n_relight,
+                 int rl_dv, int y_in, int inv_sigmoid, const long long* off) {
+  March m{};
+  m.net = make_params(nullptr, nullptr, w, 0, n_sdf, skip, d0, scale, n_color, color_dv, squeeze,
+                      n_relight, rl_dv, y_in, inv_sigmoid, off);
+  m.rays_o = rays_o;
+  m.rays_d = rays_d;
+  m.z = z;
+  m.inv_s = inv_s;
+  m.n_rays = n_rays;
+  m.S = S;
+  m.G = rays_per_group(S);
+  m.sample_dist = sample_dist;
+  return m;
+}
+
+long long fwd_scratch_floats(int n_sdf) { return (long long)n_sdf * GSLAB; }
+
+long long march_bwd_scratch_floats(int n_sdf, int n_color, int n_relight, int S) {
+  return bwd_scratch_floats(n_sdf, n_color, n_relight) +
+         group_scratch_floats(rays_per_group(S), S);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. The blocks a launch may use at once (SMs x
+// resident blocks per SM), and the per-block scratch each entry needs
+// (floats): the wrapper sizes the scratch by them.
+extern "C" int ray_march_fwd_max_blocks(int* n_blocks) {
+  return int(max_blocks(ray_march_fwd_kernel, SMEM_FWD, n_blocks));
+}
+
+extern "C" int ray_march_bwd_max_blocks(int* n_blocks) {
+  return int(max_blocks(ray_march_bwd_kernel, SMEM_BWD, n_blocks));
+}
+
+extern "C" int ray_march_rays_per_group(int S) { return rays_per_group(S); }
+
+extern "C" long long ray_march_fwd_scratch_floats(int n_sdf) { return fwd_scratch_floats(n_sdf); }
+
+extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int n_color, int n_relight, int S) {
+  return march_bwd_scratch_floats(n_sdf, n_color, n_relight, S);
+}
+
+// Each launch returns 0 or the CUDA error code of the attribute call or the
+// launch; none synchronises. `off` is a host array of the offset table,
+// `inv_s` a device pointer to one float. Forward: out [R, 16], stash [R S,
+// 8], scratch n_blocks x ray_march_fwd_scratch_floats floats.
+extern "C" int ray_march_fwd_launch(
+    const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
+    const float* w, float* out, float* stash, float* scratch, long long n_rays, int S,
+    float sample_dist, int n_blocks, int n_sdf, int skip, int d0, float scale, int n_color,
+    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, int n_off, void* stream) {
+  if (n_rays <= 0) return 0;
+  if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  March m = make_march(rays_o, rays_d, z, inv_s, w, n_rays, S, sample_dist, n_sdf, skip, d0,
+                       scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
+                       off);
+  m.out = out;
+  m.stash = stash;
+  m.net.scratch = scratch;
+  m.scratch_floats = fwd_scratch_floats(n_sdf);
+  cudaError_t e = cudaFuncSetAttribute(ray_march_fwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(SMEM_FWD));
+  if (e != cudaSuccess) return int(e);
+  ray_march_fwd_kernel<<<n_blocks, THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(m);
+  return int(cudaGetLastError());
+}
+
+// Backward: stash from the forward on the same inputs, gbar [R, 16],
+// rays_hat [R, 8], partial n_blocks x (n_grad + 1) zeros, scratch n_blocks x
+// ray_march_bwd_scratch_floats floats.
+extern "C" int ray_march_bwd_launch(
+    const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
+    const float* w, const float* stash, const float* gbar, float* rays_hat, float* partial,
+    float* scratch, long long n_rays, int S, float sample_dist, int n_blocks, long long n_grad,
+    int n_sdf, int skip, int d0, float scale, int n_color, int color_dv, int squeeze,
+    int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off, int n_off,
+    void* stream) {
+  if (n_rays <= 0) return 0;
+  if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  March m = make_march(rays_o, rays_d, z, inv_s, w, n_rays, S, sample_dist, n_sdf, skip, d0,
+                       scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
+                       off);
+  m.stash = const_cast<float*>(stash);
+  m.gbar = gbar;
+  m.rays_hat = rays_hat;
+  m.partial = partial;
+  m.n_grad = n_grad;
+  m.net.scratch = scratch;
+  m.scratch_floats = march_bwd_scratch_floats(n_sdf, n_color, n_relight, S);
+  cudaError_t e = cudaFuncSetAttribute(ray_march_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(SMEM_BWD));
+  if (e != cudaSuccess) return int(e);
+  ray_march_bwd_kernel<<<n_blocks, THREADS, SMEM_BWD, static_cast<cudaStream_t>(stream)>>>(m);
+  return int(cudaGetLastError());
+}
+
+extern "C" int ray_march_n_off() { return N_OFF; }
+
+extern "C" const char* ray_march_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -17,9 +17,17 @@ switches differ in meaning, because the port has its own kernels:
                plain autograd core (the backward kernel is slower than it
                for now, PERF.md). off: the plain core. YAML reads a bare
                on / off as a boolean: true / false mean on / off here.
-  fused_march  auto | off: the plain PyTorch render core (what the JAX
-               package runs off-TPU). 'on' raises NotImplementedError:
-               the fused march kernels are ROADMAP Queue B.
+  fused_march  auto | on | off, the training loss path only
+               (neus.render_rays_train). on runs the fused ray march:
+               the autograd Function of the march's forward and backward
+               kernels (ops/kernels/ray_march.py; plain twins for CPU
+               tensors). auto and off run the plain PyTorch render core
+               (what the JAX package runs off-TPU); auto takes the march
+               only once a measured march step beats it (PERF.md).
+               MARCH_ACTS auto and recompute both run the march's one
+               backward, which recomputes the layer activations (JAX's
+               save mode gives the same gradients); save raises
+               NotImplementedError.
   extract_precision  f32 | bf16: the grid-SDF kernel's dot type in mesh
                extraction (ops/kernels/sdf_mlp.py); 'f32x3' raises
                NotImplementedError (ROADMAP).
@@ -98,7 +106,8 @@ class NeRFConfig:
     skips: tuple = (4,)
 
 
-FUSED_ROADMAP_ITEM = "ROADMAP.md Queue B (the fused march training core, rows 3 + 4)"
+FUSED_ROADMAP_ITEM = ("ROADMAP.md Queue B (the fused march's save mode: a stash of the "
+                      "layer activations for its backward)")
 
 
 @dataclass(frozen=True)
@@ -142,10 +151,6 @@ class RendererConfig:
             if v not in allowed:
                 raise ValueError(
                     f"RendererConfig.{name}={v!r} not in {allowed}")
-        if self.fused_march == "on":
-            raise NotImplementedError(
-                f"RendererConfig.fused_march='on': the port has no fused march yet; "
-                f"see {FUSED_ROADMAP_ITEM}")
         if self.extract_precision == "f32x3":
             raise NotImplementedError(
                 "RendererConfig.extract_precision='f32x3' (the 3-pass bf16 split) is not "
@@ -156,13 +161,15 @@ class RendererConfig:
 
 
 # renderer keys of the JAX package whose code the port has not yet, with
-# their defaults there: the fused march (Queue B item 1), ray chunking and
-# the compute dtype of the render core
+# their defaults there: the TPU tilings and precisions of the fused
+# kernels, ray chunking and the compute dtype of the render core
 _UNPORTED_KEYS = {
-    "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512, "MARCH_ACTS": "auto",
+    "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512,
     "MARCH_TILE": 0, "MARCH_STASH_BUDGET_GB": 13.5, "MARCH_BWD_PRECISION": "f32stash",
     "THIN_DOTS": "hilo",
 }
+# the march's backward policies: both run the port's recompute backward
+MARCH_ACTS = ("auto", "recompute")
 
 
 def _lower_get(d: dict, key: str, default):
@@ -191,6 +198,12 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
             raise NotImplementedError(
                 f"MODEL.RENDERER.{key}={rcfg[key]!r}: the port has no code that reads "
                 f"it yet (default {default!r}); see ROADMAP.md")
+    acts = rcfg.get("MARCH_ACTS", "auto")
+    if acts == "save":
+        raise NotImplementedError(
+            f"MODEL.RENDERER.MARCH_ACTS='save': not ported; see {FUSED_ROADMAP_ITEM}")
+    if acts not in MARCH_ACTS:
+        raise ValueError(f"MODEL.RENDERER.MARCH_ACTS={acts!r} not in {MARCH_ACTS + ('save',)}")
     kind = {"NeuS": "neus", "Color_NeuS": "color_neus"}.get(rcfg.get("TYPE", "NeuS"), rcfg.get("TYPE", "neus"))
     if kind == "color_neus" and color.get("MODE", "idr") != "no_view_dir":
         raise ValueError("Color_NeuS requires COLOR.MODE == 'no_view_dir' (reference Color_NeuS.py:14)")

@@ -25,7 +25,7 @@ from color_neus_torch.models.configs import (
     SDFConfig, ColorConfig, RelightConfig, VarianceConfig,
 )
 from color_neus_torch.ops.embedding import positional_encoding, embedding_dim
-from color_neus_torch.ops.transforms import inverse_sigmoid
+from color_neus_torch.ops.transforms import clip, inverse_sigmoid
 
 
 # ---------------------------------------------------------------------------
@@ -271,5 +271,5 @@ def relight_apply(params, cfg: RelightConfig, rgb, pts, dirs, gradients):
     if cfg.inv_sigmoid:
         out = torch.sigmoid(inverse_sigmoid(rgb) + drgb)
     else:
-        out = torch.clamp(rgb + torch.sigmoid(drgb) - 0.5, 0.0, 1.0)
+        out = clip(rgb + torch.sigmoid(drgb) - 0.5, 0.0, 1.0)
     return out, drgb

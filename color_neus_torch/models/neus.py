@@ -14,7 +14,12 @@ per-point MLPs (eval_point_pipeline) follow fused_core:
     package runs off-TPU (the backward kernel is slower than it for now,
     PERF.md);
   * off: always the plain core.
-The fused march (fused_march) is not ported: the plain core always.
+The training loss path (render_rays_train) follows fused_march: 'on' runs
+the fused ray march (ops/kernels/ray_march.py: the autograd Function of
+the march's forward and backward kernels, plain twins for CPU tensors) on
+the same z values, and returns the same dict; 'auto' and 'off' reduce the
+plain core's render_rays output (auto stays on the plain core until a
+measured march step beats it, PERF.md).
 
 Behavioural quirks kept from the reference (SURVEY §3.6):
   * up-sampling uses fixed inv_s = 64 * 2^i, not the learned one
@@ -34,8 +39,10 @@ from color_neus_torch.models.configs import RendererConfig
 from color_neus_torch.ops.kernels.point_pipeline import (
     fused_point_pipeline, fused_point_pipeline_fwd, resolve_pipeline_weights,
 )
+from color_neus_torch.ops.kernels.ray_march import fused_ray_march
 from color_neus_torch.ops.kernels.sdf_rays import resolve_sdf_sweep_fn
 from color_neus_torch.ops.rays import sample_pdf
+from color_neus_torch.ops.transforms import clip
 
 
 def init_renderer(rcfg: RendererConfig, generator, device="cpu") -> nn.ModuleDict:
@@ -69,12 +76,14 @@ def section_dists(z_vals: torch.Tensor, sample_dist: float):
 
 
 def neus_alpha(sdf, iter_cos, dists, inv_s):
-    """Section alpha from estimated prev/next SDF (NeuS.py:244-254); clipped."""
+    """Section alpha from estimated prev/next SDF (NeuS.py:244-254);
+    clipped as jnp.clip clips: 0.5 of the gradient at q == 0 and q == 1,
+    which are exact ties once inv_s is large."""
     est_next = sdf + iter_cos * dists * 0.5
     est_prev = sdf - iter_cos * dists * 0.5
     prev_cdf = torch.sigmoid(est_prev * inv_s)
     next_cdf = torch.sigmoid(est_next * inv_s)
-    alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+    alpha = clip((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
     return alpha, prev_cdf
 
 
@@ -265,6 +274,18 @@ def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sampl
     }
 
 
+def _z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
+            perturb_overwrite):
+    """The hierarchy's z values, its sweeps as fused_sdf says."""
+    sdf_rays_fn = None
+    if rcfg.n_importance > 0:
+        sdf_rays_fn = resolve_sdf_sweep_fn(params["sdf"], rcfg.sdf, rcfg.fused_sdf,
+                                           dtype=rcfg.sweep_dtype,
+                                           act=rcfg.sweep_activation)
+    return hierarchical_z_vals(params, rcfg, rays_o, rays_d, near, far, generator=generator,
+                               perturb_overwrite=perturb_overwrite, sdf_rays_fn=sdf_rays_fn)
+
+
 def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
                 generator=None, perturb_overwrite: float = -1.0):
     """Full forward: hierarchical sampling + core (NeuS.py:294-408).
@@ -273,14 +294,7 @@ def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
     weight_sum, weight_max, gradients, weights, gradient_error,
     inside_sphere, depth (+ global_color / delta_relight for color_neus)."""
     sample_dist = 2.0 / rcfg.n_samples
-    sdf_rays_fn = None
-    if rcfg.n_importance > 0:
-        sdf_rays_fn = resolve_sdf_sweep_fn(params["sdf"], rcfg.sdf, rcfg.fused_sdf,
-                                           dtype=rcfg.sweep_dtype,
-                                           act=rcfg.sweep_activation)
-    z_vals = hierarchical_z_vals(params, rcfg, rays_o, rays_d, near, far,
-                                 generator=generator, perturb_overwrite=perturb_overwrite,
-                                 sdf_rays_fn=sdf_rays_fn)
+    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
 
     if rcfg.kind == "color_neus":
         from color_neus_torch.models.color_neus import render_core_color_neus
@@ -308,11 +322,44 @@ def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
     return out
 
 
+def _use_fused_march(rcfg: RendererConfig) -> bool:
+    """fused_march 'on' runs the march; 'auto' and 'off' the plain core
+    (see the module note)."""
+    return rcfg.fused_march == "on"
+
+
+def _fused_out16(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
+                 perturb_overwrite):
+    """The hierarchy (the same sweeps and generator draws as render_rays),
+    then the fused ray march: [R, 16] per-ray loss partials
+    (ray_march.fused_ray_march)."""
+    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
+    inv_s = fields.variance_inv_s(params["variance"])
+    return fused_ray_march(params, rcfg, rays_o, rays_d, z_vals, inv_s)
+
+
 def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
                       generator=None, perturb_overwrite: float = -1.0):
     """Loss-path renderer: only what compute_loss and the train aux read
-    (color_fine, weight_sum, gradient_error, s_val, per-ray delta sums).
-    The non-fused branch of the JAX function (neus.py:436-448)."""
+    (color_fine, weight_sum, gradient_error, s_val, per-ray delta sums),
+    through the fused march when fused_march is 'on' (the fused branch of
+    the JAX function, neus.py:465-480), else by reducing render_rays' output
+    (its non-fused branch, neus.py:436-448)."""
+    n_total = rcfg.n_samples + rcfg.n_importance
+    if _use_fused_march(rcfg):
+        out16 = _fused_out16(params, rcfg, rays_o, rays_d, near, far, generator,
+                             perturb_overwrite)
+        inv_s = fields.variance_inv_s(params["variance"])
+        ret = {
+            "color_fine": out16[:, 0:3],
+            "weight_sum": out16[:, 3:4],
+            "gradient_error": torch.sum(out16[:, 5]) / (torch.sum(out16[:, 6]) + 1e-5),
+            "s_val": (1.0 / inv_s).expand(rays_o.shape[0], 1),
+            "n_samples_total": n_total,
+        }
+        if rcfg.kind == "color_neus":
+            ret["delta_sum"] = out16[:, 4]
+        return ret
     out = render_rays(params, rcfg, rays_o, rays_d, near, far, generator=generator,
                       perturb_overwrite=perturb_overwrite)
     ret = {
@@ -320,7 +367,7 @@ def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
         "weight_sum": out["weight_sum"],
         "gradient_error": out["gradient_error"],
         "s_val": out["s_val"],
-        "n_samples_total": rcfg.n_samples + rcfg.n_importance,
+        "n_samples_total": n_total,
     }
     if "delta_relight" in out:
         ret["delta_sum"] = torch.sum(out["delta_relight"], dim=(1, 2))

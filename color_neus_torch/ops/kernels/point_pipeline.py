@@ -28,6 +28,7 @@ Backward (the VJP of the five outputs), two implementations likewise:
     launches in launch_point_pipeline_bwd.launches.
   * point_pipeline_bwd_plain: the same pullback in plain PyTorch, in the
     nets' own layouts and at any width (not autograd).
+fused_point_pipeline_bwd picks between them by device likewise.
 fused_point_pipeline(params, rcfg, pts, dirs) is the differentiable
 entry: PointPipelineFunction, forward = the forward above, backward = the
 backward above, each chosen by device. Weight norm is resolved outside
@@ -732,6 +733,19 @@ def fused_point_pipeline_fwd(params, rcfg: RendererConfig, pts, dirs, weights=No
     return point_pipeline_plain(pw, pts, dirs)
 
 
+def fused_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, cotangents):
+    """The VJP of the five outputs (cotangents of sdf, grad, gc, relit,
+    delta): (pts_hat [N,3], dirs_hat [N,3], {"sdf" / "color" / "relight":
+    [(dW, db) per layer]}), the backward kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if pts.is_cuda:
+        zeros = torch.zeros((pts.shape[0], 3), device=pts.device)
+        gbar = torch.cat(list(cotangents) + [zeros], dim=1).contiguous()
+        pts_hat, dirs_hat, packed = launch_point_pipeline_bwd(pw, pts, dirs, gbar)
+        return pts_hat, dirs_hat, _unpack_grads(pw, packed)
+    return point_pipeline_bwd_plain(pw, pts, dirs, list(cotangents))
+
+
 class PointPipelineFunction(torch.autograd.Function):
     """The pipeline with its hand-written VJP (JAX _pipeline_core).
     apply(rcfg, pts, dirs, *flat) with flat the resolved (w, b) of every
@@ -742,12 +756,7 @@ class PointPipelineFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rcfg, pts, dirs, *flat):
-        sizes = _layer_counts(rcfg)
-        layers, i = {}, 0
-        for net, k in sizes.items():
-            layers[net] = [(flat[i + 2 * j], flat[i + 2 * j + 1]) for j in range(k)]
-            i += 2 * k
-        pw = _make_weights(rcfg, layers)
+        pw = _make_weights(rcfg, _split_layers(rcfg, flat))
         pts, dirs = pts.detach().contiguous(), dirs.detach().contiguous()
         ctx.pw, ctx.pts, ctx.dirs = pw, pts, dirs
         if pts.is_cuda:
@@ -760,21 +769,24 @@ class PointPipelineFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, *cots):
-        pw, pts, dirs = ctx.pw, ctx.pts, ctx.dirs
-        cots = list(cots)   # autograd passes zeros for outputs the loss does not reach
-        if pts.is_cuda:
-            zeros = torch.zeros((pts.shape[0], 3), device=pts.device)
-            gbar = torch.cat(cots + [zeros], dim=1).contiguous()
-            pts_hat, dirs_hat, packed = launch_point_pipeline_bwd(pw, pts, dirs, gbar)
-            grads = _unpack_grads(pw, packed)
-        else:
-            pts_hat, dirs_hat, grads = point_pipeline_bwd_plain(pw, pts, dirs, cots)
-        flat = [t for net in _layer_counts(pw.rcfg) for wb in grads[net] for t in wb]
+        # autograd passes zeros for outputs the loss does not reach
+        pts_hat, dirs_hat, grads = fused_point_pipeline_bwd(ctx.pw, ctx.pts, ctx.dirs, cots)
+        flat = [t for net in _layer_counts(ctx.pw.rcfg) for wb in grads[net] for t in wb]
         return (None, pts_hat, dirs_hat, *flat)
 
 
 def _layer_counts(rcfg: RendererConfig) -> dict:
     return {net: len(names) for net, names in _layer_names(rcfg).items()}
+
+
+def _split_layers(rcfg: RendererConfig, flat) -> dict:
+    """The flat (w, b, w, b, ...) of every layer, sdf then colour then
+    relight, as {net: [(w, b) per layer]}."""
+    layers, i = {}, 0
+    for net, k in _layer_counts(rcfg).items():
+        layers[net] = [(flat[i + 2 * j], flat[i + 2 * j + 1]) for j in range(k)]
+        i += 2 * k
+    return layers
 
 
 def fused_point_pipeline(params, rcfg: RendererConfig, pts, dirs):

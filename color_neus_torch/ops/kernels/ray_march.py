@@ -1,0 +1,385 @@
+"""The fused ray march, the training loss path's render core: counterpart
+of color_neus_tpu/ops/pallas/ray_march.py (fused_ray_march and its
+custom_vjp _march_core).
+
+Per ray it maps (rays_o, rays_d, z [R, S], inv_s) to the [R, 16] loss
+partials: 0:3 the composited colour sum w relit, 3 the weight sum, 4 the
+sum of delta, 5 / 6 the eikonal numerator and denominator over |p| < 1.2,
+9 zero lanes. NeuS compositing with cos_anneal_ratio 0, no background; z
+is a constant (the hierarchy is no-grad). Gradients flow to every weight,
+to the rays and to inv_s.
+
+Forward, two implementations of one function:
+  * launch_ray_march: the first entry of the hand-written CUDA source
+    csrc/ray_march.cu (its note gives the bound and the design); it also
+    returns the per-point stash (sdf, grad, relit, delta sum) its backward
+    reads. Counts its launches in launch_ray_march.launches and raises on
+    any build or launch failure.
+  * ray_march_plain: the same function in plain PyTorch in the per-ray
+    [R, S] layout, the point pipeline's plain twin plus the compositing.
+Backward (the VJP of the [R, 16] output), likewise:
+  * launch_ray_march_bwd: the second entry of csrc/ray_march.cu and the
+    fixed-order reduction of its per-block partials (point_pipeline.py's
+    reduce_partials). Counts its launches in launch_ray_march_bwd.launches.
+  * ray_march_bwd_plain: the compositing VJP of ray_march.py:322-371 by
+    hand (not autograd), then point_pipeline_bwd_plain.
+Both plain versions run on any device and in float64 as well.
+RayMarchFunction is the autograd Function: the device of the tensors
+alone picks the kernels or the plain versions; fused_ray_march resolves
+the weight norm outside it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from color_neus_torch.models.configs import RendererConfig
+from color_neus_torch.models.fields import resolve_linear
+from color_neus_torch.ops.kernels import point_pipeline as PP
+
+KERNEL = "ray_march"
+STASH = 8          # per point in the forward's stash: sdf, grad (3), relit (3), delta sum
+_MAX_BLOCKS: dict = {}   # (device, entry) -> blocks resident at once (sizes the scratch)
+
+
+def march_points(rays_o, rays_d, z, sample_dist: float):
+    """(dists [R,S], mid z [R,S], pts [R S, 3], dirs [R S, 3]): section
+    lengths with the trailing sample_dist, the mid points and their view
+    dirs (ray_march.py:145-153)."""
+    d = z[:, 1:] - z[:, :-1]
+    dists = torch.cat([d, torch.full_like(d[:, :1], sample_dist)], dim=-1)
+    mid = z + dists * 0.5
+    R, S = z.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid[..., None]
+    dirs = rays_d[:, None, :].expand(R, S, 3)
+    return dists, mid, pts.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous()
+
+
+@dataclass
+class Composite:
+    """The compositing quantities of every point, [R, S] each
+    (ray_march.py:158-174)."""
+    tc: torch.Tensor
+    u: torch.Tensor
+    ep: torch.Tensor
+    en: torch.Tensor
+    pc: torch.Tensor
+    nc: torch.Tensor
+    q: torch.Tensor
+    alpha: torch.Tensor
+    xv: torch.Tensor
+    Tr: torch.Tensor
+    w: torch.Tensor
+    relaxed: torch.Tensor
+    normg: torch.Tensor
+
+
+def composite(outs, rays_d, dists, pts, inv_s) -> Composite:
+    """NeuS compositing of the per-point outputs (sdf, grad, gc, relit,
+    delta) of R rays of S samples each."""
+    R, S = dists.shape
+    sdf = outs[0].reshape(R, S)
+    grad = outs[1].reshape(R, S, 3)
+    tc = torch.sum(rays_d[:, None, :] * grad, dim=-1)
+    u = -tc * 0.5 + 0.5
+    ic = -torch.clamp_min(u, 0.0)
+    ep = sdf - ic * dists * 0.5
+    en = sdf + ic * dists * 0.5
+    pc = torch.sigmoid(ep * inv_s)
+    nc = torch.sigmoid(en * inv_s)
+    q = (pc - nc + 1e-5) / (pc + 1e-5)
+    alpha = torch.clamp(q, 0.0, 1.0)
+    xv = 1.0 - alpha + 1e-7
+    Tr = torch.cat([torch.ones_like(xv[:, :1]), torch.cumprod(xv, dim=-1)[:, :-1]], dim=-1)
+    relaxed = (torch.linalg.norm(pts, dim=-1).reshape(R, S) < 1.2).to(sdf.dtype)
+    normg = torch.linalg.norm(grad, dim=-1)
+    return Composite(tc, u, ep, en, pc, nc, q, alpha, xv, Tr, alpha * Tr, relaxed, normg)
+
+
+def out16(outs, c: Composite) -> torch.Tensor:
+    """The [R, 16] per-ray loss partials."""
+    R, S = c.w.shape
+    relit = outs[3].reshape(R, S, 3)
+    delta = outs[4].reshape(R, S, 3)
+    cols = [torch.sum(c.w[..., None] * relit, dim=1), torch.sum(c.w, dim=1, keepdim=True),
+            torch.sum(delta, dim=(1, 2))[:, None],
+            torch.sum(c.relaxed * (c.normg - 1.0) ** 2, dim=1, keepdim=True),
+            torch.sum(c.relaxed, dim=1, keepdim=True)]
+    out = torch.cat(cols, dim=1)
+    return torch.cat([out, torch.zeros((R, 9), dtype=out.dtype, device=out.device)], dim=1)
+
+
+def ray_march_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float):
+    """Plain PyTorch forward: [R, 16]."""
+    with torch.no_grad():
+        dists, _, pts, dirs = march_points(rays_o, rays_d, z, sample_dist)
+        outs = PP.point_pipeline_plain(pw, pts, dirs)
+        return out16(outs, composite(outs, rays_d, dists, pts, inv_s))
+
+
+def composite_vjp(outs, c: Composite, rays_d, dists, inv_s, gbar):
+    """The compositing VJP by hand (ray_march.py:322-356): the cotangents
+    of the five per-point outputs ([R S, k] each, gc's zero), inv_s's, and
+    tc_bar [R, S]."""
+    R, S = c.w.shape
+    relit = outs[3].reshape(R, S, 3)
+    grad = outs[1].reshape(R, S, 3)
+    cbar, wsum_bar, dsum_bar, ekn_bar = gbar[:, None, 0:3], gbar[:, 3:4], gbar[:, 4:5], gbar[:, 5:6]
+    relit_hat = c.w[..., None] * cbar
+    delta_hat = dsum_bar[..., None].expand(R, S, 3)
+    w_bar = torch.sum(relit * cbar, dim=-1) + wsum_bar
+    x = w_bar * c.w
+    G = torch.flip(torch.cumsum(torch.flip(x, [1]), dim=1), [1]) - x   # sum over later samples
+    alpha_bar = w_bar * c.Tr - G / c.xv
+    one, half, zero = (torch.tensor(v, dtype=c.q.dtype, device=c.q.device)
+                       for v in (1.0, 0.5, 0.0))
+    # clip(q, 0, 1)'s cotangent: 0.5 at the bounds, jax.lax.clamp's rule
+    gate = (torch.where(c.q < 1.0, one, torch.where(c.q == 1.0, half, zero))
+            * torch.where(c.q > 0.0, one, torch.where(c.q == 0.0, half, zero)))
+    q_bar = alpha_bar * gate
+    pc_bar = q_bar * (1.0 - c.q) / (c.pc + 1e-5)
+    nc_bar = -q_bar / (c.pc + 1e-5)
+    dpc = c.pc * (1.0 - c.pc)
+    dnc = c.nc * (1.0 - c.nc)
+    ep_bar = pc_bar * dpc * inv_s
+    en_bar = nc_bar * dnc * inv_s
+    sinv_hat = torch.sum(pc_bar * dpc * c.ep + nc_bar * dnc * c.en)
+    sdf_hat = ep_bar + en_bar
+    ic_bar = (en_bar - ep_bar) * dists * 0.5
+    u_bar = -ic_bar * (c.u > 0.0).to(ic_bar.dtype)
+    tc_bar = -0.5 * u_bar
+    ek = (ekn_bar * c.relaxed * 2.0 * (c.normg - 1.0))[..., None]
+    grad_hat = tc_bar[..., None] * rays_d[:, None, :] + ek * grad / c.normg[..., None]
+    cots = [sdf_hat.reshape(-1, 1), grad_hat.reshape(-1, 3),
+            torch.zeros_like(grad_hat).reshape(-1, 3), relit_hat.reshape(-1, 3),
+            delta_hat.reshape(-1, 3)]
+    return cots, sinv_hat, tc_bar
+
+
+def rays_vjp(pts_hat, dirs_hat, outs, tc_bar, mid):
+    """The rays' cotangents from the points' (ray_march.py:363-367):
+    (sum of pts_bar, sum of dirs_bar + tc_bar grad + pts_bar mid), [R, 3] each."""
+    R, S = mid.shape
+    ph = pts_hat.reshape(R, S, 3)
+    rd_bar = dirs_hat.reshape(R, S, 3) + tc_bar[..., None] * outs[1].reshape(R, S, 3) \
+        + ph * mid[..., None]
+    return ph.sum(dim=1), rd_bar.sum(dim=1)
+
+
+def march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar, forward, pullback):
+    """The march's VJP composed from a per-point forward (pts, dirs) -> the
+    five outputs and a per-point pullback (pts, dirs, cotangents) ->
+    (pts_hat, dirs_hat, grads): (rays_o_hat, rays_d_hat, inv_s_hat, grads)."""
+    dists, mid, pts, dirs = march_points(rays_o, rays_d, z, sample_dist)
+    outs = forward(pts, dirs)
+    c = composite(outs, rays_d, dists, pts, inv_s)
+    cots, sinv_hat, tc_bar = composite_vjp(outs, c, rays_d, dists, inv_s, gbar)
+    pts_hat, dirs_hat, grads = pullback(pts, dirs, cots)
+    ro_hat, rd_hat = rays_vjp(pts_hat, dirs_hat, outs, tc_bar, mid)
+    return ro_hat, rd_hat, sinv_hat, grads
+
+
+def ray_march_bwd_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist, gbar):
+    """Plain PyTorch VJP of the march (not autograd): (rays_o_hat [R,3],
+    rays_d_hat [R,3], inv_s_hat (0-d), {"sdf" / "color" / "relight": [(dW,
+    db) per layer]})."""
+    with torch.no_grad():
+        return march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar,
+                         lambda p, d: PP.point_pipeline_plain(pw, p, d),
+                         lambda p, d, cots: PP.point_pipeline_bwd_plain(pw, p, d, cots))
+
+
+def march_macs_per_point(pw: PP.PipelineWeights):
+    """(forward, backward) multiply-adds per point of the march kernels at
+    the networks' real widths (the counterpart of
+    march_gemm_flops_per_point): the forward is the point pipeline's (SDF,
+    its reverse sweep, colour, relight); the backward one recompute of it,
+    dW and xbar of every colour and relight layer, the SDF tangent stream,
+    dW and xbar of the last SDF layer and two dW and two xbar products per
+    hidden SDF layer."""
+    def macs(layers):
+        return sum(w.shape[0] * w.shape[1] for w, _ in layers)
+    hidden = macs(pw.sdf[:-1])
+    fwd = macs(pw.sdf) + hidden + macs(pw.color) + macs(pw.relight)
+    bwd = fwd + 2 * (macs(pw.color) + macs(pw.relight)) + hidden + 2 * macs(pw.sdf[-1:]) \
+        + 4 * hidden
+    return fwd, bwd
+
+
+def _library():
+    from color_neus_torch.ops.kernels import build
+    lib = build.load(KERNEL)
+    if lib.ray_march_fwd_launch.argtypes is None:
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        net = [i, i, i, f, i, i, i, i, i, i, i, p, i]
+        lib.ray_march_fwd_launch.argtypes = [p] * 8 + [ll, i, f, i] + net + [p]
+        lib.ray_march_bwd_launch.argtypes = [p] * 10 + [ll, i, f, i, ll] + net + [p]
+        for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
+                   lib.ray_march_rays_per_group):
+            fn.restype = i
+        lib.ray_march_rays_per_group.argtypes = [i]
+        for fn in (lib.ray_march_fwd_max_blocks, lib.ray_march_bwd_max_blocks):
+            fn.argtypes = [ctypes.POINTER(i)]
+            fn.restype = i
+        lib.ray_march_fwd_scratch_floats.argtypes = [i]
+        lib.ray_march_bwd_scratch_floats.argtypes = [i, i, i, i]
+        for fn in (lib.ray_march_fwd_scratch_floats, lib.ray_march_bwd_scratch_floats):
+            fn.restype = ll
+        lib.ray_march_error_string.argtypes = [i]
+        lib.ray_march_error_string.restype = ctypes.c_char_p
+        if lib.ray_march_n_off() != PP.N_OFF:
+            raise RuntimeError("ray_march: the kernel's offset table does not match")
+    return lib
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"ray_march {what} failed: CUDA error {rc} "
+                           f"({lib.ray_march_error_string(rc).decode()})")
+
+
+def _max_blocks(lib, dev, entry: str) -> int:
+    key = (dev, entry)
+    if key not in _MAX_BLOCKS:
+        nb = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, f"ray_march_{entry}_max_blocks")(ctypes.byref(nb))
+        _raise_on(lib, rc, "occupancy query")
+        _MAX_BLOCKS[key] = nb.value
+    return _MAX_BLOCKS[key]
+
+
+def _check_inputs(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s):
+    if pw.packed is None:
+        raise ValueError("ray_march: weights were resolved on the CPU")
+    R, S = z.shape
+    dev = z.device
+    PP._check("rays_o", rays_o, R, dev)
+    PP._check("rays_d", rays_d, R, dev)
+    PP._check("z", z, R, dev, S)
+    if inv_s.dtype != torch.float32 or inv_s.numel() != 1 or inv_s.device != dev:
+        raise ValueError(f"ray_march: inv_s must be one float32 on {dev}")
+    if pw.packed.device != dev:
+        raise ValueError("ray_march: weights and rays are on different devices")
+    return R, S, dev
+
+
+def _groups(lib, R, S) -> int:
+    G = lib.ray_march_rays_per_group(S)
+    return -(-R // G)
+
+
+def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float):
+    """Launch the forward kernel on the current stream; returns (out [R,
+    16], the stash [R S, 8] its backward reads)."""
+    R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
+    lib = _library()
+    off, net = PP._net_args(pw)
+    out = torch.empty((R, 16), dtype=torch.float32, device=dev)
+    stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
+    if R == 0:
+        return out, stash
+    grid = min(_groups(lib, R, S), _max_blocks(lib, dev, "fwd"))
+    scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0]), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ray_march_fwd_launch(
+            rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
+            pw.packed.data_ptr(), out.data_ptr(), stash.data_ptr(), scratch.data_ptr(), R, S,
+            sample_dist, grid, *net, stream)
+    _raise_on(lib, rc, "kernel launch")
+    launch_ray_march.launches += 1
+    return out, stash
+
+
+launch_ray_march.launches = 0
+
+
+def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,
+                         stash, gbar):
+    """Launch the backward kernel and the reduction on the current stream.
+    stash: launch_ray_march's on the same inputs; gbar [R, 16]. Returns
+    (rays_o_hat [R,3], rays_d_hat [R,3], inv_s_hat [1], the weight grads
+    [n_grad] in the packed layout: point_pipeline._unpack_grads)."""
+    R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
+    PP._check("stash", stash, R * S, dev, STASH)
+    PP._check("gbar", gbar, R, dev, 16)
+    lib = _library()
+    off, net = PP._net_args(pw)
+    rays_hat = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    if R == 0:
+        return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
+            torch.zeros(pw.n_grad, device=dev)
+    grid = min(_groups(lib, R, S), _max_blocks(lib, dev, "bwd"))
+    # per block: the recompute's layer inputs, gates and tangent stream, the
+    # group's per-point cotangents, and a partial of the weight grads (the
+    # packed layout) and of inv_s's, summed afterwards
+    per_block = lib.ray_march_bwd_scratch_floats(net[0], net[4], net[7], S)
+    scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
+    partial = torch.zeros((grid, pw.n_grad + 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ray_march_bwd_launch(
+            rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
+            pw.packed.data_ptr(), stash.data_ptr(), gbar.data_ptr(), rays_hat.data_ptr(),
+            partial.data_ptr(), scratch.data_ptr(), R, S, sample_dist, grid, pw.n_grad, *net,
+            stream)
+    _raise_on(lib, rc, "backward kernel launch")
+    launch_ray_march_bwd.launches += 1
+    total = PP.reduce_partials(partial)
+    return rays_hat[:, 0:3], rays_hat[:, 4:7], total[pw.n_grad:], total[:pw.n_grad]
+
+
+launch_ray_march_bwd.launches = 0
+
+
+class RayMarchFunction(torch.autograd.Function):
+    """The march with its hand-written VJP (JAX _march_core).
+    apply(rcfg, rays_o, rays_d, z_vals, inv_s, *flat) -> [R, 16], with flat
+    the resolved (w, b) of every layer, sdf then colour then relight; z gets
+    no gradient. Forward: row 3's kernel (CUDA) or ray_march_plain (CPU);
+    backward: row 4's kernel on the forward's stash (CUDA) or
+    ray_march_bwd_plain (CPU), the device alone deciding."""
+
+    @staticmethod
+    def forward(ctx, rcfg, rays_o, rays_d, z_vals, inv_s, *flat):
+        pw = PP._make_weights(rcfg, PP._split_layers(rcfg, flat))
+        ro, rd, z = (t.detach().float().contiguous() for t in (rays_o, rays_d, z_vals))
+        s = inv_s.detach().float().reshape(1).contiguous()
+        sample_dist = 2.0 / rcfg.n_samples
+        ctx.pw, ctx.ro, ctx.rd, ctx.z, ctx.inv_s = pw, ro, rd, z, s
+        ctx.sample_dist, ctx.inv_s_shape = sample_dist, inv_s.shape
+        if ro.is_cuda:
+            out, ctx.stash = launch_ray_march(pw, ro, rd, z, s, sample_dist)
+            return out
+        return ray_march_plain(pw, ro, rd, z, s, sample_dist)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gbar):
+        pw, ro, rd, z, s = ctx.pw, ctx.ro, ctx.rd, ctx.z, ctx.inv_s
+        gbar = gbar.float().contiguous()
+        if ro.is_cuda:
+            ro_hat, rd_hat, s_hat, packed = launch_ray_march_bwd(
+                pw, ro, rd, z, s, ctx.sample_dist, ctx.stash, gbar)
+            grads = PP._unpack_grads(pw, packed)
+        else:
+            ro_hat, rd_hat, s_hat, grads = ray_march_bwd_plain(pw, ro, rd, z, s, ctx.sample_dist,
+                                                               gbar)
+        flat = [t for net in PP._layer_counts(pw.rcfg) for wb in grads[net] for t in wb]
+        return (None, ro_hat, rd_hat, None, s_hat.reshape(ctx.inv_s_shape), *flat)
+
+
+def fused_ray_march(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, inv_s):
+    """Differentiable [R, 16] loss partials of the rays (JAX
+    fused_ray_march): RayMarchFunction on the weights resolved here (the
+    weight norm, with grad), the sample_dist of rcfg.n_samples."""
+    flat = [t for net, names in PP._layer_names(rcfg).items() for n in names
+            for t in resolve_linear(params[net][n])]
+    return RayMarchFunction.apply(rcfg, rays_o, rays_d, z_vals, inv_s, *flat)

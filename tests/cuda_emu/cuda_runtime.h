@@ -1,6 +1,7 @@
 // A CPU stand-in for the part of the CUDA runtime the port's point-pipeline
-// kernels use, so that tests/test_torch_point_pipeline_emulated.py can
-// compile csrc/point_pipeline.cu with a host C++ compiler and run it: the
+// and ray-march kernels use, so that tests/test_torch_point_pipeline_emulated.py
+// and tests/test_torch_ray_march_emulated.py can compile csrc/point_pipeline.cu
+// and csrc/ray_march.cu with a host C++ compiler and run them: the
 // test starts one std::thread per CUDA thread of a block, __syncthreads is
 // a barrier over them, __shfl_xor_sync exchanges through an array between
 // two barriers (every thread of the block calls it the same number of
@@ -8,8 +9,12 @@
 #pragma once
 #include <math.h>
 
+#include <algorithm>
 #include <barrier>
 #include <cstddef>
+
+using std::max;
+using std::min;
 
 #define __global__
 #define __device__
@@ -30,6 +35,7 @@ inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 struct float4 { float x, y, z, w; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   emu_shuffle[threadIdx.x] = v;
   emu_barrier->arrive_and_wait();

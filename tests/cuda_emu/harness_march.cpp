@@ -1,0 +1,107 @@
+// Appended to csrc/ray_march.cu (same translation unit, so it reaches the
+// kernels in its unnamed namespace) by tests/test_torch_ray_march_emulated.py.
+// Usage: emu DIR. Reads from DIR: meta.i64 (R, S, n_sdf, skip, d0, n_color,
+// color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks),
+// f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, rays_o.f32,
+// rays_d.f32, z.f32, gbar.f32; runs the forward kernel and then the
+// backward kernel block after block on `blocks` blocks, the partials summed
+// over the blocks in index order as the reduction kernel does; writes
+// out.f32, stash.f32, rays_hat.f32 and grad.f32 (the packed weight grads,
+// then inv_s's) to DIR. The scratch starts as garbage, so a read of a slot
+// the kernel did not write shows.
+#include <cstdio>
+#include <string>
+#include <thread>
+#include <vector>
+
+thread_local emu_dim3 threadIdx;
+emu_dim3 blockIdx, blockDim, gridDim;
+std::barrier<>* emu_barrier;
+float emu_shuffle[256];
+namespace {
+alignas(128) unsigned char smem[SMEM_BWD];
+}
+
+static std::vector<char> slurp(const std::string& path) {
+  FILE* f = fopen(path.c_str(), "rb");
+  if (!f) { perror(path.c_str()); exit(2); }
+  fseek(f, 0, SEEK_END);
+  const long n = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  std::vector<char> b(n);
+  if (fread(b.data(), 1, n, f) != size_t(n)) exit(2);
+  fclose(f);
+  return b;
+}
+
+static void dump(const std::string& path, const std::vector<float>& v) {
+  FILE* f = fopen(path.c_str(), "wb");
+  fwrite(v.data(), 4, v.size(), f);
+  fclose(f);
+}
+
+static const float* F(const std::vector<char>& b) { return reinterpret_cast<const float*>(b.data()); }
+
+int main(int argc, char** argv) {
+  if (argc != 2) return 2;
+  const std::string d = argv[1];
+  const auto meta = slurp(d + "/meta.i64"), fl = slurp(d + "/f32.f32");
+  const auto off = slurp(d + "/off.i64"), w = slurp(d + "/w.f32");
+  const auto ro = slurp(d + "/rays_o.f32"), rd = slurp(d + "/rays_d.f32");
+  const auto z = slurp(d + "/z.f32"), gbar = slurp(d + "/gbar.f32");
+  const long long* m = reinterpret_cast<const long long*>(meta.data());
+  const long long R = m[0], n_grad = m[12];
+  const int S = int(m[1]), blocks = int(m[13]);
+  March base = make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), R, S, F(fl)[1], int(m[2]),
+                          int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]), int(m[7]),
+                          int(m[8]), int(m[9]), int(m[10]), int(m[11]),
+                          reinterpret_cast<const long long*>(off.data()));
+  std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
+  std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
+  const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
+  const long long bwd_floats = march_bwd_scratch_floats(base.net.n_sdf, base.net.n_color,
+                                                        base.net.n_relight, S);
+  std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats, 12345.f);
+  std::vector<float> scratch_bwd(size_t(blocks) * bwd_floats, 12345.f);
+  gridDim.x = blocks;
+  std::barrier<> bar(THREADS);
+  emu_barrier = &bar;
+  for (int pass = 0; pass < 2; ++pass) {
+    March q = base;
+    q.stash = stash.data();
+    if (pass == 0) {
+      q.out = out.data();
+      q.net.scratch = scratch_fwd.data();
+      q.scratch_floats = fwd_floats;
+    } else {
+      q.gbar = F(gbar);
+      q.rays_hat = rays_hat.data();
+      q.partial = partial.data();
+      q.n_grad = n_grad;
+      q.net.scratch = scratch_bwd.data();
+      q.scratch_floats = bwd_floats;
+    }
+    for (int b = 0; b < blocks; ++b) {
+      blockIdx.x = b;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < THREADS; ++t)
+        threads.emplace_back([&q, pass, t] {
+          threadIdx.x = t;
+          if (pass == 0) ray_march_fwd_kernel(q);
+          else ray_march_bwd_kernel(q);
+        });
+      for (auto& th : threads) th.join();
+    }
+  }
+  std::vector<float> grad(n_grad + 1);
+  for (long long i = 0; i <= n_grad; ++i) {
+    float s = 0.f;
+    for (int b = 0; b < blocks; ++b) s += partial[size_t(b) * (n_grad + 1) + i];
+    grad[i] = s;
+  }
+  dump(d + "/out.f32", out);
+  dump(d + "/stash.f32", stash);
+  dump(d + "/rays_hat.f32", rays_hat);
+  dump(d + "/grad.f32", grad);
+  return 0;
+}

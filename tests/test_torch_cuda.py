@@ -188,3 +188,74 @@ def test_cuda_train_loop_fused_core_on(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(losses).all()) and losses.shape == (3,)
     assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+def test_cuda_ray_march_matches_plain(cuda_device, kind):
+    """Rows 3 and 4 against their plain twins on the card: the forward per
+    lane group against the f32 plain twin; the backward against the
+    composed reference (row 5's outputs, the plain compositing VJP, row 6's
+    pullback) and against the plain twin in float64, at chip_smoke.py's
+    phase 2d tolerances, set from the card's readings. 128-sample rays (two
+    tiles each) and 27-sample rays packed two to a tile, a ragged count."""
+    from chip_smoke import (MARCH_LANES, RTOL_MARCH_F64_FLOOR, RTOL_MARCH_FWD,
+                            RTOL_MARCH_TIGHT, _composed, march_bwd_errors, march_inputs)
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    rcfg, pw, *_ = march_inputs(cuda_device, kind, 0.3, 4)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    sd = 2.0 / rcfg.n_samples
+    inv_s = torch.full((1,), 20.0, device=cuda_device)
+    for R, S in ((64, 128), (37, 27)):
+        d = torch.randn((R, 3), generator=g, device=cuda_device)
+        d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        o = (-1.4 * d + 0.1 * torch.randn((R, 3), generator=g, device=cuda_device)).contiguous()
+        z = (0.5 + 1.8 * torch.sort(torch.rand((R, S), generator=g, device=cuda_device),
+                                    dim=-1).values).contiguous()
+        gbar = torch.randn((R, 16), generator=g, device=cuda_device)
+        gbar[:, 7:] = 0.0
+        before = (RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches)
+        out, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
+        ro_hat, rd_hat, s_hat, packed = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash,
+                                                                gbar.contiguous())
+        torch.cuda.synchronize()
+        assert (RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = RM.ray_march_plain(pw, o, d, z, inv_s, sd)
+        for name, (a, b) in MARCH_LANES.items():
+            assert _rel(out[:, a:b], want[:, a:b].double()) <= RTOL_MARCH_FWD, name
+        kern = (ro_hat, rd_hat, s_hat, PP._unpack_grads(pw, packed))
+        tight = march_bwd_errors(kern, RM.march_vjp(o, d, z, inv_s, sd, gbar, *_composed(pw)))
+        for k, e in tight.items():
+            assert e <= RTOL_MARCH_TIGHT[k], (k, e)
+        pw64 = _f64(pw)
+        ref = RM.ray_march_bwd_plain(pw64, o.double(), d.double(), z.double(), inv_s.double(),
+                                     sd, gbar.double())
+        k64 = march_bwd_errors(kern, ref)
+        p64 = march_bwd_errors(RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd, gbar), ref)
+        for k, e in k64.items():
+            assert e <= 2.0 * p64[k] + RTOL_MARCH_F64_FLOOR[k], (k, e, p64[k])
+
+
+@pytest.mark.cuda
+def test_cuda_train_loop_fused_march_on(cuda_device):
+    """Three full-width steps through the fused march: each step launches
+    its forward and backward once, the sweep 4 times, no point pipeline."""
+    from chip_smoke import SMOKE_CFG
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+    model = SMOKE_CFG["MODEL"]
+    cfg = config_from_dict({**SMOKE_CFG, "MODEL": {
+        **model, "RENDERER": {**model["RENDERER"], "FUSED_MARCH": "on"}}})
+    loop = TrainLoop(cfg, device=cuda_device)
+    fns = (RM.launch_ray_march, RM.launch_ray_march_bwd, launch_sdf_rays,
+           PP.launch_point_pipeline, PP.launch_point_pipeline_bwd)
+    before = [fn.launches for fn in fns]
+    losses = loop.run(3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all()) and losses.shape == (3,)
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 12, 0, 0]

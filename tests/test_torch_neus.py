@@ -133,8 +133,14 @@ def test_render_rays_matches_jax(kind):
 
 def test_kernel_switches():
     kw = _cfg_kwargs("color_neus")
+    assert _build(configs, kw, fused_march="on").fused_march == "on"
+    assert configs.renderer_config_from_cfg({"FUSED_MARCH": True}).fused_march == "on"
+    for acts in ("auto", "recompute"):
+        configs.renderer_config_from_cfg({"MARCH_ACTS": acts})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build(configs, kw, fused_march="on")
+        configs.renderer_config_from_cfg({"MARCH_ACTS": "save"})
+    with pytest.raises(ValueError):
+        configs.renderer_config_from_cfg({"MARCH_ACTS": "sometimes"})
     _build(configs, kw, fused_march="off")
     _build(configs, kw, fused_core="off")
     # fused_core='on' builds; under grad it runs the point pipeline's
@@ -156,3 +162,44 @@ def test_kernel_switches():
         _build(configs, kw, fused_sdf="interpret")
     cfg = dataclasses.replace(_build(configs, kw), fused_sdf="on")
     assert cfg.fused_sdf == "on"
+
+
+@pytest.mark.parametrize("kind", ["neus", "color_neus"])
+def test_render_rays_train_fused_march_matches_plain_core(kind):
+    """fused_march='on' (the march's autograd Function; its plain twins on
+    the CPU) against 'auto' (the plain autograd core) on the same rays and
+    weights: every output of the loss path within the render tolerances
+    (2e-4), and the gradients of a loss of them on every leaf and on the
+    rays within atol 1e-4 x the leaf's largest |grad| (f32, the same
+    arithmetic in another order; the march's sums over each ray)."""
+    _, pcfg, _, pp = _setup(kind)
+    o, d, near, far = _rays()
+    rng = np.random.RandomState(4)
+    lw = torch.from_numpy(rng.randn(24, 3).astype(np.float32))
+    got = {}
+    for march in ("on", "auto"):
+        cfg = dataclasses.replace(pcfg, fused_march=march)
+        pp.zero_grad(set_to_none=True)
+        ro, rd = (torch.tensor(a, requires_grad=True) for a in (o, d))
+        out = neus.render_rays_train(pp, cfg, ro, rd, torch.from_numpy(near),
+                                     torch.from_numpy(far), perturb_overwrite=0.0)
+        loss = torch.sum(lw * out["color_fine"]) + torch.sum(out["weight_sum"]) \
+            + 0.1 * out["gradient_error"]
+        if "delta_sum" in out:
+            loss = loss + 0.01 * torch.sum(out["delta_sum"])
+        loss.backward()
+        got[march] = (out, {k: p.grad for k, p in pp.named_parameters()}, ro.grad, rd.grad)
+    (on, g_on, ro_on, rd_on), (auto, g_auto, ro_auto, rd_auto) = got["on"], got["auto"]
+    assert set(on) == set(auto) and on["n_samples_total"] == auto["n_samples_total"]
+    for k in ("color_fine", "weight_sum", "gradient_error", "s_val", "delta_sum"):
+        if k in auto:
+            np.testing.assert_allclose(on[k].detach().numpy(), auto[k].detach().numpy(),
+                                       atol=2e-4, err_msg=k)
+    for k, g in list(g_auto.items()) + [("rays_o", ro_auto), ("rays_d", rd_auto)]:
+        mine = {"rays_o": ro_on, "rays_d": rd_on}.get(k, g_on.get(k))
+        if g is None:
+            assert mine is None or float(mine.abs().max()) == 0.0, k
+            continue
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(mine.numpy(), g.numpy(), atol=1e-4 * scale, rtol=0,
+                                   err_msg=k)

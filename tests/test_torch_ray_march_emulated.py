@@ -1,0 +1,159 @@
+"""The CUDA source of the fused ray march (csrc/ray_march.cu: rows 3 and 4,
+forward and backward), compiled for the CPU and held against its plain
+PyTorch versions at full width.
+
+As tests/test_torch_point_pipeline_emulated.py does for rows 5 and 6: the
+source runs through a host C++ compiler against tests/cuda_emu/
+cuda_runtime.h, one std::thread per CUDA thread with a barrier for
+__syncthreads (tests/cuda_emu/harness_march.cpp), on 2 blocks. The cases
+cover a 128-sample ray (two 64-point tiles), 100-sample rays (a tile and a
+36-point tail), 27-sample rays packed two to a tile with a ragged last
+group, both renderer kinds, and an inv_s of ~2000 with exact q == 1 ties.
+The card-only parts (timing, races between warps, the GPU's float
+functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
+Skips without a C++20 compiler. Tolerances: the forward and the stash to
+the f32 summation order (atol 1e-5 and rtol 1e-5; the eikonal numerator is
+a sum over the ray); the backward against the plain backward in float64:
+for each output or leaf, at most 1e-5 x its largest |float64| value plus
+twice the f32 plain backward's own distance from float64 (at inv_s ~2000
+the cotangents of sdf and inv_s sum saturated sigmoid slopes pc (1 - pc),
+which f32 rounds coarsely: there the f32 plain version is ~60% off
+float64 on a few elements, the kernel ~1e-3). The seeds keep every colour / relight relu pre-activation more
+than 3e-7 from 0 (asserted; float64), so no mask flips between the two
+f32 paths, whose pre-activations differ by rounding (~1e-8 here)."""
+
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import relu_margin
+from color_neus_torch import pin_precision
+from color_neus_torch.models.configs import ColorConfig, RendererConfig
+from color_neus_torch.models.fields import variance_inv_s
+from color_neus_torch.models.neus import init_renderer
+from color_neus_torch.ops.kernels import point_pipeline as PP
+from color_neus_torch.ops.kernels import ray_march as RM
+
+pin_precision()
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(HERE), "color_neus_torch", "csrc")
+MARGIN = 3e-7
+
+
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the emulated kernels")
+    out = tmp_path_factory.mktemp("cuda_emu_march")
+    with open(os.path.join(CSRC, "ray_march.cu")) as f:
+        src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)   # launches run on host threads
+    with open(os.path.join(HERE, "cuda_emu", "harness_march.cpp")) as f:
+        src += f.read()
+    path = out / "emu.cpp"
+    path.write_text(src)
+    exe = str(out / "emu")
+    proc = subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-Wno-unknown-pragmas",
+                           "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, "-x", "c++",
+                           str(path), "-o", exe], capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr:
+        pytest.skip("the host compiler lacks C++20 <barrier>")
+    assert proc.returncode == 0, proc.stderr
+    return exe
+
+
+def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks):
+    packed, off, n_grad = PP._pack(pw)
+    rcfg = pw.rcfg
+    d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
+    cn = rcfg.kind == "color_neus"
+    R, S = z.shape
+    meta = [R, S, n_sdf, skip, d0, len(pw.color), PP._color_dv(rcfg),
+            int(rcfg.color.squeeze_out), len(pw.relight), PP._relight_dv(rcfg) if cn else 0,
+            rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks]
+    np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
+    np.asarray([rcfg.sdf.scale, sample_dist, inv_s], np.float32).tofile(tmp_path / "f32.f32")
+    off.astype(np.int64).tofile(tmp_path / "off.i64")
+    for name, t in (("w", packed), ("rays_o", ro), ("rays_d", rd), ("z", z), ("gbar", gbar)):
+        t.numpy().astype(np.float32).tofile(tmp_path / f"{name}.f32")
+    subprocess.run([exe, str(tmp_path)], check=True, timeout=600)
+
+    def read(name, *shape):
+        return torch.from_numpy(np.fromfile(tmp_path / f"{name}.f32", np.float32).reshape(shape))
+    pw.off = off
+    grad = read("grad", n_grad + 1)
+    return (read("out", R, 16), read("stash", R * S, RM.STASH), read("rays_hat", R, 8),
+            grad[n_grad], PP._unpack_grads(pw, grad[:n_grad]))
+
+
+def _close(got, plain, want, name):
+    """got (the kernel) against want (float64): within 1e-5 x max |want|
+    plus twice the f32 plain version's own distance from want."""
+    err = float((got.double() - want).abs().max())
+    err_plain = float((plain.double() - want).abs().max())
+    tol = 1e-5 * float(want.abs().max()) + 2.0 * err_plain
+    assert err <= tol, f"{name}: kernel {err:.3e} from float64, tolerance {tol:.3e}"
+
+
+CASES = [("color_neus", 1, 128, 0.3, 0.02, 6), ("neus", 2, 100, 0.3, 0.02, 2),
+         ("color_neus", 5, 27, 0.76, 0.005, 9)]
+
+
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES,
+                         ids=[f"{k}-R{r}xS{s}-v{v}" for k, r, s, v, _, _ in CASES])
+def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, noise, seed):
+    color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
+             else ColorConfig())
+    rcfg = RendererConfig(kind=kind, color=color)
+    g = torch.Generator().manual_seed(seed)
+    params = init_renderer(rcfg, g)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.add_(noise * torch.randn(p.shape, generator=g))
+        params["variance"]["variance"].fill_(variance)
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    d = torch.randn((R, 3), generator=g)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    ro = (-1.4 * d + 0.1 * torch.randn((R, 3), generator=g)).contiguous()
+    rd = d.contiguous()
+    z = (0.5 + 1.8 * torch.sort(torch.rand((R, S), generator=g), dim=-1).values).contiguous()
+    inv_s = variance_inv_s(params["variance"]).detach().reshape(1)
+    sd = 2.0 / rcfg.n_samples
+    gbar = torch.randn((R, 16), generator=g)
+    gbar[:, 7:] = 0.0
+
+    dists, _, pts, dirs = RM.march_points(ro, rd, z, sd)
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > MARGIN
+
+    out, stash, rays_hat, s_hat, grads = _run(emulator, tmp_path, pw, ro, rd, z,
+                                              float(inv_s), sd, gbar, blocks=2)
+    outs = PP.point_pipeline_plain(pw, pts, dirs)
+    want = torch.cat([outs[0], outs[1], outs[3], outs[4].sum(dim=1, keepdim=True)], dim=1)
+    np.testing.assert_allclose(stash.numpy(), want.numpy(), atol=1e-5, rtol=1e-5,
+                               err_msg="stash")
+    np.testing.assert_allclose(out.numpy(), RM.ray_march_plain(pw, ro, rd, z, inv_s, sd).numpy(),
+                               atol=1e-5, rtol=1e-5, err_msg="out")
+    c = RM.composite(outs, rd, dists, pts, inv_s)
+    if variance > 0.5:
+        assert int((c.q == 1.0).sum()) > 0, "no exact q == 1 tie on the rays"
+
+    args64 = (ro.double(), rd.double(), z.double(), inv_s.double(), sd, gbar.double())
+    ref = RM.ray_march_bwd_plain(pw64, *args64)
+    plain = RM.ray_march_bwd_plain(pw, ro, rd, z, inv_s, sd, gbar)
+    _close(rays_hat[:, 0:3], plain[0], ref[0], "rays_o")
+    _close(rays_hat[:, 4:7], plain[1], ref[1], "rays_d")
+    assert float(rays_hat[:, 3].abs().max()) == 0.0 and float(rays_hat[:, 7].abs().max()) == 0.0
+    _close(s_hat.reshape(1), plain[2].reshape(1), ref[2].reshape(1), "inv_s")
+    for net, layers in ref[3].items():
+        assert len(grads[net]) == len(layers)
+        for l, ((a, b), (pa, pb), (e, f)) in enumerate(zip(grads[net], plain[3][net], layers)):
+            _close(a, pa, e, f"{net} layer {l} W")
+            _close(b, pb, f, f"{net} layer {l} b")

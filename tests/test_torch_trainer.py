@@ -2,7 +2,7 @@
 
 One train step from injected pixels at a step > 0 (the warm-up lr is 0
 at step 0), small widths, perturb 0, identical weights, with the port's
-fused_core auto and on: the loss, every
+fused_core auto and on and fused_march on: the loss, every
 leaf's clipped gradient (atol 3e-3 * the leaf's max |g|, rtol 2e-3, the
 gradient tolerance of test_parity_torch.py), the Adam moments (the same
 tolerance on mu / 0.1 and sqrt(nu / 0.01), which equal the gradient
@@ -58,14 +58,16 @@ def _renderer(mod, fused_sdf, **kw):
         relight=mod.RelightConfig(d_hidden=32, n_layers=4, y_in_layer=3))
 
 
-def _cfgs(fused_core="auto"):
+def _cfgs(fused_core="auto", fused_march="auto"):
     kw = dict(n_rays=32, include_mask=True, mask_rate=(0.5, 0.8), iterations=100,
               warm_up=10, lr=5e-4)
     cam = dict(H=H, W=W, n_cams=N_CAMS, pose_mode="6d", focal_order=2)
-    jcfg = JTR.TrainerConfig(**kw, camera=JCameraConfig(**cam),
-                             renderer=_renderer(jconfigs, "off"))
-    pcfg = TR.TrainerConfig(**kw, camera=CameraConfig(**cam),
-                            renderer=_renderer(configs, "auto", fused_core=fused_core))
+    # the JAX side runs its march kernel in interpret mode against the
+    # port's march
+    jcfg = JTR.TrainerConfig(**kw, camera=JCameraConfig(**cam), renderer=_renderer(
+        jconfigs, "off", fused_march="interpret" if fused_march == "on" else "auto"))
+    pcfg = TR.TrainerConfig(**kw, camera=CameraConfig(**cam), renderer=_renderer(
+        configs, "auto", fused_core=fused_core, fused_march=fused_march))
     return jcfg, pcfg
 
 
@@ -91,13 +93,16 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("fused_core", ["auto", "on"])
-def test_train_step_matches_jax(fused_core):
-    """The port's step with the plain autograd core (auto) and with the
-    point pipeline's autograd Function (on; its plain twins on the CPU)
-    against the same JAX step (whose fused_core resolves to the plain core
-    on the CPU)."""
-    jcfg, pcfg = _cfgs(fused_core)
+@pytest.mark.parametrize("fused_core,fused_march", [
+    pytest.param("auto", "auto", id="auto"), pytest.param("on", "auto", id="on"),
+    pytest.param("auto", "on", id="march-on")])
+def test_train_step_matches_jax(fused_core, fused_march):
+    """The port's step with the plain autograd core (auto), with the
+    point pipeline's autograd Function (fused_core on) and with the fused
+    march's (fused_march on; plain twins on the CPU) against the same JAX
+    step: the plain core (JAX's fused_core and fused_march resolve to it on
+    the CPU), or JAX's march kernel in interpret mode for fused_march on."""
+    jcfg, pcfg = _cfgs(fused_core, fused_march)
     poses, images, masks, focal = _scene()
     jstate = JTR.init_state(jax.random.PRNGKey(0), jcfg, init_focal_np=focal)
     jparams = jstate["params"]
