@@ -72,12 +72,25 @@ Phases; any failure exits non-zero and prints no result:
      composed reference (row 5's outputs, the plain compositing VJP on the
      card, row 6's pullback) and, beside the f32 plain twin, against the
      plain twin in float64; timed with CUDA events beside the plain twins
-     and the composed rows 5 + 6 + torch compositing.
+     and the composed rows 5 + 6 + torch compositing. Then the clip's tie
+     rule: 1024 rays x 8 samples deep inside the surface, every point at
+     q == 1 exactly (tie_inputs), the kernel's inv_s gradient against the
+     plain twin in float64 (a tie gate of 1.0 would double it).
   8. the training path through the fused march: as phase 7 with
      RENDERER.FUSED_MARCH on: the march's forward and backward once each
      per step, the sweep 4 times, neither point-pipeline kernel; ms/step
      beside phases 3 and 7, peak memory and a 1-step profile; one step's
      leaf gradients, fused_march on against off (the plain core).
+  9. the MLP-chain microbenchmark (csrc/mlp_chain.cu, rows 7 and 8): the
+     tool's sweep through python -m color_neus_torch.tools.mlp_microbench's
+     main at its full shape (1,048,576 rows x 256, 25 layers), launches
+     counted; both kernels against their plain versions on the card, every
+     variant in bf16 and f32, at L = 1 and at L = 25, the gates at the
+     tool's weight 1e-30 and at 1.0, and a ragged 1000 rows; each beside
+     its bound (products, bytes, and the epilogue's FP32-pipe and MUFU
+     instructions per element, read from the SASS of one-element probes of
+     the same device functions), its plain version and the
+     same 25 products in cuBLAS without an activation.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -92,6 +105,7 @@ import sys
 import tempfile
 import threading
 import time
+from functools import partial
 
 SEED = 0
 STEPS = 60
@@ -155,6 +169,13 @@ RTOL_MARCH_FWD = 1e-4
 RTOL_MARCH_TIGHT = {"rays_o": 1e-6, "rays_d": 1e-6, "inv_s": 1e-4, "weights": 2e-5}
 RTOL_MARCH_F64_FLOOR = {"rays_o": 1e-5, "rays_d": 1e-5, "inv_s": 1e-4, "weights": 2e-5}
 MARCH_KINK_MARGIN = 1e-6
+# the clip's tie rule (0.5 at q == 1) on rays whose every point is a tie
+# (tie_inputs): the kernel's inv_s gradient against the plain twin in
+# float64, relative. The f32 rounding of alpha_bar's difference of nearby
+# colour weights sets it (the H100 read 1.04e-5, the CPU rehearsal of the
+# source 1.9e-4); a gate of 1.0 reads 1.0.
+TIE_SAMPLES = 8
+RTOL_MARCH_TIE = 1e-3
 # one step's leaf gradients, fused_march on against the plain core. Read
 # 3.04e-4 (colour lin0 bias), the same as fused_core on against the plain
 # core on those pixels (3.04e-4): that leaf sums the 1 / (1 - gc) terms of
@@ -162,6 +183,36 @@ MARCH_KINK_MARGIN = 1e-6
 # sum moves with the relu masks and the summation order of the
 # point-pipeline kernels; march against fused_core on read 2.2e-5
 RTOL_STEP_GRAD_MARCH = 1e-3
+# phase 9, the MLP chain (rows 7 + 8) at the tool's main shape: 1,048,576
+# rows (T 1024 x G 1024), 25 layers. Kernel against plain on the card, max
+# |diff|, set from the H100's readings (PERF.md, the MLP chain) with headroom.
+# "Tight", L = 1: one product and one activation, so only the f32
+# summation order (bf16 read 3.8e-6 at |x| <= 6; the gates at weight 1.0,
+# where sigmoid(100 x) has slope 25, 3.9e-5; f32 read 1.8e-7: cuBLAS's
+# SIMT sgemm, the plain version's product, sums each output in k order
+# with FMAs as the kernel does, so only the gates' contractions differ).
+# L = 25 at the tool's gate weight, one limit per variant: bf16, a layer
+# input within rounding of a bf16 midpoint rounds to the other neighbour
+# after another summation order, and such flips propagate. Read on the
+# H100 (PERF.md, the MLP chain): none 2.7e-2 (values to 3.3), relu 1.3e-5
+# (values to 1e-3), sigmoid 7.0e-4, the softplus forms and the deferred
+# chain 1.04e-4 (values to 0.028); the limits sit 4-10x above. f32 read 0.
+# The gates at weight 1.0 are held at L = 1 only: there a flip moves
+# sigmoid(100 x) by 25x its size and the 25-layer chain diverges (read 2.6
+# of |x| <= 7.5). The deferred chain's gate shows from L = 2, after one
+# bf16 flip of layer 2's input at most (|w| <= 0.27 times an ulp of
+# |x| <= 6; read 4.6e-3).
+# recip~ takes the card's approximate reciprocal, its plain version the
+# exact one: ~1 ulp of the gate, below these.
+CHAIN_T, CHAIN_G, CHAIN_L = 1024, 1024, 25
+CHAIN_RAGGED = 1000
+ATOL_CHAIN_TIGHT = {"bfloat16": 2e-4, "float32": 2e-6}
+ATOL_CHAIN_BF16 = {"none": 0.1, "relu": 1e-4, "softplus": 1e-3, "sigmoid": 5e-3,
+                   "sp+gate": 1e-3, "shared": 1e-3, "expm1gate": 1e-3, "recip~": 1e-3,
+                   "recipNt": 1e-3, "deferred": 1e-3}
+ATOL_CHAIN_F32 = 1e-5
+ATOL_CHAIN_DEFERRED_L2 = 2e-2
+FP32_LANES_PER_SM, MUFU_PER_SM = 128, 16     # Hopper SM: FP32 lanes, special-function units
 STEADY_STEPS = 20
 PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
 EVAL_RES = 512
@@ -395,6 +446,7 @@ def profile_steps(loop, n_steps=3, top=12, tag="5"):
           f"{' '.join(f'{x:.4f}' for x in sweep)}", flush=True)
 
 def _launchers() -> dict:
+    from color_neus_torch.ops.kernels import mlp_chain as MC
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
     from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
@@ -402,7 +454,8 @@ def _launchers() -> dict:
     return {"sdf_rays": launch_sdf_rays, "sdf_points": launch_sdf_points,
             "point_pipeline": PP.launch_point_pipeline,
             "point_pipeline_bwd": PP.launch_point_pipeline_bwd,
-            "ray_march": RM.launch_ray_march, "ray_march_bwd": RM.launch_ray_march_bwd}
+            "ray_march": RM.launch_ray_march, "ray_march_bwd": RM.launch_ray_march_bwd,
+            "mlp_chain": MC.launch_chain, "mlp_chain_deferred": MC.launch_chain_deferred}
 
 
 def reset_launch_counts():
@@ -739,6 +792,65 @@ def march_inputs(device, kind, variance, seed):
     return rcfg, pw, o, d, z, inv_s, gbar.contiguous()
 
 
+def tie_inputs(device, R, S, seed):
+    """Rays on which the clip's tie rule carries the inv_s gradient: R rays
+    of S samples within ~0.03 of the centre of the init sphere (radius
+    ~0.17, sdf ~-0.05..-0.07), Color-NeuS at inv_s = exp(7) ~1097, so that
+    pc < exp(-44) and every point has q == 1 exactly (alpha 1) in float32
+    and in float64 alike. Every point of the ray is then a tie, so the inv_s
+    cotangent is all tie-born. Only the colour cotangent is set, along
+    relit(sample 0) - relit(sample 1), so that alpha_bar of sample 0 (the
+    one that carries the ray: the later ones are dark by 1e-7 each) is
+    |relit_0 - relit_1| > 0 on every ray: no sign cancels between rays. The
+    colour and relight nets get noise 0.05 so that relit moves along the
+    ray; the SDF 0.003, so that its surface stays where the init put it."""
+    import torch
+    from color_neus_torch.models.configs import ColorConfig, RendererConfig
+    from color_neus_torch.models.fields import variance_inv_s
+    from color_neus_torch.models.neus import init_renderer
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    rcfg = RendererConfig(kind="color_neus",
+                          color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0))
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_renderer(rcfg, g, device)
+    for net, scale in (("sdf", 0.003), ("color", 0.05), ("relight", 0.05)):
+        off_geometric_init(params[net], g, scale)
+    with torch.no_grad():
+        params["variance"]["variance"].fill_(0.7)
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    d = torch.randn((R, 3), generator=g, device=device)
+    d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    o = (0.005 * torch.randn((R, 3), generator=g, device=device)).contiguous()
+    z = (0.002 + 0.023 * torch.sort(torch.rand((R, S), generator=g, device=device),
+                                    dim=-1).values).contiguous()
+    inv_s = variance_inv_s(params["variance"]).detach().reshape(1).contiguous()
+    _, _, pts, dirs = RM.march_points(o, d, z, 2.0 / rcfg.n_samples)
+    with torch.no_grad():
+        relit = PP.point_pipeline_plain(pw, pts, dirs)[3].reshape(R, S, 3)
+    gbar = torch.zeros((R, 16), device=device)
+    dr = relit[:, 0] - relit[:, 1]
+    gbar[:, 0:3] = dr / torch.linalg.norm(dr, dim=-1, keepdim=True)
+    return rcfg, pw, o, d, z, inv_s, gbar.contiguous()
+
+
+def tie_counts(pw, o, d, z, inv_s, sample_dist):
+    """(points at q == 1 exactly in float32, the same in float64)."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    pw64 = PP.PipelineWeights(pw.rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                         for layers in (pw.sdf, pw.color, pw.relight)])
+    out = []
+    with torch.no_grad():
+        for w, dt in ((pw, torch.float32), (pw64, torch.float64)):
+            x = [t.to(dt) for t in (o, d, z, inv_s)]
+            dists, _, pts, dirs = RM.march_points(x[0], x[1], x[2], sample_dist)
+            c = RM.composite(PP.point_pipeline_plain(w, pts, dirs), x[1], dists, pts, x[3])
+            out.append(int((c.q == 1.0).sum()))
+    return tuple(out)
+
+
 def march_bound_ms(pw, R, S, bwd):
     """Least time of one march entry: its MACs (ray_march.march_macs_per_point)
     at the f32 FMA peak, or its bytes (rays, z, inv_s, the weights and, for
@@ -896,8 +1008,262 @@ def march_vs_plain(device):
                   f"kernels {rec['ms'] + rec['bwd_ms']:.4f} ms, composed rows 5 + 6 + torch "
                   f"compositing {rec['composed_ms']:.4f} ms", flush=True)
             out.update(rec)
+    # the clip's tie rule: rays deep inside the surface, every point a tie
+    rcfg, pw, o, d, z, inv_s, gbar = tie_inputs(device, R, TIE_SAMPLES, SEED + 140)
+    sd = 2.0 / rcfg.n_samples
+    ties = tie_counts(pw, o, d, z, inv_s, sd)
+    _, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
+    s_hat = float(RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, gbar)[2])
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    want = float(RM.ray_march_bwd_plain(pw64, o.double(), d.double(), z.double(),
+                                        inv_s.double(), sd, gbar.double())[2])
+    plain = float(RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd, gbar)[2])
+    err = abs(s_hat - want) / max(abs(want), 1e-300)
+    print(f"[2d] ray_march tie rays ({R} x {TIE_SAMPLES} points deep inside, inv_s "
+          f"{float(inv_s):.1f}): q == 1 exactly at {ties[0]} points in float32, {ties[1]} in "
+          f"float64 | inv_s grad kernel {s_hat:.6e}, float64 {want:.6e}, rel {err:.3e} (rtol "
+          f"{RTOL_MARCH_TIE:g}; a gate of 1.0 reads 1.0) | f32 plain twin {plain:.6e} "
+          f"(its suffix sum cancels at alpha == 1; no check)", flush=True)
+    if ties != (R * TIE_SAMPLES,) * 2:
+        fails.append(f"tie rays: {ties} points at q == 1 (f32, f64), want all {R * TIE_SAMPLES}")
+    if not err <= RTOL_MARCH_TIE:
+        fails.append(f"tie rays: inv_s grad {err:.3e} from float64, above {RTOL_MARCH_TIE:g}")
     check(not fails, "; ".join(fails))
     return out
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _sass_main_path(lines):
+    """(FP32-pipe, MUFU) instructions of one function in cuobjdump -sass
+    lines, from the entry to its first unpredicated EXIT, in address
+    order: the in-line code, without the out-of-line slow-path
+    subroutines the compiler places after the EXIT (the IEEE divide's and
+    reciprocal's, reached by CALL). Both sides of an in-line branch count,
+    and predicated instructions count (they take an issue slot). FP32
+    counts FFMA, FADD and FMUL only (a lower count). None if there is no
+    EXIT."""
+    fp32 = mufu = 0
+    for line in lines:
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m is None:
+            continue
+        op = m.group(2)
+        if op == "EXIT" and m.group(1) is None:
+            return fp32, mufu
+        fp32 += op.split(".")[0] in ("FFMA", "FADD", "FMUL")
+        mufu += op.startswith("MUFU")
+    return None
+
+
+def epilogue_counts():
+    """{line name: (FP32-pipe, MUFU) instructions per activated element}
+    for the nine chains and the deferred one ('deferred'), or None with
+    the reason. csrc/mlp_chain.cu's instruction probes (one element per
+    thread, the chains' own device functions) are built alone with nvcc
+    -DMLP_CHAIN_PROBE -cubin and read with cuobjdump -sass; each probe's
+    in-line code (_sass_main_path) less the none probe's. That counts what
+    an element issues: not the chains' unrolled or peeled copies, nor the
+    out-of-line slow paths of the IEEE divide. It counts the log1p path
+    of the softplus forms, which a warp skips only when all of its 32
+    lanes are above 100 x = 30 (the chain's first layers hold that for a
+    minority of elements, its later layers for none), and log1pf's
+    in-line fixup of special inputs (one predicated FFMA that this run's
+    data skips: an overcount of 1 per log1p). The deferred layer must count as the
+    expm1gate form, whose sp and gate it computes, or it is not
+    counted."""
+    import shutil
+    from color_neus_torch.ops.kernels import build
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return None, "no cuobjdump"
+    cubin = os.path.join(build.BUILD_DIR, f"mlp_chain_probe_{os.getpid()}.cubin")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    # the library's code generation (build.NVCC_FLAGS), as a cubin of the probes alone
+    cc = subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                         "-std=c++17", "-O3", "-DMLP_CHAIN_PROBE", "-cubin", "-o", cubin,
+                         os.path.join(build.CSRC, f"{MC.KERNEL}.cu")],
+                        capture_output=True, text=True, timeout=300)
+    check(cc.returncode == 0, f"nvcc of the instruction probes failed:\n{cc.stdout}{cc.stderr}")
+    out = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True, timeout=300)
+    os.remove(cubin)
+    if out.returncode != 0:
+        return None, f"cuobjdump failed: {out.stderr.strip()}"
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            m = re.search(r"mlp_chain_act_probeILi(\d+)E", name)
+            cur = MC.ACTIVATIONS[int(m.group(1))][0] if m else \
+                ("deferred" if "mlp_chain_deferred_probe" in name else None)
+            if cur is not None:
+                funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    reads = {k: _sass_main_path(v) for k, v in funcs.items()}
+    want = [n for n, _ in MC.ACTIVATIONS] + ["deferred"]
+    if sorted(reads) != sorted(want) or any(v is None for v in reads.values()):
+        return None, f"probe read failed: {reads}"
+    base = reads["none"]
+    per = {k: (v[0] - base[0], v[1] - base[1]) for k, v in reads.items()}
+    # every form but none and relu takes an exp: a read that misses it went astray
+    if any(per[n][1] < 1 for n in want if n not in ("none", "relu")):
+        return None, f"probe read missed an exp: {per}"
+    d, g = per["deferred"], per["expm1gate"]
+    if not (d[1] == g[1] and abs(d[0] - g[0]) <= 2):
+        return {k: v for k, v in per.items() if k != "deferred"}, \
+            f"deferred layer {d} does not count as expm1gate {g}: deferred not counted"
+    return per, "read"
+
+
+def chain_bound_ms(n, L, bf16, epi, clock_mhz, sms):
+    """Least time of one chain call on n rows: the larger of its products at
+    the bf16 / f32 peak, its bytes (x read once, out written once), and,
+    where epilogue_counts read them, its epilogue's FP32-pipe and MUFU
+    instructions per element at those pipes' rates (sms x 128 / 16 per
+    clock, at clock_mhz).
+    Returns (ms, "bytes" | "operations", what sets it)."""
+    elems = n * 256 * L
+    parts = {"products": 2 * elems * 256 / PEAK_FLOPS["bfloat16" if bf16 else "float32"],
+             "bytes": 2 * n * 256 * 4 / PEAK_BYTES_PER_S}
+    if epi is not None:
+        parts["FP32 pipe"] = epi[0] * elems / (sms * FP32_LANES_PER_SM * clock_mhz * 1e6)
+        parts["MUFU"] = epi[1] * elems / (sms * MUFU_PER_SM * clock_mhz * 1e6)
+    what = max(parts, key=parts.get)
+    return parts[what] * 1e3, ("bytes" if what == "bytes" else "operations"), what
+
+
+def cublas_products_ms(x, w, L, bf16):
+    """The yardstick: the same L products by torch.matmul in the chain's
+    product type, no activation (no single PyTorch call is the chain)."""
+    import torch
+    dt = torch.bfloat16 if bf16 else torch.float32
+    xa, wa = x.to(dt), w.to(dt)
+
+    def products():
+        y = xa
+        for _ in range(L):
+            y = y @ wa
+        return y
+    return cuda_ms(products, reps=3, warmup=1)
+
+
+def chain_phase(device):
+    """Phase 9: the MLP-chain microbenchmark (rows 7 + 8). (a) The tool's
+    sweep through its entry point, launches counted; (b) every kernel
+    against its plain version on the card at the tool's main shape, at
+    L = 1 (tight) and L = 25, the gates at weight 1e-30 and 1.0, a ragged
+    row count; (c) the cuBLAS products-only yardstick, the epilogue's
+    instructions per element (epilogue_counts) and the bounds. Prints
+    every reading, then checks; returns the records the kernel line
+    reads."""
+    import torch
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    from color_neus_torch.tools import mlp_microbench as tool
+
+    fails = []
+    # (a) the tool's sweep, the slice's main path
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = tool.main([])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_chain = sum(1 for name, *_ in lines if name != "deferred")
+    want = {k: 0 for k in counts}
+    want.update(mlp_chain=n_chain * (tool.REPS + 1), mlp_chain_deferred=tool.REPS + 1)
+    print(f"[9] the tool's sweep: {len(lines)} lines in {time.perf_counter() - t0:.1f} s | "
+          f"launches {counts}", flush=True)
+    check(counts == want, f"the tool's sweep launched {counts}, want {want}")
+    tool_ms = {name: ms for name, T, L, G, ms in lines if (T, G) == (CHAIN_T, CHAIN_G)}
+
+    # (b) kernels against plain, on the card
+    x, w = tool.inputs(CHAIN_T, CHAIN_G, device)
+    n = x.shape[0]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    rec = {}
+
+    def compare(label, kernel, plain, tol, rows, L):
+        got = kernel()
+        torch.cuda.synchronize()
+        start.record()
+        ref = plain()
+        end.record()
+        torch.cuda.synchronize()
+        ok = got.shape == ref.shape and bool(torch.isfinite(got).all())
+        d = (got - ref).abs()
+        err, rms = float(d.max()), float(d.square().mean().sqrt())
+        print(f"[9] {label:28s} rows {rows:7d} L {L:2d}: max|kernel-plain| {err:.3e} "
+              f"(atol {tol:g}), rms {rms:.3e}, |plain| max {float(ref.abs().max()):.3f}", flush=True)
+        if not ok:
+            fails.append(f"{label} L={L} rows={rows}: bad output")
+        if not err <= tol:
+            fails.append(f"{label} L={L} rows={rows}: {err:.3e} above {tol:g}")
+        return err, start.elapsed_time(end)
+
+    # (label, kernel, plain, L, rows, atol); ragged rows start at row 7, so
+    # that no output can sit where an earlier plain result of the same rows lay
+    ragged = x[7:7 + CHAIN_RAGGED]
+    cases = []
+    for bf16 in (True, False):
+        dt = "bfloat16" if bf16 else "float32"
+        for name, act in MC.ACTIVATIONS:
+            runs = [(1, x, gw, ATOL_CHAIN_TIGHT[dt])
+                    for gw in ((MC.GATE_W, 1.0) if name in MC.GATED else (MC.GATE_W,))]
+            if bf16 or name == "none":   # the tool's f32 arm is none-f32
+                tol = ATOL_CHAIN_BF16[name] if bf16 else ATOL_CHAIN_F32
+                runs += [(CHAIN_L, xs, MC.GATE_W, tol) for xs in (x, ragged)]
+            for L, xs, gw, tol in runs:
+                cases.append((f"{name} {dt} gate {gw:g}",
+                              partial(MC.launch_chain, xs, w, L, act, bf16, gw),
+                              partial(MC.chain_plain, xs, w, L, act, bf16, gw), L, xs, tol,
+                              (name if bf16 else "none-f32") if L == CHAIN_L and xs is x
+                              else None))
+    for L, xs, gw, tol in ((2, x, 1.0, ATOL_CHAIN_DEFERRED_L2),
+                           (CHAIN_L, x, MC.GATE_W, ATOL_CHAIN_BF16["deferred"]),
+                           (CHAIN_L, ragged, MC.GATE_W, ATOL_CHAIN_BF16["deferred"])):
+        cases.append((f"deferred bfloat16 gate {gw:g}",
+                      partial(MC.launch_chain_deferred, xs, w, L, gw),
+                      partial(MC.chain_deferred_plain, xs, w, L, gw), L, xs, tol,
+                      "deferred" if L == CHAIN_L and xs is x else None))
+    for label, kernel, plain, L, xs, tol, key in cases:
+        err, plain_ms = compare(label, kernel, plain, tol, xs.shape[0], L)
+        if key is not None:
+            rec[key] = {"err": err, "plain_ms": plain_ms}
+
+    # (c) yardsticks and bounds
+    cublas = {True: cublas_products_ms(x, w, CHAIN_L, True),
+              False: cublas_products_ms(x, w, CHAIN_L, False)}
+    per, how = epilogue_counts()
+    clock = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"[9] bounds at {sms} SMs x {FP32_LANES_PER_SM} FP32 lanes / {MUFU_PER_SM} MUFU at "
+          f"{clock:.0f} MHz (nvidia-smi clocks.max.sm); epilogue instructions per element "
+          f"from the probes' SASS: {how} | cuBLAS products only "
+          f"(torch.matmul x {CHAIN_L}): bf16 {cublas[True]:.4f} ms, f32 {cublas[False]:.4f} ms",
+          flush=True)
+    for name, r in rec.items():
+        bf16 = name != "none-f32"
+        epi = None if per is None else per.get(name.replace("-f32", ""))
+        r["ms"] = tool_ms[name]
+        r["bound_ms"], r["bound_by"], r["set_by"] = chain_bound_ms(n, CHAIN_L, bf16, epi, clock,
+                                                                 sms)
+        r["cublas_ms"] = cublas[bf16]
+        print(f"[9] {name:10s} {n} x 256 x {CHAIN_L}: kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | cuBLAS products only {r['cublas_ms']:.4f} ms | bound "
+              f"{r['bound_ms']:.4f} ms ({r['set_by']}) | epilogue per element: "
+              + ("not counted" if epi is None else f"{epi[0]} FP32, {epi[1]} MUFU"),
+              flush=True)
+    check(not fails, "; ".join(fails))
+    return {"records": rec, "launches": counts}
 
 
 def step_grads(loop, pixels, **renderer):
@@ -1155,8 +1521,9 @@ def evaluation_path(loop, device, launches_training):
     print(f"[6f] phase 3's training launched: {launches_training}", flush=True)
     check(all(launches_training[k] == 0 for k in ("point_pipeline", "sdf_points",
                                                   "point_pipeline_bwd", "ray_march",
-                                                  "ray_march_bwd")),
-          "the auto training run launched a point-pipeline, grid-SDF or march kernel")
+                                                  "ray_march_bwd", "mlp_chain",
+                                                  "mlp_chain_deferred")),
+          "the auto training run launched a point-pipeline, grid-SDF, march or chain kernel")
     return res
 
 
@@ -1183,8 +1550,9 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 1: build every kernel, all at once, and the host marcher ----
-    # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4
-    kernels = ("sdf_rays", "point_pipeline", "ray_march")
+    # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4,
+    # mlp_chain.cu rows 7 and 8
+    kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain")
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
@@ -1301,17 +1669,22 @@ def main() -> int:
     # ---- phase 7: training through the point-pipeline kernels ----
     on = training_through(device, loop, SEED + 110, "FUSED_CORE", {
         "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": STEPS,
-        "point_pipeline_bwd": STEPS, "ray_march": 0, "ray_march_bwd": 0}, RTOL_STEP_GRAD, "7")
+        "point_pipeline_bwd": STEPS, "ray_march": 0, "ray_march_bwd": 0, "mlp_chain": 0,
+        "mlp_chain_deferred": 0}, RTOL_STEP_GRAD, "7")
     print(f"[7] steady state: fused_core auto {step_ms:.2f} ms/step, on {on['step_ms']:.2f} "
           f"ms/step", flush=True)
 
     # ---- phase 8: training through the fused march kernels ----
     march = training_through(device, loop, SEED + 130, "FUSED_MARCH", {
         "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": 0,
-        "point_pipeline_bwd": 0, "ray_march": STEPS, "ray_march_bwd": STEPS},
+        "point_pipeline_bwd": 0, "ray_march": STEPS, "ray_march_bwd": STEPS, "mlp_chain": 0,
+        "mlp_chain_deferred": 0},
         RTOL_STEP_GRAD_MARCH, "8", profile_n=1, beside={"fused_core": "on"})
     print(f"[8] steady state: auto {step_ms:.2f} ms/step, fused_core on {on['step_ms']:.2f} "
           f"ms/step, fused_march on {march['step_ms']:.2f} ms/step", flush=True)
+
+    # ---- phase 9: the MLP-chain microbenchmark (rows 7 + 8) ----
+    chain = chain_phase(device)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and
@@ -1323,7 +1696,9 @@ def main() -> int:
     # and ray_march_bwd: phase 2d at the main path's shape (1024 rays x 128
     # samples, Color-NeuS, the init's inv_s), errors the largest of its
     # cases (forward vs the f32 plain twin, backward vs float64), launches
-    # from phase 8's training run
+    # from phase 8's training run; mlp_chain and mlp_chain_deferred: phase 9
+    # at the tool's main shape (1,048,576 x 256 x 25; mlp_chain the softplus
+    # variant in bf16), launches from the tool's sweep
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
     kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
@@ -1368,7 +1743,13 @@ def main() -> int:
         "launches": march["counts"]["ray_march_bwd"], "max_abs_err": mar["bwd_err"],
         "ms": mar["bwd_ms"], "plain_ms": mar["plain_bwd_ms"], "bound_ms": mar["bwd_bound_ms"],
         "bound_by": mar["bwd_bound_by"], "library_ms": None,
-    }]
+    }] + [{
+        "name": name, "route": "cuda", "source": "color_neus_torch/csrc/mlp_chain.cu",
+        "replaces": f"tools/mlp_microbench.py:{line}", "launches": chain["launches"][name],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+    } for name, line, r in (("mlp_chain", 121, chain["records"]["softplus"]),
+                            ("mlp_chain_deferred", 103, chain["records"]["deferred"]))]
     print(json.dumps({"kernels": kernel_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

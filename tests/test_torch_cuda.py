@@ -259,3 +259,42 @@ def test_cuda_train_loop_fused_march_on(cuda_device):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(losses).all()) and losses.shape == (3,)
     assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 12, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_cuda_mlp_chain_matches_plain(cuda_device, bf16):
+    """Rows 7 and 8 against their plain versions on the card, every
+    variant, 4096 rows and a ragged 1000, at chip_smoke.py's phase 9
+    tolerances, set from the card's readings: one layer (tight), the gates
+    at the tool's 1e-30 and at 1.0; the tool's 25 layers at 1e-30, each
+    variant at its own limit; the deferred chain's gate at 1.0 over two
+    layers."""
+    from chip_smoke import (ATOL_CHAIN_BF16, ATOL_CHAIN_DEFERRED_L2, ATOL_CHAIN_F32,
+                            ATOL_CHAIN_TIGHT, CHAIN_L)
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    from color_neus_torch.tools.mlp_microbench import inputs
+    dt = "bfloat16" if bf16 else "float32"
+    x, w = inputs(64, 80, cuda_device)
+    for xs in (x[:4096], x[7:1007]):
+        for name, act in MC.ACTIVATIONS:
+            runs = [(1, gw, ATOL_CHAIN_TIGHT[dt])
+                    for gw in ((MC.GATE_W, 1.0) if name in MC.GATED else (MC.GATE_W,))]
+            deep = ATOL_CHAIN_BF16[name] if bf16 else ATOL_CHAIN_F32
+            for L, gw, atol in runs + [(CHAIN_L, MC.GATE_W, deep)]:
+                before = MC.launch_chain.launches
+                got = MC.launch_chain(xs, w, L, act, bf16, gw)
+                torch.cuda.synchronize()
+                assert MC.launch_chain.launches == before + 1
+                want = MC.chain_plain(xs, w, L, act, bf16, gw)
+                torch.testing.assert_close(got, want, rtol=0, atol=atol,
+                                           msg=f"{name} gate {gw} L {L} rows {xs.shape[0]}")
+        if bf16:
+            for L, gw, atol in ((2, 1.0, ATOL_CHAIN_DEFERRED_L2),
+                                (CHAIN_L, MC.GATE_W, ATOL_CHAIN_BF16["deferred"])):
+                before = MC.launch_chain_deferred.launches
+                got = MC.launch_chain_deferred(xs, w, L, gw)
+                torch.cuda.synchronize()
+                assert MC.launch_chain_deferred.launches == before + 1
+                torch.testing.assert_close(got, MC.chain_deferred_plain(xs, w, L, gw), rtol=0,
+                                           atol=atol, msg=f"deferred gate {gw} L {L}")

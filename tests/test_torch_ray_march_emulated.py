@@ -8,7 +8,9 @@ cuda_runtime.h, one std::thread per CUDA thread with a barrier for
 __syncthreads (tests/cuda_emu/harness_march.cpp), on 2 blocks. The cases
 cover a 128-sample ray (two 64-point tiles), 100-sample rays (a tile and a
 36-point tail), 27-sample rays packed two to a tile with a ragged last
-group, both renderer kinds, and an inv_s of ~2000 with exact q == 1 ties.
+group, both renderer kinds, and an inv_s of ~2000 with exact q == 1 ties;
+and the clip's tie rule, on rays whose every point is a tie, held by a
+copy of the source with the tie gate at 1.0, which must fail.
 The card-only parts (timing, races between warps, the GPU's float
 functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
 Skips without a C++20 compiler. Tolerances: the forward and the stash to
@@ -46,14 +48,21 @@ CSRC = os.path.join(os.path.dirname(HERE), "color_neus_torch", "csrc")
 MARGIN = 3e-7
 
 
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
+# the tie gate of the clip's VJP (clip(q, 0, 1) at q == 1), and the same
+# line with the gate at 1.0: a copy that must fail the tie test below
+TIE_GATE = "c.q == 1.f ? 0.5f"
+TIE_GATE_MUTANT = "c.q == 1.f ? 1.0f"
+
+
+def _compile(out, mutate=False):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
-    out = tmp_path_factory.mktemp("cuda_emu_march")
     with open(os.path.join(CSRC, "ray_march.cu")) as f:
         src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)   # launches run on host threads
+    if mutate:
+        assert src.count(TIE_GATE) == 1, "the tie gate line moved"
+        src = src.replace(TIE_GATE, TIE_GATE_MUTANT)
     with open(os.path.join(HERE, "cuda_emu", "harness_march.cpp")) as f:
         src += f.read()
     path = out / "emu.cpp"
@@ -66,6 +75,11 @@ def emulator(tmp_path_factory):
         pytest.skip("the host compiler lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
     return exe
+
+
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("cuda_emu_march"))
 
 
 def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks):
@@ -157,3 +171,34 @@ def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, 
         for l, ((a, b), (pa, pb), (e, f)) in enumerate(zip(grads[net], plain[3][net], layers)):
             _close(a, pa, e, f"{net} layer {l} W")
             _close(b, pb, f, f"{net} layer {l} b")
+
+
+def test_emulated_march_tie_gate(emulator, tmp_path_factory, tmp_path):
+    """The clip's tie rule in the kernel: on rays deep inside the surface
+    (chip_smoke.tie_inputs) every point has q == 1 exactly, in float32 and
+    in float64, so the inv_s cotangent is all tie-born and the gate of 0.5
+    halves it. The source matches the plain twin in float64 within 1e-3
+    (alpha_bar of a ray's first sample is the f32 difference of two
+    nearby colour weights: read 1.9e-4 here); a copy of the source with the
+    gate at 1.0 is 100% off and must fail. The f32 plain twin is no
+    reference here: its suffix sum (a reversed cumsum minus the sample's
+    own term, as in JAX) cancels at alpha == 1, orders of magnitude off."""
+    from chip_smoke import tie_counts, tie_inputs
+    R, S = 16, 8
+    rcfg, pw, ro, rd, z, inv_s, gbar = tie_inputs(torch.device("cpu"), R, S, seed=11)
+    sd = 2.0 / rcfg.n_samples
+    assert tie_counts(pw, ro, rd, z, inv_s, sd) == (R * S, R * S)
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    want = float(RM.ray_march_bwd_plain(pw64, ro.double(), rd.double(), z.double(),
+                                        inv_s.double(), sd, gbar.double())[2])
+    assert abs(want) > 0.0
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_tie_mutant"), mutate=True)
+    errs = {}
+    for name, exe in (("source", emulator), ("mutant", mutant)):
+        run_dir = tmp_path / name
+        run_dir.mkdir()
+        s_hat = float(_run(exe, run_dir, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=2)[3])
+        errs[name] = abs(s_hat - want) / abs(want)
+    assert errs["source"] <= 1e-3, errs
+    assert errs["mutant"] > 0.5, errs
