@@ -49,9 +49,6 @@
 // The ragged last tile reads zeros and stores nothing past N.
 
 #include <cuda_runtime.h>
-#ifdef __CUDACC__
-#include <cuda_bf16.h>
-#endif
 
 #include "mlp_common.cuh"
 
@@ -181,19 +178,8 @@ __global__ void __launch_bounds__(THREADS, 2) chain_f32_kernel(Chain c) {
 // rehearsal (tests/test_torch_mlp_chain_emulated.py) compiles the rest.
 namespace {
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+using mlp::mma_bf16;
+using mlp::pack_bf16;
 
 // W^T as bf16 into wt[n][k] (row stride LDB), two k per 32-bit store.
 __device__ void stage_w(const float* __restrict__ w, unsigned* wt) {

@@ -1,11 +1,15 @@
 // Device code shared by the port's MLP kernels (sdf_rays.cu: the placement
-// sweep and the grid SDF; point_pipeline.cu: the per-point pipeline
-// forward and backward): the positional encoding and its derivatives, the
-// softplus(beta=100), and the exact f32 register-tiled layer product over a
-// 64-point tile.
+// sweep and the grid SDF; point_pipeline.cu and ray_march.cu: the per-point
+// pipeline; mlp_chain.cu: the chain microbenchmark): the positional
+// encoding and its derivatives, the softplus(beta=100), the exact f32
+// register-tiled layer product over a 64-point tile, and the bf16
+// tensor-core instruction with its operand packing.
 #pragma once
 
 #include <cuda_runtime.h>
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
 
 namespace mlp {
 
@@ -81,6 +85,34 @@ __device__ __forceinline__ void tile_matmul_f32(const float* act, int lda, int K
 #pragma unroll
       for (int j = 0; j < JN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
   }
+}
+
+// Two f32 values rounded to bf16 (to nearest, ties to even) in one 32-bit
+// register: lo in the low half, as an mma fragment pairs the lower index.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// x rounded to bf16 (to nearest, ties to even), back in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// d += A B over one m16n8k16 tile: bf16 operands, f32 accumulators
+// (fragment layouts: PTX ISA, mma.m16n8k16 for .bf16). The CPU rehearsal
+// of the sources (tests/cuda_emu) supplies mma_m16n8k16_bf16 in software.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+#ifdef __CUDACC__
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+#else
+  mma_m16n8k16_bf16(d, a0, a1, a2, a3, b0, b1);
+#endif
 }
 
 }  // namespace mlp

@@ -4,7 +4,9 @@
 // fused_point_pipeline_fwd, :699-713) and ::_bwd_kernel (:767; its body is
 // _mlp_recompute + _mlp_pullback, :816-1338; custom_vjp _pipeline_core).
 //
-// What the forward computes, per point (pts p, view dir d), in exact f32:
+// What the forward computes, per point (pts p, view dir d), with every
+// product in the TPU kernels' production arithmetic (bf16 operands, f32
+// sums; point_pipeline_tile.cuh's note) and the rest in f32:
 //   SDF forward   emb = PE(p * scale); softplus(beta=100) MLP with the skip
 //                 input concat[h, emb]/sqrt(2); the last layer gives the raw
 //                 sdf (column 0) and the 256 features (columns 1..256);
@@ -26,7 +28,7 @@
 // Output per point: [sdf, grad(3), gc(3), relit(3), delta(3), 0, 0, 0].
 //
 // What the backward computes, per point, given the cotangents of those five
-// outputs (gbar [n, 16] in the same lanes), in exact f32:
+// outputs (gbar [n, 16] in the same lanes), in the same arithmetic:
 //   recompute     the forward above, keeping every layer's input, the SDF
 //                 gates and the features in the block's scratch;
 //   relight       the relit VJP (logit with its clamps and the 0 < gc < 1
@@ -58,38 +60,45 @@
 // Bound on the H100. Forward: at the Color-NeuS widths ~1.45 M MACs per
 // point (SDF forward ~0.52 M, reverse ~0.46 M, colour ~0.26 M, relight
 // ~0.21 M; chip_smoke.py counts them from the real widths) against 88 bytes
-// of input/output per point: bound by operations, f32 FMA at 67 TFLOP/s.
-// Backward: the recompute, then twice the colour and relight MACs (dW and
-// xbar), the tangent stream (~0.46 M), the last layer (~0.13 M) and four
-// products per hidden SDF layer (~1.83 M): ~4.8 M MACs per point, against
-// 112 bytes of input/output per point: bound by operations.
+// of input/output per point: bound by operations, bf16 tensor-core MMA at
+// 989 TFLOP/s. Backward: the recompute, then twice the colour and relight
+// MACs (dW and xbar), the tangent stream (~0.46 M), the last layer (~0.13
+// M) and four products per hidden SDF layer (~1.83 M), plus layer 0's
+// second (lo) weight-grad pass: ~4.8 M MACs per point, against 112 bytes
+// of input/output per point: bound by operations. Its per-block scratch
+// (~3.2 MB, ~50 KB per point written and read) is the floor once the
+// products stop dominating: >= 13 GB of device-memory traffic at 131,072
+// points.
 //
-// Design (simple first, exact f32; the bf16 / wgmma redesign is a later
-// change). One block of 8 warps owns a tile of 64 points; each thread keeps
-// an 8x8 (or 8x2, 8x10) register tile of a layer's output and runs exact
-// f32 FMAs over a shared-memory activation buffer [64, 308], in place.
-// Weights (~7.9 MB f32 with the transposed copies the reverse products
-// read, packed by the wrapper) stay in device memory, L2-resident across
-// the launch. Blocks loop over tiles, so every scratch is sized by the
-// grid, not by N.
+// Design. One block of 8 warps owns a tile of 64 points. Every 256-wide
+// product runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulators in registers): the A operand is the tile's f32 activations
+// in a shared-memory buffer [64, 308], rounded to bf16 as each fragment
+// loads (the stores stay f32, JAX's f32stash); the B operand is a bf16 copy
+// of the weights and of their transposes (~3.9 MB, packed by the wrapper
+// in fragment order so that a warp's B load is one coalesced 8-byte read
+// per lane, L2-resident across the launch). A warp owns 32 output columns
+// of all 64 rows (16 accumulator tiles). The 1- and 3-wide output layers
+// stay SIMT FMAs with their operands rounded to bf16. Blocks loop over
+// tiles, so every scratch is sized by the grid, not by N.
 //   Forward: the 8 hidden layers' gates are 8 KB per point in f32, 512 KB
 //   for a 64-point tile, beyond the 227 KB of shared memory a block can
 //   have (a 16-point tile would fit but read every weight 4x as often from
 //   L2). So each block owns a slice of a device-memory scratch for its
 //   tile's gates and features, written once and read once per point (16 KB
-//   of traffic per point, ~0.7 ms at 131,072 points, below the FMA time).
+//   of traffic per point, ~0.7 ms at 131,072 points).
 //   The activation buffer (79 KB) plus the PE-cotangent tile keep two
 //   blocks per SM.
 //   Backward: a second activation buffer carries the tangent stream and the
 //   tangent cotangents beside the value stream (207 KB of shared memory,
-//   one block per SM, up to 255 registers a thread: no spills). The
-//   recompute stores every layer input (and the tangent inputs and
-//   pre-gates) in the block's scratch, ~3.2 MB per block. A layer's weight
-//   grad over a tile is the outer product X^T[K, 64] abar[64, 256]: abar
-//   from shared memory, X from the scratch as warp-broadcast float4 loads,
-//   8x8 register tiles, added into the block's partial (read-modify-write
-//   of the 4.2 MB gradient prefix per tile at full width; measured in
-//   PERF.md).
+//   one block per SM, up to 255 registers a thread). The recompute stores
+//   every layer input (and the tangent inputs and pre-gates) in the block's
+//   scratch, ~3.2 MB per block. A layer's weight grad over a tile is the
+//   product X^T[K, 64] abar[64, 256] on the tensor cores too (M = the
+//   layer's inputs, N = its outputs, depth = the 64 points): abar from
+//   shared memory, X from the scratch, both rounded to bf16 as they load,
+//   added into the block's f32 partial (read-modify-write of the 4.2 MB
+//   gradient prefix per tile at full width; measured in PERF.md).
 
 #include "point_pipeline_tile.cuh"
 
@@ -199,16 +208,18 @@ extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int n_color, i
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
-// launch; none synchronises. `off` is a host array of the offset table.
+// launch; none synchronises. `w`: the packed f32 weights, `wb`: the bf16
+// fragment-ordered blocks (device pointers); `off` / `boff`: host arrays of
+// their offset tables.
 extern "C" int point_pipeline_fwd_launch(
-    const float* pts, const float* dirs, const float* w, float* out, float* scratch,
-    long long n_pts, int n_blocks, int n_sdf, int skip, int d0, float scale, int n_color,
-    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, int n_off, void* stream) {
+    const float* pts, const float* dirs, const float* w, const void* wb, float* out,
+    float* scratch, long long n_pts, int n_blocks, int n_sdf, int skip, int d0, float scale,
+    int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* boff, int n_off, void* stream) {
   if (n_pts <= 0) return 0;
   if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  Params p = make_params(pts, dirs, w, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
-                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off);
+  Params p = make_params(pts, dirs, w, wb, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
   p.out = out;
   p.scratch = scratch;
   cudaError_t e = cudaFuncSetAttribute(point_pipeline_fwd_kernel,
@@ -223,15 +234,15 @@ extern "C" int point_pipeline_fwd_launch(
 // `partial` must hold n_blocks x n_grad zeros; `scratch` n_blocks x
 // point_pipeline_bwd_scratch_floats(...) floats.
 extern "C" int point_pipeline_bwd_launch(
-    const float* pts, const float* dirs, const float* gbar, const float* w, float* pts_hat,
-    float* dirs_hat, float* partial, float* scratch, long long n_pts, int n_blocks,
-    long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
-    int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
-    int n_off, void* stream) {
+    const float* pts, const float* dirs, const float* gbar, const float* w, const void* wb,
+    float* pts_hat, float* dirs_hat, float* partial, float* scratch, long long n_pts,
+    int n_blocks, long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color,
+    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* boff, int n_off, void* stream) {
   if (n_pts <= 0) return 0;
   if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  Params p = make_params(pts, dirs, w, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
-                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off);
+  Params p = make_params(pts, dirs, w, wb, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
   p.scratch = scratch;
   p.gbar = gbar;
   p.pts_hat = pts_hat;

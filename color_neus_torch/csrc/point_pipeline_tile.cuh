@@ -8,6 +8,15 @@
 // its points, view dirs (P3, D3) and, for the backward, the cotangents (CT)
 // of the five outputs, and reads the outputs (S1, G3, GC, RL, DL) or the
 // point and dir cotangents (PH, DH) back.
+//
+// The arithmetic is the TPU kernels' production arithmetic (JAX bf16 = not
+// interpret, MARCH_BWD_PRECISION f32stash): every product rounds its two
+// operands to bf16 and sums in f32 (the 256-wide ones on the tensor cores,
+// tile_product and dw_accum; the 1- and 3-wide ones as SIMT FMAs,
+// narrow_layer and narrow_back); the activations, gates and stores stay
+// f32; layer 0's weight grad takes its f32 operands (the PE and the tangent
+// seed) as hi + lo bf16 pairs, and the last layer's rank-1 tangent term is
+// summed in f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,13 +31,18 @@ using mlp::INV_SQRT2;
 using mlp::THREADS;
 using mlp::TILE;
 using mlp::emb_value;
+using mlp::mma_bf16;
+using mlp::pack_bf16;
+using mlp::round_bf16;
 using mlp::softplus100;
 
 constexpr int LDX = HID + EMB + 4;       // activation row stride: [h 256 | small 48] + pad
 constexpr int LDS = HID + EMB;           // row stride of a layer input stored in the scratch
 constexpr int MAXL = 16;                 // max layers per network
-// slots of the offset table (element offsets into the packed f32 weights;
-// the gradient buffers use the same table)
+// slots of the offset tables: `off` holds element offsets into the packed
+// f32 weights (the gradient buffers use the same table; its WT slots are
+// unused), `boff` offsets in 8-byte units into the bf16 weight blocks in
+// mma fragment order (the W and WT slots of the 256-wide layers)
 constexpr int W_SDF = 0, WT_SDF = MAXL, B_SDF = 2 * MAXL, W_COL = 3 * MAXL, B_COL = 4 * MAXL,
               W_REL = 5 * MAXL, B_REL = 6 * MAXL, WT_COL = 7 * MAXL, WT_REL = 8 * MAXL,
               W_LAST = 9 * MAXL, B_LAST = W_LAST + 1, W_FEAT = W_LAST + 2, B_FEAT = W_LAST + 3,
@@ -37,7 +51,8 @@ constexpr int W_SDF = 0, WT_SDF = MAXL, B_SDF = 2 * MAXL, W_COL = 3 * MAXL, B_CO
 struct Params {
   const float* pts;    // [n, 3]
   const float* dirs;   // [n, 3]
-  const float* w;      // packed weights, see off
+  const float* w;      // packed f32 weights, see off
+  const uint2* wb;     // bf16 weight blocks in mma fragment order, see boff
   float* out;          // forward: [n, 16]
   float* scratch;      // per block: see the kernels
   long long n_pts;
@@ -53,6 +68,7 @@ struct Params {
   int y_in;            // relight layer that takes [h, gc]
   int inv_sigmoid;
   long long off[N_OFF];
+  long long boff[N_OFF];
   // backward only
   const float* gbar;   // [n, 16] cotangents in the forward's output lanes
   float* pts_hat;      // [n, 3]
@@ -100,46 +116,152 @@ constexpr size_t GSLAB = size_t(TILE) * HID;
 
 enum Epi { EPI_NONE = 0, EPI_RELU = 1, EPI_SOFTPLUS = 2 };
 
-// dst[:, :256] = epi(X[:, :K] @ W + b): W row-major [K, 256]. EPI_SOFTPLUS
-// also stores the gate to `gates` ([TILE][HID]) and scales the value by
-// `post`. dst may be X itself: every thread has read X before any writes.
-template <int EPI>
-__device__ void wide_layer(float* X, int K, const float* __restrict__ W,
-                           const float* __restrict__ b, float post, float* gates,
-                           float* dst, int ld) {
-  float acc[8][8];
-  mlp::tile_matmul_f32<8>(X, LDX, K, W, acc);
-  __syncthreads();
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+// ------------------------------------------------------------------------
+// Tensor-core products (mma.sync m16n8k16, bf16 operands, f32 accumulators)
+// ------------------------------------------------------------------------
+//
+// A weight block B [K][N] (K a multiple of 16, N of 8) sits in the bf16
+// buffer in fragment order (point_pipeline.py's _frag): for each k-step ks
+// of 16 rows and n-tile nt of 8 columns, 32 lanes x 4 bf16, lane 4 g + t
+// holding B[16 ks + 2 t + {0, 1, 8, 9}][8 nt + g], its two B registers. A
+// warp's B fragment is one coalesced 8-byte read per lane, from L2.
+
+// The A fragment of rows m0 .. m0 + 16, columns k0 .. k0 + 16 of an f32
+// tile in shared memory (row stride lda), rounded to bf16 as it loads:
+// a0 / a2 rows g, a1 / a3 rows g + 8; a0 / a1 columns 2t, 2t + 1, a2 / a3
+// eight further.
+__device__ __forceinline__ void load_a(const float* A, int lda, int m0, int k0,
+                                       unsigned (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* r0 = A + (m0 + g) * lda + k0 + 2 * t;
+  const float* r8 = r0 + 8 * lda;
+  const float2 x0 = *reinterpret_cast<const float2*>(r0);
+  const float2 x1 = *reinterpret_cast<const float2*>(r8);
+  const float2 x2 = *reinterpret_cast<const float2*>(r0 + 8);
+  const float2 x3 = *reinterpret_cast<const float2*>(r8 + 8);
+  a[0] = pack_bf16(x0.x, x0.y);
+  a[1] = pack_bf16(x1.x, x1.y);
+  a[2] = pack_bf16(x2.x, x2.y);
+  a[3] = pack_bf16(x3.x, x3.y);
+}
+
+// acc[i][j][q] = sum_{k < K} bf16(A[row][k]) B[k][col] for the warp's MT x NT
+// tiles: row m0 + 16 i + g + 8 (q / 2), col 8 (nt0 + j) + 2 t + q % 2. A: the
+// tile in shared memory (row stride LDX); B: a fragment-ordered block of
+// n_tiles n-tiles.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tile(const float* A, int K, const uint2* __restrict__ B,
+                                         int n_tiles, int m0, int nt0,
+                                         float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = rg * 8 + i, c = cg + 32 * j;
-      const float a = acc[i][j] + b[c];
-      float v;
-      if (EPI == EPI_SOFTPLUS) {
-        const float sp = softplus100(a);
-        gates[r * HID + c] = 1.f - expf(-100.f * sp);
-        v = sp * post;
-      } else if (EPI == EPI_RELU) {
-        v = fmaxf(a, 0.f);
-      } else {
-        v = a;
-      }
-      dst[r * ld + c] = v;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint2 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = __ldg(B + (size_t(ks) * n_tiles + nt0 + j) * 32 + lane);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      unsigned a[4];
+      load_a(A, LDX, m0 + 16 * i, 16 * ks, a);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j].x, b[j].y);
     }
+  }
+}
+
+// put(row, col, acc) for every element of mma_tile's accumulators.
+template <int MT, int NT, class F>
+__device__ __forceinline__ void each_out(const float (&acc)[MT][NT][4], int m0, int nt0, F&& put) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        put(m0 + 16 * i + g + 8 * (q >> 1), 8 * (nt0 + j) + 2 * t + (q & 1), acc[i][j][q]);
+}
+
+// The [TILE, N] product bf16(A[:, :K]) @ B (B: a fragment-ordered [K][N]
+// block, N = 48, 256 or 304), then put(r, c, v) for every output after a
+// barrier, so put may overwrite A; a barrier after. N = 256: warp w owns
+// columns 32 w .. 32 w + 32 of all 64 rows (4 x 4 tiles); N = 48: warp w
+// owns rows 16 (w % 4) .. + 16, columns 24 (w / 4) .. + 24 (1 x 3 tiles);
+// N = 304 is both, the 48 after the 256.
+template <int N, class F>
+__device__ void tile_product(const float* A, int K, const uint2* __restrict__ B, F&& put) {
+  static_assert(N == EMB || N == HID || N == HID + EMB, "tile_product: N");
+  const int warp = threadIdx.x >> 5;
+  constexpr int NTOT = N / 8;
+  const int ms = 16 * (warp & 3), ns = (N == EMB ? 0 : HID / 8) + 3 * (warp >> 2);
+  if constexpr (N == EMB) {
+    float acc[1][3][4];
+    mma_tile<1, 3>(A, K, B, NTOT, ms, ns, acc);
+    __syncthreads();
+    each_out(acc, ms, ns, put);
+  } else {
+    float acc[4][4][4];
+    mma_tile<4, 4>(A, K, B, NTOT, 0, 4 * warp, acc);
+    if constexpr (N == HID + EMB) {
+      float acc2[1][3][4];
+      mma_tile<1, 3>(A, K, B, NTOT, ms, ns, acc2);
+      __syncthreads();
+      each_out(acc2, ms, ns, put);
+    } else {
+      __syncthreads();
+    }
+    each_out(acc, 0, 4 * warp, put);
+  }
   __syncthreads();
 }
 
-// out[r][j] = X[r, :K] . W[j, :K] + b[j] for j < n_out (W row-major [n_out, K]).
+// tile_product for an output width N chosen at run time.
+template <class F>
+__device__ void product_any(const float* A, int K, const uint2* __restrict__ B, int N, F&& put) {
+  if (N == EMB) tile_product<EMB>(A, K, B, put);
+  else if (N == HID) tile_product<HID>(A, K, B, put);
+  else tile_product<HID + EMB>(A, K, B, put);
+}
+
+// dst[:, :256] = epi(X[:, :K] @ W + b): W a fragment-ordered [K, 256]
+// block. EPI_SOFTPLUS also stores the gate to `gates` ([TILE][HID]) and
+// scales the value by `post`. dst may be X itself.
+template <int EPI>
+__device__ void wide_layer(float* X, int K, const uint2* __restrict__ W,
+                           const float* __restrict__ b, float post, float* gates,
+                           float* dst, int ld) {
+  tile_product<HID>(X, K, W, [&](int r, int c, float acc) {
+    const float a = acc + b[c];
+    float v;
+    if (EPI == EPI_SOFTPLUS) {
+      const float sp = softplus100(a);
+      gates[r * HID + c] = 1.f - expf(-100.f * sp);
+      v = sp * post;
+    } else if (EPI == EPI_RELU) {
+      v = fmaxf(a, 0.f);
+    } else {
+      v = a;
+    }
+    dst[r * ld + c] = v;
+  });
+}
+
+// out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out (W: f32
+// row-major [n_out, K]), summed in f32.
 __device__ void narrow_layer(const float* X, int K, int n_out, const float* __restrict__ W,
                              const float* __restrict__ b, float* out, int ld_out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < TILE; r += THREADS / 32) {
     for (int j = 0; j < n_out; ++j) {
       float s = 0.f;
-      for (int k = lane; k < K; k += 32) s = fmaf(X[r * LDX + k], __ldg(W + j * K + k), s);
+      for (int k = lane; k < K; k += 32)
+        s = fmaf(round_bf16(X[r * LDX + k]), round_bf16(__ldg(W + j * K + k)), s);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0) out[r * ld_out + j] = s + b[j];
@@ -149,33 +271,23 @@ __device__ void narrow_layer(const float* X, int K, int n_out, const float* __re
 }
 
 // One reverse layer: X[:, :256] holds q_l = d raw / d (layer l output) times
-// its gate; p = q_l @ W_l^T (WT row-major [256, 32 JN]) is the cotangent of
-// layer l's input. Its hidden part, times 1/sqrt(2) at the skip layer and
-// times the gate of layer l - 1, becomes q_{l-1} in X; its PE part (the skip
-// layer's last 48 columns, or all of layer 0's) adds to EG.
-template <int JN>
-__device__ void reverse_layer(const Tile& t, const float* __restrict__ WT, bool is_skip,
-                              bool is_first, const float* gates_prev) {
-  float acc[8][JN];
-  mlp::tile_matmul_f32<JN>(t.X, LDX, HID, WT, acc);
-  __syncthreads();
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < JN; ++j) {
-      const int r = rg * 8 + i, c = cg + 32 * j;
-      const float v = acc[i][j];
-      if (is_first) {
-        if (c < EMB) t.EG[r * EMB + c] += v;
-      } else if (c < HID) {
-        const float p = is_skip ? v * INV_SQRT2 : v;
-        t.X[r * LDX + c] = p * gates_prev[r * HID + c];
-      } else if (c < HID + EMB) {
-        t.EG[r * EMB + c - HID] += v * INV_SQRT2;
-      }
+// its gate; p = q_l @ W_l^T (WT: the fragment-ordered [256, K] transpose)
+// is the cotangent of layer l's input. Its hidden part, times 1/sqrt(2) at
+// the skip layer and times the gate of layer l - 1, becomes q_{l-1} in X;
+// its PE part (the skip layer's last 48 columns, or all of layer 0's) adds
+// to EG.
+__device__ void reverse_layer(const Tile& t, const uint2* __restrict__ WT, int K, bool is_skip,
+                              const float* gates_prev) {
+  product_any(t.X, HID, WT, K, [&](int r, int c, float v) {
+    if (K == EMB) {
+      t.EG[r * EMB + c] += v;
+    } else if (c < HID) {
+      const float p = is_skip ? v * INV_SQRT2 : v;
+      t.X[r * LDX + c] = p * gates_prev[r * HID + c];
+    } else {
+      t.EG[r * EMB + c - HID] += v * INV_SQRT2;
     }
-  __syncthreads();
+  });
 }
 
 // X[:, col0 : col0 + EMB] = [pts, grad, PE(dirs) (dv columns), 0 ...]
@@ -206,6 +318,11 @@ __device__ __forceinline__ void pe_row(const Params& p, const Tile& t, int r, fl
   for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[r * 3 + j], p.scale);
 }
 
+// The input width of SDF layer l (l < n_sdf - 1).
+__device__ __forceinline__ int sdf_k(const Params& p, int l) {
+  return l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+}
+
 // The forward of the tile whose points and view dirs the caller has put in
 // t.P3 / t.D3 (zeros for a padding point; a barrier after), leaving sdf,
 // grad, gc, relit and delta in t.S1/G3/GC/RL/DL and the gates and features
@@ -215,6 +332,7 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
                              const Save& sv) {
   const int tid = threadIdx.x;
   const float* W = p.w;
+  const uint2* WB = p.wb;
   // SDF PE: X[:, :48] = PE(p * scale)
   for (int e = tid; e < TILE * EMB; e += THREADS) {
     const int r = e / EMB, c = e % EMB;
@@ -226,10 +344,10 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
 
   // ---- SDF forward, gates to the scratch ----
   for (int l = 0; l < p.n_sdf - 1; ++l) {
-    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
     if (SAVE) save_cols(t.X, K, sv.sx + l * SLAB);
-    wide_layer<EPI_SOFTPLUS>(t.X, K, W + p.off[W_SDF + l], W + p.off[B_SDF + l],
+    wide_layer<EPI_SOFTPLUS>(t.X, K, WB + p.boff[W_SDF + l], W + p.off[B_SDF + l],
                              pre_skip ? INV_SQRT2 : 1.f, gates + l * GSLAB, t.X, LDX);
     if (pre_skip) {
       for (int e = tid; e < TILE * EMB; e += THREADS) {
@@ -244,24 +362,21 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
   // last layer: raw sdf (row 0) and the features (rows 1..256)
   if (SAVE) save_cols(t.X, HID, sv.sx + (p.n_sdf - 1) * SLAB);
   narrow_layer(t.X, HID, 1, W + p.off[W_LAST], W + p.off[B_LAST], t.S1, 1);
-  wide_layer<EPI_NONE>(t.X, HID, W + p.off[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat, HID);
+  wide_layer<EPI_NONE>(t.X, HID, WB + p.boff[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat,
+                       HID);
 
-  // ---- reverse sweep: q = W_last[0, :] * gate of the last hidden layer ----
+  // ---- reverse sweep: q = W_last[0, :] (in bf16) * gate of the last hidden layer ----
   const float* wl = W + p.off[W_LAST];
   const float* g_last = gates + size_t(p.n_sdf - 2) * GSLAB;
   for (int e = tid; e < TILE * HID; e += THREADS) {
     const int r = e / HID, c = e % HID;
-    t.X[r * LDX + c] = wl[c] * g_last[r * HID + c];
+    t.X[r * LDX + c] = round_bf16(wl[c]) * g_last[r * HID + c];
   }
   for (int e = tid; e < TILE * EMB; e += THREADS) t.EG[e] = 0.f;
   __syncthreads();
-  for (int l = p.n_sdf - 2; l >= 0; --l) {
-    const float* WT = W + p.off[WT_SDF + l];
-    const float* gp = l > 0 ? gates + size_t(l - 1) * GSLAB : nullptr;
-    if (l == 0) reverse_layer<2>(t, WT, false, true, gp);
-    else if (l == p.skip) reverse_layer<10>(t, WT, true, false, gp);
-    else reverse_layer<8>(t, WT, false, false, gp);
-  }
+  for (int l = p.n_sdf - 2; l >= 0; --l)
+    reverse_layer(t, WB + p.boff[WT_SDF + l], sdf_k(p, l), l == p.skip,
+                  l > 0 ? gates + size_t(l - 1) * GSLAB : nullptr);
   // PE pullback: grad_j = sum_c EG_c d emb_c / d (p_j scale) (the scale
   // of the PE and the 1/scale of the sdf cancel)
   if (tid < TILE) {
@@ -288,8 +403,8 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
   for (int l = 0; l < p.n_color - 1; ++l) {
     const int K = l == 0 ? HID + EMB : HID;
     if (SAVE) save_cols(t.X, K, sv.cx + l * SLAB);
-    wide_layer<EPI_RELU>(t.X, K, W + p.off[W_COL + l], W + p.off[B_COL + l], 1.f, nullptr, t.X,
-                         LDX);
+    wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_COL + l], W + p.off[B_COL + l], 1.f, nullptr,
+                         t.X, LDX);
   }
   if (SAVE) save_cols(t.X, HID, sv.cx + (p.n_color - 1) * SLAB);
   narrow_layer(t.X, HID, 3, W + p.off[W_COL + p.n_color - 1], W + p.off[B_COL + p.n_color - 1],
@@ -309,7 +424,7 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
     for (int l = 0; l < p.n_relight - 1; ++l) {
       const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
       if (SAVE) save_cols(t.X, K, sv.rx + l * SLAB);
-      wide_layer<EPI_RELU>(t.X, K, W + p.off[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
+      wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
                            t.X, LDX);
     }
     const int last = p.n_relight - 1;
@@ -351,55 +466,77 @@ __device__ void carve_fwd(Tile& t, unsigned char* smem) {
 // Backward
 // ------------------------------------------------------------------------
 
-// P[k][c] += sum_r S[r][k] A[r][c] (+ S2[r][k] A2[r][c]) for k < K, c < 256:
-// a layer's weight grad over the tile, added into the block's partial
-// (row-major [K, 256], the packed [in, out] layout). S, S2: stored layer
-// inputs in the scratch ([TILE][LDS]; each warp reads 8 consecutive k of
-// one row, a broadcast float4 pair); A, A2: output cotangents in shared
-// memory (row stride LDX). K is a multiple of 8, so a warp's rows are all
-// in range or all out.
-template <bool TWO>
+// P[k][c] += sum_r S[r][k] A[r][c] (+ S2[r][k] A2[r][c]) for k < K (a
+// multiple of 16), c < 256: a layer's weight grad over the tile, added into
+// the block's partial (row-major [K, 256], the packed [in, out] layout). S,
+// S2: stored layer inputs in the scratch ([TILE][LDS]); A, A2: output
+// cotangents in shared memory (row stride LDX). On the tensor cores with M
+// = k, N = c and the 64 points as depth, both operands rounded to bf16;
+// SPLIT takes S and S2 as hi + lo bf16 pairs (two passes, layer 0). Per
+// 64-row chunk of k, warp w owns rows 32 (w % 2) .. + 32 (2 m-tiles) and
+// columns 64 (w / 2) .. + 64 (8 n-tiles).
+template <bool TWO, bool SPLIT>
 __device__ void dw_accum(const float* S, const float* A, const float* S2, const float* A2, int K,
                          float* P) {
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c0 = 64 * (warp >> 1);
   for (int k0 = 0; k0 < K; k0 += 64) {
-    const int kr = k0 + rg * 8;
-    if (kr >= K) continue;
-    float acc[8][8];
+    const int kw = k0 + 32 * (warp & 1);
+    const int mt = min(2, (K - kw) / 16);   // m-tiles of the warp in range
+    if (mt <= 0) continue;
+    float acc[2][8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-    for (int r = 0; r < TILE; ++r) {
-      float a[8], b[8];
-      const float4* s4 = reinterpret_cast<const float4*>(S + r * LDS + kr);
-      const float4 lo = s4[0], hi = s4[1];
-      a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
-      a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = A[r * LDX + cg + 32 * j];
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    for (int src = 0; src < (TWO ? 2 : 1); ++src) {
+      const float* Sx = src ? S2 : S;
+      const float* Ax = src ? A2 : A;
+      for (int r0 = 0; r0 < TILE; r0 += 16) {
+        // B: k rows (points) r0 + 2t + {0, 1, 8, 9}, column (output) c0 + 8 j + g
+        unsigned b[8][2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int j = 0; j < 8; ++j) {
+          const float* col = Ax + (r0 + 2 * t) * LDX + c0 + 8 * j + g;
+          b[j][0] = pack_bf16(col[0], col[LDX]);
+          b[j][1] = pack_bf16(col[8 * LDX], col[9 * LDX]);
+        }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      if (TWO) {
-        const float4* u4 = reinterpret_cast<const float4*>(S2 + r * LDS + kr);
-        const float4 ulo = u4[0], uhi = u4[1];
-        a[0] = ulo.x; a[1] = ulo.y; a[2] = ulo.z; a[3] = ulo.w;
-        a[4] = uhi.x; a[5] = uhi.y; a[6] = uhi.z; a[7] = uhi.w;
+        for (int i = 0; i < 2; ++i) {
+          if (i >= mt) break;
+          // A: rows (inputs) kw + 16 i + g (+ 8), columns (points) r0 + 2t + {0, 1, 8, 9}
+          const float* s = Sx + (r0 + 2 * t) * LDS + kw + 16 * i + g;
+          const float v[8] = {s[0], s[LDS], s[8], s[LDS + 8],
+                              s[8 * LDS], s[9 * LDS], s[8 * LDS + 8], s[9 * LDS + 8]};
+          unsigned a[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = A2[r * LDX + cg + 32 * j];
+          for (int h = 0; h < 4; ++h) a[h] = pack_bf16(v[2 * h], v[2 * h + 1]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+          for (int j = 0; j < 8; ++j) mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j][0], b[j][1]);
+          if (SPLIT) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+            for (int h = 0; h < 4; ++h)
+              a[h] = pack_bf16(v[2 * h] - round_bf16(v[2 * h]),
+                               v[2 * h + 1] - round_bf16(v[2 * h + 1]));
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j][0], b[j][1]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 2; ++i) {
+      if (i >= mt) break;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) P[size_t(kr + i) * HID + cg + 32 * j] += acc[i][j];
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          P[size_t(kw + 16 * i + g + 8 * (q >> 1)) * HID + c0 + 8 * j + 2 * t + (q & 1)] +=
+              acc[i][j][q];
+    }
   }
 }
 
@@ -411,41 +548,17 @@ __device__ void bias_accum(const float* A, float* P) {
   P[c] += s;
 }
 
-// The reverse of a layer with 256 outputs: xbar = A[:, :256] @ W^T (WT
-// row-major [256, 32 JN]); put(r, c, xbar[r][c]) for c < K after a barrier,
-// so put may overwrite A.
-template <int JN, class F>
-__device__ void reverse_wide(const float* A, const float* __restrict__ WT, int K, F&& put) {
-  float acc[8][JN];
-  mlp::tile_matmul_f32<JN>(A, LDX, HID, WT, acc);
-  __syncthreads();
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < JN; ++j) {
-      const int c = cg + 32 * j;
-      if (c < K) put(rg * 8 + i, c, acc[i][j]);
-    }
-  __syncthreads();
-}
-
-template <class F>
-__device__ void reverse_any(const float* A, const float* __restrict__ WT, int K, F&& put) {
-  if (K == EMB) reverse_wide<2>(A, WT, K, put);
-  else if (K == HID) reverse_wide<8>(A, WT, K, put);
-  else reverse_wide<10>(A, WT, K, put);
-}
-
-// The reverse of a 3-wide output layer (W row-major [3, K], input S in the
-// scratch): dW += HB^T S, db += sum HB, X[:, :K] = HB @ W.
+// The reverse of a 3-wide output layer (W row-major [3, K] in f32, input S
+// in the scratch), operands in bf16, sums in f32: dW += HB^T S, db += sum
+// HB, X[:, :K] = HB @ W.
 __device__ void narrow_back(const Tile& t, const float* S, const float* __restrict__ W, int K,
                             float* Pw, float* Pb) {
   const int tid = threadIdx.x;
   for (int e = tid; e < 3 * K; e += THREADS) {
     const int j = e / K, k = e % K;
     float s = 0.f;
-    for (int r = 0; r < TILE; ++r) s = fmaf(t.HB[r * 3 + j], S[r * LDS + k], s);
+    for (int r = 0; r < TILE; ++r)
+      s = fmaf(round_bf16(t.HB[r * 3 + j]), round_bf16(S[r * LDS + k]), s);
     Pw[e] += s;
   }
   if (tid < 3) {
@@ -457,7 +570,8 @@ __device__ void narrow_back(const Tile& t, const float* S, const float* __restri
     const int r = e / K, k = e % K;
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) s = fmaf(t.HB[r * 3 + j], __ldg(W + j * K + k), s);
+    for (int j = 0; j < 3; ++j)
+      s = fmaf(round_bf16(t.HB[r * 3 + j]), round_bf16(__ldg(W + j * K + k)), s);
     t.X[r * LDX + k] = s;
   }
   __syncthreads();
@@ -492,7 +606,9 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
                               const Save& sv, float* us, float* P) {
   const int tid = threadIdx.x;
   const float* W = p.w;
+  const uint2* WB = p.wb;
   const long long* off = p.off;
+  const long long* boff = p.boff;
   const float inv_scale = 1.f / p.scale;
 
   for (int e = tid; e < TILE * 3; e += THREADS) {
@@ -539,9 +655,9 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
       const float* rx = sv.rx + l * SLAB;
-      dw_accum<false>(rx, t.X, nullptr, nullptr, K, P + off[W_REL + l]);
+      dw_accum<false, false>(rx, t.X, nullptr, nullptr, K, P + off[W_REL + l]);
       bias_accum(t.X, P + off[B_REL + l]);
-      reverse_any(t.X, W + off[WT_REL + l], K, [&](int r, int c, float v) {
+      product_any(t.X, HID, WB + boff[WT_REL + l], K, [&](int r, int c, float v) {
         if (l == 0) {   // [pts, grad, PE(dirs)]
           if (c < 3) t.PH[r * 3 + c] += v;
           else if (c < 6) t.GH[r * 3 + c - 3] += v;
@@ -579,9 +695,9 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? HID + EMB : HID;
       const float* cx = sv.cx + l * SLAB;
-      dw_accum<false>(cx, t.X, nullptr, nullptr, K, P + off[W_COL + l]);
+      dw_accum<false, false>(cx, t.X, nullptr, nullptr, K, P + off[W_COL + l]);
       bias_accum(t.X, P + off[B_COL + l]);
-      reverse_any(t.X, W + off[WT_COL + l], K, [&](int r, int c, float v) {
+      product_any(t.X, HID, WB + boff[WT_COL + l], K, [&](int r, int c, float v) {
         if (l > 0) {
           t.X[r * LDX + c] = cx[r * LDS + c] > 0.f ? v : 0.f;
         } else if (c < HID) {   // [features | pts, grad, PE(dirs)]
@@ -612,28 +728,21 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
   }
   __syncthreads();
   for (int l = 0; l < p.n_sdf - 1; ++l) {
-    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
     save_cols(t.Y, K, us + l * SLAB);
-    float acc[8][8];
-    mlp::tile_matmul_f32<8>(t.Y, LDX, K, W + off[W_SDF + l], acc);
-    __syncthreads();
     const float* g = gates + l * GSLAB;
     float* z = zt + l * GSLAB;
-    const int cg = tid & 31, rg = tid >> 5;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = rg * 8 + i, c = cg + 32 * j;
-        z[r * HID + c] = acc[i][j];
-        const float v = g[r * HID + c] * acc[i][j];
-        t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
-      }
-    if (pre_skip)
+    tile_product<HID>(t.Y, K, WB + boff[W_SDF + l], [&](int r, int c, float acc) {
+      z[r * HID + c] = acc;
+      const float v = g[r * HID + c] * acc;
+      t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
+    });
+    if (pre_skip) {
       for (int e = tid; e < TILE * EMB; e += THREADS)
         t.Y[(e / EMB) * LDX + HID + e % EMB] = t.V0[e] * INV_SQRT2;
-    __syncthreads();
+      __syncthreads();
+    }
   }
 
   // ---- the last SDF layer: ybar = [sdf_hat / scale, feat_hat], tangent
@@ -642,23 +751,30 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     const int L1 = p.n_sdf - 1;
     const float* sx = sv.sx + L1 * SLAB;
     {
+      // the sdf row: bf16 products, and the rank-1 tangent term in f32
       const int k = tid;   // THREADS == HID
-      float s = 0.f;
-      for (int r = 0; r < TILE; ++r)
-        s += t.CT[r * 16] * inv_scale * sx[r * LDS + k] + inv_scale * t.Y[r * LDX + k];
-      P[off[W_LAST] + k] += s;
+      float s = 0.f, u = 0.f;
+      for (int r = 0; r < TILE; ++r) {
+        s = fmaf(round_bf16(t.CT[r * 16] * inv_scale), round_bf16(sx[r * LDS + k]), s);
+        u += t.Y[r * LDX + k];
+      }
+      P[off[W_LAST] + k] += s + inv_scale * u;
       if (tid == 0) {
         float sb = 0.f;
         for (int r = 0; r < TILE; ++r) sb += t.CT[r * 16] * inv_scale;
         P[off[B_LAST]] += sb;
       }
     }
-    dw_accum<false>(sx, t.X, nullptr, nullptr, HID, P + off[W_FEAT]);
+    dw_accum<false, false>(sx, t.X, nullptr, nullptr, HID, P + off[W_FEAT]);
     bias_accum(t.X, P + off[B_FEAT]);
     const float* wl = W + off[W_LAST];
-    reverse_wide<8>(t.X, W + off[WT_FEAT], HID, [&](int r, int c, float v) {
-      t.X[r * LDX + c] = fmaf(t.CT[r * 16] * inv_scale, wl[c], v);
-      t.Y[r * LDX + c] = inv_scale * wl[c];
+    // the tangent cotangent: JAX's bf16 weight row times 1/scale cast to
+    // bf16, rounded to bf16
+    const float inv_scale_bf = round_bf16(inv_scale);
+    tile_product<HID>(t.X, HID, WB + boff[WT_FEAT], [&](int r, int c, float v) {
+      const float w = round_bf16(wl[c]);
+      t.X[r * LDX + c] = fmaf(round_bf16(t.CT[r * 16] * inv_scale), w, v);
+      t.Y[r * LDX + c] = round_bf16(w * inv_scale_bf);
     });
   }
 
@@ -668,7 +784,7 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     t.VH[e] = 0.f;
   }
   for (int l = p.n_sdf - 2; l >= 0; --l) {
-    const int K = l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
+    const int K = sdf_k(p, l);
     const bool is_skip = l == p.skip;
     const float* g = gates + l * GSLAB;
     const float* z = zt + l * GSLAB;
@@ -680,18 +796,21 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
       t.Y[r * LDX + c] = gg * ub;
     }
     __syncthreads();
-    dw_accum<true>(sv.sx + l * SLAB, t.X, us + l * SLAB, t.Y, K, P + off[W_SDF + l]);
+    if (l == 0)
+      dw_accum<true, true>(sv.sx, t.X, us, t.Y, K, P + off[W_SDF]);
+    else
+      dw_accum<true, false>(sv.sx + l * SLAB, t.X, us + l * SLAB, t.Y, K, P + off[W_SDF + l]);
     bias_accum(t.X, P + off[B_SDF + l]);
-    const float* WT = W + off[WT_SDF + l];
+    const uint2* WT = WB + boff[WT_SDF + l];
     // hbar and ubar of layer l's input: the hidden part stays in X / Y, the
     // PE part (the skip layer's last 48 columns, or all of layer 0's) adds
     // to emb_hat / v0_hat
-    reverse_any(t.X, WT, K, [&](int r, int c, float v) {
+    product_any(t.X, HID, WT, K, [&](int r, int c, float v) {
       if (l == 0) t.EG[r * EMB + c] += v;
       else if (c < HID) t.X[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
       else t.EG[r * EMB + c - HID] += v * INV_SQRT2;
     });
-    reverse_any(t.Y, WT, K, [&](int r, int c, float v) {
+    product_any(t.Y, HID, WT, K, [&](int r, int c, float v) {
       if (l == 0) t.VH[r * EMB + c] += v;
       else if (c < HID) t.Y[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
       else t.VH[r * EMB + c - HID] += v * INV_SQRT2;
@@ -766,14 +885,15 @@ cudaError_t max_blocks(K kernel, size_t smem, int* n_blocks) {
   return e;
 }
 
-Params make_params(const float* pts, const float* dirs, const float* w, long long n_pts,
-                   int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
-                   int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-                   const long long* off) {
+Params make_params(const float* pts, const float* dirs, const float* w, const void* wb,
+                   long long n_pts, int n_sdf, int skip, int d0, float scale, int n_color,
+                   int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+                   const long long* off, const long long* boff) {
   Params p{};
   p.pts = pts;
   p.dirs = dirs;
   p.w = w;
+  p.wb = static_cast<const uint2*>(wb);
   p.n_pts = n_pts;
   p.n_sdf = n_sdf;
   p.skip = skip;
@@ -786,7 +906,10 @@ Params make_params(const float* pts, const float* dirs, const float* w, long lon
   p.rl_dv = rl_dv;
   p.y_in = y_in;
   p.inv_sigmoid = inv_sigmoid;
-  for (int i = 0; i < N_OFF; ++i) p.off[i] = off[i];
+  for (int i = 0; i < N_OFF; ++i) {
+    p.off[i] = off[i];
+    p.boff[i] = boff[i];
+  }
   return p;
 }
 

@@ -30,11 +30,13 @@
 // the Color-NeuS widths; backward ~4.8 M: one recompute and the pullback;
 // ray_march.march_macs_per_point counts them from the real widths) against
 // ~36 bytes of input and output per point each way (z and the stash):
-// bound by operations, f32 FMA at 67 TFLOP/s. The compositing is ~50 flops
-// per point.
+// bound by operations, bf16 tensor-core MMA at 989 TFLOP/s (the products
+// are the TPU kernels' bf16 ones, point_pipeline_tile.cuh). The compositing
+// is ~50 flops per point, in f32.
 //
-// Design (simple and exact f32 first, built on the tile functions of rows 5
-// and 6, point_pipeline_tile.cuh). A block owns a group of whole rays: one
+// Design (built on the tile functions of rows 5 and 6,
+// point_pipeline_tile.cuh, with their tensor-core products). A block owns a
+// group of whole rays: one
 // ray when S >= 64, else max(1, 64 / S) rays packed into one tile, so a
 // ray's samples never straddle two blocks. The group's points are cut into
 // 64-point tiles (S = 128: two tiles per ray); a padding point past the
@@ -334,12 +336,13 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
 }
 
 March make_march(const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-                 const float* w, long long n_rays, int S, float sample_dist, int n_sdf, int skip,
-                 int d0, float scale, int n_color, int color_dv, int squeeze, int n_relight,
-                 int rl_dv, int y_in, int inv_sigmoid, const long long* off) {
+                 const float* w, const void* wb, long long n_rays, int S, float sample_dist,
+                 int n_sdf, int skip, int d0, float scale, int n_color, int color_dv, int squeeze,
+                 int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
+                 const long long* boff) {
   March m{};
-  m.net = make_params(nullptr, nullptr, w, 0, n_sdf, skip, d0, scale, n_color, color_dv, squeeze,
-                      n_relight, rl_dv, y_in, inv_sigmoid, off);
+  m.net = make_params(nullptr, nullptr, w, wb, 0, n_sdf, skip, d0, scale, n_color, color_dv,
+                      squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
   m.rays_o = rays_o;
   m.rays_d = rays_d;
   m.z = z;
@@ -380,20 +383,21 @@ extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int n_color, int n_
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
-// launch; none synchronises. `off` is a host array of the offset table,
-// `inv_s` a device pointer to one float. Forward: out [R, 16], stash [R S,
+// launch; none synchronises. `w` / `wb`: the packed f32 weights and the
+// bf16 fragment-ordered blocks, `off` / `boff` host arrays of their offset
+// tables, `inv_s` a device pointer to one float. Forward: out [R, 16], stash [R S,
 // 8], scratch n_blocks x ray_march_fwd_scratch_floats floats.
 extern "C" int ray_march_fwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, float* out, float* stash, float* scratch, long long n_rays, int S,
-    float sample_dist, int n_blocks, int n_sdf, int skip, int d0, float scale, int n_color,
-    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, int n_off, void* stream) {
+    const float* w, const void* wb, float* out, float* stash, float* scratch, long long n_rays,
+    int S, float sample_dist, int n_blocks, int n_sdf, int skip, int d0, float scale,
+    int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* boff, int n_off, void* stream) {
   if (n_rays <= 0) return 0;
   if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  March m = make_march(rays_o, rays_d, z, inv_s, w, n_rays, S, sample_dist, n_sdf, skip, d0,
+  March m = make_march(rays_o, rays_d, z, inv_s, w, wb, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off);
+                       off, boff);
   m.out = out;
   m.stash = stash;
   m.net.scratch = scratch;
@@ -411,16 +415,16 @@ extern "C" int ray_march_fwd_launch(
 // ray_march_bwd_scratch_floats floats.
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const float* stash, const float* gbar, float* rays_hat, float* partial,
-    float* scratch, long long n_rays, int S, float sample_dist, int n_blocks, long long n_grad,
-    int n_sdf, int skip, int d0, float scale, int n_color, int color_dv, int squeeze,
-    int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off, int n_off,
-    void* stream) {
+    const float* w, const void* wb, const float* stash, const float* gbar, float* rays_hat,
+    float* partial, float* scratch, long long n_rays, int S, float sample_dist, int n_blocks,
+    long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
+    int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
+    const long long* boff, int n_off, void* stream) {
   if (n_rays <= 0) return 0;
   if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  March m = make_march(rays_o, rays_d, z, inv_s, w, n_rays, S, sample_dist, n_sdf, skip, d0,
+  March m = make_march(rays_o, rays_d, z, inv_s, w, wb, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off);
+                       off, boff);
   m.stash = const_cast<float*>(stash);
   m.gbar = gbar;
   m.rays_hat = rays_hat;

@@ -38,6 +38,16 @@ renderer keys tune code the port does not have yet: renderer_config_from_cfg
 raises NotImplementedError when one of the training path's is set to
 anything but its default, and skips N (the mesh block size, mc_block,
 which the port's chunked grid does not read).
+
+The point-pipeline and march kernels (fused_core / fused_march on, the
+vertex colours, the validation render) compute the TPU kernels'
+production arithmetic of the default MARCH_BWD_PRECISION f32stash: bf16
+products with f32 sums, f32 gates and stores, layer 0's weight grad in
+hi + lo bf16 passes (ops/kernels/point_pipeline.py, bf16=True). Their
+positional encoding is exact f32, which is JAX's THIN_DOTS vpu
+arithmetic; the default THIN_DOTS hilo splits the phase's operand into two
+bf16 passes instead, within 2^-17 of it. MARCH_BWD_PRECISION f32 and bf16
+and THIN_DOTS other than hilo raise NotImplementedError (ROADMAP).
 """
 
 from __future__ import annotations

@@ -12,11 +12,14 @@ Forward, two implementations of one function:
     csrc/point_pipeline.cu (its source note gives the bound and the
     design). Runs for CUDA tensors, counts its launches in
     launch_point_pipeline.launches, raises on any build or launch failure.
-  * point_pipeline_plain: the same arithmetic in plain PyTorch: the
+  * point_pipeline_plain: the same function in plain PyTorch: the
     forward keeps the softplus gates g = 1 - exp(-100 softplus(a)), one
     reverse sweep takes the gradient, then the colour and relight nets.
     Runs for CPU tensors, and is what tests and chip_smoke.py compare the
-    kernel against.
+    kernel against. Its `bf16` flag is the JAX kernels' own (bf16 = not
+    interpret): True rounds every product's operands to bf16 and sums in
+    f32, the kernel's arithmetic and the TPU's production one; False (the
+    default) computes in f32, JAX's interpret arithmetic.
 fused_point_pipeline_fwd picks between them by the device of the
 tensors it is given, and by nothing else; no gradient flows through it.
 
@@ -27,7 +30,8 @@ Backward (the VJP of the five outputs), two implementations likewise:
     summed per block, then over blocks in a fixed order). Counts its
     launches in launch_point_pipeline_bwd.launches.
   * point_pipeline_bwd_plain: the same pullback in plain PyTorch, in the
-    nets' own layouts and at any width (not autograd).
+    nets' own layouts and at any width (not autograd), with the same
+    `bf16` flag.
 fused_point_pipeline_bwd picks between them by device likewise.
 fused_point_pipeline(params, rcfg, pts, dirs) is the differentiable
 entry: PointPipelineFunction, forward = the forward above, backward = the
@@ -67,9 +71,10 @@ _MAX_BLOCKS: dict = {}   # (device, entry) -> blocks resident at once (sizes the
 class PipelineWeights:
     """Weight-norm-resolved weights of the three nets, (w [out, in], b [out])
     per layer in the networks' own widths; packed / off: the kernel's f32
-    buffer and its offset table (None for CPU weights); n_grad: the length
-    of the buffer's prefix that holds every block a gradient flows to (the
-    transposed copies come after it)."""
+    buffer and its offset table (None for CPU weights); n_grad: its length,
+    the gradient layout; frags / boff: the bf16 weight blocks of the
+    256-wide layers and their transposes in mma fragment order, and their
+    offset table (8-byte units)."""
     rcfg: RendererConfig
     sdf: list
     color: list
@@ -77,6 +82,8 @@ class PipelineWeights:
     packed: torch.Tensor | None = None
     off: np.ndarray | None = None
     n_grad: int = 0
+    frags: torch.Tensor | None = None
+    boff: np.ndarray | None = None
 
 
 def _color_dv(rcfg: RendererConfig) -> int:
@@ -115,36 +122,29 @@ def _check_kernel_shape(rcfg: RendererConfig):
     return d0, (skips[0] if skips else -1), n_sdf
 
 
-def _pack(pw: PipelineWeights):
-    """The kernel's f32 buffer, its offset table and the length of its
-    gradient prefix (see csrc/point_pipeline.cu). First, every block a
-    gradient flows to: SDF hidden layers as [K, 256] ([in, out]; K = 48
-    for the PE layer, 256 + 48 for the skip layer's [h, emb], else 256);
-    the last SDF layer as its sdf row [256] and the features [256, 256]
-    ([in, out]); colour layer 0 as [features 256 | pts, grad, PE(dirs)] x
-    256; relight layer 0 as [pts, grad, PE(dirs)] x 256 and the y_in layer
-    as [h 256 | gc] x out; hidden layers [256, 256]; the last colour /
-    relight layer row-major [3, K]. Then the transposed copies the reverse
-    products read: every [K, 256] block above as [256, K padded to 32], and
-    the features as [256 out, 256 in]. Zero padding keeps the math exact:
-    padded inputs meet zero weight rows."""
+def _layout(pw: PipelineWeights):
+    """The kernel's weight blocks: ([(slot, block)] of the f32 buffer in
+    its order, [(W slot, WT slot, block)] of the 256-wide layers). The f32
+    buffer holds every block a gradient flows to: SDF hidden layers as [K,
+    256] ([in, out]; K = 48 for the PE layer, 256 + 48 for the skip layer's
+    [h, emb], else 256); the last SDF layer as its sdf row [256] and the
+    features [256, 256] ([in, out]); colour layer 0 as [features 256 | pts,
+    grad, PE(dirs)] x 256; relight layer 0 as [pts, grad, PE(dirs)] x 256
+    and the y_in layer as [h 256 | gc] x out; hidden layers [256, 256]; the
+    last colour / relight layer row-major [3, K]. Zero padding keeps the
+    math exact: padded inputs meet zero weight rows."""
     rcfg = pw.rcfg
     d0, skip, n_sdf = _check_kernel_shape(rcfg)
     dev = pw.sdf[0][0].device
-    blocks, late, off, pos = [], [], np.zeros(N_OFF, np.int64), [0]
+    blocks, wide = [], []
 
     def put(slot, t):
-        off[slot] = pos[0]
-        t = t.reshape(-1).float()
-        blocks.append(t)
-        pos[0] += t.numel()
+        blocks.append((slot, t))
 
-    def put_t(slot, wp):
-        # [K, 256] -> [256, K padded to 32], placed after the gradient prefix
-        K = wp.shape[0]
-        wtp = z(HID, (K + 31) // 32 * 32)
-        wtp[:, :K] = wp.T
-        late.append((slot, wtp))
+    def put_wide(w_slot, wt_slot, wp):
+        # a [K, 256] block of a 256-wide layer; the reverse products read its
+        # transpose (wt_slot)
+        wide.append((w_slot, wt_slot, wp))
 
     def z(*shape):
         return torch.zeros(shape, device=dev)
@@ -169,14 +169,14 @@ def _pack(pw: PipelineWeights):
             wp = z(HID, HID)
             wp[:d_in, :d_out] = wt
         put(W_SDF + l, wp)
-        put_t(WT_SDF + l, wp)
+        put_wide(W_SDF + l, WT_SDF + l, wp)
         put(B_SDF + l, bias(b))
     w, b = pw.sdf[-1]
     put(W_LAST, w[0])
     put(B_LAST, b[:1])
     put(W_FEAT, w[1:].T)
     put(B_FEAT, b[1:])
-    late.append((WT_FEAT, w[1:]))
+    put_wide(W_FEAT, WT_FEAT, w[1:].T)
 
     dv = _color_dv(rcfg)
     n_color = len(pw.color)
@@ -197,7 +197,7 @@ def _pack(pw: PipelineWeights):
         put(W_COL + l, wp)
         put(B_COL + l, b if last else bias(b))
         if not last:
-            put_t(WT_COL + l, wp)
+            put_wide(W_COL + l, WT_COL + l, wp)
 
     if rcfg.kind == "color_neus":
         rl = rcfg.relight
@@ -225,11 +225,39 @@ def _pack(pw: PipelineWeights):
             put(W_REL + l, wp)
             put(B_REL + l, b if last else bias(b))
             if not last:
-                put_t(WT_REL + l, wp)
-    n_grad = pos[0]
-    for slot, t in late:
-        put(slot, t)
-    return torch.cat(blocks).contiguous(), off, n_grad
+                put_wide(W_REL + l, WT_REL + l, wp)
+    return blocks, wide
+
+
+def _frag(b: torch.Tensor) -> torch.Tensor:
+    """A [K, N] block (K a multiple of 16, N of 8) in mma.m16n8k16 B
+    fragment order, bf16: for each 16-row k-step and 8-column n-tile, 32
+    lanes x 4 values, lane 4 g + t holding rows 2t, 2t + 1, 2t + 8, 2t + 9
+    of column g (csrc/point_pipeline_tile.cuh, mma_tile)."""
+    K, N = b.shape
+    t = b.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(0, 4, 5, 2, 1, 3)
+    return t.reshape(-1).to(torch.bfloat16)
+
+
+def _pack(pw: PipelineWeights):
+    """The kernel's two weight buffers (see csrc/point_pipeline_tile.cuh):
+    (the f32 buffer, _layout's blocks flattened in order, its offset table
+    and its length, the gradient layout; the bf16 buffer, every 256-wide
+    layer's [K, 256] block and its [256, K] transpose in fragment order
+    (_frag), and its offset table in 8-byte units)."""
+    blocks, wide = _layout(pw)
+    off, pos, flat = np.zeros(N_OFF, np.int64), 0, []
+    for slot, t in blocks:
+        off[slot] = pos
+        flat.append(t.reshape(-1).float())
+        pos += flat[-1].numel()
+    boff, bpos, frags = np.zeros(N_OFF, np.int64), 0, []
+    for w_slot, wt_slot, wp in wide:
+        for slot, t in ((w_slot, wp), (wt_slot, wp.T)):
+            boff[slot] = bpos // 4
+            frags.append(_frag(t.float()))
+            bpos += frags[-1].numel()
+    return torch.cat(flat).contiguous(), off, pos, torch.cat(frags).contiguous(), boff
 
 
 def _unpack_grads(pw: PipelineWeights, packed_grad: torch.Tensor) -> dict:
@@ -315,7 +343,7 @@ def _make_weights(rcfg: RendererConfig, layers: dict) -> PipelineWeights:
         return [(w.detach().float(), b.detach().float()) for w, b in layers[name]]
     pw = PipelineWeights(rcfg, net("sdf"), net("color"), net("relight"))
     if pw.sdf[0][0].is_cuda:
-        pw.packed, pw.off, pw.n_grad = _pack(pw)
+        pw.packed, pw.off, pw.n_grad, pw.frags, pw.boff = _pack(pw)
     return pw
 
 
@@ -370,12 +398,44 @@ class _Stash:
     rs: list
 
 
-def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to the nearest bfloat16 (ties to even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _hilo(t: torch.Tensor) -> torch.Tensor:
+    """hi + lo of t's split into two bfloat16 (hi = bf16(t), lo = bf16(t -
+    hi)), summed exactly in t's dtype: what the layer-0 weight grad's two
+    bf16 passes see of its f32 operand (JAX _kdot_b_split)."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _operand(bf16: bool):
+    """The rounding of a product's operands: bf16 (the kernels' tensor-core
+    products, JAX's bf16=True dots) or none (f32, JAX's interpret mode)."""
+    return _bf16 if bf16 else (lambda t: t)
+
+
+def _rounded(pw: PipelineWeights, bf16: bool) -> PipelineWeights:
+    """pw with every weight matrix rounded to bf16 when bf16 (JAX
+    cast_kernel_weights; the biases stay f32), else pw itself."""
+    if not bf16:
+        return pw
+    return PipelineWeights(pw.rcfg, *[[(_bf16(w), b) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+
+
+def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: bool = False):
     """The plain forward, op for op the kernel's arithmetic (summed in
-    another order): returns the five outputs and the _Stash."""
+    another order): returns the five outputs and the _Stash. bf16: every
+    product rounds its operands to bf16 and sums in pts' dtype, as the CUDA
+    kernels and the TPU kernels do (f32: JAX's interpret arithmetic)."""
     rcfg = pw.rcfg
     s = rcfg.sdf
     n = pts.shape[0]
+    q = _operand(bf16)
+    pw = _rounded(pw, bf16)
     x = pts * s.scale
     emb = positional_encoding(x, s.multires)
     d0 = emb.shape[1]
@@ -384,7 +444,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
         if l in s.skip_in:
             h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
         xs.append(h)
-        a = h @ w.T + b
+        a = q(h) @ w.T + b
         if l < len(pw.sdf) - 1:
             h, g = _softplus100_and_gate(a)
             gates.append(g)
@@ -396,7 +456,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
     p = pw.sdf[-1][0][0].expand(n, -1)
     for l in range(len(pw.sdf) - 1, -1, -1):
         if l < len(pw.sdf) - 1:
-            p = (p * gates[l]) @ pw.sdf[l][0]
+            p = q(p * gates[l]) @ pw.sdf[l][0]
         if l in s.skip_in:
             emb_g = emb_g + p[:, -d0:] * _INV_SQRT2
             p = p[:, :-d0] * _INV_SQRT2
@@ -415,7 +475,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
     cs = []
     for l, (w, b) in enumerate(pw.color):
         cs.append(h)
-        h = h @ w.T + b
+        h = q(h) @ w.T + b
         if l < len(pw.color) - 1:
             h = torch.relu(h)
     gc = torch.sigmoid(h) if c.squeeze_out else h
@@ -434,7 +494,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
             if l == r.y_in_layer:
                 h = torch.cat([gc, h], dim=-1)
         stash.rs.append(h)
-        h = h @ w.T + b
+        h = q(h) @ w.T + b
     delta = h
     if r.inv_sigmoid:
         relit = torch.sigmoid(inverse_sigmoid(gc) + delta)
@@ -443,24 +503,31 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
     return (sdf, grad, gc, relit, delta), stash
 
 
-def point_pipeline_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor):
+def point_pipeline_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor,
+                         bf16: bool = False):
     """Plain PyTorch pipeline forward, the kernel's arithmetic op for op
-    (summed in another order)."""
+    (summed in another order); bf16 as _forward."""
     with torch.no_grad():
-        return _forward(pw, pts, dirs)[0]
+        return _forward(pw, pts, dirs, bf16)[0]
 
 
 def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor,
-                             cotangents):
+                             cotangents, bf16: bool = False):
     """Plain PyTorch VJP of the pipeline, the JAX kernel's pullback
     (_mlp_recompute + _mlp_pullback) op for op in the nets' own layouts.
     cotangents: those of (sdf, grad, gc, relit, delta). Returns (pts_hat
     [N,3], dirs_hat [N,3], {"sdf" / "color" / "relight": [(dW [out, in],
-    db [out]) per layer]})."""
+    db [out]) per layer]}). bf16: the TPU kernels' production arithmetic
+    (bf16 = not interpret, f32stash): every product rounds its operands to
+    bf16 and sums in pts' dtype, but for layer 0's weight grad, whose f32
+    operands (the PE and the tangent seed) go in as hi + lo bf16 pairs, and
+    the last layer's rank-1 tangent term, summed in f32."""
     rcfg = pw.rcfg
     s = rcfg.sdf
+    q = _operand(bf16)
     with torch.no_grad():
-        (_, _, gc, relit, delta), st = _forward(pw, pts, dirs)
+        (_, _, gc, relit, delta), st = _forward(pw, pts, dirs, bf16)
+        pw = _rounded(pw, bf16)
         sdf_hat, grad_hat, gc_hat, relit_hat, delta_hat = cotangents
         pts_hat = torch.zeros_like(pts)
         dirs_hat = torch.zeros_like(dirs)
@@ -470,8 +537,8 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
         def layer_back(net, l, x, hbar):
             """dW, db of layer l from its input x and output cotangent hbar;
             returns the input cotangent."""
-            grads[net][l] = (hbar.T @ x, hbar.sum(dim=0))
-            return hbar @ getattr(pw, net)[l][0]
+            grads[net][l] = (q(hbar).T @ q(x), hbar.sum(dim=0))
+            return q(hbar) @ getattr(pw, net)[l][0]
 
         # relit / relight
         if rcfg.kind == "color_neus":
@@ -535,14 +602,14 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
             if l in s.skip_in:
                 v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
             us.append(v)
-            zs.append(v @ pw.sdf[l][0].T)
+            zs.append(q(v) @ pw.sdf[l][0].T)
             v = st.gates[l] * zs[-1]
         if L - 1 in s.skip_in:
             v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
         # last layer: value cotangent ybar, tangent cotangent inv_scale e0
         w_last = pw.sdf[-1][0]
         ybar = torch.cat([sdf_hat * inv_scale, feat_hat], dim=-1)
-        dw = ybar.T @ st.xs[-1]
+        dw = q(ybar).T @ q(st.xs[-1])
         dw[0] += inv_scale * v.sum(dim=0)
         grads["sdf"][L - 1] = (dw, ybar.sum(dim=0))
         emb_hat = torch.zeros_like(slopes)
@@ -556,14 +623,19 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
                 return hbar[:, :-d0] * _INV_SQRT2, ubar[:, :-d0] * _INV_SQRT2
             return hbar, ubar
 
-        hbar, ubar = split(L - 1, ybar @ w_last, (inv_scale * w_last[0]).expand(pts.shape[0], -1))
+        # ubar: JAX multiplies its bf16 weight row by 1/scale cast to bf16,
+        # in bf16
+        inv_s = q(torch.tensor(inv_scale, dtype=pts.dtype, device=pts.device))
+        hbar, ubar = split(L - 1, q(ybar) @ w_last, q(inv_s * w_last[0]).expand(pts.shape[0], -1))
         for l in range(L - 2, -1, -1):
             g, z = st.gates[l], zs[l]
             abar = g * hbar + (ubar * z) * (100.0 * g * (1.0 - g))
             zbar = g * ubar
-            grads["sdf"][l] = (abar.T @ st.xs[l] + zbar.T @ us[l], abar.sum(dim=0))
+            xq = _hilo if bf16 and l == 0 else q
+            grads["sdf"][l] = (q(abar).T @ xq(st.xs[l]) + q(zbar).T @ xq(us[l]),
+                               abar.sum(dim=0))
             w = pw.sdf[l][0]
-            hbar, ubar = split(l, abar @ w, zbar @ w)
+            hbar, ubar = split(l, q(abar) @ w, q(zbar) @ w)
         emb_hat = emb_hat + hbar
         v0_hat = v0_hat + ubar
 
@@ -600,16 +672,17 @@ def _raise_on(lib, rc, what):
 
 
 def _net_args(pw: PipelineWeights):
-    """The kernel's network arguments, after the per-call ones."""
+    """The kernel's network arguments, after the per-call ones, and the
+    offset tables they point to (keep them alive through the call)."""
     d0, skip, n_sdf = _check_kernel_shape(pw.rcfg)
     rcfg = pw.rcfg
     kind_cn = rcfg.kind == "color_neus"
-    off = np.ascontiguousarray(pw.off, np.int64)
-    return off, (n_sdf, skip, d0, float(rcfg.sdf.scale), len(pw.color), _color_dv(rcfg),
-                 int(rcfg.color.squeeze_out), len(pw.relight),
-                 _relight_dv(rcfg) if kind_cn else 0,
-                 rcfg.relight.y_in_layer if kind_cn else -1, int(rcfg.relight.inv_sigmoid),
-                 off.ctypes.data, N_OFF)
+    tables = (np.ascontiguousarray(pw.off, np.int64), np.ascontiguousarray(pw.boff, np.int64))
+    return tables, (n_sdf, skip, d0, float(rcfg.sdf.scale), len(pw.color), _color_dv(rcfg),
+                    int(rcfg.color.squeeze_out), len(pw.relight),
+                    _relight_dv(rcfg) if kind_cn else 0,
+                    rcfg.relight.y_in_layer if kind_cn else -1, int(rcfg.relight.inv_sigmoid),
+                    tables[0].ctypes.data, tables[1].ctypes.data, N_OFF)
 
 
 def _check_inputs(pw: PipelineWeights, pts, dirs):
@@ -628,7 +701,7 @@ def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
     sdf, grad, gc, relit, delta, 0, 0, 0."""
     n, dev = _check_inputs(pw, pts, dirs)
     lib = _library()
-    off, net = _net_args(pw)
+    tables, net = _net_args(pw)
     out = torch.empty((n, 16), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -638,8 +711,8 @@ def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_fwd_launch(
-            pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n, grid, *net, stream)
+            pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), pw.frags.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n, grid, *net, stream)
     _raise_on(lib, rc, "kernel launch")
     launch_point_pipeline.launches += 1
     return out
@@ -671,7 +744,7 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
     n, dev = _check_inputs(pw, pts, dirs)
     _check("gbar", gbar, n, dev, 16)
     lib = _library()
-    off, net = _net_args(pw)
+    tables, net = _net_args(pw)
     pts_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     dirs_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
@@ -686,8 +759,8 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_bwd_launch(
             pts.data_ptr(), dirs.data_ptr(), gbar.data_ptr(), pw.packed.data_ptr(),
-            pts_hat.data_ptr(), dirs_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
-            n, grid, pw.n_grad, *net, stream)
+            pw.frags.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(), partial.data_ptr(),
+            scratch.data_ptr(), n, grid, pw.n_grad, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
     launch_point_pipeline_bwd.launches += 1
     return pts_hat, dirs_hat, reduce_partials(partial)
@@ -701,9 +774,9 @@ def _library():
     lib = build.load(KERNEL)
     if lib.point_pipeline_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        net = [i, i, i, f, i, i, i, i, i, i, i, p, i]
-        lib.point_pipeline_fwd_launch.argtypes = [p] * 5 + [ll, i] + net + [p]
-        lib.point_pipeline_bwd_launch.argtypes = [p] * 8 + [ll, i, ll] + net + [p]
+        net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
+        lib.point_pipeline_fwd_launch.argtypes = [p] * 6 + [ll, i] + net + [p]
+        lib.point_pipeline_bwd_launch.argtypes = [p] * 9 + [ll, i, ll] + net + [p]
         lib.point_pipeline_reduce_launch.argtypes = [p, p, i, ll, p]
         for fn in (lib.point_pipeline_fwd_launch, lib.point_pipeline_bwd_launch,
                    lib.point_pipeline_reduce_launch, lib.point_pipeline_n_off):

@@ -23,7 +23,8 @@ Backward (the VJP of the [R, 16] output), likewise:
     reduce_partials). Counts its launches in launch_ray_march_bwd.launches.
   * ray_march_bwd_plain: the compositing VJP of ray_march.py:322-371 by
     hand (not autograd), then point_pipeline_bwd_plain.
-Both plain versions run on any device and in float64 as well.
+Both plain versions run on any device and in float64 as well, and take
+the point pipeline's `bf16` flag (True: the kernels' bf16 products).
 RayMarchFunction is the autograd Function: the device of the tensors
 alone picks the kernels or the plain versions; fused_ray_march resolves
 the weight norm outside it.
@@ -114,11 +115,14 @@ def out16(outs, c: Composite) -> torch.Tensor:
     return torch.cat([out, torch.zeros((R, 9), dtype=out.dtype, device=out.device)], dim=1)
 
 
-def ray_march_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float):
-    """Plain PyTorch forward: [R, 16]."""
+def ray_march_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,
+                    bf16: bool = False):
+    """Plain PyTorch forward: [R, 16]. bf16: the point pipeline's products
+    in the kernels' (and the TPU kernels') bf16 arithmetic
+    (point_pipeline._forward); the compositing stays in the inputs' dtype."""
     with torch.no_grad():
         dists, _, pts, dirs = march_points(rays_o, rays_d, z, sample_dist)
-        outs = PP.point_pipeline_plain(pw, pts, dirs)
+        outs = PP.point_pipeline_plain(pw, pts, dirs, bf16)
         return out16(outs, composite(outs, rays_d, dists, pts, inv_s))
 
 
@@ -184,14 +188,15 @@ def march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar, forward, pullback):
     return ro_hat, rd_hat, sinv_hat, grads
 
 
-def ray_march_bwd_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist, gbar):
+def ray_march_bwd_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist, gbar,
+                        bf16: bool = False):
     """Plain PyTorch VJP of the march (not autograd): (rays_o_hat [R,3],
     rays_d_hat [R,3], inv_s_hat (0-d), {"sdf" / "color" / "relight": [(dW,
-    db) per layer]})."""
+    db) per layer]}); bf16 as ray_march_plain."""
     with torch.no_grad():
         return march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar,
-                         lambda p, d: PP.point_pipeline_plain(pw, p, d),
-                         lambda p, d, cots: PP.point_pipeline_bwd_plain(pw, p, d, cots))
+                         lambda p, d: PP.point_pipeline_plain(pw, p, d, bf16),
+                         lambda p, d, cots: PP.point_pipeline_bwd_plain(pw, p, d, cots, bf16))
 
 
 def march_macs_per_point(pw: PP.PipelineWeights):
@@ -200,14 +205,15 @@ def march_macs_per_point(pw: PP.PipelineWeights):
     march_gemm_flops_per_point): the forward is the point pipeline's (SDF,
     its reverse sweep, colour, relight); the backward one recompute of it,
     dW and xbar of every colour and relight layer, the SDF tangent stream,
-    dW and xbar of the last SDF layer and two dW and two xbar products per
-    hidden SDF layer."""
+    dW and xbar of the last SDF layer, two dW and two xbar products per
+    hidden SDF layer, and the second (lo) bf16 pass of layer 0's two dW
+    products."""
     def macs(layers):
         return sum(w.shape[0] * w.shape[1] for w, _ in layers)
     hidden = macs(pw.sdf[:-1])
     fwd = macs(pw.sdf) + hidden + macs(pw.color) + macs(pw.relight)
     bwd = fwd + 2 * (macs(pw.color) + macs(pw.relight)) + hidden + 2 * macs(pw.sdf[-1:]) \
-        + 4 * hidden
+        + 4 * hidden + 2 * macs(pw.sdf[:1])
     return fwd, bwd
 
 
@@ -216,9 +222,9 @@ def _library():
     lib = build.load(KERNEL)
     if lib.ray_march_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        net = [i, i, i, f, i, i, i, i, i, i, i, p, i]
-        lib.ray_march_fwd_launch.argtypes = [p] * 8 + [ll, i, f, i] + net + [p]
-        lib.ray_march_bwd_launch.argtypes = [p] * 10 + [ll, i, f, i, ll] + net + [p]
+        net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
+        lib.ray_march_fwd_launch.argtypes = [p] * 9 + [ll, i, f, i] + net + [p]
+        lib.ray_march_bwd_launch.argtypes = [p] * 11 + [ll, i, f, i, ll] + net + [p]
         for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
                    lib.ray_march_rays_per_group):
             fn.restype = i
@@ -279,7 +285,7 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
     16], the stash [R S, 8] its backward reads)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     lib = _library()
-    off, net = PP._net_args(pw)
+    tables, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
     if R == 0:
@@ -291,8 +297,8 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_fwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
-            pw.packed.data_ptr(), out.data_ptr(), stash.data_ptr(), scratch.data_ptr(), R, S,
-            sample_dist, grid, *net, stream)
+            pw.packed.data_ptr(), pw.frags.data_ptr(), out.data_ptr(), stash.data_ptr(),
+            scratch.data_ptr(), R, S, sample_dist, grid, *net, stream)
     _raise_on(lib, rc, "kernel launch")
     launch_ray_march.launches += 1
     return out, stash
@@ -311,7 +317,7 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
     PP._check("stash", stash, R * S, dev, STASH)
     PP._check("gbar", gbar, R, dev, 16)
     lib = _library()
-    off, net = PP._net_args(pw)
+    tables, net = PP._net_args(pw)
     rays_hat = torch.empty((R, 8), dtype=torch.float32, device=dev)
     if R == 0:
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
@@ -327,9 +333,9 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_bwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
-            pw.packed.data_ptr(), stash.data_ptr(), gbar.data_ptr(), rays_hat.data_ptr(),
-            partial.data_ptr(), scratch.data_ptr(), R, S, sample_dist, grid, pw.n_grad, *net,
-            stream)
+            pw.packed.data_ptr(), pw.frags.data_ptr(), stash.data_ptr(), gbar.data_ptr(),
+            rays_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(), R, S, sample_dist, grid,
+            pw.n_grad, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
     launch_ray_march_bwd.launches += 1
     total = PP.reduce_partials(partial)

@@ -1,17 +1,30 @@
-// A CPU stand-in for the part of the CUDA runtime the port's point-pipeline
-// and ray-march kernels use, so that tests/test_torch_point_pipeline_emulated.py
-// and tests/test_torch_ray_march_emulated.py can compile csrc/point_pipeline.cu
-// and csrc/ray_march.cu with a host C++ compiler and run them: the
-// test starts one std::thread per CUDA thread of a block, __syncthreads is
-// a barrier over them, __shfl_xor_sync exchanges through an array between
-// two barriers (every thread of the block calls it the same number of
-// times), and the launch syntax <<<...>>> is stripped from the source.
+// A CPU stand-in for the part of the CUDA runtime the port's point-pipeline,
+// ray-march and MLP-chain kernels use, so that the *_emulated tests can
+// compile csrc/point_pipeline.cu, csrc/ray_march.cu and csrc/mlp_chain.cu
+// with a host C++ compiler and run them: the test starts one std::thread
+// per CUDA thread of a block, __syncthreads is a barrier over them,
+// __shfl_xor_sync exchanges through an array between two barriers (every
+// thread of the block calls it the same number of times), and the launch
+// syntax <<<...>>> is stripped from the source.
+//
+// The bf16 tensor-core product mma.sync.m16n8k16 (mlp::mma_bf16 calls
+// mma_m16n8k16_bf16 here) follows the PTX fragment layouts: each lane
+// deposits its A and B registers, the 32 lanes of its warp meet at a
+// barrier, and each lane then computes its own four accumulators from the
+// deposits, summing the 16 products in k order in f32. Deposits alternate
+// between two buffers, so one barrier per instruction suffices; the
+// barrier is the warp's own (as mma.sync is a warp's instruction), a
+// spin that yields. The bf16 conversions round to nearest, ties to even.
 #pragma once
 #include <math.h>
+#include <string.h>
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
+#include <cstdint>
+#include <thread>
 
 using std::max;
 using std::min;
@@ -32,7 +45,9 @@ extern std::barrier<>* emu_barrier;
 extern float emu_shuffle[256];
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -42,6 +57,77 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const float r = emu_shuffle[threadIdx.x ^ lane_mask];
   emu_barrier->arrive_and_wait();
   return r;
+}
+
+// ---- bf16 ----
+struct __nv_bfloat16 { uint16_t bits; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+
+inline uint16_t emu_bf16_bits(float f) {   // round to nearest, ties to even
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return uint16_t((u >> 16) | 0x40u);   // NaN stays NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return uint16_t(u >> 16);
+}
+inline float emu_bf16_float(uint32_t bits) {
+  const uint32_t u = bits << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return {emu_bf16_bits(f)}; }
+inline float __bfloat162float(__nv_bfloat16 h) { return emu_bf16_float(h.bits); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return {{emu_bf16_bits(lo)}, {emu_bf16_bits(hi)}};
+}
+
+// ---- mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 ----
+struct EmuWarpBarrier {
+  std::atomic<int> count{0};
+  std::atomic<int> phase{0};
+};
+inline EmuWarpBarrier emu_warp_barrier[32];
+inline unsigned emu_mma_regs[2][32][32][6];   // [buffer][warp][lane][a0..a3, b0, b1]
+inline thread_local unsigned emu_mma_buffer = 0;
+
+inline void emu_warp_sync() {
+  EmuWarpBarrier& b = emu_warp_barrier[threadIdx.x >> 5];
+  const int phase = b.phase.load(std::memory_order_acquire);
+  if (b.count.fetch_add(1, std::memory_order_acq_rel) == 31) {
+    b.count.store(0, std::memory_order_relaxed);
+    b.phase.store(phase + 1, std::memory_order_release);
+  } else {
+    while (b.phase.load(std::memory_order_acquire) == phase) std::this_thread::yield();
+  }
+}
+
+// Half h (0: low) of register `reg` of lane `lane`, as a float.
+inline float emu_mma_elem(unsigned (*regs)[6], int lane, int reg, int h) {
+  return emu_bf16_float((regs[lane][reg] >> (16 * h)) & 0xffffu);
+}
+
+inline void mma_m16n8k16_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                              unsigned b0, unsigned b1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned (*regs)[6] = emu_mma_regs[emu_mma_buffer][warp];
+  emu_mma_buffer ^= 1u;
+  const unsigned mine[6] = {a0, a1, a2, a3, b0, b1};
+  memcpy(regs[lane], mine, sizeof(mine));
+  emu_warp_sync();
+  for (int q = 0; q < 4; ++q) {
+    const int row = g + 8 * (q >> 1), col = 2 * t + (q & 1);
+    float acc = d[q];
+    for (int k = 0; k < 16; ++k) {
+      // A[row][k]: lane 4 (row % 8) + (k % 8) / 2, register a0 + (row >= 8) + 2 (k >= 8);
+      // B[k][col]: lane 4 col + (k % 8) / 2, register b0 + (k >= 8); the half k % 2
+      const float a = emu_mma_elem(regs, 4 * (row % 8) + (k % 8) / 2,
+                                   (row >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0), k & 1);
+      const float b = emu_mma_elem(regs, 4 * col + (k % 8) / 2, 4 + (k >= 8 ? 1 : 0), k & 1);
+      acc = fmaf(a, b, acc);
+    }
+    d[q] = acc;
+  }
 }
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

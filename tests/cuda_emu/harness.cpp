@@ -3,7 +3,8 @@
 // tests/test_torch_point_pipeline_emulated.py. Usage: emu DIR. Reads from
 // DIR: meta.i64 (n, n_sdf, skip, d0, n_color, color_dv, squeeze, n_relight,
 // rl_dv, y_in, inv_sigmoid, n_grad, blocks), scale.f32, off.i64, w.f32,
-// pts.f32, dirs.f32, gbar.f32; runs the forward kernel and then the
+// boff.i64, wb.bf16 (the fragment-ordered bf16 blocks), pts.f32, dirs.f32,
+// gbar.f32; runs the forward kernel and then the
 // backward kernel block after block, the weight-grad partials summed over
 // the blocks in index order as the reduction kernel does; writes out.f32,
 // pts_hat.f32, dirs_hat.f32 and grad.f32 to DIR. The scratch starts as
@@ -44,6 +45,7 @@ int main(int argc, char** argv) {
   const std::string d = argv[1];
   const auto meta = slurp(d + "/meta.i64"), scale = slurp(d + "/scale.f32");
   const auto off = slurp(d + "/off.i64"), w = slurp(d + "/w.f32");
+  const auto boff = slurp(d + "/boff.i64"), wb = slurp(d + "/wb.bf16");
   const auto pts = slurp(d + "/pts.f32"), dirs = slurp(d + "/dirs.f32");
   const auto gbar = slurp(d + "/gbar.f32");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
@@ -51,9 +53,10 @@ int main(int argc, char** argv) {
   const int blocks = int(m[12]);
   const Params p = make_params(
       reinterpret_cast<const float*>(pts.data()), reinterpret_cast<const float*>(dirs.data()),
-      reinterpret_cast<const float*>(w.data()), n, int(m[1]), int(m[2]), int(m[3]),
+      reinterpret_cast<const float*>(w.data()), wb.data(), n, int(m[1]), int(m[2]), int(m[3]),
       *reinterpret_cast<const float*>(scale.data()), int(m[4]), int(m[5]), int(m[6]), int(m[7]),
-      int(m[8]), int(m[9]), int(m[10]), reinterpret_cast<const long long*>(off.data()));
+      int(m[8]), int(m[9]), int(m[10]), reinterpret_cast<const long long*>(off.data()),
+      reinterpret_cast<const long long*>(boff.data()));
   std::vector<float> out(n * 16), pts_hat(n * 3), dirs_hat(n * 3);
   std::vector<float> partial(size_t(blocks) * n_grad, 0.f);
   std::vector<float> scratch_fwd(size_t(blocks) * p.n_sdf * GSLAB, 12345.f);

@@ -137,7 +137,9 @@ def test_kernel_shape_check():
     # packing at full width on the CPU: every offset inside the buffer
     pw = PP.resolve_pipeline_weights(
         neus.init_renderer(full, torch.Generator().manual_seed(0)), full)
-    packed, off, n_grad = PP._pack(pw)
+    packed, off, n_grad, frags, boff = PP._pack(pw)
     used = off[off > 0]
     assert used.max() < packed.numel() and len(set(used.tolist())) == len(used)
-    assert 0 < n_grad < packed.numel()
+    assert 0 < n_grad == packed.numel()
+    used = boff[boff > 0]
+    assert 4 * used.max() < frags.numel() and len(set(used.tolist())) == len(used)

@@ -121,15 +121,17 @@ def test_unpack_grads_inverts_pack(kind, relight):
         for p in params.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=g))
     pw = PP.resolve_pipeline_weights(params, rcfg)
-    packed, pw.off, pw.n_grad = PP._pack(pw)
-    # every slot a gradient flows to lies in the prefix, the transposed
-    # copies after it
-    grad_slots = [s for s in range(PP.N_OFF)
-                  if not (PP.WT_SDF <= s < PP.B_SDF or PP.WT_COL <= s < PP.W_LAST
-                          or s == PP.WT_FEAT)]
-    assert max(pw.off[grad_slots]) < pw.n_grad < packed.numel()
-    used_t = [s for s in range(PP.N_OFF) if s not in grad_slots and pw.off[s] > 0]
-    assert min(pw.off[used_t]) >= pw.n_grad
+    packed, pw.off, pw.n_grad, frags, boff = PP._pack(pw)
+    # the f32 buffer is the gradient layout: every slot a gradient flows to
+    # lies in it; the transposed copies the reverse products read are in the
+    # bf16 fragment buffer only, each a distinct block
+    t_slots = [s for s in range(PP.N_OFF)
+               if PP.WT_SDF <= s < PP.B_SDF or PP.WT_COL <= s < PP.W_LAST or s == PP.WT_FEAT]
+    grad_slots = [s for s in range(PP.N_OFF) if s not in t_slots]
+    assert max(pw.off[grad_slots]) < pw.n_grad == packed.numel()
+    assert not pw.off[t_slots].any()
+    used_t = [s for s in t_slots if boff[s] > 0]
+    assert len(set(boff[used_t].tolist())) == len(used_t) and 4 * max(boff) < frags.numel()
     back = PP._unpack_grads(pw, packed)
     for net in NETS:
         layers = getattr(pw, net)

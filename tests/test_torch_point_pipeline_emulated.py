@@ -4,15 +4,23 @@ against their plain PyTorch versions at full width.
 
 The kernels run on the card only; this test runs the same source through
 a host C++ compiler against tests/cuda_emu/cuda_runtime.h, one std::thread
-per CUDA thread with a barrier for __syncthreads (tests/cuda_emu/
-harness.cpp), on 130 points over 2 blocks with a ragged last tile. It
-checks the kernels' arithmetic, indexing, packing and the per-block
-weight-grad partials; it cannot see what only the card shows (timing,
-races between warps, the GPU's own float functions), which
-tests/test_torch_cuda.py and chip_smoke.py check there. Skips without a
-C++20 compiler. Tolerances: the forward as tests/test_torch_point_pipeline
-(f32 summation order); the backward 1e-5 x the largest |plain| of an
-output or leaf, with the cotangents of points near a relu kink zeroed."""
+per CUDA thread with a barrier for __syncthreads and a software mma.sync
+(tests/cuda_emu/harness.cpp), on 130 points over 2 blocks with a ragged
+last tile. It checks the kernels' arithmetic, the tensor-core fragment
+layouts, indexing, packing and the per-block weight-grad partials; it
+cannot see what only the card shows (timing, races between warps, the
+GPU's own float functions), which tests/test_torch_cuda.py and
+chip_smoke.py check there. Skips without a C++20 compiler.
+
+The kernels compute the TPU kernels' bf16 products, so they are held
+against the plain twins with bf16=True: every output and leaf within
+RTOL_BF16 x its largest |plain| (a layer input within rounding of a bf16
+midpoint rounds to the other neighbour after another f32 summation order,
+one bf16 ulp of that input, and such flips propagate: read <= 5.7e-4),
+with the cotangents of points near a relu kink zeroed. Where the bf16 twin
+is more than 1e-2 from the f32 twin, the kernel must be within a tenth of
+that gap of the bf16 twin: it computes the bf16 arithmetic, not f32. A copy
+of the source with the A fragment's row halves swapped must fail."""
 
 import os
 import re
@@ -33,17 +41,27 @@ pin_precision()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "color_neus_torch", "csrc")
-FWD_ATOL = {"sdf": 1e-6, "grad": 1e-5, "gc": 1e-6, "relit": 1e-6, "delta": 1e-6}
+OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
+RTOL_BF16 = 2e-3
+# load_a's A fragment (csrc/point_pipeline_tile.cuh): a0 / a2 from rows g,
+# a1 / a3 from rows g + 8; the mutant swaps the two row halves
+A_ROWS = "const float* r0 = A + (m0 + g) * lda + k0 + 2 * t;\n  const float* r8 = r0 + 8 * lda;"
+A_ROWS_MUTANT = "const float* r8 = A + (m0 + g) * lda + k0 + 2 * t;\n  const float* r0 = r8 + 8 * lda;"
 
 
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
+def _compile(out, mutate=False):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
-    out = tmp_path_factory.mktemp("cuda_emu")
     with open(os.path.join(CSRC, "point_pipeline.cu")) as f:
         src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)   # launches run on host threads
+    with open(os.path.join(CSRC, "point_pipeline_tile.cuh")) as f:
+        tile = f.read()
+    if mutate:
+        assert tile.count(A_ROWS) == 1, "load_a's row pointers moved"
+        tile = tile.replace(A_ROWS, A_ROWS_MUTANT)
+    # the tile header inlined, so that the mutant's copy is the one compiled
+    src = src.replace('#include "point_pipeline_tile.cuh"', tile)
     with open(os.path.join(HERE, "cuda_emu", "harness.cpp")) as f:
         src += f.read()
     path = out / "emu.cpp"
@@ -58,8 +76,15 @@ def emulator(tmp_path_factory):
     return exe
 
 
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("cuda_emu"))
+
+
 def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks):
-    packed, off, n_grad = PP._pack(pw)
+    """The emulated forward and backward: (out [n, 16], pts_hat, dirs_hat,
+    {net: [(dW, db)]})."""
+    packed, off, n_grad, frags, boff = PP._pack(pw)
     rcfg = pw.rcfg
     d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
     cn = rcfg.kind == "color_neus"
@@ -69,6 +94,8 @@ def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks):
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale], np.float32).tofile(tmp_path / "scale.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
+    boff.astype(np.int64).tofile(tmp_path / "boff.i64")
+    frags.view(torch.int16).numpy().tofile(tmp_path / "wb.bf16")
     for name, t in (("w", packed), ("pts", pts), ("dirs", dirs), ("gbar", gbar)):
         t.numpy().astype(np.float32).tofile(tmp_path / f"{name}.f32")
     subprocess.run([exe, str(tmp_path)], check=True, timeout=300)
@@ -81,17 +108,30 @@ def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks):
     return read("out", n, 16), read("pts_hat", n, 3), read("dirs_hat", n, 3), grads
 
 
-def _close(got, want, name):
-    scale = max(float(want.abs().max()), 1e-6)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * scale, rtol=0,
-                               err_msg=name)
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-6)
 
 
-@pytest.mark.parametrize("kind,relight", [
-    ("color_neus", {}), ("color_neus", {"inv_sigmoid": False, "include_grad": False,
-                                        "y_in_layer": 4}),
-    ("neus", {})], ids=["color_neus", "color_neus-clip-nograd-ylast", "neus-idr"])
-def test_emulated_kernels_match_plain(emulator, tmp_path, kind, relight):
+def _errors(kernel, bf16, f32):
+    """{name: (kernel vs the bf16 twin, the bf16 twin vs the f32 twin)} over
+    the outputs, pts, dirs and every leaf; each argument (out [n, 16],
+    pts_hat, dirs_hat, {net: [(dW, db)]})."""
+    errs = {}
+    for i, name in enumerate(OUTPUTS):
+        a, b = (0, 1, 4, 7, 10, 13)[i:i + 2]
+        errs[name] = (_rel(kernel[0][:, a:b], bf16[0][:, a:b]),
+                      _rel(bf16[0][:, a:b], f32[0][:, a:b]))
+    for i, name in ((1, "pts"), (2, "dirs")):
+        errs[name] = (_rel(kernel[i], bf16[i]), _rel(bf16[i], f32[i]))
+    for net, layers in bf16[3].items():
+        assert len(kernel[3][net]) == len(layers)
+        for l, (k, b, f) in enumerate(zip(kernel[3][net], layers, f32[3][net])):
+            for j, what in enumerate("Wb"):
+                errs[f"{net} layer {l} {what}"] = (_rel(k[j], b[j]), _rel(b[j], f[j]))
+    return errs
+
+
+def _case(kind, relight):
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color, relight=RelightConfig(**relight))
@@ -112,18 +152,33 @@ def test_emulated_kernels_match_plain(emulator, tmp_path, kind, relight):
     keep = (relu_margin(pw64, pts.double(), dirs.double()) > KINK_MARGIN).float()
     cots = [torch.randn((n, k), generator=g) * keep[:, None] for k in (1, 3, 3, 3, 3)]
     gbar = torch.cat(cots + [torch.zeros((n, 3))], dim=1).contiguous()
-    out, pts_hat, dirs_hat, grads = _run(emulator, tmp_path, pw, pts, dirs, gbar, blocks=2)
+    return pw, pts, dirs, cots, gbar
 
-    want = PP.point_pipeline_plain(pw, pts, dirs)
-    for (name, atol), (a, b), w in zip(FWD_ATOL.items(), ((0, 1), (1, 4), (4, 7), (7, 10),
-                                                           (10, 13)), want):
-        np.testing.assert_allclose(out[:, a:b].numpy(), w.numpy(), atol=atol, rtol=0,
-                                   err_msg=name)
-    w_pts, w_dirs, w_grads = PP.point_pipeline_bwd_plain(pw, pts, dirs, cots)
-    _close(pts_hat, w_pts, "pts")
-    _close(dirs_hat, w_dirs, "dirs")
-    for net, layers in w_grads.items():
-        assert len(grads[net]) == len(layers)
-        for l, ((a, b), (c, d)) in enumerate(zip(grads[net], layers)):
-            _close(a, c, f"{net} layer {l} W")
-            _close(b, d, f"{net} layer {l} b")
+
+def _plain(pw, pts, dirs, cots, bf16):
+    return (torch.cat(PP.point_pipeline_plain(pw, pts, dirs, bf16), dim=1),
+            *PP.point_pipeline_bwd_plain(pw, pts, dirs, cots, bf16))
+
+
+@pytest.mark.parametrize("kind,relight", [
+    ("color_neus", {}), ("color_neus", {"inv_sigmoid": False, "include_grad": False,
+                                        "y_in_layer": 4}),
+    ("neus", {})], ids=["color_neus", "color_neus-clip-nograd-ylast", "neus-idr"])
+def test_emulated_kernels_match_plain(emulator, tmp_path, kind, relight):
+    pw, pts, dirs, cots, gbar = _case(kind, relight)
+    kernel = _run(emulator, tmp_path, pw, pts, dirs, gbar, blocks=2)
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    for name, (err, gap) in errs.items():
+        assert err <= RTOL_BF16, f"{name}: {err:.3e} from the bf16 twin, above {RTOL_BF16:g}"
+        assert gap <= 1e-2 or err < 0.1 * gap, \
+            f"{name}: {err:.3e} from the bf16 twin, not below a tenth of its f32 gap {gap:.3e}"
+
+
+def test_emulated_fragment_rows_mutant_fails(tmp_path_factory, tmp_path):
+    """A copy of the source whose A fragments take their two row halves in
+    the wrong registers runs, and is far off the bf16 twin."""
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_rows_mutant"), mutate=True)
+    pw, pts, dirs, cots, gbar = _case("neus", {})
+    kernel = _run(mutant, tmp_path, pw, pts, dirs, gbar, blocks=2)
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    assert max(e for e, _ in errs.values()) > 0.5, errs
