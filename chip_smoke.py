@@ -7,15 +7,23 @@ Phases; any failure exits non-zero and prints no result:
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from color_neus_torch/csrc (all at once) while g++ builds the
      repo's csrc/marching_tet.cpp; cuobjdump -sass of rows 3-6 must show
-     HMMA.16816.F32.BF16 (their products on the tensor cores).
+     HMMA.16816.F32.BF16 (their products on the tensor cores); rows 1-2's
+     kernel variants print HMMA, their weight ring's bulk copies (UBLKCP),
+     FCHK and every CALL, and their resident blocks per SM: the bf16 ones
+     must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
+     divide's range check and its slow path), and each variant 16
+     resident warps per SM.
   2. kernels against their plain PyTorch versions, on the card: the SDF
      placement sweep (csrc/sdf_rays.cu), through the sweep function the
      main path uses, at a full-width SDF (8x256, multires 6) taken off its
      geometric init by seeded noise on every leaf (geometric init zeroes
      the PE columns of lin0 and of the skip layer, which would hide a
      misread of them), 1024 rays x 64 sorted z, in all four variants
-     (softplus/relu x bf16/f32), plus the up-sample-round shape (S=16) and
-     a ragged tail; times kernel and plain version with CUDA events.
+     (softplus/relu x bf16/f32), plus the up-sample-round shape (S=16)
+     and a ragged tail; times kernel and plain version with CUDA events,
+     beside the bound (mlp_bound_ms: bytes, products, and the epilogue's
+     FP32-pipe and MUFU instructions per element read from a one-element
+     SASS probe).
   2b. the evaluation path's kernels against their plain versions, off
      geometric init, timed with CUDA events: the grid SDF (second entry of
      csrc/sdf_rays.cu) in f32 and bf16 on one 2^18-point chunk of the
@@ -36,7 +44,8 @@ Phases; any failure exits non-zero and prints no result:
   4. the sweep kernel against its plain version on the trained weights,
      at every sweep of one step: the main path's own rays (sampled pixels
      of the training cameras) and z (coarse, then each up-sample round),
-     timed with CUDA events; these are the kernel line's numbers.
+     timed with CUDA events beside the relu variant, the plain version and
+     the bound; these are the kernel line's numbers.
   5. where the step's time goes: torch.profiler over a few steps; device
      busy time is the union of the trace's kernel intervals, and the idle
      share is read from the same trace (1 - busy / span).
@@ -57,7 +66,9 @@ Phases; any failure exits non-zero and prints no result:
      loop: the mesh and coloured PLYs written, both new kernels launched;
      (c) at res 128 the sparse and the dense meshes from the kernel grid
      have bitwise-equal sorted vertex sets, and the kernel grid matches
-     the plain grid; (d) the vertex colours of (b)'s mesh, kernel against
+     the plain grid, and one 2^18-point chunk of the res-512 lattice on
+     the trained weights is held and timed in f32 and bf16; (d) the
+     vertex colours of (b)'s mesh, kernel against
      plain; (e) the validation render of one training view with fused_core
      auto (kernel) against the same render through the bf16 twin, and
      beside it fused_core off (the f32 plain path), same generator seed;
@@ -108,6 +119,7 @@ power limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -376,16 +388,70 @@ def off_geometric_init(params, generator, scale=0.02):
     return params
 
 
-def sweep_bound_ms(sw, R, S):
-    """Least time for one sweep and what sets it: the larger of its bytes
-    (inputs read once, output written once) over the memory rate and its
-    MACs (the network's real widths) over the peak of the dot type."""
-    n = R * S
+def mlp_bound_ms(sw, n, io_bytes):
+    """Least time of the SDF MLP (rows 1 and 2) on n points and what sets
+    it: the largest of its bytes (io_bytes of points in and sdf out, the
+    packed weights and biases, each read once) over the memory rate, its
+    products at the real widths (bf16: the tensor cores' peak), and its
+    epilogue's FP32-pipe and MUFU instructions per activated element
+    (sweep_epilogue_counts, at the real hidden widths) at those pipes'
+    rates; in f32 mode the products' FMAs run on the FP32 pipe beside the
+    epilogue, so the two add up there. Without the epilogue counts (no
+    cuobjdump) the bound is bytes and products only.
+    Returns (ms, "bytes" | "operations", the term that sets it)."""
     macs = sum(w.shape[0] * w.shape[1] for w, _ in sw.layers)
-    nbytes = (2 * R * 3 + n + n) * 4 + sw.packed.numel() * sw.packed.element_size() \
-        + sw.bias.numel() * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * macs * n / PEAK_FLOPS[sw.dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    elems = n * sum(w.shape[1] for w, _ in sw.layers[:-1])
+    nbytes = io_bytes + sw.packed.numel() * sw.packed.element_size() + sw.bias.numel() * 4
+    f32 = sw.dtype == "float32"
+    parts = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "products": 2 * macs * n / PEAK_FLOPS[sw.dtype]}
+    epi = sweep_epilogue_counts()[0]
+    if epi is not None:
+        sms, clock = pipe_rates()
+        fp32, mufu = epi[sw.act]
+        parts["FP32 pipe"] = (fp32 * elems + (macs * n if f32 else 0)) \
+            / (sms * FP32_LANES_PER_SM * clock * 1e6)
+        parts["MUFU"] = mufu * elems / (sms * MUFU_PER_SM * clock * 1e6)
+        if f32:   # the products are FP32-pipe FMAs: counted there
+            del parts["products"]
+    what = max(parts, key=parts.get)
+    return parts[what] * 1e3, ("bytes" if what == "bytes" else "operations"), what
+
+
+def sweep_bound_ms(sw, R, S):
+    """mlp_bound_ms of one sweep: rays and z in, sdf out."""
+    return mlp_bound_ms(sw, R * S, (2 * R * 3 + 2 * R * S) * 4)
+
+
+def sweep_sass_check(lib_path):
+    """Phase 1 for rows 1 and 2 (csrc/sdf_rays.cu): per kernel variant the
+    ptxas-independent SASS counts (HMMA.16816.F32.BF16, the weight ring's
+    bulk copies UBLKCP or cp.async LDGSTS, the IEEE divide's FCHK and every
+    CALL with its target) and the resident blocks per SM. The bf16 kernels
+    must hold HMMA, every kernel a bulk copy, none an FCHK or a CALL (an
+    IEEE divide's range check and its out-of-line slow path; cuobjdump
+    names a CALL's target by address only), and every variant 16 resident
+    warps per SM (two blocks of 8 warps, or one of 16)."""
+    from color_neus_torch.ops.kernels import sdf_rays as K
+    lib = K._library()
+    for fn, c in sass_counts(lib_path).items():
+        if not fn.startswith("sdf_rays_"):
+            continue
+        print(f"[1] SASS sdf_rays {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['FFMA']} FFMA, "
+              f"{c['UBLKCP']} UBLKCP, {c['LDGSTS']} LDGSTS, {c['FCHK']} FCHK, {len(c['CALL'])} "
+              f"CALL {sorted(set(c['CALL']))}", flush=True)
+        if fn.startswith("sdf_rays_bf16_kernel"):
+            check(c["HMMA"] > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
+        check(c["UBLKCP"] + c["LDGSTS"] > 0, f"{fn}: no asynchronous copy in its SASS")
+        check(c["FCHK"] == 0 and not c["CALL"],
+              f"{fn}: an IEEE divide's range check or slow-path CALL in its SASS: "
+              f"{c['FCHK']} FCHK, CALL {c['CALL']}")
+    variants = [(1, 0, "bf16 sweep", 16), (0, 0, "f32 sweep", 8), (1, 1, "bf16 grid", 16),
+                (0, 1, "f32 grid", 8)]
+    for bf16, points, label, warps in variants:
+        blocks = lib.sdf_rays_blocks_per_sm(bf16, 0, points)
+        print(f"[1] sdf_rays {label}: {blocks} blocks of {warps} warps per SM", flush=True)
+        check(blocks * warps >= 16, f"sdf_rays {label}: {blocks} blocks of {warps} warps per SM")
 
 
 def main_path_sweeps(loop, seed):
@@ -424,12 +490,12 @@ def main_path_sweeps(loop, seed):
             R, S = z.shape
             check(got.shape == (R, S) and bool(torch.isfinite(got).all()),
                   f"main-path sweep S={S}: bad output {tuple(got.shape)}")
-            bound, bound_by = sweep_bound_ms(fn.weights, R, S)
+            bound, bound_by, what = sweep_bound_ms(fn.weights, R, S)
             sweeps.append({"R": R, "S": S, "err": float((got - want).abs().max()),
                            "ms": cuda_ms(lambda: fn(o, d, z)),
                            "plain_ms": cuda_ms(lambda: sdf_rays_plain(fn.weights, o, d, z)),
                            "relu_ms": cuda_ms(lambda: relu_fn(o, d, z)),
-                           "bound_ms": bound, "bound_by": bound_by})
+                           "bound_ms": bound, "bound_by": bound_by, "bound_what": what})
             return got
 
         hierarchical_z_vals(renderer, rcfg, rays_o, rays_d, near, far, generator=g,
@@ -525,12 +591,8 @@ def lattice_chunk(bmin, bmax, res, start, n, device):
 
 
 def grid_bound_ms(sw, n):
-    """Least time of the grid SDF on n points: MACs at the real widths over
-    the dot type's peak, or pts in + sdf out + weights over the memory rate."""
-    macs = sum(w.shape[0] * w.shape[1] for w, _ in sw.layers)
-    nbytes = n * (3 + 1) * 4 + sw.packed.numel() * sw.packed.element_size() + sw.bias.numel() * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * macs * n / PEAK_FLOPS[sw.dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    """mlp_bound_ms of the grid SDF on n points: pts in, sdf out."""
+    return mlp_bound_ms(sw, n, n * (3 + 1) * 4)
 
 
 def pipeline_macs(pw) -> dict:
@@ -614,10 +676,11 @@ def eval_kernels_vs_plain(device):
                 err = float((got - want).abs().max())
                 ms = cuda_ms(lambda: fn(pts))
                 plain_ms = cuda_ms(lambda: sdf_mlp.sdf_points_plain(fn.weights, pts), reps=5)
-            bound, bound_by = grid_bound_ms(fn.weights, n)
+            bound, bound_by, what = grid_bound_ms(fn.weights, n)
             print(f"[2b] sdf_points {prec:4s} n={n}: |sdf| max {float(want.abs().max()):.3f} | "
                   f"max|kernel-plain| {err:.3e} (atol {ATOL_GRID[prec]:g}) | kernel {ms:.4f} ms | "
-                  f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by})", flush=True)
+                  f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}: {what})",
+                  flush=True)
             check(err <= ATOL_GRID[prec], f"grid sdf {prec} n={n}: max error {err:.3e} above "
                                           f"{ATOL_GRID[prec]:g}")
             if n == GRID_CHUNK:
@@ -1181,23 +1244,51 @@ def cuobjdump_path():
     return tool if os.path.exists(tool) else shutil.which("cuobjdump")
 
 
-def mma_counts(lib_path) -> dict:
-    """{kernel: (HMMA.16816.F32.BF16, FFMA instructions)} of every __global__
-    function in a built library's SASS (cuobjdump -sass)."""
+SASS_OP = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*)")
+
+
+def kernel_variant(mangled: str) -> str:
+    """kernel_name with its template arguments (bool and int literals),
+    e.g. sdf_rays_bf16_kernel<0,0,64>."""
+    name = kernel_name(mangled)
+    i = mangled.find(name)
+    rest = mangled[i + len(name):] if i >= 0 else ""
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"L[bi](\d+)E", rest[:rest.find("EE") + 2])
+    return f"{name}<{','.join(args)}>"
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel variant: {"HMMA": HMMA.16816.F32.BF16, "FFMA", "UBLKCP" (TMA
+    bulk copies), "LDGSTS" (16-byte cp.async), "FCHK" (the IEEE divide's
+    range check), "CALL": [call targets]}} of every __global__ function in a
+    built library's SASS (cuobjdump -sass)."""
     out = subprocess.run([cuobjdump_path(), "-sass", lib_path], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump -sass {lib_path} failed: {out.stderr.strip()}")
     counts, cur = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            cur = kernel_name(line.split("Function :", 1)[1].strip())
-            counts[cur] = [0, 0]
+            cur = kernel_variant(line.split("Function :", 1)[1].strip())
+            counts[cur] = {"HMMA": 0, "FFMA": 0, "UBLKCP": 0, "LDGSTS": 0, "FCHK": 0, "CALL": []}
         elif cur is not None:
-            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            m = SASS_OP.match(line)
             if m:
-                counts[cur][0] += m.group(2) == "HMMA.16816.F32.BF16"
-                counts[cur][1] += m.group(2).split(".")[0] == "FFMA"
-    return {k: tuple(v) for k, v in counts.items()}
+                op, head = m.group(2), m.group(2).split(".")[0]
+                c = counts[cur]
+                c["HMMA"] += op == "HMMA.16816.F32.BF16"
+                for k in ("FFMA", "UBLKCP", "LDGSTS", "FCHK"):
+                    c[k] += head == k
+                if head == "CALL":
+                    c["CALL"].append(m.group(3).strip())
+    return counts
+
+
+def mma_counts(lib_path) -> dict:
+    """{kernel: (HMMA.16816.F32.BF16, FFMA instructions)} of every __global__
+    function in a built library's SASS."""
+    return {k: (c["HMMA"], c["FFMA"]) for k, c in sass_counts(lib_path).items()}
 
 
 def max_sm_clock_mhz() -> float:
@@ -1230,6 +1321,71 @@ def _sass_main_path(lines):
     return None
 
 
+def _probe_functions(kernel, define, label):
+    """({label: SASS lines} of the probe functions of csrc/<kernel>.cu, built
+    alone with nvcc -D<define> -cubin in the library's code generation, for
+    every function whose mangled name label(name) maps to a label), or
+    (None, the reason)."""
+    from color_neus_torch.ops.kernels import build
+    tool = cuobjdump_path()
+    if tool is None:
+        return None, "no cuobjdump"
+    cubin = os.path.join(build.BUILD_DIR, f"{kernel}_probe_{os.getpid()}.cubin")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    cc = subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                         "-std=c++17", "-O3", f"-D{define}", "-cubin", "-o", cubin,
+                         os.path.join(build.CSRC, f"{kernel}.cu")],
+                        capture_output=True, text=True, timeout=300)
+    check(cc.returncode == 0, f"nvcc of the instruction probes failed:\n{cc.stdout}{cc.stderr}")
+    out = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True, timeout=300)
+    os.remove(cubin)
+    if out.returncode != 0:
+        return None, f"cuobjdump failed: {out.stderr.strip()}"
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            cur = label(line.split("Function :", 1)[1].strip())
+            if cur is not None:
+                funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    return funcs, "read"
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_epilogue_counts():
+    """({"softplus" | "relu": (FP32-pipe, MUFU) instructions per activated
+    element} of rows 1 and 2's epilogue, "read"), or (None, the reason):
+    csrc/sdf_rays.cu's probes (-DSDF_RAYS_PROBE: bias add, activation and
+    the skip's scale of one element, the kernels' own device functions),
+    each one's in-line code (_sass_main_path) less the copy probe's. The
+    softplus's exp takes the one MUFU (log1pf is a polynomial on the FP32
+    pipe); every element takes its whole in-line path (no early exit), and
+    its form has no divide."""
+    def probe(name):
+        m = re.search(r"sdf_epilogue_probeILb(\d)E", name)
+        return ("relu" if m.group(1) == "1" else "softplus") if m else \
+            ("copy" if "sdf_copy_probe" in name else None)
+    funcs, how = _probe_functions("sdf_rays", "SDF_RAYS_PROBE", probe)
+    if funcs is None:
+        return None, how
+    reads = {k: _sass_main_path(v) for k, v in funcs.items()}
+    if sorted(reads) != ["copy", "relu", "softplus"] or any(v is None for v in reads.values()):
+        return None, f"probe read failed: {reads}"
+    base = reads["copy"]
+    per = {k: (v[0] - base[0], v[1] - base[1]) for k, v in reads.items() if k != "copy"}
+    if per["softplus"][1] < 1:   # the exp: a read that misses it went astray
+        return None, f"probe read missed the softplus's exp: {per}"
+    return per, "read"
+
+
+@functools.lru_cache(maxsize=None)
+def pipe_rates():
+    """(SMs, max SM clock in MHz) of card 0, for the pipes' rates."""
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count, max_sm_clock_mhz()
+
+
 def epilogue_counts():
     """{line name: (FP32-pipe, MUFU) instructions per activated element}
     for the nine chains and the deferred one ('deferred'), or None with
@@ -1246,34 +1402,15 @@ def epilogue_counts():
     data skips: an overcount of 1 per log1p). The deferred layer must count as the
     expm1gate form, whose sp and gate it computes, or it is not
     counted."""
-    from color_neus_torch.ops.kernels import build
     from color_neus_torch.ops.kernels import mlp_chain as MC
-    tool = cuobjdump_path()
-    if tool is None:
-        return None, "no cuobjdump"
-    cubin = os.path.join(build.BUILD_DIR, f"mlp_chain_probe_{os.getpid()}.cubin")
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    # the library's code generation (build.NVCC_FLAGS), as a cubin of the probes alone
-    cc = subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                         "-std=c++17", "-O3", "-DMLP_CHAIN_PROBE", "-cubin", "-o", cubin,
-                         os.path.join(build.CSRC, f"{MC.KERNEL}.cu")],
-                        capture_output=True, text=True, timeout=300)
-    check(cc.returncode == 0, f"nvcc of the instruction probes failed:\n{cc.stdout}{cc.stderr}")
-    out = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True, timeout=300)
-    os.remove(cubin)
-    if out.returncode != 0:
-        return None, f"cuobjdump failed: {out.stderr.strip()}"
-    funcs, cur = {}, None
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            m = re.search(r"mlp_chain_act_probeILi(\d+)E", name)
-            cur = MC.ACTIVATIONS[int(m.group(1))][0] if m else \
-                ("deferred" if "mlp_chain_deferred_probe" in name else None)
-            if cur is not None:
-                funcs[cur] = []
-        elif cur is not None:
-            funcs[cur].append(line)
+
+    def probe(name):
+        m = re.search(r"mlp_chain_act_probeILi(\d+)E", name)
+        return MC.ACTIVATIONS[int(m.group(1))][0] if m else \
+            ("deferred" if "mlp_chain_deferred_probe" in name else None)
+    funcs, how = _probe_functions(MC.KERNEL, "MLP_CHAIN_PROBE", probe)
+    if funcs is None:
+        return None, how
     reads = {k: _sass_main_path(v) for k, v in funcs.items()}
     want = [n for n, _ in MC.ACTIVATIONS] + ["deferred"]
     if sorted(reads) != sorted(want) or any(v is None for v in reads.values()):
@@ -1573,6 +1710,33 @@ def sorted_rows(v):
     return v[np.lexsort(v.T)]
 
 
+def trained_grid_chunk(sdf_params, sdf_cfg, bmin, bmax, device, tag):
+    """The grid SDF on one 2^18-point chunk of the res-512 lattice (the
+    plane through the bbox centre, where the surface is) on trained
+    weights, f32 and bf16: kernel against plain, timed with CUDA events,
+    beside the bound; returns {prec: record}."""
+    import torch
+    from color_neus_torch.ops.kernels import sdf_mlp
+    pts = lattice_chunk(bmin, bmax, EVAL_RES, EVAL_RES ** 3 // 2, GRID_CHUNK, device)
+    out = {}
+    for prec in ("f32", "bf16"):
+        fn = sdf_mlp.make_fused_sdf_fn(sdf_params, sdf_cfg, prec)
+        with torch.no_grad():
+            got = fn(pts)
+            want = sdf_mlp.sdf_points_plain(fn.weights, pts)
+            err = float((got - want).abs().max())
+            ms = cuda_ms(lambda: fn(pts))
+            plain_ms = cuda_ms(lambda: sdf_mlp.sdf_points_plain(fn.weights, pts), reps=5)
+        bound, bound_by, what = grid_bound_ms(fn.weights, GRID_CHUNK)
+        print(f"[{tag}] sdf_points {prec:4s} on the trained weights, {GRID_CHUNK} points of the "
+              f"res-{EVAL_RES} lattice's centre plane: |sdf| max {float(want.abs().max()):.3f} | "
+              f"max|kernel-plain| {err:.3e} (atol {ATOL_GRID[prec]:g}) | kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}: {what})", flush=True)
+        out[prec] = {"err": err if bool(torch.isfinite(got).all()) else float("inf"), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound}
+    return out
+
+
 def evaluation_path(loop, device, launches_training):
     """Phase 6 on the trained weights of phase 3; returns what the kernel
     line reads (launches of the evaluation run, errors)."""
@@ -1662,6 +1826,11 @@ def evaluation_path(loop, device, launches_training):
         check(grid_err <= ATOL_GRID[rcfg.extract_precision],
               f"res 128 grid: max error {grid_err:.3e}")
         res["grid_err"] = grid_err
+        res["grid_chunk"] = trained_grid_chunk(params["sdf"], rcfg.sdf, ev.bbox_min, ev.bbox_max,
+                                               device, "6c")
+        for prec, r in res["grid_chunk"].items():
+            check(r["err"] <= ATOL_GRID[prec], f"trained grid chunk {prec}: max error "
+                                               f"{r['err']:.3e} above {ATOL_GRID[prec]:g}")
 
         # (d) vertex colours of (b)'s mesh: kernel vs plain twin vs fields path
         pts = torch.as_tensor(verts[:1 << 15] - ev.scale_mats[0][:3, 3][None], device=device) \
@@ -1781,6 +1950,7 @@ def main() -> int:
             print(f"[1] SASS {k} {fn}: {hmma} HMMA.16816.F32.BF16, {ffma} FFMA", flush=True)
             if fn.endswith(("_fwd_kernel", "_bwd_kernel")):
                 check(hmma > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
+    sweep_sass_check(libs["sdf_rays"])
 
     # ---- phase 2: kernel vs plain on the card, off geometric init ----
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -1805,10 +1975,10 @@ def main() -> int:
         with torch.no_grad():
             ms = cuda_ms(lambda: fn(o, d, z))
             plain_ms = cuda_ms(lambda: sdf_rays_plain(fn.weights, o, d, z))
-        bound, _ = sweep_bound_ms(fn.weights, R, S)
+        bound, _, what = sweep_bound_ms(fn.weights, R, S)
         print(f"[2] sdf_rays {act:8s} {dt:8s} R={R} S={S}: |out| max {float(want.abs().max()):.3f} | "
               f"max|kernel-plain| {err:.3e} (atol {ATOL[dt]:g}) | kernel {ms:.4f} ms | "
-              f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms", flush=True)
+              f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({what})", flush=True)
         check(err <= ATOL[dt], f"sweep {act}/{dt} R={R} S={S}: max error {err:.3e} "
                                f"above {ATOL[dt]:g}")
 
@@ -1864,7 +2034,7 @@ def main() -> int:
         print(f"[4] main-path sweep R={sw['R']} S={sw['S']} {dt}: max|kernel-plain| "
               f"{sw['err']:.3e} (atol {atol:g}) | kernel {sw['ms']:.4f} ms "
               f"(relu variant {sw['relu_ms']:.4f} ms) | plain {sw['plain_ms']:.4f} ms | "
-              f"bound {sw['bound_ms']:.4f} ms", flush=True)
+              f"bound {sw['bound_ms']:.4f} ms ({sw['bound_what']})", flush=True)
         check(sw["err"] <= atol, f"main-path sweep S={sw['S']}: max error "
                                  f"{sw['err']:.3e} above {atol:g}")
     step_sweep = {k: sum(sw[k] for sw in sweeps) for k in ("ms", "plain_ms", "bound_ms")}

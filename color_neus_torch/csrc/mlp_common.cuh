@@ -2,8 +2,9 @@
 // sweep and the grid SDF; point_pipeline.cu and ray_march.cu: the per-point
 // pipeline; mlp_chain.cu: the chain microbenchmark): the positional
 // encoding and its derivatives, the softplus(beta=100), the exact f32
-// register-tiled layer product over a 64-point tile, and the bf16
-// tensor-core instruction with its operand packing.
+// register-tiled layer product over a 64-point tile, the bf16 tensor-core
+// instruction with its operand packing, and the asynchronous bulk copy into
+// shared memory with its mbarrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,6 +113,90 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0, unsigned a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 #else
   mma_m16n8k16_bf16(d, a0, a1, a2, a3, b0, b1);
+#endif
+}
+
+// The four 8 x 8 16-bit matrices whose rows lanes 8 i .. 8 i + 7 point at
+// (16 bytes each, in shared memory): r[i] of lane 4 g + t holds matrix i's
+// row g, elements 2t and 2t + 1 (ldmatrix.x4). With the rows of an A tile
+// (lanes 0-7 rows 0-7, 8-15 rows 8-15, 16-31 the same eight columns on),
+// r is the mma.m16n8k16 A fragment. The CPU rehearsal supplies
+// emu_ldmatrix_x4.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+#ifdef __CUDACC__
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(unsigned(__cvta_generic_to_shared(row))));
+#else
+  emu_ldmatrix_x4(r, row);
+#endif
+}
+
+// ---- asynchronous copies into shared memory (Hopper bulk copy, mbarrier) ----
+// An mbarrier is a 64-bit word in shared memory that counts arrivals and,
+// for a bulk copy, the bytes still in flight; a phase completes when both
+// reach zero, and mbar_wait(bar, parity) returns once the phase of that
+// parity has completed (the k-th use of a barrier waits with parity k & 1).
+// The CPU rehearsal (tests/cuda_emu) supplies the emu_mbar_* twins: a copy
+// that completes at once and a barrier that counts real arrivals.
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(unsigned(__cvta_generic_to_shared(bar))), "r"(count) : "memory");
+#else
+  emu_mbar_init(bar, count);
+#endif
+}
+
+// After the inits, before any other thread or a copy uses the barriers
+// (and a __syncthreads before the other threads do).
+__device__ __forceinline__ void mbar_init_fence() {
+#ifdef __CUDACC__
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+#ifdef __CUDACC__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(unsigned(__cvta_generic_to_shared(bar))) : "memory");
+#else
+  emu_mbar_arrive(bar);
+#endif
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+#ifdef __CUDACC__
+  const unsigned addr = unsigned(__cvta_generic_to_shared(bar));
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+#else
+  emu_mbar_wait(bar, parity);
+#endif
+}
+
+// One thread: arrive on `bar` announcing `bytes`, then copy `bytes` from
+// device memory to shared memory with the TMA unit (both addresses 16-byte
+// aligned, bytes a multiple of 16); the copy completes the transaction.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+#ifdef __CUDACC__
+  const unsigned b = unsigned(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(b), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(unsigned(__cvta_generic_to_shared(dst))), "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+#else
+  memcpy(dst, src, bytes);
+  emu_mbar_arrive(bar);
 #endif
 }
 

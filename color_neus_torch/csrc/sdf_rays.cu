@@ -7,39 +7,61 @@
 //   emb = PE(p * scale)                         (frequency-major, sin before cos;
 //                                                phase in exact f32 in both modes)
 //   h = 9-layer softplus(beta=100) MLP, skip input concat[h, emb]/sqrt(2)
-//   out_i = h_0 / scale                         (only row 0 of the last layer)
+//   out_i = h_0 * (1 / scale)                   (only row 0 of the last layer; the
+//                                                reciprocal rounded to f32 on the host)
 // The activation is softplus or relu (sweep_activation); the dot type is
 // bf16 (weights and layer inputs rounded to bf16, products accumulated in
 // f32, bias and activation in f32) or exact f32 (sweep_dtype).
 // The TPU kernel's bf16 mode also rounds the ray origins and directions
 // to bf16 inside its DEFAULT-precision phase dot (sdf_mlp.py:225-230);
 // this kernel does not copy that: the phase is exact f32 in both modes.
+// The softplus is the plain twin's form max(x, 0) + log1p(exp(-100|x|)) *
+// 0.01 (softplus_sweep): an IEEE divide by 100 in its place takes the
+// divide's out-of-line slow path whenever log1p(exp(-100|x|)) is denormal,
+// 0.873 < |x| < 1.04, which the trained weights' pre-activations reach.
 //
 // Bound on the H100. 459,008 MACs per point at the default width against
 // 20 bytes of input/output per point, ~45,000 operations per byte: far
 // above the card's ~295 ops/byte balance, so the sweep is bound by
-// operations: the bf16 tensor cores (989 TFLOP/s) in bf16 mode, f32 FMA
-// (67 TFLOP/s) in f32 mode. The ~2,000 softplus evaluations per point
-// (exp + log1p on the special-function units) are a second limit close to
-// the tensor-core one.
+// operations: the bf16 tensor cores (989 TFLOP/s) in bf16 mode, the f32
+// FMA pipe (67 TFLOP/s) in f32 mode, and in both the softplus epilogue's
+// ~2,000 evaluations per point on the FP32 pipe and the special-function
+// units (chip_smoke.py's bound counts their instructions from the SASS of
+// a one-element probe, SDF_RAYS_PROBE below).
 //
-// Design (simple first, made fast in a later change). One block of 8
-// warps owns a tile of 64 points and carries it through every layer; its
-// activations never leave shared memory, only 20 bytes per point touch
-// device memory. Weights (~0.9 MB bf16 / ~1.8 MB f32, packed [in, out] by
-// the wrapper) are read from global memory, where they stay L2-resident
-// across the blocks of a launch.
-//  * bf16: warp w computes columns [32w, 32w+32) of the [64, 256] layer
-//    output with WMMA 16x16x16 bf16 tensor-core tiles (B fragments straight
-//    from L2, A fragments from the bf16 activation tile), stores the f32
-//    accumulators to a staging tile, and the block applies bias +
-//    activation in f32 and rounds the next layer's input to bf16.
-//  * f32: each thread keeps an 8x8 register tile of the layer output and
-//    runs exact f32 FMAs (no TF32), then applies bias + activation in place.
+// Design. One block owns a tile of points and carries it through every
+// layer; its activations never leave shared memory, only 20 bytes per
+// point touch device memory. The weights (~0.9 MB bf16 / ~1.8 MB f32,
+// L2-resident across the blocks of a launch) stream through shared memory
+// as one sequence of 8 KB slabs over all layers: a ring of STAGES slabs
+// filled by the TMA unit's bulk copies (thread 0 issues slab s + STAGES - 1
+// while the block computes slab s), each completing on its stage's "full"
+// mbarrier; every warp arrives on the stage's "empty" mbarrier when it has
+// read the slab, and thread 0 waits for all of them before refilling it.
+// So the next slabs' loads overlap the current products and each slab
+// costs one barrier wait, never an L2 round trip per k-step.
+//  * bf16: 128 points, 16 warps, one block per SM, a 16-stage ring. A slab
+//    is one 16-row k-step of a [K, 256] layer block, packed by the wrapper
+//    in mma.m16n8k16 B-fragment order, so the four n-tiles of columns
+//    32w .. 32w + 32 are one contiguous kilobyte. Warp (m, w) computes
+//    those columns of points 64m .. 64m + 64 with mma.sync bf16 (f32
+//    accumulators; A fragments by ldmatrix from the bf16 activation tile),
+//    then, after a barrier, applies bias + activation (and the skip's
+//    1/sqrt(2)) to its own accumulators in registers and stores them,
+//    rounded to bf16, back into the tile: no staging tile.
+//  * f32: 64 points, 8 warps, 2 blocks per SM, a 4-stage ring. A slab is 8
+//    rows of a row-major [K, 256] block. The activations sit transposed
+//    ([k][point]), so a thread's 8 x 8 register tile (points 8w .. 8w + 8,
+//    columns 4 lane .. + 4 and 128 + 4 lane .. + 4) reads its operands as
+//    four 16-byte loads per k (the A pair a warp broadcast) for 64 exact
+//    f32 FMAs, summed in k order; bias and activation in registers after a
+//    barrier, into the same tile.
 // The PE columns are padded 39 -> 48 and the layer before the skip 217 ->
 // 256 with zero weight rows/columns, so every hidden activation is 256
-// wide; the skip layer reads [h (256), emb (48)] = 304 columns. The tail
-// tile is masked: rows past R*S read z = 0 and store nothing.
+// wide; the skip layer reads [h (256), emb (48)] = 304 columns. The PE
+// of the skip input is written once, beside the columns the epilogues
+// write. The tail tile is masked: rows past R*S read z = 0 and store
+// nothing.
 //
 // Second entry, the grid SDF (sdf_points_launch): the Hopper counterpart of
 // sdf_mlp.py::_sdf_mlp_kernel (make_fused_sdf_fn, sdf_mlp.py:237-304), the
@@ -50,12 +72,11 @@
 // per point against 16 bytes of input/output, bound by operations.
 
 #include <cuda_runtime.h>
+#ifdef __CUDACC__
 #include <cuda_bf16.h>
-#include <mma.h>
+#endif
 
 #include "mlp_common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -65,53 +86,123 @@ using mlp::INV_SQRT2;
 using mlp::THREADS;
 using mlp::TILE;
 using mlp::emb_value;
-using mlp::softplus100;
 
-// Row strides padded so consecutive rows start 16 B apart modulo the 128 B
-// of the 32 shared-memory banks: the 8 rows a WMMA fragment load reads at
-// once then hit distinct banks (an unpadded 256/304-wide row would put them
-// all on the same 4 banks). Fragment base pointers stay 32 B aligned.
-constexpr int LDA_H = HID + EMB + 8;     // bf16 activation row stride (624 B)
-constexpr int LDS = HID + 4;             // f32 staging row stride (1040 B)
-constexpr int LDA_F = HID + EMB + 4;     // f32 activation row stride
-constexpr size_t SMEM_BF16 = size_t(TILE) * LDA_H * 2 + size_t(TILE) * LDS * 4 + TILE * 3 * 4;
-constexpr size_t SMEM_F32 = size_t(TILE) * LDA_F * 4 + TILE * 3 * 4;
+constexpr unsigned SLAB = 8192;          // bytes per slab: 16 bf16 rows or 8 f32 rows of 256
+constexpr int KS_BF16 = 16, KS_F32 = 8;  // weight rows per slab
+// bf16 activation tile: bf16 pairs (32-bit words), row stride 156 words
+// (624 B): the 8 rows an A fragment or an epilogue store touches at once
+// then start 28 words apart modulo the 32 banks, so its 32 lanes hit 32
+// distinct banks.
+constexpr int LDW = (HID + EMB + 8) / 2;
+// f32 activation tile, transposed ([k][point]): row stride in floats
+constexpr int LDT = TILE + 4;
+constexpr int F32_STAGES = 4;            // the f32 kernel's ring
+// The bf16 kernel: a tile of 128 points, two rows of 8 warps, warp
+// (m, w) computing points 64 m .. + 64 (MT_BF16 m-tiles of 16), columns
+// 32 w .. + 32; one block per SM, a 16-stage ring.
+constexpr int PTS_BF16 = 128, MT_BF16 = 4, THREADS_BF16 = 2 * THREADS, BF16_STAGES = 16;
+
+template <int STAGES>
+__host__ __device__ constexpr size_t smem_ring() {
+  return size_t(STAGES) * SLAB + 2 * STAGES * sizeof(unsigned long long);
+}
+constexpr size_t SMEM_BF16 = smem_ring<BF16_STAGES>() + size_t(PTS_BF16) * LDW * 4;
+constexpr size_t SMEM_F32 = smem_ring<F32_STAGES>() + size_t(HID + EMB) * LDT * 4;
 
 struct Params {
   const float* rays_o;  // [R, 3]  (sweep)
   const float* rays_d;  // [R, 3]  (sweep)
   const float* z;       // [R * S] (sweep)
   const float* pts;     // [n_pts, 3] (grid SDF)
-  const void* w;        // packed weights (bf16 or f32), see the wrapper
+  const void* w;        // packed weights (bf16 fragment order or f32), see the wrapper
   const float* bias;    // [n_lin, HID]
   float* out;           // [R * S]
-  long long n_pts;
+  int n_pts;
   int S;                // samples per ray (sweep; 1 for the grid SDF)
   int n_lin;
   int skip;             // index of the skip layer, -1 for none
   int d0;               // real PE width (3 + 6 * multires)
   float scale;
+  float inv_scale;      // 1 / scale, rounded to f32
 };
+
+// softplus(beta = 100) as the plain twin computes it (ops/kernels/sdf_rays.py,
+// _softplus100_stable): the log term scaled by a multiply, not divided by
+// 100, and no contraction into an FMA.
+__device__ __forceinline__ float softplus_sweep(float x) {
+  return __fadd_rn(fmaxf(x, 0.f), __fmul_rn(log1pf(expf(-100.f * fabsf(x))), 0.01f));
+}
 
 template <bool RELU>
 __device__ __forceinline__ float activate(float x) {
-  return RELU ? fmaxf(x, 0.f) : softplus100(x);
+  return RELU ? fmaxf(x, 0.f) : softplus_sweep(x);
 }
 
-// p * scale for the tile's points into xs[TILE][3]: p = ro + rd * z for the
-// sweep, the given points for the grid SDF (POINTS).
-template <bool POINTS>
-__device__ void load_points(const Params& p, long long base, float* xs) {
+// The weight ring: slab s of the stream (every hidden layer's block in
+// order, SLAB bytes each) at src + s * SLAB, into stage s % STAGES.
+template <int STAGES>
+struct Ring {
+  unsigned char* buf;            // [STAGES][SLAB]
+  unsigned long long* full;      // [STAGES] one arrival + the copy's bytes
+  unsigned long long* empty;     // [STAGES] one arrival per warp
+  const unsigned char* src;
+  int n;                         // slabs in the stream
+
+  __device__ Ring(unsigned char* smem, const void* w, int n_slabs)
+      : buf(smem),
+        full(reinterpret_cast<unsigned long long*>(smem + size_t(STAGES) * SLAB)),
+        empty(full + STAGES), src(static_cast<const unsigned char*>(w)), n(n_slabs) {}
+
+  // Thread 0: slab s into its stage, once every warp has released the
+  // slab that stage held before.
+  __device__ __forceinline__ void issue(int s) const {
+    if (s >= n) return;
+    const int st = s % STAGES;
+    if (s >= STAGES) mlp::mbar_wait(empty + st, unsigned(s / STAGES - 1) & 1u);
+    mlp::bulk_load(buf + st * SLAB, src + size_t(s) * SLAB, SLAB, full + st);
+  }
+
+  // Thread 0, before the block's first barrier: the barriers, and the
+  // first STAGES - 1 slabs in flight.
+  __device__ void start() const {
+    for (int i = 0; i < STAGES; ++i) {
+      mlp::mbar_init(full + i, 1);
+      mlp::mbar_init(empty + i, blockDim.x / 32);
+    }
+    mlp::mbar_init_fence();
+    for (int s = 0; s < STAGES - 1; ++s) issue(s);
+  }
+
+  // Every thread, at step s: thread 0 keeps the ring STAGES - 1 slabs
+  // ahead, then the warp waits (converged) until slab s has landed.
+  __device__ __forceinline__ const unsigned char* acquire(int s) const {
+    if (threadIdx.x == 0) issue(s + STAGES - 1);
+    mlp::mbar_wait(full + s % STAGES, unsigned(s / STAGES) & 1u);
+    __syncwarp();
+    return buf + (s % STAGES) * SLAB;
+  }
+
+  // Every thread, after its warp's last read of slab s.
+  __device__ __forceinline__ void release(int s) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mlp::mbar_arrive(empty + s % STAGES);
+  }
+};
+
+// p * scale for the tile's PTS points into xs (point t at xs + t * ldx):
+// p = ro + rd * z for the sweep, the given points for the grid SDF (POINTS).
+template <bool POINTS, int PTS>
+__device__ void load_points(const Params& p, int base, float* xs, int ldx) {
   const int t = threadIdx.x;
-  if (t < TILE) {
-    const long long i = base + t;
+  if (t < PTS) {
+    const int i = base + t;
     float x[3] = {0.f, 0.f, 0.f};
     if (i < p.n_pts) {
       if (POINTS) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(p.pts[3 * i + j], p.scale);
+        for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(p.pts[3 * size_t(i) + j], p.scale);
       } else {
-        const long long r = i / p.S;
+        const int r = i / p.S;
         const float zz = p.z[i];
 #pragma unroll
         for (int j = 0; j < 3; ++j)
@@ -120,43 +211,7 @@ __device__ void load_points(const Params& p, long long base, float* xs) {
       }
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) xs[t * 3 + j] = x[j];
-  }
-}
-
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T to_operand(float v);
-template <>
-__device__ __forceinline__ float to_operand<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_operand<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// act[:, col0 : col0+EMB] = operand(emb * mult)
-template <typename T, int LD>
-__device__ void write_emb(T* act, const float* xs, int col0, float mult, int d0) {
-  for (int e = threadIdx.x; e < TILE * EMB; e += THREADS) {
-    const int r = e / EMB, c = e % EMB;
-    act[r * LD + col0 + c] = to_operand<T>(emb_value(xs + r * 3, c, d0) * mult);
-  }
-}
-
-// Last layer, output row 0 only: out = (act[r, :HID] . w + b) / scale.
-template <typename T, int LD>
-__device__ void final_layer(const Params& p, const T* act, const T* w, long long base) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float b = p.bias[(p.n_lin - 1) * HID];
-  for (int r = warp; r < TILE; r += THREADS / 32) {
-    float s = 0.f;
-    for (int k = lane; k < HID; k += 32)
-      s = fmaf(as_float(act[r * LD + k]), as_float(w[k]), s);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0 && base + r < p.n_pts) p.out[base + r] = (s + b) / p.scale;
+    for (int j = 0; j < 3; ++j) xs[t * ldx + j] = x[j];
   }
 }
 
@@ -164,126 +219,230 @@ __device__ __forceinline__ int layer_k(const Params& p, int l) {
   return l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
 }
 
+// The two bf16 halves of a packed pair, as f32.
+__device__ __forceinline__ float lo_bf16(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync m16n8k16 from the ring, epilogue on the accumulators
+// ---------------------------------------------------------------------------
+
 template <bool RELU, bool POINTS>
-__global__ void __launch_bounds__(THREADS, 2) sdf_rays_bf16_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p) {
+  constexpr int PTS = PTS_BF16, MT = MT_BF16, NTHREADS = THREADS_BF16;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem);          // [TILE][LDA_H]
-  float* stage = reinterpret_cast<float*>(smem + size_t(TILE) * LDA_H * 2);  // [TILE][LDS]
-  float* xs = stage + TILE * LDS;                                        // [TILE][3]
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * TILE;
-  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.w);
+  unsigned* act = reinterpret_cast<unsigned*>(smem + smem_ring<BF16_STAGES>());   // [PTS][LDW]
+  // the points in the row padding (words 152 .. 155, never read as operands)
+  float* xs = reinterpret_cast<float*>(act + (HID + EMB) / 2);
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wn = (tid >> 5) & 7, m0 = 64 * (tid >> 8);        // columns 32 wn .., rows m0 ..
+  const int base = blockIdx.x * PTS;
+  int n_slabs = 0;
+  for (int l = 0; l < p.n_lin - 1; ++l) n_slabs += layer_k(p, l) / KS_BF16;
+  const Ring<BF16_STAGES> ring(smem, p.w, n_slabs);
+  if (tid == 0) ring.start();
 
-  load_points<POINTS>(p, base, xs);
+  load_points<POINTS, PTS>(p, base, xs, LDW);
   __syncthreads();
-  write_emb<__nv_bfloat16, LDA_H>(act, xs, 0, 1.f, p.d0);
+  // the PE: layer 0's input, and the skip layer's emb / sqrt(2) beside the
+  // 256 columns the epilogues write
+  for (int e = tid; e < PTS * (EMB / 2); e += NTHREADS) {
+    const int r = e / (EMB / 2), c = 2 * (e % (EMB / 2));
+    const float e0 = emb_value(xs + r * LDW, c, p.d0), e1 = emb_value(xs + r * LDW, c + 1, p.d0);
+    act[r * LDW + c / 2] = mlp::pack_bf16(e0, e1);
+    if (p.skip >= 0)
+      act[r * LDW + (HID + c) / 2] = mlp::pack_bf16(e0 * INV_SQRT2, e1 * INV_SQRT2);
+  }
   __syncthreads();
 
-  size_t off = 0;
+  int s = 0;
   for (int l = 0; l < p.n_lin - 1; ++l) {
-    const int K = layer_k(p, l);
-    const __nv_bfloat16* Wl = W + off;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+    float acc[MT][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::fill_fragment(acc[i][0], 0.f);
-      wmma::fill_fragment(acc[i][1], 0.f);
-    }
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b0, b1;
-      wmma::load_matrix_sync(b0, Wl + size_t(k0) * HID + warp * 32, HID);
-      wmma::load_matrix_sync(b1, Wl + size_t(k0) * HID + warp * 32 + 16, HID);
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, act + i * 16 * LDA_H + k0, LDA_H);
-        wmma::mma_sync(acc[i][0], a, b0, acc[i][0]);
-        wmma::mma_sync(acc[i][1], a, b1, acc[i][1]);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    const int nks = layer_k(p, l) / KS_BF16;
+    for (int ks = 0; ks < nks; ++ks, ++s) {
+      // n-tiles 4 wn .. 4 wn + 3: 32 lanes x 8 B each, contiguous
+      const uint2* B = reinterpret_cast<const uint2*>(ring.acquire(s)) + wn * 128 + lane;
+      uint2 b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = B[32 * j];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // A fragment (a0 / a2 rows g, a1 / a3 rows g + 8; a2 / a3 eight
+        // columns on) in one ldmatrix: lane l points at row l % 16 of the
+        // m-tile, columns 8 (l / 16) .. + 8 of the k-step
+        unsigned a[4];
+        mlp::ldmatrix_x4(a, act + (m0 + 16 * i + (lane & 15)) * LDW + 8 * ks + 4 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mlp::mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j].x, b[j].y);
       }
+      ring.release(s);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(stage + i * 16 * LDS + warp * 32, acc[i][0], LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(stage + i * 16 * LDS + warp * 32 + 16, acc[i][1], LDS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();  // every warp has read act and written stage
+    __syncthreads();  // every warp has read the layer's input
+    // epilogue: accumulator q of tile (i, j) is row m0 + 16 i + g + 8 (q / 2),
+    // column 32 wn + 8 j + 2 t + q % 2; the pair (q, q + 1) is one word
     const float* bl = p.bias + l * HID;
     const float post = (l + 1 == p.skip) ? INV_SQRT2 : 1.f;
-    for (int e = tid; e < TILE * HID; e += THREADS) {
-      const int r = e / HID, c = e % HID;
-      const float v = activate<RELU>(stage[r * LDS + c] + bl[c]);
-      act[r * LDA_H + c] = __float2bfloat16_rn(v * post);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 32 * wn + 8 * j + 2 * t;
+      const float b0 = bl[c], b1 = bl[c + 1];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          act[(m0 + 16 * i + g + 8 * h) * LDW + c / 2] =
+              mlp::pack_bf16(activate<RELU>(acc[i][j][2 * h] + b0) * post,
+                             activate<RELU>(acc[i][j][2 * h + 1] + b1) * post);
     }
-    if (l + 1 == p.skip) write_emb<__nv_bfloat16, LDA_H>(act, xs, HID, INV_SQRT2, p.d0);
     __syncthreads();
-    off += size_t(K) * HID;
   }
-  final_layer<__nv_bfloat16, LDA_H>(p, act, W + off, base);
+
+  // last layer, output row 0 only: a SIMT dot over the bf16 tile, warp per row
+  const unsigned* wl = static_cast<const unsigned*>(p.w) + size_t(n_slabs) * (SLAB / 4);
+  const float bias = p.bias[(p.n_lin - 1) * HID];
+  for (int r = tid >> 5; r < PTS; r += NTHREADS / 32) {
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < HID / 64; ++m) {
+      const unsigned x = act[r * LDW + lane + 32 * m], w = wl[lane + 32 * m];
+      sum = fmaf(lo_bf16(x), lo_bf16(w), sum);
+      sum = fmaf(hi_bf16(x), hi_bf16(w), sum);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0 && base + r < p.n_pts) p.out[base + r] = (sum + bias) * p.inv_scale;
+  }
 }
+
+// ---------------------------------------------------------------------------
+// f32: exact FMAs, 8 x 8 register tiles fed by 16-byte shared-memory loads
+// ---------------------------------------------------------------------------
 
 template <bool RELU, bool POINTS>
 __global__ void __launch_bounds__(THREADS, 2) sdf_rays_f32_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);  // [TILE][LDA_F]
-  float* xs = act + TILE * LDA_F;               // [TILE][3]
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;  // columns cg + 32 j, rows 8 rg + i
-  const long long base = (long long)blockIdx.x * TILE;
-  const float* W = static_cast<const float*>(p.w);
+  // [HID + EMB][LDT], transposed
+  float* act = reinterpret_cast<float*>(smem + smem_ring<F32_STAGES>());
+  float* xs = act + EMB * LDT;          // [TILE][3] in rows layer 0 does not read
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int base = blockIdx.x * TILE;
+  int n_slabs = 0;
+  for (int l = 0; l < p.n_lin - 1; ++l) n_slabs += layer_k(p, l) / KS_F32;
+  const Ring<F32_STAGES> ring(smem, p.w, n_slabs);
+  if (tid == 0) ring.start();
 
-  load_points<POINTS>(p, base, xs);
+  load_points<POINTS, TILE>(p, base, xs, 3);
   __syncthreads();
-  write_emb<float, LDA_F>(act, xs, 0, 1.f, p.d0);
+  for (int e = tid; e < TILE * EMB; e += THREADS) {
+    const int c = e / TILE, r = e % TILE;
+    const float v = emb_value(xs + r * 3, c, p.d0);
+    act[c * LDT + r] = v;
+    if (p.skip >= 0) act[(HID + c) * LDT + r] = v * INV_SQRT2;
+  }
   __syncthreads();
 
-  size_t off = 0;
+  // thread (warp, lane): points 8 warp + i, columns col(j) = 4 lane + j
+  // (j < 4) and 128 + 4 lane + j - 4
+  int s = 0;
   for (int l = 0; l < p.n_lin - 1; ++l) {
-    const int K = layer_k(p, l);
-    const float* Wl = W + off;
     float acc[8][8];
-    mlp::tile_matmul_f32<8>(act, LDA_F, K, Wl, acc);
-    __syncthreads();  // every thread has read act
-    const float* bl = p.bias + l * HID;
-    const float post = (l + 1 == p.skip) ? INV_SQRT2 : 1.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cg + 32 * j;
-        act[(rg * 8 + i) * LDA_F + c] = activate<RELU>(acc[i][j] + bl[c]) * post;
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    const int nkb = layer_k(p, l) / KS_F32;
+    for (int kb = 0; kb < nkb; ++kb, ++s) {
+      const float* W = reinterpret_cast<const float*>(ring.acquire(s));
+      const float* X = act + kb * KS_F32 * LDT + 8 * warp;
+#pragma unroll
+      for (int kk = 0; kk < KS_F32; ++kk) {
+        const float4 x0 = *reinterpret_cast<const float4*>(X + kk * LDT);
+        const float4 x1 = *reinterpret_cast<const float4*>(X + kk * LDT + 4);
+        const float4 w0 = *reinterpret_cast<const float4*>(W + kk * HID + 4 * lane);
+        const float4 w1 = *reinterpret_cast<const float4*>(W + kk * HID + 128 + 4 * lane);
+        const float a[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float b[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
-    if (l + 1 == p.skip) write_emb<float, LDA_F>(act, xs, HID, INV_SQRT2, p.d0);
+      ring.release(s);
+    }
+    __syncthreads();  // every thread has read the layer's input
+    const float* bl = p.bias + l * HID;
+    const float post = (l + 1 == p.skip) ? INV_SQRT2 : 1.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = (j < 4 ? 0 : 128 - 4) + 4 * lane + j;
+      const float b = bl[c];
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = activate<RELU>(acc[i][j] + b) * post;
+      float4* d = reinterpret_cast<float4*>(act + c * LDT + 8 * warp);
+      d[0] = make_float4(v[0], v[1], v[2], v[3]);
+      d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
     __syncthreads();
-    off += size_t(K) * HID;
   }
-  final_layer<float, LDA_F>(p, act, W + off, base);
+
+  // last layer, output row 0 only: thread (q, r) sums k in [64 q, 64 q + 64)
+  // of point r, the four partials meet in the (now idle) ring buffer
+  const float* wl = static_cast<const float*>(p.w) + size_t(n_slabs) * (SLAB / 4);
+  float* part = reinterpret_cast<float*>(smem);
+  {
+    const int r = tid % TILE, q = tid / TILE;
+    float sum = 0.f;
+    for (int k = 64 * q; k < 64 * q + 64; ++k) sum = fmaf(act[k * LDT + r], wl[k], sum);
+    part[q * TILE + r] = sum;
+  }
+  __syncthreads();
+  if (tid < TILE && base + tid < p.n_pts) {
+    const float sum =
+        (part[tid] + part[TILE + tid]) + (part[2 * TILE + tid] + part[3 * TILE + tid]);
+    p.out[base + tid] = (sum + p.bias[(p.n_lin - 1) * HID]) * p.inv_scale;
+  }
 }
 
-}  // namespace
-
-namespace {
-
-int launch(const Params& p, bool bf16, bool relu, bool points, cudaStream_t st) {
-  if (p.n_pts <= 0) return 0;
-  const dim3 grid(unsigned((p.n_pts + TILE - 1) / TILE));
+// The kernel of a launch, its block, its dynamic shared memory and its
+// points per block.
+struct Choice {
   void (*kern)(Params);
+  int threads;
   size_t smem;
-  if (bf16) {
-    kern = points ? sdf_rays_bf16_kernel<false, true>
-                  : relu ? sdf_rays_bf16_kernel<true, false>
-                         : sdf_rays_bf16_kernel<false, false>;
-    smem = SMEM_BF16;
-  } else {
-    kern = points ? sdf_rays_f32_kernel<false, true>
-                  : relu ? sdf_rays_f32_kernel<true, false>
-                         : sdf_rays_f32_kernel<false, false>;
-    smem = SMEM_F32;
-  }
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int pts;
+};
+
+Choice choose(bool bf16, bool relu, bool points) {
+  if (!bf16)
+    return {points ? sdf_rays_f32_kernel<false, true>
+                   : relu ? sdf_rays_f32_kernel<true, false> : sdf_rays_f32_kernel<false, false>,
+            THREADS, SMEM_F32, TILE};
+  return {points ? sdf_rays_bf16_kernel<false, true>
+                 : relu ? sdf_rays_bf16_kernel<true, false> : sdf_rays_bf16_kernel<false, false>,
+          THREADS_BF16, SMEM_BF16, PTS_BF16};
+}
+
+int launch(Params p, bool bf16, bool relu, bool points, cudaStream_t st) {
+  if (p.n_pts <= 0) return 0;
+  p.inv_scale = 1.f / p.scale;
+  const Choice c = choose(bf16, relu, points);
+  cudaError_t e = cudaFuncSetAttribute(c.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(c.smem));
   if (e != cudaSuccess) return int(e);
-  kern<<<grid, THREADS, smem, st>>>(p);
+  c.kern<<<dim3(unsigned((p.n_pts + c.pts - 1) / c.pts)), c.threads, c.smem, st>>>(p);
   return int(cudaGetLastError());
 }
+
+// int point indices: the entries reject more points than this
+constexpr long long MAX_PTS = 0x7fffffffLL - 2 * PTS_BF16;
 
 }  // namespace
 
@@ -293,7 +452,8 @@ extern "C" int sdf_rays_launch(const float* rays_o, const float* rays_d, const f
                                const void* w, const float* bias, float* out,
                                long long n_pts, int S, int n_lin, int skip, int d0,
                                float scale, int bf16, int relu, void* stream) {
-  Params p{rays_o, rays_d, z, nullptr, w, bias, out, n_pts, S, n_lin, skip, d0, scale};
+  if (n_pts > MAX_PTS) return int(cudaErrorInvalidValue);
+  Params p{rays_o, rays_d, z, nullptr, w, bias, out, int(n_pts), S, n_lin, skip, d0, scale, 0.f};
   return launch(p, bf16, relu, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -301,10 +461,44 @@ extern "C" int sdf_rays_launch(const float* rays_o, const float* rays_d, const f
 extern "C" int sdf_points_launch(const float* pts, const void* w, const float* bias, float* out,
                                  long long n_pts, int n_lin, int skip, int d0, float scale,
                                  int bf16, void* stream) {
-  Params p{nullptr, nullptr, nullptr, pts, w, bias, out, n_pts, 1, n_lin, skip, d0, scale};
+  if (n_pts > MAX_PTS) return int(cudaErrorInvalidValue);
+  Params p{nullptr, nullptr, nullptr, pts, w, bias, out, int(n_pts), 1, n_lin, skip, d0, scale,
+           0.f};
   return launch(p, bf16, false, true, static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of a kernel variant, or -1 on an error.
+extern "C" int sdf_rays_blocks_per_sm(int bf16, int relu, int points) {
+  const Choice c = choose(bf16, relu, points);
+  if (cudaFuncSetAttribute(c.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(c.smem)) !=
+      cudaSuccess)
+    return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.kern, c.threads, c.smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 extern "C" const char* sdf_rays_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef SDF_RAYS_PROBE
+// Instruction probes, never launched: chip_smoke.py builds them alone
+// (nvcc -DSDF_RAYS_PROBE -cubin) and counts in their SASS what one element
+// of the epilogue issues (bias add, activation, the skip's scale), less the
+// copy probe. One element per thread, straight-line, the kernels' own
+// device functions.
+template <bool RELU>
+__global__ void sdf_epilogue_probe(const float* x, const float* b, float* y, float post) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  y[i] = activate<RELU>(x[i] + b[i]) * post;
+}
+template __global__ void sdf_epilogue_probe<false>(const float*, const float*, float*, float);
+template __global__ void sdf_epilogue_probe<true>(const float*, const float*, float*, float);
+__global__ void sdf_copy_probe(const float* x, const float* b, float* y, float post) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  y[i] = x[i];
+}
+#endif  // SDF_RAYS_PROBE

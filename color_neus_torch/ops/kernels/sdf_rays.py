@@ -12,9 +12,11 @@ Two implementations of one function:
     or launch failure.
   * sdf_rays_plain: the same arithmetic in plain PyTorch (the counterpart
     of make_xla_sdf_rays_fn). In bf16 mode it rounds every layer input
-    and weight to bf16 and multiplies in f32, emulating the kernel. Runs
-    for CPU tensors, and is what tests and chip_smoke.py compare the
-    kernel against.
+    and weight to bf16 and multiplies in f32, emulating the kernel; its
+    softplus and its last division are the kernel's (the log term times
+    0.01, the output times the f32 reciprocal of scale). Runs for CPU
+    tensors, and is what tests and chip_smoke.py compare the kernel
+    against.
 The sdf_fn that make_fused_sdf_rays_fn returns picks between them by the
 device of the tensors it is given, and by nothing else.
 """
@@ -25,11 +27,13 @@ import ctypes
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from color_neus_torch.models.configs import SDFConfig
 from color_neus_torch.models.fields import resolve_linear
 from color_neus_torch.ops.embedding import embedding_dim, positional_encoding
+from color_neus_torch.ops.kernels.point_pipeline import _frag
 
 KERNEL = "sdf_rays"
 HID = 256    # the kernel's hidden width
@@ -68,8 +72,11 @@ def pack_sdf_weights(layers, cfg: SDFConfig, dtype: str):
     """The kernel's buffers: every layer as [K_l, 256] ([in, out]), K_0 = 48
     (PE padded), K_skip = 256 + 48 ([h padded to 256, emb padded to 48]),
     else 256; then the last layer's sdf row as [256]; all flat in `dtype`.
-    Bias as [n_lin, 256] f32. Zero padding keeps the math exact: padded
-    inputs meet zero weight rows."""
+    bf16 blocks are in mma.m16n8k16 B-fragment order (point_pipeline._frag),
+    so each 16-row k-step is one 8 KB slab of the kernel's weight ring and
+    each warp's 32 columns of it one contiguous kilobyte; f32 blocks stay
+    row-major (8 rows a slab). Bias as [n_lin, 256] f32. Zero padding keeps
+    the math exact: padded inputs meet zero weight rows."""
     d0, skip, n_lin = _check_kernel_shape(cfg)
     dev = layers[0][0].device
     blocks = []
@@ -87,13 +94,13 @@ def pack_sdf_weights(layers, cfg: SDFConfig, dtype: str):
         else:
             wp = torch.zeros((HID, HID), device=dev)
             wp[:d_in, :d_out] = w
-        blocks.append(wp.reshape(-1))
+        blocks.append(_frag(wp) if dtype == "bfloat16" else wp.reshape(-1))
         bias[l, :d_out] = b
     w_last, b_last = layers[-1]
     blocks.append(w_last[:, 0])
     bias[n_lin - 1, 0] = b_last[0]
     torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    return torch.cat(blocks).to(torch_dtype).contiguous(), bias.contiguous()
+    return torch.cat([t.to(torch_dtype) for t in blocks]).contiguous(), bias.contiguous()
 
 
 def resolve_sweep_weights(params, cfg: SDFConfig, dtype: str = "bfloat16",
@@ -117,8 +124,15 @@ def resolve_sweep_weights(params, cfg: SDFConfig, dtype: str = "bfloat16",
 
 
 def _softplus100_stable(x: torch.Tensor) -> torch.Tensor:
-    # the kernel's form: max(x,0) + log1p(exp(-100|x|))/100
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-100.0 * torch.abs(x))) / 100.0
+    # the kernel's form (softplus_sweep): max(x,0) + log1p(exp(-100|x|)) * 0.01,
+    # a multiply where a divide by 100 would take the card's slow path on
+    # denormal log terms
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-100.0 * torch.abs(x))) * 0.01
+
+
+def inv_scale(cfg: SDFConfig) -> float:
+    """1 / scale rounded to f32, as the kernel's launch computes it."""
+    return float(np.float32(1.0) / np.float32(cfg.scale))
 
 
 def sdf_mlp_plain(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
@@ -138,7 +152,7 @@ def sdf_mlp_plain(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
         h = h @ w + b
         if l < n_lin - 1:
             h = torch.relu(h) if sw.act == "relu" else _softplus100_stable(h)
-    return h[:, 0] / cfg.scale
+    return h[:, 0] * inv_scale(cfg)
 
 
 def sdf_rays_plain(sw: SweepWeights, rays_o, rays_d, z) -> torch.Tensor:
@@ -195,6 +209,9 @@ def _library():
         lib.sdf_rays_launch.restype = ctypes.c_int
         lib.sdf_points_launch.argtypes = [p, p, p, p, ll, i, i, i, f, i, p]
         lib.sdf_points_launch.restype = ctypes.c_int
+        # chip_smoke.py's measurement: the resident blocks per SM of a variant
+        lib.sdf_rays_blocks_per_sm.argtypes = [i, i, i]
+        lib.sdf_rays_blocks_per_sm.restype = ctypes.c_int
         lib.sdf_rays_error_string.argtypes = [i]
         lib.sdf_rays_error_string.restype = ctypes.c_char_p
     return lib

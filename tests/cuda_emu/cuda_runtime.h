@@ -1,7 +1,8 @@
-// A CPU stand-in for the part of the CUDA runtime the port's point-pipeline,
-// ray-march and MLP-chain kernels use, so that the *_emulated tests can
-// compile csrc/point_pipeline.cu, csrc/ray_march.cu and csrc/mlp_chain.cu
-// with a host C++ compiler and run them: the test starts one std::thread
+// A CPU stand-in for the part of the CUDA runtime the port's kernels use
+// (point pipeline, ray march, MLP chain, SDF sweep and grid SDF), so that
+// the *_emulated tests can compile csrc/point_pipeline.cu,
+// csrc/ray_march.cu, csrc/mlp_chain.cu and csrc/sdf_rays.cu with a host C++
+// compiler and run them: the test starts one std::thread
 // per CUDA thread of a block, __syncthreads is a barrier over them,
 // __shfl_xor_sync exchanges through an array between two barriers (every
 // thread of the block calls it the same number of times), and the launch
@@ -15,6 +16,13 @@
 // between two buffers, so one barrier per instruction suffices; the
 // barrier is the warp's own (as mma.sync is a warp's instruction), a
 // spin that yields. The bf16 conversions round to nearest, ties to even.
+//
+// The bulk copy into shared memory (mlp::bulk_load) is a memcpy done at
+// once, followed by an arrival on its mbarrier; the mbarrier is a real
+// counting barrier over the emulated threads (its 64-bit word holds the
+// expected and the pending arrivals and the count of completed phases), so
+// a slab that is overwritten before every warp has released it, or read
+// from the wrong stage, shows in the results.
 #pragma once
 #include <math.h>
 #include <string.h>
@@ -42,11 +50,12 @@ struct emu_dim3 { unsigned x, y, z; };
 extern thread_local emu_dim3 threadIdx;
 extern emu_dim3 blockIdx, blockDim, gridDim;
 extern std::barrier<>* emu_barrier;
-extern float emu_shuffle[256];
+extern float emu_shuffle[];   // one slot per thread of the block
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint2 { unsigned x, y; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -107,6 +116,8 @@ inline float emu_mma_elem(unsigned (*regs)[6], int lane, int reg, int h) {
   return emu_bf16_float((regs[lane][reg] >> (16 * h)) & 0xffffu);
 }
 
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_sync(); }
+
 inline void mma_m16n8k16_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
                               unsigned b0, unsigned b1) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -128,6 +139,43 @@ inline void mma_m16n8k16_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned 
     }
     d[q] = acc;
   }
+}
+
+// ---- ldmatrix.sync.aligned.m8n8.x4.shared.b16: lanes deposit their row
+// pointers (two buffers, as for mma), meet, and read their four words ----
+inline const void* emu_ldm_rows[2][32][32];   // [buffer][warp][lane]
+inline thread_local unsigned emu_ldm_buffer = 0;
+inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const void** rows = emu_ldm_rows[emu_ldm_buffer][warp];
+  emu_ldm_buffer ^= 1u;
+  rows[lane] = row;
+  emu_warp_sync();
+  for (int i = 0; i < 4; ++i) memcpy(&r[i], static_cast<const char*>(rows[8 * i + g]) + 4 * t, 4);
+}
+
+// ---- mbarrier: bits 0-15 expected arrivals, 16-31 pending, 32-63 completed phases ----
+inline void emu_mbar_init(unsigned long long* bar, unsigned count) {
+  std::atomic_ref<unsigned long long>(*bar).store(count | (count << 16), std::memory_order_release);
+}
+inline void emu_mbar_arrive(unsigned long long* bar) {
+  std::atomic_ref<unsigned long long> a(*bar);
+  unsigned long long v = a.load(std::memory_order_acquire), next;
+  do {
+    const unsigned long long expected = v & 0xffffu, pending = ((v >> 16) & 0xffffu) - 1;
+    next = pending == 0 ? (((v >> 32) + 1) << 32) | (expected << 16) | expected
+                        : (v & ~0xffff0000ull) | (pending << 16);
+  } while (!a.compare_exchange_weak(v, next, std::memory_order_acq_rel,
+                                    std::memory_order_acquire));
+}
+inline void emu_mbar_wait(unsigned long long* bar, unsigned parity) {
+  std::atomic_ref<unsigned long long> a(*bar);
+  while (((a.load(std::memory_order_acquire) >> 32) & 1u) == parity) std::this_thread::yield();
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
 }
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

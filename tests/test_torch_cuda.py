@@ -21,12 +21,12 @@ from color_neus_torch.ops.kernels import sdf_rays as K
 pin_precision()
 
 
-def _inputs(R, S, seed=0):
+def _inputs(R, S, seed=0, z_range=(1.0, 3.4)):
     rng = np.random.RandomState(seed)
     d = rng.randn(R, 3).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = (-2.2 * d + 0.1 * rng.randn(R, 3)).astype(np.float32)
-    z = np.sort(rng.uniform(1.0, 3.4, (R, S)), axis=1).astype(np.float32)
+    z = np.sort(rng.uniform(*z_range, (R, S)), axis=1).astype(np.float32)
     return o, d, z
 
 
@@ -50,8 +50,12 @@ def test_cuda_kernel_matches_plain(cuda_device, act, dtype):
         for leaf in p.parameters():
             leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
     fn = K.make_fused_sdf_rays_fn(p, cfg, dtype, act)
-    for R, S in ((1024, 64), (1000, 37)):
-        o, d, z = (torch.from_numpy(x).to(cuda_device) for x in _inputs(R, S, seed=R))
+    # the last case's points reach |p| ~ 1.8, as the main path's rays do
+    # (its pre-activations cross 0.87 < |x| < 1.04, where the softplus's
+    # log term is denormal)
+    for R, S, z_range in ((1024, 64, (1.0, 3.4)), (1000, 37, (1.0, 3.4)),
+                          (1024, 64, (0.4, 4.0))):
+        o, d, z = (torch.from_numpy(x).to(cuda_device) for x in _inputs(R, S, R, z_range))
         before = K.launch_sdf_rays.launches
         got = fn(o, d, z)
         torch.cuda.synchronize()
@@ -74,8 +78,9 @@ def test_cuda_grid_sdf_matches_plain(cuda_device, prec):
         for leaf in p.parameters():
             leaf.add_(0.02 * torch.randn(leaf.shape, generator=g, device=cuda_device))
     fn = sdf_mlp.make_fused_sdf_fn(p, cfg, prec)
-    for n in (1 << 16, 1001):
-        pts = 2.0 * torch.rand((n, 3), generator=g, device=cuda_device) - 1.0
+    # the last case's points reach |p| ~ 1.8, the main path's reach
+    for n, reach in ((1 << 16, 1.0), (1001, 1.0), (1 << 16, 1.05)):
+        pts = reach * (2.0 * torch.rand((n, 3), generator=g, device=cuda_device) - 1.0)
         before = sdf_mlp.launch_sdf_points.launches
         got = fn(pts)
         torch.cuda.synchronize()

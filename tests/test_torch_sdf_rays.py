@@ -97,7 +97,8 @@ def test_cpu_dispatch_is_plain_and_uncounted():
 
 def test_packing_layout_reproduces_the_plain_sweep():
     """Evaluate the network from the kernel's packed buffers (the layout
-    csrc/sdf_rays.cu reads) in plain PyTorch: equal to sdf_rays_plain."""
+    csrc/sdf_rays.cu reads: f32 blocks row-major, bf16 blocks in mma B
+    fragment order, undone here) in plain PyTorch: equal to sdf_rays_plain."""
     cfg = SDFConfig(multires=6)                 # the kernel's width: 8 x 256
     p = init_sdf(cfg, torch.Generator().manual_seed(3))
     o, d, z = map(torch.from_numpy, _inputs(16, 8, seed=3))
@@ -111,13 +112,16 @@ def test_packing_layout_reproduces_the_plain_sweep():
         w_all, off, act = packed.float(), 0, rnd(emb)
         for l in range(cfg.n_layers):
             k = K.EMB if l == 0 else (K.HID + K.EMB if l == 4 else K.HID)
-            h = act @ w_all[off:off + k * K.HID].reshape(k, K.HID) + bias[l]
+            block = w_all[off:off + k * K.HID]
+            if dtype == "bfloat16":   # [ks, n-tile, g, t, half, pair] -> [k, n]
+                block = block.reshape(k // 16, K.HID // 8, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2)
+            h = act @ block.reshape(k, K.HID) + bias[l]
             off += k * K.HID
-            h = torch.clamp_min(h, 0) + torch.log1p(torch.exp(-100 * h.abs())) / 100
+            h = torch.clamp_min(h, 0) + torch.log1p(torch.exp(-100 * h.abs())) * 0.01
             if l + 1 == 4:
                 act = torch.cat([rnd(h * K._INV_SQRT2), rnd(emb * K._INV_SQRT2)], 1)
             else:
                 act = rnd(h)
-        got = ((act @ w_all[off:off + K.HID] + bias[-1, 0]) / cfg.scale).reshape(16, 8)
+        got = ((act @ w_all[off:off + K.HID] + bias[-1, 0]) * K.inv_scale(cfg)).reshape(16, 8)
         np.testing.assert_allclose(got.numpy(), K.sdf_rays_plain(sw, o, d, z).numpy(),
                                    atol=1e-5 if dtype == "float32" else 1e-3)
