@@ -12,7 +12,10 @@ Phases; any failure exits non-zero and prints no result:
      FCHK and every CALL, and their resident blocks per SM: the bf16 ones
      must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
      divide's range check and its slow path), and each variant 16
-     resident warps per SM.
+     resident warps per SM; rows 7-8's bf16 chain kernels (nine
+     activations) and deferred kernel must hold HGMMA (wgmma) and no HMMA,
+     a bulk copy (UBLKCP), and 0 bytes of spills in the ptxas report,
+     their registers printed.
   2. kernels against their plain PyTorch versions, on the card: the SDF
      placement sweep (csrc/sdf_rays.cu), through the sweep function the
      main path uses, at a full-width SDF (8x256, multires 6) taken off its
@@ -452,6 +455,49 @@ def sweep_sass_check(lib_path):
         blocks = lib.sdf_rays_blocks_per_sm(bf16, 0, points)
         print(f"[1] sdf_rays {label}: {blocks} blocks of {warps} warps per SM", flush=True)
         check(blocks * warps >= 16, f"sdf_rays {label}: {blocks} blocks of {warps} warps per SM")
+
+
+def ptxas_report(kernel) -> dict:
+    """{kernel variant: {"registers", "spill_stores", "spill_loads"}} from
+    the ptxas -v report of the current build of csrc/<kernel>.cu."""
+    from color_neus_torch.ops.kernels import build
+    rep, cur = {}, None
+    for line in build.build_log(kernel).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = kernel_variant(m.group(1))
+            rep.setdefault(cur, {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rep[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rep[cur]["registers"] = int(m.group(1))
+    return rep
+
+
+def chain_sass_check(lib_path):
+    """Phase 1 for rows 7 and 8 (csrc/mlp_chain.cu): every bf16 chain
+    instantiation and the deferred kernel must run its products on wgmma
+    (HGMMA in the SASS, no mma.sync HMMA), fetch W with a bulk copy
+    (UBLKCP), and spill nothing (ptxas -v); their registers are printed."""
+    rep = ptxas_report("mlp_chain")
+    seen = 0
+    for fn, c in sass_counts(lib_path).items():
+        if not fn.startswith(("chain_bf16_kernel", "chain_deferred_kernel")):
+            continue
+        seen += 1
+        r = rep.get(fn, {})
+        print(f"[1] SASS mlp_chain {fn}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA.16816.F32.BF16, "
+              f"{c['UBLKCP']} UBLKCP | {r.get('registers')} registers, spill stores / loads "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes", flush=True)
+        check(c["HGMMA"] > 0 and c["HMMA"] == 0,
+              f"{fn}: products not on wgmma ({c['HGMMA']} HGMMA, {c['HMMA']} HMMA)")
+        check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"{fn}: spills or no ptxas report: {r}")
+    check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
 
 
 def main_path_sweeps(loop, seed):
@@ -1260,10 +1306,11 @@ def kernel_variant(mangled: str) -> str:
 
 
 def sass_counts(lib_path) -> dict:
-    """{kernel variant: {"HMMA": HMMA.16816.F32.BF16, "FFMA", "UBLKCP" (TMA
-    bulk copies), "LDGSTS" (16-byte cp.async), "FCHK" (the IEEE divide's
-    range check), "CALL": [call targets]}} of every __global__ function in a
-    built library's SASS (cuobjdump -sass)."""
+    """{kernel variant: {"HMMA": HMMA.16816.F32.BF16, "HGMMA" (wgmma, any
+    shape), "FFMA", "UBLKCP" (TMA bulk copies), "LDGSTS" (16-byte
+    cp.async), "FCHK" (the IEEE divide's range check), "CALL": [call
+    targets]}} of every __global__ function in a built library's SASS
+    (cuobjdump -sass)."""
     out = subprocess.run([cuobjdump_path(), "-sass", lib_path], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump -sass {lib_path} failed: {out.stderr.strip()}")
@@ -1271,14 +1318,15 @@ def sass_counts(lib_path) -> dict:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             cur = kernel_variant(line.split("Function :", 1)[1].strip())
-            counts[cur] = {"HMMA": 0, "FFMA": 0, "UBLKCP": 0, "LDGSTS": 0, "FCHK": 0, "CALL": []}
+            counts[cur] = {"HMMA": 0, "HGMMA": 0, "FFMA": 0, "UBLKCP": 0, "LDGSTS": 0,
+                           "FCHK": 0, "CALL": []}
         elif cur is not None:
             m = SASS_OP.match(line)
             if m:
                 op, head = m.group(2), m.group(2).split(".")[0]
                 c = counts[cur]
                 c["HMMA"] += op == "HMMA.16816.F32.BF16"
-                for k in ("FFMA", "UBLKCP", "LDGSTS", "FCHK"):
+                for k in ("HGMMA", "FFMA", "UBLKCP", "LDGSTS", "FCHK"):
                     c[k] += head == k
                 if head == "CALL":
                     c["CALL"].append(m.group(3).strip())
@@ -1951,6 +1999,7 @@ def main() -> int:
             if fn.endswith(("_fwd_kernel", "_bwd_kernel")):
                 check(hmma > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
     sweep_sass_check(libs["sdf_rays"])
+    chain_sass_check(libs["mlp_chain"])
 
     # ---- phase 2: kernel vs plain on the card, off geometric init ----
     g = torch.Generator(device=device).manual_seed(SEED)

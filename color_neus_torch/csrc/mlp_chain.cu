@@ -27,25 +27,64 @@
 // ~1.98 GHz) and each special-function (MUFU) instruction ~1.6 ms (16 per
 // SM); exp + log1p + a divide weigh as much as the products.
 //
-// Design (simple first; wgmma, TMA and warp specialisation are later work).
-// Rows are independent and every layer reads the same W, so a block owns a
-// tile of rows and runs all L layers on it: only x in and out leave device
-// memory. Blocks are persistent (at most the SM count times the occupancy)
-// and walk the tiles, so W is staged once per block.
-//  * bf16: W^T in dynamic shared memory as bf16 (128 KB, rows padded to 264
-//    so that the fragment loads of 8 rows x 4 lanes hit 32 distinct banks),
-//    and the tile's bf16 layer input beside it. 8 warps; warp w computes
-//    output columns [32 w, 32 w + 32) of all the tile's rows with
-//    mma.sync m16n8k16 bf16 (f32 accumulators in registers), then applies
-//    the activation to its accumulators in f32 and writes them back as the
-//    next layer's bf16 input (or, after the last layer, to out in f32).
-//    Tiles of 64 rows (169 KB of shared memory: one block per SM); the
-//    deferred chain keeps prev_sp and acc in registers beside the
-//    accumulators, so it takes 32-row tiles to stay clear of spills.
-//  * f32: W (256 KB) does not fit in shared memory; it is read through L2
-//    by mlp::tile_matmul_f32 (64-row tile, an 8x8 register tile per
-//    thread, exact FFMA in k order), the tile's f32 activations in shared
-//    memory.
+// Design. Rows are independent and every layer reads the same W, so a
+// tile of 64 rows runs all L layers on chip: only x in and out leave
+// device memory. Blocks are persistent (one per SM) and walk their tiles.
+//  * bf16 chains (mlp_chain_launch with bf16 = 1; mlp_chain_deferred_launch)
+//    on wgmma. The causes the mma.sync design had, and what this does:
+//    - W on chip in wgmma's layout, fetched asynchronously: the wrapper
+//      packs W once per call into the byte image a wgmma B descriptor
+//      reads (bf16 W^T, K-major, four 64-k blocks of 256 rows x 128 bytes,
+//      the 128-byte swizzle: ops/kernels/mlp_chain.py pack_w_image); each
+//      block fetches the 128 KB image with 8 bulk copies on one mbarrier
+//      (mlp::bulk_load), no convert-and-transpose loop.
+//    - Products on wgmma: m64n128k16 bf16 -> f32, each layer as two
+//      halves of 128 columns, 16 k-steps each, A and B from shared memory.
+//      A is the tile's bf16 layer input in the same swizzled layout (four
+//      8 KB k blocks), written by the epilogue; A from registers (the D ->
+//      A fragment identity, as FA3 feeds P) would spare those stores, but
+//      64 packed A registers beside the accumulators and the kept half
+//      leave no room under the 168 registers of 3 warpgroups, nor beside
+//      the deferred chain's sums.
+//    - Epilogue overlapping products (the chain): three consumer
+//      warpgroups (384 threads, no producer: W is fetched once), each on
+//      its own 64-row tile, in ping-pong: named barriers 1-3 pass the turn
+//      to issue products round the warpgroups, so while one warpgroup's
+//      products run the others apply the activation to their 64
+//      accumulators in registers. Half 0's activated output waits packed
+//      in 32 registers until half 1's products have read the tile, then
+//      both are written in place.
+//    - Budgets: 64 accumulators + 32 kept a thread under the 168 registers
+//      that 384 threads leave (the m64n256 form's 128 accumulators spilled
+//      in the gated variants at 2 warpgroups). Shared memory: W 128 KB + 3
+//      x 32 KB of A tiles (+ 1 KB of alignment slack), 225 KB of the 227;
+//      x is read straight from device memory into the A tile (16-byte
+//      loads, coalesced, once per 25 layers), with no f32 staging buffer.
+//      The epilogue, not the products, sets the pace: its expf / log1pf
+//      and the where's and the divide's branches run element after element,
+//      so warps, not instruction-level parallelism, hide their latency, and
+//      the shared memory allows three tiles in flight.
+//    - The deferred chain keeps its gates' f32 sum, one per output element:
+//      128 registers a thread if a warpgroup owned a tile, which left no
+//      room (255 registers and spills, measured). Its two warpgroups share
+//      one tile instead, warpgroup h its columns 128 h .. 128 h + 128 (64
+//      accumulators and 64 sums a thread, no spills), and meet before the
+//      next layer's input is written in place; its products do not overlap
+//      its epilogue. The gate of layer l's kept sp joins the sum in layer
+//      l's own epilogue (for l < L - 1), where the mma.sync design added it
+//      one layer later from a kept copy: the same f32 values added in the
+//      same order (gate(sp_0) + gate(sp_1) + ... + gate(sp_{L-2}), then
+//      sp_{L-1} + gsum), so the output is bitwise the same, and no copy of
+//      sp is carried across the products.
+//    - The epilogue's arithmetic is the same device functions (activate<A>,
+//      deferred_step), IEEE expf / log1pf / divide, no --use_fast_math.
+//    - No branch around the products: a warpgroup whose tile lies wholly
+//      past N runs on zeros and stores nothing (ptxas serialises wgmma in a
+//      possibly divergent path, waiting for each one).
+//  * f32 (bf16 = 0): W (256 KB) does not fit in shared memory; it is read
+//    through L2 by mlp::tile_matmul_f32 (64-row tile, an 8x8 register
+//    tile per thread, exact FFMA in k order), the tile's f32 activations
+//    in shared memory, 2 blocks of 8 warps per SM.
 // The ragged last tile reads zeros and stores nothing past N.
 
 #include <cuda_runtime.h>
@@ -55,14 +94,14 @@
 namespace {
 
 constexpr int WD = 256;                  // the chain's width
-constexpr int THREADS = 256;             // 8 warps
-constexpr int TR = 64;                   // rows per tile: bf16 and f32 chains
-constexpr int TR_DEF = 32;               // rows per tile: the deferred chain
-constexpr int LDB = WD + 8;              // bf16 row stride of W^T and the input tile
-constexpr int LDF = WD + 4;              // f32 row stride of the input tile
-constexpr size_t SMEM_W = size_t(WD) * LDB * 2;
-constexpr size_t SMEM_BF16 = SMEM_W + size_t(TR) * LDB * 2;
-constexpr size_t SMEM_DEF = SMEM_W + size_t(TR_DEF) * LDB * 2;
+constexpr int THREADS = 256;             // the f32 chain's 8 warps
+constexpr int TR = 64;                   // rows per tile
+constexpr int LDF = WD + 4;              // f32 row stride of the f32 chain's tile
+constexpr int KB = 64;                   // k per 128-byte-swizzled block
+constexpr int W_KBLOCK = WD * 128;       // bytes of one k block of the W image (32 KB)
+constexpr int A_KBLOCK = TR * 128;       // bytes of one k block of an A tile (8 KB)
+constexpr int W_IMAGE = WD * WD * 2;     // the packed W image (128 KB)
+constexpr int ALIGN = 1024;              // the swizzle's atom: descriptors need it
 constexpr size_t SMEM_F32 = size_t(TR) * LDF * 4;
 
 // the tool's variants, in its order (ops/kernels/mlp_chain.py ACTIVATIONS)
@@ -71,7 +110,8 @@ enum Act { NONE, RELU, SOFTPLUS, SIGMOID, SP_GATE, SHARED, EXPM1_GATE, RECIP_APP
 
 struct Chain {
   const float* x;   // [n, 256]
-  const float* w;   // [256, 256], [in, out]
+  const float* w;   // [256, 256], [in, out] (f32 chain)
+  const void* wimg; // the packed bf16 W image (bf16 chains)
   float* out;       // [n, 256]
   long long n;
   int L;
@@ -125,14 +165,17 @@ __device__ __forceinline__ float activate(float x, float gw) {
   return sp + (x >= 0.f ? r : 1.f - r) * gw;
 }
 
-// One element of the deferred chain's layer l, accumulator a: from l = 1 the
-// gate of the previous layer's kept sp joins the gates' sum, then this
-// layer's sp is kept.
-__device__ __forceinline__ void deferred_step(float a, float& prev, float& gsum, float gw, int l) {
-  const float gate = l > 0 ? (1.f - expf(-100.f * prev)) * gw : 0.f;
-  gsum = l > 1 ? gsum + gate : gate;
+// One element of the deferred chain's layer l of L, accumulator a: this
+// layer's sp is kept, and for l < L - 1 its gate joins the gates' sum (the
+// first one starts it), as the next layer's epilogue would add it.
+__device__ __forceinline__ void deferred_step(float a, float& sp, float& gsum, float gw, int l,
+                                              int L) {
   float e;
-  prev = shared_sp(a, &e);
+  sp = shared_sp(a, &e);
+  if (l + 1 < L) {
+    const float gate = (1.f - expf(-100.f * sp)) * gw;
+    gsum = l > 0 ? gsum + gate : gate;
+  }
 }
 
 __host__ __device__ long long n_tiles(long long n, int rows) { return (n + rows - 1) / rows; }
@@ -173,165 +216,217 @@ __global__ void __launch_bounds__(THREADS, 2) chain_f32_kernel(Chain c) {
 
 }  // namespace
 
-#if defined(__CUDACC__) && !defined(MLP_CHAIN_PROBE)
-// The tensor-core chains and the launches compile only under nvcc; the CPU
-// rehearsal (tests/test_torch_mlp_chain_emulated.py) compiles the rest.
+#ifndef MLP_CHAIN_PROBE
 namespace {
 
-using mlp::mma_bf16;
 using mlp::pack_bf16;
 
-// W^T as bf16 into wt[n][k] (row stride LDB), two k per 32-bit store.
-__device__ void stage_w(const float* __restrict__ w, unsigned* wt) {
-  for (int e = threadIdx.x; e < (WD / 2) * WD; e += THREADS) {
-    const int kk = e / WD, n = e % WD;
-    wt[n * (LDB / 2) + kk] = pack_bf16(w[(2 * kk) * WD + n], w[(2 * kk + 1) * WD + n]);
+constexpr int WG_THREADS = 128;          // a warpgroup
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* smem) {
+  const unsigned mis = unsigned(__cvta_generic_to_shared(smem)) & (ALIGN - 1);
+  return smem + ((ALIGN - mis) & (ALIGN - 1));
+}
+
+// Thread 0 fetches the W image into w_s with 8 bulk copies on *bar; every
+// thread waits for it before its first product (mlp::mbar_wait(bar, 0)).
+__device__ __forceinline__ void fetch_w(const Chain& c, unsigned char* w_s,
+                                        unsigned long long* bar) {
+  if (threadIdx.x == 0) {
+    mlp::mbar_init(bar, 8);
+    mlp::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 8; ++i)
+      mlp::bulk_load(w_s + i * (W_IMAGE / 8),
+                     static_cast<const unsigned char*>(c.wimg) + i * (W_IMAGE / 8), W_IMAGE / 8,
+                     bar);
+}
+
+// The chain: 3 warpgroups a block, each on its own 64-row tile, 4 k blocks
+// (32 KB) of A tile each; the deferred chain: 2 warpgroups on one tile,
+// one half of its columns each. One block per SM either way.
+constexpr int NWG = 3;
+constexpr int CHAIN_THREADS = NWG * WG_THREADS, DEF_THREADS = 2 * WG_THREADS;
+constexpr size_t SMEM_CHAIN = ALIGN + W_IMAGE + size_t(NWG) * 4 * A_KBLOCK + 16;
+constexpr size_t SMEM_DEF = ALIGN + W_IMAGE + size_t(4) * A_KBLOCK + 16;
+
+// Rows r0 .. r0 + 64 of x as bf16 into an A tile (k block b at a + 8 KB b),
+// zeros past n, by `threads` threads from thread t: one 16-byte load of 4
+// columns per thread and step, neighbouring threads on neighbouring columns.
+__device__ __forceinline__ void load_x(const Chain& c, long long r0, unsigned char* a, int t,
+                                       int threads) {
+  const float4* x4 = reinterpret_cast<const float4*>(c.x);
+#pragma unroll 4
+  for (int idx = t; idx < TR * WD / 4; idx += threads) {
+    const int r = idx / (WD / 4), k = 4 * (idx % (WD / 4));
+    const float4 v = r0 + r < c.n ? x4[(r0 + r) * (WD / 4) + k / 4] : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<uint2*>(a + (k / KB) * A_KBLOCK + mlp::sw128_offset(r, k % KB)) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
   }
 }
 
-// Rows r0 .. r0 + ROWS of x as bf16 into in[r][k] (row stride LDB); zeros past n.
-template <int ROWS>
-__device__ void load_tile(const Chain& c, long long r0, unsigned* in) {
-  const float2* x2 = reinterpret_cast<const float2*>(c.x);
-  for (int e = threadIdx.x; e < ROWS * (WD / 2); e += THREADS) {
-    const int r = e / (WD / 2), k2 = e % (WD / 2);
-    const float2 v = r0 + r < c.n ? x2[(r0 + r) * (WD / 2) + k2] : make_float2(0.f, 0.f);
-    in[r * (LDB / 2) + k2] = pack_bf16(v.x, v.y);
+// The warpgroup's products of 128 columns of a layer: acc = A W[:, n0 ..
+// n0 + 128] over 16 k-steps of m64n128k16, A's k block b at a + 8 KB b.
+__device__ __forceinline__ void half_products(float (&acc)[64], const unsigned char* a,
+                                              const unsigned char* w_s, int n0) {
+  mlp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WD / 16; ++kk) {
+    const unsigned long long da = mlp::wgmma_desc(a + (kk / 4) * A_KBLOCK + (kk % 4) * 32);
+    const unsigned long long db =
+        mlp::wgmma_desc(w_s + (kk / 4) * W_KBLOCK + n0 * 128 + (kk % 4) * 32);
+    mlp::wgmma_m64n128k16_bf16(acc, da, db, kk > 0);
+  }
+  mlp::wgmma_commit();
+}
+
+// The turn to issue products passes round the chain's warpgroups (barrier
+// 1 + wg: warpgroup wg's turn, 128 waiting + 128 passing threads);
+// warpgroup 0 takes the first, which the last one passes before its loop.
+// The last warpgroup does not pass after the block's final issue, so each
+// barrier sees as many arrivals as waits.
+__device__ __forceinline__ void turn_wait(int wg) { mlp::bar_sync(1 + wg, 2 * WG_THREADS); }
+__device__ __forceinline__ void turn_pass(int wg, bool last) {
+  if (!(wg == NWG - 1 && last)) mlp::bar_arrive(1 + (wg + 1) % NWG, 2 * WG_THREADS);
+}
+
+// The activated accumulators of a half as bf16 pairs: pk[2 j + h] holds
+// row g + 8 h, columns 8 j + 2 q and 8 j + 2 q + 1 of the fragment.
+__device__ __forceinline__ void pack_half(const float (&v)[64], unsigned (&pk)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pk[2 * j] = pack_bf16(v[4 * j], v[4 * j + 1]);
+    pk[2 * j + 1] = pack_bf16(v[4 * j + 2], v[4 * j + 3]);
   }
 }
 
-// acc[i][j][.] = in[16 i .. 16 i + 16, :] @ W[:, n0 + 8 j .. n0 + 8 j + 8] for
-// the warp's columns n0 = 32 warp, with the m16n8k16 fragment layouts
-// (g = lane / 4, t = lane % 4): A regs rows g / g + 8, k pairs 2t / 2t + 8;
-// B regs column g, k pairs 2t / 2t + 8; C rows g / g + 8, columns 2t, 2t + 1.
-template <int MT>
-__device__ __forceinline__ void tile_mma(const unsigned* in, const unsigned* wt,
-                                         float (&acc)[MT][4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = (threadIdx.x >> 5) * 32;
+// Columns 64 J .. 64 J + 64 of a packed half (8 n8 groups from group 8 J)
+// into one k block of the next layer's A tile; conflict-free: the 32 lanes
+// hit 8 rows x 4 words, the chunk XORed by the row.
+template <int J>
+__device__ __forceinline__ void store_kblock(unsigned char* blk, const unsigned (&pk)[32]) {
+  const int t = threadIdx.x & (WG_THREADS - 1), r = 16 * (t >> 5) + ((t & 31) >> 2), q = t & 3;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-#pragma unroll 2
-  for (int k2 = 0; k2 < WD / 2; k2 += 8) {   // k2 = k0 / 2, 16 k per step
-    unsigned b[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned* row = wt + (n0 + 8 * j + g) * (LDB / 2) + k2 + t;
-      b[j][0] = row[0];
-      b[j][1] = row[4];
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const unsigned* r_lo = in + (16 * i + g) * (LDB / 2) + k2 + t;
-      const unsigned* r_hi = r_lo + 8 * (LDB / 2);
-      const unsigned a0 = r_lo[0], a1 = r_hi[0], a2 = r_lo[4], a3 = r_hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a0, a1, a2, a3, b[j][0], b[j][1]);
-    }
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = 8 * J + jj;
+    *reinterpret_cast<unsigned*>(blk + mlp::sw128_offset(r, 8 * jj + 2 * q)) = pk[2 * j];
+    *reinterpret_cast<unsigned*>(blk + mlp::sw128_offset(r + 8, 8 * jj + 2 * q)) = pk[2 * j + 1];
   }
 }
 
-// Fragment element q of (i, j): row 16 i + g + 8 (q / 2), column n0 + 8 j + 2 t + q % 2.
-template <int MT>
-__device__ __forceinline__ void store_bf16(unsigned* in, const float (&v)[MT][4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = (threadIdx.x >> 5) * 32;
+// The half's 128 columns from n0, rows r0 .. r0 + 64 of out (f32).
+__device__ __forceinline__ void store_out(const Chain& c, long long r0, int n0,
+                                          const float (&v)[64]) {
+  const int t = threadIdx.x & (WG_THREADS - 1), q = t & 3;
+  const long long r = r0 + 16 * (t >> 5) + ((t & 31) >> 2);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col2 = (n0 + 8 * j) / 2 + t;
-      in[(16 * i + g) * (LDB / 2) + col2] = pack_bf16(v[i][j][0], v[i][j][1]);
-      in[(16 * i + g + 8) * (LDB / 2) + col2] = pack_bf16(v[i][j][2], v[i][j][3]);
-    }
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < c.n)
+        *reinterpret_cast<float2*>(c.out + (r + 8 * h) * WD + n0 + 8 * j + 2 * q) =
+            make_float2(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
 }
 
-template <int MT>
-__device__ __forceinline__ void store_out(const Chain& c, long long r0, const float (&v)[MT][4][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = (threadIdx.x >> 5) * 32;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
+// Shared-memory writes into an A tile made visible to the next wgmma, then
+// barrier id over n threads (the chain's warpgroup wg: its own, 1 + NWG +
+// wg).
+__device__ __forceinline__ void a_tile_ready(int id, int n) {
+  mlp::fence_proxy_async();
+  mlp::bar_sync(id, n);
+}
+
+// The chain, activation A. Warpgroup wg of a block owns tile NWG p + wg of
+// each group p of NWG tiles the block walks; each layer runs as two halves
+// of 128 columns, half 0's output waiting in 32 registers until half 1's
+// products are done, then the next layer's input written in place.
+template <int A>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) chain_bf16_kernel(Chain c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* w_s = aligned_smem(smem);
+  const int wg = threadIdx.x / WG_THREADS;
+  unsigned char* const a = w_s + W_IMAGE + wg * 4 * A_KBLOCK;
+  auto* bar = reinterpret_cast<unsigned long long*>(w_s + W_IMAGE + NWG * 4 * A_KBLOCK);
+  fetch_w(c, w_s, bar);
+  mlp::mbar_wait(bar, 0);
+  if (wg == NWG - 1) mlp::bar_arrive(1, 2 * WG_THREADS);   // warpgroup 0 takes the first turn
+  const long long groups = n_tiles(c.n, NWG * TR);
+  for (long long p = blockIdx.x; p < groups; p += gridDim.x) {
+    const bool last_group = p + gridDim.x >= groups;
+    load_x(c, (NWG * p + wg) * TR, a, threadIdx.x & (WG_THREADS - 1), WG_THREADS);
+    a_tile_ready(1 + NWG + wg, WG_THREADS);
+    for (int l = 0; l < c.L; ++l) {
+      const bool last_layer = l + 1 == c.L;
+      unsigned pk0[32];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const long long r = r0 + 16 * i + g + 8 * h;
-        if (r < c.n)
-          *reinterpret_cast<float2*>(c.out + r * WD + n0 + 8 * j + 2 * t) =
-              make_float2(v[i][j][2 * h], v[i][j][2 * h + 1]);
-      }
-}
-
-template <int A>
-__global__ void __launch_bounds__(THREADS, 1) chain_bf16_kernel(Chain c) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned* wt = reinterpret_cast<unsigned*>(smem);              // [WD][LDB] bf16
-  unsigned* in = reinterpret_cast<unsigned*>(smem + SMEM_W);     // [TR][LDB] bf16
-  constexpr int MT = TR / 16;
-  stage_w(c.w, wt);
-  for (long long tile = blockIdx.x; tile < n_tiles(c.n, TR); tile += gridDim.x) {
-    const long long r0 = tile * TR;
-    load_tile<TR>(c, r0, in);
-    __syncthreads();
-    for (int l = 0; l < c.L; ++l) {
-      float acc[MT][4][4];
-      tile_mma<MT>(in, wt, acc);
-      __syncthreads();  // every warp has read the layer's input
+        float acc[64];
+        turn_wait(wg);
+        half_products(acc, a, w_s, 128 * h);
+        turn_pass(wg, last_group && last_layer && h == 1);
+        mlp::wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][j][q] = activate<A>(acc[i][j][q], c.gw);
-      if (l + 1 < c.L) {
-        store_bf16<MT>(in, acc);
-        __syncthreads();
-      } else {
-        store_out<MT>(c, r0, acc);
+        for (int i = 0; i < 64; ++i) acc[i] = activate<A>(acc[i], c.gw);
+        if (last_layer) {
+          store_out(c, (NWG * p + wg) * TR, 128 * h, acc);
+        } else if (h == 0) {
+          pack_half(acc, pk0);
+        } else {   // both halves' products done: the next layer's input in place
+          unsigned pk1[32];
+          pack_half(acc, pk1);
+          store_kblock<0>(a, pk0);
+          store_kblock<1>(a + A_KBLOCK, pk0);
+          store_kblock<0>(a + 2 * A_KBLOCK, pk1);
+          store_kblock<1>(a + 3 * A_KBLOCK, pk1);
+          a_tile_ready(1 + NWG + wg, WG_THREADS);
+        }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) chain_deferred_kernel(Chain c) {
+// The deferred chain. Its gates' f32 sum, one per output element, would
+// take 128 registers a thread beside the accumulators if a warpgroup
+// owned a tile; here the block's two warpgroups share one 64-row tile,
+// warpgroup h its columns 128 h .. 128 h + 128 (64 accumulators and 64
+// sums a thread). Both meet on barrier 1 before the next layer's input is
+// written in place (both halves' products done) and after it.
+__global__ void __launch_bounds__(DEF_THREADS, 1) chain_deferred_kernel(Chain c) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned* wt = reinterpret_cast<unsigned*>(smem);
-  unsigned* in = reinterpret_cast<unsigned*>(smem + SMEM_W);     // [TR_DEF][LDB] bf16
-  constexpr int MT = TR_DEF / 16;
-  stage_w(c.w, wt);
-  for (long long tile = blockIdx.x; tile < n_tiles(c.n, TR_DEF); tile += gridDim.x) {
-    const long long r0 = tile * TR_DEF;
-    load_tile<TR_DEF>(c, r0, in);
-    __syncthreads();
-    float prev[MT][4][4], gsum[MT][4][4];   // the kept f32 sp, the gates' sum
+  unsigned char* w_s = aligned_smem(smem);
+  const int h = threadIdx.x / WG_THREADS;
+  unsigned char* const a = w_s + W_IMAGE;
+  auto* bar = reinterpret_cast<unsigned long long*>(w_s + W_IMAGE + 4 * A_KBLOCK);
+  fetch_w(c, w_s, bar);
+  mlp::mbar_wait(bar, 0);
+  for (long long tile = blockIdx.x; tile < n_tiles(c.n, TR); tile += gridDim.x) {
+    mlp::bar_sync(1, DEF_THREADS);   // the previous tile's products are done
+    load_x(c, tile * TR, a, threadIdx.x, DEF_THREADS);
+    a_tile_ready(1, DEF_THREADS);
+    float gsum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) gsum[i] = 0.f;
     for (int l = 0; l < c.L; ++l) {
-      float acc[MT][4][4];
-      tile_mma<MT>(in, wt, acc);
-      __syncthreads();
+      float acc[64];
+      half_products(acc, a, w_s, 128 * h);
+      mlp::wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < 64; ++i) deferred_step(acc[i], acc[i], gsum[i], c.gw, l, c.L);
+      if (l + 1 == c.L) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            deferred_step(acc[i][j][q], prev[i][j][q], gsum[i][j][q], c.gw, l);
-      if (l + 1 < c.L) {
-        store_bf16<MT>(in, prev);
-        __syncthreads();
+        for (int i = 0; i < 64; ++i) acc[i] += gsum[i];
+        store_out(c, tile * TR, 128 * h, acc);
+      } else {
+        unsigned pk[32];
+        pack_half(acc, pk);
+        mlp::bar_sync(1, DEF_THREADS);   // both halves' products done
+        store_kblock<0>(a + 2 * h * A_KBLOCK, pk);
+        store_kblock<1>(a + (2 * h + 1) * A_KBLOCK, pk);
+        a_tile_ready(1, DEF_THREADS);
       }
     }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) prev[i][j][q] += gsum[i][j][q];
-    store_out<MT>(c, r0, prev);
   }
 }
 
@@ -357,8 +452,9 @@ Kern chain_kernel_for(int act, bool bf16) {
   }
 }
 
-// Persistent grid: at most the SM count times the blocks an SM holds.
-int launch(Kern kern, const Chain& c, int rows, size_t smem, cudaStream_t st) {
+// Persistent grid: at most the SM count times the blocks an SM holds; a
+// block walks units of `rows` rows (a bf16 chain block: a group of tiles).
+int launch(Kern kern, const Chain& c, int rows, size_t smem, int threads, cudaStream_t st) {
   if (c.n <= 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
@@ -367,12 +463,12 @@ int launch(Kern kern, const Chain& c, int rows, size_t smem, cudaStream_t st) {
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return int(e);
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return int(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
   if (e != cudaSuccess) return int(e);
   if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
   const long long tiles = n_tiles(c.n, rows);
   const long long cap = (long long)sms * per_sm;
-  kern<<<unsigned(tiles < cap ? tiles : cap), THREADS, smem, st>>>(c);
+  kern<<<unsigned(tiles < cap ? tiles : cap), threads, smem, st>>>(c);
   return int(cudaGetLastError());
 }
 
@@ -380,25 +476,31 @@ int launch(Kern kern, const Chain& c, int rows, size_t smem, cudaStream_t st) {
 
 // Plain C interface for ctypes. Each returns 0 or the CUDA error code of the
 // set-up or the launch; neither synchronises.
-extern "C" int mlp_chain_launch(const float* x, const float* w, float* out, long long n, int L,
-                                int act, int bf16, float gate_w, void* stream) {
+// w: W [256, 256] f32 (the f32 chain); wimg: W's packed bf16 image (the
+// bf16 chains; ops/kernels/mlp_chain.py pack_w_image), 16-byte aligned.
+extern "C" int mlp_chain_launch(const float* x, const float* w, const void* wimg, float* out,
+                                long long n, int L, int act, int bf16, float gate_w,
+                                void* stream) {
   const Kern kern = chain_kernel_for(act, bf16 != 0);
   if (kern == nullptr || L < 1) return int(cudaErrorInvalidValue);
-  const Chain c{x, w, out, n, L, gate_w};
-  return launch(kern, c, TR, bf16 ? SMEM_BF16 : SMEM_F32, static_cast<cudaStream_t>(stream));
+  const Chain c{x, w, wimg, out, n, L, gate_w};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch(kern, c, NWG * TR, SMEM_CHAIN, CHAIN_THREADS, st)
+              : launch(kern, c, TR, SMEM_F32, THREADS, st);
 }
 
-extern "C" int mlp_chain_deferred_launch(const float* x, const float* w, float* out, long long n,
-                                         int L, float gate_w, void* stream) {
+extern "C" int mlp_chain_deferred_launch(const float* x, const void* wimg, float* out,
+                                         long long n, int L, float gate_w, void* stream) {
   if (L < 1) return int(cudaErrorInvalidValue);
-  const Chain c{x, w, out, n, L, gate_w};
-  return launch(chain_deferred_kernel, c, TR_DEF, SMEM_DEF, static_cast<cudaStream_t>(stream));
+  const Chain c{x, nullptr, wimg, out, n, L, gate_w};
+  return launch(chain_deferred_kernel, c, TR, SMEM_DEF, DEF_THREADS,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mlp_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-#endif  // __CUDACC__ && !MLP_CHAIN_PROBE
+#endif  // !MLP_CHAIN_PROBE
 
 #ifdef MLP_CHAIN_PROBE
 // Instruction probes, never launched: chip_smoke.py builds them alone
@@ -422,10 +524,10 @@ template __global__ void mlp_chain_act_probe<EXPM1_GATE>(const float*, float*, f
 template __global__ void mlp_chain_act_probe<RECIP_APPROX>(const float*, float*, float);
 template __global__ void mlp_chain_act_probe<RECIP_NEWTON>(const float*, float*, float);
 
-// the deferred layer with l read at run time, as the chain's loop has it
-__global__ void mlp_chain_deferred_probe(const float* a, float* prev, float* gsum, float gw,
-                                         int l) {
+// the deferred layer with l and L read at run time, as the chain's loop has them
+__global__ void mlp_chain_deferred_probe(const float* a, float* sp, float* gsum, float gw, int l,
+                                         int L) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  deferred_step(a[i], prev[i], gsum[i], gw, l);
+  deferred_step(a[i], sp[i], gsum[i], gw, l, L);
 }
 #endif  // MLP_CHAIN_PROBE

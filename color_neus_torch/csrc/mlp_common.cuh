@@ -3,8 +3,9 @@
 // pipeline; mlp_chain.cu: the chain microbenchmark): the positional
 // encoding and its derivatives, the softplus(beta=100), the exact f32
 // register-tiled layer product over a 64-point tile, the bf16 tensor-core
-// instruction with its operand packing, and the asynchronous bulk copy into
-// shared memory with its mbarrier.
+// instruction with its operand packing, the asynchronous bulk copy into
+// shared memory with its mbarrier, and Hopper's warpgroup product (wgmma)
+// with its descriptors, fences and the named barriers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -197,6 +198,116 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 #else
   memcpy(dst, src, bytes);
   emu_mbar_arrive(bar);
+#endif
+}
+
+// ---- wgmma: Hopper's warpgroup product, operands in shared memory ----
+// The operand layout every wgmma of the port reads (K-major, 128-byte
+// swizzle): a [rows][64] bf16 block of 128-byte rows, 8-row groups 1024
+// bytes apart (SBO), the block 1024-byte aligned; the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8) (the hardware applies the XOR to
+// address bits 4-6 from bits 7-9). A k16 slice of the block starts 32 k
+// bytes into it. The CPU rehearsal (tests/cuda_emu) decodes the same
+// descriptor and reads the same bytes.
+
+// Byte offset of element (r, k) of such a block, k < 64.
+__host__ __device__ __forceinline__ unsigned sw128_offset(int r, int k) {
+  return unsigned(r) * 128u + ((unsigned(k >> 3) ^ unsigned(r & 7)) << 4) + unsigned(k & 7) * 2u;
+}
+
+// The descriptor of a K-major, 128-byte swizzled operand at p (shared
+// memory): start address >> 4, LBO 1 (unused by this layout), SBO 1024
+// bytes, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ unsigned long long wgmma_desc(const void* p) {
+  const unsigned long long addr = (unsigned long long)__cvta_generic_to_shared(p);
+  return ((addr & 0x3ffffull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
+// Before a warpgroup's first wgmma and after any other instruction wrote
+// its accumulator registers.
+__device__ __forceinline__ void wgmma_fence() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#else
+  emu_wgmma_fence();
+#endif
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+#endif
+}
+
+// Until every committed wgmma of the warpgroup has completed (its
+// accumulators written, its shared-memory operands read).
+__device__ __forceinline__ void wgmma_wait_all() {
+#ifdef __CUDACC__
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#else
+  emu_wgmma_wait();
+#endif
+}
+
+// Shared-memory writes of this thread made visible to the async proxy
+// (wgmma's operand reads); then a barrier before the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+#ifdef __CUDACC__
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
+}
+
+// Named barriers (0 is __syncthreads'): bar_sync waits until n threads
+// have arrived at barrier id, counting itself; bar_arrive only arrives.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+#ifdef __CUDACC__
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+#else
+  emu_bar_sync(id, n);
+#endif
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+#ifdef __CUDACC__
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
+#else
+  emu_bar_arrive(id, n);
+#endif
+}
+
+// d (+)= A B over one m64n128k16 step, bf16 operands from shared memory (the
+// descriptors a: 64 rows of A, b: 128 rows of B^T), f32 accumulators; d is
+// added to where scale_d is nonzero, overwritten where it is 0. Fragment
+// of thread t of the warpgroup (w = t / 32, g = t % 32 / 4, q = t % 4):
+// d[4 j + 2 h + e] is row 16 w + g + 8 h, column 8 j + 2 q + e (PTX ISA,
+// wgmma .m64nNk16 f32 accumulator layout, N = 128).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], unsigned long long a,
+                                                     unsigned long long b, int scale_d) {
+#ifdef __CUDACC__
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+#else
+  emu_wgmma_bf16(d, 128, a, b, scale_d);
 #endif
 }
 

@@ -19,8 +19,10 @@ gates at 1.0.
 Two implementations of each:
   * launch_chain / launch_chain_deferred: for CUDA tensors, the
     hand-written kernels of csrc/mlp_chain.cu (its note gives the bound
-    and the design); each counts its launches in .launches and raises on a
-    build or launch failure. For CPU tensors they return the plain version.
+    and the design; the bf16 ones on wgmma, reading W from the image
+    pack_w_image makes on the card once per call); each counts its
+    launches in .launches and raises on a build or launch failure. For CPU
+    tensors they return the plain version.
   * chain_plain / chain_deferred_plain: the same arithmetic in plain
     PyTorch, on any device; what tests and chip_smoke.py hold the kernels
     against.
@@ -153,6 +155,20 @@ def chain_deferred_plain(x, w, L: int, gate_w: float = GATE_W):
     return x + acc
 
 
+def pack_w_image(w):
+    """W [256, 256] f32 ([in, out]) as the byte image the bf16 kernels'
+    wgmma B descriptors read, a plain permutation of bf16 W^T: four k
+    blocks (k 64 b .. 64 b + 64), each 256 rows n of 128 bytes (the 64 k of
+    that block), the 16-byte chunk c (k 8 c .. 8 c + 8) of row n stored at
+    chunk c ^ (n % 8), the 128-byte swizzle (csrc/mlp_common.cuh,
+    sw128_offset). Returns [4, 256, 8, 8] bf16, contiguous (128 KB), on
+    w's device."""
+    wt = w.t().to(torch.bfloat16).reshape(WIDTH, 4, 8, 8).permute(1, 0, 2, 3)   # b, n, c, e
+    n = torch.arange(WIDTH, device=w.device)
+    chunk = torch.arange(8, device=w.device)[None, :] ^ (n % 8)[:, None]          # [n, p] -> c
+    return wt[:, n[:, None], chunk].contiguous()
+
+
 def _check(x, w, L):
     if x.dim() != 2 or x.shape[1] != WIDTH or tuple(w.shape) != (WIDTH, WIDTH):
         raise ValueError(f"mlp_chain: x must be [N, {WIDTH}] and w [{WIDTH}, {WIDTH}]; got "
@@ -162,6 +178,8 @@ def _check(x, w, L):
             raise ValueError(f"mlp_chain: {name} must be contiguous float32; got {t.dtype}")
     if w.device != x.device:
         raise ValueError(f"mlp_chain: x on {x.device}, w on {w.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("mlp_chain: x must be 16-byte aligned")
     if L < 1:
         raise ValueError(f"mlp_chain: L must be >= 1; got {L}")
 
@@ -188,8 +206,10 @@ def launch_chain(x, w, L: int, act, bf16: bool = True, gate_w: float = GATE_W):
         return chain_plain(x, w, L, act, bf16, gate_w)
     lib = _library()
     out = torch.empty_like(x)
-    rc = lib.mlp_chain_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], L, a,
-                              int(bool(bf16)), float(gate_w), _stream(x.device))
+    wimg = pack_w_image(w) if bf16 else None
+    rc = lib.mlp_chain_launch(x.data_ptr(), w.data_ptr(), None if wimg is None else wimg.data_ptr(),
+                              out.data_ptr(), x.shape[0], L, a, int(bool(bf16)), float(gate_w),
+                              _stream(x.device))
     _raise_on(lib, rc, "kernel launch")
     launch_chain.launches += 1
     return out
@@ -208,7 +228,8 @@ def launch_chain_deferred(x, w, L: int, gate_w: float = GATE_W):
         return chain_deferred_plain(x, w, L, gate_w)
     lib = _library()
     out = torch.empty_like(x)
-    rc = lib.mlp_chain_deferred_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0],
+    wimg = pack_w_image(w)
+    rc = lib.mlp_chain_deferred_launch(x.data_ptr(), wimg.data_ptr(), out.data_ptr(), x.shape[0],
                                        L, float(gate_w), _stream(x.device))
     _raise_on(lib, rc, "deferred kernel launch")
     launch_chain_deferred.launches += 1
@@ -223,7 +244,7 @@ def _library():
     lib = build.load(KERNEL)
     if lib.mlp_chain_launch.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.mlp_chain_launch.argtypes = [p, p, p, ll, i, i, i, f, p]
+        lib.mlp_chain_launch.argtypes = [p, p, p, p, ll, i, i, i, f, p]
         lib.mlp_chain_deferred_launch.argtypes = [p, p, p, ll, i, f, p]
         for fn in (lib.mlp_chain_launch, lib.mlp_chain_deferred_launch):
             fn.restype = i

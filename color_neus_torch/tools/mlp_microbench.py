@@ -25,8 +25,9 @@ chain. Prints ms per call (CUDA events; the host clock with --device cpu)
 and TFLOP/s (2 G T 256^2 L flops) per line.
 
 On the TPU, T was the VMEM block. Here rows are independent and the
-kernel tiles them with its own constant (64 rows, 32 for the deferred
-chain), so T and G only set the row count G*T.
+kernel tiles them with its own constant (64 rows; the bf16 chains give
+each of a block's two warpgroups one such tile), so T and G only set the
+row count G*T.
 """
 
 from __future__ import annotations

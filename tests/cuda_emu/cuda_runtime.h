@@ -23,6 +23,18 @@
 // expected and the pending arrivals and the count of completed phases), so
 // a slab that is overwritten before every warp has released it, or read
 // from the wrong stage, shows in the results.
+//
+// The warpgroup product wgmma.mma_async m64nNk16 bf16 -> f32 (mlp::wgmma_*)
+// decodes its shared-memory descriptors as the hardware does (start
+// address, SBO, the 128-byte swizzle applied to address bits 4-6 from bits
+// 7-9; only that layout is taken) relative to emu_smem_base, the block's
+// shared memory, and each thread computes its own accumulators (the PTX
+// fragment layout) at issue, summing the 16 products in k order in f32.
+// wgmma.fence and wait_group are meetings of the warpgroup's 128 threads
+// (wait_group: no thread writes an operand before every warp has read
+// it), commit_group nothing. Named barriers (bar.sync / bar.arrive id, n)
+// count real arrivals, so a turn passed once too often or too rarely
+// deadlocks or races here as on the card.
 #pragma once
 #include <math.h>
 #include <string.h>
@@ -32,6 +44,7 @@
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <thread>
 
 using std::max;
@@ -56,7 +69,9 @@ inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -154,6 +169,72 @@ inline void emu_ldmatrix_x4(unsigned (&r)[4], const void* row) {
   for (int i = 0; i < 4; ++i) memcpy(&r[i], static_cast<const char*>(rows[8 * i + g]) + 4 * t, 4);
 }
 
+// ---- wgmma (warpgroup = 4 warps = 128 threads) ----
+inline unsigned char* emu_smem_base;   // the block's shared memory: address 0
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return size_t(static_cast<const unsigned char*>(p) - emu_smem_base);
+}
+
+inline EmuWarpBarrier emu_wg_barrier[8];
+inline void emu_warpgroup_sync() {
+  EmuWarpBarrier& b = emu_wg_barrier[threadIdx.x >> 7];
+  const int phase = b.phase.load(std::memory_order_acquire);
+  if (b.count.fetch_add(1, std::memory_order_acq_rel) == 127) {
+    b.count.store(0, std::memory_order_relaxed);
+    b.phase.store(phase + 1, std::memory_order_release);
+  } else {
+    while (b.phase.load(std::memory_order_acquire) == phase) std::this_thread::yield();
+  }
+}
+inline void emu_wgmma_fence() { emu_warpgroup_sync(); }
+inline void emu_wgmma_wait() { emu_warpgroup_sync(); }
+
+// Element (row, k) of a K-major operand with the 128-byte swizzle, k < 16.
+inline float emu_sw128(unsigned long long desc, int row, int k) {
+  if ((desc >> 62) != 1) abort();   // only the 128-byte swizzle
+  const size_t start = size_t(desc & 0x3fffu) << 4, sbo = size_t((desc >> 32) & 0x3fffu) << 4;
+  size_t addr = start + size_t(row / 8) * sbo + size_t(row % 8) * 128 + size_t(k) * 2;
+  addr ^= ((addr >> 7) & 7u) << 4;
+  uint16_t v;
+  memcpy(&v, emu_smem_base + addr, 2);
+  return emu_bf16_float(v);
+}
+
+inline void emu_wgmma_bf16(float* d, int n, unsigned long long a, unsigned long long b,
+                           int scale_d) {
+  const int t = threadIdx.x & 127, w = t >> 5, g = (t & 31) >> 2, q = t & 3;
+  for (int j = 0; j < n / 8; ++j)
+    for (int h = 0; h < 2; ++h)
+      for (int e = 0; e < 2; ++e) {
+        const int row = 16 * w + g + 8 * h, col = 8 * j + 2 * q + e;
+        float acc = scale_d ? d[4 * j + 2 * h + e] : 0.f;
+        for (int k = 0; k < 16; ++k) acc = fmaf(emu_sw128(a, row, k), emu_sw128(b, col, k), acc);
+        d[4 * j + 2 * h + e] = acc;
+      }
+}
+
+// ---- named barriers: a count and a generation each ----
+struct EmuNamedBarrier {
+  std::atomic<int> count{0};
+  std::atomic<int> gen{0};
+};
+inline EmuNamedBarrier emu_named_barrier[16];
+inline int emu_bar_arrive_at(int id, int n) {   // returns the generation arrived in
+  EmuNamedBarrier& b = emu_named_barrier[id];
+  const int gen = b.gen.load(std::memory_order_acquire);
+  if (b.count.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+    b.count.store(0, std::memory_order_relaxed);
+    b.gen.store(gen + 1, std::memory_order_release);
+  }
+  return gen;
+}
+inline void emu_bar_arrive(int id, int n) { emu_bar_arrive_at(id, n); }
+inline void emu_bar_sync(int id, int n) {
+  const int gen = emu_bar_arrive_at(id, n);
+  while (emu_named_barrier[id].gen.load(std::memory_order_acquire) == gen)
+    std::this_thread::yield();
+}
+
 // ---- mbarrier: bits 0-15 expected arrivals, 16-31 pending, 32-63 completed phases ----
 inline void emu_mbar_init(unsigned long long* bar, unsigned count) {
   std::atomic_ref<unsigned long long>(*bar).store(count | (count << 16), std::memory_order_release);
@@ -178,7 +259,8 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
 typedef void* cudaStream_t;
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };

@@ -1,10 +1,13 @@
 // Appended to csrc/mlp_chain.cu (same translation unit, so it reaches the
 // kernels in its unnamed namespace) by tests/test_torch_mlp_chain_emulated.py.
-// Usage: emu DIR. Reads from DIR: meta.i64 (n, L, act, blocks, n_probe),
-// f32.f32 (gate_w), x.f32 [n, 256], w.f32 [256, 256], probe.f32 [n_probe];
-// runs the f32 chain kernel of activation `act` block after block on
-// `blocks` blocks (the tiles shared out as the persistent grid shares
-// them) and writes out.f32 [n, 256]; evaluates every activation and the
+// Usage: emu DIR. Reads from DIR: meta.i64 (n, L, act, blocks, n_probe,
+// kernel), f32.f32 (gate_w), x.f32 [n, 256], w.f32 [256, 256], wimg.bin
+// (W's packed bf16 image), probe.f32 [n_probe]; runs the chain kernel of
+// activation `act` (kernel 0: the f32 chain, 1: the bf16 chain, 2: the
+// deferred chain, which ignores act) block after block on `blocks` blocks
+// (at most one per unit of rows a block walks, as the launch caps the
+// grid; the tiles shared out as the persistent grid shares them) and writes
+// out.f32 [n, 256]; evaluates every activation and the
 // deferred chain's sp on the probe values and writes act.f32 [N_ACT + 1,
 // n_probe]. The output starts as garbage, so a row the kernel did not write
 // shows.
@@ -18,7 +21,8 @@ emu_dim3 blockIdx, blockDim, gridDim;
 std::barrier<>* emu_barrier;
 float emu_shuffle[256];
 namespace {
-alignas(128) unsigned char smem[SMEM_F32];
+constexpr size_t SMEM_MAX = std::max({SMEM_F32, SMEM_CHAIN, SMEM_DEF});
+alignas(1024) unsigned char smem[SMEM_MAX];
 }
 
 static std::vector<char> slurp(const std::string& path) {
@@ -42,17 +46,24 @@ static void dump(const std::string& path, const std::vector<float>& v) {
 static const float* F(const std::vector<char>& b) { return reinterpret_cast<const float*>(b.data()); }
 
 template <int A>
-static void run_chain(const Chain& c, int blocks) {
+static void run_chain(const Chain& c, int blocks, int kernel) {
+  // the launch's grid: at most one block per unit of rows it walks
+  const int threads_per_block = kernel == 0 ? THREADS : kernel == 1 ? CHAIN_THREADS : DEF_THREADS;
+  const int rows = kernel == 1 ? NWG * TR : TR;
+  blocks = int(std::min<long long>(blocks, n_tiles(c.n, rows)));
   gridDim.x = blocks;
-  std::barrier<> bar(THREADS);
+  emu_smem_base = smem;
+  std::barrier<> bar(threads_per_block);
   emu_barrier = &bar;
   for (int b = 0; b < blocks; ++b) {
     blockIdx.x = b;
     std::vector<std::thread> threads;
-    for (int t = 0; t < THREADS; ++t)
-      threads.emplace_back([&c, t] {
+    for (int t = 0; t < threads_per_block; ++t)
+      threads.emplace_back([&c, t, kernel] {
         threadIdx.x = t;
-        chain_f32_kernel<A>(c);
+        if (kernel == 0) chain_f32_kernel<A>(c);
+        else if (kernel == 1) chain_bf16_kernel<A>(c);
+        else chain_deferred_kernel(c);
       });
     for (auto& th : threads) th.join();
   }
@@ -68,22 +79,23 @@ int main(int argc, char** argv) {
   const std::string d = argv[1];
   const auto meta = slurp(d + "/meta.i64"), fl = slurp(d + "/f32.f32");
   const auto x = slurp(d + "/x.f32"), w = slurp(d + "/w.f32"), pr = slurp(d + "/probe.f32");
+  const auto wimg = slurp(d + "/wimg.bin");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const long long n = m[0], n_probe = m[4];
-  const int L = int(m[1]), act = int(m[2]), blocks = int(m[3]);
+  const int L = int(m[1]), act = int(m[2]), blocks = int(m[3]), kernel = int(m[5]);
   const float gw = F(fl)[0];
   std::vector<float> out(size_t(n) * WD, 12345.f);
-  const Chain c{F(x), F(w), out.data(), n, L, gw};
+  const Chain c{F(x), F(w), wimg.data(), out.data(), n, L, gw};
   switch (act) {
-    case NONE: run_chain<NONE>(c, blocks); break;
-    case RELU: run_chain<RELU>(c, blocks); break;
-    case SOFTPLUS: run_chain<SOFTPLUS>(c, blocks); break;
-    case SIGMOID: run_chain<SIGMOID>(c, blocks); break;
-    case SP_GATE: run_chain<SP_GATE>(c, blocks); break;
-    case SHARED: run_chain<SHARED>(c, blocks); break;
-    case EXPM1_GATE: run_chain<EXPM1_GATE>(c, blocks); break;
-    case RECIP_APPROX: run_chain<RECIP_APPROX>(c, blocks); break;
-    case RECIP_NEWTON: run_chain<RECIP_NEWTON>(c, blocks); break;
+    case NONE: run_chain<NONE>(c, blocks, kernel); break;
+    case RELU: run_chain<RELU>(c, blocks, kernel); break;
+    case SOFTPLUS: run_chain<SOFTPLUS>(c, blocks, kernel); break;
+    case SIGMOID: run_chain<SIGMOID>(c, blocks, kernel); break;
+    case SP_GATE: run_chain<SP_GATE>(c, blocks, kernel); break;
+    case SHARED: run_chain<SHARED>(c, blocks, kernel); break;
+    case EXPM1_GATE: run_chain<EXPM1_GATE>(c, blocks, kernel); break;
+    case RECIP_APPROX: run_chain<RECIP_APPROX>(c, blocks, kernel); break;
+    case RECIP_NEWTON: run_chain<RECIP_NEWTON>(c, blocks, kernel); break;
     default: return 3;
   }
   std::vector<float> acts(size_t(N_ACT + 1) * n_probe);

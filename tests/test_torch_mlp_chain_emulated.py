@@ -4,22 +4,39 @@ compiled for the CPU and held against its plain PyTorch versions.
 As tests/test_torch_ray_march_emulated.py does for rows 3 and 4: the source
 runs through a host C++ compiler against tests/cuda_emu/cuda_runtime.h,
 one std::thread per CUDA thread with a barrier for __syncthreads
-(tests/cuda_emu/harness_chain.cpp). What runs here is the f32 chain (every
-variant, 150 rows: two 64-row tiles and a ragged one, walked by 2
-persistent blocks) and the activation device functions on their own, on
-edge values. The bf16 chains (the tool's main arm and the deferred chain)
-are written with mma.sync tensor-core instructions, which the stand-in
-runtime does not emulate: they compile only under nvcc and are held
-against their plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 9). So is the approximate reciprocal of `recip~`,
-which divides here. Skips without a C++20 compiler.
+(tests/cuda_emu/harness_chain.cpp). What runs here, on 150 rows (two full
+64-row tiles and a ragged one) and L = 3, on at most 2 persistent blocks
+(the launch's grid cap: one block per group of tiles), and 400 rows on
+one block that walks its groups:
+  * the f32 chain, every variant, and the activation device functions on
+    their own, on edge values;
+  * the bf16 chains on wgmma, every variant and the deferred chain: the
+    stand-in runtime emulates wgmma.mma_async m64nNk16 bf16 from the
+    shared-memory descriptors (start address, SBO, the 128-byte swizzle),
+    the warpgroup's fence and wait, the named barriers of the two
+    warpgroups' ping-pong, and the bulk copy of the packed W image
+    (ops/kernels/mlp_chain.py pack_w_image) on its mbarrier;
+  * two mutants that must fail: the W image packed with the swizzle's
+    phase off by one chunk, and a copy of the source whose warpgroups
+    store their results into each other's tiles.
+The approximate reciprocal of `recip~` divides here; the card checks it
+(tests/test_torch_cuda.py, chip_smoke.py phase 9). Skips without a C++20
+compiler.
 
-Tolerances: the chain at 1e-5 absolute (f32 summation order over 3
+Tolerances: the f32 chain at 1e-5 absolute (f32 summation order over 3
 layers of 256-term products of order-1 values: read <= 3.6e-6); the
 activations at 4 f32 ulps relative plus 2.5e-7 absolute (glibc's expf /
 log1pf against PyTorch's vectorised ones, composed: read <= 1.4 ulp;
 the gates 1 - r and 1 - exp(-100 sp) cancel near 0, where an ulp of 1.0
-is the error)."""
+is the error). The bf16 chains against chain_plain(..., bf16=True) /
+chain_deferred_plain, whose operands round alike: the emulated wgmma sums
+each output's 256 products in k order in f32, PyTorch's CPU matmul in
+another order, so a layer input within rounding of a bf16 midpoint rounds
+to the other neighbour (2^-8 of it) and moves the next layer by |w| times
+that (~1.6e-3 at these values). On these inputs none flipped: the bf16
+chains read <= 1.4e-6 with the gates at weight 1.0 (expm1gate; the others
+<= 2.4e-7, none and relu 0). ATOL_BF16 = 1e-3 holds that with headroom;
+the mutants read 2.0 (swizzle) and 1.2e4 (tiles swapped: unwritten rows)."""
 
 import os
 import re
@@ -36,18 +53,24 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "color_neus_torch", "csrc")
 N, L, BLOCKS = 150, 3, 2
 ATOL_CHAIN = 1e-5
+F32, BF16, DEFERRED = 0, 1, 2   # the harness's kernels
+ATOL_BF16 = 1e-3
+# the tiles' stores swapped between warpgroups 0 and 1
+TILE_STORE = "store_out(c, (NWG * p + wg) * TR, 128 * h, acc);"
+TILE_STORE_MUTANT = "store_out(c, (NWG * p + (wg ^ 1)) * TR, 128 * h, acc);"
 RTOL_ACT = 4 * 2.0 ** -23
 ATOL_ACT = 2.5e-7
 
 
-@pytest.fixture(scope="module")
-def emulator(tmp_path_factory):
+def _compile(out, mutate=False):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
-    out = tmp_path_factory.mktemp("cuda_emu_chain")
     with open(os.path.join(CSRC, "mlp_chain.cu")) as f:
         src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)
+    if mutate:
+        assert TILE_STORE in src
+        src = src.replace(TILE_STORE, TILE_STORE_MUTANT)
     with open(os.path.join(HERE, "cuda_emu", "harness_chain.cpp")) as f:
         src += f.read()
     path = out / "emu.cpp"
@@ -62,6 +85,11 @@ def emulator(tmp_path_factory):
     return exe
 
 
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    return _compile(tmp_path_factory.mktemp("cuda_emu_chain"))
+
+
 def probe_values():
     """Seeded values plus the edges: 0, the 100 x = 30 threshold and its f32
     neighbours, exp(100 x) overflow (x > ~0.887), exp(-100 |x|) underflow
@@ -74,11 +102,16 @@ def probe_values():
                            (0.05 * rng.randn(500)).astype(np.float32)])
 
 
-def _run(exe, d, x, w, act, gate_w, pr):
-    np.asarray([x.shape[0], L, act, BLOCKS, pr.size], np.int64).tofile(d / "meta.i64")
+def _image(w):
+    return MC.pack_w_image(torch.from_numpy(w)).view(torch.int16).numpy()
+
+
+def _run(exe, d, x, w, act, gate_w, pr, kernel=F32, image=None, blocks=BLOCKS):
+    np.asarray([x.shape[0], L, act, blocks, pr.size, kernel], np.int64).tofile(d / "meta.i64")
     np.asarray([gate_w], np.float32).tofile(d / "f32.f32")
     for name, t in (("x", x), ("w", w), ("probe", pr)):
         t.astype(np.float32).tofile(d / f"{name}.f32")
+    (_image(w) if image is None else image).tofile(d / "wimg.bin")
     subprocess.run([exe, str(d)], check=True, timeout=600)
     out = np.fromfile(d / "out.f32", np.float32).reshape(x.shape)
     acts = np.fromfile(d / "act.f32", np.float32).reshape(len(MC.ACTIVATIONS) + 1, pr.size)
@@ -101,3 +134,58 @@ def test_emulated_chain_f32_matches_plain(emulator, tmp_path, act):
                                    err_msg=name)
     np.testing.assert_allclose(acts[-1], MC.act_sp_only(p).numpy(), rtol=RTOL_ACT, atol=ATOL_ACT,
                                err_msg="sp only")
+
+
+def _inputs(seed, rows=N):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(rows, MC.WIDTH).astype(np.float32)
+    w = (0.06 * rng.randn(MC.WIDTH, MC.WIDTH)).astype(np.float32)
+    return x, w
+
+
+def _bf16_case(exe, d, act, image=None, rows=N, blocks=BLOCKS):
+    """The emulated bf16 chain of `act` ("deferred": the deferred chain),
+    the gates at weight 1.0, and its plain version."""
+    x, w = _inputs(100 + len(MC.ACTIVATIONS) if act == "deferred" else 100 + MC.act_id(act),
+                   rows)
+    pr = probe_values()[:8]
+    if act == "deferred":
+        out, _ = _run(exe, d, x, w, 0, 1.0, pr, DEFERRED, image, blocks)
+        want = MC.chain_deferred_plain(torch.from_numpy(x), torch.from_numpy(w), L, 1.0)
+    else:
+        out, _ = _run(exe, d, x, w, MC.act_id(act), 1.0, pr, BF16, image, blocks)
+        want = MC.chain_plain(torch.from_numpy(x), torch.from_numpy(w), L, act, bf16=True,
+                              gate_w=1.0)
+    return out, want.numpy()
+
+
+@pytest.mark.parametrize("act", [n for n, _ in MC.ACTIVATIONS] + ["deferred"])
+def test_emulated_chain_bf16_matches_plain(emulator, tmp_path, act):
+    out, want = _bf16_case(emulator, tmp_path, act)
+    np.testing.assert_allclose(out, want, rtol=0, atol=ATOL_BF16, err_msg=act)
+
+
+@pytest.mark.parametrize("act", ["sp+gate", "deferred"])
+def test_emulated_chain_bf16_one_block_walks_groups(emulator, tmp_path, act):
+    """One persistent block walks every tile it owns: 400 rows are 3
+    groups of the chain's 3 x 64 rows (the last ragged), 7 of the deferred
+    chain's 64-row tiles."""
+    out, want = _bf16_case(emulator, tmp_path, act, rows=400, blocks=1)
+    np.testing.assert_allclose(out, want, rtol=0, atol=ATOL_BF16, err_msg=act)
+
+
+def test_emulated_chain_bf16_swizzle_mutant_fails(emulator, tmp_path):
+    """The W image with the swizzle's phase off by one chunk (chunk c of
+    row n at c ^ (n % 8) ^ 1) must fail."""
+    _, w = _inputs(100 + MC.act_id("softplus"))
+    img = _image(w).reshape(4, MC.WIDTH, 8, 8)[:, :, np.arange(8) ^ 1]
+    out, want = _bf16_case(emulator, tmp_path, "softplus", np.ascontiguousarray(img))
+    assert np.abs(out - want).max() > 10 * ATOL_BF16
+
+
+def test_emulated_chain_bf16_tiles_swapped_mutant_fails(tmp_path_factory, tmp_path):
+    """A copy of the source whose warpgroups 0 and 1 store their results into
+    each other's tiles must fail."""
+    exe = _compile(tmp_path_factory.mktemp("cuda_emu_chain_mutant"), mutate=True)
+    out, want = _bf16_case(exe, tmp_path, "none")
+    assert np.abs(out - want).max() > 10 * ATOL_BF16
