@@ -6,8 +6,11 @@
 Phases; any failure exits non-zero and prints no result:
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from color_neus_torch/csrc (all at once) while g++ builds the
-     repo's csrc/marching_tet.cpp; cuobjdump -sass of rows 3-6 must show
-     HMMA.16816.F32.BF16 (their products on the tensor cores); rows 1-2's
+     repo's csrc/marching_tet.cpp; cuobjdump -sass of rows 3 and 5 must
+     show HMMA.16816.F32.BF16 (their products on the tensor cores), and of
+     rows 4 and 6 HGMMA (their products on wgmma) and a bulk copy (UBLKCP:
+     the weight slabs and the weight-grad operands), with 0 bytes of spills
+     in the ptxas report, their registers printed; rows 1-2's
      kernel variants print HMMA, their weight ring's bulk copies (UBLKCP),
      FCHK and every CALL, and their resident blocks per SM: the bf16 ones
      must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
@@ -344,14 +347,18 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The `..._kernel` identifier inside a mangled name: the one whose
-    length prefix (a suffix of some digit run) matches it."""
+    """The `..._kernel` identifier inside a mangled name: the shortest one
+    whose length prefix (a suffix of some digit run) matches it. The
+    shortest: the unnamed namespace's name carries a hash of the source's
+    path, whose digits can prefix a longer run that also ends in
+    `_kernel` (`..._cu_bc59753821chain_deferred_kernel`)."""
+    found = []
     for m in re.finditer(r"(?=(\d+))", mangled):
         start = m.start() + len(m.group(1))
         ident = mangled[start:start + int(m.group(1))]
         if ident.endswith("_kernel"):
-            return ident
-    return mangled[:64]
+            found.append(ident)
+    return min(found, key=len) if found else mangled[:64]
 
 
 def cuda_ms(fn, reps=20, warmup=3) -> float:
@@ -498,6 +505,31 @@ def chain_sass_check(lib_path):
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"{fn}: spills or no ptxas report: {r}")
     check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
+
+
+def backward_sass_check(kernel, lib_path):
+    """Phase 1 for rows 3-6 (csrc/point_pipeline.cu, csrc/ray_march.cu):
+    the forward kernels (rows 3, 5) run their products on the tensor cores
+    (HMMA.16816.F32.BF16 in the SASS); the backward kernels (rows 4, 6) run
+    theirs on wgmma (HGMMA), feed its weights and weight-grad operands by
+    bulk copies (UBLKCP) and spill nothing (ptxas -v); their registers are
+    printed."""
+    rep = ptxas_report(kernel)
+    seen = 0
+    for fn, c in sass_counts(lib_path).items():
+        r = rep.get(fn, {})
+        print(f"[1] SASS {kernel} {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['HGMMA']} HGMMA, "
+              f"{c['UBLKCP']} UBLKCP, {c['FFMA']} FFMA | {r.get('registers')} registers, spill "
+              f"stores / loads {r.get('spill_stores')} / {r.get('spill_loads')} bytes", flush=True)
+        if fn.endswith("_fwd_kernel"):
+            check(c["HMMA"] > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
+        elif fn.endswith("_bwd_kernel"):
+            seen += 1
+            check(c["HGMMA"] > 0, f"{fn}: products not on wgmma (no HGMMA in its SASS)")
+            check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
+            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                  f"{fn}: spills or no ptxas report: {r}")
+    check(seen == 1, f"{kernel}: {seen} backward kernels in the SASS, want 1")
 
 
 def main_path_sweeps(loop, seed):
@@ -1333,12 +1365,6 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
-def mma_counts(lib_path) -> dict:
-    """{kernel: (HMMA.16816.F32.BF16, FFMA instructions)} of every __global__
-    function in a built library's SASS."""
-    return {k: (c["HMMA"], c["FFMA"]) for k, c in sass_counts(lib_path).items()}
-
-
 def max_sm_clock_mhz() -> float:
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1991,13 +2017,9 @@ def main() -> int:
                 fn = kernel_name(line.rsplit(" ", 1)[-1])
             elif "registers" in line or "spill" in line:
                 print(f"[1] ptxas {k} {fn}: {line.strip()}")
-    # rows 3-6 run their products on the tensor cores: bf16 HMMA in the SASS
     check(cuobjdump_path() is not None, "no cuobjdump to read the kernels' SASS")
     for k in ("point_pipeline", "ray_march"):
-        for fn, (hmma, ffma) in mma_counts(libs[k]).items():
-            print(f"[1] SASS {k} {fn}: {hmma} HMMA.16816.F32.BF16, {ffma} FFMA", flush=True)
-            if fn.endswith(("_fwd_kernel", "_bwd_kernel")):
-                check(hmma > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
+        backward_sass_check(k, libs[k])
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
 

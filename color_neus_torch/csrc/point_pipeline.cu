@@ -65,47 +65,100 @@
 // MACs (dW and xbar), the tangent stream (~0.46 M), the last layer (~0.13
 // M) and four products per hidden SDF layer (~1.83 M), plus layer 0's
 // second (lo) weight-grad pass: ~4.8 M MACs per point, against 112 bytes
-// of input/output per point: bound by operations. Its per-block scratch
-// (~3.2 MB, ~50 KB per point written and read) is the floor once the
-// products stop dominating: >= 13 GB of device-memory traffic at 131,072
-// points.
+// of input/output per point: bound by operations. What it keeps in device
+// memory on the way (the gates and tangent pre-gates in f32, ~16 KB a
+// point written and read, and the weight-grad operands in bf16, ~25 KB a
+// point written and read two to five times) is the floor once the products
+// stop dominating: ~7-10 GB at 131,072 points.
 //
-// Design. One block of 8 warps owns a tile of 64 points. Every 256-wide
-// product runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulators in registers): the A operand is the tile's f32 activations
-// in a shared-memory buffer [64, 308], rounded to bf16 as each fragment
-// loads (the stores stay f32, JAX's f32stash); the B operand is a bf16 copy
-// of the weights and of their transposes (~3.9 MB, packed by the wrapper
-// in fragment order so that a warp's B load is one coalesced 8-byte read
-// per lane, L2-resident across the launch). A warp owns 32 output columns
-// of all 64 rows (16 accumulator tiles). The 1- and 3-wide output layers
-// stay SIMT FMAs with their operands rounded to bf16. Blocks loop over
+// Design. One block of 8 warps owns a tile of 64 points. Blocks loop over
 // tiles, so every scratch is sized by the grid, not by N.
-//   Forward: the 8 hidden layers' gates are 8 KB per point in f32, 512 KB
-//   for a 64-point tile, beyond the 227 KB of shared memory a block can
-//   have (a 16-point tile would fit but read every weight 4x as often from
-//   L2). So each block owns a slice of a device-memory scratch for its
-//   tile's gates and features, written once and read once per point (16 KB
-//   of traffic per point, ~0.7 ms at 131,072 points).
-//   The activation buffer (79 KB) plus the PE-cotangent tile keep two
-//   blocks per SM.
-//   Backward: a second activation buffer carries the tangent stream and the
-//   tangent cotangents beside the value stream (207 KB of shared memory,
-//   one block per SM, up to 255 registers a thread). The recompute stores
-//   every layer input (and the tangent inputs and pre-gates) in the block's
-//   scratch, ~3.2 MB per block. A layer's weight grad over a tile is the
-//   product X^T[K, 64] abar[64, 256] on the tensor cores too (M = the
-//   layer's inputs, N = its outputs, depth = the 64 points): abar from
-//   shared memory, X from the scratch, both rounded to bf16 as they load,
-//   added into the block's f32 partial (read-modify-write of the 4.2 MB
-//   gradient prefix per tile at full width; measured in PERF.md).
+//   Forward (row 5, and the backward's recompute): every 256-wide product
+//   on mma.sync m16n8k16 (bf16 in, f32 accumulators in registers): the A
+//   operand is the tile's f32 activations in a shared-memory buffer [64,
+//   308], rounded to bf16 as each fragment loads (the stores stay f32,
+//   JAX's f32stash); the B operand a bf16 copy of the weights and of their
+//   transposes (~3.9 MB, packed by the wrapper in fragment order so that a
+//   warp's B load is one coalesced 8-byte read per lane, L2-resident
+//   across the launch). A warp owns 32 output columns of all 64 rows (16
+//   accumulator tiles). The 1- and 3-wide output layers stay SIMT FMAs
+//   with their operands rounded to bf16. The 8 hidden layers' gates are 8
+//   KB per point in f32, 512 KB a tile, beyond the 227 KB of shared memory
+//   a block can have, so each block owns a slice of a device-memory scratch
+//   for its tile's gates and features (16 KB of traffic per point). The
+//   activation buffer (79 KB) plus the PE-cotangent tile keep two blocks
+//   per SM.
+//   Backward (row 6; row 4 runs the same tile functions), on Hopper's
+//   wgmma and bulk copies. The parent design (mma.sync from L2) lost its
+//   time to four causes (PERF.md §6, the backward's step-0 split); what this one does
+//   about each:
+//   1. The weight grads made a device-memory round trip per tile (a
+//      read-modify-write of the 4.2 MB gradient prefix, 42% of the time).
+//      Now a tile's weight-grad operands go to a per-block store in bf16,
+//      transposed so that the tile's 64 points are wgmma's K-major depth:
+//      every 256-wide layer's input X^T ([K][64], written by the recompute)
+//      and its output cotangents abar^T (and the tangent stream's U^T and
+//      zbar^T: [256][64]). The operands are the ones the products rounded
+//      to bf16 before, so the sums are over the same bf16 values; layer 0's
+//      f32 PE and tangent seed go in as hi + lo bf16 pairs. After every
+//      dw_batch tiles (8; fewer when the block has fewer), and after the
+//      block's last, ragged batch, dw_flush runs each layer's weight grad
+//      as one product of depth 64 x batch on wgmma (m64n256k16, f32
+//      accumulators in registers, warpgroup h a 64-row block of K, both
+//      operands bulk-copied from the store through a 3-stage ring of 48 KB
+//      laid over X and Y) and adds it into the block's f32 partial once:
+//      the round trip falls by the batch factor. No float atomics: the
+//      partials are summed over the blocks in index order by
+//      point_pipeline_reduce_kernel, and two identical calls are bitwise
+//      equal. Bias sums stay per tile on the f32 values in shared memory;
+//      the relu masks and the 3-wide layers read the f32 colour / relight
+//      inputs.
+//   2. B came from L2, one 8-byte fragment per lane, at one block per SM.
+//      Now every 256-wide product of the backward (the relight, colour and
+//      feature reverse products, the tangent stream, the SDF value and
+//      tangent reverse products) runs on wgmma with B from shared memory:
+//      the wrapper packs each weight block once per call, on the card, as
+//      64-row x 64-k bf16 slabs in the K-major 128-byte-swizzled layout
+//      (point_pipeline.py _pack_images), and thread 0 bulk-copies them into
+//      a 4-stage ring (8 KB slabs) three slabs ahead of the products. A is
+//      fed from registers (mma.m16n8k16's fragment, which wgmma's register
+//      A shares): every thread loads its fragments of the f32 activations,
+//      rounded to bf16, before a barrier, so the products' epilogues may
+//      overwrite their input in place and no bf16 staging copy of A is
+//      needed (the ring's 32 KB is what the shared memory has left). The
+//      dW operands are K-major as stored, so no transpose bit is used. No
+//      wgmma sits in a branch that depends on the thread: the warpgroups
+//      split the columns by descriptor offsets, and every device function
+//      of the backward is inlined (ptxas C7510 serialises wgmma across a
+//      call).
+//   3. Products and SIMT work took turns. The SDF reverse sweep's value
+//      and tangent products share each weight slab: warpgroup 0 computes
+//      the value stream's, warpgroup 1 the tangent's (m64n64 / m64n48 per
+//      chunk), so the two run side by side; in the one-stream products the
+//      two warpgroups take the two halves of each chunk (m64n32 / m64n24).
+//      The next slabs' bulk copies overlap the current products, the
+//      flush's run two stages ahead. The epilogues (gates, masks, bias
+//      sums) are the parent's SIMT passes; they do not overlap the products
+//      of the same tile (the next product depends on them).
+//   4. Every layer input went to the scratch in f32 (~3.1 MB a tile): now
+//      only the gates, tangent pre-gates and colour / relight inputs do;
+//      the SDF layer and tangent inputs go as bf16 operands only.
+//   Budgets: shared memory 228,944 of 232,448 bytes: the weight ring (32
+//   KB) + X and Y (f32 [64][308], 77 KB each; the flush's stages lie over
+//   them) + the PE cotangents, the gbar tile and the small buffers; the
+//   tangent seed is recomputed where the skip layer needs it again instead
+//   of being kept. Registers: the 64-76 packed A registers plus 16-32
+//   accumulators of a product, 128 accumulators in the flush, under the 255
+//   of one block per SM; 0 spills (chip_smoke.py phase 1; the chunk loop
+//   stays rolled for it). The recompute
+//   (forward_tile<true>) stays on mma.sync.
 
 #include "point_pipeline_tile.cuh"
 
 namespace {
 
 // t.P3 / t.D3 = the points and view dirs base .. base + TILE (zeros past n_pts).
-__device__ void load_points(const Params& p, const Tile& t, long long base) {
+__device__ __forceinline__ void load_points(const Params& p, const Tile& t, long long base) {
   const int tid = threadIdx.x;
   if (tid < TILE) {
     const long long i = base + tid;
@@ -153,22 +206,25 @@ __global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p
 __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  carve_bwd(t, smem);
+  BwdState st;
+  carve_bwd(t, st, smem);
   const int tid = threadIdx.x;
   const BwdScratch s = carve_bwd_scratch(
-      p, p.scratch + size_t(blockIdx.x) * bwd_scratch_floats(p.n_sdf, p.n_color, p.n_relight));
+      p, p.scratch + size_t(blockIdx.x) * bwd_scratch_floats(shape_of(p), p.dw_batch));
   float* P = p.partial + size_t(blockIdx.x) * p.n_grad;
   const long long n_tiles = (p.n_pts + TILE - 1) / TILE;
+  int slot = 0;   // the tile's place in the weight-grad batch
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * TILE;
+    const Save sv = bwd_save(p, s, slot);
     load_points(p, t, base);
-    forward_tile<true>(p, t, s.gates, s.feat, s.sv);
+    forward_tile<true>(p, t, s.gates, s.feat, sv);
     for (int e = tid; e < TILE * 16; e += THREADS) {
       const long long i = base + e / 16;
       t.CT[e] = i < p.n_pts ? p.gbar[base * 16 + e] : 0.f;
     }
     __syncthreads();
-    backward_tile(p, t, s.gates, s.zt, s.sv, s.us, P);
+    backward_tile(p, t, st, s.gates, s.zt, sv, P);
     if (tid < TILE && base + tid < p.n_pts) {
       const long long i = base + tid;
 #pragma unroll
@@ -177,6 +233,7 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p
         p.dirs_hat[3 * i + j] = t.DH[tid * 3 + j];
       }
     }
+    slot = after_tile(p, st, s, slot, tile + gridDim.x >= n_tiles, P);
   }
 }
 
@@ -203,8 +260,9 @@ extern "C" int point_pipeline_bwd_max_blocks(int* n_blocks) {
   return int(max_blocks(point_pipeline_bwd_kernel, SMEM_BWD, n_blocks));
 }
 
-extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int n_color, int n_relight) {
-  return bwd_scratch_floats(n_sdf, n_color, n_relight);
+extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int skip, int n_color,
+                                                       int n_relight, int y_in, int dw_batch) {
+  return bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, dw_batch);
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
@@ -232,17 +290,22 @@ extern "C" int point_pipeline_fwd_launch(
 }
 
 // `partial` must hold n_blocks x n_grad zeros; `scratch` n_blocks x
-// point_pipeline_bwd_scratch_floats(...) floats.
+// point_pipeline_bwd_scratch_floats(..., dw_batch) floats; `wimg` the
+// wgmma weight slabs (point_pipeline.py _pack_images, device memory) and
+// `ioff` the host array of their offset table.
 extern "C" int point_pipeline_bwd_launch(
     const float* pts, const float* dirs, const float* gbar, const float* w, const void* wb,
-    float* pts_hat, float* dirs_hat, float* partial, float* scratch, long long n_pts,
-    int n_blocks, long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color,
-    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, const long long* boff, int n_off, void* stream) {
+    const void* wimg, float* pts_hat, float* dirs_hat, float* partial, float* scratch,
+    long long n_pts, int n_blocks, long long n_grad, int dw_batch, int n_sdf, int skip, int d0,
+    float scale, int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in,
+    int inv_sigmoid, const long long* off, const long long* boff, const long long* ioff,
+    int n_off, void* stream) {
   if (n_pts <= 0) return 0;
-  if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  if (bad_shape(n_off, n_sdf, n_color, n_relight) || dw_batch < 1)
+    return int(cudaErrorInvalidValue);
   Params p = make_params(pts, dirs, w, wb, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
                          squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
+  set_bwd_weights(p, wimg, ioff, dw_batch);
   p.scratch = scratch;
   p.gbar = gbar;
   p.pts_hat = pts_hat;

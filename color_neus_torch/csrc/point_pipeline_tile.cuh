@@ -11,12 +11,14 @@
 //
 // The arithmetic is the TPU kernels' production arithmetic (JAX bf16 = not
 // interpret, MARCH_BWD_PRECISION f32stash): every product rounds its two
-// operands to bf16 and sums in f32 (the 256-wide ones on the tensor cores,
-// tile_product and dw_accum; the 1- and 3-wide ones as SIMT FMAs,
-// narrow_layer and narrow_back); the activations, gates and stores stay
-// f32; layer 0's weight grad takes its f32 operands (the PE and the tangent
-// seed) as hi + lo bf16 pairs, and the last layer's rank-1 tangent term is
-// summed in f32.
+// operands to bf16 and sums in f32 (the 256-wide ones on the tensor cores:
+// the forward's tile_product on mma.sync, the backward's wg_product and
+// dw_flush on wgmma; the 1- and 3-wide ones as SIMT FMAs, narrow_layer and
+// narrow_back); the activations, gates and stores stay f32; layer 0's
+// weight grad takes its f32 operands (the PE and the tangent seed) as hi +
+// lo bf16 pairs, and the last layer's rank-1 tangent term is summed in
+// f32. The backward's weight grads are summed on chip over a batch of
+// tiles (dw_flush); point_pipeline.cu's note gives the design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,11 +77,28 @@ struct Params {
   float* dirs_hat;     // [n, 3]
   float* partial;      // [gridDim.x][n_grad] weight-grad partials, zeroed
   long long n_grad;
+  const unsigned char* wimg;   // the 256-wide layers' weights as wgmma B slabs, see ioff
+  long long ioff[N_OFF];       // first WSLAB-byte slab of each block's image in wimg
+  int dw_batch;                // tiles whose weight grads a block sums on chip per flush
 };
 
 constexpr size_t SMEM_FWD = (size_t(TILE) * LDX + size_t(TILE) * EMB + 6 * TILE * 3 + TILE) * 4;
-constexpr size_t SMEM_BWD =
-    SMEM_FWD + (size_t(TILE) * LDX + 2 * size_t(TILE) * EMB + TILE * 16 + 5 * TILE * 3) * 4;
+
+// The backward's wgmma operands: a weight slab is 64 rows (output columns
+// of the product) x 64 k of bf16, K-major with the 128-byte swizzle
+// (mlp::sw128_offset), 8 KB; the weight ring holds four. A stage of the
+// weight-grad flush holds two 64-row blocks of one tile's A^T (64 rows x
+// 64 points, 8 KB each) and its output cotangent (256 rows x 64 points,
+// 32 KB); three stages, laid over the X / Y buffers, which the flush does
+// not use.
+constexpr int WSLAB = 8192, WSTAGES = 4;
+constexpr int DW_A = 8192, DW_B = 32768, DW_STAGE = 2 * DW_A + DW_B, DW_STAGES = 3;
+constexpr int SMEM_ALIGN = 1024;     // the swizzle atom: descriptors need it
+constexpr size_t SMEM_BWD = SMEM_ALIGN + size_t(WSTAGES) * WSLAB +
+                            (2 * size_t(TILE) * LDX + 2 * size_t(TILE) * EMB + TILE * 16 +
+                             11 * TILE * 3 + TILE) * 4 +
+                            2 * (WSTAGES + DW_STAGES) * sizeof(unsigned long long);
+static_assert(size_t(DW_STAGES) * DW_STAGE <= 2 * size_t(TILE) * LDX * 4, "flush stages over X, Y");
 
 struct Tile {
   float* X;    // [TILE][LDX] activations (value stream)
@@ -94,7 +113,6 @@ struct Tile {
   // backward only
   float* Y;    // [TILE][LDX] the tangent stream and its cotangents
   float* VH;   // [TILE][EMB] v0_hat (also stages view-dir PE cotangents)
-  float* V0;   // [TILE][EMB] the tangent seed v0
   float* CT;   // [TILE][16] the cotangents gbar
   float* PH;   // [TILE][3] pts_hat
   float* DH;   // [TILE][3] dirs_hat
@@ -103,12 +121,14 @@ struct Tile {
   float* HB;   // [TILE][3] the cotangent of a 3-wide layer output
 };
 
-// Where the backward's recompute keeps each layer's input ([TILE][LDS]
-// slabs of the block's scratch).
+// Where the backward's recompute keeps the layer inputs: the colour and
+// relight ones in f32 ([TILE][LDS] slabs of the block's scratch, for their
+// relu masks and the 3-wide last layers), and every 256-wide layer's as a
+// bf16 weight-grad operand in the tile's store (dw_a).
 struct Save {
-  float* sx;   // [n_sdf] SDF layer inputs
-  float* cx;   // [n_color] colour layer inputs
-  float* rx;   // [n_relight] relight layer inputs
+  float* cx;           // [n_color] colour layer inputs
+  float* rx;           // [n_relight] relight layer inputs
+  unsigned char* dw;   // the tile's weight-grad store (dw_tile_bytes), nullptr for none
 };
 
 constexpr size_t SLAB = size_t(TILE) * LDS;
@@ -130,8 +150,7 @@ enum Epi { EPI_NONE = 0, EPI_RELU = 1, EPI_SOFTPLUS = 2 };
 // tile in shared memory (row stride lda), rounded to bf16 as it loads:
 // a0 / a2 rows g, a1 / a3 rows g + 8; a0 / a1 columns 2t, 2t + 1, a2 / a3
 // eight further.
-__device__ __forceinline__ void load_a(const float* A, int lda, int m0, int k0,
-                                       unsigned (&a)[4]) {
+__device__ __forceinline__ void load_a(const float* A, int lda, int m0, int k0, unsigned (&a)[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* r0 = A + (m0 + g) * lda + k0 + 2 * t;
   const float* r8 = r0 + 8 * lda;
@@ -151,8 +170,7 @@ __device__ __forceinline__ void load_a(const float* A, int lda, int m0, int k0,
 // n_tiles n-tiles.
 template <int MT, int NT>
 __device__ __forceinline__ void mma_tile(const float* A, int K, const uint2* __restrict__ B,
-                                         int n_tiles, int m0, int nt0,
-                                         float (&acc)[MT][NT][4]) {
+                                         int n_tiles, int m0, int nt0, float (&acc)[MT][NT][4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -195,7 +213,8 @@ __device__ __forceinline__ void each_out(const float (&acc)[MT][NT][4], int m0, 
 // owns rows 16 (w % 4) .. + 16, columns 24 (w / 4) .. + 24 (1 x 3 tiles);
 // N = 304 is both, the 48 after the 256.
 template <int N, class F>
-__device__ void tile_product(const float* A, int K, const uint2* __restrict__ B, F&& put) {
+__device__ __forceinline__ void tile_product(const float* A, int K, const uint2* __restrict__ B,
+                                             F&& put) {
   static_assert(N == EMB || N == HID || N == HID + EMB, "tile_product: N");
   const int warp = threadIdx.x >> 5;
   constexpr int NTOT = N / 8;
@@ -223,7 +242,8 @@ __device__ void tile_product(const float* A, int K, const uint2* __restrict__ B,
 
 // tile_product for an output width N chosen at run time.
 template <class F>
-__device__ void product_any(const float* A, int K, const uint2* __restrict__ B, int N, F&& put) {
+__device__ __forceinline__ void product_any(const float* A, int K, const uint2* __restrict__ B,
+                                            int N, F&& put) {
   if (N == EMB) tile_product<EMB>(A, K, B, put);
   else if (N == HID) tile_product<HID>(A, K, B, put);
   else tile_product<HID + EMB>(A, K, B, put);
@@ -233,9 +253,9 @@ __device__ void product_any(const float* A, int K, const uint2* __restrict__ B, 
 // block. EPI_SOFTPLUS also stores the gate to `gates` ([TILE][HID]) and
 // scales the value by `post`. dst may be X itself.
 template <int EPI>
-__device__ void wide_layer(float* X, int K, const uint2* __restrict__ W,
-                           const float* __restrict__ b, float post, float* gates,
-                           float* dst, int ld) {
+__device__ __forceinline__ void wide_layer(float* X, int K, const uint2* __restrict__ W,
+                                           const float* __restrict__ b, float post, float* gates,
+                                           float* dst, int ld) {
   tile_product<HID>(X, K, W, [&](int r, int c, float acc) {
     const float a = acc + b[c];
     float v;
@@ -254,8 +274,9 @@ __device__ void wide_layer(float* X, int K, const uint2* __restrict__ W,
 
 // out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out (W: f32
 // row-major [n_out, K]), summed in f32.
-__device__ void narrow_layer(const float* X, int K, int n_out, const float* __restrict__ W,
-                             const float* __restrict__ b, float* out, int ld_out) {
+__device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
+                                             const float* __restrict__ W,
+                                             const float* __restrict__ b, float* out, int ld_out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < TILE; r += THREADS / 32) {
     for (int j = 0; j < n_out; ++j) {
@@ -276,8 +297,8 @@ __device__ void narrow_layer(const float* X, int K, int n_out, const float* __re
 // the skip layer and times the gate of layer l - 1, becomes q_{l-1} in X;
 // its PE part (the skip layer's last 48 columns, or all of layer 0's) adds
 // to EG.
-__device__ void reverse_layer(const Tile& t, const uint2* __restrict__ WT, int K, bool is_skip,
-                              const float* gates_prev) {
+__device__ __forceinline__ void reverse_layer(const Tile& t, const uint2* __restrict__ WT, int K,
+                                              bool is_skip, const float* gates_prev) {
   product_any(t.X, HID, WT, K, [&](int r, int c, float v) {
     if (K == EMB) {
       t.EG[r * EMB + c] += v;
@@ -291,7 +312,7 @@ __device__ void reverse_layer(const Tile& t, const uint2* __restrict__ WT, int K
 }
 
 // X[:, col0 : col0 + EMB] = [pts, grad, PE(dirs) (dv columns), 0 ...]
-__device__ void write_small(const Tile& t, int col0, int dv) {
+__device__ __forceinline__ void write_small(const Tile& t, int col0, int dv) {
   for (int e = threadIdx.x; e < TILE * EMB; e += THREADS) {
     const int r = e / EMB, c = e % EMB;
     float v;
@@ -304,10 +325,114 @@ __device__ void write_small(const Tile& t, int col0, int dv) {
 
 // dst[:, :K] = src[:, :K] (a layer input, kept for the backward). Only
 // reads src, so it needs no barrier before the layer that reads src too.
-__device__ void save_cols(const float* src, int K, float* dst) {
+__device__ __forceinline__ void save_cols(const float* src, int K, float* dst) {
   for (int e = threadIdx.x; e < TILE * K; e += THREADS) {
     const int r = e / K, c = e % K;
     dst[r * LDS + c] = src[r * LDX + c];
+  }
+}
+
+// ------------------------------------------------------------------------
+// The weight-grad store: per tile, every 256-wide layer's weight-grad
+// operands in bf16, transposed so that the 64 points are the contiguous
+// (K-major) dimension of a wgmma operand: the layer's inputs X^T
+// ([round64(K)][64], 128 bytes a row, 128-byte swizzle) and its output
+// cotangents ([256][64]). The flush (dw_flush) sums X^T abar over the
+// tiles of a batch on chip.
+// ------------------------------------------------------------------------
+
+struct Shape {
+  int n_sdf, skip, n_color, n_relight, y_in;
+};
+
+__host__ __device__ inline int round64(int k) { return (k + 63) / 64 * 64; }
+
+// Blocks in flush order: SDF hidden layers 0 .. n_sdf - 2, the features,
+// colour layers 0 .. n_color - 2, relight layers 0 .. n_relight - 2.
+__host__ __device__ inline int dw_n_blocks(const Shape& s) {
+  return s.n_sdf + s.n_color - 1 + (s.n_relight > 0 ? s.n_relight - 1 : 0);
+}
+
+// Block bi: its K (input rows), its slot in the offset table and its
+// terms. An SDF layer sums X^T abar + U^T zbar (value and tangent); layer
+// 0 takes X and U as hi + lo bf16 pairs, four terms: (X hi, abar), (X lo,
+// abar), (U hi, zbar), (U lo, zbar). Term i reads A^T block i and
+// cotangent block i / 2 (four terms), i (two) or 0 (one).
+struct DwBlock {
+  int K, slot, nterm;
+  long long base;   // byte offset of the block's operands in a tile's store
+};
+
+__host__ __device__ inline DwBlock dw_kind(const Shape& s, int bi) {
+  DwBlock b{};
+  if (bi < s.n_sdf - 1) {
+    b.K = bi == 0 ? EMB : (bi == s.skip ? HID + EMB : HID);
+    b.slot = W_SDF + bi;
+    b.nterm = bi == 0 ? 4 : 2;
+  } else if (bi == s.n_sdf - 1) {
+    b.K = HID;
+    b.slot = W_FEAT;
+    b.nterm = 1;
+  } else if (bi < s.n_sdf + s.n_color - 1) {
+    const int l = bi - s.n_sdf;
+    b.K = l == 0 ? HID + EMB : HID;
+    b.slot = W_COL + l;
+    b.nterm = 1;
+  } else {
+    const int l = bi - (s.n_sdf + s.n_color - 1);
+    b.K = l == 0 ? EMB : (l == s.y_in ? HID + EMB : HID);
+    b.slot = W_REL + l;
+    b.nterm = 1;
+  }
+  return b;
+}
+
+__host__ __device__ inline long long dw_block_bytes(const DwBlock& b) {
+  return (long long)b.nterm * round64(b.K) * 128 + (b.nterm == 1 ? 1 : 2) * HID * 128;
+}
+
+__host__ __device__ inline DwBlock dw_block(const Shape& s, int bi) {
+  long long base = 0;
+  for (int i = 0; i < bi; ++i) base += dw_block_bytes(dw_kind(s, i));
+  DwBlock b = dw_kind(s, bi);
+  b.base = base;
+  return b;
+}
+
+__host__ __device__ inline long long dw_tile_bytes(const Shape& s) {
+  return dw_block(s, dw_n_blocks(s)).base;
+}
+
+// A^T block i and cotangent block j of block bi in a tile's store.
+__device__ __forceinline__ unsigned char* dw_a(const Shape& s, unsigned char* store, int bi,
+                                               int i) {
+  const DwBlock b = dw_block(s, bi);
+  return store + b.base + (long long)i * round64(b.K) * 128;
+}
+__device__ __forceinline__ unsigned char* dw_b(const Shape& s, unsigned char* store, int bi,
+                                               int j) {
+  const DwBlock b = dw_block(s, bi);
+  return store + b.base + (long long)b.nterm * round64(b.K) * 128 + (long long)j * HID * 128;
+}
+
+__host__ __device__ inline Shape shape_of(const Params& p) {
+  return Shape{p.n_sdf, p.skip, p.n_color, p.n_relight, p.y_in};
+}
+
+// dst = bf16(src[:, :K])^T (PART 2: the low halves, bf16(x - bf16(x))) as
+// a K-major [K][64 points] wgmma operand (row c: the 64 points, 128 bytes,
+// the 128-byte swizzle). A warp stores an 8-column x 8-point patch a step:
+// its shared-memory reads hit 32 banks, its global writes fill one 16-byte
+// chunk of 8 rows. Only reads src.
+template <int PART>
+__device__ __forceinline__ void save_t(const float* src, int K, unsigned char* dst) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int gi = warp; gi < K; gi += THREADS / 32) {   // K / 8 column groups x 8 point groups
+    const int c = 8 * (gi >> 3) + (lane & 7), pr = 4 * (gi & 7) + (lane >> 3);
+    const float x0 = src[(2 * pr) * LDX + c], x1 = src[(2 * pr + 1) * LDX + c];
+    const unsigned w = PART == 2 ? pack_bf16(x0 - round_bf16(x0), x1 - round_bf16(x1))
+                                 : pack_bf16(x0, x1);
+    *reinterpret_cast<unsigned*>(dst + mlp::sw128_offset(c, 2 * pr)) = w;
   }
 }
 
@@ -328,11 +453,12 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // grad, gc, relit and delta in t.S1/G3/GC/RL/DL and the gates and features
 // in the block's scratch. SAVE also keeps every layer's input (sv).
 template <bool SAVE>
-__device__ void forward_tile(const Params& p, const Tile& t, float* gates, float* feat,
-                             const Save& sv) {
+__device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, float* gates,
+                                             float* feat, const Save& sv) {
   const int tid = threadIdx.x;
   const float* W = p.w;
   const uint2* WB = p.wb;
+  const Shape sh = shape_of(p);
   // SDF PE: X[:, :48] = PE(p * scale)
   for (int e = tid; e < TILE * EMB; e += THREADS) {
     const int r = e / EMB, c = e % EMB;
@@ -346,7 +472,10 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
   for (int l = 0; l < p.n_sdf - 1; ++l) {
     const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
-    if (SAVE) save_cols(t.X, K, sv.sx + l * SLAB);
+    if (SAVE) {   // layer 0's X as a hi + lo bf16 pair
+      save_t<0>(t.X, K, dw_a(sh, sv.dw, l, 0));
+      if (l == 0) save_t<2>(t.X, K, dw_a(sh, sv.dw, 0, 1));
+    }
     wide_layer<EPI_SOFTPLUS>(t.X, K, WB + p.boff[W_SDF + l], W + p.off[B_SDF + l],
                              pre_skip ? INV_SQRT2 : 1.f, gates + l * GSLAB, t.X, LDX);
     if (pre_skip) {
@@ -360,7 +489,7 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
     }
   }
   // last layer: raw sdf (row 0) and the features (rows 1..256)
-  if (SAVE) save_cols(t.X, HID, sv.sx + (p.n_sdf - 1) * SLAB);
+  if (SAVE) save_t<0>(t.X, HID, dw_a(sh, sv.dw, p.n_sdf - 1, 0));
   narrow_layer(t.X, HID, 1, W + p.off[W_LAST], W + p.off[B_LAST], t.S1, 1);
   wide_layer<EPI_NONE>(t.X, HID, WB + p.boff[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat,
                        HID);
@@ -402,7 +531,10 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
   __syncthreads();
   for (int l = 0; l < p.n_color - 1; ++l) {
     const int K = l == 0 ? HID + EMB : HID;
-    if (SAVE) save_cols(t.X, K, sv.cx + l * SLAB);
+    if (SAVE) {
+      save_cols(t.X, K, sv.cx + l * SLAB);
+      save_t<0>(t.X, K, dw_a(sh, sv.dw, p.n_sdf + l, 0));
+    }
     wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_COL + l], W + p.off[B_COL + l], 1.f, nullptr,
                          t.X, LDX);
   }
@@ -423,7 +555,10 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
     __syncthreads();
     for (int l = 0; l < p.n_relight - 1; ++l) {
       const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
-      if (SAVE) save_cols(t.X, K, sv.rx + l * SLAB);
+      if (SAVE) {
+        save_cols(t.X, K, sv.rx + l * SLAB);
+        save_t<0>(t.X, K, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
+      }
       wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
                            t.X, LDX);
     }
@@ -450,7 +585,7 @@ __device__ void forward_tile(const Params& p, const Tile& t, float* gates, float
   __syncthreads();
 }
 
-__device__ void carve_fwd(Tile& t, unsigned char* smem) {
+__device__ __forceinline__ void carve_fwd(Tile& t, unsigned char* smem) {
   t.X = reinterpret_cast<float*>(smem);
   t.EG = t.X + TILE * LDX;
   t.P3 = t.EG + TILE * EMB;
@@ -466,82 +601,8 @@ __device__ void carve_fwd(Tile& t, unsigned char* smem) {
 // Backward
 // ------------------------------------------------------------------------
 
-// P[k][c] += sum_r S[r][k] A[r][c] (+ S2[r][k] A2[r][c]) for k < K (a
-// multiple of 16), c < 256: a layer's weight grad over the tile, added into
-// the block's partial (row-major [K, 256], the packed [in, out] layout). S,
-// S2: stored layer inputs in the scratch ([TILE][LDS]); A, A2: output
-// cotangents in shared memory (row stride LDX). On the tensor cores with M
-// = k, N = c and the 64 points as depth, both operands rounded to bf16;
-// SPLIT takes S and S2 as hi + lo bf16 pairs (two passes, layer 0). Per
-// 64-row chunk of k, warp w owns rows 32 (w % 2) .. + 32 (2 m-tiles) and
-// columns 64 (w / 2) .. + 64 (8 n-tiles).
-template <bool TWO, bool SPLIT>
-__device__ void dw_accum(const float* S, const float* A, const float* S2, const float* A2, int K,
-                         float* P) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int c0 = 64 * (warp >> 1);
-  for (int k0 = 0; k0 < K; k0 += 64) {
-    const int kw = k0 + 32 * (warp & 1);
-    const int mt = min(2, (K - kw) / 16);   // m-tiles of the warp in range
-    if (mt <= 0) continue;
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-    for (int src = 0; src < (TWO ? 2 : 1); ++src) {
-      const float* Sx = src ? S2 : S;
-      const float* Ax = src ? A2 : A;
-      for (int r0 = 0; r0 < TILE; r0 += 16) {
-        // B: k rows (points) r0 + 2t + {0, 1, 8, 9}, column (output) c0 + 8 j + g
-        unsigned b[8][2];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float* col = Ax + (r0 + 2 * t) * LDX + c0 + 8 * j + g;
-          b[j][0] = pack_bf16(col[0], col[LDX]);
-          b[j][1] = pack_bf16(col[8 * LDX], col[9 * LDX]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (i >= mt) break;
-          // A: rows (inputs) kw + 16 i + g (+ 8), columns (points) r0 + 2t + {0, 1, 8, 9}
-          const float* s = Sx + (r0 + 2 * t) * LDS + kw + 16 * i + g;
-          const float v[8] = {s[0], s[LDS], s[8], s[LDS + 8],
-                              s[8 * LDS], s[9 * LDS], s[8 * LDS + 8], s[9 * LDS + 8]};
-          unsigned a[4];
-#pragma unroll
-          for (int h = 0; h < 4; ++h) a[h] = pack_bf16(v[2 * h], v[2 * h + 1]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j][0], b[j][1]);
-          if (SPLIT) {
-#pragma unroll
-            for (int h = 0; h < 4; ++h)
-              a[h] = pack_bf16(v[2 * h] - round_bf16(v[2 * h]),
-                               v[2 * h + 1] - round_bf16(v[2 * h + 1]));
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j][0], b[j][1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (i >= mt) break;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          P[size_t(kw + 16 * i + g + 8 * (q >> 1)) * HID + c0 + 8 * j + 2 * t + (q & 1)] +=
-              acc[i][j][q];
-    }
-  }
-}
-
 // P[c] += sum_r A[r][c] for c < 256: a bias grad over the tile.
-__device__ void bias_accum(const float* A, float* P) {
+__device__ __forceinline__ void bias_accum(const float* A, float* P) {
   const int c = threadIdx.x;   // THREADS == HID
   float s = 0.f;
   for (int r = 0; r < TILE; ++r) s += A[r * LDX + c];
@@ -551,8 +612,9 @@ __device__ void bias_accum(const float* A, float* P) {
 // The reverse of a 3-wide output layer (W row-major [3, K] in f32, input S
 // in the scratch), operands in bf16, sums in f32: dW += HB^T S, db += sum
 // HB, X[:, :K] = HB @ W.
-__device__ void narrow_back(const Tile& t, const float* S, const float* __restrict__ W, int K,
-                            float* Pw, float* Pb) {
+__device__ __forceinline__ void narrow_back(const Tile& t, const float* S,
+                                            const float* __restrict__ W, int K, float* Pw,
+                                            float* Pb) {
   const int tid = threadIdx.x;
   for (int e = tid; e < 3 * K; e += THREADS) {
     const int j = e / K, k = e % K;
@@ -578,7 +640,7 @@ __device__ void narrow_back(const Tile& t, const float* S, const float* __restri
 }
 
 // DH[r] += the view-dir PE VJP of the cotangents staged in VH[r][:dv].
-__device__ void dirs_pe_vjp(const Tile& t, int dv) {
+__device__ __forceinline__ void dirs_pe_vjp(const Tile& t, int dv) {
   const int r = threadIdx.x;
   if (r < TILE) {
     for (int c = 0; c < dv; ++c) {
@@ -590,26 +652,329 @@ __device__ void dirs_pe_vjp(const Tile& t, int dv) {
   __syncthreads();
 }
 
-// The block's backward scratch, floats: [n_sdf - 1] gates, features and
-// [n_sdf - 1] tangent pre-gates as [TILE][HID] slabs, then [n_sdf] SDF
-// layer inputs, [n_sdf - 1] tangent inputs, [n_color] colour and
-// [n_relight] relight layer inputs as [TILE][LDS] slabs.
-__host__ __device__ long long bwd_scratch_floats(int n_sdf, int n_color, int n_relight) {
-  return (2LL * (n_sdf - 1) + 1) * GSLAB + (2LL * n_sdf - 1 + n_color + n_relight) * SLAB;
+// ---- the backward's two rings of bulk copies ----
+// A ring of stages in shared memory, each filled by the TMA unit's bulk
+// copies completing on its "full" mbarrier and released by every warp on
+// its "empty" one; slab s of a block's sequence goes to stage s % STAGES,
+// and its k-th use of a stage waits with parity k & 1. The block counts
+// its slabs (BwdState::ws, ds) across tiles, so the parities carry on.
+struct Ring {
+  unsigned char* buf;
+  unsigned long long* full;
+  unsigned long long* empty;
+};
+
+struct BwdState {
+  Ring w;        // the weight slabs of the tile's products (WSTAGES x WSLAB)
+  Ring d;        // the weight-grad flush's operands (DW_STAGES x DW_STAGE, over X and Y)
+  unsigned ws;   // weight slabs consumed so far
+  unsigned ds;   // flush stages consumed so far
+};
+
+// Thread 0: until every warp has released what slab s's stage held before.
+template <int STAGES>
+__device__ __forceinline__ void ring_wait_empty(const Ring& r, unsigned s) {
+  if (s >= STAGES) mlp::mbar_wait(r.empty + s % STAGES, (s / STAGES - 1) & 1u);
+}
+
+// Every thread: until slab s has landed.
+template <int STAGES>
+__device__ __forceinline__ const unsigned char* ring_acquire(const Ring& r, unsigned s,
+                                                             int stage_bytes) {
+  mlp::mbar_wait(r.full + s % STAGES, (s / STAGES) & 1u);
+  __syncwarp();
+  return r.buf + (s % STAGES) * stage_bytes;
+}
+
+// Every thread, after its warp's last read of slab s (its wgmma done).
+template <int STAGES>
+__device__ __forceinline__ void ring_release(const Ring& r, unsigned s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mlp::mbar_arrive(r.empty + s % STAGES);
+}
+
+// ---- the tile's products on wgmma ----
+// out = bf16(A[:, :16 KS]) @ B, B [16 KS][NOUT] streamed through the weight
+// ring from its slab image img (point_pipeline.py's _pack_images: chunks of
+// 64 output columns, the last one 48 when NOUT % 64 == 48, each as
+// ceil(KS / 4) slabs of 64 k, K-major), thread 0 keeping WSTAGES - 1 slabs
+// in flight. A comes from registers: every thread loads its fragments of
+// the f32 activations (rounded to bf16, as load_a) before a barrier, so put
+// may overwrite A, and no staging copy of A is made. Single (DUAL false):
+// both warpgroups read A0, warpgroup h computing columns 32 h .. 32 h + 32
+// of each 64-column chunk (24 h .. 24 h + 24 of a 48-column one) and
+// calling put0; DUAL: warpgroup 0 the product of A0 and warpgroup 1 that of
+// A1 with the same B, all columns of each chunk, calling put0 / put1 (the
+// SDF reverse sweep's value and tangent streams share every weight slab).
+// put(r, c, v) for every output; a barrier after.
+template <int KS>
+__device__ __forceinline__ void issue_slab(BwdState& st, const unsigned char* img, unsigned li,
+                                           int n_slabs, int nfull, int rows_last) {
+  if (int(li) >= n_slabs) return;
+  constexpr int KSL = (KS + 3) / 4;
+  const unsigned s = st.ws + li;
+  const int rows = int(li) / KSL < nfull ? 64 : rows_last;
+  ring_wait_empty<WSTAGES>(st.w, s);
+  mlp::bulk_load(st.w.buf + (s % WSTAGES) * WSLAB, img + size_t(li) * WSLAB,
+                 unsigned(rows) * 128u, st.w.full + s % WSTAGES);
+}
+
+template <int NW, int KS, class F>
+__device__ __forceinline__ void chunk_products(BwdState& st, const unsigned (&a)[KS][4],
+                                               const unsigned char* img, unsigned li0, int n_slabs,
+                                               int nfull, int rows_last, int row0, int col0,
+                                               F&& put) {
+  constexpr int KSL = (KS + 3) / 4;
+  const int tid = threadIdx.x, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  float acc[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KSL; ++i) {
+    const unsigned li = li0 + i, s = st.ws + li;
+    if (tid == 0) issue_slab<KS>(st, img, li + WSTAGES - 1, n_slabs, nfull, rows_last);
+    const unsigned char* slab = ring_acquire<WSTAGES>(st.w, s, WSLAB);
+    mlp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 && 4 * i + kk < KS; ++kk)
+      mlp::wgmma_rs_bf16<NW>(acc, a[4 * i + kk], mlp::wgmma_desc(slab + row0 * 128 + 32 * kk),
+                             (i | kk) != 0);
+    mlp::wgmma_commit();
+    mlp::wgmma_wait_all();
+    ring_release<WSTAGES>(st.w, s);
+  }
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        put(16 * w + g + 8 * h, col0 + 8 * j + 2 * q + e, acc[4 * j + 2 * h + e]);
+}
+
+template <int KS, int NOUT, bool DUAL, class F0, class F1>
+__device__ __forceinline__ void wg_product(BwdState& st, const float* A0, const float* A1,
+                                           const unsigned char* img, F0&& put0, F1&& put1) {
+  static_assert(NOUT % 64 == 0 || NOUT % 64 == 48, "wg_product: NOUT");
+  constexpr int KSL = (KS + 3) / 4, NFULL = NOUT / 64, TAIL = NOUT % 64;
+  constexpr int N_SLABS = (NFULL + (TAIL ? 1 : 0)) * KSL;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const float* A = DUAL && wg ? A1 : A0;
+  unsigned a[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a(A, LDX, 16 * ((tid >> 5) & 3), 16 * ks, a[ks]);
+  if (tid == 0)   // the product's first slabs
+    for (int li = 0; li < WSTAGES - 1; ++li) issue_slab<KS>(st, img, li, N_SLABS, NFULL, TAIL);
+  __syncthreads();
+  auto put = [&](int r, int c, float v) {
+    if (DUAL && wg) put1(r, c, v);
+    else put0(r, c, v);
+  };
+  // not unrolled: unrolled chunks cost registers (ray_march_bwd_kernel spilled)
+#pragma unroll 1
+  for (int j = 0; j < NFULL; ++j) {
+    if constexpr (DUAL)
+      chunk_products<64, KS>(st, a, img, j * KSL, N_SLABS, NFULL, TAIL, 0, 64 * j, put);
+    else
+      chunk_products<32, KS>(st, a, img, j * KSL, N_SLABS, NFULL, TAIL, 32 * wg,
+                             64 * j + 32 * wg, put);
+  }
+  if constexpr (TAIL != 0) {
+    if constexpr (DUAL)
+      chunk_products<TAIL, KS>(st, a, img, NFULL * KSL, N_SLABS, NFULL, TAIL, 0, 64 * NFULL,
+                               put);
+    else
+      chunk_products<TAIL / 2, KS>(st, a, img, NFULL * KSL, N_SLABS, NFULL, TAIL,
+                                   TAIL / 2 * wg, 64 * NFULL + TAIL / 2 * wg, put);
+  }
+  st.ws += N_SLABS;
+  __syncthreads();
+}
+
+__device__ __forceinline__ const unsigned char* image(const Params& p, int slot) {
+  return p.wimg + size_t(p.ioff[slot]) * WSLAB;
+}
+
+// A reverse product (depth 256, the layer's output cotangents; NOUT = K,
+// its input width) of a 256-wide layer, one stream (put0) or the SDF's
+// value and tangent streams (DUAL: A1 and put1 too).
+template <bool DUAL, class F0, class F1>
+__device__ __forceinline__ void reverse_product(BwdState& st, int K, const float* A0,
+                                                const float* A1, const unsigned char* img,
+                                                F0&& put0, F1&& put1) {
+  if (K == EMB) wg_product<HID / 16, EMB, DUAL>(st, A0, A1, img, put0, put1);
+  else if (K == HID) wg_product<HID / 16, HID, DUAL>(st, A0, A1, img, put0, put1);
+  else wg_product<HID / 16, HID + EMB, DUAL>(st, A0, A1, img, put0, put1);
+}
+
+// The forward product [TILE, K] @ [K, 256] of the tangent stream.
+template <class F>
+__device__ __forceinline__ void forward_product(BwdState& st, int K, const float* A,
+                                                const unsigned char* img, F&& put) {
+  if (K == EMB) wg_product<EMB / 16, HID, false>(st, A, A, img, put, put);
+  else if (K == HID) wg_product<HID / 16, HID, false>(st, A, A, img, put, put);
+  else wg_product<(HID + EMB) / 16, HID, false>(st, A, A, img, put, put);
+}
+
+// ---- the weight-grad flush ----
+// The flush's stages in order: per block, pair mp of 64-row blocks of its
+// K (2 mp and 2 mp + 1), term and tile, each stage one tile's A^T rows of
+// the pair and its cotangent. Thread 0 walks them with a cursor,
+// DW_STAGES - 1 ahead of the consumers.
+struct DwCursor {
+  int bi, mp, term, tl;
+  DwBlock blk;
+};
+
+__device__ __forceinline__ int n_pairs(int K) { return (round64(K) / 64 + 1) / 2; }
+
+__device__ __forceinline__ void cursor_start(const Shape& sh, DwCursor& c) {
+  c.bi = c.mp = c.term = c.tl = 0;
+  c.blk = dw_block(sh, 0);
+}
+
+// The next slab; false past the last block.
+__device__ __forceinline__ bool cursor_next(const Shape& sh, DwCursor& c, int nt) {
+  if (++c.tl < nt) return true;
+  c.tl = 0;
+  if (++c.term < c.blk.nterm) return true;
+  c.term = 0;
+  if (++c.mp < n_pairs(c.blk.K)) return true;
+  c.mp = 0;
+  if (++c.bi >= dw_n_blocks(sh)) return false;
+  c.blk = dw_block(sh, c.bi);
+  return true;
+}
+
+// Thread 0: the cursor's stage (global count s), three bulk copies (the
+// pair's second A^T block repeats the first where K has an odd count of
+// them; its products are not stored).
+__device__ __forceinline__ void dw_issue(BwdState& st, const unsigned char* store,
+                                         long long tile_bytes, const DwCursor& c, unsigned s) {
+  const DwBlock& b = c.blk;
+  const int bj = b.nterm == 4 ? c.term / 2 : (b.nterm == 2 ? c.term : 0);
+  const unsigned char* base = store + c.tl * tile_bytes + b.base;
+  ring_wait_empty<DW_STAGES>(st.d, s);
+  unsigned char* stage = st.d.buf + (s % DW_STAGES) * DW_STAGE;
+  const unsigned char* a = base + (long long)c.term * round64(b.K) * 128 + 2 * c.mp * DW_A;
+  const bool odd = 2 * c.mp + 1 == round64(b.K) / 64;
+  mlp::bulk_load(stage, a, DW_A, st.d.full + s % DW_STAGES);
+  mlp::bulk_load(stage + DW_A, odd ? a : a + DW_A, DW_A, st.d.full + s % DW_STAGES);
+  mlp::bulk_load(stage + 2 * DW_A,
+                 base + (long long)b.nterm * round64(b.K) * 128 + (long long)bj * DW_B, DW_B,
+                 st.d.full + s % DW_STAGES);
+}
+
+// The weight grads of the nt tiles stored from `store` (tile i at store +
+// i tile_bytes), summed on chip and added into the block's partial P once:
+// per block and pair of 64-row blocks of its K, warpgroup h the product
+// [64, 64 nt] x [64 nt, 256] of block 2 mp + h on wgmma (m64n256k16, 128
+// accumulators a thread), every term and tile streamed through the flush
+// ring in order, then one read-modify-write of those 64 x 256 floats. The
+// stages lie over X and Y, so the caller has finished the tile.
+__device__ __forceinline__ void dw_flush(const Params& p, BwdState& st, const unsigned char* store,
+                                         long long tile_bytes, int nt, float* P) {
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const Shape sh = shape_of(p);
+  // the batch's global stores reach the bulk copies; X and Y are free
+  mlp::fence_proxy_async_global();
+  mlp::fence_proxy_async();
+  __syncthreads();
+  const unsigned d0 = st.ds;
+  DwCursor pc;          // thread 0's: the next slab to issue
+  bool more = true;     // pc is a slab
+  unsigned issued = 0;
+  if (tid == 0) {
+    cursor_start(sh, pc);
+    for (; more && issued + 1 < DW_STAGES; ++issued) {
+      dw_issue(st, store, tile_bytes, pc, d0 + issued);
+      more = cursor_next(sh, pc, nt);
+    }
+  }
+  unsigned li = 0;
+  const int nb = dw_n_blocks(sh);
+  for (int bi = 0; bi < nb; ++bi) {
+    const DwBlock blk = dw_block(sh, bi);
+    for (int mp = 0; mp < n_pairs(blk.K); ++mp) {
+      float acc[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int term = 0; term < blk.nterm; ++term) {
+        for (int tl = 0; tl < nt; ++tl, ++li) {
+          const unsigned s = d0 + li;
+          if (tid == 0 && more) {
+            dw_issue(st, store, tile_bytes, pc, d0 + issued++);
+            more = cursor_next(sh, pc, nt);
+          }
+          const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);
+          mlp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mlp::wgmma_m64n256k16_bf16(acc, mlp::wgmma_desc(stage + wg * DW_A + 32 * kk),
+                                       mlp::wgmma_desc(stage + 2 * DW_A + 32 * kk),
+                                       (term | tl | kk) != 0);
+          mlp::wgmma_commit();
+          mlp::wgmma_wait_all();
+          ring_release<DW_STAGES>(st.d, s);
+        }
+      }
+      float* dst = P + p.off[blk.slot] + 2 * q;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
+          if (k < blk.K) {
+            float* d = dst + size_t(k) * HID + 8 * j;
+            d[0] += acc[4 * j + 2 * h];
+            d[1] += acc[4 * j + 2 * h + 1];
+          }
+        }
+    }
+  }
+  st.ds += li;
+  __syncthreads();
+}
+
+// The f32 part of the block's backward scratch, floats: [n_sdf - 1] gates,
+// features and [n_sdf - 1] tangent pre-gates as [TILE][HID] slabs, then
+// [n_color] colour and [n_relight] relight layer inputs as [TILE][LDS]
+// slabs; rounded up to 256 floats, the weight-grad store of dw_batch tiles
+// (dw_tile_bytes each) after it.
+__host__ __device__ inline long long bwd_f32_floats(int n_sdf, int n_color, int n_relight) {
+  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB + 255) /
+         256 * 256;
+}
+
+__host__ __device__ inline long long bwd_scratch_floats(const Shape& s, int dw_batch) {
+  return bwd_f32_floats(s.n_sdf, s.n_color, s.n_relight) + dw_batch * dw_tile_bytes(s) / 4;
+}
+
+// v0 = scale d emb_c / d x . grad_hat, the tangent seed of row r, column c.
+__device__ __forceinline__ float tangent_seed(const Params& p, const Tile& t, int r, int c) {
+  float x[3];
+  pe_row(p, t, r, x);
+  int j;
+  const float s = mlp::emb_slope(x, c, p.d0, &j);
+  return p.scale * s * t.GH[r * 3 + j];
 }
 
 // The pullback of the tile forward_tile<true> has just run, given the
 // cotangents of its five outputs in t.CT (the caller's, zeros for a padding
 // point; a barrier after): the point and view-dir cotangents to t.PH / t.DH,
-// the weight grads added into the block's partial P.
-__device__ void backward_tile(const Params& p, const Tile& t, float* gates, float* zt,
-                              const Save& sv, float* us, float* P) {
+// the bias grads and the 3-wide layers' weight grads added into the
+// block's partial P, and every 256-wide layer's weight-grad operands
+// (inputs and output cotangents, bf16, transposed) into the tile's store
+// sv.dw, which dw_flush sums.
+__device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, BwdState& st,
+                                              float* gates, float* zt, const Save& sv, float* P) {
   const int tid = threadIdx.x;
   const float* W = p.w;
-  const uint2* WB = p.wb;
   const long long* off = p.off;
-  const long long* boff = p.boff;
   const float inv_scale = 1.f / p.scale;
+  const Shape sh = shape_of(p);
+  const int bi_col = p.n_sdf, bi_rel = p.n_sdf + p.n_color - 1;
 
   for (int e = tid; e < TILE * 3; e += THREADS) {
     const int r = e / 3, c = e % 3;
@@ -655,9 +1020,9 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
       const float* rx = sv.rx + l * SLAB;
-      dw_accum<false, false>(rx, t.X, nullptr, nullptr, K, P + off[W_REL + l]);
+      save_t<0>(t.X, HID, dw_b(sh, sv.dw, bi_rel + l, 0));
       bias_accum(t.X, P + off[B_REL + l]);
-      product_any(t.X, HID, WB + boff[WT_REL + l], K, [&](int r, int c, float v) {
+      auto put = [&](int r, int c, float v) {
         if (l == 0) {   // [pts, grad, PE(dirs)]
           if (c < 3) t.PH[r * 3 + c] += v;
           else if (c < 6) t.GH[r * 3 + c - 3] += v;
@@ -667,7 +1032,8 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
         } else if (c < HID + 3) {   // the y_in layer's gc lanes
           t.CG[r * 3 + c - HID] += v;
         }
-      });
+      };
+      reverse_product<false>(st, K, t.X, t.X, image(p, WT_REL + l), put, put);
     }
     dirs_pe_vjp(t, p.rl_dv);
   } else {
@@ -695,9 +1061,9 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? HID + EMB : HID;
       const float* cx = sv.cx + l * SLAB;
-      dw_accum<false, false>(cx, t.X, nullptr, nullptr, K, P + off[W_COL + l]);
+      save_t<0>(t.X, HID, dw_b(sh, sv.dw, bi_col + l, 0));
       bias_accum(t.X, P + off[B_COL + l]);
-      product_any(t.X, HID, WB + boff[WT_COL + l], K, [&](int r, int c, float v) {
+      auto put = [&](int r, int c, float v) {
         if (l > 0) {
           t.X[r * LDX + c] = cx[r * LDS + c] > 0.f ? v : 0.f;
         } else if (c < HID) {   // [features | pts, grad, PE(dirs)]
@@ -709,7 +1075,8 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
         } else {
           t.VH[r * EMB + c - HID - 6] = v;
         }
-      });
+      };
+      reverse_product<false>(st, K, t.X, t.X, image(p, WT_COL + l), put, put);
     }
     if (p.color_dv > 0) dirs_pe_vjp(t, p.color_dv);
   }
@@ -718,29 +1085,27 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
   // ---- SDF tangent stream along grad_hat: Y = v0 = scale d emb/d x . grad_hat ----
   for (int e = tid; e < TILE * EMB; e += THREADS) {
     const int r = e / EMB, c = e % EMB;
-    float x[3];
-    pe_row(p, t, r, x);
-    int j;
-    const float s = mlp::emb_slope(x, c, p.d0, &j);
-    const float v = p.scale * s * t.GH[r * 3 + j];
-    t.V0[e] = v;
-    t.Y[r * LDX + c] = v;
+    t.Y[r * LDX + c] = tangent_seed(p, t, r, c);
   }
   __syncthreads();
   for (int l = 0; l < p.n_sdf - 1; ++l) {
     const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
-    save_cols(t.Y, K, us + l * SLAB);
+    // layer 0's U as a hi + lo bf16 pair (dw_kind)
+    save_t<0>(t.Y, K, dw_a(sh, sv.dw, l, l == 0 ? 2 : 1));
+    if (l == 0) save_t<2>(t.Y, K, dw_a(sh, sv.dw, 0, 3));
     const float* g = gates + l * GSLAB;
     float* z = zt + l * GSLAB;
-    tile_product<HID>(t.Y, K, WB + boff[W_SDF + l], [&](int r, int c, float acc) {
+    forward_product(st, K, t.Y, image(p, W_SDF + l), [&](int r, int c, float acc) {
       z[r * HID + c] = acc;
       const float v = g[r * HID + c] * acc;
       t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
     });
     if (pre_skip) {
-      for (int e = tid; e < TILE * EMB; e += THREADS)
-        t.Y[(e / EMB) * LDX + HID + e % EMB] = t.V0[e] * INV_SQRT2;
+      for (int e = tid; e < TILE * EMB; e += THREADS) {
+        const int r = e / EMB, c = e % EMB;
+        t.Y[r * LDX + HID + c] = tangent_seed(p, t, r, c) * INV_SQRT2;
+      }
       __syncthreads();
     }
   }
@@ -749,13 +1114,16 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
   // cotangent e0 / scale, uL = Y[:, :256] ----
   {
     const int L1 = p.n_sdf - 1;
-    const float* sx = sv.sx + L1 * SLAB;
+    // its input, in bf16, from the store (the recompute saved it)
+    const unsigned char* sx = dw_a(sh, sv.dw, L1, 0);
     {
       // the sdf row: bf16 products, and the rank-1 tangent term in f32
       const int k = tid;   // THREADS == HID
       float s = 0.f, u = 0.f;
       for (int r = 0; r < TILE; ++r) {
-        s = fmaf(round_bf16(t.CT[r * 16] * inv_scale), round_bf16(sx[r * LDS + k]), s);
+        const unsigned bits =
+            *reinterpret_cast<const unsigned short*>(sx + mlp::sw128_offset(k, r));
+        s = fmaf(round_bf16(t.CT[r * 16] * inv_scale), __uint_as_float(bits << 16), s);
         u += t.Y[r * LDX + k];
       }
       P[off[W_LAST] + k] += s + inv_scale * u;
@@ -765,17 +1133,18 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
         P[off[B_LAST]] += sb;
       }
     }
-    dw_accum<false, false>(sx, t.X, nullptr, nullptr, HID, P + off[W_FEAT]);
+    save_t<0>(t.X, HID, dw_b(sh, sv.dw, L1, 0));
     bias_accum(t.X, P + off[B_FEAT]);
     const float* wl = W + off[W_LAST];
     // the tangent cotangent: JAX's bf16 weight row times 1/scale cast to
     // bf16, rounded to bf16
     const float inv_scale_bf = round_bf16(inv_scale);
-    tile_product<HID>(t.X, HID, WB + boff[WT_FEAT], [&](int r, int c, float v) {
+    auto put = [&](int r, int c, float v) {
       const float w = round_bf16(wl[c]);
       t.X[r * LDX + c] = fmaf(round_bf16(t.CT[r * 16] * inv_scale), w, v);
       t.Y[r * LDX + c] = round_bf16(w * inv_scale_bf);
-    });
+    };
+    reverse_product<false>(st, HID, t.X, t.X, image(p, WT_FEAT), put, put);
   }
 
   // ---- value and tangent reversed together ----
@@ -796,25 +1165,24 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
       t.Y[r * LDX + c] = gg * ub;
     }
     __syncthreads();
-    if (l == 0)
-      dw_accum<true, true>(sv.sx, t.X, us, t.Y, K, P + off[W_SDF]);
-    else
-      dw_accum<true, false>(sv.sx + l * SLAB, t.X, us + l * SLAB, t.Y, K, P + off[W_SDF + l]);
+    // abar and zbar: the weight grad's cotangents (dw_kind's terms)
+    save_t<0>(t.X, HID, dw_b(sh, sv.dw, l, 0));
+    save_t<0>(t.Y, HID, dw_b(sh, sv.dw, l, 1));
     bias_accum(t.X, P + off[B_SDF + l]);
-    const uint2* WT = WB + boff[WT_SDF + l];
     // hbar and ubar of layer l's input: the hidden part stays in X / Y, the
     // PE part (the skip layer's last 48 columns, or all of layer 0's) adds
     // to emb_hat / v0_hat
-    product_any(t.X, HID, WT, K, [&](int r, int c, float v) {
+    auto value = [&](int r, int c, float v) {
       if (l == 0) t.EG[r * EMB + c] += v;
       else if (c < HID) t.X[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
       else t.EG[r * EMB + c - HID] += v * INV_SQRT2;
-    });
-    product_any(t.Y, HID, WT, K, [&](int r, int c, float v) {
+    };
+    auto tangent = [&](int r, int c, float v) {
       if (l == 0) t.VH[r * EMB + c] += v;
       else if (c < HID) t.Y[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
       else t.VH[r * EMB + c - HID] += v * INV_SQRT2;
-    });
+    };
+    reverse_product<true>(st, K, t.X, t.Y, image(p, WT_SDF + l), value, tangent);
   }
 
   // ---- PE pullback, first and second derivative ----
@@ -834,42 +1202,88 @@ __device__ void backward_tile(const Params& p, const Tile& t, float* gates, floa
   __syncthreads();
 }
 
-// The backward's shared-memory tile: the forward's, then the backward's
-// buffers (SMEM_BWD bytes in all).
-__device__ void carve_bwd(Tile& t, unsigned char* smem) {
-  carve_fwd(t, smem);
-  t.Y = t.S1 + TILE;
-  t.VH = t.Y + TILE * LDX;
-  t.V0 = t.VH + TILE * EMB;
-  t.CT = t.V0 + TILE * EMB;
-  t.PH = t.CT + TILE * 16;
+// The backward's shared memory (SMEM_BWD bytes): from the first 1024-byte
+// boundary, the weight ring, X and Y (the flush ring over them), then the
+// forward's small buffers and the backward's, and the rings' mbarriers.
+// Thread 0 initialises the barriers; a barrier after.
+__device__ __forceinline__ void carve_bwd(Tile& t, BwdState& st, unsigned char* smem) {
+  const unsigned mis = unsigned(__cvta_generic_to_shared(smem)) & (SMEM_ALIGN - 1);
+  unsigned char* base = smem + ((SMEM_ALIGN - mis) & (SMEM_ALIGN - 1));
+  st.w.buf = base;
+  t.X = reinterpret_cast<float*>(base + WSTAGES * WSLAB);
+  st.d.buf = reinterpret_cast<unsigned char*>(t.X);
+  t.Y = t.X + TILE * LDX;
+  t.EG = t.Y + TILE * LDX;
+  t.VH = t.EG + TILE * EMB;
+  t.CT = t.VH + TILE * EMB;
+  t.P3 = t.CT + TILE * 16;
+  t.D3 = t.P3 + TILE * 3;
+  t.G3 = t.D3 + TILE * 3;
+  t.GC = t.G3 + TILE * 3;
+  t.DL = t.GC + TILE * 3;
+  t.RL = t.DL + TILE * 3;
+  t.PH = t.RL + TILE * 3;
   t.DH = t.PH + TILE * 3;
   t.GH = t.DH + TILE * 3;
   t.CG = t.GH + TILE * 3;
   t.HB = t.CG + TILE * 3;
+  t.S1 = t.HB + TILE * 3;
+  st.w.full = reinterpret_cast<unsigned long long*>(t.S1 + TILE);
+  st.w.empty = st.w.full + WSTAGES;
+  st.d.full = st.w.empty + WSTAGES;
+  st.d.empty = st.d.full + DW_STAGES;
+  st.ws = st.ds = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < WSTAGES; ++i) {
+      mlp::mbar_init(st.w.full + i, 1);
+      mlp::mbar_init(st.w.empty + i, THREADS / 32);
+    }
+    for (int i = 0; i < DW_STAGES; ++i) {
+      mlp::mbar_init(st.d.full + i, 3);   // three copies a stage
+      mlp::mbar_init(st.d.empty + i, THREADS / 32);
+    }
+    mlp::mbar_init_fence();
+  }
+  __syncthreads();
 }
 
 // Where the backward keeps its per-block scratch (bwd_scratch_floats floats
-// from `base`): the gates, features and tangent pre-gates, the stored layer
-// inputs.
+// from `base`): the gates, features and tangent pre-gates, the colour and
+// relight layer inputs in f32, then the weight-grad store.
 struct BwdScratch {
   float* gates;
   float* feat;
   float* zt;
-  float* us;
-  Save sv;
+  float* cx;
+  float* rx;
+  unsigned char* store;   // dw_batch tiles of dw_tile_bytes
 };
 
-__device__ BwdScratch carve_bwd_scratch(const Params& p, float* base) {
+__device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* base) {
   BwdScratch s;
   s.gates = base;
   s.feat = s.gates + size_t(p.n_sdf - 1) * GSLAB;
   s.zt = s.feat + GSLAB;
-  s.sv.sx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
-  s.us = s.sv.sx + size_t(p.n_sdf) * SLAB;
-  s.sv.cx = s.us + size_t(p.n_sdf - 1) * SLAB;
-  s.sv.rx = s.sv.cx + size_t(p.n_color) * SLAB;
+  s.cx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
+  s.rx = s.cx + size_t(p.n_color) * SLAB;
+  s.store = reinterpret_cast<unsigned char*>(base + bwd_f32_floats(p.n_sdf, p.n_color,
+                                                                    p.n_relight));
   return s;
+}
+
+// The batch bookkeeping of a block's backward: call after each tile's
+// backward_tile (and after the caller has read the tile's outputs); slot
+// is the tile's index in the batch. Flushes when the batch is full or the
+// block's last tile is done (a ragged batch), and returns the next slot.
+__device__ __forceinline__ int after_tile(const Params& p, BwdState& st, const BwdScratch& s,
+                                          int slot, bool last, float* P) {
+  if (++slot < p.dw_batch && !last) return slot;
+  dw_flush(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
+  return 0;
+}
+
+__device__ __forceinline__ Save bwd_save(const Params& p, const BwdScratch& s, int slot) {
+  return Save{s.cx, s.rx, s.store + slot * dw_tile_bytes(shape_of(p))};
 }
 
 template <class K>
@@ -911,6 +1325,12 @@ Params make_params(const float* pts, const float* dirs, const float* w, const vo
     p.boff[i] = boff[i];
   }
   return p;
+}
+
+void set_bwd_weights(Params& p, const void* wimg, const long long* ioff, int dw_batch) {
+  p.wimg = static_cast<const unsigned char*>(wimg);
+  for (int i = 0; i < N_OFF; ++i) p.ioff[i] = ioff[i];
+  p.dw_batch = dw_batch;
 }
 
 bool bad_shape(int n_off, int n_sdf, int n_color, int n_relight) {

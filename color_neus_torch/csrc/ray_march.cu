@@ -51,9 +51,12 @@
 //   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<true>
 //   recomputes the layer inputs (the one MLP pass of JAX's recompute mode:
 //   the stash spares a third one) and backward_tile pulls the cotangents
-//   back; the ray cotangents are summed per ray in sample order. Weight
-//   grads and the inv_s grad go to the block's partial ([n_grad + 1]: the
-//   packed gradient layout, then inv_s), which the reduction kernel of
+//   back; the ray cotangents are summed per ray in sample order. The
+//   block counts its tiles across groups: its weight grads are summed on
+//   chip over batches of dw_batch tiles (dw_flush: wgmma on the bf16
+//   operands backward_tile stores, point_pipeline.cu's note) and added,
+//   with the inv_s grad, to the block's partial ([n_grad + 1]: the packed
+//   gradient layout, then inv_s) once a batch, which the reduction kernel of
 //   point_pipeline.cu sums over the blocks in index order: no float atomics.
 
 #include "point_pipeline_tile.cuh"
@@ -98,8 +101,8 @@ __device__ __forceinline__ void sample_point(const March& m, long long r, int s,
 
 // t.P3 / t.D3 = the points and view dirs of the group's points t0 .. t0 +
 // TILE (n_pts of them in the group; zeros past it), then a barrier.
-__device__ void load_march_points(const March& m, const Tile& t, long long r0, int t0,
-                                  int n_pts) {
+__device__ __forceinline__ void load_march_points(const March& m, const Tile& t, long long r0,
+                                                  int t0, int n_pts) {
   const int tid = threadIdx.x;
   if (tid < TILE) {
     const int q = t0 + tid;
@@ -125,8 +128,8 @@ struct Comp {
   float tc, u, ep, en, pc, nc, q, alpha, xv, normg, relaxed;
 };
 
-__device__ Comp composite_point(const float* rd, const float* grad, float sdf, float dist,
-                                float inv_s, const float* pt) {
+__device__ __forceinline__ Comp composite_point(const float* rd, const float* grad, float sdf,
+                                                float dist, float inv_s, const float* pt) {
   Comp c;
   c.tc = rd[0] * grad[0] + rd[1] * grad[1] + rd[2] * grad[2];
   c.u = -c.tc * 0.5f + 0.5f;
@@ -215,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 2) ray_march_fwd_kernel(March m) {
 // The block's group scratch, after the point pipeline's backward scratch:
 // [G S][CTW] per-point cotangents, [G S] transmittance, [G] inv_s sums,
 // [G][6] ray cotangents; rounded up to 32 floats, so that every block's
-// scratch keeps the 16-byte alignment of dw_accum's float4 reads.
+// scratch keeps the bulk copies' 16-byte alignment.
 __host__ __device__ long long group_scratch_floats(int G, int S) {
   return ((long long)G * S * (CTW + 1) + 7LL * G + 31) / 32 * 32;
 }
@@ -224,7 +227,8 @@ __host__ __device__ int rays_per_group(int S) { return S >= TILE ? 1 : TILE / S;
 
 // One thread per ray: the compositing VJP of ray r (ray_march.py:322-355)
 // into ct[s * CTW + ...] for s < S; returns the ray's inv_s cotangent.
-__device__ float composite_vjp(const March& m, long long r, float inv_s, float* ct, float* Tr) {
+__device__ __forceinline__ float composite_vjp(const March& m, long long r, float inv_s, float* ct,
+                                               float* Tr) {
   const float* rd = m.rays_d + 3 * r;
   const float* gb = m.gbar + r * 16;
   float T = 1.f;
@@ -278,17 +282,19 @@ __device__ float composite_vjp(const March& m, long long r, float inv_s, float* 
 __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  carve_bwd(t, smem);
+  BwdState st;
+  carve_bwd(t, st, smem);
   const Params& p = m.net;
   const int tid = threadIdx.x;
   float* base = p.scratch + size_t(blockIdx.x) * m.scratch_floats;
   const BwdScratch s = carve_bwd_scratch(p, base);
-  float* ct = base + bwd_scratch_floats(p.n_sdf, p.n_color, p.n_relight);  // [G S][CTW]
+  float* ct = base + bwd_scratch_floats(shape_of(p), p.dw_batch);          // [G S][CTW]
   float* Tr = ct + size_t(m.G) * m.S * CTW;                                 // [G S]
   float* sinv = Tr + size_t(m.G) * m.S;                                     // [G]
   float* rh = sinv + m.G;                                                   // [G][6]
   float* P = m.partial + size_t(blockIdx.x) * (m.n_grad + 1);
   const float inv_s = *m.inv_s;
+  int slot = 0;   // the tile's place in the weight-grad batch
 
   for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
     const long long r0 = grp * m.G;
@@ -303,14 +309,15 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
       for (int g = 0; g < nr; ++g) P[m.n_grad] += sinv[g];
 
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
+      const Save sv = bwd_save(p, s, slot);
       load_march_points(m, t, r0, t0, n_pts);
-      forward_tile<true>(p, t, s.gates, s.feat, s.sv);
+      forward_tile<true>(p, t, s.gates, s.feat, sv);
       for (int e = tid; e < TILE * 16; e += THREADS) {
         const int q = t0 + e / 16, c = e % 16;
         t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
       }
       __syncthreads();
-      backward_tile(p, t, s.gates, s.zt, s.sv, s.us, P);
+      backward_tile(p, t, st, s.gates, s.zt, sv, P);
       // the tile's share of each ray's cotangents, summed in sample order
       const int g_lo = t0 / m.S, g_hi = min(nr - 1, (t0 + TILE - 1) / m.S);
       for (int e = tid; e < (g_hi - g_lo + 1) * 6; e += THREADS) {
@@ -326,6 +333,7 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
         rh[g * 6 + k] += acc;
       }
       __syncthreads();
+      slot = after_tile(p, st, s, slot, grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
     }
     for (int e = tid; e < nr * 8; e += THREADS) {
       const int g = e / 8, k = e % 8;
@@ -356,9 +364,8 @@ March make_march(const float* rays_o, const float* rays_d, const float* z, const
 
 long long fwd_scratch_floats(int n_sdf) { return (long long)n_sdf * GSLAB; }
 
-long long march_bwd_scratch_floats(int n_sdf, int n_color, int n_relight, int S) {
-  return bwd_scratch_floats(n_sdf, n_color, n_relight) +
-         group_scratch_floats(rays_per_group(S), S);
+long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
+  return bwd_scratch_floats(sh, dw_batch) + group_scratch_floats(rays_per_group(S), S);
 }
 
 }  // namespace
@@ -378,8 +385,9 @@ extern "C" int ray_march_rays_per_group(int S) { return rays_per_group(S); }
 
 extern "C" long long ray_march_fwd_scratch_floats(int n_sdf) { return fwd_scratch_floats(n_sdf); }
 
-extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int n_color, int n_relight, int S) {
-  return march_bwd_scratch_floats(n_sdf, n_color, n_relight, S);
+extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_color,
+                                                  int n_relight, int y_in, int S, int dw_batch) {
+  return march_bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, S, dw_batch);
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
@@ -412,26 +420,31 @@ extern "C" int ray_march_fwd_launch(
 
 // Backward: stash from the forward on the same inputs, gbar [R, 16],
 // rays_hat [R, 8], partial n_blocks x (n_grad + 1) zeros, scratch n_blocks x
-// ray_march_bwd_scratch_floats floats.
+// ray_march_bwd_scratch_floats(..., dw_batch) floats; `wimg` / `ioff` the
+// wgmma weight slabs and their offset table (point_pipeline.py
+// _pack_images).
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const void* wb, const float* stash, const float* gbar, float* rays_hat,
-    float* partial, float* scratch, long long n_rays, int S, float sample_dist, int n_blocks,
-    long long n_grad, int n_sdf, int skip, int d0, float scale, int n_color, int color_dv,
-    int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
-    const long long* boff, int n_off, void* stream) {
+    const float* w, const void* wb, const void* wimg, const float* stash, const float* gbar,
+    float* rays_hat, float* partial, float* scratch, long long n_rays, int S, float sample_dist,
+    int n_blocks, long long n_grad, int dw_batch, int n_sdf, int skip, int d0, float scale,
+    int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* boff, const long long* ioff, int n_off,
+    void* stream) {
   if (n_rays <= 0) return 0;
-  if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
+  if (S <= 0 || dw_batch < 1 || bad_shape(n_off, n_sdf, n_color, n_relight))
+    return int(cudaErrorInvalidValue);
   March m = make_march(rays_o, rays_d, z, inv_s, w, wb, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
                        off, boff);
+  set_bwd_weights(m.net, wimg, ioff, dw_batch);
   m.stash = const_cast<float*>(stash);
   m.gbar = gbar;
   m.rays_hat = rays_hat;
   m.partial = partial;
   m.n_grad = n_grad;
   m.net.scratch = scratch;
-  m.scratch_floats = march_bwd_scratch_floats(n_sdf, n_color, n_relight, S);
+  m.scratch_floats = march_bwd_scratch_floats(shape_of(m.net), S, dw_batch);
   cudaError_t e = cudaFuncSetAttribute(ray_march_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_BWD));

@@ -26,9 +26,11 @@ tensors it is given, and by nothing else; no gradient flows through it.
 Backward (the VJP of the five outputs), two implementations likewise:
   * launch_point_pipeline_bwd: the second entry of csrc/point_pipeline.cu
     (recompute, relight / colour reverse, the SDF second-order
-    reverse-over-forward, PE first and second derivative; weight grads
-    summed per block, then over blocks in a fixed order). Counts its
-    launches in launch_point_pipeline_bwd.launches.
+    reverse-over-forward, PE first and second derivative; its products on
+    wgmma from the weight slabs _pack_images packs; weight grads summed
+    on chip per batch of DW_BATCH tiles into a partial per block, then
+    over blocks in a fixed order). Counts its launches in
+    launch_point_pipeline_bwd.launches.
   * point_pipeline_bwd_plain: the same pullback in plain PyTorch, in the
     nets' own layouts and at any width (not autograd), with the same
     `bf16` flag.
@@ -59,6 +61,7 @@ KERNEL = "point_pipeline"
 HID = 256     # the kernel's hidden width
 EMB = 48      # the kernel's padded PE / small-input width
 MAXL = 16     # the kernel's most layers per network
+DW_BATCH = 8  # tiles whose weight grads a backward block sums on chip per read-modify-write
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # slots of the kernel's offset table (csrc/point_pipeline.cu)
 W_SDF, WT_SDF, B_SDF, W_COL, B_COL, W_REL, B_REL, WT_COL, WT_REL = (i * MAXL for i in range(9))
@@ -74,7 +77,9 @@ class PipelineWeights:
     buffer and its offset table (None for CPU weights); n_grad: its length,
     the gradient layout; frags / boff: the bf16 weight blocks of the
     256-wide layers and their transposes in mma fragment order, and their
-    offset table (8-byte units)."""
+    offset table (8-byte units); images / ioff: the backward's wgmma
+    weight slabs (_pack_images) and their offset table (slabs), packed at
+    the first backward (bwd_images)."""
     rcfg: RendererConfig
     sdf: list
     color: list
@@ -84,6 +89,8 @@ class PipelineWeights:
     n_grad: int = 0
     frags: torch.Tensor | None = None
     boff: np.ndarray | None = None
+    images: torch.Tensor | None = None
+    ioff: np.ndarray | None = None
 
 
 def _color_dv(rcfg: RendererConfig) -> int:
@@ -258,6 +265,52 @@ def _pack(pw: PipelineWeights):
             frags.append(_frag(t.float()))
             bpos += frags[-1].numel()
     return torch.cat(flat).contiguous(), off, pos, torch.cat(frags).contiguous(), boff
+
+
+SLAB_ROWS, SLAB_K = 64, 64    # a wgmma weight slab: 64 rows x 64 k of bf16, 8 KB
+
+
+def _slabs(mat: torch.Tensor) -> torch.Tensor:
+    """mat [N, D] (rows: a product's output columns, D its depth) as the
+    backward kernel's weight slabs, bf16: chunks of 64 rows (the last one
+    N % 64 rows), each cut into ceil(D / 64) slabs of 64 k, zero-padded
+    to 64 x 64; a slab is K-major, row n's 16-byte chunk c (k 8 c .. 8 c
+    + 8) stored at chunk c ^ (n % 8), the 128-byte swizzle
+    (csrc/mlp_common.cuh sw128_offset; mlp_chain.pack_w_image's layout)."""
+    n_rows, depth = mat.shape
+    dp = -(-depth // SLAB_K) * SLAB_K
+    n_ch = -(-n_rows // SLAB_ROWS)
+    pad = torch.zeros((n_ch * SLAB_ROWS, dp), dtype=torch.float32, device=mat.device)
+    pad[:n_rows, :depth] = mat
+    t = pad.reshape(n_ch, SLAB_ROWS, dp // SLAB_K, 8, 8).permute(0, 2, 1, 3, 4)  # ch, k slab, n, c, e
+    n = torch.arange(SLAB_ROWS, device=mat.device)
+    chunk = torch.arange(8, device=mat.device)[None, :] ^ (n % 8)[:, None]       # [n, p] -> c
+    return t[:, :, n[:, None], chunk].to(torch.bfloat16).reshape(-1)
+
+
+def _pack_images(pw: PipelineWeights):
+    """The backward kernels' wgmma weight slabs (csrc/point_pipeline_tile.cuh,
+    wg_product) and their offset table in slabs: every 256-wide layer's
+    [K, 256] block in its reverse-product slot (W / WT slot WT_*: rows the
+    layer's K inputs, depth its 256 outputs) and the SDF hidden layers'
+    transposes in their forward slots (W_SDF + l: rows the 256 outputs,
+    depth K), for the tangent stream."""
+    _, wide = _layout(pw)
+    ioff, pos, parts = np.zeros(N_OFF, np.int64), 0, []
+    for w_slot, wt_slot, wp in wide:
+        mats = [(wt_slot, wp)] + ([(w_slot, wp.T)] if w_slot < W_SDF + MAXL else [])
+        for slot, mat in mats:
+            ioff[slot] = pos
+            parts.append(_slabs(mat.float()))
+            pos += parts[-1].numel() // (SLAB_ROWS * SLAB_K)
+    return torch.cat(parts).contiguous(), ioff
+
+
+def bwd_images(pw: PipelineWeights):
+    """(images, ioff) of pw, packed on pw's device at the first call."""
+    if pw.images is None:
+        pw.images, pw.ioff = _pack_images(pw)
+    return pw.images, pw.ioff
 
 
 def _unpack_grads(pw: PipelineWeights, packed_grad: torch.Tensor) -> dict:
@@ -685,6 +738,23 @@ def _net_args(pw: PipelineWeights):
                     tables[0].ctypes.data, tables[1].ctypes.data, N_OFF)
 
 
+def bwd_net_args(pw: PipelineWeights, n_tiles: int, grid: int):
+    """The backward kernels' arguments after the per-call ones: (the
+    tables to keep alive, the images, dw_batch, (the network arguments
+    with the ioff table)). dw_batch: DW_BATCH, or fewer when a block has
+    fewer tiles."""
+    tables, net = _net_args(pw)
+    images, ioff = bwd_images(pw)
+    ioff = np.ascontiguousarray(ioff, np.int64)
+    batch = max(1, min(DW_BATCH, -(-n_tiles // grid)))
+    return (tables, ioff), images, batch, net[:13] + (ioff.ctypes.data, N_OFF)
+
+
+def _shape_args(net):
+    """(n_sdf, skip, n_color, n_relight, y_in) of the network arguments."""
+    return net[0], net[1], net[4], net[7], net[9]
+
+
 def _check_inputs(pw: PipelineWeights, pts, dirs):
     if pw.packed is None:
         raise ValueError("point_pipeline: weights were resolved on the CPU")
@@ -744,23 +814,25 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
     n, dev = _check_inputs(pw, pts, dirs)
     _check("gbar", gbar, n, dev, 16)
     lib = _library()
-    tables, net = _net_args(pw)
     pts_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     dirs_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return pts_hat, dirs_hat, torch.zeros(pw.n_grad, dtype=torch.float32, device=dev)
-    grid = min(-(-n // 64), _max_blocks(lib, dev, "bwd"))
-    # per block: the recompute's layer inputs, gates, tangent stream, and a
+    n_tiles = -(-n // 64)
+    grid = min(n_tiles, _max_blocks(lib, dev, "bwd"))
+    tables, images, batch, net = bwd_net_args(pw, n_tiles, grid)
+    # per block: the recompute's gates, tangent stream and colour / relight
+    # inputs, and the weight-grad operands of `batch` tiles; then a
     # weight-grad partial in the packed layout, summed afterwards
-    per_block = lib.point_pipeline_bwd_scratch_floats(net[0], net[4], net[7])
+    per_block = lib.point_pipeline_bwd_scratch_floats(*_shape_args(net), batch)
     scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
     partial = torch.zeros((grid, pw.n_grad), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_bwd_launch(
             pts.data_ptr(), dirs.data_ptr(), gbar.data_ptr(), pw.packed.data_ptr(),
-            pw.frags.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), n, grid, pw.n_grad, *net, stream)
+            pw.frags.data_ptr(), images.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(),
+            partial.data_ptr(), scratch.data_ptr(), n, grid, pw.n_grad, batch, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
     launch_point_pipeline_bwd.launches += 1
     return pts_hat, dirs_hat, reduce_partials(partial)
@@ -776,7 +848,7 @@ def _library():
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
         lib.point_pipeline_fwd_launch.argtypes = [p] * 6 + [ll, i] + net + [p]
-        lib.point_pipeline_bwd_launch.argtypes = [p] * 9 + [ll, i, ll] + net + [p]
+        lib.point_pipeline_bwd_launch.argtypes = [p] * 10 + [ll, i, ll, i] + net[:13] + [p, i, p]
         lib.point_pipeline_reduce_launch.argtypes = [p, p, i, ll, p]
         for fn in (lib.point_pipeline_fwd_launch, lib.point_pipeline_bwd_launch,
                    lib.point_pipeline_reduce_launch, lib.point_pipeline_n_off):
@@ -784,7 +856,7 @@ def _library():
         for fn in (lib.point_pipeline_fwd_max_blocks, lib.point_pipeline_bwd_max_blocks):
             fn.argtypes = [ctypes.POINTER(i)]
             fn.restype = i
-        lib.point_pipeline_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.point_pipeline_bwd_scratch_floats.argtypes = [i] * 6
         lib.point_pipeline_bwd_scratch_floats.restype = ll
         lib.point_pipeline_error_string.argtypes = [i]
         lib.point_pipeline_error_string.restype = ctypes.c_char_p

@@ -224,7 +224,7 @@ def _library():
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
         lib.ray_march_fwd_launch.argtypes = [p] * 9 + [ll, i, f, i] + net + [p]
-        lib.ray_march_bwd_launch.argtypes = [p] * 11 + [ll, i, f, i, ll] + net + [p]
+        lib.ray_march_bwd_launch.argtypes = [p] * 12 + [ll, i, f, i, ll, i] + net[:13] + [p, i, p]
         for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
                    lib.ray_march_rays_per_group):
             fn.restype = i
@@ -233,7 +233,7 @@ def _library():
             fn.argtypes = [ctypes.POINTER(i)]
             fn.restype = i
         lib.ray_march_fwd_scratch_floats.argtypes = [i]
-        lib.ray_march_bwd_scratch_floats.argtypes = [i, i, i, i]
+        lib.ray_march_bwd_scratch_floats.argtypes = [i] * 7
         for fn in (lib.ray_march_fwd_scratch_floats, lib.ray_march_bwd_scratch_floats):
             fn.restype = ll
         lib.ray_march_error_string.argtypes = [i]
@@ -317,25 +317,28 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
     PP._check("stash", stash, R * S, dev, STASH)
     PP._check("gbar", gbar, R, dev, 16)
     lib = _library()
-    tables, net = PP._net_args(pw)
     rays_hat = torch.empty((R, 8), dtype=torch.float32, device=dev)
     if R == 0:
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
             torch.zeros(pw.n_grad, device=dev)
-    grid = min(_groups(lib, R, S), _max_blocks(lib, dev, "bwd"))
-    # per block: the recompute's layer inputs, gates and tangent stream, the
-    # group's per-point cotangents, and a partial of the weight grads (the
-    # packed layout) and of inv_s's, summed afterwards
-    per_block = lib.ray_march_bwd_scratch_floats(net[0], net[4], net[7], S)
+    groups = _groups(lib, R, S)
+    grid = min(groups, _max_blocks(lib, dev, "bwd"))
+    G = lib.ray_march_rays_per_group(S)
+    tables, images, batch, net = PP.bwd_net_args(pw, -(-groups // grid) * -(-G * S // 64), 1)
+    # per block: the recompute's gates, tangent stream and colour / relight
+    # inputs, the weight-grad operands of `batch` tiles, the group's
+    # per-point cotangents; and a partial of the weight grads (the packed
+    # layout) and of inv_s's, summed afterwards
+    per_block = lib.ray_march_bwd_scratch_floats(*PP._shape_args(net), S, batch)
     scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
     partial = torch.zeros((grid, pw.n_grad + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_bwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
-            pw.packed.data_ptr(), pw.frags.data_ptr(), stash.data_ptr(), gbar.data_ptr(),
-            rays_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(), R, S, sample_dist, grid,
-            pw.n_grad, *net, stream)
+            pw.packed.data_ptr(), pw.frags.data_ptr(), images.data_ptr(), stash.data_ptr(),
+            gbar.data_ptr(), rays_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(), R, S,
+            sample_dist, grid, pw.n_grad, batch, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
     launch_ray_march_bwd.launches += 1
     total = PP.reduce_partials(partial)

@@ -54,6 +54,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(a, b)
 #define __shared__
 #define __align__(n)
@@ -200,17 +201,55 @@ inline float emu_sw128(unsigned long long desc, int row, int k) {
   return emu_bf16_float(v);
 }
 
-inline void emu_wgmma_bf16(float* d, int n, unsigned long long a, unsigned long long b,
+// The thread's accumulators d (fragment layout of wgmma_m64n128k16_bf16)
+// from its two A rows ar[h][k] (rows 16 w + g + 8 h) and B^T read from the
+// descriptor b, the 16 products of each summed in k order in f32.
+inline void emu_wgmma_rows(float* d, int n, const float (&ar)[2][16], unsigned long long b,
                            int scale_d) {
-  const int t = threadIdx.x & 127, w = t >> 5, g = (t & 31) >> 2, q = t & 3;
+  const int q = threadIdx.x & 3;
   for (int j = 0; j < n / 8; ++j)
-    for (int h = 0; h < 2; ++h)
-      for (int e = 0; e < 2; ++e) {
-        const int row = 16 * w + g + 8 * h, col = 8 * j + 2 * q + e;
+    for (int e = 0; e < 2; ++e) {
+      float bc[16];
+      for (int k = 0; k < 16; ++k) bc[k] = emu_sw128(b, 8 * j + 2 * q + e, k);
+      for (int h = 0; h < 2; ++h) {
         float acc = scale_d ? d[4 * j + 2 * h + e] : 0.f;
-        for (int k = 0; k < 16; ++k) acc = fmaf(emu_sw128(a, row, k), emu_sw128(b, col, k), acc);
+        for (int k = 0; k < 16; ++k) acc = fmaf(ar[h][k], bc[k], acc);
         d[4 * j + 2 * h + e] = acc;
       }
+    }
+}
+
+// wgmma with A from shared memory (descriptor a).
+inline void emu_wgmma_bf16(float* d, int n, unsigned long long a, unsigned long long b,
+                           int scale_d) {
+  const int t = threadIdx.x & 127, w = t >> 5, g = (t & 31) >> 2;
+  float ar[2][16];
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 16; ++k) ar[h][k] = emu_sw128(a, 16 * w + g + 8 * h, k);
+  emu_wgmma_rows(d, n, ar, b, scale_d);
+}
+
+// wgmma with A from registers (mma.m16n8k16's A fragment per warp): each
+// lane deposits its four registers, the warp meets, and each thread reads
+// its two rows from the deposits (two buffers, as for mma).
+inline unsigned emu_wgmma_a[2][32][32][4];   // [buffer][warp][lane][a0..a3]
+inline thread_local unsigned emu_wgmma_a_buffer = 0;
+inline void emu_wgmma_bf16_ra(float* d, int n, const unsigned (&a)[4], unsigned long long b,
+                              int scale_d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  unsigned (*regs)[4] = emu_wgmma_a[emu_wgmma_a_buffer][warp];
+  emu_wgmma_a_buffer ^= 1u;
+  memcpy(regs[lane], a, sizeof(a));
+  emu_warp_sync();
+  float ar[2][16];
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 16; ++k) {
+      // A[row][k], row g + 8 h of the warp's 16: lane 4 g + (k % 8) / 2,
+      // register h + 2 (k >= 8), the half k % 2
+      const unsigned r = regs[4 * g + (k % 8) / 2][h + (k >= 8 ? 2 : 0)];
+      ar[h][k] = emu_bf16_float((r >> (16 * (k & 1))) & 0xffffu);
+    }
+  emu_wgmma_rows(d, n, ar, b, scale_d);
 }
 
 // ---- named barriers: a count and a generation each ----

@@ -1,9 +1,11 @@
 // Appended to csrc/ray_march.cu (same translation unit, so it reaches the
 // kernels in its unnamed namespace) by tests/test_torch_ray_march_emulated.py.
 // Usage: emu DIR. Reads from DIR: meta.i64 (R, S, n_sdf, skip, d0, n_color,
-// color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks),
+// color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks,
+// dw_batch),
 // f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, boff.i64, wb.bf16
-// (the fragment-ordered bf16 blocks), rays_o.f32, rays_d.f32, z.f32,
+// (the fragment-ordered bf16 blocks), ioff.i64, img.bf16 (the wgmma weight
+// slabs), rays_o.f32, rays_d.f32, z.f32,
 // gbar.f32; runs the forward kernel and then the
 // backward kernel block after block on `blocks` blocks, the partials summed
 // over the blocks in index order as the reduction kernel does; writes
@@ -20,7 +22,7 @@ emu_dim3 blockIdx, blockDim, gridDim;
 std::barrier<>* emu_barrier;
 float emu_shuffle[256];
 namespace {
-alignas(128) unsigned char smem[SMEM_BWD];
+alignas(1024) unsigned char smem[SMEM_BWD];
 }
 
 static std::vector<char> slurp(const std::string& path) {
@@ -49,11 +51,12 @@ int main(int argc, char** argv) {
   const auto meta = slurp(d + "/meta.i64"), fl = slurp(d + "/f32.f32");
   const auto off = slurp(d + "/off.i64"), w = slurp(d + "/w.f32");
   const auto boff = slurp(d + "/boff.i64"), wb = slurp(d + "/wb.bf16");
+  const auto ioff = slurp(d + "/ioff.i64"), img = slurp(d + "/img.bf16");
   const auto ro = slurp(d + "/rays_o.f32"), rd = slurp(d + "/rays_d.f32");
   const auto z = slurp(d + "/z.f32"), gbar = slurp(d + "/gbar.f32");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const long long R = m[0], n_grad = m[12];
-  const int S = int(m[1]), blocks = int(m[13]);
+  const int S = int(m[1]), blocks = int(m[13]), batch = int(m[14]);
   March base = make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), wb.data(), R, S, F(fl)[1],
                           int(m[2]), int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]),
                           int(m[7]), int(m[8]), int(m[9]), int(m[10]), int(m[11]),
@@ -62,11 +65,11 @@ int main(int argc, char** argv) {
   std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
   std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
   const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
-  const long long bwd_floats = march_bwd_scratch_floats(base.net.n_sdf, base.net.n_color,
-                                                        base.net.n_relight, S);
+  const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch);
   std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats, 12345.f);
   std::vector<float> scratch_bwd(size_t(blocks) * bwd_floats, 12345.f);
   gridDim.x = blocks;
+  emu_smem_base = smem;
   std::barrier<> bar(THREADS);
   emu_barrier = &bar;
   for (int pass = 0; pass < 2; ++pass) {
@@ -83,6 +86,7 @@ int main(int argc, char** argv) {
       q.n_grad = n_grad;
       q.net.scratch = scratch_bwd.data();
       q.scratch_floats = bwd_floats;
+      set_bwd_weights(q.net, img.data(), reinterpret_cast<const long long*>(ioff.data()), batch);
     }
     for (int b = 0; b < blocks; ++b) {
       blockIdx.x = b;

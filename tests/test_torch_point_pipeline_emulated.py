@@ -4,13 +4,20 @@ against their plain PyTorch versions at full width.
 
 The kernels run on the card only; this test runs the same source through
 a host C++ compiler against tests/cuda_emu/cuda_runtime.h, one std::thread
-per CUDA thread with a barrier for __syncthreads and a software mma.sync
-(tests/cuda_emu/harness.cpp), on 130 points over 2 blocks with a ragged
-last tile. It checks the kernels' arithmetic, the tensor-core fragment
-layouts, indexing, packing and the per-block weight-grad partials; it
-cannot see what only the card shows (timing, races between warps, the
-GPU's own float functions), which tests/test_torch_cuda.py and
-chip_smoke.py check there. Skips without a C++20 compiler.
+per CUDA thread with a barrier for __syncthreads, a software mma.sync (the
+forward and the recompute), a software wgmma that decodes the K-major
+128-byte-swizzled descriptors and takes A from shared memory or from
+registers (the backward's products and its weight-grad flush), and bulk
+copies as memcpy plus a real counting mbarrier (tests/cuda_emu/harness.cpp),
+on 130 points over 2 blocks with a ragged last tile, at 2 tiles a
+weight-grad batch. test_emulated_full_and_ragged_batch runs 300 points (5
+tiles) over 2 blocks, so that one block flushes a full batch and then a
+ragged one. It checks the kernels' arithmetic, the fragment and
+descriptor layouts, indexing, packing (_pack, _pack_images), the batched
+weight-grad store and flush and the per-block partials; it cannot see
+what only the card shows (timing, races between warps and with the async
+copies, the GPU's own float functions), which tests/test_torch_cuda.py
+and chip_smoke.py check there. Skips without a C++20 compiler.
 
 The kernels compute the TPU kernels' bf16 products, so they are held
 against the plain twins with bf16=True: every output and leaf within
@@ -19,8 +26,11 @@ midpoint rounds to the other neighbour after another f32 summation order,
 one bf16 ulp of that input, and such flips propagate: read <= 5.7e-4),
 with the cotangents of points near a relu kink zeroed. Where the bf16 twin
 is more than 1e-2 from the f32 twin, the kernel must be within a tenth of
-that gap of the bf16 twin: it computes the bf16 arithmetic, not f32. A copy
-of the source with the A fragment's row halves swapped must fail."""
+that gap of the bf16 twin: it computes the bf16 arithmetic, not f32.
+Copies of the source that must fail: the A fragment's row halves swapped
+(load_a, which feeds the forward's mma.sync and the backward's register-A
+wgmma), the ragged batch's flush skipped, and the weight-grad operand
+stored with its swizzle phase one row off."""
 
 import os
 import re
@@ -47,9 +57,20 @@ RTOL_BF16 = 2e-3
 # a1 / a3 from rows g + 8; the mutant swaps the two row halves
 A_ROWS = "const float* r0 = A + (m0 + g) * lda + k0 + 2 * t;\n  const float* r8 = r0 + 8 * lda;"
 A_ROWS_MUTANT = "const float* r8 = A + (m0 + g) * lda + k0 + 2 * t;\n  const float* r0 = r8 + 8 * lda;"
+# the weight-grad batch (csrc/point_pipeline_tile.cuh): after_tile flushes
+# a full batch or the block's last, ragged one; the mutant never flushes a
+# ragged batch
+FLUSH = "if (++slot < p.dw_batch && !last) return slot;"
+FLUSH_MUTANT = "if (++slot < p.dw_batch) return slot;"
+# save_t's transposed bf16 store of a weight-grad operand: row c's 16-byte
+# chunk XORed by c % 8; the mutant writes row c with row c + 1's phase
+STORE = "dst + mlp::sw128_offset(c, 2 * pr)"
+STORE_MUTANT = "dst + mlp::sw128_offset(c + 1, 2 * pr) - 128u"
+MUTANTS = {"rows": (A_ROWS, A_ROWS_MUTANT), "flush": (FLUSH, FLUSH_MUTANT),
+           "store": (STORE, STORE_MUTANT)}
 
 
-def _compile(out, mutate=False):
+def _compile(out, mutate=None):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
@@ -58,8 +79,9 @@ def _compile(out, mutate=False):
     with open(os.path.join(CSRC, "point_pipeline_tile.cuh")) as f:
         tile = f.read()
     if mutate:
-        assert tile.count(A_ROWS) == 1, "load_a's row pointers moved"
-        tile = tile.replace(A_ROWS, A_ROWS_MUTANT)
+        line, mutant = MUTANTS[mutate]
+        assert tile.count(line) == 1, f"the {mutate} mutant's line moved"
+        tile = tile.replace(line, mutant)
     # the tile header inlined, so that the mutant's copy is the one compiled
     src = src.replace('#include "point_pipeline_tile.cuh"', tile)
     with open(os.path.join(HERE, "cuda_emu", "harness.cpp")) as f:
@@ -81,21 +103,25 @@ def emulator(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu"))
 
 
-def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks):
+def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks, batch=2):
     """The emulated forward and backward: (out [n, 16], pts_hat, dirs_hat,
     {net: [(dW, db)]})."""
     packed, off, n_grad, frags, boff = PP._pack(pw)
+    img, ioff = PP._pack_images(pw)
     rcfg = pw.rcfg
     d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
     cn = rcfg.kind == "color_neus"
     meta = [pts.shape[0], n_sdf, skip, d0, len(pw.color), PP._color_dv(rcfg),
             int(rcfg.color.squeeze_out), len(pw.relight), PP._relight_dv(rcfg) if cn else 0,
-            rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks]
+            rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks,
+            batch]
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale], np.float32).tofile(tmp_path / "scale.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
     boff.astype(np.int64).tofile(tmp_path / "boff.i64")
     frags.view(torch.int16).numpy().tofile(tmp_path / "wb.bf16")
+    ioff.astype(np.int64).tofile(tmp_path / "ioff.i64")
+    img.view(torch.int16).numpy().tofile(tmp_path / "img.bf16")
     for name, t in (("w", packed), ("pts", pts), ("dirs", dirs), ("gbar", gbar)):
         t.numpy().astype(np.float32).tofile(tmp_path / f"{name}.f32")
     subprocess.run([exe, str(tmp_path)], check=True, timeout=300)
@@ -131,7 +157,7 @@ def _errors(kernel, bf16, f32):
     return errs
 
 
-def _case(kind, relight):
+def _case(kind, relight, n=130):
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color, relight=RelightConfig(**relight))
@@ -141,7 +167,6 @@ def _case(kind, relight):
         for p in params.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=g))
     pw = PP.resolve_pipeline_weights(params, rcfg)
-    n = 130
     pts = (0.6 * torch.randn((n, 3), generator=g)).contiguous()
     dirs = torch.randn((n, 3), generator=g)
     dirs = (dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)).contiguous()
@@ -177,8 +202,37 @@ def test_emulated_kernels_match_plain(emulator, tmp_path, kind, relight):
 def test_emulated_fragment_rows_mutant_fails(tmp_path_factory, tmp_path):
     """A copy of the source whose A fragments take their two row halves in
     the wrong registers runs, and is far off the bf16 twin."""
-    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_rows_mutant"), mutate=True)
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_rows_mutant"), mutate="rows")
     pw, pts, dirs, cots, gbar = _case("neus", {})
     kernel = _run(mutant, tmp_path, pw, pts, dirs, gbar, blocks=2)
     errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
     assert max(e for e, _ in errs.values()) > 0.5, errs
+
+
+def test_emulated_full_and_ragged_batch(emulator, tmp_path):
+    """The weight-grad batch: 300 points are 5 tiles (the last one of 44
+    points) over 2 blocks at 2 tiles a batch, so block 0 flushes a full
+    batch (tiles 0, 2) and then a ragged one (tile 4), block 1 one full
+    batch (tiles 1, 3); held as test_emulated_kernels_match_plain holds
+    the 130-point cases."""
+    pw, pts, dirs, cots, gbar = _case("color_neus", {}, n=300)
+    kernel = _run(emulator, tmp_path, pw, pts, dirs, gbar, blocks=2, batch=2)
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    for name, (err, gap) in errs.items():
+        assert err <= RTOL_BF16, f"{name}: {err:.3e} from the bf16 twin, above {RTOL_BF16:g}"
+        assert gap <= 1e-2 or err < 0.1 * gap, \
+            f"{name}: {err:.3e} from the bf16 twin, not below a tenth of its f32 gap {gap:.3e}"
+
+
+@pytest.mark.parametrize("mutate", ["flush", "store"])
+def test_emulated_batch_mutants_fail(tmp_path_factory, tmp_path, mutate):
+    """Copies of the source that skip the ragged batch's flush, or store
+    the weight-grad operands with the swizzle phase off by one row, run on
+    the full-and-ragged case and are far off the bf16 twin in the weight
+    leaves."""
+    mutant = _compile(tmp_path_factory.mktemp(f"cuda_emu_{mutate}_mutant"), mutate=mutate)
+    pw, pts, dirs, cots, gbar = _case("color_neus", {}, n=300)
+    kernel = _run(mutant, tmp_path, pw, pts, dirs, gbar, blocks=2, batch=2)
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    worst = max(e for name, (e, _) in errs.items() if " layer " in name)
+    assert worst > 0.1, errs

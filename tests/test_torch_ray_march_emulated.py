@@ -5,10 +5,13 @@ PyTorch versions at full width.
 As tests/test_torch_point_pipeline_emulated.py does for rows 5 and 6: the
 source runs through a host C++ compiler against tests/cuda_emu/
 cuda_runtime.h, one std::thread per CUDA thread with a barrier for
-__syncthreads (tests/cuda_emu/harness_march.cpp), on 2 blocks. The cases
-cover a 128-sample ray (two 64-point tiles), 100-sample rays (a tile and a
-36-point tail), 27-sample rays packed two to a tile with a ragged last
-group, both renderer kinds, and an inv_s of ~2000 with exact q == 1 ties;
+__syncthreads, the software mma.sync and wgmma and the bulk copies
+(tests/cuda_emu/harness_march.cpp), on 2 blocks at 2 tiles a weight-grad
+batch. The cases cover a 128-sample ray (two 64-point tiles: one full
+batch), 100-sample rays (a tile and a 36-point tail), 27-sample rays
+packed two to a tile with a ragged last group (one block a full batch,
+the other a ragged one), both renderer kinds, and an inv_s of ~2000 with
+exact q == 1 ties;
 and the clip's tie rule, on rays whose every point is a tie, held by a
 copy of the source with the tie gate at 1.0, which must fail.
 The card-only parts (timing, races between warps, the GPU's float
@@ -92,20 +95,24 @@ def emulator(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu_march"))
 
 
-def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks):
+def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2):
     packed, off, n_grad, frags, boff = PP._pack(pw)
+    img, ioff = PP._pack_images(pw)
     rcfg = pw.rcfg
     d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
     cn = rcfg.kind == "color_neus"
     R, S = z.shape
     meta = [R, S, n_sdf, skip, d0, len(pw.color), PP._color_dv(rcfg),
             int(rcfg.color.squeeze_out), len(pw.relight), PP._relight_dv(rcfg) if cn else 0,
-            rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks]
+            rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks,
+            batch]
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale, sample_dist, inv_s], np.float32).tofile(tmp_path / "f32.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
     boff.astype(np.int64).tofile(tmp_path / "boff.i64")
     frags.view(torch.int16).numpy().tofile(tmp_path / "wb.bf16")
+    ioff.astype(np.int64).tofile(tmp_path / "ioff.i64")
+    img.view(torch.int16).numpy().tofile(tmp_path / "img.bf16")
     for name, t in (("w", packed), ("rays_o", ro), ("rays_d", rd), ("z", z), ("gbar", gbar)):
         t.numpy().astype(np.float32).tofile(tmp_path / f"{name}.f32")
     subprocess.run([exe, str(tmp_path)], check=True, timeout=600)
