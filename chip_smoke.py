@@ -7,10 +7,12 @@ Phases; any failure exits non-zero and prints no result:
   1. device and build: the card's name and power limit; nvcc builds every
      kernel from color_neus_torch/csrc (all at once) while g++ builds the
      repo's csrc/marching_tet.cpp; cuobjdump -sass of rows 3 and 5 must
-     show HMMA.16816.F32.BF16 (their products on the tensor cores), and of
-     rows 4 and 6 HGMMA (their products on wgmma) and a bulk copy (UBLKCP:
-     the weight slabs and the weight-grad operands), with 0 bytes of spills
-     in the ptxas report, their registers printed; rows 1-2's
+     show HGMMA (their products on wgmma) and no HMMA.16816.F32.BF16, and a
+     bulk copy (UBLKCP: the weight slabs), with 0 bytes of spills in the
+     ptxas report, their registers, resident blocks per SM and FCHK / CALL
+     counts printed; rows 4 and 6 must show HGMMA and a bulk copy (the
+     weight slabs and the weight-grad operands), with 0 bytes of spills,
+     their registers printed; rows 1-2's
      kernel variants print HMMA, their weight ring's bulk copies (UBLKCP),
      FCHK and every CALL, and their resident blocks per SM: the bf16 ones
      must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
@@ -507,29 +509,36 @@ def chain_sass_check(lib_path):
     check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
 
 
-def backward_sass_check(kernel, lib_path):
+def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
     """Phase 1 for rows 3-6 (csrc/point_pipeline.cu, csrc/ray_march.cu):
-    the forward kernels (rows 3, 5) run their products on the tensor cores
-    (HMMA.16816.F32.BF16 in the SASS); the backward kernels (rows 4, 6) run
-    theirs on wgmma (HGMMA), feed its weights and weight-grad operands by
-    bulk copies (UBLKCP) and spill nothing (ptxas -v); their registers are
-    printed."""
+    every kernel runs its products on wgmma (HGMMA in the SASS), feeds its
+    weight slabs (and the backward its weight-grad operands) by bulk
+    copies (UBLKCP) and spills nothing (ptxas -v); the forward kernels
+    (rows 3, 5) hold no mma.sync (HMMA.16816.F32.BF16). Registers are
+    printed, and for the forward kernels their resident blocks per SM
+    (fwd_blocks_per_sm) and FCHK / CALL counts."""
     rep = ptxas_report(kernel)
-    seen = 0
+    seen = {"fwd": 0, "bwd": 0}
     for fn, c in sass_counts(lib_path).items():
         r = rep.get(fn, {})
+        entry = "fwd" if fn.endswith("_fwd_kernel") else "bwd" if fn.endswith("_bwd_kernel") \
+            else None
+        extra = (f" | {fwd_blocks_per_sm} resident blocks per SM | {c['FCHK']} FCHK, "
+                 f"{len(c['CALL'])} CALL" if entry == "fwd" else "")
         print(f"[1] SASS {kernel} {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['HGMMA']} HGMMA, "
               f"{c['UBLKCP']} UBLKCP, {c['FFMA']} FFMA | {r.get('registers')} registers, spill "
-              f"stores / loads {r.get('spill_stores')} / {r.get('spill_loads')} bytes", flush=True)
-        if fn.endswith("_fwd_kernel"):
-            check(c["HMMA"] > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
-        elif fn.endswith("_bwd_kernel"):
-            seen += 1
-            check(c["HGMMA"] > 0, f"{fn}: products not on wgmma (no HGMMA in its SASS)")
-            check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
-            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
-                  f"{fn}: spills or no ptxas report: {r}")
-    check(seen == 1, f"{kernel}: {seen} backward kernels in the SASS, want 1")
+              f"stores / loads {r.get('spill_stores')} / {r.get('spill_loads')} bytes{extra}",
+              flush=True)
+        if entry is None:
+            continue
+        seen[entry] += 1
+        check(c["HGMMA"] > 0, f"{fn}: products not on wgmma (no HGMMA in its SASS)")
+        if entry == "fwd":
+            check(c["HMMA"] == 0, f"{fn}: {c['HMMA']} HMMA.16816.F32.BF16 left in its SASS")
+        check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"{fn}: spills or no ptxas report: {r}")
+    check(seen == {"fwd": 1, "bwd": 1}, f"{kernel}: kernels in the SASS {seen}, want one of each")
 
 
 def main_path_sweeps(loop, seed):
@@ -685,8 +694,31 @@ def pipeline_macs(pw) -> dict:
 
 def weight_bytes(pw) -> int:
     """The bytes of the weights rows 3-6 read: the f32 buffer (narrow layers,
-    biases) and the bf16 fragment blocks."""
-    return pw.packed.numel() * 4 + pw.frags.numel() * 2
+    biases) and the bf16 slab images (every 256-wide layer's forward and
+    reverse image)."""
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    return pw.packed.numel() * 4 + PP.weight_images(pw)[0].numel() * 2
+
+
+def forward_stream_bytes(pw, rows=128) -> tuple:
+    """Weight bytes the forward tile (rows 3, 5) streams through L2 per
+    point: (every slab its products bulk-copy, once per tile of `rows`
+    points: the forward images of the 256-wide layers and the SDF reverse
+    sweep's images, K padded to 64; the same products' unpadded bf16 [K,
+    256] blocks read once per 64-point tile, as a tile of mma.sync
+    fragments from L2 reads them)."""
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    _, wide = PP._layout(pw)
+    slab, frag = 0, 0
+    for w_slot, _, wp in wide:
+        K = wp.shape[0]
+        kp = -(-K // 64) * 64
+        slab += 256 * kp * 2                        # forward image: 256 rows x K
+        frag += K * 256 * 2
+        if w_slot < PP.W_SDF + PP.MAXL:             # the SDF reverse image: K rows x 256
+            slab += K * 256 * 2
+            frag += K * 256 * 2
+    return slab / rows, frag / 64
 
 
 def ops_bound_ms(macs, nbytes, dtype):
@@ -772,7 +804,11 @@ def eval_kernels_vs_plain(device):
         params = off_geometric_init(init_renderer(rcfg, g, device), g)
         pw = PP.resolve_pipeline_weights(params, rcfg)
         if kind == "color_neus":
-            print(f"[2b] point_pipeline MACs per point: {pipeline_macs(pw)}", flush=True)
+            stream, mma_tile = forward_stream_bytes(pw)
+            print(f"[2b] point_pipeline MACs per point: {pipeline_macs(pw)} | weight bytes "
+                  f"streamed through L2 per point: {stream:.1f} (128-point tiles of wgmma "
+                  f"slabs; a 64-point tile of mma.sync fragments read {mma_tile:.1f})",
+                  flush=True)
         for R, S in ((PIPELINE_RAYS, PIPELINE_SAMPLES), (37, 27)):
             o, d, z = sweep_inputs(R, S, device, SEED + 60 + R)
             pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
@@ -2018,8 +2054,11 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"[1] ptxas {k} {fn}: {line.strip()}")
     check(cuobjdump_path() is not None, "no cuobjdump to read the kernels' SASS")
-    for k in ("point_pipeline", "ray_march"):
-        backward_sass_check(k, libs[k])
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, mod in (("point_pipeline", PP), ("ray_march", RM)):
+        pipeline_sass_check(k, libs[k], mod._max_blocks(mod._library(), device, "fwd") // sms)
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
 

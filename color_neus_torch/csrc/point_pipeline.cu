@@ -71,23 +71,56 @@
 // point written and read two to five times) is the floor once the products
 // stop dominating: ~7-10 GB at 131,072 points.
 //
-// Design. One block of 8 warps owns a tile of 64 points. Blocks loop over
-// tiles, so every scratch is sized by the grid, not by N.
-//   Forward (row 5, and the backward's recompute): every 256-wide product
-//   on mma.sync m16n8k16 (bf16 in, f32 accumulators in registers): the A
-//   operand is the tile's f32 activations in a shared-memory buffer [64,
-//   308], rounded to bf16 as each fragment loads (the stores stay f32,
-//   JAX's f32stash); the B operand a bf16 copy of the weights and of their
-//   transposes (~3.9 MB, packed by the wrapper in fragment order so that a
-//   warp's B load is one coalesced 8-byte read per lane, L2-resident
-//   across the launch). A warp owns 32 output columns of all 64 rows (16
-//   accumulator tiles). The 1- and 3-wide output layers stay SIMT FMAs
-//   with their operands rounded to bf16. The 8 hidden layers' gates are 8
-//   KB per point in f32, 512 KB a tile, beyond the 227 KB of shared memory
-//   a block can have, so each block owns a slice of a device-memory scratch
-//   for its tile's gates and features (16 KB of traffic per point). The
-//   activation buffer (79 KB) plus the PE-cotangent tile keep two blocks
-//   per SM.
+// Design. A block of 8 warps (two warpgroups) loops over tiles of points,
+// so every scratch is sized by the grid, not by N: 128-point tiles in the
+// forward kernels (rows 5 and 3), 64-point tiles in the backward kernels.
+//   Forward (row 5, and the backward's recompute), forward_tile on Hopper's
+//   wgmma and bulk copies. Its mma.sync predecessor (B read from L2 one
+//   8-byte fragment per lane, 64 points a tile, ~2.8 MB of weights streamed
+//   a tile) lost its time, by probe copies on the card (PERF.md §6), to the
+//   synchronous products and their operand loads (~45%), the reverse
+//   sweep's epilogue loads of the f32 gates (~20%), the softplus epilogue
+//   (~17%, three quarters of it the IEEE divide) and the gate stores
+//   (~8%); the weight stream itself did not set the pace. Now:
+//   1. every 256-wide product runs on wgmma (m64nNk16, bf16 in, f32
+//      accumulators in registers) with B from shared memory: the wrapper
+//      packs each layer once per weights as its forward image (rows the
+//      256 outputs, depth K) and its reverse image (rows the K inputs,
+//      depth 256), 64-row x 64-k bf16 slabs, K-major with the 128-byte
+//      swizzle (point_pipeline.py _pack_images), and thread 0 bulk-copies
+//      them on mbarriers into a ring ahead of the products (wg_product):
+//      in the forward kernels 3 stages of two consecutive slabs of a chunk
+//      (16 KB: half the waits a product makes), in the recompute the
+//      backward's 4 x 8 KB. A comes from registers: load_a's fragments of
+//      the f32 activations, rounded to bf16 as they load (JAX's f32stash:
+//      the stores stay f32), loaded before a barrier;
+//   2. a forward block owns 128 points: its two warpgroups take 64 rows
+//      each and all columns of every slab (wg_product's DUAL form, as the
+//      backward's value and tangent streams share a slab), so each weight
+//      slab is read from L2 once per 128 points, half the parent's bytes
+//      per point; the recompute keeps the backward's 64-point tile (the
+//      two warpgroups split each slab's columns), so the tile's rows are
+//      a template parameter;
+//   3. the products' f32 outputs are staged into X (their A is in
+//      registers) and every epilogue is a SIMT pass over X that batches
+//      its loads (forward_pass: bias, softplus and gate or relu;
+//      reverse_pass: the skip scale and the next layer's gates, which
+//      thread 0 asks into L2 while the product runs): an epilogue on the
+//      accumulators, one dependent chain at a time on one block of 8
+//      warps, cost more than the products (PERF.md §6); the gate and
+//      feature stores to the block's device-memory scratch (8 KB of f32
+//      gates a point, beyond shared memory; a bf16 gate breaks the 100 g
+//      (1 - g) factor) are coalesced 16-byte stores; softplus100's log term
+//      is scaled by a multiply (the IEEE divide's range check and slow
+//      path gone, as in rows 1-2).
+//   The 1- and 3-wide output layers stay SIMT FMAs with their operands
+//   rounded to bf16, four rows a warp at a time. Budgets: shared memory
+//   219,696 of 232,448 bytes (the ring 48 KB, X f32 [128][312] 160 KB, its
+//   row stride padded so that load_a's reads hit 32 banks a half-warp, the
+//   small buffers; the PE cotangents live in X's PE columns), one block of
+//   8 warps per SM; registers: A's 12-76 packed registers plus a chunk's
+//   32 accumulators under the 255 of one block per SM (chip_smoke.py phase
+//   1 prints them, the spills and the blocks).
 //   Backward (row 6; row 4 runs the same tile functions), on Hopper's
 //   wgmma and bulk copies. The parent design (mma.sync from L2) lost its
 //   time to four causes (PERF.md §6, the backward's step-0 split); what this one does
@@ -150,17 +183,19 @@
 //   of being kept. Registers: the 64-76 packed A registers plus 16-32
 //   accumulators of a product, 128 accumulators in the flush, under the 255
 //   of one block per SM; 0 spills (chip_smoke.py phase 1; the chunk loop
-//   stays rolled for it). The recompute
-//   (forward_tile<true>) stays on mma.sync.
+//   stays rolled for it). The recompute (forward_tile<TILE, true>) runs the
+//   forward's wgmma products through the same weight ring.
 
 #include "point_pipeline_tile.cuh"
 
 namespace {
 
-// t.P3 / t.D3 = the points and view dirs base .. base + TILE (zeros past n_pts).
+// t.P3 / t.D3 = the points and view dirs base .. base + ROWS (zeros past
+// n_pts).
+template <int ROWS>
 __device__ __forceinline__ void load_points(const Params& p, const Tile& t, long long base) {
   const int tid = threadIdx.x;
-  if (tid < TILE) {
+  if (tid < ROWS) {
     const long long i = base + tid;
     const bool ok = i < p.n_pts;
 #pragma unroll
@@ -172,22 +207,23 @@ __device__ __forceinline__ void load_points(const Params& p, const Tile& t, long
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS, 1) point_pipeline_fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  carve_fwd(t, smem);
+  Rings st;
+  carve_fwd(t, st, smem);
   const int tid = threadIdx.x;
-  float* gates = p.scratch + size_t(blockIdx.x) * p.n_sdf * GSLAB;  // [n_sdf - 1][TILE][HID]
-  float* feat = gates + size_t(p.n_sdf - 1) * GSLAB;                // [TILE][HID]
-  const long long n_tiles = (p.n_pts + TILE - 1) / TILE;
+  float* gates = p.scratch + size_t(blockIdx.x) * fwd_scratch_floats(p.n_sdf);
+  float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;   // [FWD_ROWS][HID]
+  const long long n_tiles = (p.n_pts + FWD_ROWS - 1) / FWD_ROWS;
   const Save none{nullptr, nullptr, nullptr};
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long base = tile * TILE;
-    load_points(p, t, base);
-    forward_tile<false>(p, t, gates, feat, none);
+    const long long base = tile * FWD_ROWS;
+    load_points<FWD_ROWS>(p, t, base);
+    forward_tile<FWD_ROWS, false>(p, t, st, gates, feat, none);
     // ---- store [sdf, grad, gc, relit, delta, 0, 0, 0] ----
-    for (int e = tid; e < TILE * 16; e += THREADS) {
+    for (int e = tid; e < FWD_ROWS * 16; e += THREADS) {
       const int r = e / 16, c = e % 16;
       const long long i = base + r;
       if (i >= p.n_pts) continue;
@@ -206,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 2) point_pipeline_fwd_kernel(Params p
 __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  BwdState st;
+  Rings st;
   carve_bwd(t, st, smem);
   const int tid = threadIdx.x;
   const BwdScratch s = carve_bwd_scratch(
@@ -217,8 +253,8 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * TILE;
     const Save sv = bwd_save(p, s, slot);
-    load_points(p, t, base);
-    forward_tile<true>(p, t, s.gates, s.feat, sv);
+    load_points<TILE>(p, t, base);
+    forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
     for (int e = tid; e < TILE * 16; e += THREADS) {
       const long long i = base + e / 16;
       t.CT[e] = i < p.n_pts ? p.gbar[base * 16 + e] : 0.f;
@@ -265,19 +301,26 @@ extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int skip, int 
   return bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, dw_batch);
 }
 
+extern "C" long long point_pipeline_fwd_scratch_floats(int n_sdf) {
+  return fwd_scratch_floats(n_sdf);
+}
+
+extern "C" int point_pipeline_fwd_rows() { return FWD_ROWS; }
+
 // Each launch returns 0 or the CUDA error code of the attribute call or the
-// launch; none synchronises. `w`: the packed f32 weights, `wb`: the bf16
-// fragment-ordered blocks (device pointers); `off` / `boff`: host arrays of
-// their offset tables.
+// launch; none synchronises. `w`: the packed f32 weights, `wimg`: the wgmma
+// weight slabs (point_pipeline.py _pack_images), device pointers; `off` /
+// `ioff`: host arrays of their offset tables. `scratch`: n_blocks x
+// point_pipeline_fwd_scratch_floats floats.
 extern "C" int point_pipeline_fwd_launch(
-    const float* pts, const float* dirs, const float* w, const void* wb, float* out,
+    const float* pts, const float* dirs, const float* w, const void* wimg, float* out,
     float* scratch, long long n_pts, int n_blocks, int n_sdf, int skip, int d0, float scale,
     int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, const long long* boff, int n_off, void* stream) {
+    const long long* off, const long long* ioff, int n_off, void* stream) {
   if (n_pts <= 0) return 0;
   if (bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  Params p = make_params(pts, dirs, w, wb, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
-                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
+  Params p = make_params(pts, dirs, w, wimg, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, ioff);
   p.out = out;
   p.scratch = scratch;
   cudaError_t e = cudaFuncSetAttribute(point_pipeline_fwd_kernel,
@@ -290,22 +333,19 @@ extern "C" int point_pipeline_fwd_launch(
 }
 
 // `partial` must hold n_blocks x n_grad zeros; `scratch` n_blocks x
-// point_pipeline_bwd_scratch_floats(..., dw_batch) floats; `wimg` the
-// wgmma weight slabs (point_pipeline.py _pack_images, device memory) and
-// `ioff` the host array of their offset table.
+// point_pipeline_bwd_scratch_floats(..., dw_batch) floats.
 extern "C" int point_pipeline_bwd_launch(
-    const float* pts, const float* dirs, const float* gbar, const float* w, const void* wb,
-    const void* wimg, float* pts_hat, float* dirs_hat, float* partial, float* scratch,
-    long long n_pts, int n_blocks, long long n_grad, int dw_batch, int n_sdf, int skip, int d0,
-    float scale, int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in,
-    int inv_sigmoid, const long long* off, const long long* boff, const long long* ioff,
-    int n_off, void* stream) {
+    const float* pts, const float* dirs, const float* gbar, const float* w, const void* wimg,
+    float* pts_hat, float* dirs_hat, float* partial, float* scratch, long long n_pts,
+    int n_blocks, long long n_grad, int dw_batch, int n_sdf, int skip, int d0, float scale,
+    int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* ioff, int n_off, void* stream) {
   if (n_pts <= 0) return 0;
   if (bad_shape(n_off, n_sdf, n_color, n_relight) || dw_batch < 1)
     return int(cudaErrorInvalidValue);
-  Params p = make_params(pts, dirs, w, wb, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
-                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
-  set_bwd_weights(p, wimg, ioff, dw_batch);
+  Params p = make_params(pts, dirs, w, wimg, n_pts, n_sdf, skip, d0, scale, n_color, color_dv,
+                         squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, ioff);
+  p.dw_batch = dw_batch;
   p.scratch = scratch;
   p.gbar = gbar;
   p.pts_hat = pts_hat;

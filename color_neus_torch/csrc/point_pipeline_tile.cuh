@@ -1,24 +1,27 @@
 // The tile-level device code of the per-point pipeline: the forward of one
-// 64-point tile (forward_tile, with every layer input kept when SAVE) and the
-// pullback of its five outputs (backward_tile), the shared-memory tile and
-// scratch layouts they use, and the host helpers of the kernels built on
-// them. point_pipeline.cu (kernel rows 5 and 6) and ray_march.cu (rows 3
-// and 4) include it; the design and the bound are in point_pipeline.cu's
-// note. Both tile functions read and write only the tile: the caller fills
-// its points, view dirs (P3, D3) and, for the backward, the cotangents (CT)
-// of the five outputs, and reads the outputs (S1, G3, GC, RL, DL) or the
-// point and dir cotangents (PH, DH) back.
+// tile of ROWS points (forward_tile: 128 in the forward kernels, 64 in the
+// backward's recompute, which keeps every layer input when SAVE) and the
+// pullback of its five outputs over a 64-point tile (backward_tile), the
+// products on wgmma they share, the shared-memory tile and scratch
+// layouts they use, and the host helpers of the kernels built on them.
+// point_pipeline.cu (kernel rows 5 and 6) and ray_march.cu (rows 3 and 4)
+// include it; the design and the bound are in point_pipeline.cu's note.
+// Both tile functions read and write only the tile: the caller fills its
+// points, view dirs (P3, D3) and, for the backward, the cotangents (CT) of
+// the five outputs, and reads the outputs (S1, G3, GC, RL, DL) or the point
+// and dir cotangents (PH, DH) back.
 //
 // The arithmetic is the TPU kernels' production arithmetic (JAX bf16 = not
 // interpret, MARCH_BWD_PRECISION f32stash): every product rounds its two
-// operands to bf16 and sums in f32 (the 256-wide ones on the tensor cores:
-// the forward's tile_product on mma.sync, the backward's wg_product and
-// dw_flush on wgmma; the 1- and 3-wide ones as SIMT FMAs, narrow_layer and
-// narrow_back); the activations, gates and stores stay f32; layer 0's
-// weight grad takes its f32 operands (the PE and the tangent seed) as hi +
-// lo bf16 pairs, and the last layer's rank-1 tangent term is summed in
-// f32. The backward's weight grads are summed on chip over a batch of
-// tiles (dw_flush); point_pipeline.cu's note gives the design.
+// operands to bf16 and sums in f32 (the 256-wide ones on wgmma: wg_product
+// with B streamed from the weight images through a ring of bulk-copied
+// slabs, and the backward's dw_flush; the 1- and 3-wide ones as SIMT FMAs,
+// narrow_layer and narrow_back); the activations, gates and stores stay
+// f32; layer 0's weight grad takes its f32 operands (the PE and the
+// tangent seed) as hi + lo bf16 pairs, and the last layer's rank-1 tangent
+// term is summed in f32. The backward's weight grads are summed on chip
+// over a batch of tiles (dw_flush); point_pipeline.cu's note gives the
+// design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,28 +36,33 @@ using mlp::INV_SQRT2;
 using mlp::THREADS;
 using mlp::TILE;
 using mlp::emb_value;
-using mlp::mma_bf16;
 using mlp::pack_bf16;
 using mlp::round_bf16;
 using mlp::softplus100;
 
 constexpr int LDX = HID + EMB + 4;       // activation row stride: [h 256 | small 48] + pad
+constexpr int LDX_FWD = HID + EMB + 8;   // the forward kernels' (load_a's reads then hit
+                                         // 32 banks a half-warp)
+template <int ROWS>
+constexpr int LD = ROWS == TILE ? LDX : LDX_FWD;   // the stride of a ROWS-point tile's X
 constexpr int LDS = HID + EMB;           // row stride of a layer input stored in the scratch
 constexpr int MAXL = 16;                 // max layers per network
 // slots of the offset tables: `off` holds element offsets into the packed
 // f32 weights (the gradient buffers use the same table; its WT slots are
-// unused), `boff` offsets in 8-byte units into the bf16 weight blocks in
-// mma fragment order (the W and WT slots of the 256-wide layers)
+// unused), `ioff` the first slab of each 256-wide layer's weight image in
+// wimg (its W slot: the forward product's, rows the 256 outputs; its WT
+// slot: the reverse product's, rows the K inputs)
 constexpr int W_SDF = 0, WT_SDF = MAXL, B_SDF = 2 * MAXL, W_COL = 3 * MAXL, B_COL = 4 * MAXL,
               W_REL = 5 * MAXL, B_REL = 6 * MAXL, WT_COL = 7 * MAXL, WT_REL = 8 * MAXL,
               W_LAST = 9 * MAXL, B_LAST = W_LAST + 1, W_FEAT = W_LAST + 2, B_FEAT = W_LAST + 3,
               WT_FEAT = W_LAST + 4, N_OFF = W_LAST + 5;
+constexpr int FWD_ROWS = 2 * TILE;       // points per tile of the forward kernels (rows 3, 5)
 
 struct Params {
   const float* pts;    // [n, 3]
   const float* dirs;   // [n, 3]
   const float* w;      // packed f32 weights, see off
-  const uint2* wb;     // bf16 weight blocks in mma fragment order, see boff
+  const unsigned char* wimg;   // the 256-wide layers' weights as wgmma B slabs, see ioff
   float* out;          // forward: [n, 16]
   float* scratch;      // per block: see the kernels
   long long n_pts;
@@ -70,47 +78,55 @@ struct Params {
   int y_in;            // relight layer that takes [h, gc]
   int inv_sigmoid;
   long long off[N_OFF];
-  long long boff[N_OFF];
+  long long ioff[N_OFF];       // first WSLAB-byte slab of each layer's image in wimg
   // backward only
   const float* gbar;   // [n, 16] cotangents in the forward's output lanes
   float* pts_hat;      // [n, 3]
   float* dirs_hat;     // [n, 3]
   float* partial;      // [gridDim.x][n_grad] weight-grad partials, zeroed
   long long n_grad;
-  const unsigned char* wimg;   // the 256-wide layers' weights as wgmma B slabs, see ioff
-  long long ioff[N_OFF];       // first WSLAB-byte slab of each block's image in wimg
   int dw_batch;                // tiles whose weight grads a block sums on chip per flush
 };
 
-constexpr size_t SMEM_FWD = (size_t(TILE) * LDX + size_t(TILE) * EMB + 6 * TILE * 3 + TILE) * 4;
-
-// The backward's wgmma operands: a weight slab is 64 rows (output columns
-// of the product) x 64 k of bf16, K-major with the 128-byte swizzle
-// (mlp::sw128_offset), 8 KB; the weight ring holds four. A stage of the
-// weight-grad flush holds two 64-row blocks of one tile's A^T (64 rows x
-// 64 points, 8 KB each) and its output cotangent (256 rows x 64 points,
-// 32 KB); three stages, laid over the X / Y buffers, which the flush does
-// not use.
+// The wgmma operands: a weight slab is 64 rows (output columns of the
+// product) x 64 k of bf16, K-major with the 128-byte swizzle
+// (mlp::sw128_offset), 8 KB; the weight ring holds four (in the forward
+// kernels three stages of two consecutive slabs of a chunk, 16 KB: half the
+// waits a product makes). A stage of the
+// backward's weight-grad flush holds two 64-row blocks of one tile's A^T
+// (64 rows x 64 points, 8 KB each) and its output cotangent (256 rows x 64
+// points, 32 KB); three stages, laid over the X / Y buffers, which the
+// flush does not use.
 constexpr int WSLAB = 8192, WSTAGES = 4;
+constexpr int FWD_STAGES = 3, FWD_SPS = 2;   // the forward kernels' ring: 3 stages of 2 slabs
 constexpr int DW_A = 8192, DW_B = 32768, DW_STAGE = 2 * DW_A + DW_B, DW_STAGES = 3;
 constexpr int SMEM_ALIGN = 1024;     // the swizzle atom: descriptors need it
+// the forward kernels: the weight ring, X of 128 points (its PE columns
+// also hold the PE cotangents: forward_tile), the small buffers, the
+// ring's mbarriers
+constexpr size_t SMEM_FWD = SMEM_ALIGN + size_t(FWD_STAGES) * FWD_SPS * WSLAB +
+                            (size_t(FWD_ROWS) * LDX_FWD + FWD_ROWS * (6 * 3 + 1)) * 4 +
+                            2 * FWD_STAGES * sizeof(unsigned long long);
 constexpr size_t SMEM_BWD = SMEM_ALIGN + size_t(WSTAGES) * WSLAB +
                             (2 * size_t(TILE) * LDX + 2 * size_t(TILE) * EMB + TILE * 16 +
                              11 * TILE * 3 + TILE) * 4 +
                             2 * (WSTAGES + DW_STAGES) * sizeof(unsigned long long);
 static_assert(size_t(DW_STAGES) * DW_STAGE <= 2 * size_t(TILE) * LDX * 4, "flush stages over X, Y");
+static_assert(SMEM_FWD <= 232448 && SMEM_BWD <= 232448, "shared memory of one block");
 
+// A tile's buffers in shared memory, rows R (FWD_ROWS in the forward
+// kernels, TILE in the backward).
 struct Tile {
-  float* X;    // [TILE][LDX] activations (value stream)
-  float* EG;   // [TILE][EMB] PE cotangent (forward: of the grad sweep; backward: emb_hat)
-  float* P3;   // [TILE][3] points
-  float* D3;   // [TILE][3] view dirs
-  float* G3;   // [TILE][3] grad
-  float* GC;   // [TILE][3] global colour
-  float* DL;   // [TILE][3] delta
-  float* RL;   // [TILE][3] relit
-  float* S1;   // [TILE] sdf
+  float* X;    // [R][LDX] activations (value stream)
+  float* P3;   // [R][3] points
+  float* D3;   // [R][3] view dirs
+  float* G3;   // [R][3] grad
+  float* GC;   // [R][3] global colour
+  float* DL;   // [R][3] delta
+  float* RL;   // [R][3] relit
+  float* S1;   // [R] sdf
   // backward only
+  float* EG;   // [TILE][EMB] emb_hat
   float* Y;    // [TILE][LDX] the tangent stream and its cotangents
   float* VH;   // [TILE][EMB] v0_hat (also stages view-dir PE cotangents)
   float* CT;   // [TILE][16] the cotangents gbar
@@ -137,14 +153,8 @@ constexpr size_t GSLAB = size_t(TILE) * HID;
 enum Epi { EPI_NONE = 0, EPI_RELU = 1, EPI_SOFTPLUS = 2 };
 
 // ------------------------------------------------------------------------
-// Tensor-core products (mma.sync m16n8k16, bf16 operands, f32 accumulators)
+// The tile's products on wgmma, B streamed through a ring of weight slabs
 // ------------------------------------------------------------------------
-//
-// A weight block B [K][N] (K a multiple of 16, N of 8) sits in the bf16
-// buffer in fragment order (point_pipeline.py's _frag): for each k-step ks
-// of 16 rows and n-tile nt of 8 columns, 32 lanes x 4 bf16, lane 4 g + t
-// holding B[16 ks + 2 t + {0, 1, 8, 9}][8 nt + g], its two B registers. A
-// warp's B fragment is one coalesced 8-byte read per lane, from L2.
 
 // The A fragment of rows m0 .. m0 + 16, columns k0 .. k0 + 16 of an f32
 // tile in shared memory (row stride lda), rounded to bf16 as it loads:
@@ -164,163 +174,365 @@ __device__ __forceinline__ void load_a(const float* A, int lda, int m0, int k0, 
   a[3] = pack_bf16(x3.x, x3.y);
 }
 
-// acc[i][j][q] = sum_{k < K} bf16(A[row][k]) B[k][col] for the warp's MT x NT
-// tiles: row m0 + 16 i + g + 8 (q / 2), col 8 (nt0 + j) + 2 t + q % 2. A: the
-// tile in shared memory (row stride LDX); B: a fragment-ordered block of
-// n_tiles n-tiles.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_tile(const float* A, int K, const uint2* __restrict__ B,
-                                         int n_tiles, int m0, int nt0, float (&acc)[MT][NT][4]) {
-  const int lane = threadIdx.x & 31;
+// ---- the rings of bulk copies: the weight slabs, and the backward's flush ----
+// A ring of stages in shared memory, each filled by the TMA unit's bulk
+// copies completing on its "full" mbarrier and released by every warp on
+// its "empty" one; slab s of a block's sequence goes to stage s % STAGES,
+// and its k-th use of a stage waits with parity k & 1. The block counts
+// its slabs (Rings::ws, ds) across tiles, so the parities carry on.
+struct Ring {
+  unsigned char* buf;
+  unsigned long long* full;
+  unsigned long long* empty;
+};
+
+struct Rings {
+  Ring w;        // the weight slabs of the tile's products (WSTAGES x WSLAB; in the
+                 // forward kernels FWD_STAGES x FWD_SPS x WSLAB)
+  Ring d;        // backward only: the weight-grad flush's operands (DW_STAGES x DW_STAGE,
+                 // over X and Y)
+  unsigned ws;   // weight slabs consumed so far
+  unsigned ds;   // flush stages consumed so far
+};
+
+// Thread 0: until every warp has released what slab s's stage held before.
+template <int STAGES>
+__device__ __forceinline__ void ring_wait_empty(const Ring& r, unsigned s) {
+  if (s >= STAGES) mlp::mbar_wait(r.empty + s % STAGES, (s / STAGES - 1) & 1u);
+}
+
+// Every thread: until slab s has landed.
+template <int STAGES>
+__device__ __forceinline__ const unsigned char* ring_acquire(const Ring& r, unsigned s,
+                                                             int stage_bytes) {
+  mlp::mbar_wait(r.full + s % STAGES, (s / STAGES) & 1u);
+  __syncwarp();
+  return r.buf + (s % STAGES) * stage_bytes;
+}
+
+// Every thread, after its warp's last read of slab s (its wgmma done).
+template <int STAGES>
+__device__ __forceinline__ void ring_release(const Ring& r, unsigned s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mlp::mbar_arrive(r.empty + s % STAGES);
+}
+
+// ---- the tile's products on wgmma ----
+// out = bf16(A[:, :16 KS]) @ B, B [16 KS][NOUT] streamed through the weight
+// ring from its slab image img (point_pipeline.py's _pack_images: chunks of
+// 64 output columns, the last one 48 when NOUT % 64 == 48, each as
+// ceil(KS / 4) slabs of 64 k, K-major), thread 0 keeping STAGES - 1 slabs
+// in flight. A comes from registers: every thread loads its fragments of
+// the f32 activations (rounded to bf16, as load_a) before a barrier, so put
+// may overwrite A, and no staging copy of A is made. Single (DUAL false):
+// both warpgroups read A0, warpgroup h computing columns 32 h .. 32 h + 32
+// of each 64-column chunk (24 h .. 24 h + 24 of a 48-column one) and
+// calling put0; DUAL: warpgroup 0 the product of A0 and warpgroup 1 that of
+// A1 with the same B, all columns of each chunk, calling put0 / put1 (the
+// SDF reverse sweep's value and tangent streams share every weight slab;
+// the forward kernels' 128-point tile is two 64-row halves that do). The
+// ring: STAGES stages of SPS slabs; A's row stride LDA. put(r, c, v) for
+// every output; a barrier after.
+
+// Stage li of the product (SPS consecutive slabs of a chunk a stage; a
+// lone slab copies only its `rows` rows).
+template <int KS, int STAGES, int SPS>
+__device__ __forceinline__ void issue_slab(Rings& st, const unsigned char* img, unsigned li,
+                                           int n_stages, int nfull, int rows_last) {
+  if (int(li) >= n_stages) return;
+  constexpr int KSL = (KS + 3) / 4, NST = (KSL + SPS - 1) / SPS;
+  const unsigned s = st.ws + li;
+  const int chunk = int(li) / NST, q = int(li) % NST, nsub = min(SPS, KSL - SPS * q);
+  const int rows = chunk < nfull ? 64 : rows_last;
+  ring_wait_empty<STAGES>(st.w, s);
+  mlp::bulk_load(st.w.buf + (s % STAGES) * (SPS * WSLAB),
+                 img + (size_t(chunk) * KSL + SPS * q) * WSLAB,
+                 nsub == 1 ? unsigned(rows) * 128u : unsigned(nsub) * WSLAB,
+                 st.w.full + s % STAGES);
+}
+
+// One chunk's products into the warpgroup's accumulators, then its
+// epilogue: put1 for every output where `second` (the warpgroup's), else
+// put0. The choice is made once a chunk, so each epilogue is straight-line
+// code over the chunk's outputs, whose loads and special-function chains
+// the compiler interleaves.
+template <int NW, int KS, int STAGES, int SPS, class F0, class F1>
+__device__ __forceinline__ void chunk_products(Rings& st, const unsigned (&a)[KS][4],
+                                               const unsigned char* img, unsigned li0,
+                                               int n_stages, int nfull, int rows_last, int row0,
+                                               int col0, bool second, F0&& put0, F1&& put1) {
+  constexpr int KSL = (KS + 3) / 4, NST = (KSL + SPS - 1) / SPS;
+  const int tid = threadIdx.x, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  float acc[NW / 2];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int i = 0; i < NST; ++i) {
+    const unsigned li = li0 + i, s = st.ws + li;
+    if (tid == 0)
+      issue_slab<KS, STAGES, SPS>(st, img, li + STAGES - 1, n_stages, nfull, rows_last);
+    const unsigned char* stage = ring_acquire<STAGES>(st.w, s, SPS * WSLAB);
+    mlp::wgmma_fence();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-#pragma unroll 2
-  for (int ks = 0; ks < K / 16; ++ks) {
-    uint2 b[NT];
+    for (int u = 0; u < SPS; ++u)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = __ldg(B + (size_t(ks) * n_tiles + nt0 + j) * 32 + lane);
+      for (int kk = 0; kk < 4 && 4 * (SPS * i + u) + kk < KS; ++kk)
+        mlp::wgmma_rs_bf16<NW>(acc, a[4 * (SPS * i + u) + kk],
+                               mlp::wgmma_desc(stage + u * WSLAB + row0 * 128 + 32 * kk),
+                               (i | u | kk) != 0);
+    mlp::wgmma_commit();
+    mlp::wgmma_wait_all();
+    ring_release<STAGES>(st.w, s);
+  }
+  auto emit = [&](auto&& put) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      unsigned a[4];
-      load_a(A, LDX, m0 + 16 * i, 16 * ks, a);
+    for (int j = 0; j < NW / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j].x, b[j].y);
-    }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          put(16 * w + g + 8 * h, col0 + 8 * j + 2 * q + e, acc[4 * j + 2 * h + e]);
+  };
+  if (second) emit(put1);
+  else emit(put0);
+}
+
+template <int KS, int NOUT, bool DUAL, int STAGES = WSTAGES, int SPS = 1, int LDA = LDX,
+          class F0, class F1>
+__device__ __forceinline__ void wg_product(Rings& st, const float* A0, const float* A1,
+                                           const unsigned char* img, F0&& put0, F1&& put1) {
+  static_assert(NOUT % 64 == 0 || NOUT % 64 == 48, "wg_product: NOUT");
+  constexpr int KSL = (KS + 3) / 4, NST = (KSL + SPS - 1) / SPS, NFULL = NOUT / 64;
+  constexpr int TAIL = NOUT % 64, N_ST = (NFULL + (TAIL ? 1 : 0)) * NST;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const float* A = DUAL && wg ? A1 : A0;
+  unsigned a[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a(A, LDA, 16 * ((tid >> 5) & 3), 16 * ks, a[ks]);
+  if (tid == 0)   // the product's first slabs
+    for (int li = 0; li < STAGES - 1; ++li)
+      issue_slab<KS, STAGES, SPS>(st, img, li, N_ST, NFULL, TAIL);
+  __syncthreads();
+  const bool second = DUAL && wg;
+  // not unrolled: unrolled chunks cost registers (ray_march_bwd_kernel spilled)
+#pragma unroll 1
+  for (int j = 0; j < NFULL; ++j) {
+    if constexpr (DUAL)
+      chunk_products<64, KS, STAGES, SPS>(st, a, img, j * NST, N_ST, NFULL, TAIL, 0, 64 * j,
+                                          second, put0, put1);
+    else
+      chunk_products<32, KS, STAGES, SPS>(st, a, img, j * NST, N_ST, NFULL, TAIL, 32 * wg,
+                                          64 * j + 32 * wg, false, put0, put0);
+  }
+  if constexpr (TAIL != 0) {
+    if constexpr (DUAL)
+      chunk_products<TAIL, KS, STAGES, SPS>(st, a, img, NFULL * NST, N_ST, NFULL, TAIL, 0,
+                                            64 * NFULL, second, put0, put1);
+    else
+      chunk_products<TAIL / 2, KS, STAGES, SPS>(st, a, img, NFULL * NST, N_ST, NFULL, TAIL,
+                                                TAIL / 2 * wg, 64 * NFULL + TAIL / 2 * wg, false,
+                                                put0, put0);
+  }
+  st.ws += N_ST;
+  __syncthreads();
+}
+
+__device__ __forceinline__ const unsigned char* image(const Params& p, int slot) {
+  return p.wimg + size_t(p.ioff[slot]) * WSLAB;
+}
+
+// A reverse product (depth 256, the layer's output cotangents; NOUT = K,
+// its input width) of a 256-wide layer, one stream (put0) or the SDF's
+// value and tangent streams (DUAL: A1 and put1 too).
+template <bool DUAL, class F0, class F1>
+__device__ __forceinline__ void reverse_product(Rings& st, int K, const float* A0,
+                                                const float* A1, const unsigned char* img,
+                                                F0&& put0, F1&& put1) {
+  if (K == EMB) wg_product<HID / 16, EMB, DUAL>(st, A0, A1, img, put0, put1);
+  else if (K == HID) wg_product<HID / 16, HID, DUAL>(st, A0, A1, img, put0, put1);
+  else wg_product<HID / 16, HID + EMB, DUAL>(st, A0, A1, img, put0, put1);
+}
+
+// X[:, :NOUT] = bf16(A[:, :16 KS]) @ B over a tile's rows, the f32 products
+// staged in X (A may be X: its fragments are in registers by then): ROWS = TILE
+// as one stream (the two warpgroups split each chunk's columns), ROWS = 2
+// TILE as two 64-row halves sharing every slab (warpgroup h rows 64 h ..
+// 64 h + 64, all columns), each on its kernel's weight ring. The epilogue
+// is then a SIMT pass over X (forward_pass, reverse_pass) that batches its
+// loads: on one block of 8 warps an epilogue on the accumulators, one
+// dependent chain at a time, cost more than the products.
+template <int ROWS, int KS, int NOUT>
+__device__ __forceinline__ void stage_product(Rings& st, float* X, const float* A,
+                                              const unsigned char* img) {
+  static_assert(ROWS == TILE || ROWS == 2 * TILE, "stage_product: ROWS");
+  if constexpr (ROWS == TILE) {
+    auto put = [=](int r, int c, float v) { X[r * LDX + c] = v; };
+    wg_product<KS, NOUT, false, WSTAGES>(st, A, A, img, put, put);
+  } else {
+    constexpr int L = LD<ROWS>;
+    auto put0 = [=](int r, int c, float v) { X[r * L + c] = v; };
+    auto put1 = [=](int r, int c, float v) { X[(r + TILE) * L + c] = v; };
+    wg_product<KS, NOUT, true, FWD_STAGES, FWD_SPS, L>(st, A, A + TILE * L, img, put0, put1);
   }
 }
 
-// put(row, col, acc) for every element of mma_tile's accumulators.
-template <int MT, int NT, class F>
-__device__ __forceinline__ void each_out(const float (&acc)[MT][NT][4], int m0, int nt0, F&& put) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        put(m0 + 16 * i + g + 8 * (q >> 1), 8 * (nt0 + j) + 2 * t + (q & 1), acc[i][j][q]);
+// A 256-wide layer's product over the tile, A's rows at A (stride LD),
+// staged in X: forward ([ROWS, K] @ [K, 256], img the W slot's image) or
+// reverse ([ROWS, 256] @ [256, K], the WT slot's), K = 48, 256 or 304:
+// five shapes, each compiled once.
+template <int ROWS>
+__device__ __forceinline__ void layer_product(Rings& st, float* X, const float* A,
+                                              const unsigned char* img, int K, bool reverse) {
+  if (!reverse && K == EMB) stage_product<ROWS, EMB / 16, HID>(st, X, A, img);
+  else if (!reverse && K == HID + EMB) stage_product<ROWS, (HID + EMB) / 16, HID>(st, X, A, img);
+  else if (reverse && K == EMB) stage_product<ROWS, HID / 16, EMB>(st, X, A, img);
+  else if (reverse && K == HID + EMB) stage_product<ROWS, HID / 16, HID + EMB>(st, X, A, img);
+  else stage_product<ROWS, HID / 16, HID>(st, X, A, img);
 }
 
-// The [TILE, N] product bf16(A[:, :K]) @ B (B: a fragment-ordered [K][N]
-// block, N = 48, 256 or 304), then put(r, c, v) for every output after a
-// barrier, so put may overwrite A; a barrier after. N = 256: warp w owns
-// columns 32 w .. 32 w + 32 of all 64 rows (4 x 4 tiles); N = 48: warp w
-// owns rows 16 (w % 4) .. + 16, columns 24 (w / 4) .. + 24 (1 x 3 tiles);
-// N = 304 is both, the 48 after the 256.
-template <int N, class F>
-__device__ __forceinline__ void tile_product(const float* A, int K, const uint2* __restrict__ B,
-                                             F&& put) {
-  static_assert(N == EMB || N == HID || N == HID + EMB, "tile_product: N");
-  const int warp = threadIdx.x >> 5;
-  constexpr int NTOT = N / 8;
-  const int ms = 16 * (warp & 3), ns = (N == EMB ? 0 : HID / 8) + 3 * (warp >> 2);
-  if constexpr (N == EMB) {
-    float acc[1][3][4];
-    mma_tile<1, 3>(A, K, B, NTOT, ms, ns, acc);
-    __syncthreads();
-    each_out(acc, ms, ns, put);
-  } else {
-    float acc[4][4][4];
-    mma_tile<4, 4>(A, K, B, NTOT, 0, 4 * warp, acc);
-    if constexpr (N == HID + EMB) {
-      float acc2[1][3][4];
-      mma_tile<1, 3>(A, K, B, NTOT, ms, ns, acc2);
-      __syncthreads();
-      each_out(acc2, ms, ns, put);
-    } else {
-      __syncthreads();
+// The forward product [TILE, K] @ [K, 256] of the backward's tangent
+// stream (K = 48, 256 or 304; img its W slot's image).
+template <class F>
+__device__ __forceinline__ void forward_product(Rings& st, int K, const float* A,
+                                                const unsigned char* img, F&& put) {
+  if (K == EMB) wg_product<EMB / 16, HID, false>(st, A, A, img, put, put);
+  else if (K == HID) wg_product<HID / 16, HID, false>(st, A, A, img, put, put);
+  else wg_product<(HID + EMB) / 16, HID, false>(st, A, A, img, put, put);
+}
+
+// Four consecutive floats.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// After a forward product staged in X[:, :256]: dst[:, :256] = epi(X + b)
+// over the tile's ROWS rows. Thread t takes columns 4 (t % 64) .. + 4 (its
+// bias read once) of rows t / 64 + 4 m, NB rows a batch: the batch's loads
+// first, then its arithmetic, then its stores (a warp a contiguous half
+// row each), so a thread has NB rows' latencies in flight at once.
+// EPI_SOFTPLUS also stores the gate to `gates` ([ROWS][HID]) and scales
+// the value by `post`. dst may be X. A barrier after.
+template <int ROWS>
+__device__ __forceinline__ void forward_pass(float* X, const float* __restrict__ b, int epi,
+                                             float post, float* gates, float* dst, int ld) {
+  constexpr int NB = 4, STEP = THREADS / (HID / 4);   // rows a batch, the row step (4)
+  const int c = 4 * (threadIdx.x % (HID / 4)), r0 = threadIdx.x / (HID / 4);
+  const float bias[4] = {__ldg(b + c), __ldg(b + c + 1), __ldg(b + c + 2), __ldg(b + c + 3)};
+#pragma unroll 1
+  for (int m = 0; m < ROWS / STEP; m += NB) {
+    float4 x[NB];
+#pragma unroll
+    for (int u = 0; u < NB; ++u) x[u] = ld4(X + (r0 + STEP * (m + u)) * LD<ROWS> + c);
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      const int r = r0 + STEP * (m + u);
+      float v[4] = {x[u].x + bias[0], x[u].y + bias[1], x[u].z + bias[2], x[u].w + bias[3]};
+      if (epi == EPI_SOFTPLUS) {
+        float g[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sp = softplus100(v[i]);
+          g[i] = 1.f - expf(-100.f * sp);
+          v[i] = sp * post;
+        }
+        st4(gates + r * HID + c, make_float4(g[0], g[1], g[2], g[3]));
+      } else if (epi == EPI_RELU) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+      }
+      st4(dst + r * ld + c, make_float4(v[0], v[1], v[2], v[3]));
     }
-    each_out(acc, 0, 4 * warp, put);
   }
   __syncthreads();
 }
 
-// tile_product for an output width N chosen at run time.
-template <class F>
-__device__ __forceinline__ void product_any(const float* A, int K, const uint2* __restrict__ B,
-                                            int N, F&& put) {
-  if (N == EMB) tile_product<EMB>(A, K, B, put);
-  else if (N == HID) tile_product<HID>(A, K, B, put);
-  else tile_product<HID + EMB>(A, K, B, put);
-}
-
-// dst[:, :256] = epi(X[:, :K] @ W + b): W a fragment-ordered [K, 256]
-// block. EPI_SOFTPLUS also stores the gate to `gates` ([TILE][HID]) and
-// scales the value by `post`. dst may be X itself.
-template <int EPI>
-__device__ __forceinline__ void wide_layer(float* X, int K, const uint2* __restrict__ W,
-                                           const float* __restrict__ b, float post, float* gates,
-                                           float* dst, int ld) {
-  tile_product<HID>(X, K, W, [&](int r, int c, float acc) {
-    const float a = acc + b[c];
-    float v;
-    if (EPI == EPI_SOFTPLUS) {
-      const float sp = softplus100(a);
-      gates[r * HID + c] = 1.f - expf(-100.f * sp);
-      v = sp * post;
-    } else if (EPI == EPI_RELU) {
-      v = fmaxf(a, 0.f);
-    } else {
-      v = a;
-    }
-    dst[r * ld + c] = v;
-  });
-}
-
-// out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out (W: f32
-// row-major [n_out, K]), summed in f32.
+// out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out <= 3, r
+// < ROWS (W: f32 row-major [n_out, K]), summed in f32: a warp takes four
+// rows at a time, its lanes strided over K, and reduces the 4 x 3 partial
+// sums together (independent shuffle chains, not one row's after
+// another's).
+template <int ROWS>
 __device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
                                              const float* __restrict__ W,
                                              const float* __restrict__ b, float* out, int ld_out) {
+  constexpr int RG = 4;   // rows at a time
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < TILE; r += THREADS / 32) {
-    for (int j = 0; j < n_out; ++j) {
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32)
-        s = fmaf(round_bf16(X[r * LDX + k]), round_bf16(__ldg(W + j * K + k)), s);
+  for (int r0 = RG * warp; r0 < ROWS; r0 += RG * (THREADS / 32)) {
+    float s[RG][3] = {};
+    for (int k = lane; k < K; k += 32) {
+      float w[3];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) out[r * ld_out + j] = s + b[j];
+      for (int j = 0; j < 3; ++j) w[j] = j < n_out ? round_bf16(__ldg(W + j * K + k)) : 0.f;
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        const float x = round_bf16(X[(r0 + i) * LD<ROWS> + k]);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) s[i][j] = fmaf(x, w[j], s[i][j]);
+      }
     }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < RG; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], o);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < RG; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          if (j < n_out) out[(r0 + i) * ld_out + j] = s[i][j] + b[j];
   }
   __syncthreads();
 }
 
-// One reverse layer: X[:, :256] holds q_l = d raw / d (layer l output) times
-// its gate; p = q_l @ W_l^T (WT: the fragment-ordered [256, K] transpose)
-// is the cotangent of layer l's input. Its hidden part, times 1/sqrt(2) at
-// the skip layer and times the gate of layer l - 1, becomes q_{l-1} in X;
-// its PE part (the skip layer's last 48 columns, or all of layer 0's) adds
-// to EG.
-__device__ __forceinline__ void reverse_layer(const Tile& t, const uint2* __restrict__ WT, int K,
-                                              bool is_skip, const float* gates_prev) {
-  product_any(t.X, HID, WT, K, [&](int r, int c, float v) {
-    if (K == EMB) {
-      t.EG[r * EMB + c] += v;
-    } else if (c < HID) {
-      const float p = is_skip ? v * INV_SQRT2 : v;
-      t.X[r * LDX + c] = p * gates_prev[r * HID + c];
-    } else {
-      t.EG[r * EMB + c - HID] += v * INV_SQRT2;
+// After reverse layer l's product: X[:, :K] holds p = q_l @ W_l^T, the
+// cotangent of layer l's input (q_l = d raw / d (layer l output) times its
+// gate). Its hidden part, times 1/sqrt(2) at the skip layer and times the
+// gate of layer l - 1 (gates_prev, read in 16-byte groups), becomes q_{l-1}
+// in X; its PE part (the skip layer's last 48 columns, or all of layer 0's)
+// adds to the PE cotangents, which the sweep keeps in X's PE columns (X[:,
+// 256:304], zeros before the sweep): the skip layer's output lands there
+// and is scaled in place (the sweep's one 304-wide product, with the
+// cotangents still zero), layer 0's adds. A barrier after.
+template <int ROWS>
+__device__ __forceinline__ void reverse_pass(float* X, int K, bool is_skip,
+                                             const float* gates_prev) {
+  if (K == EMB) {
+    for (int e = threadIdx.x; e < ROWS * EMB; e += THREADS) {
+      const int r = e / EMB, c = e % EMB;
+      X[r * LD<ROWS> + HID + c] += X[r * LD<ROWS> + c];
     }
-  });
-}
-
-// X[:, col0 : col0 + EMB] = [pts, grad, PE(dirs) (dv columns), 0 ...]
-__device__ __forceinline__ void write_small(const Tile& t, int col0, int dv) {
-  for (int e = threadIdx.x; e < TILE * EMB; e += THREADS) {
-    const int r = e / EMB, c = e % EMB;
-    float v;
-    if (c < 3) v = t.P3[r * 3 + c];
-    else if (c < 6) v = t.G3[r * 3 + c - 3];
-    else v = (c - 6 < dv) ? emb_value(t.D3 + r * 3, c - 6, dv) : 0.f;
-    t.X[r * LDX + col0 + c] = v;
+  } else {
+    // as forward_pass's batches: X and the gates of NB rows loaded at once
+    constexpr int NB = 8, STEP = THREADS / (HID / 4);
+    const int c = 4 * (threadIdx.x % (HID / 4)), r0 = threadIdx.x / (HID / 4);
+    const float s = is_skip ? INV_SQRT2 : 1.f;
+#pragma unroll 1
+    for (int m = 0; m < ROWS / STEP; m += NB) {
+      float4 x[NB], g[NB];
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int r = r0 + STEP * (m + u);
+        x[u] = ld4(X + r * LD<ROWS> + c);
+        g[u] = ld4(gates_prev + r * HID + c);
+      }
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int r = r0 + STEP * (m + u);
+        st4(X + r * LD<ROWS> + c,
+            is_skip ? make_float4(x[u].x * s * g[u].x, x[u].y * s * g[u].y, x[u].z * s * g[u].z,
+                                  x[u].w * s * g[u].w)
+                    : make_float4(x[u].x * g[u].x, x[u].y * g[u].y, x[u].z * g[u].z,
+                                  x[u].w * g[u].w));
+      }
+    }
+    if (K == HID + EMB)
+      for (int e = threadIdx.x; e < ROWS * EMB; e += THREADS) {
+        const int r = e / EMB, c = e % EMB;
+        X[r * LD<ROWS> + HID + c] *= INV_SQRT2;
+      }
   }
+  __syncthreads();
 }
 
 // dst[:, :K] = src[:, :K] (a layer input, kept for the backward). Only
@@ -448,153 +660,219 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
   return l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
 }
 
-// The forward of the tile whose points and view dirs the caller has put in
-// t.P3 / t.D3 (zeros for a padding point; a barrier after), leaving sdf,
-// grad, gc, relit and delta in t.S1/G3/GC/RL/DL and the gates and features
-// in the block's scratch. SAVE also keeps every layer's input (sv).
-template <bool SAVE>
-__device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, float* gates,
-                                             float* feat, const Save& sv) {
+// The forward of the ROWS-point tile whose points and view dirs the caller
+// has put in t.P3 / t.D3 (zeros for a padding point; a barrier after),
+// leaving sdf, grad, gc, relit and delta in t.S1/G3/GC/RL/DL and the gates
+// ([n_sdf - 1][ROWS][HID]) and features ([ROWS][HID]) in the block's
+// scratch. SAVE (the backward's recompute, ROWS = TILE) also keeps every
+// layer's input (sv).
+//
+// The tile runs as one loop of steps: the SDF layers, the last layer (its
+// sdf row as a narrow layer, its features), the reverse sweep, the colour
+// and the relight layers, and a closing step. A step does the work due
+// before its product (each piece at one place in the loop), then the
+// layer's product on wgmma (layer_product) and its pass. So every product
+// shape, pass and SIMT piece is compiled once.
+// The SDF PE stays in X's PE columns (X[:, 256:304]) from layer 0, which
+// reads it there, to the skip layer, which takes it times 1/sqrt(2); the
+// reverse sweep then keeps the PE cotangents there.
+template <int ROWS, bool SAVE>
+__device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rings& st,
+                                             float* gates, float* feat, const Save& sv) {
+  static_assert(!SAVE || ROWS == TILE, "forward_tile: the saved operands are 64-point tiles");
+  constexpr size_t GS = size_t(ROWS) * HID;   // one layer's gates
+  enum { SDF, LAST, REV, COL, REL, END };
+  constexpr int L = LD<ROWS>;   // X's row stride
   const int tid = threadIdx.x;
   const float* W = p.w;
-  const uint2* WB = p.wb;
   const Shape sh = shape_of(p);
-  // SDF PE: X[:, :48] = PE(p * scale)
-  for (int e = tid; e < TILE * EMB; e += THREADS) {
-    const int r = e / EMB, c = e % EMB;
-    float x[3];
-    pe_row(p, t, r, x);
-    t.X[r * LDX + c] = emb_value(x, c, p.d0);
-  }
-  __syncthreads();
+  float* const X = t.X;
+  float* const PE = X + HID;
+  const int nf = p.n_sdf - 1, nc = p.n_color - 1, nr = p.n_relight > 0 ? p.n_relight - 1 : 0;
+  const int c0 = 2 * nf + 1, q0 = c0 + nc, n_steps = q0 + nr;
 
-  // ---- SDF forward, gates to the scratch ----
-  for (int l = 0; l < p.n_sdf - 1; ++l) {
-    const int K = sdf_k(p, l);
-    const bool pre_skip = l + 1 == p.skip;
-    if (SAVE) {   // layer 0's X as a hi + lo bf16 pair
-      save_t<0>(t.X, K, dw_a(sh, sv.dw, l, 0));
-      if (l == 0) save_t<2>(t.X, K, dw_a(sh, sv.dw, 0, 1));
-    }
-    wide_layer<EPI_SOFTPLUS>(t.X, K, WB + p.boff[W_SDF + l], W + p.off[B_SDF + l],
-                             pre_skip ? INV_SQRT2 : 1.f, gates + l * GSLAB, t.X, LDX);
-    if (pre_skip) {
-      for (int e = tid; e < TILE * EMB; e += THREADS) {
+  for (int i = 0; i <= n_steps; ++i) {
+    const int kind = i < nf ? SDF : i == nf ? LAST : i < c0 ? REV : i < q0 ? COL
+                   : i < n_steps ? REL : END;
+    const int l = kind == SDF ? i : kind == LAST ? nf : kind == REV ? c0 - 1 - i
+                : kind == COL ? i - c0 : kind == REL ? i - q0 : nr;
+    // the input width of the step's layer (END: the relight net's last layer)
+    const int K = kind == SDF || kind == REV ? sdf_k(p, l)
+                : kind == COL ? (l == 0 ? HID + EMB : HID)
+                : kind == LAST ? HID
+                : p.n_relight > 0 ? (l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID)) : HID;
+    if (i == 0) {   // X[:, 256:304] = PE(p * scale)
+      for (int e = tid; e < ROWS * EMB; e += THREADS) {
         const int r = e / EMB, c = e % EMB;
         float x[3];
         pe_row(p, t, r, x);
-        t.X[r * LDX + HID + c] = emb_value(x, c, p.d0) * INV_SQRT2;
+        PE[r * L + c] = emb_value(x, c, p.d0);
       }
       __syncthreads();
     }
-  }
-  // last layer: raw sdf (row 0) and the features (rows 1..256)
-  if (SAVE) save_t<0>(t.X, HID, dw_a(sh, sv.dw, p.n_sdf - 1, 0));
-  narrow_layer(t.X, HID, 1, W + p.off[W_LAST], W + p.off[B_LAST], t.S1, 1);
-  wide_layer<EPI_NONE>(t.X, HID, WB + p.boff[W_FEAT], W + p.off[B_FEAT], 1.f, nullptr, feat,
-                       HID);
-
-  // ---- reverse sweep: q = W_last[0, :] (in bf16) * gate of the last hidden layer ----
-  const float* wl = W + p.off[W_LAST];
-  const float* g_last = gates + size_t(p.n_sdf - 2) * GSLAB;
-  for (int e = tid; e < TILE * HID; e += THREADS) {
-    const int r = e / HID, c = e % HID;
-    t.X[r * LDX + c] = round_bf16(wl[c]) * g_last[r * HID + c];
-  }
-  for (int e = tid; e < TILE * EMB; e += THREADS) t.EG[e] = 0.f;
-  __syncthreads();
-  for (int l = p.n_sdf - 2; l >= 0; --l)
-    reverse_layer(t, WB + p.boff[WT_SDF + l], sdf_k(p, l), l == p.skip,
-                  l > 0 ? gates + size_t(l - 1) * GSLAB : nullptr);
-  // PE pullback: grad_j = sum_c EG_c d emb_c / d (p_j scale) (the scale
-  // of the PE and the 1/scale of the sdf cancel)
-  if (tid < TILE) {
-    float x[3], g[3] = {0.f, 0.f, 0.f};
-    pe_row(p, t, tid, x);
-    for (int c = 0; c < p.d0; ++c) {
-      int j;
-      const float s = mlp::emb_slope(x, c, p.d0, &j);
-      g[j] = fmaf(t.EG[tid * EMB + c], s, g[j]);
-    }
+    if (kind == COL && l == 0) {
+      // PE pullback: grad_j = sum_c EG_c d emb_c / d (p_j scale) (the
+      // scale of the PE and the 1/scale of the sdf cancel); X = features
+      if (tid < ROWS) {
+        float x[3], gr[3] = {0.f, 0.f, 0.f};
+        pe_row(p, t, tid, x);
+        for (int c = 0; c < p.d0; ++c) {
+          int j;
+          const float sl = mlp::emb_slope(x, c, p.d0, &j);
+          gr[j] = fmaf(PE[tid * L + c], sl, gr[j]);
+        }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) t.G3[tid * 3 + j] = g[j];
-    t.S1[tid] *= 1.f / p.scale;
-  }
-  __syncthreads();
-
-  // ---- colour: X = [features | pts, grad, PE(dirs)] ----
-  for (int e = tid; e < TILE * HID; e += THREADS) {
-    const int r = e / HID, c = e % HID;
-    t.X[r * LDX + c] = feat[r * HID + c];
-  }
-  write_small(t, HID, p.color_dv);
-  __syncthreads();
-  for (int l = 0; l < p.n_color - 1; ++l) {
-    const int K = l == 0 ? HID + EMB : HID;
-    if (SAVE) {
-      save_cols(t.X, K, sv.cx + l * SLAB);
-      save_t<0>(t.X, K, dw_a(sh, sv.dw, p.n_sdf + l, 0));
-    }
-    wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_COL + l], W + p.off[B_COL + l], 1.f, nullptr,
-                         t.X, LDX);
-  }
-  if (SAVE) save_cols(t.X, HID, sv.cx + (p.n_color - 1) * SLAB);
-  narrow_layer(t.X, HID, 3, W + p.off[W_COL + p.n_color - 1], W + p.off[B_COL + p.n_color - 1],
-               t.GC, 3);
-  if (p.squeeze)
-    for (int e = tid; e < TILE * 3; e += THREADS) t.GC[e] = sigmoidf_(t.GC[e]);
-  __syncthreads();
-
-  // ---- relight: X = [pts, grad, PE(dirs) | ... | gc] ----
-  if (p.n_relight > 0) {
-    write_small(t, 0, p.rl_dv);
-    for (int e = tid; e < TILE * EMB; e += THREADS) {
-      const int r = e / EMB, c = e % EMB;
-      t.X[r * LDX + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int l = 0; l < p.n_relight - 1; ++l) {
-      const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
-      if (SAVE) {
-        save_cols(t.X, K, sv.rx + l * SLAB);
-        save_t<0>(t.X, K, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
+        for (int j = 0; j < 3; ++j) t.G3[tid * 3 + j] = gr[j];
+        t.S1[tid] *= 1.f / p.scale;
       }
-      wide_layer<EPI_RELU>(t.X, K, WB + p.boff[W_REL + l], W + p.off[B_REL + l], 1.f, nullptr,
-                           t.X, LDX);
+#pragma unroll 4
+      for (int e = tid; e < ROWS * HID / 4; e += THREADS) {
+        const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
+        st4(X + r * L + c, ld4(feat + r * HID + c));
+      }
+      __syncthreads();
     }
-    const int last = p.n_relight - 1;
-    const int K = last == p.y_in ? HID + EMB : HID;
-    if (SAVE) save_cols(t.X, K, sv.rx + last * SLAB);
-    narrow_layer(t.X, K, 3, W + p.off[W_REL + last], W + p.off[B_REL + last], t.DL, 3);
-    for (int e = tid; e < TILE * 3; e += THREADS) {
-      const float gc = t.GC[e], d = t.DL[e];
-      if (p.inv_sigmoid) {
-        const float gcc = fminf(fmaxf(gc, 0.f), 1.f);
-        const float logit = logf(fmaxf(gcc, 1e-5f) / fmaxf(1.f - gcc, 1e-5f));
-        t.RL[e] = sigmoidf_(logit + d);
-      } else {
-        t.RL[e] = fminf(fmaxf(gc + sigmoidf_(d) - 0.5f, 0.f), 1.f);
+    // ---- a narrow layer: the sdf row, gc (colour's last), delta (relight's last) ----
+    const bool colour_last = (kind == REL && l == 0) || (kind == END && nr == 0);
+    if (kind == LAST || colour_last || (kind == END && nr > 0)) {
+      const int wn = kind == LAST ? W_LAST : colour_last ? W_COL + nc : W_REL + nr;
+      const int bn = kind == LAST ? B_LAST : colour_last ? B_COL + nc : B_REL + nr;
+      const int n_out = kind == LAST ? 1 : 3;
+      const int kn = kind == LAST || colour_last ? HID : K;
+      float* out = kind == LAST ? t.S1 : colour_last ? t.GC : t.DL;
+      if (SAVE && kind != LAST) save_cols(X, kn, colour_last ? sv.cx + nc * SLAB : sv.rx + nr * SLAB);
+      narrow_layer<ROWS>(X, kn, n_out, W + p.off[wn], W + p.off[bn], out, n_out);
+      if (colour_last && p.squeeze) {
+        for (int e = tid; e < ROWS * 3; e += THREADS) t.GC[e] = sigmoidf_(t.GC[e]);
+        __syncthreads();
       }
     }
-  } else {
-    for (int e = tid; e < TILE * 3; e += THREADS) {
-      t.RL[e] = t.GC[e];
+    if (kind == END) break;
+    // ---- a network's small inputs: [pts, grad, PE(dirs)] (colour: after
+    // the features; relight: first, gc after the hidden part) ----
+    if ((kind == COL || kind == REL) && l == 0) {
+      const int col0 = kind == COL ? HID : 0, dv = kind == COL ? p.color_dv : p.rl_dv;
+      for (int e = tid; e < ROWS * EMB; e += THREADS) {
+        const int r = e / EMB, c = e % EMB;
+        float v;
+        if (c < 3) v = t.P3[r * 3 + c];
+        else if (c < 6) v = t.G3[r * 3 + c - 3];
+        else v = (c - 6 < dv) ? emb_value(t.D3 + r * 3, c - 6, dv) : 0.f;
+        X[r * L + col0 + c] = v;
+        if (kind == REL) X[r * L + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
+      }
+      __syncthreads();
+    }
+    if (kind == REV && l == nf - 1) {
+      // q = W_last[0, :] (in bf16) * gate of the last hidden layer; the PE
+      // cotangents (X[:, 256:304]) zero
+      const float* wl = W + p.off[W_LAST];
+      const float* g_last = gates + (nf - 1) * GS;
+#pragma unroll 4
+      for (int e = tid; e < ROWS * HID / 4; e += THREADS) {
+        const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
+        const float4 g4 = ld4(g_last + r * HID + c);
+        st4(X + r * L + c, make_float4(round_bf16(__ldg(wl + c)) * g4.x,
+                                         round_bf16(__ldg(wl + c + 1)) * g4.y,
+                                         round_bf16(__ldg(wl + c + 2)) * g4.z,
+                                         round_bf16(__ldg(wl + c + 3)) * g4.w));
+      }
+      for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] = 0.f;
+      __syncthreads();
+    }
+    // ---- the layer's input kept for the backward ----
+    const float* A = kind == SDF && l == 0 ? PE : X;
+    if (SAVE && kind != REV) {
+      const int bi = kind == SDF || kind == LAST ? l : kind == COL ? p.n_sdf + l
+                   : p.n_sdf + p.n_color - 1 + l;
+      if (kind == COL) save_cols(X, K, sv.cx + l * SLAB);
+      if (kind == REL) save_cols(X, K, sv.rx + l * SLAB);
+      save_t<0>(A, K, dw_a(sh, sv.dw, bi, 0));
+      if (kind == SDF && l == 0) save_t<2>(A, K, dw_a(sh, sv.dw, 0, 1));   // hi + lo
+    }
+    // ---- the product and its pass ----
+    const int slot = kind == SDF ? W_SDF + l : kind == LAST ? W_FEAT : kind == REV ? WT_SDF + l
+                   : kind == COL ? W_COL + l : W_REL + l;
+    // the reverse sweep's next gates into L2 while the product runs
+    if (kind == REV && l > 0 && tid == 0)
+      mlp::prefetch_l2(gates + (l - 1) * GS, unsigned(GS * sizeof(float)));
+    layer_product<ROWS>(st, X, A, image(p, slot), K, kind == REV);
+    // a softplus layer's gates; in the reverse sweep the next ones (not
+    // kept live across the product: the backward kernel has no register to
+    // spare there)
+    float* g = kind == SDF ? gates + l * GS : kind == REV && l > 0 ? gates + (l - 1) * GS : nullptr;
+    if (kind == REV) {
+      reverse_pass<ROWS>(X, K, l == p.skip, g);
+    } else {
+      const int bslot = kind == SDF ? B_SDF + l : kind == LAST ? B_FEAT
+                      : kind == COL ? B_COL + l : B_REL + l;
+      forward_pass<ROWS>(X, W + p.off[bslot],
+                         kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
+                         kind == SDF && l + 1 == p.skip ? INV_SQRT2 : 1.f, g,
+                         kind == LAST ? feat : X, kind == LAST ? HID : L);
+      if (kind == SDF && l + 1 == p.skip) {   // the skip input: [h, PE] / sqrt(2)
+        for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] *= INV_SQRT2;
+        __syncthreads();
+      }
+    }
+  }
+
+  // relit from gc and delta (NeuS: relit = gc, delta = 0)
+  for (int e = tid; e < ROWS * 3; e += THREADS) {
+    const float gc = t.GC[e];
+    if (p.n_relight == 0) {
+      t.RL[e] = gc;
       t.DL[e] = 0.f;
+    } else if (p.inv_sigmoid) {
+      const float gcc = fminf(fmaxf(gc, 0.f), 1.f);
+      const float logit = logf(fmaxf(gcc, 1e-5f) / fmaxf(1.f - gcc, 1e-5f));
+      t.RL[e] = sigmoidf_(logit + t.DL[e]);
+    } else {
+      t.RL[e] = fminf(fmaxf(gc + sigmoidf_(t.DL[e]) - 0.5f, 0.f), 1.f);
     }
   }
   __syncthreads();
 }
 
-__device__ __forceinline__ void carve_fwd(Tile& t, unsigned char* smem) {
-  t.X = reinterpret_cast<float*>(smem);
-  t.EG = t.X + TILE * LDX;
-  t.P3 = t.EG + TILE * EMB;
-  t.D3 = t.P3 + TILE * 3;
-  t.G3 = t.D3 + TILE * 3;
-  t.GC = t.G3 + TILE * 3;
-  t.DL = t.GC + TILE * 3;
-  t.RL = t.DL + TILE * 3;
-  t.S1 = t.RL + TILE * 3;
+// The weight ring's barriers (thread 0; a barrier after the caller's
+// carve): full counts the one bulk-copy arrival, empty the 8 warps.
+__device__ __forceinline__ void init_weight_ring(const Ring& w, int stages) {
+  for (int i = 0; i < stages; ++i) {
+    mlp::mbar_init(w.full + i, 1);
+    mlp::mbar_init(w.empty + i, THREADS / 32);
+  }
+}
+
+// The forward kernels' shared memory (SMEM_FWD bytes): from the first
+// 1024-byte boundary, the weight ring (FWD_STAGES), X of FWD_ROWS points,
+// the small buffers and the ring's mbarriers. A barrier after.
+__device__ __forceinline__ void carve_fwd(Tile& t, Rings& st, unsigned char* smem) {
+  const unsigned mis = unsigned(__cvta_generic_to_shared(smem)) & (SMEM_ALIGN - 1);
+  unsigned char* base = smem + ((SMEM_ALIGN - mis) & (SMEM_ALIGN - 1));
+  st.w.buf = base;
+  t.X = reinterpret_cast<float*>(base + FWD_STAGES * FWD_SPS * WSLAB);
+  t.P3 = t.X + FWD_ROWS * LDX_FWD;
+  t.D3 = t.P3 + FWD_ROWS * 3;
+  t.G3 = t.D3 + FWD_ROWS * 3;
+  t.GC = t.G3 + FWD_ROWS * 3;
+  t.DL = t.GC + FWD_ROWS * 3;
+  t.RL = t.DL + FWD_ROWS * 3;
+  t.S1 = t.RL + FWD_ROWS * 3;
+  st.w.full = reinterpret_cast<unsigned long long*>(t.S1 + FWD_ROWS);
+  st.w.empty = st.w.full + FWD_STAGES;
+  st.d = Ring{nullptr, nullptr, nullptr};
+  st.ws = st.ds = 0;
+  if (threadIdx.x == 0) {
+    init_weight_ring(st.w, FWD_STAGES);
+    mlp::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The forward kernels' scratch per block, floats: the gates and features
+// of a FWD_ROWS-point tile.
+__host__ __device__ inline long long fwd_scratch_floats(int n_sdf) {
+  return (long long)n_sdf * FWD_ROWS * HID;
 }
 
 // ------------------------------------------------------------------------
@@ -652,170 +930,6 @@ __device__ __forceinline__ void dirs_pe_vjp(const Tile& t, int dv) {
   __syncthreads();
 }
 
-// ---- the backward's two rings of bulk copies ----
-// A ring of stages in shared memory, each filled by the TMA unit's bulk
-// copies completing on its "full" mbarrier and released by every warp on
-// its "empty" one; slab s of a block's sequence goes to stage s % STAGES,
-// and its k-th use of a stage waits with parity k & 1. The block counts
-// its slabs (BwdState::ws, ds) across tiles, so the parities carry on.
-struct Ring {
-  unsigned char* buf;
-  unsigned long long* full;
-  unsigned long long* empty;
-};
-
-struct BwdState {
-  Ring w;        // the weight slabs of the tile's products (WSTAGES x WSLAB)
-  Ring d;        // the weight-grad flush's operands (DW_STAGES x DW_STAGE, over X and Y)
-  unsigned ws;   // weight slabs consumed so far
-  unsigned ds;   // flush stages consumed so far
-};
-
-// Thread 0: until every warp has released what slab s's stage held before.
-template <int STAGES>
-__device__ __forceinline__ void ring_wait_empty(const Ring& r, unsigned s) {
-  if (s >= STAGES) mlp::mbar_wait(r.empty + s % STAGES, (s / STAGES - 1) & 1u);
-}
-
-// Every thread: until slab s has landed.
-template <int STAGES>
-__device__ __forceinline__ const unsigned char* ring_acquire(const Ring& r, unsigned s,
-                                                             int stage_bytes) {
-  mlp::mbar_wait(r.full + s % STAGES, (s / STAGES) & 1u);
-  __syncwarp();
-  return r.buf + (s % STAGES) * stage_bytes;
-}
-
-// Every thread, after its warp's last read of slab s (its wgmma done).
-template <int STAGES>
-__device__ __forceinline__ void ring_release(const Ring& r, unsigned s) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mlp::mbar_arrive(r.empty + s % STAGES);
-}
-
-// ---- the tile's products on wgmma ----
-// out = bf16(A[:, :16 KS]) @ B, B [16 KS][NOUT] streamed through the weight
-// ring from its slab image img (point_pipeline.py's _pack_images: chunks of
-// 64 output columns, the last one 48 when NOUT % 64 == 48, each as
-// ceil(KS / 4) slabs of 64 k, K-major), thread 0 keeping WSTAGES - 1 slabs
-// in flight. A comes from registers: every thread loads its fragments of
-// the f32 activations (rounded to bf16, as load_a) before a barrier, so put
-// may overwrite A, and no staging copy of A is made. Single (DUAL false):
-// both warpgroups read A0, warpgroup h computing columns 32 h .. 32 h + 32
-// of each 64-column chunk (24 h .. 24 h + 24 of a 48-column one) and
-// calling put0; DUAL: warpgroup 0 the product of A0 and warpgroup 1 that of
-// A1 with the same B, all columns of each chunk, calling put0 / put1 (the
-// SDF reverse sweep's value and tangent streams share every weight slab).
-// put(r, c, v) for every output; a barrier after.
-template <int KS>
-__device__ __forceinline__ void issue_slab(BwdState& st, const unsigned char* img, unsigned li,
-                                           int n_slabs, int nfull, int rows_last) {
-  if (int(li) >= n_slabs) return;
-  constexpr int KSL = (KS + 3) / 4;
-  const unsigned s = st.ws + li;
-  const int rows = int(li) / KSL < nfull ? 64 : rows_last;
-  ring_wait_empty<WSTAGES>(st.w, s);
-  mlp::bulk_load(st.w.buf + (s % WSTAGES) * WSLAB, img + size_t(li) * WSLAB,
-                 unsigned(rows) * 128u, st.w.full + s % WSTAGES);
-}
-
-template <int NW, int KS, class F>
-__device__ __forceinline__ void chunk_products(BwdState& st, const unsigned (&a)[KS][4],
-                                               const unsigned char* img, unsigned li0, int n_slabs,
-                                               int nfull, int rows_last, int row0, int col0,
-                                               F&& put) {
-  constexpr int KSL = (KS + 3) / 4;
-  const int tid = threadIdx.x, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  float acc[NW / 2];
-#pragma unroll
-  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < KSL; ++i) {
-    const unsigned li = li0 + i, s = st.ws + li;
-    if (tid == 0) issue_slab<KS>(st, img, li + WSTAGES - 1, n_slabs, nfull, rows_last);
-    const unsigned char* slab = ring_acquire<WSTAGES>(st.w, s, WSLAB);
-    mlp::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 && 4 * i + kk < KS; ++kk)
-      mlp::wgmma_rs_bf16<NW>(acc, a[4 * i + kk], mlp::wgmma_desc(slab + row0 * 128 + 32 * kk),
-                             (i | kk) != 0);
-    mlp::wgmma_commit();
-    mlp::wgmma_wait_all();
-    ring_release<WSTAGES>(st.w, s);
-  }
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        put(16 * w + g + 8 * h, col0 + 8 * j + 2 * q + e, acc[4 * j + 2 * h + e]);
-}
-
-template <int KS, int NOUT, bool DUAL, class F0, class F1>
-__device__ __forceinline__ void wg_product(BwdState& st, const float* A0, const float* A1,
-                                           const unsigned char* img, F0&& put0, F1&& put1) {
-  static_assert(NOUT % 64 == 0 || NOUT % 64 == 48, "wg_product: NOUT");
-  constexpr int KSL = (KS + 3) / 4, NFULL = NOUT / 64, TAIL = NOUT % 64;
-  constexpr int N_SLABS = (NFULL + (TAIL ? 1 : 0)) * KSL;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const float* A = DUAL && wg ? A1 : A0;
-  unsigned a[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) load_a(A, LDX, 16 * ((tid >> 5) & 3), 16 * ks, a[ks]);
-  if (tid == 0)   // the product's first slabs
-    for (int li = 0; li < WSTAGES - 1; ++li) issue_slab<KS>(st, img, li, N_SLABS, NFULL, TAIL);
-  __syncthreads();
-  auto put = [&](int r, int c, float v) {
-    if (DUAL && wg) put1(r, c, v);
-    else put0(r, c, v);
-  };
-  // not unrolled: unrolled chunks cost registers (ray_march_bwd_kernel spilled)
-#pragma unroll 1
-  for (int j = 0; j < NFULL; ++j) {
-    if constexpr (DUAL)
-      chunk_products<64, KS>(st, a, img, j * KSL, N_SLABS, NFULL, TAIL, 0, 64 * j, put);
-    else
-      chunk_products<32, KS>(st, a, img, j * KSL, N_SLABS, NFULL, TAIL, 32 * wg,
-                             64 * j + 32 * wg, put);
-  }
-  if constexpr (TAIL != 0) {
-    if constexpr (DUAL)
-      chunk_products<TAIL, KS>(st, a, img, NFULL * KSL, N_SLABS, NFULL, TAIL, 0, 64 * NFULL,
-                               put);
-    else
-      chunk_products<TAIL / 2, KS>(st, a, img, NFULL * KSL, N_SLABS, NFULL, TAIL,
-                                   TAIL / 2 * wg, 64 * NFULL + TAIL / 2 * wg, put);
-  }
-  st.ws += N_SLABS;
-  __syncthreads();
-}
-
-__device__ __forceinline__ const unsigned char* image(const Params& p, int slot) {
-  return p.wimg + size_t(p.ioff[slot]) * WSLAB;
-}
-
-// A reverse product (depth 256, the layer's output cotangents; NOUT = K,
-// its input width) of a 256-wide layer, one stream (put0) or the SDF's
-// value and tangent streams (DUAL: A1 and put1 too).
-template <bool DUAL, class F0, class F1>
-__device__ __forceinline__ void reverse_product(BwdState& st, int K, const float* A0,
-                                                const float* A1, const unsigned char* img,
-                                                F0&& put0, F1&& put1) {
-  if (K == EMB) wg_product<HID / 16, EMB, DUAL>(st, A0, A1, img, put0, put1);
-  else if (K == HID) wg_product<HID / 16, HID, DUAL>(st, A0, A1, img, put0, put1);
-  else wg_product<HID / 16, HID + EMB, DUAL>(st, A0, A1, img, put0, put1);
-}
-
-// The forward product [TILE, K] @ [K, 256] of the tangent stream.
-template <class F>
-__device__ __forceinline__ void forward_product(BwdState& st, int K, const float* A,
-                                                const unsigned char* img, F&& put) {
-  if (K == EMB) wg_product<EMB / 16, HID, false>(st, A, A, img, put, put);
-  else if (K == HID) wg_product<HID / 16, HID, false>(st, A, A, img, put, put);
-  else wg_product<(HID + EMB) / 16, HID, false>(st, A, A, img, put, put);
-}
-
 // ---- the weight-grad flush ----
 // The flush's stages in order: per block, pair mp of 64-row blocks of its
 // K (2 mp and 2 mp + 1), term and tile, each stage one tile's A^T rows of
@@ -849,7 +963,7 @@ __device__ __forceinline__ bool cursor_next(const Shape& sh, DwCursor& c, int nt
 // Thread 0: the cursor's stage (global count s), three bulk copies (the
 // pair's second A^T block repeats the first where K has an odd count of
 // them; its products are not stored).
-__device__ __forceinline__ void dw_issue(BwdState& st, const unsigned char* store,
+__device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
                                          long long tile_bytes, const DwCursor& c, unsigned s) {
   const DwBlock& b = c.blk;
   const int bj = b.nterm == 4 ? c.term / 2 : (b.nterm == 2 ? c.term : 0);
@@ -872,7 +986,7 @@ __device__ __forceinline__ void dw_issue(BwdState& st, const unsigned char* stor
 // accumulators a thread), every term and tile streamed through the flush
 // ring in order, then one read-modify-write of those 64 x 256 floats. The
 // stages lie over X and Y, so the caller has finished the tile.
-__device__ __forceinline__ void dw_flush(const Params& p, BwdState& st, const unsigned char* store,
+__device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsigned char* store,
                                          long long tile_bytes, int nt, float* P) {
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
@@ -967,7 +1081,7 @@ __device__ __forceinline__ float tangent_seed(const Params& p, const Tile& t, in
 // block's partial P, and every 256-wide layer's weight-grad operands
 // (inputs and output cotangents, bf16, transposed) into the tile's store
 // sv.dw, which dw_flush sums.
-__device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, BwdState& st,
+__device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Rings& st,
                                               float* gates, float* zt, const Save& sv, float* P) {
   const int tid = threadIdx.x;
   const float* W = p.w;
@@ -1206,7 +1320,7 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Bw
 // boundary, the weight ring, X and Y (the flush ring over them), then the
 // forward's small buffers and the backward's, and the rings' mbarriers.
 // Thread 0 initialises the barriers; a barrier after.
-__device__ __forceinline__ void carve_bwd(Tile& t, BwdState& st, unsigned char* smem) {
+__device__ __forceinline__ void carve_bwd(Tile& t, Rings& st, unsigned char* smem) {
   const unsigned mis = unsigned(__cvta_generic_to_shared(smem)) & (SMEM_ALIGN - 1);
   unsigned char* base = smem + ((SMEM_ALIGN - mis) & (SMEM_ALIGN - 1));
   st.w.buf = base;
@@ -1234,10 +1348,7 @@ __device__ __forceinline__ void carve_bwd(Tile& t, BwdState& st, unsigned char* 
   st.d.empty = st.d.full + DW_STAGES;
   st.ws = st.ds = 0;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < WSTAGES; ++i) {
-      mlp::mbar_init(st.w.full + i, 1);
-      mlp::mbar_init(st.w.empty + i, THREADS / 32);
-    }
+    init_weight_ring(st.w, WSTAGES);
     for (int i = 0; i < DW_STAGES; ++i) {
       mlp::mbar_init(st.d.full + i, 3);   // three copies a stage
       mlp::mbar_init(st.d.empty + i, THREADS / 32);
@@ -1275,7 +1386,7 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
 // backward_tile (and after the caller has read the tile's outputs); slot
 // is the tile's index in the batch. Flushes when the batch is full or the
 // block's last tile is done (a ragged batch), and returns the next slot.
-__device__ __forceinline__ int after_tile(const Params& p, BwdState& st, const BwdScratch& s,
+__device__ __forceinline__ int after_tile(const Params& p, Rings& st, const BwdScratch& s,
                                           int slot, bool last, float* P) {
   if (++slot < p.dw_batch && !last) return slot;
   dw_flush(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
@@ -1299,15 +1410,15 @@ cudaError_t max_blocks(K kernel, size_t smem, int* n_blocks) {
   return e;
 }
 
-Params make_params(const float* pts, const float* dirs, const float* w, const void* wb,
+Params make_params(const float* pts, const float* dirs, const float* w, const void* wimg,
                    long long n_pts, int n_sdf, int skip, int d0, float scale, int n_color,
                    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-                   const long long* off, const long long* boff) {
+                   const long long* off, const long long* ioff) {
   Params p{};
   p.pts = pts;
   p.dirs = dirs;
   p.w = w;
-  p.wb = static_cast<const uint2*>(wb);
+  p.wimg = static_cast<const unsigned char*>(wimg);
   p.n_pts = n_pts;
   p.n_sdf = n_sdf;
   p.skip = skip;
@@ -1322,15 +1433,9 @@ Params make_params(const float* pts, const float* dirs, const float* w, const vo
   p.inv_sigmoid = inv_sigmoid;
   for (int i = 0; i < N_OFF; ++i) {
     p.off[i] = off[i];
-    p.boff[i] = boff[i];
+    p.ioff[i] = ioff[i];
   }
   return p;
-}
-
-void set_bwd_weights(Params& p, const void* wimg, const long long* ioff, int dw_batch) {
-  p.wimg = static_cast<const unsigned char*>(wimg);
-  for (int i = 0; i < N_OFF; ++i) p.ioff[i] = ioff[i];
-  p.dw_batch = dw_batch;
 }
 
 bool bad_shape(int n_off, int n_sdf, int n_color, int n_relight) {

@@ -35,20 +35,22 @@
 // is ~50 flops per point, in f32.
 //
 // Design (built on the tile functions of rows 5 and 6,
-// point_pipeline_tile.cuh, with their tensor-core products). A block owns a
-// group of whole rays: one
-// ray when S >= 64, else max(1, 64 / S) rays packed into one tile, so a
-// ray's samples never straddle two blocks. The group's points are cut into
-// 64-point tiles (S = 128: two tiles per ray); a padding point past the
-// group's last sample gets zero input and zero cotangent.
+// point_pipeline_tile.cuh, with their wgmma products). A block owns a
+// group of whole rays, so a ray's samples never straddle two blocks, cut
+// into tiles: in the forward 128-point tiles (one ray when S >= 128, else
+// max(1, 128 / S) rays packed into one tile; S = 128 is one tile a ray),
+// in the backward 64-point tiles (one ray when S >= 64, else max(1, 64 /
+// S) rays; S = 128 is two tiles). A padding point past the group's last
+// sample gets zero input and zero cotangent.
 //   Forward: per tile, the points are made from the rays and z in shared
-//   memory, forward_tile<false> runs, and sdf, grad, relit and the delta sum
-//   go to a stash in device memory ([R S, 8], 32 bytes a point); then one
-//   thread per ray composites the ray in sample order (a sequential scan, in
-//   registers) and writes its 16 lanes.
+//   memory, forward_tile<128, false> runs (its two warpgroups on 64 rows
+//   each, sharing every weight slab), and sdf, grad, relit and the delta
+//   sum go to a stash in device memory ([R S, 8], 32 bytes a point); then
+//   one thread per ray composites the ray in sample order (a sequential
+//   scan, in registers) and writes its 16 lanes.
 //   Backward: one thread per ray rebuilds the compositing from the stash,
 //   scans forward for T and back for G, and writes each point's cotangents
-//   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<true>
+//   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<64, true>
 //   recomputes the layer inputs (the one MLP pass of JAX's recompute mode:
 //   the stash spares a third one) and backward_tile pulls the cotangents
 //   back; the ray cotangents are summed per ray in sample order. The
@@ -74,7 +76,7 @@ struct March {
   const float* inv_s;      // [1] on the device
   long long n_rays;
   int S;
-  int G;                   // rays per group: max(1, TILE / S)
+  int G;                   // rays per group: max(1, rows / S), rows the kernel's tile
   float sample_dist;
   float* out;              // forward: [R, 16]
   float* stash;            // [R S, STASH]: written by the forward, read by the backward
@@ -100,11 +102,12 @@ __device__ __forceinline__ void sample_point(const March& m, long long r, int s,
 }
 
 // t.P3 / t.D3 = the points and view dirs of the group's points t0 .. t0 +
-// TILE (n_pts of them in the group; zeros past it), then a barrier.
+// ROWS (n_pts of them in the group; zeros past it), then a barrier.
+template <int ROWS>
 __device__ __forceinline__ void load_march_points(const March& m, const Tile& t, long long r0,
                                                   int t0, int n_pts) {
   const int tid = threadIdx.x;
-  if (tid < TILE) {
+  if (tid < ROWS) {
     const int q = t0 + tid;
     float pt[3] = {0.f, 0.f, 0.f}, dir[3] = {0.f, 0.f, 0.f};
     if (q < n_pts) {
@@ -154,14 +157,15 @@ __device__ __forceinline__ long long n_groups(const March& m) {
 // Forward
 // ------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 2) ray_march_fwd_kernel(March m) {
+__global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  carve_fwd(t, smem);
+  Rings st;
+  carve_fwd(t, st, smem);
   const Params& p = m.net;
   const int tid = threadIdx.x;
-  float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][TILE][HID]
-  float* feat = gates + size_t(p.n_sdf - 1) * GSLAB;                 // [TILE][HID]
+  float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][128][HID]
+  float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;        // [128][HID]
   const Save none{nullptr, nullptr, nullptr};
   const float inv_s = *m.inv_s;
 
@@ -169,18 +173,18 @@ __global__ void __launch_bounds__(THREADS, 2) ray_march_fwd_kernel(March m) {
     const long long r0 = grp * m.G;
     const int nr = int(min((long long)m.G, m.n_rays - r0));
     const int n_pts = nr * m.S;
-    for (int t0 = 0; t0 < n_pts; t0 += TILE) {
-      load_march_points(m, t, r0, t0, n_pts);
-      forward_tile<false>(p, t, gates, feat, none);
-      if (tid < TILE && t0 + tid < n_pts) {
-        float* st = m.stash + (r0 * m.S + t0 + tid) * STASH;
-        st[0] = t.S1[tid];
+    for (int t0 = 0; t0 < n_pts; t0 += FWD_ROWS) {
+      load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);
+      forward_tile<FWD_ROWS, false>(p, t, st, gates, feat, none);
+      if (tid < FWD_ROWS && t0 + tid < n_pts) {
+        float* st_ = m.stash + (r0 * m.S + t0 + tid) * STASH;
+        st_[0] = t.S1[tid];
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          st[1 + j] = t.G3[tid * 3 + j];
-          st[4 + j] = t.RL[tid * 3 + j];
+          st_[1 + j] = t.G3[tid * 3 + j];
+          st_[4 + j] = t.RL[tid * 3 + j];
         }
-        st[7] = t.DL[tid * 3] + t.DL[tid * 3 + 1] + t.DL[tid * 3 + 2];
+        st_[7] = t.DL[tid * 3] + t.DL[tid * 3 + 1] + t.DL[tid * 3 + 2];
       }
       __syncthreads();
     }
@@ -223,7 +227,8 @@ __host__ __device__ long long group_scratch_floats(int G, int S) {
   return ((long long)G * S * (CTW + 1) + 7LL * G + 31) / 32 * 32;
 }
 
-__host__ __device__ int rays_per_group(int S) { return S >= TILE ? 1 : TILE / S; }
+// Rays per group of a kernel whose tiles hold `rows` points.
+__host__ __device__ int rays_per_group(int S, int rows) { return S >= rows ? 1 : rows / S; }
 
 // One thread per ray: the compositing VJP of ray r (ray_march.py:322-355)
 // into ct[s * CTW + ...] for s < S; returns the ray's inv_s cotangent.
@@ -282,7 +287,7 @@ __device__ __forceinline__ float composite_vjp(const March& m, long long r, floa
 __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
-  BwdState st;
+  Rings st;
   carve_bwd(t, st, smem);
   const Params& p = m.net;
   const int tid = threadIdx.x;
@@ -310,8 +315,8 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
 
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
-      load_march_points(m, t, r0, t0, n_pts);
-      forward_tile<true>(p, t, s.gates, s.feat, sv);
+      load_march_points<TILE>(m, t, r0, t0, n_pts);
+      forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
       for (int e = tid; e < TILE * 16; e += THREADS) {
         const int q = t0 + e / 16, c = e % 16;
         t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
@@ -343,29 +348,29 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
   }
 }
 
+// The march of a forward (fwd) or backward kernel: its groups fill the
+// kernel's tiles.
 March make_march(const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-                 const float* w, const void* wb, long long n_rays, int S, float sample_dist,
+                 const float* w, const void* wimg, long long n_rays, int S, float sample_dist,
                  int n_sdf, int skip, int d0, float scale, int n_color, int color_dv, int squeeze,
                  int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
-                 const long long* boff) {
+                 const long long* ioff, bool fwd) {
   March m{};
-  m.net = make_params(nullptr, nullptr, w, wb, 0, n_sdf, skip, d0, scale, n_color, color_dv,
-                      squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, boff);
+  m.net = make_params(nullptr, nullptr, w, wimg, 0, n_sdf, skip, d0, scale, n_color, color_dv,
+                      squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, ioff);
   m.rays_o = rays_o;
   m.rays_d = rays_d;
   m.z = z;
   m.inv_s = inv_s;
   m.n_rays = n_rays;
   m.S = S;
-  m.G = rays_per_group(S);
+  m.G = rays_per_group(S, fwd ? FWD_ROWS : TILE);
   m.sample_dist = sample_dist;
   return m;
 }
 
-long long fwd_scratch_floats(int n_sdf) { return (long long)n_sdf * GSLAB; }
-
 long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
-  return bwd_scratch_floats(sh, dw_batch) + group_scratch_floats(rays_per_group(S), S);
+  return bwd_scratch_floats(sh, dw_batch) + group_scratch_floats(rays_per_group(S, TILE), S);
 }
 
 }  // namespace
@@ -381,7 +386,9 @@ extern "C" int ray_march_bwd_max_blocks(int* n_blocks) {
   return int(max_blocks(ray_march_bwd_kernel, SMEM_BWD, n_blocks));
 }
 
-extern "C" int ray_march_rays_per_group(int S) { return rays_per_group(S); }
+extern "C" int ray_march_rays_per_group(int S, int fwd) {
+  return rays_per_group(S, fwd ? FWD_ROWS : TILE);
+}
 
 extern "C" long long ray_march_fwd_scratch_floats(int n_sdf) { return fwd_scratch_floats(n_sdf); }
 
@@ -391,21 +398,22 @@ extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_col
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
-// launch; none synchronises. `w` / `wb`: the packed f32 weights and the
-// bf16 fragment-ordered blocks, `off` / `boff` host arrays of their offset
-// tables, `inv_s` a device pointer to one float. Forward: out [R, 16], stash [R S,
-// 8], scratch n_blocks x ray_march_fwd_scratch_floats floats.
+// launch; none synchronises. `w` / `wimg`: the packed f32 weights and the
+// wgmma weight slabs (point_pipeline.py _pack_images), `off` / `ioff` host
+// arrays of their offset tables, `inv_s` a device pointer to one float.
+// Forward: out [R, 16], stash [R S, 8], scratch n_blocks x
+// ray_march_fwd_scratch_floats floats.
 extern "C" int ray_march_fwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const void* wb, float* out, float* stash, float* scratch, long long n_rays,
+    const float* w, const void* wimg, float* out, float* stash, float* scratch, long long n_rays,
     int S, float sample_dist, int n_blocks, int n_sdf, int skip, int d0, float scale,
     int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, const long long* boff, int n_off, void* stream) {
+    const long long* off, const long long* ioff, int n_off, void* stream) {
   if (n_rays <= 0) return 0;
   if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
-  March m = make_march(rays_o, rays_d, z, inv_s, w, wb, n_rays, S, sample_dist, n_sdf, skip, d0,
+  March m = make_march(rays_o, rays_d, z, inv_s, w, wimg, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off, boff);
+                       off, ioff, true);
   m.out = out;
   m.stash = stash;
   m.net.scratch = scratch;
@@ -420,24 +428,21 @@ extern "C" int ray_march_fwd_launch(
 
 // Backward: stash from the forward on the same inputs, gbar [R, 16],
 // rays_hat [R, 8], partial n_blocks x (n_grad + 1) zeros, scratch n_blocks x
-// ray_march_bwd_scratch_floats(..., dw_batch) floats; `wimg` / `ioff` the
-// wgmma weight slabs and their offset table (point_pipeline.py
-// _pack_images).
+// ray_march_bwd_scratch_floats(..., dw_batch) floats.
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const void* wb, const void* wimg, const float* stash, const float* gbar,
-    float* rays_hat, float* partial, float* scratch, long long n_rays, int S, float sample_dist,
-    int n_blocks, long long n_grad, int dw_batch, int n_sdf, int skip, int d0, float scale,
-    int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
-    const long long* off, const long long* boff, const long long* ioff, int n_off,
-    void* stream) {
+    const float* w, const void* wimg, const float* stash, const float* gbar, float* rays_hat,
+    float* partial, float* scratch, long long n_rays, int S, float sample_dist, int n_blocks,
+    long long n_grad, int dw_batch, int n_sdf, int skip, int d0, float scale, int n_color,
+    int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
+    const long long* off, const long long* ioff, int n_off, void* stream) {
   if (n_rays <= 0) return 0;
   if (S <= 0 || dw_batch < 1 || bad_shape(n_off, n_sdf, n_color, n_relight))
     return int(cudaErrorInvalidValue);
-  March m = make_march(rays_o, rays_d, z, inv_s, w, wb, n_rays, S, sample_dist, n_sdf, skip, d0,
+  March m = make_march(rays_o, rays_d, z, inv_s, w, wimg, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off, boff);
-  set_bwd_weights(m.net, wimg, ioff, dw_batch);
+                       off, ioff, false);
+  m.net.dw_batch = dw_batch;
   m.stash = const_cast<float*>(stash);
   m.gbar = gbar;
   m.rays_hat = rays_hat;

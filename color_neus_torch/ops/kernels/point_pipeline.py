@@ -10,7 +10,8 @@ residual (NeuS: relit = gc, delta = 0).
 Forward, two implementations of one function:
   * launch_point_pipeline: the hand-written CUDA kernel
     csrc/point_pipeline.cu (its source note gives the bound and the
-    design). Runs for CUDA tensors, counts its launches in
+    design: 128-point tiles, every 256-wide product on wgmma from the
+    weight slabs _pack_images packs). Runs for CUDA tensors, counts its launches in
     launch_point_pipeline.launches, raises on any build or launch failure.
   * point_pipeline_plain: the same function in plain PyTorch: the
     forward keeps the softplus gates g = 1 - exp(-100 softplus(a)), one
@@ -27,7 +28,7 @@ Backward (the VJP of the five outputs), two implementations likewise:
   * launch_point_pipeline_bwd: the second entry of csrc/point_pipeline.cu
     (recompute, relight / colour reverse, the SDF second-order
     reverse-over-forward, PE first and second derivative; its products on
-    wgmma from the weight slabs _pack_images packs; weight grads summed
+    wgmma from the same weight slabs; weight grads summed
     on chip per batch of DW_BATCH tiles into a partial per block, then
     over blocks in a fixed order). Counts its launches in
     launch_point_pipeline_bwd.launches.
@@ -75,11 +76,11 @@ class PipelineWeights:
     """Weight-norm-resolved weights of the three nets, (w [out, in], b [out])
     per layer in the networks' own widths; packed / off: the kernel's f32
     buffer and its offset table (None for CPU weights); n_grad: its length,
-    the gradient layout; frags / boff: the bf16 weight blocks of the
-    256-wide layers and their transposes in mma fragment order, and their
-    offset table (8-byte units); images / ioff: the backward's wgmma
-    weight slabs (_pack_images) and their offset table (slabs), packed at
-    the first backward (bwd_images)."""
+    the gradient layout; images / ioff: the kernels' wgmma weight slabs
+    (_pack_images) and their offset table (slabs), packed on the weights'
+    device at the first launch (weight_images) and shared by every launch
+    on these weights (a training step's forward and backward, an
+    extraction's chunks)."""
     rcfg: RendererConfig
     sdf: list
     color: list
@@ -87,8 +88,6 @@ class PipelineWeights:
     packed: torch.Tensor | None = None
     off: np.ndarray | None = None
     n_grad: int = 0
-    frags: torch.Tensor | None = None
-    boff: np.ndarray | None = None
     images: torch.Tensor | None = None
     ioff: np.ndarray | None = None
 
@@ -240,31 +239,24 @@ def _frag(b: torch.Tensor) -> torch.Tensor:
     """A [K, N] block (K a multiple of 16, N of 8) in mma.m16n8k16 B
     fragment order, bf16: for each 16-row k-step and 8-column n-tile, 32
     lanes x 4 values, lane 4 g + t holding rows 2t, 2t + 1, 2t + 8, 2t + 9
-    of column g (csrc/point_pipeline_tile.cuh, mma_tile)."""
+    of column g (the SDF sweep's and grid SDF's bf16 weight slabs,
+    csrc/sdf_rays.cu)."""
     K, N = b.shape
     t = b.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(0, 4, 5, 2, 1, 3)
     return t.reshape(-1).to(torch.bfloat16)
 
 
 def _pack(pw: PipelineWeights):
-    """The kernel's two weight buffers (see csrc/point_pipeline_tile.cuh):
-    (the f32 buffer, _layout's blocks flattened in order, its offset table
-    and its length, the gradient layout; the bf16 buffer, every 256-wide
-    layer's [K, 256] block and its [256, K] transpose in fragment order
-    (_frag), and its offset table in 8-byte units)."""
-    blocks, wide = _layout(pw)
+    """The kernel's f32 weight buffer (see csrc/point_pipeline_tile.cuh):
+    _layout's blocks flattened in order, its offset table and its length,
+    the gradient layout."""
+    blocks, _ = _layout(pw)
     off, pos, flat = np.zeros(N_OFF, np.int64), 0, []
     for slot, t in blocks:
         off[slot] = pos
         flat.append(t.reshape(-1).float())
         pos += flat[-1].numel()
-    boff, bpos, frags = np.zeros(N_OFF, np.int64), 0, []
-    for w_slot, wt_slot, wp in wide:
-        for slot, t in ((w_slot, wp), (wt_slot, wp.T)):
-            boff[slot] = bpos // 4
-            frags.append(_frag(t.float()))
-            bpos += frags[-1].numel()
-    return torch.cat(flat).contiguous(), off, pos, torch.cat(frags).contiguous(), boff
+    return torch.cat(flat).contiguous(), off, pos
 
 
 SLAB_ROWS, SLAB_K = 64, 64    # a wgmma weight slab: 64 rows x 64 k of bf16, 8 KB
@@ -272,7 +264,7 @@ SLAB_ROWS, SLAB_K = 64, 64    # a wgmma weight slab: 64 rows x 64 k of bf16, 8 K
 
 def _slabs(mat: torch.Tensor) -> torch.Tensor:
     """mat [N, D] (rows: a product's output columns, D its depth) as the
-    backward kernel's weight slabs, bf16: chunks of 64 rows (the last one
+    kernels' weight slabs, bf16: chunks of 64 rows (the last one
     N % 64 rows), each cut into ceil(D / 64) slabs of 64 k, zero-padded
     to 64 x 64; a slab is K-major, row n's 16-byte chunk c (k 8 c .. 8 c
     + 8) stored at chunk c ^ (n % 8), the 128-byte swizzle
@@ -289,24 +281,22 @@ def _slabs(mat: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_images(pw: PipelineWeights):
-    """The backward kernels' wgmma weight slabs (csrc/point_pipeline_tile.cuh,
+    """The kernels' wgmma weight slabs (csrc/point_pipeline_tile.cuh,
     wg_product) and their offset table in slabs: every 256-wide layer's
-    [K, 256] block in its reverse-product slot (W / WT slot WT_*: rows the
-    layer's K inputs, depth its 256 outputs) and the SDF hidden layers'
-    transposes in their forward slots (W_SDF + l: rows the 256 outputs,
-    depth K), for the tangent stream."""
+    [K, 256] block twice, in its forward slot (W_*: the transpose, rows the
+    256 outputs, depth K) and in its reverse slot (WT_*: rows the layer's K
+    inputs, depth its 256 outputs)."""
     _, wide = _layout(pw)
     ioff, pos, parts = np.zeros(N_OFF, np.int64), 0, []
     for w_slot, wt_slot, wp in wide:
-        mats = [(wt_slot, wp)] + ([(w_slot, wp.T)] if w_slot < W_SDF + MAXL else [])
-        for slot, mat in mats:
+        for slot, mat in ((w_slot, wp.T), (wt_slot, wp)):
             ioff[slot] = pos
             parts.append(_slabs(mat.float()))
             pos += parts[-1].numel() // (SLAB_ROWS * SLAB_K)
     return torch.cat(parts).contiguous(), ioff
 
 
-def bwd_images(pw: PipelineWeights):
+def weight_images(pw: PipelineWeights):
     """(images, ioff) of pw, packed on pw's device at the first call."""
     if pw.images is None:
         pw.images, pw.ioff = _pack_images(pw)
@@ -396,7 +386,7 @@ def _make_weights(rcfg: RendererConfig, layers: dict) -> PipelineWeights:
         return [(w.detach().float(), b.detach().float()) for w, b in layers[name]]
     pw = PipelineWeights(rcfg, net("sdf"), net("color"), net("relight"))
     if pw.sdf[0][0].is_cuda:
-        pw.packed, pw.off, pw.n_grad, pw.frags, pw.boff = _pack(pw)
+        pw.packed, pw.off, pw.n_grad = _pack(pw)
     return pw
 
 
@@ -725,29 +715,26 @@ def _raise_on(lib, rc, what):
 
 
 def _net_args(pw: PipelineWeights):
-    """The kernel's network arguments, after the per-call ones, and the
-    offset tables they point to (keep them alive through the call)."""
+    """The kernels' network arguments, after the per-call ones, the weight
+    images (weight_images) and the offset tables the arguments point to
+    (keep them alive through the call): (tables, images, net)."""
     d0, skip, n_sdf = _check_kernel_shape(pw.rcfg)
     rcfg = pw.rcfg
     kind_cn = rcfg.kind == "color_neus"
-    tables = (np.ascontiguousarray(pw.off, np.int64), np.ascontiguousarray(pw.boff, np.int64))
-    return tables, (n_sdf, skip, d0, float(rcfg.sdf.scale), len(pw.color), _color_dv(rcfg),
-                    int(rcfg.color.squeeze_out), len(pw.relight),
-                    _relight_dv(rcfg) if kind_cn else 0,
-                    rcfg.relight.y_in_layer if kind_cn else -1, int(rcfg.relight.inv_sigmoid),
-                    tables[0].ctypes.data, tables[1].ctypes.data, N_OFF)
+    images, ioff = weight_images(pw)
+    tables = (np.ascontiguousarray(pw.off, np.int64), np.ascontiguousarray(ioff, np.int64))
+    return tables, images, (n_sdf, skip, d0, float(rcfg.sdf.scale), len(pw.color),
+                            _color_dv(rcfg), int(rcfg.color.squeeze_out), len(pw.relight),
+                            _relight_dv(rcfg) if kind_cn else 0,
+                            rcfg.relight.y_in_layer if kind_cn else -1,
+                            int(rcfg.relight.inv_sigmoid), tables[0].ctypes.data,
+                            tables[1].ctypes.data, N_OFF)
 
 
-def bwd_net_args(pw: PipelineWeights, n_tiles: int, grid: int):
-    """The backward kernels' arguments after the per-call ones: (the
-    tables to keep alive, the images, dw_batch, (the network arguments
-    with the ioff table)). dw_batch: DW_BATCH, or fewer when a block has
-    fewer tiles."""
-    tables, net = _net_args(pw)
-    images, ioff = bwd_images(pw)
-    ioff = np.ascontiguousarray(ioff, np.int64)
-    batch = max(1, min(DW_BATCH, -(-n_tiles // grid)))
-    return (tables, ioff), images, batch, net[:13] + (ioff.ctypes.data, N_OFF)
+def dw_batch(n_tiles: int, grid: int) -> int:
+    """Tiles whose weight grads a backward block sums on chip per flush:
+    DW_BATCH, or fewer when a block has fewer tiles."""
+    return max(1, min(DW_BATCH, -(-n_tiles // grid)))
 
 
 def _shape_args(net):
@@ -771,17 +758,18 @@ def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
     sdf, grad, gc, relit, delta, 0, 0, 0."""
     n, dev = _check_inputs(pw, pts, dirs)
     lib = _library()
-    tables, net = _net_args(pw)
+    tables, images, net = _net_args(pw)
     out = torch.empty((n, 16), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    grid = min(-(-n // 64), _max_blocks(lib, dev, "fwd"))
-    # per block: the gates of the n_sdf - 1 hidden layers and the features
-    scratch = torch.empty(grid * net[0] * 64 * HID, dtype=torch.float32, device=dev)
+    grid = min(-(-n // lib.point_pipeline_fwd_rows()), _max_blocks(lib, dev, "fwd"))
+    # per block: the gates of the n_sdf - 1 hidden layers and the features of a tile
+    scratch = torch.empty(grid * lib.point_pipeline_fwd_scratch_floats(net[0]),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_fwd_launch(
-            pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), pw.frags.data_ptr(),
+            pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), images.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n, grid, *net, stream)
     _raise_on(lib, rc, "kernel launch")
     launch_point_pipeline.launches += 1
@@ -820,7 +808,8 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
         return pts_hat, dirs_hat, torch.zeros(pw.n_grad, dtype=torch.float32, device=dev)
     n_tiles = -(-n // 64)
     grid = min(n_tiles, _max_blocks(lib, dev, "bwd"))
-    tables, images, batch, net = bwd_net_args(pw, n_tiles, grid)
+    batch = dw_batch(n_tiles, grid)
+    tables, images, net = _net_args(pw)
     # per block: the recompute's gates, tangent stream and colour / relight
     # inputs, and the weight-grad operands of `batch` tiles; then a
     # weight-grad partial in the packed layout, summed afterwards
@@ -831,7 +820,7 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.point_pipeline_bwd_launch(
             pts.data_ptr(), dirs.data_ptr(), gbar.data_ptr(), pw.packed.data_ptr(),
-            pw.frags.data_ptr(), images.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(),
+            images.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(),
             partial.data_ptr(), scratch.data_ptr(), n, grid, pw.n_grad, batch, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
     launch_point_pipeline_bwd.launches += 1
@@ -848,16 +837,19 @@ def _library():
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
         lib.point_pipeline_fwd_launch.argtypes = [p] * 6 + [ll, i] + net + [p]
-        lib.point_pipeline_bwd_launch.argtypes = [p] * 10 + [ll, i, ll, i] + net[:13] + [p, i, p]
+        lib.point_pipeline_bwd_launch.argtypes = [p] * 9 + [ll, i, ll, i] + net + [p]
         lib.point_pipeline_reduce_launch.argtypes = [p, p, i, ll, p]
         for fn in (lib.point_pipeline_fwd_launch, lib.point_pipeline_bwd_launch,
-                   lib.point_pipeline_reduce_launch, lib.point_pipeline_n_off):
+                   lib.point_pipeline_reduce_launch, lib.point_pipeline_n_off,
+                   lib.point_pipeline_fwd_rows):
             fn.restype = i
         for fn in (lib.point_pipeline_fwd_max_blocks, lib.point_pipeline_bwd_max_blocks):
             fn.argtypes = [ctypes.POINTER(i)]
             fn.restype = i
         lib.point_pipeline_bwd_scratch_floats.argtypes = [i] * 6
         lib.point_pipeline_bwd_scratch_floats.restype = ll
+        lib.point_pipeline_fwd_scratch_floats.argtypes = [i]
+        lib.point_pipeline_fwd_scratch_floats.restype = ll
         lib.point_pipeline_error_string.argtypes = [i]
         lib.point_pipeline_error_string.restype = ctypes.c_char_p
         if lib.point_pipeline_n_off() != N_OFF:

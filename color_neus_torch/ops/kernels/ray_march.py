@@ -224,11 +224,11 @@ def _library():
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
         lib.ray_march_fwd_launch.argtypes = [p] * 9 + [ll, i, f, i] + net + [p]
-        lib.ray_march_bwd_launch.argtypes = [p] * 12 + [ll, i, f, i, ll, i] + net[:13] + [p, i, p]
+        lib.ray_march_bwd_launch.argtypes = [p] * 11 + [ll, i, f, i, ll, i] + net + [p]
         for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
                    lib.ray_march_rays_per_group):
             fn.restype = i
-        lib.ray_march_rays_per_group.argtypes = [i]
+        lib.ray_march_rays_per_group.argtypes = [i, i]
         for fn in (lib.ray_march_fwd_max_blocks, lib.ray_march_bwd_max_blocks):
             fn.argtypes = [ctypes.POINTER(i)]
             fn.restype = i
@@ -275,8 +275,9 @@ def _check_inputs(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s):
     return R, S, dev
 
 
-def _groups(lib, R, S) -> int:
-    G = lib.ray_march_rays_per_group(S)
+def _groups(lib, R, S, fwd: bool) -> int:
+    """The ray groups of the forward (fwd) or backward kernel's tiles."""
+    G = lib.ray_march_rays_per_group(S, int(fwd))
     return -(-R // G)
 
 
@@ -285,19 +286,19 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
     16], the stash [R S, 8] its backward reads)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     lib = _library()
-    tables, net = PP._net_args(pw)
+    tables, images, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
     if R == 0:
         return out, stash
-    grid = min(_groups(lib, R, S), _max_blocks(lib, dev, "fwd"))
+    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, "fwd"))
     scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0]), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_fwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
-            pw.packed.data_ptr(), pw.frags.data_ptr(), out.data_ptr(), stash.data_ptr(),
+            pw.packed.data_ptr(), images.data_ptr(), out.data_ptr(), stash.data_ptr(),
             scratch.data_ptr(), R, S, sample_dist, grid, *net, stream)
     _raise_on(lib, rc, "kernel launch")
     launch_ray_march.launches += 1
@@ -321,10 +322,11 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
     if R == 0:
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
             torch.zeros(pw.n_grad, device=dev)
-    groups = _groups(lib, R, S)
+    groups = _groups(lib, R, S, False)
     grid = min(groups, _max_blocks(lib, dev, "bwd"))
-    G = lib.ray_march_rays_per_group(S)
-    tables, images, batch, net = PP.bwd_net_args(pw, -(-groups // grid) * -(-G * S // 64), 1)
+    G = lib.ray_march_rays_per_group(S, 0)
+    batch = PP.dw_batch(-(-groups // grid) * -(-G * S // 64), 1)
+    tables, images, net = PP._net_args(pw)
     # per block: the recompute's gates, tangent stream and colour / relight
     # inputs, the weight-grad operands of `batch` tiles, the group's
     # per-point cotangents; and a partial of the weight grads (the packed
@@ -336,7 +338,7 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_bwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
-            pw.packed.data_ptr(), pw.frags.data_ptr(), images.data_ptr(), stash.data_ptr(),
+            pw.packed.data_ptr(), images.data_ptr(), stash.data_ptr(),
             gbar.data_ptr(), rays_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(), R, S,
             sample_dist, grid, pw.n_grad, batch, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")

@@ -3,9 +3,7 @@
 // tests/test_torch_point_pipeline_emulated.py. Usage: emu DIR. Reads from
 // DIR: meta.i64 (n, n_sdf, skip, d0, n_color, color_dv, squeeze, n_relight,
 // rl_dv, y_in, inv_sigmoid, n_grad, blocks, dw_batch), scale.f32, off.i64, w.f32,
-// boff.i64, wb.bf16 (the fragment-ordered bf16 blocks), ioff.i64, img.bf16
-// (the wgmma weight slabs), pts.f32, dirs.f32,
-// gbar.f32; runs the forward kernel and then the
+// ioff.i64, img.bf16 (the wgmma weight slabs), pts.f32, dirs.f32, gbar.f32; runs the forward kernel and then the
 // backward kernel block after block, the weight-grad partials summed over
 // the blocks in index order as the reduction kernel does; writes out.f32,
 // pts_hat.f32, dirs_hat.f32 and grad.f32 to DIR. The scratch starts as
@@ -20,7 +18,7 @@ emu_dim3 blockIdx, blockDim, gridDim;
 std::barrier<>* emu_barrier;
 float emu_shuffle[256];
 namespace {
-alignas(1024) unsigned char smem[SMEM_BWD];
+alignas(1024) unsigned char smem[SMEM_BWD > SMEM_FWD ? SMEM_BWD : SMEM_FWD];
 }
 
 static std::vector<char> slurp(const std::string& path) {
@@ -46,7 +44,6 @@ int main(int argc, char** argv) {
   const std::string d = argv[1];
   const auto meta = slurp(d + "/meta.i64"), scale = slurp(d + "/scale.f32");
   const auto off = slurp(d + "/off.i64"), w = slurp(d + "/w.f32");
-  const auto boff = slurp(d + "/boff.i64"), wb = slurp(d + "/wb.bf16");
   const auto ioff = slurp(d + "/ioff.i64"), img = slurp(d + "/img.bf16");
   const auto pts = slurp(d + "/pts.f32"), dirs = slurp(d + "/dirs.f32");
   const auto gbar = slurp(d + "/gbar.f32");
@@ -55,13 +52,13 @@ int main(int argc, char** argv) {
   const int blocks = int(m[12]), batch = int(m[13]);
   const Params p = make_params(
       reinterpret_cast<const float*>(pts.data()), reinterpret_cast<const float*>(dirs.data()),
-      reinterpret_cast<const float*>(w.data()), wb.data(), n, int(m[1]), int(m[2]), int(m[3]),
+      reinterpret_cast<const float*>(w.data()), img.data(), n, int(m[1]), int(m[2]), int(m[3]),
       *reinterpret_cast<const float*>(scale.data()), int(m[4]), int(m[5]), int(m[6]), int(m[7]),
       int(m[8]), int(m[9]), int(m[10]), reinterpret_cast<const long long*>(off.data()),
-      reinterpret_cast<const long long*>(boff.data()));
+      reinterpret_cast<const long long*>(ioff.data()));
   std::vector<float> out(n * 16), pts_hat(n * 3), dirs_hat(n * 3);
   std::vector<float> partial(size_t(blocks) * n_grad, 0.f);
-  std::vector<float> scratch_fwd(size_t(blocks) * p.n_sdf * GSLAB, 12345.f);
+  std::vector<float> scratch_fwd(size_t(blocks) * fwd_scratch_floats(p.n_sdf), 12345.f);
   std::vector<float> scratch_bwd(size_t(blocks) * bwd_scratch_floats(shape_of(p), batch),
                                   12345.f);
   gridDim.x = blocks;
@@ -80,7 +77,7 @@ int main(int argc, char** argv) {
       q.dirs_hat = dirs_hat.data();
       q.partial = partial.data();
       q.n_grad = n_grad;
-      set_bwd_weights(q, img.data(), reinterpret_cast<const long long*>(ioff.data()), batch);
+      q.dw_batch = batch;
     }
     for (int b = 0; b < blocks; ++b) {
       blockIdx.x = b;

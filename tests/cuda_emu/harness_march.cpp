@@ -3,10 +3,8 @@
 // Usage: emu DIR. Reads from DIR: meta.i64 (R, S, n_sdf, skip, d0, n_color,
 // color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks,
 // dw_batch),
-// f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, boff.i64, wb.bf16
-// (the fragment-ordered bf16 blocks), ioff.i64, img.bf16 (the wgmma weight
-// slabs), rays_o.f32, rays_d.f32, z.f32,
-// gbar.f32; runs the forward kernel and then the
+// f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, ioff.i64, img.bf16
+// (the wgmma weight slabs), rays_o.f32, rays_d.f32, z.f32, gbar.f32; runs the forward kernel and then the
 // backward kernel block after block on `blocks` blocks, the partials summed
 // over the blocks in index order as the reduction kernel does; writes
 // out.f32, stash.f32, rays_hat.f32 and grad.f32 (the packed weight grads,
@@ -22,7 +20,7 @@ emu_dim3 blockIdx, blockDim, gridDim;
 std::barrier<>* emu_barrier;
 float emu_shuffle[256];
 namespace {
-alignas(1024) unsigned char smem[SMEM_BWD];
+alignas(1024) unsigned char smem[SMEM_BWD > SMEM_FWD ? SMEM_BWD : SMEM_FWD];
 }
 
 static std::vector<char> slurp(const std::string& path) {
@@ -50,18 +48,20 @@ int main(int argc, char** argv) {
   const std::string d = argv[1];
   const auto meta = slurp(d + "/meta.i64"), fl = slurp(d + "/f32.f32");
   const auto off = slurp(d + "/off.i64"), w = slurp(d + "/w.f32");
-  const auto boff = slurp(d + "/boff.i64"), wb = slurp(d + "/wb.bf16");
   const auto ioff = slurp(d + "/ioff.i64"), img = slurp(d + "/img.bf16");
   const auto ro = slurp(d + "/rays_o.f32"), rd = slurp(d + "/rays_d.f32");
   const auto z = slurp(d + "/z.f32"), gbar = slurp(d + "/gbar.f32");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const long long R = m[0], n_grad = m[12];
   const int S = int(m[1]), blocks = int(m[13]), batch = int(m[14]);
-  March base = make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), wb.data(), R, S, F(fl)[1],
-                          int(m[2]), int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]),
-                          int(m[7]), int(m[8]), int(m[9]), int(m[10]), int(m[11]),
-                          reinterpret_cast<const long long*>(off.data()),
-                          reinterpret_cast<const long long*>(boff.data()));
+  auto march = [&](bool fwd) {
+    return make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), img.data(), R, S, F(fl)[1], int(m[2]),
+                      int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]), int(m[7]), int(m[8]),
+                      int(m[9]), int(m[10]), int(m[11]),
+                      reinterpret_cast<const long long*>(off.data()),
+                      reinterpret_cast<const long long*>(ioff.data()), fwd);
+  };
+  const March base = march(false);
   std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
   std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
   const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
@@ -73,7 +73,7 @@ int main(int argc, char** argv) {
   std::barrier<> bar(THREADS);
   emu_barrier = &bar;
   for (int pass = 0; pass < 2; ++pass) {
-    March q = base;
+    March q = march(pass == 0);
     q.stash = stash.data();
     if (pass == 0) {
       q.out = out.data();
@@ -86,7 +86,7 @@ int main(int argc, char** argv) {
       q.n_grad = n_grad;
       q.net.scratch = scratch_bwd.data();
       q.scratch_floats = bwd_floats;
-      set_bwd_weights(q.net, img.data(), reinterpret_cast<const long long*>(ioff.data()), batch);
+      q.net.dw_batch = batch;
     }
     for (int b = 0; b < blocks; ++b) {
       blockIdx.x = b;

@@ -134,12 +134,18 @@ def test_kernel_shape_check():
     with pytest.raises(ValueError, match="point_pipeline"):
         PP._check_kernel_shape(dataclasses.replace(full, color=configs.ColorConfig(
             mode="no_normal", d_in=6)))
-    # packing at full width on the CPU: every offset inside the buffer
+    # packing at full width on the CPU: every offset inside the buffer, and
+    # every 256-wide layer's forward and reverse slab images at distinct
+    # offsets inside the image buffer
     pw = PP.resolve_pipeline_weights(
         neus.init_renderer(full, torch.Generator().manual_seed(0)), full)
-    packed, off, n_grad, frags, boff = PP._pack(pw)
+    packed, off, n_grad = PP._pack(pw)
     used = off[off > 0]
     assert used.max() < packed.numel() and len(set(used.tolist())) == len(used)
     assert 0 < n_grad == packed.numel()
-    used = boff[boff > 0]
-    assert 4 * used.max() < frags.numel() and len(set(used.tolist())) == len(used)
+    img, ioff = PP._pack_images(pw)
+    _, wide = PP._layout(pw)
+    slots = [s for w_slot, wt_slot, _ in wide for s in (w_slot, wt_slot)]
+    assert len(slots) == 2 * (n_sdf + len(pw.color) - 1 + len(pw.relight) - 1)
+    n_slabs = img.numel() // (PP.SLAB_ROWS * PP.SLAB_K)
+    assert len(set(ioff[slots].tolist())) == len(slots) and ioff[slots].max() < n_slabs

@@ -121,17 +121,21 @@ def test_unpack_grads_inverts_pack(kind, relight):
         for p in params.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=g))
     pw = PP.resolve_pipeline_weights(params, rcfg)
-    packed, pw.off, pw.n_grad, frags, boff = PP._pack(pw)
+    packed, pw.off, pw.n_grad = PP._pack(pw)
     # the f32 buffer is the gradient layout: every slot a gradient flows to
     # lies in it; the transposed copies the reverse products read are in the
-    # bf16 fragment buffer only, each a distinct block
+    # bf16 slab images only, each a distinct block, as is every 256-wide
+    # layer's forward image
     t_slots = [s for s in range(PP.N_OFF)
                if PP.WT_SDF <= s < PP.B_SDF or PP.WT_COL <= s < PP.W_LAST or s == PP.WT_FEAT]
     grad_slots = [s for s in range(PP.N_OFF) if s not in t_slots]
     assert max(pw.off[grad_slots]) < pw.n_grad == packed.numel()
     assert not pw.off[t_slots].any()
-    used_t = [s for s in t_slots if boff[s] > 0]
-    assert len(set(boff[used_t].tolist())) == len(used_t) and 4 * max(boff) < frags.numel()
+    img, ioff = PP._pack_images(pw)
+    used = [s for w_slot, wt_slot, _ in PP._layout(pw)[1] for s in (w_slot, wt_slot)]
+    assert all(s in t_slots for s in used[1::2])
+    n_slabs = img.numel() // (PP.SLAB_ROWS * PP.SLAB_K)
+    assert len(set(ioff[used].tolist())) == len(used) and max(ioff[used]) < n_slabs
     back = PP._unpack_grads(pw, packed)
     for net in NETS:
         layers = getattr(pw, net)

@@ -103,11 +103,11 @@ def emulator(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu"))
 
 
-def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks, batch=2):
+def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks, batch=2, images=None):
     """The emulated forward and backward: (out [n, 16], pts_hat, dirs_hat,
-    {net: [(dW, db)]})."""
-    packed, off, n_grad, frags, boff = PP._pack(pw)
-    img, ioff = PP._pack_images(pw)
+    {net: [(dW, db)]}). images: (img, ioff) in place of _pack_images'."""
+    packed, off, n_grad = PP._pack(pw)
+    img, ioff = images or PP._pack_images(pw)
     rcfg = pw.rcfg
     d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
     cn = rcfg.kind == "color_neus"
@@ -118,8 +118,6 @@ def _run(exe, tmp_path, pw, pts, dirs, gbar, blocks, batch=2):
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale], np.float32).tofile(tmp_path / "scale.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
-    boff.astype(np.int64).tofile(tmp_path / "boff.i64")
-    frags.view(torch.int16).numpy().tofile(tmp_path / "wb.bf16")
     ioff.astype(np.int64).tofile(tmp_path / "ioff.i64")
     img.view(torch.int16).numpy().tofile(tmp_path / "img.bf16")
     for name, t in (("w", packed), ("pts", pts), ("dirs", dirs), ("gbar", gbar)):
@@ -236,3 +234,38 @@ def test_emulated_batch_mutants_fail(tmp_path_factory, tmp_path, mutate):
     errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
     worst = max(e for name, (e, _) in errs.items() if " layer " in name)
     assert worst > 0.1, errs
+
+
+def test_emulated_forward_ragged_tiles(emulator, tmp_path):
+    """The forward kernel's 128-point tiles: 257 points are tiles of 128,
+    128 and 1 point over 2 blocks, so block 0 runs a full tile and then a
+    one-point tile through the same weight ring (the backward: 5 tiles of
+    64, the last of 1 point); held as test_emulated_kernels_match_plain
+    holds the 130-point cases."""
+    pw, pts, dirs, cots, gbar = _case("color_neus", {"inv_sigmoid": False}, n=257)
+    kernel = _run(emulator, tmp_path, pw, pts, dirs, gbar, blocks=2)
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    for name, (err, gap) in errs.items():
+        assert err <= RTOL_BF16, f"{name}: {err:.3e} from the bf16 twin, above {RTOL_BF16:g}"
+        assert gap <= 1e-2 or err < 0.1 * gap, \
+            f"{name}: {err:.3e} from the bf16 twin, not below a tenth of its f32 gap {gap:.3e}"
+
+
+def test_emulated_forward_slab_orientation_mutant_fails(emulator, tmp_path):
+    """Colour layer 1's forward image packed in its reverse orientation
+    (rows its 256 inputs, depth its outputs: the transpose of what the
+    forward product reads) runs, and is off the bf16 twin in gc and relit
+    by well over the tolerance (the squeeze's sigmoid compresses them)
+    and in the colour layers' weight grads by their own size (the
+    backward's recompute reads the same image)."""
+    pw, pts, dirs, cots, gbar = _case("color_neus", {})
+    img, ioff = PP._pack_images(pw)
+    wp = next(wp for w_slot, _, wp in PP._layout(pw)[1] if w_slot == PP.W_COL + 1)
+    rev = PP._slabs(wp.float())
+    start = int(ioff[PP.W_COL + 1]) * PP.SLAB_ROWS * PP.SLAB_K
+    img = img.clone()
+    img[start:start + rev.numel()] = rev
+    kernel = _run(emulator, tmp_path, pw, pts, dirs, gbar, blocks=2, images=(img, ioff))
+    errs = _errors(kernel, _plain(pw, pts, dirs, cots, True), _plain(pw, pts, dirs, cots, False))
+    assert min(errs["gc"][0], errs["relit"][0]) > 5 * RTOL_BF16, errs
+    assert min(errs[f"color layer {l} W"][0] for l in range(3)) > 0.5, errs

@@ -96,7 +96,7 @@ def emulator(tmp_path_factory):
 
 
 def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2):
-    packed, off, n_grad, frags, boff = PP._pack(pw)
+    packed, off, n_grad = PP._pack(pw)
     img, ioff = PP._pack_images(pw)
     rcfg = pw.rcfg
     d0, skip, n_sdf = PP._check_kernel_shape(rcfg)
@@ -109,8 +109,6 @@ def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale, sample_dist, inv_s], np.float32).tofile(tmp_path / "f32.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
-    boff.astype(np.int64).tofile(tmp_path / "boff.i64")
-    frags.view(torch.int16).numpy().tofile(tmp_path / "wb.bf16")
     ioff.astype(np.int64).tofile(tmp_path / "ioff.i64")
     img.view(torch.int16).numpy().tofile(tmp_path / "img.bf16")
     for name, t in (("w", packed), ("rays_o", ro), ("rays_d", rd), ("z", z), ("gbar", gbar)):
