@@ -120,6 +120,32 @@ Phases; any failure exits non-zero and prints no result:
      instructions per element, read from the SASS of one-element probes of
      the same device functions), its plain version and the
      same 25 products in cuBLAS without an activation.
+  10. the dataset path at full width: (a) tools/dataset_replica.py writes
+     the blob scene, rendered on the card, as a DTU-format scene (49 views
+     at 1600 x 1200, cameras_sphere.npz in a world frame whose scale mats
+     map the unit sphere onto the object); the DTU reader reads poses and
+     focal back within REPLICA_POSE_ATOL / REPLICA_FOCAL_RTOL and every
+     image and mask bitwise, through cv2 where the host has it and through
+     the port's own PNG decoder; the seconds to write and to load_all, and
+     one decode of a PNG whose rows take filter 3 / 4; (b) TrainLoop on
+     config/Color_NeuS_dtu.yml as shipped with FUSED_MARCH on and the
+     entry point's default device: 60 steps straight (every loss finite,
+     the last 5 below the first 5, 4 sweeps and one march forward and
+     backward per step, no point-pipeline kernel, peak memory), and 30
+     steps stopped by stop_after then resumed by a new TrainLoop from the
+     directory's dump_cfg.yaml to 60: every parameter, Adam state, the
+     generator and every loss bitwise equal to the straight run's; the
+     steady ms/step beside phase 8's; (c) SIGTERM from a timer during run:
+     it returns at a step boundary with a checkpoint, and a loop resumed
+     from it starts at that step; (d) testing_step at res 512, sparse, on
+     the resumed loop: a non-empty mesh inside the replica's world bbox
+     (scale_mats[0]), rows 2 and 5 launched; (e) an IHO-format replica (30
+     RGBA frames at 960 x 540, a COLMAP model by the port's writers) on
+     config/Color_NeuS_iho.yml (focal and poses learnt) with FUSED_MARCH
+     on, 20 steps, every loss finite; one step's leaf gradients, the march
+     against the f32 plain core, at phase 7's limits, focal.fx / fy and
+     pose.r / t included (their gradient comes only through row 4's ray
+     cotangents), with per-camera cosines printed.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -131,6 +157,7 @@ import functools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -279,6 +306,16 @@ ATOL_CHAIN_F32 = 1e-5
 ATOL_CHAIN_DEFERRED_L2 = 2e-2
 FP32_LANES_PER_SM, MUFU_PER_SM = 128, 16     # Hopper SM: FP32 lanes, special-function units
 STEADY_STEPS = 20
+# phase 10: DTU's own view count and image size; the IHO replica's size
+# (that phase holds gradients, not speed); the train / stop / resume steps
+DTU_VIEWS, DTU_H, DTU_W = 49, 1200, 1600
+IHO_VIEWS, IHO_H, IHO_W, IHO_STEPS = 30, 540, 960, 20
+STOP_AT = 30
+SIGTERM_AFTER_S = 3.0
+# the replica's cameras read back: poses through f32 world matrices of a
+# ~600 mm frame and load_K_Rt_from_P (the CPU read 3e-7); the focal is
+# stored in f32, whose ulp at ~2890 px is 2.4e-4 px, so it is held relative
+REPLICA_POSE_ATOL, REPLICA_FOCAL_RTOL = 1e-4, 1e-4
 PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
 EVAL_RES = 512
 GRID_CHUNK = 1 << 18
@@ -2011,6 +2048,257 @@ def evaluation_path(loop, device, launches_training):
     return res
 
 
+def state_difference(a, b) -> tuple:
+    """(number of differing tensors, largest |a - b|, its name) over two
+    loops' parameters, Adam states and generator states."""
+    import torch
+    pa, pb = dict(a.state.params.named_parameters()), dict(b.state.params.named_parameters())
+    pairs = [(k, pa[k], pb[k]) for k in pa]
+    for k in pa:
+        sa, sb = a.state.optimizer.state.get(pa[k], {}), b.state.optimizer.state.get(pb[k], {})
+        pairs += [(f"{k}/{s}", torch.as_tensor(sa[s]), torch.as_tensor(sb[s])) for s in sa]
+    pairs.append(("generator", a.generator.get_state(), b.generator.get_state()))
+    diff = [(float((x.double() - y.double()).abs().max()), k)
+            for k, x, y in pairs if not torch.equal(x.cpu(), y.cpu())]
+    worst = max(diff) if diff else (0.0, "-")
+    return len(diff), worst[0], worst[1]
+
+
+def dataset_cfg(name, root, obj_id):
+    """config/<name> as shipped, its DATASET pointed at the replica, the
+    fused march on (PyYAML reads it)."""
+    from color_neus_torch.utils.config import config_from_dict, get_config
+    d = get_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                                name)).to_dict()
+    d["DATASET"].update(DATA_ROOT=root, OBJ_ID=obj_id)
+    d["MODEL"]["RENDERER"]["FUSED_MARCH"] = "on"
+    return config_from_dict(d)
+
+
+def timed_run(loop, *args, **kw):
+    """(losses as floats, launch counts, host seconds) of loop.run(...)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = loop.run(*args, **kw)
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], launch_counts(), time.perf_counter() - t0
+
+
+def dataset_path(device, march_step_ms):
+    """Phase 10: the DTU-format replica at DTU's size through the readers,
+    the train / stop / resume / SIGTERM path of config/Color_NeuS_dtu.yml
+    with the fused march, the extraction in the world frame, and the
+    IHO-format replica whose focal and poses learn through row 4."""
+    import numpy as np
+    import torch
+    from color_neus_torch.data import image_io
+    from color_neus_torch.data.base import create_dataset
+    from color_neus_torch.data.image_io import read_png, write_png
+    from color_neus_torch.models import trainer as TR
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.tools import dataset_replica as DR
+    from color_neus_torch.utils.config import get_config
+    from color_neus_torch.utils.recorder import Recorder
+
+    def want(steps, **kw):
+        return {"sdf_rays": SWEEPS_PER_STEP * steps, "sdf_points": 0, "point_pipeline": 0,
+                "point_pipeline_bwd": 0, "ray_march": steps, "ray_march_bwd": steps,
+                "mlp_chain": 0, "mlp_chain_deferred": 0, **kw}
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        root = os.path.join(tmp, "data")
+        # (a) the replica at DTU's size, read back exactly
+        rep = DR.write_replica(root, "DTU", DTU_VIEWS, DTU_H, DTU_W, "901", device)
+        ds = create_dataset({"TYPE": "DTU", "DATA_ROOT": root, "OBJ_ID": "901"},
+                            {"INCLUDE_MASK": True})
+        t0 = time.perf_counter()
+        data = ds.load_all()
+        load_s = time.perf_counter() - t0
+        init = ds.init_data()
+        pose_err = float(np.abs(init["poses"] - rep["poses"]).max())
+        focal_err = float(np.abs(init["focal"] / rep["focal"] - 1).max())
+        rgb = rep["rgb"].astype(np.float32) / 255.0
+        mask = rep["mask"].astype(np.float32) / 255.0
+        exact = (np.array_equal(data["images"], rgb * mask[..., None])
+                 and np.array_equal(data["masks"], mask))
+        reader = "cv2" if image_io._cv2() is not None else "the port's PNG decoder (no cv2)"
+        print(f"[10a] DTU replica: {DTU_VIEWS} views at {DTU_W} x {DTU_H} (the blob, rendered "
+              f"on the card): render {rep['render_s']:.2f} s, PNG write {rep['write_s']:.2f} s, "
+              f"load_all {load_s:.2f} s through {reader} ({data['images'].nbytes / 2 ** 30:.2f} "
+              f"GiB of images, {data['masks'].nbytes / 2 ** 30:.2f} GiB of masks) | poses "
+              f"max|read-written| {pose_err:.2e} (atol {REPLICA_POSE_ATOL:g}), focal relative "
+              f"{focal_err:.2e} (rtol {REPLICA_FOCAL_RTOL:g}) | images and masks bitwise "
+              f"equal: {exact}", flush=True)
+        check(pose_err <= REPLICA_POSE_ATOL and focal_err <= REPLICA_FOCAL_RTOL,
+              f"replica cameras read back {pose_err:.2e} / {focal_err:.2e} off")
+        check(exact, "the replica's images or masks did not read back bitwise")
+        # the same files through the port's own decoder, as a host without cv2 reads them
+        cv2 = image_io._cv2
+        image_io._cv2 = lambda: None
+        try:
+            t0 = time.perf_counter()
+            own = ds.load_all()
+            own_s = time.perf_counter() - t0
+        finally:
+            image_io._cv2 = cv2
+        same = all(np.array_equal(own[k], data[k]) for k in ("images", "masks"))
+        print(f"[10a] load_all through the port's PNG decoder: {own_s:.2f} s | equal to the "
+              f"above bitwise: {same}", flush=True)
+        check(same, "the port's PNG decoder read the replica differently")
+        del data, own
+        # one decode of a file whose rows all take filter 3 or 4 (libpng's
+        # writers pick them for photos; the replica's writer uses 0)
+        for f in (3, 4):
+            path = os.path.join(tmp, f"filter{f}.png")
+            write_png(path, rep["rgb"][0], f)
+            t0 = time.perf_counter()
+            ok = np.array_equal(read_png(path), rep["rgb"][0])
+            print(f"[10a] one {DTU_W} x {DTU_H} RGB PNG, every row filter {f}: decoded in "
+                  f"{time.perf_counter() - t0:.2f} s (numpy + zlib, no cv2), exact: {ok}",
+                  flush=True)
+            check(ok, f"filter {f} PNG decoded wrong")
+
+        # (b) train 60 steps straight; 30, stop, resume to 60: bitwise equal
+        cfg = dataset_cfg("Color_NeuS_dtu.yml", root, "901")
+        # the straight loop records nothing: its steady state is timed as
+        # phase 8's is, with no checkpoint in the window
+        straight = TrainLoop(cfg)
+        check(straight.device.type == "cuda" and straight.tcfg.renderer.fused_march == "on",
+              "the DTU loop is not on the card with the fused march")
+        torch.cuda.reset_peak_memory_stats()
+        losses, counts, wall = timed_run(straight, STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        print(f"[10b] Color_NeuS_dtu.yml, fused_march on, {STEPS} steps: {wall * 1e3 / STEPS:.2f} "
+              f"ms/step incl. first step | loss {first:.5f} -> {last:.5f} (last-5 / first-5 "
+              f"{last / first:.4f}) | launches {counts} | peak memory {peak_gb:.2f} GiB",
+              flush=True)
+        check(counts == want(STEPS), f"the DTU run launched {counts}, want {want(STEPS)}")
+        check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+        check(last < first, f"loss did not drop: first-5 mean {first}, last-5 mean {last}")
+        stopped = TrainLoop(cfg, exp_id="stopped", require_clean_git=False)
+        part1, c1, _ = timed_run(stopped, STEPS, stop_after=STOP_AT)
+        exp = stopped.recorder.exp_path
+        check(stopped.state.step == STOP_AT and len(part1) == STOP_AT,
+              f"stop_after={STOP_AT} stopped at {stopped.state.step}")
+        del stopped
+        resumed = TrainLoop(get_config(Recorder.find_resume_cfg(exp)), resume=exp)
+        check(resumed.state.step == STOP_AT, f"resumed at step {resumed.state.step}")
+        part2, c2, _ = timed_run(resumed, STEPS)
+        n_diff, worst, name = state_difference(straight, resumed)
+        same_losses = part1 + part2 == losses
+        print(f"[10b] stopped at {STOP_AT} (launches {c1}), resumed from {exp}/dump_cfg.yaml to "
+              f"{STEPS} (launches {c2}): {n_diff} of the parameters, Adam states and the "
+              f"generator differ from the straight run's (largest |diff| {worst:.3e}, {name}; "
+              f"limit: bitwise) | losses of every step equal: {same_losses}", flush=True)
+        check(c1 == want(STOP_AT) and c2 == want(STEPS - STOP_AT),
+              f"stop / resume launches {c1} / {c2}")
+        check(n_diff == 0 and same_losses,
+              f"resumed run differs from the straight one: {n_diff} tensors, {worst:.3e} ({name})")
+        _, _, wall = timed_run(straight, STEPS + STEADY_STEPS)
+        step_ms = wall * 1e3 / STEADY_STEPS
+        del straight
+        print(f"[10b] steady state: {step_ms:.2f} ms/step on the DTU replica "
+              f"({DTU_W} x {DTU_H}) | phase 8, the same model on the synthetic 64 x 64 "
+              f"sphere: {march_step_ms:.2f} ms/step", flush=True)
+        res.update(step_ms=step_ms, peak_gb=peak_gb, load_s=load_s, own_s=own_s,
+                   write_s=rep["write_s"])
+
+        # (c) SIGTERM during run: a checkpoint at a step boundary, then on
+        sig = TrainLoop(cfg, exp_id="sigterm", require_clean_git=False)
+        timer = threading.Timer(SIGTERM_AFTER_S, os.kill, (os.getpid(), signal.SIGTERM))
+        timer.start()
+        try:
+            sig_losses, c3, wall = timed_run(sig)
+        finally:
+            timer.cancel()
+        step = sig.state.step
+        with np.load(sig.recorder.ckpt_path()) as ck:
+            ck_step = int(ck["step"])
+        again = TrainLoop(get_config(Recorder.find_resume_cfg(sig.recorder.exp_path)),
+                          resume=sig.recorder.exp_path)
+        print(f"[10c] SIGTERM after {SIGTERM_AFTER_S:g} s: run returned after {wall:.2f} s at "
+              f"step {step} (checkpoint at step {ck_step}; launches {c3}); a loop resumed "
+              f"from the directory starts at step {again.state.step}", flush=True)
+        check(0 < step < cfg["TRAIN"]["ITERATIONS"] and len(sig_losses) == step
+              and ck_step == step and again.state.step == step and c3 == want(step),
+              "SIGTERM did not stop the run with a checkpoint at a step boundary")
+        check(state_difference(sig, again)[0] == 0, "the SIGTERM checkpoint differs")
+        del sig, again
+
+        # (d) the extraction from the resumed loop, in the world frame
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = resumed.testing_step(resumed.state.step, recon_res=EVAL_RES)
+        ext_s = time.perf_counter() - t0
+        counts = launch_counts()
+        check(out is not None and len(out[0]) > 0, "empty mesh from the DTU loop")
+        verts = out[0]
+        S = resumed.scale_mats[0]
+        lo = S[:3, :3] @ resumed.bbox_min + S[:3, 3]
+        hi = S[:3, :3] @ resumed.bbox_max + S[:3, 3]
+        inside = bool(((verts >= lo) & (verts <= hi)).all())
+        print(f"[10d] res-{EVAL_RES} sparse extraction at step {resumed.state.step}: "
+              f"{len(verts)} vertices, {len(out[1])} triangles, {ext_s:.2f} s | world "
+              f"frame: vertices in [{verts.min(0).round(2)}, {verts.max(0).round(2)}], the "
+              f"replica's world bbox [{lo.round(2)}, {hi.round(2)}]: inside {inside} | "
+              f"launches sdf_points {counts['sdf_points']}, point_pipeline "
+              f"{counts['point_pipeline']}", flush=True)
+        check(inside, "mesh vertices outside the replica's world bbox")
+        check(counts["sdf_points"] > 0 and counts["point_pipeline"] > 0,
+              f"the extraction's launches {counts}")
+        res["extract_s"] = ext_s
+        del resumed
+
+        # (e) cameras that learn: the IHO-format replica, row 4's ray grads
+        rep = DR.write_replica(root, "IHO_VIDEO", IHO_VIEWS, IHO_H, IHO_W, "blob", device)
+        loop = TrainLoop(dataset_cfg("Color_NeuS_iho.yml", root, "blob"))
+        cam = loop.tcfg.camera
+        check(cam.learn_focal and cam.learn_r and cam.learn_t,
+              "Color_NeuS_iho.yml does not learn focal and poses")
+        losses, counts, wall = timed_run(loop, IHO_STEPS)
+        print(f"[10e] IHO replica ({IHO_VIEWS} frames at {IHO_W} x {IHO_H}, COLMAP model of "
+              f"{len(rep['points'])} points), Color_NeuS_iho.yml, fused_march on, {IHO_STEPS} "
+              f"steps: {wall * 1e3 / IHO_STEPS:.2f} ms/step | loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f} | launches {counts}", flush=True)
+        check(counts == want(IHO_STEPS), f"the IHO run launched {counts}")
+        check(all(np.isfinite(losses)), f"non-finite IHO loss {losses}")
+        g = torch.Generator(device=device).manual_seed(SEED + 150)
+        img_ids = torch.arange(min(loop.batch_size, loop.n_imgs), device=device)
+        images, masks = loop.images[img_ids], loop.masks[img_ids]
+        with torch.no_grad():
+            cam_sel, py, px, sel_mask = TR.sample_pixels(loop.tcfg, images, masks,
+                                                         loop.state.step, g)
+        pixels = (img_ids, images, cam_sel, py, px, sel_mask)
+        on, off = (step_grads(loop, pixels, fused_march=m) for m in ("on", "off"))
+        errs, errs_max, cos = grad_errors(on, off)
+        cams = ("focal.fx", "focal.fy", "pose.r", "pose.t")
+        check(all(k in errs for k in cams), f"camera leaves without a gradient: {sorted(errs)}")
+        worst, worst_cos = max(errs, key=errs.get), min(cos, key=cos.get)
+        median = sorted(errs.values())[len(errs) // 2]
+        print(f"[10e] one step's leaf gradients, fused_march on (row 4) vs off (f32 plain "
+              f"core), perturb 0: {len(errs)} leaves, worst |on-off| / |off| {errs[worst]:.3e} "
+              f"({worst}), median {median:.3e}, min cosine {cos[worst_cos]:.6f} ({worst_cos}) "
+              f"(limits {RTOL_STEP_GRAD:g} / {MIN_COS_STEP_GRAD:g}, median "
+              f"{RTOL_STEP_GRAD_MEDIAN:g}) | camera leaves: "
+              + ", ".join(f"{k} {errs[k]:.3e} cos {cos[k]:.6f}" for k in cams), flush=True)
+        rows = [int(i) for i in img_ids.tolist()]
+        for k in ("pose.r", "pose.t"):
+            a, b = on[k][rows].double(), off[k][rows].double()
+            c = torch.sum(a * b, 1) / (torch.linalg.norm(a, dim=1) * torch.linalg.norm(b, dim=1))
+            print(f"[10e] {k} per camera of the batch, cosine on vs off: "
+                  + " ".join(f"{x:.4f}" for x in c.tolist()), flush=True)
+        check(errs[worst] <= RTOL_STEP_GRAD, f"IHO step gradient {worst}: {errs[worst]:.3e}")
+        check(median <= RTOL_STEP_GRAD_MEDIAN, f"IHO step gradients: median {median:.3e}")
+        check(cos[worst_cos] >= MIN_COS_STEP_GRAD,
+              f"IHO step gradient {worst_cos}: cosine {cos[worst_cos]:.6f}")
+        res["iho_cam_err"] = max(errs[k] for k in cams)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2176,6 +2464,15 @@ def main() -> int:
 
     # ---- phase 9: the MLP-chain microbenchmark (rows 7 + 8) ----
     chain = chain_phase(device)
+
+    # ---- phase 10: the dataset path: DTU replica, train / stop / resume, extract ----
+    data = dataset_path(device, march["step_ms"])
+    print(f"[10] summary: DTU replica write {data['write_s']:.2f} s, load_all "
+          f"{data['load_s']:.2f} s ({data['own_s']:.2f} s through the port's PNG decoder) | "
+          f"{data['step_ms']:.2f} ms/step (phase 8: "
+          f"{march['step_ms']:.2f}) | peak memory {data['peak_gb']:.2f} GiB | res-{EVAL_RES} "
+          f"extraction {data['extract_s']:.2f} s | IHO camera leaves vs the f32 core: worst "
+          f"{data['iho_cam_err']:.3e}", flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and

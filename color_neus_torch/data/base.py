@@ -1,11 +1,12 @@
 """Dataset protocol shared by all loaders (copy of color_neus_tpu/data/base.py).
 
 Host-side numpy; the train loop moves the full image and mask stacks to
-the device once. The on-disk image readers come with the datasets that
-need them (DTU, BlendedMVS, ...), in a later slice of the port.
+the device once. The image files are read by data/image_io.py.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -67,8 +68,37 @@ class BaseDataset:
 
 
 def create_dataset(dataset_cfg: dict, data_preset: dict) -> BaseDataset:
-    """Registry-driven dataset build (lib/datasets/__init__.py:10-14)."""
-    from color_neus_torch.data import synthetic  # noqa: F401 (registration)
+    """Registry-driven dataset build (lib/datasets/__init__.py:10-14) over
+    the five families: DTU, BlendedMVS, IHO_VIDEO, OmniObject3D, Synthetic."""
+    import color_neus_torch.data  # noqa: F401 (registers the five families)
     cfg = dict(dataset_cfg)
     cfg["DATA_PRESET"] = dict(data_preset or {})
     return DATASET.get(cfg["TYPE"])(cfg)
+
+
+def sphere_npz_cameras(camera_path: str, n_imgs: int):
+    """The cameras_sphere.npz of DTU and BlendedMVS (dtu.py:59-91):
+    P = world_mat @ scale_mat, decomposed to K and the unit-sphere c2w;
+    the bbox mapped through inv(scale_mat_0) @ object_scale_mat. Returns
+    (intrinsics [N,4,4], poses [N,4,4], scale_mats [N,4,4], bbox min, max)."""
+    from color_neus_torch.ops.transforms import load_K_Rt_from_P
+
+    cam = np.load(camera_path)
+    world_mats = [cam[f"world_mat_{i}"].astype(np.float32) for i in range(n_imgs)]
+    scale_mats = [cam[f"scale_mat_{i}"].astype(np.float32) for i in range(n_imgs)]
+    intrinsics, poses = [], []
+    for world_mat, scale_mat in zip(world_mats, scale_mats):
+        K, pose = load_K_Rt_from_P((world_mat @ scale_mat)[:3, :4])
+        intrinsics.append(K)
+        poses.append(pose)
+    object_scale_mat = cam["scale_mat_0"]
+    bb_min = np.array([-1.01, -1.01, -1.01, 1.0])
+    bb_max = np.array([1.01, 1.01, 1.01, 1.0])
+    bb_min = np.linalg.inv(scale_mats[0]) @ object_scale_mat @ bb_min[:, None]
+    bb_max = np.linalg.inv(scale_mats[0]) @ object_scale_mat @ bb_max[:, None]
+    return (np.stack(intrinsics), np.stack(poses), np.stack(scale_mats),
+            bb_min[:3, 0], bb_max[:3, 0])
+
+
+def list_image_dir(d: str):
+    return [os.path.join(d, f) for f in sorted(os.listdir(d))]

@@ -1,8 +1,9 @@
 """Rotation conversions and misc transforms the training path needs.
 
 Port of the training-path part of color_neus_tpu/ops/transforms.py
-(reference lib/utils/transform.py and camera_net.py:112-131). Torch for
-what sits in the autograd graph, numpy for host-side camera setup.
+(reference lib/utils/transform.py and camera_net.py:112-131) and of its
+host-side camera preprocessing (load_K_Rt_from_P, rotmat_to_quat). Torch
+for what sits in the autograd graph, numpy for host-side camera setup.
 """
 
 from __future__ import annotations
@@ -13,12 +14,18 @@ import torch
 
 def aa_to_rotmat(aa: torch.Tensor) -> torch.Tensor:
     """Axis-angle [..., 3] -> rotation matrix [..., 3, 3] (Rodrigues),
-    with Taylor-guarded sin(t)/t and (1-cos t)/t^2 near t = 0."""
+    with Taylor-guarded sin(t)/t and (1-cos t)/t^2 near t = 0.
+
+    Where the series is taken, the other branch divides by 1, not by t^2:
+    the JAX package's form (a where over (1-cos t)/t^2) has a 0/0 there
+    whose NaN its gradient keeps, so a 3d pose leaf at its init (aa = 0)
+    got a NaN gradient. Values and gradients elsewhere are unchanged."""
     theta2 = torch.sum(aa * aa, dim=-1, keepdim=True)
-    theta = torch.sqrt(torch.clamp_min(theta2, 1e-24))
     small = theta2 < 1e-12
+    safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(safe)
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe)
 
     x, y, z = aa[..., 0], aa[..., 1], aa[..., 2]
     zeros = torch.zeros_like(x)
@@ -84,3 +91,56 @@ def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
          [0, 0, 0, 1]], dtype=np.float32)
     flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.float32)
     return flip @ rot_theta @ rot_phi @ c2w
+
+
+# ---------------------------------------------------------------------------
+# Camera preprocessing (host-side numpy)
+# ---------------------------------------------------------------------------
+
+def rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix (3,3) -> quaternion (w,x,y,z). Host-side numpy."""
+    m = np.asarray(R, dtype=np.float64)
+    t = np.trace(m)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return np.array([0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                         (m[1, 0] - m[0, 1]) / s])
+    i = int(np.argmax(np.diag(m)))
+    if i == 0:
+        s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+        return np.array([(m[2, 1] - m[1, 2]) / s, 0.25 * s, (m[0, 1] + m[1, 0]) / s,
+                         (m[0, 2] + m[2, 0]) / s])
+    if i == 1:
+        s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+        return np.array([(m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, 0.25 * s,
+                         (m[1, 2] + m[2, 1]) / s])
+    s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+    return np.array([(m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s,
+                     (m[1, 2] + m[2, 1]) / s, 0.25 * s])
+
+
+def load_K_Rt_from_P(P: np.ndarray):
+    """Decompose a 3x4 projection matrix into intrinsics and c2w pose:
+    (intrinsics 4x4 with K[2,2] = 1, pose 4x4 camera-to-world), the
+    contract of the reference's cv2.decomposeProjectionMatrix version
+    (transform.py:280-301), by an RQ decomposition of P[:, :3] with the
+    signs fixed so K has a positive diagonal."""
+    P = np.asarray(P, dtype=np.float64)[:3, :4]
+    M = P[:, :3]
+    # RQ decomposition via QR of the row-reversed matrix
+    rev = np.eye(3)[::-1]
+    Q_, R_ = np.linalg.qr((rev @ M).T)
+    K = rev @ R_.T @ rev
+    R = rev @ Q_.T
+    sign = np.diag(np.sign(np.diag(K)))
+    K = K @ sign
+    R = sign @ R
+    # camera centre: the null space of P (M c = -p4)
+    t = -np.linalg.solve(M, P[:, 3])
+    K = K / K[2, 2]
+    intrinsics = np.eye(4, dtype=np.float32)
+    intrinsics[:3, :3] = K.astype(np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = R.T.astype(np.float32)
+    pose[:3, 3] = t.astype(np.float32)
+    return intrinsics, pose

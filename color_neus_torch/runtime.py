@@ -2,34 +2,40 @@
 
 Builds the dataset, moves the whole image and mask stacks to the device
 once, initialises the state from TRAIN.MANUAL_SEED (or loads
-MODEL.PRETRAINED, the --reload checkpoint), and runs full-data steps
+MODEL.PRETRAINED, the --reload checkpoint, or resumes an experiment
+directory's checkpoint with its generator), and runs full-data steps
 (image batch and pixels drawn on the device), logging loss, psnr and lr
 every LOG_INTERVAL steps.
 
-Given an experiment id (as the CLIs give it), the loop also records: a
-checkpoint every SAVE_INTERVAL steps and at the end, a validation image
-every VIZ_IMAGE_INTERVAL steps and a mesh every VIZ_MESH_INTERVAL steps
-(runtime.py:199-206). Without one it writes nothing.
+Given an experiment id or a directory to resume (as the CLIs give them),
+the loop also records: the per-step scalars at every log step, a
+checkpoint every SAVE_INTERVAL steps, at the end and where it stops, a
+validation image every VIZ_IMAGE_INTERVAL steps, a mesh every
+VIZ_MESH_INTERVAL steps (runtime.py:199-206), and the camera plots every
+50 log steps while poses are learnt. Without either it writes nothing.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
-import struct
+import signal
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from color_neus_torch import pin_precision, resolve_device
 from color_neus_torch.data.base import create_dataset
+from color_neus_torch.data.image_io import write_png
 from color_neus_torch.models import trainer as TR
+from color_neus_torch.models.camera import pose_apply
 from color_neus_torch.ops import mesh as mesh_ops
 from color_neus_torch.utils.checkpoint import load_checkpoint
 from color_neus_torch.utils.logger import logger
 from color_neus_torch.utils.metrics import PSNR, SSIM, LossMetric
-from color_neus_torch.utils.recorder import Recorder
+from color_neus_torch.utils.misc import format_cfg
+from color_neus_torch.utils.recorder import Recorder, ScalarWriter
 
 
 def depth_colormap(depth: np.ndarray) -> np.ndarray:
@@ -42,23 +48,9 @@ def depth_colormap(depth: np.ndarray) -> np.ndarray:
     return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """An 8-bit RGB [H, W, 3] image as PNG (zlib only, no image library)."""
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + np.ascontiguousarray(img[y], np.uint8).tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-
-
 class TrainLoop:
-    def __init__(self, cfg, device=None, exp_id: str | None = None,
-                 require_clean_git: bool = True):
+    def __init__(self, cfg, device=None, exp_id: str | None = None, resume: str | None = None,
+                 snapshot: int = 50, require_clean_git: bool = True):
         pin_precision()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -82,9 +74,20 @@ class TrainLoop:
         self.masks = (torch.as_tensor(all_data["masks"], device=self.device)
                       if all_data["masks"] is not None else None)
         self.batch_size = cfg["TRAIN"]["BATCH_SIZE"]
+        logger.info("config:%s", format_cfg(cfg.to_dict() if hasattr(cfg, "to_dict") else cfg))
 
-        self.recorder = (Recorder(exp_id, cfg, require_clean_git=require_clean_git)
-                         if exp_id is not None else None)
+        self.recorder, self.writer = None, None
+        if exp_id is not None or resume is not None:
+            self.recorder = Recorder(exp_id or "default", cfg, resume_path=resume,
+                                     snapshot=snapshot, require_clean_git=require_clean_git)
+            self.writer = ScalarWriter(os.path.join(self.recorder.exp_path, "tensorboard"))
+        cam = self.tcfg.camera
+        self.pose_plots = (self.writer is not None and (cam.learn_r or cam.learn_t)
+                           and self.writer.has_image_sink
+                           and importlib.util.find_spec("matplotlib") is not None)
+        if self.writer is not None and (cam.learn_r or cam.learn_t) and not self.pose_plots:
+            logger.info("camera pose plots skipped: they need tensorboardX (the image sink) "
+                        "and matplotlib")
         self.loss_metric = LossMetric()
         self.psnr_metric = PSNR()
         self.ssim_metric = SSIM()
@@ -94,14 +97,47 @@ class TrainLoop:
         if pretrained:
             load_checkpoint(pretrained, self.state)
             logger.info("loaded pretrained state (step %d) from %s", self.state.step, pretrained)
+        if resume:
+            self.recorder.resume_checkpoint(self.state, self.generator)
+            logger.info("resumed at step %d from %s", self.state.step, resume)
 
     def training_step(self) -> dict:
         return TR.full_data_step(self.state, self.scene, self.tcfg, self.images, self.masks,
                                  self.batch_size, self.generator)
 
-    def run(self, iterations: int | None = None) -> torch.Tensor:
+    def run(self, iterations: int | None = None, stop_after: int | None = None,
+            profile_dir: str | None = None) -> torch.Tensor:
         """Train to `iterations` (default TRAIN.ITERATIONS) steps in total;
-        returns the loss of every step run here, on the host."""
+        returns the loss of every step run here, on the host.
+
+        stop_after stops at that step, with a checkpoint. SIGTERM and SIGINT
+        stop at the next step boundary, with a checkpoint, and return (the
+        reference's recovery model: rerun with --resume, train.py:54-55);
+        the previous handlers are back when run returns or raises.
+        profile_dir receives a torch.profiler trace of the first two steps
+        (trace.json)."""
+        interrupted = []
+
+        def on_signal(signum, frame):
+            interrupted.append(signum)
+            logger.warning("signal %d: will checkpoint and stop at the next step boundary",
+                           signum)
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, on_signal)
+            except ValueError:  # not the main thread: no handler, run to the end
+                pass
+        try:
+            return self._run(iterations, stop_after, profile_dir, interrupted)
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+            if self.writer is not None:
+                self.writer.close()
+
+    def _run(self, iterations, stop_after, profile_dir, interrupted) -> torch.Tensor:
         t = self.cfg["TRAIN"]
         iterations = t["ITERATIONS"] if iterations is None else iterations
         log_int = max(t.get("LOG_INTERVAL", 10), 1)
@@ -110,30 +146,78 @@ class TrainLoop:
         viz_mesh_int = t.get("VIZ_MESH_INTERVAL", 10000)
         start = self.state.step
         logger.info("training on %s: steps %d..%d", self.device, start, iterations)
+        prof = None
+        if profile_dir:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
+                [torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda" else []))
+            prof.start()
         losses = []
         t0 = time.perf_counter()
-        while self.state.step < iterations:
-            aux = self.training_step()
-            losses.append(aux["loss"])
-            step = self.state.step
-            if step % log_int == 0 or step >= iterations:
-                dt = time.perf_counter() - t0
-                logger.info("step %d | loss %.5f | psnr %.2f | lr %.3g | %.0f rays/s",
-                            step, float(aux["loss"]), float(aux["psnr"]), aux["lr"],
-                            (step - start) * self.tcfg.n_rays / max(dt, 1e-9))
+        try:
+            while self.state.step < iterations:
+                aux = self.training_step()
+                losses.append(aux["loss"])
+                step = self.state.step
+                if prof is not None and (step - start >= 2 or step >= iterations):
+                    prof.stop()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+                    logger.info("profile trace of %d steps written to %s", step - start,
+                                profile_dir)
+                    prof = None
+                if step % log_int == 0 or step >= iterations:
+                    self.log_step(step, aux, (step - start) * self.tcfg.n_rays
+                                  / max(time.perf_counter() - t0, 1e-9))
                 if self.recorder is not None:
-                    self.loss_metric.feed(aux)
-            if self.recorder is None:
-                continue
-            if step % save_int == 0 or step >= iterations:
-                self.recorder.record_checkpoint(self.state, self.generator)
-                self.on_train_finished(step)
-            if step % viz_img_int == 0 and step < iterations:
-                self.validation_step(step)
-            if step % viz_mesh_int == 0 and step < iterations:
-                self.validate_mesh(step, resolution=512)
+                    self.record_step(step, iterations, log_int, save_int, viz_img_int,
+                                     viz_mesh_int)
+                if (stop_after is not None and step >= stop_after) or interrupted:
+                    if self.recorder is not None:
+                        self.recorder.record_checkpoint(self.state, self.generator)
+                    logger.info("stopped early at step %d%s", step,
+                                " (checkpointed)" if self.recorder is not None else "")
+                    break
+        finally:
+            if prof is not None:
+                prof.stop()
         logger.info("training done.")
         return torch.stack(losses).cpu() if losses else torch.zeros(0)
+
+    def log_step(self, step: int, aux: dict, rays_per_s: float) -> None:
+        """The log line and, when recording, the scalars of one log step."""
+        aux_np = {k: float(v) for k, v in aux.items()}
+        logger.info("step %d | loss %.5f | psnr %.2f | lr %.3g | %.0f rays/s", step,
+                    aux_np["loss"], aux_np["psnr"], aux_np["lr"], rays_per_s)
+        if self.recorder is None:
+            return
+        self.loss_metric.feed(aux_np)
+        for k, v in aux_np.items():
+            self.writer.add_scalar(k, v, step)
+        self.writer.flush()
+
+    def record_step(self, step, iterations, log_int, save_int, viz_img_int, viz_mesh_int):
+        """What the recorder writes after `step` (runtime.py:186-206)."""
+        # camera-pose plots while poses are refined (NeuS_Trainer.py:202-207
+        # cadence: every 50 log intervals)
+        if self.pose_plots and step % (log_int * 50) == 0:
+            self.plot_poses(step)
+        if step % save_int == 0 or step >= iterations:
+            self.recorder.record_checkpoint(self.state, self.generator)
+            self.on_train_finished(step)
+        if step % viz_img_int == 0 and step < iterations:
+            self.validation_step(step)
+        if step % viz_mesh_int == 0 and step < iterations:
+            self.validate_mesh(step, resolution=512)
+
+    def plot_poses(self, step: int) -> None:
+        from color_neus_torch.utils.viztools import plot_camera_scene, plot_cameras_track
+        with torch.no_grad():
+            c2ws = pose_apply(self.state.params["pose"], self.tcfg.camera,
+                              self.scene["init_c2w"],
+                              torch.arange(self.n_imgs, device=self.device)).cpu().numpy()
+        self.writer.add_image("poses", plot_camera_scene(
+            c2ws, float(self.scene["radius"]), f"step_{step}"), step)
+        self.writer.add_image("poses_track", plot_cameras_track(c2ws), step)
 
     # ------------------------------------------------------------------
     # Trainer lifecycle (the reference's model_abstraction.py:4-37 names)

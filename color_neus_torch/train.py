@@ -2,12 +2,19 @@
 
     python -m color_neus_torch.train --cfg config/Color_NeuS_synthetic.yml \
         --iterations 60 [--exp_id default] [--device cpu]
+    python -m color_neus_torch.train --resume exp/default_<timestamp>
 
 Runs on the CUDA card unless --device cpu is given; without a card and
 without that flag it stops with an error. The YAML schema is the
-reference's (config/*.yml, shared with the JAX package). The run records
-into exp/<exp_id>_<timestamp>/ (checkpoints/state.npz at SAVE_INTERVAL and
-at the end; python -m color_neus_torch.evaluate --reload reads it).
+reference's (config/*.yml, shared with the JAX package); a real scene is
+read from DATASET.DATA_ROOT (--data_root, -obj for DATASET.OBJ_ID). The
+run records into exp/<exp_id>_<timestamp>/: dump_cfg.yaml,
+checkpoints/state.npz at SAVE_INTERVAL, at the end and on SIGTERM /
+SIGINT, with an immutable copy every --snapshot saves, and the per-step
+scalars in tensorboard/scalars.jsonl. --resume <exp dir> reloads the
+config from its dump_cfg.yaml and continues from its checkpoint, the
+generator's state included; python -m color_neus_torch.evaluate --reload
+reads the checkpoint.
 """
 
 from __future__ import annotations
@@ -17,29 +24,39 @@ import argparse
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("color_neus_torch trainer")
-    p.add_argument("--cfg", type=str, required=True, help="config yaml path")
+    p.add_argument("--cfg", type=str, default=None, help="config yaml path")
     p.add_argument("--exp_id", type=str, default="default")
     p.add_argument("-obj", "--obj_id", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None, help="exp dir to resume")
     p.add_argument("--reload", type=str, default=None, help="checkpoint to start from")
     p.add_argument("-b", "--batch_size", type=int, default=None)
+    p.add_argument("--snapshot", type=int, default=50,
+                   help="keep an immutable copy of the checkpoint every this many saves")
     p.add_argument("--iterations", type=int, default=None,
                    help="override TRAIN.ITERATIONS")
     p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler trace of two steps to this dir")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' for the plain path)")
     p.add_argument("--allow_dirty", action="store_true",
                    help="skip the clean-git-tree check for named exp_ids")
-    return p.parse_args(argv)
+    arg = p.parse_args(argv)
+    if arg.cfg is None and arg.resume is None:
+        p.error("--cfg is required (or --resume <exp dir>)")
+    return arg
 
 
 def main(argv=None):
     arg = parse_args(argv)
     from color_neus_torch.runtime import TrainLoop
     from color_neus_torch.utils.config import get_config
+    from color_neus_torch.utils.recorder import Recorder
 
-    cfg = get_config(arg.cfg, arg)
-    TrainLoop(cfg, device=arg.device, exp_id=arg.exp_id,
-              require_clean_git=not arg.allow_dirty).run()
+    cfg = get_config(Recorder.find_resume_cfg(arg.resume) if arg.resume else arg.cfg, arg)
+    TrainLoop(cfg, device=arg.device, exp_id=arg.exp_id, resume=arg.resume,
+              snapshot=arg.snapshot, require_clean_git=not arg.allow_dirty
+              ).run(profile_dir=arg.profile)
 
 
 if __name__ == "__main__":

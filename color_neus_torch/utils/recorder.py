@@ -2,18 +2,24 @@
 
 Same layout as the reference Recorder (lib/utils/recorder.py:27-178):
   exp/{exp_id}_{timestamp}/
-    dump_cfg.json  log/  checkpoints/  viz_image/  meshes/
-The config is dumped as JSON (the port runs without PyYAML). Checkpoints
-(utils/checkpoint.py) hold the train state and the generator state.
-Scalars go to the logger (no tensorboard).
+    dump_cfg.yaml  log/  checkpoints/  viz_image/  meshes/  tensorboard/
+Checkpoints (utils/checkpoint.py) hold the train state and the generator
+state, with an immutable copy every `snapshot` saves. A resumed run
+reloads its config from dump_cfg.yaml (find_resume_cfg; PyYAML is
+imported only there and in dump_cfg). ScalarWriter logs the per-step
+scalars to tensorboard/scalars.jsonl, and to tensorboardX where it is
+importable.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import time
+
+import numpy as np
 
 from color_neus_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from color_neus_torch.utils.logger import set_log_file
@@ -21,8 +27,11 @@ from color_neus_torch.utils.logger import set_log_file
 
 class Recorder:
     def __init__(self, exp_id: str, cfg, root: str = "./exp", resume_path: str | None = None,
-                 require_clean_git: bool = True, timestamp: str | None = None):
+                 snapshot: int = 50, require_clean_git: bool = True,
+                 timestamp: str | None = None):
         self.exp_id = exp_id
+        self.snapshot = snapshot
+        self._n_saves = 0
         # the reference enforces a clean tree for named exps (recorder.py:39);
         # 'default' and eval runs are exempt, require_clean_git=False opts out
         if (require_clean_git and exp_id not in ("default", "eval")
@@ -45,16 +54,26 @@ class Recorder:
             self.dump_cfg(cfg)
 
     def dump_cfg(self, cfg):
+        import yaml
         d = cfg.to_dict() if hasattr(cfg, "to_dict") else dict(cfg)
-        with open(os.path.join(self.exp_path, "dump_cfg.json"), "w") as f:
-            json.dump(d, f, indent=2, sort_keys=True)
+        with open(os.path.join(self.exp_path, "dump_cfg.yaml"), "w") as f:
+            yaml.safe_dump(d, f)
+
+    @staticmethod
+    def find_resume_cfg(resume_path: str) -> str:
+        return os.path.join(resume_path, "dump_cfg.yaml")
 
     def ckpt_path(self) -> str:
         return os.path.join(self.ckpt_dir, "state.npz")
 
     def record_checkpoint(self, state, generator) -> str:
+        """Save the train state and the generator; every `snapshot` saves
+        also an immutable copy checkpoints/state_<step>.npz."""
         path = self.ckpt_path()
         save_checkpoint(path, state, generator)
+        self._n_saves += 1
+        if self.snapshot > 0 and self._n_saves % self.snapshot == 0:
+            shutil.copy2(path, os.path.join(self.ckpt_dir, f"state_{state.step:08d}.npz"))
         return path
 
     def resume_checkpoint(self, state, generator) -> None:
@@ -76,3 +95,56 @@ def _git_dirty() -> bool:
     except (OSError, subprocess.SubprocessError):
         return False
     return out.returncode == 0 and bool(out.stdout.strip())
+
+
+def _is_rank0() -> bool:
+    """Rank 0 of an initialised torch.distributed group, or the only process."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+class ScalarWriter:
+    """Scalar sink: scalars.jsonl always, tensorboardX too where it is
+    importable (then also the image sink); rank 0 only. Lines reach the
+    file at each flush; close ends tensorboardX's writer, which reopens on
+    the next scalar."""
+
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "scalars.jsonl")
+        self._lines: list = []
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(log_dir)
+
+    @property
+    def has_image_sink(self) -> bool:
+        return self._tb is not None
+
+    def add_scalar(self, tag: str, value: float, step: int):
+        if not _is_rank0():
+            return
+        self._lines.append(json.dumps({"tag": tag, "value": float(value), "step": int(step)})
+                           + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+
+    def add_image(self, tag: str, img_hwc, step: int):
+        if self._tb is not None and _is_rank0():
+            self._tb.add_image(tag, np.asarray(img_hwc), step, dataformats="HWC")
+
+    def flush(self):
+        if self._lines:
+            with open(self.path, "a") as f:
+                f.writelines(self._lines)
+            self._lines = []
+        if self._tb is not None:
+            self._tb.flush()
+
+    def close(self):
+        self.flush()
+        if self._tb is not None:
+            self._tb.close()

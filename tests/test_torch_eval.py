@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from color_neus_tpu.models import configs as jconfigs
 from color_neus_tpu.models import trainer as JTR
@@ -136,8 +137,8 @@ def test_recorder_layout_and_git_rule(tmp_path, monkeypatch):
                             timestamp="t")
     for sub in ("log", "checkpoints", "viz_image", "meshes"):
         assert os.path.isdir(os.path.join(rec.exp_path, sub))
-    with open(os.path.join(rec.exp_path, "dump_cfg.json")) as f:
-        assert '"ITERATIONS": 3' in f.read()
+    with open(rec.find_resume_cfg(rec.exp_path)) as f:
+        assert yaml.safe_load(f) == cfg.to_dict()
     # record_checkpoint / resume_checkpoint round trip through the exp dir
     loop = TrainLoop(cfg, device="cpu")
     loop.run(1)
@@ -171,7 +172,6 @@ def test_metrics_match_jax():
 
 
 def test_train_then_evaluate_cli(tmp_path):
-    import yaml
     cfg_path = tmp_path / "tiny.yml"
     cfg_path.write_text(yaml.safe_dump(TINY_CFG))
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}

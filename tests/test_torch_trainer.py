@@ -2,7 +2,9 @@
 
 One train step from injected pixels at a step > 0 (the warm-up lr is 0
 at step 0), small widths, perturb 0, identical weights, with the port's
-fused_core auto and on and fused_march on: the loss, every
+fused_core auto and on and fused_march on, and with learnt cameras
+(LEARN_FOCAL / LEARN_R / LEARN_T, POSE_MODE 3d) on the plain core and
+through the fused march's ray gradients: the loss, every
 leaf's clipped gradient (atol 3e-3 * the leaf's max |g|, rtol 2e-3, the
 gradient tolerance of test_parity_torch.py), the Adam moments (the same
 tolerance on mu / 0.1 and sqrt(nu / 0.01), which equal the gradient
@@ -58,10 +60,12 @@ def _renderer(mod, fused_sdf, **kw):
         relight=mod.RelightConfig(d_hidden=32, n_layers=4, y_in_layer=3))
 
 
-def _cfgs(fused_core="auto", fused_march="auto"):
+def _cfgs(fused_core="auto", fused_march="auto", learn_cams=False):
     kw = dict(n_rays=32, include_mask=True, mask_rate=(0.5, 0.8), iterations=100,
               warm_up=10, lr=5e-4)
-    cam = dict(H=H, W=W, n_cams=N_CAMS, pose_mode="6d", focal_order=2)
+    cam = dict(H=H, W=W, n_cams=N_CAMS, pose_mode="3d" if learn_cams else "6d",
+               focal_order=2, learn_focal=learn_cams, learn_r=learn_cams,
+               learn_t=learn_cams)
     # the JAX side runs its march kernel in interpret mode against the
     # port's march
     jcfg = JTR.TrainerConfig(**kw, camera=JCameraConfig(**cam), renderer=_renderer(
@@ -93,19 +97,30 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("fused_core,fused_march", [
-    pytest.param("auto", "auto", id="auto"), pytest.param("on", "auto", id="on"),
-    pytest.param("auto", "on", id="march-on")])
-def test_train_step_matches_jax(fused_core, fused_march):
+@pytest.mark.parametrize("fused_core,fused_march,learn_cams", [
+    pytest.param("auto", "auto", False, id="auto"), pytest.param("on", "auto", False, id="on"),
+    pytest.param("auto", "on", False, id="march-on"),
+    pytest.param("auto", "auto", True, id="auto-cams-3d"),
+    pytest.param("auto", "on", True, id="march-on-cams-3d")])
+def test_train_step_matches_jax(fused_core, fused_march, learn_cams):
     """The port's step with the plain autograd core (auto), with the
     point pipeline's autograd Function (fused_core on) and with the fused
     march's (fused_march on; plain twins on the CPU) against the same JAX
     step: the plain core (JAX's fused_core and fused_march resolve to it on
-    the CPU), or JAX's march kernel in interpret mode for fused_march on."""
-    jcfg, pcfg = _cfgs(fused_core, fused_march)
+    the CPU), or JAX's march kernel in interpret mode for fused_march on.
+    With learnt cameras the focal and pose leaves get their gradient
+    through the rays (the march's rays_o / rays_d gradients with
+    fused_march on) and are held like every other leaf."""
+    jcfg, pcfg = _cfgs(fused_core, fused_march, learn_cams)
     poses, images, masks, focal = _scene()
     jstate = JTR.init_state(jax.random.PRNGKey(0), jcfg, init_focal_np=focal)
     jparams = jstate["params"]
+    if learn_cams:
+        # off the pose init: JAX's 3d rotation has a NaN gradient at aa = 0
+        # (test_pose_3d_gradient_at_init)
+        noise = np.random.RandomState(2)
+        jparams = {**jparams, "pose": {k: v + 0.05 * noise.randn(*v.shape).astype(np.float32)
+                                       for k, v in jparams["pose"].items()}}
     jscene = JTR.make_scene(np.zeros(3), 1.0, poses)
     rng = np.random.RandomState(1)
     cam_sel = rng.randint(0, N_CAMS, 32)
@@ -164,10 +179,34 @@ def test_train_step_matches_jax(fused_core, fused_march):
         np.testing.assert_allclose(np.sqrt(nu_t / 0.01), np.sqrt(nu_j[name] / 0.01), **tol)
         np.testing.assert_allclose(p.detach().numpy(), new_j[name], atol=2 * lr_t, rtol=1e-6,
                                    err_msg=name)
-    # frozen camera leaves: no gradient, no move
-    for name in ("focal.fx", "focal.fy", "pose.r", "pose.t"):
-        assert names[name].grad is None
-        np.testing.assert_array_equal(names[name].detach().numpy(), new_j[name])
+    cams = ("focal.fx", "focal.fy", "pose.r", "pose.t")
+    if learn_cams:    # learnt camera leaves: a gradient, held above
+        assert all(float(np.abs(clipped_j[n]).max()) > 0 for n in cams)
+    else:             # frozen camera leaves: no gradient, no move
+        for name in cams:
+            assert names[name].grad is None
+            np.testing.assert_array_equal(names[name].detach().numpy(), new_j[name])
+
+
+def test_pose_3d_gradient_at_init():
+    """At a 3d pose leaf's init (aa = 0) the JAX package's rotation gives a
+    NaN gradient (0/0 in the untaken branch of its where); the port's is
+    finite and equals JAX's at aa ~1e-5 to atol 1e-4, the continuous limit."""
+    from color_neus_tpu.ops import transforms as jtr
+    from color_neus_torch.ops import transforms
+    w = np.random.RandomState(3).randn(4, 3, 3).astype(np.float32)
+
+    def jloss(aa):
+        return jnp.sum(jtr.aa_to_rotmat(aa) * w)
+    assert np.isnan(np.asarray(jax.grad(jloss)(jnp.zeros((4, 3))))).all()
+    aa = torch.zeros(4, 3, requires_grad=True)
+    torch.sum(transforms.aa_to_rotmat(aa) * torch.from_numpy(w)).backward()
+    near = 1e-5 * np.random.RandomState(4).randn(4, 3).astype(np.float32)
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(near)))
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(aa.grad.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(transforms.aa_to_rotmat(torch.zeros(2, 3)).numpy(),
+                                  np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)))
 
 
 def test_schedules_and_loss_match_jax():
