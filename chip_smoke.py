@@ -45,10 +45,13 @@ Phases; any failure exits non-zero and prints no result:
   3. the main path: TrainLoop trains Color-NeuS at full width (the MODEL
      section of config/Color_NeuS_dtu.yml: 1024 rays, 64+64 samples, 4
      up-sample rounds) on the synthetic sphere (DATASET, DATA_PRESET and
-     TRAIN of config/Color_NeuS_synthetic.yml) for 60 steps. The sweep
-     kernel must launch exactly 4 times per step, every loss must be
-     finite, and the mean of the last 5 losses must be below half the
-     mean of the first 5.
+     TRAIN of config/Color_NeuS_synthetic.yml) for 60 steps, in bundles
+     of LOG_INTERVAL = 10 (a warm-up bundle, then replays of the captured
+     one). The sweep kernel must launch exactly 4 times per step, every
+     loss must be finite, and the mean of the last 5 losses must be below
+     half the mean of the first 5. The training phases count executed
+     launches: the wrappers' counts, less what a capture recorded, plus
+     the captured launches times the replays (launch_counts).
   4. the sweep kernel against its plain version on the trained weights,
      at every sweep of one step: the main path's own rays (sampled pixels
      of the training cameras) and z (coarse, then each up-sample round),
@@ -146,6 +149,23 @@ Phases; any failure exits non-zero and prints no result:
      against the f32 plain core, at phase 7's limits, focal.fx / fy and
      pose.r / t included (their gradient comes only through row 4's ray
      cotangents), with per-camera cosines printed.
+  11. several steps per dispatch, per training arm (fused_march on,
+     fused_core on, auto) at phase 3's full width: one uncaptured step
+     under torch.cuda.set_sync_debug_mode("error") (nothing in it may wait
+     on the card); (a) a replay of the captured bundle against 10
+     uncaptured steps from the same state: every parameter, optimizer
+     state, the step counter, the generator and the 10 losses bitwise
+     (fused_core and auto: bitwise when two uncaptured runs are, else
+     within BUNDLE_DISTANCE_FACTOR x their distance, printed beside it);
+     (b) two replays under torch.profiler: the sweep 4 times per step and
+     the arm's forward and backward kernels once (rows 1, 3, 4 or 1, 5,
+     6) by name, busy ms/step and the idle share; (c) host ms/step
+     uncaptured / captured / captured / uncaptured, the idle share
+     unprofiled (1 - busy / host ms) and peak memory, at the config's
+     shape and at bench.py's 2048 x 512 (auto there uncaptured only when
+     a captured pool beside its steps would not fit the card); (d) every
+     shipped config bundles 10 steps, and phase 10's DTU loop replayed
+     its bundle.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -154,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import glob
 import json
 import os
 import re
@@ -306,6 +327,21 @@ ATOL_CHAIN_F32 = 1e-5
 ATOL_CHAIN_DEFERRED_L2 = 2e-2
 FP32_LANES_PER_SM, MUFU_PER_SM = 128, 16     # Hopper SM: FP32 lanes, special-function units
 STEADY_STEPS = 20
+# phase 11: the shipped configs' LOG_INTERVAL, the steps of one captured
+# bundle; bench.py's shape (2048 rays x 256 + 4 x 64 samples, 8x the
+# points of the config's 1024 x 128); the renderer switches of the three
+# training arms; each arm's kernels a step launches (trace names)
+BUNDLE = 10
+BENCH_MODEL = {"N_RAYS": 2048, "RENDERER": {"N_SAMPLES": 256, "N_IMPORTANCE": 256}}
+ARMS = {"fused_march": {"FUSED_MARCH": "on"}, "fused_core": {"FUSED_CORE": "on"}, "auto": {}}
+ARM_KERNELS = {"fused_march": ("ray_march_fwd_kernel", "ray_march_bwd_kernel"),
+               "fused_core": ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel"),
+               "auto": ()}
+# the two uncaptured runs of an arm whose gradients sum through atomics
+# differ from each other; a captured bundle is held to this many times
+# their distance (each run's atomics take another order, so a third run
+# lands as far from the first as the second does, within a small factor)
+BUNDLE_DISTANCE_FACTOR = 4.0
 # phase 10: DTU's own view count and image size; the IHO replica's size
 # (that phase holds gradients, not speed); the train / stop / resume steps
 DTU_VIEWS, DTU_H, DTU_W = 49, 1200, 1600
@@ -640,16 +676,15 @@ def _union_us(intervals):
     return total + (cur[1] - cur[0] if cur else 0.0)
 
 
-def profile_steps(loop, n_steps=3, top=12, tag="5"):
-    """Device time by kernel, busy time and idle share over a few
-    steady-state steps, all read from one torch.profiler trace (phase 5,
-    and phase 7 for the fused_core on loop)."""
+def profiled(fn):
+    """(host ms of fn() under torch.profiler, the trace's device events as
+    (start us, end us, name))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        loop.run(loop.state.step + n_steps)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
@@ -657,9 +692,16 @@ def profile_steps(loop, n_steps=3, top=12, tag="5"):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    dev = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
-           for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return wall_ms, [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
+                     for e in events if e.get("ph") == "X"
+                     and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def profile_steps(loop, n_steps=3, top=12, tag="5"):
+    """Device time by kernel, busy time and idle share over a few
+    steady-state steps (uncaptured: fewer than a bundle), all read from one
+    torch.profiler trace (phase 5, and phases 7 and 8 for their loops)."""
+    wall_ms, dev = profiled(lambda: loop.run(loop.state.step + n_steps))
     if not dev:
         print(f"[{tag}] the profiler trace holds no device events: time by kernel not measured")
         return
@@ -680,26 +722,30 @@ def profile_steps(loop, n_steps=3, top=12, tag="5"):
     print(f"[{tag}] sweep kernel launches in the trace (ms each, sorted): "
           f"{' '.join(f'{x:.4f}' for x in sweep)}", flush=True)
 
-def _launchers() -> dict:
-    from color_neus_torch.ops.kernels import mlp_chain as MC
-    from color_neus_torch.ops.kernels import point_pipeline as PP
-    from color_neus_torch.ops.kernels import ray_march as RM
-    from color_neus_torch.ops.kernels.sdf_mlp import launch_sdf_points
-    from color_neus_torch.ops.kernels.sdf_rays import launch_sdf_rays
-    return {"sdf_rays": launch_sdf_rays, "sdf_points": launch_sdf_points,
-            "point_pipeline": PP.launch_point_pipeline,
-            "point_pipeline_bwd": PP.launch_point_pipeline_bwd,
-            "ray_march": RM.launch_ray_march, "ray_march_bwd": RM.launch_ray_march_bwd,
-            "mlp_chain": MC.launch_chain, "mlp_chain_deferred": MC.launch_chain_deferred}
-
-
-def reset_launch_counts():
-    for fn in _launchers().values():
+def reset_launch_counts(*loops):
+    """Every wrapper's count to 0, and the bundle counts of `loops`."""
+    from color_neus_torch.ops.kernels import launchers
+    for fn in launchers().values():
         fn.launches = 0
+    for loop in loops:
+        if loop.multi_step is not None:
+            loop.multi_step.recorded.clear()
+            loop.multi_step.replayed.clear()
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _launchers().items()}
+def launch_counts(*loops) -> dict:
+    """The kernel launches executed since the reset: each wrapper counts
+    the launches it makes, eager or recorded into a captured bundle; a
+    capture runs none of them, and each replay runs the captured ones. So
+    a loop's recorded launches come off and its replayed ones on."""
+    from color_neus_torch.ops import kernels
+    counts = kernels.launch_counts()
+    for loop in loops:
+        ms = loop.multi_step
+        if ms is not None:
+            for k in counts:
+                counts[k] += ms.replayed[k] - ms.recorded[k]
+    return counts
 
 
 def lattice_chunk(bmin, bmax, res, start, n, device):
@@ -1769,18 +1815,19 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
     check(getattr(loop.tcfg.renderer, switch) == "on", f"{key} on did not reach the renderer")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_launch_counts(loop)
     t0 = time.perf_counter()
     losses = loop.run(STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = launch_counts(loop)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    print(f"[{tag}] {switch} on, {STEPS} steps: {wall * 1e3 / STEPS:.2f} ms/step incl. first "
-          f"step | loss {first:.5f} -> {last:.5f} | launches {counts} | peak memory "
-          f"{peak_gb:.2f} GiB", flush=True)
+    print(f"[{tag}] {switch} on, {STEPS} steps in bundles of {loop.k_steps}: "
+          f"{wall * 1e3 / STEPS:.2f} ms/step incl. the warm-up bundle and the capture | loss "
+          f"{first:.5f} -> {last:.5f} | launches {counts} | peak memory {peak_gb:.2f} GiB",
+          flush=True)
     check(counts == want, f"{switch} on training launched {counts}, want {want}")
     check(all(x == x and abs(x) != float("inf") for x in losses), f"non-finite loss {losses}")
     check(last < 0.5 * first, f"loss did not halve: first-5 mean {first}, last-5 mean {last}")
@@ -1790,7 +1837,7 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / STEADY_STEPS
     n_rays = loop.tcfg.n_rays
-    print(f"[{tag}] steady state, {switch} on: {step_ms:.2f} ms/step | "
+    print(f"[{tag}] steady state (2 replays), {switch} on: {step_ms:.2f} ms/step | "
           f"{n_rays / step_ms * 1e3:.0f} rays/s", flush=True)
     profile_steps(loop, n_steps=profile_n, top=6, tag=tag)
 
@@ -1918,7 +1965,8 @@ def evaluation_path(loop, device, launches_training):
                 check(torch.equal(st[k], st2[k]), f"checkpoint: optimizer {k} of {name} differs")
                 n_tensors += 1
             n_tensors += 1
-        check(ev.state.step == loop.state.step, "checkpoint: step differs")
+        check(ev.state.step == loop.state.step == int(ev.state.step_t),
+              "checkpoint: step differs")
         with np.load(path) as data:
             check(torch.equal(torch.from_numpy(data["generator"]), loop.generator.get_state()),
                   "checkpoint: generator state differs")
@@ -2050,18 +2098,8 @@ def evaluation_path(loop, device, launches_training):
 
 def state_difference(a, b) -> tuple:
     """(number of differing tensors, largest |a - b|, its name) over two
-    loops' parameters, Adam states and generator states."""
-    import torch
-    pa, pb = dict(a.state.params.named_parameters()), dict(b.state.params.named_parameters())
-    pairs = [(k, pa[k], pb[k]) for k in pa]
-    for k in pa:
-        sa, sb = a.state.optimizer.state.get(pa[k], {}), b.state.optimizer.state.get(pb[k], {})
-        pairs += [(f"{k}/{s}", torch.as_tensor(sa[s]), torch.as_tensor(sb[s])) for s in sa]
-    pairs.append(("generator", a.generator.get_state(), b.generator.get_state()))
-    diff = [(float((x.double() - y.double()).abs().max()), k)
-            for k, x, y in pairs if not torch.equal(x.cpu(), y.cpu())]
-    worst = max(diff) if diff else (0.0, "-")
-    return len(diff), worst[0], worst[1]
+    loops' parameters, Adam states, step counters and generator states."""
+    return tensors_distance(state_tensors(a), state_tensors(b))
 
 
 def dataset_cfg(name, root, obj_id):
@@ -2079,11 +2117,11 @@ def timed_run(loop, *args, **kw):
     """(losses as floats, launch counts, host seconds) of loop.run(...)."""
     import torch
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_launch_counts(loop)
     t0 = time.perf_counter()
     losses = loop.run(*args, **kw)
     torch.cuda.synchronize()
-    return [float(x) for x in losses], launch_counts(), time.perf_counter() - t0
+    return [float(x) for x in losses], launch_counts(loop), time.perf_counter() - t0
 
 
 def dataset_path(device, march_step_ms):
@@ -2200,12 +2238,13 @@ def dataset_path(device, march_step_ms):
               f"resumed run differs from the straight one: {n_diff} tensors, {worst:.3e} ({name})")
         _, _, wall = timed_run(straight, STEPS + STEADY_STEPS)
         step_ms = wall * 1e3 / STEADY_STEPS
-        del straight
         print(f"[10b] steady state: {step_ms:.2f} ms/step on the DTU replica "
               f"({DTU_W} x {DTU_H}) | phase 8, the same model on the synthetic 64 x 64 "
               f"sphere: {march_step_ms:.2f} ms/step", flush=True)
         res.update(step_ms=step_ms, peak_gb=peak_gb, load_s=load_s, own_s=own_s,
-                   write_s=rep["write_s"])
+                   write_s=rep["write_s"], k_steps=straight.k_steps,
+                   replays=straight.multi_step.replays if straight.multi_step else 0)
+        del straight
 
         # (c) SIGTERM during run: a checkpoint at a step boundary, then on
         sig = TrainLoop(cfg, exp_id="sigterm", require_clean_git=False)
@@ -2296,6 +2335,234 @@ def dataset_path(device, march_step_ms):
         check(cos[worst_cos] >= MIN_COS_STEP_GRAD,
               f"IHO step gradient {worst_cos}: cosine {cos[worst_cos]:.6f}")
         res["iho_cam_err"] = max(errs[k] for k in cams)
+    return res
+
+
+def arm_cfg(arm, bench=False):
+    """SMOKE_CFG with the arm's renderer switches, at bench.py's shape when
+    `bench`."""
+    from color_neus_torch.utils.config import config_from_dict
+    model = SMOKE_CFG["MODEL"]
+    renderer = {**model["RENDERER"], **ARMS[arm]}
+    extra = {}
+    if bench:
+        renderer.update(BENCH_MODEL["RENDERER"])
+        extra = {k: v for k, v in BENCH_MODEL.items() if k != "RENDERER"}
+    return config_from_dict({**SMOKE_CFG, "MODEL": {**model, **extra, "RENDERER": renderer}})
+
+
+def state_tensors(loop) -> dict:
+    """Copies of every parameter, optimizer state, the step counter and the
+    generator state of a loop."""
+    out = {}
+    opt = loop.state.optimizer
+    for name, p in loop.state.params.named_parameters():
+        out[name] = p.detach().clone()
+        for k, v in opt.state.get(p, {}).items():
+            out[f"{name}/{k}"] = v.clone()
+    out["step_t"] = loop.state.step_t.clone()
+    out["generator"] = loop.generator.get_state().clone()
+    return out
+
+
+def restore(loop, saved: dict, step: int) -> None:
+    """Put state_tensors' copies back in place: a captured bundle reads the
+    same storage."""
+    import torch
+    opt = loop.state.optimizer
+    with torch.no_grad():
+        for name, p in loop.state.params.named_parameters():
+            p.copy_(saved[name])
+            for k, v in opt.state.get(p, {}).items():
+                v.copy_(saved[f"{name}/{k}"])
+    loop.state.set_step(step)
+    loop.generator.set_state(saved["generator"])
+
+
+def tensors_distance(a: dict, b: dict) -> tuple:
+    """(tensors that differ, the largest |a - b|, its name)."""
+    import torch
+    diff = [(float((a[k].double() - b[k].double()).abs().max()), k)
+            for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+    worst = max(diff) if diff else (0.0, "-")
+    return len(diff), worst[0], worst[1]
+
+
+def host_ms(fn, steps) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def interleaved_ms(loop, bundles):
+    """Host clock ms/step of `bundles` bundles uncaptured / captured /
+    captured / uncaptured, and the uncaptured runs' peak memory (GiB)."""
+    import torch
+
+    def eager():
+        for _ in range(bundles * BUNDLE):
+            loop.training_step()
+
+    def replay():
+        for _ in range(bundles):
+            loop.training_bundle()
+    out, peak = [], 0.0
+    for fn in (eager, replay, replay, eager):
+        torch.cuda.reset_peak_memory_stats()
+        out.append(host_ms(fn, bundles * BUNDLE))
+        if fn is eager:
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out, peak
+
+
+def busy_of_replays(loop, n, arm, tag):
+    """Profile n replays: (host ms/step profiled, busy ms/step, idle share
+    of the span, {kernel: launches per step}); checks the arm's kernels
+    ran inside the graph, by name, at their launches per step."""
+    wall_ms, dev = profiled(lambda: [loop.training_bundle() for _ in range(n)])
+    steps = n * BUNDLE
+    check(dev, f"[{tag}] the profiler trace of {n} replays holds no device events")
+    busy = _union_us([(a, b) for a, b, _ in dev]) / 1e3
+    span = (max(b for _, b, _ in dev) - min(a for a, _, _ in dev)) / 1e3
+    names = ("sdf_rays_",) + tuple(k for ks in ARM_KERNELS.values() for k in ks)
+    per_step = {k: sum(k in name for _, _, name in dev) / steps for k in names}
+    want = {k: (SWEEPS_PER_STEP if k == "sdf_rays_" else
+                1 if k in ARM_KERNELS[arm] else 0) for k in names}
+    check(per_step == want, f"[{tag}] {arm}: kernels per step in the replays' trace "
+                            f"{per_step}, want {want}")
+    return wall_ms / steps, busy / steps, 1 - busy / span, per_step
+
+
+def bundle_phase(device, dtu):
+    """Phase 11: the captured bundle of BUNDLE steps against the steps one
+    by one, per training arm; `dtu` holds phase 10's DTU loop's bundling."""
+    import torch
+    from color_neus_torch.runtime import TrainLoop, bundle_steps
+    from color_neus_torch.utils.config import get_config
+
+    # (d) the rule on every shipped config, and the shipped DTU loop on the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    rule = {os.path.basename(p): bundle_steps(get_config(p)["TRAIN"])
+            for p in sorted(glob.glob(os.path.join(here, "config", "*.yml")))}
+    print(f"[11d] steps per dispatch by config: {rule} | the shipped Color_NeuS_dtu.yml's "
+          f"loop in phase 10: k_steps {dtu['k_steps']}, {dtu['replays']} replays of its "
+          f"captured bundle in the straight run", flush=True)
+    check(len(rule) >= 10 and set(rule.values()) == {BUNDLE},
+          f"a shipped config does not bundle {BUNDLE} steps: {rule}")
+    check(dtu["k_steps"] == BUNDLE and dtu["replays"] > 0,
+          f"the DTU loop did not replay bundles of {BUNDLE}: {dtu}")
+
+    res = {}
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    for arm in ARMS:
+        t_arm = time.perf_counter()
+        loop = TrainLoop(arm_cfg(arm), device=device)
+        check(loop.k_steps == BUNDLE and loop.multi_step is not None,
+              f"{arm}: the loop does not bundle")
+        # one uncaptured step that must not wait on the card anywhere
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.training_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        loop.run(BUNDLE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop.run(3 * BUNDLE)                   # warm-up bundle + capture, one replay
+        capture_s = time.perf_counter() - t0
+        peak_cap = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = loop.multi_step
+        check(ms.graph is not None and ms.replays == 1, f"{arm}: no captured bundle replayed")
+
+        # (a) a replay against BUNDLE uncaptured steps from the same state
+        step, s0 = loop.state.step, state_tensors(loop)
+        runs = []
+        for _ in range(1 if arm == "fused_march" else 2):
+            losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
+            runs.append(dict(state_tensors(loop), losses=losses))
+            restore(loop, s0, step)
+        _, losses = loop.training_bundle()
+        captured = dict(state_tensors(loop), losses=losses)
+        n_diff, worst, name = tensors_distance(runs[0], captured)
+        if len(runs) > 1:
+            e_diff, e_worst, e_name = tensors_distance(runs[0], runs[1])
+            limit = 0.0 if e_diff == 0 else BUNDLE_DISTANCE_FACTOR * e_worst
+            reason = ("bitwise: two uncaptured runs agree bitwise" if e_diff == 0 else
+                      f"{BUNDLE_DISTANCE_FACTOR:g} x the distance of two uncaptured runs "
+                      f"({e_diff} tensors differ, largest {e_worst:.3e} at {e_name}: a "
+                      f"gradient summed through atomics)")
+        else:
+            limit, reason = 0.0, "bitwise (the fused march sums in a fixed order)"
+        print(f"[11a] {arm}: a replay of the captured bundle against {BUNDLE} uncaptured "
+              f"steps from the same state: {n_diff} of {len(captured)} tensors (parameters, "
+              f"optimizer states, step, generator, losses) differ, largest |diff| "
+              f"{worst:.3e} ({name}) | limit {limit:.3e}: {reason} | losses "
+              f"{float(losses[0]):.6f} .. {float(losses[-1]):.6f}", flush=True)
+        check(worst <= limit and (limit > 0 or n_diff == 0),
+              f"{arm}: the captured bundle differs from the uncaptured steps: {n_diff} "
+              f"tensors, {worst:.3e} ({name}), limit {limit:.3e}")
+
+        # (b) two replays under the profiler: the kernels inside the graph
+        prof_ms, busy, idle, per_step = busy_of_replays(loop, 2, arm, "11b")
+        print(f"[11b] {arm}: two replays profiled: {prof_ms:.2f} ms/step host clock "
+              f"(profiler on) | busy {busy:.2f} ms/step | idle share {idle:.4f} of the span "
+              f"| kernels per step by name: {per_step}", flush=True)
+
+        # (c) host clock, uncaptured / captured / captured / uncaptured
+        (u1, c1, c2, u2), peak_u = interleaved_ms(loop, 2)
+        n_rays = loop.tcfg.n_rays
+        print(f"[11c] {arm}, {n_rays} x 128: ms/step uncaptured {u1:.2f} / captured {c1:.2f} "
+              f"/ captured {c2:.2f} / uncaptured {u2:.2f} | speed-up "
+              f"{(u1 + u2) / (c1 + c2):.3f}x, {2e3 * n_rays / (c1 + c2):.0f} rays/s captured | "
+              f"idle share unprofiled (1 - busy / host ms): captured "
+              f"{1 - 2 * busy / (c1 + c2):.4f}, uncaptured {1 - 2 * busy / (u1 + u2):.4f} | "
+              f"peak memory uncaptured {peak_u:.2f} GiB, warm-up + capture + replay "
+              f"{peak_cap:.2f} GiB, reserved with the graph's pool "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB | capture call "
+              f"{capture_s:.2f} s, arm {time.perf_counter() - t_arm:.1f} s", flush=True)
+        res[arm] = {"u": (u1, u2), "c": (c1, c2), "busy": busy, "idle": idle,
+                    "peak_u": peak_u, "peak_cap": peak_cap}
+        del loop, runs, captured, s0
+        torch.cuda.empty_cache()
+
+    # (c) at bench.py's shape: every arm whose uncaptured steps fit beside
+    # a captured bundle's pool of their own size
+    for arm in ARMS:
+        t_arm = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(arm_cfg(arm, bench=True), device=device)
+        rcfg = loop.tcfg.renderer
+        check(loop.tcfg.n_rays == 2048 and rcfg.n_samples + rcfg.n_importance == 512,
+              f"bench shape not reached: {loop.tcfg.n_rays} x {rcfg.n_samples}"
+              f"+{rcfg.n_importance}")
+        if arm == "auto":
+            u = host_ms(lambda: [loop.training_step() for _ in range(BUNDLE)], BUNDLE)
+            peak_u = torch.cuda.max_memory_allocated() / 2 ** 30
+            if 2 * peak_u > 0.9 * card_gib:
+                print(f"[11c] auto, 2048 x 512: uncaptured {u:.2f} ms/step, peak memory "
+                      f"{peak_u:.2f} GiB; captured not run: a bundle's pool of that size "
+                      f"beside the uncaptured steps' needs ~{2 * peak_u:.0f} GiB of the "
+                      f"card's {card_gib:.0f}", flush=True)
+                del loop
+                torch.cuda.empty_cache()
+                continue
+        loop.run(loop.state.step + 2 * BUNDLE)  # warm-up bundle + capture, one replay
+        peak_cap = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, busy, idle, _ = busy_of_replays(loop, 1, arm, "11c")
+        (u1, c1, c2, u2), peak_u = interleaved_ms(loop, 1)
+        print(f"[11c] {arm}, 2048 x 512 (bench.py's shape): ms/step uncaptured {u1:.2f} / "
+              f"captured {c1:.2f} / captured {c2:.2f} / uncaptured {u2:.2f} | speed-up "
+              f"{(u1 + u2) / (c1 + c2):.3f}x, {2 * 2048e3 / (c1 + c2):.0f} rays/s captured | "
+              f"busy {busy:.2f} ms/step, idle share profiled {idle:.4f}, unprofiled captured "
+              f"{1 - 2 * busy / (c1 + c2):.4f}, uncaptured {1 - 2 * busy / (u1 + u2):.4f} | "
+              f"peak memory uncaptured {peak_u:.2f} GiB, warm-up + capture + replay "
+              f"{peak_cap:.2f} GiB | arm {time.perf_counter() - t_arm:.1f} s", flush=True)
+        res[f"{arm}_bench"] = {"u": (u1, u2), "c": (c1, c2), "busy": busy}
+        del loop
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2392,21 +2659,23 @@ def main() -> int:
     # ---- phase 3: the main path ----
     cfg = config_from_dict(SMOKE_CFG)
     loop = TrainLoop(cfg, device=device)
+    check(loop.k_steps == BUNDLE, f"the loop bundles {loop.k_steps} steps, want {BUNDLE}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_launch_counts(loop)
     t0 = time.perf_counter()
     losses = loop.run(STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches_training = launch_counts()
+    launches_training = launch_counts(loop)
     launches = launches_training["sdf_rays"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    print(f"[3] {STEPS} steps: {wall * 1e3 / STEPS:.2f} ms/step incl. first step | "
-          f"loss {first:.5f} -> {last:.5f} | sweep launches {launches} | "
-          f"peak memory {peak_gb:.2f} GiB", flush=True)
+    print(f"[3] {STEPS} steps in bundles of {loop.k_steps} ({loop.multi_step.replays} "
+          f"replays of the captured bundle): {wall * 1e3 / STEPS:.2f} ms/step incl. the "
+          f"warm-up bundle and the capture | loss {first:.5f} -> {last:.5f} | sweep launches "
+          f"{launches} | peak memory {peak_gb:.2f} GiB", flush=True)
     check(launches == SWEEPS_PER_STEP * STEPS,
           f"sweep kernel launched {launches} times, want {SWEEPS_PER_STEP * STEPS}")
     check(all(x == x and abs(x) != float("inf") for x in losses), f"non-finite loss {losses}")
@@ -2420,8 +2689,9 @@ def main() -> int:
     loop.run(STEPS + 20)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 20
-    print(f"[3] steady state: {step_ms:.2f} ms/step | {n_rays / step_ms * 1e3:.0f} rays/s "
-          f"(fwd+bwd, {n_rays} rays x {n_spp} samples)", flush=True)
+    print(f"[3] steady state (2 replays): {step_ms:.2f} ms/step | "
+          f"{n_rays / step_ms * 1e3:.0f} rays/s (fwd+bwd, {n_rays} rays x {n_spp} samples)",
+          flush=True)
 
     # ---- phase 4: kernel vs plain on the trained weights, main-path rays and z ----
     dt, sweeps = main_path_sweeps(loop, SEED + 100)
@@ -2473,6 +2743,14 @@ def main() -> int:
           f"{march['step_ms']:.2f}) | peak memory {data['peak_gb']:.2f} GiB | res-{EVAL_RES} "
           f"extraction {data['extract_s']:.2f} s | IHO camera leaves vs the f32 core: worst "
           f"{data['iho_cam_err']:.3e}", flush=True)
+
+    # ---- phase 11: several steps per dispatch, a captured bundle per arm ----
+    t0 = time.perf_counter()
+    bundles = bundle_phase(device, data)
+    print(f"[11] summary ({time.perf_counter() - t0:.1f} s): host ms/step uncaptured -> "
+          f"captured, config shape: " + ", ".join(
+              f"{k} {sum(r['u']) / 2:.2f} -> {sum(r['c']) / 2:.2f}" for k, r in bundles.items()),
+          flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and

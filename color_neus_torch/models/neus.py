@@ -60,9 +60,28 @@ def init_renderer(rcfg: RendererConfig, generator, device="cpu") -> nn.ModuleDic
 # Shared compositing math
 # ---------------------------------------------------------------------------
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod over the last axis of entries that are never 0, with
+    torch's gradient for that case (the reversed cumsum of grad * out over
+    the input) but without the host check for zeros its backward makes
+    (`.item()`), which a captured step cannot run."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(y * g, [-1]), dim=-1), [-1]) / x
+
+
 def exclusive_cumprod_weights(alpha: torch.Tensor) -> torch.Tensor:
-    """weights = alpha * prod_{j<i} (1 - alpha_j + 1e-7)  (NeuS.py:269-270)."""
-    trans = torch.cumprod(1.0 - alpha + 1e-7, dim=-1)
+    """weights = alpha * prod_{j<i} (1 - alpha_j + 1e-7)  (NeuS.py:269-270);
+    alpha lies in [0, 1], so no factor is 0."""
+    trans = _CumprodNonzero.apply(1.0 - alpha + 1e-7)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
     return alpha * trans
 

@@ -12,11 +12,17 @@ draws them, train_step_pixels renders them (render_pixels) and updates
 the state. The JAX package's render_random_rays is sample_pixels followed
 by render_pixels. render_image renders a whole camera without gradients
 (the validation view).
+
+Everything a step reads from the step count (the learning rate, the
+masked samplers' share) is computed on the device from the state's
+counter, so make_train_multi_step can capture a bundle of steps into one
+CUDA graph and replay it.
 """
 
 from __future__ import annotations
 
 import math
+from collections import Counter
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -123,22 +129,36 @@ def trainer_config_from_cfg(cfg: dict, H: int, W: int, n_cams: int) -> TrainerCo
 # Learning rate, clipping, optimizer
 # ---------------------------------------------------------------------------
 
+def _div(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d, rounded as one f32 division on every device (CUDA divides by
+    a Python scalar as a product with its reciprocal, an ulp off at times)."""
+    return x / torch.full_like(x, d)
+
+
+def _step_f32(step) -> torch.Tensor:
+    """The step (an int or a 0-d tensor) as a 0-d f32 tensor on its device."""
+    return torch.as_tensor(step).to(torch.float32)
+
+
 def neus_lr_schedule(cfg: TrainerConfig):
-    """Linear warm-up then cosine decay to lr*alpha (net_utils.py:56-78)."""
-    def sched(step: int) -> float:
-        if step < cfg.warm_up:
-            return cfg.lr * step / max(cfg.warm_up, 1)
-        progress = (step - cfg.warm_up) / max(cfg.iterations - cfg.warm_up, 1)
-        progress = min(max(progress, 0.0), 1.0)
-        return cfg.lr * ((math.cos(math.pi * progress) + 1.0) * 0.5 * (1 - cfg.lr_alpha)
-                         + cfg.lr_alpha)
+    """Linear warm-up then cosine decay to lr*alpha (net_utils.py:56-78),
+    in f32 from the step as the JAX package computes it: a 0-d f32 tensor
+    on the step's device (no host read, so a captured step keeps it)."""
+    def sched(step) -> torch.Tensor:
+        step = _step_f32(step)
+        warm = _div(step, max(cfg.warm_up, 1))
+        progress = _div(step - cfg.warm_up, max(cfg.iterations - cfg.warm_up, 1))
+        cos = ((torch.cos(math.pi * torch.clamp(progress, 0.0, 1.0)) + 1.0) * 0.5
+               * (1 - cfg.lr_alpha) + cfg.lr_alpha)
+        return cfg.lr * torch.where(step < cfg.warm_up, warm, cos)
     return sched
 
 
 def nerf_lr_schedule(cfg: TrainerConfig):
-    """Exponential decay lr * gamma^(step/decay_steps) (net_utils.py:40-53)."""
-    def sched(step: int) -> float:
-        return cfg.lr * cfg.gamma ** (step / cfg.decay_steps)
+    """Exponential decay lr * gamma^(step/decay_steps) (net_utils.py:40-53),
+    in f32 on the step's device."""
+    def sched(step) -> torch.Tensor:
+        return cfg.lr * cfg.gamma ** _div(_step_f32(step), cfg.decay_steps)
     return sched
 
 
@@ -160,15 +180,23 @@ def clip_per_leaf(params: nn.Module, max_norm: float) -> None:
 
 
 def make_optimizer(cfg: TrainerConfig, params: nn.Module) -> torch.optim.Optimizer:
-    """Optimizer families of build_optimizer_nerf (net_utils.py:81-106);
-    the lr is set from the schedule before every step."""
+    """Optimizer families of build_optimizer_nerf (net_utils.py:81-106).
+    The lr is a 0-d tensor on the parameters' device that every step
+    overwrites from the schedule; on CUDA Adam and RMSprop are capturable
+    (their step counts and bias corrections stay on the device). SGD reads
+    a tensor lr on the host, so it cannot be captured (MultiStep raises)."""
+    dev = next(params.parameters()).device
+    lr = torch.zeros((), dtype=torch.float32, device=dev)
+    capturable = dev.type == "cuda"
     kind = cfg.optimizer.lower()
     if kind == "adam":
-        return torch.optim.Adam(params.parameters(), lr=0.0, betas=(0.9, 0.99), eps=1e-8)
+        return torch.optim.Adam(params.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8,
+                                capturable=capturable)
     if kind == "rmsprop":
-        return torch.optim.RMSprop(params.parameters(), lr=0.0, alpha=0.99, eps=1e-8)
+        return torch.optim.RMSprop(params.parameters(), lr=lr, alpha=0.99, eps=1e-8,
+                                   capturable=capturable)
     if kind == "sgd":
-        return torch.optim.SGD(params.parameters(), lr=0.0)
+        return torch.optim.SGD(params.parameters(), lr=lr)
     raise NotImplementedError(f"optimizer {cfg.optimizer}")
 
 
@@ -179,10 +207,23 @@ def make_optimizer(cfg: TrainerConfig, params: nn.Module) -> torch.optim.Optimiz
 @dataclass
 class TrainState:
     """params: nn.ModuleDict {renderer, focal, pose} with the JAX pytree's
-    leaves; optimizer over all of them; step: optimisation steps taken."""
+    leaves; optimizer over all of them; step: optimisation steps taken, on
+    the host; step_t: the same count as a 0-d int64 tensor on the
+    parameters' device, which the step reads and increments there. The
+    host never reads step_t back: it counts along (set_step sets both)."""
     params: nn.ModuleDict
     optimizer: torch.optim.Optimizer
     step: int = 0
+    step_t: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.step_t is None:
+            dev = next(self.params.parameters()).device
+            self.step_t = torch.tensor(self.step, dtype=torch.int64, device=dev)
+
+    def set_step(self, step: int) -> None:
+        self.step = step
+        self.step_t.fill_(step)
 
 
 def init_state(cfg: TrainerConfig, generator, device, init_focal_np=None) -> TrainState:
@@ -252,15 +293,17 @@ def compute_loss(cfg: TrainerConfig, render: dict):
 # Pixels -> rays -> render
 # ---------------------------------------------------------------------------
 
-def _mask_rate_at(cfg: TrainerConfig, step: int) -> np.float32:
-    """The in-mask share at `step`, in f32 as the JAX package computes it."""
+def _mask_rate_at(cfg: TrainerConfig, step) -> torch.Tensor:
+    """The in-mask share at `step` (an int or a 0-d tensor), in f32 as the
+    JAX package computes it: a 0-d tensor on the step's device."""
     m0, m1 = cfg.mask_rate
-    return np.float32(m0) + np.float32(m1 - m0) * np.float32(step) / np.float32(cfg.iterations)
+    return m0 + _div((m1 - m0) * _step_f32(step), cfg.iterations)
 
 
-def sample_pixels(cfg: TrainerConfig, images, masks, step: int, generator):
-    """(cam_sel, py, px, sel_mask) for one step; sel_mask is None without
-    masks. cam_sel indexes the image batch."""
+def sample_pixels(cfg: TrainerConfig, images, masks, step, generator):
+    """(cam_sel, py, px, sel_mask) for one step (an int or the state's
+    device counter); sel_mask is None without masks. cam_sel indexes the
+    image batch."""
     B, H, W = images.shape[:3]
     if cfg.include_mask and masks is not None:
         sampler = (sample_pixels_masked_exact if cfg.mask_sample_mode == "exact"
@@ -306,7 +349,6 @@ def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_
                       cam_sel, py, px, sel_mask, generator) -> dict:
     """One optimisation step on the given pixels; updates `state` in place
     and returns the step's metrics as 0-d tensors (no host sync)."""
-    step = state.step
     state.optimizer.zero_grad(set_to_none=True)
     render = render_pixels(state.params, scene, cfg, images, img_ids, cam_sel, py, px,
                            sel_mask, generator)
@@ -314,11 +356,12 @@ def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_
     loss.backward()
     if cfg.grad_clip_enabled:
         clip_per_leaf(state.params, cfg.grad_clip_norm)
-    lr = lr_schedule(cfg)(step)
+    lr = lr_schedule(cfg)(state.step_t)
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"].copy_(lr)
     state.optimizer.step()
-    state.step = step + 1
+    state.step_t.add_(1)
+    state.step += 1
 
     aux = {k: v.detach() for k, v in loss_dict.items()}
     aux["s_val"] = torch.mean(render["s_val"]).detach()
@@ -330,7 +373,7 @@ def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_
 def train_step(state: TrainState, scene, cfg: TrainerConfig, images, masks, img_ids,
                generator) -> dict:
     """One optimisation step on freshly sampled pixels of the image batch."""
-    cam_sel, py, px, sel_mask = sample_pixels(cfg, images, masks, state.step, generator)
+    cam_sel, py, px, sel_mask = sample_pixels(cfg, images, masks, state.step_t, generator)
     return train_step_pixels(state, scene, cfg, images, img_ids, cam_sel, py, px,
                              sel_mask, generator)
 
@@ -344,6 +387,108 @@ def full_data_step(state: TrainState, scene, cfg: TrainerConfig, images, masks,
     img_ids = torch.randperm(n_imgs, generator=generator, device=images.device)[:b]
     masks_b = masks[img_ids] if masks is not None else None
     return train_step(state, scene, cfg, images[img_ids], masks_b, img_ids, generator)
+
+
+def _captured_tensors(state: TrainState, scene, images, masks) -> list:
+    """Every tensor a captured bundle reads or writes in place whose
+    storage outlives it: the parameters, the optimizer's state and lr, the
+    step counter, the scene and the dataset."""
+    opt = state.optimizer
+    out = list(state.params.parameters()) + [state.step_t, images, *scene.values()]
+    out += [v for st in opt.state.values() for v in st.values() if torch.is_tensor(v)]
+    out += [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
+    return out + ([masks] if masks is not None else [])
+
+
+class MultiStep:
+    """k_steps full-data steps per call (make_train_multi_step):
+    multi(state, scene, images, masks, generator) -> (state, aux of the
+    last step with "loss_mean" over the bundle, the bundle's losses [k]).
+
+    On the CPU a call is a loop of k_steps steps. On CUDA the first call
+    runs a warm-up bundle of real steps on a side stream (it builds the
+    kernels, fills their caches and creates the optimizer's state), then
+    captures k_steps steps into one torch.cuda.CUDAGraph with the
+    generator registered; every later call replays the graph once. The
+    graph holds the storage of the tensors it was captured on: a call on
+    other storage (a checkpoint load replaces the optimizer's state; another
+    state or dataset) drops it and captures anew after a warm-up bundle. A
+    capture that fails raises; there is no uncaptured path on CUDA besides
+    the warm-up bundle. `captured` holds the kernel launches (the
+    wrappers' counts) one replay makes; `recorded` and `replayed` add up
+    those of every capture and every replay, `replays` counts replays."""
+
+    def __init__(self, cfg: TrainerConfig, n_imgs: int, batch_size: int, k_steps: int):
+        if k_steps < 1:
+            raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        self.cfg, self.batch_size, self.k_steps = cfg, min(batch_size, n_imgs), k_steps
+        self.graph = None
+        self._out = self._bound = None
+        self.captured, self.recorded, self.replayed = Counter(), Counter(), Counter()
+        self.replays = 0
+
+    def steps(self, state, scene, images, masks, generator):
+        """k_steps uncaptured steps: (aux of the last + loss_mean, losses [k])."""
+        auxs = [full_data_step(state, scene, self.cfg, images, masks, self.batch_size,
+                               generator) for _ in range(self.k_steps)]
+        losses = torch.stack([a["loss"] for a in auxs])
+        return dict(auxs[-1], loss_mean=torch.mean(losses)), losses
+
+    def __call__(self, state: TrainState, scene, images, masks, generator):
+        if images.device.type != "cuda":
+            return (state, *self.steps(state, scene, images, masks, generator))
+        bound = [generator] + [t.data_ptr() for t in _captured_tensors(state, scene, images,
+                                                                          masks)]
+        if self.graph is None or bound != self._bound:
+            return (state, *self._capture(state, scene, images, masks, generator))
+        self.graph.replay()
+        state.step += self.k_steps
+        self.replays += 1
+        self.replayed.update(self.captured)
+        aux, losses = self._out
+        return state, {k: v.clone() for k, v in aux.items()}, losses.clone()
+
+    def _capture(self, state, scene, images, masks, generator):
+        from color_neus_torch.ops.kernels import launch_counts
+        if self.cfg.optimizer.lower() == "sgd":
+            raise NotImplementedError(
+                "a captured bundle needs an optimizer that reads its tensor lr on the "
+                "device: torch's SGD reads it on the host, so SGD cannot bundle steps on "
+                "CUDA (set intervals that are not multiples of LOG_INTERVAL for one "
+                "step per dispatch)")
+        self.graph = self._out = None            # a stale graph's pool goes first
+        dev = images.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            out = self.steps(state, scene, images, masks, generator)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        step, before = state.step, launch_counts()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                outs = self.steps(state, scene, images, masks, generator)
+        except Exception as e:
+            raise RuntimeError(f"capturing a bundle of {self.k_steps} training steps "
+                               f"failed: {e}") from e
+        finally:
+            state.step = step                    # capture records the steps, runs none
+        after = launch_counts()
+        self.captured = Counter({k: after[k] - before[k] for k in after
+                                 if after[k] > before[k]})
+        self.recorded.update(self.captured)
+        self.graph, self._out = graph, outs
+        self._bound = [generator] + [t.data_ptr() for t in _captured_tensors(
+            state, scene, images, masks)]
+        return out
+
+
+def make_train_multi_step(cfg: TrainerConfig, n_imgs: int, batch_size: int,
+                          k_steps: int) -> MultiStep:
+    """K optimisation steps per dispatch (the JAX package's lax.scan
+    bundle, trainer.py:377-395): on CUDA one replay of a captured graph."""
+    return MultiStep(cfg, n_imgs, batch_size, k_steps)
 
 
 # ---------------------------------------------------------------------------

@@ -83,13 +83,20 @@ def sample_pixels_uniform(generator, n_cams: int, H: int, W: int, n_rays: int,
     return cam_idx, pix // W, pix % W
 
 
+def _share(mask_rate, dev) -> torch.Tensor:
+    """The in-mask share (a float or a 0-d tensor, the trainer's on the
+    device) as a 0-d f32 tensor on dev."""
+    return torch.as_tensor(mask_rate, dtype=torch.float32, device=dev)
+
+
 def sample_pixels_masked(generator, masks: torch.Tensor, n_rays: int, mask_rate):
     """Bernoulli mask-aware sampling, with replacement: each ray lands
     in-mask with probability mask_rate, uniformly over the in-mask pixels
-    of the batch (uniformly over background otherwise).
-    Returns (cam_idx, py, px, sel_mask), each [R]."""
+    of the batch (uniformly over background otherwise). Nothing is read
+    on the host. Returns (cam_idx, py, px, sel_mask), each [R]."""
     B, H, W = masks.shape
     dev = masks.device
+    mask_rate = _share(mask_rate, dev)
     flat = masks.reshape(-1) > 0.5
     cin = torch.cumsum(flat.to(torch.int64), 0)
     cout = torch.cumsum((~flat).to(torch.int64), 0)
@@ -114,24 +121,25 @@ def sample_pixels_masked(generator, masks: torch.Tensor, n_rays: int, mask_rate)
 
 
 def sample_pixels_masked_exact(generator, masks: torch.Tensor, n_rays: int,
-                               mask_rate: float):
+                               mask_rate):
     """Exact-count masked split (the default, reference ray_utils.py:61-76):
     n_in = int(mask_rate * n_rays) rays in-mask (clamped to the in-mask
     pixel count), the rest on background, each set drawn without
     replacement, uniformly — Gumbel-top-k over the flattened pixels
-    (uniform key per pixel, top n_rays per set), spliced at n_in.
+    (uniform key per pixel, top n_rays per set), spliced at n_in. n_in is
+    computed on the device from the share (a float or a 0-d tensor), in
+    f32 and truncated as the JAX package does: nothing is read on the host.
     Returns (cam_idx, py, px, sel_mask), each [R]."""
     B, H, W = masks.shape
     dev = masks.device
     flat = masks.reshape(-1) > 0.5
-    neg = torch.tensor(float("-inf"), device=dev)
     gi = torch.rand(flat.shape, generator=generator, device=dev)
     go = torch.rand(flat.shape, generator=generator, device=dev)
-    in_cand = torch.topk(torch.where(flat, gi, neg), n_rays).indices
-    out_cand = torch.topk(torch.where(flat, neg, go), n_rays).indices
+    in_cand = torch.topk(gi.masked_fill(~flat, float("-inf")), n_rays).indices
+    out_cand = torch.topk(go.masked_fill(flat, float("-inf")), n_rays).indices
     m_in = torch.sum(flat.to(torch.int64))
     m_out = flat.numel() - m_in
-    n_in = torch.tensor(int(mask_rate * n_rays), device=dev)   # int() truncation
+    n_in = (_share(mask_rate, dev) * n_rays).to(torch.int64)   # int() truncation
     n_in = torch.minimum(n_in, torch.clamp_max(m_in, n_rays))
     # defensive (the reference assumes enough background pixels exist)
     n_in = torch.maximum(n_in, n_rays - torch.clamp_max(m_out, n_rays))

@@ -59,15 +59,15 @@ def convert3x4_4x4(mat: torch.Tensor) -> torch.Tensor:
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip: the values of torch.clamp, but a gradient that splits a
     tie at a bound 0.5 / 0.5, as jnp.clip's does (torch.clamp passes all
-    of it)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    of it). The bounds are filled on x's device (no host copy)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """logit with the reference's clamping (transform.py:304-320); ties
     split the gradient as jnp.clip and jnp.maximum do."""
     x = clip(x, 0.0, 1.0)
-    e = x.new_tensor(eps)
+    e = x.new_full((), eps)
     x1 = torch.maximum(x, e)
     x2 = torch.maximum(1.0 - x, e)
     return torch.log(x1 / x2)

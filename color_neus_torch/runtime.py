@@ -7,6 +7,12 @@ directory's checkpoint with its generator), and runs full-data steps
 (image batch and pixels drawn on the device), logging loss, psnr and lr
 every LOG_INTERVAL steps.
 
+Steps run in bundles of k_steps = LOG_INTERVAL when the save, image and
+mesh intervals and ITERATIONS are all multiples of it (the JAX package's
+rule, bundle_steps), else one by one: on CUDA a bundle is one replay of a
+captured CUDA graph (trainer.make_train_multi_step), on the CPU a loop.
+Everything below happens at bundle boundaries.
+
 Given an experiment id or a directory to resume (as the CLIs give them),
 the loop also records: the per-step scalars at every log step, a
 checkpoint every SAVE_INTERVAL steps, at the end and where it stops, a
@@ -48,6 +54,17 @@ def depth_colormap(depth: np.ndarray) -> np.ndarray:
     return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
 
 
+def bundle_steps(train_cfg) -> int:
+    """Steps per dispatch (color_neus_tpu/runtime.py:104-109): LOG_INTERVAL
+    when SAVE_INTERVAL, VIZ_IMAGE_INTERVAL, VIZ_MESH_INTERVAL and ITERATIONS
+    are all multiples of it, so no event falls inside a bundle; else 1."""
+    log_int = max(train_cfg.get("LOG_INTERVAL", 10), 1)
+    intervals = [train_cfg.get(k, 10000) for k in ("SAVE_INTERVAL", "VIZ_IMAGE_INTERVAL",
+                                                   "VIZ_MESH_INTERVAL")]
+    intervals.append(train_cfg.get("ITERATIONS", 100000))
+    return log_int if all(i % log_int == 0 for i in intervals) else 1
+
+
 class TrainLoop:
     def __init__(self, cfg, device=None, exp_id: str | None = None, resume: str | None = None,
                  snapshot: int = 50, require_clean_git: bool = True):
@@ -74,6 +91,10 @@ class TrainLoop:
         self.masks = (torch.as_tensor(all_data["masks"], device=self.device)
                       if all_data["masks"] is not None else None)
         self.batch_size = cfg["TRAIN"]["BATCH_SIZE"]
+        self.k_steps = bundle_steps(cfg["TRAIN"])
+        self.multi_step = (TR.make_train_multi_step(self.tcfg, self.n_imgs, self.batch_size,
+                                                    self.k_steps)
+                           if self.k_steps > 1 else None)
         logger.info("config:%s", format_cfg(cfg.to_dict() if hasattr(cfg, "to_dict") else cfg))
 
         self.recorder, self.writer = None, None
@@ -105,22 +126,31 @@ class TrainLoop:
         return TR.full_data_step(self.state, self.scene, self.tcfg, self.images, self.masks,
                                  self.batch_size, self.generator)
 
+    def training_bundle(self):
+        """k_steps steps in one dispatch: (aux of the last step with
+        loss_mean, the bundle's losses [k])."""
+        _, aux, losses = self.multi_step(self.state, self.scene, self.images, self.masks,
+                                         self.generator)
+        return aux, losses
+
     def run(self, iterations: int | None = None, stop_after: int | None = None,
             profile_dir: str | None = None) -> torch.Tensor:
         """Train to `iterations` (default TRAIN.ITERATIONS) steps in total;
         returns the loss of every step run here, on the host.
 
-        stop_after stops at that step, with a checkpoint. SIGTERM and SIGINT
-        stop at the next step boundary, with a checkpoint, and return (the
-        reference's recovery model: rerun with --resume, train.py:54-55);
-        the previous handlers are back when run returns or raises.
-        profile_dir receives a torch.profiler trace of the first two steps
-        (trace.json)."""
+        A step count that is a multiple of k_steps starts a bundle when the
+        whole bundle fits below `iterations`; other steps run one by one.
+        stop_after stops at the first boundary at or past that step, with a
+        checkpoint. SIGTERM and SIGINT stop at the next boundary, with a
+        checkpoint, and return (the reference's recovery model: rerun with
+        --resume, train.py:54-55); the previous handlers are back when run
+        returns or raises. profile_dir receives a torch.profiler trace of the
+        first two bundles (trace.json)."""
         interrupted = []
 
         def on_signal(signum, frame):
             interrupted.append(signum)
-            logger.warning("signal %d: will checkpoint and stop at the next step boundary",
+            logger.warning("signal %d: will checkpoint and stop at the next bundle boundary",
                            signum)
 
         previous = {}
@@ -144,8 +174,10 @@ class TrainLoop:
         save_int = t.get("SAVE_INTERVAL", 10000)
         viz_img_int = t.get("VIZ_IMAGE_INTERVAL", 10000)
         viz_mesh_int = t.get("VIZ_MESH_INTERVAL", 10000)
+        k = self.k_steps
         start = self.state.step
-        logger.info("training on %s: steps %d..%d", self.device, start, iterations)
+        logger.info("training on %s: steps %d..%d (%d steps/dispatch)", self.device, start,
+                    iterations, k)
         prof = None
         if profile_dir:
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
@@ -155,10 +187,15 @@ class TrainLoop:
         t0 = time.perf_counter()
         try:
             while self.state.step < iterations:
-                aux = self.training_step()
-                losses.append(aux["loss"])
                 step = self.state.step
-                if prof is not None and (step - start >= 2 or step >= iterations):
+                if k > 1 and step % k == 0 and step + k <= iterations:
+                    aux, bundle = self.training_bundle()
+                    losses.append(bundle)
+                else:
+                    aux = self.training_step()
+                    losses.append(aux["loss"][None])
+                step = self.state.step
+                if prof is not None and (step - start >= 2 * k or step >= iterations):
                     prof.stop()
                     os.makedirs(profile_dir, exist_ok=True)
                     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
@@ -181,7 +218,7 @@ class TrainLoop:
             if prof is not None:
                 prof.stop()
         logger.info("training done.")
-        return torch.stack(losses).cpu() if losses else torch.zeros(0)
+        return torch.cat(losses).cpu() if losses else torch.zeros(0)
 
     def log_step(self, step: int, aux: dict, rays_per_s: float) -> None:
         """The log line and, when recording, the scalars of one log step."""

@@ -76,7 +76,7 @@ def load_checkpoint(path: str, state, generator=None) -> None:
         sd["state"] = {index[id(params[name])]: {k: torch.from_numpy(v) for k, v in st.items()}
                        for name, st in optim.items()}
         state.optimizer.load_state_dict(sd)
-        state.step = int(data["step"])
+        state.set_step(int(data["step"]))
         if generator is not None:
             if "generator" not in data.files:
                 raise ValueError(f"{path}: holds no generator state")

@@ -333,3 +333,28 @@ def test_cuda_mlp_chain_matches_plain(cuda_device, bf16):
                 assert MC.launch_chain_deferred.launches == before + 1
                 torch.testing.assert_close(got, MC.chain_deferred_plain(xs, w, L, gw), rtol=0,
                                            atol=atol, msg=f"deferred gate {gw} L {L}")
+
+
+@pytest.mark.cuda
+def test_cuda_captured_bundle_equals_uncaptured_steps(cuda_device):
+    """Full-width fused march, bundles of 10: the loop warms up, captures
+    and replays; then, from one state, a replay of the captured bundle
+    equals 10 uncaptured steps bitwise (parameters, Adam's state, the step
+    counter, the generator, the losses), and each replay runs the captured
+    launches (4 sweeps, one march forward and backward a step)."""
+    from chip_smoke import BUNDLE, arm_cfg, restore, state_tensors, tensors_distance
+    from color_neus_torch.runtime import TrainLoop
+    loop = TrainLoop(arm_cfg("fused_march"), device=cuda_device)
+    assert loop.k_steps == BUNDLE
+    loop.run(2 * BUNDLE)
+    ms = loop.multi_step
+    assert ms.graph is not None and ms.replays == 1
+    assert dict(ms.captured) == {"sdf_rays": 4 * BUNDLE, "ray_march": BUNDLE,
+                                 "ray_march_bwd": BUNDLE}
+    step, s0 = loop.state.step, state_tensors(loop)
+    losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
+    eager = dict(state_tensors(loop), losses=losses)
+    restore(loop, s0, step)
+    _, losses = loop.training_bundle()
+    assert ms.replays == 2 and loop.state.step == step + BUNDLE
+    assert tensors_distance(eager, dict(state_tensors(loop), losses=losses))[0] == 0
