@@ -12,7 +12,9 @@ Phases; any failure exits non-zero and prints no result:
      ptxas report, their registers, resident blocks per SM and FCHK / CALL
      counts printed; rows 4 and 6 must show HGMMA and a bulk copy (the
      weight slabs and the weight-grad operands), with 0 bytes of spills,
-     their registers printed; rows 1-2's
+     their registers printed; rows 3 and 4's save-mode entries
+     (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) are held as
+     rows 3 and 4; rows 1-2's
      kernel variants print HMMA, their weight ring's bulk copies (UBLKCP),
      FCHK and every CALL, and their resident blocks per SM: the bf16 ones
      must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
@@ -106,13 +108,23 @@ Phases; any failure exits non-zero and prints no result:
      + 6 + torch compositing. Then the clip's tie rule: 1024 rays x 8
      samples deep inside the surface, every point at q == 1 exactly
      (tie_inputs), the kernel's inv_s gradient against the bf16 twin in
-     float64 (a tie gate of 1.0 would double it).
+     float64 (a tie gate of 1.0 would double it). The save mode's pair
+     (the forward's save entry, which also writes the activation stash,
+     and the backward's load entry, which reads it instead of recomputing)
+     the same way on the same inputs against the save twins, at the same
+     limits, with its stash bytes a point beside the JAX package's, its
+     distance from the recompute pair on every leaf, and its times beside
+     its bound (no recompute in the backward's MACs, the stash's bytes) and
+     its bf16 save twins; and on the tie rays.
   8. the training path through the fused march: as phase 7 with
-     RENDERER.FUSED_MARCH on: the march's forward and backward once each
-     per step, the sweep 4 times, neither point-pipeline kernel; ms/step
-     beside phases 3 and 7, peak memory and a 1-step profile; one step's
-     leaf gradients, fused_march on against off (the f32 plain core), at
-     phase 7's limits.
+     RENDERER.FUSED_MARCH on, MARCH_ACTS at its default (auto: the save
+     mode at this shape): the save entry and the load entry once each per
+     step, the sweep 4 times, no other kernel; ms/step beside phases 3 and
+     7, peak memory and a 1-step profile; one step's leaf gradients,
+     fused_march on against off (the f32 plain core), at phase 7's limits;
+     then a loop with MARCH_ACTS recompute: 20 steps launch the recompute
+     pair once each per step, and host ms/step and peak memory of save and
+     recompute, interleaved in one process.
   9. the MLP-chain microbenchmark (csrc/mlp_chain.cu, rows 7 and 8): the
      tool's sweep through python -m color_neus_torch.tools.mlp_microbench's
      main at its full shape (1,048,576 rows x 256, 25 layers), launches
@@ -133,8 +145,8 @@ Phases; any failure exits non-zero and prints no result:
      one decode of a PNG whose rows take filter 3 / 4; (b) TrainLoop on
      config/Color_NeuS_dtu.yml as shipped with FUSED_MARCH on and the
      entry point's default device: 60 steps straight (every loss finite,
-     the last 5 below the first 5, 4 sweeps and one march forward and
-     backward per step, no point-pipeline kernel, peak memory), and 30
+     the last 5 below the first 5, 4 sweeps and one march save forward and
+     load backward per step, no point-pipeline kernel, peak memory), and 30
      steps stopped by stop_after then resumed by a new TrainLoop from the
      directory's dump_cfg.yaml to 60: every parameter, Adam state, the
      generator and every loss bitwise equal to the straight run's; the
@@ -149,8 +161,9 @@ Phases; any failure exits non-zero and prints no result:
      against the f32 plain core, at phase 7's limits, focal.fx / fy and
      pose.r / t included (their gradient comes only through row 4's ray
      cotangents), with per-camera cosines printed.
-  11. several steps per dispatch, per training arm (fused_march on,
-     fused_core on, auto) at phase 3's full width: one uncaptured step
+  11. several steps per dispatch, per training arm (fused_march on in
+     the save mode, fused_march on with MARCH_ACTS recompute, fused_core
+     on, auto) at phase 3's full width: one uncaptured step
      under torch.cuda.set_sync_debug_mode("error") (nothing in it may wait
      on the card); (a) a replay of the captured bundle against 10
      uncaptured steps from the same state: every parameter, optimizer
@@ -158,8 +171,8 @@ Phases; any failure exits non-zero and prints no result:
      (fused_core and auto: bitwise when two uncaptured runs are, else
      within BUNDLE_DISTANCE_FACTOR x their distance, printed beside it);
      (b) two replays under torch.profiler: the sweep 4 times per step and
-     the arm's forward and backward kernels once (rows 1, 3, 4 or 1, 5,
-     6) by name, busy ms/step and the idle share; (c) host ms/step
+     the arm's forward and backward kernels once (rows 1, 3, 4 in either
+     mode, or 1, 5, 6) by name, busy ms/step and the idle share; (c) host ms/step
      uncaptured / captured / captured / uncaptured, the idle share
      unprofiled (1 - busy / host ms) and peak memory, at the config's
      shape and at bench.py's 2048 x 512 (auto there uncaptured only when
@@ -296,6 +309,10 @@ MARCH_KINK_MARGIN = 1e-6
 # gate of 1.0 reads 1.0; the H100 read 8.4e-4.
 TIE_SAMPLES = 8
 RTOL_MARCH_TIE = 1e-2
+# the save mode's stash bytes a point at the Color-NeuS widths of
+# config/Color_NeuS_dtu.yml in the JAX package (its march_stash_bytes, read
+# on the CPU), printed beside the port's own
+JAX_STASH_BYTES_COLOR_NEUS = 13312
 # phase 9, the MLP chain (rows 7 + 8) at the tool's main shape: 1,048,576
 # rows (T 1024 x G 1024), 25 layers. Kernel against plain on the card, max
 # |diff|, set from the H100's readings (PERF.md, the MLP chain) with headroom.
@@ -333,8 +350,11 @@ STEADY_STEPS = 20
 # training arms; each arm's kernels a step launches (trace names)
 BUNDLE = 10
 BENCH_MODEL = {"N_RAYS": 2048, "RENDERER": {"N_SAMPLES": 256, "N_IMPORTANCE": 256}}
-ARMS = {"fused_march": {"FUSED_MARCH": "on"}, "fused_core": {"FUSED_CORE": "on"}, "auto": {}}
-ARM_KERNELS = {"fused_march": ("ray_march_fwd_kernel", "ray_march_bwd_kernel"),
+ARMS = {"fused_march": {"FUSED_MARCH": "on"},
+        "fused_march_recompute": {"FUSED_MARCH": "on", "MARCH_ACTS": "recompute"},
+        "fused_core": {"FUSED_CORE": "on"}, "auto": {}}
+ARM_KERNELS = {"fused_march": ("ray_march_save_fwd_kernel", "ray_march_load_bwd_kernel"),
+               "fused_march_recompute": ("ray_march_fwd_kernel", "ray_march_bwd_kernel"),
                "fused_core": ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel"),
                "auto": ()}
 # the two uncaptured runs of an arm whose gradients sum through atomics
@@ -589,14 +609,16 @@ def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
     copies (UBLKCP) and spills nothing (ptxas -v); the forward kernels
     (rows 3, 5) hold no mma.sync (HMMA.16816.F32.BF16). Registers are
     printed, and for the forward kernels their resident blocks per SM
-    (fwd_blocks_per_sm) and FCHK / CALL counts."""
+    (fwd_blocks_per_sm: {forward kernel: blocks}, one backward kernel per
+    forward one: ray_march.cu's recompute and save-mode pairs) and FCHK /
+    CALL counts."""
     rep = ptxas_report(kernel)
     seen = {"fwd": 0, "bwd": 0}
     for fn, c in sass_counts(lib_path).items():
         r = rep.get(fn, {})
         entry = "fwd" if fn.endswith("_fwd_kernel") else "bwd" if fn.endswith("_bwd_kernel") \
             else None
-        extra = (f" | {fwd_blocks_per_sm} resident blocks per SM | {c['FCHK']} FCHK, "
+        extra = (f" | {fwd_blocks_per_sm.get(fn)} resident blocks per SM | {c['FCHK']} FCHK, "
                  f"{len(c['CALL'])} CALL" if entry == "fwd" else "")
         print(f"[1] SASS {kernel} {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['HGMMA']} HGMMA, "
               f"{c['UBLKCP']} UBLKCP, {c['FFMA']} FFMA | {r.get('registers')} registers, spill "
@@ -611,7 +633,8 @@ def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
         check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"{fn}: spills or no ptxas report: {r}")
-    check(seen == {"fwd": 1, "bwd": 1}, f"{kernel}: kernels in the SASS {seen}, want one of each")
+    n = len(fwd_blocks_per_sm)
+    check(seen == {"fwd": n, "bwd": n}, f"{kernel}: kernels in the SASS {seen}, want {n} of each")
 
 
 def main_path_sweeps(loop, seed):
@@ -1216,17 +1239,33 @@ def tie_counts(pw, o, d, z, inv_s, sample_dist):
     return tuple(out)
 
 
-def march_bound_ms(pw, R, S, bwd, dtype="bfloat16"):
-    """Least time of one march entry: its MACs (ray_march.march_macs_per_point)
-    at the peak of `dtype`, or its bytes (rays, z, inv_s, the weights and,
-    for the backward, the stash and the cotangents read once; the [R, 16]
-    output and the stash, or the ray and weight grads, written once)."""
+def march_bound_ms(pw, R, S, bwd, dtype="bfloat16", save=False):
+    """Least time of one march entry: its MACs (ray_march.march_macs_per_point;
+    save: the save mode's, whose backward recomputes nothing) at the peak
+    of `dtype`, or its bytes (rays, z, inv_s, the weights and, for the
+    backward, the stash and the cotangents read once; the [R, 16] output
+    and the stash, or the ray and weight grads, written once; save: the
+    activation stash too, written by the forward, read by the backward)."""
     from color_neus_torch.ops.kernels import ray_march as RM
-    macs = RM.march_macs_per_point(pw)[1 if bwd else 0]
+    macs = RM.march_macs_per_point(pw, save)[1 if bwd else 0]
     n = R * S
     inputs = R * 6 + n + 1 + (n * RM.STASH + R * 16 if bwd else 0)
     outputs = R * 6 + pw.n_grad + 1 if bwd else R * 16 + n * RM.STASH
-    return ops_bound_ms(macs * n, (inputs + outputs) * 4 + weight_bytes(pw), dtype)
+    act = n * RM.act_bytes(pw) if save else 0
+    return ops_bound_ms(macs * n, (inputs + outputs) * 4 + act + weight_bytes(pw), dtype)
+
+
+def leaf_distances(got, ref) -> dict:
+    """{leaf: max |got - ref| / max |ref|} of two march backwards: rays_o,
+    rays_d, inv_s and every weight and bias, named net.layer.W / .b."""
+    out = {"rays_o": _rel(got[0].double(), ref[0].double()),
+           "rays_d": _rel(got[1].double(), ref[1].double()),
+           "inv_s": _rel(got[2].double().reshape(1), ref[2].double().reshape(1))}
+    for net, layers in ref[3].items():
+        for l, ((a, b), (c, d)) in enumerate(zip(got[3][net], layers)):
+            out[f"{net}{l}.W"] = _rel(a.double(), c.double())
+            out[f"{net}{l}.b"] = _rel(b.double(), d.double())
+    return out
 
 
 def _composed(pw):
@@ -1271,13 +1310,17 @@ def march_vs_plain(device):
     (the plain compositing VJP in torch feeding row 6's kernel, the
     per-point outputs from row 5's: the same forward_tile arithmetic, so the
     same relu masks) and, with the f32 plain twin, against the plain twin
-    in float64. Prints every reading, then checks; returns the records the
-    kernel line reads."""
+    in float64. The save mode's pair (row 3's save entry, row 4's load
+    entry) the same way on the same inputs, against the save twins
+    (ray_march_plain(save=True), ray_march_bwd_plain(stash=...)), at the
+    same limits, with its distance from the recompute pair on every leaf.
+    Prints every reading, then checks; returns the records the kernel line
+    reads."""
     import torch
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
 
-    out, fails = {"fwd_err": 0.0, "bwd_err": 0.0}, []
+    out, fails = {"fwd_err": 0.0, "bwd_err": 0.0, "save_err": 0.0, "load_err": 0.0}, []
     R, S = PIPELINE_RAYS, PIPELINE_SAMPLES
     for kind in ("color_neus", "neus"):
         for variance in MARCH_VARIANCES:
@@ -1296,9 +1339,9 @@ def march_vs_plain(device):
             pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
                                               for layers in (pw.sdf, pw.color, pw.relight)])
             args64 = (o.double(), d.double(), z.double(), inv_s.double(), sd)
-            with torch.no_grad():
-                want = RM.ray_march_plain(pw64, *args64, bf16=True)
-                twin = RM.ray_march_plain(pw, o, d, z, inv_s, sd, bf16=True)
+            with torch.no_grad():   # the save twins: the plain twins' values, and their stash
+                want, stash64 = RM.ray_march_plain(pw64, *args64, bf16=True, save=True)
+                twin, stash32 = RM.ray_march_plain(pw, o, d, z, inv_s, sd, bf16=True, save=True)
                 want32 = RM.ray_march_plain(pw, o, d, z, inv_s, sd)
                 dists, _, pts, dirs = RM.march_points(o, d, z, sd)
                 c = RM.composite(PP.point_pipeline_plain(pw, pts, dirs, True), d, dists, pts,
@@ -1318,7 +1361,6 @@ def march_vs_plain(device):
             out["fwd_err"] = max(out["fwd_err"], float((got.double() - want).abs().max()))
             composed = RM.march_vjp(o, d, z, inv_s, sd, gbar, *_composed(pw))
             tight = march_bwd_errors(kern, composed)
-            del composed
 
             def vs_f64(g):
                 """(kernel, f32 bf16 twin) errors from the bf16 twin in
@@ -1340,7 +1382,8 @@ def march_vs_plain(device):
             with torch.no_grad():
                 margin = relu_margin(pw64, pts.double(), dirs.double()).reshape(R, S).amin(1)
             clean = margin > MARCH_KINK_MARGIN
-            k64, p64, err, cost = vs_f64((gbar * clean[:, None].float()).contiguous())
+            g_clean = (gbar * clean[:, None].float()).contiguous()
+            k64, p64, err, cost = vs_f64(g_clean)
             k_all, p_all, _, _ = vs_f64(gbar)
             out["bwd_err"] = max(out["bwd_err"], err)
             print(f"[2d] ray_march {tag}: {ties} of {R * S} points at q == 1 exactly | forward "
@@ -1381,7 +1424,78 @@ def march_vs_plain(device):
                 if e > lim:
                     fails.append(f"march {tag}: backward {k} {e:.3e} from float64, above "
                                  f"2 x the f32 plain's {p64[k]:.3e} + {RTOL_MARCH_F64_FLOOR[k]:g}")
+
+            # the save mode's pair on the same inputs, against the save twins
+            before = (RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches)
+            got_s, stash_s, act = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
+            kb = RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_s, act, gbar)
+            torch.cuda.synchronize()
+            check((RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches)
+                  == (before[0] + 1, before[1] + 1),
+                  f"march save {tag}: the save and load kernels did not launch")
+            kern_s = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
+            check(got_s.shape == (R, 16) and bool(torch.isfinite(got_s).all())
+                  and all(bool(torch.isfinite(t).all()) for t in kb)
+                  and tuple(act.shape) == (R * S, RM.act_bytes(pw)),
+                  f"march save {tag}: bad output")
+            fwd_s = {k: _rel(got_s[:, a:b].double(), want[:, a:b])
+                     for k, (a, b) in MARCH_LANES.items()}
+            fwd_s_n = {k: _nrel(got_s[:, a:b], want[:, a:b]) for k, (a, b) in MARCH_LANES.items()}
+            fwd_s_tight = {k: _rel(got_s[:, a:b], comp[:, a:b])
+                           for k, (a, b) in MARCH_LANES.items()}
+            tight_s = march_bwd_errors(kern_s, composed)
+            del composed
+            kb = RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_s, act, g_clean)
+            mine = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
+            ref = RM.ray_march_bwd_plain(pw64, *args64, g_clean.double(), bf16=True,
+                                         stash=stash64)
+            plain = RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd, g_clean, bf16=True,
+                                           stash=stash32)
+            k64s, p64s = march_bwd_errors(mine, ref), march_bwd_errors(plain, ref)
+            out["save_err"] = max(out["save_err"], float((got_s.double() - want).abs().max()))
+            out["load_err"] = max(out["load_err"], _abs_err(mine, ref))
+            del mine, ref, plain
+            vs_rec = leaf_distances(kern_s, kern)
+            worst_rec = max(vs_rec, key=vs_rec.get)
+            print(f"[2d] ray_march save mode {tag}: stash {RM.march_stash_bytes(pw, 1)} bytes a "
+                  f"point ({RM.act_bytes(pw)} activations + {RM.STASH * 4} outs; JAX's at the "
+                  f"Color-NeuS widths {JAX_STASH_BYTES_COLOR_NEUS}), "
+                  f"{RM.march_stash_bytes(pw, R * S) / 2 ** 30:.3f} GiB here | forward from the "
+                  "save twin in float64, max-relative "
+                  + " ".join(f"{k} {e:.3e}" for k, e in fwd_s.items()) + "; norm-relative "
+                  + " ".join(f"{k} {e:.3e}" for k, e in fwd_s_n.items())
+                  + "; from the composed rows 5 + torch compositing "
+                  + " ".join(f"{k} {e:.3e}" for k, e in fwd_s_tight.items())
+                  + " | load backward vs composed (rows 5 + 6) "
+                  + " ".join(f"{k} {e:.3e}" for k, e in tight_s.items())
+                  + " | vs the save twin in float64 off the relu kinks: kernel "
+                  + " ".join(f"{k} {e:.3e}" for k, e in k64s.items()) + ", f32 save twin "
+                  + " ".join(f"{k} {e:.3e}" for k, e in p64s.items())
+                  + f" | save pair vs recompute pair, max-relative on every leaf (worst "
+                  f"{worst_rec} {vs_rec[worst_rec]:.3e}): "
+                  + " ".join(f"{k} {e:.2e}" for k, e in vs_rec.items()), flush=True)
+            for k, e in fwd_s.items():
+                lim = 2.0 * tw[k] + RTOL_MARCH_FWD_FLOOR["max"]
+                lim_n = 2.0 * tw_n[k] + RTOL_MARCH_FWD_FLOOR["norm"]
+                if fwd_s_tight[k] > RTOL_MARCH_TIGHT["forward"]:
+                    fails.append(f"march save {tag}: forward {k} {fwd_s_tight[k]:.3e} from the "
+                                 f"composed reference, above {RTOL_MARCH_TIGHT['forward']:g}")
+                if e > lim or fwd_s_n[k] > lim_n:
+                    fails.append(f"march save {tag}: forward {k} {e:.3e} max-relative / "
+                                 f"{fwd_s_n[k]:.3e} norm-relative from the save twin in "
+                                 f"float64, above {lim:.3e} / {lim_n:.3e}")
+            for k, e in tight_s.items():
+                if e > RTOL_MARCH_TIGHT[k]:
+                    fails.append(f"march load {tag}: backward {k} {e:.3e} from the composed "
+                                 f"reference, above {RTOL_MARCH_TIGHT[k]:g}")
+            for k, e in k64s.items():
+                lim = 2.0 * p64s[k] + RTOL_MARCH_F64_FLOOR[k]
+                if e > lim:
+                    fails.append(f"march load {tag}: backward {k} {e:.3e} from float64, above "
+                                 f"2 x the f32 save twin's {p64s[k]:.3e} + "
+                                 f"{RTOL_MARCH_F64_FLOOR[k]:g}")
             if (kind, variance) != ("color_neus", MARCH_VARIANCES[0]):
+                del stash64, stash32, act, stash_s
                 continue
             # times of the main path's shape, Color-NeuS at the init's inv_s
             rec = {"ms": cuda_ms(lambda: RM.launch_ray_march(pw, o, d, z, inv_s, sd), reps=10),
@@ -1397,6 +1511,28 @@ def march_vs_plain(device):
             rec["bwd_bound_ms"], rec["bwd_bound_by"] = march_bound_ms(pw, R, S, bwd=True)
             rec["bound32_ms"] = march_bound_ms(pw, R, S, False, "float32")[0]
             rec["bwd_bound32_ms"] = march_bound_ms(pw, R, S, True, "float32")[0]
+            rec.update({
+                "save_ms": cuda_ms(lambda: RM.launch_ray_march_save(pw, o, d, z, inv_s, sd),
+                                   reps=10),
+                "load_ms": cuda_ms(lambda: RM.launch_ray_march_bwd_load(
+                    pw, o, d, z, inv_s, sd, stash_s, act, gbar), reps=5),
+                "save_plain_ms": cuda_ms(lambda: RM.ray_march_plain(
+                    pw, o, d, z, inv_s, sd, True, save=True), reps=3, warmup=1),
+                "load_plain_ms": cuda_ms(lambda: RM.ray_march_bwd_plain(
+                    pw, o, d, z, inv_s, sd, gbar, True, stash=stash32), reps=3, warmup=1)})
+            rec["save_bound_ms"], rec["save_bound_by"] = march_bound_ms(pw, R, S, False,
+                                                                        save=True)
+            rec["load_bound_ms"], rec["load_bound_by"] = march_bound_ms(pw, R, S, True,
+                                                                        save=True)
+            del stash64, stash32, act, stash_s
+            print(f"[2d] ray_march save mode {tag}, {R * S} points: MACs per point bwd "
+                  f"{RM.march_macs_per_point(pw, True)[1]} (no recompute) | save forward kernel "
+                  f"{rec['save_ms']:.4f} ms, bf16 save twin {rec['save_plain_ms']:.4f} ms, bound "
+                  f"{rec['save_bound_ms']:.4f} ms ({rec['save_bound_by']}) | load backward kernel "
+                  f"{rec['load_ms']:.4f} ms (with the reduction), bf16 save twin "
+                  f"{rec['load_plain_ms']:.4f} ms, bound {rec['load_bound_ms']:.4f} ms "
+                  f"({rec['load_bound_by']}) | fwd+bwd: save pair "
+                  f"{rec['save_ms'] + rec['load_ms']:.4f} ms", flush=True)
             fwd_macs, bwd_macs = RM.march_macs_per_point(pw)
             print(f"[2d] ray_march {tag}, {R * S} points: MACs per point fwd {fwd_macs} bwd "
                   f"{bwd_macs} | forward kernel {rec['ms']:.4f} ms, bf16 twin "
@@ -1420,16 +1556,28 @@ def march_vs_plain(device):
                                         inv_s.double(), sd, gbar.double(), bf16=True)[2])
     plain = float(RM.ray_march_bwd_plain(pw, o, d, z, inv_s, sd, gbar, bf16=True)[2])
     err = abs(s_hat - want) / max(abs(want), 1e-300)
+    _, stash_t, act_t = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
+    s_hat_s = float(RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_t, act_t,
+                                                 gbar)[2])
+    args64 = (o.double(), d.double(), z.double(), inv_s.double(), sd)
+    _, stash64 = RM.ray_march_plain(pw64, *args64, bf16=True, save=True)
+    want_s = float(RM.ray_march_bwd_plain(pw64, *args64, gbar.double(), bf16=True,
+                                          stash=stash64)[2])
+    err_s = abs(s_hat_s - want_s) / max(abs(want_s), 1e-300)
     print(f"[2d] ray_march tie rays ({R} x {TIE_SAMPLES} points deep inside, inv_s "
           f"{float(inv_s):.1f}): q == 1 exactly at {ties[0]} points in float32, {ties[1]} in "
           f"float64 | inv_s grad kernel {s_hat:.6e}, bf16 twin in float64 {want:.6e}, rel "
           f"{err:.3e} (rtol {RTOL_MARCH_TIE:g}; a gate of 1.0 reads 1.0) | f32 bf16 twin "
           f"{plain:.6e} "
-          f"(its suffix sum cancels at alpha == 1; no check)", flush=True)
+          f"(its suffix sum cancels at alpha == 1; no check) | save pair: load kernel "
+          f"{s_hat_s:.6e}, save twin in float64 {want_s:.6e}, rel {err_s:.3e}", flush=True)
     if ties != (R * TIE_SAMPLES,) * 2:
         fails.append(f"tie rays: {ties} points at q == 1 (f32, f64), want all {R * TIE_SAMPLES}")
     if not err <= RTOL_MARCH_TIE:
         fails.append(f"tie rays: inv_s grad {err:.3e} from float64, above {RTOL_MARCH_TIE:g}")
+    if not err_s <= RTOL_MARCH_TIE:
+        fails.append(f"tie rays, save pair: inv_s grad {err_s:.3e} from float64, above "
+                     f"{RTOL_MARCH_TIE:g}")
     check(not fails, "; ".join(fails))
     return out
 
@@ -1874,7 +2022,52 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
     check(median <= RTOL_STEP_GRAD_MEDIAN, f"step gradients: median on vs off {median:.3e}")
     check(cos[worst_cos] >= MIN_COS_STEP_GRAD,
           f"step gradient {worst_cos}: cosine on vs off {cos[worst_cos]:.6f}")
-    return {"counts": counts, "step_ms": step_ms, "grad_err": errs[worst], "peak_gb": peak_gb}
+    return {"counts": counts, "step_ms": step_ms, "grad_err": errs[worst], "peak_gb": peak_gb,
+            "loop": loop}
+
+
+def march_modes(device, loop):
+    """Phase 8's recompute beside its save mode: a TrainLoop as phase 8's
+    with MARCH_ACTS recompute trains 2 bundles, the launch counts set to 0
+    just before and read just after (the recompute pair once each a step,
+    no save-mode kernel); then host ms/step of 2 captured bundles of each
+    loop, save / recompute / save / recompute in this one process (phase
+    8's loop first brought to a bundle boundary), and each mode's peak
+    memory over one uncaptured step (a captured bundle's memory sits in its
+    graph's pool, which the allocated peak does not count)."""
+    import torch
+    from color_neus_torch.runtime import TrainLoop
+    rec = TrainLoop(arm_cfg("fused_march_recompute"), device=device)
+    check(rec.tcfg.renderer.march_acts == "recompute" and loop.tcfg.renderer.march_acts
+          == "auto", "the two march modes did not reach the renderers")
+    steps = 2 * BUNDLE
+    torch.cuda.synchronize()
+    reset_launch_counts(rec)
+    rec.run(steps)
+    torch.cuda.synchronize()
+    counts = launch_counts(rec)
+    want = {k: 0 for k in counts}
+    want.update(sdf_rays=SWEEPS_PER_STEP * steps, ray_march=steps, ray_march_bwd=steps)
+    check(counts == want, f"the recompute run launched {counts}, want {want}")
+    loop.run(-(-loop.state.step // BUNDLE) * BUNDLE)
+    ms, peak = {"save": [], "recompute": []}, {}
+    for mode, lp in (("save", loop), ("recompute", rec)) * 2:
+        ms[mode].append(host_ms(lambda: lp.run(lp.state.step + steps), steps))
+    for mode, lp in (("save", loop), ("recompute", rec)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lp.training_step()
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[8] MARCH_ACTS recompute beside auto (save at this shape): {steps} steps launched "
+          f"{counts} | host ms/step, captured bundles, save {ms['save'][0]:.2f} / recompute "
+          f"{ms['recompute'][0]:.2f} / save {ms['save'][1]:.2f} / recompute "
+          f"{ms['recompute'][1]:.2f} | peak memory of an uncaptured step save "
+          f"{peak['save']:.2f} GiB, recompute {peak['recompute']:.2f} GiB (both loops "
+          f"resident)", flush=True)
+    del rec
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": ms, "peak": peak}
 
 
 @contextlib.contextmanager
@@ -2090,7 +2283,8 @@ def evaluation_path(loop, device, launches_training):
     print(f"[6f] phase 3's training launched: {launches_training}", flush=True)
     check(all(launches_training[k] == 0 for k in ("point_pipeline", "sdf_points",
                                                   "point_pipeline_bwd", "ray_march",
-                                                  "ray_march_bwd", "mlp_chain",
+                                                  "ray_march_bwd", "ray_march_save",
+                                                  "ray_march_bwd_load", "mlp_chain",
                                                   "mlp_chain_deferred")),
           "the auto training run launched a point-pipeline, grid-SDF, march or chain kernel")
     return res
@@ -2140,10 +2334,11 @@ def dataset_path(device, march_step_ms):
     from color_neus_torch.utils.config import get_config
     from color_neus_torch.utils.recorder import Recorder
 
-    def want(steps, **kw):
+    def want(steps, **kw):   # MARCH_ACTS auto: the save mode at the config's shape
         return {"sdf_rays": SWEEPS_PER_STEP * steps, "sdf_points": 0, "point_pipeline": 0,
-                "point_pipeline_bwd": 0, "ray_march": steps, "ray_march_bwd": steps,
-                "mlp_chain": 0, "mlp_chain_deferred": 0, **kw}
+                "point_pipeline_bwd": 0, "ray_march": 0, "ray_march_bwd": 0,
+                "ray_march_save": steps, "ray_march_bwd_load": steps, "mlp_chain": 0,
+                "mlp_chain_deferred": 0, **kw}
 
     res = {}
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -2480,7 +2675,7 @@ def bundle_phase(device, dtu):
         # (a) a replay against BUNDLE uncaptured steps from the same state
         step, s0 = loop.state.step, state_tensors(loop)
         runs = []
-        for _ in range(1 if arm == "fused_march" else 2):
+        for _ in range(1 if arm.startswith("fused_march") else 2):
             losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
             runs.append(dict(state_tensors(loop), losses=losses))
             restore(loop, s0, step)
@@ -2612,8 +2807,11 @@ def main() -> int:
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k, mod in (("point_pipeline", PP), ("ray_march", RM)):
-        pipeline_sass_check(k, libs[k], mod._max_blocks(mod._library(), device, "fwd") // sms)
+    pipeline_sass_check("point_pipeline", libs["point_pipeline"], {
+        "point_pipeline_fwd_kernel": PP._max_blocks(PP._library(), device, "fwd") // sms})
+    pipeline_sass_check("ray_march", libs["ray_march"], {
+        name: RM._max_blocks(RM._library(), device, "fwd", save) // sms
+        for name, save in (("ray_march_fwd_kernel", False), ("ray_march_save_fwd_kernel", True))})
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
 
@@ -2719,18 +2917,24 @@ def main() -> int:
     # ---- phase 7: training through the point-pipeline kernels ----
     on = training_through(device, loop, SEED + 110, "FUSED_CORE", {
         "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": STEPS,
-        "point_pipeline_bwd": STEPS, "ray_march": 0, "ray_march_bwd": 0, "mlp_chain": 0,
-        "mlp_chain_deferred": 0}, "7")
+        "point_pipeline_bwd": STEPS, "ray_march": 0, "ray_march_bwd": 0, "ray_march_save": 0,
+        "ray_march_bwd_load": 0, "mlp_chain": 0, "mlp_chain_deferred": 0}, "7")
     print(f"[7] steady state: fused_core auto {step_ms:.2f} ms/step, on {on['step_ms']:.2f} "
           f"ms/step", flush=True)
 
-    # ---- phase 8: training through the fused march kernels ----
+    # ---- phase 8: training through the fused march kernels (MARCH_ACTS auto:
+    # the save mode at this shape), then its recompute beside it ----
+    del on["loop"]
     march = training_through(device, loop, SEED + 130, "FUSED_MARCH", {
         "sdf_rays": SWEEPS_PER_STEP * STEPS, "sdf_points": 0, "point_pipeline": 0,
-        "point_pipeline_bwd": 0, "ray_march": STEPS, "ray_march_bwd": STEPS, "mlp_chain": 0,
-        "mlp_chain_deferred": 0}, "8", profile_n=1, beside={"fused_core": "on"})
+        "point_pipeline_bwd": 0, "ray_march": 0, "ray_march_bwd": 0, "ray_march_save": STEPS,
+        "ray_march_bwd_load": STEPS, "mlp_chain": 0, "mlp_chain_deferred": 0}, "8", profile_n=1,
+        beside={"fused_core": "on"})
+    modes = march_modes(device, march.pop("loop"))
     print(f"[8] steady state: auto {step_ms:.2f} ms/step, fused_core on {on['step_ms']:.2f} "
-          f"ms/step, fused_march on {march['step_ms']:.2f} ms/step", flush=True)
+          f"ms/step, fused_march on {march['step_ms']:.2f} ms/step (save; recompute "
+          f"{sum(modes['ms']['recompute']) / 2:.2f} against save "
+          f"{sum(modes['ms']['save']) / 2:.2f} interleaved)", flush=True)
 
     # ---- phase 9: the MLP-chain microbenchmark (rows 7 + 8) ----
     chain = chain_phase(device)
@@ -2759,10 +2963,12 @@ def main() -> int:
     # evaluation run, errors the largest of phases 2b and 6;
     # point_pipeline_bwd: phase 2c at the training core's shape (131,072
     # points, Color-NeuS), launches from phase 7's training run; ray_march
-    # and ray_march_bwd: phase 2d at the main path's shape (1024 rays x 128
-    # samples, Color-NeuS, the init's inv_s), errors the largest of its
-    # cases (forward vs the f32 plain twin, backward vs float64), launches
-    # from phase 8's training run; mlp_chain and mlp_chain_deferred: phase 9
+    # and ray_march_bwd (the recompute pair) and ray_march_save and
+    # ray_march_bwd_load (the save mode's): phase 2d at the main path's
+    # shape (1024 rays x 128 samples, Color-NeuS, the init's inv_s), errors
+    # the largest of its cases (forward vs the bf16 twin in float64,
+    # backward vs float64), launches from phase 8's recompute run and its
+    # training run (the save mode); mlp_chain and mlp_chain_deferred: phase 9
     # at the tool's main shape (1,048,576 x 256 x 25; mlp_chain the softplus
     # variant in bf16), launches from the tool's sweep
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
@@ -2800,15 +3006,28 @@ def main() -> int:
     }, {
         "name": "ray_march", "route": "cuda", "source": "color_neus_torch/csrc/ray_march.cu",
         "replaces": "color_neus_tpu/ops/pallas/ray_march.py:185",
-        "launches": march["counts"]["ray_march"], "max_abs_err": mar["fwd_err"],
+        "launches": modes["counts"]["ray_march"], "max_abs_err": mar["fwd_err"],
         "ms": mar["ms"], "plain_ms": mar["plain_ms"], "bound_ms": mar["bound_ms"],
         "bound_by": mar["bound_by"], "library_ms": None,
     }, {
         "name": "ray_march_bwd", "route": "cuda", "source": "color_neus_torch/csrc/ray_march.cu",
         "replaces": "color_neus_tpu/ops/pallas/ray_march.py:249",
-        "launches": march["counts"]["ray_march_bwd"], "max_abs_err": mar["bwd_err"],
+        "launches": modes["counts"]["ray_march_bwd"], "max_abs_err": mar["bwd_err"],
         "ms": mar["bwd_ms"], "plain_ms": mar["plain_bwd_ms"], "bound_ms": mar["bwd_bound_ms"],
         "bound_by": mar["bwd_bound_by"], "library_ms": None,
+    }, {
+        "name": "ray_march_save", "route": "cuda", "source": "color_neus_torch/csrc/ray_march.cu",
+        "replaces": "color_neus_tpu/ops/pallas/ray_march.py:185",
+        "launches": march["counts"]["ray_march_save"], "max_abs_err": mar["save_err"],
+        "ms": mar["save_ms"], "plain_ms": mar["save_plain_ms"], "bound_ms": mar["save_bound_ms"],
+        "bound_by": mar["save_bound_by"], "library_ms": None,
+    }, {
+        "name": "ray_march_bwd_load", "route": "cuda",
+        "source": "color_neus_torch/csrc/ray_march.cu",
+        "replaces": "color_neus_tpu/ops/pallas/ray_march.py:249",
+        "launches": march["counts"]["ray_march_bwd_load"], "max_abs_err": mar["load_err"],
+        "ms": mar["load_ms"], "plain_ms": mar["load_plain_ms"],
+        "bound_ms": mar["load_bound_ms"], "bound_by": mar["load_bound_by"], "library_ms": None,
     }] + [{
         "name": name, "route": "cuda", "source": "color_neus_torch/csrc/mlp_chain.cu",
         "replaces": f"tools/mlp_microbench.py:{line}", "launches": chain["launches"][name],

@@ -147,6 +147,15 @@ struct Save {
   unsigned char* dw;   // the tile's weight-grad store (dw_tile_bytes), nullptr for none
 };
 
+// The fused march's save mode (ray_march.cu): the rows of a forward tile in
+// the activation stash ([R S] rows of `bytes` each, laid out by
+// act_layout), which forward_tile<ROWS, false, true> fills as it goes.
+struct Export {
+  unsigned char* row0;   // the row of the tile's first point
+  int rows;              // the tile's points that have a row (the rest pad)
+  int bytes;             // bytes a row
+};
+
 constexpr size_t SLAB = size_t(TILE) * LDS;
 constexpr size_t GSLAB = size_t(TILE) * HID;
 
@@ -410,10 +419,14 @@ __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<floa
 // first, then its arithmetic, then its stores (a warp a contiguous half
 // row each), so a thread has NB rows' latencies in flight at once.
 // EPI_SOFTPLUS also stores the gate to `gates` ([ROWS][HID]) and scales
-// the value by `post`. dst may be X. A barrier after.
-template <int ROWS>
+// the value by `post`. dst may be X. EXPORT also writes each row that has
+// a stash row (ex) at byte column `col` of it: the softplus before `post`
+// in f32, else the value in bf16. A barrier after.
+template <int ROWS, bool EXPORT = false>
 __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__ b, int epi,
-                                             float post, float* gates, float* dst, int ld) {
+                                             float post, float* gates, float* dst, int ld,
+                                             const Export& ex = Export{nullptr, 0, 0},
+                                             int col = 0) {
   constexpr int NB = 4, STEP = THREADS / (HID / 4);   // rows a batch, the row step (4)
   const int c = 4 * (threadIdx.x % (HID / 4)), r0 = threadIdx.x / (HID / 4);
   const float bias[4] = {__ldg(b + c), __ldg(b + c + 1), __ldg(b + c + 2), __ldg(b + c + 3)};
@@ -426,20 +439,32 @@ __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__
     for (int u = 0; u < NB; ++u) {
       const int r = r0 + STEP * (m + u);
       float v[4] = {x[u].x + bias[0], x[u].y + bias[1], x[u].z + bias[2], x[u].w + bias[3]};
+      float keep[4];
       if (epi == EPI_SOFTPLUS) {
         float g[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float sp = softplus100(v[i]);
           g[i] = 1.f - expf(-100.f * sp);
+          keep[i] = sp;
           v[i] = sp * post;
         }
         st4(gates + r * HID + c, make_float4(g[0], g[1], g[2], g[3]));
-      } else if (epi == EPI_RELU) {
+      } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+        for (int i = 0; i < 4; ++i) keep[i] = v[i] = epi == EPI_RELU ? fmaxf(v[i], 0.f) : v[i];
       }
       st4(dst + r * ld + c, make_float4(v[0], v[1], v[2], v[3]));
+      if constexpr (EXPORT) {
+        if (r < ex.rows) {
+          unsigned char* k = ex.row0 + size_t(r) * ex.bytes + col;
+          if (epi == EPI_SOFTPLUS)
+            st4(reinterpret_cast<float*>(k) + c, make_float4(keep[0], keep[1], keep[2], keep[3]));
+          else
+            *reinterpret_cast<uint2*>(k + 2 * c) =
+                make_uint2(pack_bf16(keep[0], keep[1]), pack_bf16(keep[2], keep[3]));
+        }
+      }
     }
   }
   __syncthreads();
@@ -631,6 +656,29 @@ __host__ __device__ inline Shape shape_of(const Params& p) {
   return Shape{p.n_sdf, p.skip, p.n_color, p.n_relight, p.y_in};
 }
 
+// A point's row of the activation stash, byte offsets: sx, the softplus
+// of every hidden SDF layer ([n_sdf - 1][HID] f32: layer l + 1's input
+// before the skip's 1/sqrt(2), and layer l's gate rebuilt as 1 - exp(-100
+// sp)); cr, in bf16 [n_color + n_relight - 1][HID], the hidden part of
+// each colour layer's input (layer 0: the features) and of each relight
+// layer's from layer 1 on (relu outputs); tail, 8 f32: gc (3), delta (3),
+// 0, 0. The PE, the small inputs and the y_in layer's gc block are rebuilt
+// from the points and the tail. The backward reads the bf16 parts only as
+// bf16 product operands and relu masks.
+struct ActLayout {
+  int sx, cr, tail, bytes;
+};
+
+__host__ __device__ inline ActLayout act_layout(const Shape& s) {
+  const int nr = s.n_relight > 0 ? s.n_relight - 1 : 0;
+  ActLayout a;
+  a.sx = 0;
+  a.cr = (s.n_sdf - 1) * HID * 4;
+  a.tail = a.cr + (s.n_color + nr) * HID * 2;
+  a.bytes = a.tail + 8 * 4;
+  return a;
+}
+
 // dst = bf16(src[:, :K])^T (PART 2: the low halves, bf16(x - bf16(x))) as
 // a K-major [K][64 points] wgmma operand (row c: the 64 points, 128 bytes,
 // the 128-byte swizzle). A warp stores an 8-column x 8-point patch a step:
@@ -655,6 +703,35 @@ __device__ __forceinline__ void pe_row(const Params& p, const Tile& t, int r, fl
   for (int j = 0; j < 3; ++j) x[j] = __fmul_rn(t.P3[r * 3 + j], p.scale);
 }
 
+// PE[r * LD + c] = PE(p * scale) of the tile's ROWS points (X's PE
+// columns: PE = X + HID). No barrier.
+template <int ROWS>
+__device__ __forceinline__ void fill_pe(const Params& p, const Tile& t, float* PE) {
+  for (int e = threadIdx.x; e < ROWS * EMB; e += THREADS) {
+    const int r = e / EMB, c = e % EMB;
+    float x[3];
+    pe_row(p, t, r, x);
+    PE[r * LD<ROWS> + c] = emb_value(x, c, p.d0);
+  }
+}
+
+// X[:, col0 .. col0 + EMB] = a network's small inputs [pts, grad, PE(dirs)
+// of width dv, 0 ...] of the tile's ROWS points; gc_block: also X[:, HID
+// .. HID + EMB] = [gc, 0 ...], the relight y_in layer's. No barrier.
+template <int ROWS>
+__device__ __forceinline__ void small_inputs(const Tile& t, float* X, int col0, int dv,
+                                             bool gc_block) {
+  for (int e = threadIdx.x; e < ROWS * EMB; e += THREADS) {
+    const int r = e / EMB, c = e % EMB;
+    float v;
+    if (c < 3) v = t.P3[r * 3 + c];
+    else if (c < 6) v = t.G3[r * 3 + c - 3];
+    else v = (c - 6 < dv) ? emb_value(t.D3 + r * 3, c - 6, dv) : 0.f;
+    X[r * LD<ROWS> + col0 + c] = v;
+    if (gc_block) X[r * LD<ROWS> + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
+  }
+}
+
 // The input width of SDF layer l (l < n_sdf - 1).
 __device__ __forceinline__ int sdf_k(const Params& p, int l) {
   return l == 0 ? EMB : (l == p.skip ? HID + EMB : HID);
@@ -665,7 +742,8 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // leaving sdf, grad, gc, relit and delta in t.S1/G3/GC/RL/DL and the gates
 // ([n_sdf - 1][ROWS][HID]) and features ([ROWS][HID]) in the block's
 // scratch. SAVE (the backward's recompute, ROWS = TILE) also keeps every
-// layer's input (sv).
+// layer's input (sv); EXPORT (the march's save mode) writes each point's
+// row of the activation stash (ex, act_layout) from the passes.
 //
 // The tile runs as one loop of steps: the SDF layers, the last layer (its
 // sdf row as a narrow layer, its features), the reverse sweep, the colour
@@ -676,10 +754,12 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // The SDF PE stays in X's PE columns (X[:, 256:304]) from layer 0, which
 // reads it there, to the skip layer, which takes it times 1/sqrt(2); the
 // reverse sweep then keeps the PE cotangents there.
-template <int ROWS, bool SAVE>
+template <int ROWS, bool SAVE, bool EXPORT = false>
 __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rings& st,
-                                             float* gates, float* feat, const Save& sv) {
+                                             float* gates, float* feat, const Save& sv,
+                                             const Export& ex = Export{nullptr, 0, 0}) {
   static_assert(!SAVE || ROWS == TILE, "forward_tile: the saved operands are 64-point tiles");
+  static_assert(!(SAVE && EXPORT), "forward_tile: SAVE or EXPORT");
   constexpr size_t GS = size_t(ROWS) * HID;   // one layer's gates
   enum { SDF, LAST, REV, COL, REL, END };
   constexpr int L = LD<ROWS>;   // X's row stride
@@ -702,12 +782,7 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
                 : kind == LAST ? HID
                 : p.n_relight > 0 ? (l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID)) : HID;
     if (i == 0) {   // X[:, 256:304] = PE(p * scale)
-      for (int e = tid; e < ROWS * EMB; e += THREADS) {
-        const int r = e / EMB, c = e % EMB;
-        float x[3];
-        pe_row(p, t, r, x);
-        PE[r * L + c] = emb_value(x, c, p.d0);
-      }
+      fill_pe<ROWS>(p, t, PE);
       __syncthreads();
     }
     if (kind == COL && l == 0) {
@@ -751,16 +826,8 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // ---- a network's small inputs: [pts, grad, PE(dirs)] (colour: after
     // the features; relight: first, gc after the hidden part) ----
     if ((kind == COL || kind == REL) && l == 0) {
-      const int col0 = kind == COL ? HID : 0, dv = kind == COL ? p.color_dv : p.rl_dv;
-      for (int e = tid; e < ROWS * EMB; e += THREADS) {
-        const int r = e / EMB, c = e % EMB;
-        float v;
-        if (c < 3) v = t.P3[r * 3 + c];
-        else if (c < 6) v = t.G3[r * 3 + c - 3];
-        else v = (c - 6 < dv) ? emb_value(t.D3 + r * 3, c - 6, dv) : 0.f;
-        X[r * L + col0 + c] = v;
-        if (kind == REL) X[r * L + HID + c] = c < 3 ? t.GC[r * 3 + c] : 0.f;
-      }
+      small_inputs<ROWS>(t, X, kind == COL ? HID : 0, kind == COL ? p.color_dv : p.rl_dv,
+                         kind == REL);
       __syncthreads();
     }
     if (kind == REV && l == nf - 1) {
@@ -806,10 +873,17 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     } else {
       const int bslot = kind == SDF ? B_SDF + l : kind == LAST ? B_FEAT
                       : kind == COL ? B_COL + l : B_REL + l;
-      forward_pass<ROWS>(X, W + p.off[bslot],
-                         kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
-                         kind == SDF && l + 1 == p.skip ? INV_SQRT2 : 1.f, g,
-                         kind == LAST ? feat : X, kind == LAST ? HID : L);
+      int col = 0;   // the step's output in the stash row: sx of layer l, cr slot 0 / 1 + l
+      if constexpr (EXPORT) {
+        const ActLayout al = act_layout(sh);
+        col = kind == SDF ? al.sx + l * HID * 4
+                          : al.cr + (kind == LAST ? 0 : kind == COL ? 1 + l : p.n_color + l) *
+                                        HID * 2;
+      }
+      forward_pass<ROWS, EXPORT>(X, W + p.off[bslot],
+                                 kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
+                                 kind == SDF && l + 1 == p.skip ? INV_SQRT2 : 1.f, g,
+                                 kind == LAST ? feat : X, kind == LAST ? HID : L, ex, col);
       if (kind == SDF && l + 1 == p.skip) {   // the skip input: [h, PE] / sqrt(2)
         for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] *= INV_SQRT2;
         __syncthreads();

@@ -27,12 +27,14 @@
 // cotangents (backward_tile) gives pts_bar and dirs_bar.
 //
 // Bound on the H100: the point pipeline's MACs (forward ~1.45 M per point at
-// the Color-NeuS widths; backward ~4.8 M: one recompute and the pullback;
+// the Color-NeuS widths; backward ~4.8 M: one recompute and the pullback,
+// ~3.3 M in the save mode, which loads what the recompute would compute;
 // ray_march.march_macs_per_point counts them from the real widths) against
-// ~36 bytes of input and output per point each way (z and the stash):
-// bound by operations, bf16 tensor-core MMA at 989 TFLOP/s (the products
-// are the TPU kernels' bf16 ones, point_pipeline_tile.cuh). The compositing
-// is ~50 flops per point, in f32.
+// ~36 bytes of input and output per point each way (z and the stash; the
+// save mode's activation stash adds 12,832 bytes a point each way at those
+// widths): bound by operations, bf16 tensor-core MMA at 989 TFLOP/s (the
+// products are the TPU kernels' bf16 ones, point_pipeline_tile.cuh). The
+// compositing is ~50 flops per point, in f32.
 //
 // Design (built on the tile functions of rows 5 and 6,
 // point_pipeline_tile.cuh, with their wgmma products). A block owns a
@@ -53,7 +55,22 @@
 //   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<64, true>
 //   recomputes the layer inputs (the one MLP pass of JAX's recompute mode:
 //   the stash spares a third one) and backward_tile pulls the cotangents
-//   back; the ray cotangents are summed per ray in sample order. The
+//   back; the ray cotangents are summed per ray in sample order.
+//   Save mode (JAX's march_acts save, its _march_fwd_kernel(save) and
+//   _march_bwd_kernel(load)): the forward (ray_march_save_fwd_kernel)
+//   also writes each point's row of an activation stash in device memory
+//   from forward_tile's passes (point_pipeline_tile.cuh act_layout: every
+//   hidden SDF layer's softplus in f32, whose gate 1 - exp(-100 sp) the
+//   load rebuilds bit for bit, the features and the colour / relight relu
+//   outputs in bf16, which the backward reads only as bf16 operands and
+//   relu masks, and gc, delta; the PE and the small inputs are rebuilt from
+//   the points), and the backward (ray_march_load_bwd_kernel) fills each
+//   64-point tile from it (load_tile: plain loads, no product) where the
+//   recompute runs forward_tile, then runs backward_tile unchanged. A
+//   forward tile's 128 rows are two backward tiles, so the rows are the
+//   points in order and any tile reads a contiguous block. The
+//   compositing scan keeps reading the 8-float stash (JAX packs its
+//   scalars into the stash only to skip that scan on the TPU). The
 //   block counts its tiles across groups: its weight grads are summed on
 //   chip over batches of dw_batch tiles (dw_flush: wgmma on the bf16
 //   operands backward_tile stores, point_pipeline.cu's note) and added,
@@ -80,6 +97,7 @@ struct March {
   float sample_dist;
   float* out;              // forward: [R, 16]
   float* stash;            // [R S, STASH]: written by the forward, read by the backward
+  unsigned char* act;      // save mode: [R S] rows of the activation stash (act_layout)
   // backward only
   const float* gbar;       // [R, 16]
   float* rays_hat;         // [R, 8]
@@ -157,7 +175,11 @@ __device__ __forceinline__ long long n_groups(const March& m) {
 // Forward
 // ------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
+// The forward; SAVE (the save mode) also writes every point's row of the
+// activation stash m.act: forward_tile's passes the layer outputs, then
+// gc and delta into the row's tail.
+template <bool SAVE>
+__device__ __forceinline__ void march_fwd(const March& m) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
   Rings st;
@@ -167,6 +189,7 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
   float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][128][HID]
   float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;        // [128][HID]
   const Save none{nullptr, nullptr, nullptr};
+  const ActLayout al = act_layout(shape_of(p));
   const float inv_s = *m.inv_s;
 
   for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
@@ -175,7 +198,8 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
     const int n_pts = nr * m.S;
     for (int t0 = 0; t0 < n_pts; t0 += FWD_ROWS) {
       load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);
-      forward_tile<FWD_ROWS, false>(p, t, st, gates, feat, none);
+      const Export ex{SAVE ? m.act + (r0 * m.S + t0) * al.bytes : nullptr, n_pts - t0, al.bytes};
+      forward_tile<FWD_ROWS, false, SAVE>(p, t, st, gates, feat, none, ex);
       if (tid < FWD_ROWS && t0 + tid < n_pts) {
         float* st_ = m.stash + (r0 * m.S + t0 + tid) * STASH;
         st_[0] = t.S1[tid];
@@ -185,6 +209,13 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
           st_[4 + j] = t.RL[tid * 3 + j];
         }
         st_[7] = t.DL[tid * 3] + t.DL[tid * 3 + 1] + t.DL[tid * 3 + 2];
+        if constexpr (SAVE) {
+          const float* gc = t.GC + tid * 3;
+          const float* dl = t.DL + tid * 3;
+          float* tl = reinterpret_cast<float*>(ex.row0 + size_t(tid) * al.bytes + al.tail);
+          st4(tl, make_float4(gc[0], gc[1], gc[2], dl[0]));
+          st4(tl + 4, make_float4(dl[1], dl[2], 0.f, 0.f));
+        }
       }
       __syncthreads();
     }
@@ -213,6 +244,14 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
+  march_fwd<false>(m);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_march_save_fwd_kernel(March m) {
+  march_fwd<true>(m);
 }
 
 // ------------------------------------------------------------------------
@@ -284,7 +323,119 @@ __device__ __forceinline__ float composite_vjp(const March& m, long long r, floa
   return sinv;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
+// X[:, :HID] of the tile's rows = the bf16 segment at src (row r at src +
+// r bytes; zeros from row n on), in f32; also into copy ([TILE][LDS])
+// unless it is null.
+__device__ __forceinline__ void load_bf16_cols(float* X, const unsigned char* src, int bytes,
+                                               int n, float* copy) {
+  for (int e = threadIdx.x; e < TILE * HID / 4; e += THREADS) {
+    const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n) {
+      const uint2 w = *reinterpret_cast<const uint2*>(src + size_t(r) * bytes + 2 * c);
+      v = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+    }
+    st4(X + r * LDX + c, v);
+    if (copy != nullptr) st4(copy + r * LDS + c, v);
+  }
+}
+
+// The load mode's stand-in for forward_tile<TILE, true>: what the backward
+// reads of the 64-point tile from point q0 (of [R S]; its first n points
+// have rows, the rest pad with zeros), from the forward's stashes instead
+// of a recompute: t.S1, G3 and RL from the outs stash, GC and DL from the
+// activation stash's tail; every SDF gate, 1 - exp(-100 sp), as the
+// forward computed it from the same sp; the colour and relight layer
+// inputs the backward's masks and narrow layers read (sv.cx, sv.rx from
+// layer 1 on); every 256-wide layer's input as its bf16 weight-grad
+// operand (sv.dw), staged through X. A barrier after.
+__device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* gates,
+                                          const Save& sv, long long q0, int n) {
+  const Params& p = m.net;
+  const Shape sh = shape_of(p);
+  const ActLayout al = act_layout(sh);
+  const unsigned char* act = m.act + q0 * al.bytes;
+  const int tid = threadIdx.x;
+  float* const X = t.X;
+  float* const PE = X + HID;
+  if (tid < TILE) {
+    const bool in = tid < n;
+    const float* o = m.stash + (q0 + tid) * STASH;
+    const float* tl = reinterpret_cast<const float*>(act + size_t(tid) * al.bytes + al.tail);
+    t.S1[tid] = in ? o[0] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      t.G3[tid * 3 + j] = in ? o[1 + j] : 0.f;
+      t.RL[tid * 3 + j] = in ? o[4 + j] : 0.f;
+      t.GC[tid * 3 + j] = in ? tl[j] : 0.f;
+      t.DL[tid * 3 + j] = in ? tl[3 + j] : 0.f;
+    }
+  }
+  // SDF layer 0's input, the PE, as a hi + lo pair
+  fill_pe<TILE>(p, t, PE);
+  __syncthreads();
+  save_t<0>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
+  save_t<2>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
+  // hidden layer l: its gate, and the input of layer l + 1 (the features'
+  // layer after the last)
+  for (int l = 0; l < p.n_sdf - 1; ++l) {
+    const bool pre_skip = l + 1 == p.skip;
+    const float post = pre_skip ? INV_SQRT2 : 1.f;
+    const unsigned char* src = act + al.sx + l * HID * 4;
+    float* g = gates + size_t(l) * GSLAB;
+    __syncthreads();   // save_t's reads of X are done
+    for (int e = tid; e < TILE * HID / 4; e += THREADS) {
+      const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
+      const float4 sp = r < n ? ld4(reinterpret_cast<const float*>(src + size_t(r) * al.bytes) + c)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      st4(g + r * HID + c, make_float4(1.f - expf(-100.f * sp.x), 1.f - expf(-100.f * sp.y),
+                                       1.f - expf(-100.f * sp.z), 1.f - expf(-100.f * sp.w)));
+      st4(X + r * LDX + c, make_float4(sp.x * post, sp.y * post, sp.z * post, sp.w * post));
+    }
+    if (pre_skip)   // the skip input: [h, PE] / sqrt(2)
+      for (int e = tid; e < TILE * EMB; e += THREADS) PE[(e / EMB) * LDX + e % EMB] *= INV_SQRT2;
+    __syncthreads();
+    save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
+  }
+  // the colour net: layer l's input, its hidden part in cr slot l (layer 0:
+  // [features | pts, grad, PE(dirs)])
+  for (int l = 0; l < p.n_color; ++l) {
+    __syncthreads();
+    load_bf16_cols(X, act + al.cr + l * HID * 2, al.bytes, n, l > 0 ? sv.cx + l * SLAB : nullptr);
+    if (l == 0) small_inputs<TILE>(t, X, HID, p.color_dv, false);
+    __syncthreads();
+    if (l < p.n_color - 1) save_t<0>(X, l == 0 ? HID + EMB : HID, dw_a(sh, sv.dw, p.n_sdf + l, 0));
+  }
+  // the relight net: layer 0's input [pts, grad, PE(dirs)], layer l's
+  // hidden part in cr slot n_color + l - 1, the y_in layer's gc block
+  const int nr = p.n_relight - 1;
+  for (int l = 0; l <= nr; ++l) {
+    const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
+    float* rx = sv.rx + l * SLAB;
+    __syncthreads();
+    if (l == 0) {
+      small_inputs<TILE>(t, X, 0, p.rl_dv, false);
+    } else {
+      load_bf16_cols(X, act + al.cr + (p.n_color + l - 1) * HID * 2, al.bytes, n, rx);
+      if (l == p.y_in)
+        for (int e = tid; e < TILE * EMB; e += THREADS) {
+          const int r = e / EMB, c = e % EMB;
+          const float v = c < 3 ? t.GC[r * 3 + c] : 0.f;
+          X[r * LDX + HID + c] = v;
+          rx[r * LDS + HID + c] = v;
+        }
+    }
+    __syncthreads();
+    if (l < nr) save_t<0>(X, K, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
+  }
+  __syncthreads();
+}
+
+// The backward; LOAD (the save mode) fills each tile from the forward's
+// stashes (load_tile) where the recompute runs forward_tile.
+template <bool LOAD>
+__device__ __forceinline__ void march_bwd(const March& m) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
   Rings st;
@@ -316,7 +467,8 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
       load_march_points<TILE>(m, t, r0, t0, n_pts);
-      forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
+      if constexpr (LOAD) load_tile(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
+      else forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
       for (int e = tid; e < TILE * 16; e += THREADS) {
         const int q = t0 + e / 16, c = e % 16;
         t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
@@ -346,6 +498,14 @@ __global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
+  march_bwd<false>(m);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ray_march_load_bwd_kernel(March m) {
+  march_bwd<true>(m);
 }
 
 // The march of a forward (fwd) or backward kernel: its groups fill the
@@ -378,12 +538,21 @@ long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
 // Plain C interface for ctypes. The blocks a launch may use at once (SMs x
 // resident blocks per SM), and the per-block scratch each entry needs
 // (floats): the wrapper sizes the scratch by them.
-extern "C" int ray_march_fwd_max_blocks(int* n_blocks) {
-  return int(max_blocks(ray_march_fwd_kernel, SMEM_FWD, n_blocks));
+// `save`: of the save mode's entry (the forward's export, the backward's
+// load), else of the recompute's.
+extern "C" int ray_march_fwd_max_blocks(int save, int* n_blocks) {
+  return int(save ? max_blocks(ray_march_save_fwd_kernel, SMEM_FWD, n_blocks)
+                  : max_blocks(ray_march_fwd_kernel, SMEM_FWD, n_blocks));
 }
 
-extern "C" int ray_march_bwd_max_blocks(int* n_blocks) {
-  return int(max_blocks(ray_march_bwd_kernel, SMEM_BWD, n_blocks));
+extern "C" int ray_march_bwd_max_blocks(int save, int* n_blocks) {
+  return int(save ? max_blocks(ray_march_load_bwd_kernel, SMEM_BWD, n_blocks)
+                  : max_blocks(ray_march_bwd_kernel, SMEM_BWD, n_blocks));
+}
+
+// Bytes a point of the save mode's activation stash (act_layout).
+extern "C" int ray_march_act_bytes(int n_sdf, int n_color, int n_relight) {
+  return act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}).bytes;
 }
 
 extern "C" int ray_march_rays_per_group(int S, int fwd) {
@@ -401,11 +570,14 @@ extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_col
 // launch; none synchronises. `w` / `wimg`: the packed f32 weights and the
 // wgmma weight slabs (point_pipeline.py _pack_images), `off` / `ioff` host
 // arrays of their offset tables, `inv_s` a device pointer to one float.
+// `act`: the save mode's activation stash, [R S] rows of
+// ray_march_act_bytes; null runs the recompute's kernels.
 // Forward: out [R, 16], stash [R S, 8], scratch n_blocks x
 // ray_march_fwd_scratch_floats floats.
 extern "C" int ray_march_fwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const void* wimg, float* out, float* stash, float* scratch, long long n_rays,
+    const float* w, const void* wimg, float* out, float* stash, void* act, float* scratch,
+    long long n_rays,
     int S, float sample_dist, int n_blocks, int n_sdf, int skip, int d0, float scale,
     int n_color, int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
     const long long* off, const long long* ioff, int n_off, void* stream) {
@@ -416,13 +588,14 @@ extern "C" int ray_march_fwd_launch(
                        off, ioff, true);
   m.out = out;
   m.stash = stash;
+  m.act = static_cast<unsigned char*>(act);
   m.net.scratch = scratch;
   m.scratch_floats = fwd_scratch_floats(n_sdf);
-  cudaError_t e = cudaFuncSetAttribute(ray_march_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = act != nullptr ? ray_march_save_fwd_kernel : ray_march_fwd_kernel;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_FWD));
   if (e != cudaSuccess) return int(e);
-  ray_march_fwd_kernel<<<n_blocks, THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(m);
+  kernel<<<n_blocks, THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(m);
   return int(cudaGetLastError());
 }
 
@@ -431,7 +604,8 @@ extern "C" int ray_march_fwd_launch(
 // ray_march_bwd_scratch_floats(..., dw_batch) floats.
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
-    const float* w, const void* wimg, const float* stash, const float* gbar, float* rays_hat,
+    const float* w, const void* wimg, const float* stash, const void* act, const float* gbar,
+    float* rays_hat,
     float* partial, float* scratch, long long n_rays, int S, float sample_dist, int n_blocks,
     long long n_grad, int dw_batch, int n_sdf, int skip, int d0, float scale, int n_color,
     int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
@@ -444,17 +618,18 @@ extern "C" int ray_march_bwd_launch(
                        off, ioff, false);
   m.net.dw_batch = dw_batch;
   m.stash = const_cast<float*>(stash);
+  m.act = static_cast<unsigned char*>(const_cast<void*>(act));
   m.gbar = gbar;
   m.rays_hat = rays_hat;
   m.partial = partial;
   m.n_grad = n_grad;
   m.net.scratch = scratch;
   m.scratch_floats = march_bwd_scratch_floats(shape_of(m.net), S, dw_batch);
-  cudaError_t e = cudaFuncSetAttribute(ray_march_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = act != nullptr ? ray_march_load_bwd_kernel : ray_march_bwd_kernel;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_BWD));
   if (e != cudaSuccess) return int(e);
-  ray_march_bwd_kernel<<<n_blocks, THREADS, SMEM_BWD, static_cast<cudaStream_t>(stream)>>>(m);
+  kernel<<<n_blocks, THREADS, SMEM_BWD, static_cast<cudaStream_t>(stream)>>>(m);
   return int(cudaGetLastError());
 }
 

@@ -24,10 +24,15 @@ switches differ in meaning, because the port has its own kernels:
                tensors). auto and off run the plain PyTorch render core
                (what the JAX package runs off-TPU); auto takes the march
                only once a measured march step beats it (PERF.md).
-               MARCH_ACTS auto and recompute both run the march's one
-               backward, which recomputes the layer activations (JAX's
-               save mode gives the same gradients); save raises
-               NotImplementedError.
+  march_acts   auto | save | recompute, the march's backward (JAX's
+               policy, ops/kernels/ray_march.py resolve_save_acts): save
+               makes the forward kernel write the layer activations to a
+               stash on the device and the backward kernel load them;
+               recompute recomputes them in the backward; auto saves when
+               the stashes of the step's R S points fit
+               march_stash_budget_gb (MARCH_STASH_BUDGET_GB, 13.5 GiB; the
+               environment's MARCH_STASH_BUDGET_GB overrides it), as at
+               every shipped config's shape and at bench.py's.
   extract_precision  f32 | bf16: the grid-SDF kernel's dot type in mesh
                extraction (ops/kernels/sdf_mlp.py); 'f32x3' raises
                NotImplementedError (ROADMAP).
@@ -116,10 +121,6 @@ class NeRFConfig:
     skips: tuple = (4,)
 
 
-FUSED_ROADMAP_ITEM = ("ROADMAP.md Queue B (the fused march's save mode: a stash of the "
-                      "layer activations for its backward)")
-
-
 @dataclass(frozen=True)
 class RendererConfig:
     """Renderer hyperparameters (reference NeuS.py:71-93)."""
@@ -132,6 +133,10 @@ class RendererConfig:
     fused_sdf: str = "auto"
     fused_core: str = "auto"
     fused_march: str = "auto"
+    # the fused march's backward: auto | save | recompute (the module note)
+    march_acts: str = "auto"
+    # device memory (GiB) march_acts auto lets the save mode's stashes take
+    march_stash_budget_gb: float = 13.5
     # dtype of the no-grad placement sweeps: bfloat16 (default) or float32
     sweep_dtype: str = "bfloat16"
     # activation of the placement sweeps: softplus (reference) or relu
@@ -154,6 +159,7 @@ class RendererConfig:
             "fused_sdf": ("auto", "on", "off"),
             "fused_core": ("auto", "on", "off"),
             "fused_march": ("auto", "on", "off"),
+            "march_acts": ("auto", "save", "recompute"),
             "extract_precision": ("f32", "f32x3", "bf16"),
         }
         for name, allowed in _enums.items():
@@ -175,11 +181,8 @@ class RendererConfig:
 # kernels, ray chunking and the compute dtype of the render core
 _UNPORTED_KEYS = {
     "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512,
-    "MARCH_TILE": 0, "MARCH_STASH_BUDGET_GB": 13.5, "MARCH_BWD_PRECISION": "f32stash",
-    "THIN_DOTS": "hilo",
+    "MARCH_TILE": 0, "MARCH_BWD_PRECISION": "f32stash", "THIN_DOTS": "hilo",
 }
-# the march's backward policies: both run the port's recompute backward
-MARCH_ACTS = ("auto", "recompute")
 
 
 def _lower_get(d: dict, key: str, default):
@@ -208,12 +211,6 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
             raise NotImplementedError(
                 f"MODEL.RENDERER.{key}={rcfg[key]!r}: the port has no code that reads "
                 f"it yet (default {default!r}); see ROADMAP.md")
-    acts = rcfg.get("MARCH_ACTS", "auto")
-    if acts == "save":
-        raise NotImplementedError(
-            f"MODEL.RENDERER.MARCH_ACTS='save': not ported; see {FUSED_ROADMAP_ITEM}")
-    if acts not in MARCH_ACTS:
-        raise ValueError(f"MODEL.RENDERER.MARCH_ACTS={acts!r} not in {MARCH_ACTS + ('save',)}")
     kind = {"NeuS": "neus", "Color_NeuS": "color_neus"}.get(rcfg.get("TYPE", "NeuS"), rcfg.get("TYPE", "neus"))
     if kind == "color_neus" and color.get("MODE", "idr") != "no_view_dir":
         raise ValueError("Color_NeuS requires COLOR.MODE == 'no_view_dir' (reference Color_NeuS.py:14)")
@@ -227,6 +224,8 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
         fused_sdf=_switch(rcfg, "FUSED_SDF"),
         fused_core=_switch(rcfg, "FUSED_CORE"),
         fused_march=_switch(rcfg, "FUSED_MARCH"),
+        march_acts=_lower_get(rcfg, "MARCH_ACTS", "auto"),
+        march_stash_budget_gb=_lower_get(rcfg, "MARCH_STASH_BUDGET_GB", 13.5),
         sweep_dtype=_lower_get(rcfg, "SWEEP_DTYPE", "bfloat16"),
         sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
         extract_precision=_lower_get(rcfg, "EXTRACT_PRECISION", "f32"),

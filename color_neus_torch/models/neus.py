@@ -16,7 +16,8 @@ per-point MLPs (eval_point_pipeline) follow fused_core:
   * off: always the plain core.
 The training loss path (render_rays_train) follows fused_march: 'on' runs
 the fused ray march (ops/kernels/ray_march.py: the autograd Function of
-the march's forward and backward kernels, plain twins for CPU tensors) on
+the march's forward and backward kernels in march_acts' mode, plain twins
+for CPU tensors) on
 the same z values, and returns the same dict; 'auto' and 'off' reduce the
 plain core's render_rays output (auto stays on the plain core until a
 measured march step beats it, PERF.md).
@@ -354,7 +355,8 @@ def _fused_out16(params, rcfg: RendererConfig, rays_o, rays_d, near, far, genera
     (ray_march.fused_ray_march)."""
     z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
     inv_s = fields.variance_inv_s(params["variance"])
-    return fused_ray_march(params, rcfg, rays_o, rays_d, z_vals, inv_s)
+    return fused_ray_march(params, rcfg, rays_o, rays_d, z_vals, inv_s,
+                           save_acts=rcfg.march_acts)
 
 
 def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,

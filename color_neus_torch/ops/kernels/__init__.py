@@ -17,6 +17,8 @@ def launchers() -> dict:
             "point_pipeline_bwd": point_pipeline.launch_point_pipeline_bwd,
             "ray_march": ray_march.launch_ray_march,
             "ray_march_bwd": ray_march.launch_ray_march_bwd,
+            "ray_march_save": ray_march.launch_ray_march_save,
+            "ray_march_bwd_load": ray_march.launch_ray_march_bwd_load,
             "mlp_chain": mlp_chain.launch_chain,
             "mlp_chain_deferred": mlp_chain.launch_chain_deferred}
 

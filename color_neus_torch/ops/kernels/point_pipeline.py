@@ -433,12 +433,30 @@ def _per_coord(t: torch.Tensor) -> torch.Tensor:
 class _Stash:
     """What point_pipeline_bwd_plain reads of the forward: the scaled
     points, the SDF layer inputs and gates, the colour and relight layer
-    inputs (each in its net's own layout)."""
+    inputs (each in its net's own layout); and the softplus outputs of the
+    SDF's hidden layers, which the save mode keeps."""
     x: torch.Tensor
     xs: list
     gates: list
     cs: list
     rs: list
+    sps: list
+
+
+@dataclass
+class ActStash:
+    """The activations the fused march's save mode keeps per point, what
+    its forward kernel writes to the activation stash (csrc/
+    point_pipeline_tile.cuh act_layout), in each net's own layout: sp, the
+    softplus of every hidden SDF layer (the inputs' dtype); cs, the hidden
+    part of each colour layer's input (layer 0: the features); rs, each
+    relight layer's from layer 1 on (the y_in layer without its gc); cs and
+    rs in bf16 when bf16 (values rounded, the inputs' dtype kept); outs, the
+    five outputs. _unstash rebuilds the rest, as the load kernel does."""
+    sp: list
+    cs: list
+    rs: list
+    outs: tuple
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -482,7 +500,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: b
     x = pts * s.scale
     emb = positional_encoding(x, s.multires)
     d0 = emb.shape[1]
-    h, xs, gates = emb, [], []
+    h, xs, gates, sps = emb, [], [], []
     for l, (w, b) in enumerate(pw.sdf):
         if l in s.skip_in:
             h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
@@ -491,6 +509,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: b
         if l < len(pw.sdf) - 1:
             h, g = _softplus100_and_gate(a)
             gates.append(g)
+            sps.append(h)
     sdf = a[:, :1] * (1.0 / s.scale)
     feat = a[:, 1:]
 
@@ -523,7 +542,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: b
             h = torch.relu(h)
     gc = torch.sigmoid(h) if c.squeeze_out else h
 
-    stash = _Stash(x, xs, gates, cs, [])
+    stash = _Stash(x, xs, gates, cs, [], sps)
     if rcfg.kind != "color_neus":
         return (sdf, grad, gc, gc, torch.zeros_like(gc)), stash
     r = rcfg.relight
@@ -554,8 +573,45 @@ def point_pipeline_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Ten
         return _forward(pw, pts, dirs, bf16)[0]
 
 
+def stash_activations(rcfg: RendererConfig, outs, st: _Stash, bf16: bool = False) -> ActStash:
+    """The ActStash of a forward (_forward's outputs and _Stash): bf16
+    rounds the colour and relight parts, as the kernel stores them."""
+    keep = _bf16 if bf16 else (lambda t: t)
+    y_in = rcfg.relight.y_in_layer
+    cs = [keep(st.cs[0][:, -rcfg.color.d_feature:])] + [keep(c) for c in st.cs[1:]]
+    rs = [keep(r[:, 3:] if l == y_in else r) for l, r in enumerate(st.rs) if l > 0]
+    return ActStash(list(st.sps), cs, rs, tuple(outs))
+
+
+def _unstash(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, a: ActStash):
+    """(outs, _Stash) from an ActStash, as the load kernel rebuilds them:
+    the gates 1 - exp(-100 sp), the skip input [sp, PE] / sqrt(2), the PE
+    and the small inputs from the points, the y_in layer's gc from outs."""
+    rcfg = pw.rcfg
+    s, c, r = rcfg.sdf, rcfg.color, rcfg.relight
+    _, grad, gc, _, _ = a.outs
+    x = pts * s.scale
+    emb = positional_encoding(x, s.multires)
+    xs, gates = [emb], []
+    for l, sp in enumerate(a.sp):
+        gates.append(1.0 - torch.exp(-100.0 * sp))
+        xs.append(torch.cat([sp, emb], dim=-1) * _INV_SQRT2 if l + 1 in s.skip_in else sp)
+    if c.mode == "idr":
+        small = [pts, positional_encoding(dirs, c.multires_view), grad]
+    else:
+        small = [pts, grad]
+    cs = [torch.cat(small + [a.cs[0]], dim=-1)] + list(a.cs[1:])
+    rs = []
+    if rcfg.kind == "color_neus":
+        feats = [pts, positional_encoding(dirs, r.multires_view)] + ([grad] if r.include_grad
+                                                                     else [])
+        rs = [torch.cat(feats, dim=-1)] + [torch.cat([gc, h], dim=-1) if l + 1 == r.y_in_layer
+                                           else h for l, h in enumerate(a.rs)]
+    return a.outs, _Stash(x, xs, gates, cs, rs, list(a.sp))
+
+
 def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor,
-                             cotangents, bf16: bool = False):
+                             cotangents, bf16: bool = False, stash: ActStash | None = None):
     """Plain PyTorch VJP of the pipeline, the JAX kernel's pullback
     (_mlp_recompute + _mlp_pullback) op for op in the nets' own layouts.
     cotangents: those of (sdf, grad, gc, relit, delta). Returns (pts_hat
@@ -564,12 +620,16 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
     (bf16 = not interpret, f32stash): every product rounds its operands to
     bf16 and sums in pts' dtype, but for layer 0's weight grad, whose f32
     operands (the PE and the tangent seed) go in as hi + lo bf16 pairs, and
-    the last layer's rank-1 tangent term, summed in f32."""
+    the last layer's rank-1 tangent term, summed in f32. stash: the save
+    mode's (stash_activations of the forward on these points, with the
+    same bf16), read instead of recomputing the forward (JAX's
+    unflatten_stash + _mlp_pullback)."""
     rcfg = pw.rcfg
     s = rcfg.sdf
     q = _operand(bf16)
     with torch.no_grad():
-        (_, _, gc, relit, delta), st = _forward(pw, pts, dirs, bf16)
+        (_, _, gc, relit, delta), st = (_forward(pw, pts, dirs, bf16) if stash is None
+                                        else _unstash(pw, pts, dirs, stash))
         pw = _rounded(pw, bf16)
         sdf_hat, grad_hat, gc_hat, relit_hat, delta_hat = cotangents
         pts_hat = torch.zeros_like(pts)

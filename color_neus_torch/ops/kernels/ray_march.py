@@ -9,30 +9,40 @@ sum of delta, 5 / 6 the eikonal numerator and denominator over |p| < 1.2,
 is a constant (the hierarchy is no-grad). Gradients flow to every weight,
 to the rays and to inv_s.
 
-Forward, two implementations of one function:
+The backward either recomputes the layer activations (JAX's march_acts
+recompute) or, in the save mode (save), loads them from a stash the
+forward wrote; resolve_save_acts picks the mode as JAX does ('auto' saves
+when march_stash_bytes fits the budget). Forward, two implementations of
+one function:
   * launch_ray_march: the first entry of the hand-written CUDA source
     csrc/ray_march.cu (its note gives the bound and the design); it also
     returns the per-point stash (sdf, grad, relit, delta sum) its backward
-    reads. Counts its launches in launch_ray_march.launches and raises on
-    any build or launch failure.
+    reads. launch_ray_march_save: its save entry, which also writes the
+    activation stash (act_bytes a point). Each counts its launches in its
+    own .launches and raises on any build or launch failure.
   * ray_march_plain: the same function in plain PyTorch in the per-ray
-    [R, S] layout, the point pipeline's plain twin plus the compositing.
+    [R, S] layout, the point pipeline's plain twin plus the compositing;
+    save=True also returns the plain stash (point_pipeline.ActStash).
 Backward (the VJP of the [R, 16] output), likewise:
   * launch_ray_march_bwd: the second entry of csrc/ray_march.cu and the
     fixed-order reduction of its per-block partials (point_pipeline.py's
-    reduce_partials). Counts its launches in launch_ray_march_bwd.launches.
+    reduce_partials); launch_ray_march_bwd_load: its load entry, on the
+    save entry's stashes. Each counts its launches in its own .launches.
   * ray_march_bwd_plain: the compositing VJP of ray_march.py:322-371 by
-    hand (not autograd), then point_pipeline_bwd_plain.
+    hand (not autograd), then point_pipeline_bwd_plain (with stash=: on
+    the plain stash, no recompute).
 Both plain versions run on any device and in float64 as well, and take
-the point pipeline's `bf16` flag (True: the kernels' bf16 products).
-RayMarchFunction is the autograd Function: the device of the tensors
-alone picks the kernels or the plain versions; fused_ray_march resolves
-the weight norm outside it.
+the point pipeline's `bf16` flag (True: the kernels' bf16 products and
+stash stores). RayMarchFunction is the autograd Function: the device of
+the tensors alone picks the kernels or the plain versions, the resolved
+mode the recompute or the save pair; fused_ray_march resolves the weight
+norm and the mode outside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,8 +54,10 @@ from color_neus_torch.models.fields import resolve_linear
 from color_neus_torch.ops.kernels import point_pipeline as PP
 
 KERNEL = "ray_march"
-STASH = 8          # per point in the forward's stash: sdf, grad (3), relit (3), delta sum
-_MAX_BLOCKS: dict = {}   # (device, entry) -> blocks resident at once (sizes the scratch)
+STASH = 8          # per point in the forward's stash (both modes): sdf, grad (3), relit (3),
+                   # delta sum; the save mode adds the activation stash (act_bytes)
+STASH_BUDGET_GB = 13.5   # the device memory 'auto' lets the save mode's stashes take (JAX's)
+_MAX_BLOCKS: dict = {}   # (device, entry, save) -> blocks resident at once (sizes the scratch)
 
 
 def march_points(rays_o, rays_d, z, sample_dist: float):
@@ -116,14 +128,18 @@ def out16(outs, c: Composite) -> torch.Tensor:
 
 
 def ray_march_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,
-                    bf16: bool = False):
+                    bf16: bool = False, save: bool = False):
     """Plain PyTorch forward: [R, 16]. bf16: the point pipeline's products
     in the kernels' (and the TPU kernels') bf16 arithmetic
-    (point_pipeline._forward); the compositing stays in the inputs' dtype."""
+    (point_pipeline._forward); the compositing stays in the inputs' dtype.
+    save: also return the save mode's stash (point_pipeline.ActStash, what
+    the save kernel keeps, in its store dtypes when bf16): ([R, 16],
+    stash)."""
     with torch.no_grad():
         dists, _, pts, dirs = march_points(rays_o, rays_d, z, sample_dist)
-        outs = PP.point_pipeline_plain(pw, pts, dirs, bf16)
-        return out16(outs, composite(outs, rays_d, dists, pts, inv_s))
+        outs, st = PP._forward(pw, pts, dirs, bf16)
+        out = out16(outs, composite(outs, rays_d, dists, pts, inv_s))
+        return (out, PP.stash_activations(pw.rcfg, outs, st, bf16)) if save else out
 
 
 def composite_vjp(outs, c: Composite, rays_d, dists, inv_s, gbar):
@@ -189,32 +205,79 @@ def march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar, forward, pullback):
 
 
 def ray_march_bwd_plain(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist, gbar,
-                        bf16: bool = False):
+                        bf16: bool = False, stash: PP.ActStash | None = None):
     """Plain PyTorch VJP of the march (not autograd): (rays_o_hat [R,3],
     rays_d_hat [R,3], inv_s_hat (0-d), {"sdf" / "color" / "relight": [(dW,
-    db) per layer]}); bf16 as ray_march_plain."""
+    db) per layer]}); bf16 as ray_march_plain. stash: the save mode's, from
+    ray_march_plain(..., save=True) on the same inputs and bf16: its
+    outputs feed the compositing VJP, and the pullback reads its
+    activations instead of recomputing the point pipeline."""
     with torch.no_grad():
         return march_vjp(rays_o, rays_d, z, inv_s, sample_dist, gbar,
-                         lambda p, d: PP.point_pipeline_plain(pw, p, d, bf16),
-                         lambda p, d, cots: PP.point_pipeline_bwd_plain(pw, p, d, cots, bf16))
+                         (lambda p, d: PP.point_pipeline_plain(pw, p, d, bf16)) if stash is None
+                         else (lambda p, d: stash.outs),
+                         lambda p, d, cots: PP.point_pipeline_bwd_plain(pw, p, d, cots, bf16,
+                                                                        stash=stash))
 
 
-def march_macs_per_point(pw: PP.PipelineWeights):
+def march_macs_per_point(pw: PP.PipelineWeights, save: bool = False):
     """(forward, backward) multiply-adds per point of the march kernels at
     the networks' real widths (the counterpart of
     march_gemm_flops_per_point): the forward is the point pipeline's (SDF,
-    its reverse sweep, colour, relight); the backward one recompute of it,
-    dW and xbar of every colour and relight layer, the SDF tangent stream,
-    dW and xbar of the last SDF layer, two dW and two xbar products per
-    hidden SDF layer, and the second (lo) bf16 pass of layer 0's two dW
-    products."""
+    its reverse sweep, colour, relight); the backward dW and xbar of every
+    colour and relight layer, the SDF tangent stream, dW and xbar of the
+    last SDF layer, two dW and two xbar products per hidden SDF layer, the
+    second (lo) bf16 pass of layer 0's two dW products, and, unless save
+    (the save mode loads the activations), one recompute of the forward."""
     def macs(layers):
         return sum(w.shape[0] * w.shape[1] for w, _ in layers)
     hidden = macs(pw.sdf[:-1])
     fwd = macs(pw.sdf) + hidden + macs(pw.color) + macs(pw.relight)
-    bwd = fwd + 2 * (macs(pw.color) + macs(pw.relight)) + hidden + 2 * macs(pw.sdf[-1:]) \
+    pull = 2 * (macs(pw.color) + macs(pw.relight)) + hidden + 2 * macs(pw.sdf[-1:]) \
         + 4 * hidden + 2 * macs(pw.sdf[:1])
-    return fwd, bwd
+    return fwd, pull + (0 if save else fwd)
+
+
+def _net_counts(net) -> tuple:
+    """(n_sdf, n_color, n_relight) linear layers of a PipelineWeights' or
+    a RendererConfig's nets."""
+    counts = PP._layer_counts(getattr(net, "rcfg", net))
+    return counts["sdf"], counts["color"], counts["relight"]
+
+
+def act_bytes(net) -> int:
+    """Bytes a point of the save mode's activation stash, the kernel's
+    layout (csrc/point_pipeline_tile.cuh act_layout): the softplus of every
+    hidden SDF layer in f32, 256 wide; the features and the colour / relight
+    hidden layers' outputs in bf16, 256 wide; 8 f32."""
+    n_sdf, n_color, n_relight = _net_counts(net)
+    return (n_sdf - 1) * PP.HID * 4 + (n_color + max(n_relight - 1, 0)) * PP.HID * 2 + 32
+
+
+def march_stash_bytes(net, n_pts: int) -> int:
+    """Device bytes the save mode's stashes take for n_pts points: the
+    activation stash and the 8-float outs stash (the recompute keeps only
+    the latter). net: a PipelineWeights or a RendererConfig."""
+    return n_pts * (act_bytes(net) + STASH * 4)
+
+
+def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -> bool:
+    """The march's backward for a march_acts policy (JAX ray_march.py
+    resolve_save_acts): 'save' / True and 'recompute' / False / None pass
+    through; 'auto' saves when march_stash_bytes fits the budget in GiB
+    (the environment's MARCH_STASH_BUDGET_GB first, then budget_gb, then
+    STASH_BUDGET_GB), else recomputes; anything else raises ValueError."""
+    if policy in (True, "save"):
+        return True
+    if policy in (False, "recompute", None):
+        return False
+    if policy != "auto":
+        raise ValueError(f"march_acts policy {policy!r} not in ('auto', 'save', 'recompute')")
+    if "MARCH_STASH_BUDGET_GB" in os.environ:
+        budget_gb = float(os.environ["MARCH_STASH_BUDGET_GB"])
+    elif budget_gb is None:
+        budget_gb = STASH_BUDGET_GB
+    return march_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
 
 
 def _library():
@@ -223,14 +286,15 @@ def _library():
     if lib.ray_march_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
-        lib.ray_march_fwd_launch.argtypes = [p] * 9 + [ll, i, f, i] + net + [p]
-        lib.ray_march_bwd_launch.argtypes = [p] * 11 + [ll, i, f, i, ll, i] + net + [p]
+        lib.ray_march_fwd_launch.argtypes = [p] * 10 + [ll, i, f, i] + net + [p]
+        lib.ray_march_bwd_launch.argtypes = [p] * 12 + [ll, i, f, i, ll, i] + net + [p]
         for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
-                   lib.ray_march_rays_per_group):
+                   lib.ray_march_rays_per_group, lib.ray_march_act_bytes):
             fn.restype = i
         lib.ray_march_rays_per_group.argtypes = [i, i]
+        lib.ray_march_act_bytes.argtypes = [i, i, i]
         for fn in (lib.ray_march_fwd_max_blocks, lib.ray_march_bwd_max_blocks):
-            fn.argtypes = [ctypes.POINTER(i)]
+            fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
         lib.ray_march_fwd_scratch_floats.argtypes = [i]
         lib.ray_march_bwd_scratch_floats.argtypes = [i] * 7
@@ -249,15 +313,23 @@ def _raise_on(lib, rc, what):
                            f"({lib.ray_march_error_string(rc).decode()})")
 
 
-def _max_blocks(lib, dev, entry: str) -> int:
-    key = (dev, entry)
+def _max_blocks(lib, dev, entry: str, save: bool) -> int:
+    key = (dev, entry, save)
     if key not in _MAX_BLOCKS:
         nb = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            rc = getattr(lib, f"ray_march_{entry}_max_blocks")(ctypes.byref(nb))
+            rc = getattr(lib, f"ray_march_{entry}_max_blocks")(int(save), ctypes.byref(nb))
         _raise_on(lib, rc, "occupancy query")
         _MAX_BLOCKS[key] = nb.value
     return _MAX_BLOCKS[key]
+
+
+def _act_bytes(lib, pw: PP.PipelineWeights) -> int:
+    """act_bytes(pw), checked against the kernel's layout."""
+    n = act_bytes(pw)
+    if lib.ray_march_act_bytes(*_net_counts(pw)) != n:
+        raise RuntimeError("ray_march: the kernel's activation stash layout does not match")
+    return n
 
 
 def _check_inputs(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s):
@@ -281,17 +353,20 @@ def _groups(lib, R, S, fwd: bool) -> int:
     return -(-R // G)
 
 
-def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float):
-    """Launch the forward kernel on the current stream; returns (out [R,
-    16], the stash [R S, 8] its backward reads)."""
+def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, save: bool):
+    """Launch the forward kernel (save: the save mode's) on the current
+    stream: (out [R, 16], the stash [R S, 8] its backward reads, the
+    activation stash [R S, act_bytes] uint8 or None)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     lib = _library()
     tables, images, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
+    act = torch.empty((R * S, _act_bytes(lib, pw)), dtype=torch.uint8, device=dev) if save \
+        else None
     if R == 0:
-        return out, stash
-    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, "fwd"))
+        return out, stash, act
+    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, "fwd", save))
     scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0]), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
@@ -299,8 +374,16 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
         rc = lib.ray_march_fwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
             pw.packed.data_ptr(), images.data_ptr(), out.data_ptr(), stash.data_ptr(),
-            scratch.data_ptr(), R, S, sample_dist, grid, *net, stream)
-    _raise_on(lib, rc, "kernel launch")
+            act.data_ptr() if save else None, scratch.data_ptr(), R, S, sample_dist, grid,
+            *net, stream)
+    _raise_on(lib, rc, "save kernel launch" if save else "kernel launch")
+    return out, stash, act
+
+
+def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float):
+    """Launch the forward kernel on the current stream; returns (out [R,
+    16], the stash [R S, 8] its backward reads)."""
+    out, stash, _ = _fwd(pw, rays_o, rays_d, z, inv_s, sample_dist, False)
     launch_ray_march.launches += 1
     return out, stash
 
@@ -308,27 +391,44 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
 launch_ray_march.launches = 0
 
 
-def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,
-                         stash, gbar):
-    """Launch the backward kernel and the reduction on the current stream.
-    stash: launch_ray_march's on the same inputs; gbar [R, 16]. Returns
-    (rays_o_hat [R,3], rays_d_hat [R,3], inv_s_hat [1], the weight grads
-    [n_grad] in the packed layout: point_pipeline._unpack_grads)."""
+def launch_ray_march_save(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
+                          sample_dist: float):
+    """Launch the save mode's forward kernel on the current stream;
+    returns (out [R, 16], the stash [R S, 8], the activation stash [R S,
+    act_bytes] uint8), which launch_ray_march_bwd_load reads."""
+    out = _fwd(pw, rays_o, rays_d, z, inv_s, sample_dist, True)
+    launch_ray_march_save.launches += 1
+    return out
+
+
+launch_ray_march_save.launches = 0
+
+
+def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, stash, act,
+         gbar):
+    """Launch the backward kernel (act not None: the save mode's, which
+    loads it) and the reduction on the current stream."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     PP._check("stash", stash, R * S, dev, STASH)
     PP._check("gbar", gbar, R, dev, 16)
     lib = _library()
+    save = act is not None
+    if save and (act.dtype != torch.uint8 or not act.is_contiguous() or act.device != dev
+                 or tuple(act.shape) != (R * S, _act_bytes(lib, pw))):
+        raise ValueError(f"ray_march: act must be launch_ray_march_save's [{R * S}, "
+                         f"{act_bytes(pw)}] uint8 on {dev}; got {act.dtype} "
+                         f"{tuple(act.shape)} on {act.device}")
     rays_hat = torch.empty((R, 8), dtype=torch.float32, device=dev)
     if R == 0:
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
             torch.zeros(pw.n_grad, device=dev)
     groups = _groups(lib, R, S, False)
-    grid = min(groups, _max_blocks(lib, dev, "bwd"))
+    grid = min(groups, _max_blocks(lib, dev, "bwd", save))
     G = lib.ray_march_rays_per_group(S, 0)
     batch = PP.dw_batch(-(-groups // grid) * -(-G * S // 64), 1)
     tables, images, net = PP._net_args(pw)
-    # per block: the recompute's gates, tangent stream and colour / relight
-    # inputs, the weight-grad operands of `batch` tiles, the group's
+    # per block: the recompute's (or the load's) gates, tangent stream and
+    # colour / relight inputs, the weight-grad operands of `batch` tiles, the group's
     # per-point cotangents; and a partial of the weight grads (the packed
     # layout) and of inv_s's, summed afterwards
     per_block = lib.ray_march_bwd_scratch_floats(*PP._shape_args(net), S, batch)
@@ -339,35 +439,70 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
         rc = lib.ray_march_bwd_launch(
             rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(), inv_s.data_ptr(),
             pw.packed.data_ptr(), images.data_ptr(), stash.data_ptr(),
-            gbar.data_ptr(), rays_hat.data_ptr(), partial.data_ptr(), scratch.data_ptr(), R, S,
-            sample_dist, grid, pw.n_grad, batch, *net, stream)
-    _raise_on(lib, rc, "backward kernel launch")
-    launch_ray_march_bwd.launches += 1
+            act.data_ptr() if save else None, gbar.data_ptr(), rays_hat.data_ptr(),
+            partial.data_ptr(), scratch.data_ptr(), R, S, sample_dist, grid, pw.n_grad, batch,
+            *net, stream)
+    _raise_on(lib, rc, "load backward kernel launch" if save else "backward kernel launch")
     total = PP.reduce_partials(partial)
     return rays_hat[:, 0:3], rays_hat[:, 4:7], total[pw.n_grad:], total[:pw.n_grad]
+
+
+def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,
+                         stash, gbar):
+    """Launch the backward kernel and the reduction on the current stream.
+    stash: launch_ray_march's on the same inputs; gbar [R, 16]. Returns
+    (rays_o_hat [R,3], rays_d_hat [R,3], inv_s_hat [1], the weight grads
+    [n_grad] in the packed layout: point_pipeline._unpack_grads)."""
+    out = _bwd(pw, rays_o, rays_d, z, inv_s, sample_dist, stash, None, gbar)
+    launch_ray_march_bwd.launches += 1
+    return out
 
 
 launch_ray_march_bwd.launches = 0
 
 
+def launch_ray_march_bwd_load(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
+                              sample_dist: float, stash, act, gbar):
+    """Launch the save mode's backward kernel, which loads the layer
+    activations from act instead of recomputing them, and the reduction.
+    stash, act: launch_ray_march_save's on the same inputs; returns as
+    launch_ray_march_bwd."""
+    out = _bwd(pw, rays_o, rays_d, z, inv_s, sample_dist, stash, act, gbar)
+    launch_ray_march_bwd_load.launches += 1
+    return out
+
+
+launch_ray_march_bwd_load.launches = 0
+
+
 class RayMarchFunction(torch.autograd.Function):
     """The march with its hand-written VJP (JAX _march_core).
-    apply(rcfg, rays_o, rays_d, z_vals, inv_s, *flat) -> [R, 16], with flat
-    the resolved (w, b) of every layer, sdf then colour then relight; z gets
-    no gradient. Forward: row 3's kernel (CUDA) or ray_march_plain (CPU);
-    backward: row 4's kernel on the forward's stash (CUDA) or
-    ray_march_bwd_plain (CPU), the device alone deciding."""
+    apply(rcfg, save, rays_o, rays_d, z_vals, inv_s, *flat) -> [R, 16],
+    with save the resolved mode (resolve_save_acts) and flat the resolved
+    (w, b) of every layer, sdf then colour then relight; z gets no
+    gradient. Forward: row 3's kernel (CUDA; save: its save entry, which
+    also writes the activation stash) or ray_march_plain (CPU; save: its
+    stash too); backward: row 4's kernel on the forward's stashes (save: its
+    load entry) or ray_march_bwd_plain (CPU; save: on the plain stash), the
+    device alone deciding between kernel and plain version."""
 
     @staticmethod
-    def forward(ctx, rcfg, rays_o, rays_d, z_vals, inv_s, *flat):
+    def forward(ctx, rcfg, save, rays_o, rays_d, z_vals, inv_s, *flat):
         pw = PP._make_weights(rcfg, PP._split_layers(rcfg, flat))
         ro, rd, z = (t.detach().float().contiguous() for t in (rays_o, rays_d, z_vals))
         s = inv_s.detach().float().reshape(1).contiguous()
         sample_dist = 2.0 / rcfg.n_samples
         ctx.pw, ctx.ro, ctx.rd, ctx.z, ctx.inv_s = pw, ro, rd, z, s
-        ctx.sample_dist, ctx.inv_s_shape = sample_dist, inv_s.shape
+        ctx.sample_dist, ctx.inv_s_shape, ctx.save = sample_dist, inv_s.shape, save
+        ctx.act = None
         if ro.is_cuda:
-            out, ctx.stash = launch_ray_march(pw, ro, rd, z, s, sample_dist)
+            if save:
+                out, ctx.stash, ctx.act = launch_ray_march_save(pw, ro, rd, z, s, sample_dist)
+            else:
+                out, ctx.stash = launch_ray_march(pw, ro, rd, z, s, sample_dist)
+            return out
+        if save:
+            out, ctx.stash = ray_march_plain(pw, ro, rd, z, s, sample_dist, save=True)
             return out
         return ray_march_plain(pw, ro, rd, z, s, sample_dist)
 
@@ -377,20 +512,31 @@ class RayMarchFunction(torch.autograd.Function):
         pw, ro, rd, z, s = ctx.pw, ctx.ro, ctx.rd, ctx.z, ctx.inv_s
         gbar = gbar.float().contiguous()
         if ro.is_cuda:
-            ro_hat, rd_hat, s_hat, packed = launch_ray_march_bwd(
-                pw, ro, rd, z, s, ctx.sample_dist, ctx.stash, gbar)
+            if ctx.save:
+                ro_hat, rd_hat, s_hat, packed = launch_ray_march_bwd_load(
+                    pw, ro, rd, z, s, ctx.sample_dist, ctx.stash, ctx.act, gbar)
+            else:
+                ro_hat, rd_hat, s_hat, packed = launch_ray_march_bwd(
+                    pw, ro, rd, z, s, ctx.sample_dist, ctx.stash, gbar)
             grads = PP._unpack_grads(pw, packed)
         else:
-            ro_hat, rd_hat, s_hat, grads = ray_march_bwd_plain(pw, ro, rd, z, s, ctx.sample_dist,
-                                                               gbar)
+            ro_hat, rd_hat, s_hat, grads = ray_march_bwd_plain(
+                pw, ro, rd, z, s, ctx.sample_dist, gbar,
+                stash=ctx.stash if ctx.save else None)
+        ctx.stash = ctx.act = None
         flat = [t for net in PP._layer_counts(pw.rcfg) for wb in grads[net] for t in wb]
-        return (None, ro_hat, rd_hat, None, s_hat.reshape(ctx.inv_s_shape), *flat)
+        return (None, None, ro_hat, rd_hat, None, s_hat.reshape(ctx.inv_s_shape), *flat)
 
 
-def fused_ray_march(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, inv_s):
+def fused_ray_march(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, inv_s,
+                    save_acts="auto"):
     """Differentiable [R, 16] loss partials of the rays (JAX
     fused_ray_march): RayMarchFunction on the weights resolved here (the
-    weight norm, with grad), the sample_dist of rcfg.n_samples."""
+    weight norm, with grad), the sample_dist of rcfg.n_samples, in the
+    backward mode resolve_save_acts gives save_acts (rcfg.march_acts on
+    the main path) for R S points under rcfg.march_stash_budget_gb."""
     flat = [t for net, names in PP._layer_names(rcfg).items() for n in names
             for t in resolve_linear(params[net][n])]
-    return RayMarchFunction.apply(rcfg, rays_o, rays_d, z_vals, inv_s, *flat)
+    save = resolve_save_acts(save_acts, rcfg, z_vals.shape[0] * z_vals.shape[1],
+                             rcfg.march_stash_budget_gb)
+    return RayMarchFunction.apply(rcfg, save, rays_o, rays_d, z_vals, inv_s, *flat)

@@ -2,7 +2,9 @@
 // kernels in its unnamed namespace) by tests/test_torch_ray_march_emulated.py.
 // Usage: emu DIR. Reads from DIR: meta.i64 (R, S, n_sdf, skip, d0, n_color,
 // color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks,
-// dw_batch),
+// dw_batch, save: 1 runs the save mode's pair, ray_march_save_fwd_kernel
+// then ray_march_load_bwd_kernel, on an activation stash that starts as
+// garbage, and also writes it as act.bin),
 // f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, ioff.i64, img.bf16
 // (the wgmma weight slabs), rays_o.f32, rays_d.f32, z.f32, gbar.f32; runs the forward kernel and then the
 // backward kernel block after block on `blocks` blocks, the partials summed
@@ -54,6 +56,7 @@ int main(int argc, char** argv) {
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const long long R = m[0], n_grad = m[12];
   const int S = int(m[1]), blocks = int(m[13]), batch = int(m[14]);
+  const bool save = m[15] != 0;
   auto march = [&](bool fwd) {
     return make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), img.data(), R, S, F(fl)[1], int(m[2]),
                       int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]), int(m[7]), int(m[8]),
@@ -64,6 +67,8 @@ int main(int argc, char** argv) {
   const March base = march(false);
   std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
   std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
+  const int act_bytes = act_layout(shape_of(base.net)).bytes;
+  std::vector<unsigned char> act(save ? size_t(R) * S * act_bytes : 0, 0xAB);
   const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
   const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch);
   std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats, 12345.f);
@@ -75,6 +80,7 @@ int main(int argc, char** argv) {
   for (int pass = 0; pass < 2; ++pass) {
     March q = march(pass == 0);
     q.stash = stash.data();
+    q.act = save ? act.data() : nullptr;
     if (pass == 0) {
       q.out = out.data();
       q.net.scratch = scratch_fwd.data();
@@ -92,10 +98,10 @@ int main(int argc, char** argv) {
       blockIdx.x = b;
       std::vector<std::thread> threads;
       for (int t = 0; t < THREADS; ++t)
-        threads.emplace_back([&q, pass, t] {
+        threads.emplace_back([&q, pass, save, t] {
           threadIdx.x = t;
-          if (pass == 0) ray_march_fwd_kernel(q);
-          else ray_march_bwd_kernel(q);
+          if (pass == 0) save ? ray_march_save_fwd_kernel(q) : ray_march_fwd_kernel(q);
+          else save ? ray_march_load_bwd_kernel(q) : ray_march_bwd_kernel(q);
         });
       for (auto& th : threads) th.join();
     }
@@ -110,5 +116,10 @@ int main(int argc, char** argv) {
   dump(d + "/stash.f32", stash);
   dump(d + "/rays_hat.f32", rays_hat);
   dump(d + "/grad.f32", grad);
+  if (save) {
+    FILE* f = fopen((d + "/act.bin").c_str(), "wb");
+    fwrite(act.data(), 1, act.size(), f);
+    fclose(f);
+  }
   return 0;
 }

@@ -178,6 +178,44 @@ def test_cuda_point_pipeline_bwd_matches_plain(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+def test_cuda_march_save_pair_equals_recompute_pair(cuda_device, kind):
+    """Rows 3 and 4's save entries against their recompute entries on the
+    same inputs: the forward writes the activation stash ([R S,
+    ray_march.act_bytes] bytes) and the backward that loads it gives the
+    recompute's outputs and gradients bitwise (each point's activations
+    are the same arithmetic in a 128-point forward tile and a 64-point
+    recompute tile; chip_smoke.py phase 2d read 0 on every leaf). 128-sample
+    rays and 27-sample rays packed into tiles, a ragged count."""
+    from chip_smoke import march_inputs
+    from color_neus_torch.ops.kernels import ray_march as RM
+    rcfg, pw, *_ = march_inputs(cuda_device, kind, 0.3, 8)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    sd = 2.0 / rcfg.n_samples
+    inv_s = torch.full((1,), 20.0, device=cuda_device)
+    for R, S in ((64, 128), (37, 27)):
+        d = torch.randn((R, 3), generator=g, device=cuda_device)
+        d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        o = (-1.4 * d + 0.1 * torch.randn((R, 3), generator=g, device=cuda_device)).contiguous()
+        z = (0.5 + 1.8 * torch.sort(torch.rand((R, S), generator=g, device=cuda_device),
+                                    dim=-1).values).contiguous()
+        gbar = torch.randn((R, 16), generator=g, device=cuda_device)
+        gbar[:, 7:] = 0.0
+        out, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
+        rec = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, gbar.contiguous())
+        before = (RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches)
+        out_s, stash_s, act = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
+        sav = RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_s, act,
+                                           gbar.contiguous())
+        torch.cuda.synchronize()
+        assert (RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert tuple(act.shape) == (R * S, RM.act_bytes(pw))
+        assert torch.equal(out_s, out) and torch.equal(stash_s, stash)
+        assert all(torch.equal(a, b) for a, b in zip(sav, rec))
+
+
+@pytest.mark.cuda
 def test_cuda_backward_deterministic(cuda_device):
     """Rows 4 and 6 sum their per-block weight-grad partials in a fixed
     order (no float atomics): two identical backward calls give bitwise
@@ -276,7 +314,8 @@ def test_cuda_ray_march_matches_plain(cuda_device, kind):
 @pytest.mark.cuda
 def test_cuda_train_loop_fused_march_on(cuda_device):
     """Three full-width steps through the fused march: each step launches
-    its forward and backward once, the sweep 4 times, no point pipeline."""
+    its save forward and load backward once (MARCH_ACTS auto: the save
+    mode at this shape), the sweep 4 times, no point pipeline."""
     from chip_smoke import SMOKE_CFG
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
@@ -287,7 +326,7 @@ def test_cuda_train_loop_fused_march_on(cuda_device):
     cfg = config_from_dict({**SMOKE_CFG, "MODEL": {
         **model, "RENDERER": {**model["RENDERER"], "FUSED_MARCH": "on"}}})
     loop = TrainLoop(cfg, device=cuda_device)
-    fns = (RM.launch_ray_march, RM.launch_ray_march_bwd, launch_sdf_rays,
+    fns = (RM.launch_ray_march_save, RM.launch_ray_march_bwd_load, launch_sdf_rays,
            PP.launch_point_pipeline, PP.launch_point_pipeline_bwd)
     before = [fn.launches for fn in fns]
     losses = loop.run(3)
@@ -341,7 +380,7 @@ def test_cuda_captured_bundle_equals_uncaptured_steps(cuda_device):
     and replays; then, from one state, a replay of the captured bundle
     equals 10 uncaptured steps bitwise (parameters, Adam's state, the step
     counter, the generator, the losses), and each replay runs the captured
-    launches (4 sweeps, one march forward and backward a step)."""
+    launches (4 sweeps, one march save forward and load backward a step)."""
     from chip_smoke import BUNDLE, arm_cfg, restore, state_tensors, tensors_distance
     from color_neus_torch.runtime import TrainLoop
     loop = TrainLoop(arm_cfg("fused_march"), device=cuda_device)
@@ -349,8 +388,8 @@ def test_cuda_captured_bundle_equals_uncaptured_steps(cuda_device):
     loop.run(2 * BUNDLE)
     ms = loop.multi_step
     assert ms.graph is not None and ms.replays == 1
-    assert dict(ms.captured) == {"sdf_rays": 4 * BUNDLE, "ray_march": BUNDLE,
-                                 "ray_march_bwd": BUNDLE}
+    assert dict(ms.captured) == {"sdf_rays": 4 * BUNDLE, "ray_march_save": BUNDLE,
+                                 "ray_march_bwd_load": BUNDLE}
     step, s0 = loop.state.step, state_tensors(loop)
     losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
     eager = dict(state_tensors(loop), losses=losses)

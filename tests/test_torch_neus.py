@@ -135,10 +135,8 @@ def test_kernel_switches():
     kw = _cfg_kwargs("color_neus")
     assert _build(configs, kw, fused_march="on").fused_march == "on"
     assert configs.renderer_config_from_cfg({"FUSED_MARCH": True}).fused_march == "on"
-    for acts in ("auto", "recompute"):
-        configs.renderer_config_from_cfg({"MARCH_ACTS": acts})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.renderer_config_from_cfg({"MARCH_ACTS": "save"})
+    for acts in ("auto", "save", "recompute"):
+        assert configs.renderer_config_from_cfg({"MARCH_ACTS": acts}).march_acts == acts
     with pytest.raises(ValueError):
         configs.renderer_config_from_cfg({"MARCH_ACTS": "sometimes"})
     _build(configs, kw, fused_march="off")

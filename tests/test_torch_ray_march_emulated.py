@@ -13,7 +13,12 @@ packed two to a tile with a ragged last group (one block a full batch,
 the other a ragged one), both renderer kinds, and an inv_s of ~2000 with
 exact q == 1 ties;
 and the clip's tie rule, on rays whose every point is a tie, held by a
-copy of the source with the tie gate at 1.0, which must fail.
+copy of the source with the tie gate at 1.0, which must fail. The save
+mode's pair (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) runs the
+same cases: its forward as the recompute's, every segment of its
+activation stash against the bf16 plain twin's (point_pipeline.ActStash),
+its backward against the same references, and a copy of the source whose
+load reads the hidden SDF layers one segment off must fail.
 The card-only parts (timing, races between warps, the GPU's float
 functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
 Skips without a C++20 compiler.
@@ -67,15 +72,23 @@ TIE_GATE = "c.q == 1.f ? 0.5f"
 TIE_GATE_MUTANT = "c.q == 1.f ? 1.0f"
 
 
-def _compile(out, mutate=False):
+# the load's read of hidden SDF layer l's softplus, and the same read one
+# layer on (layer l + 1's segment; the last layer's reads the cr part): a
+# copy that must fail the save test below
+LOAD_SP = "const unsigned char* src = act + al.sx + l * HID * 4;"
+LOAD_SP_MUTANT = "const unsigned char* src = act + al.sx + (l + 1) * HID * 4;"
+
+
+def _compile(out, mutate=None):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
     with open(os.path.join(CSRC, "ray_march.cu")) as f:
         src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)   # launches run on host threads
-    if mutate:
-        assert src.count(TIE_GATE) == 1, "the tie gate line moved"
-        src = src.replace(TIE_GATE, TIE_GATE_MUTANT)
+    if mutate is not None:
+        line, mutant = mutate
+        assert src.count(line) == 1, f"the line to mutate moved: {line}"
+        src = src.replace(line, mutant)
     with open(os.path.join(HERE, "cuda_emu", "harness_march.cpp")) as f:
         src += f.read()
     path = out / "emu.cpp"
@@ -95,7 +108,7 @@ def emulator(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("cuda_emu_march"))
 
 
-def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2):
+def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2, save=False):
     packed, off, n_grad = PP._pack(pw)
     img, ioff = PP._pack_images(pw)
     rcfg = pw.rcfg
@@ -105,7 +118,7 @@ def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2
     meta = [R, S, n_sdf, skip, d0, len(pw.color), PP._color_dv(rcfg),
             int(rcfg.color.squeeze_out), len(pw.relight), PP._relight_dv(rcfg) if cn else 0,
             rcfg.relight.y_in_layer if cn else -1, int(rcfg.relight.inv_sigmoid), n_grad, blocks,
-            batch]
+            batch, int(save)]
     np.asarray(meta, np.int64).tofile(tmp_path / "meta.i64")
     np.asarray([rcfg.sdf.scale, sample_dist, inv_s], np.float32).tofile(tmp_path / "f32.f32")
     off.astype(np.int64).tofile(tmp_path / "off.i64")
@@ -119,8 +132,27 @@ def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2
         return torch.from_numpy(np.fromfile(tmp_path / f"{name}.f32", np.float32).reshape(shape))
     pw.off = off
     grad = read("grad", n_grad + 1)
-    return (read("out", R, 16), read("stash", R * S, RM.STASH), read("rays_hat", R, 8),
-            grad[n_grad], PP._unpack_grads(pw, grad[:n_grad]))
+    out = (read("out", R, 16), read("stash", R * S, RM.STASH), read("rays_hat", R, 8),
+           grad[n_grad], PP._unpack_grads(pw, grad[:n_grad]))
+    if not save:
+        return out
+    act = np.fromfile(tmp_path / "act.bin", np.uint8).reshape(R * S, RM.act_bytes(pw))
+    return out + (act,)
+
+
+def _act_segments(act, pw):
+    """The activation stash's rows as float32 tensors: (sp [n_sdf - 1] of
+    [N, 256], the bf16 slots [n_color + n_relight - 1] of [N, 256], the
+    tail [N, 8]): csrc/point_pipeline_tile.cuh act_layout."""
+    n_sdf, n_color, n_relight = RM._net_counts(pw)
+    n, hid = act.shape[0], PP.HID
+    sx = act[:, :(n_sdf - 1) * hid * 4].copy().view(np.float32).reshape(n, n_sdf - 1, hid)
+    n_cr = n_color + max(n_relight - 1, 0)
+    cr_end = (n_sdf - 1) * hid * 4 + n_cr * hid * 2
+    bits = act[:, (n_sdf - 1) * hid * 4:cr_end].copy().view(np.uint16).astype(np.uint32) << 16
+    cr = bits.view(np.float32).reshape(n, n_cr, hid)
+    tail = act[:, cr_end:].copy().view(np.float32)
+    return (torch.from_numpy(sx), torch.from_numpy(cr), torch.from_numpy(tail))
 
 
 def _rel(got, want) -> float:
@@ -139,11 +171,28 @@ def _close(got, plain, want, name):
 
 CASES = [("color_neus", 1, 128, 0.3, 0.02, 6), ("neus", 2, 100, 0.3, 0.02, 2),
          ("color_neus", 5, 27, 0.76, 0.005, 9)]
+IDS = [f"{k}-R{r}xS{s}-v{v}" for k, r, s, v, _, _ in CASES]
 
 
-@pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES,
-                         ids=[f"{k}-R{r}xS{s}-v{v}" for k, r, s, v, _, _ in CASES])
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES, ids=IDS)
 def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, noise, seed):
+    _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save=False)
+
+
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES, ids=IDS)
+def test_emulated_march_save_matches_plain(emulator, tmp_path, kind, R, S, variance, noise,
+                                           seed):
+    """The save mode's pair on the same cases: the forward and the 8-float
+    stash as the recompute's; every segment of the activation stash
+    against the bf16 twin's unrounded values (within one bf16 ulp of each
+    value plus RTOL_BF16 of the segment's largest, the stored bf16 parts;
+    RTOL_BF16 of the largest, the f32 ones), its padding lanes and tail
+    zeros exact; the backward, which loads the stash, against the same
+    references as the recompute's."""
+    _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save=True)
+
+
+def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save):
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color)
@@ -169,9 +218,11 @@ def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, 
                                       for layers in (pw.sdf, pw.color, pw.relight)])
     assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > MARGIN
 
-    out, stash, rays_hat, s_hat, grads = _run(emulator, tmp_path, pw, ro, rd, z,
-                                              float(inv_s), sd, gbar, blocks=2)
+    res = _run(emulator, tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=2, save=save)
+    out, stash, rays_hat, s_hat, grads = res[:5]
     outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
+    if save:
+        _check_act(res[5], pw, pts, dirs)
     want = torch.cat([outs[0], outs[1], outs[3], outs[4].sum(dim=1, keepdim=True)], dim=1)
     for name, (a, b) in (("sdf", (0, 1)), ("grad", (1, 4)), ("relit", (4, 7)), ("delta", (7, 8))):
         assert _rel(stash[:, a:b], want[:, a:b]) <= RTOL_BF16, f"stash {name}"
@@ -194,6 +245,36 @@ def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, 
         for l, ((a, b), (pa, pb), (e, f)) in enumerate(zip(grads[net], plain[3][net], layers)):
             _close(a, pa, e, f"{net} layer {l} W")
             _close(b, pb, f, f"{net} layer {l} b")
+
+
+def _check_act(act, pw, pts, dirs):
+    """The emulated activation stash against the bf16 twin's values."""
+    outs, st = PP._forward(pw, pts, dirs, True)
+    want = PP.stash_activations(pw.rcfg, outs, st, bf16=False)   # unrounded
+    sx, cr, tail = _act_segments(act, pw)
+    for l, sp in enumerate(want.sp):
+        w = sp.shape[1]
+        assert _rel(sx[:, l, :w], sp) <= RTOL_BF16, f"stash sp {l}"
+    for j, v in enumerate(want.cs + want.rs):
+        err = (cr[:, j, :v.shape[1]] - v).abs()
+        tol = 2.0 ** -8 * v.abs() + RTOL_BF16 * float(v.abs().max())
+        assert bool((err <= tol).all()), f"stash bf16 slot {j}: {float((err - tol).max()):.3e}"
+    for name, (a, b), x in (("gc", (0, 3), outs[2]), ("delta", (3, 6), outs[4])):
+        assert _rel(tail[:, a:b], x) <= RTOL_BF16 or float(x.abs().max()) == 0.0, f"tail {name}"
+    assert float(tail[:, 6:].abs().max()) == 0.0
+    if pw.rcfg.kind == "neus":
+        assert float(tail[:, 3:6].abs().max()) == 0.0
+
+
+def test_emulated_march_load_mutant_fails(tmp_path_factory, tmp_path):
+    """A copy of the source whose load reads each hidden SDF layer's
+    softplus from the next layer's segment: its backward must leave the
+    bf16 twin by far more than the save test's limits."""
+    kind, R, S, variance, noise, seed = CASES[0]
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_load_mutant"),
+                      mutate=(LOAD_SP, LOAD_SP_MUTANT))
+    with pytest.raises(AssertionError):
+        _check_case(mutant, tmp_path, kind, R, S, variance, noise, seed, save=True)
 
 
 def test_emulated_march_tie_gate(emulator, tmp_path_factory, tmp_path):
@@ -219,7 +300,8 @@ def test_emulated_march_tie_gate(emulator, tmp_path_factory, tmp_path):
     want = float(RM.ray_march_bwd_plain(pw64, ro.double(), rd.double(), z.double(),
                                         inv_s.double(), sd, gbar.double(), bf16=True)[2])
     assert abs(want) > 0.0
-    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_tie_mutant"), mutate=True)
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_tie_mutant"),
+                      mutate=(TIE_GATE, TIE_GATE_MUTANT))
     errs = {}
     for name, exe in (("source", emulator), ("mutant", mutant)):
         run_dir = tmp_path / name
