@@ -163,7 +163,9 @@ Phases; any failure exits non-zero and prints no result:
      cotangents), with per-camera cosines printed.
   11. several steps per dispatch, per training arm (fused_march on in
      the save mode, fused_march on with MARCH_ACTS recompute, fused_core
-     on, auto) at phase 3's full width: one uncaptured step
+     on, the save mode in MARCH_BWD_PRECISION bf16 and f32, auto) at
+     phase 3's full width, each fused_march arm's stash GiB printed: one
+     uncaptured step
      under torch.cuda.set_sync_debug_mode("error") (nothing in it may wait
      on the card); (a) a replay of the captured bundle against 10
      uncaptured steps from the same state: every parameter, optimizer
@@ -179,6 +181,18 @@ Phases; any failure exits non-zero and prints no result:
      a captured pool beside its steps would not fit the card); (d) every
      shipped config bundles 10 steps, and phase 10's DTU loop replayed
      its bundle.
+  12. MARCH_BWD_PRECISION bf16 and f32 (each mode's rows 3-6 a library of
+     their own, built in phase 1 and SASS-checked there, f32's spills
+     printed only): (a) phases 2b-2d's checks and times in each mode, the
+     kernels against their twins in that mode, the ms beside f32stash's of
+     this call and the mode's bound (f32: the SDF products at the f32
+     peak); (b) each mode trained through fused_march (save), fused_march
+     recompute and fused_core on, 60 steps: launches by suffixed name, the
+     loss halving, one step's leaf gradients against the f32 plain core at
+     phase 7's limits on phases 7 / 8's pixels beside the f32stash
+     kernels', a replay against the steps one by one; (c) the validation
+     render in f32 and row 5 on that view's points against the f32 plain
+     path, beside f32stash's.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -350,18 +364,44 @@ STEADY_STEPS = 20
 # training arms; each arm's kernels a step launches (trace names)
 BUNDLE = 10
 BENCH_MODEL = {"N_RAYS": 2048, "RENDERER": {"N_SAMPLES": 256, "N_IMPORTANCE": 256}}
+# (the fused march's save pair in MARCH_BWD_PRECISION bf16 and f32 too)
 ARMS = {"fused_march": {"FUSED_MARCH": "on"},
         "fused_march_recompute": {"FUSED_MARCH": "on", "MARCH_ACTS": "recompute"},
-        "fused_core": {"FUSED_CORE": "on"}, "auto": {}}
+        "fused_core": {"FUSED_CORE": "on"},
+        "fused_march_bf16": {"FUSED_MARCH": "on", "MARCH_BWD_PRECISION": "bf16"},
+        "fused_march_f32": {"FUSED_MARCH": "on", "MARCH_BWD_PRECISION": "f32"}, "auto": {}}
 ARM_KERNELS = {"fused_march": ("ray_march_save_fwd_kernel", "ray_march_load_bwd_kernel"),
                "fused_march_recompute": ("ray_march_fwd_kernel", "ray_march_bwd_kernel"),
                "fused_core": ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel"),
+               "fused_march_bf16": ("ray_march_save_fwd_kernel_bf16s",
+                                    "ray_march_load_bwd_kernel_bf16s"),
+               "fused_march_f32": ("ray_march_save_fwd_kernel_f32s",
+                                   "ray_march_load_bwd_kernel_f32s"),
                "auto": ()}
 # the two uncaptured runs of an arm whose gradients sum through atomics
 # differ from each other; a captured bundle is held to this many times
 # their distance (each run's atomics take another order, so a third run
 # lands as far from the first as the second does, within a small factor)
 BUNDLE_DISTANCE_FACTOR = 4.0
+# phase 12: MARCH_BWD_PRECISION's two non-default modes, each trained
+# through the three kernel paths (renderer switches) and their kernels'
+# launch counts (names without the mode's suffix)
+PREC_MODES = ("bf16", "f32")
+PREC_PATHS = {"fused_march": {"FUSED_MARCH": "on"},   # MARCH_ACTS auto: the save pair
+              "fused_march_recompute": {"FUSED_MARCH": "on", "MARCH_ACTS": "recompute"},
+              "fused_core": {"FUSED_CORE": "on"}}
+PATH_KERNELS = {"fused_march": ("ray_march_save", "ray_march_bwd_load"),
+                "fused_march_recompute": ("ray_march", "ray_march_bwd"),
+                "fused_core": ("point_pipeline", "point_pipeline_bwd")}
+# the pixels of each path's leaf-gradient check: those phases 7 (fused_core)
+# and 8 (fused_march) set RTOL_STEP_GRAD on. A leaf whose gradient is a
+# small difference of large terms on other pixels reads far off in every
+# mode alike (sdf.lin8.g 1.46 on one draw, for the f32stash kernels too)
+PATH_GRAD_SEED = {"fused_march": SEED + 130, "fused_march_recompute": SEED + 130,
+                  "fused_core": SEED + 110}
+# the validation render of phase 12c: camera, samples a ray of the points
+# row 5 is held on
+PREC_EVAL_CAM, PREC_EVAL_SAMPLES = 1, 32
 # phase 10: DTU's own view count and image size; the IHO replica's size
 # (that phase holds gradients, not speed); the train / stop / resume steps
 DTU_VIEWS, DTU_H, DTU_W = 49, 1200, 1600
@@ -442,8 +482,10 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The `..._kernel` identifier inside a mangled name: the shortest one
-    whose length prefix (a suffix of some digit run) matches it. The
+    """The `..._kernel` identifier inside a mangled name (or
+    `..._kernel_bf16s` / `_f32s`: a MARCH_BWD_PRECISION mode's, SUFFIX in
+    ops/kernels/point_pipeline.py): the shortest one whose length prefix
+    (a suffix of some digit run) matches it. The
     shortest: the unnamed namespace's name carries a hash of the source's
     path, whose digits can prefix a longer run that also ends in
     `_kernel` (`..._cu_bc59753821chain_deferred_kernel`)."""
@@ -451,7 +493,7 @@ def kernel_name(mangled: str) -> str:
     for m in re.finditer(r"(?=(\d+))", mangled):
         start = m.start() + len(m.group(1))
         ident = mangled[start:start + int(m.group(1))]
-        if ident.endswith("_kernel"):
+        if ident.endswith(("_kernel", "_kernel_bf16s", "_kernel_f32s")):
             found.append(ident)
     return min(found, key=len) if found else mangled[:64]
 
@@ -602,22 +644,27 @@ def chain_sass_check(lib_path):
     check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
 
 
-def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
-    """Phase 1 for rows 3-6 (csrc/point_pipeline.cu, csrc/ray_march.cu):
-    every kernel runs its products on wgmma (HGMMA in the SASS), feeds its
+def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm, spills_ok=False):
+    """Phase 1 for rows 3-6 (csrc/point_pipeline.cu, csrc/ray_march.cu; a
+    MARCH_BWD_PRECISION mode's library: `kernel` its build name, the
+    kernels carrying its suffix): every kernel runs its products on wgmma
+    (HGMMA in the SASS; in 'f32' the colour and relight ones), feeds its
     weight slabs (and the backward its weight-grad operands) by bulk
-    copies (UBLKCP) and spills nothing (ptxas -v); the forward kernels
-    (rows 3, 5) hold no mma.sync (HMMA.16816.F32.BF16). Registers are
-    printed, and for the forward kernels their resident blocks per SM
-    (fwd_blocks_per_sm: {forward kernel: blocks}, one backward kernel per
-    forward one: ray_march.cu's recompute and save-mode pairs) and FCHK /
-    CALL counts."""
+    copies (UBLKCP) and spills nothing (ptxas -v; spills_ok: printed only,
+    the SIMT products of 'f32'); the forward kernels (rows 3, 5) hold no
+    mma.sync (HMMA.16816.F32.BF16). Registers and FFMA are printed, and for
+    the forward kernels their resident blocks per SM (fwd_blocks_per_sm:
+    {forward kernel: blocks}, one backward kernel per forward one:
+    ray_march.cu's recompute and save-mode pairs) and FCHK / CALL counts.
+    Returns {kernel: its SASS counts and ptxas report}."""
     rep = ptxas_report(kernel)
     seen = {"fwd": 0, "bwd": 0}
+    out = {}
     for fn, c in sass_counts(lib_path).items():
         r = rep.get(fn, {})
-        entry = "fwd" if fn.endswith("_fwd_kernel") else "bwd" if fn.endswith("_bwd_kernel") \
-            else None
+        base = re.sub(r"_(bf16s|f32s)$", "", fn)
+        entry = "fwd" if base.endswith("_fwd_kernel") else "bwd" \
+            if base.endswith("_bwd_kernel") else None
         extra = (f" | {fwd_blocks_per_sm.get(fn)} resident blocks per SM | {c['FCHK']} FCHK, "
                  f"{len(c['CALL'])} CALL" if entry == "fwd" else "")
         print(f"[1] SASS {kernel} {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['HGMMA']} HGMMA, "
@@ -627,14 +674,17 @@ def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
         if entry is None:
             continue
         seen[entry] += 1
+        out[fn] = {**c, **r}
         check(c["HGMMA"] > 0, f"{fn}: products not on wgmma (no HGMMA in its SASS)")
         if entry == "fwd":
             check(c["HMMA"] == 0, f"{fn}: {c['HMMA']} HMMA.16816.F32.BF16 left in its SASS")
         check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
-        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+        check("registers" in r and (spills_ok or (r.get("spill_stores") == 0
+                                                  and r.get("spill_loads") == 0)),
               f"{fn}: spills or no ptxas report: {r}")
     n = len(fwd_blocks_per_sm)
     check(seen == {"fwd": n, "bwd": n}, f"{kernel}: kernels in the SASS {seen}, want {n} of each")
+    return out
 
 
 def main_path_sweeps(loop, seed):
@@ -827,19 +877,40 @@ def forward_stream_bytes(pw, rows=128) -> tuple:
     return slab / rows, frag / 64
 
 
-def ops_bound_ms(macs, nbytes, dtype):
-    """The larger of the MACs at the peak of `dtype` and the bytes at the
-    memory rate: (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * macs / PEAK_FLOPS[dtype]
+def macs_split(pw, bwd, save=False) -> tuple:
+    """(SDF-chain MACs, colour / relight MACs) per point of rows 5 / 3 (bwd
+    False) or rows 6 / 4 (bwd True; save: the load entry, which recomputes
+    nothing): the products march_bwd_precision 'f32' runs in f32, and the
+    ones every mode runs in bf16."""
+    f = pipeline_macs(pw)
+    fwd = (f["sdf"] + f["reverse"], f["color"] + f["relight"])
+    if not bwd:
+        return fwd
+    b = pipeline_bwd_macs(pw)
+    sdf, cr = b["tangent"] + b["last"] + b["sdf_reverse"] + b["lin0_lo"], b["relight"] + b["color"]
+    return (sdf, cr) if save else (sdf + fwd[0], cr + fwd[1])
+
+
+def mode_bound_ms(pw, n, bwd, nbytes, dtype=None, save=False):
+    """The larger of one entry's MACs on n points (macs_split) at the peaks
+    and its bytes at the memory rate: (ms, "bytes" | "operations"). dtype
+    None: the arithmetic of pw's march_bwd_precision (the SDF chain's
+    products at the f32 peak in 'f32', the rest at the bf16 peak); else
+    every product at the peak of `dtype`."""
+    sdf, cr = macs_split(pw, bwd, save)
+    f32 = pw.rcfg.march_bwd_precision == "f32"
+    sdf_dt = dtype or ("float32" if f32 else "bfloat16")
+    cr_dt = dtype or "bfloat16"
+    t_ops = 2 * n * (sdf / PEAK_FLOPS[sdf_dt] + cr / PEAK_FLOPS[cr_dt])
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def pipeline_bound_ms(pw, n, dtype="bfloat16"):
-    """pts and dirs in, [n, 16] out, weights once; the products at the peak
-    of `dtype` (the kernel's bf16; float32 for the bound of the same work
+def pipeline_bound_ms(pw, n, dtype=None):
+    """pts and dirs in, [n, 16] out, weights once; the products at the
+    peaks of pw's mode (mode_bound_ms; float32: the bound of the same work
     in f32)."""
-    return ops_bound_ms(sum(pipeline_macs(pw).values()) * n, n * (6 + 16) * 4 + weight_bytes(pw),
-                        dtype)
+    return mode_bound_ms(pw, n, False, n * (6 + 16) * 4 + weight_bytes(pw), dtype)
 
 
 def pipeline_errors(got, want, metric=None) -> dict:
@@ -861,11 +932,13 @@ def check_pipeline(got, want, tag, what, outputs=PIPELINE_OUTPUTS):
               f"bf16 twin, above {RTOL_PIPELINE['max'][k]:g} / {RTOL_PIPELINE['norm']:g}")
 
 
-def eval_kernels_vs_plain(device):
+def eval_kernels_vs_plain(device, mode="f32stash", tag="2b"):
     """Phase 2b: the grid SDF and the point pipeline against their plain
     versions at full width, off geometric init; returns the records the
     kernel line reads (the main path's shapes: one 2^18-point grid chunk
-    in f32, one 131,072-point validation chunk of Color-NeuS)."""
+    in f32, one 131,072-point validation chunk of Color-NeuS). mode: the
+    point pipeline's march_bwd_precision, held against its twin in the
+    same mode (phase 12a: the grid SDF, which has no such mode, skipped)."""
     import torch
     from color_neus_torch.models.configs import ColorConfig, RendererConfig
     from color_neus_torch.models.neus import init_renderer
@@ -876,7 +949,7 @@ def eval_kernels_vs_plain(device):
     g = torch.Generator(device=device).manual_seed(SEED + 50)
     bmin, bmax = [-1.01] * 3, [1.01] * 3          # the synthetic bbox
     sdf_params = off_geometric_init(init_renderer(RendererConfig(), g, device)["sdf"], g)
-    for prec in ("f32", "bf16"):
+    for prec in ("f32", "bf16") if mode == "f32stash" else ():
         fn = sdf_mlp.make_fused_sdf_fn(sdf_params, RendererConfig().sdf, prec)
         for n, start in ((GRID_CHUNK, EVAL_RES ** 3 // 2), (1001, 12345)):
             pts = lattice_chunk(bmin, bmax, EVAL_RES, start, n, device)
@@ -906,12 +979,12 @@ def eval_kernels_vs_plain(device):
     kinds = {"color_neus": ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
              "neus": ColorConfig()}
     for kind, color in kinds.items():
-        rcfg = RendererConfig(kind=kind, color=color)
+        rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
         params = off_geometric_init(init_renderer(rcfg, g, device), g)
         pw = PP.resolve_pipeline_weights(params, rcfg)
         if kind == "color_neus":
             stream, mma_tile = forward_stream_bytes(pw)
-            print(f"[2b] point_pipeline MACs per point: {pipeline_macs(pw)} | weight bytes "
+            print(f"[{tag}] point_pipeline MACs per point: {pipeline_macs(pw)} | weight bytes "
                   f"streamed through L2 per point: {stream:.1f} (128-point tiles of wgmma "
                   f"slabs; a 64-point tile of mma.sync fragments read {mma_tile:.1f})",
                   flush=True)
@@ -921,10 +994,11 @@ def eval_kernels_vs_plain(device):
             dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3).contiguous()
             n = R * S
             with torch.no_grad():
-                before = PP.launch_point_pipeline.launches
+                counter = PP._counter(PP.launch_point_pipeline, pw)
+                before = counter.launches
                 got = PP.fused_point_pipeline_fwd(params, rcfg, pts, dirs, weights=pw)
                 torch.cuda.synchronize()
-                check(PP.launch_point_pipeline.launches == before + 1,
+                check(counter.launches == before + 1,
                       f"point pipeline {kind}: did not launch the kernel")
                 want = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
                 check(all(bool(torch.isfinite(a).all()) for a in got)
@@ -936,12 +1010,12 @@ def eval_kernels_vs_plain(device):
                                    reps=5)
             bound, bound_by = pipeline_bound_ms(pw, n)
             bound32 = pipeline_bound_ms(pw, n, "float32")[0]
-            print(f"[2b] point_pipeline {kind:10s} n={n}: max|kernel-f32 twin| / max|twin| (the "
+            print(f"[{tag}] point_pipeline {mode} {kind:10s} n={n}: max|kernel-f32 twin| / max|twin| (the "
                   "precision's cost) " + " ".join(f"{k} {e:.3e}" for k, e in cost.items())
                   + f" | |grad| max {float(want[1].abs().max()):.3f} | kernel {ms:.4f} ms | "
                   f"bf16 twin {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}; f32 "
                   f"{bound32:.4f} ms)", flush=True)
-            check_pipeline(got, want, "2b", f"point_pipeline {kind} n={n}")
+            check_pipeline(got, want, tag, f"point_pipeline {mode} {kind} n={n}")
             if (R, S) == (PIPELINE_RAYS, PIPELINE_SAMPLES):
                 out[f"point_pipeline_{kind}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                                  "bound_ms": bound, "bound_by": bound_by,
@@ -954,21 +1028,23 @@ def pipeline_bwd_macs(pw) -> dict:
     real widths: the recompute (the forward), dW and xbar of every colour
     and relight layer, the SDF tangent stream, dW and xbar of the last SDF
     layer, two dW and two xbar products per hidden SDF layer, and the
-    second (lo) pass of layer 0's two weight-grad products."""
+    second (lo) pass of layer 0's two weight-grad products (none in
+    march_bwd_precision 'f32', whose products are f32)."""
     def macs(layers):
         return sum(w.shape[0] * w.shape[1] for w, _ in layers)
     hidden = macs(pw.sdf[:-1])
+    lo = 0 if pw.rcfg.march_bwd_precision == "f32" else 2 * macs(pw.sdf[:1])
     return {"recompute": sum(pipeline_macs(pw).values()), "relight": 2 * macs(pw.relight),
             "color": 2 * macs(pw.color), "tangent": hidden, "last": 2 * macs(pw.sdf[-1:]),
-            "sdf_reverse": 4 * hidden, "lin0_lo": 2 * macs(pw.sdf[:1])}
+            "sdf_reverse": 4 * hidden, "lin0_lo": lo}
 
 
-def pipeline_bwd_bound_ms(pw, n, dtype="bfloat16"):
+def pipeline_bwd_bound_ms(pw, n, dtype=None):
     """pts, dirs and the [n, 16] cotangents in, pts / dirs grads out, the
-    weights read and their grads written once; the products at the peak of
-    `dtype`."""
-    return ops_bound_ms(sum(pipeline_bwd_macs(pw).values()) * n,
-                        n * (6 + 16 + 6) * 4 + weight_bytes(pw) + pw.n_grad * 4, dtype)
+    weights read and their grads written once; the products at the peaks
+    of pw's mode (mode_bound_ms)."""
+    return mode_bound_ms(pw, n, True, n * (6 + 16 + 6) * 4 + weight_bytes(pw) + pw.n_grad * 4,
+                         dtype)
 
 
 def _rel(a, b) -> float:
@@ -1030,10 +1106,13 @@ def core_fwd_bwd(params, rcfg, pts, dirs, cots):
     return torch.autograd.grad(loss, leaves + [p, d], allow_unused=True)
 
 
-def pipeline_bwd_vs_plain(device):
+def pipeline_bwd_vs_plain(device, mode="f32stash", tag="2c"):
     """Phase 2c: the point-pipeline backward against its plain version at
     full width, off geometric init; returns the records the kernel line
-    reads (the main path's shape: 131,072 points, Color-NeuS)."""
+    reads (the main path's shape: 131,072 points, Color-NeuS). mode: the
+    kernel's march_bwd_precision, held against the twins in the same mode
+    by the same rule (phase 12a: the unchecked extras of the default mode
+    skipped)."""
     import dataclasses
     import torch
     from color_neus_torch.models.configs import ColorConfig, RendererConfig
@@ -1045,11 +1124,11 @@ def pipeline_bwd_vs_plain(device):
     kinds = {"color_neus": ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
              "neus": ColorConfig()}
     for kind, color in kinds.items():
-        rcfg = RendererConfig(kind=kind, color=color)
+        rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
         params = off_geometric_init(init_renderer(rcfg, g, device), g)
         pw = PP.resolve_pipeline_weights(params, rcfg)
         if kind == "color_neus":
-            print(f"[2c] point_pipeline_bwd MACs per point: {pipeline_bwd_macs(pw)}", flush=True)
+            print(f"[{tag}] point_pipeline_bwd MACs per point: {pipeline_bwd_macs(pw)}", flush=True)
         for R, S in ((PIPELINE_RAYS, PIPELINE_SAMPLES), (37, 27)):
             o, d, z = sweep_inputs(R, S, device, SEED + 80 + R)
             pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
@@ -1061,10 +1140,11 @@ def pipeline_bwd_vs_plain(device):
             cots = [torch.randn((n, k), generator=g, device=device) * keep[:, None]
                     for k in (1, 3, 3, 3, 3)]
             gbar = torch.cat(cots + [torch.zeros((n, 3), device=device)], dim=1).contiguous()
-            before = PP.launch_point_pipeline_bwd.launches
+            counter = PP._counter(PP.launch_point_pipeline_bwd, pw)
+            before = counter.launches
             got = PP.launch_point_pipeline_bwd(pw, pts, dirs, gbar)
             torch.cuda.synchronize()
-            check(PP.launch_point_pipeline_bwd.launches == before + 1,
+            check(counter.launches == before + 1,
                   f"point pipeline bwd {kind}: did not launch the kernel")
             check(all(bool(torch.isfinite(t).all()) for t in got),
                   f"point pipeline bwd {kind}: non-finite output")
@@ -1087,7 +1167,7 @@ def pipeline_bwd_vs_plain(device):
                                reps=3, warmup=1)
             bound, bound_by = pipeline_bwd_bound_ms(pw, n)
             bound32 = pipeline_bwd_bound_ms(pw, n, "float32")[0]
-            print(f"[2c] point_pipeline_bwd {kind:10s} n={n} ({int(keep.sum())} points off the "
+            print(f"[{tag}] point_pipeline_bwd {mode} {kind:10s} n={n} ({int(keep.sum())} points off the "
                   f"relu kinks): from the bf16 twin in float64, max-relative kernel "
                   + " ".join(f"{k} {e:.3e}" for k, e in rel.items())
                   + f" (max abs {err:.3e}), f32 bf16 twin "
@@ -1104,14 +1184,14 @@ def pipeline_bwd_vs_plain(device):
                 lim, lim_n = (2.0 * twin[k] + RTOL_BWD_FLOOR[k],
                               2.0 * twin_n[k] + RTOL_BWD_FLOOR[k])
                 check(rel[k] <= lim and rel_n[k] <= lim_n,
-                      f"point pipeline bwd {kind} n={n}: {k} {rel[k]:.3e} max-relative / "
+                      f"point pipeline bwd {mode} {kind} n={n}: {k} {rel[k]:.3e} max-relative / "
                       f"{rel_n[k]:.3e} norm-relative from the bf16 twin in float64, above twice "
                       f"the f32 bf16 twin's plus {RTOL_BWD_FLOOR[k]:g}: {lim:.3e} / {lim_n:.3e}")
             if (R, S) != (PIPELINE_RAYS, PIPELINE_SAMPLES):
                 continue
             rec = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by, "bound32_ms": bound32}
-            if kind == "color_neus":
+            if kind == "color_neus" and mode == "f32stash":
                 # the same comparison with every point's cotangents: a relu
                 # mask flip between the two f32 paths moves a point's
                 # gradients (no check)
@@ -1133,7 +1213,8 @@ def pipeline_bwd_vs_plain(device):
                       f"bitwise equal: {same}", flush=True)
                 check(same, "point pipeline bwd: two identical calls differ")
                 # the reduction on its own, at this launch's grid
-                grid = min(-(-n // 64), PP._max_blocks(PP._library(), pts.device, "bwd"))
+                grid = min(-(-n // 64), PP._max_blocks(PP._library(mode), pts.device, mode,
+                                                       "bwd"))
                 partial = torch.zeros((grid, pw.n_grad), device=device)
                 rec["reduce_ms"] = cuda_ms(lambda: PP.reduce_partials(partial))
                 # the render core's fwd+bwd on these points: the plain autograd
@@ -1153,11 +1234,12 @@ def pipeline_bwd_vs_plain(device):
 MARCH_LANES = {"colour": (0, 3), "weight sum": (3, 4), "delta sum": (4, 5), "eikonal": (5, 7)}
 
 
-def march_inputs(device, kind, variance, seed):
+def march_inputs(device, kind, variance, seed, mode="f32stash"):
     """Phase 2d's inputs: a full-width net off geometric init (noise 0.005
     keeps the init's surface on the rays, where a large inv_s makes exact
     ties), inv_s = exp(10 variance), the main path's shape of rays through
-    the sphere, seeded [R, 16] cotangents on the loss lanes."""
+    the sphere, seeded [R, 16] cotangents on the loss lanes; mode the
+    march_bwd_precision."""
     import torch
     from color_neus_torch.models.configs import ColorConfig, RendererConfig
     from color_neus_torch.models.fields import variance_inv_s
@@ -1165,7 +1247,7 @@ def march_inputs(device, kind, variance, seed):
     from color_neus_torch.ops.kernels import point_pipeline as PP
     color = ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) \
         if kind == "color_neus" else ColorConfig()
-    rcfg = RendererConfig(kind=kind, color=color)
+    rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
     g = torch.Generator(device=device).manual_seed(seed)
     params = off_geometric_init(init_renderer(rcfg, g, device), g, scale=0.005)
     with torch.no_grad():
@@ -1178,7 +1260,7 @@ def march_inputs(device, kind, variance, seed):
     return rcfg, pw, o, d, z, inv_s, gbar.contiguous()
 
 
-def tie_inputs(device, R, S, seed):
+def tie_inputs(device, R, S, seed, mode="f32stash"):
     """Rays on which the clip's tie rule carries the inv_s gradient: R rays
     of S samples within ~0.03 of the centre of the init sphere (radius
     ~0.17, sdf ~-0.05..-0.07), Color-NeuS at inv_s = exp(7) ~1097, so that
@@ -1189,7 +1271,8 @@ def tie_inputs(device, R, S, seed):
     one that carries the ray: the later ones are dark by 1e-7 each) is
     |relit_0 - relit_1| > 0 on every ray: no sign cancels between rays. The
     colour and relight nets get noise 0.05 so that relit moves along the
-    ray; the SDF 0.003, so that its surface stays where the init put it."""
+    ray; the SDF 0.003, so that its surface stays where the init put it.
+    mode: the march_bwd_precision."""
     import torch
     from color_neus_torch.models.configs import ColorConfig, RendererConfig
     from color_neus_torch.models.fields import variance_inv_s
@@ -1197,7 +1280,8 @@ def tie_inputs(device, R, S, seed):
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
     rcfg = RendererConfig(kind="color_neus",
-                          color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0))
+                          color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
+                          march_bwd_precision=mode)
     g = torch.Generator(device=device).manual_seed(seed)
     params = init_renderer(rcfg, g, device)
     for net, scale in (("sdf", 0.003), ("color", 0.05), ("relight", 0.05)):
@@ -1239,20 +1323,23 @@ def tie_counts(pw, o, d, z, inv_s, sample_dist):
     return tuple(out)
 
 
-def march_bound_ms(pw, R, S, bwd, dtype="bfloat16", save=False):
-    """Least time of one march entry: its MACs (ray_march.march_macs_per_point;
-    save: the save mode's, whose backward recomputes nothing) at the peak
-    of `dtype`, or its bytes (rays, z, inv_s, the weights and, for the
+def march_bound_ms(pw, R, S, bwd, dtype=None, save=False):
+    """Least time of one march entry: its MACs (ray_march.march_macs_per_point,
+    split by macs_split; save: the save mode's, whose backward recomputes
+    nothing) at the peaks of pw's mode (mode_bound_ms; or of `dtype`), or
+    its bytes (rays, z, inv_s, the weights and, for the
     backward, the stash and the cotangents read once; the [R, 16] output
     and the stash, or the ray and weight grads, written once; save: the
     activation stash too, written by the forward, read by the backward)."""
     from color_neus_torch.ops.kernels import ray_march as RM
-    macs = RM.march_macs_per_point(pw, save)[1 if bwd else 0]
+    check(sum(macs_split(pw, bwd, save)) == RM.march_macs_per_point(pw, save)[1 if bwd else 0],
+          "march_bound_ms: the MAC split does not sum to the march's MACs")
     n = R * S
     inputs = R * 6 + n + 1 + (n * RM.STASH + R * 16 if bwd else 0)
     outputs = R * 6 + pw.n_grad + 1 if bwd else R * 16 + n * RM.STASH
     act = n * RM.act_bytes(pw) if save else 0
-    return ops_bound_ms(macs * n, (inputs + outputs) * 4 + act + weight_bytes(pw), dtype)
+    return mode_bound_ms(pw, n, bwd, (inputs + outputs) * 4 + act + weight_bytes(pw), dtype,
+                         save)
 
 
 def leaf_distances(got, ref) -> dict:
@@ -1302,7 +1389,7 @@ def _abs_err(got, ref) -> float:
     return err
 
 
-def march_vs_plain(device):
+def march_vs_plain(device, mode="f32stash", phase="2d"):
     """Phase 2d: the fused march (rows 3 + 4) against its plain twins at full
     width, off geometric init, 1024 rays x 128 samples, Color-NeuS and NeuS,
     at the init's inv_s and at one with exact q == 1 ties. Forward against
@@ -1315,7 +1402,8 @@ def march_vs_plain(device):
     (ray_march_plain(save=True), ray_march_bwd_plain(stash=...)), at the
     same limits, with its distance from the recompute pair on every leaf.
     Prints every reading, then checks; returns the records the kernel line
-    reads."""
+    reads. mode: the kernels' march_bwd_precision, held against the twins
+    in the same mode by the same rules (phase 12a)."""
     import torch
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
@@ -1324,15 +1412,20 @@ def march_vs_plain(device):
     R, S = PIPELINE_RAYS, PIPELINE_SAMPLES
     for kind in ("color_neus", "neus"):
         for variance in MARCH_VARIANCES:
-            rcfg, pw, o, d, z, inv_s, gbar = march_inputs(device, kind, variance, SEED + 120)
+            rcfg, pw, o, d, z, inv_s, gbar = march_inputs(device, kind, variance, SEED + 120,
+                                                          mode)
             sd = 2.0 / rcfg.n_samples
-            tag = f"{kind} inv_s {float(inv_s):.1f}"
-            before = (RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches)
+            tag = f"{mode} {kind} inv_s {float(inv_s):.1f}"
+            counters = [PP._counter(fn, pw) for fn in (RM.launch_ray_march,
+                                                       RM.launch_ray_march_bwd,
+                                                       RM.launch_ray_march_save,
+                                                       RM.launch_ray_march_bwd_load)]
+            before = [c.launches for c in counters]
             got, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
             kb = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, gbar)
             torch.cuda.synchronize()
-            check((RM.launch_ray_march.launches, RM.launch_ray_march_bwd.launches)
-                  == (before[0] + 1, before[1] + 1), f"march {tag}: the kernels did not launch")
+            check([c.launches for c in counters[:2]] == [before[0] + 1, before[1] + 1],
+                  f"march {tag}: the kernels did not launch")
             kern = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
             check(got.shape == (R, 16) and bool(torch.isfinite(got).all())
                   and all(bool(torch.isfinite(t).all()) for t in kb), f"march {tag}: bad output")
@@ -1386,7 +1479,7 @@ def march_vs_plain(device):
             k64, p64, err, cost = vs_f64(g_clean)
             k_all, p_all, _, _ = vs_f64(gbar)
             out["bwd_err"] = max(out["bwd_err"], err)
-            print(f"[2d] ray_march {tag}: {ties} of {R * S} points at q == 1 exactly | forward "
+            print(f"[{phase}] ray_march {tag}: {ties} of {R * S} points at q == 1 exactly | forward "
                   "from the bf16 twin in float64, max-relative kernel "
                   + " ".join(f"{k} {e:.3e}" for k, e in fwd.items()) + ", f32 bf16 twin "
                   + " ".join(f"{k} {e:.3e}" for k, e in tw.items()) + "; norm-relative kernel "
@@ -1426,12 +1519,11 @@ def march_vs_plain(device):
                                  f"2 x the f32 plain's {p64[k]:.3e} + {RTOL_MARCH_F64_FLOOR[k]:g}")
 
             # the save mode's pair on the same inputs, against the save twins
-            before = (RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches)
+            before = [c.launches for c in counters]
             got_s, stash_s, act = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
             kb = RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_s, act, gbar)
             torch.cuda.synchronize()
-            check((RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches)
-                  == (before[0] + 1, before[1] + 1),
+            check([c.launches for c in counters[2:]] == [before[2] + 1, before[3] + 1],
                   f"march save {tag}: the save and load kernels did not launch")
             kern_s = (kb[0], kb[1], kb[2], PP._unpack_grads(pw, kb[3]))
             check(got_s.shape == (R, 16) and bool(torch.isfinite(got_s).all())
@@ -1457,7 +1549,7 @@ def march_vs_plain(device):
             del mine, ref, plain
             vs_rec = leaf_distances(kern_s, kern)
             worst_rec = max(vs_rec, key=vs_rec.get)
-            print(f"[2d] ray_march save mode {tag}: stash {RM.march_stash_bytes(pw, 1)} bytes a "
+            print(f"[{phase}] ray_march save mode {tag}: stash {RM.march_stash_bytes(pw, 1)} bytes a "
                   f"point ({RM.act_bytes(pw)} activations + {RM.STASH * 4} outs; JAX's at the "
                   f"Color-NeuS widths {JAX_STASH_BYTES_COLOR_NEUS}), "
                   f"{RM.march_stash_bytes(pw, R * S) / 2 ** 30:.3f} GiB here | forward from the "
@@ -1484,8 +1576,11 @@ def march_vs_plain(device):
                     fails.append(f"march save {tag}: forward {k} {e:.3e} max-relative / "
                                  f"{fwd_s_n[k]:.3e} norm-relative from the save twin in "
                                  f"float64, above {lim:.3e} / {lim_n:.3e}")
+            # (in 'bf16' the load rebuilds the gates from the stash's bf16
+            # values, JAX's arithmetic, where the composed reference, row 6,
+            # recomputes f32 ones: there the save twin in float64 holds it)
             for k, e in tight_s.items():
-                if e > RTOL_MARCH_TIGHT[k]:
+                if mode != "bf16" and e > RTOL_MARCH_TIGHT[k]:
                     fails.append(f"march load {tag}: backward {k} {e:.3e} from the composed "
                                  f"reference, above {RTOL_MARCH_TIGHT[k]:g}")
             for k, e in k64s.items():
@@ -1525,7 +1620,7 @@ def march_vs_plain(device):
             rec["load_bound_ms"], rec["load_bound_by"] = march_bound_ms(pw, R, S, True,
                                                                         save=True)
             del stash64, stash32, act, stash_s
-            print(f"[2d] ray_march save mode {tag}, {R * S} points: MACs per point bwd "
+            print(f"[{phase}] ray_march save mode {tag}, {R * S} points: MACs per point bwd "
                   f"{RM.march_macs_per_point(pw, True)[1]} (no recompute) | save forward kernel "
                   f"{rec['save_ms']:.4f} ms, bf16 save twin {rec['save_plain_ms']:.4f} ms, bound "
                   f"{rec['save_bound_ms']:.4f} ms ({rec['save_bound_by']}) | load backward kernel "
@@ -1534,7 +1629,7 @@ def march_vs_plain(device):
                   f"({rec['load_bound_by']}) | fwd+bwd: save pair "
                   f"{rec['save_ms'] + rec['load_ms']:.4f} ms", flush=True)
             fwd_macs, bwd_macs = RM.march_macs_per_point(pw)
-            print(f"[2d] ray_march {tag}, {R * S} points: MACs per point fwd {fwd_macs} bwd "
+            print(f"[{phase}] ray_march {tag}, {R * S} points: MACs per point fwd {fwd_macs} bwd "
                   f"{bwd_macs} | forward kernel {rec['ms']:.4f} ms, bf16 twin "
                   f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
                   f"f32 {rec['bound32_ms']:.4f} ms) | backward kernel {rec['bwd_ms']:.4f} ms (with "
@@ -1545,7 +1640,7 @@ def march_vs_plain(device):
                   f"compositing {rec['composed_ms']:.4f} ms", flush=True)
             out.update(rec)
     # the clip's tie rule: rays deep inside the surface, every point a tie
-    rcfg, pw, o, d, z, inv_s, gbar = tie_inputs(device, R, TIE_SAMPLES, SEED + 140)
+    rcfg, pw, o, d, z, inv_s, gbar = tie_inputs(device, R, TIE_SAMPLES, SEED + 140, mode)
     sd = 2.0 / rcfg.n_samples
     ties = tie_counts(pw, o, d, z, inv_s, sd)
     _, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
@@ -1564,7 +1659,7 @@ def march_vs_plain(device):
     want_s = float(RM.ray_march_bwd_plain(pw64, *args64, gbar.double(), bf16=True,
                                           stash=stash64)[2])
     err_s = abs(s_hat_s - want_s) / max(abs(want_s), 1e-300)
-    print(f"[2d] ray_march tie rays ({R} x {TIE_SAMPLES} points deep inside, inv_s "
+    print(f"[{phase}] ray_march {mode} tie rays ({R} x {TIE_SAMPLES} points deep inside, inv_s "
           f"{float(inv_s):.1f}): q == 1 exactly at {ties[0]} points in float32, {ties[1]} in "
           f"float64 | inv_s grad kernel {s_hat:.6e}, bf16 twin in float64 {want:.6e}, rel "
           f"{err:.3e} (rtol {RTOL_MARCH_TIE:g}; a gate of 1.0 reads 1.0) | f32 bf16 twin "
@@ -1951,7 +2046,6 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
     printed, against the renderer switches `beside` on the same pixels;
     returns what the kernel line and the summary read."""
     import torch
-    from color_neus_torch.models import trainer as TR
     from color_neus_torch.runtime import TrainLoop
     from color_neus_torch.utils.config import config_from_dict
 
@@ -1976,6 +2070,7 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
           f"{wall * 1e3 / STEPS:.2f} ms/step incl. the warm-up bundle and the capture | loss "
           f"{first:.5f} -> {last:.5f} | launches {counts} | peak memory {peak_gb:.2f} GiB",
           flush=True)
+    want = {**{k: 0 for k in counts}, **want}   # every kernel the dict does not name: 0
     check(counts == want, f"{switch} on training launched {counts}, want {want}")
     check(all(x == x and abs(x) != float("inf") for x in losses), f"non-finite loss {losses}")
     check(last < 0.5 * first, f"loss did not halve: first-5 mean {first}, last-5 mean {last}")
@@ -1990,14 +2085,7 @@ def training_through(device, trained, seed, key, want, tag, profile_n=2, beside=
     profile_steps(loop, n_steps=profile_n, top=6, tag=tag)
 
     # one step's gradients on phase 3's trained weights: on against off
-    g = torch.Generator(device=device).manual_seed(seed)
-    img_ids = torch.arange(min(trained.batch_size, trained.n_imgs), device=trained.device)
-    images = trained.images[img_ids]
-    masks = trained.masks[img_ids] if trained.masks is not None else None
-    with torch.no_grad():
-        cam_sel, py, px, sel_mask = TR.sample_pixels(trained.tcfg, images, masks,
-                                                     trained.state.step, g)
-    pixels = (img_ids, images, cam_sel, py, px, sel_mask)
+    pixels = step_pixels(trained, seed)
     on, off = (step_grads(trained, pixels, **{switch: m}) for m in ("on", "off"))
     errs, errs_max, cos = grad_errors(on, off)
     worst, worst_max = max(errs, key=errs.get), max(errs_max, key=errs_max.get)
@@ -2329,16 +2417,15 @@ def dataset_path(device, march_step_ms):
     from color_neus_torch.data.base import create_dataset
     from color_neus_torch.data.image_io import read_png, write_png
     from color_neus_torch.models import trainer as TR
+    from color_neus_torch.ops import kernels
     from color_neus_torch.runtime import TrainLoop
     from color_neus_torch.tools import dataset_replica as DR
     from color_neus_torch.utils.config import get_config
     from color_neus_torch.utils.recorder import Recorder
 
     def want(steps, **kw):   # MARCH_ACTS auto: the save mode at the config's shape
-        return {"sdf_rays": SWEEPS_PER_STEP * steps, "sdf_points": 0, "point_pipeline": 0,
-                "point_pipeline_bwd": 0, "ray_march": 0, "ray_march_bwd": 0,
-                "ray_march_save": steps, "ray_march_bwd_load": steps, "mlp_chain": 0,
-                "mlp_chain_deferred": 0, **kw}
+        return {**{k: 0 for k in kernels.launchers()}, "sdf_rays": SWEEPS_PER_STEP * steps,
+                "ray_march_save": steps, "ray_march_bwd_load": steps, **kw}
 
     res = {}
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
@@ -2623,12 +2710,62 @@ def busy_of_replays(loop, n, arm, tag):
     busy = _union_us([(a, b) for a, b, _ in dev]) / 1e3
     span = (max(b for _, b, _ in dev) - min(a for a, _, _ in dev)) / 1e3
     names = ("sdf_rays_",) + tuple(k for ks in ARM_KERNELS.values() for k in ks)
-    per_step = {k: sum(k in name for _, _, name in dev) / steps for k in names}
+    per_step = {k: sum(bool(re.search(rf"\b{k}", name)) if k.endswith("_")
+                       else bool(re.search(rf"\b{k}\b", name)) for _, _, name in dev) / steps
+                for k in names}
     want = {k: (SWEEPS_PER_STEP if k == "sdf_rays_" else
                 1 if k in ARM_KERNELS[arm] else 0) for k in names}
     check(per_step == want, f"[{tag}] {arm}: kernels per step in the replays' trace "
                             f"{per_step}, want {want}")
     return wall_ms / steps, busy / steps, 1 - busy / span, per_step
+
+
+def stash_gib(loop) -> float:
+    """GiB of the save mode's stashes a step of the loop keeps (0 unless
+    its march saves: FUSED_MARCH on and MARCH_ACTS resolving to save)."""
+    from color_neus_torch.ops.kernels import ray_march as RM
+    r = loop.tcfg.renderer
+    n = loop.tcfg.n_rays * (r.n_samples + r.n_importance)
+    if r.fused_march != "on" or not RM.resolve_save_acts(r.march_acts, r, n,
+                                                         r.march_stash_budget_gb):
+        return 0.0
+    return RM.march_stash_bytes(r, n) / 2 ** 30
+
+
+def replay_vs_steps(loop, arm, tag):
+    """Phase 11(a): a replay of the loop's captured bundle against BUNDLE
+    uncaptured steps from the same state (the loop at a bundle boundary,
+    its bundle captured): bitwise for the fused march (a fixed summation
+    order), else within BUNDLE_DISTANCE_FACTOR x the distance of two
+    uncaptured runs when those differ (atomics). Leaves the loop one bundle
+    on."""
+    import torch
+    step, s0 = loop.state.step, state_tensors(loop)
+    runs = []
+    for _ in range(1 if arm.startswith("fused_march") else 2):
+        losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
+        runs.append(dict(state_tensors(loop), losses=losses))
+        restore(loop, s0, step)
+    _, losses = loop.training_bundle()
+    captured = dict(state_tensors(loop), losses=losses)
+    n_diff, worst, name = tensors_distance(runs[0], captured)
+    if len(runs) > 1:
+        e_diff, e_worst, e_name = tensors_distance(runs[0], runs[1])
+        limit = 0.0 if e_diff == 0 else BUNDLE_DISTANCE_FACTOR * e_worst
+        reason = ("bitwise: two uncaptured runs agree bitwise" if e_diff == 0 else
+                  f"{BUNDLE_DISTANCE_FACTOR:g} x the distance of two uncaptured runs "
+                  f"({e_diff} tensors differ, largest {e_worst:.3e} at {e_name}: a "
+                  f"gradient summed through atomics)")
+    else:
+        limit, reason = 0.0, "bitwise (the fused march sums in a fixed order)"
+    print(f"[{tag}] {arm}: a replay of the captured bundle against {BUNDLE} uncaptured "
+          f"steps from the same state: {n_diff} of {len(captured)} tensors (parameters, "
+          f"optimizer states, step, generator, losses) differ, largest |diff| "
+          f"{worst:.3e} ({name}) | limit {limit:.3e}: {reason} | losses "
+          f"{float(losses[0]):.6f} .. {float(losses[-1]):.6f}", flush=True)
+    check(worst <= limit and (limit > 0 or n_diff == 0),
+          f"{arm}: the captured bundle differs from the uncaptured steps: {n_diff} "
+          f"tensors, {worst:.3e} ({name}), limit {limit:.3e}")
 
 
 def bundle_phase(device, dtu):
@@ -2673,32 +2810,7 @@ def bundle_phase(device, dtu):
         check(ms.graph is not None and ms.replays == 1, f"{arm}: no captured bundle replayed")
 
         # (a) a replay against BUNDLE uncaptured steps from the same state
-        step, s0 = loop.state.step, state_tensors(loop)
-        runs = []
-        for _ in range(1 if arm.startswith("fused_march") else 2):
-            losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
-            runs.append(dict(state_tensors(loop), losses=losses))
-            restore(loop, s0, step)
-        _, losses = loop.training_bundle()
-        captured = dict(state_tensors(loop), losses=losses)
-        n_diff, worst, name = tensors_distance(runs[0], captured)
-        if len(runs) > 1:
-            e_diff, e_worst, e_name = tensors_distance(runs[0], runs[1])
-            limit = 0.0 if e_diff == 0 else BUNDLE_DISTANCE_FACTOR * e_worst
-            reason = ("bitwise: two uncaptured runs agree bitwise" if e_diff == 0 else
-                      f"{BUNDLE_DISTANCE_FACTOR:g} x the distance of two uncaptured runs "
-                      f"({e_diff} tensors differ, largest {e_worst:.3e} at {e_name}: a "
-                      f"gradient summed through atomics)")
-        else:
-            limit, reason = 0.0, "bitwise (the fused march sums in a fixed order)"
-        print(f"[11a] {arm}: a replay of the captured bundle against {BUNDLE} uncaptured "
-              f"steps from the same state: {n_diff} of {len(captured)} tensors (parameters, "
-              f"optimizer states, step, generator, losses) differ, largest |diff| "
-              f"{worst:.3e} ({name}) | limit {limit:.3e}: {reason} | losses "
-              f"{float(losses[0]):.6f} .. {float(losses[-1]):.6f}", flush=True)
-        check(worst <= limit and (limit > 0 or n_diff == 0),
-              f"{arm}: the captured bundle differs from the uncaptured steps: {n_diff} "
-              f"tensors, {worst:.3e} ({name}), limit {limit:.3e}")
+        replay_vs_steps(loop, arm, "11a")
 
         # (b) two replays under the profiler: the kernels inside the graph
         prof_ms, busy, idle, per_step = busy_of_replays(loop, 2, arm, "11b")
@@ -2716,11 +2828,12 @@ def bundle_phase(device, dtu):
               f"{1 - 2 * busy / (c1 + c2):.4f}, uncaptured {1 - 2 * busy / (u1 + u2):.4f} | "
               f"peak memory uncaptured {peak_u:.2f} GiB, warm-up + capture + replay "
               f"{peak_cap:.2f} GiB, reserved with the graph's pool "
-              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB | capture call "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB | save-mode stash "
+              f"{stash_gib(loop):.2f} GiB | capture call "
               f"{capture_s:.2f} s, arm {time.perf_counter() - t_arm:.1f} s", flush=True)
         res[arm] = {"u": (u1, u2), "c": (c1, c2), "busy": busy, "idle": idle,
                     "peak_u": peak_u, "peak_cap": peak_cap}
-        del loop, runs, captured, s0
+        del loop
         torch.cuda.empty_cache()
 
     # (c) at bench.py's shape: every arm whose uncaptured steps fit beside
@@ -2754,11 +2867,212 @@ def bundle_phase(device, dtu):
               f"busy {busy:.2f} ms/step, idle share profiled {idle:.4f}, unprofiled captured "
               f"{1 - 2 * busy / (c1 + c2):.4f}, uncaptured {1 - 2 * busy / (u1 + u2):.4f} | "
               f"peak memory uncaptured {peak_u:.2f} GiB, warm-up + capture + replay "
-              f"{peak_cap:.2f} GiB | arm {time.perf_counter() - t_arm:.1f} s", flush=True)
+              f"{peak_cap:.2f} GiB | save-mode stash {stash_gib(loop):.2f} GiB | arm "
+              f"{time.perf_counter() - t_arm:.1f} s", flush=True)
         res[f"{arm}_bench"] = {"u": (u1, u2), "c": (c1, c2), "busy": busy}
         del loop
         torch.cuda.empty_cache()
     return res
+
+
+def mode_sass_summary(sass):
+    """Phase 1's per-mode summary of rows 3-6: every kernel's HGMMA, UBLKCP,
+    FFMA, registers and spill bytes, one line per MARCH_BWD_PRECISION mode
+    (the f32stash entries' HGMMA counts, 86 / 320 / 234 on the H100 with
+    the forward, backward and load entries: printed, not checked)."""
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    for mode in PP.MODES:
+        sfx = PP.SUFFIX[mode]
+        rows = {fn: c for fn, c in sass.items() if re.sub(r"_kernel(_bf16s|_f32s)?$", "_kernel",
+                                                          fn) + sfx == fn}
+        print(f"[1] rows 3-6, MARCH_BWD_PRECISION {mode}: " + " | ".join(
+            f"{fn}: {c['HGMMA']} HGMMA, {c['UBLKCP']} UBLKCP, {c['FFMA']} FFMA, "
+            f"{c.get('registers')} registers, spills {c.get('spill_stores')} / "
+            f"{c.get('spill_loads')} bytes" for fn, c in sorted(rows.items())), flush=True)
+
+
+def step_pixels(trained, seed):
+    """One step's pixels of the trained loop (phase 3's), drawn as its
+    training step draws them from a generator seeded `seed`."""
+    import torch
+    from color_neus_torch.models import trainer as TR
+    g = torch.Generator(device=trained.device).manual_seed(seed)
+    img_ids = torch.arange(min(trained.batch_size, trained.n_imgs), device=trained.device)
+    images = trained.images[img_ids]
+    masks = trained.masks[img_ids] if trained.masks is not None else None
+    with torch.no_grad():
+        cam_sel, py, px, sel_mask = TR.sample_pixels(trained.tcfg, images, masks,
+                                                     trained.state.step, g)
+    return img_ids, images, cam_sel, py, px, sel_mask
+
+
+def mode_training(device, trained, mode, path, seed):
+    """Phase 12b: Color-NeuS at full width (SMOKE_CFG) trained in
+    MARCH_BWD_PRECISION `mode` through the kernel path `path` (PREC_PATHS),
+    STEPS steps in captured bundles: launches by name (the mode's kernels
+    of the path once a step each, the sweeps, nothing else), every loss
+    finite, the loss halving (phases 7 / 8); then one step's leaf
+    gradients on phase 3's trained weights against the f32 plain core at
+    phase 7's limits, on the pixels drawn from `seed` (PATH_GRAD_SEED),
+    printed beside the f32stash kernels' on the same pixels (the SDF
+    leaves: 'f32' computes that chain in f32); and, but for
+    the save pair (phase 11a holds it, arms fused_march_bf16 / _f32), a
+    replay of the captured bundle against the steps one by one. Returns
+    {"counts", "step_ms", "grad_err", "sdf_leaves"}."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+    model = SMOKE_CFG["MODEL"]
+    renderer = {**model["RENDERER"], **PREC_PATHS[path], "MARCH_BWD_PRECISION": mode}
+    loop = TrainLoop(config_from_dict({**SMOKE_CFG, "MODEL": {**model, "RENDERER": renderer}}),
+                     device=device)
+    check(loop.tcfg.renderer.march_bwd_precision == mode, f"{mode} did not reach the renderer")
+    tag = f"{path} {mode}"
+    torch.cuda.synchronize()
+    reset_launch_counts(loop)
+    t0 = time.perf_counter()
+    losses = [float(x) for x in loop.run(STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(loop)
+    want = {k: 0 for k in counts}
+    want["sdf_rays"] = SWEEPS_PER_STEP * STEPS
+    want.update({k + PP.SUFFIX[mode]: STEPS for k in PATH_KERNELS[path]})
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[12b] {tag}, {STEPS} steps in bundles of {loop.k_steps}: {wall * 1e3 / STEPS:.2f} "
+          f"ms/step incl. the warm-up bundle and the capture | loss {first:.5f} -> {last:.5f} | "
+          f"launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    check(counts == want, f"{tag} training launched {counts}, want {want}")
+    check(all(x == x and abs(x) != float("inf") for x in losses), f"{tag}: non-finite loss")
+    check(last < 0.5 * first, f"{tag}: loss did not halve: {first} -> {last}")
+    step_ms = host_ms(lambda: loop.run(loop.state.step + 2 * BUNDLE), 2 * BUNDLE)
+    if path != "fused_march":
+        replay_vs_steps(loop, path if mode == "f32stash" else f"{path}_{mode}", "12b")
+    del loop
+    torch.cuda.empty_cache()
+
+    pixels = step_pixels(trained, seed)
+    switch = {k.lower(): v for k, v in PREC_PATHS[path].items()}
+    off = step_grads(trained, pixels, **{k: "off" for k in switch if k.startswith("fused")})
+    grads = {m: step_grads(trained, pixels, **switch, march_bwd_precision=m)
+             for m in ("f32stash", mode)}
+    errs = {m: grad_errors(g, off) for m, g in grads.items()}
+    e, _, cos = errs[mode]
+    worst, worst_cos = max(e, key=e.get), min(cos, key=cos.get)
+    median = sorted(e.values())[len(e) // 2]
+    e0 = errs["f32stash"][0]
+    sdf = {m: {k: v for k, v in errs[m][0].items() if "sdf" in k} for m in errs}
+    print(f"[12b] {tag}: one step's leaf gradients on the trained weights vs the f32 plain "
+          f"core: worst |a-b| / |b| {e[worst]:.3e} ({worst}), median {median:.3e}, min cosine "
+          f"{cos[worst_cos]:.6f} ({worst_cos}) (limits {RTOL_STEP_GRAD:g} / "
+          f"{RTOL_STEP_GRAD_MEDIAN:g} / {MIN_COS_STEP_GRAD:g}); the f32stash kernels on the "
+          f"same pixels: worst {max(e0.values()):.3e}, median "
+          f"{sorted(e0.values())[len(e0) // 2]:.3e} | SDF leaves, {mode} / f32stash: "
+          + " ".join(f"{k.replace('renderer.sdf.', '')} {sdf[mode][k]:.2e}/"
+                     f"{sdf['f32stash'][k]:.2e}" for k in sorted(sdf[mode])), flush=True)
+    check(e[worst] <= RTOL_STEP_GRAD, f"{tag}: step gradient {worst} {e[worst]:.3e}")
+    check(median <= RTOL_STEP_GRAD_MEDIAN, f"{tag}: step gradients' median {median:.3e}")
+    check(cos[worst_cos] >= MIN_COS_STEP_GRAD, f"{tag}: cosine {cos[worst_cos]:.6f}")
+    return {"counts": counts, "step_ms": step_ms, "grad_err": e[worst],
+            "sdf_leaves": {m: max(v.values()) for m, v in sdf.items()}}
+
+
+def mode_evaluation(device, trained):
+    """Phase 12c: one validation render of the trained loop's camera
+    PREC_EVAL_CAM in MARCH_BWD_PRECISION f32 and in f32stash through row 5
+    (fused_core auto) against the f32 plain path (fused_core off), same
+    seed: the image and depth; and row 5 of each mode on that view's points
+    (its rays through the sphere, PREC_EVAL_SAMPLES samples each) against
+    the f32 plain twin, max-relative. 'f32' should sit far closer on sdf
+    and grad (its SDF chain is f32; the colour chain stays bf16, so the
+    image moves less); all are printed, and the sdf and grad of 'f32' are held
+    to the f32stash kernel's distance."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from color_neus_torch.models import trainer as TR
+    from color_neus_torch.models.camera import focal_apply, pose_apply
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.rays import all_rays_for_camera, near_far_from_sphere
+    params, scene, tcfg = trained.state.params, trained.scene, trained.tcfg
+    H, W = trained.H, trained.W
+    images, rows = {}, {}
+    with torch.no_grad():
+        for mode, core in (("f32", "auto"), ("f32stash", "auto"), ("f32", "off")):
+            tc = dataclasses.replace(tcfg, renderer=dataclasses.replace(
+                tcfg.renderer, fused_core=core, march_bwd_precision=mode))
+            g = torch.Generator(device=device).manual_seed(SEED + 7)
+            reset_launch_counts()
+            images[mode, core] = TR.render_image(params, scene, tc, PREC_EVAL_CAM, H, W, g)
+            counts = launch_counts()
+            launched = counts["point_pipeline" + PP.SUFFIX[mode]]
+            check((launched > 0) == (core == "auto"), f"the {mode} {core} render launched {counts}")
+        dev = scene["init_c2w"].device
+        c2w = pose_apply(params["pose"], tcfg.camera, scene["init_c2w"],
+                         torch.tensor([PREC_EVAL_CAM], device=dev))[0]
+        ro, rd = all_rays_for_camera(c2w, focal_apply(params["focal"], tcfg.camera), H, W,
+                                     normalize=tcfg.normalize_dir, opengl=tcfg.opengl)
+        ro = (ro.reshape(-1, 3) - scene["origin"]) / scene["radius"]
+        rd = rd.reshape(-1, 3)
+        near, far = near_far_from_sphere(ro, rd)
+        t = torch.linspace(0.0, 1.0, PREC_EVAL_SAMPLES, device=dev)
+        z = near[:, None] + (far - near)[:, None] * t
+        pts = (ro[:, None, :] + rd[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+        dirs = rd[:, None, :].expand(-1, PREC_EVAL_SAMPLES, 3).reshape(-1, 3).contiguous()
+        for mode in ("f32", "f32stash"):
+            rc = dataclasses.replace(tcfg.renderer, march_bwd_precision=mode)
+            pw = PP.resolve_pipeline_weights(params["renderer"], rc)
+            got = PP.fused_point_pipeline_fwd(None, rc, pts, dirs, weights=pw)
+            want = PP.point_pipeline_plain(pw, pts, dirs)
+            rows[mode] = {k: _rel(a, b) for k, a, b in zip(PIPELINE_OUTPUTS, got, want)}
+    ref = images["f32", "off"]
+    img = {m: (float(np.abs(images[m, "auto"][0] - ref[0]).max()),
+               float(np.abs(images[m, "auto"][1] - ref[1]).max())) for m in ("f32", "f32stash")}
+    print(f"[12c] validation view {PREC_EVAL_CAM} ({H}x{W}) against the f32 plain path: "
+          f"max|image| / max|depth| difference f32 {img['f32'][0]:.3e} / {img['f32'][1]:.3e}, "
+          f"f32stash {img['f32stash'][0]:.3e} / {img['f32stash'][1]:.3e} | row 5 on the view's "
+          f"{pts.shape[0]} points vs the f32 plain twin, max-relative: f32 "
+          + " ".join(f"{k} {v:.3e}" for k, v in rows["f32"].items()) + "; f32stash "
+          + " ".join(f"{k} {v:.3e}" for k, v in rows["f32stash"].items()), flush=True)
+    for k in ("sdf", "grad"):
+        check(rows["f32"][k] <= rows["f32stash"][k],
+              f"f32 row 5 {k} {rows['f32'][k]:.3e} from the f32 twin, not closer than "
+              f"f32stash's {rows['f32stash'][k]:.3e}")
+    return {"rows": rows, "image": img}
+
+
+def precision_phase(device, trained, base):
+    """Phase 12, MARCH_BWD_PRECISION bf16 and f32: (a) rows 5, 6, 3 and 4
+    (with the save and load entries) in each mode held against their twins
+    in the same mode by phases 2b-2d's rules, at their shapes (131,072
+    points, 1024 x 128 rays, Color-NeuS and NeuS), their CUDA-event times
+    and bounds printed beside the f32stash entries' of phases 2b-2d
+    (`base`: their records, this call); (b) mode_training of each mode
+    through each path; (c) mode_evaluation. Returns the records the kernel
+    line reads."""
+    out = {}
+    for mode in PREC_MODES:
+        t0 = time.perf_counter()
+        ev = eval_kernels_vs_plain(device, mode, "12a")["point_pipeline_color_neus"]
+        bw = pipeline_bwd_vs_plain(device, mode, "12a")["color_neus"]
+        mr = march_vs_plain(device, mode, "12a")
+        b_ev, b_bw, b_mr = base["eval"], base["bwd"], base["march"]
+        print(f"[12a] {mode}, Color-NeuS, ms beside f32stash's (bound): row 5 "
+              f"{ev['ms']:.4f} / {b_ev['ms']:.4f} ({ev['bound_ms']:.4f}) | row 6 "
+              f"{bw['ms']:.4f} / {b_bw['ms']:.4f} ({bw['bound_ms']:.4f}) | row 3 "
+              f"{mr['ms']:.4f} / {b_mr['ms']:.4f} ({mr['bound_ms']:.4f}) | row 4 "
+              f"{mr['bwd_ms']:.4f} / {b_mr['bwd_ms']:.4f} ({mr['bwd_bound_ms']:.4f}) | save "
+              f"{mr['save_ms']:.4f} / {b_mr['save_ms']:.4f} ({mr['save_bound_ms']:.4f}) | load "
+              f"{mr['load_ms']:.4f} / {b_mr['load_ms']:.4f} ({mr['load_bound_ms']:.4f}) | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[mode] = {"eval": ev, "bwd": bw, "march": mr, "train": {}}
+    for mode in PREC_MODES:
+        for path in PREC_PATHS:
+            out[mode]["train"][path] = mode_training(device, trained, mode, path,
+                                                     PATH_GRAD_SEED[path])
+    out["eval"] = mode_evaluation(device, trained)
+    return out
 
 
 def main() -> int:
@@ -2786,7 +3100,8 @@ def main() -> int:
     # ---- phase 1: build every kernel, all at once, and the host marcher ----
     # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4,
     # mlp_chain.cu rows 7 and 8
-    kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain")
+    # and each MARCH_BWD_PRECISION mode's rows 3-6 (build.VARIANTS)
+    kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain", *build.VARIANTS)
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
@@ -2807,11 +3122,20 @@ def main() -> int:
     from color_neus_torch.ops.kernels import point_pipeline as PP
     from color_neus_torch.ops.kernels import ray_march as RM
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    pipeline_sass_check("point_pipeline", libs["point_pipeline"], {
-        "point_pipeline_fwd_kernel": PP._max_blocks(PP._library(), device, "fwd") // sms})
-    pipeline_sass_check("ray_march", libs["ray_march"], {
-        name: RM._max_blocks(RM._library(), device, "fwd", save) // sms
-        for name, save in (("ray_march_fwd_kernel", False), ("ray_march_save_fwd_kernel", True))})
+    sass = {}
+    for mode in PP.MODES:   # each MARCH_BWD_PRECISION mode's library
+        sfx = PP.SUFFIX[mode]
+        sass.update(pipeline_sass_check(PP.library_name("point_pipeline", mode),
+                                        libs[PP.library_name("point_pipeline", mode)], {
+            f"point_pipeline_fwd_kernel{sfx}": PP._max_blocks(PP._library(mode), device, mode,
+                                                              "fwd") // sms},
+            spills_ok=mode == "f32"))
+        sass.update(pipeline_sass_check(PP.library_name("ray_march", mode),
+                                        libs[PP.library_name("ray_march", mode)], {
+            f"{name}{sfx}": RM._max_blocks(RM._library(mode), device, mode, "fwd", save) // sms
+            for name, save in (("ray_march_fwd_kernel", False),
+                               ("ray_march_save_fwd_kernel", True))}, spills_ok=mode == "f32"))
+    mode_sass_summary(sass)
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
 
@@ -2956,6 +3280,17 @@ def main() -> int:
               f"{k} {sum(r['u']) / 2:.2f} -> {sum(r['c']) / 2:.2f}" for k, r in bundles.items()),
           flush=True)
 
+    # ---- phase 12: MARCH_BWD_PRECISION bf16 and f32 ----
+    t0 = time.perf_counter()
+    prec = precision_phase(device, loop, {"eval": eval_kernels["point_pipeline_color_neus"],
+                                          "bwd": bwd["color_neus"], "march": mar})
+    print(f"[12] summary ({time.perf_counter() - t0:.1f} s): " + "; ".join(
+        f"{m}: " + ", ".join(f"{p} {r['step_ms']:.2f} ms/step (worst leaf {r['grad_err']:.3e}, "
+                             f"SDF {r['sdf_leaves'][m]:.3e} vs f32stash's "
+                             f"{r['sdf_leaves']['f32stash']:.3e})"
+                             for p, r in prec[m]["train"].items()) for m in PREC_MODES),
+        flush=True)
+
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and
     # point_pipeline: phase 2b at the evaluation path's shapes (one f32
@@ -2970,7 +3305,10 @@ def main() -> int:
     # backward vs float64), launches from phase 8's recompute run and its
     # training run (the save mode); mlp_chain and mlp_chain_deferred: phase 9
     # at the tool's main shape (1,048,576 x 256 x 25; mlp_chain the softplus
-    # variant in bf16), launches from the tool's sweep
+    # variant in bf16), launches from the tool's sweep. The rows 3-6
+    # entries of MARCH_BWD_PRECISION bf16 and f32 (suffixes _bf16s, _f32s):
+    # phase 12a at the f32stash entries' shapes, launches from phase 12b's
+    # training run of the path that runs them
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
     kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
@@ -3035,6 +3373,30 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
     } for name, line, r in (("mlp_chain", 121, chain["records"]["softplus"]),
                             ("mlp_chain_deferred", 103, chain["records"]["deferred"]))]
+    for mode in PREC_MODES:
+        sfx, p_ = PP.SUFFIX[mode], prec[mode]
+        ev_, bw_, mr_, tr_ = p_["eval"], p_["bwd"], p_["march"], p_["train"]
+        for name, src, line, path, r in (
+                ("point_pipeline", "point_pipeline", "point_pipeline.py:677", "fused_core",
+                 (ev_["err"], ev_["ms"], ev_["plain_ms"], ev_["bound_ms"], ev_["bound_by"])),
+                ("point_pipeline_bwd", "point_pipeline", "point_pipeline.py:767", "fused_core",
+                 (bw_["err"], bw_["ms"], bw_["plain_ms"], bw_["bound_ms"], bw_["bound_by"])),
+                ("ray_march", "ray_march", "ray_march.py:185", "fused_march_recompute",
+                 (mr_["fwd_err"], mr_["ms"], mr_["plain_ms"], mr_["bound_ms"], mr_["bound_by"])),
+                ("ray_march_bwd", "ray_march", "ray_march.py:249", "fused_march_recompute",
+                 (mr_["bwd_err"], mr_["bwd_ms"], mr_["plain_bwd_ms"], mr_["bwd_bound_ms"],
+                  mr_["bwd_bound_by"])),
+                ("ray_march_save", "ray_march", "ray_march.py:185", "fused_march",
+                 (mr_["save_err"], mr_["save_ms"], mr_["save_plain_ms"], mr_["save_bound_ms"],
+                  mr_["save_bound_by"])),
+                ("ray_march_bwd_load", "ray_march", "ray_march.py:249", "fused_march",
+                 (mr_["load_err"], mr_["load_ms"], mr_["load_plain_ms"], mr_["load_bound_ms"],
+                  mr_["load_bound_by"]))):
+            kernel_line.append({
+                "name": name + sfx, "route": "cuda", "source": f"color_neus_torch/csrc/{src}.cu",
+                "replaces": f"color_neus_tpu/ops/pallas/{line}",
+                "launches": tr_[path]["counts"][name + sfx], "max_abs_err": r[0], "ms": r[1],
+                "plain_ms": r[2], "bound_ms": r[3], "bound_by": r[4], "library_ms": None})
     print(json.dumps({"kernels": kernel_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -186,6 +186,20 @@
 //   stays rolled for it). The recompute (forward_tile<TILE, true>) runs the
 //   forward's wgmma products through the same weight ring.
 
+//
+// MARCH_BWD_PRECISION (point_pipeline_tile.cuh's note): this file builds
+// once per mode, the mode PP_PREC a template argument of the tile
+// functions, its kernels suffixed (_bf16s, _f32s). bf16 is f32stash's
+// design with bf16 stores. f32 runs the SDF chain's ~3.4 M backward (~1
+// M forward) MACs a point in f32: bound by the FP32 pipe at 67 TFLOP/s
+// (rows 6 / 4 ~13.7 ms, rows 5 / 3 ~4.0 ms at 131,072 points; the colour
+// and relight products stay on wgmma). Its design is the simple one:
+// f32_product, SIMT FMAs over 4-row x 4-column register blocks with A
+// broadcast from shared memory and B (the wrapper's f32 weight images)
+// read coalesced from L2, and dw_direct, each SDF weight grad summed per
+// tile into the block's partial from the f32 layer inputs the recompute
+// keeps. Neither overlaps the other work: PERF.md §6 has its times.
+
 #include "point_pipeline_tile.cuh"
 
 namespace {
@@ -207,7 +221,9 @@ __device__ __forceinline__ void load_points(const Params& p, const Tile& t, long
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 1) point_pipeline_fwd_kernel(Params p) {
+// The library's MARCH_BWD_PRECISION mode is PP_PREC (point_pipeline_tile.cuh);
+// its kernels carry the mode's suffix (PP_NAME).
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(point_pipeline_fwd_kernel)(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
   Rings st;
@@ -221,7 +237,7 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_fwd_kernel(Params p
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * FWD_ROWS;
     load_points<FWD_ROWS>(p, t, base);
-    forward_tile<FWD_ROWS, false>(p, t, st, gates, feat, none);
+    forward_tile<FWD_ROWS, false, false, PP_PREC>(p, t, st, gates, feat, none);
     // ---- store [sdf, grad, gc, relit, delta, 0, 0, 0] ----
     for (int e = tid; e < FWD_ROWS * 16; e += THREADS) {
       const int r = e / 16, c = e % 16;
@@ -239,14 +255,14 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_fwd_kernel(Params p
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(point_pipeline_bwd_kernel)(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   Tile t;
   Rings st;
   carve_bwd(t, st, smem);
   const int tid = threadIdx.x;
-  const BwdScratch s = carve_bwd_scratch(
-      p, p.scratch + size_t(blockIdx.x) * bwd_scratch_floats(shape_of(p), p.dw_batch));
+  const BwdScratch s = carve_bwd_scratch<PP_PREC>(
+      p, p.scratch + size_t(blockIdx.x) * bwd_scratch_floats(shape_of(p), p.dw_batch, PP_PREC));
   float* P = p.partial + size_t(blockIdx.x) * p.n_grad;
   const long long n_tiles = (p.n_pts + TILE - 1) / TILE;
   int slot = 0;   // the tile's place in the weight-grad batch
@@ -254,13 +270,13 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p
     const long long base = tile * TILE;
     const Save sv = bwd_save(p, s, slot);
     load_points<TILE>(p, t, base);
-    forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
+    forward_tile<TILE, true, false, PP_PREC>(p, t, st, s.gates, s.feat, sv);
     for (int e = tid; e < TILE * 16; e += THREADS) {
       const long long i = base + e / 16;
       t.CT[e] = i < p.n_pts ? p.gbar[base * 16 + e] : 0.f;
     }
     __syncthreads();
-    backward_tile(p, t, st, s.gates, s.zt, sv, P);
+    backward_tile<PP_PREC>(p, t, st, s.gates, s.zt, sv, P);
     if (tid < TILE && base + tid < p.n_pts) {
       const long long i = base + tid;
 #pragma unroll
@@ -269,7 +285,7 @@ __global__ void __launch_bounds__(THREADS, 1) point_pipeline_bwd_kernel(Params p
         p.dirs_hat[3 * i + j] = t.DH[tid * 3 + j];
       }
     }
-    slot = after_tile(p, st, s, slot, tile + gridDim.x >= n_tiles, P);
+    slot = after_tile<PP_PREC>(p, st, s, slot, tile + gridDim.x >= n_tiles, P);
   }
 }
 
@@ -289,16 +305,16 @@ __global__ void point_pipeline_reduce_kernel(const float* __restrict__ partial,
 // Plain C interface for ctypes. The blocks a launch may use at once (SMs x
 // resident blocks per SM): the wrapper sizes the scratch by it.
 extern "C" int point_pipeline_fwd_max_blocks(int* n_blocks) {
-  return int(max_blocks(point_pipeline_fwd_kernel, SMEM_FWD, n_blocks));
+  return int(max_blocks(PP_NAME(point_pipeline_fwd_kernel), SMEM_FWD, n_blocks));
 }
 
 extern "C" int point_pipeline_bwd_max_blocks(int* n_blocks) {
-  return int(max_blocks(point_pipeline_bwd_kernel, SMEM_BWD, n_blocks));
+  return int(max_blocks(PP_NAME(point_pipeline_bwd_kernel), SMEM_BWD, n_blocks));
 }
 
 extern "C" long long point_pipeline_bwd_scratch_floats(int n_sdf, int skip, int n_color,
                                                        int n_relight, int y_in, int dw_batch) {
-  return bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, dw_batch);
+  return bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, dw_batch, PP_PREC);
 }
 
 extern "C" long long point_pipeline_fwd_scratch_floats(int n_sdf) {
@@ -323,12 +339,12 @@ extern "C" int point_pipeline_fwd_launch(
                          squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, ioff);
   p.out = out;
   p.scratch = scratch;
-  cudaError_t e = cudaFuncSetAttribute(point_pipeline_fwd_kernel,
+  cudaError_t e = cudaFuncSetAttribute(PP_NAME(point_pipeline_fwd_kernel),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_FWD));
   if (e != cudaSuccess) return int(e);
-  point_pipeline_fwd_kernel<<<n_blocks, THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  PP_NAME(point_pipeline_fwd_kernel)<<<n_blocks, THREADS, SMEM_FWD,
+                                       static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
 
@@ -352,12 +368,12 @@ extern "C" int point_pipeline_bwd_launch(
   p.dirs_hat = dirs_hat;
   p.partial = partial;
   p.n_grad = n_grad;
-  cudaError_t e = cudaFuncSetAttribute(point_pipeline_bwd_kernel,
+  cudaError_t e = cudaFuncSetAttribute(PP_NAME(point_pipeline_bwd_kernel),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_BWD));
   if (e != cudaSuccess) return int(e);
-  point_pipeline_bwd_kernel<<<n_blocks, THREADS, SMEM_BWD, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  PP_NAME(point_pipeline_bwd_kernel)<<<n_blocks, THREADS, SMEM_BWD,
+                                       static_cast<cudaStream_t>(stream)>>>(p);
   return int(cudaGetLastError());
 }
 
@@ -372,6 +388,8 @@ extern "C" int point_pipeline_reduce_launch(const float* partial, float* out, in
 }
 
 extern "C" int point_pipeline_n_off() { return N_OFF; }
+
+extern "C" int point_pipeline_prec() { return PP_PREC; }
 
 extern "C" const char* point_pipeline_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

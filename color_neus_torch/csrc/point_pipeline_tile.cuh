@@ -12,16 +12,29 @@
 // and dir cotangents (PH, DH) back.
 //
 // The arithmetic is the TPU kernels' production arithmetic (JAX bf16 = not
-// interpret, MARCH_BWD_PRECISION f32stash): every product rounds its two
-// operands to bf16 and sums in f32 (the 256-wide ones on wgmma: wg_product
-// with B streamed from the weight images through a ring of bulk-copied
-// slabs, and the backward's dw_flush; the 1- and 3-wide ones as SIMT FMAs,
-// narrow_layer and narrow_back); the activations, gates and stores stay
-// f32; layer 0's weight grad takes its f32 operands (the PE and the
-// tangent seed) as hi + lo bf16 pairs, and the last layer's rank-1 tangent
-// term is summed in f32. The backward's weight grads are summed on chip
-// over a batch of tiles (dw_flush); point_pipeline.cu's note gives the
-// design.
+// interpret) under the MARCH_BWD_PRECISION mode PREC, a template parameter
+// of every tile function, so that each mode is its own instantiation (a
+// library of its own: PP_PREC below):
+//   f32stash (the default) every product rounds its two operands to bf16
+//     and sums in f32 (the 256-wide ones on wgmma: wg_product with B
+//     streamed from the weight images through a ring of bulk-copied slabs,
+//     and the backward's dw_flush; the 1- and 3-wide ones as SIMT FMAs,
+//     narrow_layer and narrow_back); the activations, gates and stores stay
+//     f32; layer 0's weight grad takes its f32 operands (the PE and the
+//     tangent seed) as hi + lo bf16 pairs, and the last layer's rank-1
+//     tangent term is summed in f32;
+//   bf16 as f32stash, but the SDF chain's stores are bf16: the backward's
+//     tangent pre-gates (zt), and the save mode's stash of the SDF layer
+//     outputs, from whose bf16 values load_tile rebuilds the gates;
+//   f32 every product of the SDF chain (its forward, the reverse sweep, the
+//     backward's tangent stream, the joint value / tangent reverse, the
+//     last layer's) in exact f32: SIMT FMAs over f32 activations in shared
+//     memory and the f32 weights of the wrapper's f32 images (f32_product),
+//     its weight grads summed per tile from the f32 layer inputs the
+//     recompute keeps (dw_direct) instead of the bf16 store and the flush;
+//     the colour and relight chains as f32stash.
+// The backward's weight grads are summed on chip over a batch of tiles
+// (dw_flush); point_pipeline.cu's note gives the design.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +70,21 @@ constexpr int W_SDF = 0, WT_SDF = MAXL, B_SDF = 2 * MAXL, W_COL = 3 * MAXL, B_CO
               W_LAST = 9 * MAXL, B_LAST = W_LAST + 1, W_FEAT = W_LAST + 2, B_FEAT = W_LAST + 3,
               WT_FEAT = W_LAST + 4, N_OFF = W_LAST + 5;
 constexpr int FWD_ROWS = 2 * TILE;       // points per tile of the forward kernels (rows 3, 5)
+
+// MARCH_BWD_PRECISION, the SDF chain's arithmetic (the note above). A
+// library's kernels compute one mode, PP_PREC (nvcc -DPP_PREC=...); the
+// kernels of the non-default modes carry its suffix.
+enum Prec { PREC_F32STASH = 0, PREC_BF16 = 1, PREC_F32 = 2 };
+#ifndef PP_PREC
+#define PP_PREC 0
+#endif
+#if PP_PREC == 1
+#define PP_NAME(name) name##_bf16s
+#elif PP_PREC == 2
+#define PP_NAME(name) name##_f32s
+#else
+#define PP_NAME(name) name
+#endif
 
 struct Params {
   const float* pts;    // [n, 3]
@@ -145,6 +173,8 @@ struct Save {
   float* cx;           // [n_color] colour layer inputs
   float* rx;           // [n_relight] relight layer inputs
   unsigned char* dw;   // the tile's weight-grad store (dw_tile_bytes), nullptr for none
+  float* sx;           // PREC_F32: [n_sdf] the SDF layer inputs in f32 (layer 0: the PE)
+  float* su;           // PREC_F32: [n_sdf - 1] the tangent stream's layer inputs in f32
 };
 
 // The fused march's save mode (ray_march.cu): the rows of a forward tile in
@@ -350,6 +380,12 @@ __device__ __forceinline__ const unsigned char* image(const Params& p, int slot)
   return p.wimg + size_t(p.ioff[slot]) * WSLAB;
 }
 
+// PREC_F32: an SDF layer's f32 image (point_pipeline.py _pack_images), its
+// W slot's [K][256] (the forward product's B), its WT slot's [256][K].
+__device__ __forceinline__ const float* image_f32(const Params& p, int slot) {
+  return reinterpret_cast<const float*>(image(p, slot));
+}
+
 // A reverse product (depth 256, the layer's output cotangents; NOUT = K,
 // its input width) of a 256-wide layer, one stream (put0) or the SDF's
 // value and tangent streams (DUAL: A1 and put1 too).
@@ -413,6 +449,122 @@ __device__ __forceinline__ void forward_product(Rings& st, int K, const float* A
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
+// ---- the SDF chain's exact-f32 products (PREC_F32) ----
+// out[r][c] = sum_k A[r][k] B[k][c] for the tile's ROWS rows, c < NOUT, k <
+// depth (a multiple of 4), as f32 FMAs in k order: A f32 in shared memory
+// (row stride lda), B f32 row-major [depth][NOUT] in device memory (an f32
+// weight image: point_pipeline.py _pack_images). A chunk of RC rows at a
+// time, each thread computing 4-row x 4-column blocks of it into
+// registers (a warp's blocks share their rows, so its A reads are
+// broadcasts, and its B reads one coalesced row segment); after a barrier
+// it hands them to put(r, c, v), so put may overwrite A. A barrier after.
+template <int ROWS, int NOUT, class F>
+__device__ __forceinline__ void f32_product(const float* A, int lda, const float* __restrict__ B,
+                                            int depth, F&& put) {
+  constexpr int RC = NOUT > HID ? 32 : (ROWS < 64 ? ROWS : 64);
+  constexpr int NG = NOUT / 4, ITEMS = RC / 4 * NG, NI = (ITEMS + THREADS - 1) / THREADS;
+  static_assert(ROWS % RC == 0 && NOUT % 4 == 0, "f32_product: shape");
+#pragma unroll 1
+  for (int r0 = 0; r0 < ROWS; r0 += RC) {
+    float acc[NI][4][4];
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][rr][j] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < depth; k += 4) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int it = threadIdx.x + i * THREADS;
+        if (ITEMS % THREADS != 0 && it >= ITEMS) continue;
+        const int c = 4 * (it % NG), r = r0 + 4 * (it / NG);
+        float4 b[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          b[kk] = __ldg(reinterpret_cast<const float4*>(B + size_t(k + kk) * NOUT + c));
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const float4 a = ld4(A + (r + rr) * lda + k);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          float* o = acc[i][rr];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            o[0] = fmaf(av[kk], b[kk].x, o[0]);
+            o[1] = fmaf(av[kk], b[kk].y, o[1]);
+            o[2] = fmaf(av[kk], b[kk].z, o[2]);
+            o[3] = fmaf(av[kk], b[kk].w, o[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int it = threadIdx.x + i * THREADS;
+      if (ITEMS % THREADS != 0 && it >= ITEMS) continue;
+      const int c = 4 * (it % NG), r = r0 + 4 * (it / NG);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) put(r + rr, c + j, acc[i][rr][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The reverse product of a 256-wide SDF layer in f32: [ROWS, 256] @ [256,
+// K] (K = 48, 256 or 304; B its WT slot's f32 image, W^T).
+template <int ROWS, class F>
+__device__ __forceinline__ void reverse_f32(int K, const float* A, int lda, const float* B,
+                                            F&& put) {
+  if (K == EMB) f32_product<ROWS, EMB>(A, lda, B, HID, put);
+  else if (K == HID) f32_product<ROWS, HID>(A, lda, B, HID, put);
+  else f32_product<ROWS, HID + EMB>(A, lda, B, HID, put);
+}
+
+// P[k][c] += sum_r S[r][k] D[r][c] (+ S2[r][k] D2[r][c] when S2) over a
+// 64-point tile, k < K (a multiple of 16), c < 256, in f32: an SDF layer's
+// weight grad under PREC_F32, S / S2 the f32 layer inputs the recompute
+// kept ([TILE][LDS] in the block's scratch), D / D2 the output cotangents in
+// shared memory (stride LDX). Thread c takes column c, 16 k at a time
+// (its S reads broadcasts).
+__device__ __forceinline__ void dw_direct(float* P, int K, const float* S, const float* D,
+                                          const float* S2, const float* D2) {
+  const int c = threadIdx.x;   // THREADS == HID
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    float acc[16];
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) acc[kk] = 0.f;
+    for (int term = 0; term < (S2 != nullptr ? 2 : 1); ++term) {
+      const float* s = term ? S2 : S;
+      const float* d = term ? D2 : D;
+#pragma unroll 2
+      for (int r = 0; r < TILE; ++r) {
+        const float dv = d[r * LDX + c];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 sv = ld4(s + r * LDS + k0 + 4 * q);
+          acc[4 * q] = fmaf(sv.x, dv, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(sv.y, dv, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(sv.z, dv, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(sv.w, dv, acc[4 * q + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) P[size_t(k0 + kk) * HID + c] += acc[kk];
+  }
+}
+
+// An SDF weight as its products take it: rounded to bf16, or as is in PREC_F32.
+template <int PREC>
+__device__ __forceinline__ float sdf_operand(float w) {
+  return PREC == PREC_F32 ? w : round_bf16(w);
+}
+
 // After a forward product staged in X[:, :256]: dst[:, :256] = epi(X + b)
 // over the tile's ROWS rows. Thread t takes columns 4 (t % 64) .. + 4 (its
 // bias read once) of rows t / 64 + 4 m, NB rows a batch: the batch's loads
@@ -421,8 +573,10 @@ __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<floa
 // EPI_SOFTPLUS also stores the gate to `gates` ([ROWS][HID]) and scales
 // the value by `post`. dst may be X. EXPORT also writes each row that has
 // a stash row (ex) at byte column `col` of it: the softplus before `post`
-// in f32, else the value in bf16. A barrier after.
-template <int ROWS, bool EXPORT = false>
+// in f32 (SX_BF16, PREC_BF16's stash: after `post`, in bf16, the next
+// layer's input as JAX stores it), else the value in bf16. A barrier
+// after.
+template <int ROWS, bool EXPORT = false, bool SX_BF16 = false>
 __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__ b, int epi,
                                              float post, float* gates, float* dst, int ld,
                                              const Export& ex = Export{nullptr, 0, 0},
@@ -458,7 +612,10 @@ __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__
       if constexpr (EXPORT) {
         if (r < ex.rows) {
           unsigned char* k = ex.row0 + size_t(r) * ex.bytes + col;
-          if (epi == EPI_SOFTPLUS)
+          if (SX_BF16 && epi == EPI_SOFTPLUS)
+            *reinterpret_cast<uint2*>(k + 2 * c) =
+                make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+          else if (epi == EPI_SOFTPLUS)
             st4(reinterpret_cast<float*>(k) + c, make_float4(keep[0], keep[1], keep[2], keep[3]));
           else
             *reinterpret_cast<uint2*>(k + 2 * c) =
@@ -471,14 +628,15 @@ __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__
 }
 
 // out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out <= 3, r
-// < ROWS (W: f32 row-major [n_out, K]), summed in f32: a warp takes four
-// rows at a time, its lanes strided over K, and reduces the 4 x 3 partial
-// sums together (independent shuffle chains, not one row's after
-// another's).
+// < ROWS (W: f32 row-major [n_out, K]), summed in f32 (exact: the operands
+// unrounded, PREC_F32's sdf row): a warp takes four rows at a time, its
+// lanes strided over K, and reduces the 4 x 3 partial sums together
+// (independent shuffle chains, not one row's after another's).
 template <int ROWS>
 __device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
                                              const float* __restrict__ W,
-                                             const float* __restrict__ b, float* out, int ld_out) {
+                                             const float* __restrict__ b, float* out, int ld_out,
+                                             bool exact = false) {
   constexpr int RG = 4;   // rows at a time
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r0 = RG * warp; r0 < ROWS; r0 += RG * (THREADS / 32)) {
@@ -486,10 +644,14 @@ __device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
     for (int k = lane; k < K; k += 32) {
       float w[3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) w[j] = j < n_out ? round_bf16(__ldg(W + j * K + k)) : 0.f;
+      for (int j = 0; j < 3; ++j) {
+        const float wv = j < n_out ? __ldg(W + j * K + k) : 0.f;
+        w[j] = exact ? wv : round_bf16(wv);
+      }
 #pragma unroll
       for (int i = 0; i < RG; ++i) {
-        const float x = round_bf16(X[(r0 + i) * LD<ROWS> + k]);
+        const float xv = X[(r0 + i) * LD<ROWS> + k];
+        const float x = exact ? xv : round_bf16(xv);
 #pragma unroll
         for (int j = 0; j < 3; ++j) s[i][j] = fmaf(x, w[j], s[i][j]);
       }
@@ -656,24 +818,27 @@ __host__ __device__ inline Shape shape_of(const Params& p) {
   return Shape{p.n_sdf, p.skip, p.n_color, p.n_relight, p.y_in};
 }
 
-// A point's row of the activation stash, byte offsets: sx, the softplus
-// of every hidden SDF layer ([n_sdf - 1][HID] f32: layer l + 1's input
-// before the skip's 1/sqrt(2), and layer l's gate rebuilt as 1 - exp(-100
-// sp)); cr, in bf16 [n_color + n_relight - 1][HID], the hidden part of
+// A point's row of the activation stash of mode prec, byte offsets: sx,
+// the softplus of every hidden SDF layer ([n_sdf - 1][HID], sxw bytes a
+// layer: f32, layer l + 1's input before the skip's 1/sqrt(2), and layer
+// l's gate rebuilt as 1 - exp(-100 sp); in PREC_BF16 bf16, layer l + 1's
+// input after it, the gate rebuilt from the bf16 value times sqrt(2)
+// there); cr, in bf16 [n_color + n_relight - 1][HID], the hidden part of
 // each colour layer's input (layer 0: the features) and of each relight
 // layer's from layer 1 on (relu outputs); tail, 8 f32: gc (3), delta (3),
 // 0, 0. The PE, the small inputs and the y_in layer's gc block are rebuilt
 // from the points and the tail. The backward reads the bf16 parts only as
-// bf16 product operands and relu masks.
+// bf16 product operands, relu masks and the bf16 gates' source.
 struct ActLayout {
-  int sx, cr, tail, bytes;
+  int sx, sxw, cr, tail, bytes;
 };
 
-__host__ __device__ inline ActLayout act_layout(const Shape& s) {
+__host__ __device__ inline ActLayout act_layout(const Shape& s, int prec) {
   const int nr = s.n_relight > 0 ? s.n_relight - 1 : 0;
   ActLayout a;
   a.sx = 0;
-  a.cr = (s.n_sdf - 1) * HID * 4;
+  a.sxw = HID * (prec == PREC_BF16 ? 2 : 4);
+  a.cr = (s.n_sdf - 1) * a.sxw;
   a.tail = a.cr + (s.n_color + nr) * HID * 2;
   a.bytes = a.tail + 8 * 4;
   return a;
@@ -745,6 +910,12 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // layer's input (sv); EXPORT (the march's save mode) writes each point's
 // row of the activation stash (ex, act_layout) from the passes.
 //
+// PREC is the MARCH_BWD_PRECISION mode (the note at the top): in PREC_F32
+// the SDF layers' products, the last layer's and the reverse sweep's run
+// in f32 (f32_product, and narrow_layer exact for the sdf row), and SAVE
+// keeps the SDF layer inputs in f32 (sv.sx) instead of the bf16 store; in
+// PREC_BF16 EXPORT writes the SDF part of the stash in bf16.
+//
 // The tile runs as one loop of steps: the SDF layers, the last layer (its
 // sdf row as a narrow layer, its features), the reverse sweep, the colour
 // and the relight layers, and a closing step. A step does the work due
@@ -754,7 +925,7 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // The SDF PE stays in X's PE columns (X[:, 256:304]) from layer 0, which
 // reads it there, to the skip layer, which takes it times 1/sqrt(2); the
 // reverse sweep then keeps the PE cotangents there.
-template <int ROWS, bool SAVE, bool EXPORT = false>
+template <int ROWS, bool SAVE, bool EXPORT, int PREC>
 __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rings& st,
                                              float* gates, float* feat, const Save& sv,
                                              const Export& ex = Export{nullptr, 0, 0}) {
@@ -816,7 +987,8 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
       const int kn = kind == LAST || colour_last ? HID : K;
       float* out = kind == LAST ? t.S1 : colour_last ? t.GC : t.DL;
       if (SAVE && kind != LAST) save_cols(X, kn, colour_last ? sv.cx + nc * SLAB : sv.rx + nr * SLAB);
-      narrow_layer<ROWS>(X, kn, n_out, W + p.off[wn], W + p.off[bn], out, n_out);
+      narrow_layer<ROWS>(X, kn, n_out, W + p.off[wn], W + p.off[bn], out, n_out,
+                         PREC == PREC_F32 && kind == LAST);
       if (colour_last && p.squeeze) {
         for (int e = tid; e < ROWS * 3; e += THREADS) t.GC[e] = sigmoidf_(t.GC[e]);
         __syncthreads();
@@ -831,31 +1003,38 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
       __syncthreads();
     }
     if (kind == REV && l == nf - 1) {
-      // q = W_last[0, :] (in bf16) * gate of the last hidden layer; the PE
-      // cotangents (X[:, 256:304]) zero
+      // q = W_last[0, :] (in bf16; f32 in PREC_F32) * gate of the last
+      // hidden layer; the PE cotangents (X[:, 256:304]) zero
       const float* wl = W + p.off[W_LAST];
       const float* g_last = gates + (nf - 1) * GS;
 #pragma unroll 4
       for (int e = tid; e < ROWS * HID / 4; e += THREADS) {
         const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
         const float4 g4 = ld4(g_last + r * HID + c);
-        st4(X + r * L + c, make_float4(round_bf16(__ldg(wl + c)) * g4.x,
-                                         round_bf16(__ldg(wl + c + 1)) * g4.y,
-                                         round_bf16(__ldg(wl + c + 2)) * g4.z,
-                                         round_bf16(__ldg(wl + c + 3)) * g4.w));
+        st4(X + r * L + c, make_float4(sdf_operand<PREC>(__ldg(wl + c)) * g4.x,
+                                         sdf_operand<PREC>(__ldg(wl + c + 1)) * g4.y,
+                                         sdf_operand<PREC>(__ldg(wl + c + 2)) * g4.z,
+                                         sdf_operand<PREC>(__ldg(wl + c + 3)) * g4.w));
       }
       for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] = 0.f;
       __syncthreads();
     }
     // ---- the layer's input kept for the backward ----
     const float* A = kind == SDF && l == 0 ? PE : X;
+    // PREC_F32: the SDF chain's products (the SDF layers, the last layer's
+    // features, the reverse sweep) in f32
+    const bool f32_step = PREC == PREC_F32 && (kind == SDF || kind == LAST || kind == REV);
     if (SAVE && kind != REV) {
       const int bi = kind == SDF || kind == LAST ? l : kind == COL ? p.n_sdf + l
                    : p.n_sdf + p.n_color - 1 + l;
       if (kind == COL) save_cols(X, K, sv.cx + l * SLAB);
       if (kind == REL) save_cols(X, K, sv.rx + l * SLAB);
-      save_t<0>(A, K, dw_a(sh, sv.dw, bi, 0));
-      if (kind == SDF && l == 0) save_t<2>(A, K, dw_a(sh, sv.dw, 0, 1));   // hi + lo
+      if (f32_step) {
+        save_cols(A, K, sv.sx + l * SLAB);
+      } else {
+        save_t<0>(A, K, dw_a(sh, sv.dw, bi, 0));
+        if (kind == SDF && l == 0) save_t<2>(A, K, dw_a(sh, sv.dw, 0, 1));   // hi + lo
+      }
     }
     // ---- the product and its pass ----
     const int slot = kind == SDF ? W_SDF + l : kind == LAST ? W_FEAT : kind == REV ? WT_SDF + l
@@ -863,7 +1042,13 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // the reverse sweep's next gates into L2 while the product runs
     if (kind == REV && l > 0 && tid == 0)
       mlp::prefetch_l2(gates + (l - 1) * GS, unsigned(GS * sizeof(float)));
-    layer_product<ROWS>(st, X, A, image(p, slot), K, kind == REV);
+    if (f32_step) {
+      auto put = [=](int r, int c, float v) { X[r * L + c] = v; };
+      if (kind == REV) reverse_f32<ROWS>(K, X, L, image_f32(p, slot), put);
+      else f32_product<ROWS, HID>(A, L, image_f32(p, slot), K, put);
+    } else {
+      layer_product<ROWS>(st, X, A, image(p, slot), K, kind == REV);
+    }
     // a softplus layer's gates; in the reverse sweep the next ones (not
     // kept live across the product: the backward kernel has no register to
     // spare there)
@@ -875,12 +1060,12 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
                       : kind == COL ? B_COL + l : B_REL + l;
       int col = 0;   // the step's output in the stash row: sx of layer l, cr slot 0 / 1 + l
       if constexpr (EXPORT) {
-        const ActLayout al = act_layout(sh);
-        col = kind == SDF ? al.sx + l * HID * 4
+        const ActLayout al = act_layout(sh, PREC);
+        col = kind == SDF ? al.sx + l * al.sxw
                           : al.cr + (kind == LAST ? 0 : kind == COL ? 1 + l : p.n_color + l) *
                                         HID * 2;
       }
-      forward_pass<ROWS, EXPORT>(X, W + p.off[bslot],
+      forward_pass<ROWS, EXPORT, PREC == PREC_BF16>(X, W + p.off[bslot],
                                  kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
                                  kind == SDF && l + 1 == p.skip ? INV_SQRT2 : 1.f, g,
                                  kind == LAST ? feat : X, kind == LAST ? HID : L, ex, col);
@@ -1016,9 +1201,10 @@ struct DwCursor {
 
 __device__ __forceinline__ int n_pairs(int K) { return (round64(K) / 64 + 1) / 2; }
 
-__device__ __forceinline__ void cursor_start(const Shape& sh, DwCursor& c) {
-  c.bi = c.mp = c.term = c.tl = 0;
-  c.blk = dw_block(sh, 0);
+__device__ __forceinline__ void cursor_start(const Shape& sh, DwCursor& c, int first) {
+  c.bi = first;
+  c.mp = c.term = c.tl = 0;
+  c.blk = dw_block(sh, first);
 }
 
 // The next slab; false past the last block.
@@ -1059,7 +1245,9 @@ __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
 // [64, 64 nt] x [64 nt, 256] of block 2 mp + h on wgmma (m64n256k16, 128
 // accumulators a thread), every term and tile streamed through the flush
 // ring in order, then one read-modify-write of those 64 x 256 floats. The
-// stages lie over X and Y, so the caller has finished the tile.
+// stages lie over X and Y, so the caller has finished the tile. PREC_F32
+// summed the SDF blocks per tile (dw_direct): the flush starts after them.
+template <int PREC>
 __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsigned char* store,
                                          long long tile_bytes, int nt, float* P) {
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
@@ -1070,11 +1258,12 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   mlp::fence_proxy_async();
   __syncthreads();
   const unsigned d0 = st.ds;
+  const int first = PREC == PREC_F32 ? sh.n_sdf : 0;
   DwCursor pc;          // thread 0's: the next slab to issue
   bool more = true;     // pc is a slab
   unsigned issued = 0;
   if (tid == 0) {
-    cursor_start(sh, pc);
+    cursor_start(sh, pc, first);
     for (; more && issued + 1 < DW_STAGES; ++issued) {
       dw_issue(st, store, tile_bytes, pc, d0 + issued);
       more = cursor_next(sh, pc, nt);
@@ -1082,7 +1271,7 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   }
   unsigned li = 0;
   const int nb = dw_n_blocks(sh);
-  for (int bi = 0; bi < nb; ++bi) {
+  for (int bi = first; bi < nb; ++bi) {
     const DwBlock blk = dw_block(sh, bi);
     for (int mp = 0; mp < n_pairs(blk.K); ++mp) {
       float acc[128];
@@ -1125,18 +1314,22 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   __syncthreads();
 }
 
-// The f32 part of the block's backward scratch, floats: [n_sdf - 1] gates,
-// features and [n_sdf - 1] tangent pre-gates as [TILE][HID] slabs, then
-// [n_color] colour and [n_relight] relight layer inputs as [TILE][LDS]
-// slabs; rounded up to 256 floats, the weight-grad store of dw_batch tiles
-// (dw_tile_bytes each) after it.
-__host__ __device__ inline long long bwd_f32_floats(int n_sdf, int n_color, int n_relight) {
-  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB + 255) /
+// The f32 part of the block's backward scratch of mode prec, floats:
+// [n_sdf - 1] gates, features and [n_sdf - 1] tangent pre-gates as
+// [TILE][HID] slabs, then [n_color] colour and [n_relight] relight layer
+// inputs as [TILE][LDS] slabs (PREC_F32: then [n_sdf] SDF and [n_sdf - 1]
+// tangent layer inputs, Save::sx / su); rounded up to 256 floats, the
+// weight-grad store of dw_batch tiles (dw_tile_bytes each) after it.
+__host__ __device__ inline long long bwd_f32_floats(int n_sdf, int n_color, int n_relight,
+                                                    int prec) {
+  const long long f32_inputs = prec == PREC_F32 ? (2LL * n_sdf - 1) * SLAB : 0;
+  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB +
+          f32_inputs + 255) /
          256 * 256;
 }
 
-__host__ __device__ inline long long bwd_scratch_floats(const Shape& s, int dw_batch) {
-  return bwd_f32_floats(s.n_sdf, s.n_color, s.n_relight) + dw_batch * dw_tile_bytes(s) / 4;
+__host__ __device__ inline long long bwd_scratch_floats(const Shape& s, int dw_batch, int prec) {
+  return bwd_f32_floats(s.n_sdf, s.n_color, s.n_relight, prec) + dw_batch * dw_tile_bytes(s) / 4;
 }
 
 // v0 = scale d emb_c / d x . grad_hat, the tangent seed of row r, column c.
@@ -1154,7 +1347,12 @@ __device__ __forceinline__ float tangent_seed(const Params& p, const Tile& t, in
 // the bias grads and the 3-wide layers' weight grads added into the
 // block's partial P, and every 256-wide layer's weight-grad operands
 // (inputs and output cotangents, bf16, transposed) into the tile's store
-// sv.dw, which dw_flush sums.
+// sv.dw, which dw_flush sums. PREC: the MARCH_BWD_PRECISION mode (the note
+// at the top): PREC_BF16 stores the tangent pre-gates zt rounded to bf16;
+// PREC_F32 runs the SDF chain's products in f32 (f32_product) and sums its
+// weight grads into P per tile (dw_direct) from the f32 layer inputs the
+// recompute or the load kept (sv.sx, and sv.su here).
+template <int PREC>
 __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Rings& st,
                                               float* gates, float* zt, const Save& sv, float* P) {
   const int tid = threadIdx.x;
@@ -1279,16 +1477,24 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
   for (int l = 0; l < p.n_sdf - 1; ++l) {
     const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
-    // layer 0's U as a hi + lo bf16 pair (dw_kind)
-    save_t<0>(t.Y, K, dw_a(sh, sv.dw, l, l == 0 ? 2 : 1));
-    if (l == 0) save_t<2>(t.Y, K, dw_a(sh, sv.dw, 0, 3));
+    if constexpr (PREC == PREC_F32) {
+      save_cols(t.Y, K, sv.su + l * SLAB);
+    } else {
+      // layer 0's U as a hi + lo bf16 pair (dw_kind)
+      save_t<0>(t.Y, K, dw_a(sh, sv.dw, l, l == 0 ? 2 : 1));
+      if (l == 0) save_t<2>(t.Y, K, dw_a(sh, sv.dw, 0, 3));
+    }
     const float* g = gates + l * GSLAB;
     float* z = zt + l * GSLAB;
-    forward_product(st, K, t.Y, image(p, W_SDF + l), [&](int r, int c, float acc) {
-      z[r * HID + c] = acc;
+    auto put = [&](int r, int c, float acc) {
+      z[r * HID + c] = PREC == PREC_BF16 ? round_bf16(acc) : acc;   // JAX's Zs store
       const float v = g[r * HID + c] * acc;
       t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
-    });
+    };
+    if constexpr (PREC == PREC_F32)
+      f32_product<TILE, HID>(t.Y, LDX, image_f32(p, W_SDF + l), K, put);
+    else
+      forward_product(st, K, t.Y, image(p, W_SDF + l), put);
     if (pre_skip) {
       for (int e = tid; e < TILE * EMB; e += THREADS) {
         const int r = e / EMB, c = e % EMB;
@@ -1302,16 +1508,22 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
   // cotangent e0 / scale, uL = Y[:, :256] ----
   {
     const int L1 = p.n_sdf - 1;
-    // its input, in bf16, from the store (the recompute saved it)
+    // its input, in bf16, from the store (the recompute saved it; in f32
+    // in PREC_F32)
     const unsigned char* sx = dw_a(sh, sv.dw, L1, 0);
     {
-      // the sdf row: bf16 products, and the rank-1 tangent term in f32
+      // the sdf row: bf16 products (f32 in PREC_F32), and the rank-1
+      // tangent term in f32
       const int k = tid;   // THREADS == HID
       float s = 0.f, u = 0.f;
       for (int r = 0; r < TILE; ++r) {
-        const unsigned bits =
-            *reinterpret_cast<const unsigned short*>(sx + mlp::sw128_offset(k, r));
-        s = fmaf(round_bf16(t.CT[r * 16] * inv_scale), __uint_as_float(bits << 16), s);
+        if constexpr (PREC == PREC_F32) {
+          s = fmaf(t.CT[r * 16] * inv_scale, sv.sx[L1 * SLAB + r * LDS + k], s);
+        } else {
+          const unsigned bits =
+              *reinterpret_cast<const unsigned short*>(sx + mlp::sw128_offset(k, r));
+          s = fmaf(round_bf16(t.CT[r * 16] * inv_scale), __uint_as_float(bits << 16), s);
+        }
         u += t.Y[r * LDX + k];
       }
       P[off[W_LAST] + k] += s + inv_scale * u;
@@ -1321,18 +1533,24 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
         P[off[B_LAST]] += sb;
       }
     }
-    save_t<0>(t.X, HID, dw_b(sh, sv.dw, L1, 0));
+    if constexpr (PREC == PREC_F32)
+      dw_direct(P + off[W_FEAT], HID, sv.sx + L1 * SLAB, t.X, nullptr, nullptr);
+    else
+      save_t<0>(t.X, HID, dw_b(sh, sv.dw, L1, 0));
     bias_accum(t.X, P + off[B_FEAT]);
     const float* wl = W + off[W_LAST];
     // the tangent cotangent: JAX's bf16 weight row times 1/scale cast to
-    // bf16, rounded to bf16
-    const float inv_scale_bf = round_bf16(inv_scale);
+    // bf16, rounded to bf16 (PREC_F32: its f32 row times 1/scale, in f32)
+    const float inv_scale_bf = sdf_operand<PREC>(inv_scale);
     auto put = [&](int r, int c, float v) {
-      const float w = round_bf16(wl[c]);
-      t.X[r * LDX + c] = fmaf(round_bf16(t.CT[r * 16] * inv_scale), w, v);
-      t.Y[r * LDX + c] = round_bf16(w * inv_scale_bf);
+      const float w = sdf_operand<PREC>(wl[c]);
+      t.X[r * LDX + c] = fmaf(sdf_operand<PREC>(t.CT[r * 16] * inv_scale), w, v);
+      t.Y[r * LDX + c] = sdf_operand<PREC>(w * inv_scale_bf);
     };
-    reverse_product<false>(st, HID, t.X, t.X, image(p, WT_FEAT), put, put);
+    if constexpr (PREC == PREC_F32)
+      f32_product<TILE, HID>(t.X, LDX, image_f32(p, WT_FEAT), HID, put);
+    else
+      reverse_product<false>(st, HID, t.X, t.X, image(p, WT_FEAT), put, put);
   }
 
   // ---- value and tangent reversed together ----
@@ -1353,9 +1571,14 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       t.Y[r * LDX + c] = gg * ub;
     }
     __syncthreads();
-    // abar and zbar: the weight grad's cotangents (dw_kind's terms)
-    save_t<0>(t.X, HID, dw_b(sh, sv.dw, l, 0));
-    save_t<0>(t.Y, HID, dw_b(sh, sv.dw, l, 1));
+    // abar and zbar: the weight grad's cotangents (dw_kind's terms; in
+    // PREC_F32 summed here, in f32)
+    if constexpr (PREC == PREC_F32) {
+      dw_direct(P + off[W_SDF + l], K, sv.sx + l * SLAB, t.X, sv.su + l * SLAB, t.Y);
+    } else {
+      save_t<0>(t.X, HID, dw_b(sh, sv.dw, l, 0));
+      save_t<0>(t.Y, HID, dw_b(sh, sv.dw, l, 1));
+    }
     bias_accum(t.X, P + off[B_SDF + l]);
     // hbar and ubar of layer l's input: the hidden part stays in X / Y, the
     // PE part (the skip layer's last 48 columns, or all of layer 0's) adds
@@ -1370,7 +1593,12 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       else if (c < HID) t.Y[r * LDX + c] = is_skip ? v * INV_SQRT2 : v;
       else t.VH[r * EMB + c - HID] += v * INV_SQRT2;
     };
-    reverse_product<true>(st, K, t.X, t.Y, image(p, WT_SDF + l), value, tangent);
+    if constexpr (PREC == PREC_F32) {
+      reverse_f32<TILE>(K, t.X, LDX, image_f32(p, WT_SDF + l), value);
+      reverse_f32<TILE>(K, t.Y, LDX, image_f32(p, WT_SDF + l), tangent);
+    } else {
+      reverse_product<true>(st, K, t.X, t.Y, image(p, WT_SDF + l), value, tangent);
+    }
   }
 
   // ---- PE pullback, first and second derivative ----
@@ -1441,9 +1669,12 @@ struct BwdScratch {
   float* zt;
   float* cx;
   float* rx;
+  float* sx;              // PREC_F32 only
+  float* su;              // PREC_F32 only
   unsigned char* store;   // dw_batch tiles of dw_tile_bytes
 };
 
+template <int PREC>
 __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* base) {
   BwdScratch s;
   s.gates = base;
@@ -1451,8 +1682,10 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
   s.zt = s.feat + GSLAB;
   s.cx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
   s.rx = s.cx + size_t(p.n_color) * SLAB;
+  s.sx = PREC == PREC_F32 ? s.rx + size_t(p.n_relight) * SLAB : nullptr;
+  s.su = PREC == PREC_F32 ? s.sx + size_t(p.n_sdf) * SLAB : nullptr;
   s.store = reinterpret_cast<unsigned char*>(base + bwd_f32_floats(p.n_sdf, p.n_color,
-                                                                    p.n_relight));
+                                                                    p.n_relight, PREC));
   return s;
 }
 
@@ -1460,15 +1693,16 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
 // backward_tile (and after the caller has read the tile's outputs); slot
 // is the tile's index in the batch. Flushes when the batch is full or the
 // block's last tile is done (a ragged batch), and returns the next slot.
+template <int PREC>
 __device__ __forceinline__ int after_tile(const Params& p, Rings& st, const BwdScratch& s,
                                           int slot, bool last, float* P) {
   if (++slot < p.dw_batch && !last) return slot;
-  dw_flush(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
+  dw_flush<PREC>(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
   return 0;
 }
 
 __device__ __forceinline__ Save bwd_save(const Params& p, const BwdScratch& s, int slot) {
-  return Save{s.cx, s.rx, s.store + slot * dw_tile_bytes(shape_of(p))};
+  return Save{s.cx, s.rx, s.store + slot * dw_tile_bytes(shape_of(p)), s.sx, s.su};
 }
 
 template <class K>

@@ -34,7 +34,11 @@
 // save mode's activation stash adds 12,832 bytes a point each way at those
 // widths): bound by operations, bf16 tensor-core MMA at 989 TFLOP/s (the
 // products are the TPU kernels' bf16 ones, point_pipeline_tile.cuh). The
-// compositing is ~50 flops per point, in f32.
+// compositing is ~50 flops per point, in f32. Each MARCH_BWD_PRECISION
+// mode builds this file once (PP_PREC; kernels suffixed _bf16s / _f32s,
+// point_pipeline.cu's note): bf16's save stash keeps the SDF part in bf16
+// (8,768 bytes a point with the outs stash, against 12,864), f32 runs the
+// SDF chain's products on the FP32 pipe.
 //
 // Design (built on the tile functions of rows 5 and 6,
 // point_pipeline_tile.cuh, with their wgmma products). A block owns a
@@ -83,6 +87,7 @@
 namespace {
 
 constexpr int STASH = 8;   // per point: sdf, grad (3), relit (3), delta sum
+constexpr float SQRT2 = 1.41421356f;
 constexpr int CTW = 16;    // per point in the backward's scratch: gbar lanes, tc_bar (13), mid (14)
 
 struct March {
@@ -189,7 +194,7 @@ __device__ __forceinline__ void march_fwd(const March& m) {
   float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][128][HID]
   float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;        // [128][HID]
   const Save none{nullptr, nullptr, nullptr};
-  const ActLayout al = act_layout(shape_of(p));
+  const ActLayout al = act_layout(shape_of(p), PP_PREC);
   const float inv_s = *m.inv_s;
 
   for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
@@ -199,7 +204,7 @@ __device__ __forceinline__ void march_fwd(const March& m) {
     for (int t0 = 0; t0 < n_pts; t0 += FWD_ROWS) {
       load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);
       const Export ex{SAVE ? m.act + (r0 * m.S + t0) * al.bytes : nullptr, n_pts - t0, al.bytes};
-      forward_tile<FWD_ROWS, false, SAVE>(p, t, st, gates, feat, none, ex);
+      forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);
       if (tid < FWD_ROWS && t0 + tid < n_pts) {
         float* st_ = m.stash + (r0 * m.S + t0 + tid) * STASH;
         st_[0] = t.S1[tid];
@@ -246,11 +251,13 @@ __device__ __forceinline__ void march_fwd(const March& m) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_fwd_kernel(March m) {
+// The library's MARCH_BWD_PRECISION mode is PP_PREC (point_pipeline_tile.cuh);
+// its kernels carry the mode's suffix (PP_NAME).
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_fwd_kernel)(March m) {
   march_fwd<false>(m);
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_save_fwd_kernel(March m) {
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_save_fwd_kernel)(March m) {
   march_fwd<true>(m);
 }
 
@@ -349,12 +356,17 @@ __device__ __forceinline__ void load_bf16_cols(float* X, const unsigned char* sr
 // forward computed it from the same sp; the colour and relight layer
 // inputs the backward's masks and narrow layers read (sv.cx, sv.rx from
 // layer 1 on); every 256-wide layer's input as its bf16 weight-grad
-// operand (sv.dw), staged through X. A barrier after.
+// operand (sv.dw), staged through X. PREC (the MARCH_BWD_PRECISION mode):
+// PREC_BF16's stash holds each SDF layer's input in bf16 (act_layout), the
+// gate rebuilt from it (times sqrt(2) before the skip layer, as JAX's
+// unflatten_stash); PREC_F32 keeps the SDF layer inputs in f32 (sv.sx)
+// instead of the bf16 store. A barrier after.
+template <int PREC>
 __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* gates,
                                           const Save& sv, long long q0, int n) {
   const Params& p = m.net;
   const Shape sh = shape_of(p);
-  const ActLayout al = act_layout(sh);
+  const ActLayout al = act_layout(sh, PREC);
   const unsigned char* act = m.act + q0 * al.bytes;
   const int tid = threadIdx.x;
   float* const X = t.X;
@@ -372,31 +384,51 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* 
       t.DL[tid * 3 + j] = in ? tl[3 + j] : 0.f;
     }
   }
-  // SDF layer 0's input, the PE, as a hi + lo pair
+  // SDF layer 0's input, the PE, as a hi + lo pair (PREC_F32: in f32)
   fill_pe<TILE>(p, t, PE);
   __syncthreads();
-  save_t<0>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
-  save_t<2>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
+  if constexpr (PREC == PREC_F32) {
+    save_cols(PE, EMB, sv.sx);
+  } else {
+    save_t<0>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
+    save_t<2>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
+  }
   // hidden layer l: its gate, and the input of layer l + 1 (the features'
   // layer after the last)
   for (int l = 0; l < p.n_sdf - 1; ++l) {
     const bool pre_skip = l + 1 == p.skip;
     const float post = pre_skip ? INV_SQRT2 : 1.f;
     const unsigned char* src = act + al.sx + l * HID * 4;
+    const unsigned char* src16 = act + al.sx + l * HID * 2;   // PREC_BF16's (al.sxw)
     float* g = gates + size_t(l) * GSLAB;
     __syncthreads();   // save_t's reads of X are done
     for (int e = tid; e < TILE * HID / 4; e += THREADS) {
       const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
-      const float4 sp = r < n ? ld4(reinterpret_cast<const float*>(src + size_t(r) * al.bytes) + c)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 sp, x;
+      if constexpr (PREC == PREC_BF16) {   // x: the stored input; sp = x sqrt(2) at the skip
+        const uint2 w = r < n
+                            ? *reinterpret_cast<const uint2*>(src16 + size_t(r) * al.bytes + 2 * c)
+                            : make_uint2(0u, 0u);
+        x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                        __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+        const float s = pre_skip ? SQRT2 : 1.f;
+        sp = make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+      } else {
+        sp = r < n ? ld4(reinterpret_cast<const float*>(src + size_t(r) * al.bytes) + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        x = make_float4(sp.x * post, sp.y * post, sp.z * post, sp.w * post);
+      }
       st4(g + r * HID + c, make_float4(1.f - expf(-100.f * sp.x), 1.f - expf(-100.f * sp.y),
                                        1.f - expf(-100.f * sp.z), 1.f - expf(-100.f * sp.w)));
-      st4(X + r * LDX + c, make_float4(sp.x * post, sp.y * post, sp.z * post, sp.w * post));
+      st4(X + r * LDX + c, x);
     }
     if (pre_skip)   // the skip input: [h, PE] / sqrt(2)
       for (int e = tid; e < TILE * EMB; e += THREADS) PE[(e / EMB) * LDX + e % EMB] *= INV_SQRT2;
     __syncthreads();
-    save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
+    if constexpr (PREC == PREC_F32)
+      save_cols(X, pre_skip ? HID + EMB : HID, sv.sx + (l + 1) * SLAB);
+    else
+      save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
   }
   // the colour net: layer l's input, its hidden part in cr slot l (layer 0:
   // [features | pts, grad, PE(dirs)])
@@ -443,8 +475,8 @@ __device__ __forceinline__ void march_bwd(const March& m) {
   const Params& p = m.net;
   const int tid = threadIdx.x;
   float* base = p.scratch + size_t(blockIdx.x) * m.scratch_floats;
-  const BwdScratch s = carve_bwd_scratch(p, base);
-  float* ct = base + bwd_scratch_floats(shape_of(p), p.dw_batch);          // [G S][CTW]
+  const BwdScratch s = carve_bwd_scratch<PP_PREC>(p, base);
+  float* ct = base + bwd_scratch_floats(shape_of(p), p.dw_batch, PP_PREC);          // [G S][CTW]
   float* Tr = ct + size_t(m.G) * m.S * CTW;                                 // [G S]
   float* sinv = Tr + size_t(m.G) * m.S;                                     // [G]
   float* rh = sinv + m.G;                                                   // [G][6]
@@ -467,14 +499,14 @@ __device__ __forceinline__ void march_bwd(const March& m) {
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
       load_march_points<TILE>(m, t, r0, t0, n_pts);
-      if constexpr (LOAD) load_tile(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
-      else forward_tile<TILE, true>(p, t, st, s.gates, s.feat, sv);
+      if constexpr (LOAD) load_tile<PP_PREC>(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
+      else forward_tile<TILE, true, false, PP_PREC>(p, t, st, s.gates, s.feat, sv);
       for (int e = tid; e < TILE * 16; e += THREADS) {
         const int q = t0 + e / 16, c = e % 16;
         t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
       }
       __syncthreads();
-      backward_tile(p, t, st, s.gates, s.zt, sv, P);
+      backward_tile<PP_PREC>(p, t, st, s.gates, s.zt, sv, P);
       // the tile's share of each ray's cotangents, summed in sample order
       const int g_lo = t0 / m.S, g_hi = min(nr - 1, (t0 + TILE - 1) / m.S);
       for (int e = tid; e < (g_hi - g_lo + 1) * 6; e += THREADS) {
@@ -490,7 +522,8 @@ __device__ __forceinline__ void march_bwd(const March& m) {
         rh[g * 6 + k] += acc;
       }
       __syncthreads();
-      slot = after_tile(p, st, s, slot, grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
+      slot = after_tile<PP_PREC>(p, st, s, slot,
+                                 grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
     }
     for (int e = tid; e < nr * 8; e += THREADS) {
       const int g = e / 8, k = e % 8;
@@ -500,11 +533,11 @@ __device__ __forceinline__ void march_bwd(const March& m) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_bwd_kernel(March m) {
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_bwd_kernel)(March m) {
   march_bwd<false>(m);
 }
 
-__global__ void __launch_bounds__(THREADS, 1) ray_march_load_bwd_kernel(March m) {
+__global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_load_bwd_kernel)(March m) {
   march_bwd<true>(m);
 }
 
@@ -530,7 +563,8 @@ March make_march(const float* rays_o, const float* rays_d, const float* z, const
 }
 
 long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
-  return bwd_scratch_floats(sh, dw_batch) + group_scratch_floats(rays_per_group(S, TILE), S);
+  return bwd_scratch_floats(sh, dw_batch, PP_PREC) +
+         group_scratch_floats(rays_per_group(S, TILE), S);
 }
 
 }  // namespace
@@ -541,18 +575,18 @@ long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
 // `save`: of the save mode's entry (the forward's export, the backward's
 // load), else of the recompute's.
 extern "C" int ray_march_fwd_max_blocks(int save, int* n_blocks) {
-  return int(save ? max_blocks(ray_march_save_fwd_kernel, SMEM_FWD, n_blocks)
-                  : max_blocks(ray_march_fwd_kernel, SMEM_FWD, n_blocks));
+  return int(save ? max_blocks(PP_NAME(ray_march_save_fwd_kernel), SMEM_FWD, n_blocks)
+                  : max_blocks(PP_NAME(ray_march_fwd_kernel), SMEM_FWD, n_blocks));
 }
 
 extern "C" int ray_march_bwd_max_blocks(int save, int* n_blocks) {
-  return int(save ? max_blocks(ray_march_load_bwd_kernel, SMEM_BWD, n_blocks)
-                  : max_blocks(ray_march_bwd_kernel, SMEM_BWD, n_blocks));
+  return int(save ? max_blocks(PP_NAME(ray_march_load_bwd_kernel), SMEM_BWD, n_blocks)
+                  : max_blocks(PP_NAME(ray_march_bwd_kernel), SMEM_BWD, n_blocks));
 }
 
 // Bytes a point of the save mode's activation stash (act_layout).
 extern "C" int ray_march_act_bytes(int n_sdf, int n_color, int n_relight) {
-  return act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}).bytes;
+  return act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}, PP_PREC).bytes;
 }
 
 extern "C" int ray_march_rays_per_group(int S, int fwd) {
@@ -591,7 +625,7 @@ extern "C" int ray_march_fwd_launch(
   m.act = static_cast<unsigned char*>(act);
   m.net.scratch = scratch;
   m.scratch_floats = fwd_scratch_floats(n_sdf);
-  auto kernel = act != nullptr ? ray_march_save_fwd_kernel : ray_march_fwd_kernel;
+  auto kernel = act != nullptr ? PP_NAME(ray_march_save_fwd_kernel) : PP_NAME(ray_march_fwd_kernel);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_FWD));
   if (e != cudaSuccess) return int(e);
@@ -625,7 +659,7 @@ extern "C" int ray_march_bwd_launch(
   m.n_grad = n_grad;
   m.net.scratch = scratch;
   m.scratch_floats = march_bwd_scratch_floats(shape_of(m.net), S, dw_batch);
-  auto kernel = act != nullptr ? ray_march_load_bwd_kernel : ray_march_bwd_kernel;
+  auto kernel = act != nullptr ? PP_NAME(ray_march_load_bwd_kernel) : PP_NAME(ray_march_bwd_kernel);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_BWD));
   if (e != cudaSuccess) return int(e);
@@ -634,6 +668,8 @@ extern "C" int ray_march_bwd_launch(
 }
 
 extern "C" int ray_march_n_off() { return N_OFF; }
+
+extern "C" int ray_march_prec() { return PP_PREC; }
 
 extern "C" const char* ray_march_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

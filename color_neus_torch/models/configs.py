@@ -46,13 +46,23 @@ which the port's chunked grid does not read).
 
 The point-pipeline and march kernels (fused_core / fused_march on, the
 vertex colours, the validation render) compute the TPU kernels'
-production arithmetic of the default MARCH_BWD_PRECISION f32stash: bf16
-products with f32 sums, f32 gates and stores, layer 0's weight grad in
-hi + lo bf16 passes (ops/kernels/point_pipeline.py, bf16=True). Their
-positional encoding is exact f32, which is JAX's THIN_DOTS vpu
-arithmetic; the default THIN_DOTS hilo splits the phase's operand into two
-bf16 passes instead, within 2^-17 of it. MARCH_BWD_PRECISION f32 and bf16
-and THIN_DOTS other than hilo raise NotImplementedError (ROADMAP).
+production arithmetic (ops/kernels/point_pipeline.py, bf16=True): the
+colour and relight nets in bf16 products with f32 sums, the SDF chain in
+the arithmetic march_bwd_precision names (JAX's knob, all three values):
+  f32stash  (default) bf16 SDF products, f32 gates and stores, layer 0's
+            weight grad in hi + lo bf16 passes;
+  bf16      as f32stash, but the SDF chain's stores in bf16: the
+            backward's tangent pre-gates, and the save mode's stash of the
+            SDF layer outputs (half its SDF bytes), whose gates the load
+            rebuilds from the bf16 values;
+  f32       every SDF product (value, gradient and second-order chain,
+            the SDF weight grads) in exact f32 on unrounded SDF weights.
+Each value runs its own instantiation of the kernels (their _bf16s /
+_f32s entries). Their positional encoding is exact f32, which is JAX's
+THIN_DOTS vpu arithmetic (and what JAX's f32 mode uses); the default
+THIN_DOTS hilo splits the phase's operand into two bf16 passes instead,
+within 2^-17 of it. THIN_DOTS other than hilo raises NotImplementedError
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -141,6 +151,9 @@ class RendererConfig:
     sweep_dtype: str = "bfloat16"
     # activation of the placement sweeps: softplus (reference) or relu
     sweep_activation: str = "softplus"
+    # the SDF chain's arithmetic in the fused kernels: f32stash | bf16 | f32
+    # (the module note)
+    march_bwd_precision: str = "f32stash"
     # mesh-extraction grid-SDF dot type (ops/mesh.py): f32 | bf16
     extract_precision: str = "f32"
     # sparse (coarse-to-fine) mesh extraction
@@ -160,6 +173,7 @@ class RendererConfig:
             "fused_core": ("auto", "on", "off"),
             "fused_march": ("auto", "on", "off"),
             "march_acts": ("auto", "save", "recompute"),
+            "march_bwd_precision": ("bf16", "f32stash", "f32"),
             "extract_precision": ("f32", "f32x3", "bf16"),
         }
         for name, allowed in _enums.items():
@@ -181,7 +195,7 @@ class RendererConfig:
 # kernels, ray chunking and the compute dtype of the render core
 _UNPORTED_KEYS = {
     "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512,
-    "MARCH_TILE": 0, "MARCH_BWD_PRECISION": "f32stash", "THIN_DOTS": "hilo",
+    "MARCH_TILE": 0, "THIN_DOTS": "hilo",
 }
 
 
@@ -226,6 +240,7 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
         fused_march=_switch(rcfg, "FUSED_MARCH"),
         march_acts=_lower_get(rcfg, "MARCH_ACTS", "auto"),
         march_stash_budget_gb=_lower_get(rcfg, "MARCH_STASH_BUDGET_GB", 13.5),
+        march_bwd_precision=_lower_get(rcfg, "MARCH_BWD_PRECISION", "f32stash"),
         sweep_dtype=_lower_get(rcfg, "SWEEP_DTYPE", "bfloat16"),
         sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
         extract_precision=_lower_get(rcfg, "EXTRACT_PRECISION", "f32"),

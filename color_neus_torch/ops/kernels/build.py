@@ -4,8 +4,10 @@ Each kernel source color_neus_torch/csrc/<name>.cu has a plain C
 interface and is compiled at first use for Hopper (sm_90a) into
 color_neus_torch/_build/ (git-ignored), keyed by a hash of the source,
 the shared headers (csrc/*.cuh) and the flags, so a changed source
-rebuilds and an unchanged one loads at once. Nothing is built when a module is imported, and a failed build
-raises with nvcc's output: there is no fallback.
+rebuilds and an unchanged one loads at once. A name in VARIANTS is a
+second library of another name's source, built with extra flags. Nothing
+is built when a module is imported, and a failed build raises with nvcc's
+output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# libraries built from another name's source with extra flags: the
+# point-pipeline and march kernels of each non-default MARCH_BWD_PRECISION
+# mode (csrc/point_pipeline_tile.cuh PP_PREC), named by the mode's suffix
+VARIANTS = {f"{src}{suffix}": (src, (f"-DPP_PREC={prec}",))
+            for src in ("point_pipeline", "ray_march")
+            for prec, suffix in ((1, "_bf16s"), (2, "_f32s"))}
 
 
 def nvcc_path() -> str:
@@ -38,9 +46,13 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
+
+
 def _paths(name: str):
-    src = os.path.join(CSRC, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src = os.path.join(CSRC, f"{VARIANTS.get(name, (name,))[0]}.cu")
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     # the source and every shared header it may include
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
@@ -63,7 +75,7 @@ def build(names) -> dict[str, str]:
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc_path(), *_flags(name), "-o", tmp, src]
         procs.append((name, so, tmp, log, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []

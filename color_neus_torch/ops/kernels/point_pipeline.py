@@ -19,8 +19,11 @@ Forward, two implementations of one function:
     Runs for CPU tensors, and is what tests and chip_smoke.py compare the
     kernel against. Its `bf16` flag is the JAX kernels' own (bf16 = not
     interpret): True rounds every product's operands to bf16 and sums in
-    f32, the kernel's arithmetic and the TPU's production one; False (the
-    default) computes in f32, JAX's interpret arithmetic.
+    f32, the kernel's arithmetic and the TPU's production one, but for the
+    SDF chain, which follows rcfg.march_bwd_precision (_sdf_arith: f32
+    products on unrounded SDF weights in 'f32', bf16 stores in 'bf16');
+    False (the default) computes in f32, JAX's interpret arithmetic, in
+    which the three modes are one.
 fused_point_pipeline_fwd picks between them by the device of the
 tensors it is given, and by nothing else; no gradient flows through it.
 
@@ -64,11 +67,17 @@ EMB = 48      # the kernel's padded PE / small-input width
 MAXL = 16     # the kernel's most layers per network
 DW_BATCH = 8  # tiles whose weight grads a backward block sums on chip per read-modify-write
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_SQRT2 = math.sqrt(2.0)
 # slots of the kernel's offset table (csrc/point_pipeline.cu)
 W_SDF, WT_SDF, B_SDF, W_COL, B_COL, W_REL, B_REL, WT_COL, WT_REL = (i * MAXL for i in range(9))
 W_LAST, B_LAST, W_FEAT, B_FEAT, WT_FEAT = (9 * MAXL + i for i in range(5))
 N_OFF = 9 * MAXL + 5
-_MAX_BLOCKS: dict = {}   # (device, entry) -> blocks resident at once (sizes the scratch)
+_MAX_BLOCKS: dict = {}   # (device, mode, entry) -> blocks resident at once (sizes the scratch)
+# MARCH_BWD_PRECISION: each mode's kernels are their own instantiation, in
+# a library of their own (csrc/point_pipeline_tile.cuh Prec), whose
+# kernels carry the suffix
+MODES = ("f32stash", "bf16", "f32")
+SUFFIX = {"f32stash": "", "bf16": "_bf16s", "f32": "_f32s"}
 
 
 @dataclass
@@ -280,18 +289,30 @@ def _slabs(mat: torch.Tensor) -> torch.Tensor:
     return t[:, :, n[:, None], chunk].to(torch.bfloat16).reshape(-1)
 
 
+def _is_sdf_slot(slot: int) -> bool:
+    return W_SDF <= slot < W_SDF + MAXL or slot == W_FEAT
+
+
 def _pack_images(pw: PipelineWeights):
     """The kernels' wgmma weight slabs (csrc/point_pipeline_tile.cuh,
     wg_product) and their offset table in slabs: every 256-wide layer's
     [K, 256] block twice, in its forward slot (W_*: the transpose, rows the
     256 outputs, depth K) and in its reverse slot (WT_*: rows the layer's K
-    inputs, depth its 256 outputs)."""
+    inputs, depth its 256 outputs). In march_bwd_precision 'f32' the SDF
+    layers' (and the features') products run in f32 (f32_product): their
+    slots hold f32 row-major B operands instead, [K, 256] in the forward
+    slot and its transpose [256, K] in the reverse one (each a whole number
+    of slabs' bytes: K is 48, 256 or 304)."""
     _, wide = _layout(pw)
+    f32 = pw.rcfg.march_bwd_precision == "f32"
     ioff, pos, parts = np.zeros(N_OFF, np.int64), 0, []
     for w_slot, wt_slot, wp in wide:
         for slot, mat in ((w_slot, wp.T), (wt_slot, wp)):
             ioff[slot] = pos
-            parts.append(_slabs(mat.float()))
+            if f32 and _is_sdf_slot(w_slot):
+                parts.append(mat.T.float().contiguous().view(torch.bfloat16).reshape(-1))
+            else:
+                parts.append(_slabs(mat.float()))
             pos += parts[-1].numel() // (SLAB_ROWS * SLAB_K)
     return torch.cat(parts).contiguous(), ioff
 
@@ -448,7 +469,10 @@ class ActStash:
     """The activations the fused march's save mode keeps per point, what
     its forward kernel writes to the activation stash (csrc/
     point_pipeline_tile.cuh act_layout), in each net's own layout: sp, the
-    softplus of every hidden SDF layer (the inputs' dtype); cs, the hidden
+    softplus of every hidden SDF layer (the inputs' dtype; with bf16 in
+    march_bwd_precision 'bf16', the next layer's input as JAX stores it:
+    the softplus times 1/sqrt(2) before the skip layer, rounded to bf16);
+    cs, the hidden
     part of each colour layer's input (layer 0: the features); rs, each
     relight layer's from layer 1 on (the y_in layer without its gc); cs and
     rs in bf16 when bf16 (values rounded, the inputs' dtype kept); outs, the
@@ -480,22 +504,41 @@ def _operand(bf16: bool):
 
 def _rounded(pw: PipelineWeights, bf16: bool) -> PipelineWeights:
     """pw with every weight matrix rounded to bf16 when bf16 (JAX
-    cast_kernel_weights; the biases stay f32), else pw itself."""
+    cast_kernel_weights; the biases stay f32) but the SDF layers' in
+    march_bwd_precision 'f32', else pw itself."""
     if not bf16:
         return pw
-    return PipelineWeights(pw.rcfg, *[[(_bf16(w), b) for w, b in layers]
-                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    f32_sdf = pw.rcfg.march_bwd_precision == "f32"
+    return PipelineWeights(pw.rcfg, *[[(w if net == "sdf" and f32_sdf else _bf16(w), b)
+                                       for w, b in getattr(pw, net)]
+                                      for net in ("sdf", "color", "relight")])
+
+
+def _sdf_arith(rcfg: RendererConfig, bf16: bool):
+    """(operand rounding of the SDF chain's products, store rounding of its
+    tangent pre-gates): JAX's _sdf_bf / _sdf_store under
+    rcfg.march_bwd_precision. bf16 products unless 'f32'; bf16 stores in
+    'bf16' only; in f32 arithmetic (bf16 False) neither rounds."""
+    mode = rcfg.march_bwd_precision
+    keep = (lambda t: t)
+    return (_bf16 if bf16 and mode != "f32" else keep,
+            _bf16 if bf16 and mode == "bf16" else keep)
 
 
 def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: bool = False):
     """The plain forward, op for op the kernel's arithmetic (summed in
     another order): returns the five outputs and the _Stash. bf16: every
     product rounds its operands to bf16 and sums in pts' dtype, as the CUDA
-    kernels and the TPU kernels do (f32: JAX's interpret arithmetic)."""
+    kernels and the TPU kernels do (f32: JAX's interpret arithmetic), the
+    SDF chain's products as rcfg.march_bwd_precision says (_sdf_arith).
+    The layer inputs kept for the backward stay unrounded: JAX's bf16
+    mode stores them in bf16, but every reader takes them as a bf16
+    product operand, where that rounding is a no-op."""
     rcfg = pw.rcfg
     s = rcfg.sdf
     n = pts.shape[0]
     q = _operand(bf16)
+    sq, _ = _sdf_arith(rcfg, bf16)
     pw = _rounded(pw, bf16)
     x = pts * s.scale
     emb = positional_encoding(x, s.multires)
@@ -505,7 +548,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: b
         if l in s.skip_in:
             h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
         xs.append(h)
-        a = q(h) @ w.T + b
+        a = sq(h) @ w.T + b
         if l < len(pw.sdf) - 1:
             h, g = _softplus100_and_gate(a)
             gates.append(g)
@@ -518,7 +561,7 @@ def _forward(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, bf16: b
     p = pw.sdf[-1][0][0].expand(n, -1)
     for l in range(len(pw.sdf) - 1, -1, -1):
         if l < len(pw.sdf) - 1:
-            p = q(p * gates[l]) @ pw.sdf[l][0]
+            p = sq(p * gates[l]) @ pw.sdf[l][0]
         if l in s.skip_in:
             emb_g = emb_g + p[:, -d0:] * _INV_SQRT2
             p = p[:, :-d0] * _INV_SQRT2
@@ -575,27 +618,44 @@ def point_pipeline_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Ten
 
 def stash_activations(rcfg: RendererConfig, outs, st: _Stash, bf16: bool = False) -> ActStash:
     """The ActStash of a forward (_forward's outputs and _Stash): bf16
-    rounds the colour and relight parts, as the kernel stores them."""
+    rounds the colour and relight parts, as the kernel stores them, and in
+    march_bwd_precision 'bf16' the SDF part too (each hidden layer's
+    output as the next layer takes it: JAX's SX stash)."""
     keep = _bf16 if bf16 else (lambda t: t)
     y_in = rcfg.relight.y_in_layer
     cs = [keep(st.cs[0][:, -rcfg.color.d_feature:])] + [keep(c) for c in st.cs[1:]]
     rs = [keep(r[:, 3:] if l == y_in else r) for l, r in enumerate(st.rs) if l > 0]
-    return ActStash(list(st.sps), cs, rs, tuple(outs))
+    sp = list(st.sps)
+    if bf16 and rcfg.march_bwd_precision == "bf16":
+        sp = [_bf16(h * _INV_SQRT2 if l + 1 in rcfg.sdf.skip_in else h)
+              for l, h in enumerate(sp)]
+    return ActStash(sp, cs, rs, tuple(outs))
 
 
-def _unstash(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, a: ActStash):
+def _unstash(pw: PipelineWeights, pts: torch.Tensor, dirs: torch.Tensor, a: ActStash,
+             bf16: bool = False):
     """(outs, _Stash) from an ActStash, as the load kernel rebuilds them:
     the gates 1 - exp(-100 sp), the skip input [sp, PE] / sqrt(2), the PE
-    and the small inputs from the points, the y_in layer's gc from outs."""
+    and the small inputs from the points, the y_in layer's gc from outs.
+    With bf16 in march_bwd_precision 'bf16' the stash holds the layer
+    inputs in bf16 (stash_activations): the skip input is [x, PE /
+    sqrt(2)], and the gate's softplus x sqrt(2) there (JAX
+    unflatten_stash)."""
     rcfg = pw.rcfg
     s, c, r = rcfg.sdf, rcfg.color, rcfg.relight
     _, grad, gc, _, _ = a.outs
     x = pts * s.scale
     emb = positional_encoding(x, s.multires)
     xs, gates = [emb], []
+    stored16 = bf16 and rcfg.march_bwd_precision == "bf16"
     for l, sp in enumerate(a.sp):
+        skip = l + 1 in s.skip_in
+        if stored16:
+            gates.append(1.0 - torch.exp(-100.0 * (sp * _SQRT2 if skip else sp)))
+            xs.append(torch.cat([sp, emb * _INV_SQRT2], dim=-1) if skip else sp)
+            continue
         gates.append(1.0 - torch.exp(-100.0 * sp))
-        xs.append(torch.cat([sp, emb], dim=-1) * _INV_SQRT2 if l + 1 in s.skip_in else sp)
+        xs.append(torch.cat([sp, emb], dim=-1) * _INV_SQRT2 if skip else sp)
     if c.mode == "idr":
         small = [pts, positional_encoding(dirs, c.multires_view), grad]
     else:
@@ -620,16 +680,20 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
     (bf16 = not interpret, f32stash): every product rounds its operands to
     bf16 and sums in pts' dtype, but for layer 0's weight grad, whose f32
     operands (the PE and the tangent seed) go in as hi + lo bf16 pairs, and
-    the last layer's rank-1 tangent term, summed in f32. stash: the save
+    the last layer's rank-1 tangent term, summed in f32; the SDF chain as
+    rcfg.march_bwd_precision says (_sdf_arith: 'bf16' rounds the stored
+    tangent pre-gates z, 'f32' computes every SDF product, layer 0's
+    weight grad included, in f32 on unrounded SDF weights). stash: the save
     mode's (stash_activations of the forward on these points, with the
     same bf16), read instead of recomputing the forward (JAX's
     unflatten_stash + _mlp_pullback)."""
     rcfg = pw.rcfg
     s = rcfg.sdf
     q = _operand(bf16)
+    sq, zstore = _sdf_arith(rcfg, bf16)
     with torch.no_grad():
         (_, _, gc, relit, delta), st = (_forward(pw, pts, dirs, bf16) if stash is None
-                                        else _unstash(pw, pts, dirs, stash))
+                                        else _unstash(pw, pts, dirs, stash, bf16))
         pw = _rounded(pw, bf16)
         sdf_hat, grad_hat, gc_hat, relit_hat, delta_hat = cotangents
         pts_hat = torch.zeros_like(pts)
@@ -705,14 +769,15 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
             if l in s.skip_in:
                 v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
             us.append(v)
-            zs.append(q(v) @ pw.sdf[l][0].T)
-            v = st.gates[l] * zs[-1]
+            z = sq(v) @ pw.sdf[l][0].T
+            zs.append(zstore(z))
+            v = st.gates[l] * z
         if L - 1 in s.skip_in:
             v = torch.cat([v, v0], dim=-1) * _INV_SQRT2
         # last layer: value cotangent ybar, tangent cotangent inv_scale e0
         w_last = pw.sdf[-1][0]
         ybar = torch.cat([sdf_hat * inv_scale, feat_hat], dim=-1)
-        dw = q(ybar).T @ q(st.xs[-1])
+        dw = sq(ybar).T @ sq(st.xs[-1])
         dw[0] += inv_scale * v.sum(dim=0)
         grads["sdf"][L - 1] = (dw, ybar.sum(dim=0))
         emb_hat = torch.zeros_like(slopes)
@@ -727,18 +792,19 @@ def point_pipeline_bwd_plain(pw: PipelineWeights, pts: torch.Tensor, dirs: torch
             return hbar, ubar
 
         # ubar: JAX multiplies its bf16 weight row by 1/scale cast to bf16,
-        # in bf16
-        inv_s = q(torch.tensor(inv_scale, dtype=pts.dtype, device=pts.device))
-        hbar, ubar = split(L - 1, q(ybar) @ w_last, q(inv_s * w_last[0]).expand(pts.shape[0], -1))
+        # in bf16 (in 'f32' its f32 row by 1/scale, in f32)
+        inv_s = sq(torch.tensor(inv_scale, dtype=pts.dtype, device=pts.device))
+        hbar, ubar = split(L - 1, sq(ybar) @ w_last,
+                           sq(inv_s * w_last[0]).expand(pts.shape[0], -1))
         for l in range(L - 2, -1, -1):
             g, z = st.gates[l], zs[l]
             abar = g * hbar + (ubar * z) * (100.0 * g * (1.0 - g))
             zbar = g * ubar
-            xq = _hilo if bf16 and l == 0 else q
-            grads["sdf"][l] = (q(abar).T @ xq(st.xs[l]) + q(zbar).T @ xq(us[l]),
+            xq = _hilo if bf16 and l == 0 and rcfg.march_bwd_precision != "f32" else sq
+            grads["sdf"][l] = (sq(abar).T @ xq(st.xs[l]) + sq(zbar).T @ xq(us[l]),
                                abar.sum(dim=0))
             w = pw.sdf[l][0]
-            hbar, ubar = split(l, q(abar) @ w, q(zbar) @ w)
+            hbar, ubar = split(l, sq(abar) @ w, sq(zbar) @ w)
         emb_hat = emb_hat + hbar
         v0_hat = v0_hat + ubar
 
@@ -757,8 +823,8 @@ def _check(name, t, n, device, width=3):
                          f"on {t.device}")
 
 
-def _max_blocks(lib, dev, entry: str) -> int:
-    key = (dev, entry)
+def _max_blocks(lib, dev, mode: str, entry: str) -> int:
+    key = (dev, mode, entry)
     if key not in _MAX_BLOCKS:
         nb = ctypes.c_int(0)
         with torch.cuda.device(dev):
@@ -813,16 +879,39 @@ def _check_inputs(pw: PipelineWeights, pts, dirs):
     return n, dev
 
 
+class ModeLaunches:
+    """The launch count of one non-default MARCH_BWD_PRECISION mode's
+    kernel (its library's instantiation): launchers() lists it beside its
+    wrapper, whose own .launches counts the f32stash kernel's."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _mode(pw: PipelineWeights) -> str:
+    return pw.rcfg.march_bwd_precision
+
+
+def _counter(wrapper, pw: PipelineWeights):
+    """The count of the kernel `wrapper` launches for pw's mode."""
+    return wrapper if _mode(pw) == "f32stash" else wrapper.modes[_mode(pw)]
+
+
+def mode_counters(wrapper) -> dict:
+    """{mode: the launch count of its kernel} of a wrapper."""
+    return {"f32stash": wrapper, **wrapper.modes}
+
+
 def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
-    """Launch the forward kernel on the current stream; returns [N, 16]:
-    sdf, grad, gc, relit, delta, 0, 0, 0."""
+    """Launch the forward kernel of pw's march_bwd_precision on the current
+    stream; returns [N, 16]: sdf, grad, gc, relit, delta, 0, 0, 0."""
     n, dev = _check_inputs(pw, pts, dirs)
-    lib = _library()
+    lib = _library(_mode(pw))
     tables, images, net = _net_args(pw)
     out = torch.empty((n, 16), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    grid = min(-(-n // lib.point_pipeline_fwd_rows()), _max_blocks(lib, dev, "fwd"))
+    grid = min(-(-n // lib.point_pipeline_fwd_rows()), _max_blocks(lib, dev, _mode(pw), "fwd"))
     # per block: the gates of the n_sdf - 1 hidden layers and the features of a tile
     scratch = torch.empty(grid * lib.point_pipeline_fwd_scratch_floats(net[0]),
                           dtype=torch.float32, device=dev)
@@ -832,11 +921,12 @@ def launch_point_pipeline(pw: PipelineWeights, pts, dirs) -> torch.Tensor:
             pts.data_ptr(), dirs.data_ptr(), pw.packed.data_ptr(), images.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), n, grid, *net, stream)
     _raise_on(lib, rc, "kernel launch")
-    launch_point_pipeline.launches += 1
+    _counter(launch_point_pipeline, pw).launches += 1
     return out
 
 
 launch_point_pipeline.launches = 0
+launch_point_pipeline.modes = {"bf16": ModeLaunches(), "f32": ModeLaunches()}
 
 
 def reduce_partials(partial: torch.Tensor) -> torch.Tensor:
@@ -858,16 +948,17 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
     """Launch the backward kernel and the reduction on the current stream.
     gbar [N, 16]: the cotangents of sdf, grad, gc, relit, delta in the
     forward kernel's output lanes. Returns (pts_hat [N,3], dirs_hat [N,3],
-    the weight grads [n_grad] in the packed layout: _unpack_grads)."""
+    the weight grads [n_grad] in the packed layout: _unpack_grads). The
+    kernel is pw's march_bwd_precision's."""
     n, dev = _check_inputs(pw, pts, dirs)
     _check("gbar", gbar, n, dev, 16)
-    lib = _library()
+    lib = _library(_mode(pw))
     pts_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     dirs_hat = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return pts_hat, dirs_hat, torch.zeros(pw.n_grad, dtype=torch.float32, device=dev)
     n_tiles = -(-n // 64)
-    grid = min(n_tiles, _max_blocks(lib, dev, "bwd"))
+    grid = min(n_tiles, _max_blocks(lib, dev, _mode(pw), "bwd"))
     batch = dw_batch(n_tiles, grid)
     tables, images, net = _net_args(pw)
     # per block: the recompute's gates, tangent stream and colour / relight
@@ -883,16 +974,23 @@ def launch_point_pipeline_bwd(pw: PipelineWeights, pts, dirs, gbar):
             images.data_ptr(), pts_hat.data_ptr(), dirs_hat.data_ptr(),
             partial.data_ptr(), scratch.data_ptr(), n, grid, pw.n_grad, batch, *net, stream)
     _raise_on(lib, rc, "backward kernel launch")
-    launch_point_pipeline_bwd.launches += 1
+    _counter(launch_point_pipeline_bwd, pw).launches += 1
     return pts_hat, dirs_hat, reduce_partials(partial)
 
 
 launch_point_pipeline_bwd.launches = 0
+launch_point_pipeline_bwd.modes = {"bf16": ModeLaunches(), "f32": ModeLaunches()}
 
 
-def _library():
+def library_name(kernel: str, mode: str) -> str:
+    """The library of `kernel`'s march_bwd_precision `mode` (build.VARIANTS)."""
+    return kernel + SUFFIX[mode]
+
+
+def _library(mode: str = "f32stash"):
+    """The loaded library of a march_bwd_precision mode's kernels."""
     from color_neus_torch.ops.kernels import build
-    lib = build.load(KERNEL)
+    lib = build.load(library_name(KERNEL, mode))
     if lib.point_pipeline_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
@@ -912,8 +1010,11 @@ def _library():
         lib.point_pipeline_fwd_scratch_floats.restype = ll
         lib.point_pipeline_error_string.argtypes = [i]
         lib.point_pipeline_error_string.restype = ctypes.c_char_p
+        lib.point_pipeline_prec.restype = i
         if lib.point_pipeline_n_off() != N_OFF:
             raise RuntimeError("point_pipeline: the kernel's offset table does not match")
+        if lib.point_pipeline_prec() != MODES.index(mode):
+            raise RuntimeError(f"point_pipeline: the {mode} library computes another mode")
     return lib
 
 

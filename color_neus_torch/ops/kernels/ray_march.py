@@ -33,7 +33,10 @@ Backward (the VJP of the [R, 16] output), likewise:
     the plain stash, no recompute).
 Both plain versions run on any device and in float64 as well, and take
 the point pipeline's `bf16` flag (True: the kernels' bf16 products and
-stash stores). RayMarchFunction is the autograd Function: the device of
+stash stores, the SDF chain's in the weights' march_bwd_precision). Each
+kernel launches the instantiation of that mode (its library
+point_pipeline.library_name; its own launch count per mode,
+point_pipeline.mode_counters). RayMarchFunction is the autograd Function: the device of
 the tensors alone picks the kernels or the plain versions, the resolved
 mode the recompute or the save pair; fused_ray_march resolves the weight
 norm and the mode outside it.
@@ -57,7 +60,7 @@ KERNEL = "ray_march"
 STASH = 8          # per point in the forward's stash (both modes): sdf, grad (3), relit (3),
                    # delta sum; the save mode adds the activation stash (act_bytes)
 STASH_BUDGET_GB = 13.5   # the device memory 'auto' lets the save mode's stashes take (JAX's)
-_MAX_BLOCKS: dict = {}   # (device, entry, save) -> blocks resident at once (sizes the scratch)
+_MAX_BLOCKS: dict = {}   # (device, mode, entry, save) -> blocks resident at once
 
 
 def march_points(rays_o, rays_d, z, sample_dist: float):
@@ -227,14 +230,17 @@ def march_macs_per_point(pw: PP.PipelineWeights, save: bool = False):
     its reverse sweep, colour, relight); the backward dW and xbar of every
     colour and relight layer, the SDF tangent stream, dW and xbar of the
     last SDF layer, two dW and two xbar products per hidden SDF layer, the
-    second (lo) bf16 pass of layer 0's two dW products, and, unless save
-    (the save mode loads the activations), one recompute of the forward."""
+    second (lo) bf16 pass of layer 0's two dW products (but in
+    march_bwd_precision 'f32', whose SDF products are f32), and, unless
+    save (the save mode loads the activations), one recompute of the
+    forward."""
     def macs(layers):
         return sum(w.shape[0] * w.shape[1] for w, _ in layers)
     hidden = macs(pw.sdf[:-1])
+    lo = 0 if pw.rcfg.march_bwd_precision == "f32" else 2 * macs(pw.sdf[:1])
     fwd = macs(pw.sdf) + hidden + macs(pw.color) + macs(pw.relight)
     pull = 2 * (macs(pw.color) + macs(pw.relight)) + hidden + 2 * macs(pw.sdf[-1:]) \
-        + 4 * hidden + 2 * macs(pw.sdf[:1])
+        + 4 * hidden + lo
     return fwd, pull + (0 if save else fwd)
 
 
@@ -248,10 +254,12 @@ def _net_counts(net) -> tuple:
 def act_bytes(net) -> int:
     """Bytes a point of the save mode's activation stash, the kernel's
     layout (csrc/point_pipeline_tile.cuh act_layout): the softplus of every
-    hidden SDF layer in f32, 256 wide; the features and the colour / relight
+    hidden SDF layer, 256 wide, in f32 (in bf16 under march_bwd_precision
+    'bf16', JAX's march_stash_bytes); the features and the colour / relight
     hidden layers' outputs in bf16, 256 wide; 8 f32."""
     n_sdf, n_color, n_relight = _net_counts(net)
-    return (n_sdf - 1) * PP.HID * 4 + (n_color + max(n_relight - 1, 0)) * PP.HID * 2 + 32
+    sx = 2 if getattr(net, "rcfg", net).march_bwd_precision == "bf16" else 4
+    return (n_sdf - 1) * PP.HID * sx + (n_color + max(n_relight - 1, 0)) * PP.HID * 2 + 32
 
 
 def march_stash_bytes(net, n_pts: int) -> int:
@@ -280,9 +288,10 @@ def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -
     return march_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
 
 
-def _library():
+def _library(mode: str = "f32stash"):
+    """The loaded library of a march_bwd_precision mode's kernels."""
     from color_neus_torch.ops.kernels import build
-    lib = build.load(KERNEL)
+    lib = build.load(PP.library_name(KERNEL, mode))
     if lib.ray_march_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
@@ -302,8 +311,11 @@ def _library():
             fn.restype = ll
         lib.ray_march_error_string.argtypes = [i]
         lib.ray_march_error_string.restype = ctypes.c_char_p
+        lib.ray_march_prec.restype = i
         if lib.ray_march_n_off() != PP.N_OFF:
             raise RuntimeError("ray_march: the kernel's offset table does not match")
+        if lib.ray_march_prec() != PP.MODES.index(mode):
+            raise RuntimeError(f"ray_march: the {mode} library computes another mode")
     return lib
 
 
@@ -313,8 +325,8 @@ def _raise_on(lib, rc, what):
                            f"({lib.ray_march_error_string(rc).decode()})")
 
 
-def _max_blocks(lib, dev, entry: str, save: bool) -> int:
-    key = (dev, entry, save)
+def _max_blocks(lib, dev, mode: str, entry: str, save: bool) -> int:
+    key = (dev, mode, entry, save)
     if key not in _MAX_BLOCKS:
         nb = ctypes.c_int(0)
         with torch.cuda.device(dev):
@@ -358,7 +370,7 @@ def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
     stream: (out [R, 16], the stash [R S, 8] its backward reads, the
     activation stash [R S, act_bytes] uint8 or None)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
-    lib = _library()
+    lib = _library(PP._mode(pw))
     tables, images, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
@@ -366,7 +378,7 @@ def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
         else None
     if R == 0:
         return out, stash, act
-    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, "fwd", save))
+    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, PP._mode(pw), "fwd", save))
     scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0]), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
@@ -384,11 +396,12 @@ def launch_ray_march(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_di
     """Launch the forward kernel on the current stream; returns (out [R,
     16], the stash [R S, 8] its backward reads)."""
     out, stash, _ = _fwd(pw, rays_o, rays_d, z, inv_s, sample_dist, False)
-    launch_ray_march.launches += 1
+    PP._counter(launch_ray_march, pw).launches += 1
     return out, stash
 
 
 launch_ray_march.launches = 0
+launch_ray_march.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches()}
 
 
 def launch_ray_march_save(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
@@ -397,11 +410,12 @@ def launch_ray_march_save(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
     returns (out [R, 16], the stash [R S, 8], the activation stash [R S,
     act_bytes] uint8), which launch_ray_march_bwd_load reads."""
     out = _fwd(pw, rays_o, rays_d, z, inv_s, sample_dist, True)
-    launch_ray_march_save.launches += 1
+    PP._counter(launch_ray_march_save, pw).launches += 1
     return out
 
 
 launch_ray_march_save.launches = 0
+launch_ray_march_save.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches()}
 
 
 def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, stash, act,
@@ -411,7 +425,7 @@ def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     PP._check("stash", stash, R * S, dev, STASH)
     PP._check("gbar", gbar, R, dev, 16)
-    lib = _library()
+    lib = _library(PP._mode(pw))
     save = act is not None
     if save and (act.dtype != torch.uint8 or not act.is_contiguous() or act.device != dev
                  or tuple(act.shape) != (R * S, _act_bytes(lib, pw))):
@@ -423,7 +437,7 @@ def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
             torch.zeros(pw.n_grad, device=dev)
     groups = _groups(lib, R, S, False)
-    grid = min(groups, _max_blocks(lib, dev, "bwd", save))
+    grid = min(groups, _max_blocks(lib, dev, PP._mode(pw), "bwd", save))
     G = lib.ray_march_rays_per_group(S, 0)
     batch = PP.dw_batch(-(-groups // grid) * -(-G * S // 64), 1)
     tables, images, net = PP._net_args(pw)
@@ -454,11 +468,12 @@ def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sampl
     (rays_o_hat [R,3], rays_d_hat [R,3], inv_s_hat [1], the weight grads
     [n_grad] in the packed layout: point_pipeline._unpack_grads)."""
     out = _bwd(pw, rays_o, rays_d, z, inv_s, sample_dist, stash, None, gbar)
-    launch_ray_march_bwd.launches += 1
+    PP._counter(launch_ray_march_bwd, pw).launches += 1
     return out
 
 
 launch_ray_march_bwd.launches = 0
+launch_ray_march_bwd.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches()}
 
 
 def launch_ray_march_bwd_load(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
@@ -468,11 +483,12 @@ def launch_ray_march_bwd_load(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
     stash, act: launch_ray_march_save's on the same inputs; returns as
     launch_ray_march_bwd."""
     out = _bwd(pw, rays_o, rays_d, z, inv_s, sample_dist, stash, act, gbar)
-    launch_ray_march_bwd_load.launches += 1
+    PP._counter(launch_ray_march_bwd_load, pw).launches += 1
     return out
 
 
 launch_ray_march_bwd_load.launches = 0
+launch_ray_march_bwd_load.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches()}
 
 
 class RayMarchFunction(torch.autograd.Function):

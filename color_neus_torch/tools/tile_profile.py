@@ -124,7 +124,7 @@ def profile() -> int:
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * 32)()
     lib.prof_read(ctypes.cast(buf, ctypes.c_void_p))
-    blocks = PP._max_blocks(lib, device, "fwd")
+    blocks = PP._max_blocks(lib, device, "f32stash", "fwd")
     total = buf[19]
     for i, name in enumerate(NAMES):
         print(f"{name:30s} {buf[i] / blocks:12.0f} cycles per block {buf[i] / total * 100:7.2f}%")

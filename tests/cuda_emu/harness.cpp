@@ -7,7 +7,9 @@
 // backward kernel block after block, the weight-grad partials summed over
 // the blocks in index order as the reduction kernel does; writes out.f32,
 // pts_hat.f32, dirs_hat.f32 and grad.f32 to DIR. The scratch starts as
-// garbage, so a read of a slot the kernel did not write shows.
+// garbage, so a read of a slot the kernel did not write shows. Compiled
+// with -DPP_PREC=<mode>, it runs that MARCH_BWD_PRECISION mode's kernels
+// (PP_NAME; tests/test_torch_bwd_precision_emulated.py).
 #include <cstdio>
 #include <string>
 #include <thread>
@@ -59,7 +61,7 @@ int main(int argc, char** argv) {
   std::vector<float> out(n * 16), pts_hat(n * 3), dirs_hat(n * 3);
   std::vector<float> partial(size_t(blocks) * n_grad, 0.f);
   std::vector<float> scratch_fwd(size_t(blocks) * fwd_scratch_floats(p.n_sdf), 12345.f);
-  std::vector<float> scratch_bwd(size_t(blocks) * bwd_scratch_floats(shape_of(p), batch),
+  std::vector<float> scratch_bwd(size_t(blocks) * bwd_scratch_floats(shape_of(p), batch, PP_PREC),
                                   12345.f);
   gridDim.x = blocks;
   emu_smem_base = smem;
@@ -85,8 +87,8 @@ int main(int argc, char** argv) {
       for (int t = 0; t < THREADS; ++t)
         threads.emplace_back([&q, pass, t] {
           threadIdx.x = t;
-          if (pass == 0) point_pipeline_fwd_kernel(q);
-          else point_pipeline_bwd_kernel(q);
+          if (pass == 0) PP_NAME(point_pipeline_fwd_kernel)(q);
+          else PP_NAME(point_pipeline_bwd_kernel)(q);
         });
       for (auto& th : threads) th.join();
     }

@@ -11,7 +11,9 @@
 // over the blocks in index order as the reduction kernel does; writes
 // out.f32, stash.f32, rays_hat.f32 and grad.f32 (the packed weight grads,
 // then inv_s's) to DIR. The scratch starts as garbage, so a read of a slot
-// the kernel did not write shows.
+// the kernel did not write shows. Compiled with -DPP_PREC=<mode>, it runs
+// that MARCH_BWD_PRECISION mode's kernels (PP_NAME;
+// tests/test_torch_bwd_precision_emulated.py).
 #include <cstdio>
 #include <string>
 #include <thread>
@@ -67,7 +69,7 @@ int main(int argc, char** argv) {
   const March base = march(false);
   std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
   std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
-  const int act_bytes = act_layout(shape_of(base.net)).bytes;
+  const int act_bytes = act_layout(shape_of(base.net), PP_PREC).bytes;
   std::vector<unsigned char> act(save ? size_t(R) * S * act_bytes : 0, 0xAB);
   const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
   const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch);
@@ -100,8 +102,8 @@ int main(int argc, char** argv) {
       for (int t = 0; t < THREADS; ++t)
         threads.emplace_back([&q, pass, save, t] {
           threadIdx.x = t;
-          if (pass == 0) save ? ray_march_save_fwd_kernel(q) : ray_march_fwd_kernel(q);
-          else save ? ray_march_load_bwd_kernel(q) : ray_march_bwd_kernel(q);
+          if (pass == 0) save ? PP_NAME(ray_march_save_fwd_kernel)(q) : PP_NAME(ray_march_fwd_kernel)(q);
+          else save ? PP_NAME(ray_march_load_bwd_kernel)(q) : PP_NAME(ray_march_bwd_kernel)(q);
         });
       for (auto& th : threads) th.join();
     }

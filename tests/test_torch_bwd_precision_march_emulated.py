@@ -1,0 +1,145 @@
+"""The MARCH_BWD_PRECISION instantiations of the fused march (csrc/ray_march.cu
+built with PP_PREC 1, 'bf16', and 2, 'f32'), compiled for the CPU and held
+against their plain twins in the same mode: the recompute pair and the
+save pair (its activation stash segment by segment: 'bf16' stores the SDF
+part in bf16, the next layer's input, within one bf16 ulp of the twin's),
+as tests/test_torch_ray_march_emulated.py holds f32stash, on its 128-sample
+Color-NeuS ray and 100-sample NeuS rays; the SDF lanes and stash of 'f32' within
+RTOL_F32. The sources are built by
+tests/test_torch_bwd_precision_emulated.py's _compile (the harness
+tests/cuda_emu/harness_march.cpp). Skips without a C++20 compiler."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from chip_smoke import relu_margin
+from color_neus_torch import pin_precision
+from color_neus_torch.models.configs import ColorConfig, RendererConfig
+from color_neus_torch.models.fields import variance_inv_s
+from color_neus_torch.models.neus import init_renderer
+from color_neus_torch.ops.kernels import point_pipeline as PP
+from color_neus_torch.ops.kernels import ray_march as RM
+from tests import test_torch_ray_march_emulated as EM
+from tests.test_torch_bwd_precision_emulated import PREC, RTOL_BF16, RTOL_F32, _compile
+
+pin_precision()
+
+
+@pytest.fixture(scope="module")
+def march_emulators(tmp_path_factory):
+    return {mode: _compile(tmp_path_factory.mktemp(f"emu_rm_{mode}"), "ray_march",
+                           "harness_march.cpp", mode) for mode in PREC}
+
+
+def _act_segments(act, pw):
+    """The activation stash's rows in the mode's layout as float32: (the
+    SDF part [N, n_sdf - 1, 256], the bf16 slots, the tail [N, 8])."""
+    n_sdf, n_color, n_relight = RM._net_counts(pw)
+    n, hid = act.shape[0], PP.HID
+    sxb = 2 if pw.rcfg.march_bwd_precision == "bf16" else 4
+
+    def bf16(a):
+        return (a.copy().view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    sx_end = (n_sdf - 1) * hid * sxb
+    sx = act[:, :sx_end]
+    sx = bf16(sx) if sxb == 2 else sx.copy().view(np.float32)
+    n_cr = n_color + max(n_relight - 1, 0)
+    cr_end = sx_end + n_cr * hid * 2
+    cr = bf16(act[:, sx_end:cr_end]).reshape(n, n_cr, hid)
+    tail = act[:, cr_end:].copy().view(np.float32)
+    return (torch.from_numpy(sx.reshape(n, n_sdf - 1, hid)), torch.from_numpy(cr),
+            torch.from_numpy(tail))
+
+
+def _check_act(act, pw, pts, dirs):
+    """The emulated stash against the twin's values: the bf16 parts within
+    one bf16 ulp of the unrounded value plus RTOL_BF16 of their largest,
+    the f32 ones within RTOL_BF16 (RTOL_F32 in 'f32') of their largest."""
+    outs, st = PP._forward(pw, pts, dirs, True)
+    want = PP.stash_activations(pw.rcfg, outs, st, bf16=False)
+    sx, cr, tail = _act_segments(act, pw)
+    skip = pw.rcfg.sdf.skip_in
+    sx16 = pw.rcfg.march_bwd_precision == "bf16"
+    for l, sp in enumerate(want.sp):
+        if sx16:   # the next layer's input, times 1/sqrt(2) before the skip
+            v = sp * PP._INV_SQRT2 if l + 1 in skip else sp
+            err = (sx[:, l, :v.shape[1]] - v).abs()
+            tol = 2.0 ** -8 * v.abs() + RTOL_BF16 * float(v.abs().max())
+            assert bool((err <= tol).all()), f"stash sdf {l}: {float((err - tol).max()):.3e}"
+        else:
+            limit = RTOL_F32 if pw.rcfg.march_bwd_precision == "f32" else RTOL_BF16
+            assert EM._rel(sx[:, l, :sp.shape[1]], sp) <= limit, f"stash sp {l}"
+    for j, v in enumerate(want.cs + want.rs):
+        err = (cr[:, j, :v.shape[1]] - v).abs()
+        tol = 2.0 ** -8 * v.abs() + RTOL_BF16 * float(v.abs().max())
+        assert bool((err <= tol).all()), f"stash bf16 slot {j}: {float((err - tol).max()):.3e}"
+    for name, (a, b), x in (("gc", (0, 3), outs[2]), ("delta", (3, 6), outs[4])):
+        assert EM._rel(tail[:, a:b], x) <= RTOL_BF16 or float(x.abs().max()) == 0.0, \
+            f"tail {name}"
+    assert float(tail[:, 6:].abs().max()) == 0.0
+
+
+MARCH_CASES = [EM.CASES[0], EM.CASES[1]]
+MARCH_IDS = [EM.IDS[0], EM.IDS[1]]
+
+
+@pytest.mark.parametrize("save", [False, True], ids=["recompute", "save"])
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", MARCH_CASES, ids=MARCH_IDS)
+@pytest.mark.parametrize("mode", list(PREC))
+def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, kind, R, S,
+                                              variance, noise, seed, save):
+    """The march's pair (save: the save pair, its stash too) in the mode
+    against the mode's twins, as tests/test_torch_ray_march_emulated.py
+    holds f32stash; 'f32' forward lanes of the SDF (the eikonal sums)
+    within RTOL_F32."""
+    color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
+             else ColorConfig())
+    rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
+    g = torch.Generator().manual_seed(seed)
+    params = init_renderer(rcfg, g)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.add_(noise * torch.randn(p.shape, generator=g))
+        params["variance"]["variance"].fill_(variance)
+    pw = PP.resolve_pipeline_weights(params, rcfg)
+    d = torch.randn((R, 3), generator=g)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    ro = (-1.4 * d + 0.1 * torch.randn((R, 3), generator=g)).contiguous()
+    rd = d.contiguous()
+    z = (0.5 + 1.8 * torch.sort(torch.rand((R, S), generator=g), dim=-1).values).contiguous()
+    inv_s = variance_inv_s(params["variance"]).detach().reshape(1)
+    sd = 2.0 / rcfg.n_samples
+    gbar = torch.randn((R, 16), generator=g)
+    gbar[:, 7:] = 0.0
+    dists, _, pts, dirs = RM.march_points(ro, rd, z, sd)
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > EM.MARGIN
+
+    res = EM._run(march_emulators[mode], tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar,
+                  blocks=2, save=save)
+    out, stash, rays_hat, s_hat, grads = res[:5]
+    if save:
+        _check_act(res[5], pw, pts, dirs)
+    outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
+    want = torch.cat([outs[0], outs[1], outs[3], outs[4].sum(dim=1, keepdim=True)], dim=1)
+    for name, (a, b) in (("sdf", (0, 1)), ("grad", (1, 4)), ("relit", (4, 7)), ("delta", (7, 8))):
+        limit = RTOL_F32 if mode == "f32" and name in ("sdf", "grad") else RTOL_BF16
+        assert EM._rel(stash[:, a:b], want[:, a:b]) <= limit, f"stash {name}"
+    plain_out = RM.ray_march_plain(pw, ro, rd, z, inv_s, sd, bf16=True)
+    for name, (a, b) in chip_smoke.MARCH_LANES.items():
+        limit = RTOL_F32 if mode == "f32" and name == "eikonal" else RTOL_BF16
+        assert EM._rel(out[:, a:b], plain_out[:, a:b]) <= limit, f"out {name}"
+    args64 = (ro.double(), rd.double(), z.double(), inv_s.double(), sd, gbar.double())
+    ref = RM.ray_march_bwd_plain(pw64, *args64, bf16=True)
+    plain = RM.ray_march_bwd_plain(pw, ro, rd, z, inv_s, sd, gbar, bf16=True)
+    EM._close(rays_hat[:, 0:3], plain[0], ref[0], "rays_o")
+    EM._close(rays_hat[:, 4:7], plain[1], ref[1], "rays_d")
+    EM._close(s_hat.reshape(1), plain[2].reshape(1), ref[2].reshape(1), "inv_s")
+    for net, layers in ref[3].items():
+        assert len(grads[net]) == len(layers)
+        for l, ((a, b), (pa, pb), (e, f)) in enumerate(zip(grads[net], plain[3][net], layers)):
+            EM._close(a, pa, e, f"{net} layer {l} W")
+            EM._close(b, pb, f, f"{net} layer {l} b")

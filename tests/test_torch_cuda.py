@@ -397,3 +397,48 @@ def test_cuda_captured_bundle_equals_uncaptured_steps(cuda_device):
     _, losses = loop.training_bundle()
     assert ms.replays == 2 and loop.state.step == step + BUNDLE
     assert tensors_distance(eager, dict(state_tensors(loop), losses=losses))[0] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_cuda_bwd_precision_modes(cuda_device, mode):
+    """MARCH_BWD_PRECISION's instantiations of rows 3-6 launch from their
+    own library and count under their own suffix; rows 5 and 3 of 'bf16'
+    equal f32stash's bitwise (the same forward code); the sdf and grad of 'f32'
+    sit within 1e-4 of the f32 twin in that mode (its SDF chain is f32; the
+    bf16 kernels read ~5e-3), and its save pair equals its recompute pair
+    bitwise (f32_product sums each output in k order whatever the tile)."""
+    import dataclasses
+    from chip_smoke import march_inputs
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    rcfg, pw0, o, d, z, inv_s, gbar = march_inputs(cuda_device, "color_neus", 0.3, 12)
+    R = 96
+    o, d, z, gbar = o[:R], d[:R], z[:R].contiguous(), gbar[:R].contiguous()
+    sd = 2.0 / rcfg.n_samples
+    pw = PP.PipelineWeights(dataclasses.replace(rcfg, march_bwd_precision=mode), pw0.sdf,
+                            pw0.color, pw0.relight)
+    pw.packed, pw.off, pw.n_grad = PP._pack(pw)
+    _, _, pts, dirs = RM.march_points(o, d, z, sd)
+    fns = (PP.launch_point_pipeline, RM.launch_ray_march, RM.launch_ray_march_bwd,
+           RM.launch_ray_march_save, RM.launch_ray_march_bwd_load)
+    before = [fn.modes[mode].launches for fn in fns] + [fn.launches for fn in fns]
+    out = PP.launch_point_pipeline(pw, pts, dirs)
+    got, stash = RM.launch_ray_march(pw, o, d, z, inv_s, sd)
+    rec = RM.launch_ray_march_bwd(pw, o, d, z, inv_s, sd, stash, gbar)
+    got_s, stash_s, act = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
+    sav = RM.launch_ray_march_bwd_load(pw, o, d, z, inv_s, sd, stash_s, act, gbar)
+    torch.cuda.synchronize()
+    after = [fn.modes[mode].launches for fn in fns] + [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [1] * 5 + [0] * 5
+    assert tuple(act.shape) == (R * z.shape[1], RM.act_bytes(pw))
+    if mode == "bf16":
+        assert torch.equal(out, PP.launch_point_pipeline(pw0, pts, dirs))
+        assert torch.equal(got, RM.launch_ray_march(pw0, o, d, z, inv_s, sd)[0])
+    else:
+        want = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
+        for k, i, (a, b) in (("sdf", 0, (0, 1)), ("grad", 1, (1, 4))):
+            err = float((out[:, a:b] - want[i]).abs().max())
+            assert err <= 1e-4 * float(want[i].abs().max()), (k, err)
+        assert torch.equal(got_s, got)
+        assert all(torch.equal(a, b) for a, b in zip(sav, rec))

@@ -59,7 +59,7 @@ def test_renderer_config_mapping_matches_jax(path):
 
 @pytest.mark.parametrize("key,value,default", [
     ("RAY_CHUNK", 4096, 0), ("COMPUTE_DTYPE", "bfloat16", "float32"),
-    ("MARCH_BWD_PRECISION", "bf16", "f32stash"), ("THIN_DOTS", "mxu", "hilo")])
+    ("FUSED_TILE", 1024, 512), ("THIN_DOTS", "mxu", "hilo")])
 def test_renderer_keys_the_port_does_not_read_raise(key, value, default):
     """A training-path key the port has no code for raises when set; its
     JAX default and the mesh extraction's keys load."""

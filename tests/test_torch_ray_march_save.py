@@ -194,8 +194,7 @@ def test_march_acts_keys_parse_and_unported_keys_raise():
         configs.renderer_config_from_cfg({**base, "MARCH_ACTS": "sometimes"})
     rc = configs.renderer_config_from_cfg({**base, "MARCH_STASH_BUDGET_GB": 2.5})
     assert rc.march_stash_budget_gb == 2.5
-    for key, value in (("MARCH_TILE", 1024), ("MARCH_BWD_PRECISION", "bf16"),
-                       ("MARCH_BWD_PRECISION", "f32"), ("FUSED_TILE", 1024),
+    for key, value in (("MARCH_TILE", 1024), ("FUSED_TILE", 1024),
                        ("THIN_DOTS", "vpu"), ("RAY_CHUNK", 4096),
                        ("COMPUTE_DTYPE", "bfloat16")):
         with pytest.raises(NotImplementedError, match=key):
