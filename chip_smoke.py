@@ -15,8 +15,9 @@ Phases; any failure exits non-zero and prints no result:
      their registers printed; rows 3 and 4's save-mode entries
      (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) are held as
      rows 3 and 4; rows 1-2's
-     kernel variants print HMMA, their weight ring's bulk copies (UBLKCP),
-     FCHK and every CALL, and their resident blocks per SM: the bf16 ones
+     kernel variants (the grid's f32x3 one too) print HMMA, their weight
+     ring's bulk copies (UBLKCP), FCHK and every CALL, registers and
+     spills, and their resident blocks per SM: the bf16 and f32x3 ones
      must hold HMMA, all a bulk copy, none an FCHK or a CALL (the IEEE
      divide's range check and its slow path), and each variant 16
      resident warps per SM; rows 7-8's bf16 chain kernels (nine
@@ -163,7 +164,8 @@ Phases; any failure exits non-zero and prints no result:
      cotangents), with per-camera cosines printed.
   11. several steps per dispatch, per training arm (fused_march on in
      the save mode, fused_march on with MARCH_ACTS recompute, fused_core
-     on, the save mode in MARCH_BWD_PRECISION bf16 and f32, auto) at
+     on, the save mode in MARCH_BWD_PRECISION bf16 and f32, auto; auto
+     with RAY_CHUNK 256 at bench.py's shape only, in a process of its own) at
      phase 3's full width, each fused_march arm's stash GiB printed: one
      uncaptured step
      under torch.cuda.set_sync_debug_mode("error") (nothing in it may wait
@@ -193,6 +195,24 @@ Phases; any failure exits non-zero and prints no result:
      kernels', a replay against the steps one by one; (c) the validation
      render in f32 and row 5 on that view's points against the f32 plain
      path, beside f32stash's.
+  13. the render core's last JAX keys and row 2's f32x3 arm: (a) the grid
+     SDF's f32x3 entry (csrc/sdf_rays.cu: three bf16 products a layer on
+     hi / lo parts) on 2^18 points of the res-512 lattice, on the geometric
+     init and on phase 3's weights, against its plain twin
+     (ATOL_GRID['f32x3']), its distance from the f32 entry, ms beside the
+     f32 and bf16 entries, the bound; (b) testing_step at res 512, sparse,
+     with EXTRACT_PRECISION f32x3 on phase 3's weights: seconds, counts,
+     grid launches, the mesh against the f32 mesh's (chamfer), sparse ==
+     dense bitwise at res 128; (c) RAY_CHUNK: one auto step chunked at 256
+     against unchunked on the same pixels (the loss and every leaf), and
+     phase 11's chunked arm at 2048 x 512 beside the unchunked auto's
+     peak and ms/step; (d) COMPUTE_DTYPE bfloat16: auto 60 steps, the loss
+     falling, ms/step beside f32 auto's, one step's leaves against f32;
+     (e) N_OUTSIDE 32 (NeuS's womask setting) on the NeuS kind at full
+     width, 60 steps: the loss falls, every leaf finite, the nerf leaves
+     move, the sweep the only kernel; (f) OPTIMIZE.TYPE sgd through the
+     fused march in captured bundles: the loss falls, a replay bitwise
+     equal to 10 uncaptured steps; (g) write_glb of (b)'s mesh read back.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -231,7 +251,7 @@ ATOL_MAIN_PATH = 5e-3
 # (PERF.md, PR 3) with headroom: f32 summation order only (read <= 4.8e-7);
 # bf16 one-ulp flips as in the sweep, at the grid's larger |sdf| (up to
 # ~1.6 at the bbox corners; read <= 3.64e-3)
-ATOL_GRID = {"f32": 2e-6, "bf16": 6e-3}
+ATOL_GRID = {"f32": 2e-6, "bf16": 6e-3, "f32x3": 4e-5}
 # Rows 3-6 (the point pipeline and the fused march) compute the TPU kernels'
 # production arithmetic: every product rounds its operands to bf16 and sums
 # in f32 (csrc/point_pipeline_tile.cuh). So they are held against their
@@ -369,7 +389,14 @@ ARMS = {"fused_march": {"FUSED_MARCH": "on"},
         "fused_march_recompute": {"FUSED_MARCH": "on", "MARCH_ACTS": "recompute"},
         "fused_core": {"FUSED_CORE": "on"},
         "fused_march_bf16": {"FUSED_MARCH": "on", "MARCH_BWD_PRECISION": "bf16"},
-        "fused_march_f32": {"FUSED_MARCH": "on", "MARCH_BWD_PRECISION": "f32"}, "auto": {}}
+        "fused_march_f32": {"FUSED_MARCH": "on", "MARCH_BWD_PRECISION": "f32"}, "auto": {},
+        # the plain core in chunks of 256 rays, each recomputed in the backward
+        "auto_chunked": {"RAY_CHUNK": 256}}
+# arms phase 11 runs at bench.py's shape only: the chunked core is there for
+# the memory of that shape (phase 13c holds it against the unchunked one at
+# the config's shape, tests/test_torch_cuda.py its replay there)
+BENCH_ONLY_ARMS = ("auto_chunked",)
+CHILD_TAG = "BENCH_ARM_RECORD "
 ARM_KERNELS = {"fused_march": ("ray_march_save_fwd_kernel", "ray_march_load_bwd_kernel"),
                "fused_march_recompute": ("ray_march_fwd_kernel", "ray_march_bwd_kernel"),
                "fused_core": ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel"),
@@ -377,7 +404,7 @@ ARM_KERNELS = {"fused_march": ("ray_march_save_fwd_kernel", "ray_march_load_bwd_
                                     "ray_march_load_bwd_kernel_bf16s"),
                "fused_march_f32": ("ray_march_save_fwd_kernel_f32s",
                                    "ray_march_load_bwd_kernel_f32s"),
-               "auto": ()}
+               "auto": (), "auto_chunked": ()}
 # the two uncaptured runs of an arm whose gradients sum through atomics
 # differ from each other; a captured bundle is held to this many times
 # their distance (each run's atomics take another order, so a third run
@@ -416,6 +443,30 @@ PIPELINE_OUTPUTS = ("sdf", "grad", "gc", "relit", "delta")
 EVAL_RES = 512
 GRID_CHUNK = 1 << 18
 PIPELINE_RAYS, PIPELINE_SAMPLES = 1024, 128     # one validation chunk
+
+# phase 13: RAY_CHUNK's chunk (bench.py's 2048 rays in 8); one auto step
+# chunked against unchunked on the same pixels and z: the same f32
+# arithmetic, cuBLAS blocking a chunk's rows its own way, so the loss within
+# RTOL_CHUNK_LOSS and every leaf within RTOL_CHUNK_GRAD norm-relative (the
+# CPU reads <= 2e-5 absolute on small widths, tests/test_torch_render_keys.py)
+CHUNK_RAYS = 256
+RTOL_CHUNK_LOSS = 1e-5
+RTOL_CHUNK_GRAD = 1e-3
+# the f32x3 res-512 mesh against the f32 one: symmetric mean squared
+# chamfer in float64; an SDF ~1e-5 off (ATOL_GRID's note) moves a vertex by
+# about as much, ~1e-10 squared; a lost product (~2^-9 of the SDF) reads
+# ~1e-6 and more
+MAX_CHAMFER_X3 = 1e-8
+CHAMFER_SAMPLES = 32768
+# NeuS's own womask setting: 32 background samples, no mask loss; the NeuS
+# kind's colour net (config/NeuS_dtu.yml), the NeRF net at its defaults
+N_OUTSIDE = 32
+NEUS_COLOR = {"D_FEATURE": 256, "MODE": "idr", "D_IN": 9, "D_OUT": 3, "D_HIDDEN": 256,
+              "N_LAYERS": 4, "WEIGHT_NORM": True, "MULTIRES_VIEW": 4, "SQUEEZE_OUT": True}
+# OPTIMIZE.TYPE sgd: plain SGD needs a larger lr than Adam's 5e-4 to move
+# in 60 steps; the per-leaf clip at 1.0 bounds a step to lr per leaf
+SGD_OPTIMIZE = {"TYPE": "sgd", "LR": 0.05, "SCHEDULER_TYPE": "NEUS", "WARM_UP": 10,
+                "LR_ALPHA": 0.05}
 
 # MODEL of config/Color_NeuS_dtu.yml; DATASET, DATA_PRESET and TRAIN of
 # config/Color_NeuS_synthetic.yml (the DTU scan is not in the repo, and
@@ -550,8 +601,10 @@ def mlp_bound_ms(sw, n, io_bytes):
     elems = n * sum(w.shape[1] for w, _ in sw.layers[:-1])
     nbytes = io_bytes + sw.packed.numel() * sw.packed.element_size() + sw.bias.numel() * 4
     f32 = sw.dtype == "float32"
+    # f32x3: three bf16 product passes (hi.hi, hi.lo, lo.hi)
+    passes, peak = (3, PEAK_FLOPS["bfloat16"]) if sw.dtype == "f32x3" else (1, PEAK_FLOPS[sw.dtype])
     parts = {"bytes": nbytes / PEAK_BYTES_PER_S,
-             "products": 2 * macs * n / PEAK_FLOPS[sw.dtype]}
+             "products": passes * 2 * macs * n / peak}
     epi = sweep_epilogue_counts()[0]
     if epi is not None:
         sms, clock = pipe_rates()
@@ -581,22 +634,26 @@ def sweep_sass_check(lib_path):
     warps per SM (two blocks of 8 warps, or one of 16)."""
     from color_neus_torch.ops.kernels import sdf_rays as K
     lib = K._library()
+    rep = ptxas_report("sdf_rays")
     for fn, c in sass_counts(lib_path).items():
         if not fn.startswith("sdf_rays_"):
             continue
+        r = rep.get(fn, {})
         print(f"[1] SASS sdf_rays {fn}: {c['HMMA']} HMMA.16816.F32.BF16, {c['FFMA']} FFMA, "
               f"{c['UBLKCP']} UBLKCP, {c['LDGSTS']} LDGSTS, {c['FCHK']} FCHK, {len(c['CALL'])} "
-              f"CALL {sorted(set(c['CALL']))}", flush=True)
-        if fn.startswith("sdf_rays_bf16_kernel"):
+              f"CALL {sorted(set(c['CALL']))} | {r.get('registers')} registers, spills "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes", flush=True)
+        if fn.startswith("sdf_rays_bf16_kernel"):   # bf16 and f32x3 (<relu,points,x3>)
             check(c["HMMA"] > 0, f"{fn}: no HMMA.16816.F32.BF16 in its SASS")
         check(c["UBLKCP"] + c["LDGSTS"] > 0, f"{fn}: no asynchronous copy in its SASS")
         check(c["FCHK"] == 0 and not c["CALL"],
               f"{fn}: an IEEE divide's range check or slow-path CALL in its SASS: "
               f"{c['FCHK']} FCHK, CALL {c['CALL']}")
+    # (mode: 0 f32, 1 bf16, 2 f32x3; points; label; warps a block)
     variants = [(1, 0, "bf16 sweep", 16), (0, 0, "f32 sweep", 8), (1, 1, "bf16 grid", 16),
-                (0, 1, "f32 grid", 8)]
-    for bf16, points, label, warps in variants:
-        blocks = lib.sdf_rays_blocks_per_sm(bf16, 0, points)
+                (0, 1, "f32 grid", 8), (2, 1, "f32x3 grid", 16)]
+    for mode, points, label, warps in variants:
+        blocks = lib.sdf_rays_blocks_per_sm(mode, 0, points)
         print(f"[1] sdf_rays {label}: {blocks} blocks of {warps} warps per SM", flush=True)
         check(blocks * warps >= 16, f"sdf_rays {label}: {blocks} blocks of {warps} warps per SM")
 
@@ -2004,10 +2061,10 @@ def chain_phase(device):
     return {"records": rec, "launches": counts}
 
 
-def step_grads(loop, pixels, **renderer):
+def step_grads(loop, pixels, with_loss=False, **renderer):
     """Every trainable leaf's gradient of one step's loss on the given
     pixels, with the renderer switches `renderer` and perturb 0 (no
-    parameter update)."""
+    parameter update); with_loss: (the loss, the gradients)."""
     import dataclasses
     import torch
     from color_neus_torch.models import trainer as TR
@@ -2021,8 +2078,9 @@ def step_grads(loop, pixels, **renderer):
                               px, sel_mask, None)
     loss, _ = TR.compute_loss(tc, render)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return {k: (torch.zeros_like(p) if gr is None else gr)
-            for k, p, gr in zip(names, leaves, grads)}
+    grads = {k: (torch.zeros_like(p) if gr is None else gr)
+             for k, p, gr in zip(names, leaves, grads)}
+    return (float(loss), grads) if with_loss else grads
 
 
 def grad_errors(a, b):
@@ -2633,6 +2691,14 @@ def arm_cfg(arm, bench=False):
     return config_from_dict({**SMOKE_CFG, "MODEL": {**model, **extra, "RENDERER": renderer}})
 
 
+def sgd_cfg():
+    """SMOKE_CFG through the fused march with OPTIMIZE.TYPE sgd."""
+    from color_neus_torch.utils.config import config_from_dict
+    model, train = SMOKE_CFG["MODEL"], SMOKE_CFG["TRAIN"]
+    return config_from_dict({**SMOKE_CFG, "MODEL": {**model, "RENDERER": {
+        **model["RENDERER"], "FUSED_MARCH": "on"}}, "TRAIN": {**train, "OPTIMIZE": SGD_OPTIMIZE}})
+
+
 def state_tensors(loop) -> dict:
     """Copies of every parameter, optimizer state, the step counter and the
     generator state of a loop."""
@@ -2677,6 +2743,16 @@ def host_ms(fn, steps) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def collect() -> None:
+    """Free what the loops deleted so far held (their captured graphs'
+    memory pools too: a loop is freed only when the garbage collector
+    finds its reference cycles) and return the cached blocks to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def interleaved_ms(loop, bundles):
@@ -2789,7 +2865,7 @@ def bundle_phase(device, dtu):
 
     res = {}
     card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
-    for arm in ARMS:
+    for arm in (a for a in ARMS if a not in BENCH_ONLY_ARMS):
         t_arm = time.perf_counter()
         loop = TrainLoop(arm_cfg(arm), device=device)
         check(loop.k_steps == BUNDLE and loop.multi_step is not None,
@@ -2837,26 +2913,39 @@ def bundle_phase(device, dtu):
         torch.cuda.empty_cache()
 
     # (c) at bench.py's shape: every arm whose uncaptured steps fit beside
-    # a captured bundle's pool of their own size
+    # a captured bundle's pool of their own size; the bench-only arms each
+    # in a process of their own (bench_arm_child)
     for arm in ARMS:
-        t_arm = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        loop = TrainLoop(arm_cfg(arm, bench=True), device=device)
-        rcfg = loop.tcfg.renderer
-        check(loop.tcfg.n_rays == 2048 and rcfg.n_samples + rcfg.n_importance == 512,
-              f"bench shape not reached: {loop.tcfg.n_rays} x {rcfg.n_samples}"
-              f"+{rcfg.n_importance}")
+        res[f"{arm}_bench"] = (bench_arm_in_child(arm) if arm in BENCH_ONLY_ARMS
+                               else bench_arm(device, arm, card_gib))
+    return res
+
+
+def bench_arm(device, arm, card_gib):
+    """Phase 11(c) of one arm at bench.py's shape: host ms/step uncaptured /
+    captured / captured / uncaptured, busy, idle share, peak memory above
+    what the process held before the arm (`base`); auto uncaptured only when
+    a captured pool beside its steps would not fit the card."""
+    import torch
+    from color_neus_torch.runtime import TrainLoop
+    t_arm = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(arm_cfg(arm, bench=True), device=device)
+    rcfg = loop.tcfg.renderer
+    check(loop.tcfg.n_rays == 2048 and rcfg.n_samples + rcfg.n_importance == 512,
+          f"bench shape not reached: {loop.tcfg.n_rays} x {rcfg.n_samples}"
+          f"+{rcfg.n_importance}")
+    try:
         if arm == "auto":
             u = host_ms(lambda: [loop.training_step() for _ in range(BUNDLE)], BUNDLE)
             peak_u = torch.cuda.max_memory_allocated() / 2 ** 30
             if 2 * peak_u > 0.9 * card_gib:
                 print(f"[11c] auto, 2048 x 512: uncaptured {u:.2f} ms/step, peak memory "
-                      f"{peak_u:.2f} GiB; captured not run: a bundle's pool of that size "
-                      f"beside the uncaptured steps' needs ~{2 * peak_u:.0f} GiB of the "
-                      f"card's {card_gib:.0f}", flush=True)
-                del loop
-                torch.cuda.empty_cache()
-                continue
+                      f"{peak_u:.2f} GiB ({base:.2f} allocated before the arm); captured not "
+                      f"run: a bundle's pool of that size beside the uncaptured steps' needs "
+                      f"~{2 * peak_u:.0f} GiB of the card's {card_gib:.0f}", flush=True)
+                return {"u": (u, u), "peak_u": peak_u, "base": base}
         loop.run(loop.state.step + 2 * BUNDLE)  # warm-up bundle + capture, one replay
         peak_cap = torch.cuda.max_memory_allocated() / 2 ** 30
         _, busy, idle, _ = busy_of_replays(loop, 1, arm, "11c")
@@ -2867,12 +2956,47 @@ def bundle_phase(device, dtu):
               f"busy {busy:.2f} ms/step, idle share profiled {idle:.4f}, unprofiled captured "
               f"{1 - 2 * busy / (c1 + c2):.4f}, uncaptured {1 - 2 * busy / (u1 + u2):.4f} | "
               f"peak memory uncaptured {peak_u:.2f} GiB, warm-up + capture + replay "
-              f"{peak_cap:.2f} GiB | save-mode stash {stash_gib(loop):.2f} GiB | arm "
-              f"{time.perf_counter() - t_arm:.1f} s", flush=True)
-        res[f"{arm}_bench"] = {"u": (u1, u2), "c": (c1, c2), "busy": busy}
+              f"{peak_cap:.2f} GiB ({base:.2f} allocated before the arm) | save-mode stash "
+              f"{stash_gib(loop):.2f} GiB | arm {time.perf_counter() - t_arm:.1f} s", flush=True)
+        return {"u": (u1, u2), "c": (c1, c2), "busy": busy, "peak_u": peak_u,
+                "peak_cap": peak_cap, "base": base}
+    finally:
         del loop
         torch.cuda.empty_cache()
-    return res
+
+
+def bench_arm_child(arm):
+    """bench_arm in a process of its own (run by bench_arm_in_child): prints
+    its record as one JSON line after CHILD_TAG."""
+    import torch
+    from color_neus_torch import pin_precision
+    pin_precision()
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    rec = bench_arm(torch.device("cuda"), arm, card_gib)
+    print(CHILD_TAG + json.dumps(rec), flush=True)
+
+
+def bench_arm_in_child(arm):
+    """Phase 11(c) of a bench-only arm in a child process on the same card,
+    the kernels already built. The chunked core's captured bundle needs a
+    graph pool of ~6 GiB at 2048 x 512 in a process of its own, but ~35 GiB
+    after the other arms in this one (on the H100; the cause is not found,
+    PERF.md §7), which ran the card out of memory: a user's run at that
+    shape is a process of its own. Returns the child's record."""
+    collect()    # this process's unreferenced loops and their graph pools
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                          f"chip_smoke.bench_arm_child({arm!r})"], cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if line.startswith("[11c]"):
+            print(line + " (a process of its own)", flush=True)
+    recs = [json.loads(l[len(CHILD_TAG):]) for l in lines if l.startswith(CHILD_TAG)]
+    check(out.returncode == 0 and len(recs) == 1,
+          f"[11c] {arm} in a child process failed (rc {out.returncode}):\n"
+          f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
+    return recs[0]
 
 
 def mode_sass_summary(sass):
@@ -3073,6 +3197,224 @@ def precision_phase(device, trained, base):
                                                      PATH_GRAD_SEED[path])
     out["eval"] = mode_evaluation(device, trained)
     return out
+
+
+def falling(losses, tag):
+    """(first-5 mean, last-5 mean) of a run's losses, checked finite and
+    falling."""
+    losses = [float(x) for x in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(all(x == x and abs(x) != float("inf") for x in losses), f"[{tag}] non-finite loss")
+    check(last < first, f"[{tag}] the loss did not fall: {first} -> {last}")
+    return first, last
+
+
+def slice16_phase(device, trained, bundles, auto_step_ms):
+    """Phase 13: (a) the grid SDF's f32x3 entry (row 2) on 2^18 points of the
+    res-512 lattice, on the geometric init and on phase 3's trained
+    weights: against its plain twin (ATOL_GRID['f32x3']), its distance from
+    the f32 entry, ms beside the f32 and bf16 entries, the bound; (b) a
+    res-512 sparse extraction with EXTRACT_PRECISION f32x3 on phase 3's
+    weights through testing_step (seconds, counts, launches), its mesh
+    against the f32 one's (chamfer), sparse == dense bitwise at res 128;
+    (c) RAY_CHUNK: one auto step chunked at CHUNK_RAYS against unchunked on
+    the same pixels (loss, every leaf), and phase 11's auto_chunked arm at
+    2048 x 512 beside the unchunked auto's peak and ms; (d) COMPUTE_DTYPE
+    bfloat16: auto trained 60 steps (the loss falls), ms/step beside f32
+    auto's, one step's leaves against f32; (e) N_OUTSIDE 32 on the NeuS
+    kind, 60 steps: the loss falls, every leaf finite, the nerf leaves
+    move, the sweep the only kernel; (f) OPTIMIZE.TYPE sgd through the
+    fused march in captured bundles: the loss falls, a replay bitwise equal
+    to 10 uncaptured steps; (g) write_glb of (b)'s mesh read back. Returns
+    the f32x3 entry's kernel-line record."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from color_neus_torch.models.fields import init_sdf
+    from color_neus_torch.ops import mesh
+    from color_neus_torch.ops.kernels import sdf_mlp
+    from color_neus_torch.runtime import TrainLoop
+    from color_neus_torch.utils.config import config_from_dict
+    from color_neus_torch.utils.metrics import _nn_sq_dists
+
+    # (a) the kernel on two weight sets
+    sdf_cfg = trained.tcfg.renderer.sdf
+    g = torch.Generator(device=device).manual_seed(SEED + 160)
+    weight_sets = {"geometric init": init_sdf(sdf_cfg, g, device),
+                   "trained": trained.state.params["renderer"]["sdf"]}
+    pts = lattice_chunk(trained.bbox_min, trained.bbox_max, EVAL_RES, EVAL_RES ** 3 // 2,
+                        GRID_CHUNK, device)
+    rec = {}
+    for name, params in weight_sets.items():
+        fns = {p: sdf_mlp.make_fused_sdf_fn(params, sdf_cfg, p) for p in ("f32", "bf16", "f32x3")}
+        with torch.no_grad():
+            before = sdf_mlp.launch_sdf_points.launches
+            got = {p: f(pts) for p, f in fns.items()}
+            torch.cuda.synchronize()
+            check(sdf_mlp.launch_sdf_points.launches == before + 3,
+                  "[13a] the grid SDF functions did not launch the kernel")
+            want = sdf_mlp.sdf_points_plain(fns["f32x3"].weights, pts)
+            err = float((got["f32x3"] - want).abs().max())
+            dist = float((got["f32x3"] - got["f32"]).abs().max())
+            ms = {p: cuda_ms(lambda f=f: f(pts)) for p, f in fns.items()}
+            plain_ms = cuda_ms(lambda: sdf_mlp.sdf_points_plain(fns["f32x3"].weights, pts),
+                               reps=5)
+        bound, bound_by, what = grid_bound_ms(fns["f32x3"].weights, GRID_CHUNK)
+        print(f"[13a] sdf_points f32x3, {name}, {GRID_CHUNK} points of the res-{EVAL_RES} "
+              f"lattice's centre plane: |sdf| max {float(want.abs().max()):.3f} | "
+              f"max|kernel-plain| {err:.3e} (atol {ATOL_GRID['f32x3']:g}) | from the f32 entry "
+              f"{dist:.3e} (bf16 entry {float((got['bf16'] - got['f32']).abs().max()):.3e}) | "
+              f"kernel {ms['f32x3']:.4f} ms beside f32 {ms['f32']:.4f} and bf16 {ms['bf16']:.4f} "
+              f"| plain {plain_ms:.4f} ms | bound {bound:.4f} ms ({bound_by}: {what})",
+              flush=True)
+        check(bool(torch.isfinite(got["f32x3"]).all()) and err <= ATOL_GRID["f32x3"],
+              f"[13a] f32x3 grid SDF on the {name} weights: {err:.3e} from its twin")
+        rec[name] = {"err": err, "ms": ms["f32x3"], "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by}
+
+    # (b) the res-512 extraction in f32x3 through testing_step, and in f32
+    tcfg = trained.tcfg
+    x3 = dataclasses.replace(tcfg, renderer=dataclasses.replace(tcfg.renderer,
+                                                                extract_precision="f32x3"))
+    meshes = {}
+    for prec, tc in (("f32x3", x3), ("f32", tcfg)):
+        trained.tcfg = tc
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = trained.testing_step(trained.state.step, recon_res=EVAL_RES)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            trained.tcfg = tcfg
+        check(out is not None and len(out[0]) > 0, f"[13b] {prec}: empty res-{EVAL_RES} mesh")
+        check(counts["sdf_points"] > 0 and counts["point_pipeline"] > 0,
+              f"[13b] {prec}: testing_step launched {counts}")
+        meshes[prec] = out
+        print(f"[13b] testing_step res {EVAL_RES} sparse, EXTRACT_PRECISION {prec}: {secs:.3f} s"
+              f" | {len(out[0])} verts {len(out[1])} tris | grid launches "
+              f"{counts['sdf_points']}, vertex colours {counts['point_pipeline']}", flush=True)
+        if prec == "f32x3":
+            x3_launches = counts["sdf_points"]
+    # chamfer_distance's mean squared nearest-neighbour distances, each
+    # mean over CHAMFER_SAMPLES query vertices of one mesh (seeded) against
+    # every vertex of the other, in float64 on the card
+    a, b = (torch.as_tensor(meshes[p][0], dtype=torch.float64, device=device)
+            for p in ("f32x3", "f32"))
+    gq = torch.Generator(device=device).manual_seed(SEED + 162)
+    qa, qb = (x[torch.randperm(len(x), generator=gq, device=device)[:CHAMFER_SAMPLES]]
+              for x in (a, b))
+    chamfer = float(_nn_sq_dists(qa, b, tile=256).mean() + _nn_sq_dists(qb, a, tile=256).mean())
+    params, r3 = trained.state.params["renderer"], x3.renderer
+    vs, ts = mesh.extract_geometry(params, r3, trained.bbox_min, trained.bbox_max, 128, sparse=True)
+    vd, td = mesh.extract_geometry(params, r3, trained.bbox_min, trained.bbox_max, 128,
+                                   sparse=False)
+    print(f"[13b] f32x3 mesh against the f32 mesh: chamfer {chamfer:.3e} ({CHAMFER_SAMPLES} "
+          f"query vertices a side; limit "
+          f"{MAX_CHAMFER_X3:g}) | res 128 f32x3: sparse {len(vs)} / dense {len(vd)} verts, "
+          f"{len(ts)} / {len(td)} tris", flush=True)
+    check(chamfer <= MAX_CHAMFER_X3, f"[13b] f32x3 mesh {chamfer:.3e} from the f32 mesh")
+    check(len(vs) > 0 and len(vs) == len(vd) and len(ts) == len(td)
+          and np.array_equal(sorted_rows(vs), sorted_rows(vd)),
+          "[13b] res 128 f32x3: the sparse and dense meshes differ")
+
+    # (g) write_glb of (b)'s mesh, read back
+    v3, t3, c3 = meshes["f32x3"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.glb")
+        mesh.write_glb(path, v3, t3, c3)
+        gltf, binary = mesh.read_glb(path)
+        size = os.path.getsize(path)
+    acc = gltf["accessors"]
+    nv, nt = len(v3), len(t3)
+    print(f"[13g] write_glb: {size} bytes, accessors {[x['count'] for x in acc]}, BIN "
+          f"{len(binary)} bytes, generator {gltf['asset']['generator']}", flush=True)
+    check([x["count"] for x in acc] == [nv, 3 * nt, nv] and len(binary) == 24 * nv + 12 * nt
+          and np.array_equal(np.frombuffer(binary[:12 * nv], np.float32).reshape(-1, 3),
+                             np.asarray(v3, np.float32)), "[13g] the glb does not read back")
+
+    # (c) RAY_CHUNK: one auto step chunked against unchunked; the bench shape
+    pixels = step_pixels(trained, SEED + 161)
+    l0, g0 = step_grads(trained, pixels, with_loss=True)
+    l1, g1 = step_grads(trained, pixels, with_loss=True, ray_chunk=CHUNK_RAYS)
+    e, _, cos = grad_errors(g1, g0)
+    worst = max(e, key=e.get)
+    print(f"[13c] auto, {trained.tcfg.n_rays} x 128, RAY_CHUNK {CHUNK_RAYS} against unchunked: "
+          f"loss {l1:.8f} / {l0:.8f} | worst leaf |a-b| / |b| {e[worst]:.3e} ({worst}), "
+          f"min cosine {min(cos.values()):.8f} (limits {RTOL_CHUNK_LOSS:g} / "
+          f"{RTOL_CHUNK_GRAD:g})", flush=True)
+    check(abs(l1 - l0) <= RTOL_CHUNK_LOSS * abs(l0) and e[worst] <= RTOL_CHUNK_GRAD,
+          f"[13c] the chunked step differs: loss {l1} / {l0}, {worst} {e[worst]:.3e}")
+    ch, un = bundles["auto_chunked_bench"], bundles["auto_bench"]
+    print(f"[13c] 2048 x 512, RAY_CHUNK {CHUNK_RAYS} (phase 11): peak memory above what "
+          f"the earlier phases hold, uncaptured {ch['peak_u'] - ch['base']:.2f} GiB (warm-up + "
+          f"capture + replay {ch['peak_cap'] - ch['base']:.2f}) against the unchunked auto's "
+          f"{un['peak_u'] - un['base']:.2f} | ms/step uncaptured "
+          f"{sum(ch['u']) / 2:.2f}, captured {sum(ch['c']) / 2:.2f} against the unchunked "
+          f"{sum(un['u']) / 2:.2f} uncaptured" + (f", {sum(un['c']) / 2:.2f} captured"
+                                                    if "c" in un else ""), flush=True)
+    check(ch["peak_u"] - ch["base"] < un["peak_u"] - un["base"],
+          "[13c] chunking did not lower the peak")
+
+    model = SMOKE_CFG["MODEL"]
+    # (d) COMPUTE_DTYPE bfloat16 on the plain core
+    loop = TrainLoop(config_from_dict({**SMOKE_CFG, "MODEL": {**model, "RENDERER": {
+        **model["RENDERER"], "COMPUTE_DTYPE": "bfloat16"}}}), device=device)
+    first, last = falling(loop.run(STEPS), "13d")
+    step_ms = host_ms(lambda: loop.run(loop.state.step + 2 * BUNDLE), 2 * BUNDLE)
+    del loop
+    collect()
+    l16, g16 = step_grads(trained, pixels, with_loss=True, compute_dtype="bfloat16")
+    e, _, cos = grad_errors(g16, g0)
+    worst, median = max(e, key=e.get), sorted(e.values())[len(e) // 2]
+    print(f"[13d] auto, COMPUTE_DTYPE bfloat16: {STEPS} steps, loss {first:.5f} -> {last:.5f} | "
+          f"{step_ms:.2f} ms/step (2 replays) against f32 auto's {auto_step_ms:.2f} | one step "
+          f"on the trained weights against f32: loss {l16:.6f} / {l0:.6f}, leaves worst "
+          f"|a-b| / |b| {e[worst]:.3e} ({worst}), median {median:.3e}, min cosine "
+          f"{min(cos.values()):.6f}", flush=True)
+    check(all(bool(torch.isfinite(v).all()) for v in g16.values()), "[13d] non-finite leaf")
+
+    # (e) N_OUTSIDE 32, the NeuS kind
+    renderer = {k: v for k, v in model["RENDERER"].items() if k != "RELIGHT"}
+    renderer.update(TYPE="NeuS", COLOR=NEUS_COLOR, N_OUTSIDE=N_OUTSIDE)
+    loop = TrainLoop(config_from_dict({**SMOKE_CFG, "MODEL": {
+        **model, "RENDERER": renderer, "LOSS": {**model["LOSS"], "LAMBDA_MASK": 0.0}}}),
+        device=device)
+    nerf0 = {k: p.detach().clone() for k, p in loop.state.params["renderer"]["nerf"]
+             .named_parameters()}
+    torch.cuda.synchronize()
+    reset_launch_counts(loop)
+    t0 = time.perf_counter()
+    first, last = falling(loop.run(STEPS), "13e")
+    wall = time.perf_counter() - t0
+    counts = launch_counts(loop)
+    moved = sum(not torch.equal(p, nerf0[k]) for k, p in
+                loop.state.params["renderer"]["nerf"].named_parameters())
+    finite = all(bool(torch.isfinite(p).all()) for p in loop.state.params.parameters())
+    print(f"[13e] NeuS, N_OUTSIDE {N_OUTSIDE} (nerf {loop.tcfg.renderer.nerf.depth} x "
+          f"{loop.tcfg.renderer.nerf.width}): {STEPS} steps, {wall * 1e3 / STEPS:.2f} ms/step incl. "
+          f"the warm-up bundle and the capture | loss {first:.5f} -> {last:.5f} | nerf leaves "
+          f"moved {moved} of {len(nerf0)} | every leaf finite {finite} | launches "
+          f"{({k: v for k, v in counts.items() if v})}", flush=True)
+    check(finite and moved == len(nerf0), "[13e] a leaf is not finite or a nerf leaf is still")
+    check(counts == {k: SWEEPS_PER_STEP * STEPS if k == "sdf_rays" else 0 for k in counts},
+          f"[13e] launches {counts}")
+    del loop
+    collect()
+
+    # (f) SGD in captured bundles
+    loop = TrainLoop(sgd_cfg(), device=device)
+    first, last = falling(loop.run(STEPS), "13f")
+    check(loop.multi_step.replays > 0, "[13f] no captured SGD bundle replayed")
+    print(f"[13f] OPTIMIZE.TYPE sgd (lr {SGD_OPTIMIZE['LR']:g}) through the fused march: {STEPS} "
+          f"steps, {loop.multi_step.replays} replays of the captured bundle | loss {first:.5f} "
+          f"-> {last:.5f}", flush=True)
+    replay_vs_steps(loop, "fused_march_sgd", "13f")
+    del loop
+    collect()
+    return dict(rec["trained"], err=max(r["err"] for r in rec.values()), launches=x3_launches)
 
 
 def main() -> int:
@@ -3277,7 +3619,8 @@ def main() -> int:
     bundles = bundle_phase(device, data)
     print(f"[11] summary ({time.perf_counter() - t0:.1f} s): host ms/step uncaptured -> "
           f"captured, config shape: " + ", ".join(
-              f"{k} {sum(r['u']) / 2:.2f} -> {sum(r['c']) / 2:.2f}" for k, r in bundles.items()),
+              f"{k} {sum(r['u']) / 2:.2f} -> {sum(r['c']) / 2:.2f}" for k, r in bundles.items()
+              if "c" in r),
           flush=True)
 
     # ---- phase 12: MARCH_BWD_PRECISION bf16 and f32 ----
@@ -3290,6 +3633,13 @@ def main() -> int:
                              f"{r['sdf_leaves']['f32stash']:.3e})"
                              for p, r in prec[m]["train"].items()) for m in PREC_MODES),
         flush=True)
+
+    # ---- phase 13: row 2's f32x3 arm, RAY_CHUNK, COMPUTE_DTYPE, N_OUTSIDE, SGD, glb ----
+    t0 = time.perf_counter()
+    x3 = slice16_phase(device, loop, bundles, step_ms)
+    print(f"[13] summary ({time.perf_counter() - t0:.1f} s): sdf_points f32x3 {x3['ms']:.4f} ms "
+          f"per 2^18 points (bound {x3['bound_ms']:.4f}, plain {x3['plain_ms']:.4f}), "
+          f"{x3['launches']} launches in the res-{EVAL_RES} extraction", flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and
@@ -3308,7 +3658,9 @@ def main() -> int:
     # variant in bf16), launches from the tool's sweep. The rows 3-6
     # entries of MARCH_BWD_PRECISION bf16 and f32 (suffixes _bf16s, _f32s):
     # phase 12a at the f32stash entries' shapes, launches from phase 12b's
-    # training run of the path that runs them
+    # training run of the path that runs them. sdf_points_f32x3: phase 13a
+    # on the trained weights (errors the largest of both weight sets),
+    # launches from phase 13b's f32x3 extraction
     grid, pipe = eval_kernels["sdf_points_f32"], eval_kernels["point_pipeline_color_neus"]
     kernel_line = [{
         "name": "sdf_rays", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
@@ -3366,6 +3718,11 @@ def main() -> int:
         "launches": march["counts"]["ray_march_bwd_load"], "max_abs_err": mar["load_err"],
         "ms": mar["load_ms"], "plain_ms": mar["load_plain_ms"],
         "bound_ms": mar["load_bound_ms"], "bound_by": mar["load_bound_by"], "library_ms": None,
+    }, {
+        "name": "sdf_points_f32x3", "route": "cuda", "source": "color_neus_torch/csrc/sdf_rays.cu",
+        "replaces": "color_neus_tpu/ops/pallas/sdf_mlp.py:183", "launches": x3["launches"],
+        "max_abs_err": x3["err"], "ms": x3["ms"], "plain_ms": x3["plain_ms"],
+        "bound_ms": x3["bound_ms"], "bound_by": x3["bound_by"], "library_ms": None,
     }] + [{
         "name": name, "route": "cuda", "source": "color_neus_torch/csrc/mlp_chain.cu",
         "replaces": f"tools/mlp_microbench.py:{line}", "launches": chain["launches"][name],

@@ -68,8 +68,25 @@
 // mesh extraction's per-voxel SDF. The same kernels with the points read
 // from an [N, 3] array instead of built from rays (template POINTS),
 // softplus only, in exact f32 (extract_precision 'f32', where the SDF error
-// sets the vertex accuracy) or bf16. Its bound is the sweep's: 459,008 MACs
-// per point against 16 bytes of input/output, bound by operations.
+// sets the vertex accuracy), bf16, or f32x3. Its bound is the sweep's:
+// 459,008 MACs per point against 16 bytes of input/output, bound by
+// operations.
+//
+// f32x3 (extract_precision 'f32x3', sdf_mlp.py::_sdf_layers with
+// prec='f32x3'): each f32 layer input h and weight w is split into
+// hi = bf16(x) and lo = bf16(x - hi), and the layer is hi.hi + hi.lo +
+// lo.hi on the bf16 tensor cores, summed in f32 (only lo.lo is missing,
+// ~2^-16 relative), then bias + softplus in f32. It is the bf16 kernel with
+// two activation tiles (hi and lo, both written by the epilogue from the
+// f32 result) and three mma.sync a fragment. Shared memory decides the
+// shape: the two 128-point tiles take 156 KB, so the ring keeps 4 stages
+// of 16 KB, each stage one k-step's hi and lo slabs side by side (one bulk
+// copy): the 128-point tile keeps the weight bytes per point of the bf16
+// kernel, where a 64-point tile would double them, and a k-step costs one
+// barrier wait as before. The last layer's row is a SIMT dot over the hi
+// and lo tiles and a hi and a lo weight row. Bound: three bf16 product
+// passes against the bf16 kernel's softplus epilogue (per element one more
+// rounding and a subtraction), so operations.
 
 #include <cuda_runtime.h>
 #ifdef __CUDACC__
@@ -101,13 +118,22 @@ constexpr int F32_STAGES = 4;            // the f32 kernel's ring
 // (m, w) computing points 64 m .. + 64 (MT_BF16 m-tiles of 16), columns
 // 32 w .. + 32; one block per SM, a 16-stage ring.
 constexpr int PTS_BF16 = 128, MT_BF16 = 4, THREADS_BF16 = 2 * THREADS, BF16_STAGES = 16;
+// f32x3: the same tile and warps, two tiles (hi, lo), a ring of 4 stages
+// of one k-step's hi and lo slabs each
+constexpr int X3_STAGES = 4;
+constexpr unsigned SLAB_X3 = 2 * SLAB;
 
-template <int STAGES>
+template <int STAGES, unsigned BYTES = SLAB>
 __host__ __device__ constexpr size_t smem_ring() {
-  return size_t(STAGES) * SLAB + 2 * STAGES * sizeof(unsigned long long);
+  return size_t(STAGES) * BYTES + 2 * STAGES * sizeof(unsigned long long);
 }
 constexpr size_t SMEM_BF16 = smem_ring<BF16_STAGES>() + size_t(PTS_BF16) * LDW * 4;
+constexpr size_t SMEM_X3 = smem_ring<X3_STAGES, SLAB_X3>() + 2 * size_t(PTS_BF16) * LDW * 4;
 constexpr size_t SMEM_F32 = smem_ring<F32_STAGES>() + size_t(HID + EMB) * LDT * 4;
+static_assert(SMEM_X3 <= 232448, "f32x3: the two tiles and the ring exceed a block's shared memory");
+
+// The dot types of a launch (the entries' `mode` argument)
+enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_X3 = 2 };
 
 struct Params {
   const float* rays_o;  // [R, 3]  (sweep)
@@ -139,10 +165,10 @@ __device__ __forceinline__ float activate(float x) {
 }
 
 // The weight ring: slab s of the stream (every hidden layer's block in
-// order, SLAB bytes each) at src + s * SLAB, into stage s % STAGES.
-template <int STAGES>
+// order, BYTES each) at src + s * BYTES, into stage s % STAGES.
+template <int STAGES, unsigned BYTES = SLAB>
 struct Ring {
-  unsigned char* buf;            // [STAGES][SLAB]
+  unsigned char* buf;            // [STAGES][BYTES]
   unsigned long long* full;      // [STAGES] one arrival + the copy's bytes
   unsigned long long* empty;     // [STAGES] one arrival per warp
   const unsigned char* src;
@@ -150,7 +176,7 @@ struct Ring {
 
   __device__ Ring(unsigned char* smem, const void* w, int n_slabs)
       : buf(smem),
-        full(reinterpret_cast<unsigned long long*>(smem + size_t(STAGES) * SLAB)),
+        full(reinterpret_cast<unsigned long long*>(smem + size_t(STAGES) * BYTES)),
         empty(full + STAGES), src(static_cast<const unsigned char*>(w)), n(n_slabs) {}
 
   // Thread 0: slab s into its stage, once every warp has released the
@@ -159,7 +185,7 @@ struct Ring {
     if (s >= n) return;
     const int st = s % STAGES;
     if (s >= STAGES) mlp::mbar_wait(empty + st, unsigned(s / STAGES - 1) & 1u);
-    mlp::bulk_load(buf + st * SLAB, src + size_t(s) * SLAB, SLAB, full + st);
+    mlp::bulk_load(buf + st * BYTES, src + size_t(s) * BYTES, BYTES, full + st);
   }
 
   // Thread 0, before the block's first barrier: the barriers, and the
@@ -179,7 +205,7 @@ struct Ring {
     if (threadIdx.x == 0) issue(s + STAGES - 1);
     mlp::mbar_wait(full + s % STAGES, unsigned(s / STAGES) & 1u);
     __syncwarp();
-    return buf + (s % STAGES) * SLAB;
+    return buf + (s % STAGES) * BYTES;
   }
 
   // Every thread, after its warp's last read of slab s.
@@ -227,11 +253,24 @@ __device__ __forceinline__ float hi_bf16(unsigned u) { return __uint_as_float(u 
 // bf16: mma.sync m16n8k16 from the ring, epilogue on the accumulators
 // ---------------------------------------------------------------------------
 
-template <bool RELU, bool POINTS>
+// The hi and lo bf16 parts of x (f32x3): hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const float h0 = mlp::round_bf16(x0), h1 = mlp::round_bf16(x1);
+  hi = mlp::pack_bf16(h0, h1);
+  lo = mlp::pack_bf16(x0 - h0, x1 - h1);
+}
+
+// X3 (f32x3): two tiles, act (the hi parts) and act + TILE_WORDS (the lo
+// parts), and a ring stage holding a k-step's hi slab then its lo slab.
+template <bool RELU, bool POINTS, bool X3>
 __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p) {
   constexpr int PTS = PTS_BF16, MT = MT_BF16, NTHREADS = THREADS_BF16;
+  constexpr int STAGES = X3 ? X3_STAGES : BF16_STAGES;
+  constexpr unsigned STAGE_BYTES = X3 ? SLAB_X3 : SLAB;
+  constexpr int TILE_WORDS = PTS * LDW;
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned* act = reinterpret_cast<unsigned*>(smem + smem_ring<BF16_STAGES>());   // [PTS][LDW]
+  unsigned* act = reinterpret_cast<unsigned*>(smem + smem_ring<STAGES, STAGE_BYTES>());   // [PTS][LDW]
+  unsigned* act_lo = act + TILE_WORDS;                                  // X3: [PTS][LDW]
   // the points in the row padding (words 152 .. 155, never read as operands)
   float* xs = reinterpret_cast<float*>(act + (HID + EMB) / 2);
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -239,7 +278,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p
   const int base = blockIdx.x * PTS;
   int n_slabs = 0;
   for (int l = 0; l < p.n_lin - 1; ++l) n_slabs += layer_k(p, l) / KS_BF16;
-  const Ring<BF16_STAGES> ring(smem, p.w, n_slabs);
+  const Ring<STAGES, STAGE_BYTES> ring(smem, p.w, n_slabs);
   if (tid == 0) ring.start();
 
   load_points<POINTS, PTS>(p, base, xs, LDW);
@@ -249,9 +288,16 @@ __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p
   for (int e = tid; e < PTS * (EMB / 2); e += NTHREADS) {
     const int r = e / (EMB / 2), c = 2 * (e % (EMB / 2));
     const float e0 = emb_value(xs + r * LDW, c, p.d0), e1 = emb_value(xs + r * LDW, c + 1, p.d0);
-    act[r * LDW + c / 2] = mlp::pack_bf16(e0, e1);
-    if (p.skip >= 0)
-      act[r * LDW + (HID + c) / 2] = mlp::pack_bf16(e0 * INV_SQRT2, e1 * INV_SQRT2);
+    if constexpr (X3) {
+      split_pair(e0, e1, act[r * LDW + c / 2], act_lo[r * LDW + c / 2]);
+      if (p.skip >= 0)
+        split_pair(e0 * INV_SQRT2, e1 * INV_SQRT2, act[r * LDW + (HID + c) / 2],
+                   act_lo[r * LDW + (HID + c) / 2]);
+    } else {
+      act[r * LDW + c / 2] = mlp::pack_bf16(e0, e1);
+      if (p.skip >= 0)
+        act[r * LDW + (HID + c) / 2] = mlp::pack_bf16(e0 * INV_SQRT2, e1 * INV_SQRT2);
+    }
   }
   __syncthreads();
 
@@ -268,19 +314,32 @@ __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p
     for (int ks = 0; ks < nks; ++ks, ++s) {
       // n-tiles 4 wn .. 4 wn + 3: 32 lanes x 8 B each, contiguous
       const uint2* B = reinterpret_cast<const uint2*>(ring.acquire(s)) + wn * 128 + lane;
-      uint2 b[4];
+      uint2 b[4], blo[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = B[32 * j];
+      for (int j = 0; j < 4; ++j) {
+        b[j] = B[32 * j];
+        if constexpr (X3) blo[j] = B[SLAB / 8 + 32 * j];   // the lo slab, SLAB bytes on
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         // A fragment (a0 / a2 rows g, a1 / a3 rows g + 8; a2 / a3 eight
         // columns on) in one ldmatrix: lane l points at row l % 16 of the
         // m-tile, columns 8 (l / 16) .. + 8 of the k-step
+        const int off = (m0 + 16 * i + (lane & 15)) * LDW + 8 * ks + 4 * (lane >> 4);
         unsigned a[4];
-        mlp::ldmatrix_x4(a, act + (m0 + 16 * i + (lane & 15)) * LDW + 8 * ks + 4 * (lane >> 4));
+        mlp::ldmatrix_x4(a, act + off);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           mlp::mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], b[j].x, b[j].y);
+        if constexpr (X3) {
+          unsigned al[4];
+          mlp::ldmatrix_x4(al, act_lo + off);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mlp::mma_bf16(acc[i][j], a[0], a[1], a[2], a[3], blo[j].x, blo[j].y);
+            mlp::mma_bf16(acc[i][j], al[0], al[1], al[2], al[3], b[j].x, b[j].y);
+          }
+        }
       }
       ring.release(s);
     }
@@ -296,16 +355,24 @@ __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          act[(m0 + 16 * i + g + 8 * h) * LDW + c / 2] =
-              mlp::pack_bf16(activate<RELU>(acc[i][j][2 * h] + b0) * post,
-                             activate<RELU>(acc[i][j][2 * h + 1] + b1) * post);
+        for (int h = 0; h < 2; ++h) {
+          const int w = (m0 + 16 * i + g + 8 * h) * LDW + c / 2;
+          const float v0 = activate<RELU>(acc[i][j][2 * h] + b0) * post;
+          const float v1 = activate<RELU>(acc[i][j][2 * h + 1] + b1) * post;
+          if constexpr (X3)
+            split_pair(v0, v1, act[w], act_lo[w]);
+          else
+            act[w] = mlp::pack_bf16(v0, v1);
+        }
     }
     __syncthreads();
   }
 
-  // last layer, output row 0 only: a SIMT dot over the bf16 tile, warp per row
-  const unsigned* wl = static_cast<const unsigned*>(p.w) + size_t(n_slabs) * (SLAB / 4);
+  // last layer, output row 0 only: a SIMT dot over the bf16 tile, warp per
+  // row (X3: the hi and lo tiles against the hi and lo rows, hi.hi + hi.lo
+  // + lo.hi)
+  const unsigned* wl =
+      static_cast<const unsigned*>(p.w) + size_t(n_slabs) * (STAGE_BYTES / 4);
   const float bias = p.bias[(p.n_lin - 1) * HID];
   for (int r = tid >> 5; r < PTS; r += NTHREADS / 32) {
     float sum = 0.f;
@@ -314,6 +381,13 @@ __global__ void __launch_bounds__(THREADS_BF16, 1) sdf_rays_bf16_kernel(Params p
       const unsigned x = act[r * LDW + lane + 32 * m], w = wl[lane + 32 * m];
       sum = fmaf(lo_bf16(x), lo_bf16(w), sum);
       sum = fmaf(hi_bf16(x), hi_bf16(w), sum);
+      if constexpr (X3) {
+        const unsigned xl = act_lo[r * LDW + lane + 32 * m], wlo = wl[HID / 2 + lane + 32 * m];
+        sum = fmaf(lo_bf16(x), lo_bf16(wlo), sum);
+        sum = fmaf(hi_bf16(x), hi_bf16(wlo), sum);
+        sum = fmaf(lo_bf16(xl), lo_bf16(w), sum);
+        sum = fmaf(hi_bf16(xl), hi_bf16(w), sum);
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -420,20 +494,26 @@ struct Choice {
   int pts;
 };
 
-Choice choose(bool bf16, bool relu, bool points) {
-  if (!bf16)
+// f32x3 exists for the grid SDF only (mode MODE_X3 with points).
+Choice choose(int mode, bool relu, bool points) {
+  if (mode == MODE_F32)
     return {points ? sdf_rays_f32_kernel<false, true>
                    : relu ? sdf_rays_f32_kernel<true, false> : sdf_rays_f32_kernel<false, false>,
             THREADS, SMEM_F32, TILE};
-  return {points ? sdf_rays_bf16_kernel<false, true>
-                 : relu ? sdf_rays_bf16_kernel<true, false> : sdf_rays_bf16_kernel<false, false>,
+  if (mode == MODE_X3)
+    return {sdf_rays_bf16_kernel<false, true, true>, THREADS_BF16, SMEM_X3, PTS_BF16};
+  return {points ? sdf_rays_bf16_kernel<false, true, false>
+                 : relu ? sdf_rays_bf16_kernel<true, false, false>
+                        : sdf_rays_bf16_kernel<false, false, false>,
           THREADS_BF16, SMEM_BF16, PTS_BF16};
 }
 
-int launch(Params p, bool bf16, bool relu, bool points, cudaStream_t st) {
+int launch(Params p, int mode, bool relu, bool points, cudaStream_t st) {
   if (p.n_pts <= 0) return 0;
+  if (mode < MODE_F32 || mode > MODE_X3 || (mode == MODE_X3 && (relu || !points)))
+    return int(cudaErrorInvalidValue);
   p.inv_scale = 1.f / p.scale;
-  const Choice c = choose(bf16, relu, points);
+  const Choice c = choose(mode, relu, points);
   cudaError_t e = cudaFuncSetAttribute(c.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(c.smem));
   if (e != cudaSuccess) return int(e);
@@ -454,22 +534,25 @@ extern "C" int sdf_rays_launch(const float* rays_o, const float* rays_d, const f
                                float scale, int bf16, int relu, void* stream) {
   if (n_pts > MAX_PTS) return int(cudaErrorInvalidValue);
   Params p{rays_o, rays_d, z, nullptr, w, bias, out, int(n_pts), S, n_lin, skip, d0, scale, 0.f};
-  return launch(p, bf16, relu, false, static_cast<cudaStream_t>(stream));
+  return launch(p, bf16 ? MODE_BF16 : MODE_F32, relu, false, static_cast<cudaStream_t>(stream));
 }
 
-// The grid SDF (softplus only): out[i] = sdf(pts[i]) for n_pts points.
+// The grid SDF (softplus only): out[i] = sdf(pts[i]) for n_pts points, in
+// mode 0 (f32), 1 (bf16) or 2 (f32x3).
 extern "C" int sdf_points_launch(const float* pts, const void* w, const float* bias, float* out,
                                  long long n_pts, int n_lin, int skip, int d0, float scale,
-                                 int bf16, void* stream) {
+                                 int mode, void* stream) {
   if (n_pts > MAX_PTS) return int(cudaErrorInvalidValue);
   Params p{nullptr, nullptr, nullptr, pts, w, bias, out, int(n_pts), 1, n_lin, skip, d0, scale,
            0.f};
-  return launch(p, bf16, false, true, static_cast<cudaStream_t>(stream));
+  return launch(p, mode, false, true, static_cast<cudaStream_t>(stream));
 }
 
-// Resident blocks per SM of a kernel variant, or -1 on an error.
-extern "C" int sdf_rays_blocks_per_sm(int bf16, int relu, int points) {
-  const Choice c = choose(bf16, relu, points);
+// Resident blocks per SM of a kernel variant (mode as sdf_points_launch's),
+// or -1 on an error.
+extern "C" int sdf_rays_blocks_per_sm(int mode, int relu, int points) {
+  if (mode < MODE_F32 || mode > MODE_X3) return -1;
+  const Choice c = choose(mode, relu, points);
   if (cudaFuncSetAttribute(c.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(c.smem)) !=
       cudaSuccess)
     return -1;

@@ -15,6 +15,7 @@ from color_neus_torch.models import fields
 from color_neus_torch.models.configs import RendererConfig
 from color_neus_torch.models.neus import (
     COS_ANNEAL_RATIO,
+    _blend_background,
     _eikonal_parts,
     _sample_points,
     _sphere_masks,
@@ -26,7 +27,7 @@ from color_neus_torch.models.neus import (
 
 
 def render_core_color_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals,
-                           sample_dist):
+                           sample_dist, background_alpha=None, background_sampled_color=None):
     R, S = z_vals.shape
     dists, mid_z_vals, pts, dirs = _sample_points(rays_o, rays_d, z_vals, sample_dist)
 
@@ -38,15 +39,23 @@ def render_core_color_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals,
     true_cos = torch.sum(dirs * gradients, dim=-1, keepdim=True)
     iter_cos = anneal_cos(true_cos, COS_ANNEAL_RATIO)
 
-    alpha, prev_cdf = neus_alpha(sdf.reshape(R, S), iter_cos.reshape(R, S), dists, inv_s)
+    alpha_global, prev_cdf = neus_alpha(sdf.reshape(R, S), iter_cos.reshape(R, S), dists,
+                                        inv_s)
     inside, relaxed = _sphere_masks(pts, R, S)
 
     # the global colour is composited with the foreground weights
     # (Color_NeuS.py:94-95,116); without a background model they are the
     # weights of the relit colour too
-    weights = exclusive_cumprod_weights(alpha)
+    weights_global = exclusive_cumprod_weights(alpha_global)
+    if background_alpha is not None:
+        alpha, sampled_color = _blend_background(
+            alpha_global, sampled_color, inside, background_alpha, background_sampled_color, S)
+        weights = exclusive_cumprod_weights(alpha)
+    else:
+        weights = weights_global
     color = torch.sum(sampled_color * weights[..., None], dim=1)
-    global_color = torch.sum(global_color_pt.reshape(R, S, 3) * weights[..., None], dim=1)
+    global_color = torch.sum(global_color_pt.reshape(R, S, 3) * weights_global[..., None],
+                             dim=1)
 
     eik_num, eik_den = _eikonal_parts(gradients.reshape(R, S, 3), relaxed)
     return {

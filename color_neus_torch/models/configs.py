@@ -33,14 +33,21 @@ switches differ in meaning, because the port has its own kernels:
                march_stash_budget_gb (MARCH_STASH_BUDGET_GB, 13.5 GiB; the
                environment's MARCH_STASH_BUDGET_GB overrides it), as at
                every shipped config's shape and at bench.py's.
-  extract_precision  f32 | bf16: the grid-SDF kernel's dot type in mesh
-               extraction (ops/kernels/sdf_mlp.py); 'f32x3' raises
-               NotImplementedError (ROADMAP).
+  extract_precision  f32 | f32x3 | bf16: the grid-SDF kernel's dot type in
+               mesh extraction (ops/kernels/sdf_mlp.py).
   extract_sparse  the coarse-to-fine mesh extraction (ops/mesh.py).
+  ray_chunk    render_rays runs the plain core in chunks of ray_chunk rays,
+               each rematerialised in the backward (torch.utils.checkpoint),
+               when R > ray_chunk and ray_chunk divides R (neus.py).
+  compute_dtype  float32 | bfloat16 | float16: the operands of the plain
+               path's MLP products inside render_rays (fields.compute_dtype).
+  n_outside    > 0 adds the NeRF++ inverted-sphere background (the nerf
+               net); the training loss path then takes the plain core or
+               fused_core, never the march, as in JAX.
 
-RendererConfig holds only what the port reads. The JAX package's other
-renderer keys tune code the port does not have yet: renderer_config_from_cfg
-raises NotImplementedError when one of the training path's is set to
+RendererConfig holds only what the port reads. The JAX package's TPU
+tiling keys (FUSED_TILE, MARCH_TILE) and THIN_DOTS have no Hopper meaning:
+renderer_config_from_cfg raises NotImplementedError when one is set to
 anything but its default, and skips N (the mesh block size, mc_block,
 which the port's chunked grid does not read).
 
@@ -154,8 +161,12 @@ class RendererConfig:
     # the SDF chain's arithmetic in the fused kernels: f32stash | bf16 | f32
     # (the module note)
     march_bwd_precision: str = "f32stash"
-    # mesh-extraction grid-SDF dot type (ops/mesh.py): f32 | bf16
+    # mesh-extraction grid-SDF dot type (ops/mesh.py): f32 | f32x3 | bf16
     extract_precision: str = "f32"
+    # rays per rematerialised chunk of the plain render core (0: one chunk)
+    ray_chunk: int = 0
+    # operand dtype of the plain path's MLP products (fields.compute_dtype)
+    compute_dtype: str = "float32"
     # sparse (coarse-to-fine) mesh extraction
     extract_sparse: bool = False
     sdf: SDFConfig = field(default_factory=SDFConfig)
@@ -175,28 +186,18 @@ class RendererConfig:
             "march_acts": ("auto", "save", "recompute"),
             "march_bwd_precision": ("bf16", "f32stash", "f32"),
             "extract_precision": ("f32", "f32x3", "bf16"),
+            "compute_dtype": ("float32", "bfloat16", "float16"),
         }
         for name, allowed in _enums.items():
             v = getattr(self, name)
             if v not in allowed:
                 raise ValueError(
                     f"RendererConfig.{name}={v!r} not in {allowed}")
-        if self.extract_precision == "f32x3":
-            raise NotImplementedError(
-                "RendererConfig.extract_precision='f32x3' (the 3-pass bf16 split) is not "
-                "ported; use 'f32' or 'bf16' (ROADMAP.md Queue B)")
-        if self.n_outside > 0:
-            raise NotImplementedError(
-                "n_outside > 0 (NeRF++ background) is not ported yet")
 
 
-# renderer keys of the JAX package whose code the port has not yet, with
-# their defaults there: the TPU tilings and precisions of the fused
-# kernels, ray chunking and the compute dtype of the render core
-_UNPORTED_KEYS = {
-    "RAY_CHUNK": 0, "COMPUTE_DTYPE": "float32", "FUSED_TILE": 512,
-    "MARCH_TILE": 0, "THIN_DOTS": "hilo",
-}
+# renderer keys of the JAX package that choose TPU tilings and the TPU's
+# unit for the thin PE dots, with their defaults there: no Hopper meaning
+_UNPORTED_KEYS = {"FUSED_TILE": 512, "MARCH_TILE": 0, "THIN_DOTS": "hilo"}
 
 
 def _lower_get(d: dict, key: str, default):
@@ -245,6 +246,8 @@ def renderer_config_from_cfg(rcfg: dict) -> RendererConfig:
         sweep_activation=_lower_get(rcfg, "SWEEP_ACTIVATION", "softplus"),
         extract_precision=_lower_get(rcfg, "EXTRACT_PRECISION", "f32"),
         extract_sparse=bool(_lower_get(rcfg, "EXTRACT_SPARSE", False)),
+        ray_chunk=_lower_get(rcfg, "RAY_CHUNK", 0),
+        compute_dtype=_lower_get(rcfg, "COMPUTE_DTYPE", "float32"),
         sdf=SDFConfig(
             d_in=_lower_get(sdf, "D_IN", 3),
             d_out=_lower_get(sdf, "D_OUT", 257),

@@ -10,11 +10,13 @@ functions of (params, cfg, inputs), as in JAX.
 Reference semantics (lib/models/renderers/fields.py): geometric init,
 weight norm, softplus(beta=100), skip connection with /sqrt(2), the x3
 input / /3 output scale trick, the three colour modes, inv_s = exp(10 v),
-and the relight residual in inverse-sigmoid space.
+the relight residual in inverse-sigmoid space, and the NeRF++ background
+net.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from color_neus_torch.models.configs import (
-    SDFConfig, ColorConfig, RelightConfig, VarianceConfig,
+    SDFConfig, ColorConfig, RelightConfig, VarianceConfig, NeRFConfig,
 )
 from color_neus_torch.ops.embedding import positional_encoding, embedding_dim
 from color_neus_torch.ops.transforms import clip, inverse_sigmoid
@@ -63,8 +65,32 @@ def resolve_linear(p) -> tuple[torch.Tensor, torch.Tensor]:
     return w, p["b"]
 
 
+# The operand dtype of linear_apply's products (JAX's fields.compute_dtype):
+# None is f32. Set with compute_dtype().
+_COMPUTE_DTYPE = [None]
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Run linear_apply's products on operands rounded to `dtype` (e.g.
+    torch.bfloat16), summed in f32, with an f32 result; the parameters stay
+    f32."""
+    _COMPUTE_DTYPE.append(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.pop()
+
+
 def linear_apply(p, x: torch.Tensor) -> torch.Tensor:
     w, b = resolve_linear(p)
+    dt = _COMPUTE_DTYPE[-1]
+    if dt is not None:
+        # the f32 product of the rounded operands: exact products, f32 sums
+        # and an f32 result, as JAX's dot with preferred_element_type f32;
+        # autograd rounds the cotangents at the casts, as JAX's transpose of
+        # that dot does (a bf16 torch.matmul would round the result instead)
+        return x.to(dt).float() @ w.T.to(dt).float() + b
     return x @ w.T + b
 
 
@@ -273,3 +299,47 @@ def relight_apply(params, cfg: RelightConfig, rgb, pts, dirs, gradients):
     else:
         out = clip(rgb + torch.sigmoid(drgb) - 0.5, 0.0, 1.0)
     return out, drgb
+
+
+# ---------------------------------------------------------------------------
+# NeRF background network (NeRF++ outside-sphere model)
+# ---------------------------------------------------------------------------
+
+def init_nerf(cfg: NeRFConfig, generator, device="cpu") -> nn.ModuleDict:
+    """The background net (reference fields.py:192-274), torch's default
+    linear init: `depth` layers of `width` on the encoded [x/r, 1/r] (the
+    encoded input re-enters after each skip), then alpha, feature, one view
+    layer of width / 2 and rgb."""
+    in_pts = embedding_dim(cfg.d_in, cfg.multires) if cfg.multires > 0 else cfg.d_in
+    in_view = (embedding_dim(cfg.d_in_view, cfg.multires_view) if cfg.multires_view > 0
+               else cfg.d_in_view)
+    W = cfg.width
+    layers = {}
+    d_prev = in_pts
+    for i in range(cfg.depth):
+        layers[f"pts{i}"] = make_linear(*_torch_default_linear(d_prev, W, generator, device),
+                                        weight_norm=False)
+        d_prev = W + in_pts if i in cfg.skips else W
+    for name, d_in, d_out in (("views0", in_view + W, W // 2), ("feature", W, W),
+                              ("alpha", W, 1), ("rgb", W // 2, 3)):
+        layers[name] = make_linear(*_torch_default_linear(d_in, d_out, generator, device),
+                                   weight_norm=False)
+    return nn.ModuleDict(layers)
+
+
+def nerf_apply(params, cfg: NeRFConfig, pts, view_dirs):
+    """pts [N, d_in] (inverted-sphere coordinates), dirs [N, 3] ->
+    (density [N, 1], rgb [N, 3]), both raw."""
+    if cfg.multires > 0:
+        pts = positional_encoding(pts, cfg.multires)
+    if cfg.multires_view > 0:
+        view_dirs = positional_encoding(view_dirs, cfg.multires_view)
+    h = pts
+    for i in range(cfg.depth):
+        h = F.relu(linear_apply(params[f"pts{i}"], h))
+        if i in cfg.skips:
+            h = torch.cat([pts, h], dim=-1)
+    alpha = linear_apply(params["alpha"], h)
+    feat = linear_apply(params["feature"], h)
+    h = F.relu(linear_apply(params["views0"], torch.cat([feat, view_dirs], dim=-1)))
+    return alpha, linear_apply(params["rgb"], h)

@@ -20,7 +20,10 @@ the march's forward and backward kernels in march_acts' mode, plain twins
 for CPU tensors) on
 the same z values, and returns the same dict; 'auto' and 'off' reduce the
 plain core's render_rays output (auto stays on the plain core until a
-measured march step beats it, PERF.md).
+measured march step beats it, PERF.md). With n_outside > 0 (the NeRF++
+background, render_core_outside) the loss path never takes the march, as
+in JAX. render_rays runs the core in chunks of ray_chunk rays, each
+recomputed in the backward, and its MLP products in compute_dtype.
 
 Behavioural quirks kept from the reference (SURVEY §3.6):
   * up-sampling uses fixed inv_s = 64 * 2^i, not the learned one
@@ -31,9 +34,12 @@ Behavioural quirks kept from the reference (SURVEY §3.6):
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from color_neus_torch.models import fields
 from color_neus_torch.models.configs import RendererConfig
@@ -54,6 +60,8 @@ def init_renderer(rcfg: RendererConfig, generator, device="cpu") -> nn.ModuleDic
     }
     if rcfg.kind == "color_neus":
         params["relight"] = fields.init_relight(rcfg.relight, generator, device)
+    if rcfg.n_outside > 0:
+        params["nerf"] = fields.init_nerf(rcfg.nerf, generator, device)
     return nn.ModuleDict(params)
 
 
@@ -205,6 +213,41 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
 
 
 # ---------------------------------------------------------------------------
+# Background (NeRF++ inverted-sphere) model
+# ---------------------------------------------------------------------------
+
+def render_core_outside(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sample_dist):
+    """NeRF++ background shading (NeuS.py:95-134): the nerf net on the
+    inverted-sphere coordinates [x / r, 1 / r] of every section's mid
+    point (r clipped to >= 1)."""
+    R, S = z_vals.shape
+    dists, mid_z_vals = section_dists(z_vals, sample_dist)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., None]
+    dis = clip(torch.linalg.norm(pts, dim=-1, keepdim=True), 1.0, 1e10)
+    pts4 = torch.cat([pts / dis, 1.0 / dis], dim=-1)
+    dirs = rays_d[:, None, :].expand(R, S, 3)
+    density, raw_rgb = fields.nerf_apply(params["nerf"], rcfg.nerf, pts4.reshape(-1, 4),
+                                         dirs.reshape(-1, 3))
+    sampled_color = torch.sigmoid(raw_rgb).reshape(R, S, 3)
+    alpha = 1.0 - torch.exp(-F.softplus(density.reshape(R, S)) * dists)
+    weights = exclusive_cumprod_weights(alpha)
+    color = torch.sum(weights[..., None] * sampled_color, dim=1)
+    return {"color": color, "sampled_color": sampled_color, "alpha": alpha, "weights": weights}
+
+
+def _blend_background(alpha, sampled_color, inside, background_alpha,
+                      background_sampled_color, S):
+    """The foreground's alpha and colour inside the unit sphere, the
+    background's outside it and past the S foreground samples."""
+    alpha_in = alpha * inside + background_alpha[:, :S] * (1.0 - inside)
+    alpha_full = torch.cat([alpha_in, background_alpha[:, S:]], dim=-1)
+    col_in = sampled_color * inside[..., None] + \
+        background_sampled_color[:, :S] * (1.0 - inside)[..., None]
+    col_full = torch.cat([col_in, background_sampled_color[:, S:]], dim=1)
+    return alpha_full, col_full
+
+
+# ---------------------------------------------------------------------------
 # Render cores
 # ---------------------------------------------------------------------------
 
@@ -259,7 +302,8 @@ def _eikonal_parts(gradients, relax_inside):
     return torch.sum(relax_inside * err), torch.sum(relax_inside)
 
 
-def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sample_dist):
+def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sample_dist,
+                     background_alpha=None, background_sampled_color=None):
     """Plain NeuS core (NeuS.py:199-292)."""
     R, S = z_vals.shape
     dists, mid_z_vals, pts, dirs = _sample_points(rays_o, rays_d, z_vals, sample_dist)
@@ -273,6 +317,9 @@ def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sampl
 
     alpha, prev_cdf = neus_alpha(sdf.reshape(R, S), iter_cos.reshape(R, S), dists, inv_s)
     inside, relaxed = _sphere_masks(pts, R, S)
+    if background_alpha is not None:
+        alpha, sampled_color = _blend_background(
+            alpha, sampled_color, inside, background_alpha, background_sampled_color, S)
 
     weights = exclusive_cumprod_weights(alpha)
     color = torch.sum(sampled_color * weights[..., None], dim=1)
@@ -306,22 +353,86 @@ def _z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
                                perturb_overwrite=perturb_overwrite, sdf_rays_fn=sdf_rays_fn)
 
 
+def _compute_dtype(rcfg: RendererConfig):
+    """The context of rcfg.compute_dtype for the plain path's products."""
+    if rcfg.compute_dtype == "float32":
+        return contextlib.nullcontext()
+    return fields.compute_dtype(getattr(torch, rcfg.compute_dtype))
+
+
+def _chunked_core(core, params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sample_dist,
+                  background_alpha, background_sampled_color):
+    """The core on chunks of rcfg.ray_chunk rays, each under
+    torch.utils.checkpoint: the backward recomputes a chunk's activations
+    instead of holding O(R S width) of them (JAX's jax.checkpoint over
+    lax.map, neus.py:538-575). The core draws no random numbers, so the
+    recomputation keeps no RNG state (a captured step could not read it);
+    it sets rcfg.compute_dtype itself, since it runs again in the backward,
+    outside render_rays. The outputs join as JAX's do: per-ray and flat
+    per-point arrays in ray order, the eikonal parts summed before the
+    ratio."""
+    def chunk_fn(o, d, z, ba, bsc):
+        with _compute_dtype(rcfg):
+            return core(params, rcfg, o, d, z, sample_dist, background_alpha=ba,
+                        background_sampled_color=bsc)
+
+    c = rcfg.ray_chunk
+    outs = []
+    for i in range(0, rays_o.shape[0], c):
+        args = [None if x is None else x[i:i + c]
+                for x in (rays_o, rays_d, z_vals, background_alpha, background_sampled_color)]
+        outs.append(checkpoint(chunk_fn, *args, use_reentrant=False, preserve_rng_state=False))
+    ret = {k: torch.cat([o[k] for o in outs]) for k in outs[0]
+           if k not in ("eik_num", "eik_den", "gradient_error")}
+    ret["eik_num"] = torch.stack([o["eik_num"] for o in outs]).sum()
+    ret["eik_den"] = torch.stack([o["eik_den"] for o in outs]).sum()
+    ret["gradient_error"] = ret["eik_num"] / (ret["eik_den"] + 1e-5)
+    return ret
+
+
 def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
                 generator=None, perturb_overwrite: float = -1.0):
-    """Full forward: hierarchical sampling + core (NeuS.py:294-408).
+    """Full forward: hierarchical sampling + core (NeuS.py:294-408), its
+    MLP products in rcfg.compute_dtype (JAX's neus.py:493-494).
 
     Returns the reference's output dict: color_fine, s_val, cdf_fine,
     weight_sum, weight_max, gradients, weights, gradient_error,
-    inside_sphere, depth (+ global_color / delta_relight for color_neus)."""
+    inside_sphere, depth (+ global_color / delta_relight for color_neus).
+    With n_outside > 0 the weights and depth run over the foreground and
+    background samples together."""
+    with _compute_dtype(rcfg):
+        return _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator,
+                                  perturb_overwrite)
+
+
+def _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite):
     sample_dist = 2.0 / rcfg.n_samples
     z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
+
+    background_alpha = background_sampled_color = None
+    z_vals_feed = z_vals
+    if rcfg.n_outside > 0:
+        # inverted-sphere background samples beyond far (NeuS.py:315-336)
+        t_out = torch.linspace(1e-3, 1.0 - 1.0 / (rcfg.n_outside + 1.0), rcfg.n_outside,
+                               dtype=z_vals.dtype, device=z_vals.device)
+        z_out = far[:, None] / torch.flip(t_out, [-1])[None, :] + 1.0 / rcfg.n_samples
+        z_vals_feed = torch.sort(torch.cat([z_vals, z_out], dim=-1), dim=-1).values
+        out = render_core_outside(params, rcfg, rays_o, rays_d, z_vals_feed, sample_dist)
+        background_alpha, background_sampled_color = out["alpha"], out["sampled_color"]
 
     if rcfg.kind == "color_neus":
         from color_neus_torch.models.color_neus import render_core_color_neus
         core = render_core_color_neus
     else:
         core = render_core_neus
-    ret = core(params, rcfg, rays_o, rays_d, z_vals, sample_dist)
+    R = rays_o.shape[0]
+    if rcfg.ray_chunk > 0 and R > rcfg.ray_chunk and R % rcfg.ray_chunk == 0:
+        ret = _chunked_core(core, params, rcfg, rays_o, rays_d, z_vals, sample_dist,
+                            background_alpha, background_sampled_color)
+    else:
+        ret = core(params, rcfg, rays_o, rays_d, z_vals, sample_dist,
+                   background_alpha=background_alpha,
+                   background_sampled_color=background_sampled_color)
 
     weights = ret["weights"]
     out = {
@@ -334,7 +445,7 @@ def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
         "weights": weights,
         "gradient_error": ret["gradient_error"],
         "inside_sphere": ret["inside_sphere"],
-        "depth": torch.sum(weights * z_vals, dim=-1),
+        "depth": torch.sum(weights * z_vals_feed, dim=-1),
     }
     for k in ("global_color", "delta_relight"):
         if k in ret:
@@ -343,9 +454,9 @@ def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
 
 
 def _use_fused_march(rcfg: RendererConfig) -> bool:
-    """fused_march 'on' runs the march; 'auto' and 'off' the plain core
-    (see the module note)."""
-    return rcfg.fused_march == "on"
+    """fused_march 'on' runs the march, unless a background model is on;
+    'auto' and 'off' the plain core (see the module note)."""
+    return rcfg.fused_march == "on" and rcfg.n_outside == 0
 
 
 def _fused_out16(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,

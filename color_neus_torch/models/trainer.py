@@ -179,12 +179,31 @@ def clip_per_leaf(params: nn.Module, max_norm: float) -> None:
             p.grad.mul_(torch.clamp(max_norm / torch.clamp_min(n, 1e-6), max=1.0))
 
 
+class DeviceSGD(torch.optim.Optimizer):
+    """Plain SGD, p <- p - g * lr, as JAX's make_optimizer('sgd') updates
+    (the gradient scaled by the schedule, then negated): the product and
+    the subtraction as two foreach ops on the device, the lr a 0-d tensor
+    read there. torch's SGD reads a tensor lr on the host, which a captured
+    step cannot do. No state."""
+
+    def __init__(self, params, lr: torch.Tensor):
+        super().__init__(params, {"lr": lr})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if ps:
+                torch._foreach_sub_(ps, torch._foreach_mul([p.grad for p in ps], group["lr"]))
+
+
 def make_optimizer(cfg: TrainerConfig, params: nn.Module) -> torch.optim.Optimizer:
     """Optimizer families of build_optimizer_nerf (net_utils.py:81-106).
     The lr is a 0-d tensor on the parameters' device that every step
     overwrites from the schedule; on CUDA Adam and RMSprop are capturable
-    (their step counts and bias corrections stay on the device). SGD reads
-    a tensor lr on the host, so it cannot be captured (MultiStep raises)."""
+    (their step counts and bias corrections stay on the device), and SGD
+    (DeviceSGD) reads its lr only there, so every family runs in a captured
+    bundle."""
     dev = next(params.parameters()).device
     lr = torch.zeros((), dtype=torch.float32, device=dev)
     capturable = dev.type == "cuda"
@@ -196,7 +215,7 @@ def make_optimizer(cfg: TrainerConfig, params: nn.Module) -> torch.optim.Optimiz
         return torch.optim.RMSprop(params.parameters(), lr=lr, alpha=0.99, eps=1e-8,
                                    capturable=capturable)
     if kind == "sgd":
-        return torch.optim.SGD(params.parameters(), lr=lr)
+        return DeviceSGD(params.parameters(), lr)
     raise NotImplementedError(f"optimizer {cfg.optimizer}")
 
 
@@ -345,6 +364,21 @@ def render_pixels(params, scene, cfg: TrainerConfig, images, img_ids,
 # Train step
 # ---------------------------------------------------------------------------
 
+def apply_gradients(state: TrainState, cfg: TrainerConfig) -> torch.Tensor:
+    """The update of make_optimizer's chain on the parameters' .grad: the
+    per-leaf clip, the lr of the schedule at the device step, the
+    optimizer's step; advances the step. Returns the lr (0-d, no sync)."""
+    if cfg.grad_clip_enabled:
+        clip_per_leaf(state.params, cfg.grad_clip_norm)
+    lr = lr_schedule(cfg)(state.step_t)
+    for group in state.optimizer.param_groups:
+        group["lr"].copy_(lr)
+    state.optimizer.step()
+    state.step_t.add_(1)
+    state.step += 1
+    return lr
+
+
 def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_ids,
                       cam_sel, py, px, sel_mask, generator) -> dict:
     """One optimisation step on the given pixels; updates `state` in place
@@ -354,14 +388,7 @@ def train_step_pixels(state: TrainState, scene, cfg: TrainerConfig, images, img_
                            sel_mask, generator)
     loss, loss_dict = compute_loss(cfg, render)
     loss.backward()
-    if cfg.grad_clip_enabled:
-        clip_per_leaf(state.params, cfg.grad_clip_norm)
-    lr = lr_schedule(cfg)(state.step_t)
-    for group in state.optimizer.param_groups:
-        group["lr"].copy_(lr)
-    state.optimizer.step()
-    state.step_t.add_(1)
-    state.step += 1
+    lr = apply_gradients(state, cfg)
 
     aux = {k: v.detach() for k, v in loss_dict.items()}
     aux["s_val"] = torch.mean(render["s_val"]).detach()
@@ -450,12 +477,6 @@ class MultiStep:
 
     def _capture(self, state, scene, images, masks, generator):
         from color_neus_torch.ops.kernels import launch_counts
-        if self.cfg.optimizer.lower() == "sgd":
-            raise NotImplementedError(
-                "a captured bundle needs an optimizer that reads its tensor lr on the "
-                "device: torch's SGD reads it on the host, so SGD cannot bundle steps on "
-                "CUDA (set intervals that are not multiples of LOG_INTERVAL for one "
-                "step per dispatch)")
         self.graph = self._out = None            # a stale graph's pool goes first
         dev = images.device
         stream = torch.cuda.Stream(dev)

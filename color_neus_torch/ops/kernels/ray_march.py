@@ -12,7 +12,9 @@ to the rays and to inv_s.
 The backward either recomputes the layer activations (JAX's march_acts
 recompute) or, in the save mode (save), loads them from a stash the
 forward wrote; resolve_save_acts picks the mode as JAX does ('auto' saves
-when march_stash_bytes fits the budget). Forward, two implementations of
+when JAX's count of the stash, policy_stash_bytes, fits the budget; the
+kernel's own stash, march_stash_bytes, is smaller). Forward, two
+implementations of
 one function:
   * launch_ray_march: the first entry of the hand-written CUDA source
     csrc/ray_march.cu (its note gives the bound and the design); it also
@@ -54,6 +56,7 @@ from torch.autograd.function import once_differentiable
 
 from color_neus_torch.models.configs import RendererConfig
 from color_neus_torch.models.fields import resolve_linear
+from color_neus_torch.ops.embedding import embedding_dim
 from color_neus_torch.ops.kernels import point_pipeline as PP
 
 KERNEL = "ray_march"
@@ -269,10 +272,47 @@ def march_stash_bytes(net, n_pts: int) -> int:
     return n_pts * (act_bytes(net) + STASH * 4)
 
 
+def _rup(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def stash_lane_widths(net) -> tuple:
+    """(DX, DCR, DG): the lane widths of JAX's save-mode stash tensors
+    (point_pipeline.py stash_lane_widths), rebuilt from the widths: every
+    stored SDF layer input (layer 0's PE and the skip's PE half are
+    rebuilt, not stored), the colour net's feature and hidden inputs and
+    the relight net's hidden inputs, each padded to 128 lanes; the outs
+    plane (sdf, grad, colour, relit, delta) padded to 128 f32 lanes."""
+    rcfg = getattr(net, "rcfg", net)
+    sdf, color, rl = rcfg.sdf, rcfg.color, rcfg.relight
+    d0 = embedding_dim(3, sdf.multires) if sdf.multires > 0 else 3
+    dims = [d0] + [sdf.d_hidden] * sdf.n_layers + [sdf.d_out]
+    # layer l's stored input: the previous layer's output, padded (the
+    # skip layer's h half: its input less the PE)
+    dx = sum(_rup(dims[l] - d0 if l in sdf.skip_in else dims[l])
+             for l in range(1, sdf.n_layers + 1))
+    dcr = _rup(sdf.d_out - 1) + color.n_layers * _rup(color.d_hidden)
+    if rcfg.kind == "color_neus":
+        dcr += rl.n_layers * _rup(rl.d_hidden)
+    return dx, dcr, 128
+
+
+def policy_stash_bytes(net, n_pts: int) -> int:
+    """JAX's march_stash_bytes: the bytes 'auto' weighs against the budget
+    (its SX stash in bf16 under march_bwd_precision 'bf16', else f32; SCR
+    bf16; SG f32). Its outs plane takes 128 f32 lanes where the kernel's
+    layout keeps 8 floats, so it exceeds the kernel's own stash
+    (march_stash_bytes); 'auto' decides on it so that the port picks the
+    backward JAX picks at every shape."""
+    dx, dcr, dg = stash_lane_widths(net)
+    sx = 2 if getattr(net, "rcfg", net).march_bwd_precision == "bf16" else 4
+    return n_pts * (dx * sx + dcr * 2 + dg * 4)
+
+
 def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -> bool:
     """The march's backward for a march_acts policy (JAX ray_march.py
     resolve_save_acts): 'save' / True and 'recompute' / False / None pass
-    through; 'auto' saves when march_stash_bytes fits the budget in GiB
+    through; 'auto' saves when policy_stash_bytes fits the budget in GiB
     (the environment's MARCH_STASH_BUDGET_GB first, then budget_gb, then
     STASH_BUDGET_GB), else recomputes; anything else raises ValueError."""
     if policy in (True, "save"):
@@ -285,7 +325,7 @@ def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -
         budget_gb = float(os.environ["MARCH_STASH_BUDGET_GB"])
     elif budget_gb is None:
         budget_gb = STASH_BUDGET_GB
-    return march_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
+    return policy_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
 
 
 def _library(mode: str = "f32stash"):

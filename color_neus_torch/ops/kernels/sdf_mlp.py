@@ -15,9 +15,11 @@ The sdf_fn that make_fused_sdf_fn returns picks between them by the
 device of the tensors it is given, and by nothing else.
 
 Precision (RendererConfig.extract_precision): 'f32' runs exact f32 FMAs,
-'bf16' the tensor-core mode (weights and layer inputs rounded to bf16).
-The PE phase is exact f32 in both. 'f32x3' (the TPU's 3-pass split) is
-not ported: RendererConfig raises on it.
+'bf16' the tensor-core mode (weights and layer inputs rounded to bf16),
+'f32x3' JAX's 3-pass split on the tensor cores (every f32 layer input and
+weight split into bf16 hi and lo parts, hi.hi + hi.lo + lo.hi summed in
+f32: only lo.lo is missing, ~2^-16 relative; the activations stay f32
+between layers). The PE phase is exact f32 in all three.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from color_neus_torch.ops.kernels.sdf_rays import (
 # depend on the batch it arrives in; fixed-size chunks keep it the same in
 # every batch (the sparse and dense grids must agree bitwise).
 PLAIN_CHUNK = 4096
-_PRECISION = {"f32": "float32", "bf16": "bfloat16"}
+_PRECISION = {"f32": "float32", "bf16": "bfloat16", "f32x3": "f32x3"}
+# sdf_points_launch's mode argument of each SweepWeights.dtype
+_MODE = {"float32": 0, "bfloat16": 1, "f32x3": 2}
 
 
 def sdf_points_plain(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
@@ -64,7 +68,7 @@ def launch_sdf_points(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.sdf_points_launch(pts.data_ptr(), sw.packed.data_ptr(), sw.bias.data_ptr(),
                                out.data_ptr(), n, n_lin, skip, d0, float(sw.cfg.scale),
-                               int(sw.dtype == "bfloat16"), stream)
+                               _MODE[sw.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"sdf_points kernel launch failed: CUDA error {rc} "
                            f"({lib.sdf_rays_error_string(rc).decode()})")
@@ -80,7 +84,7 @@ def make_fused_sdf_fn(params, cfg: SDFConfig, prec: str = "f32"):
     tensors, the plain version for CPU tensors. Weights are resolved (and
     packed) once, here, and kept as sdf_fn.weights."""
     if prec not in _PRECISION:
-        raise ValueError(f"extract_precision={prec!r} not in ('f32', 'bf16')")
+        raise ValueError(f"extract_precision={prec!r} not in {tuple(_PRECISION)}")
     sw = resolve_sweep_weights(params, cfg, _PRECISION[prec], "softplus")
 
     def sdf_fn(pts):

@@ -12,7 +12,8 @@ Two implementations of one function:
     or launch failure.
   * sdf_rays_plain: the same arithmetic in plain PyTorch (the counterpart
     of make_xla_sdf_rays_fn). In bf16 mode it rounds every layer input
-    and weight to bf16 and multiplies in f32, emulating the kernel; its
+    and weight to bf16 and multiplies in f32, emulating the kernel (the
+    grid SDF's f32x3 mode: three products of their bf16 hi / lo parts); its
     softplus and its last division are the kernel's (the log term times
     0.01, the output times the f32 reciprocal of scale). Runs for CPU
     tensors, and is what tests and chip_smoke.py compare the kernel
@@ -47,7 +48,8 @@ class SweepWeights:
 
     layers: [(w [in, out] f32, b [out] f32)] in the network's own widths,
     the last layer cut to its sdf row (w [in, 1]); packed / bias: the
-    kernel's buffers (None for CPU weights)."""
+    kernel's buffers (None for CPU weights). dtype: 'bfloat16', 'float32'
+    or 'f32x3' (the grid SDF's 3-pass split, sdf_mlp.py)."""
     cfg: SDFConfig
     layers: list
     dtype: str
@@ -75,8 +77,11 @@ def pack_sdf_weights(layers, cfg: SDFConfig, dtype: str):
     bf16 blocks are in mma.m16n8k16 B-fragment order (point_pipeline._frag),
     so each 16-row k-step is one 8 KB slab of the kernel's weight ring and
     each warp's 32 columns of it one contiguous kilobyte; f32 blocks stay
-    row-major (8 rows a slab). Bias as [n_lin, 256] f32. Zero padding keeps
-    the math exact: padded inputs meet zero weight rows."""
+    row-major (8 rows a slab). f32x3: each k-step's hi slab (the block in
+    bf16) then its lo slab (bf16 of the block less its hi part), both in
+    fragment order, then the last row's hi and lo parts. Bias as
+    [n_lin, 256] f32. Zero padding keeps the math exact: padded inputs meet
+    zero weight rows."""
     d0, skip, n_lin = _check_kernel_shape(cfg)
     dev = layers[0][0].device
     blocks = []
@@ -94,12 +99,17 @@ def pack_sdf_weights(layers, cfg: SDFConfig, dtype: str):
         else:
             wp = torch.zeros((HID, HID), device=dev)
             wp[:d_in, :d_out] = w
-        blocks.append(_frag(wp) if dtype == "bfloat16" else wp.reshape(-1))
+        if dtype == "f32x3":
+            hi, lo = _split(wp)
+            blocks.append(torch.stack([_frag(hi).reshape(-1, 16 * HID),
+                                       _frag(lo).reshape(-1, 16 * HID)], 1).reshape(-1))
+        else:
+            blocks.append(_frag(wp) if dtype == "bfloat16" else wp.reshape(-1))
         bias[l, :d_out] = b
     w_last, b_last = layers[-1]
-    blocks.append(w_last[:, 0])
+    blocks.extend(_split(w_last[:, 0]) if dtype == "f32x3" else [w_last[:, 0]])
     bias[n_lin - 1, 0] = b_last[0]
-    torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    torch_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
     return torch.cat([t.to(torch_dtype) for t in blocks]).contiguous(), bias.contiguous()
 
 
@@ -107,7 +117,8 @@ def resolve_sweep_weights(params, cfg: SDFConfig, dtype: str = "bfloat16",
                           act: str = "softplus") -> SweepWeights:
     """Resolve weight norm once per step (no grad: the sweep only places
     samples) and, for CUDA weights, pack the kernel's buffers."""
-    if dtype not in ("bfloat16", "float32") or act not in ("softplus", "relu"):
+    if dtype not in ("bfloat16", "float32", "f32x3") or act not in ("softplus", "relu") \
+            or (dtype == "f32x3" and act != "softplus"):
         raise ValueError(f"sweep dtype={dtype!r} act={act!r}")
     n_lin = cfg.n_layers + 1
     with torch.no_grad():
@@ -130,6 +141,20 @@ def _softplus100_stable(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-100.0 * torch.abs(x))) * 0.01
 
 
+def _split(x: torch.Tensor):
+    """(hi, lo) bf16 parts of f32 x as f32: hi = bf16(x), lo = bf16(x - hi)
+    (sdf_mlp.py::_sdf_layers' _split)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def x3_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in three products of bf16-valued parts, hi.hi + hi.lo + lo.hi
+    summed in f32 (sdf_mlp.py::_sdf_layers, prec='f32x3')."""
+    (x_hi, x_lo), (w_hi, w_lo) = _split(x), _split(w)
+    return x_hi @ w_hi + x_hi @ w_lo + x_lo @ w_hi
+
+
 def inv_scale(cfg: SDFConfig) -> float:
     """1 / scale rounded to f32, as the kernel's launch computes it."""
     return float(np.float32(1.0) / np.float32(cfg.scale))
@@ -146,10 +171,13 @@ def sdf_mlp_plain(sw: SweepWeights, pts: torch.Tensor) -> torch.Tensor:
     for l, (w, b) in enumerate(sw.layers):
         if l in cfg.skip_in:
             h = torch.cat([h, emb], dim=-1) * _INV_SQRT2
-        if bf16:
-            h = h.to(torch.bfloat16).float()
-            w = w.to(torch.bfloat16).float()
-        h = h @ w + b
+        if sw.dtype == "f32x3":
+            h = x3_product(h, w) + b
+        else:
+            if bf16:
+                h = h.to(torch.bfloat16).float()
+                w = w.to(torch.bfloat16).float()
+            h = h @ w + b
         if l < n_lin - 1:
             h = torch.relu(h) if sw.act == "relu" else _softplus100_stable(h)
     return h[:, 0] * inv_scale(cfg)
@@ -174,6 +202,8 @@ def launch_sdf_rays(sw: SweepWeights, rays_o, rays_d, z) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; returns sdf [R, S]."""
     if sw.packed is None:
         raise ValueError("sdf_rays: weights were resolved on the CPU")
+    if sw.dtype == "f32x3":
+        raise ValueError("sdf_rays: f32x3 is the grid SDF's mode (sdf_mlp.py), not the sweep's")
     R, S = z.shape
     dev = z.device
     _check("rays_o", rays_o, (R, 3), dev)

@@ -454,3 +454,80 @@ def read_ply(path: str):
             colors = None
         face = np.frombuffer(f.read(n_face * 13), dtype=[("n", "u1"), ("idx", "<i4", 3)])
         return verts, face["idx"].copy(), colors
+
+
+def normalize_point_cloud(pts: np.ndarray) -> np.ndarray:
+    """Centre and scale to a largest |coordinate| of 1 (mesh_tools.py's
+    point-cloud normalisation)."""
+    pts = np.asarray(pts, np.float32)
+    pts = pts - pts.mean(axis=0)
+    return pts / max(np.abs(pts).max(), 1e-12)
+
+
+def write_glb(path: str, vertices: np.ndarray, triangles: np.ndarray,
+              vertex_colors: np.ndarray | None = None):
+    """Binary glTF 2.0 (one mesh: POSITION, optional COLOR_0 in [0, 1],
+    uint32 indices), the JAX package's layout byte for byte but for the
+    generator string (the reference's ply -> glb export, mesh_tools.py)."""
+    import json
+    import struct
+
+    v = np.asarray(vertices, np.float32)
+    t = np.asarray(triangles, np.uint32).reshape(-1)
+    buffers = [v.tobytes(), t.tobytes()]
+    accessors = [
+        {"bufferView": 0, "componentType": 5126, "count": len(v), "type": "VEC3",
+         "min": v.min(0).tolist(), "max": v.max(0).tolist()},
+        {"bufferView": 1, "componentType": 5125, "count": len(t), "type": "SCALAR"},
+    ]
+    attributes = {"POSITION": 0}
+    if vertex_colors is not None:
+        c = np.clip(np.asarray(vertex_colors, np.float32), 0, 1)
+        buffers.append(c.tobytes())
+        accessors.append({"bufferView": 2, "componentType": 5126, "count": len(c),
+                          "type": "VEC3"})
+        attributes["COLOR_0"] = 2
+    views, offset = [], 0
+    for b in buffers:
+        views.append({"buffer": 0, "byteOffset": offset, "byteLength": len(b)})
+        offset += len(b) + (-len(b)) % 4
+    gltf = {
+        "asset": {"version": "2.0", "generator": "color_neus_torch"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": attributes, "indices": 1}]}],
+        "bufferViews": views,
+        "accessors": accessors,
+        "buffers": [{"byteLength": offset}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    bin_chunk = b"".join(b + b"\x00" * ((-len(b)) % 4) for b in buffers)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(js) + 8 + len(bin_chunk)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A))        # JSON chunk
+        f.write(js)
+        f.write(struct.pack("<II", len(bin_chunk), 0x004E4942))  # BIN chunk
+        f.write(bin_chunk)
+
+
+def read_glb(path: str) -> tuple:
+    """(the JSON chunk as a dict, the BIN chunk's bytes) of a file written
+    by write_glb; raises ValueError on a bad header or chunk length."""
+    import json
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version, total = struct.unpack_from("<III", data, 0)
+    if magic != 0x46546C67 or version != 2 or total != len(data):
+        raise ValueError(f"{path}: not a glTF 2.0 binary of its length")
+    n_js, kind = struct.unpack_from("<II", data, 12)
+    if kind != 0x4E4F534A:
+        raise ValueError(f"{path}: the first chunk is not JSON")
+    gltf = json.loads(data[20:20 + n_js])
+    n_bin, kind = struct.unpack_from("<II", data, 20 + n_js)
+    if kind != 0x004E4942 or 28 + n_js + n_bin != len(data):
+        raise ValueError(f"{path}: bad BIN chunk")
+    return gltf, data[28 + n_js:]

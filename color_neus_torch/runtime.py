@@ -259,6 +259,11 @@ class TrainLoop:
     # ------------------------------------------------------------------
     # Trainer lifecycle (the reference's model_abstraction.py:4-37 names)
     # ------------------------------------------------------------------
+    def compute_loss(self, aux: dict) -> float:
+        """Scalar loss of a step's aux (the step assembles it:
+        models/trainer.compute_loss, NeuS_Trainer.py:129-171)."""
+        return float(aux["loss"])
+
     def on_train_finished(self, step: int) -> None:
         self.recorder.record_loss(self.loss_metric, step, comment="train-")
         self.loss_metric.reset()

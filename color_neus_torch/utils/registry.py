@@ -1,4 +1,5 @@
-"""String -> factory registries (copy of color_neus_tpu/utils/registry.py).
+"""String -> factory registries for datasets / models / renderers (copy of
+color_neus_tpu/utils/registry.py).
 
 Slim equivalent of the reference's mmcv-style Registry
 (lib/utils/builder.py:50-309): register classes by name, build from a
@@ -36,3 +37,5 @@ class Registry:
 
 
 DATASET = Registry("dataset")
+MODEL = Registry("model")
+RENDERER = Registry("renderer")

@@ -1,7 +1,7 @@
 // Appended to csrc/sdf_rays.cu (same translation unit, so it reaches the
 // kernels in its unnamed namespace) by tests/test_torch_sdf_rays_emulated.py.
-// Usage: emu DIR. Reads from DIR: meta.i64 (n_pts, S, n_lin, skip, d0, bf16,
-// relu, points), f32.f32 (scale), w.bin (the
+// Usage: emu DIR. Reads from DIR: meta.i64 (n_pts, S, n_lin, skip, d0, mode
+// (0 f32, 1 bf16, 2 f32x3), relu, points), f32.f32 (scale), w.bin (the
 // packed weights as the wrapper packs them: bf16 fragment order or f32),
 // bias.f32, and either
 // rays_o.f32, rays_d.f32 and z.f32 (the sweep) or pts.f32 (the grid SDF);
@@ -18,7 +18,9 @@ emu_dim3 blockIdx, blockDim, gridDim;
 std::barrier<>* emu_barrier;
 float emu_shuffle[512];
 namespace {
-alignas(128) unsigned char smem[SMEM_F32 > SMEM_BF16 ? SMEM_F32 : SMEM_BF16];
+constexpr size_t SMEM_MAX = SMEM_F32 > SMEM_BF16 ? (SMEM_F32 > SMEM_X3 ? SMEM_F32 : SMEM_X3)
+                                                  : (SMEM_BF16 > SMEM_X3 ? SMEM_BF16 : SMEM_X3);
+alignas(128) unsigned char smem[SMEM_MAX];
 }
 
 static std::vector<char> slurp(const std::string& path) {
@@ -44,7 +46,8 @@ int main(int argc, char** argv) {
   const auto w = slurp(d + "/w.bin"), bias = slurp(d + "/bias.f32");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const int n = int(m[0]), S = int(m[1]), n_lin = int(m[2]), skip = int(m[3]), d0 = int(m[4]);
-  const bool bf16 = m[5], relu = m[6], points = m[7];
+  const int mode = int(m[5]);
+  const bool relu = m[6], points = m[7];
   std::vector<char> ro, rd, z, pts;
   if (points) {
     pts = slurp(d + "/pts.f32");
@@ -58,7 +61,7 @@ int main(int argc, char** argv) {
   Params p{points ? nullptr : F(ro), points ? nullptr : F(rd), points ? nullptr : F(z),
            points ? F(pts) : nullptr, w.data(), F(bias), out.data(), n, S, n_lin, skip, d0,
            scale, 1.f / scale};
-  const Choice c = choose(bf16, relu, points);
+  const Choice c = choose(mode, relu, points);
   gridDim.x = unsigned((n + c.pts - 1) / c.pts);
   blockDim.x = unsigned(c.threads);
   std::barrier<> bar(c.threads);

@@ -24,8 +24,9 @@ mode's stash size and policy per mode, and the main path's mode.
     check); the save mode's stash bytes a point at the Color-NeuS widths of
     config/Color_NeuS_dtu.yml per mode (8,768 in 'bf16', 12,864 otherwise;
     NeuS 6,720 / 10,816) and JAX's march_stash_bytes' difference between
-    the modes; 'auto' saves exactly
-    at each mode's budget and not one point past it; render_rays_train
+    the modes; 'auto' decides on JAX's count (policy_stash_bytes) and
+    agrees with JAX's resolve_save_acts at each mode's flip point +-1;
+    render_rays_train
     runs the resolved mode's twins (the save twins in 'bf16' at a budget
     that the f32stash stash overflows)."""
 
@@ -297,14 +298,39 @@ def test_stash_bytes_per_mode_at_the_config_widths(kind, prec, want):
     jax_saved = JRM.march_stash_bytes(metas[1], 1) - JRM.march_stash_bytes(metas[0], 1)
     port0 = dataclasses.replace(pr, march_bwd_precision="f32stash")
     assert RM.march_stash_bytes(port0, 1) - want == jax_saved
+    assert RM.policy_stash_bytes(pr, 1) == JRM.march_stash_bytes(metas[0], 1)
 
 
 @pytest.mark.parametrize("prec", ["f32stash", "bf16", "f32"])
 def test_auto_flips_at_each_modes_budget(prec, monkeypatch):
+    """'auto' decides on JAX's count of the stash (policy_stash_bytes: its
+    outs plane padded to 128 lanes), not the kernel's smaller one: at the widths
+    of config/Color_NeuS_dtu.yml and its 13.5 GiB budget the port and JAX's
+    resolve_save_acts agree at the mode's flip point and one point either
+    side (the kernel's bytes would flip 1,126,827 - 1,088,906 points later
+    in f32stash / f32, 1,653,229 - 1,572,865 in bf16); at the small widths
+    'auto' saves exactly at a budget of policy_stash_bytes and not one
+    point past it."""
     monkeypatch.delenv("MARCH_STASH_BUDGET_GB", raising=False)
+    pr = dataclasses.replace(configs.renderer_config_from_cfg(get_config(DTU)["MODEL"]
+                                                              ["RENDERER"]),
+                             march_bwd_precision=prec)
+    jr = dataclasses.replace(jax_renderer_cfg(jax_get_config(DTU)["MODEL"]["RENDERER"]),
+                             march_bwd_precision=prec)
+    params = jneus.init_renderer(jax.random.PRNGKey(0), jr)
+    meta = JPP.pack_pipeline_weights(JPP.resolve_dense(params, jr), jr)[2]
+    assert RM.policy_stash_bytes(pr, 1) == JRM.march_stash_bytes(meta, 1)
+    assert RM.stash_lane_widths(pr) == JPP.stash_lane_widths(meta)
+    budget = pr.march_stash_budget_gb
+    flip = int(budget * 1024 ** 3) // JRM.march_stash_bytes(meta, 1)
+    assert RM.march_stash_bytes(pr, flip + 1) <= budget * 1024 ** 3   # the kernel's would save
+    for n_pts, want in ((flip - 1, True), (flip, True), (flip + 1, False)):
+        assert JRM.resolve_save_acts("auto", meta, n_pts, budget_gb=budget) is want
+        assert RM.resolve_save_acts(pr.march_acts, pr, n_pts, budget) is want, n_pts
+
     pr = dataclasses.replace(port_cfg(SMALL_COLOR), march_bwd_precision=prec)
     n_pts = 4 * (pr.n_samples + pr.n_importance)
-    budget = RM.march_stash_bytes(pr, n_pts) / 1024 ** 3
+    budget = RM.policy_stash_bytes(pr, n_pts) / 1024 ** 3
     assert RM.resolve_save_acts("auto", pr, n_pts, budget_gb=budget) is True
     assert RM.resolve_save_acts("auto", pr, n_pts + 1, budget_gb=budget) is False
 
@@ -323,8 +349,8 @@ def test_render_rays_train_runs_the_resolved_modes_twins(prec, saved):
     o, d = torch.tensor(np.asarray(ro)), torch.tensor(np.asarray(rd))
     near, far = near_far_from_sphere(o, d)
     n_pts = 3 * (base.n_samples + base.n_importance)
-    small = RM.march_stash_bytes(dataclasses.replace(base, march_bwd_precision="bf16"), n_pts)
-    large = RM.march_stash_bytes(base, n_pts)
+    small = RM.policy_stash_bytes(dataclasses.replace(base, march_bwd_precision="bf16"), n_pts)
+    large = RM.policy_stash_bytes(base, n_pts)
     assert small < large
     budget = (small + large) / 2 / 1024 ** 3
     os.environ.pop("MARCH_STASH_BUDGET_GB", None)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RTOL_PIPELINE, _nrel
+from chip_smoke import ATOL_GRID, RTOL_PIPELINE, _nrel
 from color_neus_torch import pin_precision
 from color_neus_torch.models.configs import SDFConfig
 from color_neus_torch.models.fields import init_sdf
@@ -68,7 +68,7 @@ def test_cuda_kernel_matches_plain(cuda_device, act, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("prec", ["f32", "bf16", "f32x3"])
 def test_cuda_grid_sdf_matches_plain(cuda_device, prec):
     from color_neus_torch.ops.kernels import sdf_mlp
     cfg = SDFConfig()
@@ -86,9 +86,9 @@ def test_cuda_grid_sdf_matches_plain(cuda_device, prec):
         torch.cuda.synchronize()
         assert sdf_mlp.launch_sdf_points.launches == before + 1
         want = sdf_mlp.sdf_points_plain(fn.weights, pts)
-        # chip_smoke.py ATOL_GRID, set from the card's readings
-        atol = 2e-6 if prec == "f32" else 6e-3
-        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        # chip_smoke.py ATOL_GRID, set from the card's readings (f32x3: from
+        # the split's own error, test_torch_mesh.py)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL_GRID[prec])
 
 
 @pytest.mark.cuda
@@ -372,6 +372,47 @@ def test_cuda_mlp_chain_matches_plain(cuda_device, bf16):
                 assert MC.launch_chain_deferred.launches == before + 1
                 torch.testing.assert_close(got, MC.chain_deferred_plain(xs, w, L, gw), rtol=0,
                                            atol=atol, msg=f"deferred gate {gw} L {L}")
+
+
+def _replay_equals_steps(loop, captured):
+    """Warm up, capture and replay; then, from one state, a replay equals
+    BUNDLE uncaptured steps bitwise and runs the captured launches."""
+    from chip_smoke import BUNDLE, restore, state_tensors, tensors_distance
+    assert loop.k_steps == BUNDLE
+    loop.run(2 * BUNDLE)
+    ms = loop.multi_step
+    assert ms.graph is not None and ms.replays == 1
+    assert dict(ms.captured) == captured
+    step, s0 = loop.state.step, state_tensors(loop)
+    losses = torch.stack([loop.training_step()["loss"] for _ in range(BUNDLE)])
+    eager = dict(state_tensors(loop), losses=losses)
+    restore(loop, s0, step)
+    _, losses = loop.training_bundle()
+    assert ms.replays == 2 and loop.state.step == step + BUNDLE
+    assert tensors_distance(eager, dict(state_tensors(loop), losses=losses))[0] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_captured_sgd_bundle_equals_uncaptured_steps(cuda_device):
+    """OPTIMIZE.TYPE sgd captures (DeviceSGD reads its lr on the device):
+    the fused march's bundle replayed bitwise equal to 10 uncaptured steps."""
+    from chip_smoke import BUNDLE, sgd_cfg
+    from color_neus_torch.runtime import TrainLoop
+    loop = TrainLoop(sgd_cfg(), device=cuda_device)
+    _replay_equals_steps(loop, {"sdf_rays": 4 * BUNDLE, "ray_march_save": BUNDLE,
+                                "ray_march_bwd_load": BUNDLE})
+
+
+@pytest.mark.cuda
+def test_cuda_captured_chunked_bundle_equals_uncaptured_steps(cuda_device):
+    """RAY_CHUNK 256 on the plain core (fused_march auto): the chunks'
+    checkpointed recomputation captures (no RNG state read), and a replay
+    equals 10 uncaptured steps bitwise."""
+    from chip_smoke import BUNDLE, arm_cfg
+    from color_neus_torch.runtime import TrainLoop
+    loop = TrainLoop(arm_cfg("auto_chunked"), device=cuda_device)
+    assert loop.tcfg.renderer.ray_chunk == 256
+    _replay_equals_steps(loop, {"sdf_rays": 4 * BUNDLE})
 
 
 @pytest.mark.cuda

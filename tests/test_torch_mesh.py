@@ -69,6 +69,53 @@ def test_grid_sdf_plain_matches_jax_kernel(full):
         sdf_mlp.make_fused_sdf_fn(state_from_numpy(params), cfg_p, prec="f16")
 
 
+def test_grid_sdf_f32x3_twin_matches_jax_split():
+    """extract_precision f32x3: the plain twin against JAX's _sdf_layers with
+    prec='f32x3' (the kernel body's arithmetic, called eagerly on
+    pack_sdf_weights' output: JAX's interpret mode drops prec), full width,
+    4096 points off geometric init. One layer on the same f32 input (each
+    packed layer, as a one-layer _sdf_layers): atol 1e-6 x its largest
+    |output| (the same exact products of the same bf16 hi / lo parts,
+    summed in f32 in other orders). The whole net: atol 2e-5. The split's
+    own error (the lo part's bf16 rounding, the missing lo.lo, ~2^-16
+    relative) depends on the last bits of each layer's f32 input, which
+    two summation orders set differently, so two f32x3 chains sit about as
+    far apart as each sits from f32 (read 6.0e-6 apart, 1.17e-5 / 1.14e-5
+    from f32). That distance from the f32 twin (1.3e-5 at 65,536 points)
+    sets chip_smoke.ATOL_GRID['f32x3'] (4e-5) for the kernel against this
+    twin, for the same reason."""
+    import jax.numpy as jnp
+    from chip_smoke import ATOL_GRID
+    from color_neus_tpu.ops.embedding import positional_encoding as jpe
+    from color_neus_tpu.ops.pallas import sdf_mlp as jsdf
+    cfg_j, cfg_p = jconfigs.SDFConfig(), configs.SDFConfig()
+    rng = np.random.RandomState(0)
+    params = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + 0.02 * rng.randn(*a.shape)).astype(np.float32),
+        jfields.init_sdf(jax.random.PRNGKey(3), cfg_j))
+    pts = rng.uniform(-1.05, 1.05, (4096, 3)).astype(np.float32)
+    ws, bs, meta = jsdf.pack_sdf_weights(params, cfg_j)
+    emb = jpe(jnp.asarray(pts) * cfg_j.scale, cfg_j.multires)
+    emb = jnp.pad(emb, ((0, 0), (0, meta["d0p"] - emb.shape[1])))
+    want = np.asarray(jsdf._sdf_layers(meta, meta["n_lin"], ws, bs, emb, prec="f32x3")[:, 0]
+                      / cfg_j.scale)
+    from color_neus_torch.ops.kernels.sdf_rays import x3_product
+    for l, (w, b) in enumerate(zip(ws, bs)):
+        x = rng.uniform(-1, 1, (512, w.shape[0])).astype(np.float32)
+        one = {"widths": [("dense", w.shape[0], w.shape[0])]}
+        ref = np.asarray(jsdf._sdf_layers(one, 1, [w], [b], jnp.asarray(x), prec="f32x3"))
+        mine = (x3_product(torch.from_numpy(x), torch.from_numpy(np.asarray(w)))
+                + torch.from_numpy(np.asarray(b))).numpy()
+        np.testing.assert_allclose(mine, ref, atol=1e-6 * np.abs(ref).max(), rtol=0,
+                                   err_msg=f"layer {l}")
+    pp = state_from_numpy(params)
+    got = sdf_mlp.make_fused_sdf_fn(pp, cfg_p, prec="f32x3")(torch.from_numpy(pts)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    f32 = sdf_mlp.make_fused_sdf_fn(pp, cfg_p, prec="f32")(torch.from_numpy(pts)).numpy()
+    dist = float(np.abs(got - f32).max())
+    assert 1e-7 < dist < ATOL_GRID["f32x3"] / 2, dist
+
+
 def _field(res, seed=0):
     rng = np.random.RandomState(seed)
     ax = np.linspace(-1, 1, res, dtype=np.float32)
@@ -135,6 +182,47 @@ def test_sparse_mesh_bitwise_dense_and_close_to_jax():
     assert len(jv) == len(vs) and len(jt) == len(ts)
     d = np.sqrt(((_sorted_rows(vs)[:, None] - jv[None]) ** 2).sum(-1)).min(axis=1)
     assert d.max() < 1e-5
+
+
+def test_sparse_mesh_bitwise_dense_f32x3():
+    """The res-64 extraction in extract_precision f32x3: sparse == dense
+    bitwise, as in f32; the mesh within 1e-4 of the f32 one's vertices."""
+    pp = state_from_numpy({"sdf": _sdf_params()})
+    r = _renderer(configs, extract_precision="f32x3")
+    vd, td = mesh.extract_geometry(pp, r, BMIN, BMAX, 64, sparse=False)
+    vs, ts = mesh.extract_geometry(pp, r, BMIN, BMAX, 64, sparse=True)
+    assert len(vd) > 100 and len(vs) == len(vd) and len(ts) == len(td)
+    np.testing.assert_array_equal(_sorted_rows(vs), _sorted_rows(vd))
+    np.testing.assert_array_equal(_tri_keys(vs, ts), _tri_keys(vd, td))
+    vf, _ = mesh.extract_geometry(pp, _renderer(configs), BMIN, BMAX, 64, sparse=True)
+    assert len(vf) == len(vs)
+    d = np.sqrt(((_sorted_rows(vs)[:, None] - vf[None]) ** 2).sum(-1)).min(axis=1)
+    assert d.max() < 1e-4
+
+
+def test_write_glb_matches_jax(tmp_path):
+    """write_glb: the BIN chunk bitwise JAX's for the same mesh and colours,
+    the JSON chunk JAX's but for the generator's name; read_glb reads the
+    counts back; normalize_point_cloud as JAX's."""
+    v, t = mc.marching_cubes(_field(12), 0.0)
+    rng = np.random.RandomState(1)
+    c = rng.uniform(-0.1, 1.1, (len(v), 3)).astype(np.float32)
+    for colors in (None, c):
+        mesh.write_glb(str(tmp_path / "p.glb"), v, t, colors)
+        jmesh.write_glb(str(tmp_path / "j.glb"), v, t, colors)
+        (gp, bp), (gj, bj) = (mesh.read_glb(str(tmp_path / f)) for f in ("p.glb", "j.glb"))
+        assert bp == bj
+        assert gp["asset"].pop("generator") == "color_neus_torch"
+        assert gj["asset"].pop("generator") == "color_neus_tpu"
+        assert gp == gj
+        assert gp["accessors"][0]["count"] == len(v) and gp["accessors"][1]["count"] == 3 * len(t)
+        assert len(gp["accessors"]) == (2 if colors is None else 3)
+    with pytest.raises(ValueError, match="glTF"):
+        (tmp_path / "bad.glb").write_bytes(b"glTF" + b"\0" * 16)
+        mesh.read_glb(str(tmp_path / "bad.glb"))
+    pts = rng.randn(50, 3).astype(np.float32) * 3 + 1
+    np.testing.assert_allclose(mesh.normalize_point_cloud(pts), jmesh.normalize_point_cloud(pts),
+                               atol=1e-7, rtol=0)
 
 
 @pytest.mark.parametrize("kind,mode", [("color_neus", "no_view_dir"), ("neus", "idr")])

@@ -154,8 +154,10 @@ def test_kernel_switches():
     assert params["sdf"]["lin0"]["v"].grad is not None
     with torch.no_grad():
         assert neus.eval_point_pipeline(params, on, pts, pts)[0].shape == (4, 1)
-    with pytest.raises(NotImplementedError, match="f32x3"):
-        dataclasses.replace(on, extract_precision="f32x3")
+    # the grid SDF's 3-pass split, ported since: it builds
+    assert dataclasses.replace(on, extract_precision="f32x3").extract_precision == "f32x3"
+    with pytest.raises(ValueError, match="extract_precision"):
+        dataclasses.replace(on, extract_precision="f16")
     with pytest.raises(ValueError):
         _build(configs, kw, fused_sdf="interpret")
     cfg = dataclasses.replace(_build(configs, kw), fused_sdf="on")

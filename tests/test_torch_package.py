@@ -57,15 +57,23 @@ def test_renderer_config_mapping_matches_jax(path):
     assert port == {k: ref[k] for k in port}
 
 
-@pytest.mark.parametrize("key,value,default", [
-    ("RAY_CHUNK", 4096, 0), ("COMPUTE_DTYPE", "bfloat16", "float32"),
-    ("FUSED_TILE", 1024, 512), ("THIN_DOTS", "mxu", "hilo")])
-def test_renderer_keys_the_port_does_not_read_raise(key, value, default):
-    """A training-path key the port has no code for raises when set; its
-    JAX default and the mesh extraction's keys load."""
+@pytest.mark.parametrize("key,value,default,read", [
+    ("RAY_CHUNK", 4096, 0, True), ("COMPUTE_DTYPE", "bfloat16", "float32", True),
+    ("N_OUTSIDE", 32, 0, True), ("FUSED_TILE", 1024, 512, False),
+    ("THIN_DOTS", "mxu", "hilo", False)])
+def test_renderer_keys_the_port_does_not_read_raise(key, value, default, read):
+    """A TPU tiling key the port has no code for raises when set; a key it
+    reads (RAY_CHUNK, COMPUTE_DTYPE, N_OUTSIDE since they were ported) maps
+    to the JAX package's field; every JAX default and the mesh extraction's
+    keys load."""
     rcfg = {"TYPE": "Color_NeuS", "COLOR": {"MODE": "no_view_dir"}, "EXTRACT_SPARSE": True}
-    with pytest.raises(NotImplementedError, match=key):
-        renderer_config_from_cfg({**rcfg, key: value})
+    if read:
+        port = dataclasses.asdict(renderer_config_from_cfg({**rcfg, key: value}))
+        ref = dataclasses.asdict(jax_renderer_cfg({**rcfg, key: value}))
+        assert port[key.lower()] == ref[key.lower()] == value
+    else:
+        with pytest.raises(NotImplementedError, match=key):
+            renderer_config_from_cfg({**rcfg, key: value})
     assert renderer_config_from_cfg({**rcfg, key: default}) == renderer_config_from_cfg(rcfg)
 
 

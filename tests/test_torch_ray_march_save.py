@@ -153,8 +153,9 @@ def test_save_twins_match_recompute_twins(name, bf16):
 def test_resolve_save_acts_policy(monkeypatch):
     pr = port_cfg(SMALL_COLOR)
     n_pts = 4 * (pr.n_samples + pr.n_importance)
-    bts = RM.march_stash_bytes(pr, n_pts)
-    assert bts > 0 and RM.march_stash_bytes(pr, 2 * n_pts) == 2 * bts
+    assert RM.march_stash_bytes(pr, 2 * n_pts) == 2 * RM.march_stash_bytes(pr, n_pts) > 0
+    bts = RM.policy_stash_bytes(pr, n_pts)
+    assert bts > 0 and RM.policy_stash_bytes(pr, 2 * n_pts) == 2 * bts
     for v in (True, "save"):
         assert RM.resolve_save_acts(v, pr, n_pts) is True
     for v in (False, "recompute", None):
@@ -195,10 +196,13 @@ def test_march_acts_keys_parse_and_unported_keys_raise():
     rc = configs.renderer_config_from_cfg({**base, "MARCH_STASH_BUDGET_GB": 2.5})
     assert rc.march_stash_budget_gb == 2.5
     for key, value in (("MARCH_TILE", 1024), ("FUSED_TILE", 1024),
-                       ("THIN_DOTS", "vpu"), ("RAY_CHUNK", 4096),
-                       ("COMPUTE_DTYPE", "bfloat16")):
+                       ("THIN_DOTS", "vpu")):
         with pytest.raises(NotImplementedError, match=key):
             configs.renderer_config_from_cfg({**base, key: value})
+    # ported since: they parse
+    for key, value in (("RAY_CHUNK", 4096), ("COMPUTE_DTYPE", "bfloat16")):
+        rc = configs.renderer_config_from_cfg({**base, key: value})
+        assert getattr(rc, key.lower()) == value
     assert configs.renderer_config_from_cfg({**base, "MARCH_BWD_PRECISION": "f32stash"}) \
         == configs.renderer_config_from_cfg(base)
 

@@ -7,8 +7,8 @@ source runs through a host C++ compiler against tests/cuda_emu/cuda_runtime.h,
 one std::thread per CUDA thread with a barrier for __syncthreads, a software
 mma.sync, and the weight ring's bulk copies as a memcpy beside a counting
 mbarrier (tests/cuda_emu/harness_sdf.cpp). It runs both entries (the sweep
-and the points), both dot types, softplus and relu, on 130 points, the last tile
-ragged, on a full-width SDF (8 x 256, multires 6)
+and the points), both dot types (and the grid's f32x3), softplus and relu, on
+130 points, the last tile ragged, on a full-width SDF (8 x 256, multires 6)
 off its geometric init, and one case whose layer-0 pre-activations sit in
 0.87 < |x| < 1.04, where log1p(exp(-100|x|)) is denormal (the divide's
 slow path on the card). It checks the arithmetic, the fragment layouts,
@@ -21,8 +21,10 @@ Tolerances: the card's (chip_smoke.ATOL and ATOL_GRID): f32 2e-6, the
 summation order (and here glibc's expf / log1pf against PyTorch's); bf16
 3e-3 (sweep) / 6e-3 (grid), a layer input within rounding of a bf16
 midpoint rounding to the other neighbour after another f32 summation
-order. Copies of the source that read a stale stage of the ring, or that
-swap the epilogue's fragment columns 2t and 2t + 1, must fail."""
+order; f32x3 4e-5 (ATOL_GRID: the split's own ~2^-16 error, which another
+summation order sets anew, test_torch_mesh.py; read 3.8e-6 here). Copies of the source that
+read a stale stage of the ring, that swap the epilogue's fragment columns 2t
+and 2t + 1, or that drop f32x3's lo.hi product, must fail."""
 
 import os
 import re
@@ -46,15 +48,21 @@ CSRC = os.path.join(os.path.dirname(HERE), "color_neus_torch", "csrc")
 N_PTS = 130                       # 2 bf16 tiles of 128 (3 f32 tiles of 64), the last one ragged
 SWEEP_R, SWEEP_S = 10, 13         # 130 samples
 # the ring's stage of slab s (ring_acquire); the mutant reads the next stage
-RING_STAGE = "return buf + (s % STAGES) * SLAB;"
-RING_STAGE_MUTANT = "return buf + ((s + 1) % STAGES) * SLAB;"
+RING_STAGE = "return buf + (s % STAGES) * BYTES;"
+RING_STAGE_MUTANT = "return buf + ((s + 1) % STAGES) * BYTES;"
 # the bf16 epilogue's columns 2t, 2t + 1 of accumulator pair h; the mutant
 # swaps them. (Swapping its rows g and g + 8 instead permutes the points the
 # same way at every layer, which 8 hidden layers undo: no check can see it.)
-EPI_COLS = ("mlp::pack_bf16(activate<RELU>(acc[i][j][2 * h] + b0) * post,\n"
-            "                             activate<RELU>(acc[i][j][2 * h + 1] + b1) * post)")
-EPI_COLS_MUTANT = ("mlp::pack_bf16(activate<RELU>(acc[i][j][2 * h + 1] + b0) * post,\n"
-                   "                             activate<RELU>(acc[i][j][2 * h] + b1) * post)")
+EPI_COLS = ("const float v0 = activate<RELU>(acc[i][j][2 * h] + b0) * post;\n"
+            "          const float v1 = activate<RELU>(acc[i][j][2 * h + 1] + b1) * post;")
+EPI_COLS_MUTANT = ("const float v0 = activate<RELU>(acc[i][j][2 * h + 1] + b0) * post;\n"
+                   "          const float v1 = activate<RELU>(acc[i][j][2 * h] + b1) * post;")
+# the f32x3 tile's lo-part product against the hi weights; the mutant
+# drops it (what is left is hi.hi + hi.lo: ~2^-9 relative off)
+X3_LO_PRODUCT = "mlp::mma_bf16(acc[i][j], al[0], al[1], al[2], al[3], b[j].x, b[j].y);"
+X3_LO_PRODUCT_MUTANT = "(void)al;"
+# sdf_points_launch's mode of each SweepWeights.dtype
+MODE = {"float32": 0, "bfloat16": 1, "f32x3": 2}
 
 
 def _compile(out, mutate=None):
@@ -128,7 +136,7 @@ def _run(exe, d, sw, points, seed=3):
     """(kernel, plain twin) outputs of one emulated launch."""
     packed, bias = K.pack_sdf_weights(sw.layers, sw.cfg, sw.dtype)
     d0, skip, n_lin = K._check_kernel_shape(sw.cfg)
-    bf16 = sw.dtype == "bfloat16"
+    bf16 = sw.dtype != "float32"
     (packed.view(torch.int16) if bf16 else packed).numpy().tofile(d / "w.bin")
     bias.numpy().tofile(d / "bias.f32")
     np.asarray([sw.cfg.scale], np.float32).tofile(d / "f32.f32")
@@ -143,7 +151,7 @@ def _run(exe, d, sw, points, seed=3):
             t.tofile(d / f"{name}.f32")
         S = SWEEP_S
         want = K.sdf_rays_plain(sw, *map(torch.from_numpy, (o, dd, z))).reshape(-1)
-    meta = [N_PTS, S, n_lin, skip, d0, int(bf16), int(sw.act == "relu"), int(points)]
+    meta = [N_PTS, S, n_lin, skip, d0, MODE[sw.dtype], int(sw.act == "relu"), int(points)]
     np.asarray(meta, np.int64).tofile(d / "meta.i64")
     subprocess.run([exe, str(d)], check=True, timeout=300)
     got = np.fromfile(d / "out.f32", np.float32)
@@ -152,14 +160,15 @@ def _run(exe, d, sw, points, seed=3):
 
 def _atol(sw, points):
     if points:
-        return ATOL_GRID["bf16" if sw.dtype == "bfloat16" else "f32"]
+        return ATOL_GRID[{"bfloat16": "bf16", "float32": "f32", "f32x3": "f32x3"}[sw.dtype]]
     return ATOL[sw.dtype]
 
 
 # (entry, dtype, act)
 CASES = [("sweep", "bfloat16", "softplus"), ("sweep", "bfloat16", "relu"),
          ("sweep", "float32", "softplus"), ("sweep", "float32", "relu"),
-         ("points", "bfloat16", "softplus"), ("points", "float32", "softplus")]
+         ("points", "bfloat16", "softplus"), ("points", "float32", "softplus"),
+         ("points", "f32x3", "softplus")]
 
 
 @pytest.mark.parametrize("entry,dtype,act", CASES, ids=["-".join(c) for c in CASES])
@@ -191,11 +200,12 @@ def test_emulated_sdf_denormal_band(emulator, tmp_path, dtype, entry):
     np.testing.assert_allclose(got, want, rtol=0, atol=_atol(sw, points))
 
 
-@pytest.mark.parametrize("mutation", [(RING_STAGE, RING_STAGE_MUTANT),
-                                      (EPI_COLS, EPI_COLS_MUTANT)],
-                         ids=["stale-stage", "epilogue-columns"])
-def test_emulated_sdf_mutants_fail(tmp_path, mutation):
+@pytest.mark.parametrize("mutation,dtype", [((RING_STAGE, RING_STAGE_MUTANT), "bfloat16"),
+                                            ((EPI_COLS, EPI_COLS_MUTANT), "bfloat16"),
+                                            ((X3_LO_PRODUCT, X3_LO_PRODUCT_MUTANT), "f32x3")],
+                         ids=["stale-stage", "epilogue-columns", "f32x3-lo-product"])
+def test_emulated_sdf_mutants_fail(tmp_path, mutation, dtype):
     exe = _compile(tmp_path, mutate=mutation)
-    sw = _weights("bfloat16", "softplus")
+    sw = _weights(dtype, "softplus")
     got, want = _run(exe, tmp_path, sw, points=True)
     assert np.abs(got - want).max() > 10 * _atol(sw, True)

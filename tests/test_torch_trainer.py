@@ -238,6 +238,49 @@ def test_schedules_and_loss_match_jax():
                                float(JTR._mask_rate_at(jcfg, jnp.asarray(37))), rtol=0)
 
 
+def test_sgd_steps_match_jax():
+    """OPTIMIZE.TYPE sgd: three steps of the port's update (apply_gradients:
+    the per-leaf clip, the schedule's lr at the device step, DeviceSGD)
+    against JAX's make_optimizer('sgd') chain on the same weights and the
+    same seeded gradients, from step 9 across the warm-up's end (lr 4.5e-4,
+    5e-4, then the cosine): every leaf within atol 1e-6 (f32, the same
+    arithmetic: p - g * lr)."""
+    import dataclasses
+    jcfg, pcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, optimizer="sgd", grad_clip_norm=0.5)
+    pcfg = dataclasses.replace(pcfg, optimizer="sgd", grad_clip_norm=0.5)
+    jparams = JTR.init_state(jax.random.PRNGKey(0), jcfg)["params"]
+    params = state_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    state = TR.TrainState(params, TR.make_optimizer(pcfg, params), step=9)
+    assert isinstance(state.optimizer, TR.DeviceSGD) and pcfg.grad_clip_enabled
+    tx = JTR.make_optimizer(jcfg)
+    opt_state = tuple(s._replace(count=jnp.asarray(9, jnp.int32))
+                      if isinstance(s, optax.ScaleByScheduleState) else s
+                      for s in tx.init(jparams))
+    rng = np.random.RandomState(5)
+    names = [n for n, _ in params.named_parameters()]
+    for _ in range(3):
+        grads = {n: np.asarray(rng.randn(*p.shape) * rng.choice([0.01, 1.0]), np.float32)
+                 for n, p in params.named_parameters()}
+        jgrads = jax.tree_util.tree_map(np.zeros_like, jparams)
+        for n in names:
+            node = jgrads
+            *path, leaf = n.split(".")
+            for k in path:
+                node = node[k]
+            node[leaf] = grads[n]
+        updates, opt_state = tx.update(jgrads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for n, p in params.named_parameters():
+            p.grad = torch.tensor(grads[n])
+        TR.apply_gradients(state, pcfg)
+        want = _flat(jax.tree_util.tree_map(np.asarray, jparams))
+        for n, p in params.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), want[n], atol=1e-6, rtol=0,
+                                       err_msg=n)
+    assert state.step == 12 and int(state.step_t) == 12
+
+
 def test_per_leaf_clip():
     from torch import nn
     m = nn.ParameterDict({"a": nn.Parameter(torch.zeros(4)), "b": nn.Parameter(torch.zeros(2))})
