@@ -213,6 +213,23 @@ Phases; any failure exits non-zero and prints no result:
      move, the sweep the only kernel; (f) OPTIMIZE.TYPE sgd through the
      fused march in captured bundles: the loss falls, a replay bitwise
      equal to 10 uncaptured steps; (g) write_glb of (b)'s mesh read back.
+  14. data-parallel training (color_neus_torch/parallel), in child
+     processes that load the kernels phase 1 built, each group's ranks on
+     127.0.0.1 in the environment torchrun sets: (a) two ranks on the one
+     card over gloo, fused_march on (save, f32stash): one step of 1024
+     rays, 512 a rank, perturb 0, against one process on the same pixels
+     (the loss within RTOL_DP_LOSS, every clipped leaf within RTOL_DP_LEAF
+     norm-relative, the distances printed), the ranks' parameters bitwise
+     equal after it; then TrainLoop on the mesh for 60 steps in uncaptured
+     bundles (gloo cannot be captured): the loss halves, the losses and
+     the replicas equal across the ranks, rows 1, 3 and 4 launched 4 / 1 /
+     1 times a step on each rank; (b) `python -m color_neus_torch.train
+     --distributed` as the one rank of an NCCL group, 20 steps in bundles
+     of 10 and a checkpoint; then in another process of such a group (a)'s
+     step and run, the run's bundles captured (the gathers and the
+     gradients' all-reduce inside the graph), a replay bitwise equal to 10
+     uncaptured steps, and host ms/step of captured bundles on the mesh /
+     one process / one process / the mesh.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -410,6 +427,23 @@ ARM_KERNELS = {"fused_march": ("ray_march_save_fwd_kernel", "ray_march_load_bwd_
 # their distance (each run's atomics take another order, so a third run
 # lands as far from the first as the second does, within a small factor)
 BUNDLE_DISTANCE_FACTOR = 4.0
+# phase 14: data-parallel training (color_neus_torch/parallel) in child
+# processes on the one card. (a) Two ranks over gloo (NCCL refuses two
+# ranks on one card; gloo moves the CUDA tensors through the host): one
+# fused-march step of 1024 rays, 512 a rank, against one process on the
+# same pixels at step DP_STEP (lr > 0 past the warm-up's 50). The per-ray
+# partials are computed per ray alike, so the loss moves by the order of
+# its sums at most; each rank's kernel sums its own rays' weight grads in
+# a fixed order and the two sums are added, so a leaf's gradient moves by
+# the f32 rounding of that split.
+DP_RANKS = 2
+DP_STEP = 100
+RTOL_DP_LOSS = 1e-5
+RTOL_DP_LEAF = 1e-4      # norm-relative, every leaf the one-process step reaches
+# (b) one rank of an NCCL group: bundles timed distributed / one process /
+# one process / distributed, DP_BUNDLES replays each
+DP_BUNDLES = 2
+DP_TIMEOUT = 420         # seconds for a child process; then the group is killed
 # phase 12: MARCH_BWD_PRECISION's two non-default modes, each trained
 # through the three kernel paths (renderer switches) and their kernels'
 # launch counts (names without the mode's suffix)
@@ -2999,6 +3033,294 @@ def bench_arm_in_child(arm):
     return recs[0]
 
 
+def _digest(params) -> str:
+    """sha256 of every parameter's name and bytes (replicas compared)."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in params.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_step(loop, cfg, pixels):
+    """One train step of a copy of the loop's parameters at step DP_STEP
+    with config `cfg` on the given pixels: (loss, {leaf: clipped gradient,
+    zeros where none}, the parameters after the step, launches)."""
+    import torch
+    from color_neus_torch.models import trainer as TR
+    from color_neus_torch.weights import state_from_numpy, state_to_numpy
+    img_ids, images, cam_sel, py, px, sel_mask = pixels
+    params = state_from_numpy(state_to_numpy(loop.state.params), loop.device)
+    state = TR.TrainState(params, TR.make_optimizer(cfg, params), step=DP_STEP)
+    reset_launch_counts()
+    aux = TR.train_step_pixels(state, loop.scene, cfg, images, img_ids, cam_sel, py, px,
+                               sel_mask, None)
+    loss = float(aux["loss"])
+    counts = launch_counts()
+    grads = {k: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+             for k, p in params.named_parameters()}
+    return loss, grads, params, counts
+
+
+def dp_rank(backend, tag):
+    """One rank of a phase-14 group: gloo (every rank on the one card) or
+    NCCL (a card a rank). One fused-march step sharded against one process
+    on the same pixels (rank 0 holds the distances), then STEPS steps of
+    TrainLoop on the mesh (uncaptured bundles over gloo, captured over
+    NCCL); over NCCL also a replay against BUNDLE uncaptured steps, and
+    captured host ms/step on the mesh / rank 0 alone / rank 0 alone / on
+    the mesh."""
+    import dataclasses
+    import torch
+    from color_neus_torch import parallel
+    from color_neus_torch.runtime import TrainLoop
+    device = parallel.init(backend=backend, device="cuda:0" if backend == "gloo" else None)
+    mesh = parallel.make_mesh()
+    r = mesh.rank
+    loop = TrainLoop(arm_cfg("fused_march"), device=device)
+    tcfg = dataclasses.replace(loop.tcfg, renderer=dataclasses.replace(loop.tcfg.renderer,
+                                                                       perturb=0.0))
+    pixels = step_pixels(loop, SEED + 140)
+    loss_d, grads_d, params_d, counts = dp_step(loop, parallel.with_mesh(tcfg, mesh), pixels)
+    rec = {"rank": r, "world": mesh.world, "backend": mesh.backend, "device": str(device),
+           "step_digest": _digest(params_d), "step_counts": {k: v for k, v in counts.items() if v},
+           "loss_d": loss_d, "leaf_bytes": 4 * sum(p.numel() for p in params_d.parameters())}
+    if r == 0:
+        loss_1, grads_1, _, _ = dp_step(loop, tcfg, pixels)
+        rel, mx, cos = grad_errors(grads_d, grads_1)
+        worst = max(rel, key=rel.get)
+        rec.update(loss_1=loss_1, loss_rel=abs(loss_d - loss_1) / abs(loss_1),
+                   leaf_worst=rel[worst], leaf_worst_name=worst, leaf_max_rel=max(mx.values()),
+                   leaf_min_cos=min(cos.values()), leaves=len(rel),
+                   bitwise_leaves=sum(bool(torch.equal(grads_d[k], grads_1[k])) for k in rel))
+    del loop
+    run = TrainLoop(arm_cfg("fused_march"), device=device, mesh=mesh)
+    reset_launch_counts(run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = run.run(STEPS)
+    torch.cuda.synchronize()
+    ms = run.multi_step
+    rec.update(run_ms=(time.perf_counter() - t0) * 1e3 / STEPS,
+               losses=[float(x) for x in losses], run_digest=_digest(run.state.params),
+               run_counts={k: v for k, v in launch_counts(run).items() if v},
+               captured=ms.graph is not None, replays=ms.replays,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if backend == "nccl":
+        replay_vs_steps(run, "fused_march", f"{tag} rank {r}")
+        rec["ms"] = dp_interleaved(run, r, device)
+        rec["replay_digest"] = _digest(run.state.params)
+    return rec
+
+
+def dp_interleaved(loop_d, r, device):
+    """Host ms/step of DP_BUNDLES captured bundles on the mesh / of one
+    process (rank 0 alone, the others at a barrier) / one process / the
+    mesh: rank 0's four readings (the mesh's on every rank)."""
+    from color_neus_torch import parallel
+    from color_neus_torch.runtime import TrainLoop
+    one = None
+    if r == 0:
+        one = TrainLoop(arm_cfg("fused_march"), device=device)
+        one.run(2 * BUNDLE)          # the warm-up bundle and the capture
+    parallel.barrier()
+    out = []
+    for lp in (loop_d, one, one, loop_d):
+        if lp is loop_d or r == 0:
+            out.append(host_ms(lambda lp=lp: [lp.training_bundle() for _ in range(DP_BUNDLES)],
+                               DP_BUNDLES * BUNDLE))
+        parallel.barrier()
+    return out
+
+
+def dp_child(backend, tag):
+    """A rank of a phase-14 group in a child process (run_group starts it
+    with the environment torchrun sets): dp_rank, its record printed as
+    one JSON line after CHILD_TAG."""
+    from color_neus_torch import parallel, pin_precision
+    pin_precision()
+    try:
+        rec = dp_rank(backend, tag)
+    finally:
+        parallel.shutdown()
+    print(CHILD_TAG + json.dumps(rec), flush=True)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(cmd, world, tag, cwd):
+    """`cmd` once per rank of a `world`-rank group on 127.0.0.1, in the
+    environment torchrun sets; every rank within DP_TIMEOUT (then all are
+    killed) and exiting 0. Each rank's output goes to files (a rank stuck
+    on a full pipe would hold the others in a collective). Echoes the
+    lines of `tag` and returns each rank's (stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    files, procs = [], []
+    try:
+        for r in range(world):
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            files.append((out, err))
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+            procs.append(subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=err,
+                                          text=True))
+        t0 = time.perf_counter()
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for out, err in files:
+        out.seek(0)
+        err.seek(0)
+        texts.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    for r, (p, (out, err)) in enumerate(zip(procs, texts)):
+        for line in out.splitlines():
+            if line.startswith(f"[{tag}"):
+                print(line, flush=True)
+        check(p.returncode == 0, f"[{tag}] rank {r} of {world} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}{err[-4000:]}")
+    return texts
+
+
+def child_records(texts, tag):
+    recs = []
+    for out, _ in texts:
+        got = [json.loads(line[len(CHILD_TAG):]) for line in out.splitlines()
+               if line.startswith(CHILD_TAG)]
+        check(len(got) == 1, f"[{tag}] a child printed {len(got)} records")
+        recs.append(got[0])
+    return recs
+
+
+DP_KERNELS = {"sdf_rays": SWEEPS_PER_STEP, "ray_march_save": 1, "ray_march_bwd_load": 1}
+DP_CHILD = [sys.executable, "-c",
+            "import sys, chip_smoke; chip_smoke.dp_child(sys.argv[1], sys.argv[2])"]
+
+
+def check_ranks(recs, tag):
+    """dp_rank's records of one group: the sharded step within
+    RTOL_DP_LOSS / RTOL_DP_LEAF of one process, the replicas bitwise equal
+    after it and after the run, the run's losses equal across the ranks and
+    halving, rows 1, 3 and 4 launched DP_KERNELS times a step on every
+    rank. Prints the readings."""
+    a = recs[0]
+    world = len(recs)
+    print(f"[{tag}] {world} ranks ({', '.join(r['device'] for r in recs)}) over "
+          f"{a['backend']}, fused_march on (save, f32stash), 1024 rays x 128 samples, "
+          f"{1024 // world} a rank, perturb 0, step {DP_STEP}: loss {a['loss_d']:.8f} against "
+          f"one process's {a['loss_1']:.8f}, relative {a['loss_rel']:.3e} (limit "
+          f"{RTOL_DP_LOSS:g}) | clipped leaves, norm-relative: worst {a['leaf_worst']:.3e} "
+          f"({a['leaf_worst_name']}, limit {RTOL_DP_LEAF:g}), max-relative "
+          f"{a['leaf_max_rel']:.3e}, min cosine {a['leaf_min_cos']:.9f}, "
+          f"{a['bitwise_leaves']} of {a['leaves']} bitwise | step launches per rank "
+          + " / ".join(str(r["step_counts"]) for r in recs), flush=True)
+    check(a["loss_rel"] <= RTOL_DP_LOSS, f"[{tag}] sharded loss {a['loss_rel']:.3e} from one "
+                                         f"process's, above {RTOL_DP_LOSS:g}")
+    check(a["leaf_worst"] <= RTOL_DP_LEAF, f"[{tag}] sharded leaf {a['leaf_worst_name']} "
+                                           f"{a['leaf_worst']:.3e} from one process's, above "
+                                           f"{RTOL_DP_LEAF:g}")
+    check(len({r["step_digest"] for r in recs}) == 1,
+          f"[{tag}] the ranks' parameters differ after the sharded step")
+    losses = a["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    capture = a["backend"] == "nccl"
+    print(f"[{tag}] TrainLoop on the mesh, {STEPS} steps in "
+          f"{'captured' if capture else 'uncaptured'} bundles of {BUNDLE} ({a['replays']} "
+          f"replays): " + " / ".join(f"{r['run_ms']:.2f}" for r in recs) + " ms/step incl. "
+          f"the first bundle's set-up | loss {first:.5f} -> {last:.5f} | launches per rank "
+          + " / ".join(str(r["run_counts"]) for r in recs) + " | peak memory "
+          + " / ".join(f"{r['peak_gib']:.2f}" for r in recs) + " GiB", flush=True)
+    for r in recs:
+        check(r["captured"] == capture and (r["replays"] > 0) == capture,
+              f"[{tag}] rank {r['rank']}: captured {r['captured']}, {r['replays']} replays "
+              f"over {a['backend']}")
+        check(r["losses"] == losses, f"[{tag}] rank {r['rank']}'s losses differ from rank 0's")
+        for k, per_step in DP_KERNELS.items():
+            check(r["step_counts"].get(k) == per_step and
+                  r["run_counts"].get(k) == per_step * STEPS,
+                  f"[{tag}] rank {r['rank']}: {k} launched {r['step_counts'].get(k)} times in "
+                  f"the step and {r['run_counts'].get(k)} in the run, want {per_step} and "
+                  f"{per_step * STEPS}")
+    check(len({r["run_digest"] for r in recs}) == 1,
+          f"[{tag}] the ranks' parameters differ after the run")
+    check(all(x == x and abs(x) != float("inf") for x in losses), f"[{tag}] non-finite loss")
+    check(last < 0.5 * first, f"[{tag}] loss did not halve: {first} -> {last}")
+
+
+def dp_phase():
+    """Phase 14: data-parallel training on the card, in child processes that
+    load the kernels phase 1 built. (a) DP_RANKS ranks over gloo; (b) the
+    entry point `python -m color_neus_torch.train --distributed` as the
+    one rank of an NCCL group, then nccl_group at world size 1."""
+    import numpy as np
+    import yaml
+    collect()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    recs = child_records(run_group(DP_CHILD + ["gloo", "14a"], DP_RANKS, "14a", here), "14a")
+    check_ranks(recs, "14a")
+    t_a = time.perf_counter() - t0
+
+    # (b) the entry point as the one rank of an NCCL group
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "dp.yml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(arm_cfg("fused_march").to_dict(), f)
+        [(out, err)] = run_group([sys.executable, "-m", "color_neus_torch.train",
+                                  "--distributed", "--cfg", cfg_path, "--iterations",
+                                  str(2 * BUNDLE)], 1, "14b", tmp)
+        exp = glob.glob(os.path.join(tmp, "exp", "default_*", "checkpoints", "state.npz"))
+        check(len(exp) == 1, f"[14b] train --distributed wrote {len(exp)} checkpoints")
+        with np.load(exp[0]) as ck:
+            ck_step = int(ck["step"])
+    log = out + err
+    check("rays sharded over 1 ranks (nccl)" in log and ck_step == 2 * BUNDLE,
+          f"[14b] train --distributed: no NCCL mesh in its log or checkpoint step {ck_step}:\n"
+          f"{log[-3000:]}")
+    print(f"[14b] python -m color_neus_torch.train --distributed (RANK 0, WORLD_SIZE 1, "
+          f"NCCL): {2 * BUNDLE} steps in bundles of {BUNDLE}, checkpoint at step {ck_step}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    b = nccl_group(1, "14b")
+    return {"a": recs, "b": b, "a_s": t_a, "b_s": time.perf_counter() - t0,
+            "counts": {k: sum(r["run_counts"].get(k, 0) for r in recs + b) for k in DP_KERNELS}}
+
+
+def nccl_group(world, tag):
+    """dp_rank on `world` NCCL ranks, a card each (phase 14(b): world 1;
+    a host with several cards can run more): check_ranks, the replicas
+    bitwise equal after the timed bundles, and the interleaved captured
+    ms/step printed beside the card's name and power limit. Returns the
+    records."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    recs = child_records(run_group(DP_CHILD + ["nccl", tag], world, tag, here), tag)
+    check_ranks(recs, tag)
+    check(len({r["replay_digest"] for r in recs}) == 1, f"[{tag}] the replicas differ")
+    d1, o1, o2, d2 = recs[0]["ms"]
+    print(f"[{tag}] captured bundles, host ms/step: the mesh of {world} {d1:.2f} / one "
+          f"process {o1:.2f} / one process {o2:.2f} / the mesh {d2:.2f} | the mesh's cost "
+          f"{(d1 + d2 - o1 - o2) / 2:+.2f} ms/step (the all-reduce of "
+          f"{recs[0]['leaf_bytes'] / 1e6:.2f} MB of leaves and the gathers) | {card_line()}",
+          flush=True)
+    return recs
+
+
 def mode_sass_summary(sass):
     """Phase 1's per-mode summary of rows 3-6: every kernel's HGMMA, UBLKCP,
     FFMA, registers and spill bytes, one line per MARCH_BWD_PRECISION mode
@@ -3640,6 +3962,12 @@ def main() -> int:
     print(f"[13] summary ({time.perf_counter() - t0:.1f} s): sdf_points f32x3 {x3['ms']:.4f} ms "
           f"per 2^18 points (bound {x3['bound_ms']:.4f}, plain {x3['plain_ms']:.4f}), "
           f"{x3['launches']} launches in the res-{EVAL_RES} extraction", flush=True)
+
+    # ---- phase 14: data-parallel training, in child processes ----
+    dp = dp_phase()
+    print(f"[14] summary: (a) {dp['a_s']:.1f} s, (b) {dp['b_s']:.1f} s | launches on the "
+          f"data-parallel path (the gloo ranks' and the NCCL rank's {STEPS} steps) "
+          f"{dp['counts']}", flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and

@@ -50,6 +50,7 @@ from color_neus_torch.ops.kernels.ray_march import fused_ray_march
 from color_neus_torch.ops.kernels.sdf_rays import resolve_sdf_sweep_fn
 from color_neus_torch.ops.rays import sample_pdf
 from color_neus_torch.ops.transforms import clip
+from color_neus_torch.parallel.sharding import gather_rays, ray_shard
 
 
 def init_renderer(rcfg: RendererConfig, generator, device="cpu") -> nn.ModuleDict:
@@ -172,11 +173,16 @@ def merge_z_vals_sort(z_vals, new_z, sdf, new_sdf):
 @torch.no_grad()
 def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
                         generator=None, perturb_overwrite: float = -1.0,
-                        sdf_rays_fn=None):
+                        sdf_rays_fn=None, mesh=None):
     """Coarse + SDF-guided importance z values, [R, n_samples+n_importance],
     outside the autograd graph (the reference's torch.no_grad(),
     NeuS.py:343-355). 1 + (up_sample_steps - 1) SDF sweeps: the last
-    round merges z only."""
+    round merges z only. With a mesh (parallel.Mesh) the rays are this
+    rank's shard of the global batch: the perturbation draws the global
+    batch's noise and keeps the shard's rows, so every rank's generator
+    stays in step with the others' and with a one-process run's (JAX folds
+    the device's axis index into the key instead: the same distribution,
+    other draws)."""
     rays_o, rays_d = rays_o.detach(), rays_d.detach()
     near, far = near.detach(), far.detach()
     R = rays_o.shape[0]
@@ -189,8 +195,11 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
     if perturb > 0:
         if generator is None:
             raise ValueError("perturbed sampling needs a generator")
-        t_rand = torch.rand((R, 1), generator=generator, dtype=z_vals.dtype,
+        world = 1 if mesh is None else mesh.world
+        t_rand = torch.rand((R * world, 1), generator=generator, dtype=z_vals.dtype,
                             device=z_vals.device) - 0.5
+        if mesh is not None:
+            t_rand = ray_shard(t_rand, mesh.rank, mesh.world)
         z_vals = z_vals + t_rand * 2.0 / n
 
     if rcfg.n_importance > 0:
@@ -342,7 +351,7 @@ def render_core_neus(params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sampl
 
 
 def _z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
-            perturb_overwrite):
+            perturb_overwrite, mesh=None):
     """The hierarchy's z values, its sweeps as fused_sdf says."""
     sdf_rays_fn = None
     if rcfg.n_importance > 0:
@@ -350,7 +359,8 @@ def _z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
                                            dtype=rcfg.sweep_dtype,
                                            act=rcfg.sweep_activation)
     return hierarchical_z_vals(params, rcfg, rays_o, rays_d, near, far, generator=generator,
-                               perturb_overwrite=perturb_overwrite, sdf_rays_fn=sdf_rays_fn)
+                               perturb_overwrite=perturb_overwrite, sdf_rays_fn=sdf_rays_fn,
+                               mesh=mesh)
 
 
 def _compute_dtype(rcfg: RendererConfig):
@@ -391,23 +401,26 @@ def _chunked_core(core, params, rcfg: RendererConfig, rays_o, rays_d, z_vals, sa
 
 
 def render_rays(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
-                generator=None, perturb_overwrite: float = -1.0):
+                generator=None, perturb_overwrite: float = -1.0, mesh=None):
     """Full forward: hierarchical sampling + core (NeuS.py:294-408), its
     MLP products in rcfg.compute_dtype (JAX's neus.py:493-494).
 
     Returns the reference's output dict: color_fine, s_val, cdf_fine,
-    weight_sum, weight_max, gradients, weights, gradient_error,
-    inside_sphere, depth (+ global_color / delta_relight for color_neus).
-    With n_outside > 0 the weights and depth run over the foreground and
-    background samples together."""
+    weight_sum, weight_max, gradients, weights, gradient_error and its
+    parts eik_num / eik_den, inside_sphere, depth (+ global_color /
+    delta_relight for color_neus). With n_outside > 0 the weights and
+    depth run over the foreground and background samples together. With a
+    mesh the rays are this rank's shard (hierarchical_z_vals)."""
     with _compute_dtype(rcfg):
         return _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator,
-                                  perturb_overwrite)
+                                  perturb_overwrite, mesh)
 
 
-def _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite):
+def _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite,
+                       mesh):
     sample_dist = 2.0 / rcfg.n_samples
-    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
+    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite,
+                     mesh)
 
     background_alpha = background_sampled_color = None
     z_vals_feed = z_vals
@@ -444,6 +457,8 @@ def _render_rays_inner(params, rcfg, rays_o, rays_d, near, far, generator, pertu
         "gradients": ret["gradients"],
         "weights": weights,
         "gradient_error": ret["gradient_error"],
+        "eik_num": ret["eik_num"],
+        "eik_den": ret["eik_den"],
         "inside_sphere": ret["inside_sphere"],
         "depth": torch.sum(weights * z_vals_feed, dim=-1),
     }
@@ -460,27 +475,36 @@ def _use_fused_march(rcfg: RendererConfig) -> bool:
 
 
 def _fused_out16(params, rcfg: RendererConfig, rays_o, rays_d, near, far, generator,
-                 perturb_overwrite):
+                 perturb_overwrite, mesh=None):
     """The hierarchy (the same sweeps and generator draws as render_rays),
     then the fused ray march: [R, 16] per-ray loss partials
     (ray_march.fused_ray_march)."""
-    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite)
+    z_vals = _z_vals(params, rcfg, rays_o, rays_d, near, far, generator, perturb_overwrite,
+                     mesh)
     inv_s = fields.variance_inv_s(params["variance"])
     return fused_ray_march(params, rcfg, rays_o, rays_d, z_vals, inv_s,
                            save_acts=rcfg.march_acts)
 
 
 def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
-                      generator=None, perturb_overwrite: float = -1.0):
+                      generator=None, perturb_overwrite: float = -1.0, mesh=None):
     """Loss-path renderer: only what compute_loss and the train aux read
     (color_fine, weight_sum, gradient_error, s_val, per-ray delta sums),
     through the fused march when fused_march is 'on' (the fused branch of
     the JAX function, neus.py:465-480), else by reducing render_rays' output
-    (its non-fused branch, neus.py:436-448)."""
+    (its non-fused branch, neus.py:436-448).
+
+    With a mesh (parallel.Mesh) the rays are this rank's shard of the
+    global batch and the dict holds the global batch's values, as JAX's
+    sharded function returns them (neus.py:449-488): the per-ray outputs
+    gathered from every rank (parallel.gather_rays: the march's [R, 16]
+    partials, or the plain core's colour, weight and delta sums), and the
+    eikonal ratio of the global sums of its parts, so every rank computes
+    the one-device loss. s_val stays the shard's (a constant per ray)."""
     n_total = rcfg.n_samples + rcfg.n_importance
     if _use_fused_march(rcfg):
-        out16 = _fused_out16(params, rcfg, rays_o, rays_d, near, far, generator,
-                             perturb_overwrite)
+        out16 = gather_rays(_fused_out16(params, rcfg, rays_o, rays_d, near, far, generator,
+                                         perturb_overwrite, mesh), mesh)
         inv_s = fields.variance_inv_s(params["variance"])
         ret = {
             "color_fine": out16[:, 0:3],
@@ -493,14 +517,17 @@ def render_rays_train(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
             ret["delta_sum"] = out16[:, 4]
         return ret
     out = render_rays(params, rcfg, rays_o, rays_d, near, far, generator=generator,
-                      perturb_overwrite=perturb_overwrite)
+                      perturb_overwrite=perturb_overwrite, mesh=mesh)
+    # each rank's (numerator, denominator), summed over the ranks
+    eik = torch.sum(gather_rays(torch.stack([out["eik_num"], out["eik_den"]])[None], mesh),
+                    dim=0)
     ret = {
-        "color_fine": out["color_fine"],
-        "weight_sum": out["weight_sum"],
-        "gradient_error": out["gradient_error"],
+        "color_fine": gather_rays(out["color_fine"], mesh),
+        "weight_sum": gather_rays(out["weight_sum"], mesh),
+        "gradient_error": eik[0] / (eik[1] + 1e-5),
         "s_val": out["s_val"],
         "n_samples_total": n_total,
     }
     if "delta_relight" in out:
-        ret["delta_sum"] = torch.sum(out["delta_relight"], dim=(1, 2))
+        ret["delta_sum"] = gather_rays(torch.sum(out["delta_relight"], dim=(1, 2)), mesh)
     return ret

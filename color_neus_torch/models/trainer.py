@@ -17,6 +17,16 @@ Everything a step reads from the step count (the learning rate, the
 masked samplers' share) is computed on the device from the state's
 counter, so make_train_multi_step can capture a bundle of steps into one
 CUDA graph and replay it.
+
+With TrainerConfig.mesh set (parallel.with_mesh; JAX's cfg.mesh) the
+step is one rank's part of a data-parallel step: every rank draws the
+same global pixels, renders its shard of them, computes the global loss
+from the gathered per-ray partials (neus.render_rays_train), and sums
+the gradients across ranks before the per-leaf clip (JAX's psum comes
+before its clip too), so every replica takes the same update. The
+generator draws the same numbers on every rank (the perturbation's noise
+for the whole batch, of which a rank keeps its rows), so a run on W ranks
+draws what a one-process run of the same seed draws.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from color_neus_torch.ops.rays import (
     all_rays_for_camera, near_far_from_sphere, rays_for_pixels, sample_pixels_masked,
     sample_pixels_masked_exact, sample_pixels_uniform,
 )
+from color_neus_torch.parallel.sharding import allreduce_grads, ray_shard
+from color_neus_torch.utils.logger import logger
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +90,10 @@ class TrainerConfig:
 
     camera: CameraConfig = field(default_factory=CameraConfig)
     renderer: RendererConfig = field(default_factory=RendererConfig)
+
+    # the ray axis of a data-parallel run (parallel.Mesh, set by
+    # parallel.with_mesh); None: one process
+    mesh: object = None
 
 
 def trainer_config_from_cfg(cfg: dict, H: int, W: int, n_cams: int) -> TrainerConfig:
@@ -350,12 +366,19 @@ def pixel_rays(params, scene, cfg: TrainerConfig, images, img_ids, cam_sel, py, 
 
 def render_pixels(params, scene, cfg: TrainerConfig, images, img_ids,
                   cam_sel, py, px, sel_mask, generator):
-    """Render the given pixels of the image batch."""
+    """Render the given pixels of the image batch. With cfg.mesh the
+    pixels are the global batch: this rank renders its shard of them
+    (JAX's constrain_rays) and the returned dict holds the global batch's
+    outputs, ground truth and mask."""
+    rgb_gt = images[cam_sel, py, px]
+    mesh = cfg.mesh
+    if mesh is not None:
+        cam_sel, py, px = (ray_shard(x, mesh.rank, mesh.world) for x in (cam_sel, py, px))
     rays_o, rays_d, near, far = pixel_rays(params, scene, cfg, images, img_ids,
                                            cam_sel, py, px)
     render = neus.render_rays_train(params["renderer"], cfg.renderer, rays_o, rays_d,
-                                    near, far, generator=generator)
-    render["rgb_map_gt"] = images[cam_sel, py, px]
+                                    near, far, generator=generator, mesh=mesh)
+    render["rgb_map_gt"] = rgb_gt
     render["mask"] = sel_mask
     return render
 
@@ -365,9 +388,12 @@ def render_pixels(params, scene, cfg: TrainerConfig, images, img_ids,
 # ---------------------------------------------------------------------------
 
 def apply_gradients(state: TrainState, cfg: TrainerConfig) -> torch.Tensor:
-    """The update of make_optimizer's chain on the parameters' .grad: the
-    per-leaf clip, the lr of the schedule at the device step, the
-    optimizer's step; advances the step. Returns the lr (0-d, no sync)."""
+    """The update of make_optimizer's chain on the parameters' .grad: with
+    cfg.mesh the sum across ranks (parallel.allreduce_grads), the per-leaf
+    clip, the lr of the schedule at the device step, the optimizer's step;
+    advances the step. Returns the lr (0-d, no sync)."""
+    if cfg.mesh is not None:
+        allreduce_grads(state.params)
     if cfg.grad_clip_enabled:
         clip_per_leaf(state.params, cfg.grad_clip_norm)
     lr = lr_schedule(cfg)(state.step_t)
@@ -432,23 +458,32 @@ class MultiStep:
     multi(state, scene, images, masks, generator) -> (state, aux of the
     last step with "loss_mean" over the bundle, the bundle's losses [k]).
 
-    On the CPU a call is a loop of k_steps steps. On CUDA the first call
+    On the CPU a call is a loop of k_steps steps, and so is every call in
+    a data-parallel run whose group cannot be captured (gloo: its
+    collectives go through the host), decided here from the backend and
+    logged once. Otherwise, on CUDA the first call
     runs a warm-up bundle of real steps on a side stream (it builds the
     kernels, fills their caches and creates the optimizer's state), then
     captures k_steps steps into one torch.cuda.CUDAGraph with the
     generator registered; every later call replays the graph once. The
     graph holds the storage of the tensors it was captured on: a call on
     other storage (a checkpoint load replaces the optimizer's state; another
-    state or dataset) drops it and captures anew after a warm-up bundle. A
-    capture that fails raises; there is no uncaptured path on CUDA besides
-    the warm-up bundle. `captured` holds the kernel launches (the
-    wrappers' counts) one replay makes; `recorded` and `replayed` add up
-    those of every capture and every replay, `replays` counts replays."""
+    state or dataset) drops it and captures anew after a warm-up bundle. In
+    a data-parallel run on NCCL the gathers and the gradients' all-reduce
+    are captured with the steps. A capture that fails raises; there is no
+    uncaptured path on CUDA besides the warm-up bundle and gloo's.
+    `captured` holds the kernel launches (the wrappers' counts) one replay
+    makes; `recorded` and `replayed` add up those of every capture and
+    every replay, `replays` counts replays."""
 
     def __init__(self, cfg: TrainerConfig, n_imgs: int, batch_size: int, k_steps: int):
         if k_steps < 1:
             raise ValueError(f"k_steps must be >= 1, got {k_steps}")
         self.cfg, self.batch_size, self.k_steps = cfg, min(batch_size, n_imgs), k_steps
+        self.capture = cfg.mesh is None or cfg.mesh.capturable
+        if not self.capture:
+            logger.info("bundles of %d steps run uncaptured: the %s group's collectives "
+                        "cannot be captured in a CUDA graph", k_steps, cfg.mesh.backend)
         self.graph = None
         self._out = self._bound = None
         self.captured, self.recorded, self.replayed = Counter(), Counter(), Counter()
@@ -462,7 +497,7 @@ class MultiStep:
         return dict(auxs[-1], loss_mean=torch.mean(losses)), losses
 
     def __call__(self, state: TrainState, scene, images, masks, generator):
-        if images.device.type != "cuda":
+        if images.device.type != "cuda" or not self.capture:
             return (state, *self.steps(state, scene, images, masks, generator))
         bound = [generator] + [t.data_ptr() for t in _captured_tensors(state, scene, images,
                                                                           masks)]

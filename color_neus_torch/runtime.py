@@ -19,6 +19,18 @@ checkpoint every SAVE_INTERVAL steps, at the end and where it stops, a
 validation image every VIZ_IMAGE_INTERVAL steps, a mesh every
 VIZ_MESH_INTERVAL steps (runtime.py:199-206), and the camera plots every
 50 log steps while poses are learnt. Without either it writes nothing.
+
+Given a mesh (parallel.make_mesh after parallel.init: one process a card
+under torchrun), the loop is one rank of a data-parallel run: the ray
+batch is sharded over the ranks (parallel.with_mesh; JAX shards as soon
+as it sees more than one device). Every rank holds the dataset and a
+replica of the state, seeded alike, and resumes from the same checkpoint.
+Rank 0 picks the experiment directory and broadcasts it, and alone writes
+checkpoints, snapshots, scalars, images, meshes and the log; a barrier
+follows each checkpoint, and the other ranks wait at one while rank 0
+renders a validation image or extracts a mesh. The stop flag (stop_after,
+SIGTERM / SIGINT) is agreed across ranks at every boundary, so ranks that
+see a signal at different bundles stop at the same step.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from color_neus_torch import pin_precision, resolve_device
+from color_neus_torch import parallel, pin_precision, resolve_device
 from color_neus_torch.data.base import create_dataset
 from color_neus_torch.data.image_io import write_png
 from color_neus_torch.models import trainer as TR
@@ -41,7 +53,7 @@ from color_neus_torch.utils.checkpoint import load_checkpoint
 from color_neus_torch.utils.logger import logger
 from color_neus_torch.utils.metrics import PSNR, SSIM, LossMetric
 from color_neus_torch.utils.misc import format_cfg
-from color_neus_torch.utils.recorder import Recorder, ScalarWriter
+from color_neus_torch.utils.recorder import Recorder, ScalarWriter, require_clean_tree
 
 
 def depth_colormap(depth: np.ndarray) -> np.ndarray:
@@ -67,10 +79,12 @@ def bundle_steps(train_cfg) -> int:
 
 class TrainLoop:
     def __init__(self, cfg, device=None, exp_id: str | None = None, resume: str | None = None,
-                 snapshot: int = 50, require_clean_git: bool = True):
+                 snapshot: int = 50, require_clean_git: bool = True, mesh=None):
         pin_precision()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
         self.seed = cfg["TRAIN"].get("MANUAL_SEED", 1)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
@@ -81,7 +95,8 @@ class TrainLoop:
         self.scale_mats = init["scale_mats_np"]
         self.bbox_min, self.bbox_max = init["object_bbox_min"], init["object_bbox_max"]
 
-        self.tcfg = TR.trainer_config_from_cfg(cfg, self.H, self.W, self.n_imgs)
+        self.tcfg = parallel.with_mesh(
+            TR.trainer_config_from_cfg(cfg, self.H, self.W, self.n_imgs), mesh)
         self.state = TR.init_state(self.tcfg, self.generator, self.device,
                                    init_focal_np=init["focal"])
         self.scene = TR.make_scene(init["origin"], init["radius"], init["poses"], self.device)
@@ -97,11 +112,20 @@ class TrainLoop:
                            if self.k_steps > 1 else None)
         logger.info("config:%s", format_cfg(cfg.to_dict() if hasattr(cfg, "to_dict") else cfg))
 
-        self.recorder, self.writer = None, None
-        if exp_id is not None or resume is not None:
-            self.recorder = Recorder(exp_id or "default", cfg, resume_path=resume,
-                                     snapshot=snapshot, require_clean_git=require_clean_git)
-            self.writer = ScalarWriter(os.path.join(self.recorder.exp_path, "tensorboard"))
+        # recording: every rank runs the recording boundaries (their
+        # barriers); rank 0 alone holds the recorder and writes
+        self.recording = exp_id is not None or resume is not None
+        self.recorder, self.writer, self.exp_path = None, None, None
+        if self.recording:
+            exp_id = exp_id or "default"
+            require_clean_tree(exp_id, require_clean_git)   # every rank, before any collective
+            if self.rank0:
+                self.recorder = Recorder(exp_id, cfg, resume_path=resume, snapshot=snapshot,
+                                         require_clean_git=False)
+                self.writer = ScalarWriter(os.path.join(self.recorder.exp_path, "tensorboard"))
+                self.exp_path = self.recorder.exp_path
+            if mesh is not None:
+                self.exp_path = parallel.broadcast_object(self.exp_path)
         cam = self.tcfg.camera
         self.pose_plots = (self.writer is not None and (cam.learn_r or cam.learn_t)
                            and self.writer.has_image_sink
@@ -119,7 +143,7 @@ class TrainLoop:
             load_checkpoint(pretrained, self.state)
             logger.info("loaded pretrained state (step %d) from %s", self.state.step, pretrained)
         if resume:
-            self.recorder.resume_checkpoint(self.state, self.generator)
+            load_checkpoint(Recorder.checkpoint_file(resume), self.state, self.generator)
             logger.info("resumed at step %d from %s", self.state.step, resume)
 
     def training_step(self) -> dict:
@@ -176,8 +200,9 @@ class TrainLoop:
         viz_mesh_int = t.get("VIZ_MESH_INTERVAL", 10000)
         k = self.k_steps
         start = self.state.step
-        logger.info("training on %s: steps %d..%d (%d steps/dispatch)", self.device, start,
-                    iterations, k)
+        logger.info("training on %s: steps %d..%d (%d steps/dispatch)%s", self.device, start,
+                    iterations, k, "" if self.mesh is None else
+                    f", rays sharded over {self.mesh.world} ranks ({self.mesh.backend})")
         prof = None
         if profile_dir:
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU] + (
@@ -205,14 +230,17 @@ class TrainLoop:
                 if step % log_int == 0 or step >= iterations:
                     self.log_step(step, aux, (step - start) * self.tcfg.n_rays
                                   / max(time.perf_counter() - t0, 1e-9))
-                if self.recorder is not None:
+                if self.recording:
                     self.record_step(step, iterations, log_int, save_int, viz_img_int,
                                      viz_mesh_int)
-                if (stop_after is not None and step >= stop_after) or interrupted:
-                    if self.recorder is not None:
-                        self.recorder.record_checkpoint(self.state, self.generator)
+                stop = (stop_after is not None and step >= stop_after) or bool(interrupted)
+                if self.mesh is not None:
+                    stop = parallel.any_rank(stop)
+                if stop:
+                    if self.recording:
+                        self.save_checkpoint()
                     logger.info("stopped early at step %d%s", step,
-                                " (checkpointed)" if self.recorder is not None else "")
+                                " (checkpointed)" if self.recording else "")
                     break
         finally:
             if prof is not None:
@@ -239,12 +267,28 @@ class TrainLoop:
         if self.pose_plots and step % (log_int * 50) == 0:
             self.plot_poses(step)
         if step % save_int == 0 or step >= iterations:
-            self.recorder.record_checkpoint(self.state, self.generator)
-            self.on_train_finished(step)
+            self.save_checkpoint()
+            if self.recorder is not None:
+                self.on_train_finished(step)
         if step % viz_img_int == 0 and step < iterations:
-            self.validation_step(step)
+            self.on_rank0(self.validation_step, step)
         if step % viz_mesh_int == 0 and step < iterations:
-            self.validate_mesh(step, resolution=512)
+            self.on_rank0(self.validate_mesh, step, resolution=512)
+
+    def save_checkpoint(self) -> None:
+        """Rank 0 records the checkpoint; in a data-parallel run every rank
+        then meets at a barrier, so a resume finds the whole file."""
+        if self.recorder is not None:
+            self.recorder.record_checkpoint(self.state, self.generator)
+        if self.mesh is not None:
+            parallel.barrier()
+
+    def on_rank0(self, fn, *args, **kw) -> None:
+        """fn on rank 0 alone; the other ranks wait for it at a barrier."""
+        if self.rank0:
+            fn(*args, **kw)
+        if self.mesh is not None:
+            parallel.barrier()
 
     def plot_poses(self, step: int) -> None:
         from color_neus_torch.utils.viztools import plot_camera_scene, plot_cameras_track

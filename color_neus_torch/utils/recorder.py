@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 
+from color_neus_torch.parallel.mesh import is_rank0
 from color_neus_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from color_neus_torch.utils.logger import set_log_file
 
@@ -32,12 +33,7 @@ class Recorder:
         self.exp_id = exp_id
         self.snapshot = snapshot
         self._n_saves = 0
-        # the reference enforces a clean tree for named exps (recorder.py:39);
-        # 'default' and eval runs are exempt, require_clean_git=False opts out
-        if (require_clean_git and exp_id not in ("default", "eval")
-                and not exp_id.startswith("eval_") and _git_dirty()):
-            raise RuntimeError(f"git tree dirty; commit before running named exp "
-                               f"'{exp_id}' (or pass --allow_dirty)")
+        require_clean_tree(exp_id, require_clean_git)
         if resume_path is not None:
             self.exp_path = resume_path
         else:
@@ -63,8 +59,13 @@ class Recorder:
     def find_resume_cfg(resume_path: str) -> str:
         return os.path.join(resume_path, "dump_cfg.yaml")
 
+    @staticmethod
+    def checkpoint_file(exp_path: str) -> str:
+        """The checkpoint of the experiment directory `exp_path`."""
+        return os.path.join(exp_path, "checkpoints", "state.npz")
+
     def ckpt_path(self) -> str:
-        return os.path.join(self.ckpt_dir, "state.npz")
+        return self.checkpoint_file(self.exp_path)
 
     def record_checkpoint(self, state, generator) -> str:
         """Save the train state and the generator; every `snapshot` saves
@@ -88,6 +89,16 @@ class Recorder:
             f.write(f"step {step_idx}: " + " | ".join(str(m) for m in metrics) + "\n")
 
 
+def require_clean_tree(exp_id: str, require_clean_git: bool = True) -> None:
+    """The reference's clean-tree rule for named experiments
+    (recorder.py:39): raises when the git tree is dirty, except for the
+    'default' and eval runs or with require_clean_git False."""
+    if (require_clean_git and exp_id not in ("default", "eval")
+            and not exp_id.startswith("eval_") and _git_dirty()):
+        raise RuntimeError(f"git tree dirty; commit before running named exp "
+                           f"'{exp_id}' (or pass --allow_dirty)")
+
+
 def _git_dirty() -> bool:
     try:
         out = subprocess.run(["git", "status", "--porcelain"], capture_output=True, text=True,
@@ -95,12 +106,6 @@ def _git_dirty() -> bool:
     except (OSError, subprocess.SubprocessError):
         return False
     return out.returncode == 0 and bool(out.stdout.strip())
-
-
-def _is_rank0() -> bool:
-    """Rank 0 of an initialised torch.distributed group, or the only process."""
-    import torch.distributed as dist
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 class ScalarWriter:
@@ -125,7 +130,7 @@ class ScalarWriter:
         return self._tb is not None
 
     def add_scalar(self, tag: str, value: float, step: int):
-        if not _is_rank0():
+        if not is_rank0():
             return
         self._lines.append(json.dumps({"tag": tag, "value": float(value), "step": int(step)})
                            + "\n")
@@ -133,7 +138,7 @@ class ScalarWriter:
             self._tb.add_scalar(tag, value, step)
 
     def add_image(self, tag: str, img_hwc, step: int):
-        if self._tb is not None and _is_rank0():
+        if self._tb is not None and is_rank0():
             self._tb.add_image(tag, np.asarray(img_hwc), step, dataformats="HWC")
 
     def flush(self):

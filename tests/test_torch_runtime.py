@@ -194,13 +194,14 @@ def test_scalar_tags_match_jax(tmp_path, monkeypatch):
 def test_scalar_writer_rank_zero_only(tmp_path, monkeypatch):
     w = recorder.ScalarWriter(str(tmp_path))
     w.add_scalar("a", 1.0, 1)
-    monkeypatch.setattr(recorder, "_is_rank0", lambda: False)
+    # the writer's gate is parallel.is_rank0 (recorder imports it)
+    monkeypatch.setattr(recorder, "is_rank0", lambda: False)
     w.add_scalar("b", 2.0, 2)
     w.close()
     with open(w.path) as f:
         assert [json.loads(line)["tag"] for line in f] == ["a"]
     monkeypatch.undo()
-    assert recorder._is_rank0()
+    assert recorder.is_rank0()
 
 
 def test_snapshots(tmp_path):
