@@ -230,6 +230,21 @@ Phases; any failure exits non-zero and prints no result:
      gradients' all-reduce inside the graph), a replay bitwise equal to 10
      uncaptured steps, and host ms/step of captured bundles on the mesh /
      one process / one process / the mesh.
+  15. the evidence tools (color_neus_torch/tools/, the ports of the JAX
+     round's tools/): (a) grad_audit's audit at 256 rays x 512 samples on
+     the same two ray batches and parameters: fused_march on (rows 3 + 4,
+     the save mode) in MARCH_BWD_PRECISION f32stash, bf16 and f32 and
+     fused_core on (rows 5 + 6) in f32stash, each against the f32 plain
+     core; each report's groups printed, JAX's gate pass_2x_floor required
+     in every arm, the arm's kernels launched twice each, and the SDF
+     group's systematic ratio of each mode side by side; (b)
+     quality_gate on the sphere at 1000 steps and res 128 with QG_FUSED on
+     (must pass at JAX's thresholds) and '' (auto: the plain core), and on
+     the blob with QG_FUSED on, in turn in this process: each verdict, its
+     seconds, steady ms/step and launches; (c) dtu_blob_e2e at 2000 steps
+     and res 256 (the train and evaluate CLIs as child processes), then
+     eval_views over its 12 views and mesh_compare of its mesh against the
+     analytic surface: finite values, a non-empty mesh, 12 views.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -501,6 +516,23 @@ NEUS_COLOR = {"D_FEATURE": 256, "MODE": "idr", "D_IN": 9, "D_OUT": 3, "D_HIDDEN"
 # in 60 steps; the per-leaf clip at 1.0 bounds a step to lr per leaf
 SGD_OPTIMIZE = {"TYPE": "sgd", "LR": 0.05, "SCHEDULER_TYPE": "NEUS", "WARM_UP": 10,
                 "LR_ALPHA": 0.05}
+
+# phase 15: the evidence tools (color_neus_torch/tools/). The audit at the
+# shape of JAX's r5 reports (reports/r5/grad_audit*.json: 256 rays x 256 +
+# 256 samples), each arm held to JAX's own gate (pass_2x_floor): the fused
+# march in every MARCH_BWD_PRECISION mode and the fused core in the
+# default one; each arm's pair of kernels launches once a gradient, four
+# gradients of which two are the arm's. The quality gate at JAX's 1000
+# steps and res 128 (its thresholds unchanged, quality_gate.thresholds);
+# the DTU-format blob at 2000 steps and res 256 (JAX's r5 anchor ran 5000)
+AUDIT_RAYS = 256
+AUDIT_ARMS = (("f32stash", "fused_march"), ("bf16", "fused_march"), ("f32", "fused_march"),
+              ("f32stash", "fused_core"))
+AUDIT_KERNELS = {"fused_march": ("ray_march_save", "ray_march_bwd_load"),
+                 "fused_core": ("point_pipeline", "point_pipeline_bwd")}
+QG_STEPS, QG_RES = 1000, 128
+QG_ARMS = (("sphere", "on"), ("sphere", ""), ("blob", "on"))
+DBE_STEPS, DBE_RES, DBE_VIEWS = 2000, 256, 12
 
 # MODEL of config/Color_NeuS_dtu.yml; DATASET, DATA_PRESET and TRAIN of
 # config/Color_NeuS_synthetic.yml (the DTU scan is not in the repo, and
@@ -3739,6 +3771,152 @@ def slice16_phase(device, trained, bundles, auto_step_ms):
     return dict(rec["trained"], err=max(r["err"] for r in rec.values()), launches=x3_launches)
 
 
+def audit_phase(device) -> dict:
+    """Phase 15a: tools/grad_audit.py's audit on the card, each arm of
+    AUDIT_ARMS against the f32 plain core on the same two ray batches and
+    parameters: its groups printed, pass_2x_floor required, the arm's
+    kernels launched once a fused gradient. Returns {(mode, arm): report}."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.tools import grad_audit as GA
+    batches = [GA.ray_batch(AUDIT_RAYS, s) for s in GA.BATCH_SEEDS]
+    params = GA.init_params(GA.audit_config(), device)
+    reports = {}
+    for mode, arm in AUDIT_ARMS:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = GA.audit(params, GA.audit_config(mode), batches, {arm: "on"})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = {k + PP.SUFFIX[mode]: 2 for k in AUDIT_KERNELS[arm]}
+        w = rep["worst_leaf"]
+        print(f"[15a] grad audit {arm}=on {mode}, {rep['n_rays']} rays x "
+              f"{rep['samples_per_ray']} samples, 2 batches: groups "
+              f"{json.dumps(rep['groups'])} | worst leaf {w['name']} rel {w['rel_err']} "
+              f"err_batch_cos {w['err_batch_cos']} systematic {w['systematic_err_ratio']} | "
+              f"pass_2x_floor {rep['pass_2x_floor']} | launches {counts} | {secs:.1f} s",
+              flush=True)
+        check(counts == want, f"[15a] {arm} {mode}: launches {counts}, want {want}")
+        check(rep["pass_2x_floor"], f"[15a] {arm} {mode}: a group's systematic error is above "
+                                    f"twice the oracle's cross-batch floor: {rep['groups']}")
+        reports[(mode, arm)] = rep
+    sdf = {m: reports[(m, "fused_march")]["groups"]["sdf"] for m in ("f32stash", "bf16", "f32")}
+    print("[15a] SDF group, fused_march: max_systematic_err_ratio / max_rel_err / "
+          "max_err_batch_cos " + ", ".join(
+              f"{m} {g['max_systematic_err_ratio']:.6f} / {g['max_rel_err']:.6f} / "
+              f"{g['max_err_batch_cos']:.4f}" for m, g in sdf.items())
+          + f" | the oracle's floor (max_xla_cross_batch_rel) "
+            f"{sdf['f32']['max_xla_cross_batch_rel']:.6f}", flush=True)
+    return reports
+
+
+def gate_phase(device) -> dict:
+    """Phase 15b: tools/quality_gate.py on the card, each arm of QG_ARMS in
+    turn in this process (in a temporary directory: its exp/): the sphere
+    through the fused kernels must pass at JAX's thresholds; the plain
+    core's arm and the blob are printed with their verdicts. Returns
+    {(scene, fused): verdict}."""
+    import torch
+    from color_neus_torch.tools import quality_gate as QG
+    from color_neus_torch.utils.config import get_config
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for scene, fused in QG_ARMS:
+            cfg = QG.arm_config(get_config(QG.CONFIGS[scene]), QG_STEPS, fused)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop = QG.train(cfg, fused or "auto", device)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = launch_counts(loop)
+            verdict = QG.judge(loop, QG_RES, scene, fused)
+            judge_s = time.perf_counter() - t0 - train_s
+            # steady state after the gate: two replays of the captured bundle
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loop.run(QG_STEPS + 2 * BUNDLE)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3 / (2 * BUNDLE)
+            print(f"[15b] quality gate {scene} QG_FUSED={fused!r} ({verdict['fused']}): "
+                  f"{json.dumps(verdict)}", flush=True)
+            n_viz = (QG_STEPS - 1) // cfg["TRAIN"]["VIZ_MESH_INTERVAL"]
+            print(f"[15b]   {QG_STEPS} steps in {train_s:.1f} s wall ({train_s * 1e3 / QG_STEPS:.2f} "
+                  f"ms/step incl. the warm-up bundle, the capture and {n_viz} validation "
+                  f"images + res-{EVAL_RES} meshes), verdict {judge_s:.1f} s, steady "
+                  f"{step_ms:.2f} ms/step | training launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            march = (counts["ray_march_save"], counts["ray_march_bwd_load"])
+            check(march == ((QG_STEPS,) * 2 if fused == "on" else (0, 0)),
+                  f"[15b] {scene} {fused!r}: the march's save / load launched {march} times")
+            check(counts["sdf_rays"] >= SWEEPS_PER_STEP * QG_STEPS,
+                  f"[15b] {scene} {fused!r}: {counts['sdf_rays']} sweeps")
+            check("n_verts" in verdict and verdict["n_verts"] > 0
+                  and all(verdict[k] == verdict[k] for k in ("psnr", "ssim", "radial_err_mean")),
+                  f"[15b] {scene} {fused!r}: no mesh or a non-finite metric: {verdict}")
+            out[(scene, fused)] = dict(verdict, train_s=train_s, step_ms=step_ms)
+            del loop
+            collect()
+    check(out[("sphere", "on")]["pass"],
+          f"[15b] the sphere through the fused kernels fails JAX's gate: "
+          f"{out[('sphere', 'on')]}")
+    return out
+
+
+def dtu_blob_phase() -> dict:
+    """Phase 15c: tools/dtu_blob_e2e.py (the train and evaluate CLIs in
+    child processes, on the card), then eval_views over every view of its
+    checkpoint and mesh_compare of its mesh against the analytic surface's
+    vertices: finite values, a non-empty mesh, DBE_VIEWS views."""
+    import math
+    import numpy as np
+    from color_neus_torch.ops.mesh import write_ply
+    from color_neus_torch.tools import dtu_blob_e2e as DBE
+    from color_neus_torch.tools import eval_views as EV
+    from color_neus_torch.tools import mesh_compare as MC
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rep, files = DBE.run(DBE_STEPS, DBE_RES, tmp)
+        run_s = time.perf_counter() - t0
+        print(f"[15c] dtu_blob_e2e ({run_s:.1f} s: write, train {DBE_STEPS} steps and evaluate "
+              f"-rr {DBE_RES} as child processes, metrics): {json.dumps(rep)}", flush=True)
+        check(rep["n_imgs"] == DBE_VIEWS and rep["mesh_n_verts"] > 0
+              and all(math.isfinite(rep[k]) for k in ("psnr_view0", "mesh_mean_abs_sdf",
+                                                      "chamfer_vs_analytic")),
+              f"[15c] dtu_blob_e2e: {rep}")
+        t0 = time.perf_counter()
+        views = EV.main(["--cfg", files["cfg"], "--reload", files["checkpoint"]])
+        ev_s = time.perf_counter() - t0
+        check(views["n_views"] == DBE_VIEWS and all(
+            math.isfinite(v["psnr"]) and math.isfinite(v["ssim"]) for v in views["views"]),
+            f"[15c] eval_views: {views}")
+        gt_ply = os.path.join(tmp, "analytic_surface.ply")
+        write_ply(gt_ply, DBE.gt_surface_points(), np.zeros((0, 3), np.int32))
+        t0 = time.perf_counter()
+        chamfer = MC.main([files["mesh"], gt_ply])
+        mc_s = time.perf_counter() - t0
+        check(math.isfinite(chamfer), f"[15c] mesh_compare: {chamfer}")
+    print(f"[15c] eval_views: {views['n_views']} views, PSNR {views['psnr_mean']} dB / SSIM "
+          f"{views['ssim_mean']} mean ({ev_s:.1f} s) | mesh_compare against the analytic "
+          f"surface: {chamfer:.6e} ({mc_s:.1f} s)", flush=True)
+    return dict(rep, run_s=run_s, views=views, chamfer_mc=chamfer)
+
+
+def evidence_phase(device) -> dict:
+    """Phase 15: the evidence tools on the card (audit_phase, gate_phase,
+    dtu_blob_phase)."""
+    collect()
+    t0 = time.perf_counter()
+    audit = audit_phase(device)
+    t_a = time.perf_counter() - t0
+    gate = gate_phase(device)
+    t_b = time.perf_counter() - t0 - t_a
+    dbe = dtu_blob_phase()
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    return {"audit": audit, "gate": gate, "dbe": dbe, "secs": (t_a, t_b, t_c)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3968,6 +4146,19 @@ def main() -> int:
     print(f"[14] summary: (a) {dp['a_s']:.1f} s, (b) {dp['b_s']:.1f} s | launches on the "
           f"data-parallel path (the gloo ranks' and the NCCL rank's {STEPS} steps) "
           f"{dp['counts']}", flush=True)
+
+    # ---- phase 15: the evidence tools ----
+    ev15 = evidence_phase(device)
+    a15, g15, d15 = ev15["audit"], ev15["gate"], ev15["dbe"]
+    print(f"[15] summary ({' / '.join(f'{t:.1f}' for t in ev15['secs'])} s): audit "
+          f"pass_2x_floor in {sum(r['pass_2x_floor'] for r in a15.values())} of {len(a15)} "
+          f"arms, SDF systematic ratio f32stash "
+          f"{a15[('f32stash', 'fused_march')]['groups']['sdf']['max_systematic_err_ratio']} / "
+          f"f32 {a15[('f32', 'fused_march')]['groups']['sdf']['max_systematic_err_ratio']} | "
+          + ", ".join(f"{sc} {fu or 'auto'} {v['psnr']} dB / {v['radial_err_mean']} "
+                      f"(pass {v['pass']})" for (sc, fu), v in g15.items())
+          + f" | DTU blob {d15['psnr_view0']} dB, chamfer {d15['chamfer_vs_analytic']}",
+          flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and

@@ -132,10 +132,11 @@ def _w2c(c2w: np.ndarray):
 # ---------------------------------------------------------------------------
 
 def write_dtu(root: str, obj_id: str, poses, rgb, mask, focal, family: str = "DTU",
-              writer=write_png) -> str:
+              writer=write_png, scale: float = DTU_SCALE, centre=DTU_CENTRE) -> str:
     """DTU (or, with family="BlendedMVS", BlendedMVS) layout. poses are the
-    unit-sphere c2w; the files hold the world frame x_w = DTU_SCALE x +
-    DTU_CENTRE. Returns the scene directory."""
+    unit-sphere c2w; the files hold the world frame x_w = scale x + centre
+    (by default DTU-like; scale 1 and centre 0 keep the unit-sphere frame,
+    identity scale mats). Returns the scene directory."""
     sub = f"dtu_scan{obj_id}" if family == "DTU" else f"bmvs_{obj_id}"
     d = os.path.join(root, family, sub)
     for s in ("image", "mask"):
@@ -144,12 +145,12 @@ def write_dtu(root: str, obj_id: str, poses, rgb, mask, focal, family: str = "DT
     K = np.eye(4)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = focal[0], focal[1], W / 2, H / 2
     scale_mat = np.eye(4)
-    scale_mat[:3, :3] *= DTU_SCALE
-    scale_mat[:3, 3] = DTU_CENTRE
+    scale_mat[:3, :3] *= scale
+    scale_mat[:3, 3] = centre
     payload = {}
     for i, c2w in enumerate(poses):
         world = c2w.astype(np.float64)
-        world[:3, 3] = DTU_SCALE * world[:3, 3] + np.asarray(DTU_CENTRE)
+        world[:3, 3] = scale * world[:3, 3] + np.asarray(centre)
         R, t = _w2c(world)
         w2c = np.eye(4)
         w2c[:3, :3], w2c[:3, 3] = R, t

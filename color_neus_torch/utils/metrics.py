@@ -141,9 +141,9 @@ def _nn_sq_dists(a: torch.Tensor, b: torch.Tensor, tile: int = 4096) -> torch.Te
     return torch.clamp_min(torch.cat(mins), 0.0)
 
 
-def chamfer_distance(pts_a, pts_b) -> float:
+def chamfer_distance(pts_a, pts_b, device="cpu") -> float:
     """Symmetric mean-squared chamfer (pytorch3d convention:
-    mean_a min_b ||.||^2 + mean_b min_a ||.||^2)."""
-    a = torch.as_tensor(np.asarray(pts_a), dtype=torch.float32)
-    b = torch.as_tensor(np.asarray(pts_b), dtype=torch.float32)
+    mean_a min_b ||.||^2 + mean_b min_a ||.||^2), computed on `device`."""
+    a = torch.as_tensor(np.asarray(pts_a), dtype=torch.float32, device=device)
+    b = torch.as_tensor(np.asarray(pts_b), dtype=torch.float32, device=device)
     return float(torch.mean(_nn_sq_dists(a, b)) + torch.mean(_nn_sq_dists(b, a)))

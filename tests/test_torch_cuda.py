@@ -483,3 +483,20 @@ def test_cuda_bwd_precision_modes(cuda_device, mode):
             assert err <= 1e-4 * float(want[i].abs().max()), (k, err)
         assert torch.equal(got_s, got)
         assert all(torch.equal(a, b) for a, b in zip(sav, rec))
+
+
+@pytest.mark.cuda
+def test_cuda_grad_audit_f32stash(cuda_device):
+    """The evidence tool's audit (tools/grad_audit.py) at 64 rays x 128
+    samples: the fused march (rows 3 + 4, the save mode) in f32stash against
+    the f32 plain core on two batches; every group's statistics finite and
+    its systematic error within twice the oracle's cross-batch floor."""
+    from color_neus_torch.tools import grad_audit as GA
+    rcfg = GA.audit_config("f32stash", n_samples=64, n_importance=64)
+    rep = GA.audit(GA.init_params(rcfg, cuda_device), rcfg,
+                   [GA.ray_batch(64, s) for s in GA.BATCH_SEEDS])
+    assert rep["platform"] == "gpu" and rep["samples_per_ray"] == 128
+    assert set(rep["groups"]) == {"color", "relight", "sdf", "variance"}
+    for name, g in rep["groups"].items():
+        assert all(np.isfinite(v) for v in g.values()), (name, g)
+    assert rep["pass_2x_floor"], rep["groups"]
