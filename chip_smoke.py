@@ -245,6 +245,19 @@ Phases; any failure exits non-zero and prints no result:
      and res 256 (the train and evaluate CLIs as child processes), then
      eval_views over its 12 views and mesh_compare of its mesh against the
      analytic surface: finite values, a non-empty mesh, 12 views.
+  16. the JAX round's step and extraction instruments
+     (color_neus_torch/tools/, the ports of JAX's tools/), each through its
+     main in this process at INSTRUMENTS' knobs, its JSON parsed and held
+     to carry every key JAX's tool prints: bench_ab (march_acts save
+     against recompute at 2048 x 512, 3 rounds of 10 steps; each arm
+     within RTOL_AB_PHASE11 of phase 11(c)'s captured ms/step),
+     profile_step (3 calls a piece), trace_profile (2 captured bundles;
+     its top kernels sum to at most its busy time), march_ablate (row 4's
+     load entry in five builds; full within RTOL_ABLATE_FULL of the
+     production entry), mesh_extraction_timing (res 512, f32),
+     extract_probe (res 256), merge_bench and eval_fused_check (must
+     pass). Each phase's seconds print as it ends, and all of them before
+     the kernel line.
 The last lines are one JSON object per kernel list, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -264,6 +277,9 @@ import tempfile
 import threading
 import time
 from functools import partial
+
+from color_neus_torch.tools._timing import (
+    card_line, cuda_ms, kernel_name, profile_steps, profiled, union_us)
 
 SEED = 0
 STEPS = 60
@@ -534,6 +550,57 @@ QG_STEPS, QG_RES = 1000, 128
 QG_ARMS = (("sphere", "on"), ("sphere", ""), ("blob", "on"))
 DBE_STEPS, DBE_RES, DBE_VIEWS = 2000, 256, 12
 
+# phase 16: the JAX round's step and extraction instruments
+# (color_neus_torch/tools/), each run once in this process through its
+# main at these knobs, its printed JSON parsed. JAX_TOOL_KEYS: the keys
+# each JAX tool prints (tools/<name>.py; the port's eval_fused_check is
+# tpu_eval_fused_check.py), which the port's must print too: its top-level
+# keys, and the keys of every entry of its nested report (mesh timing:
+# each res*; extract_probe: each arm; eval check: the checks; trace: each
+# top op). Gates: the eval check passes; march_ablate's full build within
+# RTOL_ABLATE_FULL of the production load entry in the same process (the
+# same code, built twice); the trace's top kernels sum to at most its
+# busy time (one stream: no kernel overlaps another); bench_ab's arms
+# within RTOL_AB_PHASE11 of phase 11(c)'s captured save and recompute at
+# 2048 x 512 (another dataset, the same shape and kernels).
+INSTRUMENTS = {
+    "bench_ab": {"AB_KEY": "march_acts", "AB_A": "save", "AB_B": "recompute", "AB_ROUNDS": "3",
+                 "BENCH_N_RAYS": "2048", "BENCH_K_STEPS": "10"},
+    "profile_step": {"PROF_N_RAYS": "2048", "PROF_ITERS": "3"},
+    "trace_profile": {"PROF_N_RAYS": "2048", "TRACE_BUNDLES": "2", "TRACE_K_STEPS": "10"},
+    "march_ablate": {"ABL_N_RAYS": "1024", "ABL_REPS": "5"},
+    "mesh_extraction_timing": {"MET_RES": "512", "MET_PREC": "f32"},
+    "extract_probe": {"EP_RES": "256", "EP_REPS": "2"},
+    "merge_bench": {"MB_R": "2048"},
+    "eval_fused_check": {"EFC_RES": "64", "EFC_VERTS": "5000"},
+}
+JAX_TOOL_KEYS = {
+    "bench_ab": (("key", "A", "B", "rounds", "n_rays", "k_steps", "A_rays_per_s_median",
+                  "B_rays_per_s_median", "B_over_A_median", "B_over_A_iqr"), None, ()),
+    "profile_step": (("train_step_ms", "pipeline_fwd_bwd_ms", "pipeline_fwd_ms", "hierarchy_ms",
+                      "render_fwd_ms", "render_loss_bwd_ms", "residual_step_minus_lossgrad_ms",
+                      "residual_lossgrad_minus_pieces_ms", "n_rays"), None, ()),
+    "trace_profile": (("total_device_ms_per_step", "top_ops_ms_per_step"),
+                      "top_ops_ms_per_step", ("name", "ms", "calls", "hlo")),
+    "march_ablate": (("fwd_save_ms", "fwd_nosave_ms", "bwd_full_ms", "bwd_no_pullback_ms",
+                      "bwd_no_unflatten_ms", "bwd_pullback_only_ms", "fwd_no_composite_ms"),
+                     None, ()),
+    "mesh_extraction_timing": (("what", "platform"), "res",
+                               ("grid_eval_s", "marching_s", "vertex_colors_s",
+                                "overlapped_grid_plus_marching_s", "sparse_grid_plus_marching_s",
+                                "sparse_steady_s", "n_verts", "n_verts_overlapped",
+                                "n_verts_sparse")),
+    "extract_probe": (("what", "platform", "res", "arms"), "arms",
+                      ("device_only_s", "full_s", "fetch_share_s", "dispatches")),
+    "merge_bench": (("counting_ms_per_merge", "sort_ms_per_merge", "z_equal", "sdf_equal"),
+                    None, ()),
+    "eval_fused_check": (("platform", "checks", "pass"), "checks",
+                         ("vertex_colors_no_view_dir_max_abs_err",
+                          "vertex_colors_idr_max_abs_err", "sdf_grid_max_abs_err")),
+}
+RTOL_ABLATE_FULL = 0.05
+RTOL_AB_PHASE11 = 0.15
+
 # MODEL of config/Color_NeuS_dtu.yml; DATASET, DATA_PRESET and TRAIN of
 # config/Color_NeuS_synthetic.yml (the DTU scan is not in the repo, and
 # DTU's WARM_UP of 5000 would keep lr near 0 for all 60 steps). Written
@@ -578,6 +645,22 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+class PhaseClock:
+    """Seconds of each phase of main, printed as each ends and together
+    before the kernel line: the budget of the script's time limit."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.secs = {}
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.secs[phase] = now - self.t
+        self.t = now
+        print(f"[{phase}] phase seconds {self.secs[phase]:.1f} (script {now - self.t0:.1f})",
+              flush=True)
+
+
 def _call_into(errors, fn):
     try:
         fn()
@@ -588,45 +671,6 @@ def _call_into(errors, fn):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def kernel_name(mangled: str) -> str:
-    """The `..._kernel` identifier inside a mangled name (or
-    `..._kernel_bf16s` / `_f32s`: a MARCH_BWD_PRECISION mode's, SUFFIX in
-    ops/kernels/point_pipeline.py): the shortest one whose length prefix
-    (a suffix of some digit run) matches it. The
-    shortest: the unnamed namespace's name carries a hash of the source's
-    path, whose digits can prefix a longer run that also ends in
-    `_kernel` (`..._cu_bc59753821chain_deferred_kernel`)."""
-    found = []
-    for m in re.finditer(r"(?=(\d+))", mangled):
-        start = m.start() + len(m.group(1))
-        ident = mangled[start:start + int(m.group(1))]
-        if ident.endswith(("_kernel", "_kernel_bf16s", "_kernel_f32s")):
-            found.append(ident)
-    return min(found, key=len) if found else mangled[:64]
-
-
-def cuda_ms(fn, reps=20, warmup=3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def sweep_inputs(R, S, device, seed):
@@ -858,65 +902,6 @@ def main_path_sweeps(loop, seed):
                             sdf_rays_fn=checked)
     return fn.weights.dtype, sweeps
 
-
-def _union_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, cur = 0.0, None
-    for s, e in sorted(intervals):
-        if cur is None or s > cur[1]:
-            if cur is not None:
-                total += cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    return total + (cur[1] - cur[0] if cur else 0.0)
-
-
-def profiled(fn):
-    """(host ms of fn() under torch.profiler, the trace's device events as
-    (start us, end us, name))."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return wall_ms, [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
-                     for e in events if e.get("ph") == "X"
-                     and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-
-
-def profile_steps(loop, n_steps=3, top=12, tag="5"):
-    """Device time by kernel, busy time and idle share over a few
-    steady-state steps (uncaptured: fewer than a bundle), all read from one
-    torch.profiler trace (phase 5, and phases 7 and 8 for their loops)."""
-    wall_ms, dev = profiled(lambda: loop.run(loop.state.step + n_steps))
-    if not dev:
-        print(f"[{tag}] the profiler trace holds no device events: time by kernel not measured")
-        return
-    busy = _union_us([(s, e) for s, e, _ in dev]) / 1e3
-    span = (max(e for _, e, _ in dev) - min(s for s, _, _ in dev)) / 1e3
-    print(f"[{tag}] profiled window: {wall_ms / n_steps:.2f} ms/step host clock (profiler on) | "
-          f"device span {span / n_steps:.2f} ms/step | busy {busy / n_steps:.2f} ms/step | "
-          f"idle share {1 - busy / span:.4f} of the span", flush=True)
-    by_name = {}
-    for s, e, name in dev:
-        t, c = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + (e - s) / 1e3, c + 1)
-    total = sum(t for t, _ in by_name.values())
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[{tag}]   {t / total * 100:5.1f}%  {t / n_steps:8.3f} ms/step  "
-              f"{c // n_steps:4d}x  {name[:90]}")
-    sweep = sorted((e - s) / 1e3 for s, e, name in dev if "sdf_rays_" in name)
-    print(f"[{tag}] sweep kernel launches in the trace (ms each, sorted): "
-          f"{' '.join(f'{x:.4f}' for x in sweep)}", flush=True)
 
 def reset_launch_counts(*loops):
     """Every wrapper's count to 0, and the bundle counts of `loops`."""
@@ -2849,7 +2834,7 @@ def busy_of_replays(loop, n, arm, tag):
     wall_ms, dev = profiled(lambda: [loop.training_bundle() for _ in range(n)])
     steps = n * BUNDLE
     check(dev, f"[{tag}] the profiler trace of {n} replays holds no device events")
-    busy = _union_us([(a, b) for a, b, _ in dev]) / 1e3
+    busy = union_us([(a, b) for a, b, _ in dev]) / 1e3
     span = (max(b for _, b, _ in dev) - min(a for a, _, _ in dev)) / 1e3
     names = ("sdf_rays_",) + tuple(k for ks in ARM_KERNELS.values() for k in ks)
     per_step = {k: sum(bool(re.search(rf"\b{k}", name)) if k.endswith("_")
@@ -3917,6 +3902,106 @@ def evidence_phase(device) -> dict:
     return {"audit": audit, "gate": gate, "dbe": dbe, "secs": (t_a, t_b, t_c)}
 
 
+def jax_keys_missing(tool: str, rep: dict) -> list:
+    """The keys of JAX_TOOL_KEYS[tool] that the report lacks (nested ones
+    as 'entry.key')."""
+    top, nested, keys = JAX_TOOL_KEYS[tool]
+    miss = [k for k in top if k not in rep]
+    if nested == "res":       # one entry a resolution
+        entries = {k: v for k, v in rep.items() if k.startswith("res") and k != "res"}
+    elif nested == "checks":  # one entry
+        entries = {"checks": rep.get("checks", {})}
+    elif nested is not None:
+        v = rep.get(nested, {})
+        entries = v if isinstance(v, dict) else dict(enumerate(v))
+    else:
+        entries = {}
+    if nested is not None and not entries:
+        miss.append(f"{nested} (no entry)")
+    return miss + [f"{e}.{k}" for e, v in entries.items() for k in keys if k not in v]
+
+
+def last_json(text: str):
+    """The last JSON object in a tool's output (one line, or indented)."""
+    dec = json.JSONDecoder()
+    for i in sorted((m.start() for m in re.finditer(r"^\{", text, re.M)), reverse=True):
+        try:
+            return dec.raw_decode(text[i:])[0]
+        except json.JSONDecodeError:
+            continue
+    raise SmokeFailure(f"no JSON object in the tool's output: {text[-2000:]}")
+
+
+def run_tool(name: str) -> tuple:
+    """Run color_neus_torch.tools.<name>'s main in this process with its
+    INSTRUMENTS knobs in the environment: (the JSON it printed, seconds);
+    the report's JAX keys checked."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"color_neus_torch.tools.{name}")
+    env = INSTRUMENTS[name]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main([])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    rep = last_json(buf.getvalue())
+    miss = jax_keys_missing(name, rep)
+    check(not miss, f"[16] {name} printed no {miss} of JAX's keys")
+    return rep, secs
+
+
+def instruments_phase(bundles) -> dict:
+    """Phase 16: the JAX round's step and extraction instruments on the card
+    (INSTRUMENTS), their JSON reports printed compactly and gated."""
+    out, secs = {}, {}
+    for name in INSTRUMENTS:
+        collect()
+        out[name], secs[name] = run_tool(name)
+        print(f"[16] {name} ({secs[name]:.1f} s): {json.dumps(out[name])[:3000]}", flush=True)
+    ab, abl, tr = out["bench_ab"], out["march_ablate"], out["trace_profile"]
+    efc = out["eval_fused_check"]
+    check(efc["pass"], f"[16] eval_fused_check failed: {efc['checks']}")
+    full, prod = abl["bwd_full_ms"], abl["production_load_ms"]
+    print(f"[16a] march_ablate, row 4's load entry at {abl['n_rays']} x {abl['n_samples']}: "
+          f"production {prod:.3f} ms, full {full:.3f} ms ({full / prod - 1:+.4f}; limit "
+          f"{RTOL_ABLATE_FULL:g}) | less than full: "
+          + ", ".join(f"{v} {d:+.3f} ms" for v, d in abl["minus_full_ms"].items())
+          + f" | forward save {abl['fwd_save_ms']:.3f}, recompute {abl['fwd_nosave_ms']:.3f}, "
+          f"save without the compositing scan {abl['fwd_no_composite_ms']:.3f} ms", flush=True)
+    check(abs(full / prod - 1) <= RTOL_ABLATE_FULL,
+          f"[16] march_ablate's full build {full:.3f} ms against the production entry's "
+          f"{prod:.3f} ms: beyond {RTOL_ABLATE_FULL:g}")
+    top = sum(o["ms"] for o in tr["top_ops_ms_per_step"])
+    print(f"[16b] trace_profile, {tr['n_steps']} steps in captured bundles: device "
+          f"{tr['total_device_ms_per_step']:.3f} ms/step, busy {tr['busy_ms_per_step']:.3f}, "
+          f"span {tr['span_ms_per_step']:.3f}, idle share {tr['idle_share']:.4f}, top "
+          f"{len(tr['top_ops_ms_per_step'])} kernels {top:.3f} ms/step", flush=True)
+    check(top <= tr["busy_ms_per_step"] * (1 + 1e-6) + 1e-3,
+          f"[16] the trace's top kernels sum to {top:.4f} ms/step, above its busy "
+          f"{tr['busy_ms_per_step']:.4f}")
+    for arm, key in (("A", "fused_march_bench"), ("B", "fused_march_recompute_bench")):
+        ms = sorted(ab[f"{arm}_ms_per_step"])[len(ab[f"{arm}_ms_per_step"]) // 2]
+        ref = sum(bundles[key]["c"]) / 2
+        print(f"[16c] bench_ab {ab[arm]}: {ms:.2f} ms/step (median of {ab['rounds']} calls of "
+              f"{ab['k_steps']} steps) against phase 11(c)'s captured {ref:.2f} "
+              f"({ms / ref - 1:+.4f}; limit {RTOL_AB_PHASE11:g}) | B / A "
+              f"{ab['B_over_A_median']} (IQR {ab['B_over_A_iqr']})", flush=True)
+        check(abs(ms / ref - 1) <= RTOL_AB_PHASE11,
+              f"[16] bench_ab's {ab[arm]} arm {ms:.2f} ms/step against phase 11(c)'s "
+              f"{ref:.2f}: beyond {RTOL_AB_PHASE11:g}")
+    return {"reports": out, "secs": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3934,6 +4019,7 @@ def main() -> int:
     from color_neus_torch.utils.config import config_from_dict
 
     pin_precision()
+    clock = PhaseClock()
     device = torch.device("cuda")
     card = card_line()
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -3943,16 +4029,18 @@ def main() -> int:
     # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4,
     # mlp_chain.cu rows 7 and 8
     # and each MARCH_BWD_PRECISION mode's rows 3-6 (build.VARIANTS)
+    # and phase 16's march_ablate variants (build.ABLATIONS), in the same
+    # nvcc batch: none of them is a library the main path loads
     kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain", *build.VARIANTS)
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
     gxx.start()
-    libs = build.build(kernels)
+    libs = build.build(kernels + tuple(build.ABLATIONS))
     gxx.join()
     check(not gxx_err, f"g++ build of csrc/marching_tet.cpp failed: {gxx_err}")
-    print(f"[1] built {', '.join(kernels)} (nvcc) and marching_tet (g++) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1] built {', '.join(kernels + tuple(build.ABLATIONS))} (nvcc) and marching_tet "
+          f"(g++) in {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         fn = ""
         for line in build.build_log(k).splitlines():
@@ -3980,6 +4068,7 @@ def main() -> int:
     mode_sass_summary(sass)
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
+    clock.done("1")
 
     # ---- phase 2: kernel vs plain on the card, off geometric init ----
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -4011,14 +4100,19 @@ def main() -> int:
         check(err <= ATOL[dt], f"sweep {act}/{dt} R={R} S={S}: max error {err:.3e} "
                                f"above {ATOL[dt]:g}")
 
+    clock.done("2")
+
     # ---- phase 2b: the evaluation path's kernels vs plain, off geometric init ----
     eval_kernels = eval_kernels_vs_plain(device)
+    clock.done("2b")
 
     # ---- phase 2c: the point-pipeline backward vs plain, off geometric init ----
     bwd = pipeline_bwd_vs_plain(device)
+    clock.done("2c")
 
     # ---- phase 2d: the fused march vs plain, off geometric init ----
     mar = march_vs_plain(device)
+    clock.done("2d")
 
     # ---- phase 3: the main path ----
     cfg = config_from_dict(SMOKE_CFG)
@@ -4057,6 +4151,8 @@ def main() -> int:
           f"{n_rays / step_ms * 1e3:.0f} rays/s (fwd+bwd, {n_rays} rays x {n_spp} samples)",
           flush=True)
 
+    clock.done("3")
+
     # ---- phase 4: kernel vs plain on the trained weights, main-path rays and z ----
     dt, sweeps = main_path_sweeps(loop, SEED + 100)
     check(len(sweeps) == SWEEPS_PER_STEP,
@@ -4074,11 +4170,15 @@ def main() -> int:
           f"plain {step_sweep['plain_ms']:.4f} ms | bound {step_sweep['bound_ms']:.4f} ms",
           flush=True)
 
+    clock.done("4")
+
     # ---- phase 5: where the step's time goes ----
     profile_steps(loop)
+    clock.done("5")
 
     # ---- phase 6: the evaluation path on the trained weights ----
     ev = evaluation_path(loop, device, launches_training)
+    clock.done("6")
 
     # ---- phase 7: training through the point-pipeline kernels ----
     on = training_through(device, loop, SEED + 110, "FUSED_CORE", {
@@ -4087,6 +4187,8 @@ def main() -> int:
         "ray_march_bwd_load": 0, "mlp_chain": 0, "mlp_chain_deferred": 0}, "7")
     print(f"[7] steady state: fused_core auto {step_ms:.2f} ms/step, on {on['step_ms']:.2f} "
           f"ms/step", flush=True)
+
+    clock.done("7")
 
     # ---- phase 8: training through the fused march kernels (MARCH_ACTS auto:
     # the save mode at this shape), then its recompute beside it ----
@@ -4102,8 +4204,11 @@ def main() -> int:
           f"{sum(modes['ms']['recompute']) / 2:.2f} against save "
           f"{sum(modes['ms']['save']) / 2:.2f} interleaved)", flush=True)
 
+    clock.done("8")
+
     # ---- phase 9: the MLP-chain microbenchmark (rows 7 + 8) ----
     chain = chain_phase(device)
+    clock.done("9")
 
     # ---- phase 10: the dataset path: DTU replica, train / stop / resume, extract ----
     data = dataset_path(device, march["step_ms"])
@@ -4114,6 +4219,8 @@ def main() -> int:
           f"extraction {data['extract_s']:.2f} s | IHO camera leaves vs the f32 core: worst "
           f"{data['iho_cam_err']:.3e}", flush=True)
 
+    clock.done("10")
+
     # ---- phase 11: several steps per dispatch, a captured bundle per arm ----
     t0 = time.perf_counter()
     bundles = bundle_phase(device, data)
@@ -4122,6 +4229,8 @@ def main() -> int:
               f"{k} {sum(r['u']) / 2:.2f} -> {sum(r['c']) / 2:.2f}" for k, r in bundles.items()
               if "c" in r),
           flush=True)
+
+    clock.done("11")
 
     # ---- phase 12: MARCH_BWD_PRECISION bf16 and f32 ----
     t0 = time.perf_counter()
@@ -4134,6 +4243,8 @@ def main() -> int:
                              for p, r in prec[m]["train"].items()) for m in PREC_MODES),
         flush=True)
 
+    clock.done("12")
+
     # ---- phase 13: row 2's f32x3 arm, RAY_CHUNK, COMPUTE_DTYPE, N_OUTSIDE, SGD, glb ----
     t0 = time.perf_counter()
     x3 = slice16_phase(device, loop, bundles, step_ms)
@@ -4141,11 +4252,15 @@ def main() -> int:
           f"per 2^18 points (bound {x3['bound_ms']:.4f}, plain {x3['plain_ms']:.4f}), "
           f"{x3['launches']} launches in the res-{EVAL_RES} extraction", flush=True)
 
+    clock.done("13")
+
     # ---- phase 14: data-parallel training, in child processes ----
     dp = dp_phase()
     print(f"[14] summary: (a) {dp['a_s']:.1f} s, (b) {dp['b_s']:.1f} s | launches on the "
           f"data-parallel path (the gloo ranks' and the NCCL rank's {STEPS} steps) "
           f"{dp['counts']}", flush=True)
+
+    clock.done("14")
 
     # ---- phase 15: the evidence tools ----
     ev15 = evidence_phase(device)
@@ -4159,6 +4274,15 @@ def main() -> int:
                       f"(pass {v['pass']})" for (sc, fu), v in g15.items())
           + f" | DTU blob {d15['psnr_view0']} dB, chamfer {d15['chamfer_vs_analytic']}",
           flush=True)
+    clock.done("15")
+
+    # ---- phase 16: the step and extraction instruments ----
+    ins = instruments_phase(bundles)
+    print(f"[16] summary: " + ", ".join(f"{k} {v:.1f} s" for k, v in ins["secs"].items()),
+          flush=True)
+    clock.done("16")
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in clock.secs.items()})
+          + f" | script {time.perf_counter() - clock.t0:.1f} s", flush=True)
 
     # the kernel line. sdf_rays: one step's sweeps (every launch of a
     # step), phase 4, launches from the training run; sdf_points and

@@ -86,6 +86,21 @@ enum Prec { PREC_F32STASH = 0, PREC_BF16 = 1, PREC_F32 = 2 };
 #define PP_NAME(name) name
 #endif
 
+// RM_ABLATE: a cost probe of the march backward's load entry (row 4 in the
+// save mode), for color_neus_torch/tools/march_ablate.py only: nvcc
+// -DRM_ABLATE=k builds ray_march.cu with one part of the work skipped
+// (ops/kernels/build.py ABLATIONS), whose outputs are garbage and only
+// timed: 1 no_pullback, backward_tile (the reverse sweeps' products and
+// the weight-grad operands) and the weight-grad flush; 2 no_unflatten,
+// load_tile (the stash is not read: the tile and its scratch keep what
+// they held); 3 pullback_only, the per-ray compositing of both entries
+// (the backward takes the cotangent scratch as it finds it); 4 no_wgrad,
+// the weight-grad operand stores (save_t) and the flush. Absent, it is 0:
+// every test of it is then a constant that keeps the production code.
+#ifndef RM_ABLATE
+#define RM_ABLATE 0
+#endif
+
 struct Params {
   const float* pts;    // [n, 3]
   const float* dirs;   // [n, 3]
@@ -851,6 +866,7 @@ __host__ __device__ inline ActLayout act_layout(const Shape& s, int prec) {
 // chunk of 8 rows. Only reads src.
 template <int PART>
 __device__ __forceinline__ void save_t(const float* src, int K, unsigned char* dst) {
+  if constexpr (RM_ABLATE == 4) return;   // no_wgrad
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int gi = warp; gi < K; gi += THREADS / 32) {   // K / 8 column groups x 8 point groups
     const int c = 8 * (gi >> 3) + (lane & 7), pr = 4 * (gi & 7) + (lane >> 3);

@@ -225,7 +225,7 @@ __device__ __forceinline__ void march_fwd(const March& m) {
       __syncthreads();
     }
     // ---- one thread per ray: the compositing scan and the per-ray sums ----
-    if (tid < nr) {
+    if (RM_ABLATE != 3 && tid < nr) {   // 3 pullback_only: no compositing
       const long long r = r0 + tid;
       const float* rd = m.rays_d + 3 * r;
       float T = 1.f, acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -488,9 +488,10 @@ __device__ __forceinline__ void march_bwd(const March& m) {
     const long long r0 = grp * m.G;
     const int nr = int(min((long long)m.G, m.n_rays - r0));
     const int n_pts = nr * m.S;
-    if (tid < nr)
-      sinv[tid] = composite_vjp(m, r0 + tid, inv_s, ct + size_t(tid) * m.S * CTW,
-                                Tr + size_t(tid) * m.S);
+    if (tid < nr)   // 3 pullback_only: the cotangents as the scratch holds them
+      sinv[tid] = RM_ABLATE == 3 ? 0.f
+                                 : composite_vjp(m, r0 + tid, inv_s, ct + size_t(tid) * m.S * CTW,
+                                                 Tr + size_t(tid) * m.S);
     for (int e = tid; e < nr * 6; e += THREADS) rh[e] = 0.f;
     __syncthreads();
     if (tid == 0)
@@ -499,14 +500,19 @@ __device__ __forceinline__ void march_bwd(const March& m) {
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
       load_march_points<TILE>(m, t, r0, t0, n_pts);
-      if constexpr (LOAD) load_tile<PP_PREC>(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
-      else forward_tile<TILE, true, false, PP_PREC>(p, t, st, s.gates, s.feat, sv);
+      if constexpr (LOAD) {
+        if constexpr (RM_ABLATE != 2)   // 2 no_unflatten: the stash not read
+          load_tile<PP_PREC>(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
+      } else {
+        forward_tile<TILE, true, false, PP_PREC>(p, t, st, s.gates, s.feat, sv);
+      }
       for (int e = tid; e < TILE * 16; e += THREADS) {
         const int q = t0 + e / 16, c = e % 16;
         t.CT[e] = q < n_pts && c < 13 ? ct[size_t(q) * CTW + c] : 0.f;
       }
       __syncthreads();
-      backward_tile<PP_PREC>(p, t, st, s.gates, s.zt, sv, P);
+      if constexpr (RM_ABLATE != 1)   // 1 no_pullback
+        backward_tile<PP_PREC>(p, t, st, s.gates, s.zt, sv, P);
       // the tile's share of each ray's cotangents, summed in sample order
       const int g_lo = t0 / m.S, g_hi = min(nr - 1, (t0 + TILE - 1) / m.S);
       for (int e = tid; e < (g_hi - g_lo + 1) * 6; e += THREADS) {
@@ -522,8 +528,9 @@ __device__ __forceinline__ void march_bwd(const March& m) {
         rh[g * 6 + k] += acc;
       }
       __syncthreads();
-      slot = after_tile<PP_PREC>(p, st, s, slot,
-                                 grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
+      if constexpr (RM_ABLATE != 1 && RM_ABLATE != 4)   // the flush: not in 1, 4
+        slot = after_tile<PP_PREC>(p, st, s, slot,
+                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
     }
     for (int e = tid; e < nr * 8; e += THREADS) {
       const int g = e / 8, k = e % 8;

@@ -343,3 +343,12 @@ def nerf_apply(params, cfg: NeRFConfig, pts, view_dirs):
     feat = linear_apply(params["feature"], h)
     h = F.relu(linear_apply(params["views0"], torch.cat([feat, view_dirs], dim=-1)))
     return alpha, linear_apply(params["rgb"], h)
+
+
+# ---------------------------------------------------------------------------
+# Utilities
+# ---------------------------------------------------------------------------
+
+def param_count(params: nn.Module) -> int:
+    """Scalars in a parameter tree (JAX's param_count over its leaves)."""
+    return sum(p.numel() for p in params.parameters())

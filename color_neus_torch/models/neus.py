@@ -170,10 +170,38 @@ def merge_z_vals_sort(z_vals, new_z, sdf, new_sdf):
     return z, s
 
 
+def merge_z_vals(z_vals, new_z, sdf, new_sdf):
+    """Sorted merge of per-ray sorted (z, sdf) [R, n] with (new_z, new_sdf)
+    [R, m] by counting ranks (JAX's merge_z_vals): each old z goes to its
+    index plus the count of new z below it, each new z to its index plus
+    the count of old z at or below it (ties: old before new, as a stable
+    sort of the concatenation), placed by an equality-masked sum over an
+    [R, n, n + m] intermediate. Equal to merge_z_vals_sort, bitwise; off
+    the hot path as in JAX (hierarchical_z_vals merges by the sort unless
+    given merge=), the independent formulation tools/merge_bench.py holds
+    and times the sort against."""
+    R, n = z_vals.shape
+    m = new_z.shape[1]
+    dev = z_vals.device
+    pos_a = torch.arange(n, device=dev)[None, :] + torch.sum(
+        new_z[:, None, :] < z_vals[:, :, None], dim=-1)
+    pos_b = torch.arange(m, device=dev)[None, :] + torch.sum(
+        z_vals[:, :, None] <= new_z[:, None, :], dim=1)
+    k = torch.arange(n + m, device=dev)
+
+    def _place(vals, pos):
+        return torch.sum(torch.where(pos[:, :, None] == k, vals[:, :, None], 0.0), dim=1)
+
+    z = _place(z_vals, pos_a) + _place(new_z, pos_b)
+    if sdf is None:
+        return z, None
+    return z, _place(sdf, pos_a) + _place(new_sdf, pos_b)
+
+
 @torch.no_grad()
 def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
                         generator=None, perturb_overwrite: float = -1.0,
-                        sdf_rays_fn=None, mesh=None):
+                        sdf_rays_fn=None, mesh=None, merge=merge_z_vals_sort):
     """Coarse + SDF-guided importance z values, [R, n_samples+n_importance],
     outside the autograd graph (the reference's torch.no_grad(),
     NeuS.py:343-355). 1 + (up_sample_steps - 1) SDF sweeps: the last
@@ -182,7 +210,8 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
     batch's noise and keeps the shard's rows, so every rank's generator
     stays in step with the others' and with a one-process run's (JAX folds
     the device's axis index into the key instead: the same distribution,
-    other draws)."""
+    other draws). merge: the sorted merge of each round (merge_z_vals
+    gives the same z, bitwise)."""
     rays_o, rays_d = rays_o.detach(), rays_d.detach()
     near, far = near.detach(), far.detach()
     R = rays_o.shape[0]
@@ -215,9 +244,9 @@ def hierarchical_z_vals(params, rcfg: RendererConfig, rays_o, rays_d, near, far,
         for i in range(rcfg.up_sample_steps):
             new_z = up_sample_z(rays_o, rays_d, z_vals, sdf, n_per_round, 64 * 2 ** i)
             if i + 1 == rcfg.up_sample_steps:
-                z_vals, sdf = merge_z_vals_sort(z_vals, new_z, None, None)
+                z_vals, sdf = merge(z_vals, new_z, None, None)
             else:
-                z_vals, sdf = merge_z_vals_sort(z_vals, new_z, sdf, sweep(new_z))
+                z_vals, sdf = merge(z_vals, new_z, sdf, sweep(new_z))
     return z_vals
 
 

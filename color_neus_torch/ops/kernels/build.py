@@ -4,8 +4,9 @@ Each kernel source color_neus_torch/csrc/<name>.cu has a plain C
 interface and is compiled at first use for Hopper (sm_90a) into
 color_neus_torch/_build/ (git-ignored), keyed by a hash of the source,
 the shared headers (csrc/*.cuh) and the flags, so a changed source
-rebuilds and an unchanged one loads at once. A name in VARIANTS is a
-second library of another name's source, built with extra flags. Nothing
+rebuilds and an unchanged one loads at once. A name in VARIANTS or
+ABLATIONS is a second library of another name's source, built with extra
+flags. Nothing
 is built when a module is imported, and a failed build raises with nvcc's
 output: there is no fallback.
 """
@@ -32,6 +33,13 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 VARIANTS = {f"{src}{suffix}": (src, (f"-DPP_PREC={prec}",))
             for src in ("point_pipeline", "ray_march")
             for prec, suffix in ((1, "_bf16s"), (2, "_f32s"))}
+# the march's cost probes (csrc/point_pipeline_tile.cuh RM_ABLATE), built
+# only when tools/march_ablate.py asks: full is the production code built
+# again, each other one skips one part of the load backward's work
+ABLATE = {"full": 0, "no_pullback": 1, "no_unflatten": 2, "pullback_only": 3, "no_wgrad": 4}
+ABLATIONS = {f"ray_march_abl_{name}": ("ray_march", (f"-DRM_ABLATE={k}",))
+             for name, k in ABLATE.items()}
+_DERIVED = {**VARIANTS, **ABLATIONS}
 
 
 def nvcc_path() -> str:
@@ -47,11 +55,11 @@ def nvcc_path() -> str:
 
 
 def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
+    return NVCC_FLAGS + _DERIVED.get(name, (name, ()))[1]
 
 
 def _paths(name: str):
-    src = os.path.join(CSRC, f"{VARIANTS.get(name, (name,))[0]}.cu")
+    src = os.path.join(CSRC, f"{_DERIVED.get(name, (name,))[0]}.cu")
     h = hashlib.sha256(" ".join(_flags(name)).encode())
     # the source and every shared header it may include
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):

@@ -328,10 +328,11 @@ def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -
     return policy_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
 
 
-def _library(mode: str = "f32stash"):
-    """The loaded library of a march_bwd_precision mode's kernels."""
+def _library(mode: str = "f32stash", name: str | None = None):
+    """The loaded library of a march_bwd_precision mode's kernels (name:
+    another build of that mode's source, build.ABLATIONS)."""
     from color_neus_torch.ops.kernels import build
-    lib = build.load(PP.library_name(KERNEL, mode))
+    lib = build.load(name or PP.library_name(KERNEL, mode))
     if lib.ray_march_fwd_launch.argtypes is None:
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         net = [i, i, i, f, i, i, i, i, i, i, i, p, p, i]
@@ -366,7 +367,7 @@ def _raise_on(lib, rc, what):
 
 
 def _max_blocks(lib, dev, mode: str, entry: str, save: bool) -> int:
-    key = (dev, mode, entry, save)
+    key = (dev, lib._name, mode, entry, save)
     if key not in _MAX_BLOCKS:
         nb = ctypes.c_int(0)
         with torch.cuda.device(dev):
@@ -405,12 +406,14 @@ def _groups(lib, R, S, fwd: bool) -> int:
     return -(-R // G)
 
 
-def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, save: bool):
-    """Launch the forward kernel (save: the save mode's) on the current
-    stream: (out [R, 16], the stash [R S, 8] its backward reads, the
-    activation stash [R S, act_bytes] uint8 or None)."""
+def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, save: bool,
+         lib=None):
+    """Launch the forward kernel (save: the save mode's) of the weights'
+    mode (or of `lib`, a _library) on the current stream: (out [R, 16],
+    the stash [R S, 8] its backward reads, the activation stash [R S,
+    act_bytes] uint8 or None)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
-    lib = _library(PP._mode(pw))
+    lib = lib if lib is not None else _library(PP._mode(pw))
     tables, images, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
@@ -459,13 +462,14 @@ launch_ray_march_save.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches
 
 
 def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, stash, act,
-         gbar):
+         gbar, lib=None):
     """Launch the backward kernel (act not None: the save mode's, which
-    loads it) and the reduction on the current stream."""
+    loads it) of the weights' mode (or of `lib`) and the reduction on the
+    current stream."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     PP._check("stash", stash, R * S, dev, STASH)
     PP._check("gbar", gbar, R, dev, 16)
-    lib = _library(PP._mode(pw))
+    lib = lib if lib is not None else _library(PP._mode(pw))
     save = act is not None
     if save and (act.dtype != torch.uint8 or not act.is_contiguous() or act.device != dev
                  or tuple(act.shape) != (R * S, _act_bytes(lib, pw))):

@@ -55,28 +55,33 @@ def _axes(bound_min, bound_max, res: int, device):
                                  device=device) for i in range(3))
 
 
-def _grid_eval_stream(axes, res: int, sdf_chunk_fn):
+def _lattice_points(axes, res: int, start: int, stop: int):
+    """The lattice's points [stop - start, 3] from flat (x-major) index
+    start, gathered on the device from the axes."""
+    flat = torch.arange(start, stop, device=axes[0].device)
+    return torch.stack([axes[0][flat // (res * res)], axes[1][(flat // res) % res],
+                        axes[2][flat % res]], dim=-1)
+
+
+def _grid_eval_stream(axes, res: int, sdf_chunk_fn, chunk: int = CHUNK):
     """Yields (flat_offset, np.ndarray) pieces of -sdf in flat (x-major)
-    index order, CHUNK points each; the points are gathered on the device
-    from the axes."""
+    index order, `chunk` points each."""
     n = res ** 3
-    dev = axes[0].device
-    for start in range(0, n, CHUNK):
-        flat = torch.arange(start, min(start + CHUNK, n), device=dev)
-        p = torch.stack([axes[0][flat // (res * res)], axes[1][(flat // res) % res],
-                         axes[2][flat % res]], dim=-1)
+    for start in range(0, n, chunk):
+        p = _lattice_points(axes, res, start, min(start + chunk, n))
         yield start, sdf_chunk_fn(p).cpu().numpy()
 
 
 def evaluate_sdf_grid(params, rcfg: RendererConfig, bound_min, bound_max,
-                      resolution: int, sdf_chunk_fn=None) -> np.ndarray:
-    """-sdf on a dense grid [res, res, res] (NeuS.py:416)."""
+                      resolution: int, sdf_chunk_fn=None, chunk: int = CHUNK) -> np.ndarray:
+    """-sdf on a dense grid [res, res, res] (NeuS.py:416), `chunk` points
+    a kernel call."""
     if sdf_chunk_fn is None:
         sdf_chunk_fn = default_sdf_chunk_fn(params, rcfg)
     axes = _axes(bound_min, bound_max, resolution, _device(params))
     out = np.empty(resolution ** 3, np.float32)
     with torch.no_grad():
-        for j, piece in _grid_eval_stream(axes, resolution, sdf_chunk_fn):
+        for j, piece in _grid_eval_stream(axes, resolution, sdf_chunk_fn, chunk):
             out[j:j + piece.size] = piece
     return out.reshape(resolution, resolution, resolution)
 

@@ -1,9 +1,12 @@
 """Rotation conversions and misc transforms the training path needs.
 
-Port of the training-path part of color_neus_tpu/ops/transforms.py
-(reference lib/utils/transform.py and camera_net.py:112-131) and of its
-host-side camera preprocessing (load_K_Rt_from_P, rotmat_to_quat). Torch
-for what sits in the autograd graph, numpy for host-side camera setup.
+Port of color_neus_tpu/ops/transforms.py (reference
+lib/utils/transform.py and camera_net.py:112-131): the rotation
+conversions of the pose net and the rest of the reference's set
+(quaternions, axis-angle from a matrix, slerp, pose interpolation), and
+the host-side camera preprocessing (load_K_Rt_from_P, rotmat_to_quat).
+Torch for what may sit in the autograd graph, numpy for host-side camera
+setup.
 """
 
 from __future__ import annotations
@@ -47,6 +50,110 @@ def rot6d_to_rotmat(d6: torch.Tensor) -> torch.Tensor:
     b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp_min(1e-12)
     b3 = torch.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) [..., 4] -> rotation matrix [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> axis-angle [..., 3], through the
+    quaternion (the reference's matrix_to_quaternion ->
+    quaternion_to_axis_angle, transform.py:77-92): Shepperd's four
+    candidates, the one of the largest pivot. Exact for theta in [0, pi)."""
+    m = R
+    t = m.diagonal(dim1=-2, dim2=-1).sum(-1)
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    qs = torch.stack([
+        torch.stack([1.0 + t, m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1]], dim=-1),
+        torch.stack([m[..., 2, 1] - m[..., 1, 2], 1.0 + m00 - m11 - m22,
+                     m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0]], dim=-1),
+        torch.stack([m[..., 0, 2] - m[..., 2, 0], m[..., 0, 1] + m[..., 1, 0],
+                     1.0 + m11 - m00 - m22, m[..., 1, 2] + m[..., 2, 1]], dim=-1),
+        torch.stack([m[..., 1, 0] - m[..., 0, 1], m[..., 0, 2] + m[..., 2, 0],
+                     m[..., 1, 2] + m[..., 2, 1], 1.0 + m22 - m00 - m11], dim=-1),
+    ], dim=-2)   # [..., 4 candidates, 4]
+    pivots = torch.stack([1.0 + t, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22,
+                          1.0 + m22 - m00 - m11], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    q = torch.take_along_dim(qs, best[..., None, None].expand(*best.shape, 1, 4), dim=-2)
+    return quat_to_aa(q[..., 0, :])
+
+
+def aa_to_quat(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle [..., 3] -> quaternion (w, x, y, z) [..., 4], with the
+    series 1/2 - t^2/48 for sin(t/2)/t below t = 1e-6."""
+    theta = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    half = theta * 0.5
+    small = theta < 1e-6
+    k = torch.where(small, 0.5 - theta ** 2 / 48.0,
+                    torch.sin(half) / torch.clamp_min(theta, 1e-12))
+    return torch.cat([torch.cos(half), aa * k], dim=-1)
+
+
+def quat_to_aa(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) [..., 4] -> axis-angle [..., 3], the
+    shortest rotation (w >= 0), with the series 2 + t^2/12 for t / sin(t/2)
+    below t = 1e-6."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+    q = torch.where(q[..., :1] < 0, -q, q)
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    theta = 2.0 * torch.arccos(w)
+    s = torch.sqrt(torch.clamp_min(1.0 - w * w, 1e-12))
+    small = theta < 1e-6
+    k = torch.where(small, 2.0 + theta ** 2 / 12.0, theta / s)
+    return q[..., 1:] * k
+
+
+def rotmat_to_rot6d(R: torch.Tensor) -> torch.Tensor:
+    """Matrix [..., 3, 3] -> 6D rep (its first two rows, pytorch3d's
+    convention; rot6d_to_rotmat's inverse)."""
+    return R[..., :2, :].reshape(*R.shape[:-2], 6)
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, ratio) -> torch.Tensor:
+    """Spherical interpolation of two quaternions [4] (transform.py:347-370):
+    the shorter arc, a linear blend where they are nearly parallel (|dot| >
+    0.9995), normalised."""
+    q0 = q0 / torch.linalg.norm(q0).clamp_min(1e-12)
+    q1 = q1 / torch.linalg.norm(q1).clamp_min(1e-12)
+    dot = torch.sum(q0 * q1)
+    q0 = torch.where(dot < 0, -q0, q0)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0)) * ratio
+    q_perp = q1 - dot * q0
+    q_perp = q_perp / torch.linalg.norm(q_perp).clamp_min(1e-12)
+    geo = torch.cos(theta) * q0 + torch.sin(theta) * q_perp
+    lerp = q0 + ratio * (q1 - q0)
+    out = torch.where(dot > 0.9995, lerp, geo)
+    return out / torch.linalg.norm(out).clamp_min(1e-12)
+
+
+def rotmat_interpolate(R0: np.ndarray, R1: np.ndarray, ratio: float) -> np.ndarray:
+    """Rotation at `ratio` between two 3x3 matrices (host-side): slerp of
+    their quaternions."""
+    q0, q1 = (torch.as_tensor(rotmat_to_quat(np.asarray(R)), dtype=torch.float32)
+              for R in (R0, R1))
+    return quat_to_rotmat(slerp(q0, q1, ratio)).numpy()
+
+
+def se3_interpolate(T0: np.ndarray, T1: np.ndarray, ratio: float) -> np.ndarray:
+    """Pose at `ratio` between two 4x4 poses (transform.py:373-384): slerp
+    of the rotation, lerp of the translation."""
+    T0 = np.asarray(T0)
+    T1 = np.asarray(T1)
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = rotmat_interpolate(T0[:3, :3], T1[:3, :3], ratio)
+    out[:3, 3] = T0[:3, 3] + ratio * (T1[:3, 3] - T0[:3, 3])
+    return out
 
 
 def convert3x4_4x4(mat: torch.Tensor) -> torch.Tensor:

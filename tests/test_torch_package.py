@@ -36,6 +36,10 @@ assert not any(k.split(".")[0] in ("jax", "color_neus_tpu") for k in sys.modules
 print(len(mods), bad)
 assert len(mods) >= 15, mods
 assert not bad, bad
+tools = {"color_neus_torch.tools." + m for m in (
+    "_timing", "bench_step", "bench_ab", "profile_step", "trace_profile", "march_ablate",
+    "mesh_extraction_timing", "extract_probe", "merge_bench", "eval_fused_check")}
+assert tools <= set(mods), tools - set(mods)
 """
 
 

@@ -79,7 +79,7 @@ LOAD_SP = "const unsigned char* src = act + al.sx + l * HID * 4;"
 LOAD_SP_MUTANT = "const unsigned char* src = act + al.sx + (l + 1) * HID * 4;"
 
 
-def _compile(out, mutate=None):
+def _compile(out, mutate=None, defines=()):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
@@ -95,8 +95,8 @@ def _compile(out, mutate=None):
     path.write_text(src)
     exe = str(out / "emu")
     proc = subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-Wno-unknown-pragmas",
-                           "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, "-x", "c++",
-                           str(path), "-o", exe], capture_output=True, text=True)
+                           *defines, "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, "-x",
+                           "c++", str(path), "-o", exe], capture_output=True, text=True)
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("the host compiler lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
@@ -193,6 +193,14 @@ def test_emulated_march_save_matches_plain(emulator, tmp_path, kind, R, S, varia
 
 
 def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save):
+    case = case_inputs(kind, R, S, variance, noise, seed)
+    res = _run(emulator, tmp_path, *case[:7], blocks=2, save=save)
+    check_result(res, case, variance, save)
+
+
+def case_inputs(kind, R, S, variance, noise, seed):
+    """A case's (pw, rays_o, rays_d, z, inv_s, sample_dist, gbar), its
+    weights off the init by seeded noise, the relu margin asserted."""
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color)
@@ -217,8 +225,18 @@ def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save):
     pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
                                       for layers in (pw.sdf, pw.color, pw.relight)])
     assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > MARGIN
+    return pw, ro, rd, z, float(inv_s), sd, gbar
 
-    res = _run(emulator, tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=2, save=save)
+
+def check_result(res, case, variance, save):
+    """The emulated kernels' outputs (_run's) on case_inputs' case against
+    the plain twins, at the module's limits."""
+    pw, ro, rd, z, inv_s, sd, gbar = case
+    rcfg = pw.rcfg
+    inv_s = torch.tensor([inv_s])
+    dists, _, pts, dirs = RM.march_points(ro, rd, z, sd)
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
     out, stash, rays_hat, s_hat, grads = res[:5]
     outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
     if save:
