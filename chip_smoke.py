@@ -184,15 +184,17 @@ Phases; any failure exits non-zero and prints no result:
      shipped config bundles 10 steps, and phase 10's DTU loop replayed
      its bundle.
   12. MARCH_BWD_PRECISION bf16 and f32 (each mode's rows 3-6 a library of
-     their own, built in phase 1 and SASS-checked there, f32's spills
-     printed only): (a) phases 2b-2d's checks and times in each mode, the
-     kernels against their twins in that mode, the ms beside f32stash's of
-     this call and the mode's bound (f32: the SDF products at the f32
-     peak); (b) each mode trained through fused_march (save), fused_march
+     their own, built in phase 1 and SASS-checked there, f32's on wgmma
+     too, none spilling): (a) phases 2b-2d's checks and times in each
+     mode, the kernels against their twins in that mode, the ms beside
+     f32stash's of this call and the mode's bound (f32: the SDF products
+     as six bf16 passes at the bf16 peak, and beside it their bound at the
+     f32 SIMT peak); (b) each mode trained through fused_march (save), fused_march
      recompute and fused_core on, 60 steps: launches by suffixed name, the
      loss halving, one step's leaf gradients against the f32 plain core at
      phase 7's limits on phases 7 / 8's pixels beside the f32stash
-     kernels', a replay against the steps one by one; (c) the validation
+     kernels' (f32's worst SDF leaf F32_SDF_GAIN times closer), a replay
+     against the steps one by one; (c) the validation
      render in f32 and row 5 on that view's points against the f32 plain
      path, beside f32stash's.
   13. the render core's last JAX keys and row 2's f32x3 arm: (a) the grid
@@ -253,8 +255,8 @@ Phases; any failure exits non-zero and prints no result:
      within RTOL_AB_PHASE11 of phase 11(c)'s captured ms/step),
      profile_step (3 calls a piece), trace_profile (2 captured bundles;
      its top kernels sum to at most its busy time), march_ablate (row 4's
-     load entry in five builds; full within RTOL_ABLATE_FULL of the
-     production entry), mesh_extraction_timing (res 512, f32),
+     load entry in five builds, in f32stash and again in f32; full within
+     RTOL_ABLATE_FULL of the production entry), mesh_extraction_timing (res 512, f32),
      extract_probe (res 256), merge_bench and eval_fused_check (must
      pass). Each phase's seconds print as it ends, and all of them before
      the kernel line.
@@ -286,7 +288,10 @@ STEPS = 60
 SWEEPS_PER_STEP = 4
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# (f32x6: an f32 product as six bf16 passes on the tensor cores, JAX's
+# Precision.HIGHEST, MARCH_BWD_PRECISION f32's arithmetic; the
+# least time of exact-f32 products on the card, 3xTF32's rate too)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "f32x6": 989e12 / 6}
 # kernel vs plain tolerances, set from the H100's readings (PERF.md) with
 # headroom. f32: summation order only (read <= 3e-7). bf16: a layer input
 # that rounds to the other neighbouring bf16 value after a different f32
@@ -491,6 +496,26 @@ PATH_KERNELS = {"fused_march": ("ray_march_save", "ray_march_bwd_load"),
 # mode alike (sdf.lin8.g 1.46 on one draw, for the f32stash kernels too)
 PATH_GRAD_SEED = {"fused_march": SEED + 130, "fused_march_recompute": SEED + 130,
                   "fused_core": SEED + 110}
+# 'f32' computes the SDF chain in f32 (six bf16 passes): its
+# worst SDF leaf against the f32 plain core at least this much closer than
+# f32stash's on the same pixels (the SIMT f32 design before read 3.96e-3
+# against 6.44e-2, 16x; what is left is the colour / relight chains' bf16)
+F32_SDF_GAIN = 10
+# 'f32' against float64 on row 3's save entry (phase 12a's march inputs):
+# hp_product sums each k16 step's six passes in a fresh accumulator and
+# nudges the sum half an ulp (unbias_truncated), because the tensor cores'
+# adds truncate (round toward zero; Fasi, Higham, Mikaitis and Pranesh,
+# "Numerical behavior of NVIDIA tensor cores", PeerJ Comput. Sci. 7:e330,
+# 2021, on V100, T4 and A100). On the H100 a design that summed a slab's
+# passes in one accumulator read the activations' mean signed error
+# -3.7e-7 at layer 7 (the plain f32 path -1.4e-8) and 28,290 feature
+# flips (PERF.md, PR 20). Held here: the features' bf16 flips against
+# float64 (the colour net's operand rounded to another bf16 value) at most
+# the plain f32 path's on the same card, and every hidden SDF layer's mean
+# signed relative error at most F32_BIAS_FACTOR x the largest |mean| of the
+# plain path's layers (the emulator rounds to nearest, so only the card
+# shows the truncation).
+F32_BIAS_FACTOR = 2.0
 # the validation render of phase 12c: camera, samples a ray of the points
 # row 5 is held on
 PREC_EVAL_CAM, PREC_EVAL_SAMPLES = 1, 32
@@ -568,12 +593,15 @@ INSTRUMENTS = {
                  "BENCH_N_RAYS": "2048", "BENCH_K_STEPS": "10"},
     "profile_step": {"PROF_N_RAYS": "2048", "PROF_ITERS": "3"},
     "trace_profile": {"PROF_N_RAYS": "2048", "TRACE_BUNDLES": "2", "TRACE_K_STEPS": "10"},
-    "march_ablate": {"ABL_N_RAYS": "1024", "ABL_REPS": "5"},
+    "march_ablate": {"ABL_N_RAYS": "1024", "ABL_REPS": "5", "ABL_PREC": "f32stash"},
     "mesh_extraction_timing": {"MET_RES": "512", "MET_PREC": "f32"},
     "extract_probe": {"EP_RES": "256", "EP_REPS": "2"},
     "merge_bench": {"MB_R": "2048"},
     "eval_fused_check": {"EFC_RES": "64", "EFC_VERTS": "5000"},
 }
+# march_ablate runs again in the other mode of ABLATE_MODES (row 4's f32
+# load entry split by part)
+ABLATE_MODES = ("f32stash", "f32")
 JAX_TOOL_KEYS = {
     "bench_ab": (("key", "A", "B", "rounds", "n_rays", "k_steps", "A_rays_per_s_median",
                   "B_rays_per_s_median", "B_over_A_median", "B_over_A_iqr"), None, ()),
@@ -811,14 +839,13 @@ def chain_sass_check(lib_path):
     check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
 
 
-def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm, spills_ok=False):
+def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
     """Phase 1 for rows 3-6 (csrc/point_pipeline.cu, csrc/ray_march.cu; a
     MARCH_BWD_PRECISION mode's library: `kernel` its build name, the
     kernels carrying its suffix): every kernel runs its products on wgmma
-    (HGMMA in the SASS; in 'f32' the colour and relight ones), feeds its
+    (HGMMA in the SASS; in 'f32' the SDF chain's six bf16 passes too), feeds its
     weight slabs (and the backward its weight-grad operands) by bulk
-    copies (UBLKCP) and spills nothing (ptxas -v; spills_ok: printed only,
-    the SIMT products of 'f32'); the forward kernels (rows 3, 5) hold no
+    copies (UBLKCP) and spills nothing (ptxas -v); the forward kernels (rows 3, 5) hold no
     mma.sync (HMMA.16816.F32.BF16). Registers and FFMA are printed, and for
     the forward kernels their resident blocks per SM (fwd_blocks_per_sm:
     {forward kernel: blocks}, one backward kernel per forward one:
@@ -846,8 +873,7 @@ def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm, spills_ok=False):
         if entry == "fwd":
             check(c["HMMA"] == 0, f"{fn}: {c['HMMA']} HMMA.16816.F32.BF16 left in its SASS")
         check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
-        check("registers" in r and (spills_ok or (r.get("spill_stores") == 0
-                                                  and r.get("spill_loads") == 0)),
+        check("registers" in r and r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"{fn}: spills or no ptxas report: {r}")
     n = len(fwd_blocks_per_sm)
     check(seen == {"fwd": n, "bwd": n}, f"{kernel}: kernels in the SASS {seen}, want {n} of each")
@@ -999,26 +1025,28 @@ def macs_split(pw, bwd, save=False) -> tuple:
     return (sdf, cr) if save else (sdf + fwd[0], cr + fwd[1])
 
 
-def mode_bound_ms(pw, n, bwd, nbytes, dtype=None, save=False):
+def mode_bound_ms(pw, n, bwd, nbytes, dtype=None, save=False, sdf_dtype=None):
     """The larger of one entry's MACs on n points (macs_split) at the peaks
     and its bytes at the memory rate: (ms, "bytes" | "operations"). dtype
     None: the arithmetic of pw's march_bwd_precision (the SDF chain's
-    products at the f32 peak in 'f32', the rest at the bf16 peak); else
-    every product at the peak of `dtype`."""
+    products as six bf16 passes in 'f32', f32x6, or at `sdf_dtype`'s peak:
+    "float32", the bound of a design on the FP32 pipe; the rest at the bf16
+    peak); else every product at the peak of `dtype`."""
     sdf, cr = macs_split(pw, bwd, save)
     f32 = pw.rcfg.march_bwd_precision == "f32"
-    sdf_dt = dtype or ("float32" if f32 else "bfloat16")
+    sdf_dt = dtype or sdf_dtype or ("f32x6" if f32 else "bfloat16")
     cr_dt = dtype or "bfloat16"
     t_ops = 2 * n * (sdf / PEAK_FLOPS[sdf_dt] + cr / PEAK_FLOPS[cr_dt])
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def pipeline_bound_ms(pw, n, dtype=None):
+def pipeline_bound_ms(pw, n, dtype=None, sdf_dtype=None):
     """pts and dirs in, [n, 16] out, weights once; the products at the
     peaks of pw's mode (mode_bound_ms; float32: the bound of the same work
     in f32)."""
-    return mode_bound_ms(pw, n, False, n * (6 + 16) * 4 + weight_bytes(pw), dtype)
+    return mode_bound_ms(pw, n, False, n * (6 + 16) * 4 + weight_bytes(pw), dtype,
+                         sdf_dtype=sdf_dtype)
 
 
 def pipeline_errors(got, want, metric=None) -> dict:
@@ -1125,9 +1153,10 @@ def eval_kernels_vs_plain(device, mode="f32stash", tag="2b"):
                   f"{bound32:.4f} ms)", flush=True)
             check_pipeline(got, want, tag, f"point_pipeline {mode} {kind} n={n}")
             if (R, S) == (PIPELINE_RAYS, PIPELINE_SAMPLES):
-                out[f"point_pipeline_{kind}"] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                                 "bound_ms": bound, "bound_by": bound_by,
-                                                 "bound32_ms": bound32}
+                out[f"point_pipeline_{kind}"] = {
+                    "err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "bound32_ms": bound32,
+                    "simt_bound_ms": pipeline_bound_ms(pw, n, sdf_dtype="float32")[0]}
     return out
 
 
@@ -1147,12 +1176,12 @@ def pipeline_bwd_macs(pw) -> dict:
             "sdf_reverse": 4 * hidden, "lin0_lo": lo}
 
 
-def pipeline_bwd_bound_ms(pw, n, dtype=None):
+def pipeline_bwd_bound_ms(pw, n, dtype=None, sdf_dtype=None):
     """pts, dirs and the [n, 16] cotangents in, pts / dirs grads out, the
     weights read and their grads written once; the products at the peaks
     of pw's mode (mode_bound_ms)."""
     return mode_bound_ms(pw, n, True, n * (6 + 16 + 6) * 4 + weight_bytes(pw) + pw.n_grad * 4,
-                         dtype)
+                         dtype, sdf_dtype=sdf_dtype)
 
 
 def _rel(a, b) -> float:
@@ -1298,7 +1327,8 @@ def pipeline_bwd_vs_plain(device, mode="f32stash", tag="2c"):
             if (R, S) != (PIPELINE_RAYS, PIPELINE_SAMPLES):
                 continue
             rec = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": bound_by, "bound32_ms": bound32}
+                   "bound_by": bound_by, "bound32_ms": bound32,
+                   "simt_bound_ms": pipeline_bwd_bound_ms(pw, n, sdf_dtype="float32")[0]}
             if kind == "color_neus" and mode == "f32stash":
                 # the same comparison with every point's cotangents: a relu
                 # mask flip between the two f32 paths moves a point's
@@ -1431,7 +1461,7 @@ def tie_counts(pw, o, d, z, inv_s, sample_dist):
     return tuple(out)
 
 
-def march_bound_ms(pw, R, S, bwd, dtype=None, save=False):
+def march_bound_ms(pw, R, S, bwd, dtype=None, save=False, sdf_dtype=None):
     """Least time of one march entry: its MACs (ray_march.march_macs_per_point,
     split by macs_split; save: the save mode's, whose backward recomputes
     nothing) at the peaks of pw's mode (mode_bound_ms; or of `dtype`), or
@@ -1447,7 +1477,7 @@ def march_bound_ms(pw, R, S, bwd, dtype=None, save=False):
     outputs = R * 6 + pw.n_grad + 1 if bwd else R * 16 + n * RM.STASH
     act = n * RM.act_bytes(pw) if save else 0
     return mode_bound_ms(pw, n, bwd, (inputs + outputs) * 4 + act + weight_bytes(pw), dtype,
-                         save)
+                         save, sdf_dtype)
 
 
 def leaf_distances(got, ref) -> dict:
@@ -1727,6 +1757,11 @@ def march_vs_plain(device, mode="f32stash", phase="2d"):
                                                                         save=True)
             rec["load_bound_ms"], rec["load_bound_by"] = march_bound_ms(pw, R, S, True,
                                                                         save=True)
+            # the SDF chain's products at the f32 SIMT peak (a design on the FP32 pipe)
+            for key, bwd_, save_ in (("bound", False, False), ("bwd_bound", True, False),
+                                     ("save_bound", False, True), ("load_bound", True, True)):
+                rec[f"simt_{key}_ms"] = march_bound_ms(pw, R, S, bwd_, save=save_,
+                                                       sdf_dtype="float32")[0]
             del stash64, stash32, act, stash_s
             print(f"[{phase}] ray_march save mode {tag}, {R * S} points: MACs per point bwd "
                   f"{RM.march_macs_per_point(pw, True)[1]} (no recompute) | save forward kernel "
@@ -3437,8 +3472,81 @@ def mode_training(device, trained, mode, path, seed):
     check(e[worst] <= RTOL_STEP_GRAD, f"{tag}: step gradient {worst} {e[worst]:.3e}")
     check(median <= RTOL_STEP_GRAD_MEDIAN, f"{tag}: step gradients' median {median:.3e}")
     check(cos[worst_cos] >= MIN_COS_STEP_GRAD, f"{tag}: cosine {cos[worst_cos]:.6f}")
+    worst_sdf = {m: max(v.values()) for m, v in sdf.items()}
+    if mode == "f32":
+        check(worst_sdf["f32"] * F32_SDF_GAIN <= worst_sdf["f32stash"],
+              f"{tag}: worst SDF leaf {worst_sdf['f32']:.3e} from the f32 plain core, not "
+              f"{F32_SDF_GAIN}x closer than f32stash's {worst_sdf['f32stash']:.3e}")
     return {"counts": counts, "step_ms": step_ms, "grad_err": e[worst],
-            "sdf_leaves": {m: max(v.values()) for m, v in sdf.items()}}
+            "sdf_leaves": worst_sdf}
+
+
+def f32_activations(device) -> dict:
+    """Phase 12a, MARCH_BWD_PRECISION f32 against float64: row 3's save
+    entry on phase 12a's Color-NeuS march inputs (1024 rays x 128
+    samples); every hidden SDF layer's softplus from its activation stash,
+    its mean signed and RMS relative error (the scale floored at 1e-3)
+    beside the plain f32 path's (PyTorch's f32 products on this card); the
+    features as the stash keeps them, in bf16: how many round to another
+    bf16 value than float64's, beside the plain path's; the stash's
+    gradient lane, max-relative, beside the plain path's."""
+    import torch
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    from color_neus_torch.ops.kernels import ray_march as RM
+    rcfg, pw, o, d, z, inv_s, _ = march_inputs(device, "color_neus", MARCH_VARIANCES[0],
+                                               SEED + 120, "f32")
+    sd = 2.0 / rcfg.n_samples
+    _, stash, act = RM.launch_ray_march_save(pw, o, d, z, inv_s, sd)
+    torch.cuda.synchronize()
+    _, _, pts, dirs = RM.march_points(o, d, z, sd)
+    pw64 = PP.PipelineWeights(rcfg, *[[(w.double(), b.double()) for w, b in layers]
+                                      for layers in (pw.sdf, pw.color, pw.relight)])
+    n_sdf, hid, n = len(pw.sdf), PP.HID, act.shape[0]
+    sx_end = (n_sdf - 1) * hid * 4
+    sp = act[:, :sx_end].contiguous().view(torch.float32).reshape(n, -1, hid)
+    feat_bits = act[:, sx_end:sx_end + hid * 2].contiguous()
+    feat = (feat_bits.view(torch.int16).to(torch.int32) << 16).view(torch.float32)
+    with torch.no_grad():
+        o32, st32 = PP._forward(pw, pts, dirs, True)
+        o64, st64 = PP._forward(pw64, pts.double(), dirs.double(), True)
+
+    def rel(x, ref):   # signed relative error, the scale floored at 1e-3
+        return (x.double() - ref) / ref.abs().clamp_min(1e-3)
+    layers = []
+    for l, ref in enumerate(st64.sps):
+        k, p = rel(sp[:, l, :ref.shape[1]], ref), rel(st32.sps[l], ref)
+        layers.append({"kernel_mean": float(k.mean()), "kernel_rms": float(k.pow(2).mean().sqrt()),
+                       "plain_mean": float(p.mean()), "plain_rms": float(p.pow(2).mean().sqrt())})
+    f64 = st64.cs[0][:, -hid:]
+    b64 = f64.float().to(torch.bfloat16).float()
+    b32 = st32.cs[0][:, -hid:].to(torch.bfloat16).float()
+    g64 = o64[1]
+    return {"layers": layers,
+            "flips": {"kernel": int((feat != b64).sum()), "plain": int((b32 != b64).sum()),
+                      "of": int(f64.numel()), "points": n},
+            "grad_rel": {"kernel": float((stash[:, 1:4].double() - g64).abs().max()
+                                         / g64.abs().max()),
+                         "plain": float((o32[1].double() - g64).abs().max() / g64.abs().max())}}
+
+
+def f32_activation_gate(acc: dict) -> None:
+    """Prints f32_activations' record and holds it (F32_BIAS_FACTOR)."""
+    fl, gr, layers = acc["flips"], acc["grad_rel"], acc["layers"]
+    bias = F32_BIAS_FACTOR * max(abs(r["plain_mean"]) for r in layers)
+    print(f"[12a] f32 against float64, row 3's save entry on {fl['points']} points: the "
+          f"features' bf16 flips {fl['kernel']} (the plain f32 path {fl['plain']}) of "
+          f"{fl['of']} | grad max-relative {gr['kernel']:.3e} (plain {gr['plain']:.3e}) | "
+          f"hidden layers' mean signed / RMS relative error, kernel (plain): "
+          + " ".join(f"{l}: {r['kernel_mean']:.2e} / {r['kernel_rms']:.2e} "
+                     f"({r['plain_mean']:.2e} / {r['plain_rms']:.2e})"
+                     for l, r in enumerate(layers)) + f" | |mean| limit {bias:.2e}", flush=True)
+    check(fl["kernel"] <= fl["plain"],
+          f"[12a] f32: {fl['kernel']} feature bf16 flips against float64, more than the plain "
+          f"f32 path's {fl['plain']}")
+    for l, r in enumerate(layers):
+        check(abs(r["kernel_mean"]) <= bias,
+              f"[12a] f32: layer {l}'s mean signed error {r['kernel_mean']:.3e} against float64, "
+              f"above {F32_BIAS_FACTOR:g}x the plain path's largest |mean| ({bias:.3e})")
 
 
 def mode_evaluation(device, trained):
@@ -3511,7 +3619,8 @@ def precision_phase(device, trained, base):
     in the same mode by phases 2b-2d's rules, at their shapes (131,072
     points, 1024 x 128 rays, Color-NeuS and NeuS), their CUDA-event times
     and bounds printed beside the f32stash entries' of phases 2b-2d
-    (`base`: their records, this call); (b) mode_training of each mode
+    (`base`: their records, this call), and f32's activations against
+    float64 (f32_activation_gate); (b) mode_training of each mode
     through each path; (c) mode_evaluation. Returns the records the kernel
     line reads."""
     out = {}
@@ -3521,15 +3630,21 @@ def precision_phase(device, trained, base):
         bw = pipeline_bwd_vs_plain(device, mode, "12a")["color_neus"]
         mr = march_vs_plain(device, mode, "12a")
         b_ev, b_bw, b_mr = base["eval"], base["bwd"], base["march"]
-        print(f"[12a] {mode}, Color-NeuS, ms beside f32stash's (bound): row 5 "
-              f"{ev['ms']:.4f} / {b_ev['ms']:.4f} ({ev['bound_ms']:.4f}) | row 6 "
-              f"{bw['ms']:.4f} / {b_bw['ms']:.4f} ({bw['bound_ms']:.4f}) | row 3 "
-              f"{mr['ms']:.4f} / {b_mr['ms']:.4f} ({mr['bound_ms']:.4f}) | row 4 "
-              f"{mr['bwd_ms']:.4f} / {b_mr['bwd_ms']:.4f} ({mr['bwd_bound_ms']:.4f}) | save "
-              f"{mr['save_ms']:.4f} / {b_mr['save_ms']:.4f} ({mr['save_bound_ms']:.4f}) | load "
-              f"{mr['load_ms']:.4f} / {b_mr['load_ms']:.4f} ({mr['load_bound_ms']:.4f}) | "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        def entry(r, b, key):   # ms / f32stash's ms (bound; f32: and the SIMT bound)
+            simt = f"; SIMT {r[f'simt_{key}_ms']:.4f}" if mode == "f32" else ""
+            ms = key.replace("bound", "ms")
+            return f"{r[ms]:.4f} / {b[ms]:.4f} ({r[f'{key}_ms']:.4f}{simt})"
+        print(f"[12a] {mode}, Color-NeuS, ms beside f32stash's in this call (bound"
+              + ("; SIMT: the SDF products at the f32 SIMT peak" if mode == "f32"
+                 else "") + f"): row 5 {entry(ev, b_ev, 'bound')} | row 6 "
+              f"{entry(bw, b_bw, 'bound')} | row 3 {entry(mr, b_mr, 'bound')} | row 4 "
+              f"{entry(mr, b_mr, 'bwd_bound')} | save {entry(mr, b_mr, 'save_bound')} | load "
+              f"{entry(mr, b_mr, 'load_bound')} | {time.perf_counter() - t0:.1f} s", flush=True)
         out[mode] = {"eval": ev, "bwd": bw, "march": mr, "train": {}}
+        if mode == "f32":
+            out[mode]["accuracy"] = f32_activations(device)
+            f32_activation_gate(out[mode]["accuracy"])
     for mode in PREC_MODES:
         for path in PREC_PATHS:
             out[mode]["train"][path] = mode_training(device, trained, mode, path,
@@ -3932,14 +4047,14 @@ def last_json(text: str):
     raise SmokeFailure(f"no JSON object in the tool's output: {text[-2000:]}")
 
 
-def run_tool(name: str) -> tuple:
+def run_tool(name: str, knobs=None) -> tuple:
     """Run color_neus_torch.tools.<name>'s main in this process with its
-    INSTRUMENTS knobs in the environment: (the JSON it printed, seconds);
-    the report's JAX keys checked."""
+    INSTRUMENTS knobs (updated by `knobs`) in the environment: (the JSON it
+    printed, seconds); the report's JAX keys checked."""
     import importlib
     import io
     mod = importlib.import_module(f"color_neus_torch.tools.{name}")
-    env = INSTRUMENTS[name]
+    env = {**INSTRUMENTS[name], **(knobs or {})}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     buf = io.StringIO()
@@ -3968,19 +4083,26 @@ def instruments_phase(bundles) -> dict:
         collect()
         out[name], secs[name] = run_tool(name)
         print(f"[16] {name} ({secs[name]:.1f} s): {json.dumps(out[name])[:3000]}", flush=True)
-    ab, abl, tr = out["bench_ab"], out["march_ablate"], out["trace_profile"]
+    for mode in ABLATE_MODES[1:]:
+        collect()
+        key = f"march_ablate_{mode}"
+        out[key], secs[key] = run_tool("march_ablate", {"ABL_PREC": mode})
+        print(f"[16] {key} ({secs[key]:.1f} s): {json.dumps(out[key])[:3000]}", flush=True)
+    ab, tr = out["bench_ab"], out["trace_profile"]
     efc = out["eval_fused_check"]
     check(efc["pass"], f"[16] eval_fused_check failed: {efc['checks']}")
-    full, prod = abl["bwd_full_ms"], abl["production_load_ms"]
-    print(f"[16a] march_ablate, row 4's load entry at {abl['n_rays']} x {abl['n_samples']}: "
-          f"production {prod:.3f} ms, full {full:.3f} ms ({full / prod - 1:+.4f}; limit "
-          f"{RTOL_ABLATE_FULL:g}) | less than full: "
-          + ", ".join(f"{v} {d:+.3f} ms" for v, d in abl["minus_full_ms"].items())
-          + f" | forward save {abl['fwd_save_ms']:.3f}, recompute {abl['fwd_nosave_ms']:.3f}, "
-          f"save without the compositing scan {abl['fwd_no_composite_ms']:.3f} ms", flush=True)
-    check(abs(full / prod - 1) <= RTOL_ABLATE_FULL,
-          f"[16] march_ablate's full build {full:.3f} ms against the production entry's "
-          f"{prod:.3f} ms: beyond {RTOL_ABLATE_FULL:g}")
+    for abl in [out["march_ablate"]] + [out[f"march_ablate_{m}"] for m in ABLATE_MODES[1:]]:
+        full, prod = abl["bwd_full_ms"], abl["production_load_ms"]
+        print(f"[16a] march_ablate {abl['prec']}, row 4's load entry at {abl['n_rays']} x "
+              f"{abl['n_samples']}: production {prod:.3f} ms, full {full:.3f} ms "
+              f"({full / prod - 1:+.4f}; limit {RTOL_ABLATE_FULL:g}) | less than full: "
+              + ", ".join(f"{v} {d:+.3f} ms" for v, d in abl["minus_full_ms"].items())
+              + f" | forward save {abl['fwd_save_ms']:.3f}, recompute "
+              f"{abl['fwd_nosave_ms']:.3f}, save without the compositing scan "
+              f"{abl['fwd_no_composite_ms']:.3f} ms", flush=True)
+        check(abs(full / prod - 1) <= RTOL_ABLATE_FULL,
+              f"[16] march_ablate {abl['prec']}'s full build {full:.3f} ms against the "
+              f"production entry's {prod:.3f} ms: beyond {RTOL_ABLATE_FULL:g}")
     top = sum(o["ms"] for o in tr["top_ops_ms_per_step"])
     print(f"[16b] trace_profile, {tr['n_steps']} steps in captured bundles: device "
           f"{tr['total_device_ms_per_step']:.3f} ms/step, busy {tr['busy_ms_per_step']:.3f}, "
@@ -4029,17 +4151,19 @@ def main() -> int:
     # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4,
     # mlp_chain.cu rows 7 and 8
     # and each MARCH_BWD_PRECISION mode's rows 3-6 (build.VARIANTS)
-    # and phase 16's march_ablate variants (build.ABLATIONS), in the same
-    # nvcc batch: none of them is a library the main path loads
+    # and phase 16's march_ablate variants in its two modes (ABLATE_MODES'
+    # build.ablation_names), in the same nvcc batch: none of them is a
+    # library the main path loads
     kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain", *build.VARIANTS)
+    ablations = tuple(n for m in ABLATE_MODES for n in build.ablation_names(m).values())
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
     gxx.start()
-    libs = build.build(kernels + tuple(build.ABLATIONS))
+    libs = build.build(kernels + ablations)
     gxx.join()
     check(not gxx_err, f"g++ build of csrc/marching_tet.cpp failed: {gxx_err}")
-    print(f"[1] built {', '.join(kernels + tuple(build.ABLATIONS))} (nvcc) and marching_tet "
+    print(f"[1] built {', '.join(kernels + ablations)} (nvcc) and marching_tet "
           f"(g++) in {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         fn = ""
@@ -4058,13 +4182,12 @@ def main() -> int:
         sass.update(pipeline_sass_check(PP.library_name("point_pipeline", mode),
                                         libs[PP.library_name("point_pipeline", mode)], {
             f"point_pipeline_fwd_kernel{sfx}": PP._max_blocks(PP._library(mode), device, mode,
-                                                              "fwd") // sms},
-            spills_ok=mode == "f32"))
+                                                              "fwd") // sms}))
         sass.update(pipeline_sass_check(PP.library_name("ray_march", mode),
                                         libs[PP.library_name("ray_march", mode)], {
             f"{name}{sfx}": RM._max_blocks(RM._library(mode), device, mode, "fwd", save) // sms
             for name, save in (("ray_march_fwd_kernel", False),
-                               ("ray_march_save_fwd_kernel", True))}, spills_ok=mode == "f32"))
+                               ("ray_march_save_fwd_kernel", True))}))
     mode_sass_summary(sass)
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])

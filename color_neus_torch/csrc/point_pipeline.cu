@@ -191,14 +191,22 @@
 // once per mode, the mode PP_PREC a template argument of the tile
 // functions, its kernels suffixed (_bf16s, _f32s). bf16 is f32stash's
 // design with bf16 stores. f32 runs the SDF chain's ~3.4 M backward (~1
-// M forward) MACs a point in f32: bound by the FP32 pipe at 67 TFLOP/s
-// (rows 6 / 4 ~13.7 ms, rows 5 / 3 ~4.0 ms at 131,072 points; the colour
-// and relight products stay on wgmma). Its design is the simple one:
-// f32_product, SIMT FMAs over 4-row x 4-column register blocks with A
-// broadcast from shared memory and B (the wrapper's f32 weight images)
-// read coalesced from L2, and dw_direct, each SDF weight grad summed per
-// tile into the block's partial from the f32 layer inputs the recompute
-// keeps. Neither overlaps the other work: PERF.md §6 has its times.
+// M forward) MACs a point in f32 as JAX's Precision.HIGHEST does: six bf16
+// passes on wgmma (hp_product), each operand split into hi, mid and lo
+// bf16 parts, A's in registers one k16 step at a time (its three parts of
+// a whole K would not fit beside the accumulators), B's from weight images
+// with one slab a k16 step (the step's three parts side by side) through
+// the same ring; each step's passes sum into a fresh accumulator added
+// into an f32 total, since the tensor cores truncate where they add; the
+// outputs are staged in the tile's weight-grad slot (L2) until A is read
+// for the last chunk, then put. Its weight grads take the f32stash route
+// (the bf16 store and the flush) with every operand in three parts and six
+// terms a stream, a part stored once for each term that reads it. Bound:
+// the six passes at 989 TFLOP/s (rows 6 / 4 ~5.8 ms at 131,072 points; the
+// SIMT design before it was bound at ~13.7 by the FP32 pipe). What it
+// costs beyond f32stash: A split again per output chunk, a wait per k16
+// step, the stage's L2 round trip, 4/3 of the bytes a step streams, and a
+// weight-grad store ~4.6 times f32stash's (~7 MB a tile): PERF.md §6.
 
 #include "point_pipeline_tile.cuh"
 
@@ -232,7 +240,7 @@ __global__ void __launch_bounds__(THREADS, 1) PP_NAME(point_pipeline_fwd_kernel)
   float* gates = p.scratch + size_t(blockIdx.x) * fwd_scratch_floats(p.n_sdf);
   float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;   // [FWD_ROWS][HID]
   const long long n_tiles = (p.n_pts + FWD_ROWS - 1) / FWD_ROWS;
-  const Save none{nullptr, nullptr, nullptr};
+  const Save none = fwd_save(feat);
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * FWD_ROWS;

@@ -28,11 +28,13 @@
 //     outputs, from whose bf16 values load_tile rebuilds the gates;
 //   f32 every product of the SDF chain (its forward, the reverse sweep, the
 //     backward's tangent stream, the joint value / tangent reverse, the
-//     last layer's) in exact f32: SIMT FMAs over f32 activations in shared
-//     memory and the f32 weights of the wrapper's f32 images (f32_product),
-//     its weight grads summed per tile from the f32 layer inputs the
-//     recompute keeps (dw_direct) instead of the bf16 store and the flush;
-//     the colour and relight chains as f32stash.
+//     last layer's) in f32 as JAX's Precision.HIGHEST computes it, six
+//     bf16 passes on wgmma (hp_product: each operand split into three bf16
+//     parts, B's from three-part weight images the wrapper packs), and its
+//     weight grads the same way (their operands stored as three bf16 parts
+//     each, the flush summing six passes a term pair); the 1-wide products
+//     (the sdf row) as exact f32 FMAs; the colour and relight chains as
+//     f32stash.
 // The backward's weight grads are summed on chip over a batch of tiles
 // (dw_flush); point_pipeline.cu's note gives the design.
 #pragma once
@@ -187,9 +189,8 @@ struct Tile {
 struct Save {
   float* cx;           // [n_color] colour layer inputs
   float* rx;           // [n_relight] relight layer inputs
-  unsigned char* dw;   // the tile's weight-grad store (dw_tile_bytes), nullptr for none
-  float* sx;           // PREC_F32: [n_sdf] the SDF layer inputs in f32 (layer 0: the PE)
-  float* su;           // PREC_F32: [n_sdf - 1] the tangent stream's layer inputs in f32
+  unsigned char* dw;   // the tile's weight-grad store (dw_tile_bytes), nullptr for none;
+                       // PREC_F32: it starts with hp_product's stage (hp_stage_of)
 };
 
 // The fused march's save mode (ray_march.cu): the rows of a forward tile in
@@ -203,6 +204,15 @@ struct Export {
 
 constexpr size_t SLAB = size_t(TILE) * LDS;
 constexpr size_t GSLAB = size_t(TILE) * HID;
+constexpr int LDH = HID + 64;            // row stride of hp_product's stage: 5 whole chunks
+constexpr size_t HS_FLOATS = 2 * size_t(TILE) * LDH;   // the stage: two streams of [TILE][LDH]
+
+// PREC_F32: hp_product's stage, the first HS_FLOATS floats of the tile's
+// weight-grad store (dw_block places the operands after it; the forward
+// kernels, which store none, point Save::dw at a stage of their own).
+__device__ __forceinline__ float* hp_stage_of(const Save& sv) {
+  return reinterpret_cast<float*>(sv.dw);
+}
 
 enum Epi { EPI_NONE = 0, EPI_RELU = 1, EPI_SOFTPLUS = 2 };
 
@@ -395,22 +405,196 @@ __device__ __forceinline__ const unsigned char* image(const Params& p, int slot)
   return p.wimg + size_t(p.ioff[slot]) * WSLAB;
 }
 
-// PREC_F32: an SDF layer's f32 image (point_pipeline.py _pack_images), its
-// W slot's [K][256] (the forward product's B), its WT slot's [256][K].
-__device__ __forceinline__ const float* image_f32(const Params& p, int slot) {
-  return reinterpret_cast<const float*>(image(p, slot));
+// Four consecutive floats.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// ---- the SDF chain's exact-f32 products on wgmma (PREC_F32) ----
+// JAX's Precision.HIGHEST as six bf16 passes: each f32 operand x is split
+// into three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x -
+// hi - mid) (hi + mid + lo == x exactly for a normal x), and A B is summed
+// as the six products of parts whose ranks add to at most 2 (lo Hi, mid
+// Mid, hi Lo, mid Hi, hi Mid, hi Hi, in that order: smallest first; the
+// three dropped are below f32's rounding) on wgmma. B's parts are one
+// slab a k16 step (point_pipeline.py _pack_images: a slab's 128-byte row
+// holds the step's 16 k of hi, mid and lo, then 16 of padding), so each
+// step's six passes run from one ring stage into a fresh accumulator,
+// whose sum, nudged to undo the truncation's bias (unbias_truncated), is
+// added into the chunk's running f32 total (round to nearest). The tensor
+// cores truncate where they add (round toward zero: Fasi, Higham, Mikaitis
+// and Pranesh, "Numerical behavior of NVIDIA tensor cores", PeerJ Comput.
+// Sci. 7:e330, 2021, on V100, T4 and A100; chip_smoke.py phase 12a holds
+// the H100's activations and features against float64, since the CPU
+// emulator rounds to nearest). A step's six passes are issued smallest
+// first and hi Hi last, so one truncation lands at the sum's magnitude and
+// the five before it at 2^-8 of it or less: the nudge corrects that one.
+// One accumulator over the whole depth,
+// truncated at the total's magnitude at every step, biased the activations
+// on the H100 by ~2 f32 ulps a layer, and the features, the colour net's
+// input, then rounded to another bf16 value than float64's 4.9x as often
+// as the plain f32 path's; stepwise and nudged, 0.34x (PERF.md §6). A's
+// three parts are built in registers from the f32 activations in shared
+// memory, one k16 step at a time (all of them for a whole K would not
+// fit: wg_product's a[KS][4] three times over). So A is read again for
+// each output chunk, and the outputs go to a stage in the block's
+// device-memory scratch (L2) until the last chunk has read A: put runs
+// after the product, as in wg_product.
+
+// v nudged half an ulp away from zero, rounded to nearest even: a step's
+// sum, which the tensor cores truncate toward zero, so rounded without bias
+// in expectation (the nudge lands on the next value for an odd last bit,
+// on v for an even one). Exact for a v below 2^-102 in magnitude (left).
+__device__ __forceinline__ float unbias_truncated(float v) {
+  const unsigned b = __float_as_uint(v), e = b & 0x7f800000u;
+  return e > (24u << 23) ? v + __uint_as_float((b & 0x80000000u) | (e - (24u << 23))) : v;
+}
+
+// Parts hi, mid, lo (a[0..2]) of load_a's fragment at (m0, k0).
+__device__ __forceinline__ void load_a3(const float* A, int lda, int m0, int k0,
+                                        unsigned (&a)[3][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* row = A + (m0 + g) * lda + k0 + 2 * t;   // row g; row g + 8 at 8 lda
+  const float2 x[4] = {*reinterpret_cast<const float2*>(row),
+                       *reinterpret_cast<const float2*>(row + 8 * lda),
+                       *reinterpret_cast<const float2*>(row + 8),
+                       *reinterpret_cast<const float2*>(row + 8 * lda + 8)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float u = x[i].x, v = x[i].y;
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      const unsigned h = pack_bf16(u, v);
+      a[part][i] = h;
+      u -= __uint_as_float(h << 16);
+      v -= __uint_as_float(h & 0xffff0000u);
+    }
+  }
+}
+
+// One k16 step (k0) of a chunk: A's parts built, the step's slab (ring
+// slab li of the product) acquired, its six passes into a fresh
+// accumulator, then tot += it (STEPWISE; else into tot itself). KS: the
+// slabs a chunk streams (its steps). A pass is (A's part, B's part), ranks
+// 0 hi, 1 mid, 2 lo; B's part p sits 32 p bytes into the slab's row.
+template <int NW, int KS, int STAGES, int LDA, bool STEPWISE>
+__device__ __forceinline__ void hp_step(Rings& st, float (&tot)[NW / 2], const float* A, int k0,
+                                        const unsigned char* img, unsigned li, int n_stages,
+                                        int row0) {
+  constexpr int pass[6][2] = {{2, 0}, {1, 1}, {0, 2}, {1, 0}, {0, 1}, {0, 0}};
+  const int tid = threadIdx.x;
+  unsigned a[3][4];
+  load_a3(A, LDA, 16 * ((tid >> 5) & 3), k0, a);
+  const unsigned s = st.ws + li;
+  if (tid == 0) issue_slab<4 * KS, STAGES, 1>(st, img, li + STAGES - 1, n_stages, n_stages, 0);
+  const unsigned char* stage = ring_acquire<STAGES>(st.w, s, WSLAB) + row0 * 128;
+  auto passes = [&](float (&acc)[NW / 2]) {
+    mlp::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      mlp::wgmma_rs_bf16<NW>(acc, a[pass[i][0]], mlp::wgmma_desc(stage + 32 * pass[i][1]), 1);
+    mlp::wgmma_commit();
+    mlp::wgmma_wait_all();
+    ring_release<STAGES>(st.w, s);
+  };
+  if constexpr (STEPWISE) {
+    float acc[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    passes(acc);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) tot[i] += unbias_truncated(acc[i]);
+  } else {
+    passes(tot);
+  }
+}
+
+// One chunk's products (its k16 steps in a loop), its total then stored to
+// the stage S ([TILE][LDH] floats: the warpgroup's rows, columns col0 ..).
+template <int NW, int KS, int STAGES, int LDA, bool STEPWISE>
+__device__ __forceinline__ void hp_chunk(Rings& st, const float* A, const unsigned char* img,
+                                         unsigned li0, int n_stages, int row0, int col0,
+                                         float* S) {
+  const int tid = threadIdx.x, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  float tot[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) tot[i] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < KS; ++ks)
+    hp_step<NW, KS, STAGES, LDA, STEPWISE>(st, tot, A, 16 * ks, img, li0 + ks, n_stages, row0);
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(S + (16 * w + g + 8 * h) * LDH + col0 + 8 * j + 2 * q) =
+          make_float2(tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
+}
+
+// wg_product's product and contract in PREC_F32's six passes: out = A[:,
+// :16 KS] @ B in f32, B the three-part slab image img; single (DUAL false:
+// both warpgroups on A0, each half of a chunk's columns) or DUAL (A0 / A1
+// and put0 / put1, warpgroup h on stream h, B shared). S: the stage, two
+// [TILE][LDH] f32 blocks in the block's scratch (hp_stage_of). put(r, c, v)
+// for every output after the product, so put may overwrite A; a barrier
+// after. The ring: STAGES stages of one slab. STEPWISE false sums every
+// step in one accumulator: half its registers, and its outputs carry the
+// truncation's bias (~2 f32 ulps).
+template <int KS, bool DUAL, int STAGES = WSTAGES, int LDA = LDX, bool STEPWISE = true,
+          class F0, class F1>
+__device__ __forceinline__ void hp_product(Rings& st, const float* A0, const float* A1,
+                                           const unsigned char* img, int nout, float* S,
+                                           F0&& put0, F1&& put1) {
+  // nout (<= 304: 5 chunks, LDH) a runtime width, each chunk 64 columns:
+  // a 48-column tail (48, 304) runs as a full chunk on its image's zero
+  // rows, so one compiled product serves every width of its depth (more
+  // copies, or narrower chunks, cost registers the backward kernels
+  // spilled)
+  const int nch = (nout + 63) / 64, n_st = nch * KS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const float* A = DUAL && wg ? A1 : A0;
+  float* Sw = DUAL && wg ? S + TILE * LDH : S;
+  if (tid == 0)   // the product's first slabs
+    for (int li = 0; li < STAGES - 1; ++li)
+      issue_slab<4 * KS, STAGES, 1>(st, img, li, n_st, n_st, 0);
+#pragma unroll 1
+  for (int j = 0; j < nch; ++j) {
+    if constexpr (DUAL)
+      hp_chunk<64, KS, STAGES, LDA, STEPWISE>(st, A, img, j * KS, n_st, 0, 64 * j, Sw);
+    else
+      hp_chunk<32, KS, STAGES, LDA, STEPWISE>(st, A, img, j * KS, n_st, 32 * wg,
+                                              64 * j + 32 * wg, Sw);
+  }
+  st.ws += n_st;
+  __syncthreads();
+  // the outputs from the stage, a warp a row at a time, rolled: unrolled,
+  // the puts cost the backward kernels registers they spilled
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll 1
+  for (int hr = warp; hr < (DUAL ? 2 : 1) * TILE; hr += THREADS / 32) {
+    const float* row = S + hr * LDH;
+#pragma unroll 1
+    for (int c = lane; c < nout; c += 32) {
+      if (DUAL && hr >= TILE) put1(hr - TILE, c, row[c]);
+      else put0(hr, c, row[c]);
+    }
+  }
+  __syncthreads();
 }
 
 // A reverse product (depth 256, the layer's output cotangents; NOUT = K,
 // its input width) of a 256-wide layer, one stream (put0) or the SDF's
-// value and tangent streams (DUAL: A1 and put1 too).
-template <bool DUAL, class F0, class F1>
+// value and tangent streams (DUAL: A1 and put1 too); HP: hp_product's six
+// passes (PREC_F32's SDF chain; hs its stage).
+template <bool DUAL, bool HP = false, class F0, class F1>
 __device__ __forceinline__ void reverse_product(Rings& st, int K, const float* A0,
                                                 const float* A1, const unsigned char* img,
-                                                F0&& put0, F1&& put1) {
-  if (K == EMB) wg_product<HID / 16, EMB, DUAL>(st, A0, A1, img, put0, put1);
-  else if (K == HID) wg_product<HID / 16, HID, DUAL>(st, A0, A1, img, put0, put1);
-  else wg_product<HID / 16, HID + EMB, DUAL>(st, A0, A1, img, put0, put1);
+                                                F0&& put0, F1&& put1, float* hs = nullptr) {
+  if constexpr (HP) {
+    hp_product<HID / 16, DUAL>(st, A0, A1, img, K, hs, put0, put1);
+  } else {
+    if (K == EMB) wg_product<HID / 16, EMB, DUAL>(st, A0, A1, img, put0, put1);
+    else if (K == HID) wg_product<HID / 16, HID, DUAL>(st, A0, A1, img, put0, put1);
+    else wg_product<HID / 16, HID + EMB, DUAL>(st, A0, A1, img, put0, put1);
+  }
 }
 
 // X[:, :NOUT] = bf16(A[:, :16 KS]) @ B over a tile's rows, the f32 products
@@ -436,141 +620,64 @@ __device__ __forceinline__ void stage_product(Rings& st, float* X, const float* 
   }
 }
 
-// A 256-wide layer's product over the tile, A's rows at A (stride LD),
-// staged in X: forward ([ROWS, K] @ [K, 256], img the W slot's image) or
-// reverse ([ROWS, 256] @ [256, K], the WT slot's), K = 48, 256 or 304:
-// five shapes, each compiled once.
-template <int ROWS>
-__device__ __forceinline__ void layer_product(Rings& st, float* X, const float* A,
-                                              const unsigned char* img, int K, bool reverse) {
-  if (!reverse && K == EMB) stage_product<ROWS, EMB / 16, HID>(st, X, A, img);
-  else if (!reverse && K == HID + EMB) stage_product<ROWS, (HID + EMB) / 16, HID>(st, X, A, img);
-  else if (reverse && K == EMB) stage_product<ROWS, HID / 16, EMB>(st, X, A, img);
-  else if (reverse && K == HID + EMB) stage_product<ROWS, HID / 16, HID + EMB>(st, X, A, img);
-  else stage_product<ROWS, HID / 16, HID>(st, X, A, img);
-}
-
-// The forward product [TILE, K] @ [K, 256] of the backward's tangent
-// stream (K = 48, 256 or 304; img its W slot's image).
-template <class F>
-__device__ __forceinline__ void forward_product(Rings& st, int K, const float* A,
-                                                const unsigned char* img, F&& put) {
-  if (K == EMB) wg_product<EMB / 16, HID, false>(st, A, A, img, put, put);
-  else if (K == HID) wg_product<HID / 16, HID, false>(st, A, A, img, put, put);
-  else wg_product<(HID + EMB) / 16, HID, false>(st, A, A, img, put, put);
-}
-
-// Four consecutive floats.
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-
-// ---- the SDF chain's exact-f32 products (PREC_F32) ----
-// out[r][c] = sum_k A[r][k] B[k][c] for the tile's ROWS rows, c < NOUT, k <
-// depth (a multiple of 4), as f32 FMAs in k order: A f32 in shared memory
-// (row stride lda), B f32 row-major [depth][NOUT] in device memory (an f32
-// weight image: point_pipeline.py _pack_images). A chunk of RC rows at a
-// time, each thread computing 4-row x 4-column blocks of it into
-// registers (a warp's blocks share their rows, so its A reads are
-// broadcasts, and its B reads one coalesced row segment); after a barrier
-// it hands them to put(r, c, v), so put may overwrite A. A barrier after.
-template <int ROWS, int NOUT, class F>
-__device__ __forceinline__ void f32_product(const float* A, int lda, const float* __restrict__ B,
-                                            int depth, F&& put) {
-  constexpr int RC = NOUT > HID ? 32 : (ROWS < 64 ? ROWS : 64);
-  constexpr int NG = NOUT / 4, ITEMS = RC / 4 * NG, NI = (ITEMS + THREADS - 1) / THREADS;
-  static_assert(ROWS % RC == 0 && NOUT % 4 == 0, "f32_product: shape");
-#pragma unroll 1
-  for (int r0 = 0; r0 < ROWS; r0 += RC) {
-    float acc[NI][4][4];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][rr][j] = 0.f;
-#pragma unroll 1
-    for (int k = 0; k < depth; k += 4) {
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int it = threadIdx.x + i * THREADS;
-        if (ITEMS % THREADS != 0 && it >= ITEMS) continue;
-        const int c = 4 * (it % NG), r = r0 + 4 * (it / NG);
-        float4 b[4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          b[kk] = __ldg(reinterpret_cast<const float4*>(B + size_t(k + kk) * NOUT + c));
-#pragma unroll
-        for (int rr = 0; rr < 4; ++rr) {
-          const float4 a = ld4(A + (r + rr) * lda + k);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          float* o = acc[i][rr];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            o[0] = fmaf(av[kk], b[kk].x, o[0]);
-            o[1] = fmaf(av[kk], b[kk].y, o[1]);
-            o[2] = fmaf(av[kk], b[kk].z, o[2]);
-            o[3] = fmaf(av[kk], b[kk].w, o[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int it = threadIdx.x + i * THREADS;
-      if (ITEMS % THREADS != 0 && it >= ITEMS) continue;
-      const int c = 4 * (it % NG), r = r0 + 4 * (it / NG);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) put(r + rr, c + j, acc[i][rr][j]);
-    }
-    __syncthreads();
+// stage_product in hp_product's six passes (PREC_F32's SDF chain), nout
+// outputs a row, hs the stage, STEPWISE as hp_product's.
+template <int ROWS, int KS, bool STEPWISE = true>
+__device__ __forceinline__ void hp_stage_product(Rings& st, float* X, const float* A,
+                                                 const unsigned char* img, int nout, float* hs) {
+  if constexpr (ROWS == TILE) {
+    auto put = [=](int r, int c, float v) { X[r * LDX + c] = v; };
+    hp_product<KS, false, WSTAGES, LDX, STEPWISE>(st, A, A, img, nout, hs, put, put);
+  } else {
+    constexpr int L = LD<ROWS>;
+    auto put0 = [=](int r, int c, float v) { X[r * L + c] = v; };
+    auto put1 = [=](int r, int c, float v) { X[(r + TILE) * L + c] = v; };
+    hp_product<KS, true, FWD_STAGES, L, STEPWISE>(st, A, A + TILE * L, img, nout, hs, put0,
+                                                  put1);
   }
 }
 
-// The reverse product of a 256-wide SDF layer in f32: [ROWS, 256] @ [256,
-// K] (K = 48, 256 or 304; B its WT slot's f32 image, W^T).
-template <int ROWS, class F>
-__device__ __forceinline__ void reverse_f32(int K, const float* A, int lda, const float* B,
-                                            F&& put) {
-  if (K == EMB) f32_product<ROWS, EMB>(A, lda, B, HID, put);
-  else if (K == HID) f32_product<ROWS, HID>(A, lda, B, HID, put);
-  else f32_product<ROWS, HID + EMB>(A, lda, B, HID, put);
+// A 256-wide layer's product over the tile, A's rows at A (stride LD),
+// staged in X: forward ([ROWS, K] @ [K, 256], img the W slot's image) or
+// reverse ([ROWS, 256] @ [256, K], the WT slot's), K = 48, 256 or 304:
+// five shapes, each compiled once (HP: in the six passes, hs the stage;
+// every reverse shape one product of runtime width, in one accumulator:
+// the reverse sweep feeds only the grad, 3 values a point to the
+// features' 256 at the colour net's bf16 input, so a truncation bias of a
+// few f32 ulps there adds few bf16 rounding flips, and the registers it
+// saves keep the march's backward from spilling).
+template <int ROWS, bool HP = false>
+__device__ __forceinline__ void layer_product(Rings& st, float* X, const float* A,
+                                              const unsigned char* img, int K, bool reverse,
+                                              float* hs = nullptr) {
+  if constexpr (HP) {
+    if (reverse) hp_stage_product<ROWS, HID / 16, false>(st, X, A, img, K, hs);
+    else if (K == EMB) hp_stage_product<ROWS, EMB / 16>(st, X, A, img, HID, hs);
+    else if (K == HID + EMB) hp_stage_product<ROWS, (HID + EMB) / 16>(st, X, A, img, HID, hs);
+    else hp_stage_product<ROWS, HID / 16>(st, X, A, img, HID, hs);
+  } else {
+    if (!reverse && K == EMB) stage_product<ROWS, EMB / 16, HID>(st, X, A, img);
+    else if (!reverse && K == HID + EMB) stage_product<ROWS, (HID + EMB) / 16, HID>(st, X, A, img);
+    else if (reverse && K == EMB) stage_product<ROWS, HID / 16, EMB>(st, X, A, img);
+    else if (reverse && K == HID + EMB) stage_product<ROWS, HID / 16, HID + EMB>(st, X, A, img);
+    else stage_product<ROWS, HID / 16, HID>(st, X, A, img);
+  }
 }
 
-// P[k][c] += sum_r S[r][k] D[r][c] (+ S2[r][k] D2[r][c] when S2) over a
-// 64-point tile, k < K (a multiple of 16), c < 256, in f32: an SDF layer's
-// weight grad under PREC_F32, S / S2 the f32 layer inputs the recompute
-// kept ([TILE][LDS] in the block's scratch), D / D2 the output cotangents in
-// shared memory (stride LDX). Thread c takes column c, 16 k at a time
-// (its S reads broadcasts).
-__device__ __forceinline__ void dw_direct(float* P, int K, const float* S, const float* D,
-                                          const float* S2, const float* D2) {
-  const int c = threadIdx.x;   // THREADS == HID
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    float acc[16];
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) acc[kk] = 0.f;
-    for (int term = 0; term < (S2 != nullptr ? 2 : 1); ++term) {
-      const float* s = term ? S2 : S;
-      const float* d = term ? D2 : D;
-#pragma unroll 2
-      for (int r = 0; r < TILE; ++r) {
-        const float dv = d[r * LDX + c];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 sv = ld4(s + r * LDS + k0 + 4 * q);
-          acc[4 * q] = fmaf(sv.x, dv, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(sv.y, dv, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(sv.z, dv, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(sv.w, dv, acc[4 * q + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) P[size_t(k0 + kk) * HID + c] += acc[kk];
+// The forward product [TILE, K] @ [K, 256] of the backward's tangent
+// stream (K = 48, 256 or 304; img its W slot's image; HP as above).
+template <bool HP = false, class F>
+__device__ __forceinline__ void forward_product(Rings& st, int K, const float* A,
+                                                const unsigned char* img, F&& put,
+                                                float* hs = nullptr) {
+  if constexpr (HP) {
+    if (K == EMB) hp_product<EMB / 16, false>(st, A, A, img, HID, hs, put, put);
+    else if (K == HID) hp_product<HID / 16, false>(st, A, A, img, HID, hs, put, put);
+    else hp_product<(HID + EMB) / 16, false>(st, A, A, img, HID, hs, put, put);
+  } else {
+    if (K == EMB) wg_product<EMB / 16, HID, false>(st, A, A, img, put, put);
+    else if (K == HID) wg_product<HID / 16, HID, false>(st, A, A, img, put, put);
+    else wg_product<(HID + EMB) / 16, HID, false>(st, A, A, img, put, put);
   }
 }
 
@@ -771,7 +878,16 @@ __host__ __device__ inline int dw_n_blocks(const Shape& s) {
 // terms. An SDF layer sums X^T abar + U^T zbar (value and tangent); layer
 // 0 takes X and U as hi + lo bf16 pairs, four terms: (X hi, abar), (X lo,
 // abar), (U hi, zbar), (U lo, zbar). Term i reads A^T block i and
-// cotangent block i / 2 (four terms), i (two) or 0 (one).
+// cotangent block i / 2 (four terms), i (two) or 0 (one). PREC_F32 (a
+// library of PP_PREC 2) sums six terms a stream (12 an SDF layer, 6 the
+// features), each reading A^T block i and cotangent block i: a stream's
+// six blocks each side hold, term by term, (A part, cotangent part) =
+// (hi, Mid), (hi, Lo), (mid, Hi), (mid, Mid), (lo, Hi), (hi, Hi) of the
+// operands' three bf16 parts (save_t3), so a part is stored once for each
+// term that reads it: a mapping from term to part computed in the flush's
+// loop cost the backward kernels a register they spilled. Within a
+// stream the small terms come first, so they round at their own sum's
+// ulp in the flush's accumulator, not at the weight grad's.
 struct DwBlock {
   int K, slot, nterm;
   long long base;   // byte offset of the block's operands in a tile's store
@@ -782,11 +898,11 @@ __host__ __device__ inline DwBlock dw_kind(const Shape& s, int bi) {
   if (bi < s.n_sdf - 1) {
     b.K = bi == 0 ? EMB : (bi == s.skip ? HID + EMB : HID);
     b.slot = W_SDF + bi;
-    b.nterm = bi == 0 ? 4 : 2;
+    b.nterm = PP_PREC == PREC_F32 ? 12 : (bi == 0 ? 4 : 2);
   } else if (bi == s.n_sdf - 1) {
     b.K = HID;
     b.slot = W_FEAT;
-    b.nterm = 1;
+    b.nterm = PP_PREC == PREC_F32 ? 6 : 1;
   } else if (bi < s.n_sdf + s.n_color - 1) {
     const int l = bi - s.n_sdf;
     b.K = l == 0 ? HID + EMB : HID;
@@ -802,11 +918,13 @@ __host__ __device__ inline DwBlock dw_kind(const Shape& s, int bi) {
 }
 
 __host__ __device__ inline long long dw_block_bytes(const DwBlock& b) {
-  return (long long)b.nterm * round64(b.K) * 128 + (b.nterm == 1 ? 1 : 2) * HID * 128;
+  return (long long)b.nterm * round64(b.K) * 128 +
+         (PP_PREC == PREC_F32 ? b.nterm : (b.nterm == 1 ? 1 : 2)) * HID * 128;
 }
 
 __host__ __device__ inline DwBlock dw_block(const Shape& s, int bi) {
-  long long base = 0;
+  // PREC_F32: after hp_product's stage (hp_stage_of)
+  long long base = PP_PREC == PREC_F32 ? (long long)(HS_FLOATS * sizeof(float)) : 0;
   for (int i = 0; i < bi; ++i) base += dw_block_bytes(dw_kind(s, i));
   DwBlock b = dw_kind(s, bi);
   b.base = base;
@@ -859,11 +977,22 @@ __host__ __device__ inline ActLayout act_layout(const Shape& s, int prec) {
   return a;
 }
 
-// dst = bf16(src[:, :K])^T (PART 2: the low halves, bf16(x - bf16(x))) as
-// a K-major [K][64 points] wgmma operand (row c: the 64 points, 128 bytes,
-// the 128-byte swizzle). A warp stores an 8-column x 8-point patch a step:
-// its shared-memory reads hit 32 banks, its global writes fill one 16-byte
-// chunk of 8 rows. Only reads src.
+// x less its bf16 parts before PART (PART 0: x; 1: x - hi; 2: x - hi - mid):
+// rounded to bf16, part PART of x (hp_product's split, load_a3).
+template <int PART>
+__device__ __forceinline__ float bf16_rest(float x) {
+#pragma unroll
+  for (int i = 0; i < PART; ++i) x -= round_bf16(x);
+  return x;
+}
+
+// dst = part PART of src[:, :K]^T in bf16 (0 hi, bf16(x); 1 bf16(x -
+// hi): f32stash's lo of layer 0's hi + lo pair, PREC_F32's mid; 2
+// PREC_F32's lo, bf16(x - hi - mid)) as a K-major [K][64 points] wgmma
+// operand (row c: the 64 points, 128 bytes, the 128-byte swizzle). A warp
+// stores an 8-column x 8-point patch a step: its shared-memory reads hit
+// 32 banks, its global writes fill one 16-byte chunk of 8 rows. Only
+// reads src.
 template <int PART>
 __device__ __forceinline__ void save_t(const float* src, int K, unsigned char* dst) {
   if constexpr (RM_ABLATE == 4) return;   // no_wgrad
@@ -871,9 +1000,38 @@ __device__ __forceinline__ void save_t(const float* src, int K, unsigned char* d
   for (int gi = warp; gi < K; gi += THREADS / 32) {   // K / 8 column groups x 8 point groups
     const int c = 8 * (gi >> 3) + (lane & 7), pr = 4 * (gi & 7) + (lane >> 3);
     const float x0 = src[(2 * pr) * LDX + c], x1 = src[(2 * pr + 1) * LDX + c];
-    const unsigned w = PART == 2 ? pack_bf16(x0 - round_bf16(x0), x1 - round_bf16(x1))
-                                 : pack_bf16(x0, x1);
+    const unsigned w = pack_bf16(bf16_rest<PART>(x0), bf16_rest<PART>(x1));
     *reinterpret_cast<unsigned*>(dst + mlp::sw128_offset(c, 2 * pr)) = w;
+  }
+}
+
+// PREC_F32: save_t of src's three parts into a stream's six blocks of the
+// store from dst (round64(K) 128 bytes apart; dw_kind's terms): block t
+// gets the part term t reads, its A part (COT false: src an A^T
+// operand) or its cotangent part (COT true). The loop stays rolled:
+// unrolled it cost the backward kernels registers they spilled. Only
+// reads src.
+template <bool COT>
+__device__ __forceinline__ void save_t3(const float* src, int K, unsigned char* dst) {
+  if constexpr (RM_ABLATE == 4) return;   // no_wgrad
+  constexpr int part_of[2][6] = {{0, 0, 1, 1, 2, 0}, {1, 2, 0, 1, 0, 0}};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t block_bytes = size_t(round64(K)) * 128;
+#pragma unroll 1
+  for (int gi = warp; gi < K; gi += THREADS / 32) {
+    const int c = 8 * (gi >> 3) + (lane & 7), pr = 4 * (gi & 7) + (lane >> 3);
+    float x0 = src[(2 * pr) * LDX + c], x1 = src[(2 * pr + 1) * LDX + c];
+    unsigned w[3];
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      w[part] = pack_bf16(x0, x1);
+      x0 -= __uint_as_float(w[part] << 16);
+      x1 -= __uint_as_float(w[part] & 0xffff0000u);
+    }
+    unsigned char* const d = mlp::sw128_offset(c, 2 * pr) + dst;
+#pragma unroll
+    for (int t = 0; t < 6; ++t)
+      *reinterpret_cast<unsigned*>(d + t * block_bytes) = w[part_of[COT][t]];
   }
 }
 
@@ -928,9 +1086,10 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 //
 // PREC is the MARCH_BWD_PRECISION mode (the note at the top): in PREC_F32
 // the SDF layers' products, the last layer's and the reverse sweep's run
-// in f32 (f32_product, and narrow_layer exact for the sdf row), and SAVE
-// keeps the SDF layer inputs in f32 (sv.sx) instead of the bf16 store; in
-// PREC_BF16 EXPORT writes the SDF part of the stash in bf16.
+// in hp_product's six passes (staged in hp_stage_of(sv); narrow_layer
+// exact for the sdf row), and SAVE stores their inputs as three bf16
+// parts (save_t3);
+// in PREC_BF16 EXPORT writes the SDF part of the stash in bf16.
 //
 // The tile runs as one loop of steps: the SDF layers, the last layer (its
 // sdf row as a narrow layer, its features), the reverse sweep, the colour
@@ -1038,7 +1197,7 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // ---- the layer's input kept for the backward ----
     const float* A = kind == SDF && l == 0 ? PE : X;
     // PREC_F32: the SDF chain's products (the SDF layers, the last layer's
-    // features, the reverse sweep) in f32
+    // features, the reverse sweep) in the six passes
     const bool f32_step = PREC == PREC_F32 && (kind == SDF || kind == LAST || kind == REV);
     if (SAVE && kind != REV) {
       const int bi = kind == SDF || kind == LAST ? l : kind == COL ? p.n_sdf + l
@@ -1046,10 +1205,10 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
       if (kind == COL) save_cols(X, K, sv.cx + l * SLAB);
       if (kind == REL) save_cols(X, K, sv.rx + l * SLAB);
       if (f32_step) {
-        save_cols(A, K, sv.sx + l * SLAB);
+        save_t3<false>(A, K, dw_a(sh, sv.dw, bi, 0));   // the value stream's
       } else {
         save_t<0>(A, K, dw_a(sh, sv.dw, bi, 0));
-        if (kind == SDF && l == 0) save_t<2>(A, K, dw_a(sh, sv.dw, 0, 1));   // hi + lo
+        if (kind == SDF && l == 0) save_t<1>(A, K, dw_a(sh, sv.dw, 0, 1));   // hi + lo
       }
     }
     // ---- the product and its pass ----
@@ -1058,13 +1217,11 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // the reverse sweep's next gates into L2 while the product runs
     if (kind == REV && l > 0 && tid == 0)
       mlp::prefetch_l2(gates + (l - 1) * GS, unsigned(GS * sizeof(float)));
-    if (f32_step) {
-      auto put = [=](int r, int c, float v) { X[r * L + c] = v; };
-      if (kind == REV) reverse_f32<ROWS>(K, X, L, image_f32(p, slot), put);
-      else f32_product<ROWS, HID>(A, L, image_f32(p, slot), K, put);
-    } else {
-      layer_product<ROWS>(st, X, A, image(p, slot), K, kind == REV);
-    }
+    // (PREC_F32 runs every reverse step in the six passes: the other steps
+    // are forward products, so its bf16 reverse shapes are not compiled)
+    if (f32_step)
+      layer_product<ROWS, true>(st, X, A, image(p, slot), K, kind == REV, hp_stage_of(sv));
+    else layer_product<ROWS>(st, X, A, image(p, slot), K, PREC != PREC_F32 && kind == REV);
     // a softplus layer's gates; in the reverse sweep the next ones (not
     // kept live across the product: the backward kernel has no register to
     // spare there)
@@ -1145,9 +1302,18 @@ __device__ __forceinline__ void carve_fwd(Tile& t, Rings& st, unsigned char* sme
 }
 
 // The forward kernels' scratch per block, floats: the gates and features
-// of a FWD_ROWS-point tile.
+// of a FWD_ROWS-point tile (PREC_F32: then hp_product's stage, fwd_save).
 __host__ __device__ inline long long fwd_scratch_floats(int n_sdf) {
-  return (long long)n_sdf * FWD_ROWS * HID;
+  return (long long)n_sdf * FWD_ROWS * HID + (PP_PREC == PREC_F32 ? (long long)HS_FLOATS : 0);
+}
+
+// What the forward kernels' tile saves: nothing, but in PREC_F32 Save::dw
+// is hp_product's stage, after the features (feat: [FWD_ROWS][HID] of the
+// scratch).
+__device__ __forceinline__ Save fwd_save(float* feat) {
+  return Save{nullptr, nullptr,
+              PP_PREC == PREC_F32 ? reinterpret_cast<unsigned char*>(feat + size_t(FWD_ROWS) * HID)
+                                  : nullptr};
 }
 
 // ------------------------------------------------------------------------
@@ -1212,6 +1378,7 @@ __device__ __forceinline__ void dirs_pe_vjp(const Tile& t, int dv) {
 // DW_STAGES - 1 ahead of the consumers.
 struct DwCursor {
   int bi, mp, term, tl;
+  int half;   // PREC_F32: the column half (dw_flush)
   DwBlock blk;
 };
 
@@ -1219,7 +1386,7 @@ __device__ __forceinline__ int n_pairs(int K) { return (round64(K) / 64 + 1) / 2
 
 __device__ __forceinline__ void cursor_start(const Shape& sh, DwCursor& c, int first) {
   c.bi = first;
-  c.mp = c.term = c.tl = 0;
+  c.mp = c.term = c.tl = c.half = 0;
   c.blk = dw_block(sh, first);
 }
 
@@ -1229,6 +1396,10 @@ __device__ __forceinline__ bool cursor_next(const Shape& sh, DwCursor& c, int nt
   c.tl = 0;
   if (++c.term < c.blk.nterm) return true;
   c.term = 0;
+  if constexpr (PP_PREC == PREC_F32) {
+    if (++c.half < 2) return true;
+    c.half = 0;
+  }
   if (++c.mp < n_pairs(c.blk.K)) return true;
   c.mp = 0;
   if (++c.bi >= dw_n_blocks(sh)) return false;
@@ -1238,11 +1409,13 @@ __device__ __forceinline__ bool cursor_next(const Shape& sh, DwCursor& c, int nt
 
 // Thread 0: the cursor's stage (global count s), three bulk copies (the
 // pair's second A^T block repeats the first where K has an odd count of
-// them; its products are not stored).
+// them; its products are not stored; PREC_F32: the cotangent's column half
+// only).
 __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
                                          long long tile_bytes, const DwCursor& c, unsigned s) {
   const DwBlock& b = c.blk;
-  const int bj = b.nterm == 4 ? c.term / 2 : (b.nterm == 2 ? c.term : 0);
+  const int bj = PP_PREC == PREC_F32 ? c.term   // dw_kind: term i's cotangent block i
+                                     : (b.nterm == 4 ? c.term / 2 : (b.nterm == 2 ? c.term : 0));
   const unsigned char* base = store + c.tl * tile_bytes + b.base;
   ring_wait_empty<DW_STAGES>(st.d, s);
   unsigned char* stage = st.d.buf + (s % DW_STAGES) * DW_STAGE;
@@ -1250,9 +1423,12 @@ __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
   const bool odd = 2 * c.mp + 1 == round64(b.K) / 64;
   mlp::bulk_load(stage, a, DW_A, st.d.full + s % DW_STAGES);
   mlp::bulk_load(stage + DW_A, odd ? a : a + DW_A, DW_A, st.d.full + s % DW_STAGES);
-  mlp::bulk_load(stage + 2 * DW_A,
-                 base + (long long)b.nterm * round64(b.K) * 128 + (long long)bj * DW_B, DW_B,
-                 st.d.full + s % DW_STAGES);
+  const unsigned char* cot = base + (long long)b.nterm * round64(b.K) * 128 + (long long)bj * DW_B;
+  if constexpr (PP_PREC == PREC_F32)
+    mlp::bulk_load(stage + 2 * DW_A, cot + c.half * (DW_B / 2), DW_B / 2,
+                   st.d.full + s % DW_STAGES);
+  else
+    mlp::bulk_load(stage + 2 * DW_A, cot, DW_B, st.d.full + s % DW_STAGES);
 }
 
 // The weight grads of the nt tiles stored from `store` (tile i at store +
@@ -1261,8 +1437,7 @@ __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
 // [64, 64 nt] x [64 nt, 256] of block 2 mp + h on wgmma (m64n256k16, 128
 // accumulators a thread), every term and tile streamed through the flush
 // ring in order, then one read-modify-write of those 64 x 256 floats. The
-// stages lie over X and Y, so the caller has finished the tile. PREC_F32
-// summed the SDF blocks per tile (dw_direct): the flush starts after them.
+// stages lie over X and Y, so the caller has finished the tile.
 template <int PREC>
 __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsigned char* store,
                                          long long tile_bytes, int nt, float* P) {
@@ -1274,12 +1449,11 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   mlp::fence_proxy_async();
   __syncthreads();
   const unsigned d0 = st.ds;
-  const int first = PREC == PREC_F32 ? sh.n_sdf : 0;
   DwCursor pc;          // thread 0's: the next slab to issue
   bool more = true;     // pc is a slab
   unsigned issued = 0;
   if (tid == 0) {
-    cursor_start(sh, pc, first);
+    cursor_start(sh, pc, 0);
     for (; more && issued + 1 < DW_STAGES; ++issued) {
       dw_issue(st, store, tile_bytes, pc, d0 + issued);
       more = cursor_next(sh, pc, nt);
@@ -1287,9 +1461,51 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   }
   unsigned li = 0;
   const int nb = dw_n_blocks(sh);
-  for (int bi = first; bi < nb; ++bi) {
+  for (int bi = 0; bi < nb; ++bi) {
     const DwBlock blk = dw_block(sh, bi);
     for (int mp = 0; mp < n_pairs(blk.K); ++mp) {
+      if constexpr (PREC == PREC_F32) {
+        // each column half on its own (m64n128k16, 64 accumulators): the
+        // 128 of a whole row left the backward kernels no register for the
+        // rest, which they spilled
+        for (int half = 0; half < 2; ++half) {
+          float acc[64];
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+          for (int term = 0; term < blk.nterm; ++term) {
+            for (int tl = 0; tl < nt; ++tl, ++li) {
+              const unsigned s = d0 + li;
+              if (tid == 0 && more) {
+                dw_issue(st, store, tile_bytes, pc, d0 + issued++);
+                more = cursor_next(sh, pc, nt);
+              }
+              const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);
+              mlp::wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                mlp::wgmma_m64n128k16_bf16(acc, mlp::wgmma_desc(stage + wg * DW_A + 32 * kk),
+                                           mlp::wgmma_desc(stage + 2 * DW_A + 32 * kk),
+                                           (term | tl | kk) != 0);
+              mlp::wgmma_commit();
+              mlp::wgmma_wait_all();
+              ring_release<DW_STAGES>(st.d, s);
+            }
+          }
+          float* dst = P + p.off[blk.slot] + 128 * half + 2 * q;
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
+              if (k < blk.K) {
+                float* d = dst + size_t(k) * HID + 8 * j;
+                d[0] += acc[4 * j + 2 * h];
+                d[1] += acc[4 * j + 2 * h + 1];
+              }
+            }
+        }
+        continue;
+      }
       float acc[128];
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.f;
@@ -1333,14 +1549,11 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
 // The f32 part of the block's backward scratch of mode prec, floats:
 // [n_sdf - 1] gates, features and [n_sdf - 1] tangent pre-gates as
 // [TILE][HID] slabs, then [n_color] colour and [n_relight] relight layer
-// inputs as [TILE][LDS] slabs (PREC_F32: then [n_sdf] SDF and [n_sdf - 1]
-// tangent layer inputs, Save::sx / su); rounded up to 256 floats, the
-// weight-grad store of dw_batch tiles (dw_tile_bytes each) after it.
+// inputs as [TILE][LDS] slabs; rounded up to 256 floats, the weight-grad
+// store of dw_batch tiles (dw_tile_bytes each) after it.
 __host__ __device__ inline long long bwd_f32_floats(int n_sdf, int n_color, int n_relight,
                                                     int prec) {
-  const long long f32_inputs = prec == PREC_F32 ? (2LL * n_sdf - 1) * SLAB : 0;
-  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB +
-          f32_inputs + 255) /
+  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB + 255) /
          256 * 256;
 }
 
@@ -1365,9 +1578,10 @@ __device__ __forceinline__ float tangent_seed(const Params& p, const Tile& t, in
 // (inputs and output cotangents, bf16, transposed) into the tile's store
 // sv.dw, which dw_flush sums. PREC: the MARCH_BWD_PRECISION mode (the note
 // at the top): PREC_BF16 stores the tangent pre-gates zt rounded to bf16;
-// PREC_F32 runs the SDF chain's products in f32 (f32_product) and sums its
-// weight grads into P per tile (dw_direct) from the f32 layer inputs the
-// recompute or the load kept (sv.sx, and sv.su here).
+// PREC_F32 runs the SDF chain's products in hp_product's six passes (the
+// stage hp_stage_of(sv)) and stores its weight-grad operands as three
+// bf16 parts (save_t3; the layer inputs the recompute or the load stored
+// so).
 template <int PREC>
 __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Rings& st,
                                               float* gates, float* zt, const Save& sv, float* P) {
@@ -1494,11 +1708,11 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
     const int K = sdf_k(p, l);
     const bool pre_skip = l + 1 == p.skip;
     if constexpr (PREC == PREC_F32) {
-      save_cols(t.Y, K, sv.su + l * SLAB);
+      save_t3<false>(t.Y, K, dw_a(sh, sv.dw, l, 6));   // U: the tangent stream's (dw_kind)
     } else {
       // layer 0's U as a hi + lo bf16 pair (dw_kind)
       save_t<0>(t.Y, K, dw_a(sh, sv.dw, l, l == 0 ? 2 : 1));
-      if (l == 0) save_t<2>(t.Y, K, dw_a(sh, sv.dw, 0, 3));
+      if (l == 0) save_t<1>(t.Y, K, dw_a(sh, sv.dw, 0, 3));
     }
     const float* g = gates + l * GSLAB;
     float* z = zt + l * GSLAB;
@@ -1508,7 +1722,7 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
     };
     if constexpr (PREC == PREC_F32)
-      f32_product<TILE, HID>(t.Y, LDX, image_f32(p, W_SDF + l), K, put);
+      forward_product<true>(st, K, t.Y, image(p, W_SDF + l), put, hp_stage_of(sv));
     else
       forward_product(st, K, t.Y, image(p, W_SDF + l), put);
     if (pre_skip) {
@@ -1524,8 +1738,8 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
   // cotangent e0 / scale, uL = Y[:, :256] ----
   {
     const int L1 = p.n_sdf - 1;
-    // its input, in bf16, from the store (the recompute saved it; in f32
-    // in PREC_F32)
+    // its input, in bf16, from the store (the recompute saved it; in
+    // PREC_F32 its three parts, whose sum is the f32 input)
     const unsigned char* sx = dw_a(sh, sv.dw, L1, 0);
     {
       // the sdf row: bf16 products (f32 in PREC_F32), and the rank-1
@@ -1534,7 +1748,14 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       float s = 0.f, u = 0.f;
       for (int r = 0; r < TILE; ++r) {
         if constexpr (PREC == PREC_F32) {
-          s = fmaf(t.CT[r * 16] * inv_scale, sv.sx[L1 * SLAB + r * LDS + k], s);
+          float x = 0.f;
+#pragma unroll
+          for (int part = 0; part < 3; ++part) {
+            const unsigned bits = *reinterpret_cast<const unsigned short*>(   // blocks 0, 2, 4
+                sx + size_t(2 * part) * HID * 128 + mlp::sw128_offset(k, r));
+            x += __uint_as_float(bits << 16);
+          }
+          s = fmaf(t.CT[r * 16] * inv_scale, x, s);
         } else {
           const unsigned bits =
               *reinterpret_cast<const unsigned short*>(sx + mlp::sw128_offset(k, r));
@@ -1550,7 +1771,7 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       }
     }
     if constexpr (PREC == PREC_F32)
-      dw_direct(P + off[W_FEAT], HID, sv.sx + L1 * SLAB, t.X, nullptr, nullptr);
+      save_t3<true>(t.X, HID, dw_b(sh, sv.dw, L1, 0));
     else
       save_t<0>(t.X, HID, dw_b(sh, sv.dw, L1, 0));
     bias_accum(t.X, P + off[B_FEAT]);
@@ -1564,7 +1785,8 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       t.Y[r * LDX + c] = sdf_operand<PREC>(w * inv_scale_bf);
     };
     if constexpr (PREC == PREC_F32)
-      f32_product<TILE, HID>(t.X, LDX, image_f32(p, WT_FEAT), HID, put);
+      reverse_product<false, true>(st, HID, t.X, t.X, image(p, WT_FEAT), put, put,
+                                   hp_stage_of(sv));
     else
       reverse_product<false>(st, HID, t.X, t.X, image(p, WT_FEAT), put, put);
   }
@@ -1588,9 +1810,10 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
     }
     __syncthreads();
     // abar and zbar: the weight grad's cotangents (dw_kind's terms; in
-    // PREC_F32 summed here, in f32)
+    // PREC_F32 three parts each)
     if constexpr (PREC == PREC_F32) {
-      dw_direct(P + off[W_SDF + l], K, sv.sx + l * SLAB, t.X, sv.su + l * SLAB, t.Y);
+      save_t3<true>(t.X, HID, dw_b(sh, sv.dw, l, 0));
+      save_t3<true>(t.Y, HID, dw_b(sh, sv.dw, l, 6));
     } else {
       save_t<0>(t.X, HID, dw_b(sh, sv.dw, l, 0));
       save_t<0>(t.Y, HID, dw_b(sh, sv.dw, l, 1));
@@ -1610,8 +1833,8 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
       else t.VH[r * EMB + c - HID] += v * INV_SQRT2;
     };
     if constexpr (PREC == PREC_F32) {
-      reverse_f32<TILE>(K, t.X, LDX, image_f32(p, WT_SDF + l), value);
-      reverse_f32<TILE>(K, t.Y, LDX, image_f32(p, WT_SDF + l), tangent);
+      reverse_product<true, true>(st, K, t.X, t.Y, image(p, WT_SDF + l), value, tangent,
+                                  hp_stage_of(sv));
     } else {
       reverse_product<true>(st, K, t.X, t.Y, image(p, WT_SDF + l), value, tangent);
     }
@@ -1685,8 +1908,6 @@ struct BwdScratch {
   float* zt;
   float* cx;
   float* rx;
-  float* sx;              // PREC_F32 only
-  float* su;              // PREC_F32 only
   unsigned char* store;   // dw_batch tiles of dw_tile_bytes
 };
 
@@ -1698,8 +1919,6 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
   s.zt = s.feat + GSLAB;
   s.cx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
   s.rx = s.cx + size_t(p.n_color) * SLAB;
-  s.sx = PREC == PREC_F32 ? s.rx + size_t(p.n_relight) * SLAB : nullptr;
-  s.su = PREC == PREC_F32 ? s.sx + size_t(p.n_sdf) * SLAB : nullptr;
   s.store = reinterpret_cast<unsigned char*>(base + bwd_f32_floats(p.n_sdf, p.n_color,
                                                                     p.n_relight, PREC));
   return s;
@@ -1718,7 +1937,7 @@ __device__ __forceinline__ int after_tile(const Params& p, Rings& st, const BwdS
 }
 
 __device__ __forceinline__ Save bwd_save(const Params& p, const BwdScratch& s, int slot) {
-  return Save{s.cx, s.rx, s.store + slot * dw_tile_bytes(shape_of(p)), s.sx, s.su};
+  return Save{s.cx, s.rx, s.store + slot * dw_tile_bytes(shape_of(p))};
 }
 
 template <class K>

@@ -38,7 +38,7 @@
 // mode builds this file once (PP_PREC; kernels suffixed _bf16s / _f32s,
 // point_pipeline.cu's note): bf16's save stash keeps the SDF part in bf16
 // (8,768 bytes a point with the outs stash, against 12,864), f32 runs the
-// SDF chain's products on the FP32 pipe.
+// SDF chain's products as six bf16 passes on wgmma (hp_product).
 //
 // Design (built on the tile functions of rows 5 and 6,
 // point_pipeline_tile.cuh, with their wgmma products). A block owns a
@@ -193,7 +193,7 @@ __device__ __forceinline__ void march_fwd(const March& m) {
   const int tid = threadIdx.x;
   float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][128][HID]
   float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;        // [128][HID]
-  const Save none{nullptr, nullptr, nullptr};
+  const Save none = fwd_save(feat);
   const ActLayout al = act_layout(shape_of(p), PP_PREC);
   const float inv_s = *m.inv_s;
 
@@ -359,8 +359,8 @@ __device__ __forceinline__ void load_bf16_cols(float* X, const unsigned char* sr
 // operand (sv.dw), staged through X. PREC (the MARCH_BWD_PRECISION mode):
 // PREC_BF16's stash holds each SDF layer's input in bf16 (act_layout), the
 // gate rebuilt from it (times sqrt(2) before the skip layer, as JAX's
-// unflatten_stash); PREC_F32 keeps the SDF layer inputs in f32 (sv.sx)
-// instead of the bf16 store. A barrier after.
+// unflatten_stash); PREC_F32 stores the SDF layer inputs as three bf16
+// parts (save_t3). A barrier after.
 template <int PREC>
 __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* gates,
                                           const Save& sv, long long q0, int n) {
@@ -384,14 +384,14 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* 
       t.DL[tid * 3 + j] = in ? tl[3 + j] : 0.f;
     }
   }
-  // SDF layer 0's input, the PE, as a hi + lo pair (PREC_F32: in f32)
+  // SDF layer 0's input, the PE, as a hi + lo pair (PREC_F32: three parts)
   fill_pe<TILE>(p, t, PE);
   __syncthreads();
   if constexpr (PREC == PREC_F32) {
-    save_cols(PE, EMB, sv.sx);
+    save_t3<false>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
   } else {
     save_t<0>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
-    save_t<2>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
+    save_t<1>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
   }
   // hidden layer l: its gate, and the input of layer l + 1 (the features'
   // layer after the last)
@@ -426,7 +426,7 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* 
       for (int e = tid; e < TILE * EMB; e += THREADS) PE[(e / EMB) * LDX + e % EMB] *= INV_SQRT2;
     __syncthreads();
     if constexpr (PREC == PREC_F32)
-      save_cols(X, pre_skip ? HID + EMB : HID, sv.sx + (l + 1) * SLAB);
+      save_t3<false>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
     else
       save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
   }

@@ -27,18 +27,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the MARCH_BWD_PRECISION modes' builds of rows 3-6 (csrc/point_pipeline_tile.cuh
+# PP_PREC): each mode's library suffix and nvcc flags
+MODE_BUILDS = {"f32stash": ("", ()), "bf16": ("_bf16s", ("-DPP_PREC=1",)),
+               "f32": ("_f32s", ("-DPP_PREC=2",))}
 # libraries built from another name's source with extra flags: the
-# point-pipeline and march kernels of each non-default MARCH_BWD_PRECISION
-# mode (csrc/point_pipeline_tile.cuh PP_PREC), named by the mode's suffix
-VARIANTS = {f"{src}{suffix}": (src, (f"-DPP_PREC={prec}",))
+# point-pipeline and march kernels of each non-default mode, named by the
+# mode's suffix
+VARIANTS = {f"{src}{suffix}": (src, flags)
             for src in ("point_pipeline", "ray_march")
-            for prec, suffix in ((1, "_bf16s"), (2, "_f32s"))}
-# the march's cost probes (csrc/point_pipeline_tile.cuh RM_ABLATE), built
-# only when tools/march_ablate.py asks: full is the production code built
-# again, each other one skips one part of the load backward's work
+            for suffix, flags in MODE_BUILDS.values() if flags}
+# the march's cost probes (csrc/point_pipeline_tile.cuh RM_ABLATE) in each
+# mode, built only when tools/march_ablate.py asks: full is the production
+# code built again, each other one skips one part of the load backward's
+# work; ray_march_abl_<variant> in f32stash, ray_march_abl_<suffix
+# without its _>_<variant> in the others (ray_march_abl_f32s_no_wgrad)
 ABLATE = {"full": 0, "no_pullback": 1, "no_unflatten": 2, "pullback_only": 3, "no_wgrad": 4}
-ABLATIONS = {f"ray_march_abl_{name}": ("ray_march", (f"-DRM_ABLATE={k}",))
-             for name, k in ABLATE.items()}
+
+
+def ablation_names(mode: str) -> dict[str, str]:
+    """{variant: library name} of the march's ablation builds in `mode`."""
+    suffix = MODE_BUILDS[mode][0]
+    return {v: f"ray_march_abl{suffix}_{v}" for v in ABLATE}
+
+
+ABLATIONS = {ablation_names(mode)[v]: ("ray_march", flags + (f"-DRM_ABLATE={k}",))
+             for mode, (_, flags) in MODE_BUILDS.items() for v, k in ABLATE.items()}
 _DERIVED = {**VARIANTS, **ABLATIONS}
 
 

@@ -293,16 +293,40 @@ def _is_sdf_slot(slot: int) -> bool:
     return W_SDF <= slot < W_SDF + MAXL or slot == W_FEAT
 
 
+def split3(w: torch.Tensor):
+    """(hi, mid, lo) of an f32 tensor, each bf16-representable (float32
+    tensors): hi = bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid),
+    rounded to nearest even; hi + mid + lo == w exactly for normal w (JAX's
+    Precision.HIGHEST split, the kernels' load_a3 / save_t3)."""
+    w = w.float()
+    hi = w.to(torch.bfloat16).float()
+    mid = (w - hi).to(torch.bfloat16).float()
+    lo = (w - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _hp_steps(mat: torch.Tensor) -> torch.Tensor:
+    """mat [N, D] (D a multiple of 16) as the six-pass product's B steps,
+    [N, 64 D / 16]: k16 step s is 64 columns, split3's hi, mid and lo of
+    mat[:, 16 s:16 s + 16] then 16 zeros, so that _slabs makes it one slab
+    whose 128-byte row holds the step's three parts at 32-byte offsets
+    (csrc/point_pipeline_tile.cuh hp_step)."""
+    n, depth = mat.shape
+    steps = torch.zeros((n, depth // 16, 4, 16), dtype=torch.float32, device=mat.device)
+    for p, part in enumerate(split3(mat)):
+        steps[:, :, p] = part.reshape(n, depth // 16, 16)
+    return steps.reshape(n, -1)
+
+
 def _pack_images(pw: PipelineWeights):
     """The kernels' wgmma weight slabs (csrc/point_pipeline_tile.cuh,
     wg_product) and their offset table in slabs: every 256-wide layer's
     [K, 256] block twice, in its forward slot (W_*: the transpose, rows the
     256 outputs, depth K) and in its reverse slot (WT_*: rows the layer's K
     inputs, depth its 256 outputs). In march_bwd_precision 'f32' the SDF
-    layers' (and the features') products run in f32 (f32_product): their
-    slots hold f32 row-major B operands instead, [K, 256] in the forward
-    slot and its transpose [256, K] in the reverse one (each a whole number
-    of slabs' bytes: K is 48, 256 or 304)."""
+    layers' (and the features') products run in six bf16 passes
+    (hp_product): their slots hold the three parts of split3 instead, one
+    slab a k16 step of the product (_hp_steps)."""
     _, wide = _layout(pw)
     f32 = pw.rcfg.march_bwd_precision == "f32"
     ioff, pos, parts = np.zeros(N_OFF, np.int64), 0, []
@@ -310,7 +334,7 @@ def _pack_images(pw: PipelineWeights):
         for slot, mat in ((w_slot, wp.T), (wt_slot, wp)):
             ioff[slot] = pos
             if f32 and _is_sdf_slot(w_slot):
-                parts.append(mat.T.float().contiguous().view(torch.bfloat16).reshape(-1))
+                parts.append(_slabs(_hp_steps(mat.float())))
             else:
                 parts.append(_slabs(mat.float()))
             pos += parts[-1].numel() // (SLAB_ROWS * SLAB_K)

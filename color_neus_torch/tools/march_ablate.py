@@ -20,18 +20,24 @@ and only here: the default library is built without the switch):
   no_wgrad        the weight-grad operand stores and the per-batch flush
                   skipped (the port's own)
 
+The MARCH_BWD_PRECISION mode is ABL_PREC (f32stash by default, or bf16 /
+f32): the mode's production entry and its five builds
+(build.ablation_names); in every mode no_wgrad skips whatever route the
+mode's weight grads take.
+
 At JAX's shape: ABL_N_RAYS rays (default 1024) x 512 samples, Color-NeuS
-at full width on its geometric init, MARCH_BWD_PRECISION f32stash, inv_s
-64, rays toward +z through the unit sphere, sorted z in [1.5, 3.5],
-cotangents N(0, 0.01). The ablated outputs are garbage and only timed.
+at full width on its geometric init, in mode ABL_PREC, inv_s 64, rays
+toward +z through the unit sphere, sorted z in [1.5, 3.5], cotangents
+N(0, 0.01). The ablated outputs are garbage and only timed.
 Each entry is timed with CUDA events over ABL_REPS back-to-back launches
 (default 5, after one), the wrapper's allocations and the partials'
 reduction included as in training. Prints one JSON object: JAX's keys
 (fwd_save_ms, fwd_nosave_ms, bwd_<variant>_ms, fwd_no_composite_ms), each
 variant's difference from full, the production load entry's ms
-(production_load_ms) and the card.
+(production_load_ms), the mode (prec) and the card.
 
     python -m color_neus_torch.tools.march_ablate       # on the card only
+    ABL_PREC=f32 python -m color_neus_torch.tools.march_ablate
 
 There is no CPU path: the variants are CUDA builds, so the tool raises
 without a card.
@@ -53,15 +59,15 @@ from color_neus_torch.tools import parse_device, print_report
 from color_neus_torch.tools._timing import cuda_ms
 
 S = 512
-LIBRARIES = dict(zip(build.ABLATE, build.ABLATIONS))   # variant -> its build's name
 
 
-def inputs(n_rays: int, device, seed: int = 0):
+def inputs(n_rays: int, device, seed: int = 0, mode: str = "f32stash"):
     """(pw, rays_o, rays_d, z, inv_s, gbar) at JAX's ablation shape
-    (march_ablate.py:60-93): geometric init, f32stash."""
+    (march_ablate.py:60-93): geometric init, MARCH_BWD_PRECISION mode."""
     rcfg = RendererConfig(kind="color_neus", n_samples=256, n_importance=256,
                           up_sample_steps=4,
-                          color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0))
+                          color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
+                          march_bwd_precision=mode)
     g = torch.Generator(device=device).manual_seed(seed)
     pw = PP.resolve_pipeline_weights(init_renderer(rcfg, g, device), rcfg)
     ro = torch.randn((n_rays, 3), generator=g, device=device) * 0.1 \
@@ -76,32 +82,33 @@ def inputs(n_rays: int, device, seed: int = 0):
     return pw, ro.contiguous(), rd.contiguous(), z.contiguous(), inv_s, gbar.contiguous()
 
 
-def run(n_rays: int, reps: int, device) -> dict:
+def run(n_rays: int, reps: int, device, mode: str = "f32stash") -> dict:
     if device.type != "cuda":
         raise RuntimeError("march_ablate times CUDA builds of the march kernels: it needs "
                            "a card and has no CPU path")
     pin_precision()
-    build.build(tuple(build.ABLATIONS))
-    pw, ro, rd, z, inv_s, gbar = inputs(n_rays, device)
+    libraries = build.ablation_names(mode)   # variant -> its build's name
+    build.build(tuple(libraries.values()))
+    pw, ro, rd, z, inv_s, gbar = inputs(n_rays, device, mode=mode)
     sd = 2.0 / pw.rcfg.n_samples
 
     def ms(fn):
         return cuda_ms(fn, reps=reps, warmup=1)
 
-    res = {"n_rays": n_rays, "n_samples": S, "reps": reps,
+    res = {"n_rays": n_rays, "n_samples": S, "reps": reps, "prec": mode,
            "fwd_save_ms": ms(lambda: RM.launch_ray_march_save(pw, ro, rd, z, inv_s, sd)),
            "fwd_nosave_ms": ms(lambda: RM.launch_ray_march(pw, ro, rd, z, inv_s, sd))}
     _, stash, act = RM.launch_ray_march_save(pw, ro, rd, z, inv_s, sd)
     res["production_load_ms"] = ms(lambda: RM.launch_ray_march_bwd_load(
         pw, ro, rd, z, inv_s, sd, stash, act, gbar))
-    for v, name in LIBRARIES.items():
-        lib = RM._library("f32stash", name)
+    for v, name in libraries.items():
+        lib = RM._library(mode, name)
         res[f"bwd_{v}_ms"] = ms(lambda: RM._bwd(pw, ro, rd, z, inv_s, sd, stash, act, gbar,
                                                 lib=lib))
         if v == "pullback_only":
             res["fwd_no_composite_ms"] = ms(lambda: RM._fwd(pw, ro, rd, z, inv_s, sd, True,
                                                             lib=lib))
-    res["minus_full_ms"] = {v: res[f"bwd_{v}_ms"] - res["bwd_full_ms"] for v in LIBRARIES}
+    res["minus_full_ms"] = {v: res[f"bwd_{v}_ms"] - res["bwd_full_ms"] for v in libraries}
     res["full_over_production"] = res["bwd_full_ms"] / res["production_load_ms"]
     return res
 
@@ -109,7 +116,8 @@ def run(n_rays: int, reps: int, device) -> dict:
 def main(argv=None) -> dict:
     device = parse_device(argv, "ablation of the march backward's load entry")
     return print_report(run(int(os.environ.get("ABL_N_RAYS", 1024)),
-                            int(os.environ.get("ABL_REPS", 5)), device), device, indent=1)
+                            int(os.environ.get("ABL_REPS", 5)), device,
+                            os.environ.get("ABL_PREC", "f32stash")), device, indent=1)
 
 
 if __name__ == "__main__":

@@ -297,6 +297,11 @@ inline float __uint_as_float(unsigned u) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  memcpy(&u, &f, 4);
+  return u;
+}
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
                    cudaErrorInvalidConfiguration = 9 };

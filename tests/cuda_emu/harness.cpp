@@ -6,7 +6,9 @@
 // ioff.i64, img.bf16 (the wgmma weight slabs), pts.f32, dirs.f32, gbar.f32; runs the forward kernel and then the
 // backward kernel block after block, the weight-grad partials summed over
 // the blocks in index order as the reduction kernel does; writes out.f32,
-// pts_hat.f32, dirs_hat.f32 and grad.f32 to DIR. The scratch starts as
+// pts_hat.f32, dirs_hat.f32 and grad.f32 to DIR, and the forward's
+// scratch as it ends (scratch_fwd.f32: each block's last tile's gates and
+// features, fwd_scratch_floats a block). The scratch starts as
 // garbage, so a read of a slot the kernel did not write shows. Compiled
 // with -DPP_PREC=<mode>, it runs that MARCH_BWD_PRECISION mode's kernels
 // (PP_NAME; tests/test_torch_bwd_precision_emulated.py).
@@ -103,5 +105,6 @@ int main(int argc, char** argv) {
   dump(d + "/pts_hat.f32", pts_hat);
   dump(d + "/dirs_hat.f32", dirs_hat);
   dump(d + "/grad.f32", grad);
+  dump(d + "/scratch_fwd.f32", scratch_fwd);
   return 0;
 }

@@ -10,7 +10,9 @@
 // backward kernel block after block on `blocks` blocks, the partials summed
 // over the blocks in index order as the reduction kernel does; writes
 // out.f32, stash.f32, rays_hat.f32 and grad.f32 (the packed weight grads,
-// then inv_s's) to DIR. The scratch starts as garbage, so a read of a slot
+// then inv_s's) to DIR, and the forward's scratch as it ends
+// (scratch_fwd.f32: each block's last tile's gates and features,
+// fwd_scratch_floats a block). The scratch starts as garbage, so a read of a slot
 // the kernel did not write shows. Compiled with -DPP_PREC=<mode>, it runs
 // that MARCH_BWD_PRECISION mode's kernels (PP_NAME;
 // tests/test_torch_bwd_precision_emulated.py).
@@ -118,6 +120,7 @@ int main(int argc, char** argv) {
   dump(d + "/stash.f32", stash);
   dump(d + "/rays_hat.f32", rays_hat);
   dump(d + "/grad.f32", grad);
+  dump(d + "/scratch_fwd.f32", scratch_fwd);
   if (save) {
     FILE* f = fopen((d + "/act.bin").c_str(), "wb");
     fwrite(act.data(), 1, act.size(), f);

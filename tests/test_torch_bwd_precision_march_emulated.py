@@ -5,7 +5,8 @@ save pair (its activation stash segment by segment: 'bf16' stores the SDF
 part in bf16, the next layer's input, within one bf16 ulp of the twin's),
 as tests/test_torch_ray_march_emulated.py holds f32stash, on its 128-sample
 Color-NeuS ray and 100-sample NeuS rays; the SDF lanes and stash of 'f32' within
-RTOL_F32. The sources are built by
+RTOL_F32, and its SDF features (the colour net's input, from the forward's
+scratch) within RTOL_F32 of the twin's and the float64 twin's. The sources are built by
 tests/test_torch_bwd_precision_emulated.py's _compile (the harness
 tests/cuda_emu/harness_march.cpp). Skips without a C++20 compiler."""
 
@@ -22,7 +23,9 @@ from color_neus_torch.models.neus import init_renderer
 from color_neus_torch.ops.kernels import point_pipeline as PP
 from color_neus_torch.ops.kernels import ray_march as RM
 from tests import test_torch_ray_march_emulated as EM
-from tests.test_torch_bwd_precision_emulated import PREC, RTOL_BF16, RTOL_F32, _compile
+from tests.test_torch_bwd_precision_emulated import (FWD_ROWS, PREC, RTOL_BF16, RTOL_F32,
+                                                      _compile, kernel_features,
+                                                      twin_sdf_outputs)
 
 pin_precision()
 
@@ -121,6 +124,16 @@ def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, k
     res = EM._run(march_emulators[mode], tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar,
                   blocks=2, save=save)
     out, stash, rays_hat, s_hat, grads = res[:5]
+    if mode == "f32":   # every ray group one forward tile, a block each
+        G = max(FWD_ROWS // S, 1)
+        assert G * S <= FWD_ROWS and -(-R // G) <= 2
+        q = np.arange(R * S)
+        feat = kernel_features(tmp_path, 2, len(pw.sdf), ((q // S) // G, q - (q // S) // G * G * S))
+        for name, net, p, dr in (("twin", pw, pts, dirs),
+                                 ("float64 twin", pw64, pts.double(), dirs.double())):
+            err = EM._rel(feat.to(p.dtype), twin_sdf_outputs(net, p, dr)[1])
+            print(f"f32 {kind} R{R}xS{S}: features {err:.3e} from the {name}")
+            assert err <= RTOL_F32, f"features {err:.3e} from the {name}"
     if save:
         _check_act(res[5], pw, pts, dirs)
     outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)

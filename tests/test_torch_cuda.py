@@ -448,7 +448,8 @@ def test_cuda_bwd_precision_modes(cuda_device, mode):
     equal f32stash's bitwise (the same forward code); the sdf and grad of 'f32'
     sit within 1e-4 of the f32 twin in that mode (its SDF chain is f32; the
     bf16 kernels read ~5e-3), and its save pair equals its recompute pair
-    bitwise (f32_product sums each output in k order whatever the tile)."""
+    bitwise (hp_product sums each output in the same pass and k order
+    whatever the tile)."""
     import dataclasses
     from chip_smoke import march_inputs
     from color_neus_torch.ops.kernels import point_pipeline as PP

@@ -16,6 +16,7 @@ bitwise those of the source before the switch when it was added."""
 
 import concurrent.futures as cf
 
+import pytest
 import torch
 
 from color_neus_torch.ops.kernels import build
@@ -33,7 +34,8 @@ def _flat(res) -> torch.Tensor:
 
 def test_ablation_builds_compile_run_and_differ(tmp_path):
     names = {"default": ()} | {v: build.ABLATIONS[lib][1]
-                               for v, lib in zip(build.ABLATE, build.ABLATIONS) if v != "full"}
+                               for v, lib in build.ablation_names("f32stash").items()
+                               if v != "full"}
     assert set(names) == {"default", "no_pullback", "no_unflatten", "pullback_only", "no_wgrad"}
     case = case_inputs(*CASE)
     for name in names:
@@ -51,3 +53,21 @@ def test_ablation_builds_compile_run_and_differ(tmp_path):
         if name != "default":
             got = _flat(runs[name]).nan_to_num(nan=1e30)
             assert not torch.equal(got, base), f"{name}: the switch changed nothing"
+
+
+@pytest.mark.parametrize("mode", ["f32stash", "bf16", "f32"])
+def test_ablation_names_and_flags(mode):
+    """Each MARCH_BWD_PRECISION mode has the five ablation builds of the
+    march's source, named by the mode's suffix, with the mode's PP_PREC and
+    the variant's RM_ABLATE (march_ablate's ABL_PREC picks them)."""
+    prec = {"f32stash": None, "bf16": 1, "f32": 2}[mode]
+    names = build.ablation_names(mode)
+    assert list(names) == ["full", "no_pullback", "no_unflatten", "pullback_only", "no_wgrad"]
+    infix = {"f32stash": "", "bf16": "_bf16s", "f32": "_f32s"}[mode]
+    for k, (variant, name) in enumerate(names.items()):
+        assert name == f"ray_march_abl{infix}_{variant}"
+        src, flags = build.ABLATIONS[name]
+        assert src == "ray_march"
+        want = (() if prec is None else (f"-DPP_PREC={prec}",)) + (f"-DRM_ABLATE={k}",)
+        assert flags == want, (name, flags)
+    assert len(build.ABLATIONS) == 15 and len(set(build.ABLATIONS)) == 15
