@@ -135,7 +135,12 @@ Phases; any failure exits non-zero and prints no result:
      its bound (products, bytes, and the epilogue's FP32-pipe and MUFU
      instructions per element, read from the SASS of one-element probes of
      the same device functions), its plain version and the
-     same 25 products in cuBLAS without an activation.
+     same 25 products in cuBLAS without an activation. The f32 chain (six
+     bf16 wgmma passes a product) against float64 (f32_chain_gate: layer
+     by layer over 25 layers, and every variant at L = 1, beside the plain
+     f32 path); the tensor cores' rounding of one m64n128k16 wgmma against
+     float64 and the CPU emulator's model (wgmma_truncation); the f32
+     chain's weight ring alone, its slabs' rate from L2 (ring_rate).
   10. the dataset path at full width: (a) tools/dataset_replica.py writes
      the blob scene, rendered on the card, as a DTU-format scene (49 views
      at 1600 x 1200, cameras_sphere.npz in a world frame whose scale mats
@@ -405,15 +410,21 @@ JAX_STASH_BYTES_COLOR_NEUS = 13312
 # |diff|, set from the H100's readings (PERF.md, the MLP chain) with headroom.
 # "Tight", L = 1: one product and one activation, so only the f32
 # summation order (bf16 read 3.8e-6 at |x| <= 6; the gates at weight 1.0,
-# where sigmoid(100 x) has slope 25, 3.9e-5; f32 read 1.8e-7: cuBLAS's
-# SIMT sgemm, the plain version's product, sums each output in k order
-# with FMAs as the kernel does, so only the gates' contractions differ).
+# where sigmoid(100 x) has slope 25, 3.9e-5). f32: the kernel sums JAX's
+# six bf16 passes a k16 step, cuBLAS's SIMT sgemm (the plain version's
+# product) each output in k order with FMAs, two roundings of one sum
+# 4.8e-6 apart at most, and 4.1e-5 through a gate at weight 1.0 (the H100;
+# the SIMT kernel before the six passes summed as cuBLAS does and read
+# 1.8e-7 under the 2e-6 this limit was then); the f32 arithmetic's own accuracy
+# is held against float64 instead (f32_chain_gate: the kernel's RMS error
+# ~0.32x the plain path's).
 # L = 25 at the tool's gate weight, one limit per variant: bf16, a layer
 # input within rounding of a bf16 midpoint rounds to the other neighbour
 # after another summation order, and such flips propagate. Read on the
 # H100 (PERF.md, the MLP chain): none 2.7e-2 (values to 3.3), relu 1.3e-5
 # (values to 1e-3), sigmoid 7.0e-4, the softplus forms and the deferred
-# chain 1.04e-4 (values to 0.028); the limits sit 4-10x above. f32 read 0.
+# chain 1.04e-4 (values to 0.028); the limits sit 4-10x above. f32 (none)
+# read 4.5e-6.
 # The gates at weight 1.0 are held at L = 1 only: there a flip moves
 # sigmoid(100 x) by 25x its size and the 25-layer chain diverges (read 2.6
 # of |x| <= 7.5). The deferred chain's gate shows from L = 2, after one
@@ -423,12 +434,42 @@ JAX_STASH_BYTES_COLOR_NEUS = 13312
 # exact one: ~1 ulp of the gate, below these.
 CHAIN_T, CHAIN_G, CHAIN_L = 1024, 1024, 25
 CHAIN_RAGGED = 1000
-ATOL_CHAIN_TIGHT = {"bfloat16": 2e-4, "float32": 2e-6}
+ATOL_CHAIN_TIGHT = {"bfloat16": 2e-4, "float32": 1e-4}
 ATOL_CHAIN_BF16 = {"none": 0.1, "relu": 1e-4, "softplus": 1e-3, "sigmoid": 5e-3,
                    "sp+gate": 1e-3, "shared": 1e-3, "expm1gate": 1e-3, "recip~": 1e-3,
                    "recipNt": 1e-3, "deferred": 1e-3}
 ATOL_CHAIN_F32 = 1e-5
 ATOL_CHAIN_DEFERRED_L2 = 2e-2
+# The f32 chain (chain_f32_kernel: JAX's f32 dot as six bf16 wgmma passes,
+# each k16 step's sum nudged half an ulp, unbias_truncated_ffma) against
+# float64 (f32_chain_gate): per layer the signed error toward |float64|,
+# (y - r) sign(r) over the layer's RMS of r, its mean and RMS, beside the
+# plain f32 path's (cuBLAS's f32 products, round to nearest): none layer by
+# layer over CHAIN_L layers, each layer on the float64 chain's previous
+# output rounded to f32 (so that a layer's own arithmetic is held, not the
+# earlier layers' errors it inherits), and every activation at L = 1 (the
+# gates at 1.0). Held: a layer's |mean| within F32_BIAS_FACTOR x the plain
+# path's largest over the layers (phase 12a's rule, chain_bias_limit), the
+# plain path's |mean| floored at CHAIN_SE_FLOOR of its standard errors and
+# at CHAIN_RMS_FLOOR of its RMS; a layer's RMS within F32_BIAS_FACTOR x the
+# plain path's. The floors: the plain path rounds to nearest, so its mean
+# reads its own noise (~1e-11 at 268M elements, 1e-4 of its RMS), and twice
+# that would ask for an arithmetic with no bias at all, which the tensor
+# cores' truncation does not allow: they keep a few bits below the ulp
+# (wgmma_truncation), so a step's truncation costs a little less than the
+# half ulp the nudge gives back (a layer read +3.6e-9, 1.3% of the plain
+# path's RMS, on the H100; without the nudge ~-3e-8). 2 x 1% of the plain
+# path's RMS a layer lets a bias reach a tenth of the random error that path
+# accumulates over the tool's 25 layers (sqrt(25) x its RMS).
+CHAIN_SE_FLOOR, CHAIN_RMS_FLOOR = 3.0, 0.01
+# the tensor cores' rounding: draws of one m64n128k16 wgmma (8192 outputs
+# each) per accumulator scale (wgmma_truncation)
+WGMMA_PROBE_DRAWS = 16
+WGMMA_PROBE_C = (0.0, 1.0, 16.0, 2.0 ** -6)
+# the f32 chain's ring alone (ring_rate): slabs (16 KB) a block takes, one
+# block an SM, timed over RING_PROBE_REPS launches; the image shared by every
+# block, or RING_PROBE_COPIES copies (16 MB, L2-resident)
+RING_PROBE_SLABS, RING_PROBE_REPS, RING_PROBE_COPIES = 64 * 400, 5, 32
 FP32_LANES_PER_SM, MUFU_PER_SM = 128, 16     # Hopper SM: FP32 lanes, special-function units
 STEADY_STEPS = 20
 # phase 11: the shipped configs' LOG_INTERVAL, the steps of one captured
@@ -817,26 +858,34 @@ def ptxas_report(kernel) -> dict:
 
 
 def chain_sass_check(lib_path):
-    """Phase 1 for rows 7 and 8 (csrc/mlp_chain.cu): every bf16 chain
-    instantiation and the deferred kernel must run its products on wgmma
-    (HGMMA in the SASS, no mma.sync HMMA), fetch W with a bulk copy
-    (UBLKCP), and spill nothing (ptxas -v); their registers are printed."""
+    """Phase 1 for rows 7 and 8 (csrc/mlp_chain.cu): every chain
+    instantiation, bf16 and f32 (the six passes), and the deferred kernel
+    must run its products on wgmma (HGMMA in the SASS, no mma.sync HMMA),
+    fetch W with bulk copies (UBLKCP), and spill nothing (ptxas -v); their
+    registers and resident blocks per SM are printed."""
+    from color_neus_torch.ops.kernels import mlp_chain as MC
     rep = ptxas_report("mlp_chain")
     seen = 0
     for fn, c in sass_counts(lib_path).items():
-        if not fn.startswith(("chain_bf16_kernel", "chain_deferred_kernel")):
+        if not fn.startswith(("chain_bf16_kernel", "chain_f32_kernel", "chain_deferred_kernel")):
             continue
         seen += 1
         r = rep.get(fn, {})
+        m = re.search(r"<(\d+)>", fn)
+        blocks = MC.blocks_per_sm(None if m is None else MC.ACTIVATIONS[int(m.group(1))][0],
+                                  not fn.startswith("chain_f32_kernel"))
         print(f"[1] SASS mlp_chain {fn}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA.16816.F32.BF16, "
-              f"{c['UBLKCP']} UBLKCP | {r.get('registers')} registers, spill stores / loads "
-              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes", flush=True)
+              f"{c['UBLKCP']} UBLKCP, {c['FFMA']} FFMA | {r.get('registers')} registers, spill "
+              f"stores / loads {r.get('spill_stores')} / {r.get('spill_loads')} bytes | {blocks} "
+              f"resident blocks per SM", flush=True)
         check(c["HGMMA"] > 0 and c["HMMA"] == 0,
               f"{fn}: products not on wgmma ({c['HGMMA']} HGMMA, {c['HMMA']} HMMA)")
         check(c["UBLKCP"] > 0, f"{fn}: no bulk copy (UBLKCP) in its SASS")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"{fn}: spills or no ptxas report: {r}")
-    check(seen == 10, f"mlp_chain: {seen} bf16 chain kernels in the SASS, want 9 + deferred")
+        check(blocks >= 1, f"{fn}: {blocks} resident blocks per SM")
+    check(seen == 19, f"mlp_chain: {seen} chain kernels in the SASS, want 9 bf16 + 9 f32 + "
+                      f"deferred")
 
 
 def pipeline_sass_check(kernel, lib_path, fwd_blocks_per_sm):
@@ -2006,15 +2055,16 @@ def epilogue_counts():
     return per, "read"
 
 
-def chain_bound_ms(n, L, bf16, epi, clock_mhz, sms):
+def chain_bound_ms(n, L, bf16, epi, clock_mhz, sms, f32="f32x6"):
     """Least time of one chain call on n rows: the larger of its products at
-    the bf16 / f32 peak, its bytes (x read once, out written once), and,
+    the bf16 peak (bf16; f32: as six bf16 passes, f32="f32x6", or at the f32
+    SIMT peak, f32="float32"), its bytes (x read once, out written once), and,
     where epilogue_counts read them, its epilogue's FP32-pipe and MUFU
     instructions per element at those pipes' rates (sms x 128 / 16 per
     clock, at clock_mhz).
     Returns (ms, "bytes" | "operations", what sets it)."""
     elems = n * 256 * L
-    parts = {"products": 2 * elems * 256 / PEAK_FLOPS["bfloat16" if bf16 else "float32"],
+    parts = {"products": 2 * elems * 256 / PEAK_FLOPS["bfloat16" if bf16 else f32],
              "bytes": 2 * n * 256 * 4 / PEAK_BYTES_PER_S}
     if epi is not None:
         parts["FP32 pipe"] = epi[0] * elems / (sms * FP32_LANES_PER_SM * clock_mhz * 1e6)
@@ -2038,6 +2088,173 @@ def cublas_products_ms(x, w, L, bf16):
     return cuda_ms(products, reps=3, warmup=1)
 
 
+def chain_error_stats(y, ref) -> dict:
+    """y's signed error toward |ref| (float64), (y - ref) sign(ref) over
+    ref's RMS: its mean, RMS and the mean's standard error."""
+    import math
+    e = (y.double() - ref) * ref.sign() / ref.square().mean().sqrt()
+    return {"mean": float(e.mean()), "rms": float(e.square().mean().sqrt()),
+            "se": float(e.std() / math.sqrt(e.numel()))}
+
+
+def chain_bias_limit(plain) -> float:
+    """The limit of the f32 chain's |mean| signed error (CHAIN_SE_FLOOR's
+    note): F32_BIAS_FACTOR x the largest over `plain` (the plain f32
+    path's chain_error_stats, a layer or a case each) of its |mean|, floored
+    at CHAIN_SE_FLOOR standard errors and at CHAIN_RMS_FLOOR of its RMS."""
+    return F32_BIAS_FACTOR * max(max(abs(st["mean"]), CHAIN_SE_FLOOR * st["se"],
+                                     CHAIN_RMS_FLOOR * st["rms"]) for st in plain)
+
+
+def f32_chain_gate(x, w) -> dict:
+    """Phase 9, the f32 chain against float64 (CHAIN_RMS_FLOOR's note): none
+    over CHAIN_L layers, a layer a call on the float64 chain's previous
+    output rounded to f32, and every activation at L = 1; besides, the
+    L = CHAIN_L call and the plain path's against the float64 chain, and
+    that call equal to CHAIN_L L = 1 calls on the kernel's own outputs
+    (each layer's input is the f32 activation either way). Prints, checks;
+    returns the records."""
+    import torch
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    x64, w64 = x.double(), w.double()
+    layers, acts = [], {}
+    r = x64
+    for _ in range(CHAIN_L):
+        xin = r.float()
+        ref = MC.chain_plain(xin.double(), w64, 1, "none", False)
+        layers.append({"kernel": chain_error_stats(MC.launch_chain(xin, w, 1, "none", False), ref),
+                       "plain": chain_error_stats(MC.chain_plain(xin, w, 1, "none", False), ref)})
+        r = MC.chain_plain(r, w64, 1, "none", False)
+        del xin, ref
+    whole = MC.launch_chain(x, w, CHAIN_L, "none", False)
+    chain = {"kernel": chain_error_stats(whole, r),
+             "plain": chain_error_stats(MC.chain_plain(x, w, CHAIN_L, "none", False), r)}
+    k = x
+    for _ in range(CHAIN_L):
+        k = MC.launch_chain(k, w, 1, "none", False)
+    torch.cuda.synchronize()
+    chained = bool(torch.equal(whole, k))
+    del k, r, whole
+    for name, act in MC.ACTIVATIONS:
+        gw = 1.0 if name in MC.GATED else MC.GATE_W
+        r = MC.chain_plain(x64, w64, 1, act, False, gw)
+        acts[name] = {"kernel": chain_error_stats(MC.launch_chain(x, w, 1, act, False, gw), r),
+                      "plain": chain_error_stats(MC.chain_plain(x, w, 1, act, False, gw), r)}
+        del r
+    bias = chain_bias_limit([rec["plain"] for rec in layers])
+    print(f"[9] f32 chain against float64, {x.shape[0]} x 256, signed error toward |float64| "
+          f"over its RMS, mean / RMS kernel (plain): none, each of {CHAIN_L} layers on the "
+          f"float64 chain's input "
+          + " ".join(f"{l}: {rec['kernel']['mean']:.2e} / {rec['kernel']['rms']:.2e} "
+                     f"({rec['plain']['mean']:.2e} / {rec['plain']['rms']:.2e})"
+                     for l, rec in enumerate(layers))
+          + f" | |mean| limit {bias:.2e} (plain se {layers[0]['plain']['se']:.1e}) | the "
+          f"L = {CHAIN_L} call against the float64 chain: {chain['kernel']['mean']:.2e} / "
+          f"{chain['kernel']['rms']:.2e} ({chain['plain']['mean']:.2e} / "
+          f"{chain['plain']['rms']:.2e}) | {CHAIN_L} L = 1 calls chained equal it bitwise: "
+          f"{chained}", flush=True)
+    check(chained, f"the f32 chain's {CHAIN_L} L = 1 calls differ from its L = {CHAIN_L} call")
+    check(chain["kernel"]["rms"] <= F32_BIAS_FACTOR * chain["plain"]["rms"],
+          f"[9] f32 chain L = {CHAIN_L}: RMS error {chain['kernel']['rms']:.3e} against the "
+          f"float64 chain, above {F32_BIAS_FACTOR:g}x the plain path's")
+    for l, rec in enumerate(layers):
+        kk, pp = rec["kernel"], rec["plain"]
+        check(abs(kk["mean"]) <= bias, f"[9] f32 chain layer {l}: mean signed error "
+              f"{kk['mean']:.3e} against float64, above {bias:.3e}")
+        check(kk["rms"] <= F32_BIAS_FACTOR * pp["rms"], f"[9] f32 chain layer {l}: RMS error "
+              f"{kk['rms']:.3e} against float64, above {F32_BIAS_FACTOR:g}x the plain path's "
+              f"{pp['rms']:.3e}")
+    for name, rec in acts.items():
+        kk, pp = rec["kernel"], rec["plain"]
+        lim = chain_bias_limit([pp])
+        print(f"[9] f32 chain against float64, {name} L 1: mean {kk['mean']:.3e} (plain "
+              f"{pp['mean']:.3e}, se {pp['se']:.1e}; limit {lim:.2e}) | RMS {kk['rms']:.3e} "
+              f"(plain {pp['rms']:.3e})", flush=True)
+        check(abs(kk["mean"]) <= lim, f"[9] f32 chain {name} L 1: mean signed error "
+              f"{kk['mean']:.3e} against float64, above {lim:.3e}")
+        check(kk["rms"] <= F32_BIAS_FACTOR * pp["rms"], f"[9] f32 chain {name} L 1: RMS error "
+              f"{kk['rms']:.3e} against float64, above {F32_BIAS_FACTOR:g}x the plain path's")
+    return {"layers": layers, "acts": acts, "chain": chain, "bias_limit": bias,
+            "chained": chained}
+
+
+def wgmma_truncation(device) -> dict:
+    """Phase 9: the tensor cores' rounding. One m64n128k16 bf16 wgmma, d = c
+    + a b (csrc/mlp_chain.cu wgmma_probe_kernel), on seeded N(0, 1) a and b
+    and c of each scale in WGMMA_PROBE_C, WGMMA_PROBE_DRAWS draws; its error
+    against the exact sum (float64) in f32 ulps of that sum, signed toward
+    |sum| (negative: toward zero), and how often d equals the sum rounded
+    to f32 toward zero (the CPU emulator's model, tests/cuda_emu
+    EMU_WGMMA_TRUNCATE) or to nearest. Prints; returns the records."""
+    import torch
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    g = torch.Generator(device=device).manual_seed(SEED + 210)
+    out = {}
+    for scale in WGMMA_PROBE_C:
+        errs, rz_hits, rn_hits, n = [], 0, 0, 0
+        for _ in range(WGMMA_PROBE_DRAWS):
+            a = torch.randn((64, 16), generator=g, device=device).to(torch.bfloat16)
+            b = torch.randn((128, 16), generator=g, device=device).to(torch.bfloat16)
+            c = torch.randn((64, 128), generator=g, device=device) * scale
+            d = MC.wgmma_probe(a, b, c)
+            exact = c.double() + a.double() @ b.double().T
+            _, e = torch.frexp(exact)
+            ulp = torch.ldexp(torch.ones_like(exact), (e - 24).to(torch.int32))
+            errs.append((d.double() - exact) * exact.sign() / ulp)
+            rn = exact.float()
+            rz = torch.where(rn.double().abs() > exact.abs(),
+                             torch.nextafter(rn, torch.zeros_like(rn)), rn)
+            rz_hits += int((d == rz).sum())
+            rn_hits += int((d == rn).sum())
+            n += d.numel()
+        err = torch.cat([t.reshape(-1) for t in errs])
+        q = torch.quantile(err, torch.tensor([0.0, 0.01, 0.5, 0.99, 1.0], device=device,
+                                             dtype=err.dtype)).tolist()
+        inside = err[(err > -1) & (err <= 0)]
+        rec = {"n": n, "mean_ulp": float(err.mean()), "quantiles": q,
+               "in_rz_range": inside.numel() / n, "mean_in_range": float(inside.mean()),
+               "eighths": float((inside * 8 == (inside * 8).round()).double().mean()),
+               "quarters": float((inside * 4 == (inside * 4).round()).double().mean()),
+               "rz": rz_hits / n, "rn": rn_hits / n}
+        out[f"c ~ {scale:g} N(0, 1)"] = rec
+        print(f"[9] wgmma m64n128k16 bf16 rounding, c ~ {scale:g} N(0, 1), {n} outputs: error "
+              f"toward |exact| in ulps mean {rec['mean_ulp']:+.4f}, quantiles 0 / 1 / 50 / 99 / "
+              f"100%: {' / '.join(f'{v:+.3f}' for v in q)} | in (-1, 0]: {rec['in_rz_range']:.4f}"
+              f" (their mean {rec['mean_in_range']:+.4f}; multiples of 1/8 ulp "
+              f"{rec['eighths']:.4f}, of 1/4 {rec['quarters']:.4f}) | equal to the exact sum "
+              f"rounded toward zero (the emulator's model): {rec['rz']:.4f}, to nearest: "
+              f"{rec['rn']:.4f}", flush=True)
+        check(bool(torch.isfinite(err).all()), f"[9] wgmma probe: non-finite output")
+    return out
+
+
+def ring_rate(w, n_rows) -> dict:
+    """Phase 9: the f32 chain's slabs from L2 into shared memory alone
+    (csrc/mlp_chain.cu ring_probe_kernel: its ring, no products), one block
+    an SM, the image (pack_w3_image of w) shared by every block or in
+    RING_PROBE_COPIES copies; GB/s, and the time the chain's slabs need at
+    that rate on n_rows rows over CHAIN_L layers (two 64-row tiles a slab)."""
+    import torch
+    from color_neus_torch.ops.kernels import mlp_chain as MC
+    sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+    img = MC.pack_w3_image(w).reshape(-1)
+    need = -(-n_rows // 128) * CHAIN_L * img.numel() * 2
+    out = {}
+    for copies in (1, RING_PROBE_COPIES):
+        buf = img.repeat(copies)
+        moved = MC.ring_probe(buf, copies, RING_PROBE_SLABS, sms)
+        ms = cuda_ms(lambda: MC.ring_probe(buf, copies, RING_PROBE_SLABS, sms),
+                     reps=RING_PROBE_REPS, warmup=1)
+        rate = moved / (ms * 1e-3)
+        out[copies] = {"ms": ms, "GBps": rate / 1e9, "chain_ms": need / rate * 1e3}
+        print(f"[9] the f32 chain's ring alone ({sms} blocks x {RING_PROBE_SLABS} slabs of "
+              f"{moved // (sms * RING_PROBE_SLABS) // 1024} KB, "
+              f"{'one image' if copies == 1 else f'{copies} images'}): {ms:.4f} ms, "
+              f"{rate / 1e9:.1f} GB/s from L2 | the chain's {need / 1e9:.1f} GB at this rate: "
+              f"{need / rate * 1e3:.2f} ms", flush=True)
+    return out
+
+
 def chain_phase(device):
     """Phase 9: the MLP-chain microbenchmark (rows 7 + 8). (a) The tool's
     sweep through its entry point, launches counted; (b) every kernel
@@ -2058,9 +2275,11 @@ def chain_phase(device):
     lines = tool.main([])
     torch.cuda.synchronize()
     counts = launch_counts()
-    n_chain = sum(1 for name, *_ in lines if name != "deferred")
+    n_f32 = sum(1 for name, *_ in lines if name == "none-f32")
+    n_chain = sum(1 for name, *_ in lines if name != "deferred") - n_f32
     want = {k: 0 for k in counts}
-    want.update(mlp_chain=n_chain * (tool.REPS + 1), mlp_chain_deferred=tool.REPS + 1)
+    want.update(mlp_chain=n_chain * (tool.REPS + 1), mlp_chain_f32=n_f32 * (tool.REPS + 1),
+                mlp_chain_deferred=tool.REPS + 1)
     print(f"[9] the tool's sweep: {len(lines)} lines in {time.perf_counter() - t0:.1f} s | "
           f"launches {counts}", flush=True)
     check(counts == want, f"the tool's sweep launched {counts}, want {want}")
@@ -2120,6 +2339,11 @@ def chain_phase(device):
         if key is not None:
             rec[key] = {"err": err, "plain_ms": plain_ms}
 
+    # the f32 chain against float64, the tensor cores' rounding, the ring's rate
+    gate = f32_chain_gate(x, w)
+    trunc = wgmma_truncation(device)
+    ring = ring_rate(w, n)
+
     # (c) yardsticks and bounds
     cublas = {True: cublas_products_ms(x, w, CHAIN_L, True),
               False: cublas_products_ms(x, w, CHAIN_L, False)}
@@ -2138,13 +2362,16 @@ def chain_phase(device):
         r["bound_ms"], r["bound_by"], r["set_by"] = chain_bound_ms(n, CHAIN_L, bf16, epi, clock,
                                                                  sms)
         r["cublas_ms"] = cublas[bf16]
+        simt = "" if bf16 else (f" (six bf16 passes; f32 SIMT FFMA "
+                                f"{chain_bound_ms(n, CHAIN_L, bf16, epi, clock, sms, 'float32')[0]:.4f}"
+                                f" ms) | the kernel {r['cublas_ms'] / r['ms']:.2f}x cuBLAS's speed")
         print(f"[9] {name:10s} {n} x 256 x {CHAIN_L}: kernel {r['ms']:.4f} ms | plain "
               f"{r['plain_ms']:.4f} ms | cuBLAS products only {r['cublas_ms']:.4f} ms | bound "
-              f"{r['bound_ms']:.4f} ms ({r['set_by']}) | epilogue per element: "
+              f"{r['bound_ms']:.4f} ms ({r['set_by']}){simt} | epilogue per element: "
               + ("not counted" if epi is None else f"{epi[0]} FP32, {epi[1]} MUFU"),
               flush=True)
     check(not fails, "; ".join(fails))
-    return {"records": rec, "launches": counts}
+    return {"records": rec, "launches": counts, "f32_gate": gate, "wgmma": trunc, "ring": ring}
 
 
 def step_grads(loop, pixels, with_loss=False, **renderer):
@@ -2517,7 +2744,7 @@ def evaluation_path(loop, device, launches_training):
                                                   "point_pipeline_bwd", "ray_march",
                                                   "ray_march_bwd", "ray_march_save",
                                                   "ray_march_bwd_load", "mlp_chain",
-                                                  "mlp_chain_deferred")),
+                                                  "mlp_chain_f32", "mlp_chain_deferred")),
           "the auto training run launched a point-pipeline, grid-SDF, march or chain kernel")
     return res
 
@@ -4150,21 +4377,27 @@ def main() -> int:
     # ---- phase 1: build every kernel, all at once, and the host marcher ----
     # point_pipeline.cu holds rows 5 and 6, ray_march.cu rows 3 and 4,
     # mlp_chain.cu rows 7 and 8
-    # and each MARCH_BWD_PRECISION mode's rows 3-6 (build.VARIANTS)
-    # and phase 16's march_ablate variants in its two modes (ABLATE_MODES'
-    # build.ablation_names), in the same nvcc batch: none of them is a
-    # library the main path loads
+    # and each MARCH_BWD_PRECISION mode's rows 3-6 (build.VARIANTS), in one
+    # nvcc batch; phase 16's march_ablate variants in its two modes
+    # (ABLATE_MODES' build.ablation_names), none of them a library the main
+    # path loads, build in a second batch beside phases 1-15, whose host
+    # work leaves most cores idle, and phase 16 waits for it
     kernels = ("sdf_rays", "point_pipeline", "ray_march", "mlp_chain", *build.VARIANTS)
     ablations = tuple(n for m in ABLATE_MODES for n in build.ablation_names(m).values())
     t0 = time.perf_counter()
     gxx_err = []
     gxx = threading.Thread(target=lambda: _call_into(gxx_err, native.load))
     gxx.start()
-    libs = build.build(kernels + ablations)
+    libs = build.build(kernels)
+    abl_err = []
+    abl_build = threading.Thread(target=lambda: _call_into(abl_err,
+                                                           lambda: build.build(ablations)))
+    abl_build.start()
     gxx.join()
     check(not gxx_err, f"g++ build of csrc/marching_tet.cpp failed: {gxx_err}")
-    print(f"[1] built {', '.join(kernels + ablations)} (nvcc) and marching_tet "
-          f"(g++) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[1] built {', '.join(kernels)} (nvcc) and marching_tet (g++) in "
+          f"{time.perf_counter() - t0:.1f} s; building {', '.join(ablations)} beside the "
+          f"phases before 16", flush=True)
     for k in kernels:
         fn = ""
         for line in build.build_log(k).splitlines():
@@ -4400,6 +4633,11 @@ def main() -> int:
     clock.done("15")
 
     # ---- phase 16: the step and extraction instruments ----
+    t0 = time.perf_counter()
+    abl_build.join()
+    check(not abl_err, f"nvcc build of phase 16's march_ablate variants failed: {abl_err}")
+    print(f"[16] the march_ablate builds done ({time.perf_counter() - t0:.1f} s waited)",
+          flush=True)
     ins = instruments_phase(bundles)
     print(f"[16] summary: " + ", ".join(f"{k} {v:.1f} s" for k, v in ins["secs"].items()),
           flush=True)
@@ -4495,6 +4733,7 @@ def main() -> int:
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
     } for name, line, r in (("mlp_chain", 121, chain["records"]["softplus"]),
+                            ("mlp_chain_f32", 121, chain["records"]["none-f32"]),
                             ("mlp_chain_deferred", 103, chain["records"]["deferred"]))]
     for mode in PREC_MODES:
         sfx, p_ = PP.SUFFIX[mode], prec[mode]

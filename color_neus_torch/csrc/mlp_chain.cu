@@ -8,8 +8,10 @@
 //   chain:    L times x <- act(x @ W), one W for every layer, act one of the
 //             nine variants of the tool (template ACT, dispatched from an
 //             int); products in bf16 (W rounded to bf16 once, each layer's
-//             input cast to bf16, f32 accumulation) or in exact f32 FMAs (no
-//             TF32); the activation in f32; out [N, 256] f32.
+//             input cast to bf16, f32 accumulation) or in f32 as JAX's f32
+//             dot computes it (Precision.HIGHEST: six bf16 passes over
+//             hi / mid / lo parts of both operands, f32 accumulation); the
+//             activation in f32; out [N, 256] f32.
 //   deferred: the bf16 chain with the sp-only softplus; each layer's gate
 //             1 - exp(-100 sp) is rebuilt from the previous layer's kept f32
 //             output one layer later: acc += gate * gate_w; out = x + acc.
@@ -20,7 +22,8 @@
 //
 // Bound on the H100, at the tool's shape (N = 1,048,576 rows, L = 25):
 // the products are 2 N 256^2 L = 3.44e12 flop, 3.5 ms at the bf16 tensor
-// cores' 989 TFLOP/s (51 ms in f32 at 67 TFLOP/s); the bytes, x read once
+// cores' 989 TFLOP/s (f32: 20.8 ms as six passes, 51 ms as SIMT FFMA at 67
+// TFLOP/s); the bytes, x read once
 // and out written once, 2.1 GB, 0.64 ms at 3.35 TB/s. So the products bound
 // the bare chain. The epilogue is a second bound: 6.7e9 activated elements,
 // each FP32-pipe instruction per element ~0.2 ms (132 SMs x 128 lanes at
@@ -81,10 +84,32 @@
 //    - No branch around the products: a warpgroup whose tile lies wholly
 //      past N runs on zeros and stores nothing (ptxas serialises wgmma in a
 //      possibly divergent path, waiting for each one).
-//  * f32 (bf16 = 0): W (256 KB) does not fit in shared memory; it is read
-//    through L2 by mlp::tile_matmul_f32 (64-row tile, an 8x8 register
-//    tile per thread, exact FFMA in k order), the tile's f32 activations
-//    in shared memory, 2 blocks of 8 warps per SM.
+//  * f32 (bf16 = 0) on wgmma: JAX's f32 product as six bf16 passes
+//    (mlp_common.cuh hp_part, load_a3, and unbias_truncated's nudge, as
+//    rows 3-6 sum in MARCH_BWD_PRECISION f32). Its three-part W image
+//    (512 KB: a k16 step's hi, mid and lo at 32-byte offsets of a 128-byte
+//    row, then 16 zero k) does not fit in shared memory, so it streams from
+//    L2 in 16 KB slabs, once per layer per block. What holds it back and
+//    what this does:
+//    - L2 bytes: a slab serves 1.5 flop a byte per row it meets; two
+//      warpgroups, each on its own 64-row tile, share every slab (128
+//      rows: 107 GB a call at the tool's shape), through a 5-stage ring
+//      thread 0 keeps 3 slabs ahead.
+//    - A's parts: built in registers per k16 step from the f32 tile
+//      (load_a3), once per step for both 128-column chunks: each layer runs
+//      k outer, its 256 outputs in 128 registers a thread until the last
+//      step, then written to the tile in place (no stage: a warp reads and
+//      writes only its own 16 rows) and activated from there.
+//    - The wait: the two warpgroups take turns to issue (named barriers),
+//      so one's six m64n128k16 passes run while the other waits for its
+//      own and nudges them into its totals.
+//    - The nudge: unbias_truncated_ffma, three instructions an output
+//      where unbias_truncated takes seven (these instructions set the
+//      pace: the nudge alone cost 4.7 of 48 ms in a 64-column design).
+//    - Budgets: 2 warpgroups, 254 registers (128 totals, 64
+//      accumulators, 12 A parts), no spills; shared memory 2 tiles of 64 x
+//      264 f32 + 5 x 16 KB + 1 KB of alignment slack, 216 KB of the 227.
+//    The epilogue is the bf16 chains' activate<A>.
 // The ragged last tile reads zeros and stores nothing past N.
 
 #include <cuda_runtime.h>
@@ -94,15 +119,12 @@
 namespace {
 
 constexpr int WD = 256;                  // the chain's width
-constexpr int THREADS = 256;             // the f32 chain's 8 warps
 constexpr int TR = 64;                   // rows per tile
-constexpr int LDF = WD + 4;              // f32 row stride of the f32 chain's tile
 constexpr int KB = 64;                   // k per 128-byte-swizzled block
 constexpr int W_KBLOCK = WD * 128;       // bytes of one k block of the W image (32 KB)
 constexpr int A_KBLOCK = TR * 128;       // bytes of one k block of an A tile (8 KB)
 constexpr int W_IMAGE = WD * WD * 2;     // the packed W image (128 KB)
 constexpr int ALIGN = 1024;              // the swizzle's atom: descriptors need it
-constexpr size_t SMEM_F32 = size_t(TR) * LDF * 4;
 
 // the tool's variants, in its order (ops/kernels/mlp_chain.py ACTIVATIONS)
 enum Act { NONE, RELU, SOFTPLUS, SIGMOID, SP_GATE, SHARED, EXPM1_GATE, RECIP_APPROX,
@@ -110,8 +132,7 @@ enum Act { NONE, RELU, SOFTPLUS, SIGMOID, SP_GATE, SHARED, EXPM1_GATE, RECIP_APP
 
 struct Chain {
   const float* x;   // [n, 256]
-  const float* w;   // [256, 256], [in, out] (f32 chain)
-  const void* wimg; // the packed bf16 W image (bf16 chains)
+  const void* wimg; // W's packed image: bf16 (the bf16 chains) or three-part (the f32 chain)
   float* out;       // [n, 256]
   long long n;
   int L;
@@ -179,40 +200,6 @@ __device__ __forceinline__ void deferred_step(float a, float& sp, float& gsum, f
 }
 
 __host__ __device__ long long n_tiles(long long n, int rows) { return (n + rows - 1) / rows; }
-
-// ---- f32 products: mlp::tile_matmul_f32 over a 64-row tile ----
-
-template <int A>
-__global__ void __launch_bounds__(THREADS, 2) chain_f32_kernel(Chain c) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);  // [TR][LDF]
-  const int tid = threadIdx.x, cg = tid & 31, rg = tid >> 5;  // columns cg + 32 j, rows 8 rg + i
-  for (long long tile = blockIdx.x; tile < n_tiles(c.n, TR); tile += gridDim.x) {
-    const long long r0 = tile * TR;
-    for (int e = tid; e < TR * WD; e += THREADS) {
-      const int r = e / WD, k = e % WD;
-      act[r * LDF + k] = r0 + r < c.n ? c.x[(r0 + r) * WD + k] : 0.f;
-    }
-    __syncthreads();
-    for (int l = 0; l < c.L; ++l) {
-      float acc[8][8];
-      mlp::tile_matmul_f32<8>(act, LDF, WD, c.w, acc);
-      __syncthreads();  // every thread has read act
-      const bool last = l + 1 == c.L;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float v = activate<A>(acc[i][j], c.gw);
-          if (!last) act[r * LDF + cg + 32 * j] = v;
-          else if (r0 + r < c.n) c.out[(r0 + r) * WD + cg + 32 * j] = v;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 }  // namespace
 
@@ -430,6 +417,194 @@ __global__ void __launch_bounds__(DEF_THREADS, 1) chain_deferred_kernel(Chain c)
   }
 }
 
+// ---- the f32 chain: every product as six bf16 wgmma passes ----
+// Two warpgroups a block, each on its own 64-row tile of f32 activations
+// in shared memory (row stride LDA3), share every weight slab: 128 rows a
+// slab. A slab is one k16 step of 128 output columns (a chunk), its
+// 128-byte rows holding that step's hi, mid and lo parts of W^T (16 KB;
+// the image, ops/kernels/mlp_chain.py pack_w3_image, orders a layer's
+// slabs step after step, a step's two chunks together). Each layer walks k
+// outer: per k16 step the warp builds A's three parts in registers from
+// its 16 rows of the tile (mlp::load_a3); each chunk's six passes
+// (mlp::hp_part's order, m64n128k16) go into a fresh accumulator, whose
+// sum, nudged (mlp::unbias_truncated_ffma), joins that chunk's f32 total.
+// The two chunks' totals (128 registers a thread) hold the layer's outputs
+// until its last step, then go into the tile in place (each warp reads,
+// with load_a3, and writes, in the accumulator fragment, only its own 16
+// rows: a __syncwarp orders them) and are activated from there. The two
+// warpgroups take turns to issue (named barriers 1 and 2, as the bf16
+// chain's three): while one's passes run, the other waits for its own and
+// nudges them in. The slabs come through a ring of F32_STAGES stages, one
+// slab each, that thread 0 keeps F32_AHEAD slabs ahead: once its passes on
+// slab v are issued it refills the stage of slab v - F32_LAG, which both
+// warpgroups have released by then unless the other one lags more than
+// F32_LAG - 1 slabs.
+constexpr int F32_WG = 2;                       // warpgroups a block, a 64-row tile each
+constexpr int F32_THREADS = F32_WG * WG_THREADS;
+constexpr int LDA3 = WD + 8;                    // the tile's row stride: load_a3 conflict-free
+constexpr int CW = 128;                         // a chunk's columns
+constexpr int SLAB3 = CW * 128;                 // a slab: a chunk x a k16 step's three parts
+constexpr int CHUNKS = WD / CW, STEPS = WD / 16;
+constexpr int LAYER_SLABS = CHUNKS * STEPS;     // a layer's image: 32 slabs, 512 KB
+constexpr int F32_STAGES = 5, F32_LAG = 2, F32_AHEAD = F32_STAGES - F32_LAG;
+constexpr size_t SMEM_F32 = ALIGN + size_t(F32_STAGES) * SLAB3 +
+                            size_t(F32_WG) * TR * LDA3 * 4 + 2 * F32_STAGES * 8;
+
+struct Ring3 {
+  unsigned char* buf;           // F32_STAGES x SLAB3
+  unsigned long long* full;     // a stage's slab has landed (thread 0's copy)
+  unsigned long long* empty;    // every warp has released the stage (8 arrivals)
+  const unsigned char* img;     // the three-part W image, LAYER_SLABS slabs
+  unsigned total;               // the slabs the block takes
+};
+
+// Thread 0: slab v of the block's sequence (slab v % LAYER_SLABS of the
+// image) into its stage, once every warp released the slab before it there.
+__device__ __forceinline__ void ring3_issue(const Ring3& r, unsigned v) {
+  if (v >= r.total) return;
+  const unsigned st = v % F32_STAGES;
+  if (v >= F32_STAGES) mlp::mbar_wait(r.empty + st, (v / F32_STAGES - 1) & 1u);
+  mlp::bulk_load(r.buf + st * SLAB3, r.img + size_t(v % LAYER_SLABS) * SLAB3, SLAB3,
+                 r.full + st);
+}
+
+// Every thread: until slab v has landed; its stage.
+__device__ __forceinline__ const unsigned char* ring3_take(const Ring3& r, unsigned v) {
+  mlp::mbar_wait(r.full + v % F32_STAGES, (v / F32_STAGES) & 1u);
+  __syncwarp();
+  return r.buf + (v % F32_STAGES) * SLAB3;
+}
+
+// Every thread, once its warpgroup's passes on slab v have completed.
+__device__ __forceinline__ void ring3_release(const Ring3& r, unsigned v) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mlp::mbar_arrive(r.empty + v % F32_STAGES);
+}
+
+// The turn to issue passes between the two warpgroups (barrier 1 + wg:
+// warpgroup wg's turn, 128 waiting + 128 passing threads); warpgroup 1
+// gives warpgroup 0 the first and does not pass after its block's final
+// issue, so each barrier sees as many arrivals as waits.
+__device__ __forceinline__ void f32_turn_wait(int wg) { mlp::bar_sync(1 + wg, 2 * WG_THREADS); }
+__device__ __forceinline__ void f32_turn_pass(int wg, bool last) {
+  if (!(wg == F32_WG - 1 && last)) mlp::bar_arrive(1 + (wg + 1) % F32_WG, 2 * WG_THREADS);
+}
+
+// One layer's products over the warpgroup's tile: tot[c] = act @ W[:, 128 c
+// .. 128 c + 128] (the warp's rows 16 warp .. 16 warp + 16, in the
+// accumulator fragment), from slabs v .. v + LAYER_SLABS of the ring;
+// last: the block's last layer (its final turn).
+__device__ __forceinline__ void layer_products(const Ring3& r, unsigned v, const float* act,
+                                               int wg, int warp, bool last,
+                                               float (&tot)[CHUNKS][CW / 2]) {
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) tot[c][i] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < STEPS; ++s) {
+    unsigned a[3][4];
+    mlp::load_a3(act, LDA3, 16 * warp, 16 * s, a);
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const unsigned u = v + CHUNKS * s + c;
+      const unsigned char* slab = ring3_take(r, u);
+      float acc[CW / 2];
+      f32_turn_wait(wg);
+      mlp::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        mlp::wgmma_rs_bf16<CW>(acc, a[mlp::hp_part(i, 0)],
+                               mlp::wgmma_desc(slab + 32 * mlp::hp_part(i, 1)), i > 0);
+      mlp::wgmma_commit();
+      f32_turn_pass(wg, last && s + 1 == STEPS && c + 1 == CHUNKS);
+      // after the issue: the refill's wait for the other warpgroup's
+      // release then overlaps these passes instead of holding them back
+      if (threadIdx.x == 0) ring3_issue(r, u + F32_AHEAD);
+      mlp::wgmma_wait_all();
+      ring3_release(r, u);
+#pragma unroll
+      for (int i = 0; i < CW / 2; ++i) tot[c][i] += mlp::unbias_truncated_ffma(acc[i]);
+    }
+  }
+}
+
+// The f32 chain, activation A. Warpgroup wg of a block owns tile F32_WG p
+// + wg of each group p of F32_WG tiles the block walks; its warp w loads,
+// computes and stores rows 16 w .. 16 w + 16 of it. A tile wholly past n
+// runs on zeros and stores nothing (no branch around the products).
+template <int A>
+__global__ void __launch_bounds__(F32_THREADS, 1) chain_f32_kernel(Chain c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* const ring = aligned_smem(smem);
+  float* const tiles = reinterpret_cast<float*>(ring + F32_STAGES * SLAB3);
+  auto* const bars = reinterpret_cast<unsigned long long*>(tiles + F32_WG * TR * LDA3);
+  const int tid = threadIdx.x, wg = tid / WG_THREADS, warp = (tid / 32) % 4, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  float* const act = tiles + wg * TR * LDA3;   // the warpgroup's tile
+  const long long groups = n_tiles(c.n, F32_WG * TR);
+  const long long mine = blockIdx.x < groups ? (groups - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const Ring3 r{ring, bars, bars + F32_STAGES, static_cast<const unsigned char*>(c.wimg),
+                unsigned(mine) * unsigned(c.L) * LAYER_SLABS};
+  if (tid == 0) {
+    for (int i = 0; i < F32_STAGES; ++i) {
+      mlp::mbar_init(r.full + i, 1);
+      mlp::mbar_init(r.empty + i, F32_THREADS / 32);
+    }
+    mlp::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int v = 0; v < F32_AHEAD; ++v) ring3_issue(r, v);
+  if (wg == F32_WG - 1) mlp::bar_arrive(1, 2 * WG_THREADS);   // warpgroup 0 takes the first turn
+  unsigned v = 0;
+  for (long long p = blockIdx.x; p < groups; p += gridDim.x) {
+    const bool last_group = p + gridDim.x >= groups;
+    const long long r0 = (F32_WG * p + wg) * TR + 16 * warp;   // the warp's first row
+    const float4* x4 = reinterpret_cast<const float4*>(c.x);
+    float4* const out4 = reinterpret_cast<float4*>(c.out);
+#pragma unroll 4
+    for (int i = lane; i < 16 * WD / 4; i += 32) {
+      const int rr = i / (WD / 4), k = 4 * (i % (WD / 4));
+      const float4 val = r0 + rr < c.n ? x4[(r0 + rr) * (WD / 4) + k / 4]
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(act + (16 * warp + rr) * LDA3 + k) = val;
+    }
+    __syncwarp();
+    for (int l = 0; l < c.L; ++l, v += LAYER_SLABS) {
+      const bool last = l + 1 == c.L;
+      float tot[CHUNKS][CW / 2];
+      layer_products(r, v, act, wg, warp, last_group && last, tot);
+      // the sums into the warp's rows of the tile (every read of them done),
+      // then activated row-major from there: no activation beside the 128
+      // totals in registers, and the last layer's stores are coalesced
+#pragma unroll
+      for (int ch = 0; ch < CHUNKS; ++ch)
+#pragma unroll
+        for (int j = 0; j < CW / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(act + (16 * warp + g + 8 * h) * LDA3 + CW * ch + 8 * j +
+                                       2 * q) =
+                make_float2(tot[ch][4 * j + 2 * h], tot[ch][4 * j + 2 * h + 1]);
+      __syncwarp();
+      if (A != NONE || last) {
+#pragma unroll 4
+        for (int i = lane; i < 16 * WD / 4; i += 32) {
+          const int rr = i / (WD / 4), k = 4 * (i % (WD / 4));
+          float4* const at = reinterpret_cast<float4*>(act + (16 * warp + rr) * LDA3 + k);
+          float4 o = *at;
+          o = make_float4(activate<A>(o.x, c.gw), activate<A>(o.y, c.gw),
+                          activate<A>(o.z, c.gw), activate<A>(o.w, c.gw));
+          if (!last) *at = o;
+          else if (r0 + rr < c.n) out4[(r0 + rr) * (WD / 4) + k / 4] = o;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
 using Kern = void (*)(Chain);
 
 template <int A>
@@ -452,49 +627,160 @@ Kern chain_kernel_for(int act, bool bf16) {
   }
 }
 
-// Persistent grid: at most the SM count times the blocks an SM holds; a
-// block walks units of `rows` rows (a bf16 chain block: a group of tiles).
-int launch(Kern kern, const Chain& c, int rows, size_t smem, int threads, cudaStream_t st) {
-  if (c.n <= 0) return 0;
+// A chain kernel's block: rows a block walks at a time, dynamic shared
+// memory, threads.
+struct Shape {
+  int rows;
+  size_t smem;
+  int threads;
+};
+constexpr Shape CHAIN_SHAPE{NWG * TR, SMEM_CHAIN, CHAIN_THREADS},
+    F32_SHAPE{F32_WG * TR, SMEM_F32, F32_THREADS}, DEF_SHAPE{TR, SMEM_DEF, DEF_THREADS};
+
+// The blocks of kern an SM holds (after allowing its shared memory), or a
+// negative CUDA error code.
+template <class K>
+int blocks_per_sm(K kern, const Shape& sh) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
-  if (e != cudaSuccess) return int(e);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return int(e);
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return int(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-  if (e != cudaSuccess) return int(e);
+                                       int(sh.smem));
+  if (e != cudaSuccess) return -int(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, sh.threads, sh.smem);
+  return e != cudaSuccess ? -int(e) : per_sm;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return int(e);
+}
+
+// Persistent grid: at most the SM count times the blocks an SM holds; a
+// block walks units of sh.rows rows (a group of tiles, or a tile).
+int launch(Kern kern, const Chain& c, const Shape& sh, cudaStream_t st) {
+  if (c.n <= 0) return 0;
+  const int per_sm = blocks_per_sm(kern, sh);
+  if (per_sm < 0) return -per_sm;
   if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
-  const long long tiles = n_tiles(c.n, rows);
+  int sms = 0;
+  if (const int e = sm_count(&sms)) return e;
+  const long long tiles = n_tiles(c.n, sh.rows);
   const long long cap = (long long)sms * per_sm;
-  kern<<<unsigned(tiles < cap ? tiles : cap), threads, smem, st>>>(c);
+  kern<<<unsigned(tiles < cap ? tiles : cap), sh.threads, sh.smem, st>>>(c);
   return int(cudaGetLastError());
+}
+
+// ---- probes of the card, for chip_smoke.py phase 9 ----
+
+// One m64n128k16 bf16 product on one warpgroup, d = c + a b: the tensor
+// cores' rounding, read against float64. a [64][16] and b [128][16] (B^T)
+// as bf16 bits, c and d [64][128] f32, all row-major.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    wgmma_probe_kernel(const unsigned short* a, const unsigned short* b, const float* c,
+                       float* d) {
+  __shared__ __align__(1024) unsigned char a_s[64 * 128];
+  __shared__ __align__(1024) unsigned char b_s[128 * 128];
+  const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, q = t & 3;
+  for (int i = t; i < 64 * 16; i += WG_THREADS)
+    *reinterpret_cast<unsigned short*>(a_s + mlp::sw128_offset(i / 16, i % 16)) = a[i];
+  for (int i = t; i < 128 * 16; i += WG_THREADS)
+    *reinterpret_cast<unsigned short*>(b_s + mlp::sw128_offset(i / 16, i % 16)) = b[i];
+  mlp::fence_proxy_async();
+  __syncthreads();
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    acc[i] = c[(16 * w + g + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * q + (i & 1)];
+  mlp::wgmma_fence();
+  mlp::wgmma_m64n128k16_bf16(acc, mlp::wgmma_desc(a_s), mlp::wgmma_desc(b_s), 1);
+  mlp::wgmma_commit();
+  mlp::wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    d[(16 * w + g + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * q + (i & 1)] = acc[i];
+}
+
+// The f32 chain's ring alone: each block takes `slabs` slabs through
+// Ring3 (its stages, lookahead and releases) with no products, from its
+// own copy (block b: copy b % copies) of a LAYER_SLABS-slab image. Its
+// time prices the slabs' way from L2 into shared memory.
+__global__ void __launch_bounds__(F32_THREADS, 1)
+    ring_probe_kernel(const unsigned char* img, int copies, unsigned slabs) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* const ring = aligned_smem(smem);
+  auto* const bars = reinterpret_cast<unsigned long long*>(ring + F32_STAGES * SLAB3);
+  const Ring3 r{ring, bars, bars + F32_STAGES,
+                img + size_t(blockIdx.x % copies) * LAYER_SLABS * SLAB3, slabs};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F32_STAGES; ++i) {
+      mlp::mbar_init(r.full + i, 1);
+      mlp::mbar_init(r.empty + i, F32_THREADS / 32);
+    }
+    mlp::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int v = 0; v < F32_AHEAD; ++v) ring3_issue(r, v);
+  for (unsigned u = 0; u < slabs; ++u) {
+    if (threadIdx.x == 0) ring3_issue(r, u + F32_AHEAD);
+    ring3_take(r, u);
+    ring3_release(r, u);
+  }
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Each returns 0 or the CUDA error code of the
-// set-up or the launch; neither synchronises.
-// w: W [256, 256] f32 (the f32 chain); wimg: W's packed bf16 image (the
-// bf16 chains; ops/kernels/mlp_chain.py pack_w_image), 16-byte aligned.
-extern "C" int mlp_chain_launch(const float* x, const float* w, const void* wimg, float* out,
-                                long long n, int L, int act, int bf16, float gate_w,
-                                void* stream) {
+// set-up or the launch; none synchronises.
+// wimg: W's packed image, 16-byte aligned: bf16 for the bf16 chains
+// (ops/kernels/mlp_chain.py pack_w_image), three-part for the f32 chain
+// (pack_w3_image).
+extern "C" int mlp_chain_launch(const float* x, const void* wimg, float* out, long long n, int L,
+                                int act, int bf16, float gate_w, void* stream) {
   const Kern kern = chain_kernel_for(act, bf16 != 0);
   if (kern == nullptr || L < 1) return int(cudaErrorInvalidValue);
-  const Chain c{x, w, wimg, out, n, L, gate_w};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch(kern, c, NWG * TR, SMEM_CHAIN, CHAIN_THREADS, st)
-              : launch(kern, c, TR, SMEM_F32, THREADS, st);
+  const Chain c{x, wimg, out, n, L, gate_w};
+  return launch(kern, c, bf16 ? CHAIN_SHAPE : F32_SHAPE, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mlp_chain_deferred_launch(const float* x, const void* wimg, float* out,
                                          long long n, int L, float gate_w, void* stream) {
   if (L < 1) return int(cudaErrorInvalidValue);
-  const Chain c{x, nullptr, wimg, out, n, L, gate_w};
-  return launch(chain_deferred_kernel, c, TR, SMEM_DEF, DEF_THREADS,
-                static_cast<cudaStream_t>(stream));
+  const Chain c{x, wimg, out, n, L, gate_w};
+  return launch(chain_deferred_kernel, c, DEF_SHAPE, static_cast<cudaStream_t>(stream));
+}
+
+// The blocks an SM holds of the chain kernel of `act` (bf16 or f32; act -1:
+// the deferred chain), or a negative CUDA error code.
+extern "C" int mlp_chain_blocks_per_sm(int act, int bf16) {
+  if (act < 0) return blocks_per_sm(chain_deferred_kernel, DEF_SHAPE);
+  const Kern kern = chain_kernel_for(act, bf16 != 0);
+  if (kern == nullptr) return -int(cudaErrorInvalidValue);
+  return blocks_per_sm(kern, bf16 ? CHAIN_SHAPE : F32_SHAPE);
+}
+
+extern "C" int mlp_wgmma_probe_launch(const void* a, const void* b, const float* c, float* d,
+                                      void* stream) {
+  wgmma_probe_kernel<<<1, WG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(a), static_cast<const unsigned short*>(b), c, d);
+  return int(cudaGetLastError());
+}
+
+// The f32 chain's slab, bytes.
+extern "C" int mlp_chain_f32_slab_bytes() { return SLAB3; }
+
+// blocks blocks (at most one an SM), each taking `slabs` slabs from copy
+// b % copies of the image at img (copies x 512 KB).
+extern "C" int mlp_ring_probe_launch(const void* img, int copies, unsigned slabs, int blocks,
+                                     void* stream) {
+  const Shape sh{0, SMEM_F32, F32_THREADS};   // the chain's, so one block an SM as the chain
+  if (copies < 1 || blocks < 1) return int(cudaErrorInvalidValue);
+  const int per_sm = blocks_per_sm(ring_probe_kernel, sh);
+  if (per_sm < 0) return -per_sm;
+  ring_probe_kernel<<<blocks, sh.threads, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(img), copies, slabs);
+  return int(cudaGetLastError());
 }
 
 extern "C" const char* mlp_chain_error_string(int code) {

@@ -1,11 +1,12 @@
 // Device code shared by the port's MLP kernels (sdf_rays.cu: the placement
 // sweep and the grid SDF; point_pipeline.cu and ray_march.cu: the per-point
 // pipeline; mlp_chain.cu: the chain microbenchmark): the positional
-// encoding and its derivatives, the softplus(beta=100), the exact f32
-// register-tiled layer product over a 64-point tile, the bf16 tensor-core
-// instruction with its operand packing, the asynchronous bulk copy into
-// shared memory with its mbarrier, and Hopper's warpgroup product (wgmma)
-// with its descriptors, fences and the named barriers.
+// encoding and its derivatives, the softplus(beta=100), the bf16
+// tensor-core instruction with its operand packing, the asynchronous bulk
+// copy into shared memory with its mbarrier, Hopper's warpgroup product
+// (wgmma) with its descriptors, fences and the named barriers, and the
+// pieces of an f32 product as six bf16 wgmma passes (load_a3,
+// unbias_truncated).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,35 +62,6 @@ __device__ __forceinline__ float emb_curvature(const float* x, int c, int d0) {
   const float f = float(1 << k);
   const float ph = x[m % 3] * f;
   return m < 3 ? -f * f * sinf(ph) : -f * f * cosf(ph);
-}
-
-// acc[i][j] = sum_{k < K} act[(8 rg + i) * lda + k] * W[k * 32 JN + cg + 32 j]
-// with rg = warp, cg = lane: the [TILE, 32 JN] product of the tile's
-// activations (shared memory, row stride lda) and a row-major [K, 32 JN]
-// f32 weight block (device memory, L2-resident across the launch), in exact
-// f32 FMAs summed in k order. Activation reads are warp broadcasts; weight
-// reads are coalesced.
-template <int JN>
-__device__ __forceinline__ void tile_matmul_f32(const float* act, int lda, int K,
-                                                const float* __restrict__ W,
-                                                float (&acc)[8][JN]) {
-  const int cg = threadIdx.x & 31, rg = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[8], w[JN];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = act[(rg * 8 + i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < JN; ++j) w[j] = __ldg(W + size_t(k) * (32 * JN) + cg + 32 * j);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < JN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
 }
 
 // Two f32 values rounded to bf16 (to nearest, ties to even) in one 32-bit
@@ -371,7 +343,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], unsigned 
 #endif
 }
 
-// d (+)= A B over one m64nNk16 step (N = 64, 48, 32 or 24), A from
+// d (+)= A B over one m64nNk16 step (N = 128, 64, 48, 32 or 24), A from
 // registers, B from shared memory (the descriptor b: N rows of B^T, the
 // layout above), f32 accumulators (N / 2 a thread, laid out as for
 // wgmma_m64n128k16_bf16). A's fragment is mma.m16n8k16's: warp w of the
@@ -381,9 +353,32 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], unsigned 
 template <int N>
 __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], const unsigned (&a)[4],
                                               unsigned long long b, int scale_d) {
-  static_assert(N == 64 || N == 48 || N == 32 || N == 24, "wgmma_rs_bf16: N");
+  static_assert(N == 128 || N == 64 || N == 48 || N == 32 || N == 24, "wgmma_rs_bf16: N");
 #ifdef __CUDACC__
-  if constexpr (N == 64) {
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -434,6 +429,64 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], const unsigned 
 #else
   emu_wgmma_bf16_ra(d, N, a, b, scale_d);
 #endif
+}
+
+// ---- an f32 product as six bf16 wgmma passes (JAX's Precision.HIGHEST) ----
+// Each f32 operand x is split into three bf16 parts, hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid) (hi + mid + lo == x exactly for a
+// normal x), and A B is summed as the six products of parts whose ranks
+// add to at most 2, smallest first, hi Hi last; each k16 step's six
+// passes go into a fresh accumulator whose sum is nudged (unbias_truncated)
+// before it joins the f32 total. Users: point_pipeline_tile.cuh hp_step
+// (rows 3-6 in MARCH_BWD_PRECISION f32) and mlp_chain.cu's f32 chain.
+
+// Pass i of the six in their order, A's part (operand 0) or B's (1), ranks
+// 0 hi, 1 mid, 2 lo: lo Hi, mid Mid, hi Lo, mid Hi, hi Mid, hi Hi.
+__host__ __device__ constexpr int hp_part(int i, int operand) {
+  constexpr int pass[6][2] = {{2, 0}, {1, 1}, {0, 2}, {1, 0}, {0, 1}, {0, 0}};
+  return pass[i][operand];
+}
+
+// v nudged half an ulp away from zero, rounded to nearest even: a step's
+// sum, which the tensor cores truncate toward zero, so rounded without bias
+// in expectation (the nudge lands on the next value for an odd last bit,
+// on v for an even one). Exact for a v below 2^-102 in magnitude (left).
+__device__ __forceinline__ float unbias_truncated(float v) {
+  const unsigned b = __float_as_uint(v), e = b & 0x7f800000u;
+  return e > (24u << 23) ? v + __uint_as_float((b & 0x80000000u) | (e - (24u << 23))) : v;
+}
+
+// unbias_truncated as one LOP and one FFMA, v + sign(v) 2^(e-24) (half an
+// ulp) rounded to nearest even, where unbias_truncated's test and integer
+// ops take seven instructions (mlp_chain.cu's f32 chain, whose pace these
+// instructions set). Equal for |v| >= 2^-102; below, the half ulp is itself
+// subnormal and v still moves by it (a subnormal v stays).
+__device__ __forceinline__ float unbias_truncated_ffma(float v) {
+  return fmaf(__uint_as_float(__float_as_uint(v) & 0xff800000u), 0x1p-24f, v);
+}
+
+// Parts hi, mid, lo (a[0..2]) of the A fragment (wgmma_rs_bf16's) of rows
+// m0 .. m0 + 16, columns k0 .. k0 + 16 of an f32 tile in shared memory
+// (row stride lda).
+__device__ __forceinline__ void load_a3(const float* A, int lda, int m0, int k0,
+                                        unsigned (&a)[3][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* row = A + (m0 + g) * lda + k0 + 2 * t;   // row g; row g + 8 at 8 lda
+  const float2 x[4] = {*reinterpret_cast<const float2*>(row),
+                       *reinterpret_cast<const float2*>(row + 8 * lda),
+                       *reinterpret_cast<const float2*>(row + 8),
+                       *reinterpret_cast<const float2*>(row + 8 * lda + 8)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float u = x[i].x, v = x[i].y;
+#pragma unroll
+    for (int part = 0; part < 3; ++part) {
+      const unsigned h = pack_bf16(u, v);
+      a[part][i] = h;
+      u -= __uint_as_float(h << 16);
+      v -= __uint_as_float(h & 0xffff0000u);
+    }
+  }
 }
 
 // Global-memory writes of this thread made visible to the async proxy

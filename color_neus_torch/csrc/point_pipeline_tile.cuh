@@ -51,9 +51,11 @@ using mlp::INV_SQRT2;
 using mlp::THREADS;
 using mlp::TILE;
 using mlp::emb_value;
+using mlp::load_a3;
 using mlp::pack_bf16;
 using mlp::round_bf16;
 using mlp::softplus100;
+using mlp::unbias_truncated;
 
 constexpr int LDX = HID + EMB + 4;       // activation row stride: [h 256 | small 48] + pad
 constexpr int LDX_FWD = HID + EMB + 8;   // the forward kernels' (load_a's reads then hit
@@ -440,37 +442,6 @@ __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<floa
 // device-memory scratch (L2) until the last chunk has read A: put runs
 // after the product, as in wg_product.
 
-// v nudged half an ulp away from zero, rounded to nearest even: a step's
-// sum, which the tensor cores truncate toward zero, so rounded without bias
-// in expectation (the nudge lands on the next value for an odd last bit,
-// on v for an even one). Exact for a v below 2^-102 in magnitude (left).
-__device__ __forceinline__ float unbias_truncated(float v) {
-  const unsigned b = __float_as_uint(v), e = b & 0x7f800000u;
-  return e > (24u << 23) ? v + __uint_as_float((b & 0x80000000u) | (e - (24u << 23))) : v;
-}
-
-// Parts hi, mid, lo (a[0..2]) of load_a's fragment at (m0, k0).
-__device__ __forceinline__ void load_a3(const float* A, int lda, int m0, int k0,
-                                        unsigned (&a)[3][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* row = A + (m0 + g) * lda + k0 + 2 * t;   // row g; row g + 8 at 8 lda
-  const float2 x[4] = {*reinterpret_cast<const float2*>(row),
-                       *reinterpret_cast<const float2*>(row + 8 * lda),
-                       *reinterpret_cast<const float2*>(row + 8),
-                       *reinterpret_cast<const float2*>(row + 8 * lda + 8)};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float u = x[i].x, v = x[i].y;
-#pragma unroll
-    for (int part = 0; part < 3; ++part) {
-      const unsigned h = pack_bf16(u, v);
-      a[part][i] = h;
-      u -= __uint_as_float(h << 16);
-      v -= __uint_as_float(h & 0xffff0000u);
-    }
-  }
-}
-
 // One k16 step (k0) of a chunk: A's parts built, the step's slab (ring
 // slab li of the product) acquired, its six passes into a fresh
 // accumulator, then tot += it (STEPWISE; else into tot itself). KS: the
@@ -480,7 +451,6 @@ template <int NW, int KS, int STAGES, int LDA, bool STEPWISE>
 __device__ __forceinline__ void hp_step(Rings& st, float (&tot)[NW / 2], const float* A, int k0,
                                         const unsigned char* img, unsigned li, int n_stages,
                                         int row0) {
-  constexpr int pass[6][2] = {{2, 0}, {1, 1}, {0, 2}, {1, 0}, {0, 1}, {0, 0}};
   const int tid = threadIdx.x;
   unsigned a[3][4];
   load_a3(A, LDA, 16 * ((tid >> 5) & 3), k0, a);
@@ -491,7 +461,8 @@ __device__ __forceinline__ void hp_step(Rings& st, float (&tot)[NW / 2], const f
     mlp::wgmma_fence();
 #pragma unroll
     for (int i = 0; i < 6; ++i)
-      mlp::wgmma_rs_bf16<NW>(acc, a[pass[i][0]], mlp::wgmma_desc(stage + 32 * pass[i][1]), 1);
+      mlp::wgmma_rs_bf16<NW>(acc, a[mlp::hp_part(i, 0)],
+                             mlp::wgmma_desc(stage + 32 * mlp::hp_part(i, 1)), 1);
     mlp::wgmma_commit();
     mlp::wgmma_wait_all();
     ring_release<STAGES>(st.w, s);

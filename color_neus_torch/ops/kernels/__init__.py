@@ -25,7 +25,7 @@ def launchers() -> dict:
     for name, fn in moded.items():
         for mode, counter in point_pipeline.mode_counters(fn).items():
             out[name + point_pipeline.SUFFIX[mode]] = counter
-    return {**out, "mlp_chain": mlp_chain.launch_chain,
+    return {**out, "mlp_chain": mlp_chain.launch_chain, "mlp_chain_f32": mlp_chain.launch_chain.f32,
             "mlp_chain_deferred": mlp_chain.launch_chain_deferred}
 
 

@@ -4,8 +4,9 @@ kernels of tools/mlp_microbench.py (chain_kernel and chain_kernel_deferred).
 chain: x [N, 256] f32, W [256, 256] f32 ([in, out]); L times
     x <- act(x @ W), one W for every layer, in one of nine activations;
     the products in bf16 (W rounded to bf16 once, each layer's input cast
-    to bf16, exact products summed in f32) or in f32; the activation in
-    f32; out [N, 256] f32.
+    to bf16, exact products summed in f32) or in f32 (the kernel: JAX's f32
+    dot, six bf16 passes; the plain version: PyTorch's f32 matmul); the
+    activation in f32; out [N, 256] f32.
 chain_deferred: the same chain in bf16 with the sp-only softplus, each
     layer's gate 1 - exp(-100 sp) rebuilt from the previous layer's kept
     f32 output one layer later and summed as acc += gate * gate_w;
@@ -19,10 +20,11 @@ gates at 1.0.
 Two implementations of each:
   * launch_chain / launch_chain_deferred: for CUDA tensors, the
     hand-written kernels of csrc/mlp_chain.cu (its note gives the bound
-    and the design; the bf16 ones on wgmma, reading W from the image
-    pack_w_image makes on the card once per call); each counts its
-    launches in .launches and raises on a build or launch failure. For CPU
-    tensors they return the plain version.
+    and the design; all on wgmma, reading W from the image that
+    pack_w_image, or pack_w3_image for f32, makes on the card once per
+    call); each counts its launches in .launches (launch_chain's f32
+    kernel in .f32.launches) and raises on a build or launch failure. For
+    CPU tensors they return the plain version.
   * chain_plain / chain_deferred_plain: the same arithmetic in plain
     PyTorch, on any device; what tests and chip_smoke.py hold the kernels
     against.
@@ -31,6 +33,7 @@ Two implementations of each:
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -169,6 +172,20 @@ def pack_w_image(w):
     return wt[:, n[:, None], chunk].contiguous()
 
 
+def pack_w3_image(w):
+    """W [256, 256] f32 ([in, out]) as the f32 kernel's three-part image,
+    the slabs point_pipeline._pack_images makes for a six-pass product
+    (split3's hi, mid and lo of a k16 step of W^T at 32-byte offsets of a
+    128-byte row, 16 zero k, the 128-byte swizzle; 64 output columns x one
+    k16 step a slab, 8 KB), ordered step after step, a step's four slabs
+    of 64 columns together: the kernel's 16 KB slab of 128 columns is two
+    of them (csrc/mlp_chain.cu, chain_f32_kernel). Returns [16 steps, 4,
+    4096] bf16, contiguous (512 KB), on w's device."""
+    from color_neus_torch.ops.kernels.point_pipeline import _hp_steps, _slabs
+    slabs = _slabs(_hp_steps(w.t().float())).reshape(WIDTH // 64, WIDTH // 16, 64 * 64)
+    return slabs.transpose(0, 1).contiguous()
+
+
 def _check(x, w, L):
     if x.dim() != 2 or x.shape[1] != WIDTH or tuple(w.shape) != (WIDTH, WIDTH):
         raise ValueError(f"mlp_chain: x must be [N, {WIDTH}] and w [{WIDTH}, {WIDTH}]; got "
@@ -206,16 +223,17 @@ def launch_chain(x, w, L: int, act, bf16: bool = True, gate_w: float = GATE_W):
         return chain_plain(x, w, L, act, bf16, gate_w)
     lib = _library()
     out = torch.empty_like(x)
-    wimg = pack_w_image(w) if bf16 else None
-    rc = lib.mlp_chain_launch(x.data_ptr(), w.data_ptr(), None if wimg is None else wimg.data_ptr(),
-                              out.data_ptr(), x.shape[0], L, a, int(bool(bf16)), float(gate_w),
-                              _stream(x.device))
+    wimg = pack_w_image(w) if bf16 else pack_w3_image(w)
+    rc = lib.mlp_chain_launch(x.data_ptr(), wimg.data_ptr(), out.data_ptr(), x.shape[0], L, a,
+                              int(bool(bf16)), float(gate_w), _stream(x.device))
     _raise_on(lib, rc, "kernel launch")
-    launch_chain.launches += 1
+    (launch_chain if bf16 else launch_chain.f32).launches += 1
     return out
 
 
 launch_chain.launches = 0
+# the f32 chain kernel's count: launchers() lists it as mlp_chain_f32
+launch_chain.f32 = SimpleNamespace(launches=0)
 
 
 def launch_chain_deferred(x, w, L: int, gate_w: float = GATE_W):
@@ -239,14 +257,54 @@ def launch_chain_deferred(x, w, L: int, gate_w: float = GATE_W):
 launch_chain_deferred.launches = 0
 
 
+def blocks_per_sm(act, bf16: bool = True) -> int:
+    """The blocks an SM holds of the chain kernel of `act` (None: the
+    deferred chain); raises on a CUDA error."""
+    lib = _library()
+    n = lib.mlp_chain_blocks_per_sm(-1 if act is None else act_id(act), int(bool(bf16)))
+    _raise_on(lib, max(0, -n), "occupancy query")
+    return n
+
+
+def wgmma_probe(a, b, c):
+    """One m64n128k16 bf16 wgmma on the card, d = c + a b: a [64, 16] and
+    b [128, 16] (B^T) bf16, c [64, 128] f32, CUDA tensors; returns d
+    [64, 128] f32 (chip_smoke.py reads the tensor cores' rounding from it)."""
+    lib = _library()
+    a16, b16 = (t.to(torch.bfloat16).contiguous().view(torch.int16) for t in (a, b))
+    c32 = c.float().contiguous()
+    d = torch.empty_like(c32)
+    _raise_on(lib, lib.mlp_wgmma_probe_launch(a16.data_ptr(), b16.data_ptr(), c32.data_ptr(),
+                                              d.data_ptr(), _stream(c32.device)), "wgmma probe")
+    return d
+
+
+def ring_probe(img, copies: int, slabs: int, blocks: int) -> int:
+    """Launches the f32 chain's ring alone (csrc/mlp_chain.cu
+    ring_probe_kernel) on `blocks` blocks, each taking `slabs` slabs from
+    its copy (block b: b % copies) of img, copies x 512 KB on the card;
+    returns the bytes the launch moves into shared memory."""
+    lib = _library()
+    _raise_on(lib, lib.mlp_ring_probe_launch(img.data_ptr(), copies, slabs, blocks,
+                                             _stream(img.device)), "ring probe")
+    return blocks * slabs * lib.mlp_chain_f32_slab_bytes()
+
+
 def _library():
     from color_neus_torch.ops.kernels import build
     lib = build.load(KERNEL)
     if lib.mlp_chain_launch.argtypes is None:
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.mlp_chain_launch.argtypes = [p, p, p, p, ll, i, i, i, f, p]
+        p, i, u, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, \
+            ctypes.c_float
+        lib.mlp_chain_launch.argtypes = [p, p, p, ll, i, i, i, f, p]
         lib.mlp_chain_deferred_launch.argtypes = [p, p, p, ll, i, f, p]
-        for fn in (lib.mlp_chain_launch, lib.mlp_chain_deferred_launch):
+        lib.mlp_chain_blocks_per_sm.argtypes = [i, i]
+        lib.mlp_wgmma_probe_launch.argtypes = [p, p, p, p, p]
+        lib.mlp_ring_probe_launch.argtypes = [p, i, u, i, p]
+        lib.mlp_chain_f32_slab_bytes.argtypes = []
+        for fn in (lib.mlp_chain_launch, lib.mlp_chain_deferred_launch,
+                   lib.mlp_chain_blocks_per_sm, lib.mlp_wgmma_probe_launch,
+                   lib.mlp_ring_probe_launch, lib.mlp_chain_f32_slab_bytes):
             fn.restype = i
         lib.mlp_chain_error_string.argtypes = [i]
         lib.mlp_chain_error_string.restype = ctypes.c_char_p

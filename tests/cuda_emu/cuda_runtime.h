@@ -29,7 +29,9 @@
 // address, SBO, the 128-byte swizzle applied to address bits 4-6 from bits
 // 7-9; only that layout is taken) relative to emu_smem_base, the block's
 // shared memory, and each thread computes its own accumulators (the PTX
-// fragment layout) at issue, summing the 16 products in k order in f32.
+// fragment layout) at issue, summing the 16 products in k order in f32
+// (compiled with EMU_WGMMA_TRUNCATE: exactly, then truncated to f32 toward
+// zero, the card's tensor cores' rounding as emu_truncate models it).
 // wgmma.fence and wait_group are meetings of the warpgroup's 128 threads
 // (wait_group: no thread writes an operand before every warp has read
 // it), commit_group nothing. Named barriers (bar.sync / bar.arrive id, n)
@@ -201,9 +203,23 @@ inline float emu_sw128(unsigned long long desc, int row, int k) {
   return emu_bf16_float(v);
 }
 
+#ifdef EMU_WGMMA_TRUNCATE
+// The tensor cores' rounding, as modelled when EMU_WGMMA_TRUNCATE is
+// defined: an instruction's exact sum (the accumulator and its 16
+// products, summed in double: exact for these operands' magnitudes)
+// rounded to f32 once, toward zero (chip_smoke.py phase 9 holds the card's
+// wgmma against this model).
+inline float emu_truncate(double s) {
+  float f = float(s);   // to nearest
+  if (fabs(double(f)) > fabs(s)) f = nextafterf(f, 0.f);
+  return f;
+}
+#endif
+
 // The thread's accumulators d (fragment layout of wgmma_m64n128k16_bf16)
 // from its two A rows ar[h][k] (rows 16 w + g + 8 h) and B^T read from the
-// descriptor b, the 16 products of each summed in k order in f32.
+// descriptor b, the 16 products of each summed in k order in f32 (or, with
+// EMU_WGMMA_TRUNCATE, exactly and then truncated: emu_truncate).
 inline void emu_wgmma_rows(float* d, int n, const float (&ar)[2][16], unsigned long long b,
                            int scale_d) {
   const int q = threadIdx.x & 3;
@@ -212,9 +228,15 @@ inline void emu_wgmma_rows(float* d, int n, const float (&ar)[2][16], unsigned l
       float bc[16];
       for (int k = 0; k < 16; ++k) bc[k] = emu_sw128(b, 8 * j + 2 * q + e, k);
       for (int h = 0; h < 2; ++h) {
+#ifdef EMU_WGMMA_TRUNCATE
+        double acc = scale_d ? d[4 * j + 2 * h + e] : 0.0;
+        for (int k = 0; k < 16; ++k) acc += double(ar[h][k]) * double(bc[k]);
+        d[4 * j + 2 * h + e] = emu_truncate(acc);
+#else
         float acc = scale_d ? d[4 * j + 2 * h + e] : 0.f;
         for (int k = 0; k < 16; ++k) acc = fmaf(ar[h][k], bc[k], acc);
         d[4 * j + 2 * h + e] = acc;
+#endif
       }
     }
 }

@@ -1,8 +1,9 @@
 // Appended to csrc/mlp_chain.cu (same translation unit, so it reaches the
 // kernels in its unnamed namespace) by tests/test_torch_mlp_chain_emulated.py.
 // Usage: emu DIR. Reads from DIR: meta.i64 (n, L, act, blocks, n_probe,
-// kernel), f32.f32 (gate_w), x.f32 [n, 256], w.f32 [256, 256], wimg.bin
-// (W's packed bf16 image), probe.f32 [n_probe]; runs the chain kernel of
+// kernel), f32.f32 (gate_w), x.f32 [n, 256], wimg.bin (W's packed image:
+// bf16 for kernels 1 and 2, three-part for kernel 0), probe.f32
+// [n_probe]; runs the chain kernel of
 // activation `act` (kernel 0: the f32 chain, 1: the bf16 chain, 2: the
 // deferred chain, which ignores act) block after block on `blocks` blocks
 // (at most one per unit of rows a block walks, as the launch caps the
@@ -48,8 +49,8 @@ static const float* F(const std::vector<char>& b) { return reinterpret_cast<cons
 template <int A>
 static void run_chain(const Chain& c, int blocks, int kernel) {
   // the launch's grid: at most one block per unit of rows it walks
-  const int threads_per_block = kernel == 0 ? THREADS : kernel == 1 ? CHAIN_THREADS : DEF_THREADS;
-  const int rows = kernel == 1 ? NWG * TR : TR;
+  const Shape& sh = kernel == 0 ? F32_SHAPE : kernel == 1 ? CHAIN_SHAPE : DEF_SHAPE;
+  const int threads_per_block = sh.threads, rows = sh.rows;
   blocks = int(std::min<long long>(blocks, n_tiles(c.n, rows)));
   gridDim.x = blocks;
   emu_smem_base = smem;
@@ -78,14 +79,14 @@ int main(int argc, char** argv) {
   if (argc != 2) return 2;
   const std::string d = argv[1];
   const auto meta = slurp(d + "/meta.i64"), fl = slurp(d + "/f32.f32");
-  const auto x = slurp(d + "/x.f32"), w = slurp(d + "/w.f32"), pr = slurp(d + "/probe.f32");
+  const auto x = slurp(d + "/x.f32"), pr = slurp(d + "/probe.f32");
   const auto wimg = slurp(d + "/wimg.bin");
   const long long* m = reinterpret_cast<const long long*>(meta.data());
   const long long n = m[0], n_probe = m[4];
   const int L = int(m[1]), act = int(m[2]), blocks = int(m[3]), kernel = int(m[5]);
   const float gw = F(fl)[0];
   std::vector<float> out(size_t(n) * WD, 12345.f);
-  const Chain c{F(x), F(w), wimg.data(), out.data(), n, L, gw};
+  const Chain c{F(x), wimg.data(), out.data(), n, L, gw};
   switch (act) {
     case NONE: run_chain<NONE>(c, blocks, kernel); break;
     case RELU: run_chain<RELU>(c, blocks, kernel); break;

@@ -62,7 +62,8 @@ FLIP_POINTS_MAX = 13
 # the tangent pre-gates' store (backward_tile) and f32's store: the bf16 mutant
 ZT_STORE = "z[r * HID + c] = PREC == PREC_BF16 ? round_bf16(acc) : acc;"
 ZT_STORE_MUTANT = "z[r * HID + c] = acc;"
-# load_a3's activation operands, and the same rounded to bf16: the f32 mutant
+# load_a3's activation operands (csrc/mlp_common.cuh), and the same rounded
+# to bf16: the f32 mutant
 F32_A = "float u = x[i].x, v = x[i].y;"
 F32_A_MUTANT = "float u = round_bf16(x[i].x), v = round_bf16(x[i].y);"
 MUTANTS = {"bf16": (ZT_STORE, ZT_STORE_MUTANT), "f32": (F32_A, F32_A_MUTANT)}
@@ -71,7 +72,11 @@ F32_PASSES = "for (int i = 0; i < 6; ++i)"
 F32_ONE_PASS = "for (int i = 5; i < 6; ++i)"
 
 
-def _compile(out, source, harness, mode, mutant=None):
+def _compile(out, source, harness, mode, mutant=None, defines=()):
+    """The emulator of csrc/<source>.cu in `mode` with `harness`; mutant:
+    (line, replacement) in point_pipeline_tile.cuh or mlp_common.cuh (a
+    mutated mlp_common.cuh is written beside emu.cpp, where its quoted
+    include finds it first); defines: further -D macros."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
@@ -81,8 +86,12 @@ def _compile(out, source, harness, mode, mutant=None):
         tile = f.read()
     if mutant is not None:
         line, replacement = mutant
-        assert tile.count(line) == 1, f"the {mode} mutant's line moved"
+        with open(os.path.join(CSRC, "mlp_common.cuh")) as f:
+            common = f.read()
+        assert tile.count(line) + common.count(line) == 1, f"the {mode} mutant's line moved"
         tile = tile.replace(line, replacement)
+        if line in common:
+            (out / "mlp_common.cuh").write_text(common.replace(line, replacement))
     src = src.replace('#include "point_pipeline_tile.cuh"', tile)
     with open(os.path.join(HERE, "cuda_emu", harness)) as f:
         src += f.read()
@@ -90,9 +99,9 @@ def _compile(out, source, harness, mode, mutant=None):
     path.write_text(src)
     exe = str(out / "emu")
     proc = subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-Wno-unknown-pragmas",
-                           f"-DPP_PREC={PREC[mode]}", "-I", os.path.join(HERE, "cuda_emu"),
-                           "-I", CSRC, "-x", "c++", str(path), "-o", exe],
-                          capture_output=True, text=True)
+                           f"-DPP_PREC={PREC[mode]}", *[f"-D{d}" for d in defines],
+                           "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, "-x", "c++",
+                           str(path), "-o", exe], capture_output=True, text=True)
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("the host compiler lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr

@@ -355,11 +355,12 @@ def test_cuda_mlp_chain_matches_plain(cuda_device, bf16):
             runs = [(1, gw, ATOL_CHAIN_TIGHT[dt])
                     for gw in ((MC.GATE_W, 1.0) if name in MC.GATED else (MC.GATE_W,))]
             deep = ATOL_CHAIN_BF16[name] if bf16 else ATOL_CHAIN_F32
+            counter = MC.launch_chain if bf16 else MC.launch_chain.f32
             for L, gw, atol in runs + [(CHAIN_L, MC.GATE_W, deep)]:
-                before = MC.launch_chain.launches
+                before = counter.launches
                 got = MC.launch_chain(xs, w, L, act, bf16, gw)
                 torch.cuda.synchronize()
-                assert MC.launch_chain.launches == before + 1
+                assert counter.launches == before + 1
                 want = MC.chain_plain(xs, w, L, act, bf16, gw)
                 torch.testing.assert_close(got, want, rtol=0, atol=atol,
                                            msg=f"{name} gate {gw} L {L} rows {xs.shape[0]}")

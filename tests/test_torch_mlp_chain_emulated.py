@@ -8,8 +8,14 @@ one std::thread per CUDA thread with a barrier for __syncthreads
 64-row tiles and a ragged one) and L = 3, on at most 2 persistent blocks
 (the launch's grid cap: one block per group of tiles), and 400 rows on
 one block that walks its groups:
-  * the f32 chain, every variant, and the activation device functions on
-    their own, on edge values;
+  * the f32 chain (JAX's f32 dot as six bf16 passes on the software
+    wgmma, W's three-part image, mlp_chain.pack_w3_image, streamed
+    through the bulk-copy ring; two warpgroups a block, a 64-row tile
+    each: 150 rows are one full group and one whose second tile lies
+    past N), every variant, also on 70 rows (one group, a ragged second
+    tile) and 400 rows on one block (4 groups, the ring's stages reused
+    across groups and layers); the activation device functions on their
+    own, on edge values;
   * the bf16 chains on wgmma, every variant and the deferred chain: the
     stand-in runtime emulates wgmma.mma_async m64nNk16 bf16 from the
     shared-memory descriptors (start address, SBO, the 128-byte swizzle),
@@ -23,8 +29,16 @@ The approximate reciprocal of `recip~` divides here; the card checks it
 (tests/test_torch_cuda.py, chip_smoke.py phase 9). Skips without a C++20
 compiler.
 
-Tolerances: the f32 chain at 1e-5 absolute (f32 summation order over 3
-layers of 256-term products of order-1 values: read <= 3.6e-6); the
+Tolerances: the f32 chain against the plain f32 twin (PyTorch's f32
+matmul) at 1e-5 absolute where no gate amplifies the summation order (f32
+rounding over 3 layers of 256-term products of order-1 values: read <=
+3.3e-6); every variant, the gated ones at weight 1.0 too, at least as
+close to the float64 chain as the plain f32 twin is (a gate's slope of 25
+a layer turns the two summation orders' ~1e-7 apart into up to 1.4e-4
+over 3 layers: the kernel read 4.9e-5 to 6.0e-5 from float64 where the
+twin read 1.1e-4, the ungated ones 3.8e-7 to 1.0e-6 against 1.1e-6 to
+2.6e-6; before the six passes, the SIMT kernel summed in the twin's k
+order and read <= 3.6e-6 from it at every variant); the
 activations at 4 f32 ulps relative plus 2.5e-7 absolute (glibc's expf /
 log1pf against PyTorch's vectorised ones, composed: read <= 1.4 ulp;
 the gates 1 - r and 1 - exp(-100 sp) cancel near 0, where an ulp of 1.0
@@ -102,20 +116,34 @@ def probe_values():
                            (0.05 * rng.randn(500)).astype(np.float32)])
 
 
-def _image(w):
-    return MC.pack_w_image(torch.from_numpy(w)).view(torch.int16).numpy()
+def _image(w, kernel=BF16):
+    pack = MC.pack_w3_image if kernel == F32 else MC.pack_w_image
+    return pack(torch.from_numpy(w)).view(torch.int16).numpy()
 
 
-def _run(exe, d, x, w, act, gate_w, pr, kernel=F32, image=None, blocks=BLOCKS):
-    np.asarray([x.shape[0], L, act, blocks, pr.size, kernel], np.int64).tofile(d / "meta.i64")
+def _run(exe, d, x, w, act, gate_w, pr, kernel=F32, image=None, blocks=BLOCKS, layers=L):
+    np.asarray([x.shape[0], layers, act, blocks, pr.size, kernel], np.int64).tofile(d / "meta.i64")
     np.asarray([gate_w], np.float32).tofile(d / "f32.f32")
-    for name, t in (("x", x), ("w", w), ("probe", pr)):
+    for name, t in (("x", x), ("probe", pr)):
         t.astype(np.float32).tofile(d / f"{name}.f32")
-    (_image(w) if image is None else image).tofile(d / "wimg.bin")
+    (_image(w, kernel) if image is None else image).tofile(d / "wimg.bin")
     subprocess.run([exe, str(d)], check=True, timeout=600)
     out = np.fromfile(d / "out.f32", np.float32).reshape(x.shape)
     acts = np.fromfile(d / "act.f32", np.float32).reshape(len(MC.ACTIVATIONS) + 1, pr.size)
     return out, acts
+
+
+def _check_f32(out, x, w, act):
+    """The emulated f32 chain (gates at 1.0, L layers) against the plain
+    f32 twin (ATOL_CHAIN, ungated variants) and float64 (every variant: at
+    least as close as the twin)."""
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = MC.chain_plain(xt, wt, L, act, bf16=False, gate_w=1.0).numpy()
+    f64 = MC.chain_plain(xt.double(), wt.double(), L, act, bf16=False, gate_w=1.0).numpy()
+    if act not in MC.GATED:
+        np.testing.assert_allclose(out, want, rtol=0, atol=ATOL_CHAIN, err_msg=act)
+    kernel, twin = np.abs(out - f64).max(), np.abs(want - f64).max()
+    assert kernel <= twin, f"{act}: {kernel:.3e} from float64, the f32 twin {twin:.3e}"
 
 
 @pytest.mark.parametrize("act", [n for n, _ in MC.ACTIVATIONS])
@@ -125,15 +153,26 @@ def test_emulated_chain_f32_matches_plain(emulator, tmp_path, act):
     w = (0.06 * rng.randn(MC.WIDTH, MC.WIDTH)).astype(np.float32)
     pr = probe_values()
     out, acts = _run(emulator, tmp_path, x, w, MC.act_id(act), 1.0, pr)
-    want = MC.chain_plain(torch.from_numpy(x), torch.from_numpy(w), L, act, bf16=False,
-                          gate_w=1.0).numpy()
-    np.testing.assert_allclose(out, want, rtol=0, atol=ATOL_CHAIN)
+    _check_f32(out, x, w, act)
     p = torch.from_numpy(pr)
     for i, (name, fn) in enumerate(MC.ACTIVATIONS):
         np.testing.assert_allclose(acts[i], fn(p, 1.0).numpy(), rtol=RTOL_ACT, atol=ATOL_ACT,
                                    err_msg=name)
     np.testing.assert_allclose(acts[-1], MC.act_sp_only(p).numpy(), rtol=RTOL_ACT, atol=ATOL_ACT,
                                err_msg="sp only")
+
+
+@pytest.mark.parametrize("rows, blocks", [(70, BLOCKS), (400, 1)], ids=["ragged", "walk"])
+@pytest.mark.parametrize("act", ["none", "sp+gate"])
+def test_emulated_chain_f32_rows(emulator, tmp_path, act, rows, blocks):
+    """70 rows: one group of two 64-row tiles, the second ragged (6 rows);
+    400 rows on one block: it walks 4 groups (the last one 16 rows, its
+    second tile past N), the ring's stages and parities carried across
+    groups and layers."""
+    x, w = _inputs(200 + MC.act_id(act), rows)
+    out, _ = _run(emulator, tmp_path, x, w, MC.act_id(act), 1.0, probe_values()[:8],
+                  blocks=blocks)
+    _check_f32(out, x, w, act)
 
 
 def _inputs(seed, rows=N):
