@@ -14,7 +14,10 @@ Phases; any failure exits non-zero and prints no result:
      weight slabs and the weight-grad operands), with 0 bytes of spills,
      their registers printed; rows 3 and 4's save-mode entries
      (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) are held as
-     rows 3 and 4; rows 1-2's
+     rows 3 and 4; the rows 3-6 entries the load entry's redesign left
+     as they were must hold their earlier SASS, instruction for
+     instruction (sass_identity_check, under the nvcc release it was
+     recorded with); rows 1-2's
      kernel variants (the grid's f32x3 one too) print HMMA, their weight
      ring's bulk copies (UBLKCP), FCHK and every CALL, registers and
      spills, and their resident blocks per SM: the bf16 and f32x3 ones
@@ -643,6 +646,36 @@ INSTRUMENTS = {
 # march_ablate runs again in the other mode of ABLATE_MODES (row 4's f32
 # load entry split by part)
 ABLATE_MODES = ("f32stash", "f32")
+# phase 1 (sass_identity_check): the rows 3-6 kernels the load entry's
+# redesign left as they were (rows 5 and 6, row 3's recompute entry; row
+# 4's recompute entry shares the compositing VJP's per-point helper with
+# the load entry, so its SASS moved and its time is compared instead,
+# PERF.md §6), and their SASS digests (sass_digests) in each mode's build
+# of the sources before that redesign, read on the H100 machine under
+# UNCHANGED_SASS_NVCC
+UNCHANGED_KERNELS = ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel",
+                     "ray_march_fwd_kernel")
+UNCHANGED_SASS_NVCC = "release 12.9, V12.9.86"
+UNCHANGED_SASS = {
+    "point_pipeline_bwd_kernel":
+        "f8e5e3ab394ff3188906ea49ca2297e14007c112077480d5ea08edfb076e16ed",
+    "point_pipeline_bwd_kernel_bf16s":
+        "0466def0289eadaf229ee7c6b88d8f59f5ccd972fd5df849e568f7eb0dea5d91",
+    "point_pipeline_bwd_kernel_f32s":
+        "d195e6c7ec0c4cd899b08ae8bdeedf9d8915335b8100a6e88ba398092318e9a5",
+    "point_pipeline_fwd_kernel":
+        "d172bd2c3bcd5c2017d7ca243f62ab377e4fadf5dc6cddc0d2a3db6f7c83ff7c",
+    "point_pipeline_fwd_kernel_bf16s":
+        "d172bd2c3bcd5c2017d7ca243f62ab377e4fadf5dc6cddc0d2a3db6f7c83ff7c",
+    "point_pipeline_fwd_kernel_f32s":
+        "065f2b8ab45e032b0156168388b237fe94288f38d5f8311a4cb7fc422ed9083b",
+    "ray_march_fwd_kernel":
+        "a4db5fbcdb5a77ab74851fd7e226bd93b830627e79da21f58ec9ed3a476fb268",
+    "ray_march_fwd_kernel_bf16s":
+        "a4db5fbcdb5a77ab74851fd7e226bd93b830627e79da21f58ec9ed3a476fb268",
+    "ray_march_fwd_kernel_f32s":
+        "1e4a19b35e05c2851cbf362ba54809ccf0a9c3df465726cbd60d65ac791ba670",
+}
 JAX_TOOL_KEYS = {
     "bench_ab": (("key", "A", "B", "rounds", "n_rays", "k_steps", "A_rays_per_s_median",
                   "B_rays_per_s_median", "B_over_A_median", "B_over_A_iqr"), None, ()),
@@ -1917,6 +1950,68 @@ def sass_counts(lib_path) -> dict:
                 if head == "CALL":
                     c["CALL"].append(m.group(3).strip())
     return counts
+
+
+def sass_digests(lib_path) -> dict:
+    """{kernel variant: sha256 of its SASS} of every __global__ function in
+    a built library (cuobjdump -sass): each instruction's predicate, opcode
+    and operands in order, without its address and encoding, and with
+    every mangled name as one token (the unnamed namespace's name carries
+    a hash of the source's path, which differs between two checkouts)."""
+    import hashlib
+    out = subprocess.run([cuobjdump_path(), "-sass", lib_path], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib_path} failed: {out.stderr.strip()}")
+    digests, cur = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            cur = kernel_variant(line.split("Function :", 1)[1].strip())
+            digests[cur] = hashlib.sha256()
+        elif cur is not None:
+            m = SASS_OP.match(line)
+            if m:
+                ins = f"{m.group(1) or ''}{m.group(2)} {m.group(3)}"
+                digests[cur].update(re.sub(r"_Z[\w.$]+", "SYM", ins).encode() + b"\n")
+    return {k: h.hexdigest() for k, h in digests.items()}
+
+
+def nvcc_release() -> str:
+    """The `release x.y, Vx.y.z` part of `nvcc --version`."""
+    from color_neus_torch.ops.kernels import build
+    out = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
+                         timeout=60)
+    m = re.search(r"release [^\n]*", out.stdout)
+    return m.group(0).strip() if m else out.stdout.strip()
+
+
+def sass_identity_check(libs):
+    """Phase 1: the rows 3-6 entries the load entry's redesign left as they
+    were (UNCHANGED_KERNELS, each mode's) hold
+    the SASS of the sources before it, instruction for instruction: their
+    digests (sass_digests) against UNCHANGED_SASS, recorded from those
+    sources' libraries under the nvcc release UNCHANGED_SASS_NVCC. Under
+    another release the digests are printed and not compared."""
+    from color_neus_torch.ops.kernels import point_pipeline as PP
+    release = nvcc_release()
+    got = {}
+    for mode in PP.MODES:
+        for src in ("point_pipeline", "ray_march"):
+            name = PP.library_name(src, mode)
+            got.update({k: v for k, v in sass_digests(libs[name]).items()
+                        if re.sub(r"_(bf16s|f32s)$", "", k) in UNCHANGED_KERNELS})
+    same = {k: UNCHANGED_SASS.get(k) == v for k, v in got.items()}
+    print(f"[1] SASS of the unchanged rows 3-6 entries ({len(got)}; nvcc {release}) against "
+          f"their build before the load entry's redesign: " + ", ".join(f"{k} {'equal' if ok else 'DIFFERS ' + got[k][:12]}"
+                                        for k, ok in sorted(same.items())), flush=True)
+    if release != UNCHANGED_SASS_NVCC:
+        print(f"[1] not compared: UNCHANGED_SASS was recorded under nvcc {UNCHANGED_SASS_NVCC}",
+              flush=True)
+        return same
+    check(len(got) == len(UNCHANGED_KERNELS) * len(PP.MODES),
+          f"unchanged rows 3-6 entries in the SASS: {sorted(got)}")
+    check(all(same.values()), "an unchanged rows 3-6 entry's SASS differs from its earlier build: "
+          + ", ".join(k for k, ok in same.items() if not ok))
+    return same
 
 
 def max_sm_clock_mhz() -> float:
@@ -4422,6 +4517,7 @@ def main() -> int:
             for name, save in (("ray_march_fwd_kernel", False),
                                ("ray_march_save_fwd_kernel", True))}))
     mode_sass_summary(sass)
+    sass_identity_check(libs)
     sweep_sass_check(libs["sdf_rays"])
     chain_sass_check(libs["mlp_chain"])
     clock.done("1")

@@ -25,7 +25,7 @@
 //     tangent term is summed in f32;
 //   bf16 as f32stash, but the SDF chain's stores are bf16: the backward's
 //     tangent pre-gates (zt), and the save mode's stash of the SDF layer
-//     outputs, from whose bf16 values load_tile rebuilds the gates;
+//     outputs, from whose bf16 values the load entry rebuilds the gates;
 //   f32 every product of the SDF chain (its forward, the reverse sweep, the
 //     backward's tangent stream, the joint value / tangent reverse, the
 //     last layer's) in f32 as JAX's Precision.HIGHEST computes it, six
@@ -57,6 +57,7 @@ using mlp::round_bf16;
 using mlp::softplus100;
 using mlp::unbias_truncated;
 
+constexpr float SQRT2 = 1.41421356f;
 constexpr int LDX = HID + EMB + 4;       // activation row stride: [h 256 | small 48] + pad
 constexpr int LDX_FWD = HID + EMB + 8;   // the forward kernels' (load_a's reads then hit
                                          // 32 banks a half-warp)
@@ -96,10 +97,11 @@ enum Prec { PREC_F32STASH = 0, PREC_BF16 = 1, PREC_F32 = 2 };
 // (ops/kernels/build.py ABLATIONS), whose outputs are garbage and only
 // timed: 1 no_pullback, backward_tile (the reverse sweeps' products and
 // the weight-grad operands) and the weight-grad flush; 2 no_unflatten,
-// load_tile (the stash is not read: the tile and its scratch keep what
-// they held); 3 pullback_only, the per-ray compositing of both entries
-// (the backward takes the cotangent scratch as it finds it); 4 no_wgrad,
-// the weight-grad operand stores (save_t) and the flush. Absent, it is 0:
+// the stash not read: load_tile skipped (the tile and its scratch keep
+// what they held) and backward_tile's reads of it constants (TileStash);
+// 3 pullback_only, the per-ray compositing of both entries (the backward
+// takes the cotangent scratch as it finds it); 4 no_wgrad, the weight-grad
+// operand stores (save_t) and the flush. Absent, it is 0:
 // every test of it is then a constant that keeps the production code.
 #ifndef RM_ABLATE
 #define RM_ABLATE 0
@@ -1006,6 +1008,93 @@ __device__ __forceinline__ void save_t3(const float* src, int K, unsigned char* 
   }
 }
 
+// The load entry's view of a 64-point tile's rows of the save mode's
+// activation stash (ray_march.cu): row r at row0 + r bytes (layout al),
+// its first n rows real; a padding row reads as zeros, and nothing is
+// read under RM_ABLATE 2 (no_unflatten: the stash not read).
+struct TileStash {
+  const unsigned char* row0;
+  int bytes, n;
+  ActLayout al;
+};
+
+// The stash is read-only in the backward: its reads are wide non-coherent
+// loads (__ldg), issued in batches ahead of the stores that use them, so
+// that a thread has a batch's latencies in flight at once (one read after
+// another, each behind the last one's store, pays a device-memory latency
+// each: the load entry's time when the tile staged its rows so, PERF.md
+// §5).
+
+// Columns c .. c + 4 of row r of the stash's cr slot `slot` (bf16, one
+// 8-byte read); zeros on a padding row.
+__device__ __forceinline__ float4 stash_cr4(const TileStash& ts, int slot, int r, int c) {
+  if (RM_ABLATE == 2) return make_float4(1.f, 1.f, 1.f, 1.f);
+  if (r >= ts.n) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(ts.row0 + size_t(r) * ts.bytes + ts.al.cr +
+                                                        slot * HID * 2 + 2 * c));
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// Columns c .. c + 4 of row r of what the stash holds of hidden SDF layer
+// l: its softplus sp in f32 (one 16-byte read), or in PREC_BF16 the input
+// of layer l + 1 in bf16 (8 bytes); zeros on a padding row.
+template <int PREC>
+__device__ __forceinline__ float4 stash_sx4(const TileStash& ts, int l, int r, int c) {
+  if (RM_ABLATE == 2) return make_float4(0.01f, 0.01f, 0.01f, 0.01f);
+  if (r >= ts.n) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const unsigned char* row = ts.row0 + size_t(r) * ts.bytes + ts.al.sx + l * ts.al.sxw;
+  if constexpr (PREC == PREC_BF16) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + 2 * c));
+    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(row) + c / 4);
+  }
+}
+
+// Layer l's gates 1 - exp(-100 sp) from what stash_sx4 read: bit for bit
+// the forward's (forward_pass) from the same sp (PREC_BF16: sp rebuilt
+// from the bf16 input, times sqrt(2) before the skip layer, as JAX's
+// unflatten_stash); 0 on a padding row.
+template <int PREC>
+__device__ __forceinline__ float4 stash_gate4(float4 x, bool pre_skip) {
+  const float s = PREC == PREC_BF16 && pre_skip ? SQRT2 : 1.f;
+  if constexpr (PREC == PREC_BF16) x = make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
+  return make_float4(1.f - expf(-100.f * x.x), 1.f - expf(-100.f * x.y),
+                     1.f - expf(-100.f * x.z), 1.f - expf(-100.f * x.w));
+}
+
+// A pass over a tile's [TILE][HID] block, as forward_pass's batches:
+// thread t takes columns 4 (t % 64) .. + 4 of rows t / 64 + 4 m, NB rows a
+// batch, the batch's reads read(r, c) first, then its put(r, c, v).
+template <int NB, class R, class F>
+__device__ __forceinline__ void stash_rows(R&& read, F&& put) {
+  constexpr int STEP = THREADS / (HID / 4);
+  const int c = 4 * (threadIdx.x % (HID / 4)), r0 = threadIdx.x / (HID / 4);
+#pragma unroll 1
+  for (int m = 0; m < TILE / STEP; m += NB) {
+    float4 v[NB];
+#pragma unroll
+    for (int u = 0; u < NB; ++u) v[u] = read(r0 + STEP * (m + u), c);
+#pragma unroll
+    for (int u = 0; u < NB; ++u) put(r0 + STEP * (m + u), c, v[u]);
+  }
+}
+
+// dst[:, :HID] (row stride LDX) = the cr slot `slot` of the tile's rows in
+// f32; gc_block: also dst[:, HID .. HID + EMB] = [gc, 0 ...] (the relight
+// y_in layer's input). A barrier after.
+__device__ __forceinline__ void stage_cr(const TileStash& ts, const Tile& t, int slot, float* dst,
+                                         bool gc_block) {
+  stash_rows<16>([&](int r, int c) { return stash_cr4(ts, slot, r, c); },
+                 [&](int r, int c, float4 v) { st4(dst + r * LDX + c, v); });
+  if (gc_block)
+    for (int e = threadIdx.x; e < TILE * EMB; e += THREADS)
+      dst[(e / EMB) * LDX + HID + e % EMB] = e % EMB < 3 ? t.GC[(e / EMB) * 3 + e % EMB] : 0.f;
+  __syncthreads();
+}
+
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
 __device__ __forceinline__ void pe_row(const Params& p, const Tile& t, int r, float* x) {
@@ -1299,18 +1388,18 @@ __device__ __forceinline__ void bias_accum(const float* A, float* P) {
   P[c] += s;
 }
 
-// The reverse of a 3-wide output layer (W row-major [3, K] in f32, input S
-// in the scratch), operands in bf16, sums in f32: dW += HB^T S, db += sum
-// HB, X[:, :K] = HB @ W.
-__device__ __forceinline__ void narrow_back(const Tile& t, const float* S,
-                                            const float* __restrict__ W, int K, float* Pw,
-                                            float* Pb) {
+// The reverse of a 3-wide output layer (W row-major [3, K] in f32, input
+// S(r, k) of row r, column k), operands in bf16, sums in f32: dW += HB^T
+// S, db += sum HB, X[:, :K] = HB @ W.
+template <class F>
+__device__ __forceinline__ void narrow_back_of(const Tile& t, F&& S, const float* __restrict__ W,
+                                               int K, float* Pw, float* Pb) {
   const int tid = threadIdx.x;
   for (int e = tid; e < 3 * K; e += THREADS) {
     const int j = e / K, k = e % K;
     float s = 0.f;
     for (int r = 0; r < TILE; ++r)
-      s = fmaf(round_bf16(t.HB[r * 3 + j]), round_bf16(S[r * LDS + k]), s);
+      s = fmaf(round_bf16(t.HB[r * 3 + j]), round_bf16(S(r, k)), s);
     Pw[e] += s;
   }
   if (tid < 3) {
@@ -1327,6 +1416,13 @@ __device__ __forceinline__ void narrow_back(const Tile& t, const float* S,
     t.X[r * LDX + k] = s;
   }
   __syncthreads();
+}
+
+// narrow_back with its input S in the scratch ([TILE][LDS]).
+__device__ __forceinline__ void narrow_back(const Tile& t, const float* S,
+                                            const float* __restrict__ W, int K, float* Pw,
+                                            float* Pb) {
+  narrow_back_of(t, [=](int r, int k) { return S[r * LDS + k]; }, W, K, Pw, Pb);
 }
 
 // DH[r] += the view-dir PE VJP of the cotangents staged in VH[r][:dv].
@@ -1402,14 +1498,35 @@ __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
     mlp::bulk_load(stage + 2 * DW_A, cot, DW_B, st.d.full + s % DW_STAGES);
 }
 
+// P[k][8 j + c] += acc[4 j + 2 h + c] for j < NJ, c < 2 (a thread's row k
+// of a flush's accumulators, P its row's columns 2 q ..): eight j's reads
+// first, then their adds and stores, so that a thread has 16 reads of the
+// partial in flight (the load entry's; one read-modify-write after
+// another costs a device-memory latency each, PERF.md §5).
+template <int NJ>
+__device__ __forceinline__ void rmw_row(float* P, const float* acc, int h) {
+#pragma unroll
+  for (int j0 = 0; j0 < NJ; j0 += 8) {
+    float2 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = make_float2(P[8 * (j0 + j)], P[8 * (j0 + j) + 1]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      P[8 * (j0 + j)] = v[j].x + acc[4 * (j0 + j) + 2 * h];
+      P[8 * (j0 + j) + 1] = v[j].y + acc[4 * (j0 + j) + 2 * h + 1];
+    }
+  }
+}
+
 // The weight grads of the nt tiles stored from `store` (tile i at store +
 // i tile_bytes), summed on chip and added into the block's partial P once:
 // per block and pair of 64-row blocks of its K, warpgroup h the product
 // [64, 64 nt] x [64 nt, 256] of block 2 mp + h on wgmma (m64n256k16, 128
 // accumulators a thread), every term and tile streamed through the flush
-// ring in order, then one read-modify-write of those 64 x 256 floats. The
-// stages lie over X and Y, so the caller has finished the tile.
-template <int PREC>
+// ring in order, then one read-modify-write of those 64 x 256 floats
+// (LOAD, the load entry's: in batches, rmw_row). The stages lie over X and
+// Y, so the caller has finished the tile.
+template <int PREC, bool LOAD = false>
 __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsigned char* store,
                                          long long tile_bytes, int nt, float* P) {
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
@@ -1463,17 +1580,25 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
             }
           }
           float* dst = P + p.off[blk.slot] + 128 * half + 2 * q;
-#pragma unroll
-          for (int j = 0; j < 16; ++j)
+          if constexpr (LOAD) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
-              if (k < blk.K) {
-                float* d = dst + size_t(k) * HID + 8 * j;
-                d[0] += acc[4 * j + 2 * h];
-                d[1] += acc[4 * j + 2 * h + 1];
-              }
+              if (k < blk.K) rmw_row<16>(dst + size_t(k) * HID, acc, h);
             }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
+                if (k < blk.K) {
+                  float* d = dst + size_t(k) * HID + 8 * j;
+                  d[0] += acc[4 * j + 2 * h];
+                  d[1] += acc[4 * j + 2 * h + 1];
+                }
+              }
+          }
         }
         continue;
       }
@@ -1500,17 +1625,25 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
         }
       }
       float* dst = P + p.off[blk.slot] + 2 * q;
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
+      if constexpr (LOAD) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
-          if (k < blk.K) {
-            float* d = dst + size_t(k) * HID + 8 * j;
-            d[0] += acc[4 * j + 2 * h];
-            d[1] += acc[4 * j + 2 * h + 1];
-          }
+          if (k < blk.K) rmw_row<32>(dst + size_t(k) * HID, acc, h);
         }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
+            if (k < blk.K) {
+              float* d = dst + size_t(k) * HID + 8 * j;
+              d[0] += acc[4 * j + 2 * h];
+              d[1] += acc[4 * j + 2 * h + 1];
+            }
+          }
+      }
     }
   }
   st.ds += li;
@@ -1552,10 +1685,16 @@ __device__ __forceinline__ float tangent_seed(const Params& p, const Tile& t, in
 // PREC_F32 runs the SDF chain's products in hp_product's six passes (the
 // stage hp_stage_of(sv)) and stores its weight-grad operands as three
 // bf16 parts (save_t3; the layer inputs the recompute or the load stored
-// so).
-template <int PREC>
+// so). LOAD (the march's load entry, after its load_tile): the gates of
+// the SDF layers and the colour / relight layer inputs are read from the
+// activation stash ts where they are used, in wide batches (the tangent
+// stream's gates in a pass after its product, the reverse's in its gate
+// pass, each colour / relight input staged in Y, free until the tangent
+// stream), instead of from the recompute's scratch (gates, sv.cx, sv.rx).
+template <int PREC, bool LOAD = false>
 __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Rings& st,
-                                              float* gates, float* zt, const Save& sv, float* P) {
+                                              float* gates, float* zt, const Save& sv, float* P,
+                                              const TileStash& ts = TileStash{}) {
   const int tid = threadIdx.x;
   const float* W = p.w;
   const long long* off = p.off;
@@ -1596,17 +1735,28 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
     __syncthreads();
     const int last = p.n_relight - 1;
     const int KL = last == p.y_in ? HID + EMB : HID;
-    const float* rxl = sv.rx + last * SLAB;
-    narrow_back(t, rxl, W + off[W_REL + last], KL, P + off[W_REL + last], P + off[B_REL + last]);
+    // a layer's input: the recompute's in the scratch; LOAD's staged from
+    // the stash into Y (free until the tangent stream)
+    const int ld = LOAD ? LDX : LDS;
+    const float* rxl = LOAD ? t.Y : sv.rx + last * SLAB;
+    if constexpr (LOAD) {
+      stage_cr(ts, t, p.n_color + last - 1, t.Y, last == p.y_in);
+      narrow_back_of(t, [&](int r, int k) { return t.Y[r * LDX + k]; }, W + off[W_REL + last], KL,
+                     P + off[W_REL + last], P + off[B_REL + last]);
+    } else {
+      narrow_back(t, rxl, W + off[W_REL + last], KL, P + off[W_REL + last],
+                  P + off[B_REL + last]);
+    }
     for (int e = tid; e < TILE * HID; e += THREADS) {
       const int r = e / HID, c = e % HID;
-      if (rxl[r * LDS + c] <= 0.f) t.X[r * LDX + c] = 0.f;   // the relu before `last`
+      if (rxl[r * ld + c] <= 0.f) t.X[r * LDX + c] = 0.f;   // the relu before `last`
       if (last == p.y_in && c < 3) t.CG[r * 3 + c] += t.X[r * LDX + HID + c];
     }
     __syncthreads();
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
-      const float* rx = sv.rx + l * SLAB;
+      const float* rx = LOAD ? t.Y : sv.rx + l * SLAB;
+      if (LOAD && l > 0) stage_cr(ts, t, p.n_color + l - 1, t.Y, false);
       save_t<0>(t.X, HID, dw_b(sh, sv.dw, bi_rel + l, 0));
       bias_accum(t.X, P + off[B_REL + l]);
       auto put = [&](int r, int c, float v) {
@@ -1615,7 +1765,7 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
           else if (c < 6) t.GH[r * 3 + c - 3] += v;
           else t.VH[r * EMB + c - 6] = v;
         } else if (c < HID) {
-          t.X[r * LDX + c] = rx[r * LDS + c] > 0.f ? v : 0.f;
+          t.X[r * LDX + c] = rx[r * ld + c] > 0.f ? v : 0.f;
         } else if (c < HID + 3) {   // the y_in layer's gc lanes
           t.CG[r * 3 + c - HID] += v;
         }
@@ -1637,22 +1787,30 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
   __syncthreads();
   {
     const int last = p.n_color - 1;
-    const float* cxl = sv.cx + last * SLAB;
-    narrow_back(t, cxl, W + off[W_COL + last], HID, P + off[W_COL + last],
-                P + off[B_COL + last]);
+    const int ld = LOAD ? LDX : LDS;   // as the relight net's
+    const float* cxl = LOAD ? t.Y : sv.cx + last * SLAB;
+    if constexpr (LOAD) {
+      stage_cr(ts, t, last, t.Y, false);
+      narrow_back_of(t, [&](int r, int k) { return t.Y[r * LDX + k]; }, W + off[W_COL + last],
+                     HID, P + off[W_COL + last], P + off[B_COL + last]);
+    } else {
+      narrow_back(t, cxl, W + off[W_COL + last], HID, P + off[W_COL + last],
+                  P + off[B_COL + last]);
+    }
     for (int e = tid; e < TILE * HID; e += THREADS) {
       const int r = e / HID, c = e % HID;
-      if (cxl[r * LDS + c] <= 0.f) t.X[r * LDX + c] = 0.f;
+      if (cxl[r * ld + c] <= 0.f) t.X[r * LDX + c] = 0.f;
     }
     __syncthreads();
     for (int l = last - 1; l >= 0; --l) {
       const int K = l == 0 ? HID + EMB : HID;
-      const float* cx = sv.cx + l * SLAB;
+      const float* cx = LOAD ? t.Y : sv.cx + l * SLAB;
+      if (LOAD && l > 0) stage_cr(ts, t, l, t.Y, false);
       save_t<0>(t.X, HID, dw_b(sh, sv.dw, bi_col + l, 0));
       bias_accum(t.X, P + off[B_COL + l]);
       auto put = [&](int r, int c, float v) {
         if (l > 0) {
-          t.X[r * LDX + c] = cx[r * LDS + c] > 0.f ? v : 0.f;
+          t.X[r * LDX + c] = cx[r * ld + c] > 0.f ? v : 0.f;
         } else if (c < HID) {   // [features | pts, grad, PE(dirs)]
           t.X[r * LDX + c] = v;
         } else if (c < HID + 3) {
@@ -1689,13 +1847,28 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
     float* z = zt + l * GSLAB;
     auto put = [&](int r, int c, float acc) {
       z[r * HID + c] = PREC == PREC_BF16 ? round_bf16(acc) : acc;   // JAX's Zs store
-      const float v = g[r * HID + c] * acc;
-      t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
+      if constexpr (LOAD) {   // the gate after the product, read from the stash
+        t.Y[r * LDX + c] = acc;
+      } else {
+        const float v = g[r * HID + c] * acc;
+        t.Y[r * LDX + c] = pre_skip ? v * INV_SQRT2 : v;
+      }
     };
     if constexpr (PREC == PREC_F32)
       forward_product<true>(st, K, t.Y, image(p, W_SDF + l), put, hp_stage_of(sv));
     else
       forward_product(st, K, t.Y, image(p, W_SDF + l), put);
+    if constexpr (LOAD) {
+      stash_rows<16>([&](int r, int c) { return stash_sx4<PREC>(ts, l, r, c); },
+                     [&](int r, int c, float4 x) {
+                       const float4 g = stash_gate4<PREC>(x, pre_skip);
+                       float* y = t.Y + r * LDX + c;
+                       const float s = pre_skip ? INV_SQRT2 : 1.f;
+                       const float4 v = make_float4(g.x * y[0], g.y * y[1], g.z * y[2], g.w * y[3]);
+                       st4(y, pre_skip ? make_float4(v.x * s, v.y * s, v.z * s, v.w * s) : v);
+                     });
+      __syncthreads();
+    }
     if (pre_skip) {
       for (int e = tid; e < TILE * EMB; e += THREADS) {
         const int r = e / EMB, c = e % EMB;
@@ -1773,11 +1946,40 @@ __device__ __forceinline__ void backward_tile(const Params& p, const Tile& t, Ri
     const float* g = gates + l * GSLAB;
     const float* z = zt + l * GSLAB;
     __syncthreads();
-    for (int e = tid; e < TILE * HID; e += THREADS) {
-      const int r = e / HID, c = e % HID;
-      const float gg = g[e], hb = t.X[r * LDX + c], ub = t.Y[r * LDX + c];
-      t.X[r * LDX + c] = gg * hb + (ub * z[e]) * (100.f * gg * (1.f - gg));
-      t.Y[r * LDX + c] = gg * ub;
+    if constexpr (LOAD) {   // the gates from the stash, z from the scratch, in batches
+      constexpr int NB = 8, STEP = THREADS / (HID / 4);
+      const int c = 4 * (tid % (HID / 4)), r0 = tid / (HID / 4);
+#pragma unroll 1
+      for (int m = 0; m < TILE / STEP; m += NB) {
+        float4 sx[NB], zz[NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int r = r0 + STEP * (m + u);
+          sx[u] = stash_sx4<PREC>(ts, l, r, c);
+          zz[u] = ld4(z + r * HID + c);
+        }
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int r = r0 + STEP * (m + u);
+          const float4 g4 = stash_gate4<PREC>(sx[u], l + 1 == p.skip);
+          const float gg[4] = {g4.x, g4.y, g4.z, g4.w}, zv[4] = {zz[u].x, zz[u].y, zz[u].z, zz[u].w};
+          float* x = t.X + r * LDX + c;
+          float* y = t.Y + r * LDX + c;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float hb = x[i], ub = y[i];
+            x[i] = gg[i] * hb + (ub * zv[i]) * (100.f * gg[i] * (1.f - gg[i]));
+            y[i] = gg[i] * ub;
+          }
+        }
+      }
+    } else {
+      for (int e = tid; e < TILE * HID; e += THREADS) {
+        const int r = e / HID, c = e % HID;
+        const float gg = g[e], hb = t.X[r * LDX + c], ub = t.Y[r * LDX + c];
+        t.X[r * LDX + c] = gg * hb + (ub * z[e]) * (100.f * gg * (1.f - gg));
+        t.Y[r * LDX + c] = gg * ub;
+      }
     }
     __syncthreads();
     // abar and zbar: the weight grad's cotangents (dw_kind's terms; in
@@ -1899,11 +2101,11 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
 // backward_tile (and after the caller has read the tile's outputs); slot
 // is the tile's index in the batch. Flushes when the batch is full or the
 // block's last tile is done (a ragged batch), and returns the next slot.
-template <int PREC>
+template <int PREC, bool LOAD = false>
 __device__ __forceinline__ int after_tile(const Params& p, Rings& st, const BwdScratch& s,
                                           int slot, bool last, float* P) {
   if (++slot < p.dw_batch && !last) return slot;
-  dw_flush<PREC>(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
+  dw_flush<PREC, LOAD>(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
   return 0;
 }
 

@@ -54,8 +54,9 @@
 //   sum go to a stash in device memory ([R S, 8], 32 bytes a point); then
 //   one thread per ray composites the ray in sample order (a sequential
 //   scan, in registers) and writes its 16 lanes.
-//   Backward: one thread per ray rebuilds the compositing from the stash,
-//   scans forward for T and back for G, and writes each point's cotangents
+//   Backward (recompute): one thread per ray rebuilds the compositing from
+//   the stash, scans forward for T and back for G, and writes each point's
+//   cotangents
 //   (and tc_bar, mid) to the block's scratch; then per tile forward_tile<64, true>
 //   recomputes the layer inputs (the one MLP pass of JAX's recompute mode:
 //   the stash spares a third one) and backward_tile pulls the cotangents
@@ -67,14 +68,20 @@
 //   hidden SDF layer's softplus in f32, whose gate 1 - exp(-100 sp) the
 //   load rebuilds bit for bit, the features and the colour / relight relu
 //   outputs in bf16, which the backward reads only as bf16 operands and
-//   relu masks, and gc, delta; the PE and the small inputs are rebuilt from
-//   the points), and the backward (ray_march_load_bwd_kernel) fills each
-//   64-point tile from it (load_tile: plain loads, no product) where the
-//   recompute runs forward_tile, then runs backward_tile unchanged. A
-//   forward tile's 128 rows are two backward tiles, so the rows are the
-//   points in order and any tile reads a contiguous block. The
-//   compositing scan keeps reading the 8-float stash (JAX packs its
-//   scalars into the stash only to skip that scan on the TPU). The
+//   relu masks, and gc, delta and, from the compositing scan, T before the
+//   sample; the PE and the small inputs are rebuilt from the points). The
+//   backward (ray_march_load_bwd_kernel) runs the compositing VJP in
+//   parallel, a thread a point (composite_vjp_par: T the forward's, the
+//   sum over a ray's later samples a segmented suffix sum across the
+//   threads, as JAX's load mode loads its compositing scalars and scans
+//   them in vector form), and per 64-point tile stages only the
+//   weight-grad operands from the stash (load_tile: wide batched reads, no
+//   product) where the recompute runs forward_tile; backward_tile<PREC,
+//   true> reads the gates and the colour / relight layer inputs from the
+//   stash where it uses them (wide reads, a batch in flight at once:
+//   PERF.md §5), and its flush batches its read-modify-writes. A forward tile's 128 rows are
+//   two backward tiles, so the rows are the points in order and any tile
+//   reads a contiguous block. The
 //   block counts its tiles across groups: its weight grads are summed on
 //   chip over batches of dw_batch tiles (dw_flush: wgmma on the bf16
 //   operands backward_tile stores, point_pipeline.cu's note) and added,
@@ -87,8 +94,8 @@
 namespace {
 
 constexpr int STASH = 8;   // per point: sdf, grad (3), relit (3), delta sum
-constexpr float SQRT2 = 1.41421356f;
 constexpr int CTW = 16;    // per point in the backward's scratch: gbar lanes, tc_bar (13), mid (14)
+constexpr int TAIL_T = 6;  // save mode: the activation stash's tail slot of T before the sample
 
 struct March {
   Params net;              // the networks; net.scratch: per-block scratch
@@ -234,6 +241,8 @@ __device__ __forceinline__ void march_fwd(const March& m) {
         float pt[3], dist, mid;
         sample_point(m, r, s, pt, &dist, &mid);
         const Comp c = composite_point(rd, st + 1, st[0], dist, inv_s, pt);
+        if constexpr (SAVE)   // the transmittance before the sample, for the load's VJP
+          reinterpret_cast<float*>(m.act + (r * m.S + s) * al.bytes + al.tail)[TAIL_T] = T;
         const float w = c.alpha * T;
 #pragma unroll
         for (int j = 0; j < 3; ++j) acc[j] += w * st[4 + j];
@@ -276,6 +285,40 @@ __host__ __device__ long long group_scratch_floats(int G, int S) {
 // Rays per group of a kernel whose tiles hold `rows` points.
 __host__ __device__ int rays_per_group(int S, int rows) { return S >= rows ? 1 : rows / S; }
 
+// The compositing VJP at one point (ray_march.py:329-354), given its
+// compositing quantities c, its weight w = alpha T, w_bar and `later`, the
+// sum of w_bar w over the ray's later samples: its cotangents into o
+// ([CTW]), its term of the ray's inv_s cotangent added to sinv.
+__device__ __forceinline__ void point_vjp(const Comp& c, float w, float w_bar, float T,
+                                          float later, float inv_s, float dist, float mid,
+                                          const float* rd, const float* grad, const float* gb,
+                                          float* o, float& sinv) {
+  const float alpha_bar = w_bar * T - later / c.xv;
+  const float gate = (c.q < 1.f ? 1.f : (c.q == 1.f ? 0.5f : 0.f)) *
+                     (c.q > 0.f ? 1.f : (c.q == 0.f ? 0.5f : 0.f));
+  const float q_bar = alpha_bar * gate;
+  const float pc_bar = q_bar * (1.f - c.q) / (c.pc + 1e-5f);
+  const float nc_bar = -q_bar / (c.pc + 1e-5f);
+  const float dpc = c.pc * (1.f - c.pc), dnc = c.nc * (1.f - c.nc);
+  const float ep_bar = pc_bar * dpc * inv_s, en_bar = nc_bar * dnc * inv_s;
+  sinv += pc_bar * dpc * c.ep + nc_bar * dnc * c.en;
+  const float ic_bar = (en_bar - ep_bar) * dist * 0.5f;
+  const float u_bar = c.u > 0.f ? -ic_bar : 0.f;
+  const float tc_bar = -0.5f * u_bar;
+  const float ek = gb[5] * c.relaxed * 2.f * (c.normg - 1.f);
+  o[0] = ep_bar + en_bar;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    o[1 + j] = tc_bar * rd[j] + ek * grad[j] / c.normg;
+    o[4 + j] = 0.f;
+    o[7 + j] = w * gb[j];
+    o[10 + j] = gb[4];
+  }
+  o[13] = tc_bar;
+  o[14] = mid;
+  o[15] = 0.f;
+}
+
 // One thread per ray: the compositing VJP of ray r (ray_march.py:322-355)
 // into ct[s * CTW + ...] for s < S; returns the ray's inv_s cotangent.
 __device__ __forceinline__ float composite_vjp(const March& m, long long r, float inv_s, float* ct,
@@ -300,81 +343,113 @@ __device__ __forceinline__ float composite_vjp(const March& m, long long r, floa
     const Comp c = composite_point(rd, grad, st[0], dist, inv_s, pt);
     const float w = c.alpha * Tr[s];
     const float w_bar = (relit[0] * gb[0] + relit[1] * gb[1] + relit[2] * gb[2]) + gb[3];
-    const float alpha_bar = w_bar * Tr[s] - later / c.xv;
-    const float gate = (c.q < 1.f ? 1.f : (c.q == 1.f ? 0.5f : 0.f)) *
-                       (c.q > 0.f ? 1.f : (c.q == 0.f ? 0.5f : 0.f));
-    const float q_bar = alpha_bar * gate;
-    const float pc_bar = q_bar * (1.f - c.q) / (c.pc + 1e-5f);
-    const float nc_bar = -q_bar / (c.pc + 1e-5f);
-    const float dpc = c.pc * (1.f - c.pc), dnc = c.nc * (1.f - c.nc);
-    const float ep_bar = pc_bar * dpc * inv_s, en_bar = nc_bar * dnc * inv_s;
-    sinv += pc_bar * dpc * c.ep + nc_bar * dnc * c.en;
-    const float ic_bar = (en_bar - ep_bar) * dist * 0.5f;
-    const float u_bar = c.u > 0.f ? -ic_bar : 0.f;
-    const float tc_bar = -0.5f * u_bar;
-    const float ek = gb[5] * c.relaxed * 2.f * (c.normg - 1.f);
-    float* o = ct + s * CTW;
-    o[0] = ep_bar + en_bar;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      o[1 + j] = tc_bar * rd[j] + ek * grad[j] / c.normg;
-      o[4 + j] = 0.f;
-      o[7 + j] = w * gb[j];
-      o[10 + j] = gb[4];
-    }
-    o[13] = tc_bar;
-    o[14] = mid;
-    o[15] = 0.f;
+    point_vjp(c, w, w_bar, Tr[s], later, inv_s, dist, mid, rd, grad, gb, ct + s * CTW, sinv);
     later += w_bar * w;
   }
   return sinv;
 }
 
-// X[:, :HID] of the tile's rows = the bf16 segment at src (row r at src +
-// r bytes; zeros from row n on), in f32; also into copy ([TILE][LDS])
-// unless it is null.
-__device__ __forceinline__ void load_bf16_cols(float* X, const unsigned char* src, int bytes,
-                                               int n, float* copy) {
-  for (int e = threadIdx.x; e < TILE * HID / 4; e += THREADS) {
-    const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n) {
-      const uint2 w = *reinterpret_cast<const uint2*>(src + size_t(r) * bytes + 2 * c);
-      v = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                      __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+// A block-wide segmented sum in reverse, thread order being point order:
+// thread i's v plus the v of every later thread up to and including the
+// first j >= i with `end` set (its ray's last sample), plus `carry` when
+// no such j is in the block. Hillis-Steele over the threads in shared
+// memory (sv, sf: THREADS each), so the order of the additions is fixed.
+// Barriers inside; every thread calls it.
+__device__ __forceinline__ float seg_suffix_sum(float v, bool end, float carry, float* sv,
+                                                int* sf) {
+  const int tid = threadIdx.x;
+  int f = end;
+  for (int d = 1; d < THREADS; d <<= 1) {
+    sv[tid] = v;
+    sf[tid] = f;
+    __syncthreads();
+    if (!f && tid + d < THREADS) {
+      v += sv[tid + d];
+      f = sf[tid + d];
     }
-    st4(X + r * LDX + c, v);
-    if (copy != nullptr) st4(copy + r * LDS + c, v);
+    __syncthreads();
+  }
+  return f ? v : v + carry;
+}
+
+// The save mode's compositing VJP of a group's n_pts points (rays r0 ..,
+// ray_march.py:322-355), in parallel: a thread a point, THREADS points a
+// pass from the group's end, each point's T the forward's (the stash
+// tail's TAIL_T) where composite_vjp re-runs the forward's product, the
+// sum G of w_bar w over a ray's later samples a segmented suffix sum
+// (seg_suffix_sum) carried from pass to pass, and each ray's inv_s
+// cotangent, the suffix sum of its points' terms at its first sample, into
+// sinv[g]. Writes ct[q * CTW + ...] as composite_vjp does; sv / sf the
+// scan's shared memory. Every thread calls it; a barrier after.
+__device__ __forceinline__ void composite_vjp_par(const March& m, long long r0, int n_pts,
+                                                  float inv_s, float* ct, float* sinv, float* sv,
+                                                  int* sf) {
+  const int tid = threadIdx.x;
+  const ActLayout al = act_layout(shape_of(m.net), PP_PREC);
+  float carry_g = 0.f, carry_s = 0.f;   // the sums of the pass above, at its first point
+  for (int hi = n_pts; hi > 0; hi -= THREADS) {
+    const int q = hi - THREADS + tid;   // this thread's point of the group
+    const bool in = q >= 0;
+    const int s = in ? q % m.S : 0;
+    const long long r = r0 + (in ? q / m.S : 0);
+    const float* rd = m.rays_d + 3 * r;
+    const float* gb = m.gbar + r * 16;
+    const float* st = m.stash + (r * m.S + s) * STASH;
+    float pt[3], dist = 0.f, mid = 0.f, T = 0.f, vw = 0.f, w = 0.f, w_bar = 0.f;
+    Comp c{};
+    if (in) {
+      sample_point(m, r, s, pt, &dist, &mid);
+      T = reinterpret_cast<const float*>(m.act + (r * m.S + s) * al.bytes + al.tail)[TAIL_T];
+      c = composite_point(rd, st + 1, st[0], dist, inv_s, pt);
+      w = c.alpha * T;
+      w_bar = (st[4] * gb[0] + st[5] * gb[1] + st[6] * gb[2]) + gb[3];
+      vw = w_bar * w;
+    }
+    const bool last = !in || s == m.S - 1;
+    // G: the suffix sum of w_bar w from the next point on (0 past the ray's end)
+    const float incl = seg_suffix_sum(vw, last, carry_g, sv, sf);
+    sv[tid] = incl;
+    __syncthreads();
+    const float later = last ? 0.f : (tid + 1 < THREADS ? sv[tid + 1] : carry_g);
+    const float first_incl = sv[0];
+    __syncthreads();
+    float e = 0.f;   // the point's term of its ray's inv_s cotangent
+    if (in)
+      point_vjp(c, w, w_bar, T, later, inv_s, dist, mid, rd, st + 1, gb, ct + size_t(q) * CTW, e);
+    const float es = seg_suffix_sum(e, last, carry_s, sv, sf);
+    if (in && s == 0) sinv[q / m.S] = es;
+    sv[tid] = es;
+    __syncthreads();
+    carry_g = first_incl;
+    carry_s = sv[0];
+    __syncthreads();
   }
 }
 
-// The load mode's stand-in for forward_tile<TILE, true>: what the backward
-// reads of the 64-point tile from point q0 (of [R S]; its first n points
-// have rows, the rest pad with zeros), from the forward's stashes instead
-// of a recompute: t.S1, G3 and RL from the outs stash, GC and DL from the
-// activation stash's tail; every SDF gate, 1 - exp(-100 sp), as the
-// forward computed it from the same sp; the colour and relight layer
-// inputs the backward's masks and narrow layers read (sv.cx, sv.rx from
-// layer 1 on); every 256-wide layer's input as its bf16 weight-grad
-// operand (sv.dw), staged through X. PREC (the MARCH_BWD_PRECISION mode):
-// PREC_BF16's stash holds each SDF layer's input in bf16 (act_layout), the
-// gate rebuilt from it (times sqrt(2) before the skip layer, as JAX's
-// unflatten_stash); PREC_F32 stores the SDF layer inputs as three bf16
-// parts (save_t3). A barrier after.
+// The load mode's stand-in for forward_tile<TILE, true>, what the backward
+// needs of the 64-point tile ts (from point q0 of [R S]) before its
+// pullback, from the forward's stashes instead of a recompute: t.S1, G3
+// and RL from the outs stash, GC and DL from the activation stash's tail,
+// and every 256-wide layer's input as its bf16 weight-grad operand (sv.dw),
+// staged through X (the stash's rows read in wide batches, stash_rows).
+// The gates and the colour / relight layer inputs, which the pullback
+// reads again, are not kept: backward_tile<PREC, true> reads them from the
+// stash where it uses them. PREC (the MARCH_BWD_PRECISION mode):
+// PREC_BF16's stash holds each SDF layer's input in bf16 (act_layout);
+// PREC_F32 stores the SDF layer inputs as three bf16 parts (save_t3). A
+// barrier after.
 template <int PREC>
-__device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* gates,
-                                          const Save& sv, long long q0, int n) {
+__device__ __forceinline__ void load_tile(const March& m, const Tile& t, const Save& sv,
+                                          const TileStash& ts, long long q0) {
   const Params& p = m.net;
   const Shape sh = shape_of(p);
-  const ActLayout al = act_layout(sh, PREC);
-  const unsigned char* act = m.act + q0 * al.bytes;
   const int tid = threadIdx.x;
   float* const X = t.X;
   float* const PE = X + HID;
   if (tid < TILE) {
-    const bool in = tid < n;
+    const bool in = tid < ts.n;
     const float* o = m.stash + (q0 + tid) * STASH;
-    const float* tl = reinterpret_cast<const float*>(act + size_t(tid) * al.bytes + al.tail);
+    const float* tl = reinterpret_cast<const float*>(ts.row0 + size_t(tid) * ts.bytes + ts.al.tail);
     t.S1[tid] = in ? o[0] : 0.f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -393,35 +468,18 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* 
     save_t<0>(PE, EMB, dw_a(sh, sv.dw, 0, 0));
     save_t<1>(PE, EMB, dw_a(sh, sv.dw, 0, 1));
   }
-  // hidden layer l: its gate, and the input of layer l + 1 (the features'
-  // layer after the last)
+  // the input of layer l + 1 (the features' layer after the last): hidden
+  // layer l's softplus (PREC_BF16: stored as the input), at the skip [h,
+  // PE] / sqrt(2)
   for (int l = 0; l < p.n_sdf - 1; ++l) {
     const bool pre_skip = l + 1 == p.skip;
-    const float post = pre_skip ? INV_SQRT2 : 1.f;
-    const unsigned char* src = act + al.sx + l * HID * 4;
-    const unsigned char* src16 = act + al.sx + l * HID * 2;   // PREC_BF16's (al.sxw)
-    float* g = gates + size_t(l) * GSLAB;
+    const float post = pre_skip && PREC != PREC_BF16 ? INV_SQRT2 : 1.f;
     __syncthreads();   // save_t's reads of X are done
-    for (int e = tid; e < TILE * HID / 4; e += THREADS) {
-      const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
-      float4 sp, x;
-      if constexpr (PREC == PREC_BF16) {   // x: the stored input; sp = x sqrt(2) at the skip
-        const uint2 w = r < n
-                            ? *reinterpret_cast<const uint2*>(src16 + size_t(r) * al.bytes + 2 * c)
-                            : make_uint2(0u, 0u);
-        x = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                        __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-        const float s = pre_skip ? SQRT2 : 1.f;
-        sp = make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-      } else {
-        sp = r < n ? ld4(reinterpret_cast<const float*>(src + size_t(r) * al.bytes) + c)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-        x = make_float4(sp.x * post, sp.y * post, sp.z * post, sp.w * post);
-      }
-      st4(g + r * HID + c, make_float4(1.f - expf(-100.f * sp.x), 1.f - expf(-100.f * sp.y),
-                                       1.f - expf(-100.f * sp.z), 1.f - expf(-100.f * sp.w)));
-      st4(X + r * LDX + c, x);
-    }
+    stash_rows<16>([&](int r, int c) { return stash_sx4<PREC>(ts, l, r, c); },
+                   [&](int r, int c, float4 x) {
+                     st4(X + r * LDX + c, make_float4(x.x * post, x.y * post, x.z * post,
+                                                      x.w * post));
+                   });
     if (pre_skip)   // the skip input: [h, PE] / sqrt(2)
       for (int e = tid; e < TILE * EMB; e += THREADS) PE[(e / EMB) * LDX + e % EMB] *= INV_SQRT2;
     __syncthreads();
@@ -430,36 +488,29 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, float* 
     else
       save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
   }
-  // the colour net: layer l's input, its hidden part in cr slot l (layer 0:
+  // the colour net's layer l: its hidden part in cr slot l (layer 0:
   // [features | pts, grad, PE(dirs)])
-  for (int l = 0; l < p.n_color; ++l) {
+  for (int l = 0; l < p.n_color - 1; ++l) {
     __syncthreads();
-    load_bf16_cols(X, act + al.cr + l * HID * 2, al.bytes, n, l > 0 ? sv.cx + l * SLAB : nullptr);
-    if (l == 0) small_inputs<TILE>(t, X, HID, p.color_dv, false);
-    __syncthreads();
-    if (l < p.n_color - 1) save_t<0>(X, l == 0 ? HID + EMB : HID, dw_a(sh, sv.dw, p.n_sdf + l, 0));
+    stage_cr(ts, t, l, X, false);
+    if (l == 0) {
+      small_inputs<TILE>(t, X, HID, p.color_dv, false);
+      __syncthreads();
+    }
+    save_t<0>(X, l == 0 ? HID + EMB : HID, dw_a(sh, sv.dw, p.n_sdf + l, 0));
   }
-  // the relight net: layer 0's input [pts, grad, PE(dirs)], layer l's
+  // the relight net's layer l: layer 0's [pts, grad, PE(dirs)], layer l's
   // hidden part in cr slot n_color + l - 1, the y_in layer's gc block
-  const int nr = p.n_relight - 1;
-  for (int l = 0; l <= nr; ++l) {
-    const int K = l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID);
-    float* rx = sv.rx + l * SLAB;
+  for (int l = 0; l < p.n_relight - 1; ++l) {
     __syncthreads();
     if (l == 0) {
       small_inputs<TILE>(t, X, 0, p.rl_dv, false);
+      __syncthreads();
     } else {
-      load_bf16_cols(X, act + al.cr + (p.n_color + l - 1) * HID * 2, al.bytes, n, rx);
-      if (l == p.y_in)
-        for (int e = tid; e < TILE * EMB; e += THREADS) {
-          const int r = e / EMB, c = e % EMB;
-          const float v = c < 3 ? t.GC[r * 3 + c] : 0.f;
-          X[r * LDX + HID + c] = v;
-          rx[r * LDS + HID + c] = v;
-        }
+      stage_cr(ts, t, p.n_color + l - 1, X, l == p.y_in);
     }
-    __syncthreads();
-    if (l < nr) save_t<0>(X, K, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
+    save_t<0>(X, l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID),
+              dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
   }
   __syncthreads();
 }
@@ -482,16 +533,22 @@ __device__ __forceinline__ void march_bwd(const March& m) {
   float* rh = sinv + m.G;                                                   // [G][6]
   float* P = m.partial + size_t(blockIdx.x) * (m.n_grad + 1);
   const float inv_s = *m.inv_s;
+  const ActLayout al = act_layout(shape_of(p), PP_PREC);
   int slot = 0;   // the tile's place in the weight-grad batch
 
   for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
     const long long r0 = grp * m.G;
     const int nr = int(min((long long)m.G, m.n_rays - r0));
     const int n_pts = nr * m.S;
-    if (tid < nr)   // 3 pullback_only: the cotangents as the scratch holds them
+    if constexpr (LOAD) {   // 3 pullback_only: the cotangents as the scratch holds them
+      if (RM_ABLATE == 3 && tid < nr) sinv[tid] = 0.f;
+      if (RM_ABLATE != 3)
+        composite_vjp_par(m, r0, n_pts, inv_s, ct, sinv, t.X, reinterpret_cast<int*>(t.Y));
+    } else if (tid < nr) {   // 3 pullback_only: the cotangents as the scratch holds them
       sinv[tid] = RM_ABLATE == 3 ? 0.f
                                  : composite_vjp(m, r0 + tid, inv_s, ct + size_t(tid) * m.S * CTW,
                                                  Tr + size_t(tid) * m.S);
+    }
     for (int e = tid; e < nr * 6; e += THREADS) rh[e] = 0.f;
     __syncthreads();
     if (tid == 0)
@@ -499,10 +556,11 @@ __device__ __forceinline__ void march_bwd(const March& m) {
 
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
+      const TileStash ts{m.act + (r0 * m.S + t0) * al.bytes, al.bytes, n_pts - t0, al};
       load_march_points<TILE>(m, t, r0, t0, n_pts);
       if constexpr (LOAD) {
         if constexpr (RM_ABLATE != 2)   // 2 no_unflatten: the stash not read
-          load_tile<PP_PREC>(m, t, s.gates, sv, r0 * m.S + t0, n_pts - t0);
+          load_tile<PP_PREC>(m, t, sv, ts, r0 * m.S + t0);
       } else {
         forward_tile<TILE, true, false, PP_PREC>(p, t, st, s.gates, s.feat, sv);
       }
@@ -512,7 +570,7 @@ __device__ __forceinline__ void march_bwd(const March& m) {
       }
       __syncthreads();
       if constexpr (RM_ABLATE != 1)   // 1 no_pullback
-        backward_tile<PP_PREC>(p, t, st, s.gates, s.zt, sv, P);
+        backward_tile<PP_PREC, LOAD>(p, t, st, s.gates, s.zt, sv, P, ts);
       // the tile's share of each ray's cotangents, summed in sample order
       const int g_lo = t0 / m.S, g_hi = min(nr - 1, (t0 + TILE - 1) / m.S);
       for (int e = tid; e < (g_hi - g_lo + 1) * 6; e += THREADS) {
@@ -529,7 +587,7 @@ __device__ __forceinline__ void march_bwd(const March& m) {
       }
       __syncthreads();
       if constexpr (RM_ABLATE != 1 && RM_ABLATE != 4)   // the flush: not in 1, 4
-        slot = after_tile<PP_PREC>(p, st, s, slot,
+        slot = after_tile<PP_PREC, LOAD>(p, st, s, slot,
                                    grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
     }
     for (int e = tid; e < nr * 8; e += THREADS) {

@@ -259,7 +259,9 @@ def act_bytes(net) -> int:
     layout (csrc/point_pipeline_tile.cuh act_layout): the softplus of every
     hidden SDF layer, 256 wide, in f32 (in bf16 under march_bwd_precision
     'bf16', JAX's march_stash_bytes); the features and the colour / relight
-    hidden layers' outputs in bf16, 256 wide; 8 f32."""
+    hidden layers' outputs in bf16, 256 wide; a tail of 8 f32: gc, delta,
+    the transmittance T before the sample (the forward's, which the load
+    entry's compositing VJP reads), 0."""
     n_sdf, n_color, n_relight = _net_counts(net)
     sx = 2 if getattr(net, "rcfg", net).march_bwd_precision == "bf16" else 4
     return (n_sdf - 1) * PP.HID * sx + (n_color + max(n_relight - 1, 0)) * PP.HID * 2 + 32

@@ -61,9 +61,10 @@ from color_neus_torch.tools._timing import cuda_ms
 S = 512
 
 
-def inputs(n_rays: int, device, seed: int = 0, mode: str = "f32stash"):
+def inputs(n_rays: int, device, seed: int = 0, mode: str = "f32stash", n_samples: int = S):
     """(pw, rays_o, rays_d, z, inv_s, gbar) at JAX's ablation shape
-    (march_ablate.py:60-93): geometric init, MARCH_BWD_PRECISION mode."""
+    (march_ablate.py:60-93; n_samples a ray): geometric init,
+    MARCH_BWD_PRECISION mode."""
     rcfg = RendererConfig(kind="color_neus", n_samples=256, n_importance=256,
                           up_sample_steps=4,
                           color=ColorConfig(mode="no_view_dir", d_in=6, multires_view=0),
@@ -75,7 +76,7 @@ def inputs(n_rays: int, device, seed: int = 0, mode: str = "f32stash"):
     rd = torch.randn((n_rays, 3), generator=g, device=device) * 0.05 \
         + torch.tensor([0.0, 0.0, 1.0], device=device)
     rd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-    z = torch.sort(torch.rand((n_rays, S), generator=g, device=device) * 2.0 + 1.5,
+    z = torch.sort(torch.rand((n_rays, n_samples), generator=g, device=device) * 2.0 + 1.5,
                    dim=1).values
     inv_s = torch.full((1,), 64.0, device=device)
     gbar = torch.randn((n_rays, 16), generator=g, device=device) * 0.01

@@ -10,6 +10,10 @@ scratch) within RTOL_F32 of the twin's and the float64 twin's. The sources are b
 tests/test_torch_bwd_precision_emulated.py's _compile (the harness
 tests/cuda_emu/harness_march.cpp). Skips without a C++20 compiler."""
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +32,10 @@ from tests.test_torch_bwd_precision_emulated import (FWD_ROWS, PREC, RTOL_BF16, 
                                                       twin_sdf_outputs)
 
 pin_precision()
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "color_neus_torch", "csrc")
+CUDA_EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
 
 
 @pytest.fixture(scope="module")
@@ -56,10 +64,13 @@ def _act_segments(act, pw):
             torch.from_numpy(tail))
 
 
-def _check_act(act, pw, pts, dirs):
+def _check_act(act, pw, pts, dirs, Tr):
     """The emulated stash against the twin's values: the bf16 parts within
     one bf16 ulp of the unrounded value plus RTOL_BF16 of their largest,
-    the f32 ones within RTOL_BF16 (RTOL_F32 in 'f32') of their largest."""
+    the f32 ones within RTOL_BF16 (RTOL_F32 in 'f32') of their largest;
+    the tail's slot 6 the transmittance before each sample (Tr, the twin's
+    in the mode) within RTOL_BF16, slot 7 zero. (_run reads the stash as
+    rows of ray_march.act_bytes: the library's own layout must agree.)"""
     outs, st = PP._forward(pw, pts, dirs, True)
     want = PP.stash_activations(pw.rcfg, outs, st, bf16=False)
     sx, cr, tail = _act_segments(act, pw)
@@ -81,7 +92,43 @@ def _check_act(act, pw, pts, dirs):
     for name, (a, b), x in (("gc", (0, 3), outs[2]), ("delta", (3, 6), outs[4])):
         assert EM._rel(tail[:, a:b], x) <= RTOL_BF16 or float(x.abs().max()) == 0.0, \
             f"tail {name}"
-    assert float(tail[:, 6:].abs().max()) == 0.0
+    assert EM._rel(tail[:, 6], Tr) <= RTOL_BF16, "tail T"
+    assert float(tail[:, 7].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+@pytest.mark.parametrize("mode", ["f32stash", *PREC])
+def test_act_bytes_match_the_library_layout(tmp_path, mode, kind):
+    """ray_march.act_bytes (and march_stash_bytes, the activation stash and
+    the 8-float outs stash) against the kernels' own layout
+    (csrc/point_pipeline_tile.cuh act_layout, what ray_march_act_bytes
+    returns) in each MARCH_BWD_PRECISION mode: the row's bytes, and the
+    tail's place after the SDF and bf16 parts, whose slot 6 holds T."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
+             else ColorConfig())
+    rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
+    n_sdf, n_color, n_relight = RM._net_counts(rcfg)
+    src = tmp_path / "layout.cpp"
+    src.write_text('#include <cstdio>\n#include "cuda_runtime.h"\n'
+                   '#include "point_pipeline_tile.cuh"\nint main() {\n'
+                   f"  const ActLayout a = act_layout(Shape{{{n_sdf}, -1, {n_color}, {n_relight}, "
+                   "-1}, PP_PREC);\n  printf(\"%d %d\", a.bytes, a.tail);\n}\n")
+    exe = tmp_path / "layout"
+    proc = subprocess.run([cxx, "-std=c++20", "-pthread", "-Wno-unknown-pragmas",
+                           f"-DPP_PREC={({'f32stash': 0} | PREC)[mode]}", "-I", CUDA_EMU, "-I",
+                           CSRC, "-x", "c++", str(src), "-o", str(exe)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr:
+        pytest.skip("the host compiler lacks C++20 <barrier>")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib_bytes, tail = (int(v) for v in subprocess.run([str(exe)], capture_output=True, text=True,
+                                                      check=True).stdout.split())
+    assert RM.act_bytes(rcfg) == lib_bytes
+    assert tail == lib_bytes - 32
+    assert RM.march_stash_bytes(rcfg, 1000) == 1000 * (lib_bytes + RM.STASH * 4)
 
 
 MARCH_CASES = [EM.CASES[0], EM.CASES[1]]
@@ -134,9 +181,9 @@ def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, k
             err = EM._rel(feat.to(p.dtype), twin_sdf_outputs(net, p, dr)[1])
             print(f"f32 {kind} R{R}xS{S}: features {err:.3e} from the {name}")
             assert err <= RTOL_F32, f"features {err:.3e} from the {name}"
-    if save:
-        _check_act(res[5], pw, pts, dirs)
     outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
+    if save:
+        _check_act(res[5], pw, pts, dirs, RM.composite(outs, rd, dists, pts, inv_s).Tr.reshape(-1))
     want = torch.cat([outs[0], outs[1], outs[3], outs[4].sum(dim=1, keepdim=True)], dim=1)
     for name, (a, b) in (("sdf", (0, 1)), ("grad", (1, 4)), ("relit", (4, 7)), ("delta", (7, 8))):
         limit = RTOL_F32 if mode == "f32" and name in ("sdf", "grad") else RTOL_BF16

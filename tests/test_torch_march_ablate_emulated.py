@@ -4,15 +4,18 @@ march_ablate.py on the card) rehearsed on the CPU, as
 tests/test_torch_ray_march_emulated.py rehearses the kernels: the source
 compiled by the host compiler against tests/cuda_emu/cuda_runtime.h.
 
-Each variant's switch (-DRM_ABLATE=1..4, build.ABLATE) compiles, and its
-save pair runs to the end on one case (2 rays x 27 samples on one block:
-one forward and one backward tile; a skipped barrier would hang it) and
-leaves the default build's outputs (an ablated output is garbage, so
-only the difference is checked: each switch is live). The default build,
+In each MARCH_BWD_PRECISION mode, each variant's switch (-DRM_ABLATE=1..4,
+build.ABLATE, with the mode's flags) compiles, and its save pair runs to
+the end on one case (2 rays x 27 samples on one block: one forward and one
+backward tile; a skipped barrier would hang it) and leaves the mode's
+default build's outputs (an ablated output is garbage, so only the
+difference is checked: each switch is live). The f32stash default build,
 compiled without the switch, holds the plain twins on the same case at
-test_torch_ray_march_emulated.py's limits. That file holds the default
-source on its own cases; the default build's emulated outputs were
-bitwise those of the source before the switch when it was added."""
+test_torch_ray_march_emulated.py's limits (the other modes' default builds
+are held to their twins by test_torch_bwd_precision_march_emulated.py).
+That file holds the default source on its own cases; the default build's
+emulated outputs were bitwise those of the source before the switch when
+it was added."""
 
 import concurrent.futures as cf
 
@@ -32,12 +35,13 @@ def _flat(res) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in parts])
 
 
-def test_ablation_builds_compile_run_and_differ(tmp_path):
-    names = {"default": ()} | {v: build.ABLATIONS[lib][1]
-                               for v, lib in build.ablation_names("f32stash").items()
-                               if v != "full"}
+@pytest.mark.parametrize("mode", ["f32stash", "bf16", "f32"])
+def test_ablation_builds_compile_run_and_differ(tmp_path, mode):
+    names = {"default": build.MODE_BUILDS[mode][1]} | {
+        v: build.ABLATIONS[lib][1] for v, lib in build.ablation_names(mode).items()
+        if v != "full"}
     assert set(names) == {"default", "no_pullback", "no_unflatten", "pullback_only", "no_wgrad"}
-    case = case_inputs(*CASE)
+    case = case_inputs(*CASE, mode=mode)
     for name in names:
         (tmp_path / name).mkdir()
         (tmp_path / f"run_{name}").mkdir()
@@ -47,7 +51,8 @@ def test_ablation_builds_compile_run_and_differ(tmp_path):
         runs = dict(zip(names, pool.map(
             lambda n: _run(exes[n], tmp_path / f"run_{n}", *case, blocks=1, save=True),
             names)))
-    check_result(runs["default"], case, CASE[3], save=True)
+    if mode == "f32stash":
+        check_result(runs["default"], case, CASE[3], save=True)
     base = _flat(runs["default"]).nan_to_num(nan=1e30)
     for name in names:
         if name != "default":

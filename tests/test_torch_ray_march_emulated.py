@@ -11,14 +11,17 @@ batch. The cases cover a 128-sample ray (two 64-point tiles: one full
 batch), 100-sample rays (a tile and a 36-point tail), 27-sample rays
 packed two to a tile with a ragged last group (one block a full batch,
 the other a ragged one), both renderer kinds, and an inv_s of ~2000 with
-exact q == 1 ties;
+exact q == 1 ties; the save pair also a 300-sample ray (five tiles, the
+last of 44 points; the load's compositing VJP in two passes of 256
+points, its sums carried from one to the other);
 and the clip's tie rule, on rays whose every point is a tie, held by a
 copy of the source with the tie gate at 1.0, which must fail. The save
 mode's pair (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) runs the
 same cases: its forward as the recompute's, every segment of its
 activation stash against the bf16 plain twin's (point_pipeline.ActStash),
-its backward against the same references, and a copy of the source whose
-load reads the hidden SDF layers one segment off must fail.
+its backward against the same references, and copies of the source whose
+load reads the hidden SDF layers one segment off, or whose compositing
+VJP ends each ray's segment of its suffix sums a sample early, must fail.
 The card-only parts (timing, races between warps, the GPU's float
 functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
 Skips without a C++20 compiler.
@@ -72,11 +75,19 @@ TIE_GATE = "c.q == 1.f ? 0.5f"
 TIE_GATE_MUTANT = "c.q == 1.f ? 1.0f"
 
 
-# the load's read of hidden SDF layer l's softplus, and the same read one
+# the load's read of hidden SDF layer l's softplus (point_pipeline_tile.cuh
+# stash_sx: the gates and the weight-grad operands), and the same read one
 # layer on (layer l + 1's segment; the last layer's reads the cr part): a
 # copy that must fail the save test below
-LOAD_SP = "const unsigned char* src = act + al.sx + l * HID * 4;"
-LOAD_SP_MUTANT = "const unsigned char* src = act + al.sx + (l + 1) * HID * 4;"
+LOAD_SP = "const unsigned char* row = ts.row0 + size_t(r) * ts.bytes + ts.al.sx + l * ts.al.sxw;"
+LOAD_SP_MUTANT = ("const unsigned char* row = ts.row0 + size_t(r) * ts.bytes + ts.al.sx + "
+                  "(l + 1) * ts.al.sxw;")
+
+# the load's compositing VJP (composite_vjp_par): the sum G over a ray's
+# later samples is the suffix sum from the next point on; from the point
+# itself (the scan's boundary a sample off) must fail
+SCAN_NEXT = "const float later = last ? 0.f : (tid + 1 < THREADS ? sv[tid + 1] : carry_g);"
+SCAN_NEXT_MUTANT = "const float later = last ? 0.f : (tid + 1 < THREADS ? sv[tid] : carry_g);"
 
 
 def _compile(out, mutate=None, defines=()):
@@ -85,9 +96,12 @@ def _compile(out, mutate=None, defines=()):
         pytest.skip("no host C++ compiler to build the emulated kernels")
     with open(os.path.join(CSRC, "ray_march.cu")) as f:
         src = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)   # launches run on host threads
-    if mutate is not None:
+    if mutate is not None:   # in ray_march.cu or the tile header, inlined
         line, mutant = mutate
-        assert src.count(line) == 1, f"the line to mutate moved: {line}"
+        with open(os.path.join(CSRC, "point_pipeline_tile.cuh")) as f:
+            tile = f.read()
+        assert src.count(line) + tile.count(line) == 1, f"the line to mutate moved: {line}"
+        src = src.replace('#include "point_pipeline_tile.cuh"', tile.replace(line, mutant))
         src = src.replace(line, mutant)
     with open(os.path.join(HERE, "cuda_emu", "harness_march.cpp")) as f:
         src += f.read()
@@ -172,6 +186,9 @@ def _close(got, plain, want, name):
 CASES = [("color_neus", 1, 128, 0.3, 0.02, 6), ("neus", 2, 100, 0.3, 0.02, 2),
          ("color_neus", 5, 27, 0.76, 0.005, 9)]
 IDS = [f"{k}-R{r}xS{s}-v{v}" for k, r, s, v, _, _ in CASES]
+# the save pair also on a ray whose compositing VJP takes two passes
+SAVE_CASES = CASES + [("color_neus", 1, 300, 0.3, 0.02, 2)]
+SAVE_IDS = IDS + ["color_neus-R1xS300-v0.3"]
 
 
 @pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES, ids=IDS)
@@ -179,7 +196,7 @@ def test_emulated_march_matches_plain(emulator, tmp_path, kind, R, S, variance, 
     _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save=False)
 
 
-@pytest.mark.parametrize("kind,R,S,variance,noise,seed", CASES, ids=IDS)
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", SAVE_CASES, ids=SAVE_IDS)
 def test_emulated_march_save_matches_plain(emulator, tmp_path, kind, R, S, variance, noise,
                                            seed):
     """The save mode's pair on the same cases: the forward and the 8-float
@@ -198,12 +215,13 @@ def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save):
     check_result(res, case, variance, save)
 
 
-def case_inputs(kind, R, S, variance, noise, seed):
+def case_inputs(kind, R, S, variance, noise, seed, mode="f32stash"):
     """A case's (pw, rays_o, rays_d, z, inv_s, sample_dist, gbar), its
-    weights off the init by seeded noise, the relu margin asserted."""
+    weights off the init by seeded noise, the relu margin asserted; mode
+    the weights' march_bwd_precision."""
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
-    rcfg = RendererConfig(kind=kind, color=color)
+    rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
     g = torch.Generator().manual_seed(seed)
     params = init_renderer(rcfg, g)
     with torch.no_grad():
@@ -239,15 +257,15 @@ def check_result(res, case, variance, save):
                                       for layers in (pw.sdf, pw.color, pw.relight)])
     out, stash, rays_hat, s_hat, grads = res[:5]
     outs = PP.point_pipeline_plain(pw, pts, dirs, bf16=True)
+    c = RM.composite(outs, rd, dists, pts, inv_s)
     if save:
-        _check_act(res[5], pw, pts, dirs)
+        _check_act(res[5], pw, pts, dirs, c.Tr.reshape(-1))
     want = torch.cat([outs[0], outs[1], outs[3], outs[4].sum(dim=1, keepdim=True)], dim=1)
     for name, (a, b) in (("sdf", (0, 1)), ("grad", (1, 4)), ("relit", (4, 7)), ("delta", (7, 8))):
         assert _rel(stash[:, a:b], want[:, a:b]) <= RTOL_BF16, f"stash {name}"
     plain_out = RM.ray_march_plain(pw, ro, rd, z, inv_s, sd, bf16=True)
     for name, (a, b) in chip_smoke.MARCH_LANES.items():
         assert _rel(out[:, a:b], plain_out[:, a:b]) <= RTOL_BF16, f"out {name}"
-    c = RM.composite(outs, rd, dists, pts, inv_s)
     if variance > 0.5:
         assert int((c.q == 1.0).sum()) > 0, "no exact q == 1 tie on the rays"
 
@@ -265,8 +283,10 @@ def check_result(res, case, variance, save):
             _close(b, pb, f, f"{net} layer {l} b")
 
 
-def _check_act(act, pw, pts, dirs):
-    """The emulated activation stash against the bf16 twin's values."""
+def _check_act(act, pw, pts, dirs, Tr):
+    """The emulated activation stash against the bf16 twin's values; its
+    tail's slot 6 the transmittance before each sample (Tr, the bf16
+    twin's), slot 7 zero."""
     outs, st = PP._forward(pw, pts, dirs, True)
     want = PP.stash_activations(pw.rcfg, outs, st, bf16=False)   # unrounded
     sx, cr, tail = _act_segments(act, pw)
@@ -279,7 +299,8 @@ def _check_act(act, pw, pts, dirs):
         assert bool((err <= tol).all()), f"stash bf16 slot {j}: {float((err - tol).max()):.3e}"
     for name, (a, b), x in (("gc", (0, 3), outs[2]), ("delta", (3, 6), outs[4])):
         assert _rel(tail[:, a:b], x) <= RTOL_BF16 or float(x.abs().max()) == 0.0, f"tail {name}"
-    assert float(tail[:, 6:].abs().max()) == 0.0
+    assert _rel(tail[:, 6], Tr) <= RTOL_BF16, "tail T"
+    assert float(tail[:, 7].abs().max()) == 0.0
     if pw.rcfg.kind == "neus":
         assert float(tail[:, 3:6].abs().max()) == 0.0
 
@@ -291,6 +312,18 @@ def test_emulated_march_load_mutant_fails(tmp_path_factory, tmp_path):
     kind, R, S, variance, noise, seed = CASES[0]
     mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_load_mutant"),
                       mutate=(LOAD_SP, LOAD_SP_MUTANT))
+    with pytest.raises(AssertionError):
+        _check_case(mutant, tmp_path, kind, R, S, variance, noise, seed, save=True)
+
+
+def test_emulated_march_scan_mutant_fails(tmp_path_factory, tmp_path):
+    """A copy of the source whose load-side compositing VJP takes the sum G
+    over a ray's later samples from the point itself on (its own w_bar w
+    in it), on the 27-sample rays packed several to a tile: its backward
+    must leave the bf16 twin by far more than the save test's limits."""
+    kind, R, S, variance, noise, seed = CASES[2]
+    mutant = _compile(tmp_path_factory.mktemp("cuda_emu_march_scan_mutant"),
+                      mutate=(SCAN_NEXT, SCAN_NEXT_MUTANT))
     with pytest.raises(AssertionError):
         _check_case(mutant, tmp_path, kind, R, S, variance, noise, seed, save=True)
 
