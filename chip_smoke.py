@@ -14,8 +14,8 @@ Phases; any failure exits non-zero and prints no result:
      weight slabs and the weight-grad operands), with 0 bytes of spills,
      their registers printed; rows 3 and 4's save-mode entries
      (ray_march_save_fwd_kernel, ray_march_load_bwd_kernel) are held as
-     rows 3 and 4; the rows 3-6 entries the load entry's redesign left
-     as they were must hold their earlier SASS, instruction for
+     rows 3 and 4; rows 5 and 6, which the march entries' redesigns left
+     as they were, must hold their earlier SASS, instruction for
      instruction (sass_identity_check, under the nvcc release it was
      recorded with); rows 1-2's
      kernel variants (the grid's f32x3 one too) print HMMA, their weight
@@ -646,15 +646,15 @@ INSTRUMENTS = {
 # march_ablate runs again in the other mode of ABLATE_MODES (row 4's f32
 # load entry split by part)
 ABLATE_MODES = ("f32stash", "f32")
-# phase 1 (sass_identity_check): the rows 3-6 kernels the load entry's
-# redesign left as they were (rows 5 and 6, row 3's recompute entry; row
+# phase 1 (sass_identity_check): the rows 3-6 kernels the redesigns of
+# the march's load and save entries left as they were (rows 5 and 6; row
 # 4's recompute entry shares the compositing VJP's per-point helper with
-# the load entry, so its SASS moved and its time is compared instead,
-# PERF.md §6), and their SASS digests (sass_digests) in each mode's build
-# of the sources before that redesign, read on the H100 machine under
-# UNCHANGED_SASS_NVCC
-UNCHANGED_KERNELS = ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel",
-                     "ray_march_fwd_kernel")
+# the load entry, and row 3's recompute entry the parallel compositing
+# with the save entry, so their SASS moved and their times are compared
+# instead, PERF.md §6), and their SASS digests (sass_digests) in each
+# mode's build of the sources before those redesigns, read on the H100
+# machine under UNCHANGED_SASS_NVCC
+UNCHANGED_KERNELS = ("point_pipeline_fwd_kernel", "point_pipeline_bwd_kernel")
 UNCHANGED_SASS_NVCC = "release 12.9, V12.9.86"
 UNCHANGED_SASS = {
     "point_pipeline_bwd_kernel":
@@ -669,12 +669,6 @@ UNCHANGED_SASS = {
         "d172bd2c3bcd5c2017d7ca243f62ab377e4fadf5dc6cddc0d2a3db6f7c83ff7c",
     "point_pipeline_fwd_kernel_f32s":
         "065f2b8ab45e032b0156168388b237fe94288f38d5f8311a4cb7fc422ed9083b",
-    "ray_march_fwd_kernel":
-        "a4db5fbcdb5a77ab74851fd7e226bd93b830627e79da21f58ec9ed3a476fb268",
-    "ray_march_fwd_kernel_bf16s":
-        "a4db5fbcdb5a77ab74851fd7e226bd93b830627e79da21f58ec9ed3a476fb268",
-    "ray_march_fwd_kernel_f32s":
-        "1e4a19b35e05c2851cbf362ba54809ccf0a9c3df465726cbd60d65ac791ba670",
 }
 JAX_TOOL_KEYS = {
     "bench_ab": (("key", "A", "B", "rounds", "n_rays", "k_steps", "A_rays_per_s_median",
@@ -1985,8 +1979,8 @@ def nvcc_release() -> str:
 
 
 def sass_identity_check(libs):
-    """Phase 1: the rows 3-6 entries the load entry's redesign left as they
-    were (UNCHANGED_KERNELS, each mode's) hold
+    """Phase 1: the rows 3-6 entries the march entries' redesigns left as
+    they were (UNCHANGED_KERNELS, each mode's) hold
     the SASS of the sources before it, instruction for instruction: their
     digests (sass_digests) against UNCHANGED_SASS, recorded from those
     sources' libraries under the nvcc release UNCHANGED_SASS_NVCC. Under
@@ -1995,21 +1989,20 @@ def sass_identity_check(libs):
     release = nvcc_release()
     got = {}
     for mode in PP.MODES:
-        for src in ("point_pipeline", "ray_march"):
-            name = PP.library_name(src, mode)
-            got.update({k: v for k, v in sass_digests(libs[name]).items()
-                        if re.sub(r"_(bf16s|f32s)$", "", k) in UNCHANGED_KERNELS})
+        name = PP.library_name("point_pipeline", mode)
+        got.update({k: v for k, v in sass_digests(libs[name]).items()
+                    if re.sub(r"_(bf16s|f32s)$", "", k) in UNCHANGED_KERNELS})
     same = {k: UNCHANGED_SASS.get(k) == v for k, v in got.items()}
-    print(f"[1] SASS of the unchanged rows 3-6 entries ({len(got)}; nvcc {release}) against "
-          f"their build before the load entry's redesign: " + ", ".join(f"{k} {'equal' if ok else 'DIFFERS ' + got[k][:12]}"
+    print(f"[1] SASS of the unchanged rows 5-6 entries ({len(got)}; nvcc {release}) against "
+          f"their build before the march entries' redesigns: " + ", ".join(f"{k} {'equal' if ok else 'DIFFERS ' + got[k][:12]}"
                                         for k, ok in sorted(same.items())), flush=True)
     if release != UNCHANGED_SASS_NVCC:
         print(f"[1] not compared: UNCHANGED_SASS was recorded under nvcc {UNCHANGED_SASS_NVCC}",
               flush=True)
         return same
     check(len(got) == len(UNCHANGED_KERNELS) * len(PP.MODES),
-          f"unchanged rows 3-6 entries in the SASS: {sorted(got)}")
-    check(all(same.values()), "an unchanged rows 3-6 entry's SASS differs from its earlier build: "
+          f"unchanged rows 5-6 entries in the SASS: {sorted(got)}")
+    check(all(same.values()), "an unchanged rows 5-6 entry's SASS differs from its earlier build: "
           + ", ".join(k for k, ok in same.items() if not ok))
     return same
 

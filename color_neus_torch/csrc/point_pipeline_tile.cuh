@@ -669,9 +669,10 @@ __device__ __forceinline__ float sdf_operand(float w) {
 // the value by `post`. dst may be X. EXPORT also writes each row that has
 // a stash row (ex) at byte column `col` of it: the softplus before `post`
 // in f32 (SX_BF16, PREC_BF16's stash: after `post`, in bf16, the next
-// layer's input as JAX stores it), else the value in bf16. A barrier
-// after.
-template <int ROWS, bool EXPORT = false, bool SX_BF16 = false>
+// layer's input as JAX stores it), else the value in bf16. GATES false:
+// no gate is computed or stored (the reverse sweep rebuilds them from the
+// f32 softplus of the stash, export_gate4). A barrier after.
+template <int ROWS, bool EXPORT = false, bool SX_BF16 = false, bool GATES = true>
 __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__ b, int epi,
                                              float post, float* gates, float* dst, int ld,
                                              const Export& ex = Export{nullptr, 0, 0},
@@ -694,11 +695,11 @@ __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float sp = softplus100(v[i]);
-          g[i] = 1.f - expf(-100.f * sp);
+          if constexpr (GATES) g[i] = 1.f - expf(-100.f * sp);
           keep[i] = sp;
           v[i] = sp * post;
         }
-        st4(gates + r * HID + c, make_float4(g[0], g[1], g[2], g[3]));
+        if constexpr (GATES) st4(gates + r * HID + c, make_float4(g[0], g[1], g[2], g[3]));
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i) keep[i] = v[i] = epi == EPI_RELU ? fmaxf(v[i], 0.f) : v[i];
@@ -767,6 +768,23 @@ __device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
   __syncthreads();
 }
 
+// The f32 softplus at byte column col of row r of a forward tile's stash
+// rows (ex), a padding row's read from row 0: every read of a batch issues
+// unconditionally, ahead of its use (a read under a branch waits for the
+// one before it: PERF.md §6). The block wrote the rows (forward_pass's
+// export, a barrier since), so they are read with plain loads, not __ldg.
+__device__ __forceinline__ const float* export_sp(const Export& ex, int col, int r) {
+  return reinterpret_cast<const float*>(ex.row0 + size_t(r < ex.rows ? r : 0) * ex.bytes + col);
+}
+
+// The gates 1 - exp(-100 sp) of four of export_sp's values, bit for bit
+// forward_pass's; 0 on a padding row (real false).
+__device__ __forceinline__ float4 export_gate4(float4 sp, bool real) {
+  return real ? make_float4(1.f - expf(-100.f * sp.x), 1.f - expf(-100.f * sp.y),
+                            1.f - expf(-100.f * sp.z), 1.f - expf(-100.f * sp.w))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // After reverse layer l's product: X[:, :K] holds p = q_l @ W_l^T, the
 // cotangent of layer l's input (q_l = d raw / d (layer l output) times its
 // gate). Its hidden part, times 1/sqrt(2) at the skip layer and times the
@@ -775,10 +793,15 @@ __device__ __forceinline__ void narrow_layer(const float* X, int K, int n_out,
 // adds to the PE cotangents, which the sweep keeps in X's PE columns (X[:,
 // 256:304], zeros before the sweep): the skip layer's output lands there
 // and is scaled in place (the sweep's one 304-wide product, with the
-// cotangents still zero), layer 0's adds. A barrier after.
-template <int ROWS>
+// cotangents still zero), layer 0's adds. SG: the gates of layer l - 1
+// rebuilt from its f32 softplus in the tile's stash rows (ex, byte column
+// col: export_sp, read with X, export_gate4) instead of gates_prev. A
+// barrier after.
+template <int ROWS, bool SG = false>
 __device__ __forceinline__ void reverse_pass(float* X, int K, bool is_skip,
-                                             const float* gates_prev) {
+                                             const float* gates_prev,
+                                             const Export& ex = Export{nullptr, 0, 0},
+                                             int col = 0) {
   if (K == EMB) {
     for (int e = threadIdx.x; e < ROWS * EMB; e += THREADS) {
       const int r = e / EMB, c = e % EMB;
@@ -796,11 +819,13 @@ __device__ __forceinline__ void reverse_pass(float* X, int K, bool is_skip,
       for (int u = 0; u < NB; ++u) {
         const int r = r0 + STEP * (m + u);
         x[u] = ld4(X + r * LD<ROWS> + c);
-        g[u] = ld4(gates_prev + r * HID + c);
+        if constexpr (SG) g[u] = ld4(export_sp(ex, col, r) + c);
+        else g[u] = ld4(gates_prev + r * HID + c);
       }
 #pragma unroll
       for (int u = 0; u < NB; ++u) {
         const int r = r0 + STEP * (m + u);
+        if constexpr (SG) g[u] = export_gate4(g[u], r < ex.rows);
         st4(X + r * LD<ROWS> + c,
             is_skip ? make_float4(x[u].x * s * g[u].x, x[u].y * s * g[u].y, x[u].z * s * g[u].z,
                                   x[u].w * s * g[u].w)
@@ -1142,7 +1167,10 @@ __device__ __forceinline__ int sdf_k(const Params& p, int l) {
 // ([n_sdf - 1][ROWS][HID]) and features ([ROWS][HID]) in the block's
 // scratch. SAVE (the backward's recompute, ROWS = TILE) also keeps every
 // layer's input (sv); EXPORT (the march's save mode) writes each point's
-// row of the activation stash (ex, act_layout) from the passes.
+// row of the activation stash (ex, act_layout) from the passes, and where
+// the stash keeps the SDF softplus in f32 (PREC_F32STASH, PREC_F32: SG) the
+// reverse sweep rebuilds the gates from it (export_gate4) and `gates` is
+// neither written nor read.
 //
 // PREC is the MARCH_BWD_PRECISION mode (the note at the top): in PREC_F32
 // the SDF layers' products, the last layer's and the reverse sweep's run
@@ -1176,6 +1204,7 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
   float* const PE = X + HID;
   const int nf = p.n_sdf - 1, nc = p.n_color - 1, nr = p.n_relight > 0 ? p.n_relight - 1 : 0;
   const int c0 = 2 * nf + 1, q0 = c0 + nc, n_steps = q0 + nr;
+  constexpr bool SG = EXPORT && PREC != PREC_BF16;   // the gates from the stash
 
   for (int i = 0; i <= n_steps; ++i) {
     const int kind = i < nf ? SDF : i == nf ? LAST : i < c0 ? REV : i < q0 ? COL
@@ -1242,14 +1271,36 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
       // hidden layer; the PE cotangents (X[:, 256:304]) zero
       const float* wl = W + p.off[W_LAST];
       const float* g_last = gates + (nf - 1) * GS;
+      if constexpr (SG) {   // the stash's softplus read in batches of NB rows, then used
+        constexpr int NB = 8, STEP = THREADS / (HID / 4);
+        const int c = 4 * (tid % (HID / 4)), r0 = tid / (HID / 4);
+        const ActLayout al = act_layout(sh, PREC);
+        const int col = al.sx + (nf - 1) * al.sxw;
+        const float4 w4 = make_float4(
+            sdf_operand<PREC>(__ldg(wl + c)), sdf_operand<PREC>(__ldg(wl + c + 1)),
+            sdf_operand<PREC>(__ldg(wl + c + 2)), sdf_operand<PREC>(__ldg(wl + c + 3)));
+#pragma unroll 1
+        for (int m = 0; m < ROWS / STEP; m += NB) {
+          float4 sp[NB];
+#pragma unroll
+          for (int u = 0; u < NB; ++u) sp[u] = ld4(export_sp(ex, col, r0 + STEP * (m + u)) + c);
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            const int r = r0 + STEP * (m + u);
+            const float4 g4 = export_gate4(sp[u], r < ex.rows);
+            st4(X + r * L + c, make_float4(w4.x * g4.x, w4.y * g4.y, w4.z * g4.z, w4.w * g4.w));
+          }
+        }
+      } else {
 #pragma unroll 4
-      for (int e = tid; e < ROWS * HID / 4; e += THREADS) {
-        const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
-        const float4 g4 = ld4(g_last + r * HID + c);
-        st4(X + r * L + c, make_float4(sdf_operand<PREC>(__ldg(wl + c)) * g4.x,
-                                         sdf_operand<PREC>(__ldg(wl + c + 1)) * g4.y,
-                                         sdf_operand<PREC>(__ldg(wl + c + 2)) * g4.z,
-                                         sdf_operand<PREC>(__ldg(wl + c + 3)) * g4.w));
+        for (int e = tid; e < ROWS * HID / 4; e += THREADS) {
+          const int r = e / (HID / 4), c = 4 * (e % (HID / 4));
+          const float4 g4 = ld4(g_last + r * HID + c);
+          st4(X + r * L + c, make_float4(sdf_operand<PREC>(__ldg(wl + c)) * g4.x,
+                                           sdf_operand<PREC>(__ldg(wl + c + 1)) * g4.y,
+                                           sdf_operand<PREC>(__ldg(wl + c + 2)) * g4.z,
+                                           sdf_operand<PREC>(__ldg(wl + c + 3)) * g4.w));
+        }
       }
       for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] = 0.f;
       __syncthreads();
@@ -1274,9 +1325,16 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // ---- the product and its pass ----
     const int slot = kind == SDF ? W_SDF + l : kind == LAST ? W_FEAT : kind == REV ? WT_SDF + l
                    : kind == COL ? W_COL + l : W_REL + l;
-    // the reverse sweep's next gates into L2 while the product runs
-    if (kind == REV && l > 0 && tid == 0)
+    // the reverse sweep's next gates (SG: their stash rows' softplus) into
+    // L2 while the product runs
+    if constexpr (SG) {
+      const ActLayout al = act_layout(sh, PREC);
+      if (kind == REV && l > 0 && tid < ex.rows && tid < ROWS)
+        mlp::prefetch_l2(ex.row0 + size_t(tid) * ex.bytes + al.sx + (l - 1) * al.sxw,
+                         unsigned(HID * sizeof(float)));
+    } else if (kind == REV && l > 0 && tid == 0) {
       mlp::prefetch_l2(gates + (l - 1) * GS, unsigned(GS * sizeof(float)));
+    }
     // (PREC_F32 runs every reverse step in the six passes: the other steps
     // are forward products, so its bf16 reverse shapes are not compiled)
     if (f32_step)
@@ -1287,7 +1345,12 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     // spare there)
     float* g = kind == SDF ? gates + l * GS : kind == REV && l > 0 ? gates + (l - 1) * GS : nullptr;
     if (kind == REV) {
-      reverse_pass<ROWS>(X, K, l == p.skip, g);
+      if constexpr (SG) {
+        const ActLayout al = act_layout(sh, PREC);
+        reverse_pass<ROWS, true>(X, K, l == p.skip, g, ex, al.sx + (l > 0 ? l - 1 : 0) * al.sxw);
+      } else {
+        reverse_pass<ROWS>(X, K, l == p.skip, g);
+      }
     } else {
       const int bslot = kind == SDF ? B_SDF + l : kind == LAST ? B_FEAT
                       : kind == COL ? B_COL + l : B_REL + l;
@@ -1298,7 +1361,7 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
                           : al.cr + (kind == LAST ? 0 : kind == COL ? 1 + l : p.n_color + l) *
                                         HID * 2;
       }
-      forward_pass<ROWS, EXPORT, PREC == PREC_BF16>(X, W + p.off[bslot],
+      forward_pass<ROWS, EXPORT, PREC == PREC_BF16, !SG>(X, W + p.off[bslot],
                                  kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
                                  kind == SDF && l + 1 == p.skip ? INV_SQRT2 : 1.f, g,
                                  kind == LAST ? feat : X, kind == LAST ? HID : L, ex, col);
@@ -1361,10 +1424,12 @@ __device__ __forceinline__ void carve_fwd(Tile& t, Rings& st, unsigned char* sme
   __syncthreads();
 }
 
-// The forward kernels' scratch per block, floats: the gates and features
-// of a FWD_ROWS-point tile (PREC_F32: then hp_product's stage, fwd_save).
-__host__ __device__ inline long long fwd_scratch_floats(int n_sdf) {
-  return (long long)n_sdf * FWD_ROWS * HID + (PP_PREC == PREC_F32 ? (long long)HS_FLOATS : 0);
+// The forward kernels' scratch per block, floats: the gates (gates false:
+// none, forward_tile's SG) and features of a FWD_ROWS-point tile (PREC_F32:
+// then hp_product's stage, fwd_save).
+__host__ __device__ inline long long fwd_scratch_floats(int n_sdf, bool gates = true) {
+  return (long long)(gates ? n_sdf : 1) * FWD_ROWS * HID +
+         (PP_PREC == PREC_F32 ? (long long)HS_FLOATS : 0);
 }
 
 // What the forward kernels' tile saves: nothing, but in PREC_F32 Save::dw
@@ -1653,16 +1718,21 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
 // The f32 part of the block's backward scratch of mode prec, floats:
 // [n_sdf - 1] gates, features and [n_sdf - 1] tangent pre-gates as
 // [TILE][HID] slabs, then [n_color] colour and [n_relight] relight layer
-// inputs as [TILE][LDS] slabs; rounded up to 256 floats, the weight-grad
-// store of dw_batch tiles (dw_tile_bytes each) after it.
+// inputs as [TILE][LDS] slabs (load, the march's load entry, which reads
+// the gates, features and layer inputs from its stash: the tangent
+// pre-gates alone); rounded up to 256 floats, the weight-grad store of
+// dw_batch tiles (dw_tile_bytes each) after it.
 __host__ __device__ inline long long bwd_f32_floats(int n_sdf, int n_color, int n_relight,
-                                                    int prec) {
-  return ((2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB + 255) /
-         256 * 256;
+                                                    int prec, bool load = false) {
+  return ((load ? (n_sdf - 1LL) * GSLAB
+                : (2LL * (n_sdf - 1) + 1) * GSLAB + (long long)(n_color + n_relight) * SLAB) +
+          255) / 256 * 256;
 }
 
-__host__ __device__ inline long long bwd_scratch_floats(const Shape& s, int dw_batch, int prec) {
-  return bwd_f32_floats(s.n_sdf, s.n_color, s.n_relight, prec) + dw_batch * dw_tile_bytes(s) / 4;
+__host__ __device__ inline long long bwd_scratch_floats(const Shape& s, int dw_batch, int prec,
+                                                        bool load = false) {
+  return bwd_f32_floats(s.n_sdf, s.n_color, s.n_relight, prec, load) +
+         dw_batch * dw_tile_bytes(s) / 4;
 }
 
 // v0 = scale d emb_c / d x . grad_hat, the tangent seed of row r, column c.
@@ -2074,7 +2144,9 @@ __device__ __forceinline__ void carve_bwd(Tile& t, Rings& st, unsigned char* sme
 
 // Where the backward keeps its per-block scratch (bwd_scratch_floats floats
 // from `base`): the gates, features and tangent pre-gates, the colour and
-// relight layer inputs in f32, then the weight-grad store.
+// relight layer inputs in f32, then the weight-grad store. LOAD (the
+// march's load entry): the tangent pre-gates, then the store; the other
+// slots, which it does not use, point at the scratch's start.
 struct BwdScratch {
   float* gates;
   float* feat;
@@ -2084,16 +2156,20 @@ struct BwdScratch {
   unsigned char* store;   // dw_batch tiles of dw_tile_bytes
 };
 
-template <int PREC>
+template <int PREC, bool LOAD = false>
 __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* base) {
   BwdScratch s;
-  s.gates = base;
-  s.feat = s.gates + size_t(p.n_sdf - 1) * GSLAB;
-  s.zt = s.feat + GSLAB;
-  s.cx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
-  s.rx = s.cx + size_t(p.n_color) * SLAB;
+  if constexpr (LOAD) {
+    s.gates = s.feat = s.zt = s.cx = s.rx = base;
+  } else {
+    s.gates = base;
+    s.feat = s.gates + size_t(p.n_sdf - 1) * GSLAB;
+    s.zt = s.feat + GSLAB;
+    s.cx = s.zt + size_t(p.n_sdf - 1) * GSLAB;
+    s.rx = s.cx + size_t(p.n_color) * SLAB;
+  }
   s.store = reinterpret_cast<unsigned char*>(base + bwd_f32_floats(p.n_sdf, p.n_color,
-                                                                    p.n_relight, PREC));
+                                                                    p.n_relight, PREC, LOAD));
   return s;
 }
 

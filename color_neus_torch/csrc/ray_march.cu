@@ -50,10 +50,14 @@
 // sample gets zero input and zero cotangent.
 //   Forward: per tile, the points are made from the rays and z in shared
 //   memory, forward_tile<128, false> runs (its two warpgroups on 64 rows
-//   each, sharing every weight slab), and sdf, grad, relit and the delta
-//   sum go to a stash in device memory ([R S, 8], 32 bytes a point); then
-//   one thread per ray composites the ray in sample order (a sequential
-//   scan, in registers) and writes its 16 lanes.
+//   each, sharing every weight slab), then composite_tile composites the
+//   tile in parallel from what forward_tile left in shared memory, a
+//   thread a point (JAX's _composite_fwd in vector form): sdf, grad, relit
+//   and the delta sum go to a stash in device memory ([R S, 8], 32 bytes
+//   a point), T before each sample is a segmented exclusive product scan
+//   and the ray's sums segmented sums (seg_scan: fixed order), carried
+//   from tile to tile where a ray spans several, and a ray's last sample
+//   writes its 16 lanes.
 //   Backward (recompute): one thread per ray rebuilds the compositing from
 //   the stash, scans forward for T and back for G, and writes each point's
 //   cotangents
@@ -96,6 +100,7 @@ namespace {
 constexpr int STASH = 8;   // per point: sdf, grad (3), relit (3), delta sum
 constexpr int CTW = 16;    // per point in the backward's scratch: gbar lanes, tc_bar (13), mid (14)
 constexpr int TAIL_T = 6;  // save mode: the activation stash's tail slot of T before the sample
+static_assert(TAIL_T == 6, "composite_tile writes T as the tail's seventh float");
 
 struct March {
   Params net;              // the networks; net.scratch: per-block scratch
@@ -187,9 +192,130 @@ __device__ __forceinline__ long long n_groups(const March& m) {
 // Forward
 // ------------------------------------------------------------------------
 
+// A block-wide segmented inclusive scan over a forward tile's FWD_ROWS
+// points, thread order being point order (the threads past FWD_ROWS only
+// meet the barriers): thread i's v combined (MUL: multiplied, else added)
+// lane by lane with the v of every earlier thread back to the first j <= i
+// with `head` set (its ray's first sample), and with `carry` (the ray's
+// value from its earlier tiles) when there is no such j in the tile.
+// Hillis-Steele over the threads in shared memory (sv: NV x FWD_ROWS
+// floats, sf: FWD_ROWS ints), so the order of the operations is fixed. On
+// return sv[k * FWD_ROWS + i] holds lane k of thread i's result for every
+// thread to read; the caller meets a barrier before sv is written again.
+template <int NV, bool MUL>
+__device__ __forceinline__ void seg_scan(float (&v)[NV], bool head, const float (&carry)[NV],
+                                         float* sv, int* sf) {
+  const int tid = threadIdx.x;
+  const bool mine = tid < FWD_ROWS;
+  int f = head;
+  for (int d = 1; d < FWD_ROWS; d <<= 1) {
+    if (mine) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) sv[k * FWD_ROWS + tid] = v[k];
+      sf[tid] = f;
+    }
+    __syncthreads();
+    if (mine && !f && tid >= d) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        v[k] = MUL ? sv[k * FWD_ROWS + tid - d] * v[k] : sv[k * FWD_ROWS + tid - d] + v[k];
+      f = sf[tid - d];
+    }
+    __syncthreads();
+  }
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if (!f) v[k] = MUL ? carry[k] * v[k] : carry[k] + v[k];
+      sv[k * FWD_ROWS + tid] = v[k];
+    }
+  }
+  __syncthreads();
+}
+
+// The compositing of the forward tile t0 of a group (ray_march.py:154-178,
+// JAX's _composite_fwd), in parallel, from the tile's outputs forward_tile
+// left in shared memory: a thread a point. Each point writes its row of the
+// outs stash; T before the sample is a segmented exclusive product scan of
+// 1 - alpha + 1e-7 over its ray's earlier samples (JAX's
+// _seg_excl_cumprod), the ray's seven sums segmented inclusive sums (JAX's
+// _seg_sum), both in a fixed order (seg_scan, in X, which the tile no
+// longer needs), and the ray's last sample writes its 16 lanes of out. A
+// ray that spans several tiles (S > FWD_ROWS) carries its T and sums from
+// tile to tile in cT / acc. SAVE also writes each point's stash tail (gc,
+// delta, T: act_layout) in one pass. A barrier after.
+template <bool SAVE>
+__device__ __forceinline__ void composite_tile(const March& m, const Tile& t, long long r0, int t0,
+                                               int n_pts, float inv_s, const Export& ex, int tail,
+                                               float& cT, float (&acc)[7]) {
+  const int i = threadIdx.x, q = t0 + i;
+  const bool in = i < FWD_ROWS && q < n_pts;
+  const int s = in ? q % m.S : 0;
+  const long long r = r0 + (in ? q / m.S : 0);
+  const bool head = !in || s == 0;
+  const int last = min(FWD_ROWS, n_pts - t0) - 1;   // the tile's last point
+  float* sv = t.X;
+  int* sf = reinterpret_cast<int*>(t.X + 7 * FWD_ROWS);
+  float xv[1] = {1.f}, alpha = 0.f, v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (in) {
+    const float* g = t.G3 + 3 * i;
+    const float* dl = t.DL + 3 * i;
+    v[4] = dl[0] + dl[1] + dl[2];
+    float* o = m.stash + (r0 * m.S + q) * STASH;
+    st4(o, make_float4(t.S1[i], g[0], g[1], g[2]));
+    st4(o + 4, make_float4(t.RL[3 * i], t.RL[3 * i + 1], t.RL[3 * i + 2], v[4]));
+    if (RM_ABLATE != 3) {   // 3 pullback_only: no compositing
+      const float* zr = m.z + r * m.S;
+      const float dist = s + 1 < m.S ? zr[s + 1] - zr[s] : m.sample_dist;
+      const Comp c = composite_point(t.D3 + 3 * i, g, t.S1[i], dist, inv_s, t.P3 + 3 * i);
+      xv[0] = c.xv;
+      alpha = c.alpha;
+      v[5] = c.relaxed * ((c.normg - 1.f) * (c.normg - 1.f));
+      v[6] = c.relaxed;
+    }
+  }
+  float T = 1.f;
+  if (RM_ABLATE != 3) {
+    const float carry_t[1] = {cT};
+    seg_scan<1, true>(xv, head, carry_t, sv, sf);
+    if (in) T = head ? 1.f : (i > 0 ? sv[i - 1] : cT);
+    cT = sv[last];
+    __syncthreads();
+  }
+  if (SAVE && in) {
+    const float* gc = t.GC + 3 * i;
+    const float* dl = t.DL + 3 * i;
+    float* tl = reinterpret_cast<float*>(ex.row0 + size_t(i) * ex.bytes + tail);
+    st4(tl, make_float4(gc[0], gc[1], gc[2], dl[0]));
+    st4(tl + 4, make_float4(dl[1], dl[2], T, 0.f));   // T in slot TAIL_T
+  }
+  if (RM_ABLATE != 3) {
+    if (in) {
+      const float w = alpha * T;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v[j] = w * t.RL[3 * i + j];
+      v[3] = w;
+    }
+    seg_scan<7, false>(v, head, acc, sv, sf);
+    if (in && s == m.S - 1) {   // the ray's last sample: its lanes
+      float* o = m.out + r * 16;
+      st4(o, make_float4(v[0], v[1], v[2], v[3]));
+      st4(o + 4, make_float4(v[4], v[5], v[6], 0.f));
+      st4(o + 8, make_float4(0.f, 0.f, 0.f, 0.f));
+      st4(o + 12, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+#pragma unroll
+    for (int k = 0; k < 7; ++k) acc[k] = sv[k * FWD_ROWS + last];
+  }
+  __syncthreads();
+}
+
 // The forward; SAVE (the save mode) also writes every point's row of the
 // activation stash m.act: forward_tile's passes the layer outputs, then
-// gc and delta into the row's tail.
+// composite_tile gc, delta and T into the row's tail. In PREC_F32STASH and
+// PREC_F32 the save entry's reverse sweep rebuilds the SDF gates from the
+// stash's f32 softplus (forward_tile's SG), so its scratch holds the
+// features alone (march_fwd_scratch_floats).
 template <bool SAVE>
 __device__ __forceinline__ void march_fwd(const March& m) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -197,9 +323,9 @@ __device__ __forceinline__ void march_fwd(const March& m) {
   Rings st;
   carve_fwd(t, st, smem);
   const Params& p = m.net;
-  const int tid = threadIdx.x;
   float* gates = p.scratch + size_t(blockIdx.x) * m.scratch_floats;  // [n_sdf - 1][128][HID]
-  float* feat = gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;        // [128][HID]
+  float* feat = SAVE && PP_PREC != PREC_BF16 ? gates                 // [128][HID]
+                                             : gates + size_t(p.n_sdf - 1) * FWD_ROWS * HID;
   const Save none = fwd_save(feat);
   const ActLayout al = act_layout(shape_of(p), PP_PREC);
   const float inv_s = *m.inv_s;
@@ -208,55 +334,13 @@ __device__ __forceinline__ void march_fwd(const March& m) {
     const long long r0 = grp * m.G;
     const int nr = int(min((long long)m.G, m.n_rays - r0));
     const int n_pts = nr * m.S;
+    float cT = 1.f, acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // a ray's carry
     for (int t0 = 0; t0 < n_pts; t0 += FWD_ROWS) {
       load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);
       const Export ex{SAVE ? m.act + (r0 * m.S + t0) * al.bytes : nullptr, n_pts - t0, al.bytes};
       forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);
-      if (tid < FWD_ROWS && t0 + tid < n_pts) {
-        float* st_ = m.stash + (r0 * m.S + t0 + tid) * STASH;
-        st_[0] = t.S1[tid];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          st_[1 + j] = t.G3[tid * 3 + j];
-          st_[4 + j] = t.RL[tid * 3 + j];
-        }
-        st_[7] = t.DL[tid * 3] + t.DL[tid * 3 + 1] + t.DL[tid * 3 + 2];
-        if constexpr (SAVE) {
-          const float* gc = t.GC + tid * 3;
-          const float* dl = t.DL + tid * 3;
-          float* tl = reinterpret_cast<float*>(ex.row0 + size_t(tid) * al.bytes + al.tail);
-          st4(tl, make_float4(gc[0], gc[1], gc[2], dl[0]));
-          st4(tl + 4, make_float4(dl[1], dl[2], 0.f, 0.f));
-        }
-      }
-      __syncthreads();
+      composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);
     }
-    // ---- one thread per ray: the compositing scan and the per-ray sums ----
-    if (RM_ABLATE != 3 && tid < nr) {   // 3 pullback_only: no compositing
-      const long long r = r0 + tid;
-      const float* rd = m.rays_d + 3 * r;
-      float T = 1.f, acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int s = 0; s < m.S; ++s) {
-        const float* st = m.stash + (r * m.S + s) * STASH;
-        float pt[3], dist, mid;
-        sample_point(m, r, s, pt, &dist, &mid);
-        const Comp c = composite_point(rd, st + 1, st[0], dist, inv_s, pt);
-        if constexpr (SAVE)   // the transmittance before the sample, for the load's VJP
-          reinterpret_cast<float*>(m.act + (r * m.S + s) * al.bytes + al.tail)[TAIL_T] = T;
-        const float w = c.alpha * T;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) acc[j] += w * st[4 + j];
-        acc[3] += w;
-        acc[4] += st[7];
-        acc[5] += c.relaxed * ((c.normg - 1.f) * (c.normg - 1.f));
-        acc[6] += c.relaxed;
-        T *= c.xv;
-      }
-      float* o = m.out + r * 16;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) o[k] = k < 7 ? acc[k] : 0.f;
-    }
-    __syncthreads();
   }
 }
 
@@ -526,8 +610,8 @@ __device__ __forceinline__ void march_bwd(const March& m) {
   const Params& p = m.net;
   const int tid = threadIdx.x;
   float* base = p.scratch + size_t(blockIdx.x) * m.scratch_floats;
-  const BwdScratch s = carve_bwd_scratch<PP_PREC>(p, base);
-  float* ct = base + bwd_scratch_floats(shape_of(p), p.dw_batch, PP_PREC);          // [G S][CTW]
+  const BwdScratch s = carve_bwd_scratch<PP_PREC, LOAD>(p, base);
+  float* ct = base + bwd_scratch_floats(shape_of(p), p.dw_batch, PP_PREC, LOAD);    // [G S][CTW]
   float* Tr = ct + size_t(m.G) * m.S * CTW;                                 // [G S]
   float* sinv = Tr + size_t(m.G) * m.S;                                     // [G]
   float* rh = sinv + m.G;                                                   // [G][6]
@@ -627,8 +711,17 @@ March make_march(const float* rays_o, const float* rays_d, const float* z, const
   return m;
 }
 
-long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch) {
-  return bwd_scratch_floats(sh, dw_batch, PP_PREC) +
+// The per-block scratch of an entry (save: the save mode's), floats: the
+// forward's (fwd_scratch_floats; the save entry keeps no gates in
+// PREC_F32STASH and PREC_F32: forward_tile's SG) and the backward's
+// (bwd_scratch_floats; the load entry keeps the tangent pre-gates alone,
+// then the group scratch).
+long long march_fwd_scratch_floats(int n_sdf, bool save) {
+  return fwd_scratch_floats(n_sdf, !(save && PP_PREC != PREC_BF16));
+}
+
+long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch, bool save) {
+  return bwd_scratch_floats(sh, dw_batch, PP_PREC, save) +
          group_scratch_floats(rays_per_group(S, TILE), S);
 }
 
@@ -658,11 +751,15 @@ extern "C" int ray_march_rays_per_group(int S, int fwd) {
   return rays_per_group(S, fwd ? FWD_ROWS : TILE);
 }
 
-extern "C" long long ray_march_fwd_scratch_floats(int n_sdf) { return fwd_scratch_floats(n_sdf); }
+extern "C" long long ray_march_fwd_scratch_floats(int n_sdf, int save) {
+  return march_fwd_scratch_floats(n_sdf, save != 0);
+}
 
 extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_color,
-                                                  int n_relight, int y_in, int S, int dw_batch) {
-  return march_bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, S, dw_batch);
+                                                  int n_relight, int y_in, int S, int dw_batch,
+                                                  int save) {
+  return march_bwd_scratch_floats(Shape{n_sdf, skip, n_color, n_relight, y_in}, S, dw_batch,
+                                  save != 0);
 }
 
 // Each launch returns 0 or the CUDA error code of the attribute call or the
@@ -672,7 +769,7 @@ extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_col
 // `act`: the save mode's activation stash, [R S] rows of
 // ray_march_act_bytes; null runs the recompute's kernels.
 // Forward: out [R, 16], stash [R S, 8], scratch n_blocks x
-// ray_march_fwd_scratch_floats floats.
+// ray_march_fwd_scratch_floats(n_sdf, act != null) floats.
 extern "C" int ray_march_fwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
     const float* w, const void* wimg, float* out, float* stash, void* act, float* scratch,
@@ -689,7 +786,7 @@ extern "C" int ray_march_fwd_launch(
   m.stash = stash;
   m.act = static_cast<unsigned char*>(act);
   m.net.scratch = scratch;
-  m.scratch_floats = fwd_scratch_floats(n_sdf);
+  m.scratch_floats = march_fwd_scratch_floats(n_sdf, act != nullptr);
   auto kernel = act != nullptr ? PP_NAME(ray_march_save_fwd_kernel) : PP_NAME(ray_march_fwd_kernel);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_FWD));
@@ -700,7 +797,7 @@ extern "C" int ray_march_fwd_launch(
 
 // Backward: stash from the forward on the same inputs, gbar [R, 16],
 // rays_hat [R, 8], partial n_blocks x (n_grad + 1) zeros, scratch n_blocks x
-// ray_march_bwd_scratch_floats(..., dw_batch) floats.
+// ray_march_bwd_scratch_floats(..., dw_batch, act != null) floats.
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
     const float* w, const void* wimg, const float* stash, const void* act, const float* gbar,
@@ -723,7 +820,7 @@ extern "C" int ray_march_bwd_launch(
   m.partial = partial;
   m.n_grad = n_grad;
   m.net.scratch = scratch;
-  m.scratch_floats = march_bwd_scratch_floats(shape_of(m.net), S, dw_batch);
+  m.scratch_floats = march_bwd_scratch_floats(shape_of(m.net), S, dw_batch, act != nullptr);
   auto kernel = act != nullptr ? PP_NAME(ray_march_load_bwd_kernel) : PP_NAME(ray_march_bwd_kernel);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(SMEM_BWD));

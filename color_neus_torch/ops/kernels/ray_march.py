@@ -348,8 +348,8 @@ def _library(mode: str = "f32stash", name: str | None = None):
         for fn in (lib.ray_march_fwd_max_blocks, lib.ray_march_bwd_max_blocks):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
-        lib.ray_march_fwd_scratch_floats.argtypes = [i]
-        lib.ray_march_bwd_scratch_floats.argtypes = [i] * 7
+        lib.ray_march_fwd_scratch_floats.argtypes = [i, i]
+        lib.ray_march_bwd_scratch_floats.argtypes = [i] * 8
         for fn in (lib.ray_march_fwd_scratch_floats, lib.ray_march_bwd_scratch_floats):
             fn.restype = ll
         lib.ray_march_error_string.argtypes = [i]
@@ -424,8 +424,8 @@ def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
     if R == 0:
         return out, stash, act
     grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, PP._mode(pw), "fwd", save))
-    scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0]), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0], int(save)),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_fwd_launch(
@@ -487,11 +487,11 @@ def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
     G = lib.ray_march_rays_per_group(S, 0)
     batch = PP.dw_batch(-(-groups // grid) * -(-G * S // 64), 1)
     tables, images, net = PP._net_args(pw)
-    # per block: the recompute's (or the load's) gates, tangent stream and
-    # colour / relight inputs, the weight-grad operands of `batch` tiles, the group's
-    # per-point cotangents; and a partial of the weight grads (the packed
-    # layout) and of inv_s's, summed afterwards
-    per_block = lib.ray_march_bwd_scratch_floats(*PP._shape_args(net), S, batch)
+    # per block: the recompute's gates, tangent stream and colour / relight
+    # inputs (the load's tangent stream alone), the weight-grad operands of
+    # `batch` tiles, the group's per-point cotangents; and a partial of the
+    # weight grads (the packed layout) and of inv_s's, summed afterwards
+    per_block = lib.ray_march_bwd_scratch_floats(*PP._shape_args(net), S, batch, int(save))
     scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
     partial = torch.zeros((grid, pw.n_grad + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -4,6 +4,7 @@ whose kernels add clock64() deltas of their phases into a __device__ array
 
     python -m color_neus_torch.tools.tile_profile DIR          # row 5's forward tile
     python -m color_neus_torch.tools.tile_profile DIR --load   # row 4's load entry
+    python -m color_neus_torch.tools.tile_profile DIR --save   # row 3's save entry
 
 on the card, from a checkout's root. DIR (a directory git ignores, e.g.
 tree_check/prof) receives the copy and is emptied first.
@@ -28,6 +29,17 @@ operand stores and the reverse's gate passes, inside its products the A
 loads, the chunks with thread 0's waits on the weight ring, the closing
 barrier, and inside the flush its waits and its read-modify-writes; the
 cycles per block and the share of the kernel, then its ms.
+
+The save entry (SAVE_PATCHES): march_fwd<true> of csrc/ray_march.cu
+(ray_march_save_fwd_kernel) in mode PROF_PREC at the load entry's shapes
+and inputs; per phase of the kernel (per tile the point load,
+forward_tile and the compositing, composite_tile, with its parts: the
+per-point work with the outs stash's write, the two scans, the stash
+tail's write, the out write), inside forward_tile its steps as row 5's
+(each step's work before its product, the product, its pass: the SDF
+passes write the gates and the stash's softplus, the reverse sweep's read
+the gates back) and its products' parts; the cycles per block and the
+share of the kernel, then its ms.
 
 The timers cost what they read (a clock read and an atomic per phase and
 block), and thread 0's reading of a phase without a barrier at its end is
@@ -265,6 +277,63 @@ LOAD_PATCHES = [
     _reader(RMC, 'extern "C" int ray_march_n_off() { return N_OFF; }'),
 ]
 
+# row 3's save entry, march_fwd<true> (PROF: thread 0 of a block of the
+# save entry; PROF_C the same in composite_tile): per tile the point load,
+# forward_tile (its steps, products and passes: PATCHES' tile timers,
+# counters 0-18) and composite_tile (the per-point compositing with the
+# outs stash's write, T's product scan, the stash tail's write, the sums'
+# scan, the out write with the carries); the kernel's total
+SAVE_PATCHES = [p for p in PATCHES if p[0] == TP] + [
+    (RMC, "  const float inv_s = *m.inv_s;\n\n"
+          "  for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {\n",
+     "  const float inv_s = *m.inv_s;\n  const bool PROF = SAVE && threadIdx.x == 0;\n"
+     "  const long long c_k = clock64();\n\n"
+     "  for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {\n"),
+    (RMC, "      load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);\n",
+     "      long long c_t = clock64();\n      load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);\n"
+     "      if (PROF) PROF_ADD(50, c_t);\n      c_t = clock64();\n"),
+    (RMC, "      forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);\n",
+     "      forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);\n"
+     "      if (PROF) PROF_ADD(51, c_t);\n      c_t = clock64();\n"),
+    (RMC, "      composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);\n"
+          "    }\n  }\n}\n",
+     "      composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);\n"
+     "      if (PROF) PROF_ADD(54, c_t);\n    }\n  }\n  if (PROF) PROF_ADD(56, c_k);\n}\n"),
+    (RMC, "  const int i = threadIdx.x, q = t0 + i;\n",
+     "  const bool PROF_C = SAVE && threadIdx.x == 0;\n  long long c_x = clock64();\n"
+     "  const int i = threadIdx.x, q = t0 + i;\n"),
+    (RMC, "  float T = 1.f;\n  if (RM_ABLATE != 3) {\n",
+     "  if (PROF_C) PROF_ADD(52, c_x);\n  c_x = clock64();\n"
+     "  float T = 1.f;\n  if (RM_ABLATE != 3) {\n"),
+    (RMC, "  if (SAVE && in) {\n    const float* gc = t.GC + 3 * i;\n",
+     "  if (PROF_C) PROF_ADD(57, c_x);\n  c_x = clock64();\n"
+     "  if (SAVE && in) {\n    const float* gc = t.GC + 3 * i;\n"),
+    (RMC, "  if (RM_ABLATE != 3) {\n    if (in) {\n      const float w = alpha * T;\n",
+     "  if (PROF_C) PROF_ADD(53, c_x);\n  c_x = clock64();\n"
+     "  if (RM_ABLATE != 3) {\n    if (in) {\n      const float w = alpha * T;\n"),
+    (RMC, "    if (in && s == m.S - 1) {   // the ray's last sample: its lanes\n",
+     "    if (PROF_C) PROF_ADD(58, c_x);\n    c_x = clock64();\n"
+     "    if (in && s == m.S - 1) {   // the ray's last sample: its lanes\n"),
+    (RMC, "    for (int k = 0; k < 7; ++k) acc[k] = sv[k * FWD_ROWS + last];\n  }\n"
+          "  __syncthreads();\n}\n",
+     "    for (int k = 0; k < 7; ++k) acc[k] = sv[k * FWD_ROWS + last];\n  }\n"
+     "  __syncthreads();\n  if (PROF_C) PROF_ADD(55, c_x);\n}\n"),
+    _reader(RMC, 'extern "C" int ray_march_n_off() { return N_OFF; }'),
+]
+
+# (counter, name) of the save entry's report; 56 is the kernel's total
+SAVE_NAMES = [
+    (50, "tile: point load"), (51, "tile: forward_tile"),
+    *[(i, "  " + n) for i, n in enumerate(
+        [f"{k} {part}" for k in ("sdf", "last", "rev", "col", "rel")
+         for part in ("pre", "product", "pass")] + ["end pre"])],
+    (16, "  products: A loads + barrier"), (17, "  products: chunks"),
+    (18, "  products: closing barrier"),
+    (54, "tile: compositing (composite_tile)"),
+    (52, "  per point, outs stash write (thread 0's share)"), (57, "  T's product scan"),
+    (53, "  stash tail write (thread 0's share)"), (58, "  the sums' scan"),
+    (55, "  out write, carries, barrier"), (56, "kernel total")]
+
 # (counter, name) of the load entry's report; 26 is the kernel's total
 LOAD_NAMES = [
     (20, "group: compositing VJP"), (21, "tile: the stash's read"),
@@ -390,17 +459,70 @@ def profile_load() -> int:
     return 0
 
 
+def profile_save() -> int:
+    """Run in the instrumented copy: row 3's save entry at 1024 x 128 and
+    1024 x 512 in mode PROF_PREC, one launch each after three, the split
+    printed, then one JSON line of every counter's cycles per block."""
+    import ctypes
+    import json
+
+    import torch
+    import chip_smoke as cs
+    from color_neus_torch import pin_precision
+    from color_neus_torch.ops.kernels import ray_march as RM
+    from color_neus_torch.tools import march_ablate as MA
+
+    pin_precision()
+    device = torch.device("cuda")
+    mode = os.environ.get("PROF_PREC", "f32stash")
+    lib = RM._library(mode)
+    lib.prof_read.argtypes = [ctypes.c_void_p]
+    blocks = RM._max_blocks(lib, device, mode, "fwd", True)
+    rec = {"prec": mode, "blocks": blocks, "card": cs.card_line()}
+    for S in (128, 512):
+        pw, ro, rd, z, inv_s, _ = MA.inputs(1024, device, mode=mode, n_samples=S)
+        sd = 2.0 / pw.rcfg.n_samples
+
+        def run():
+            return RM.launch_ray_march_save(pw, ro, rd, z, inv_s, sd)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        lib.prof_reset()
+        run()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 64)()
+        lib.prof_read(ctypes.cast(buf, ctypes.c_void_p))
+        total = buf[56]
+        ms = cs.cuda_ms(run)
+        print(f"[tile_profile] save entry {mode}, 1024 x {S}: {ms:.4f} ms (instrumented) | "
+              f"{blocks} blocks | {rec['card']}", flush=True)
+        for i, name in SAVE_NAMES:
+            print(f"{name:44s} {buf[i] / blocks:14.0f} cycles per block "
+                  f"{buf[i] / total * 100:7.2f}%")
+        rec[f"S{S}"] = {"ms": ms, **{name.strip(): buf[i] / blocks for i, name in SAVE_NAMES}}
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+# the entries: option -> (patches, the copy's run option, its profile)
+ENTRIES = {None: (PATCHES, "--run", profile), "--load": (LOAD_PATCHES, "--run-load", profile_load),
+           "--save": (SAVE_PATCHES, "--run-save", profile_save)}
+
+
 def main() -> int:
-    if len(sys.argv) == 2 and sys.argv[1] in ("--run", "--run-load"):
-        return profile() if sys.argv[1] == "--run" else profile_load()
-    load = sys.argv[2:] == ["--load"]
-    if len(sys.argv) != 2 and not load:
+    runs = {run: fn for _, run, fn in ENTRIES.values()}
+    if len(sys.argv) == 2 and sys.argv[1] in runs:
+        return runs[sys.argv[1]]()
+    opt = sys.argv[2] if len(sys.argv) == 3 else None
+    if len(sys.argv) not in (2, 3) or opt not in ENTRIES:
         print(__doc__, file=sys.stderr)
         return 2
+    patches, run, _ = ENTRIES[opt]
     out = os.path.abspath(sys.argv[1])
-    make_copy(out, LOAD_PATCHES if load else PATCHES)
-    return subprocess.run([sys.executable, "-m", "color_neus_torch.tools.tile_profile",
-                           "--run-load" if load else "--run"], cwd=out).returncode
+    make_copy(out, patches)
+    return subprocess.run([sys.executable, "-m", "color_neus_torch.tools.tile_profile", run],
+                          cwd=out).returncode
 
 
 if __name__ == "__main__":

@@ -14,13 +14,8 @@
 // (PP_NAME; tests/test_torch_bwd_precision_emulated.py).
 #include <cstdio>
 #include <string>
-#include <thread>
 #include <vector>
 
-thread_local emu_dim3 threadIdx;
-emu_dim3 blockIdx, blockDim, gridDim;
-std::barrier<>* emu_barrier;
-float emu_shuffle[256];
 namespace {
 alignas(1024) unsigned char smem[SMEM_BWD > SMEM_FWD ? SMEM_BWD : SMEM_FWD];
 }
@@ -67,8 +62,6 @@ int main(int argc, char** argv) {
                                   12345.f);
   gridDim.x = blocks;
   emu_smem_base = smem;
-  std::barrier<> bar(THREADS);
-  emu_barrier = &bar;
   for (int pass = 0; pass < 2; ++pass) {
     Params q = p;
     if (pass == 0) {
@@ -85,14 +78,10 @@ int main(int argc, char** argv) {
     }
     for (int b = 0; b < blocks; ++b) {
       blockIdx.x = b;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < THREADS; ++t)
-        threads.emplace_back([&q, pass, t] {
-          threadIdx.x = t;
-          if (pass == 0) PP_NAME(point_pipeline_fwd_kernel)(q);
-          else PP_NAME(point_pipeline_bwd_kernel)(q);
-        });
-      for (auto& th : threads) th.join();
+      emu_run_block(THREADS, [&q, pass] {
+        if (pass == 0) PP_NAME(point_pipeline_fwd_kernel)(q);
+        else PP_NAME(point_pipeline_bwd_kernel)(q);
+      });
     }
   }
   std::vector<float> grad(n_grad);

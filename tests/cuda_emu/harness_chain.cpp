@@ -14,13 +14,8 @@
 // shows.
 #include <cstdio>
 #include <string>
-#include <thread>
 #include <vector>
 
-thread_local emu_dim3 threadIdx;
-emu_dim3 blockIdx, blockDim, gridDim;
-std::barrier<>* emu_barrier;
-float emu_shuffle[256];
 namespace {
 constexpr size_t SMEM_MAX = std::max({SMEM_F32, SMEM_CHAIN, SMEM_DEF});
 alignas(1024) unsigned char smem[SMEM_MAX];
@@ -54,19 +49,13 @@ static void run_chain(const Chain& c, int blocks, int kernel) {
   blocks = int(std::min<long long>(blocks, n_tiles(c.n, rows)));
   gridDim.x = blocks;
   emu_smem_base = smem;
-  std::barrier<> bar(threads_per_block);
-  emu_barrier = &bar;
   for (int b = 0; b < blocks; ++b) {
     blockIdx.x = b;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < threads_per_block; ++t)
-      threads.emplace_back([&c, t, kernel] {
-        threadIdx.x = t;
-        if (kernel == 0) chain_f32_kernel<A>(c);
-        else if (kernel == 1) chain_bf16_kernel<A>(c);
-        else chain_deferred_kernel(c);
-      });
-    for (auto& th : threads) th.join();
+    emu_run_block(threads_per_block, [&c, kernel] {
+      if (kernel == 0) chain_f32_kernel<A>(c);
+      else if (kernel == 1) chain_bf16_kernel<A>(c);
+      else chain_deferred_kernel(c);
+    });
   }
 }
 

@@ -11,20 +11,20 @@
 // over the blocks in index order as the reduction kernel does; writes
 // out.f32, stash.f32, rays_hat.f32 and grad.f32 (the packed weight grads,
 // then inv_s's) to DIR, and the forward's scratch as it ends
-// (scratch_fwd.f32: each block's last tile's gates and features,
-// fwd_scratch_floats a block). The scratch starts as garbage, so a read of a slot
-// the kernel did not write shows. Compiled with -DPP_PREC=<mode>, it runs
+// (scratch_fwd.f32: each block's last tile's gates and features, or its
+// features alone where the save entry keeps no gates;
+// march_fwd_scratch_floats a block). The scratch starts as garbage, so a
+// read of a slot the kernel did not write shows; each entry's scratch is
+// sized as the wrapper sizes it (march_fwd_scratch_floats,
+// march_bwd_scratch_floats) and followed by a guard of GUARD floats, and a
+// write into the guard (an entry writing past its scratch) exits with code
+// 3. Compiled with -DPP_PREC=<mode>, it runs
 // that MARCH_BWD_PRECISION mode's kernels (PP_NAME;
 // tests/test_torch_bwd_precision_emulated.py).
 #include <cstdio>
 #include <string>
-#include <thread>
 #include <vector>
 
-thread_local emu_dim3 threadIdx;
-emu_dim3 blockIdx, blockDim, gridDim;
-std::barrier<>* emu_barrier;
-float emu_shuffle[256];
 namespace {
 alignas(1024) unsigned char smem[SMEM_BWD > SMEM_FWD ? SMEM_BWD : SMEM_FWD];
 }
@@ -48,6 +48,8 @@ static void dump(const std::string& path, const std::vector<float>& v) {
 }
 
 static const float* F(const std::vector<char>& b) { return reinterpret_cast<const float*>(b.data()); }
+
+constexpr size_t GUARD = 1 << 16;
 
 int main(int argc, char** argv) {
   if (argc != 2) return 2;
@@ -73,14 +75,12 @@ int main(int argc, char** argv) {
   std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
   const int act_bytes = act_layout(shape_of(base.net), PP_PREC).bytes;
   std::vector<unsigned char> act(save ? size_t(R) * S * act_bytes : 0, 0xAB);
-  const long long fwd_floats = fwd_scratch_floats(base.net.n_sdf);
-  const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch);
-  std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats, 12345.f);
-  std::vector<float> scratch_bwd(size_t(blocks) * bwd_floats, 12345.f);
+  const long long fwd_floats = march_fwd_scratch_floats(base.net.n_sdf, save);
+  const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch, save);
+  std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats + GUARD, 12345.f);
+  std::vector<float> scratch_bwd(size_t(blocks) * bwd_floats + GUARD, 12345.f);
   gridDim.x = blocks;
   emu_smem_base = smem;
-  std::barrier<> bar(THREADS);
-  emu_barrier = &bar;
   for (int pass = 0; pass < 2; ++pass) {
     March q = march(pass == 0);
     q.stash = stash.data();
@@ -100,16 +100,19 @@ int main(int argc, char** argv) {
     }
     for (int b = 0; b < blocks; ++b) {
       blockIdx.x = b;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < THREADS; ++t)
-        threads.emplace_back([&q, pass, save, t] {
-          threadIdx.x = t;
-          if (pass == 0) save ? PP_NAME(ray_march_save_fwd_kernel)(q) : PP_NAME(ray_march_fwd_kernel)(q);
-          else save ? PP_NAME(ray_march_load_bwd_kernel)(q) : PP_NAME(ray_march_bwd_kernel)(q);
-        });
-      for (auto& th : threads) th.join();
+      emu_run_block(THREADS, [&q, pass, save] {
+        if (pass == 0) save ? PP_NAME(ray_march_save_fwd_kernel)(q) : PP_NAME(ray_march_fwd_kernel)(q);
+        else save ? PP_NAME(ray_march_load_bwd_kernel)(q) : PP_NAME(ray_march_bwd_kernel)(q);
+      });
     }
   }
+  for (const auto* sc : {&scratch_fwd, &scratch_bwd})
+    for (size_t i = sc->size() - GUARD; i < sc->size(); ++i)
+      if ((*sc)[i] != 12345.f) {
+        fprintf(stderr, "an entry wrote past its scratch\n");
+        return 3;
+      }
+  scratch_fwd.resize(scratch_fwd.size() - GUARD);
   std::vector<float> grad(n_grad + 1);
   for (long long i = 0; i <= n_grad; ++i) {
     float s = 0.f;

@@ -10,13 +10,8 @@
 // point the kernel did not write shows.
 #include <cstdio>
 #include <string>
-#include <thread>
 #include <vector>
 
-thread_local emu_dim3 threadIdx;
-emu_dim3 blockIdx, blockDim, gridDim;
-std::barrier<>* emu_barrier;
-float emu_shuffle[512];
 namespace {
 constexpr size_t SMEM_MAX = SMEM_F32 > SMEM_BF16 ? (SMEM_F32 > SMEM_X3 ? SMEM_F32 : SMEM_X3)
                                                   : (SMEM_BF16 > SMEM_X3 ? SMEM_BF16 : SMEM_X3);
@@ -64,17 +59,9 @@ int main(int argc, char** argv) {
   const Choice c = choose(mode, relu, points);
   gridDim.x = unsigned((n + c.pts - 1) / c.pts);
   blockDim.x = unsigned(c.threads);
-  std::barrier<> bar(c.threads);
-  emu_barrier = &bar;
   for (unsigned b = 0; b < gridDim.x; ++b) {
     blockIdx.x = b;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < c.threads; ++t)
-      threads.emplace_back([&p, &c, t] {
-        threadIdx.x = unsigned(t);
-        c.kern(p);
-      });
-    for (auto& th : threads) th.join();
+    emu_run_block(c.threads, [&p, &c] { c.kern(p); });
   }
   FILE* f = fopen((d + "/out.f32").c_str(), "wb");
   fwrite(out.data(), 4, out.size(), f);

@@ -7,7 +7,7 @@ in the same mode.
 As tests/test_torch_point_pipeline_emulated.py and
 tests/test_torch_ray_march_emulated.py do for the default f32stash: the
 source runs through a host C++ compiler against tests/cuda_emu/
-cuda_runtime.h (one std::thread per CUDA thread, the software wgmma and
+cuda_runtime.h (a block's CUDA threads as fibers, the software wgmma and
 bulk copies), with -DPP_PREC selecting the mode's kernels, on 2 blocks at 2
 tiles a weight-grad batch, and the plain twins run with bf16=True in the
 same march_bwd_precision. Every output, pts / dirs (rays) cotangent and
@@ -123,16 +123,18 @@ def _sdf_part(name) -> bool:
     return name in ("sdf", "grad", "features", "features f64") or name.startswith("sdf layer")
 
 
-def kernel_features(tmp_path, blocks, n_sdf, rows):
+def kernel_features(tmp_path, blocks, n_sdf, rows, gates=True):
     """The emulated forward's SDF features (the last SDF layer's 256
     outputs, [N, 256]) from its scratch as it ended (the harnesses'
     scratch_fwd.f32: per block the gates of its last 128-point tile, then
     their features; csrc/point_pipeline_tile.cuh fwd_scratch_floats).
     n_sdf: the SDF's linear layers; rows: [N] (block, row of its tile) of
-    each point, every point in its block's last tile."""
+    each point, every point in its block's last tile; gates False: the
+    scratch holds the features alone (the march's save entry in 'f32')."""
     scratch = np.fromfile(tmp_path / "scratch_fwd.f32", np.float32).reshape(blocks, -1)
     tile = FWD_ROWS * PP.HID
-    feat = scratch[:, (n_sdf - 1) * tile:n_sdf * tile].reshape(blocks, FWD_ROWS, PP.HID)
+    first = n_sdf - 1 if gates else 0
+    feat = scratch[:, first * tile:(first + 1) * tile].reshape(blocks, FWD_ROWS, PP.HID)
     b, r = rows
     return torch.from_numpy(feat[b, r].copy())
 

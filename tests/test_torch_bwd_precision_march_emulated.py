@@ -11,6 +11,7 @@ tests/test_torch_bwd_precision_emulated.py's _compile (the harness
 tests/cuda_emu/harness_march.cpp). Skips without a C++20 compiler."""
 
 import os
+import re
 import shutil
 import subprocess
 
@@ -131,8 +132,78 @@ def test_act_bytes_match_the_library_layout(tmp_path, mode, kind):
     assert RM.march_stash_bytes(rcfg, 1000) == 1000 * (lib_bytes + RM.STASH * 4)
 
 
+@pytest.mark.parametrize("kind", ["color_neus", "neus"])
+@pytest.mark.parametrize("mode", ["f32stash", *PREC])
+def test_scratch_floats_match_what_each_entry_writes(tmp_path, mode, kind):
+    """The per-block scratch the library reports for each entry
+    (ray_march_fwd_scratch_floats / ray_march_bwd_scratch_floats, what the
+    wrapper allocates) against what the entry's compiled layout writes,
+    in each MARCH_BWD_PRECISION mode: the forward's gates ([n_sdf - 1]
+    [128][256]; none in the save entry where its stash keeps the softplus
+    in f32, from which the reverse sweep rebuilds them) and features
+    ([128][256]) and, in 'f32', hp_product's stage; the backward's f32
+    part (the recompute's gates, features, tangent pre-gates and colour /
+    relight inputs; the load entry's tangent pre-gates alone: it reads the
+    rest from its stash), rounded up to 256 floats, then dw_batch tiles'
+    weight-grad store and the group scratch. The harness sizes the emulated entries' scratch so, with a
+    guard after it that no entry may write (harness_march.cpp)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
+             else ColorConfig())
+    rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
+    n_sdf, n_color, n_relight = RM._net_counts(rcfg)
+    _, skip, _ = PP._check_kernel_shape(rcfg)
+    y_in = rcfg.relight.y_in_layer if kind == "color_neus" else -1
+    S, batch = 100, 3
+    net = f"{n_sdf}, {skip}, {n_color}, {n_relight}, {y_in}"
+    with open(os.path.join(CSRC, "ray_march.cu")) as f:
+        body = re.sub(r"<<<.*?>>>", "", f.read(), flags=re.S)
+    main = f"""
+#include <cstdio>
+namespace {{
+unsigned char smem[16];
+}}
+int main() {{
+  printf("%lld %lld %lld %lld %lld %lld", ray_march_fwd_scratch_floats({n_sdf}, 0),
+         ray_march_fwd_scratch_floats({n_sdf}, 1),
+         ray_march_bwd_scratch_floats({net}, {S}, {batch}, 0),
+         ray_march_bwd_scratch_floats({net}, {S}, {batch}, 1), dw_tile_bytes(Shape{{{net}}}),
+         group_scratch_floats(rays_per_group({S}, TILE), {S}));
+}}
+"""
+    src = tmp_path / "scratch.cpp"
+    src.write_text(body + main)
+    exe = tmp_path / "scratch"
+    proc = subprocess.run([cxx, "-std=c++20", "-pthread", "-Wno-unknown-pragmas",
+                           f"-DPP_PREC={({'f32stash': 0} | PREC)[mode]}", "-I", CUDA_EMU, "-I",
+                           CSRC, "-x", "c++", str(src), "-o", str(exe)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr:
+        pytest.skip("the host compiler lacks C++20 <barrier>")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    fwd_rec, fwd_save, bwd_rec, bwd_load, dw_tile, group = (
+        int(v) for v in subprocess.run([str(exe)], capture_output=True, text=True,
+                                       check=True).stdout.split())
+    hid, rows, tile, lds = PP.HID, FWD_ROWS, 64, PP.HID + 48
+    stage = 2 * tile * (hid + 64) if mode == "f32" else 0   # hp_product's stage (HS_FLOATS)
+    assert fwd_rec == n_sdf * rows * hid + stage
+    assert fwd_save == (n_sdf if mode == "bf16" else 1) * rows * hid + stage
+
+    def rup(n):
+        return -(-n // 256) * 256
+    rec_f32 = rup((2 * (n_sdf - 1) + 1) * tile * hid + (n_color + n_relight) * tile * lds)
+    assert bwd_rec == rec_f32 + batch * dw_tile // 4 + group
+    assert bwd_load == rup((n_sdf - 1) * tile * hid) + batch * dw_tile // 4 + group
+
+
 MARCH_CASES = [EM.CASES[0], EM.CASES[1]]
 MARCH_IDS = [EM.IDS[0], EM.IDS[1]]
+# the save pair's other cases: rays packed several to a forward tile, and
+# a ray over three forward tiles (the compositing's carry from tile to tile)
+SAVE_MORE = EM.SAVE_CASES[2:]
+SAVE_MORE_IDS = EM.SAVE_IDS[2:]
 
 
 @pytest.mark.parametrize("save", [False, True], ids=["recompute", "save"])
@@ -144,6 +215,33 @@ def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, k
     against the mode's twins, as tests/test_torch_ray_march_emulated.py
     holds f32stash; 'f32' forward lanes of the SDF (the eikonal sums)
     within RTOL_F32."""
+    check_mode_case(march_emulators[mode], tmp_path, mode, kind, R, S, variance, noise, seed,
+                    save, features=True)
+
+
+@pytest.mark.parametrize("kind,R,S,variance,noise,seed", SAVE_MORE, ids=SAVE_MORE_IDS)
+@pytest.mark.parametrize("mode", list(PREC))
+def test_emulated_march_mode_save_cases(march_emulators, tmp_path, mode, kind, R, S, variance,
+                                        noise, seed):
+    """The save pair in the mode on the rest of the f32stash file's save
+    cases (several rays a forward tile; a 300-sample ray whose compositing
+    carries T and the sums over three forward tiles, the last partial): its
+    out lanes and the stash tail's T against the mode's twins as above, and
+    its backward against the save twins (the backward on the twin's stash:
+    in 'bf16' the load rebuilds the gates from the stash's bf16 values,
+    which at inv_s ~2000 move the SDF leaves past the recompute twin's
+    limits)."""
+    check_mode_case(march_emulators[mode], tmp_path, mode, kind, R, S, variance, noise, seed,
+                    True, features=False, stash_twins=True)
+
+
+def check_mode_case(emu, tmp_path, mode, kind, R, S, variance, noise, seed, save, features,
+                    stash_twins=False):
+    """One case of the march's pair in the mode against its twins;
+    features: also the 'f32' SDF features from the forward's scratch (every
+    ray group one forward tile, a block each); stash_twins: the backward
+    against the save twins (ray_march_bwd_plain on ray_march_plain's save
+    stash, in f32 and float64) instead of the recompute twins."""
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
@@ -168,14 +266,14 @@ def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, k
                                       for layers in (pw.sdf, pw.color, pw.relight)])
     assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > EM.MARGIN
 
-    res = EM._run(march_emulators[mode], tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar,
-                  blocks=2, save=save)
+    res = EM._run(emu, tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=2, save=save)
     out, stash, rays_hat, s_hat, grads = res[:5]
-    if mode == "f32":   # every ray group one forward tile, a block each
+    if mode == "f32" and features:   # every ray group one forward tile, a block each
         G = max(FWD_ROWS // S, 1)
         assert G * S <= FWD_ROWS and -(-R // G) <= 2
         q = np.arange(R * S)
-        feat = kernel_features(tmp_path, 2, len(pw.sdf), ((q // S) // G, q - (q // S) // G * G * S))
+        feat = kernel_features(tmp_path, 2, len(pw.sdf), ((q // S) // G, q - (q // S) // G * G * S),
+                               gates=not save)
         for name, net, p, dr in (("twin", pw, pts, dirs),
                                  ("float64 twin", pw64, pts.double(), dirs.double())):
             err = EM._rel(feat.to(p.dtype), twin_sdf_outputs(net, p, dr)[1])
@@ -192,9 +290,13 @@ def test_emulated_march_mode_matches_its_twin(march_emulators, tmp_path, mode, k
     for name, (a, b) in chip_smoke.MARCH_LANES.items():
         limit = RTOL_F32 if mode == "f32" and name == "eikonal" else RTOL_BF16
         assert EM._rel(out[:, a:b], plain_out[:, a:b]) <= limit, f"out {name}"
-    args64 = (ro.double(), rd.double(), z.double(), inv_s.double(), sd, gbar.double())
-    ref = RM.ray_march_bwd_plain(pw64, *args64, bf16=True)
-    plain = RM.ray_march_bwd_plain(pw, ro, rd, z, inv_s, sd, gbar, bf16=True)
+    args64 = (ro.double(), rd.double(), z.double(), inv_s.double(), sd)
+    st64 = st32 = None
+    if stash_twins:
+        st64 = RM.ray_march_plain(pw64, *args64, bf16=True, save=True)[1]
+        st32 = RM.ray_march_plain(pw, ro, rd, z, inv_s, sd, bf16=True, save=True)[1]
+    ref = RM.ray_march_bwd_plain(pw64, *args64, gbar.double(), bf16=True, stash=st64)
+    plain = RM.ray_march_bwd_plain(pw, ro, rd, z, inv_s, sd, gbar, bf16=True, stash=st32)
     EM._close(rays_hat[:, 0:3], plain[0], ref[0], "rays_o")
     EM._close(rays_hat[:, 4:7], plain[1], ref[1], "rays_d")
     EM._close(s_hat.reshape(1), plain[2].reshape(1), ref[2].reshape(1), "inv_s")

@@ -3,7 +3,7 @@ compiled for the CPU and held against its plain PyTorch versions.
 
 As tests/test_torch_ray_march_emulated.py does for rows 3 and 4: the source
 runs through a host C++ compiler against tests/cuda_emu/cuda_runtime.h,
-one std::thread per CUDA thread with a barrier for __syncthreads
+a block's CUDA threads as fibers with a barrier for __syncthreads
 (tests/cuda_emu/harness_chain.cpp). What runs here, on 150 rows (two full
 64-row tiles and a ragged one) and L = 3, on at most 2 persistent blocks
 (the launch's grid cap: one block per group of tiles), and 400 rows on

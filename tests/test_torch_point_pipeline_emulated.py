@@ -3,8 +3,8 @@ rows 5 and 6, forward and backward), compiled for the CPU and held
 against their plain PyTorch versions at full width.
 
 The kernels run on the card only; this test runs the same source through
-a host C++ compiler against tests/cuda_emu/cuda_runtime.h, one std::thread
-per CUDA thread with a barrier for __syncthreads, a software mma.sync (the
+a host C++ compiler against tests/cuda_emu/cuda_runtime.h, a block's CUDA
+threads as fibers with a barrier for __syncthreads, a software mma.sync (the
 forward and the recompute), a software wgmma that decodes the K-major
 128-byte-swizzled descriptors and takes A from shared memory or from
 registers (the backward's products and its weight-grad flush), and bulk

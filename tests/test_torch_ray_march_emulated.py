@@ -4,7 +4,7 @@ PyTorch versions at full width.
 
 As tests/test_torch_point_pipeline_emulated.py does for rows 5 and 6: the
 source runs through a host C++ compiler against tests/cuda_emu/
-cuda_runtime.h, one std::thread per CUDA thread with a barrier for
+cuda_runtime.h, a block's CUDA threads as fibers with a barrier for
 __syncthreads, the software mma.sync and wgmma and the bulk copies
 (tests/cuda_emu/harness_march.cpp), on 2 blocks at 2 tiles a weight-grad
 batch. The cases cover a 128-sample ray (two 64-point tiles: one full
@@ -21,7 +21,11 @@ same cases: its forward as the recompute's, every segment of its
 activation stash against the bf16 plain twin's (point_pipeline.ActStash),
 its backward against the same references, and copies of the source whose
 load reads the hidden SDF layers one segment off, or whose compositing
-VJP ends each ray's segment of its suffix sums a sample early, must fail.
+VJP ends each ray's segment of its suffix sums a sample early, must fail;
+so must copies of its forward whose compositing scan drops the T a ray
+carries from one forward tile to the next or takes T inclusive of its
+sample, or whose reverse sweep rebuilds the gates from the wrong layer's
+softplus in the stash.
 The card-only parts (timing, races between warps, the GPU's float
 functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
 Skips without a C++20 compiler.
@@ -361,3 +365,38 @@ def test_emulated_march_tie_gate(emulator, tmp_path_factory, tmp_path):
         errs[name] = abs(s_hat - want) / abs(want)
     assert errs["source"] <= RTOL_TIE, errs
     assert errs["mutant"] > 0.5, errs
+
+
+# the save forward's compositing (ray_march.cu composite_tile): T before a
+# sample is the exclusive product scan, carried from a ray's earlier
+# forward tiles; copies that drop the carry, or take T inclusive of its
+# own sample, must fail
+CARRY_T = "cT = sv[last];"
+CARRY_T_MUTANT = "cT = 1.f;"
+T_EXCL = "if (in) T = head ? 1.f : (i > 0 ? sv[i - 1] : cT);"
+T_EXCL_MUTANT = "if (in) T = sv[i];"
+# the save forward's reverse sweep rebuilds layer l - 1's gates from the
+# stash's f32 softplus (point_pipeline_tile.cuh forward_tile, SG): a copy
+# that reads layer l's must fail
+SG_READ = "reverse_pass<ROWS, true>(X, K, l == p.skip, g, ex, al.sx + (l > 0 ? l - 1 : 0) * al.sxw);"
+SG_READ_MUTANT = "reverse_pass<ROWS, true>(X, K, l == p.skip, g, ex, al.sx + l * al.sxw);"
+
+
+@pytest.mark.parametrize("name,case,line,mutant", [
+    ("carry", SAVE_CASES[3], CARRY_T, CARRY_T_MUTANT),
+    ("inclusive_t", CASES[2], T_EXCL, T_EXCL_MUTANT),
+    ("gate_layer", CASES[0], SG_READ, SG_READ_MUTANT)],
+    ids=["carry", "inclusive_t", "gate_layer"])
+def test_emulated_march_save_forward_mutant_fails(tmp_path_factory, tmp_path, name, case, line,
+                                                  mutant):
+    """Copies of the save forward that must leave the bf16 twin by far
+    more than the save test's limits: the T carried over a ray's forward
+    tiles dropped (the 300-sample ray, three forward tiles), T taken
+    inclusive of its own sample (27-sample rays, several a tile), the
+    reverse sweep's gates rebuilt from the next layer's softplus in the
+    stash (the 128-sample ray)."""
+    kind, R, S, variance, noise, seed = case
+    exe = _compile(tmp_path_factory.mktemp(f"cuda_emu_march_{name}_mutant"),
+                   mutate=(line, mutant))
+    with pytest.raises(AssertionError):
+        _check_case(exe, tmp_path, kind, R, S, variance, noise, seed, save=True)

@@ -4,7 +4,7 @@ twins at full width.
 
 As tests/test_torch_point_pipeline_emulated.py does for rows 5 and 6: the
 source runs through a host C++ compiler against tests/cuda_emu/cuda_runtime.h,
-one std::thread per CUDA thread with a barrier for __syncthreads, a software
+a block's CUDA threads as fibers with a barrier for __syncthreads, a software
 mma.sync, and the weight ring's bulk copies as a memcpy beside a counting
 mbarrier (tests/cuda_emu/harness_sdf.cpp). It runs both entries (the sweep
 and the points), both dot types (and the grid's f32x3), softplus and relu, on

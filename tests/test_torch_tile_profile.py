@@ -1,9 +1,10 @@
 """color_neus_torch/tools/tile_profile.py on the CPU: the tool patches a
 copy of the checkout's kernels with clock64() timers at anchors in their
 sources (PATCHES: row 5's forward tile; LOAD_PATCHES: row 4's load entry;
-HEADER: the counters), so an edit of a kernel that moves an anchor breaks
-it on the card. Here every anchor of both lists occurs exactly once in
-the tree, and each instrumented copy compiles, in every MARCH_BWD_PRECISION
+SAVE_PATCHES: row 3's save entry; HEADER: the counters), so an edit of a
+kernel that moves an anchor breaks it on the card. Here every anchor of
+each list occurs exactly once in the tree, and each instrumented copy
+compiles, in every MARCH_BWD_PRECISION
 mode, with the host C++ compiler against tests/cuda_emu/cuda_runtime.h
 (clock64, the 64-bit atomicAdd and the symbol copies stubbed: only the
 syntax is checked). Skips the compile without a C++20 compiler."""
@@ -18,10 +19,11 @@ import pytest
 from color_neus_torch.tools import tile_profile as TP
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-LISTS = {"forward": TP.PATCHES, "load": TP.LOAD_PATCHES}
+LISTS = {"forward": TP.PATCHES, "load": TP.LOAD_PATCHES, "save": TP.SAVE_PATCHES}
 # the instrumented source of each list and the harness that drives it
 SOURCES = {"forward": ("point_pipeline.cu", "harness.cpp"),
-           "load": ("ray_march.cu", "harness_march.cpp")}
+           "load": ("ray_march.cu", "harness_march.cpp"),
+           "save": ("ray_march.cu", "harness_march.cpp")}
 STUBS = """#include "cuda_runtime.h"
 inline long long clock64() { return 0; }
 inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
