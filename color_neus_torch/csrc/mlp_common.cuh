@@ -185,6 +185,65 @@ __device__ __forceinline__ void prefetch_l2(const void* src, unsigned bytes) {
 #endif
 }
 
+// p[0 .. 4) += v (p in device memory, 16-byte aligned) as one vector
+// reduction (red.global.add.v4.f32, sm_90): the add happens in L2, the
+// thread issues it and goes on, nothing is read back into the SM. One
+// thread's reductions to one address are performed in its program order.
+// The CPU rehearsal adds in place.
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
+#ifdef __CUDACC__
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(p), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+#else
+  p[0] += v.x;
+  p[1] += v.y;
+  p[2] += v.z;
+  p[3] += v.w;
+#endif
+}
+
+// One thread: copy `bytes` (a multiple of 16) of shared memory to device
+// memory with the TMA unit (both addresses 16-byte aligned), as one bulk
+// group; bulk_store_wait_read then waits until the copy has read the
+// shared memory, which may then be written again, bulk_store_wait until
+// its writes are done (before the kernel ends). The caller fences its
+// threads' shared-memory writes to the async proxy (fence_proxy_async) and
+// meets a barrier first. The CPU rehearsal copies at once.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(unsigned(__cvta_generic_to_shared(src))), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+#else
+  memcpy(dst, src, bytes);
+#endif
+}
+
+__device__ __forceinline__ void bulk_store_wait_read() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+#endif
+}
+
+// One thread: dst[0 .. bytes / 4) += src's f32 values (shared memory), the
+// adds done by the TMA unit in L2, as one bulk group (bulk_store's rules).
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, unsigned bytes) {
+#ifdef __CUDACC__
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
+               :: "l"(dst), "r"(unsigned(__cvta_generic_to_shared(src))), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+#else
+  const float* s = static_cast<const float*>(src);
+  for (unsigned i = 0; i < bytes / 4; ++i) dst[i] += s[i];
+#endif
+}
+
+__device__ __forceinline__ void bulk_store_wait() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+#endif
+}
+
 // ---- wgmma: Hopper's warpgroup product, operands in shared memory ----
 // The operand layout every wgmma of the port reads (K-major, 128-byte
 // swizzle): a [rows][64] bf16 block of 128-byte rows, 8-row groups 1024
@@ -238,6 +297,17 @@ __device__ __forceinline__ void wgmma_wait_all() {
 __device__ __forceinline__ void fence_proxy_async() {
 #ifdef __CUDACC__
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
+}
+
+// After wgmma_wait_all: the accumulators' registers as the wait leaves
+// them, so that no read of them (a shuffle, a select) is scheduled before
+// the wait (ptxas would then serialize the kernel's wgmma, C7514).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#ifdef __CUDACC__
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 #endif
 }
 

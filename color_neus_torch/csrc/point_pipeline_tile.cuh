@@ -149,6 +149,7 @@ struct Params {
 constexpr int WSLAB = 8192, WSTAGES = 4;
 constexpr int FWD_STAGES = 3, FWD_SPS = 2;   // the forward kernels' ring: 3 stages of 2 slabs
 constexpr int DW_A = 8192, DW_B = 32768, DW_STAGE = 2 * DW_A + DW_B, DW_STAGES = 3;
+constexpr int CR_SLOT = HID * 128;   // the save stash's image of a cr slot of a tile (act_layout)
 constexpr int SMEM_ALIGN = 1024;     // the swizzle atom: descriptors need it
 // the forward kernels: the weight ring, X of 128 points (its PE columns
 // also hold the PE cotangents: forward_tile), the small buffers, the
@@ -204,6 +205,8 @@ struct Export {
   unsigned char* row0;   // the row of the tile's first point
   int rows;              // the tile's points that have a row (the rest pad)
   int bytes;             // bytes a row
+  unsigned char* cr = nullptr;   // the colour / relight images of the tile's first
+                                 // 64-point backward tile (act_layout); the second's next
 };
 
 constexpr size_t SLAB = size_t(TILE) * LDS;
@@ -666,10 +669,10 @@ __device__ __forceinline__ float sdf_operand(float w) {
 // first, then its arithmetic, then its stores (a warp a contiguous half
 // row each), so a thread has NB rows' latencies in flight at once.
 // EPI_SOFTPLUS also stores the gate to `gates` ([ROWS][HID]) and scales
-// the value by `post`. dst may be X. EXPORT also writes each row that has
-// a stash row (ex) at byte column `col` of it: the softplus before `post`
-// in f32 (SX_BF16, PREC_BF16's stash: after `post`, in bf16, the next
-// layer's input as JAX stores it), else the value in bf16. GATES false:
+// the value by `post`. dst may be X. EXPORT (EPI_SOFTPLUS) also writes
+// each row that has a stash row (ex) at byte column `col` of it: the
+// softplus before `post` in f32 (SX_BF16, PREC_BF16's stash: after `post`,
+// in bf16, the next layer's input as JAX stores it). GATES false:
 // no gate is computed or stored (the reverse sweep rebuilds them from the
 // f32 softplus of the stash, export_gate4). A barrier after.
 template <int ROWS, bool EXPORT = false, bool SX_BF16 = false, bool GATES = true>
@@ -706,21 +709,61 @@ __device__ __forceinline__ void forward_pass(float* X, const float* __restrict__
       }
       st4(dst + r * ld + c, make_float4(v[0], v[1], v[2], v[3]));
       if constexpr (EXPORT) {
-        if (r < ex.rows) {
+        if (epi == EPI_SOFTPLUS && r < ex.rows) {
           unsigned char* k = ex.row0 + size_t(r) * ex.bytes + col;
-          if (SX_BF16 && epi == EPI_SOFTPLUS)
+          if (SX_BF16)
             *reinterpret_cast<uint2*>(k + 2 * c) =
                 make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-          else if (epi == EPI_SOFTPLUS)
-            st4(reinterpret_cast<float*>(k) + c, make_float4(keep[0], keep[1], keep[2], keep[3]));
           else
-            *reinterpret_cast<uint2*>(k + 2 * c) =
-                make_uint2(pack_bf16(keep[0], keep[1]), pack_bf16(keep[2], keep[3]));
+            st4(reinterpret_cast<float*>(k) + c, make_float4(keep[0], keep[1], keep[2], keep[3]));
         }
       }
     }
   }
   __syncthreads();
+}
+
+// EXPORT (the save entry): a colour / relight layer input, X[:, :HID] of
+// the forward tile's ROWS = 2 TILE points (two backward tiles, rows 64 h
+// ..), as cr slot `slot` of each backward tile's images in the stash (ex.cr
+// + h tile_bytes; act_layout): bf16, K-major [HID k][64 points], the
+// 128-byte swizzle, a padding point (r >= ex.rows) zero, a tile without
+// points not written. Each tile's image is built in shared memory at
+// `stage` (the weight ring, idle between products), thread t its row k =
+// t (a warp's reads of X on 32 consecutive columns, its 16-byte writes on
+// 8 rows' distinct bank groups: no bank conflict), then thread 0 copies
+// it out with one 32 KB bulk store; the second tile waits for the first
+// copy's reads, and the caller's next product for the last one's (thread
+// 0, before it refills the ring: forward_tile). Only reads X.
+template <int ROWS>
+__device__ __forceinline__ void export_cr(const float* X, const Export& ex, int slot,
+                                          long long tile_bytes, unsigned char* stage) {
+  static_assert(ROWS == 2 * TILE, "export_cr: the forward kernels' tiles");
+  static_assert(size_t(FWD_STAGES) * FWD_SPS * WSLAB >= CR_SLOT, "export_cr: the stage");
+  static_assert(THREADS == HID, "export_cr: a thread a row");
+  const int k = threadIdx.x;
+  for (int h = 0; h < 2 && TILE * h < ex.rows; ++h) {
+    if (h == 1) {   // the first tile's copy has read the stage
+      if (threadIdx.x == 0) mlp::bulk_store_wait_read();
+      __syncthreads();
+    }
+#pragma unroll 2
+    for (int c = 0; c < TILE / 8; ++c) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = TILE * h + 8 * c + e;
+        v[e] = r < ex.rows ? X[r * LD<ROWS> + k] : 0.f;
+      }
+      *reinterpret_cast<uint4*>(stage + mlp::sw128_offset(k, 8 * c)) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                     pack_bf16(v[6], v[7]));
+    }
+    mlp::fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      mlp::bulk_store(ex.cr + h * tile_bytes + size_t(slot) * CR_SLOT, stage, CR_SLOT);
+  }
 }
 
 // out[r][j] = bf16(X[r, :K]) . bf16(W[j, :K]) + b[j] for j < n_out <= 3, r
@@ -949,30 +992,51 @@ __host__ __device__ inline Shape shape_of(const Params& p) {
   return Shape{p.n_sdf, p.skip, p.n_color, p.n_relight, p.y_in};
 }
 
-// A point's row of the activation stash of mode prec, byte offsets: sx,
-// the softplus of every hidden SDF layer ([n_sdf - 1][HID], sxw bytes a
-// layer: f32, layer l + 1's input before the skip's 1/sqrt(2), and layer
-// l's gate rebuilt as 1 - exp(-100 sp); in PREC_BF16 bf16, layer l + 1's
-// input after it, the gate rebuilt from the bf16 value times sqrt(2)
-// there); cr, in bf16 [n_color + n_relight - 1][HID], the hidden part of
-// each colour layer's input (layer 0: the features) and of each relight
-// layer's from layer 1 on (relu outputs); tail, 8 f32: gc (3), delta (3),
-// 0, 0. The PE, the small inputs and the y_in layer's gc block are rebuilt
-// from the points and the tail. The backward reads the bf16 parts only as
-// bf16 product operands, relu masks and the bf16 gates' source.
+// The activation stash of mode prec, in two parts. A point's row, byte
+// offsets: sx, the softplus of every hidden SDF layer ([n_sdf - 1][HID],
+// sxw bytes a layer: f32, layer l + 1's input before the skip's 1/sqrt(2),
+// and layer l's gate rebuilt as 1 - exp(-100 sp); in PREC_BF16 bf16, layer
+// l + 1's input after it, the gate rebuilt from the bf16 value times
+// sqrt(2) there); tail, 8 f32: gc (3), delta (3), T, 0. Then, from a
+// 1024-byte boundary after the rows (act_cr_offset), the cr images of
+// every 64-point backward tile (the halves of the forward's tiles, a group
+// of rays ray_march.cu's rays_per_group), n_cr * CR_SLOT bytes a tile:
+// slot j, in bf16, the hidden part of a colour layer's input (slot
+// l: colour layer l's, layer 0's the features) or a relight layer's
+// (slot n_color + l - 1: relight layer l's, l >= 1; relu outputs), as the
+// flush's A^T operand: K-major [HID k][64 points], 128 bytes a row, the
+// 128-byte swizzle (mlp::sw128_offset(k, point)), a padding point zero.
+// So the flush bulk-copies a colour / relight layer's first 256 rows from
+// the stash (dw_issue_load) and the backward stages them from it (stage_cr).
+// The PE, the small inputs and the y_in layer's gc block are rebuilt from
+// the points and the tail. The backward reads the bf16 parts only as bf16
+// product operands, relu masks and the bf16 gates' source.
 struct ActLayout {
-  int sx, sxw, cr, tail, bytes;
+  int sx, sxw, tail, bytes;   // bytes: a point's row
+  int n_cr;                   // cr slots: n_color + n_relight - 1
 };
 
 __host__ __device__ inline ActLayout act_layout(const Shape& s, int prec) {
-  const int nr = s.n_relight > 0 ? s.n_relight - 1 : 0;
   ActLayout a;
   a.sx = 0;
   a.sxw = HID * (prec == PREC_BF16 ? 2 : 4);
-  a.cr = (s.n_sdf - 1) * a.sxw;
-  a.tail = a.cr + (s.n_color + nr) * HID * 2;
+  a.tail = (s.n_sdf - 1) * a.sxw;
   a.bytes = a.tail + 8 * 4;
+  a.n_cr = s.n_color + (s.n_relight > 0 ? s.n_relight - 1 : 0);
   return a;
+}
+
+// Where the cr images start in a stash of n_pts points' rows.
+__host__ __device__ inline long long act_cr_offset(long long n_pts, const ActLayout& a) {
+  return (n_pts * a.bytes + 1023) / 1024 * 1024;
+}
+
+// The cr slot of a weight-grad block bi (dw_kind's order) whose first 256
+// input rows the stash holds (a colour layer's, a relight layer's from
+// layer 1 on), else -1.
+__host__ __device__ inline int cr_slot_of(const Shape& s, int bi) {
+  const int c = bi - s.n_sdf, r = bi - (s.n_sdf + s.n_color - 1);
+  return c >= 0 && c < s.n_color - 1 ? c : (r >= 1 ? s.n_color + r - 1 : -1);
 }
 
 // x less its bf16 parts before PART (PART 0: x; 1: x - hi; 2: x - hi - mid):
@@ -1033,14 +1097,16 @@ __device__ __forceinline__ void save_t3(const float* src, int K, unsigned char* 
   }
 }
 
-// The load entry's view of a 64-point tile's rows of the save mode's
-// activation stash (ray_march.cu): row r at row0 + r bytes (layout al),
-// its first n rows real; a padding row reads as zeros, and nothing is
-// read under RM_ABLATE 2 (no_unflatten: the stash not read).
+// The load entry's view of a 64-point tile of the save mode's activation
+// stash (ray_march.cu): row r at row0 + r bytes (layout al), its first n
+// rows real, a padding row reading as zeros; its cr images at cr
+// (act_layout). Nothing is read under RM_ABLATE 2 (no_unflatten: the
+// stash not read).
 struct TileStash {
   const unsigned char* row0;
   int bytes, n;
   ActLayout al;
+  const unsigned char* cr;
 };
 
 // The stash is read-only in the backward: its reads are wide non-coherent
@@ -1049,17 +1115,6 @@ struct TileStash {
 // another, each behind the last one's store, pays a device-memory latency
 // each: the load entry's time when the tile staged its rows so, PERF.md
 // §5).
-
-// Columns c .. c + 4 of row r of the stash's cr slot `slot` (bf16, one
-// 8-byte read); zeros on a padding row.
-__device__ __forceinline__ float4 stash_cr4(const TileStash& ts, int slot, int r, int c) {
-  if (RM_ABLATE == 2) return make_float4(1.f, 1.f, 1.f, 1.f);
-  if (r >= ts.n) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(ts.row0 + size_t(r) * ts.bytes + ts.al.cr +
-                                                        slot * HID * 2 + 2 * c));
-  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-}
 
 // Columns c .. c + 4 of row r of what the stash holds of hidden SDF layer
 // l: its softplus sp in f32 (one 16-byte read), or in PREC_BF16 the input
@@ -1107,13 +1162,40 @@ __device__ __forceinline__ void stash_rows(R&& read, F&& put) {
   }
 }
 
-// dst[:, :HID] (row stride LDX) = the cr slot `slot` of the tile's rows in
-// f32; gc_block: also dst[:, HID .. HID + EMB] = [gc, 0 ...] (the relight
-// y_in layer's input). A barrier after.
+// Point 8 c + e's value in a 16-byte chunk w of a cr image (points 8 c ..
+// 8 c + 8 of one row k), in f32.
+__device__ __forceinline__ float cr_value(const uint4& w, int e) {
+  const unsigned x = e < 4 ? (e < 2 ? w.x : w.y) : (e < 6 ? w.z : w.w);
+  return __uint_as_float(e % 2 ? x & 0xffff0000u : x << 16);
+}
+
+// dst[:, :HID] (row stride LDX) = the cr slot `slot` of the tile in f32,
+// from its image in the stash (ts.cr; K-major [HID k][64 points], the
+// 128-byte swizzle: act_layout), a padding point's zeros as the forward
+// wrote them: thread t takes rows k 4 (t % 64) .. + 4 of points 8 c .. + 8,
+// c = t / 64 and 4 + t / 64, its eight 16-byte reads first, then sixteen
+// 16-byte stores of four columns a point (a warp on 128 consecutive
+// columns of a row: no bank conflict); gc_block: also dst[:, HID .. HID +
+// EMB] = [gc, 0 ...] (the relight y_in layer's input). A barrier after.
 __device__ __forceinline__ void stage_cr(const TileStash& ts, const Tile& t, int slot, float* dst,
                                          bool gc_block) {
-  stash_rows<16>([&](int r, int c) { return stash_cr4(ts, slot, r, c); },
-                 [&](int r, int c, float4 v) { st4(dst + r * LDX + c, v); });
+  const int k0 = 4 * (threadIdx.x % 64), c0 = threadIdx.x / 64;
+  const unsigned char* img = ts.cr + size_t(slot) * CR_SLOT;
+  uint4 w[2][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[u][i] = RM_ABLATE == 2 ? make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u)
+                               : __ldg(reinterpret_cast<const uint4*>(
+                                     img + mlp::sw128_offset(k0 + i, 8 * (c0 + 4 * u))));
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      st4(dst + (8 * (c0 + 4 * u) + e) * LDX + k0,
+          make_float4(cr_value(w[u][0], e), cr_value(w[u][1], e), cr_value(w[u][2], e),
+                      cr_value(w[u][3], e)));
   if (gc_block)
     for (int e = threadIdx.x; e < TILE * EMB; e += THREADS)
       dst[(e / EMB) * LDX + HID + e % EMB] = e % EMB < 3 ? t.GC[(e / EMB) * 3 + e % EMB] : 0.f;
@@ -1241,6 +1323,8 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
         st4(X + r * L + c, ld4(feat + r * HID + c));
       }
       __syncthreads();
+      if constexpr (EXPORT)   // the features: cr slot 0
+        export_cr<ROWS>(X, ex, 0, (long long)act_layout(sh, PREC).n_cr * CR_SLOT, st.w.buf);
     }
     // ---- a narrow layer: the sdf row, gc (colour's last), delta (relight's last) ----
     const bool colour_last = (kind == REL && l == 0) || (kind == END && nr == 0);
@@ -1335,6 +1419,8 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     } else if (kind == REV && l > 0 && tid == 0) {
       mlp::prefetch_l2(gates + (l - 1) * GS, unsigned(GS * sizeof(float)));
     }
+    if constexpr (EXPORT)   // the last cr image's bulk store has read the ring (export_cr)
+      if (tid == 0) mlp::bulk_store_wait_read();
     // (PREC_F32 runs every reverse step in the six passes: the other steps
     // are forward products, so its bf16 reverse shapes are not compiled)
     if (f32_step)
@@ -1354,12 +1440,10 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
     } else {
       const int bslot = kind == SDF ? B_SDF + l : kind == LAST ? B_FEAT
                       : kind == COL ? B_COL + l : B_REL + l;
-      int col = 0;   // the step's output in the stash row: sx of layer l, cr slot 0 / 1 + l
+      int col = 0;   // an SDF step's output in the stash row: sx of layer l
       if constexpr (EXPORT) {
         const ActLayout al = act_layout(sh, PREC);
-        col = kind == SDF ? al.sx + l * al.sxw
-                          : al.cr + (kind == LAST ? 0 : kind == COL ? 1 + l : p.n_color + l) *
-                                        HID * 2;
+        col = al.sx + l * al.sxw;
       }
       forward_pass<ROWS, EXPORT, PREC == PREC_BF16, !SG>(X, W + p.off[bslot],
                                  kind == SDF ? EPI_SOFTPLUS : kind == LAST ? EPI_NONE : EPI_RELU,
@@ -1369,6 +1453,10 @@ __device__ __forceinline__ void forward_tile(const Params& p, const Tile& t, Rin
         for (int e = tid; e < ROWS * EMB; e += THREADS) PE[(e / EMB) * L + e % EMB] *= INV_SQRT2;
         __syncthreads();
       }
+      if constexpr (EXPORT)   // a colour / relight layer's output: the next one's cr slot
+        if (kind == COL || kind == REL)
+          export_cr<ROWS>(X, ex, kind == COL ? 1 + l : p.n_color + l,
+                          (long long)act_layout(sh, PREC).n_cr * CR_SLOT, st.w.buf);
     }
   }
 
@@ -1539,6 +1627,25 @@ __device__ __forceinline__ bool cursor_next(const Shape& sh, DwCursor& c, int nt
   return true;
 }
 
+// The save mode's cr images (act_layout): tile i's at base + i bytes, a
+// group's tpg tiles in order. A kernel parameter (the march's), so that
+// the flush holds none of it in registers.
+struct CrSrc {
+  unsigned char* base;
+  long long bytes;       // a tile's images
+  int tpg;
+};
+
+// The images of tile tl of a batch of the block whose first tile is the
+// block's n0-th: the block numbers its tiles in its order from 0, and its
+// tile n is tile n % tpg of group blockIdx.x + (n / tpg) gridDim.x (every
+// group but the last of all has tpg tiles, and that one is its block's
+// last).
+__device__ __forceinline__ const unsigned char* cr_tile(const CrSrc& c, int n0, int tl) {
+  const int n = n0 + tl, g = n / c.tpg;
+  return c.base + ((blockIdx.x + (long long)g * gridDim.x) * c.tpg + (n - g * c.tpg)) * c.bytes;
+}
+
 // Thread 0: the cursor's stage (global count s), three bulk copies (the
 // pair's second A^T block repeats the first where K has an odd count of
 // them; its products are not stored; PREC_F32: the cotangent's column half
@@ -1563,23 +1670,118 @@ __device__ __forceinline__ void dw_issue(Rings& st, const unsigned char* store,
     mlp::bulk_load(stage + 2 * DW_A, cot, DW_B, st.d.full + s % DW_STAGES);
 }
 
-// P[k][8 j + c] += acc[4 j + 2 h + c] for j < NJ, c < 2 (a thread's row k
-// of a flush's accumulators, P its row's columns 2 q ..): eight j's reads
-// first, then their adds and stores, so that a thread has 16 reads of the
-// partial in flight (the load entry's; one read-modify-write after
-// another costs a device-memory latency each, PERF.md §5).
+// dw_issue of the load entry's flush: a colour / relight layer's A^T
+// blocks of its first 256 rows come from the tile's cr image in the stash
+// (cr, the batch's first tile the block's n0-th); the rest as dw_issue.
+__device__ __forceinline__ void dw_issue_load(Rings& st, const unsigned char* store,
+                                              long long tile_bytes, const DwCursor& c,
+                                              unsigned s, const Shape& sh, const CrSrc& cr,
+                                              int n0) {
+  const int slot = cr_slot_of(sh, c.bi);
+  if (RM_ABLATE == 2 || slot < 0 || 2 * c.mp >= HID / 64) {   // 2 no_unflatten: the stash not read
+    dw_issue(st, store, tile_bytes, c, s);
+    return;
+  }
+  const DwBlock& b = c.blk;   // nterm 1: one cotangent block
+  ring_wait_empty<DW_STAGES>(st.d, s);
+  unsigned char* stage = st.d.buf + (s % DW_STAGES) * DW_STAGE;
+  const unsigned char* a = cr_tile(cr, n0, c.tl) + size_t(slot) * CR_SLOT + 2 * c.mp * DW_A;
+  mlp::bulk_load(stage, a, DW_A, st.d.full + s % DW_STAGES);   // rows 128 mp .. + 128, in the
+  mlp::bulk_load(stage + DW_A, a + DW_A, DW_A, st.d.full + s % DW_STAGES);   // stage's 3 copies
+  const unsigned char* cot = store + c.tl * tile_bytes + b.base + (long long)round64(b.K) * 128;
+  if constexpr (PP_PREC == PREC_F32)
+    mlp::bulk_load(stage + 2 * DW_A, cot + c.half * (DW_B / 2), DW_B / 2,
+                   st.d.full + s % DW_STAGES);
+  else
+    mlp::bulk_load(stage + 2 * DW_A, cot, DW_B, st.d.full + s % DW_STAGES);
+}
+
+// P[k + 8 h][8 j + 2 q + c] += acc[4 j + 2 h + c] for j < NJ, h, c < 2
+// (a thread's rows k and k + 8 of a flush's accumulators, P its row k; q
+// the lane's quad index): lanes q and q ^ 1 swap one row's pair, so that
+// each holds four consecutive columns of one row (q even: row k, odd: row
+// k + 8; columns 8 j + 4 (q / 2) ..), which one vector reduction adds
+// into device memory (red_add4; store: the block's first flush, one
+// vector store, the partial not zero-filled): nothing is read back, the
+// thread goes on. Each element is added by one thread, in its program
+// order (the load entry's in PREC_F32, whose flush takes a row's two
+// column halves apart: faster there than bulk_rows, PERF.md §6; one
+// read-modify-write after another cost a device-memory latency each,
+// PERF.md §5). P's rows 16-byte aligned: the gradient layout's slots and a
+// partial's stride are multiples of 4 floats.
 template <int NJ>
-__device__ __forceinline__ void rmw_row(float* P, const float* acc, int h) {
+__device__ __forceinline__ void red_rows(float* P, const float* acc, int q, bool store) {
+  const bool odd = q & 1;
+  float* d = P + (odd ? 8 * HID + 2 * q - 2 : 2 * q);
 #pragma unroll
-  for (int j0 = 0; j0 < NJ; j0 += 8) {
-    float2 v[8];
+  for (int j = 0; j < NJ; ++j) {
+    const float* a = acc + 4 * j;
+    const float sx = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+    const float sy = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+    const float4 v = odd ? make_float4(sx, sy, a[2], a[3]) : make_float4(a[0], a[1], sx, sy);
+    if (store) st4(d + 8 * j, v);
+    else mlp::red_add4(d + 8 * j, v);
+  }
+}
+
+// P[k][c] += acc's value of row k, column c for the 64 rows k of
+// warpgroup wg's block of a flush (P at its first row; rows_left of them
+// real, k 16 w + g + 8 h, c 8 j + 2 q + e in the m64n256 layout) as TMA
+// bulk reductions from shared memory (store: the block's first flush,
+// bulk stores, the partial not zero-filled): nothing is read back into
+// the SM. Warp w's 16 rows are staged in round w, in `stage` (16 KB a
+// warpgroup, row-major as P: the weight ring, idle in the flush), and one
+// thread adds them with one 16 KB bulk reduction, whose reads of the stage
+// end before the next round writes (a named barrier a warpgroup). Each
+// row is a thread's in every flush, and the block's flush waits for its
+// reductions' completion before it ends (dw_flush), so every element's
+// adds keep their order. The load entry's full-row flush (f32stash,
+// bf16); faster there than red_rows (PERF.md §6).
+__device__ __forceinline__ void bulk_rows(float* P, const float* acc, unsigned char* stage,
+                                          int rows_left, bool store) {
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  float* s = reinterpret_cast<float*>(stage + wg * 16 * HID * 4);
+  for (int r = 0; r < 4; ++r) {
+    if (w == r && 16 * r < rows_left) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = make_float2(P[8 * (j0 + j)], P[8 * (j0 + j) + 1]);
+      for (int j = 0; j < HID / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      P[8 * (j0 + j)] = v[j].x + acc[4 * (j0 + j) + 2 * h];
-      P[8 * (j0 + j) + 1] = v[j].y + acc[4 * (j0 + j) + 2 * h + 1];
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(s + (g + 8 * h) * HID + 8 * j + 2 * q) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      mlp::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        if (store) mlp::bulk_store(P + size_t(16 * r) * HID, s, 16 * HID * 4);
+        else mlp::bulk_reduce_add(P + size_t(16 * r) * HID, s, 16 * HID * 4);
+        mlp::bulk_store_wait_read();
+      }
+      __syncwarp();
     }
+    mlp::bar_sync(1 + wg, 128);
+  }
+}
+
+// LOAD (the load entry, whose partial is not zero-filled: its first flush
+// stores the 256-wide layers' weight grads, dw_flush): P[0 .. n) = 0
+// outside them, where the rest of the backward adds (the biases, the
+// narrow layers, the padding, inv_s's); all of it for a block without a
+// tile, which never flushes. No barrier.
+__device__ __forceinline__ void zero_outside_flush(const Params& p, float* P, long long n,
+                                                   bool all) {
+  const Shape sh = shape_of(p);
+  const int nb = all ? 0 : dw_n_blocks(sh);
+  long long lo = 0;
+  for (int bi = 0; bi <= nb; ++bi) {   // dw_kind's order is the layout's
+    long long hi = n, next = n;
+    if (bi < nb) {
+      const DwBlock b = dw_kind(sh, bi);
+      hi = p.off[b.slot];
+      next = hi + (long long)b.K * HID;
+    }
+    for (long long e = lo + threadIdx.x; e < hi; e += THREADS) P[e] = 0.f;
+    lo = next;
   }
 }
 
@@ -1589,11 +1791,15 @@ __device__ __forceinline__ void rmw_row(float* P, const float* acc, int h) {
 // [64, 64 nt] x [64 nt, 256] of block 2 mp + h on wgmma (m64n256k16, 128
 // accumulators a thread), every term and tile streamed through the flush
 // ring in order, then one read-modify-write of those 64 x 256 floats
-// (LOAD, the load entry's: in batches, rmw_row). The stages lie over X and
-// Y, so the caller has finished the tile.
+// (LOAD, the load entry's: none read back, TMA bulk reductions, bulk_rows,
+// or in PREC_F32 vector reductions, red_rows; the block's first flush
+// stores; its colour / relight inputs from the stash, cr and n0:
+// dw_issue_load). The stages lie over X and Y, so the caller has finished
+// the tile.
 template <int PREC, bool LOAD = false>
 __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsigned char* store,
-                                         long long tile_bytes, int nt, float* P) {
+                                         long long tile_bytes, int nt, float* P,
+                                         const CrSrc& cr = CrSrc{}, int n0 = 0) {
   const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const Shape sh = shape_of(p);
@@ -1608,7 +1814,8 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
   if (tid == 0) {
     cursor_start(sh, pc, 0);
     for (; more && issued + 1 < DW_STAGES; ++issued) {
-      dw_issue(st, store, tile_bytes, pc, d0 + issued);
+      if constexpr (LOAD) dw_issue_load(st, store, tile_bytes, pc, d0 + issued, sh, cr, n0);
+      else dw_issue(st, store, tile_bytes, pc, d0 + issued);
       more = cursor_next(sh, pc, nt);
     }
   }
@@ -1629,7 +1836,9 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
             for (int tl = 0; tl < nt; ++tl, ++li) {
               const unsigned s = d0 + li;
               if (tid == 0 && more) {
-                dw_issue(st, store, tile_bytes, pc, d0 + issued++);
+                if constexpr (LOAD)
+                  dw_issue_load(st, store, tile_bytes, pc, d0 + issued++, sh, cr, n0);
+                else dw_issue(st, store, tile_bytes, pc, d0 + issued++);
                 more = cursor_next(sh, pc, nt);
               }
               const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);
@@ -1646,11 +1855,10 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
           }
           float* dst = P + p.off[blk.slot] + 128 * half + 2 * q;
           if constexpr (LOAD) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
-              if (k < blk.K) rmw_row<16>(dst + size_t(k) * HID, acc, h);
-            }
+            const int k = 64 * (2 * mp + wg) + 16 * w;   // the warp's 16 rows: all or none < K
+            mlp::fence_operands(acc);
+            if (k < blk.K)
+              red_rows<16>(P + p.off[blk.slot] + 128 * half + size_t(k + g) * HID, acc, q, d0 == 0);
           } else {
 #pragma unroll
             for (int j = 0; j < 16; ++j)
@@ -1674,7 +1882,8 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
         for (int tl = 0; tl < nt; ++tl, ++li) {
           const unsigned s = d0 + li;
           if (tid == 0 && more) {
-            dw_issue(st, store, tile_bytes, pc, d0 + issued++);
+            if constexpr (LOAD) dw_issue_load(st, store, tile_bytes, pc, d0 + issued++, sh, cr, n0);
+            else dw_issue(st, store, tile_bytes, pc, d0 + issued++);
             more = cursor_next(sh, pc, nt);
           }
           const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);
@@ -1690,12 +1899,10 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
         }
       }
       float* dst = P + p.off[blk.slot] + 2 * q;
-      if constexpr (LOAD) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 64 * (2 * mp + wg) + 16 * w + g + 8 * h;
-          if (k < blk.K) rmw_row<32>(dst + size_t(k) * HID, acc, h);
-        }
+      if constexpr (LOAD) {   // the block's first flush (d0 0) stores: zero_outside_flush
+        const int k0 = 64 * (2 * mp + wg);   // the warpgroup's block
+        mlp::fence_operands(acc);
+        bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, st.w.buf, blk.K - k0, d0 == 0);
       } else {
 #pragma unroll
         for (int j = 0; j < 32; ++j)
@@ -1711,6 +1918,8 @@ __device__ __forceinline__ void dw_flush(const Params& p, Rings& st, const unsig
       }
     }
   }
+  if constexpr (LOAD && PREC != PREC_F32)   // bulk_rows' reductions done: their order kept
+    if ((threadIdx.x & 31) == 0) mlp::bulk_store_wait();
   st.ds += li;
   __syncthreads();
 }
@@ -2177,11 +2386,13 @@ __device__ __forceinline__ BwdScratch carve_bwd_scratch(const Params& p, float* 
 // backward_tile (and after the caller has read the tile's outputs); slot
 // is the tile's index in the batch. Flushes when the batch is full or the
 // block's last tile is done (a ragged batch), and returns the next slot.
+// LOAD: cr and n0, where the flush finds the batch's cr images.
 template <int PREC, bool LOAD = false>
 __device__ __forceinline__ int after_tile(const Params& p, Rings& st, const BwdScratch& s,
-                                          int slot, bool last, float* P) {
+                                          int slot, bool last, float* P,
+                                          const CrSrc& cr = CrSrc{}, int n0 = 0) {
   if (++slot < p.dw_batch && !last) return slot;
-  dw_flush<PREC, LOAD>(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P);
+  dw_flush<PREC, LOAD>(p, st, s.store, dw_tile_bytes(shape_of(p)), slot, P, cr, n0);
   return 0;
 }
 

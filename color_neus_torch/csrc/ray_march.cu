@@ -32,7 +32,8 @@
 // ray_march.march_macs_per_point counts them from the real widths) against
 // ~36 bytes of input and output per point each way (z and the stash; the
 // save mode's activation stash adds 12,832 bytes a point each way at those
-// widths): bound by operations, bf16 tensor-core MMA at 989 TFLOP/s (the
+// widths, its bf16 part in 64-point tile images, act_layout): bound by
+// operations, bf16 tensor-core MMA at 989 TFLOP/s (the
 // products are the TPU kernels' bf16 ones, point_pipeline_tile.cuh). The
 // compositing is ~50 flops per point, in f32. Each MARCH_BWD_PRECISION
 // mode builds this file once (PP_PREC; kernels suffixed _bf16s / _f32s,
@@ -42,11 +43,11 @@
 //
 // Design (built on the tile functions of rows 5 and 6,
 // point_pipeline_tile.cuh, with their wgmma products). A block owns a
-// group of whole rays, so a ray's samples never straddle two blocks, cut
-// into tiles: in the forward 128-point tiles (one ray when S >= 128, else
-// max(1, 128 / S) rays packed into one tile; S = 128 is one tile a ray),
-// in the backward 64-point tiles (one ray when S >= 64, else max(1, 64 /
-// S) rays; S = 128 is two tiles). A padding point past the group's last
+// group of whole rays, so a ray's samples never straddle two blocks (one
+// ray when S >= 128, else max(1, 128 / S) rays, rays_per_group), cut into
+// tiles: in the forward 128-point tiles (S = 128 is one tile a ray), in
+// the backward 64-point tiles, the halves of the forward's (S = 128 is two
+// tiles; a ray may straddle two). A padding point past the group's last
 // sample gets zero input and zero cotangent.
 //   Forward: per tile, the points are made from the rays and z in shared
 //   memory, forward_tile<128, false> runs (its two warpgroups on 64 rows
@@ -73,7 +74,10 @@
 //   load rebuilds bit for bit, the features and the colour / relight relu
 //   outputs in bf16, which the backward reads only as bf16 operands and
 //   relu masks, and gc, delta and, from the compositing scan, T before the
-//   sample; the PE and the small inputs are rebuilt from the points). The
+//   sample; the PE and the small inputs are rebuilt from the points; the
+//   colour / relight inputs as the flush's operand images of each 64-point
+//   backward tile, export_cr, so that the flush bulk-copies them as they
+//   are: each forward tile is two backward tiles). The
 //   backward (ray_march_load_bwd_kernel) runs the compositing VJP in
 //   parallel, a thread a point (composite_vjp_par: T the forward's, the
 //   sum over a ray's later samples a segmented suffix sum across the
@@ -83,9 +87,11 @@
 //   product) where the recompute runs forward_tile; backward_tile<PREC,
 //   true> reads the gates and the colour / relight layer inputs from the
 //   stash where it uses them (wide reads, a batch in flight at once:
-//   PERF.md §5), and its flush batches its read-modify-writes. A forward tile's 128 rows are
-//   two backward tiles, so the rows are the points in order and any tile
-//   reads a contiguous block. The
+//   PERF.md §5), and its flush adds into the block's partial with TMA bulk
+//   reductions (f32: red.global.add.v4.f32; nothing read back) and takes
+//   the colour / relight inputs from the stash's tile images. A forward tile's
+//   128 rows are two backward tiles, so the rows are the points in order
+//   and any tile reads a contiguous block. The
 //   block counts its tiles across groups: its weight grads are summed on
 //   chip over batches of dw_batch tiles (dw_flush: wgmma on the bf16
 //   operands backward_tile stores, point_pipeline.cu's note) and added,
@@ -110,15 +116,19 @@ struct March {
   const float* inv_s;      // [1] on the device
   long long n_rays;
   int S;
-  int G;                   // rays per group: max(1, rows / S), rows the kernel's tile
+  int G;                   // rays per group: max(1, FWD_ROWS / S), rays_per_group
+  int tpg;                 // 64-point backward tiles a full group
   float sample_dist;
   float* out;              // forward: [R, 16]
   float* stash;            // [R S, STASH]: written by the forward, read by the backward
-  unsigned char* act;      // save mode: [R S] rows of the activation stash (act_layout)
+  unsigned char* act;      // save mode: the activation stash (act_layout): [R S] rows, then
+                           // the cr images of n_groups x tpg tiles from act_cr_offset (crs)
+  CrSrc crs;
   // backward only
   const float* gbar;       // [R, 16]
   float* rays_hat;         // [R, 8]
-  float* partial;          // [gridDim.x][n_grad + 1], zeroed
+  float* partial;          // [gridDim.x][partial_stride(n_grad)], zeroed (the load entry's:
+                           // any values, zero_outside_flush)
   long long n_grad;
   long long scratch_floats;   // per block
 };
@@ -186,6 +196,20 @@ __device__ __forceinline__ Comp composite_point(const float* rd, const float* gr
 
 __device__ __forceinline__ long long n_groups(const March& m) {
   return (m.n_rays + m.G - 1) / m.G;
+}
+
+// The save mode's cr images of 64-point tile t0 / TILE of group grp.
+__device__ __forceinline__ unsigned char* act_cr(const March& m, long long grp, int t0) {
+  return m.crs.base + (grp * m.tpg + t0 / TILE) * m.crs.bytes;
+}
+
+// m.act = act, the save mode's stash (null: the recompute's), and where its
+// cr images are (m.crs).
+__host__ __device__ inline void set_act(March& m, void* act) {
+  const ActLayout al = act_layout(shape_of(m.net), PP_PREC);
+  m.act = static_cast<unsigned char*>(act);
+  m.crs = CrSrc{act ? m.act + act_cr_offset(m.n_rays * m.S, al) : nullptr,
+                (long long)al.n_cr * CR_SLOT, m.tpg};
 }
 
 // ------------------------------------------------------------------------
@@ -337,11 +361,13 @@ __device__ __forceinline__ void march_fwd(const March& m) {
     float cT = 1.f, acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // a ray's carry
     for (int t0 = 0; t0 < n_pts; t0 += FWD_ROWS) {
       load_march_points<FWD_ROWS>(m, t, r0, t0, n_pts);
-      const Export ex{SAVE ? m.act + (r0 * m.S + t0) * al.bytes : nullptr, n_pts - t0, al.bytes};
+      const Export ex{SAVE ? m.act + (r0 * m.S + t0) * al.bytes : nullptr, n_pts - t0, al.bytes,
+                      SAVE ? act_cr(m, grp, t0) : nullptr};
       forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);
       composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);
     }
   }
+  if (SAVE && threadIdx.x == 0) mlp::bulk_store_wait();   // the cr images' bulk stores
 }
 
 // The library's MARCH_BWD_PRECISION mode is PP_PREC (point_pipeline_tile.cuh);
@@ -366,8 +392,18 @@ __host__ __device__ long long group_scratch_floats(int G, int S) {
   return ((long long)G * S * (CTW + 1) + 7LL * G + 31) / 32 * 32;
 }
 
-// Rays per group of a kernel whose tiles hold `rows` points.
-__host__ __device__ int rays_per_group(int S, int rows) { return S >= rows ? 1 : rows / S; }
+// The floats of a block's partial: the weight grads ([n_grad], the packed
+// gradient layout, whose slots start at multiples of 4 floats), inv_s's,
+// padding to a multiple of 4, so that every row the flush reduces into is
+// 16-byte aligned (red_rows, bulk_rows).
+__host__ __device__ inline long long partial_stride(long long n_grad) {
+  return (n_grad + 4) / 4 * 4;
+}
+
+// Rays per group, every entry's: whole rays filling a forward tile of
+// FWD_ROWS points (one ray when S >= FWD_ROWS), whose two halves are the
+// backward's 64-point tiles (and the save stash's cr image tiles).
+__host__ __device__ int rays_per_group(int S) { return S >= FWD_ROWS ? 1 : FWD_ROWS / S; }
 
 // The compositing VJP at one point (ray_march.py:329-354), given its
 // compositing quantities c, its weight w = alpha T, w_bar and `later`, the
@@ -514,11 +550,13 @@ __device__ __forceinline__ void composite_vjp_par(const March& m, long long r0, 
 // needs of the 64-point tile ts (from point q0 of [R S]) before its
 // pullback, from the forward's stashes instead of a recompute: t.S1, G3
 // and RL from the outs stash, GC and DL from the activation stash's tail,
-// and every 256-wide layer's input as its bf16 weight-grad operand (sv.dw),
-// staged through X (the stash's rows read in wide batches, stash_rows).
-// The gates and the colour / relight layer inputs, which the pullback
-// reads again, are not kept: backward_tile<PREC, true> reads them from the
-// stash where it uses them. PREC (the MARCH_BWD_PRECISION mode):
+// and every SDF layer's input as its bf16 weight-grad operand (sv.dw),
+// staged through X (the stash's rows read in wide batches, stash_rows),
+// and of the colour / relight layers' inputs only what the stash's cr
+// images, which the flush reads as they are, lack (the small inputs, the
+// gc block). The gates and the colour / relight layer inputs, which the
+// pullback reads again, are not kept: backward_tile<PREC, true> reads them
+// from the stash where it uses them. PREC (the MARCH_BWD_PRECISION mode):
 // PREC_BF16's stash holds each SDF layer's input in bf16 (act_layout);
 // PREC_F32 stores the SDF layer inputs as three bf16 parts (save_t3). A
 // barrier after.
@@ -572,29 +610,27 @@ __device__ __forceinline__ void load_tile(const March& m, const Tile& t, const S
     else
       save_t<0>(X, pre_skip ? HID + EMB : HID, dw_a(sh, sv.dw, l + 1, 0));
   }
-  // the colour net's layer l: its hidden part in cr slot l (layer 0:
-  // [features | pts, grad, PE(dirs)])
-  for (int l = 0; l < p.n_color - 1; ++l) {
+  // the colour and relight layers' hidden inputs: the flush bulk-copies
+  // them from the stash's cr images (dw_issue_load); the rest of their inputs
+  // here: colour layer 0's [pts, grad, PE(dirs)] (rows 256 .. of its
+  // block), relight layer 0's (all of it), the y_in layer's gc block (rows
+  // 256 ..)
+  __syncthreads();
+  small_inputs<TILE>(t, X, HID, p.color_dv, false);
+  __syncthreads();
+  save_t<0>(X + HID, EMB, dw_a(sh, sv.dw, p.n_sdf, 0) + HID * 128);
+  if (p.n_relight > 1) {
     __syncthreads();
-    stage_cr(ts, t, l, X, false);
-    if (l == 0) {
-      small_inputs<TILE>(t, X, HID, p.color_dv, false);
-      __syncthreads();
-    }
-    save_t<0>(X, l == 0 ? HID + EMB : HID, dw_a(sh, sv.dw, p.n_sdf + l, 0));
+    small_inputs<TILE>(t, X, 0, p.rl_dv, false);
+    __syncthreads();
+    save_t<0>(X, EMB, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1, 0));
   }
-  // the relight net's layer l: layer 0's [pts, grad, PE(dirs)], layer l's
-  // hidden part in cr slot n_color + l - 1, the y_in layer's gc block
-  for (int l = 0; l < p.n_relight - 1; ++l) {
+  if (p.y_in >= 1 && p.y_in < p.n_relight - 1) {
     __syncthreads();
-    if (l == 0) {
-      small_inputs<TILE>(t, X, 0, p.rl_dv, false);
-      __syncthreads();
-    } else {
-      stage_cr(ts, t, p.n_color + l - 1, X, l == p.y_in);
-    }
-    save_t<0>(X, l == 0 ? EMB : (l == p.y_in ? HID + EMB : HID),
-              dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));
+    for (int e = tid; e < TILE * EMB; e += THREADS)
+      X[(e / EMB) * LDX + HID + e % EMB] = e % EMB < 3 ? t.GC[(e / EMB) * 3 + e % EMB] : 0.f;
+    __syncthreads();
+    save_t<0>(X + HID, EMB, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + p.y_in, 0) + HID * 128);
   }
   __syncthreads();
 }
@@ -615,10 +651,15 @@ __device__ __forceinline__ void march_bwd(const March& m) {
   float* Tr = ct + size_t(m.G) * m.S * CTW;                                 // [G S]
   float* sinv = Tr + size_t(m.G) * m.S;                                     // [G]
   float* rh = sinv + m.G;                                                   // [G][6]
-  float* P = m.partial + size_t(blockIdx.x) * (m.n_grad + 1);
+  float* P = m.partial + size_t(blockIdx.x) * partial_stride(m.n_grad);
+  if constexpr (LOAD) {   // its partial is not zero-filled: the first flush stores
+    zero_outside_flush(p, P, partial_stride(m.n_grad), blockIdx.x >= n_groups(m));
+    __syncthreads();
+  }
   const float inv_s = *m.inv_s;
   const ActLayout al = act_layout(shape_of(p), PP_PREC);
   int slot = 0;   // the tile's place in the weight-grad batch
+  int n_tile = 0, n0 = 0;   // the block's tiles so far, the batch's first (LOAD: the flush's cr)
 
   for (long long grp = blockIdx.x; grp < n_groups(m); grp += gridDim.x) {
     const long long r0 = grp * m.G;
@@ -640,7 +681,8 @@ __device__ __forceinline__ void march_bwd(const March& m) {
 
     for (int t0 = 0; t0 < n_pts; t0 += TILE) {
       const Save sv = bwd_save(p, s, slot);
-      const TileStash ts{m.act + (r0 * m.S + t0) * al.bytes, al.bytes, n_pts - t0, al};
+      const TileStash ts{m.act + (r0 * m.S + t0) * al.bytes, al.bytes, n_pts - t0, al,
+                         LOAD ? act_cr(m, grp, t0) : nullptr};
       load_march_points<TILE>(m, t, r0, t0, n_pts);
       if constexpr (LOAD) {
         if constexpr (RM_ABLATE != 2)   // 2 no_unflatten: the stash not read
@@ -672,7 +714,10 @@ __device__ __forceinline__ void march_bwd(const March& m) {
       __syncthreads();
       if constexpr (RM_ABLATE != 1 && RM_ABLATE != 4)   // the flush: not in 1, 4
         slot = after_tile<PP_PREC, LOAD>(p, st, s, slot,
-                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);
+                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P,
+                                   m.crs, n0);
+      if (slot == 0) n0 = n_tile + 1;
+      ++n_tile;
     }
     for (int e = tid; e < nr * 8; e += THREADS) {
       const int g = e / 8, k = e % 8;
@@ -690,13 +735,13 @@ __global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_load_bwd_kernel)
   march_bwd<true>(m);
 }
 
-// The march of a forward (fwd) or backward kernel: its groups fill the
-// kernel's tiles.
+// The march of a kernel: its groups (rays_per_group) fill the kernel's
+// tiles.
 March make_march(const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
                  const float* w, const void* wimg, long long n_rays, int S, float sample_dist,
                  int n_sdf, int skip, int d0, float scale, int n_color, int color_dv, int squeeze,
                  int n_relight, int rl_dv, int y_in, int inv_sigmoid, const long long* off,
-                 const long long* ioff, bool fwd) {
+                 const long long* ioff) {
   March m{};
   m.net = make_params(nullptr, nullptr, w, wimg, 0, n_sdf, skip, d0, scale, n_color, color_dv,
                       squeeze, n_relight, rl_dv, y_in, inv_sigmoid, off, ioff);
@@ -706,7 +751,8 @@ March make_march(const float* rays_o, const float* rays_d, const float* z, const
   m.inv_s = inv_s;
   m.n_rays = n_rays;
   m.S = S;
-  m.G = rays_per_group(S, fwd ? FWD_ROWS : TILE);
+  m.G = rays_per_group(S);
+  m.tpg = (m.G * S + TILE - 1) / TILE;
   m.sample_dist = sample_dist;
   return m;
 }
@@ -722,7 +768,7 @@ long long march_fwd_scratch_floats(int n_sdf, bool save) {
 
 long long march_bwd_scratch_floats(const Shape& sh, int S, int dw_batch, bool save) {
   return bwd_scratch_floats(sh, dw_batch, PP_PREC, save) +
-         group_scratch_floats(rays_per_group(S, TILE), S);
+         group_scratch_floats(rays_per_group(S), S);
 }
 
 }  // namespace
@@ -742,14 +788,30 @@ extern "C" int ray_march_bwd_max_blocks(int save, int* n_blocks) {
                   : max_blocks(PP_NAME(ray_march_bwd_kernel), SMEM_BWD, n_blocks));
 }
 
-// Bytes a point of the save mode's activation stash (act_layout).
-extern "C" int ray_march_act_bytes(int n_sdf, int n_color, int n_relight) {
+// The save mode's activation stash (act_layout): the bytes of a point's
+// row, its cr slots, and the bytes of the whole stash for R rays of S
+// samples (the rows, then the cr images of every backward tile).
+extern "C" int ray_march_act_row_bytes(int n_sdf, int n_color, int n_relight) {
   return act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}, PP_PREC).bytes;
 }
 
-extern "C" int ray_march_rays_per_group(int S, int fwd) {
-  return rays_per_group(S, fwd ? FWD_ROWS : TILE);
+extern "C" int ray_march_act_cr_slots(int n_sdf, int n_color, int n_relight) {
+  return act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}, PP_PREC).n_cr;
 }
+
+extern "C" long long ray_march_act_total_bytes(int n_sdf, int n_color, int n_relight,
+                                               long long R, int S) {
+  const ActLayout al = act_layout(Shape{n_sdf, -1, n_color, n_relight, -1}, PP_PREC);
+  const int G = rays_per_group(S);
+  const long long tiles = (R + G - 1) / G * ((G * S + TILE - 1) / TILE);
+  return act_cr_offset(R * S, al) + tiles * al.n_cr * CR_SLOT;
+}
+
+extern "C" int ray_march_rays_per_group(int S) {
+  return rays_per_group(S);
+}
+
+extern "C" long long ray_march_partial_stride(long long n_grad) { return partial_stride(n_grad); }
 
 extern "C" long long ray_march_fwd_scratch_floats(int n_sdf, int save) {
   return march_fwd_scratch_floats(n_sdf, save != 0);
@@ -766,8 +828,8 @@ extern "C" long long ray_march_bwd_scratch_floats(int n_sdf, int skip, int n_col
 // launch; none synchronises. `w` / `wimg`: the packed f32 weights and the
 // wgmma weight slabs (point_pipeline.py _pack_images), `off` / `ioff` host
 // arrays of their offset tables, `inv_s` a device pointer to one float.
-// `act`: the save mode's activation stash, [R S] rows of
-// ray_march_act_bytes; null runs the recompute's kernels.
+// `act`: the save mode's activation stash, ray_march_act_total_bytes
+// (act_layout); null runs the recompute's kernels.
 // Forward: out [R, 16], stash [R S, 8], scratch n_blocks x
 // ray_march_fwd_scratch_floats(n_sdf, act != null) floats.
 extern "C" int ray_march_fwd_launch(
@@ -781,10 +843,10 @@ extern "C" int ray_march_fwd_launch(
   if (S <= 0 || bad_shape(n_off, n_sdf, n_color, n_relight)) return int(cudaErrorInvalidValue);
   March m = make_march(rays_o, rays_d, z, inv_s, w, wimg, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off, ioff, true);
+                       off, ioff);
   m.out = out;
   m.stash = stash;
-  m.act = static_cast<unsigned char*>(act);
+  set_act(m, act);
   m.net.scratch = scratch;
   m.scratch_floats = march_fwd_scratch_floats(n_sdf, act != nullptr);
   auto kernel = act != nullptr ? PP_NAME(ray_march_save_fwd_kernel) : PP_NAME(ray_march_fwd_kernel);
@@ -796,7 +858,9 @@ extern "C" int ray_march_fwd_launch(
 }
 
 // Backward: stash from the forward on the same inputs, gbar [R, 16],
-// rays_hat [R, 8], partial n_blocks x (n_grad + 1) zeros, scratch n_blocks x
+// rays_hat [R, 8], partial n_blocks x ray_march_partial_stride(n_grad)
+// floats (n_grad a multiple of 4), zeros for the recompute's kernel, any
+// values for the load's, scratch n_blocks x
 // ray_march_bwd_scratch_floats(..., dw_batch, act != null) floats.
 extern "C" int ray_march_bwd_launch(
     const float* rays_o, const float* rays_d, const float* z, const float* inv_s,
@@ -807,14 +871,14 @@ extern "C" int ray_march_bwd_launch(
     int color_dv, int squeeze, int n_relight, int rl_dv, int y_in, int inv_sigmoid,
     const long long* off, const long long* ioff, int n_off, void* stream) {
   if (n_rays <= 0) return 0;
-  if (S <= 0 || dw_batch < 1 || bad_shape(n_off, n_sdf, n_color, n_relight))
+  if (S <= 0 || dw_batch < 1 || n_grad % 4 != 0 || bad_shape(n_off, n_sdf, n_color, n_relight))
     return int(cudaErrorInvalidValue);
   March m = make_march(rays_o, rays_d, z, inv_s, w, wimg, n_rays, S, sample_dist, n_sdf, skip, d0,
                        scale, n_color, color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid,
-                       off, ioff, false);
+                       off, ioff);
   m.net.dw_batch = dw_batch;
   m.stash = const_cast<float*>(stash);
-  m.act = static_cast<unsigned char*>(const_cast<void*>(act));
+  set_act(m, const_cast<void*>(act));
   m.gbar = gbar;
   m.rays_hat = rays_hat;
   m.partial = partial;

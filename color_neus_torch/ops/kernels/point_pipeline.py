@@ -257,14 +257,26 @@ def _frag(b: torch.Tensor) -> torch.Tensor:
 
 def _pack(pw: PipelineWeights):
     """The kernel's f32 weight buffer (see csrc/point_pipeline_tile.cuh):
-    _layout's blocks flattened in order, its offset table and its length,
-    the gradient layout."""
+    _layout's blocks flattened in order, each from a multiple of 4 floats
+    (zeros between: the march's load entry adds its weight grads into the
+    same layout with 16-byte vector reductions), its offset table and its
+    length (a multiple of 4), the gradient layout."""
     blocks, _ = _layout(pw)
     off, pos, flat = np.zeros(N_OFF, np.int64), 0, []
+    dev = blocks[0][1].device
+
+    def pad():
+        nonlocal pos
+        if pos % 4:
+            flat.append(torch.zeros(4 - pos % 4, device=dev))
+            pos += 4 - pos % 4
+
     for slot, t in blocks:
+        pad()
         off[slot] = pos
         flat.append(t.reshape(-1).float())
         pos += flat[-1].numel()
+    pad()
     return torch.cat(flat).contiguous(), off, pos
 
 

@@ -254,23 +254,92 @@ def _net_counts(net) -> tuple:
     return counts["sdf"], counts["color"], counts["relight"]
 
 
-def act_bytes(net) -> int:
-    """Bytes a point of the save mode's activation stash, the kernel's
-    layout (csrc/point_pipeline_tile.cuh act_layout): the softplus of every
-    hidden SDF layer, 256 wide, in f32 (in bf16 under march_bwd_precision
-    'bf16', JAX's march_stash_bytes); the features and the colour / relight
-    hidden layers' outputs in bf16, 256 wide; a tail of 8 f32: gc, delta,
-    the transmittance T before the sample (the forward's, which the load
-    entry's compositing VJP reads), 0."""
-    n_sdf, n_color, n_relight = _net_counts(net)
+def act_row_bytes(net) -> int:
+    """Bytes a point's row of the save mode's activation stash, the
+    kernel's layout (csrc/point_pipeline_tile.cuh act_layout): the softplus
+    of every hidden SDF layer, 256 wide, in f32 (in bf16 under
+    march_bwd_precision 'bf16', JAX's march_stash_bytes); a tail of 8 f32:
+    gc, delta, the transmittance T before the sample (the forward's, which
+    the load entry's compositing VJP reads), 0."""
+    n_sdf, _, _ = _net_counts(net)
     sx = 2 if getattr(net, "rcfg", net).march_bwd_precision == "bf16" else 4
-    return (n_sdf - 1) * PP.HID * sx + (n_color + max(n_relight - 1, 0)) * PP.HID * 2 + 32
+    return (n_sdf - 1) * PP.HID * sx + 32
 
 
-def march_stash_bytes(net, n_pts: int) -> int:
+def act_cr_slots(net) -> int:
+    """The stash's bf16 slots of a point: the features and the colour /
+    relight hidden layers' outputs, 256 wide each (act_layout's cr)."""
+    _, n_color, n_relight = _net_counts(net)
+    return n_color + max(n_relight - 1, 0)
+
+
+def act_bytes(net) -> int:
+    """Bytes a point of the save mode's activation stash where its 64-point
+    backward tiles are full (every S a multiple of 64): its row and its cr
+    slots, which the stash keeps in the flush's operand layout, a [256 k]
+    [64 points] bf16 image per slot and tile (act_total_bytes)."""
+    return act_row_bytes(net) + act_cr_slots(net) * PP.HID * 2
+
+
+def rays_per_group(S: int) -> int:
+    """Rays a group of every march kernel (csrc/ray_march.cu
+    rays_per_group): whole rays filling a 128-point forward tile, whose
+    halves are the backward's 64-point tiles."""
+    return 1 if S >= 128 else 128 // S
+
+
+def act_total_bytes(net, R: int, S: int) -> int:
+    """Bytes of the save mode's activation stash for R rays of S samples
+    (act_layout): the points' rows, then, from a 1024-byte boundary, the cr
+    images of every 64-point backward tile (a group of rays_per_group(S)
+    rays as ceil(G S / 64) tiles; a partial tile's padding points take
+    their bytes too)."""
+    G = rays_per_group(S)
+    tiles = -(-R // G) * -(-G * S // 64)
+    rows = -(-R * S * act_row_bytes(net) // 1024) * 1024
+    return rows + tiles * act_cr_slots(net) * PP.HID * 128
+
+
+def act_cr(net, act: torch.Tensor, R: int, S: int, slot: int | None = None) -> torch.Tensor:
+    """The cr slots of a save stash (uint8 [act_total_bytes], on any
+    device), each point's read out of its tile's image, in f32: [R S,
+    act_cr_slots, 256], or [R S, 256] of one slot."""
+    row, n_cr, hid = act_row_bytes(net), act_cr_slots(net), PP.HID
+    n, dev = R * S, act.device
+    off = -(-n * row // 1024) * 1024
+    G = rays_per_group(S)
+    tpg = -(-G * S // 64)
+    img = act[off:off + -(-R // G) * tpg * n_cr * hid * 128].view(torch.int16)
+    img = img.reshape(-1, n_cr, hid, 64)     # tile, slot, row k, its 64 points as stored
+    q = torch.arange(n, device=dev)
+    r, s = q // S, q % S
+    tq = (r % G) * S + s                     # the point in its group
+    tile, pt = (r // G) * tpg + tq // 64, tq % 64
+    k = torch.arange(hid, device=dev)
+    stored = ((pt[:, None] // 8) ^ (k[None, :] % 8)) * 8 + (pt % 8)[:, None]   # the swizzle
+
+    def one(j):
+        bits = img[tile[:, None], j, k[None, :], stored].to(torch.int32)
+        return (bits << 16).view(torch.float32)
+    return one(slot) if slot is not None else torch.stack([one(j) for j in range(n_cr)], 1)
+
+
+def unpack_act(net, act: torch.Tensor, R: int, S: int) -> tuple:
+    """A save stash (uint8 [act_total_bytes]) as (its points' rows [R S,
+    act_row_bytes] uint8, its cr slots [R S, act_cr_slots, 256] f32:
+    act_cr)."""
+    row = act_row_bytes(net)
+    return act[:R * S * row].reshape(R * S, row), act_cr(net, act, R, S)
+
+
+def march_stash_bytes(net, n_pts: int, S: int | None = None) -> int:
     """Device bytes the save mode's stashes take for n_pts points: the
     activation stash and the 8-float outs stash (the recompute keeps only
-    the latter). net: a PipelineWeights or a RendererConfig."""
+    the latter); with S (n_pts a multiple of it), for rays of S samples,
+    a partial tile's padding included. net: a PipelineWeights or a
+    RendererConfig."""
+    if S is not None:
+        return act_total_bytes(net, n_pts // S, S) + n_pts * STASH * 4
     return n_pts * (act_bytes(net) + STASH * 4)
 
 
@@ -330,6 +399,13 @@ def resolve_save_acts(policy, net, n_pts: int, budget_gb: float | None = None) -
     return policy_stash_bytes(net, n_pts) <= budget_gb * 1024 ** 3
 
 
+def partial_stride(n_grad: int) -> int:
+    """Floats a block's partial takes in the backward (csrc/ray_march.cu
+    partial_stride): the weight grads, inv_s's, padding to a multiple of
+    4 (16 bytes)."""
+    return (n_grad + 4) // 4 * 4
+
+
 def _library(mode: str = "f32stash", name: str | None = None):
     """The loaded library of a march_bwd_precision mode's kernels (name:
     another build of that mode's source, build.ABLATIONS)."""
@@ -341,10 +417,14 @@ def _library(mode: str = "f32stash", name: str | None = None):
         lib.ray_march_fwd_launch.argtypes = [p] * 10 + [ll, i, f, i] + net + [p]
         lib.ray_march_bwd_launch.argtypes = [p] * 12 + [ll, i, f, i, ll, i] + net + [p]
         for fn in (lib.ray_march_fwd_launch, lib.ray_march_bwd_launch, lib.ray_march_n_off,
-                   lib.ray_march_rays_per_group, lib.ray_march_act_bytes):
+                   lib.ray_march_rays_per_group, lib.ray_march_act_row_bytes,
+                   lib.ray_march_act_cr_slots):
             fn.restype = i
-        lib.ray_march_rays_per_group.argtypes = [i, i]
-        lib.ray_march_act_bytes.argtypes = [i, i, i]
+        lib.ray_march_rays_per_group.argtypes = [i]
+        lib.ray_march_act_row_bytes.argtypes = [i, i, i]
+        lib.ray_march_act_cr_slots.argtypes = [i, i, i]
+        lib.ray_march_act_total_bytes.argtypes = [i, i, i, ll, i]
+        lib.ray_march_act_total_bytes.restype = ll
         for fn in (lib.ray_march_fwd_max_blocks, lib.ray_march_bwd_max_blocks):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
@@ -352,6 +432,8 @@ def _library(mode: str = "f32stash", name: str | None = None):
         lib.ray_march_bwd_scratch_floats.argtypes = [i] * 8
         for fn in (lib.ray_march_fwd_scratch_floats, lib.ray_march_bwd_scratch_floats):
             fn.restype = ll
+        lib.ray_march_partial_stride.argtypes = [ll]
+        lib.ray_march_partial_stride.restype = ll
         lib.ray_march_error_string.argtypes = [i]
         lib.ray_march_error_string.restype = ctypes.c_char_p
         lib.ray_march_prec.restype = i
@@ -379,10 +461,13 @@ def _max_blocks(lib, dev, mode: str, entry: str, save: bool) -> int:
     return _MAX_BLOCKS[key]
 
 
-def _act_bytes(lib, pw: PP.PipelineWeights) -> int:
-    """act_bytes(pw), checked against the kernel's layout."""
-    n = act_bytes(pw)
-    if lib.ray_march_act_bytes(*_net_counts(pw)) != n:
+def _act_bytes(lib, pw: PP.PipelineWeights, R: int, S: int) -> int:
+    """act_total_bytes(pw, R, S), checked against the kernel's layout."""
+    n = act_total_bytes(pw, R, S)
+    counts = _net_counts(pw)
+    if (lib.ray_march_act_total_bytes(*counts, R, S) != n
+            or lib.ray_march_act_row_bytes(*counts) != act_row_bytes(pw)
+            or lib.ray_march_act_cr_slots(*counts) != act_cr_slots(pw)):
         raise RuntimeError("ray_march: the kernel's activation stash layout does not match")
     return n
 
@@ -402,28 +487,26 @@ def _check_inputs(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s):
     return R, S, dev
 
 
-def _groups(lib, R, S, fwd: bool) -> int:
-    """The ray groups of the forward (fwd) or backward kernel's tiles."""
-    G = lib.ray_march_rays_per_group(S, int(fwd))
-    return -(-R // G)
+def _groups(lib, R, S) -> int:
+    """The ray groups of the march kernels' tiles."""
+    return -(-R // lib.ray_march_rays_per_group(S))
 
 
 def _fwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, save: bool,
          lib=None):
     """Launch the forward kernel (save: the save mode's) of the weights'
     mode (or of `lib`, a _library) on the current stream: (out [R, 16],
-    the stash [R S, 8] its backward reads, the activation stash [R S,
-    act_bytes] uint8 or None)."""
+    the stash [R S, 8] its backward reads, the activation stash
+    [act_total_bytes] uint8 or None)."""
     R, S, dev = _check_inputs(pw, rays_o, rays_d, z, inv_s)
     lib = lib if lib is not None else _library(PP._mode(pw))
     tables, images, net = PP._net_args(pw)
     out = torch.empty((R, 16), dtype=torch.float32, device=dev)
     stash = torch.empty((R * S, STASH), dtype=torch.float32, device=dev)
-    act = torch.empty((R * S, _act_bytes(lib, pw)), dtype=torch.uint8, device=dev) if save \
-        else None
+    act = torch.empty(_act_bytes(lib, pw, R, S), dtype=torch.uint8, device=dev) if save else None
     if R == 0:
         return out, stash, act
-    grid = min(_groups(lib, R, S, True), _max_blocks(lib, dev, PP._mode(pw), "fwd", save))
+    grid = min(_groups(lib, R, S), _max_blocks(lib, dev, PP._mode(pw), "fwd", save))
     scratch = torch.empty(grid * lib.ray_march_fwd_scratch_floats(net[0], int(save)),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -452,8 +535,8 @@ launch_ray_march.modes = {"bf16": PP.ModeLaunches(), "f32": PP.ModeLaunches()}
 def launch_ray_march_save(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s,
                           sample_dist: float):
     """Launch the save mode's forward kernel on the current stream;
-    returns (out [R, 16], the stash [R S, 8], the activation stash [R S,
-    act_bytes] uint8), which launch_ray_march_bwd_load reads."""
+    returns (out [R, 16], the stash [R S, 8], the activation stash
+    [act_total_bytes] uint8), which launch_ray_march_bwd_load reads."""
     out = _fwd(pw, rays_o, rays_d, z, inv_s, sample_dist, True)
     PP._counter(launch_ray_march_save, pw).launches += 1
     return out
@@ -474,26 +557,31 @@ def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
     lib = lib if lib is not None else _library(PP._mode(pw))
     save = act is not None
     if save and (act.dtype != torch.uint8 or not act.is_contiguous() or act.device != dev
-                 or tuple(act.shape) != (R * S, _act_bytes(lib, pw))):
-        raise ValueError(f"ray_march: act must be launch_ray_march_save's [{R * S}, "
-                         f"{act_bytes(pw)}] uint8 on {dev}; got {act.dtype} "
+                 or tuple(act.shape) != (_act_bytes(lib, pw, R, S),)):
+        raise ValueError(f"ray_march: act must be launch_ray_march_save's "
+                         f"[{act_total_bytes(pw, R, S)}] uint8 on {dev}; got {act.dtype} "
                          f"{tuple(act.shape)} on {act.device}")
     rays_hat = torch.empty((R, 8), dtype=torch.float32, device=dev)
     if R == 0:
         return rays_hat[:, 0:3], rays_hat[:, 4:7], torch.zeros(1, device=dev), \
             torch.zeros(pw.n_grad, device=dev)
-    groups = _groups(lib, R, S, False)
+    groups = _groups(lib, R, S)
     grid = min(groups, _max_blocks(lib, dev, PP._mode(pw), "bwd", save))
-    G = lib.ray_march_rays_per_group(S, 0)
+    G = lib.ray_march_rays_per_group(S)
     batch = PP.dw_batch(-(-groups // grid) * -(-G * S // 64), 1)
     tables, images, net = PP._net_args(pw)
     # per block: the recompute's gates, tangent stream and colour / relight
     # inputs (the load's tangent stream alone), the weight-grad operands of
     # `batch` tiles, the group's per-point cotangents; and a partial of the
-    # weight grads (the packed layout) and of inv_s's, summed afterwards
+    # weight grads (the packed layout) and of inv_s's, padded to 16 bytes a
+    # row (partial_stride: the flush's vector reductions), summed afterwards
     per_block = lib.ray_march_bwd_scratch_floats(*PP._shape_args(net), S, batch, int(save))
     scratch = torch.empty(grid * per_block, dtype=torch.float32, device=dev)
-    partial = torch.zeros((grid, pw.n_grad + 1), dtype=torch.float32, device=dev)
+    # (the load entry zeroes what its first flush does not store)
+    partial = (torch.empty if save else torch.zeros)((grid, partial_stride(pw.n_grad)),
+                                                     dtype=torch.float32, device=dev)
+    if lib.ray_march_partial_stride(pw.n_grad) != partial.shape[1]:
+        raise RuntimeError("ray_march: the kernel's partial stride does not match")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ray_march_bwd_launch(
@@ -504,7 +592,7 @@ def _bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float, s
             *net, stream)
     _raise_on(lib, rc, "load backward kernel launch" if save else "backward kernel launch")
     total = PP.reduce_partials(partial)
-    return rays_hat[:, 0:3], rays_hat[:, 4:7], total[pw.n_grad:], total[:pw.n_grad]
+    return rays_hat[:, 0:3], rays_hat[:, 4:7], total[pw.n_grad:pw.n_grad + 1], total[:pw.n_grad]
 
 
 def launch_ray_march_bwd(pw: PP.PipelineWeights, rays_o, rays_d, z, inv_s, sample_dist: float,

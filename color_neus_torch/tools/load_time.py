@@ -84,7 +84,7 @@ def run(modes, shapes, reps: int, device) -> dict:
                                                in zip(_flat(a), _flat(b))),
                 "finite": all(bool(torch.isfinite(x).all()) for _, x in _flat(a))
                 and bool(torch.isfinite(out_s).all()),
-                "stash_bytes_per_point": int(act.shape[1]) + RM.STASH * 4,
+                "stash_bytes_per_point": act.numel() // (n_rays * n_samples) + RM.STASH * 4,
             }
             res[f"{mode} {n_rays}x{n_samples}"] = rec
             del out_s, out_r, stash, act, stash_r, a, b, ref

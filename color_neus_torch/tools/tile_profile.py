@@ -27,8 +27,9 @@ inside backward_tile per section (relight, colour, tangent stream, last
 layer, the value / tangent reverse, the PE pullback) with its products,
 operand stores and the reverse's gate passes, inside its products the A
 loads, the chunks with thread 0's waits on the weight ring, the closing
-barrier, and inside the flush its waits and its read-modify-writes; the
-cycles per block and the share of the kernel, then its ms.
+barrier, and inside the flush its waits and the issue of its reductions
+into the partial (the adds themselves run in L2, unseen); the cycles per
+block and the share of the kernel, then its ms.
 
 The save entry (SAVE_PATCHES): march_fwd<true> of csrc/ray_march.cu
 (ray_march_save_fwd_kernel) in mode PROF_PREC at the load entry's shapes
@@ -149,30 +150,31 @@ LOAD_PATCHES = [
      "      // the tile's share of each ray's cotangents, summed in sample order\n"),
     (RMC, "      if constexpr (RM_ABLATE != 1 && RM_ABLATE != 4)   // the flush: not in 1, 4\n"
           "        slot = after_tile<PP_PREC, LOAD>(p, st, s, slot,\n"
-          "                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);\n",
+          "                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P,\n"
+          "                                   m.crs, n0);\n",
      "      if (PROF) PROF_ADD(24, c_r);\n"
      "      if constexpr (RM_ABLATE != 1 && RM_ABLATE != 4) {  // the flush: not in 1, 4\n"
      "        const long long c_f = clock64();\n"
      "        slot = after_tile<PP_PREC, LOAD>(p, st, s, slot,\n"
-     "                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P);\n"
+     "                                   grp + gridDim.x >= n_groups(m) && t0 + TILE >= n_pts, P,\n"
+     "                                   m.crs, n0);\n"
      "        if (PROF) PROF_ADD(25, c_f);\n      }\n"),
     (RMC, "    __syncthreads();\n  }\n}\n\n__global__ void __launch_bounds__(THREADS, 1) "
           "PP_NAME(ray_march_bwd_kernel)",
      "    __syncthreads();\n  }\n  if (PROF) PROF_ADD(26, c_k);\n}\n\n"
      "__global__ void __launch_bounds__(THREADS, 1) PP_NAME(ray_march_bwd_kernel)"),
-    # the stash's read, by part: the SDF layers, colour, relight
+    # the stash's read, by part: the SDF layers, the colour / relight
+    # layers' inputs the stash's cr images lack (the small inputs, gc)
     (RMC, "  float* const PE = X + HID;\n  if (tid < TILE) {\n    const bool in = tid < ts.n;\n",
      "  float* const PE = X + HID;\n  long long c_lt = clock64();\n"
      "  if (tid < TILE) {\n    const bool in = tid < ts.n;\n"),
-    (RMC, "  // the colour net's layer l: its hidden part in cr slot l (layer 0:\n",
+    (RMC, "  // the colour and relight layers' hidden inputs: the flush bulk-copies\n",
      "  if (tid == 0) PROF_ADD(44, c_lt);\n  c_lt = clock64();\n"
-     "  // the colour net's layer l: its hidden part in cr slot l (layer 0:\n"),
-    (RMC, "  // the relight net's layer l: layer 0's [pts, grad, PE(dirs)], layer l's\n",
-     "  if (tid == 0) PROF_ADD(45, c_lt);\n  c_lt = clock64();\n"
-     "  // the relight net's layer l: layer 0's [pts, grad, PE(dirs)], layer l's\n"),
-    (RMC, "              dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));\n  }\n  __syncthreads();\n}\n",
-     "              dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + l, 0));\n  }\n  __syncthreads();\n"
-     "  if (tid == 0) PROF_ADD(46, c_lt);\n}\n"),
+     "  // the colour and relight layers' hidden inputs: the flush bulk-copies\n"),
+    (RMC, "    save_t<0>(X + HID, EMB, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + p.y_in, 0) + HID * 128);\n"
+          "  }\n  __syncthreads();\n}\n",
+     "    save_t<0>(X + HID, EMB, dw_a(sh, sv.dw, p.n_sdf + p.n_color - 1 + p.y_in, 0) + HID * 128);\n"
+     "  }\n  __syncthreads();\n  if (tid == 0) PROF_ADD(45, c_lt);\n}\n"),
     # backward_tile's sections
     (TP, "                                              const TileStash& ts = TileStash{}) {\n"
          "  const int tid = threadIdx.x;\n",
@@ -200,9 +202,9 @@ LOAD_PATCHES = [
      "    if (PROF_B) PROF_ADD(41, c_gp);\n"),
     # the load's other stash reads: the colour / relight inputs staged in Y,
     # the tangent stream's gates
-    (TP, "  stash_rows<16>([&](int r, int c) { return stash_cr4(ts, slot, r, c); },\n",
+    (TP, "  const unsigned char* img = ts.cr + size_t(slot) * CR_SLOT;\n",
      "  const long long c_sp = clock64();\n"
-     "  stash_rows<16>([&](int r, int c) { return stash_cr4(ts, slot, r, c); },\n"),
+     "  const unsigned char* img = ts.cr + size_t(slot) * CR_SLOT;\n"),
     (TP, "      dst[(e / EMB) * LDX + HID + e % EMB] = e % EMB < 3 ? t.GC[(e / EMB) * 3 + e % EMB] : 0.f;\n"
          "  __syncthreads();\n",
      "      dst[(e / EMB) * LDX + HID + e % EMB] = e % EMB < 3 ? t.GC[(e / EMB) * 3 + e % EMB] : 0.f;\n"
@@ -244,17 +246,15 @@ LOAD_PATCHES = [
      "    const long long w_a = clock64();\n"
      "    const unsigned char* stage = ring_acquire<STAGES>(st.w, s, SPS * WSLAB);\n"
      "    if (STAGES == WSTAGES && tid == 0) PROF_ADD(30, w_a);\n"),
-    # the flush: thread 0's waits on its ring, the read-modify-writes
+    # the flush: thread 0's waits on its ring, the reductions into the partial
     (TP, "\n          const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);\n",
      "\n          const long long f_a = clock64();\n"
      "          const unsigned char* stage = ring_acquire<DW_STAGES>(st.d, s, DW_STAGE);\n"
      "          if (tid == 0) PROF_ADD(42, f_a);\n"),
-    (TP, "      float* dst = P + p.off[blk.slot] + 2 * q;\n",
-     "      const long long f_w = clock64();\n      float* dst = P + p.off[blk.slot] + 2 * q;\n"),
-    (TP, "              d[1] += acc[4 * j + 2 * h + 1];\n            }\n          }\n      }\n    }\n  }\n"
-         "  st.ds += li;",
-     "              d[1] += acc[4 * j + 2 * h + 1];\n            }\n          }\n      }\n"
-     "      if (tid == 0) PROF_ADD(43, f_w);\n    }\n  }\n  st.ds += li;"),
+    (TP, "        bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, st.w.buf, blk.K - k0, d0 == 0);\n",
+     "        const long long f_w = clock64();\n"
+     "        bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, st.w.buf, blk.K - k0, d0 == 0);\n"
+     "        if (tid == 0) PROF_ADD(43, f_w);\n"),
     # save_t: the operand stores in backward_tile, thread 0's share (the load's are in 44-46)
     (TP, "      save_t<0>(t.X, HID, dw_b(sh, sv.dw, bi_rel + l, 0));\n",
      "      const long long c_w = clock64();\n"
@@ -296,9 +296,10 @@ SAVE_PATCHES = [p for p in PATCHES if p[0] == TP] + [
      "      forward_tile<FWD_ROWS, false, SAVE, PP_PREC>(p, t, st, gates, feat, none, ex);\n"
      "      if (PROF) PROF_ADD(51, c_t);\n      c_t = clock64();\n"),
     (RMC, "      composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);\n"
-          "    }\n  }\n}\n",
+          "    }\n  }\n  if (SAVE && threadIdx.x == 0) mlp::bulk_store_wait();",
      "      composite_tile<SAVE>(m, t, r0, t0, n_pts, inv_s, ex, al.tail, cT, acc);\n"
-     "      if (PROF) PROF_ADD(54, c_t);\n    }\n  }\n  if (PROF) PROF_ADD(56, c_k);\n}\n"),
+     "      if (PROF) PROF_ADD(54, c_t);\n    }\n  }\n"
+     "  if (SAVE && threadIdx.x == 0) mlp::bulk_store_wait();\n  if (PROF) PROF_ADD(56, c_k);"),
     (RMC, "  const int i = threadIdx.x, q = t0 + i;\n",
      "  const bool PROF_C = SAVE && threadIdx.x == 0;\n  long long c_x = clock64();\n"
      "  const int i = threadIdx.x, q = t0 + i;\n"),
@@ -337,7 +338,8 @@ SAVE_NAMES = [
 # (counter, name) of the load entry's report; 26 is the kernel's total
 LOAD_NAMES = [
     (20, "group: compositing VJP"), (21, "tile: the stash's read"),
-    (44, "  read: SDF layers"), (45, "  read: colour"), (46, "  read: relight"), (22, "tile: cotangents' fill"),
+    (44, "  read: SDF layers"), (45, "  read: colour / relight small inputs"),
+    (22, "tile: cotangents' fill"),
     (23, "tile: backward_tile"), (31, "  relight net"), (32, "  colour net"),
     (33, "  tangent stream"), (34, "  last SDF layer"), (35, "  value / tangent reverse"),
     (41, "    its gate passes"), (36, "  PE pullback"),
@@ -347,7 +349,7 @@ LOAD_NAMES = [
     (27, "    A loads + barrier"), (28, "    chunks"), (30, "      ring waits (thread 0)"),
     (29, "    closing barrier"), (39, "  operand stores (thread 0's share)"),
     (24, "tile: ray sums"), (25, "tile: flush"), (42, "  flush ring waits (thread 0)"),
-    (43, "  flush read-modify-writes"), (26, "kernel total")]
+    (43, "  flush reductions into the partial"), (26, "kernel total")]
 
 NAMES = [f"{k} {part}" for k in ("sdf", "last", "rev", "col", "rel")
          for part in ("pre", "product", "pass")]

@@ -4,8 +4,8 @@
 // csrc/ray_march.cu, csrc/mlp_chain.cu and csrc/sdf_rays.cu with a host C++
 // compiler and run them: a harness runs each block's CUDA threads with
 // emu_run_block, __syncthreads is a barrier over them, __shfl_xor_sync
-// exchanges through an array between two barriers (every thread of the
-// block calls it the same number of times), and the launch syntax
+// exchanges through an array between two meetings of the warp (every
+// thread of the warp calls it the same number of times), and the launch syntax
 // <<<...>>> is stripped from the source.
 //
 // A block's CUDA threads are fibers on the one host thread that calls
@@ -230,16 +230,11 @@ inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z,
 inline float2 make_float2(float x, float y) { return {x, y}; }
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
-  emu_shuffle[threadIdx.x] = v;
-  __syncthreads();
-  const float r = emu_shuffle[threadIdx.x ^ lane_mask];
-  __syncthreads();
-  return r;
-}
 
 // ---- bf16 ----
 struct __nv_bfloat16 { uint16_t bits; };
@@ -292,6 +287,17 @@ inline float emu_mma_elem(unsigned (*regs)[6], int lane, int reg, int h) {
 }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_sync(); }
+
+// A meeting of the warp, as on the card: a warp-uniform shuffle under a
+// branch that other warps skip (the flush's reductions) does not wait for
+// them.
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  emu_shuffle[threadIdx.x] = v;
+  emu_warp_sync();
+  const float r = emu_shuffle[threadIdx.x ^ lane_mask];
+  emu_warp_sync();
+  return r;
+}
 
 inline void mma_m16n8k16_bf16(float (&d)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
                               unsigned b0, unsigned b1) {

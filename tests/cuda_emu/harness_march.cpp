@@ -4,7 +4,7 @@
 // color_dv, squeeze, n_relight, rl_dv, y_in, inv_sigmoid, n_grad, blocks,
 // dw_batch, save: 1 runs the save mode's pair, ray_march_save_fwd_kernel
 // then ray_march_load_bwd_kernel, on an activation stash that starts as
-// garbage, and also writes it as act.bin),
+// garbage, and also writes it as act.bin: ray_march_act_total_bytes),
 // f32.f32 (scale, sample_dist, inv_s), off.i64, w.f32, ioff.i64, img.bf16
 // (the wgmma weight slabs), rays_o.f32, rays_d.f32, z.f32, gbar.f32; runs the forward kernel and then the
 // backward kernel block after block on `blocks` blocks, the partials summed
@@ -63,18 +63,21 @@ int main(int argc, char** argv) {
   const long long R = m[0], n_grad = m[12];
   const int S = int(m[1]), blocks = int(m[13]), batch = int(m[14]);
   const bool save = m[15] != 0;
-  auto march = [&](bool fwd) {
+  auto march = [&]() {
     return make_march(F(ro), F(rd), F(z), F(fl) + 2, F(w), img.data(), R, S, F(fl)[1], int(m[2]),
                       int(m[3]), int(m[4]), F(fl)[0], int(m[5]), int(m[6]), int(m[7]), int(m[8]),
                       int(m[9]), int(m[10]), int(m[11]),
                       reinterpret_cast<const long long*>(off.data()),
-                      reinterpret_cast<const long long*>(ioff.data()), fwd);
+                      reinterpret_cast<const long long*>(ioff.data()));
   };
-  const March base = march(false);
+  const March base = march();
   std::vector<float> out(R * 16), stash(R * S * STASH, 12345.f), rays_hat(R * 8);
-  std::vector<float> partial(size_t(blocks) * (n_grad + 1), 0.f);
-  const int act_bytes = act_layout(shape_of(base.net), PP_PREC).bytes;
-  std::vector<unsigned char> act(save ? size_t(R) * S * act_bytes : 0, 0xAB);
+  const long long stride = partial_stride(n_grad);   // the wrapper's rows
+  // the load entry's as torch.empty leaves it (zero_outside_flush, its first flush's stores)
+  std::vector<float> partial(size_t(blocks) * stride, save ? 12345.f : 0.f);
+  const long long act_bytes =
+      ray_march_act_total_bytes(base.net.n_sdf, base.net.n_color, base.net.n_relight, R, S);
+  std::vector<unsigned char> act(save ? size_t(act_bytes) : 0, 0xAB);
   const long long fwd_floats = march_fwd_scratch_floats(base.net.n_sdf, save);
   const long long bwd_floats = march_bwd_scratch_floats(shape_of(base.net), S, batch, save);
   std::vector<float> scratch_fwd(size_t(blocks) * fwd_floats + GUARD, 12345.f);
@@ -82,9 +85,9 @@ int main(int argc, char** argv) {
   gridDim.x = blocks;
   emu_smem_base = smem;
   for (int pass = 0; pass < 2; ++pass) {
-    March q = march(pass == 0);
+    March q = march();
     q.stash = stash.data();
-    q.act = save ? act.data() : nullptr;
+    set_act(q, save ? act.data() : nullptr);
     if (pass == 0) {
       q.out = out.data();
       q.net.scratch = scratch_fwd.data();
@@ -116,7 +119,7 @@ int main(int argc, char** argv) {
   std::vector<float> grad(n_grad + 1);
   for (long long i = 0; i <= n_grad; ++i) {
     float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[size_t(b) * (n_grad + 1) + i];
+    for (int b = 0; b < blocks; ++b) s += partial[size_t(b) * stride + i];
     grad[i] = s;
   }
   dump(d + "/out.f32", out);

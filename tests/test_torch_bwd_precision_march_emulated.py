@@ -46,23 +46,19 @@ def march_emulators(tmp_path_factory):
 
 
 def _act_segments(act, pw):
-    """The activation stash's rows in the mode's layout as float32: (the
-    SDF part [N, n_sdf - 1, 256], the bf16 slots, the tail [N, 8])."""
-    n_sdf, n_color, n_relight = RM._net_counts(pw)
-    n, hid = act.shape[0], PP.HID
+    """The activation stash (RM.unpack_act's rows and cr) in the mode's
+    layout as float32: (the SDF part [N, n_sdf - 1, 256], the bf16 slots,
+    the tail [N, 8])."""
+    rows, cr = act[0].numpy(), act[1]
+    n_sdf = RM._net_counts(pw)[0]
+    n, hid = rows.shape[0], PP.HID
     sxb = 2 if pw.rcfg.march_bwd_precision == "bf16" else 4
-
-    def bf16(a):
-        return (a.copy().view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     sx_end = (n_sdf - 1) * hid * sxb
-    sx = act[:, :sx_end]
-    sx = bf16(sx) if sxb == 2 else sx.copy().view(np.float32)
-    n_cr = n_color + max(n_relight - 1, 0)
-    cr_end = sx_end + n_cr * hid * 2
-    cr = bf16(act[:, sx_end:cr_end]).reshape(n, n_cr, hid)
-    tail = act[:, cr_end:].copy().view(np.float32)
-    return (torch.from_numpy(sx.reshape(n, n_sdf - 1, hid)), torch.from_numpy(cr),
-            torch.from_numpy(tail))
+    sx = rows[:, :sx_end].copy()
+    sx = (sx.view(np.uint16).astype(np.uint32) << 16).view(np.float32) if sxb == 2 \
+        else sx.view(np.float32)
+    tail = rows[:, sx_end:].copy().view(np.float32)
+    return (torch.from_numpy(sx.reshape(n, n_sdf - 1, hid)), cr, torch.from_numpy(tail))
 
 
 def _check_act(act, pw, pts, dirs, Tr):
@@ -70,8 +66,8 @@ def _check_act(act, pw, pts, dirs, Tr):
     one bf16 ulp of the unrounded value plus RTOL_BF16 of their largest,
     the f32 ones within RTOL_BF16 (RTOL_F32 in 'f32') of their largest;
     the tail's slot 6 the transmittance before each sample (Tr, the twin's
-    in the mode) within RTOL_BF16, slot 7 zero. (_run reads the stash as
-    rows of ray_march.act_bytes: the library's own layout must agree.)"""
+    in the mode) within RTOL_BF16, slot 7 zero. (_run reads the stash in
+    ray_march.unpack_act's layout: the library's own must agree.)"""
     outs, st = PP._forward(pw, pts, dirs, True)
     want = PP.stash_activations(pw.rcfg, outs, st, bf16=False)
     sx, cr, tail = _act_segments(act, pw)
@@ -100,11 +96,17 @@ def _check_act(act, pw, pts, dirs, Tr):
 @pytest.mark.parametrize("kind", ["color_neus", "neus"])
 @pytest.mark.parametrize("mode", ["f32stash", *PREC])
 def test_act_bytes_match_the_library_layout(tmp_path, mode, kind):
-    """ray_march.act_bytes (and march_stash_bytes, the activation stash and
-    the 8-float outs stash) against the kernels' own layout
-    (csrc/point_pipeline_tile.cuh act_layout, what ray_march_act_bytes
-    returns) in each MARCH_BWD_PRECISION mode: the row's bytes, and the
-    tail's place after the SDF and bf16 parts, whose slot 6 holds T."""
+    """ray_march's stash layout (act_row_bytes, act_cr_slots, act_bytes,
+    march_stash_bytes: the activation stash and the 8-float outs stash)
+    against the kernels' own (csrc/point_pipeline_tile.cuh act_layout,
+    act_cr_offset) in each MARCH_BWD_PRECISION mode: the row's bytes, the
+    tail's place after the SDF part (its slot 6 holds T), the cr slots
+    whose [256][64] bf16 images of each 64-point tile follow the rows from
+    a 1024-byte boundary; at 128 samples a ray (full tiles) the bytes a
+    point are the row and the slots' 512 each, at 300 the last tile's 20
+    padding points take their images' bytes too. (The emulated save cases
+    hold ray_march.act_total_bytes against the library's
+    ray_march_act_total_bytes.)"""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -116,7 +118,8 @@ def test_act_bytes_match_the_library_layout(tmp_path, mode, kind):
     src.write_text('#include <cstdio>\n#include "cuda_runtime.h"\n'
                    '#include "point_pipeline_tile.cuh"\nint main() {\n'
                    f"  const ActLayout a = act_layout(Shape{{{n_sdf}, -1, {n_color}, {n_relight}, "
-                   "-1}, PP_PREC);\n  printf(\"%d %d\", a.bytes, a.tail);\n}\n")
+                   "-1}, PP_PREC);\n  printf(\"%d %d %d %lld\", a.bytes, a.tail, a.n_cr, "
+                   "act_cr_offset(1001, a));\n}\n")
     exe = tmp_path / "layout"
     proc = subprocess.run([cxx, "-std=c++20", "-pthread", "-Wno-unknown-pragmas",
                            f"-DPP_PREC={({'f32stash': 0} | PREC)[mode]}", "-I", CUDA_EMU, "-I",
@@ -125,11 +128,17 @@ def test_act_bytes_match_the_library_layout(tmp_path, mode, kind):
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("the host compiler lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr[-3000:]
-    lib_bytes, tail = (int(v) for v in subprocess.run([str(exe)], capture_output=True, text=True,
-                                                      check=True).stdout.split())
+    row, tail, n_cr, cr_off = (int(v) for v in subprocess.run(
+        [str(exe)], capture_output=True, text=True, check=True).stdout.split())
+    assert RM.act_row_bytes(rcfg) == row and RM.act_cr_slots(rcfg) == n_cr
+    assert tail == row - 32
+    assert cr_off == -(-1001 * row // 1024) * 1024 >= 1001 * row
+    lib_bytes = row + n_cr * PP.HID * 2
     assert RM.act_bytes(rcfg) == lib_bytes
-    assert tail == lib_bytes - 32
     assert RM.march_stash_bytes(rcfg, 1000) == 1000 * (lib_bytes + RM.STASH * 4)
+    assert RM.march_stash_bytes(rcfg, 1024 * 128, 128) == RM.march_stash_bytes(rcfg, 1024 * 128)
+    assert (RM.march_stash_bytes(rcfg, 300, 300) - RM.march_stash_bytes(rcfg, 300)
+            == 20 * n_cr * PP.HID * 2 + -(-300 * row // 1024) * 1024 - 300 * row)
 
 
 @pytest.mark.parametrize("kind", ["color_neus", "neus"])
@@ -145,7 +154,8 @@ def test_scratch_floats_match_what_each_entry_writes(tmp_path, mode, kind):
     part (the recompute's gates, features, tangent pre-gates and colour /
     relight inputs; the load entry's tangent pre-gates alone: it reads the
     rest from its stash), rounded up to 256 floats, then dw_batch tiles'
-    weight-grad store and the group scratch. The harness sizes the emulated entries' scratch so, with a
+    weight-grad store and the group scratch. The harness sizes the
+    emulated entries' scratch so, with a
     guard after it that no entry may write (harness_march.cpp)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -170,7 +180,7 @@ int main() {{
          ray_march_fwd_scratch_floats({n_sdf}, 1),
          ray_march_bwd_scratch_floats({net}, {S}, {batch}, 0),
          ray_march_bwd_scratch_floats({net}, {S}, {batch}, 1), dw_tile_bytes(Shape{{{net}}}),
-         group_scratch_floats(rays_per_group({S}, TILE), {S}));
+         group_scratch_floats(rays_per_group({S}), {S}));
 }}
 """
     src = tmp_path / "scratch.cpp"
@@ -236,12 +246,13 @@ def test_emulated_march_mode_save_cases(march_emulators, tmp_path, mode, kind, R
 
 
 def check_mode_case(emu, tmp_path, mode, kind, R, S, variance, noise, seed, save, features,
-                    stash_twins=False):
+                    stash_twins=False, blocks=2):
     """One case of the march's pair in the mode against its twins;
     features: also the 'f32' SDF features from the forward's scratch (every
     ray group one forward tile, a block each); stash_twins: the backward
     against the save twins (ray_march_bwd_plain on ray_march_plain's save
-    stash, in f32 and float64) instead of the recompute twins."""
+    stash, in f32 and float64) instead of the recompute twins; blocks: the
+    emulated grid."""
     color = (ColorConfig(mode="no_view_dir", d_in=6, multires_view=0) if kind == "color_neus"
              else ColorConfig())
     rcfg = RendererConfig(kind=kind, color=color, march_bwd_precision=mode)
@@ -266,7 +277,7 @@ def check_mode_case(emu, tmp_path, mode, kind, R, S, variance, noise, seed, save
                                       for layers in (pw.sdf, pw.color, pw.relight)])
     assert float(relu_margin(pw64, pts.double(), dirs.double()).min()) > EM.MARGIN
 
-    res = EM._run(emu, tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=2, save=save)
+    res = EM._run(emu, tmp_path, pw, ro, rd, z, float(inv_s), sd, gbar, blocks=blocks, save=save)
     out, stash, rays_hat, s_hat, grads = res[:5]
     if mode == "f32" and features:   # every ray group one forward tile, a block each
         G = max(FWD_ROWS // S, 1)
@@ -305,3 +316,14 @@ def check_mode_case(emu, tmp_path, mode, kind, R, S, variance, noise, seed, save
         for l, ((a, b), (pa, pb), (e, f)) in enumerate(zip(grads[net], plain[3][net], layers)):
             EM._close(a, pa, e, f"{net} layer {l} W")
             EM._close(b, pb, f, f"{net} layer {l} b")
+
+
+@pytest.mark.parametrize("mode", list(PREC))
+def test_emulated_march_mode_load_flushes_three_times(march_emulators, tmp_path, mode):
+    """The save pair in the mode on one block that flushes three batches of
+    weight grads into its partial (tests/test_torch_ray_march_emulated.py's
+    FLUSH3: three 128-sample rays, six tiles at 2 a batch), against the
+    save twins as above."""
+    kind, R, S, variance, noise, seed = EM.FLUSH3
+    check_mode_case(march_emulators[mode], tmp_path, mode, kind, R, S, variance, noise, seed,
+                    True, features=False, stash_twins=True, blocks=1)

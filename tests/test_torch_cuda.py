@@ -181,8 +181,8 @@ def test_cuda_point_pipeline_bwd_matches_plain(cuda_device, kind):
 @pytest.mark.parametrize("kind", ["color_neus", "neus"])
 def test_cuda_march_save_pair_equals_recompute_pair(cuda_device, kind):
     """Rows 3 and 4's save entries against their recompute entries on the
-    same inputs: the forward writes the activation stash ([R S,
-    ray_march.act_bytes] bytes) and the backward that loads it gives the
+    same inputs: the forward writes the activation stash
+    (ray_march.act_total_bytes) and the backward that loads it gives the
     recompute's outputs and gradients bitwise (each point's activations
     are the same arithmetic in a 128-point forward tile and a 64-point
     recompute tile; chip_smoke.py phase 2d read 0 on every leaf). 128-sample
@@ -210,7 +210,7 @@ def test_cuda_march_save_pair_equals_recompute_pair(cuda_device, kind):
         torch.cuda.synchronize()
         assert (RM.launch_ray_march_save.launches, RM.launch_ray_march_bwd_load.launches) == \
             (before[0] + 1, before[1] + 1)
-        assert tuple(act.shape) == (R * S, RM.act_bytes(pw))
+        assert tuple(act.shape) == (RM.act_total_bytes(pw, R, S),)
         assert torch.equal(out_s, out) and torch.equal(stash_s, stash)
         assert all(torch.equal(a, b) for a, b in zip(sav, rec))
 
@@ -474,7 +474,7 @@ def test_cuda_bwd_precision_modes(cuda_device, mode):
     torch.cuda.synchronize()
     after = [fn.modes[mode].launches for fn in fns] + [fn.launches for fn in fns]
     assert [a - b for a, b in zip(after, before)] == [1] * 5 + [0] * 5
-    assert tuple(act.shape) == (R * z.shape[1], RM.act_bytes(pw))
+    assert tuple(act.shape) == (RM.act_total_bytes(pw, R, z.shape[1]),)
     if mode == "bf16":
         assert torch.equal(out, PP.launch_point_pipeline(pw0, pts, dirs))
         assert torch.equal(got, RM.launch_ray_march(pw0, o, d, z, inv_s, sd)[0])

@@ -25,7 +25,14 @@ VJP ends each ray's segment of its suffix sums a sample early, must fail;
 so must copies of its forward whose compositing scan drops the T a ray
 carries from one forward tile to the next or takes T inclusive of its
 sample, or whose reverse sweep rebuilds the gates from the wrong layer's
-softplus in the stash.
+softplus in the stash. The stash's colour / relight images (each 64-point
+backward tile's, in the flush's operand layout) are read back per point
+(ray_march.unpack_act) and their padding points must be zeros; the load
+entry on one block that flushes three batches into its partial (vector
+reductions, nothing read back) matches the references and two identical
+calls are bitwise equal; copies whose first flush adds nothing, or whose
+forward writes the images one tile off or with the swizzle's phase one row
+off, must fail.
 The card-only parts (timing, races between warps, the GPU's float
 functions) are checked by tests/test_torch_cuda.py and chip_smoke.py.
 Skips without a C++20 compiler.
@@ -154,23 +161,46 @@ def _run(exe, tmp_path, pw, ro, rd, z, inv_s, sample_dist, gbar, blocks, batch=2
            grad[n_grad], PP._unpack_grads(pw, grad[:n_grad]))
     if not save:
         return out
-    act = np.fromfile(tmp_path / "act.bin", np.uint8).reshape(R * S, RM.act_bytes(pw))
-    return out + (act,)
+    act = np.fromfile(tmp_path / "act.bin", np.uint8)
+    assert act.size == RM.act_total_bytes(pw, R, S)
+    check_cr_padding(act, pw, R, S)
+    return out + (RM.unpack_act(pw, torch.from_numpy(act), R, S),)
+
+
+def check_cr_padding(act, pw, R, S):
+    """The padding points of every backward tile's cr images in a save
+    stash (a group's points past its last sample, in its last tile) are
+    zeros: the flush multiplies them by zero cotangents, and the
+    backward's relu masks and narrow layers read them."""
+    G, n_cr = RM.rays_per_group(S), RM.act_cr_slots(pw)
+    tpg = -(-G * S // 64)
+    off = -(-R * S * RM.act_row_bytes(pw) // 1024) * 1024
+    img = act[off:].view(np.uint16).reshape(-1, n_cr, PP.HID, 64)   # stored order in a row
+    for g in range(-(-R // G)):
+        n = min(G, R - g * G) * S
+        for t in range(-(-n // 64)):
+            real = min(64, n - 64 * t)
+            if real == 64:
+                continue
+            rows = img[g * tpg + t]                         # [slot, k, 64 stored]
+            k = np.arange(PP.HID)[:, None]
+            pt = np.arange(64)[None, :]
+            stored = ((pt // 8) ^ (k % 8)) * 8 + pt % 8      # the 128-byte swizzle
+            pad = np.take_along_axis(rows, np.broadcast_to(stored, rows.shape), axis=2)[:, :, real:]
+            assert not pad.any(), f"group {g} tile {t}: padding points not zero"
 
 
 def _act_segments(act, pw):
-    """The activation stash's rows as float32 tensors: (sp [n_sdf - 1] of
-    [N, 256], the bf16 slots [n_color + n_relight - 1] of [N, 256], the
-    tail [N, 8]): csrc/point_pipeline_tile.cuh act_layout."""
-    n_sdf, n_color, n_relight = RM._net_counts(pw)
-    n, hid = act.shape[0], PP.HID
-    sx = act[:, :(n_sdf - 1) * hid * 4].copy().view(np.float32).reshape(n, n_sdf - 1, hid)
-    n_cr = n_color + max(n_relight - 1, 0)
-    cr_end = (n_sdf - 1) * hid * 4 + n_cr * hid * 2
-    bits = act[:, (n_sdf - 1) * hid * 4:cr_end].copy().view(np.uint16).astype(np.uint32) << 16
-    cr = bits.view(np.float32).reshape(n, n_cr, hid)
-    tail = act[:, cr_end:].copy().view(np.float32)
-    return (torch.from_numpy(sx), torch.from_numpy(cr), torch.from_numpy(tail))
+    """The activation stash (RM.unpack_act's rows and cr) as float32
+    tensors: (sp [n_sdf - 1] of [N, 256], the bf16 slots [n_color +
+    n_relight - 1] of [N, 256], the tail [N, 8]): csrc/point_pipeline_tile.cuh
+    act_layout."""
+    rows, cr = act[0].numpy(), act[1]
+    n_sdf = RM._net_counts(pw)[0]
+    n, hid = rows.shape[0], PP.HID
+    sx = rows[:, :(n_sdf - 1) * hid * 4].copy().view(np.float32).reshape(n, n_sdf - 1, hid)
+    tail = rows[:, (n_sdf - 1) * hid * 4:].copy().view(np.float32)
+    return (torch.from_numpy(sx), cr, torch.from_numpy(tail))
 
 
 def _rel(got, want) -> float:
@@ -213,10 +243,36 @@ def test_emulated_march_save_matches_plain(emulator, tmp_path, kind, R, S, varia
     _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save=True)
 
 
-def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save):
+def _check_case(emulator, tmp_path, kind, R, S, variance, noise, seed, save, blocks=2):
     case = case_inputs(kind, R, S, variance, noise, seed)
-    res = _run(emulator, tmp_path, *case[:7], blocks=2, save=save)
+    res = _run(emulator, tmp_path, *case[:7], blocks=blocks, save=save)
     check_result(res, case, variance, save)
+
+
+# the save pair on one block of three 128-sample rays: six tiles at 2 a
+# batch, so the load entry's block flushes three times into its partial
+FLUSH3 = ("color_neus", 3, 128, 0.3, 0.02, 14)
+
+
+def test_emulated_march_load_flushes_three_times(emulator, tmp_path):
+    """The load entry whose block flushes three batches into its partial
+    (vector reductions, nothing read back) against the same references as
+    the save test, and two identical calls bitwise equal (outputs, stash
+    and weight grads)."""
+    kind, R, S, variance, noise, seed = FLUSH3
+    case = case_inputs(kind, R, S, variance, noise, seed)
+    runs = []
+    for i in range(2):
+        run_dir = tmp_path / f"run{i}"
+        run_dir.mkdir()
+        runs.append(_run(emulator, run_dir, *case[:7], blocks=1, save=True))
+        runs[-1] = runs[-1] + (np.fromfile(run_dir / "grad.f32", np.uint8),
+                               np.fromfile(run_dir / "act.bin", np.uint8))
+    a, b = runs
+    for x, y in zip(a[:4] + a[6:], b[:4] + b[6:]):
+        x, y = (np.asarray(v) if not isinstance(v, torch.Tensor) else v.numpy() for v in (x, y))
+        assert x.tobytes() == y.tobytes(), "two identical calls differ"
+    check_result(a[:6], case, variance, True)
 
 
 def case_inputs(kind, R, S, variance, noise, seed, mode="f32stash"):
@@ -400,3 +456,45 @@ def test_emulated_march_save_forward_mutant_fails(tmp_path_factory, tmp_path, na
                    mutate=(line, mutant))
     with pytest.raises(AssertionError):
         _check_case(exe, tmp_path, kind, R, S, variance, noise, seed, save=True)
+
+
+# the load entry's flush (point_pipeline_tile.cuh dw_flush<PREC, true>):
+# its reductions into the partial skipped for the block's first batch, or
+# its first batch added (not stored) onto the partial the wrapper leaves
+# unfilled (torch.empty; the harness fills it with 12345); the save
+# forward's cr images (export_cr) written one 64-point tile off (the
+# forward tile's two halves swapped), or with the 128-byte swizzle's phase
+# one row off: copies that must fail
+RED_F32STASH = ("        bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, st.w.buf, "
+                "blk.K - k0, d0 == 0);")
+RED_SKIP_FIRST = ("        if (d0 != 0) bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, "
+                  "st.w.buf, blk.K - k0, false);")
+RED_FIRST_ADDS = ("        bulk_rows(P + p.off[blk.slot] + size_t(k0) * HID, acc, st.w.buf, "
+                  "blk.K - k0, false);")
+CR_TILE = "      mlp::bulk_store(ex.cr + h * tile_bytes + size_t(slot) * CR_SLOT, stage, CR_SLOT);"
+CR_TILE_OFF = ("      mlp::bulk_store(ex.cr + (1 - h) * tile_bytes + size_t(slot) * CR_SLOT, stage, "
+               "CR_SLOT);")
+CR_SWIZZLE = "      *reinterpret_cast<uint4*>(stage + mlp::sw128_offset(k, 8 * c)) ="
+CR_SWIZZLE_OFF = "      *reinterpret_cast<uint4*>(stage + k * 128 + ((c ^ ((k + 1) & 7)) << 4)) ="
+
+
+@pytest.mark.parametrize("name,case,blocks,line,mutant", [
+    ("flush_skipped", FLUSH3, 1, RED_F32STASH, RED_SKIP_FIRST),
+    ("first_flush_adds", CASES[0], 2, RED_F32STASH, RED_FIRST_ADDS),
+    ("cr_tile_off", CASES[0], 2, CR_TILE, CR_TILE_OFF),
+    ("cr_swizzle_phase", CASES[0], 2, CR_SWIZZLE, CR_SWIZZLE_OFF)],
+    ids=["flush_skipped", "first_flush_adds", "cr_tile_off", "cr_swizzle_phase"])
+def test_emulated_march_load_flush_mutant_fails(tmp_path_factory, tmp_path, name, case, blocks,
+                                                line, mutant):
+    """Copies of the save pair that must leave the bf16 twin by far more
+    than the save test's limits: the load entry's first flush of a block
+    adding nothing into its partial (one block flushing three batches), or
+    adding onto the partial's unfilled values in place of storing,
+    the save forward writing each backward tile's colour / relight images
+    into the other tile of its forward tile, or swizzled with the phase of
+    the next row (the 128-sample ray)."""
+    kind, R, S, variance, noise, seed = case
+    exe = _compile(tmp_path_factory.mktemp(f"cuda_emu_march_{name}_mutant"),
+                   mutate=(line, mutant))
+    with pytest.raises(AssertionError):
+        _check_case(exe, tmp_path, kind, R, S, variance, noise, seed, save=True, blocks=blocks)
